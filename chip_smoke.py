@@ -7,20 +7,26 @@ Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch / CUDA);
 2. build the CUDA kernels from ``dcc_tpu_torch/csrc`` and print the time;
-3. hold each kernel K1-K4 against its plain PyTorch version on the card, in
-   f32 and bf16 where it has both modes, at the default shapes (16 envs)
-   and at bench.py's headline 16384 envs (a quarter of that for K3 / K4,
-   whose plain versions materialize (rows, 256) f32 tensors), and time both
-   with CUDA events (median of k runs). Biases and LN affines are moved
+3. hold each kernel K1-K4 and K2b against its plain PyTorch version on the
+   card, in f32 and bf16 where it has both modes, at the default shapes
+   (16 envs) and at bench.py's headline 16384 envs (a quarter of that for
+   K3 / K4 and K2b, whose plain versions materialize (rows, 256) f32
+   tensors), and time both with CUDA events (median of k runs). K2b runs on
+   the recurrent update's rows: T*E*A for the actor and for the critic,
+   whose env rows are duplicated per agent. Biases and LN affines are moved
    off their init values so that every bf16 bias add rounds. Each bf16
    check also runs the kernel in f32 on the same inputs and requires that
    reading to lie outside the bf16 bound, so the bound tells the bf16
    rounding points from none at all;
-4. hold one fused f32 PPO update on the card against the same update on the
-   CPU (plain versions) from identical parameters and trajectory;
-5. train 2 iterations of the default f32 config and 2 of the bf16 config
-   through ``dcc_tpu_torch.train.main``, print the metrics and phase times,
-   and require every kernel of the bf16 path to have launched;
+4. hold one fused f32 PPO update and one recurrent bf16 update (K2 / K2b)
+   on the card against the same update on the CPU (plain versions) from
+   identical parameters and trajectory;
+5. train through ``dcc_tpu_torch.train.main``: 2 iterations each of the
+   default f32 config, the bf16 config, the recurrent bf16 and the
+   recurrent f32 config, and 1 of bf16 with the fused loss off; print the
+   metrics and phase times, and require each run's kernels to have launched
+   exactly as often as its path runs them (K2b 30 times per iteration) and
+   the others not at all;
 6. print the ``{"kernels": [...]}`` line, the card line, and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -47,18 +53,42 @@ BIG_ENVS = 16384  # bench.py's headline env count
 # in f32 on the same inputs, which every bf16 check also measures.
 K2_BF16_REL = 2e-3
 PPO_BF16_REL = 4e-3
+# K2b: a summation-order difference in the f32 chain can flip the bf16
+# rounding of a cotangent element before the next product (measured up to
+# 1.2e-3); the kernel computed in f32 reads 6.5e-2 to 7.0e-2.
+K2B_BF16_REL = 4e-3
 REPLACES = {
     "gae": "dcc_tpu/ops/pallas_gae.py:56",
     "fused_mlp": "dcc_tpu/ops/fused_mlp.py:319",
+    "fused_mlp_bwd": "dcc_tpu/ops/fused_mlp.py:299",
     "actor_ppo_grads": "dcc_tpu/ops/fused_ppo.py:575",
     "critic_ppo_grads": "dcc_tpu/ops/fused_ppo.py:667",
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
     "fused_mlp": "dcc_tpu_torch/csrc/fused_mlp.cu",
+    "fused_mlp_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
     "actor_ppo_grads": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
+# the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
+# per iteration of each kernel; every other kernel must not launch)
+BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
+             "--n-eval-rollout-threads", "0", "--seed", "0"]
+BF16 = ["--compute-dtype", "bfloat16"]
+RECURRENT = ["--use-recurrent-policy", "true"]
+TRAIN_RUNS = (
+    ("f32", [], {"gae": 1}),
+    ("bf16", BF16, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
+                    "critic_ppo_grads": 15}),
+    ("recurrent-bf16", BF16 + RECURRENT, {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    ("recurrent-f32", RECURRENT, {"gae": 1}),
+    ("bf16-fused-loss-off", BF16 + ["--fused-loss", "off", "--n-iters", "1"],
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+)
+# the run whose launches the {"kernels": [...]} line reports for each kernel
+MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
+            "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16"}
 
 
 class SmokeFailure(Exception):
@@ -217,6 +247,52 @@ def check_kernels(results: list):
                        f"rows={rows} d_in={width}", errs, time_ms(kern, 10),
                        time_ms(plain, 5), b, by, f32_rel)
 
+    # K2b: trunk backward on the recurrent update's rows, T*E*A for both
+    # networks, and on the actor's rows at a quarter of the headline envs
+    # (the plain version keeps about ten (rows, 256) f32 tensors alive)
+    big = BIG_ENVS // 4
+    for bf16 in (False, True):
+        algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
+                                 use_recurrent_policy=True, fused_trunk="on"), env, device=dev)
+        actor, critic = algo.make_networks(seed=4)
+        perturb_(actor, gen)
+        perturb_(critic, gen)
+        xdt = torch.bfloat16 if bf16 else torch.float32
+        for envs, nets in ((16, ((actor, D), (critic, A * D))), (big, ((actor, D),))):
+            for net, width in nets:
+                rows = T * envs * A
+                x = randn(rows, width).to(xdt)
+                params = [p.detach() for p in net.base.flat_params()]
+                kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
+                # rows next to a relu kink may take either side in the kernel
+                # and in the plain version: they get a zero cotangent
+                g = randn(rows, 256)
+                g[FM.relu_kink_rows(x, params, 2, True, bf16)] = 0.0
+                g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
+                kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
+                plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
+                k, p = kern(), plain()
+                k, p = [k[0], *k[1]], [p[0], *p[1]]
+                tol = K2B_BF16_REL if bf16 else 1e-4
+                errs = compare("fused_mlp_bwd", k, p, tol)
+                f32_rel = None
+                if bf16:
+                    k32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
+                    f32_rel = f32_reading("fused_mlp_bwd", [k32[0], *k32[1]], p, tol)
+                    del k32
+                # forward recompute, dW and d(input): 3 products of 2 ops a MAC
+                ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
+                # x and g in, dx out; parameters in, their f32 gradients out
+                nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+                          + 2 * 4 * sum(t.numel() for t in params))
+                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                reps = 3 if envs == big else 10
+                record("fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
+                       f"rows={rows} d_in={width}", errs, time_ms(kern, reps),
+                       time_ms(plain, reps), b, by, f32_rel)
+                del k, p, x, g
+                torch.cuda.empty_cache()
+
     # K3 / K4: PPO loss + gradients on the T*E*A actor / T*E critic rows
     ppo_envs = BIG_ENVS // 4
     print(f"  K3 / K4 at {ppo_envs} envs (a quarter of {BIG_ENVS}): their plain versions "
@@ -298,41 +374,80 @@ def check_kernels(results: list):
             torch.cuda.empty_cache()
 
 
-def check_update_against_cpu():
-    """One fused f32 update on the card vs the plain versions on the CPU."""
+def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
+    """One update on the card vs the plain versions on the CPU, from the
+    same parameters and trajectory; ``kernels`` must launch on the card. In
+    bf16 the same update computed in f32 on the card must land outside
+    ``param_tol``. Returns the readings."""
     import torch
 
-    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.algos.mappo import MAPPO
     from dcc_tpu_torch.envs import EnvConfig
+    from dcc_tpu_torch.ops import LAUNCHES, reset_launches
 
-    cfg = MAPPOConfig(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
-                      fused_loss="on", gae_backend="pallas")
-    algos = {d: MAPPO(cfg, EnvConfig(), device=d) for d in ("cpu", "cuda")}
+    bf16 = cfg.compute_dtype == "bfloat16"
+    devices = ("cpu", "cuda", "cuda-f32") if bf16 else ("cpu", "cuda")
+    algos = {d: MAPPO(cfg._replace(compute_dtype="float32") if d == "cuda-f32" else cfg,
+                      EnvConfig(), device=d.split("-")[0]) for d in devices}
     states = {d: a.init_state(seed=3) for d, a in algos.items()}
-    for net in ("actor", "critic"):
-        getattr(states["cuda"], net).load_state_dict(getattr(states["cpu"], net).state_dict())
+    for d in devices[1:]:
+        for net in ("actor", "critic"):
+            getattr(states[d], net).load_state_dict(getattr(states["cpu"], net).state_dict())
     # sampled (not deterministic) actions: with actions equal to the mean the
     # first-epoch actor gradient is exactly zero and Adam would normalize
     # rounding noise into full-size steps
     traj = algos["cpu"].rollout(states["cpu"], 4)
     metrics = {}
     for d, algo in algos.items():
-        tr = type(traj)(*(t.to(d) for t in traj))
+        tr = type(traj)(*(None if t is None else t.to(algo.device) for t in traj))
+        reset_launches()
         adv, ret = algo.compute_returns(states[d], tr)
         metrics[d] = algo.update(states[d], tr, adv, ret).cpu()
-    worst = 0.0
-    for net in ("actor", "critic"):
-        a = getattr(states["cpu"], net).state_dict()
-        b = getattr(states["cuda"], net).state_dict()
-        for key in a:
-            worst = max(worst, float((a[key] - b[key].cpu()).abs().max()))
-    # f32 summation order over 128 rows, two Adam steps of lr ~4e-4
-    if worst > 1e-5 or not torch.allclose(metrics["cpu"], metrics["cuda"], rtol=1e-3,
-                                          atol=1e-5):
-        raise SmokeFailure(f"GPU update differs from CPU: params {worst:.3e}, metrics "
+        if d == "cuda":
+            launched = dict(LAUNCHES)
+    missing = [k for k in kernels if launched.get(k, 0) == 0]
+    if missing:
+        raise SmokeFailure(f"{tag} update on the card never launched {missing}")
+
+    def param_gap(d):
+        return max(float((a - b.cpu()).abs().max())
+                   for net in ("actor", "critic")
+                   for a, b in zip(getattr(states["cpu"], net).state_dict().values(),
+                                   getattr(states[d], net).state_dict().values()))
+
+    worst = param_gap("cuda")
+    if worst > param_tol or not torch.allclose(metrics["cpu"], metrics["cuda"], rtol=rtol,
+                                               atol=atol):
+        raise SmokeFailure(f"{tag} GPU update differs from CPU: params {worst:.3e}, metrics "
                            f"{metrics['cpu'].tolist()} vs {metrics['cuda'].tolist()}")
-    print(f"  fused f32 update, GPU vs CPU: max |param diff| {worst:.3e}, metrics "
+    f32_gap = param_gap("cuda-f32") if bf16 else None
+    if f32_gap is not None and f32_gap <= param_tol:
+        raise SmokeFailure(f"{tag}: the update computed in f32 is within the bf16 bound "
+                           f"({f32_gap:.3e} <= {param_tol}); the bound is too loose")
+    extra = "" if f32_gap is None else f" (computed in f32: {f32_gap:.3e})"
+    print(f"  {tag} update, GPU vs CPU: max |param diff| {worst:.3e}{extra}, metrics "
           f"{[round(x, 6) for x in metrics['cuda'].tolist()]}", flush=True)
+    return dict(param_gap=worst, f32_param_gap=f32_gap, metrics_cpu=metrics["cpu"].tolist(),
+                metrics_cuda=metrics["cuda"].tolist())
+
+
+def check_updates_against_cpu(results: dict):
+    from dcc_tpu_torch.algos.mappo import MAPPOConfig
+
+    small = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
+                 gae_backend="pallas")
+    # f32 summation order over 128 rows, two Adam steps of lr ~4e-4
+    results["fused f32"] = check_update_against_cpu(
+        "fused f32", MAPPOConfig(fused_loss="on", **small), 1e-5, 1e-3, 1e-5,
+        ("gae", "actor_ppo_grads", "critic_ppo_grads"))
+    # bf16 rounding flips move Adam's normalized steps of the parameters
+    # whose gradient is near 0 (measured 1.06e-4 at hidden 256); metrics:
+    # the bounds of tests/test_torch_recurrent.py
+    results["recurrent bf16"] = check_update_against_cpu(
+        "recurrent bf16",
+        MAPPOConfig(compute_dtype="bfloat16", use_recurrent_policy=True, data_chunk_length=4,
+                    fused_trunk="on", **small),
+        3e-4, 2e-3, 3e-5, ("gae", "fused_mlp", "fused_mlp_bwd"))
 
 
 def train_runs(results: dict):
@@ -341,14 +456,12 @@ def train_runs(results: dict):
     from dcc_tpu_torch import train
     from dcc_tpu_torch.ops import LAUNCHES, reset_launches
 
-    base = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
-            "--n-eval-rollout-threads", "0", "--seed", "0"]
-    for tag, extra in (("f32", []), ("bf16", ["--compute-dtype", "bfloat16"])):
-        print(f"--- train, {tag}: python -m dcc_tpu_torch.train {' '.join(base + extra)}",
-              flush=True)
+    for tag, extra, per_iter in TRAIN_RUNS:
+        args = BASE_ARGS + extra
+        print(f"--- train, {tag}: python -m dcc_tpu_torch.train {' '.join(args)}", flush=True)
         reset_launches()
         t0 = time.perf_counter()
-        learner = train.main(base + extra)
+        learner = train.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(LAUNCHES)
@@ -358,12 +471,10 @@ def train_runs(results: dict):
         results[tag] = dict(metrics=m, launches=counts, wall_s=wall,
                             phases=learner.timer.summary())
         print(f"  launches {counts}; wall {wall:.2f} s", flush=True)
-    need = ("gae", "fused_mlp", "actor_ppo_grads", "critic_ppo_grads")
-    missing = [k for k in need if results["bf16"]["launches"].get(k, 0) == 0]
-    if missing:
-        raise SmokeFailure(f"bf16 main path never launched {missing}")
-    if results["f32"]["launches"].get("gae", 0) == 0:
-        raise SmokeFailure("f32 main path never launched the GAE kernel")
+        print(f"  phases {json.dumps(results[tag]['phases'])}", flush=True)
+        want = {k: n * learner.n_iters for k, n in per_iter.items()}
+        if counts != want:
+            raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
 
 
 def main(argv=None) -> int:
@@ -402,20 +513,21 @@ def main(argv=None) -> int:
     checks: list = []
     print("[3] kernels against their plain versions", flush=True)
     check_kernels(checks)
-    print("[4] fused update on the card against the CPU", flush=True)
-    check_update_against_cpu()
+    print("[4] updates on the card against the CPU", flush=True)
+    updates: dict = {}
+    check_updates_against_cpu(updates)
     print("[5] training through dcc_tpu_torch.train", flush=True)
     runs: dict = {}
     train_runs(runs)
 
     kernels = []
-    for name in ("gae", "fused_mlp", "actor_ppo_grads", "critic_ppo_grads"):
+    for name in ("gae", "fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads"):
         mode = "f32" if name == "gae" else "bf16"
         row = next(c for c in checks if c["kernel"] == name and c["mode"] == mode
                    and c["envs"] == 16)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=runs["bf16"]["launches"].get(name, 0),
+            launches=runs[MAIN_RUN[name]]["launches"].get(name, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
             mode=mode, shape=row["shape"],
@@ -424,7 +536,8 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
-                           build_s=built["_seconds"], checks=checks, train=runs,
+                           build_s=built["_seconds"], checks=checks, updates=updates,
+                           train=runs,
                            kernels=kernels), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

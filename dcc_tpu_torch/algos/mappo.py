@@ -1,24 +1,30 @@
-"""Shared-parameter feed-forward MAPPO with a Gaussian actor, in PyTorch.
+"""Shared-parameter MAPPO with a Gaussian actor, feed-forward or recurrent,
+in PyTorch.
 
-Counterpart of :mod:`dcc_tpu.algos.mappo` for the main path: fresh-reset
-rollout over E batched envs -> ValueNorm-denormalized GAE -> ``ppo_epoch``
-PPO epochs on one minibatch (clipped surrogate + clipped one-sided Huber
-value loss + entropy bonus, two Adams with eps 1e-5, optax-style global-norm
-clip per network, count-based linear LR decay).
+Counterpart of :mod:`dcc_tpu.algos.mappo` for the shared policy:
+fresh-reset rollout over E batched envs -> ValueNorm-denormalized GAE ->
+``ppo_epoch`` PPO epochs on one minibatch (clipped surrogate + clipped
+one-sided Huber value loss + entropy bonus, two Adams with eps 1e-5,
+optax-style global-norm clip per network, count-based linear LR decay).
 
-The update runs one of two ways, as in the JAX package:
+The update runs one of three ways, as in the JAX package:
 
-* autograd of the plain loss (``_ff_minibatch_update``), or
-* the fused loss + gradient kernels K3 / K4 (``_update_fused_full``): the
-  packed rows are built once, each epoch's value-normalizer scalars come
-  from ``_norm_seq``, and ``_fused_core`` turns the SUM-reduced gradients
-  into mean-loss gradients and steps the optimizers.
+* autograd of the plain loss on the feed-forward rows
+  (``_minibatch_update``); with the fused trunk its backward is the K2b
+  kernel (:class:`~dcc_tpu_torch.ops.fused_mlp.FusedTrunk`);
+* the same on ``data_chunk_length`` chunk sequences with GRU warm starts
+  (``_update_recurrent``; ``use_naive_recurrent`` is the whole episode), or
+* the fused loss + gradient kernels K3 / K4 (``_update_fused_full``, the
+  feed-forward policy only): the packed rows are built once, each epoch's
+  value-normalizer scalars come from ``_norm_seq``, and ``_fused_core``
+  turns the SUM-reduced gradients into mean-loss gradients and steps the
+  optimizers.
 
 Dispatch mirrors ``MAPPO.__init__`` of the JAX package: "auto" selects the
-GAE kernel K1 on CUDA, and the fused trunk K2 and fused loss K3 / K4 on CUDA
-in bf16; "on" forces them (on CPU tensors that runs their plain versions).
-Options this port does not run yet raise :class:`NotImplementedError`
-naming their ROADMAP item.
+GAE kernel K1 on CUDA, and the fused trunk K2 / K2b and (feed-forward only)
+the fused loss K3 / K4 on CUDA in bf16; "on" forces them (on CPU tensors
+that runs their plain versions). Options this port does not run yet raise
+:class:`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -122,6 +128,10 @@ class Trajectory(NamedTuple):
     masks: torch.Tensor  # (T+1, E, 1)
     coverage: torch.Tensor  # (T, E)
     bad_masks: torch.Tensor  # (T+1, E, 1)
+    # recurrent policies only: the hidden state ENTERING each step (before
+    # its mask reset), the chunk warm starts of the update
+    actor_h: Optional[torch.Tensor] = None  # (T, E, A, recurrent_n, H)
+    critic_h: Optional[torch.Tensor] = None  # (T, E, recurrent_n, H)
 
 
 class Metrics(NamedTuple):
@@ -175,13 +185,13 @@ class MAPPO:
             self.bf16 = False
         else:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+        self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent
         unported = [
             (not cfg.share_policy, "separated per-agent policies (ROADMAP A8)"),
-            (cfg.use_recurrent_policy or cfg.use_naive_recurrent,
-             "recurrent policies (ROADMAP A7)"),
             (cfg.use_popart, "PopArt (ROADMAP A8)"),
             (cfg.num_mini_batch != 1,
-             "num_mini_batch>1 (ROADMAP: nmb>1 and the fused minibatch path)"),
+             "num_mini_batch>1, feed-forward or recurrent (ROADMAP: nmb>1 and the "
+             "fused minibatch path)"),
             (cfg.use_remat, "use_remat (ROADMAP A8)"),
             (cfg.env_dtype not in ("float32", "fp32", "f32"),
              "env_dtype other than float32 (ROADMAP A12)"),
@@ -195,15 +205,22 @@ class MAPPO:
                 "observation, as in the JAX package's rollout"
             )
 
+        if cfg.use_recurrent_policy and cfg.episode_length % cfg.data_chunk_length:
+            # chunks must not straddle (env, agent) sequences
+            raise ValueError(
+                f"episode_length ({cfg.episode_length}) must be divisible by "
+                f"data_chunk_length ({cfg.data_chunk_length})"
+            )
+
         on_cuda = self.device.type == "cuda"
         self.fused_trunk = _resolve_switch(cfg.fused_trunk, "fused_trunk", on_cuda and self.bf16)
-        self.fused_loss = _resolve_switch(cfg.fused_loss, "fused_loss", on_cuda and self.bf16)
-        if self.fused_trunk and not self.fused_loss:
-            raise NotImplementedError(
-                "the fused trunk under autograd needs the fused-trunk backward "
-                "kernel, which is not ported yet (ROADMAP K2b); use fused_trunk="
-                "'off' or fused_loss='on'"
+        if cfg.fused_loss in ("on", "interpret") and self.recurrent:
+            raise ValueError(
+                "fused_loss requires the shared feed-forward gaussian policy (no "
+                "CNN/recurrent/separated/discrete)"
             )
+        self.fused_loss = _resolve_switch(cfg.fused_loss, "fused_loss",
+                                          on_cuda and self.bf16 and not self.recurrent)
         if self.fused_loss and not cfg.fused_fold:
             raise NotImplementedError(
                 "fused_fold=False is not ported yet (ROADMAP: fused_fold=False)"
@@ -245,9 +262,10 @@ class MAPPO:
         """Actor and critic, initialized on the CPU from ``seed`` and moved
         to the device."""
         gen = torch.Generator().manual_seed(seed)
-        actor = Actor(self.obs_dim, self.env_cfg.action_dim, self.cfg.gain,
+        rnn = dict(use_rnn=self.recurrent, recurrent_n=self.cfg.recurrent_n)
+        actor = Actor(self.obs_dim, self.env_cfg.action_dim, self.cfg.gain, **rnn,
                       **self._trunk_kwargs(gen))
-        critic = Critic(self.cent_obs_dim, **self._trunk_kwargs(gen))
+        critic = Critic(self.cent_obs_dim, **rnn, **self._trunk_kwargs(gen))
         return actor.to(self.device), critic.to(self.device)
 
     def _make_opt(self, params, lr: float) -> torch.optim.Optimizer:
@@ -285,17 +303,24 @@ class MAPPO:
     # ------------------------------------------------------------------
     # acting
     # ------------------------------------------------------------------
-    def act(self, ts: TrainState, obs, deterministic: bool = False, generator=None):
-        """obs (..., D) -> (action (..., act), log_prob (..., 1))."""
-        mean, log_std = ts.actor(obs)
+    def act(self, ts: TrainState, obs, deterministic: bool = False, generator=None,
+            rnn_state=None, masks=None):
+        """obs (..., D) -> (action (..., act), log_prob (..., 1)), plus the
+        new hidden state when ``rnn_state`` (B, L, H) and ``masks`` (B, 1)
+        are given."""
+        out = ts.actor(obs, rnn_state, masks)
+        mean, log_std = out[:2]
         if deterministic:
             action = D.normal_mode(mean)
         else:
             action = D.normal_sample(mean, log_std, generator)
-        return action, D.normal_log_prob(mean, log_std, action)
+        logp = D.normal_log_prob(mean, log_std, action)
+        return (action, logp) if rnn_state is None else (action, logp, out[2])
 
-    def value(self, ts: TrainState, cent_obs):
-        return ts.critic(cent_obs)
+    def value(self, ts: TrainState, cent_obs, rnn_state=None, masks=None):
+        """The value (..., 1), plus the new hidden state when ``rnn_state``
+        is given."""
+        return ts.critic(cent_obs, rnn_state, masks)
 
     def _denorm(self, ts: TrainState, v):
         return VN.denormalize(ts.vnorm, v) if self.cfg.use_valuenorm else v
@@ -322,9 +347,24 @@ class MAPPO:
         masks = torch.ones((T + 1, E, 1), **f32)
         bad_masks = torch.ones((T + 1, E, 1), **f32)
         cover = torch.empty((T, E), **f32)
+        hid = None
+        if self.recurrent:
+            L, H = cfg.recurrent_n, cfg.hidden_size
+            h_a = torch.zeros((E * A, L, H), **f32)
+            h_c = torch.zeros((E, L, H), **f32)
+            hid = (torch.empty((T, E, A, L, H), **f32), torch.empty((T, E, L, H), **f32))
         for t in range(T):
-            action, logp = self.act(ts, obs.reshape(E * A, -1), deterministic, gen)
-            values[t] = self.value(ts, obs.reshape(E, -1))
+            flat_obs, cent = obs.reshape(E * A, -1), obs.reshape(E, -1)
+            if self.recurrent:
+                # stored: the hidden state entering step t, before its reset
+                hid[0][t] = h_a.reshape(E, A, L, H)
+                hid[1][t] = h_c
+                agent_mask = masks[t][:, None, :].expand(E, A, 1).reshape(E * A, 1)
+                action, logp, h_a = self.act(ts, flat_obs, deterministic, gen, h_a, agent_mask)
+                values[t], h_c = self.value(ts, cent, h_c, masks[t])
+            else:
+                action, logp = self.act(ts, flat_obs, deterministic, gen)
+                values[t] = self.value(ts, cent)
             obs_buf[t] = obs
             actions[t] = action.reshape(E, A, -1)
             logps[t] = logp.reshape(E, A, 1)
@@ -335,8 +375,12 @@ class MAPPO:
             cover[t] = out.coverage_rate
             obs = out.obs
         obs_buf[T] = obs
-        values[T] = self.value(ts, obs.reshape(E, -1))
-        return Trajectory(obs_buf, actions, logps, values, rewards, masks, cover, bad_masks)
+        if self.recurrent:
+            values[T] = self.value(ts, obs.reshape(E, -1), h_c, masks[T])[0]
+        else:
+            values[T] = self.value(ts, obs.reshape(E, -1))
+        return Trajectory(obs_buf, actions, logps, values, rewards, masks, cover, bad_masks,
+                          *(hid or ()))
 
     # ------------------------------------------------------------------
     # returns / advantages
@@ -367,7 +411,9 @@ class MAPPO:
         critic_grad_norm, ratio]."""
         T, E, A, _ = traj.actions.shape
         adv_n = normalize_advantages(adv)
-        if self.fused_loss:
+        if self.recurrent:
+            m = self._update_recurrent(ts, traj, adv_n, returns)
+        elif self.fused_loss:
             m = self._update_fused_full(ts, traj, adv_n, returns)
         else:
             net_in = lambda x: x.to(self.net_dtype)
@@ -380,10 +426,53 @@ class MAPPO:
                 traj.values[:-1],
                 returns,
             )
-            m = torch.stack([self._ff_minibatch_update(ts, batch)
+            m = torch.stack([self._minibatch_update(ts, batch)
                              for _ in range(self.cfg.ppo_epoch)]).mean(dim=0)
         ts.iteration += 1
         return m
+
+    def _update_recurrent(self, ts: TrainState, traj: Trajectory, adv_n, returns):
+        """PPO epochs on chunk sequences with hidden-state warm starts (JAX
+        ``_update_recurrent``): the (T, E, A) rollout is cut in (env, agent,
+        time) order into C chunks of L = ``data_chunk_length`` steps (L = T
+        for ``use_naive_recurrent``), each GRU warm-started from the stored
+        hidden state at its first step; critic rows are the env rows
+        duplicated per agent, as in the reference's shared buffer.
+
+        With num_mini_batch=1 JAX's per-epoch chunk permutation only
+        reorders the chunks inside full-batch means, so the chunks stay in
+        order here and the result equals JAX's up to summation order."""
+        cfg = self.cfg
+        T, E, A, _ = traj.actions.shape
+        L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
+        C = E * A * (T // L)
+
+        def chunks(x):
+            """(T, E, A, ...) -> time-major chunks (L, C, ...)."""
+            x = x.movedim(0, 2)
+            return x.reshape(C, L, *x.shape[3:]).transpose(0, 1).contiguous()
+
+        def per_agent(x):
+            return x[:, :, None].expand(T, E, A, *x.shape[2:])
+
+        def warm_starts(h):
+            """(T, E, A, rec_n, H) -> the (C, rec_n, H) chunk firsts."""
+            return h.movedim(0, 2)[:, :, ::L].reshape(C, *h.shape[3:])
+
+        obs = traj.obs[:-1]  # as stored (bf16 in bf16 mode), as in JAX
+        batch = (
+            chunks(obs),
+            chunks(traj.actions),
+            chunks(traj.log_probs),
+            chunks(per_agent(adv_n)),
+            chunks(per_agent(obs.reshape(T, E, -1))),
+            chunks(per_agent(traj.values[:-1])),
+            chunks(per_agent(returns)),
+        )
+        rnn = (chunks(per_agent(traj.masks[:-1])), warm_starts(traj.actor_h),
+               warm_starts(per_agent(traj.critic_h)))
+        return torch.stack([self._minibatch_update(ts, batch, rnn)
+                            for _ in range(cfg.ppo_epoch)]).mean(dim=0)
 
     def _step(self, ts: TrainState):
         """Clip both networks' gradients and take one optimizer step each at
@@ -403,8 +492,11 @@ class MAPPO:
         ts.update_count += 1
         return norms
 
-    def _ff_minibatch_update(self, ts: TrainState, batch):
-        """One optimizer step by autograd of the plain PPO loss."""
+    def _minibatch_update(self, ts: TrainState, batch, rnn=None):
+        """One optimizer step by autograd of the PPO loss on feed-forward
+        rows, or with ``rnn = (masks, actor warm starts, critic warm
+        starts)`` on (L, C, .) chunk sequences (JAX
+        ``_seq_minibatch_update``)."""
         cfg = self.cfg
         obs_b, act_b, logp_b, adv_b, cent_b, vpred_b, ret_b = batch
         if cfg.use_valuenorm:
@@ -413,7 +505,13 @@ class MAPPO:
         else:
             ret_target = ret_b
 
-        mean, log_std = ts.actor(obs_b)
+        if rnn is None:
+            mean, log_std = ts.actor(obs_b)
+            values = ts.critic(cent_b)
+        else:
+            mask_b, ha_b, hc_b = rnn
+            mean, log_std, _ = ts.actor.sequence(obs_b, ha_b, mask_b)
+            values, _ = ts.critic.sequence(cent_b, hc_b, mask_b)
         new_logp = D.normal_log_prob(mean, log_std, act_b)
         dist_entropy = D.normal_entropy(log_std, mean).sum(-1).mean()
         ratio = torch.exp(new_logp - logp_b)
@@ -421,7 +519,6 @@ class MAPPO:
         surr2 = jnp_clip(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv_b
         policy_loss = -torch.sum(torch.minimum(surr1, surr2), dim=-1, keepdim=True).mean()
 
-        values = ts.critic(cent_b)
         v_clip = vpred_b + jnp_clip(values - vpred_b, -cfg.clip_param, cfg.clip_param)
         err, err_c = ret_target - values, ret_target - v_clip
         lf = (lambda e: FP.huber(e, cfg.huber_delta)) if cfg.use_huber_loss else _mse

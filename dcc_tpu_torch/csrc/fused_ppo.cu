@@ -26,6 +26,7 @@
 // never padded. Loss and backward elementwise math is f32 with JAX's
 // autodiff tie rules: min / max split the cotangent 50/50 on ties, clip
 // composes the two.
+#include "slots.cuh"
 #include "trunk.cuh"
 
 #define DCC_LOG_SQRT_2PI 0.91893853320467274178f
@@ -314,27 +315,10 @@ __global__ void __launch_bounds__(DCC_THREADS)
   }
 }
 
-// out[e] = sum over blocks b (in order) of slots[b][e].
-__global__ void reduce_slots_kernel(const float* slots, int n_slots,
-                                    long long slot_size, float* out) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= slot_size) return;
-  float s = 0.f;
-  for (int b = 0; b < n_slots; ++b) s += slots[(long long)b * slot_size + e];
-  out[e] = s;
-}
-
 static DccOffs to_offs(const long long* offs, int n_offs) {
   DccOffs o;
   for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
   return o;
-}
-
-static int reduce(const float* slots, int n_blocks, long long slot_size, float* out,
-                  cudaStream_t s) {
-  const unsigned grid = (unsigned)((slot_size + 255) / 256);
-  reduce_slots_kernel<<<grid, 256, 0, s>>>(slots, n_blocks, slot_size, out);
-  return (int)cudaGetLastError();
 }
 
 template <int BR, bool BF16>

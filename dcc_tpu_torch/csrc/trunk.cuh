@@ -1,9 +1,11 @@
 // Shared device code of the trunk kernels: LN -> [Dense -> act -> LN] x L
-// over one tile of BR rows held in shared memory, and the backward of the
-// folded chain (every LayerNorm affine absorbed into the next matmul).
+// over one tile of BR rows held in shared memory, and its backward, both for
+// the folded chain (every LayerNorm affine absorbed into the next matmul)
+// and for the unfolded one (the affines applied as written).
 //
-// Used by fused_mlp.cu (K2, the trunk forward) and fused_ppo.cu (K3/K4, the
-// actor and critic PPO loss + gradient kernels).
+// Used by fused_mlp.cu (K2, the trunk forward), fused_mlp_bwd.cu (K2b, the
+// trunk backward) and fused_ppo.cu (K3/K4, the actor and critic PPO loss +
+// gradient kernels).
 //
 // Numerics follow dcc_tpu/ops/fused_mlp.py and dcc_tpu/ops/fused_ppo.py:
 // * LN statistics in f32 with the fast variance max(E[x^2] - E[x]^2, 0),
@@ -247,5 +249,199 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
       __syncthreads();
       g = act;
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Unfolded chain (dcc_tpu/ops/fused_mlp.py::_forward_chain / _bwd_kernel):
+// the LN affines are applied as written, so the backward also yields the
+// gradients of every LN scale and bias. Parameter offsets as K2's: feature
+// norm scale / bias at v[0] / v[1], layer li's W (d_li x H), b, LN scale,
+// LN bias at v[2+4li] .. v[5+4li]; W_li^T (H x d_li) at v[2+4L+li].
+// ---------------------------------------------------------------------------
+
+// Shared-memory cache of the unfolded forward for one tile of BR rows.
+struct UnfoldedCache {
+  float* xf;   // BR x d_in: un-rounded feature-norm xhat (use_fn only)
+  float* a0;   // BR x d_in: layer-0 input; after the backward, d(x)
+  float* r;    // L x BR x H: activation of each layer (rounded as the chain)
+  float* xh;   // L x BR x H: un-rounded LN xhat of each layer
+  float* y;    // (L-1) x BR x H: LN output of layer li = input of li+1
+  float* g;    // BR x H: cotangent of the trunk output
+  float* inv;  // (L+1) x BR: 1/sqrt(var+eps), feature norm first
+};
+
+__host__ __device__ inline size_t unfolded_smem_floats(int br, int d_in, int H, int L) {
+  return (size_t)br * (2 * (size_t)d_in + 3 * (size_t)L * H + L + 1);
+}
+
+template <int BR>
+__device__ UnfoldedCache carve_unfolded(float* smem, int d_in, int H, int L) {
+  UnfoldedCache c;
+  c.xf = smem;
+  c.a0 = c.xf + BR * d_in;
+  c.r = c.a0 + BR * d_in;
+  c.xh = c.r + (long long)L * BR * H;
+  c.y = c.xh + (long long)L * BR * H;
+  c.g = c.y + (long long)(L - 1) * BR * H;
+  c.inv = c.g + BR * H;
+  return c;
+}
+
+// dst (BR x d) = src * scale + bias per column, rounded to bf16 in bf16
+// mode: the affine half of ln_tile, on a stored xhat.
+template <int BR, bool BF16>
+__device__ void affine_tile(const float* src, float* dst, int d, const float* scale,
+                            const float* bias) {
+  for (int i = threadIdx.x; i < BR * d; i += blockDim.x) {
+    const int k = i % d;
+    dst[i] = rnd<BF16>(src[i] * scale[k] + bias[k]);
+  }
+}
+
+// Per-column sums over the tile's rows, added into the block's slot:
+// s_gx[j] += sum_r g * xh (the LN scale's gradient; skipped when s_gx is
+// null), s_g[j] += sum_r g (the LN bias's or the Dense bias's gradient).
+template <int BR>
+__device__ void col_sums(const float* g, const float* xh, int d, float* s_gx, float* s_g) {
+  for (int j = threadIdx.x; j < d; j += blockDim.x) {
+    float sx = 0.f, s = 0.f;
+#pragma unroll
+    for (int r = 0; r < BR; ++r) {
+      const float v = g[r * d + j];
+      if (s_gx != nullptr) sx = fmaf(v, xh[r * d + j], sx);
+      s += v;
+    }
+    if (s_gx != nullptr) s_gx[j] += sx;
+    s_g[j] += s;
+  }
+}
+
+// In place, one warp per row: g <- inv * (g*s - mean(g*s) - xh * mean(g*s*xh))
+// (LN backward with affine, dcc_tpu/ops/fused_mlp.py::_ln_bwd), then times
+// the activation's derivative when act is given (relu: act > 0, tanh:
+// 1 - act^2).
+template <int BR>
+__device__ void ln_bwd_tile(float* g, const float* xh, const float* inv,
+                            const float* scale, int d, const float* act, bool relu) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  for (int r = warp; r < BR; r += nw) {
+    float* gr = g + r * d;
+    const float* xr = xh + r * d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      const float gg = gr[k] * scale[k];
+      s1 += gg;
+      s2 += gg * xr[k];
+    }
+    s1 = warp_sum(s1) / d;
+    s2 = warp_sum(s2) / d;
+    const float iv = inv[r];
+    for (int k = lane; k < d; k += 32) {
+      float v = iv * (gr[k] * scale[k] - s1 - xr[k] * s2);
+      if (act != nullptr) {
+        const float a = act[r * d + k];
+        v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
+      }
+      gr[k] = v;
+    }
+  }
+}
+
+// Unfolded forward of one tile, keeping the cache the backward needs.
+template <int BR, bool BF16>
+__device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
+                                   long long R, int d_in, int H, int L, bool use_fn,
+                                   bool relu, const float* pb, const DccOffs& offs,
+                                   const UnfoldedCache& c) {
+  load_tile<BR>(x, x_bf16, row0, R, d_in, c.a0);
+  __syncthreads();
+  if (use_fn) {
+    ln_tile<BR>(c.a0, c.xf, d_in, nullptr, nullptr, false, c.inv);
+    __syncthreads();
+    affine_tile<BR, BF16>(c.xf, c.a0, d_in, pb + offs.v[0], pb + offs.v[1]);
+    __syncthreads();
+  }
+  for (int li = 0; li < L; ++li) {
+    const float* in = li == 0 ? c.a0 : c.y + (long long)(li - 1) * BR * H;
+    float* r = c.r + (long long)li * BR * H;
+    float* xh = c.xh + (long long)li * BR * H;
+    dense_act_tile<BR, BF16>(in, li == 0 ? d_in : H, pb + offs.v[2 + 4 * li],
+                             pb + offs.v[3 + 4 * li], H, relu, r);
+    __syncthreads();
+    ln_tile<BR>(r, xh, H, nullptr, nullptr, false, c.inv + (li + 1) * BR);
+    __syncthreads();
+    if (li + 1 < L) {
+      affine_tile<BR, BF16>(xh, c.y + (long long)li * BR * H, H, pb + offs.v[4 + 4 * li],
+                            pb + offs.v[5 + 4 * li]);
+      __syncthreads();
+    }
+  }
+}
+
+// Unfolded backward of one tile from the cotangent in c.g. Adds this tile's
+// gradient of every parameter into the block's own slot, laid out as the
+// flat parameter list (so offs.v[] locates each gradient too; each slot
+// element has one owner thread, no atomics). In bf16 mode the matmul
+// operands are rounded: dW = bf16(a)^T bf16(g), g_prev = bf16(g) bf16(W)^T,
+// f32 accumulation; db and the LN gradients use the un-rounded cotangent.
+// Leaves d(x) (BR x d_in, f32) in c.a0.
+template <int BR, bool BF16>
+__device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool relu,
+                                   const float* pb, const DccOffs& offs,
+                                   const UnfoldedCache& c, float* slot) {
+  float* g = c.g;
+  for (int li = L - 1; li >= 0; --li) {
+    float* r = c.r + (long long)li * BR * H;
+    const float* xh = c.xh + (long long)li * BR * H;
+    const long long* o = offs.v + 2 + 4 * li;  // W, b, LN scale, LN bias
+    col_sums<BR>(g, xh, H, slot + o[2], slot + o[3]);
+    __syncthreads();
+    ln_bwd_tile<BR>(g, xh, c.inv + (li + 1) * BR, pb + o[2], H, r, relu);
+    __syncthreads();
+    col_sums<BR>(g, nullptr, H, nullptr, slot + o[1]);
+    __syncthreads();
+    if (BF16) {
+      for (int i = threadIdx.x; i < BR * H; i += blockDim.x) g[i] = bf16r(g[i]);
+      __syncthreads();
+    }
+    // dW = in^T @ g: one thread per (k, j) element of the slot
+    const float* in = li == 0 ? c.a0 : c.y + (long long)(li - 1) * BR * H;
+    const int din = li == 0 ? d_in : H;
+    float* sw = slot + o[0];
+    for (long long e = threadIdx.x; e < (long long)din * H; e += blockDim.x) {
+      const int k = (int)(e / H), j = (int)(e - (long long)k * H);
+      float s = 0.f;
+#pragma unroll
+      for (int rr = 0; rr < BR; ++rr) s = fmaf(rnd<BF16>(in[rr * din + k]), g[rr * H + j], s);
+      sw[e] += s;
+    }
+    __syncthreads();  // layer 0 writes g_prev over its input a0
+    // g_prev (BR x din) = g @ W^T, over this layer's activation buffer (or
+    // a0 for layer 0), which the backward no longer needs
+    const float* Wt = pb + offs.v[2 + 4 * L + li];  // (H, din), row-major
+    float* gp = li == 0 ? c.a0 : r;
+    for (int k = threadIdx.x; k < din; k += blockDim.x) {
+      float acc[BR];
+#pragma unroll
+      for (int rr = 0; rr < BR; ++rr) acc[rr] = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < H; ++j) {
+        const float w = rnd<BF16>(Wt[(long long)j * din + k]);
+#pragma unroll
+        for (int rr = 0; rr < BR; ++rr) acc[rr] = fmaf(g[rr * H + j], w, acc[rr]);
+      }
+#pragma unroll
+      for (int rr = 0; rr < BR; ++rr) gp[rr * din + k] = acc[rr];
+    }
+    __syncthreads();
+    g = gp;
+  }
+  if (use_fn) {
+    col_sums<BR>(c.a0, c.xf, d_in, slot + offs.v[0], slot + offs.v[1]);
+    __syncthreads();
+    ln_bwd_tile<BR>(c.a0, c.xf, c.inv, pb + offs.v[0], d_in, nullptr, relu);
+    __syncthreads();
   }
 }

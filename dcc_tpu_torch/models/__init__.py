@@ -1,4 +1,5 @@
 from .actor_critic import Actor, Critic
 from .mlp import MLPBase
+from .rnn import MaskedGRU
 
-__all__ = ["Actor", "Critic", "MLPBase"]
+__all__ = ["Actor", "Critic", "MLPBase", "MaskedGRU"]

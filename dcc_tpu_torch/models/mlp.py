@@ -4,9 +4,11 @@ Counterpart of :class:`dcc_tpu.models.mlp.MLPBase`: orthogonal init with the
 activation's gain, zero biases, LayerNorm with eps 1e-6 and the fast
 variance (not ``nn.LayerNorm``'s 1e-5). Parameters stay f32; ``bf16=True``
 runs the JAX package's mixed-precision rounding points. With ``fused=True``
-the forward runs as the K2 kernel on CUDA tensors
-(:func:`dcc_tpu_torch.ops.fused_mlp.fused_mlp`); otherwise it is the plain
-PyTorch chain, which autograd differentiates.
+the trunk is one autograd Function
+(:func:`dcc_tpu_torch.ops.fused_mlp.fused_mlp`): on CUDA tensors its forward
+is the K2 kernel, fed the parameters packed once per version, and its
+backward the K2b kernel; otherwise it is the plain PyTorch chain, which
+autograd differentiates.
 """
 
 from __future__ import annotations

@@ -31,7 +31,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dcc_tpu_torch")
-SOURCES = ("gae", "fused_mlp", "fused_ppo")
+SOURCES = ("gae", "fused_mlp", "fused_mlp_bwd", "fused_ppo")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -47,6 +47,13 @@ _SIGNATURES = {
     "gae": {"dcc_gae": [_P, _P, _P, _P, _P, _P, _I, _L, _F, _F, _P]},
     "fused_mlp": {
         "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+    },
+    "fused_mlp_bwd": {
+        "dcc_trunk_bwd": [
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P,
+            _P, _P,
+        ],
+        "dcc_trunk_bwd_smem_bytes": [_I, _I, _I, _I],
     },
     "fused_ppo": {
         "dcc_actor_grads": [
@@ -128,7 +135,7 @@ def _libraries() -> dict:
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_ulonglong if fn == "dcc_ppo_smem_bytes" else ctypes.c_int
+            f.restype = ctypes.c_ulonglong if fn.endswith("_smem_bytes") else ctypes.c_int
         lib.dcc_error_string.argtypes = [ctypes.c_int]
         lib.dcc_error_string.restype = ctypes.c_char_p
         libs[name] = lib

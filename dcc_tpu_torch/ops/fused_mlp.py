@@ -1,19 +1,28 @@
-"""K2: the fused MLP trunk forward (``csrc/fused_mlp.cu``) and its plain
-PyTorch version.
+"""K2 / K2b: the fused MLP trunk forward (``csrc/fused_mlp.cu``) and backward
+(``csrc/fused_mlp_bwd.cu``), their plain PyTorch versions, and the autograd
+Function that joins them.
 
-Counterpart of :func:`dcc_tpu.ops.fused_mlp.fused_mlp` (forward only; the
-fused-trunk backward ``_bwd_kernel`` is ROADMAP item K2b). The trunk is
-feature LN -> [Dense -> act -> LN] x L with the JAX package's numerics:
-LN statistics in f32 with ``var = max(E[x^2] - E[x]^2, 0)`` and eps 1e-6;
-in bf16 mode matmul operands are rounded to bf16 with f32 accumulation, the
-Dense result is rounded and the bias added in bf16, activation and LN run in
-f32 and the LN output is rounded to bf16; f32 mode is full f32.
+Counterpart of :func:`dcc_tpu.ops.fused_mlp.fused_mlp` and its custom VJP.
+The trunk is feature LN -> [Dense -> act -> LN] x L with the JAX package's
+numerics: LN statistics in f32 with ``var = max(E[x^2] - E[x]^2, 0)`` and eps
+1e-6; in bf16 mode matmul operands are rounded to bf16 with f32
+accumulation, the Dense result is rounded and the bias added in bf16,
+activation and LN run in f32 and the LN output is rounded to bf16; f32 mode
+is full f32.
+
+The backward (``_bwd_kernel`` of the JAX package) recomputes the forward
+from ``x`` and runs the chain in f32: LN backward with affine, the
+activation's derivative, ``db`` from the un-rounded cotangent, and in bf16
+mode ``dW = bf16(a)^T bf16(g)`` and ``g_prev = bf16(g) bf16(W)^T`` with f32
+accumulation. That is not autograd of the bf16 forward (which would round
+the cotangents where the forward rounds its values), so the plain backward
+writes the chain out.
 
 ``params`` is the flat list ``[fn_scale, fn_bias]? + [W_i, b_i, s_i, c_i]
 * L`` with ``W_i`` shaped (d_in, d_out) as a flax Dense kernel and 1-D
-vectors. The plain version is differentiable (autograd passes through the
-bf16 rounding); the kernel has no backward and refuses a tensor that needs
-a gradient.
+vectors. :func:`fused_mlp` goes through :class:`FusedTrunk`, so it is
+differentiable on both devices; the raw launcher :func:`trunk_forward_cuda`
+has no backward and refuses a tensor that needs a gradient.
 """
 
 from __future__ import annotations
@@ -55,6 +64,33 @@ def activation(z: torch.Tensor, use_relu: bool, bf16: bool) -> torch.Tensor:
     return bf16_round(r) if bf16 else r
 
 
+def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16):
+    """The trunk on (rows, d_in) f32, keeping what the backward needs: the
+    feature norm's (xhat, inv) and per layer (a, r, xhat, inv), with ``a``
+    the layer's input and ``r`` its activation as the chain rounds them.
+    Returns (output f32, feature-norm cache or None, layer caches)."""
+    a = x.to(torch.float32)
+    i, fn_cache = 0, None
+    if use_fn:
+        mu, inv = ln_stats(a)
+        xhat = (a - mu) * inv
+        fn_cache = (xhat, inv)
+        a = xhat * params[0] + params[1]
+        a = bf16_round(a) if bf16 else a
+        i = 2
+    layers = []
+    for _ in range(n_layers):
+        w, b, s, c = params[i : i + 4]
+        i += 4
+        r = activation(dense(a, w, b, bf16), use_relu, bf16)
+        mu, inv = ln_stats(r)
+        xhat = (r - mu) * inv
+        layers.append((a, r, xhat, inv))
+        a = xhat * s + c
+        a = bf16_round(a) if bf16 else a
+    return a, fn_cache, layers
+
+
 def trunk_forward_plain(
     x: torch.Tensor,
     params: Sequence[torch.Tensor],
@@ -64,21 +100,63 @@ def trunk_forward_plain(
     bf16: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch K2 on (rows, d_in); returns (rows, H) in bf16 or f32."""
-    a = x.to(torch.float32)
-    i = 0
-    if use_fn:
-        mu, inv = ln_stats(a)
-        a = (a - mu) * inv * params[0] + params[1]
-        a = bf16_round(a) if bf16 else a
-        i = 2
-    for _ in range(n_layers):
-        w, b, s, c = params[i : i + 4]
-        i += 4
-        r = activation(dense(a, w, b, bf16), use_relu, bf16)
-        mu, inv = ln_stats(r)
-        a = (r - mu) * inv * s + c
-        a = bf16_round(a) if bf16 else a
+    a, _, _ = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
     return a.to(torch.bfloat16) if bf16 else a
+
+
+def _ln_bwd(g, xhat, inv, scale):
+    """d(input), d(scale), d(bias) of y = xhat * scale + bias (f32)."""
+    gg = g * scale
+    dx = inv * (gg - gg.mean(dim=-1, keepdim=True)
+                - xhat * (gg * xhat).mean(dim=-1, keepdim=True))
+    return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
+
+
+def trunk_backward_plain(
+    x: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    n_layers: int,
+    use_fn: bool = True,
+    use_relu: bool = True,
+    bf16: bool = False,
+):
+    """Plain PyTorch K2b: the cotangent ``g`` (rows, H) of the trunk output
+    back to (dx in x.dtype, [f32 gradient of each parameter])."""
+    with torch.no_grad():
+        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+        mm = (lambda p, q: bf16_round(p) @ bf16_round(q)) if bf16 else torch.matmul
+        g = g.to(torch.float32)
+        grads = [None] * len(params)
+        i = len(params)
+        for li in reversed(range(n_layers)):
+            a, r, xhat, inv = layers[li]
+            i -= 4
+            g, grads[i + 2], grads[i + 3] = _ln_bwd(g, xhat, inv, params[i + 2])
+            g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
+            grads[i] = mm(a.t(), g)
+            grads[i + 1] = g.sum(dim=0)
+            g = mm(g, params[i].t())
+        if use_fn:
+            xhat, inv = fn_cache
+            g, grads[0], grads[1] = _ln_bwd(g, xhat, inv, params[0])
+    return g.to(x.dtype), grads
+
+
+def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True, bf16: bool = False,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """(rows,) bool: rows with a relu pre-activation within ``eps`` of 0.
+    There two summation orders (kernel and plain version) may take opposite
+    sides of the kink, and the row's gradient differs at full size; the
+    kernel checks give these rows a zero cotangent."""
+    with torch.no_grad():
+        _, _, layers = _forward_chain(x, params, n_layers, use_fn, True, bf16)
+        first = 2 if use_fn else 0
+        near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for li, (a, *_) in enumerate(layers):
+            w, b = params[first + 4 * li], params[first + 4 * li + 1]
+            near |= (dense(a, w, b, bf16).abs() < eps).any(dim=1)
+    return near
 
 
 def trunk_param_shapes(d_in: int, hidden: int, n_layers: int, use_fn: bool) -> list:
@@ -108,13 +186,22 @@ def pack_params(params: Sequence[torch.Tensor], device) -> tuple:
     return torch.cat(flat).contiguous(), offs
 
 
-def tile_rows(width: int, floats_per_row_fn, budget: int = 232448) -> int:
-    """Largest row tile the kernels are built for (32, 8 or 1) whose shared
-    memory, ``4 * floats_per_row_fn(tile)`` bytes, fits one H100 block."""
-    for br in (32, 8, 1):
+def tile_rows(width: int, floats_per_row_fn, budget: int = 232448,
+              sizes: Sequence[int] = (32, 8, 1)) -> int:
+    """Largest row tile among the ``sizes`` a kernel is built for whose
+    shared memory, ``4 * floats_per_row_fn(tile)`` bytes, fits one H100
+    block."""
+    for br in sizes:
         if 4 * floats_per_row_fn(br) <= budget:
             return br
     raise ValueError(f"a {width}-wide row does not fit the shared-memory budget")
+
+
+def _check_trunk(x, params, n_layers, use_fn):
+    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
+    hidden = params[-4].shape[1]
+    require_shapes(params, trunk_param_shapes(x.shape[1], hidden, n_layers, use_fn), "trunk")
+    return hidden
 
 
 def trunk_forward_cuda(
@@ -129,14 +216,12 @@ def trunk_forward_cuda(
     """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows. ``packed`` is
     ``pack_params(params, x.device)`` made beforehand, or None to pack here."""
     rows, d_in = x.shape
-    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         raise RuntimeError(
-            "the fused trunk kernel has no backward yet (ROADMAP K2b); run it "
-            "under torch.no_grad()"
+            "trunk_forward_cuda has no backward: call fused_mlp (its FusedTrunk "
+            "backward is the K2b kernel) or run under torch.no_grad()"
         )
-    hidden = params[-4].shape[1]
-    require_shapes(params, trunk_param_shapes(d_in, hidden, n_layers, use_fn), "trunk")
+    hidden = _check_trunk(x, params, n_layers, use_fn)
     pb, offs = pack_params(params, x.device) if packed is None else packed
     cb.require(pb, "packed parameters", (torch.float32,),
                (sum(p.numel() for p in params),), x.device)
@@ -157,6 +242,74 @@ def trunk_forward_cuda(
     return out
 
 
+def trunk_backward_cuda(
+    x: torch.Tensor,
+    params: Sequence[torch.Tensor],
+    g: torch.Tensor,
+    n_layers: int,
+    use_fn: bool = True,
+    use_relu: bool = True,
+    bf16: bool = False,
+):
+    """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
+    rows and the (rows, H) cotangent; same returns as the plain version."""
+    rows, d_in = x.shape
+    hidden = _check_trunk(x, params, n_layers, use_fn)
+    g = g.to(torch.float32).contiguous()
+    cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
+    # the kernel reads W^T (d_out, d_in) for g_prev = g W^T, after the params
+    first = 2 if use_fn else 0
+    wts = [params[first + 4 * li].t() for li in range(n_layers)]
+    pb, offs = pack_params(list(params) + wts, x.device)
+    if not use_fn:
+        offs = [0, 0] + offs
+    lib = cb.library("fused_mlp_bwd")
+    br = tile_rows(
+        d_in, lambda b: lib.dcc_trunk_bwd_smem_bytes(b, d_in, hidden, n_layers) // 4,
+        sizes=(32, 16, 8, 1),
+    )
+    # each block owns one slot laid out as the flat parameter list
+    slot = sum(p.numel() for p in params)
+    n_blocks = max(1, min(-(-rows // br), cb.sm_count(x.device)))
+    slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
+    out = torch.empty((slot,), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    offs_c = (cb._L * len(offs))(*offs)
+    code = lib.dcc_trunk_bwd(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
+        n_layers, int(use_fn), int(use_relu), int(bf16), br, pb.data_ptr(), offs_c,
+        len(offs), slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(),
+        cb.stream_of(x),
+    )
+    cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
+    cb.LAUNCHES["fused_mlp_bwd"] += 1
+    grads = [t.view(p.shape) for t, p in zip(out.split([p.numel() for p in params]), params)]
+    return dx, grads
+
+
+class FusedTrunk(torch.autograd.Function):
+    """The trunk as one differentiable op: K2 forward and K2b backward on
+    CUDA tensors, their plain versions on CPU tensors. As the JAX package's
+    custom VJP, it saves only ``x`` and the parameters; the backward
+    recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, x, cfg, packed, *params):
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, *params)
+        if x.is_cuda:
+            return trunk_forward_cuda(x, params, *cfg, packed=packed)
+        return trunk_forward_plain(x, params, *cfg)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        bwd = trunk_backward_cuda if g.is_cuda else trunk_backward_plain
+        dx, grads = bwd(x, params, g, *ctx.cfg)
+        return (dx if ctx.needs_input_grad[0] else None, None, None, *grads)
+
+
 def fused_mlp(
     x: torch.Tensor,
     params: Sequence[torch.Tensor],
@@ -167,15 +320,11 @@ def fused_mlp(
     bf16: bool = False,
     packed: Optional[tuple] = None,
 ) -> torch.Tensor:
-    """Apply the trunk to ``x`` of shape (..., d_in): the K2 kernel for a
-    CUDA tensor (with ``packed`` as in :func:`trunk_forward_cuda`), the
-    plain version for a CPU tensor."""
+    """Apply the trunk to ``x`` of shape (..., d_in) through
+    :class:`FusedTrunk`: the kernels for a CUDA tensor (``packed`` as in
+    :func:`trunk_forward_cuda`), the plain versions for a CPU tensor."""
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if x2.is_cuda:
-        out = trunk_forward_cuda(
-            x2.contiguous(), params, n_layers, use_feature_norm, use_relu, bf16, packed
-        )
-    else:
-        out = trunk_forward_plain(x2, params, n_layers, use_feature_norm, use_relu, bf16)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    cfg = (n_layers, use_feature_norm, use_relu, bf16)
+    out = FusedTrunk.apply(x2, cfg, packed, *params)
     return out.reshape(*lead, out.shape[-1])

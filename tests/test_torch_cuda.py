@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K4 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K4 and K2b against their plain PyTorch versions, on
+the card.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture, which
 skips when no CUDA device is present (the kernels have no CPU mode), so on a
@@ -11,7 +12,9 @@ The shapes are small but ragged (row counts that are not a multiple of the
 row tile) and cover the options the default model does not use: tanh, no
 feature norm, one and three layers, other widths, bf16 input rows. The
 tolerances are those of ``chip_smoke.py``: f32 differs by summation order,
-bf16 by 1-ulp flips of the bf16 roundings inside the chain.
+bf16 by 1-ulp flips of the bf16 roundings inside the chain. The K2b checks
+give a zero cotangent to the rows with a relu pre-activation within 1e-5 of
+the kink, where the two summation orders may take opposite sides.
 
 This module imports no JAX: the JAX comparison of the plain versions is in
 the other ``tests/test_torch_*.py`` files.
@@ -87,6 +90,61 @@ def test_trunk_forward_kernel_matches_plain(cuda, rows, d_in, hidden, n_layers, 
     want = FM.trunk_forward_plain(x, params, **kw)
     assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
     assert _rel(got, want) < (2e-3 if bf16 else 1e-5)
+
+
+def _cotangent(gen, x, params, hidden, n_layers, use_fn, use_relu, bf16):
+    """A random cotangent of the trunk output, zero on the rows next to a
+    relu kink (``relu_kink_rows``), in the output's dtype."""
+    g = torch.randn(x.shape[0], hidden, generator=gen).to(x.device)
+    if use_relu:
+        g[FM.relu_kink_rows(x, params, n_layers, use_fn, bf16)] = 0.0
+    return g.bfloat16() if bf16 else g
+
+
+@pytest.mark.parametrize(
+    "rows,d_in,hidden,n_layers,use_fn,use_relu",
+    [(1, 110, 256, 2, True, True), (333, 110, 256, 2, True, True),
+     (70, 440, 256, 2, True, True), (33, 37, 64, 1, False, False),
+     (45, 110, 128, 3, True, False)],
+)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_trunk_backward_kernel_matches_plain(cuda, rows, d_in, hidden, n_layers, use_fn,
+                                             use_relu, bf16):
+    gen = torch.Generator().manual_seed(rows + d_in)
+    params = _trunk_params(gen, d_in, hidden, n_layers, use_fn, cuda)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda)
+    if bf16:
+        x = x.bfloat16()  # the stored observations of the bf16 update
+    g = _cotangent(gen, x, params, hidden, n_layers, use_fn, use_relu, bf16)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=bf16)
+    cb.reset_launches()
+    dx, grads = FM.trunk_backward_cuda(x, params, g, **kw)
+    assert cb.LAUNCHES["fused_mlp_bwd"] == 1
+    want_dx, want = FM.trunk_backward_plain(x, params, g, **kw)
+    assert dx.dtype == x.dtype
+    for got, ref in zip([dx, *grads], [want_dx, *want]):
+        assert _rel(got, ref) < (4e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_fused_trunk_autograd_launches_both_kernels(cuda, bf16):
+    """fused_mlp under autograd: K2 forward and K2b backward on the card,
+    the gradients of the plain versions on the CPU."""
+    gen = torch.Generator().manual_seed(7)
+    cpu = _trunk_params(gen, 110, 64, 2, True, "cpu")
+    x = torch.randn(50, 110, generator=gen)
+    g = _cotangent(gen, x, cpu, 64, 2, True, True, bf16).float()
+    grads = {}
+    for dev in ("cpu", cuda):
+        params = [p.detach().to(dev).requires_grad_() for p in cpu]
+        cb.reset_launches()
+        out = FM.fused_mlp(x.to(dev), params, n_layers=2, bf16=bf16)
+        (out.float() * g.to(dev)).sum().backward()
+        grads[str(dev)] = [p.grad.cpu() for p in params]
+        if dev == cuda:
+            assert cb.LAUNCHES["fused_mlp"] == cb.LAUNCHES["fused_mlp_bwd"] == 1
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) < (4e-3 if bf16 else 1e-4)
 
 
 def _ppo_case(gen, kind, rows, d_in, hidden, n_layers, use_fn, dev):
@@ -172,8 +230,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         FM.trunk_forward_cuda(torch.zeros(4, 16), params, n_layers=1)
     trainable = [p.clone().requires_grad_() for p in params]
-    with pytest.raises(RuntimeError, match="K2b"):
+    with pytest.raises(RuntimeError, match="fused_mlp"):
         FM.trunk_forward_cuda(torch.zeros(4, 16, device=cuda), trainable, n_layers=1)
+    with pytest.raises(ValueError, match="shape"):
+        FM.trunk_backward_cuda(torch.zeros(4, 16, device=cuda), params,
+                               torch.zeros(4, 31, device=cuda), n_layers=1)
     # parameters that do not fit the row width would be read out of bounds
     with pytest.raises(ValueError, match="shapes"):
         FM.trunk_forward_cuda(torch.zeros(4, 17, device=cuda), params, n_layers=1)

@@ -12,7 +12,9 @@ fused kernels, against JAX's bf16 fused update: parameters within 1e-4 and
 metrics within rtol 2e-3 / atol 1e-5. Single bf16 rounding flips in the
 gradients move Adam's normalized steps (measured 2.8e-5 on the parameters,
 4.7e-4 relative on the value loss); the port's update computed in f32 lands
-1.0e-3 and 1.1e-2 away, outside both bounds."""
+1.0e-3 and 1.1e-2 away, outside both bounds. The bf16 update with the fused
+loss off (autograd through the fused trunk, K2 / K2b plain versions) is held
+to the same bounds against JAX's with its interpreted trunk kernel."""
 
 import jax
 import jax.numpy as jnp
@@ -32,13 +34,18 @@ SMALL = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
 
 
 def _pair(fused_loss="off", compute_dtype="float32"):
+    bf16 = compute_dtype == "bfloat16"
+    # JAX's bf16 autograd update differentiates through its interpreted
+    # trunk kernel (K2b); its other updates use the interpreted fused loss
     jalgo = JMAPPO(
-        JMAPPOConfig(fused_loss="interpret", fused_trunk="interpret", gae_backend="xla",
-                     fused_block_rows=32, compute_dtype=compute_dtype, **SMALL),
+        JMAPPOConfig(fused_loss="off" if fused_loss == "off" and bf16 else "interpret",
+                     fused_trunk="interpret", gae_backend="xla", fused_block_rows=32,
+                     compute_dtype=compute_dtype, **SMALL),
         JEnvConfig(),
     )
     jts = jalgo.init_state(jax.random.PRNGKey(0))
-    algo = MAPPO(MAPPOConfig(fused_loss=fused_loss, compute_dtype=compute_dtype, **SMALL),
+    algo = MAPPO(MAPPOConfig(fused_loss=fused_loss, fused_trunk="on" if bf16 else "auto",
+                             compute_dtype=compute_dtype, **SMALL),
                  EnvConfig(), device="cpu")
     actor, critic = algo.make_networks()
     actor.load_state_dict(flax_to_state_dict(jax.device_get(jts.actor_params)))
@@ -47,7 +54,10 @@ def _pair(fused_loss="off", compute_dtype="float32"):
 
 
 def _to_torch(jtraj):
-    return Trajectory(*(torch.from_numpy(np.array(getattr(jtraj, f), np.float32))
+    """The JAX trajectory as the port's; the hidden-state fields of a
+    feed-forward rollout stay None."""
+    return Trajectory(*(None if getattr(jtraj, f) is None
+                        else torch.from_numpy(np.array(getattr(jtraj, f), np.float32))
                         for f in Trajectory._fields))
 
 
@@ -55,7 +65,8 @@ def test_deterministic_rollout_matches_jax():
     jalgo, jts, algo, ts = _pair()
     jtraj = jalgo.rollout(jts, jax.random.PRNGKey(1), 4, deterministic=True)
     traj = algo.rollout(ts, 4, deterministic=True)
-    for f in Trajectory._fields:
+    assert traj.actor_h is None and traj.critic_h is None
+    for f in Trajectory._fields[:8]:
         np.testing.assert_allclose(getattr(traj, f).float().numpy(),
                                    np.asarray(getattr(jtraj, f), np.float32),
                                    atol=1e-4, err_msg=f)
@@ -79,8 +90,8 @@ def test_compute_returns_matches_jax():
 
 @pytest.mark.parametrize(
     "fused_loss,compute_dtype",
-    [("off", "float32"), ("on", "float32"), ("on", "bfloat16")],
-    ids=["off", "on", "on-bf16"],
+    [("off", "float32"), ("on", "float32"), ("on", "bfloat16"), ("off", "bfloat16")],
+    ids=["off", "on", "on-bf16", "off-bf16"],
 )
 def test_update_matches_jax(fused_loss, compute_dtype):
     jalgo, jts, algo, ts = _pair(fused_loss, compute_dtype)
@@ -115,13 +126,34 @@ def test_dispatch_rules_on_cpu():
     algo = MAPPO(MAPPOConfig(fused_loss="on", fused_trunk="on", gae_backend="pallas"),
                  env, device="cpu")
     assert algo.fused_trunk and algo.fused_loss and algo.gae_kernel
-    with pytest.raises(NotImplementedError, match="K2b"):
-        MAPPO(MAPPOConfig(fused_trunk="on", fused_loss="off"), env, device="cpu")
+    # the fused trunk under autograd: its backward is K2b
+    algo = MAPPO(MAPPOConfig(fused_trunk="on", fused_loss="off"), env, device="cpu")
+    assert algo.fused_trunk and not algo.fused_loss
+
+
+@pytest.mark.parametrize(
+    "kw,trunk,loss",
+    [(dict(), False, False), (dict(compute_dtype="bfloat16"), True, True),
+     (dict(compute_dtype="bfloat16", fused_loss="off"), True, False),
+     (dict(compute_dtype="bfloat16", use_recurrent_policy=True), True, False),
+     (dict(compute_dtype="bfloat16", use_naive_recurrent=True), True, False),
+     (dict(use_recurrent_policy=True), False, False)],
+    ids=["f32", "bf16", "bf16-loss-off", "recurrent-bf16", "naive-bf16", "recurrent-f32"],
+)
+def test_dispatch_rules_on_cuda(monkeypatch, kw, trunk, loss):
+    """What "auto" picks on a CUDA device (construction touches no device
+    memory, so a CUDA device is pretended): the trunk kernels K2 / K2b in
+    bf16, the fused loss K3 / K4 in bf16 on the feed-forward policy only,
+    never with recurrence; GAE K1 always."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    algo = MAPPO(MAPPOConfig(**kw), EnvConfig(), device="cuda")
+    assert (algo.fused_trunk, algo.fused_loss, algo.gae_kernel) == (trunk, loss, True)
 
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(share_policy=False), dict(use_recurrent_policy=True), dict(use_popart=True),
+    [dict(share_policy=False), dict(use_recurrent_policy=True, num_mini_batch=2),
+     dict(use_popart=True),
      dict(num_mini_batch=2), dict(use_remat=True), dict(env_dtype="float64"),
      dict(update_chunks=2), dict(fused_loss="on", fused_fold=False)],
 )
