@@ -6,18 +6,33 @@
 Phases (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch / CUDA);
-2. build the CUDA kernels from ``dcc_tpu_torch/csrc`` and print the time;
+2. build the CUDA kernels from ``dcc_tpu_torch/csrc`` and print the time,
+   each tensor-core kernel's registers and spills (``-Xptxas -v``; all of
+   the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
+   of the built libraries must show HMMA instructions in every bf16
+   tensor-core kernel (``*_mma_kernel``) and none in any other kernel (no
+   TF32 in the f32 kernels);
 3. hold each kernel K1-K4 and K2b against its plain PyTorch version on the
    card, in f32 and bf16 where it has both modes, at the default shapes
    (16 envs) and at bench.py's headline 16384 envs (a quarter of that for
    K3 / K4 and K2b, whose plain versions materialize (rows, 256) f32
-   tensors), and time both with CUDA events (median of k runs). K2b runs on
-   the recurrent update's rows: T*E*A for the actor and for the critic,
-   whose env rows are duplicated per agent. Biases and LN affines are moved
-   off their init values so that every bf16 bias add rounds. Each bf16
-   check also runs the kernel in f32 on the same inputs and requires that
-   reading to lie outside the bf16 bound, so the bound tells the bf16
-   rounding points from none at all;
+   tensors). K2b runs on the recurrent update's rows: T*E*A for the actor
+   and for the critic, whose env rows are duplicated per agent. Biases and
+   LN affines are moved off their init values so that every bf16 bias add
+   rounds. Each bf16 check also runs the kernel in f32 on the same inputs
+   and requires that reading to lie outside the bf16 bound, so the bound
+   tells the bf16 rounding points from none at all. The bf16 K3 checks give
+   rows with a relu pre-activation within one bf16 step of the kink a zero
+   advantage: the tensor cores' summation order and the plain version's may
+   put them on opposite sides of it. Times: CUDA events
+   around a run of 50 back-to-back launches (fewer, down to 3, when one
+   launch takes over 5 ms), divided by the count; K2 is fed parameters
+   packed beforehand, as the rollout packs them once per parameter version
+   (``MLPBase.packed_params``), while K3 / K4 and K2b pack inside the
+   window, as their wrappers do every epoch. The wrapper's host time per
+   call (``time.perf_counter`` over 50 calls, no synchronisation between
+   them) is printed beside it, and for K2 also that of the rollout's call
+   through ``MLPBase.forward``;
 4. hold one fused f32 PPO update and one recurrent bf16 update (K2 / K2b)
    on the card against the same update on the CPU (plain versions) from
    identical parameters and trajectory;
@@ -26,7 +41,10 @@ Phases (any failure exits non-zero):
    recurrent f32 config, and 1 of bf16 with the fused loss off; print the
    metrics and phase times, and require each run's kernels to have launched
    exactly as often as its path runs them (K2b 30 times per iteration) and
-   the others not at all;
+   the others not at all, and the bf16 run's K2 and K3 launches to have
+   gone through the tensor-core entry points. Then one more bf16 iteration
+   under ``torch.profiler``: device time by kernel name and the device's
+   idle share over the iteration;
 6. print the ``{"kernels": [...]}`` line, the card line, and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -35,9 +53,12 @@ Imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -89,6 +110,11 @@ TRAIN_RUNS = (
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16"}
+# the C entry point each bf16 run's kernel must go through, and the library
+# whose SASS holds it
+MMA_ENTRY = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma"}
+MMA_LIBS = ("fused_mlp", "fused_ppo")
+N_TIMED = 50  # launches between the two CUDA events of a timing
 
 
 class SmokeFailure(Exception):
@@ -103,22 +129,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
+def time_ms(fn, n: int = N_TIMED):
+    """Device ms per call: CUDA events around ``n`` back-to-back calls after
+    a warm-up call (fewer, down to 3, when one call takes over 5 ms).
+    Returns (ms, calls timed)."""
+    import torch
+
+    def window(k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / k
+
+    fn()
+    torch.cuda.synchronize()
+    one = window(1)
+    if one > 5.0:
+        n = max(3, min(n, int(250.0 / one)))
+    return window(n), n
+
+
+def host_us(fn, n: int = N_TIMED) -> float:
+    """Host microseconds per call: ``time.perf_counter`` around ``n`` calls
+    with no synchronisation between them (the enqueue cost a caller pays)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
 
 
 def compare(name, got, want, max_rel, max_abs=None):
@@ -169,6 +216,69 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ptxas_report(logs: dict, show: bool) -> dict:
+    """Registers and spills of every kernel from the ``-Xptxas -v`` reports;
+    prints the tensor-core kernels' (and the whole report with ``show``)."""
+    info, fn = {}, None
+    for name, text in sorted(logs.items()):
+        if show:
+            print(f"--- nvcc {name}.cu ---\n{text}")
+        for line in text.splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)",
+                          line)
+            if m:
+                fn = m.group(1)
+                info.setdefault(fn, {})
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                info[fn].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                info[fn]["registers"] = int(m.group(1))
+    for fn, v in sorted(info.items()):
+        if "_mma_kernel" in fn:
+            print(f"  ptxas {fn}: {v}", flush=True)
+    return info
+
+
+def sass_check(built: dict) -> dict:
+    """HMMA / HGMMA instructions per kernel function of the K2 and K3
+    libraries (``cuobjdump -sass``). Raises unless the bf16 tensor-core
+    kernels of both are there and hold some, and no other kernel does."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        tool = shutil.which("cuobjdump")
+    if tool is None:
+        raise SmokeFailure("cuobjdump not found: the SASS check needs the CUDA toolkit")
+    counts = {}
+    for lib in MMA_LIBS:
+        out = subprocess.run([tool, "-sass", built[lib]], capture_output=True, text=True,
+                             check=True, timeout=300).stdout
+        fn = None
+        for line in out.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+                counts[fn] += 1
+    mma = {f: c for f, c in counts.items() if "_mma_kernel" in f}
+    for want in ("trunk_fwd_mma_kernel", "actor_grads_mma_kernel"):
+        if not any(want in f for f in mma):
+            raise SmokeFailure(f"SASS check: no {want} in {sorted(counts)}")
+    missing = sorted(f for f, c in mma.items() if c == 0)
+    stray = sorted(f for f, c in counts.items() if c and f not in mma)
+    if missing or stray:
+        raise SmokeFailure(f"SASS check: tensor-core kernels without HMMA {missing}, "
+                           f"other kernels with HMMA {stray}")
+    print(f"  SASS: HMMA instructions per tensor-core kernel {mma}; none in the "
+          f"{len(counts) - len(mma)} other kernels of {list(MMA_LIBS)}", flush=True)
+    return counts
+
+
 def check_kernels(results: list):
     import torch
 
@@ -185,17 +295,25 @@ def check_kernels(results: list):
     flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
 
-    def record(kernel, mode, envs, shape, errs, ms, plain_ms, bound_ms, bound_by,
-               f32_rel=None):
+    def record(kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
+               f32_rel=None, **extra_host):
+        """Time the kernel's wrapper and the plain version, print and keep
+        the row. ``extra_host``: further callables whose host us per call
+        are printed beside the wrapper's."""
         err, rel, worst = errs
+        (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
+        hosts = {"wrapper": host_us(kern, n),
+                 **{k: host_us(f, n) for k, f in extra_host.items()}}
         row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, max_abs_err=err,
-                   rel_err=rel, worst_tensor=worst, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, f32_kernel_rel_err=f32_rel)
+                   rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n, plain_ms=plain_ms,
+                   plain_n_timed=plain_n, host_us=hosts, bound_ms=bound_ms,
+                   bound_by=bound_by, f32_kernel_rel_err=f32_rel)
         results.append(row)
         extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
         print(f"  {kernel:17s} {mode:4s} envs={envs:<6d} {shape:28s} max_abs={err:.3e} "
-              f"rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"bound={bound_ms:.4f} ms ({bound_by})", flush=True)
+              f"rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} "
+              f"ms bound={bound_ms:.6f} ms ({bound_by}) host us/call: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items()), flush=True)
 
     # K1: GAE over (T, E) per-env columns
     for envs in (16, BIG_ENVS):
@@ -212,10 +330,11 @@ def check_kernels(results: list):
         errs = compare("gae", [ka, kr], [pa, pr], 1e-5, 1e-5 * scale)
         n = T * envs
         b, by = bound(6 * 4 * n, 8 * n, PEAK_FP32)
-        record("gae", "f32", envs, f"T={T} B={envs}", errs, time_ms(kern, 20),
-               time_ms(plain, 5), b, by)
+        record("gae", "f32", envs, f"T={T} B={envs}", errs, kern, plain, b, by)
 
-    # K2: trunk forward on the actor (E*A, 110) and critic (E, 440) rows
+    # K2: trunk forward on the actor (E*A, 110) and critic (E, 440) rows, on
+    # parameters packed beforehand as the rollout packs them (once per
+    # parameter version, MLPBase.packed_params)
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on"), env, device=dev)
@@ -227,8 +346,14 @@ def check_kernels(results: list):
                 x = randn(rows, width)
                 params = [p.detach() for p in net.base.flat_params()]
                 kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
-                kern = lambda: FM.trunk_forward_cuda(x, params, **kw)
+                packed = net.base.packed_params(dev)
+                kern = lambda: FM.trunk_forward_cuda(x, params, packed=packed, **kw)
                 plain = lambda: FM.trunk_forward_plain(x, params, **kw)
+
+                def rollout_call(net=net, x=x):  # the rollout's path to K2
+                    with torch.no_grad():
+                        return net.base(x)
+
                 # f32: summation order only; bf16: 1-ulp flips of bf16
                 # roundings inside the chain (LN outputs reach |16|, ulp 1/8)
                 tol = (K2_BF16_REL, 0.25) if bf16 else (1e-4, 1e-3)
@@ -244,8 +369,8 @@ def check_kernels(results: list):
                           + 4 * sum(p.numel() for p in params))
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record("fused_mlp", "bf16" if bf16 else "f32", envs,
-                       f"rows={rows} d_in={width}", errs, time_ms(kern, 10),
-                       time_ms(plain, 5), b, by, f32_rel)
+                       f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel,
+                       **{"MLPBase.forward": rollout_call})
 
     # K2b: trunk backward on the recurrent update's rows, T*E*A for both
     # networks, and on the actor's rows at a quarter of the headline envs
@@ -286,10 +411,8 @@ def check_kernels(results: list):
                 nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
                           + 2 * 4 * sum(t.numel() for t in params))
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                reps = 3 if envs == big else 10
                 record("fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
-                       f"rows={rows} d_in={width}", errs, time_ms(kern, reps),
-                       time_ms(plain, reps), b, by, f32_rel)
+                       f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel)
                 del k, p, x, g
                 torch.cuda.empty_cache()
 
@@ -311,10 +434,18 @@ def check_kernels(results: list):
             act = randn(R, 2) * 0.5
             old_lp = -2.0 + 0.3 * randn(R, 1)
             adv = randn(R, 1)
-            aux_a = FP.pack_actor_aux(act, old_lp, adv)
             kp, whf, bhf = FP.fold_trunk(
                 [p.detach() for p in actor.base.flat_params()],
                 actor.act_out.weight.detach().t(), actor.act_out.bias.detach(), 2, True)
+            if bf16:
+                # rows with a relu pre-activation within one bf16 step of the
+                # kink may take either side in the tensor cores' summation
+                # order and in the plain version's: they get a zero advantage
+                kink = FP.relu_kink_rows_folded(obs, kp, 2, True)
+                adv[kink] = 0.0
+                print(f"  actor bf16, {envs} envs: {int(kink.sum())} of {R} rows next to a "
+                      f"relu kink get a zero advantage", flush=True)
+            aux_a = FP.pack_actor_aux(act, old_lp, adv)
             ls = actor.log_std.detach()
             kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
             kern = lambda: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw)
@@ -338,8 +469,7 @@ def check_kernels(results: list):
             nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
             b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
             record("actor_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   f"rows={R} d_in={D}", errs, time_ms(kern, 5), time_ms(plain, 3),
-                   b, by, f32_rel)
+                   f"rows={R} d_in={D}", errs, kern, plain, b, by, f32_rel)
             del k, p
 
             cent = obs.reshape(Rv, A * D)
@@ -368,8 +498,7 @@ def check_kernels(results: list):
             nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
             b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
             record("critic_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   f"rows={Rv} d_in={A * D}", errs, time_ms(kern, 5),
-                   time_ms(plain, 3), b, by, f32_rel)
+                   f"rows={Rv} d_in={A * D}", errs, kern, plain, b, by, f32_rel)
             del k, p, obs, cent
             torch.cuda.empty_cache()
 
@@ -450,11 +579,63 @@ def check_updates_against_cpu(results: dict):
         3e-4, 2e-3, 3e-5, ("gae", "fused_mlp", "fused_mlp_bwd"))
 
 
+def _short(name: str) -> str:
+    """A kernel's name without its template arguments and parameters."""
+    m = re.match(r"(?:void )?([\w:]+)", name)
+    return m.group(1) if m else name
+
+
+def profile_iteration(learner) -> dict:
+    """One training iteration under torch.profiler (CPU and CUDA): device
+    time of each kernel by name (a slot reduction is named after the kernel
+    it follows) and the device's idle share, 1 - (union of device-busy
+    intervals) / (the iteration's wall time, synchronised at its end)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        learner.algo.train_iteration(learner.ts)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    busy, end, prev = 0.0, -math.inf, "?"
+    for e in dev:
+        name = _short(e.name)
+        if name == "reduce_slots_kernel":
+            name = f"reduce_slots_kernel after {prev}"
+        else:
+            prev = name
+        by_name[name][0] += e.time_range.elapsed_us()
+        by_name[name][1] += 1
+        a, b = e.time_range.start, e.time_range.end
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    if not dev:
+        print("  profiler: no device events (device time by name not measured)", flush=True)
+        return dict(wall_us=wall_us, device_events=0)
+    idle = 1.0 - busy / wall_us
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    print(f"  profiler, one bf16 iteration: wall {wall_us / 1e3:.1f} ms (profiled), device "
+          f"busy {busy / 1e3:.2f} ms, idle share {idle:.4f}; device time by kernel:",
+          flush=True)
+    for name, (us, n) in rows[:16]:
+        print(f"    {us / 1e3:10.3f} ms {n:6d} calls {us / n:10.2f} us/call  {name}", flush=True)
+    return dict(wall_us=wall_us, busy_us=busy, idle_share=idle,
+                kernels={k: dict(total_us=v[0], calls=v[1]) for k, v in rows})
+
+
 def train_runs(results: dict):
     import torch
 
     from dcc_tpu_torch import train
     from dcc_tpu_torch.ops import LAUNCHES, reset_launches
+    from dcc_tpu_torch.ops.cuda_build import ENTRY
 
     for tag, extra, per_iter in TRAIN_RUNS:
         args = BASE_ARGS + extra
@@ -475,12 +656,18 @@ def train_runs(results: dict):
         want = {k: n * learner.n_iters for k, n in per_iter.items()}
         if counts != want:
             raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
+        if tag == "bf16":
+            entries = {k: ENTRY.get(k) for k in MMA_ENTRY}
+            if entries != MMA_ENTRY:
+                raise SmokeFailure(f"bf16 K2 / K3 went through {entries}, not {MMA_ENTRY}")
+            results["profile"] = profile_iteration(learner)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--ptxas", action="store_true", help="print nvcc -Xptxas -v output")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print all of nvcc's -Xptxas -v report")
     ap.add_argument("--out", default=None, help="also write all results to this JSON file")
     args = ap.parse_args(argv)
 
@@ -505,20 +692,26 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build(verbose=args.ptxas)
+    built = cuda_build.build(verbose=True)
     print(f"[2] built {sorted(k for k in built if not k.startswith('_'))} in "
           f"{built['_seconds']:.1f} s ({time.perf_counter() - t0:.1f} s with hashing)",
           flush=True)
+    ptxas = ptxas_report(built["_ptxas"], args.ptxas)
+    sass = sass_check(built)
 
     checks: list = []
-    print("[3] kernels against their plain versions", flush=True)
+    print(f"[3] kernels against their plain versions (at {time.perf_counter() - t0:.0f} s)",
+          flush=True)
     check_kernels(checks)
-    print("[4] updates on the card against the CPU", flush=True)
+    print(f"[4] updates on the card against the CPU (at {time.perf_counter() - t0:.0f} s)",
+          flush=True)
     updates: dict = {}
     check_updates_against_cpu(updates)
-    print("[5] training through dcc_tpu_torch.train", flush=True)
+    print(f"[5] training through dcc_tpu_torch.train (at {time.perf_counter() - t0:.0f} s)",
+          flush=True)
     runs: dict = {}
     train_runs(runs)
+    print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in ("gae", "fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads"):
@@ -530,15 +723,15 @@ def main(argv=None) -> int:
             launches=runs[MAIN_RUN[name]]["launches"].get(name, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
-            mode=mode, shape=row["shape"],
+            mode=mode, shape=row["shape"], host_us=row["host_us"]["wrapper"],
         ))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
-                           build_s=built["_seconds"], checks=checks, updates=updates,
-                           train=runs,
-                           kernels=kernels), f, indent=1)
+                           build_s=built["_seconds"], ptxas=ptxas, sass_hmma=sass,
+                           checks=checks, updates=updates, train=runs, kernels=kernels),
+                      f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

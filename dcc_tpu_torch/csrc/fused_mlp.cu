@@ -5,28 +5,33 @@
 // actor on (E*A, 110) rows and for the critic on (E, 440) rows every step.
 //
 // What bounds it on an H100: per row the work is 2 * (d_in * H + H * H)
-// multiply-adds against (d_in + H) * 4 bytes of input and output, so at the
-// default widths it does ~400 operations per byte of HBM traffic and is
-// compute-bound in principle. This first version runs the products on the
-// CUDA cores in FP32 FMA (bf16 operands are rounded into f32 registers), so
-// its bound is the 67 TFLOP/s FP32 rate, not the tensor cores.
+// multiply-adds against (d_in + H) * 2-4 bytes of input and output, about
+// 400 operations a byte at the default widths, so it is compute-bound in
+// principle; at the rollout's 16-env shapes (64 and 16 rows) it is a single
+// launch's latency.
 //
-// Design: one block per tile of BR rows; the tile's activations never leave
-// shared memory (BR x max(d_in, H) input buffer plus a BR x H output
-// buffer: 89 KB at BR = 32, d_in = 440, so dynamic shared memory). Each
-// weight is read once per tile from L2, where the whole trunk stays
-// resident. The ragged last tile is masked on load and store. Tensor cores
-// (mma / wgmma) and a TMA weight pipeline are later work.
-#include "trunk.cuh"
+// Two kernels, one per mode:
+// * bf16 (trunk_fwd_mma_kernel): the products run on the tensor cores
+//   (trunk_mma.cuh: mma.sync m16n8k16, ldmatrix, cp.async weight ring),
+//   on bf16 weight copies zero-padded to multiples of 16. A tile of BR =
+//   16, 32 or 64 rows stays in shared memory as bf16 (it is exactly the
+//   next product's operand); each warp holds 16 rows x a column group of
+//   f32 accumulators, and the Dense epilogue, the activation and the LN run
+//   in registers. Blocks are persistent (at most two per SM) and loop over
+//   row tiles; the weights (at most 448 x 256 bf16 per layer) stream from
+//   L2, where the trunk stays resident.
+// * f32 (trunk_fwd_kernel): full FP32 on the CUDA cores (no TF32), one
+//   block per tile of BR rows, one thread per output column.
+// The ragged last tile is masked on load and store in both.
+#include "trunk_mma.cuh"
 
-// Offsets in the packed parameter buffer: fn scale, fn bias at v[0], v[1];
-// layer li: W at v[2+4li], b at v[3+4li], LN scale at v[4+4li], LN bias at
-// v[5+4li].
-template <int BR, bool BF16>
+// Offsets in the packed f32 parameter buffer: fn scale, fn bias at v[0],
+// v[1]; layer li: W at v[2+4li], b at v[3+4li], LN scale at v[4+4li], LN
+// bias at v[5+4li].
+template <int BR>
 __global__ void __launch_bounds__(DCC_THREADS)
-    trunk_fwd_kernel(const void* x, int x_bf16, long long R, int d_in, int H,
-                     int L, int use_fn, int relu, const float* pb,
-                     DccOffs offs, void* out) {
+    trunk_fwd_kernel(const void* x, int x_bf16, long long R, int d_in, int H, int L,
+                     int use_fn, int relu, const float* pb, DccOffs offs, float* out) {
   extern __shared__ float smem[];
   const int wmax = d_in > H ? d_in : H;
   float* a = smem;             // BR x wmax
@@ -36,66 +41,173 @@ __global__ void __launch_bounds__(DCC_THREADS)
   load_tile<BR>(x, x_bf16, row0, R, d_in, a);
   __syncthreads();
   if (use_fn) {
-    ln_tile<BR>(a, a, d_in, pb + offs.v[0], pb + offs.v[1], BF16, nullptr);
+    ln_tile<BR>(a, a, d_in, pb + offs.v[0], pb + offs.v[1], false, nullptr);
     __syncthreads();
   }
   int din = d_in;
   for (int li = 0; li < L; ++li) {
     const long long* o = offs.v + 2 + 4 * li;
-    dense_act_tile<BR, BF16>(a, din, pb + o[0], pb + o[1], H, relu, z);
+    dense_act_tile<BR, false>(a, din, pb + o[0], pb + o[1], H, relu, z);
     __syncthreads();
-    ln_tile<BR>(z, a, H, pb + o[2], pb + o[3], BF16, nullptr);
+    ln_tile<BR>(z, a, H, pb + o[2], pb + o[3], false, nullptr);
     __syncthreads();
     din = H;
   }
   for (int i = threadIdx.x; i < BR * H; i += blockDim.x) {
     const long long off = row0 * H + i;
-    if (off < R * H) {
-      if (BF16)
-        ((__nv_bfloat16*)out)[off] = __float2bfloat16_rn(a[i]);
-      else
-        ((float*)out)[off] = a[i];
+    if (off < R * H) out[off] = a[i];
+  }
+}
+
+__host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H) {
+  const int Hp = pad16(H), wmax = pad16(d_in) > Hp ? pad16(d_in) : Hp;
+  const int WN = MMA_WARPS / (br / 16);
+  return 2 * ((size_t)br * (wmax + 8) + MMA_STAGES * (size_t)ring_stage(Hp, false)) +
+         4 * (size_t)WN * br * 2;
+}
+
+// bf16 trunk on the tensor cores. wb holds each layer's W as bf16, zero
+// padded to pad16(d_li) x pad16(H), at woffs.v[li]; pb the f32 vectors.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS)
+    trunk_fwd_mma_kernel(const void* x, int x_bf16, long long R, int d_in, int H, int L,
+                         int use_fn, int relu, const float* pb, DccOffs offs, const bf16* wb,
+                         DccOffs woffs, bf16* out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Kp0 = pad16(d_in), Hp = pad16(H);
+  const int lda = (Kp0 > Hp ? Kp0 : Hp) + 8;
+  bf16* A = (bf16*)smem_raw;  // BR x lda: the current layer's input
+  bf16* ring = A + BR * lda;
+  float* red = (float*)(ring + MMA_STAGES * ring_stage(Hp, false));
+  const WarpTile wt = warp_tile<BR>(Hp / 8);
+
+  const long long tiles = (R + BR - 1) / BR;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * BR;
+    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], A,
+                   lda);
+    __syncthreads();
+    int Kp = Kp0;
+    for (int li = 0; li < L; ++li) {
+      const long long* o = offs.v + 2 + 4 * li;
+      float acc[MmaTile<BR>::NT][4];
+      gemm_stream<false>(A, lda, Kp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      float mu[2], inv[2];
+      dense_act_stats<BR>(acc, pb + o[1], H, relu, red, wt, mu, inv);
+      // LN output, bf16: the next layer's operand, or the trunk's output
+      const float* sc = pb + o[2];
+      const float* bi = pb + o[3];
+#pragma unroll
+      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+        if (nt < wt.ntw) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
+            float y[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              y[e] = 0.f;
+              if (c + e < H)
+                y[e] = (acc[nt][2 * h + e] - mu[h]) * inv[h] * sc[c + e] + bi[c + e];
+            }
+            if (li + 1 < L) {
+              store_bf16x2(A + r * lda + c, y[0], y[1]);
+            } else if (row0 + r < R && c < H) {
+              store_bf16x2(out + (row0 + r) * H + c, y[0], y[1]);
+            }
+          }
+        }
+      }
+      __syncthreads();
+      Kp = Hp;
     }
   }
 }
 
-template <int BR, bool BF16>
-static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L,
-                  int use_fn, int relu, const float* pb, const long long* offs,
-                  int n_offs, void* out, cudaStream_t stream) {
+static DccOffs to_offs(const long long* offs, int n_offs) {
   DccOffs o;
   for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
+  return o;
+}
+
+template <int BR>
+static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L, int use_fn,
+                  int relu, const float* pb, DccOffs o, float* out, cudaStream_t stream) {
+  static bool smem_set = false;
+  auto k = trunk_fwd_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
   const int wmax = d_in > H ? d_in : H;
   const size_t smem = sizeof(float) * (size_t)BR * (wmax + H);
-  auto k = trunk_fwd_kernel<BR, BF16>;
-  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   const long long tiles = (R + BR - 1) / BR;
   if (tiles > 0)
-    k<<<(unsigned)tiles, DCC_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L,
-                                                      use_fn, relu, pb, o, out);
+    k<<<(unsigned)tiles, DCC_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L, use_fn, relu,
+                                                      pb, o, out);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dcc_trunk_fwd(const void* x, int x_bf16, long long R, int d_in,
-                             int H, int L, int use_fn, int relu, int bf16,
-                             int br, const float* pb, const long long* offs,
-                             int n_offs, void* out, void* stream) {
+template <int BR>
+static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, int L,
+                      int use_fn, int relu, const float* pb, DccOffs o, const bf16* wb,
+                      DccOffs wo, int n_blocks, bf16* out, cudaStream_t stream) {
+  static bool smem_set = false;
+  auto k = trunk_fwd_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = fwd_mma_smem_bytes(BR, d_in, H);
+  if (R > 0)
+    k<<<n_blocks, MMA_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o,
+                                               wb, wo, out);
+  return (int)cudaGetLastError();
+}
+
+// f32 trunk: br in {32, 8, 1}.
+extern "C" int dcc_trunk_fwd(const void* x, int x_bf16, long long R, int d_in, int H, int L,
+                             int use_fn, int relu, int br, const float* pb,
+                             const long long* offs, int n_offs, float* out, void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define DCC_CASE(B)                                                                \
-  case B:                                                                          \
-    return bf16 ? launch<B, true>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, \
-                                  n_offs, out, s)                                  \
-                : launch<B, false>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, \
-                                   n_offs, out, s);
+  const DccOffs o = to_offs(offs, n_offs);
   switch (br) {
-    DCC_CASE(32)
-    DCC_CASE(8)
-    DCC_CASE(1)
+    case 32: return launch<32>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, out, s);
+    case 8: return launch<8>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, out, s);
+    case 1: return launch<1>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" unsigned long long dcc_trunk_fwd_mma_smem_bytes(int br, int d_in, int H) {
+  return fwd_mma_smem_bytes(br, d_in, H);
+}
+
+// bf16 trunk on the tensor cores: br in {64, 32, 16}; H a multiple of 8, at
+// most MMA_HMAX; n_blocks persistent blocks loop over the row tiles.
+extern "C" int dcc_trunk_fwd_mma(const void* x, int x_bf16, long long R, int d_in, int H,
+                                 int L, int use_fn, int relu, int br, const float* pb,
+                                 const long long* offs, int n_offs, const void* wb,
+                                 const long long* woffs, int n_woffs, int n_blocks, void* out,
+                                 void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || H % 8 != 0 ||
+      H > MMA_HMAX || n_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  bf16* y = (bf16*)out;
+  switch (br) {
+    case 64:
+      return launch_mma<64>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
+    case 32:
+      return launch_mma<32>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
+    case 16:
+      return launch_mma<16>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef DCC_CASE
 }
 
 extern "C" const char* dcc_error_string(int code) {

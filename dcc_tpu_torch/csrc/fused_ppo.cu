@@ -9,9 +9,11 @@
 //
 // What bounds them on an H100: per row, the forward and the backward do
 // ~3 * 2 * (d_in * H + H * H) operations against d_in * (2 or 4) bytes of
-// input, so the work is compute-bound. This first version runs every product
-// on the CUDA cores in FP32 FMA, so the 67 TFLOP/s FP32 rate bounds it, and
-// it also re-reads and re-writes each block's gradient slot once per tile.
+// input, so the work is compute-bound. The bf16 actor (actor_grads_mma_kernel)
+// runs every product on the tensor cores; the f32 actor and the critic in
+// both modes run them on the CUDA cores in FP32 FMA (67 TFLOP/s). Every
+// kernel re-reads and re-writes its block's gradient slot once per tile,
+// which bounds the bf16 actor at large batch.
 //
 // Design. The Pallas kernels accumulate the weight gradients into one output
 // block across a sequential grid, which is race-free only on a TPU. Here a
@@ -27,7 +29,7 @@
 // autodiff tie rules: min / max split the cotangent 50/50 on ties, clip
 // composes the two.
 #include "slots.cuh"
-#include "trunk.cuh"
+#include "trunk_mma.cuh"
 
 #define DCC_LOG_SQRT_2PI 0.91893853320467274178f
 
@@ -77,11 +79,12 @@ __device__ void slot_ptrs(float* slot, int d_in, int H, int L, int A,
 }
 
 // ---------------------------------------------------------------------------
-// K3: actor. aux rows: [action (A), old_log_prob, advantage, valid].
-// Parameter offsets: trunk as trunk_fwd_folded, then Wh (H x A) at v[3L],
-// bh at v[3L+1], log_std at v[3L+2].
+// K3: actor, f32 (the bf16 actor is actor_grads_mma_kernel below). aux rows:
+// [action (A), old_log_prob, advantage, valid]. Parameter offsets: trunk as
+// trunk_fwd_folded, then Wh (H x A) at v[3L], bh at v[3L+1], log_std at
+// v[3L+2].
 // ---------------------------------------------------------------------------
-template <int BR, bool BF16>
+template <int BR>
 __global__ void __launch_bounds__(DCC_THREADS)
     actor_grads_kernel(const void* x, int x_bf16, const float* aux, long long R,
                        int d_in, int H, int L, int A, int use_fn, int relu,
@@ -115,7 +118,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
-    trunk_fwd_folded<BR, BF16>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
+    trunk_fwd_folded<BR, false>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
                                offs, c);
     // head + loss, one warp per row
     for (int r = warp; r < BR; r += nw) {
@@ -126,9 +129,9 @@ __global__ void __launch_bounds__(DCC_THREADS)
       for (int d = 0; d < A; ++d) {
         float s = 0.f;
         for (int h = lane; h < H; h += 32)
-          s = fmaf(rnd<BF16>(feat[r * H + h]), rnd<BF16>(Wh[h * A + d]), s);
+          s = fmaf(feat[r * H + h], Wh[h * A + d], s);
         s = warp_sum(s);
-        const float mean = BF16 ? bf16r(bf16r(s) + bf16r(bh[d])) : s + bh[d];
+        const float mean = s + bh[d];
         const float ls = log_std[d];
         isd[d] = expf(-ls);
         const float act = row < R ? aux[row * (A + 3) + d] : 0.f;
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
       float s = 0.f;
 #pragma unroll
       for (int r = 0; r < BR; ++r)
-        s = fmaf(rnd<BF16>(feat[r * H + h]), rnd<BF16>(dmean[r * A + d]), s);
+        s = fmaf(feat[r * H + h], dmean[r * A + d], s);
       s_wh[e] += s;
     }
     if (threadIdx.x < A) {
@@ -191,11 +194,376 @@ __global__ void __launch_bounds__(DCC_THREADS)
       const int r = i / H, h = i - r * H;
       float s = 0.f;
       for (int d = 0; d < A; ++d)
-        s = fmaf(rnd<BF16>(dmean[r * A + d]), rnd<BF16>(Wh[h * A + d]), s);
+        s = fmaf(dmean[r * A + d], Wh[h * A + d], s);
       c.g[i] = s;
     }
     __syncthreads();
-    trunk_bwd_folded<BR, BF16>(d_in, H, L, relu, pb, offs, c, sv, su);
+    trunk_bwd_folded<BR, false>(d_in, H, L, relu, pb, offs, c, sv, su);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 in bf16, on the tensor cores (trunk_mma.cuh). Every product of the
+// folded forward and backward is an mma.sync bf16 product with f32
+// accumulation: the forward's a @ V, the backward's g_prev = bf16(g) V^T and
+// dV = bf16(in)^T bf16(g). The head (A <= 4 outputs) and the loss stay on
+// the CUDA cores. The forward cache is bf16, which holds it exactly: every
+// activation is a bf16 value (relu of a bf16 z, or bf16(tanh)), and each
+// layer's f32 xhat = (act - mu) * inv is recomputed from it with the
+// forward's expression. Shared memory of one block (BR rows, Kp0 =
+// pad16(d_in), Hp = pad16(H); bf16 tiles with rows padded by 8 elements):
+//   a0    BR x Kp0   layer 0's operand
+//   act   L x BR x Hp  each layer's activation
+//   sx    BR x Hp    the operand of layer li >= 1, bf16(xhat_{li-1})
+//   gs    BR x Hp    bf16 of the current layer's cotangent
+//   ring  the stages of the weight stream
+//   f32:  mu, inv (L x BR), row-sum partials, column sums (BR/16 x Hp),
+//         bf16(Wh) (H x A) and the biases u (L x H), both loaded once per
+//         block, per-row head values
+// Each tile's gradients go into the block's own slot, stored by the
+// block's first tile and added by the others; every slot element has one
+// owner thread. dV is accumulated per tile in 32 x 64 register slabs.
+// ---------------------------------------------------------------------------
+struct ActorMmaLayout {
+  size_t a0, act, sx, gs, ring, mu, inv, red, colsum, wh, u, dmean, dls, loss, ratio, total;
+};
+
+__host__ __device__ inline ActorMmaLayout actor_mma_layout(int br, int d_in, int H, int L,
+                                                           int A) {
+  const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const int st_kn = ring_stage((int)Hp, false), st_nk = ring_stage((int)Hp, true);
+  ActorMmaLayout m;
+  size_t o = 0;
+  m.a0 = o;     o += 2 * br * (Kp0 + 8);
+  m.act = o;    o += 2 * (size_t)L * br * ldh;
+  m.sx = o;     o += 2 * br * ldh;
+  m.gs = o;     o += 2 * br * ldh;
+  m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
+  m.mu = o;     o += 4 * (size_t)L * br;
+  m.inv = o;    o += 4 * (size_t)L * br;
+  m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
+  m.colsum = o; o += 4 * (size_t)(br / 16) * Hp;
+  m.wh = o;     o += 4 * (size_t)H * A;
+  m.u = o;      o += 4 * (size_t)L * H;
+  m.dmean = o;  o += 4 * (size_t)br * A;
+  m.dls = o;    o += 4 * (size_t)br * A;
+  m.loss = o;   o += 4 * (size_t)br;
+  m.ratio = o;  o += 4 * (size_t)br;
+  m.total = o;
+  return m;
+}
+
+// The cotangent g (acc) of a layer's LN output back through the LN (no
+// affine) and the activation, in registers; columns >= H become 0. Writes
+// the column sums of the result over the warp's 16 rows to colsum[wm][*]
+// and its bf16 rounding to gs.
+template <int BR>
+__device__ __forceinline__ void ln_act_bwd(float (&acc)[MmaTile<BR>::NT][4], const bf16* act,
+                                           int ldh, const float* mu, const float* inv, int H,
+                                           int Hp, bool relu, float* red, const WarpTile& wt,
+                                           float* colsum, bf16* gs) {
+  const int lane = threadIdx.x & 31;
+  const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
+  const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        if (col < H) {
+          const float xh = (bf(act[(wt.r0 + 8 * h) * ldh + col]) - m[h]) * iv[h];
+          s1[h] += acc[nt][i];
+          s2[h] += acc[nt][i] * xh;
+        }
+      }
+    }
+  }
+  row_sums<BR>(s1, s2, red, wt);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s1[h] /= H;
+    s2[h] /= H;
+  }
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+      float cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        float v = 0.f;
+        if (col < H) {
+          const float a = bf(act[(wt.r0 + 8 * h) * ldh + col]);
+          const float xh = (a - m[h]) * iv[h];
+          v = iv[h] * (acc[nt][i] - s1[h] - xh * s2[h]);
+          v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
+        }
+        acc[nt][i] = v;
+        cs[i & 1] += v;
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+      const int c = wt.c0 + nt * 8;
+      if (lane < 4) {
+        colsum[wt.wm * Hp + c] = cs[0];
+        colsum[wt.wm * Hp + c + 1] = cs[1];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_bf16x2(gs + (wt.r0 + 8 * h) * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+// Parameters: f32 vectors in pb as actor_grads_kernel (u_li at
+// offs.v[3*li+2], head Wh, bh, log_std at offs.v[3L..3L+2]; the V slots may
+// be empty), bf16 V_li (pad16(d_li) x pad16(H), zero padded) at
+// wb + woffs.v[li].
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    actor_grads_mma_kernel(const void* x, int x_bf16, const float* aux, long long R, int d_in,
+                           int H, int L, int A, int use_fn, int relu, float clip,
+                           const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
+                           float* slots, long long slot_size) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ActorMmaLayout m = actor_mma_layout(BR, d_in, H, L, A);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8;
+  bf16* a0 = (bf16*)(smem_raw + m.a0);
+  bf16* act = (bf16*)(smem_raw + m.act);
+  bf16* sx = (bf16*)(smem_raw + m.sx);
+  bf16* gs = (bf16*)(smem_raw + m.gs);
+  bf16* ring = (bf16*)(smem_raw + m.ring);
+  float* mu_s = (float*)(smem_raw + m.mu);
+  float* inv_s = (float*)(smem_raw + m.inv);
+  float* red = (float*)(smem_raw + m.red);
+  float* colsum = (float*)(smem_raw + m.colsum);
+  float* whs = (float*)(smem_raw + m.wh);
+  float* us = (float*)(smem_raw + m.u);
+  float* dmean = (float*)(smem_raw + m.dmean);
+  float* row_dls = (float*)(smem_raw + m.dls);
+  float* row_loss = (float*)(smem_raw + m.loss);
+  float* row_ratio = (float*)(smem_raw + m.ratio);
+
+  float* slot = slots + (long long)blockIdx.x * slot_size;
+  float* sv[DCC_MAX_LAYERS];
+  float* su[DCC_MAX_LAYERS];
+  float* head;
+  slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
+  float* s_wh = head;
+  float* s_bh = s_wh + H * A;
+  float* s_ls = s_bh + A;
+  float* s_met = s_ls + A;
+  const float* Wh = pb + offs.v[3 * L];
+  const float* bh = pb + offs.v[3 * L + 1];
+  const float* log_std = pb + offs.v[3 * L + 2];
+  const bf16* feat = act + (long long)(L - 1) * BR * ldh;  // xhat = (feat - fmu) * finv
+  const float* fmu = mu_s + (L - 1) * BR;
+  const float* finv = inv_s + (L - 1) * BR;
+  const WarpTile wt = warp_tile<BR>(Hp / 8);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int WM = MmaTile<BR>::WM;
+  for (int i = threadIdx.x; i < H * A; i += blockDim.x) whs[i] = bf16r(Wh[i]);
+  for (int i = threadIdx.x; i < L * H; i += blockDim.x)
+    us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
+
+  const long long tiles = (R + BR - 1) / BR;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * BR;
+    const bool first = tile == blockIdx.x;
+    if (threadIdx.x < 2 && tile + gridDim.x < tiles) {
+      // the next tile's rows (thread 0) and aux rows (thread 1), into L2
+      const long long r1 = row0 + (long long)gridDim.x * BR;
+      const long long n = min((long long)BR, R - r1);
+      const int esz = threadIdx.x == 0 ? (x_bf16 ? 2 : 4) * d_in : 4 * (A + 3);
+      const char* p = threadIdx.x == 0 ? (const char*)x : (const char*)aux;
+      prefetch_l2_span(p + r1 * esz, n * esz);
+    }
+    // folded forward (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded)
+    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
+    __syncthreads();
+    float acc[MmaTile<BR>::NT][4];
+    for (int li = 0; li < L; ++li) {
+      gemm_stream<false>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
+                         wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      float mu[2], inv[2];
+      dense_act_stats<BR>(acc, us + li * H, H, relu, red, wt, mu, inv);
+      if (wt.wn == 0 && (lane & 3) == 0) {
+        for (int h = 0; h < 2; ++h) {
+          mu_s[li * BR + wt.r0 + 8 * h] = mu[h];
+          inv_s[li * BR + wt.r0 + 8 * h] = inv[h];
+        }
+      }
+      bf16* a = act + (long long)li * BR * ldh;
+#pragma unroll
+      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+        if (nt < wt.ntw) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
+            store_bf16x2(a + r * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
+            if (li + 1 < L) {
+              const float y0 = c < H ? (acc[nt][2 * h] - mu[h]) * inv[h] : 0.f;
+              const float y1 = c + 1 < H ? (acc[nt][2 * h + 1] - mu[h]) * inv[h] : 0.f;
+              store_bf16x2(sx + r * ldh + c, y0, y1);
+            }
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (!first && threadIdx.x == 0)  // this tile adds into the block's [dV, du]
+      prefetch_l2_span((const char*)slot, (long long)(head - slot) * 4);  // slot: into L2
+    // head + loss: warp w takes rows w, w + 8, ..., four at a time; their dot
+    // products run together, then lane j finishes the group's row j
+    for (int j0 = 0; j0 < BR / MMA_WARPS; j0 += 4) {
+      constexpr int RG = BR / MMA_WARPS < 4 ? BR / MMA_WARPS : 4;
+      float s[RG][4];
+#pragma unroll
+      for (int j = 0; j < RG; ++j)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) s[j][d] = 0.f;
+      for (int h = lane; h < H; h += 32) {
+#pragma unroll
+        for (int j = 0; j < RG; ++j) {
+          const int r = warp + (j0 + j) * MMA_WARPS;
+          const float f = bf16r((bf(feat[r * ldh + h]) - fmu[r]) * finv[r]);
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            if (d < A) s[j][d] = fmaf(f, whs[h * A + d], s[j][d]);
+        }
+      }
+      float mine[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < RG; ++j)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const float t = d < A ? warp_sum(s[j][d]) : 0.f;
+          if (lane == j) mine[d] = t;
+        }
+      if (lane < RG) {
+        const int r = warp + (j0 + lane) * MMA_WARPS;
+        const long long row = row0 + r;
+        float lp = 0.f, zd[4], isd[4];
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          zd[d] = isd[d] = 0.f;
+          if (d < A) {
+            const float mean = bf16r(bf16r(mine[d]) + bf16r(bh[d]));
+            const float ls = log_std[d];
+            isd[d] = expf(-ls);
+            const float a = row < R ? aux[row * (A + 3) + d] : 0.f;
+            zd[d] = (a - mean) * isd[d];
+            lp += -0.5f * zd[d] * zd[d] - ls - DCC_LOG_SQRT_2PI;
+          }
+        }
+        float loss = 0.f, rv = 0.f, dlp = 0.f;
+        if (row < R) {
+          const float* ar = aux + row * (A + 3);
+          const float old_lp = ar[A], adv = ar[A + 1], valid = ar[A + 2];
+          const float ratio = expf(lp - old_lp);
+          const float clipped = fminf(fmaxf(ratio, 1.f - clip), 1.f + clip);
+          const float s1 = ratio * adv, s2 = clipped * adv;
+          loss = -fminf(s1, s2);
+          rv = ratio * valid;
+          const float w1 = balanced_lt(s1, s2);
+          const float dratio =
+              -(w1 * adv + (1.f - w1) * adv * clip_grad(ratio, 1.f - clip, 1.f + clip));
+          dlp = dratio * ratio;
+        }
+        row_loss[r] = loss;
+        row_ratio[r] = rv;
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          if (d < A) {
+            dmean[r * A + d] = dlp * zd[d] * isd[d];
+            row_dls[r * A + d] = dlp * (zd[d] * zd[d] - 1.f);
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // head gradients (fixed row order), each feature once for all A outputs
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int r = 0; r < BR; ++r) {
+        const float f = bf16r((bf(feat[r * ldh + h]) - fmu[r]) * finv[r]);
+#pragma unroll
+        for (int d = 0; d < 4; ++d)
+          if (d < A) s[d] = fmaf(f, bf16r(dmean[r * A + d]), s[d]);
+      }
+      for (int d = 0; d < A; ++d) s_wh[h * A + d] = first ? s[d] : s_wh[h * A + d] + s[d];
+    }
+    if (threadIdx.x < A) {
+      const int d = threadIdx.x;
+      float sb = 0.f, sl = 0.f;
+      for (int r = 0; r < BR; ++r) {
+        sb += dmean[r * A + d];
+        sl += row_dls[r * A + d];
+      }
+      s_bh[d] = first ? sb : s_bh[d] + sb;
+      s_ls[d] = first ? sl : s_ls[d] + sl;
+    } else if (threadIdx.x == A) {
+      float sl = 0.f, sr = 0.f;
+      for (int r = 0; r < BR; ++r) {
+        sl += row_loss[r];
+        sr += row_ratio[r];
+      }
+      s_met[0] = first ? sl : s_met[0] + sl;
+      s_met[1] = first ? sr : s_met[1] + sr;
+    }
+    // cotangent of the trunk output: g = bf16(dmean) @ bf16(Wh)^T
+    float dm[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int d = 0; d < 4; ++d)
+        dm[h][d] = d < A ? bf16r(dmean[(wt.r0 + 8 * h) * A + d]) : 0.f;
+#pragma unroll
+    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = wt.c0 + nt * 8 + (i & 1);
+        float g = 0.f;
+        if (nt < wt.ntw && col < H) {
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+            if (d < A) g = fmaf(dm[i >> 1][d], whs[col * A + d], g);
+        }
+        acc[nt][i] = g;
+      }
+    }
+    // folded backward (dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded)
+    for (int li = L - 1; li >= 0; --li) {
+      ln_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR, inv_s + li * BR,
+                     H, Hp, relu, red, wt, colsum, gs);
+      if (li >= 1 && li + 1 < L) {
+        // this layer's operand, bf16(xhat_{li-1}), as the forward wrote it
+        const bf16* ap = act + (long long)(li - 1) * BR * ldh;
+        const float* pm = mu_s + (li - 1) * BR;
+        const float* pi = inv_s + (li - 1) * BR;
+        for (int i = threadIdx.x; i < BR * Hp; i += blockDim.x) {
+          const int r = i / Hp, c = i - r * Hp;
+          const float y = c < H ? (bf(ap[r * ldh + c]) - pm[r]) * pi[r] : 0.f;
+          sx[r * ldh + c] = __float2bfloat16_rn(y);
+        }
+      }
+      __syncthreads();
+      // du = column sums of the un-rounded cotangent
+      for (int j = threadIdx.x; j < H; j += blockDim.x) {
+        float s = 0.f;
+        for (int w = 0; w < WM; ++w) s += colsum[w * Hp + j];
+        su[li][j] = first ? s : su[li][j] + s;
+      }
+      grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
+                    li == 0 ? d_in : H, gs, ldh, Hp, H, sv[li], first);
+      if (li > 0)  // g_prev = bf16(g) @ V^T
+        gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+    }
     __syncthreads();
   }
 }
@@ -321,16 +689,37 @@ static DccOffs to_offs(const long long* offs, int n_offs) {
   return o;
 }
 
-template <int BR, bool BF16>
+template <int BR>
 static int launch_actor(const void* x, int x_bf16, const float* aux, long long R,
                         int d_in, int H, int L, int A, int use_fn, int relu,
                         float clip, const float* pb, DccOffs o, float* slots,
                         long long slot_size, int n_blocks, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = actor_grads_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
   const size_t smem = sizeof(float) * ppo_smem_floats(BR, d_in, H, L, A);
-  auto k = actor_grads_kernel<BR, BF16>;
-  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   k<<<n_blocks, DCC_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
                                         relu, clip, pb, o, slots, slot_size);
+  return (int)cudaGetLastError();
+}
+
+template <int BR>
+static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long long R,
+                            int d_in, int H, int L, int A, int use_fn, int relu, float clip,
+                            const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
+                            float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = actor_grads_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = actor_mma_layout(BR, d_in, H, L, A).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                        pb, o, wb, wo, slots, slot_size);
   return (int)cudaGetLastError();
 }
 
@@ -341,9 +730,13 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
                          int use_huber, int use_clipped, const float* pb,
                          DccOffs o, float* slots, long long slot_size,
                          int n_blocks, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ppo_smem_floats(BR, d_in, H, L, 1);
+  static bool smem_set = false;
   auto k = critic_grads_kernel<BR, BF16>;
-  cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = sizeof(float) * ppo_smem_floats(BR, d_in, H, L, 1);
   k<<<n_blocks, DCC_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                         relu, clip, delta, use_huber, use_clipped,
                                         pb, o, slots, slot_size);
@@ -355,10 +748,16 @@ extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
   return sizeof(float) * ppo_smem_floats(br, d_in, H, L, A);
 }
 
-// Actor: slots is n_blocks x slot_size scratch, out receives slot_size floats.
+extern "C" unsigned long long dcc_actor_mma_smem_bytes(int br, int d_in, int H, int L,
+                                                       int A) {
+  return actor_mma_layout(br, d_in, H, L, A).total;
+}
+
+// Actor in f32 (FMA): slots is n_blocks x slot_size scratch, out receives
+// slot_size floats.
 extern "C" int dcc_actor_grads(const void* x, int x_bf16, const float* aux,
                                long long R, int d_in, int H, int L, int A,
-                               int use_fn, int relu, int bf16, float clip,
+                               int use_fn, int relu, float clip,
                                int br, const float* pb, const long long* offs,
                                int n_offs, float* slots, long long slot_size,
                                int n_blocks, float* out, void* stream) {
@@ -367,23 +766,41 @@ extern "C" int dcc_actor_grads(const void* x, int x_bf16, const float* aux,
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs);
   int err;
-#define DCC_CASE(B)                                                                 \
-  case B:                                                                           \
-    err = bf16 ? launch_actor<B, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,   \
-                                       relu, clip, pb, o, slots, slot_size,         \
-                                       n_blocks, s)                                 \
-               : launch_actor<B, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,  \
-                                        relu, clip, pb, o, slots, slot_size,        \
-                                        n_blocks, s);                               \
-    break;
   switch (br) {
-    DCC_CASE(32)
-    DCC_CASE(8)
-    DCC_CASE(1)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 32: err = launch_actor<32>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                                    o, slots, slot_size, n_blocks, s); break;
+    case 8: err = launch_actor<8>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                                  o, slots, slot_size, n_blocks, s); break;
+    case 1: err = launch_actor<1>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                                  o, slots, slot_size, n_blocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef DCC_CASE
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// Actor in bf16 on the tensor cores: br in {64, 32}; H a multiple of 8,
+// at most MMA_HMAX; slot_size even (the slabs store float2).
+extern "C" int dcc_actor_grads_mma(const void* x, int x_bf16, const float* aux, long long R,
+                                   int d_in, int H, int L, int A, int use_fn, int relu,
+                                   float clip, int br, const float* pb, const long long* offs,
+                                   int n_offs, const void* wb, const long long* woffs,
+                                   int n_woffs, float* slots, long long slot_size,
+                                   int n_blocks, float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
+      n_blocks < 1 || H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 64: err = launch_actor_mma<64>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                        pb, o, w, wo, slots, slot_size, n_blocks, s); break;
+    case 32: err = launch_actor_mma<32>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                        pb, o, w, wo, slots, slot_size, n_blocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }

@@ -1,0 +1,436 @@
+// Tensor-core core of the bf16 trunk kernels (K2 forward in fused_mlp.cu, K3
+// actor loss + gradients in fused_ppo.cu): warp-level
+// mma.sync.m16n8k16 bf16 products with f32 accumulation on shared-memory
+// tiles, operands loaded with ldmatrix, weights streamed from L2 through a
+// three-stage cp.async ring.
+//
+// Numerics are those of the FMA kernels in bf16 mode (trunk.cuh): every
+// matmul operand is a bf16 value and products accumulate in f32. A bf16 x
+// bf16 product is exact in f32, so only the summation order differs. The
+// operands live in shared memory as bf16, rounded once when written; the
+// epilogues keep JAX's rounding points (z = bf16(bf16(acc) + bf16(b)),
+// relu or bf16(tanh), LN statistics in f32, LN output rounded to bf16).
+//
+// Layouts. An activation tile is BR rows x Kp bf16, row-major, with a row
+// stride of Kp + 8 elements: Kp is a multiple of 16, so a row spans an odd
+// number of 16-byte chunks and the eight row addresses of one ldmatrix hit
+// eight different bank groups (no conflicts). A weight is stored as the JAX
+// package's Dense kernel, W[k][n] (K x N row-major), zero-padded to
+// multiples of 16 in both dimensions; the forward product streams K-slices
+// of it (rows k), the backward's g W^T streams column slices of the same
+// buffer, so one bf16 copy serves both.
+//
+// Warp tiling of a BR-row product over N columns: BR / 16 warps along the
+// rows, 8 / (BR / 16) column groups, each warp holding 16 rows x up to
+// MmaTile<BR>::NT n-tiles (8 columns each) of f32 accumulators in
+// registers. Row reductions (LN statistics) use the quad shuffles of the
+// m16n8 accumulator layout, then the column groups' partials through shared
+// memory, summed in a fixed order.
+#pragma once
+
+#include <stdint.h>
+
+#include "trunk.cuh"
+
+#define MMA_THREADS 256
+#define MMA_WARPS 8
+#define MMA_KS 32           // K-slice of a streamed weight
+#define MMA_STAGES 3        // stages of the weight ring (two slices in flight)
+#define MMA_HMAX 256        // widest hidden layer the tiling takes
+#define MMA_SMEM_MAX 232448 // an H100 block's shared memory
+
+typedef __nv_bfloat16 bf16;
+
+__host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Ask the TMA unit to bring [p, p + bytes) into L2 (bytes a multiple of
+// 16, p 16-byte aligned); nothing waits for it.
+__device__ __forceinline__ void cp_async_prefetch_l2(const void* p, unsigned bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// The same for any span: the whole 16-byte chunks that lie inside it.
+__device__ __forceinline__ void prefetch_l2_span(const char* p, long long bytes) {
+  const char* a = (const char*)(((unsigned long long)p + 15) & ~15ull);
+  const long long n = (bytes - (a - p)) & ~15ll;
+  for (long long o = 0; o < n; o += 32768)
+    cp_async_prefetch_l2(a + o, (unsigned)min(32768LL, n - o));
+}
+
+__device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// The warp grid of a BR-row tile and the n-tiles one warp holds at the
+// widest hidden layer (MMA_HMAX columns): 16 at BR = 64, 8 at 32, 4 at 16.
+template <int BR>
+struct MmaTile {
+  static constexpr int WM = BR / 16, WN = MMA_WARPS / WM;
+  static constexpr int NT = (MMA_HMAX / 8 + WN - 1) / WN;
+};
+
+// The accumulator element i (0..3) of n-tile nt sits at row
+// 16 * wm + lane / 4 (+ 8 for i >= 2), column 8 * (nt0 + nt) + 2 * (lane % 4)
+// (+ 1 for odd i).
+struct WarpTile {
+  int wm;   // 16-row block of the tile
+  int wn;   // column group
+  int nt0;  // first n-tile
+  int ntw;  // n-tiles held (0..MmaTile<BR>::NT)
+  int r0;   // tile row of accumulator elements 0 and 1 (elements 2, 3: r0 + 8)
+  int c0;   // column of element 0 in n-tile 0
+};
+
+template <int BR>
+__device__ __forceinline__ WarpTile warp_tile(int n_tiles) {
+  constexpr int WM = MmaTile<BR>::WM, WN = MmaTile<BR>::WN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  WarpTile t;
+  t.wm = warp % WM;
+  t.wn = warp / WM;
+  const int per = (n_tiles + WN - 1) / WN;
+  t.nt0 = t.wn * per;
+  t.ntw = max(0, min(per, n_tiles - t.nt0));
+  t.r0 = t.wm * 16 + (lane >> 2);
+  t.c0 = t.nt0 * 8 + (lane & 3) * 2;
+  return t;
+}
+
+template <int NT>
+__device__ __forceinline__ void zero_acc(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
+
+// Elements of one stage of the weight ring (MMA_STAGES of them).
+__host__ __device__ inline int ring_stage(int Np, bool nk) {
+  return nk ? Np * (MMA_KS + 8) : MMA_KS * (Np + 8);
+}
+
+// acc (the warp's 16 rows x its n-tiles) = A @ B. A: BR x Kp bf16 in shared
+// memory, row stride lda. B (Kp x Np) streams from global memory in K-slices
+// through the ring, two slices ahead of the one being multiplied: NK =
+// false reads B stored as B[k][n], NK = true reads it stored transposed,
+// Bt[n][k]; ldg is the stored row stride. One barrier per slice: after it
+// every thread is done with the stage the next load overwrites. Every
+// thread of the block calls it; it ends with a barrier, so A and the ring
+// are free again on return.
+template <bool NK, int NT>
+__device__ __forceinline__ void gemm_stream(const bf16* A, int lda, int Kp, const bf16* Bg,
+                                            int ldg, int Np, bf16* ring, const WarpTile& wt,
+                                            float (&acc)[NT][4]) {
+  const int lane = threadIdx.x & 31, mat = lane >> 3;
+  const int stage = ring_stage(Np, NK);
+  const int ldb = NK ? MMA_KS + 8 : Np + 8;
+  const int ns = (Kp + MMA_KS - 1) / MMA_KS;
+  zero_acc(acc);
+  auto load = [&](int s) {
+    bf16* dst = ring + (s % MMA_STAGES) * stage;
+    const int k0 = s * MMA_KS, ks = min(MMA_KS, Kp - k0);
+    if (NK) {
+      const int cpr = ks / 8;  // 16-byte chunks per stored row
+      for (int i = threadIdx.x; i < Np * cpr; i += blockDim.x) {
+        const int n = i / cpr, c = i - n * cpr;
+        cp_async16(dst + n * ldb + c * 8, Bg + (long long)n * ldg + k0 + c * 8);
+      }
+    } else {
+      const int cpr = Np / 8;
+      for (int i = threadIdx.x; i < ks * cpr; i += blockDim.x) {
+        const int k = i / cpr, c = i - k * cpr;
+        cp_async16(dst + k * ldb + c * 8, Bg + (long long)(k0 + k) * ldg + c * 8);
+      }
+    }
+    cp_async_commit();
+  };
+  load(0);
+  if (ns > 1) load(1);
+  for (int s = 0; s < ns; ++s) {
+    if (s + 1 < ns)
+      cp_async_wait<1>();  // slice s has landed; s + 1 may be in flight
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if (s + 2 < ns) load(s + 2);  // into the stage of slice s - 1
+    const bf16* B = ring + (s % MMA_STAGES) * stage;
+    const int k0 = s * MMA_KS, ks = min(MMA_KS, Kp - k0);
+    for (int kk = 0; kk < ks; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, A + (wt.wm * 16 + (lane & 15)) * lda + k0 + kk + (lane >> 4) * 8);
+#pragma unroll
+      for (int p = 0; p < NT; p += 2) {
+        if (p < wt.ntw) {
+          // matrices: (tile p, k 0-7), (p, k 8-15), (p+1, k 0-7), (p+1, k 8-15);
+          // an odd last tile loads tile p twice and uses the first half
+          const int q = p + 1 < wt.ntw ? 1 : 0;
+          const int n = (wt.nt0 + p + ((mat >> 1) & q)) * 8;
+          uint32_t b[4];
+          if (NK)
+            ldsm_x4(b, B + (n + (lane & 7)) * ldb + kk + (mat & 1) * 8);
+          else
+            ldsm_x4_t(b, B + (kk + (mat & 1) * 8 + (lane & 7)) * ldb + n);
+          mma_bf16(acc[p], a, b[0], b[1]);
+          if (q) mma_bf16(acc[p + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Sums over the full row width of the thread's two rows (r0, r0 + 8): the
+// quad shuffle, then the column groups' partials through `red` (WN x BR x 2
+// floats), added in group order. All threads call it.
+template <int BR>
+__device__ __forceinline__ void row_sums(float (&a)[2], float (&b)[2], float* red,
+                                         const WarpTile& wt) {
+  constexpr int WN = MmaTile<BR>::WN;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      a[h] += __shfl_xor_sync(0xffffffffu, a[h], o);
+      b[h] += __shfl_xor_sync(0xffffffffu, b[h], o);
+    }
+  }
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      red[(wt.wn * BR + wt.r0 + 8 * h) * 2] = a[h];
+      red[(wt.wn * BR + wt.r0 + 8 * h) * 2 + 1] = b[h];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a[h] = 0.f;
+    b[h] = 0.f;
+    for (int w = 0; w < WN; ++w) {
+      a[h] += red[(w * BR + wt.r0 + 8 * h) * 2];
+      b[h] += red[(w * BR + wt.r0 + 8 * h) * 2 + 1];
+    }
+  }
+  __syncthreads();
+}
+
+// Dense epilogue and LayerNorm statistics of one layer, in registers:
+// acc <- act(z), z = bf16(bf16(acc) + bf16(b)), act = relu or bf16(tanh);
+// columns >= H are 0. Returns each of the thread's two rows' mean and
+// 1/sqrt(var + eps) over the H real columns (fast variance).
+template <int BR>
+__device__ __forceinline__ void dense_act_stats(float (&acc)[MmaTile<BR>::NT][4], const float* b,
+                                                int H,
+                                                bool relu, float* red, const WarpTile& wt,
+                                                float (&mu)[2], float (&inv)[2]) {
+  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = wt.c0 + nt * 8 + (i & 1);
+        float r = 0.f;
+        if (col < H) {
+          const float z = bf16r(bf16r(acc[nt][i]) + bf16r(b[col]));
+          r = relu ? fmaxf(z, 0.f) : bf16r(tanhf(z));
+        }
+        acc[nt][i] = r;
+        s[i >> 1] += r;
+        q[i >> 1] += r * r;
+      }
+    }
+  }
+  row_sums<BR>(s, q, red, wt);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mu[h] = s[h] / H;
+    const float var = fmaxf(q[h] / H - mu[h] * mu[h], 0.f);
+    inv[h] = 1.f / sqrtf(var + 1e-6f);
+  }
+}
+
+// First operand tile of the trunk for rows [row0, row0 + BR): bf16 of the
+// LayerNorm of x (times scale plus bias when scale is given) if use_fn,
+// else of x. Columns d_in..Kp0 and rows >= R are 0. Warp w takes rows w,
+// w + 8, ...; each step of a pass loads one element of every one of the
+// warp's rows through the read-only path, so those loads are in flight
+// together.
+template <int BR>
+__device__ void load_input(const void* x, int x_bf16, long long row0, long long R, int d_in,
+                           int Kp0, bool use_fn, const float* scale, const float* bias,
+                           bf16* a0, int lda) {
+  constexpr int RW = BR / MMA_WARPS;  // rows per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xf = (const float*)x;
+  const unsigned short* xb = (const unsigned short*)x;
+  auto xv = [&](long long i) {
+    return x_bf16 ? __uint_as_float((unsigned)__ldg(xb + i) << 16) : __ldg(xf + i);
+  };
+  long long base[RW];
+  bool ok[RW];
+  float mu[RW], inv[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    const long long row = row0 + warp + j * MMA_WARPS;
+    ok[j] = row < R;
+    base[j] = row * d_in;
+    mu[j] = 0.f;
+    inv[j] = 1.f;
+  }
+  if (use_fn) {
+    float sum[RW], sq[RW];
+#pragma unroll
+    for (int j = 0; j < RW; ++j) sum[j] = sq[j] = 0.f;
+    for (int k = lane; k < d_in; k += 32) {
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        if (ok[j]) {
+          const float v = xv(base[j] + k);
+          sum[j] += v;
+          sq[j] += v * v;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      mu[j] = warp_sum(sum[j]) / d_in;
+      inv[j] = 1.f / sqrtf(fmaxf(warp_sum(sq[j]) / d_in - mu[j] * mu[j], 0.f) + 1e-6f);
+    }
+  }
+  for (int k = lane; k < Kp0; k += 32) {
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      float y = 0.f;
+      if (ok[j] && k < d_in) {
+        y = xv(base[j] + k);
+        if (use_fn) {
+          y = (y - mu[j]) * inv[j];
+          if (scale != nullptr) y = y * scale[k] + bias[k];
+        }
+      }
+      a0[(warp + j * MMA_WARPS) * lda + k] = __float2bfloat16_rn(y);
+    }
+  }
+}
+
+// slot[k][j] (+)= sum_r in[r][k] * g[r][j] for k < d, j < H (slot row
+// stride H; stores when `first`, else adds). in: BR x Kp bf16 (stride
+// lda), g: BR x Hp bf16 (stride ldg), both in shared memory. Each warp
+// accumulates 32 x 64 slabs of the product in registers over the tile's
+// rows and adds each slab into the slot once; every slot element has one
+// owner thread, so there are no atomics. The slot must be 8-byte aligned
+// and H even (float2 accesses). A slab's slot reads all come before its
+// stores, so they are in flight together.
+template <int BR>
+__device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g, int ldg,
+                          int Hp, int H, float* slot, bool first) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
+  const int ms = (Kp + 31) / 32, ns = (Hp + 63) / 64;
+  for (int sl = warp; sl < ms * ns; sl += MMA_WARPS) {
+    const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+    float acc[2][8][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    for (int r = 0; r < BR; r += 16) {
+      // A = in^T: matrices (k 0-7, r 0-7), (k 8-15, r 0-7), (k 0-7, r 8-15),
+      // (k 8-15, r 8-15), read transposed from the [r][k] tile
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (m0 + mt * 16 < Kp)
+          ldsm_x4_t(a[mt], in + (r + (mat >> 1) * 8 + (lane & 7)) * lda + m0 + mt * 16 +
+                               (mat & 1) * 8);
+#pragma unroll
+      for (int p = 0; p < 8; p += 2) {
+        if (n0 + p * 8 < Hp) {
+          uint32_t b[4];
+          ldsm_x4_t(b, g + (r + (mat & 1) * 8 + (lane & 7)) * ldg + n0 + (p + (mat >> 1)) * 8);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            if (m0 + mt * 16 < Kp) {
+              mma_bf16(acc[mt][p], a[mt], b[0], b[1]);
+              mma_bf16(acc[mt][p + 1], a[mt], b[2], b[3]);
+            }
+          }
+        }
+      }
+    }
+    if (!first) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k = m0 + mt * 16 + (lane >> 2) + 8 * h;
+            const int j = n0 + nt * 8 + (lane & 3) * 2;
+            if (k < d && j < H) {
+              const float2 o = *reinterpret_cast<const float2*>(slot + (long long)k * H + j);
+              acc[mt][nt][2 * h] += o.x;
+              acc[mt][nt][2 * h + 1] += o.y;
+            }
+          }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = m0 + mt * 16 + (lane >> 2) + 8 * h;
+          const int j = n0 + nt * 8 + (lane & 3) * 2;
+          if (k < d && j < H)
+            *reinterpret_cast<float2*>(slot + (long long)k * H + j) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+  }
+}

@@ -6,7 +6,8 @@ variance (not ``nn.LayerNorm``'s 1e-5). Parameters stay f32; ``bf16=True``
 runs the JAX package's mixed-precision rounding points. With ``fused=True``
 the trunk is one autograd Function
 (:func:`dcc_tpu_torch.ops.fused_mlp.fused_mlp`): on CUDA tensors its forward
-is the K2 kernel, fed the parameters packed once per version, and its
+is the K2 kernel, fed the parameters packed once per version (in bf16 with
+the weights' padded bf16 copies that its tensor-core kernel reads), and its
 backward the K2b kernel; otherwise it is the plain PyTorch chain, which
 autograd differentiates.
 """
@@ -18,7 +19,7 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from ..ops.fused_mlp import fused_mlp, pack_params, trunk_forward_plain
+from ..ops.fused_mlp import fused_mlp, pack_trunk, trunk_forward_plain
 
 RELU_GAIN = 2.0 ** 0.5
 TANH_GAIN = 5.0 / 3.0
@@ -62,7 +63,7 @@ class MLPBase(nn.Module):
         self.use_fn = use_feature_normalization
         self.bf16 = bf16
         self.fused = fused
-        self._packed = None  # (key, pack_params output) of the K2 launches
+        self._packed = None  # (key, pack_trunk output) of the K2 launches
         if self.use_fn:
             self.feature_norm = LNParams(in_dim)
         gain = RELU_GAIN if use_relu else TANH_GAIN
@@ -85,15 +86,16 @@ class MLPBase(nn.Module):
             flat += [fc.weight.t(), fc.bias, ln.weight, ln.bias]
         return flat
 
-    def packed_params(self, device) -> tuple:
-        """:func:`flat_params` packed for the K2 kernel, packed again only
+    def packed_params(self, device):
+        """:func:`flat_params` packed for the K2 kernel (a
+        :class:`~dcc_tpu_torch.ops.fused_mlp.TrunkPack`), packed again only
         when a parameter changed: the key holds each parameter's address and
         in-place version counter, which an optimizer step, ``load_state_dict``
         or a copy changes."""
         flat = self.flat_params()
         key = (str(device),) + tuple((p.data_ptr(), p._version) for p in flat)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, pack_params(flat, device))
+            self._packed = (key, pack_trunk(flat, device, self.n_layers, self.use_fn, self.bf16))
         return self._packed[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

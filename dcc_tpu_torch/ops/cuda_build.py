@@ -12,7 +12,9 @@ stream and allocate nothing; the Python wrappers allocate with
 ``torch.empty``.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
+point of each kernel's latest launch (the tensor-core ``*_mma`` entry or the
+FMA one).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: collections.Counter = collections.Counter()
+ENTRY: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,7 +49,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gae": {"dcc_gae": [_P, _P, _P, _P, _P, _P, _I, _L, _F, _F, _P]},
     "fused_mlp": {
-        "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+        "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
+        "dcc_trunk_fwd_mma": [
+            _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+        ],
+        "dcc_trunk_fwd_mma_smem_bytes": [_I, _I, _I],
     },
     "fused_mlp_bwd": {
         "dcc_trunk_bwd": [
@@ -57,9 +64,14 @@ _SIGNATURES = {
     },
     "fused_ppo": {
         "dcc_actor_grads": [
-            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I,
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I,
             _P, _L, _I, _P, _P,
         ],
+        "dcc_actor_grads_mma": [
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
+            _P, _L, _I, _P, _P,
+        ],
+        "dcc_actor_mma_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_critic_grads": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
             _P, _P, _I, _P, _L, _I, _P, _P,
@@ -71,6 +83,7 @@ _SIGNATURES = {
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    ENTRY.clear()
 
 
 def _nvcc() -> str:
@@ -96,8 +109,9 @@ def _source_hash() -> str:
 
 def build(verbose: bool = False) -> dict:
     """Compile every source whose library is missing, in parallel; returns
-    {name: path of the .so} and the seconds the build took under key
-    ``"_seconds"``."""
+    {name: path of the .so}, the seconds the build took under key
+    ``"_seconds"`` and, with ``verbose``, each compiled source's
+    ``-Xptxas -v`` report (registers, spills) under ``"_ptxas"``."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     os.makedirs(out_dir, exist_ok=True)
     paths = {n: os.path.join(out_dir, f"libdcc_{n}.so") for n in SOURCES}
@@ -111,18 +125,19 @@ def build(verbose: bool = False) -> dict:
         procs[n] = (tmp, subprocess.Popen(
             cmd, cwd=CSRC, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
-    failed = []
+    failed, logs = [], {}
     for n, (tmp, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode != 0:
             failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
             continue
-        if verbose and log:
-            print(f"--- nvcc {n}.cu ---\n{log}")
+        logs[n] = log
         os.replace(tmp, paths[n])
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     paths["_seconds"] = time.perf_counter() - t0
+    if verbose:
+        paths["_ptxas"] = logs
     return paths
 
 

@@ -23,11 +23,17 @@ writes the chain out.
 vectors. :func:`fused_mlp` goes through :class:`FusedTrunk`, so it is
 differentiable on both devices; the raw launcher :func:`trunk_forward_cuda`
 has no backward and refuses a tensor that needs a gradient.
+
+In bf16 K2 runs on the tensor cores (``csrc/trunk_mma.cuh``) and reads a
+bf16 copy of each weight, zero-padded to multiples of 16
+(:func:`pack_mma_weights`); :func:`pack_trunk` makes it beside the f32
+buffer of the vectors, once per parameter version on the rollout path. In
+f32 K2 stays on full-f32 FMA.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -186,6 +192,54 @@ def pack_params(params: Sequence[torch.Tensor], device) -> tuple:
     return torch.cat(flat).contiguous(), offs
 
 
+def pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pack_mma_weights(mats: Sequence[torch.Tensor], device) -> tuple:
+    """bf16 copies of the (d_in, d_out) matrices for the tensor-core kernels
+    in one buffer, each rounded to nearest bf16 and zero-padded to
+    (pad16(d_in), pad16(d_out)); returns (buffer, element offsets)."""
+    shapes = [(pad16(w.shape[0]), pad16(w.shape[1])) for w in mats]
+    offs, o = [], 0
+    for k, n in shapes:
+        offs.append(o)
+        o += k * n
+    buf = torch.zeros(o, dtype=torch.bfloat16, device=device)
+    for w, off, (k, n) in zip(mats, offs, shapes):
+        buf[off : off + k * n].view(k, n)[: w.shape[0], : w.shape[1]].copy_(w.detach())
+    return buf, offs
+
+
+class TrunkPack(NamedTuple):
+    """K2's parameters packed for one launch: every parameter in one f32
+    buffer (:func:`pack_params`) and, for bf16, the weights' bf16 copies
+    (:func:`pack_mma_weights`)."""
+
+    buffer: torch.Tensor
+    offsets: list
+    weights: Optional[torch.Tensor] = None
+    weight_offsets: Optional[list] = None
+
+
+def pack_trunk(params: Sequence[torch.Tensor], device, n_layers: int, use_fn: bool,
+               bf16: bool) -> TrunkPack:
+    """Pack the flat trunk list for :func:`trunk_forward_cuda`."""
+    pb, offs = pack_params(params, device)
+    if not bf16:
+        return TrunkPack(pb, offs)
+    first = 2 if use_fn else 0
+    wb, woffs = pack_mma_weights([params[first + 4 * li] for li in range(n_layers)], device)
+    return TrunkPack(pb, offs, wb, woffs)
+
+
+def check_mma_width(hidden: int) -> None:
+    """Raise unless the tensor-core kernels' tiling takes ``hidden``."""
+    if hidden % 8 or hidden > 256:
+        raise ValueError(f"the bf16 tensor-core kernels take a hidden width that is a "
+                         f"multiple of 8 and at most 256, not {hidden}")
+
+
 def tile_rows(width: int, floats_per_row_fn, budget: int = 232448,
               sizes: Sequence[int] = (32, 8, 1)) -> int:
     """Largest row tile among the ``sizes`` a kernel is built for whose
@@ -211,10 +265,12 @@ def trunk_forward_cuda(
     use_fn: bool = True,
     use_relu: bool = True,
     bf16: bool = False,
-    packed: Optional[tuple] = None,
+    packed: Optional[TrunkPack] = None,
 ) -> torch.Tensor:
-    """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows. ``packed`` is
-    ``pack_params(params, x.device)`` made beforehand, or None to pack here."""
+    """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows: the tensor-core
+    kernel in bf16, the FMA kernel in f32. ``packed`` is
+    ``pack_trunk(params, x.device, n_layers, use_fn, bf16)`` made
+    beforehand, or None to pack here."""
     rows, d_in = x.shape
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         raise RuntimeError(
@@ -222,23 +278,49 @@ def trunk_forward_cuda(
             "backward is the K2b kernel) or run under torch.no_grad()"
         )
     hidden = _check_trunk(x, params, n_layers, use_fn)
-    pb, offs = pack_params(params, x.device) if packed is None else packed
+    if bf16:
+        check_mma_width(hidden)
+    if packed is None:
+        packed = pack_trunk(params, x.device, n_layers, use_fn, bf16)
+    pb, offs = packed.buffer, packed.offsets
     cb.require(pb, "packed parameters", (torch.float32,),
                (sum(p.numel() for p in params),), x.device)
     if not use_fn:
         offs = [0, 0] + offs
-    br = tile_rows(d_in, lambda b: b * (max(d_in, hidden) + hidden))
     out = torch.empty(
         (rows, hidden), dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device
     )
+    lib = cb.library("fused_mlp")
     offs_c = (cb._L * len(offs))(*offs)
-    code = cb.library("fused_mlp").dcc_trunk_fwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, hidden, n_layers,
-        int(use_fn), int(use_relu), int(bf16), br, pb.data_ptr(), offs_c, len(offs),
-        out.data_ptr(), cb.stream_of(x),
-    )
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if bf16:
+        if packed.weights is None:
+            raise ValueError("bf16 K2 needs the bf16 weight copies: pack_trunk(..., bf16=True)")
+        cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
+        sms = cb.sm_count(x.device)
+        # the smallest row tile that still gives every SM a tile
+        br = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
+        br = tile_rows(d_in, lambda b: lib.dcc_trunk_fwd_mma_smem_bytes(b, d_in, hidden) // 4,
+                       sizes=[b for b in (64, 32, 16) if b <= br])
+        n_blocks = max(1, min(-(-rows // br), 2 * sms))
+        woffs = packed.weight_offsets
+        entry = "dcc_trunk_fwd_mma"
+        code = lib.dcc_trunk_fwd_mma(
+            x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
+            pb.data_ptr(), offs_c, len(offs), packed.weights.data_ptr(),
+            (cb._L * len(woffs))(*woffs), len(woffs), n_blocks, out.data_ptr(),
+            cb.stream_of(x),
+        )
+    else:
+        br = tile_rows(d_in, lambda b: b * (max(d_in, hidden) + hidden))
+        entry = "dcc_trunk_fwd"
+        code = lib.dcc_trunk_fwd(
+            x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
+            pb.data_ptr(), offs_c, len(offs), out.data_ptr(), cb.stream_of(x),
+        )
     cb.check("fused_mlp", code, "fused_mlp")
     cb.LAUNCHES["fused_mlp"] += 1
+    cb.ENTRY["fused_mlp"] = entry
     return out
 
 
@@ -318,7 +400,7 @@ def fused_mlp(
     use_feature_norm: bool = True,
     use_relu: bool = True,
     bf16: bool = False,
-    packed: Optional[tuple] = None,
+    packed: Optional[TrunkPack] = None,
 ) -> torch.Tensor:
     """Apply the trunk to ``x`` of shape (..., d_in) through
     :class:`FusedTrunk`: the kernels for a CUDA tensor (``packed`` as in

@@ -32,8 +32,10 @@ from . import cuda_build as cb
 from .fused_mlp import (
     activation,
     bf16_round,
+    check_mma_width,
     dense,
     ln_stats,
+    pack_mma_weights,
     pack_params,
     require_shapes,
     tile_rows,
@@ -192,6 +194,25 @@ def actor_grads_plain(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn,
     return kg, dwh, dbh, dls, met
 
 
+def relu_kink_rows_folded(x, kp, n_layers: int, use_fn: bool) -> torch.Tensor:
+    """(rows,) bool: rows of the folded bf16 relu chain with a pre-activation
+    z no farther from the kink than the bf16 spacing at its pre-rounding
+    accumulator. There a summation order other than the plain version's
+    (the tensor cores') can move the accumulator across a bf16 rounding
+    boundary and z across the kink, which changes the row's whole cotangent;
+    the bf16 K3 checks give these rows a zero advantage
+    (:func:`dcc_tpu_torch.ops.fused_mlp.relu_kink_rows` is the unfolded
+    chain's rule)."""
+    with torch.no_grad():
+        _, cache = _fwd_folded(x, kp, n_layers, use_fn, True, True)
+        near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
+        for li, (a, *_) in enumerate(cache):
+            z = dense(a, kp[2 * li], kp[2 * li + 1], True)
+            acc = _mm(a, kp[2 * li], True).abs().clamp_min(1e-30)
+            near |= (z.abs() <= torch.exp2(torch.floor(torch.log2(acc)) - 7)).any(dim=1)
+    return near
+
+
 def huber(e, delta):
     """The reference's one-sided Huber: a*e^2/2 + b*delta*(|e| - delta/2)."""
     a = (torch.abs(e) <= delta).to(e.dtype)
@@ -242,13 +263,22 @@ def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _kernel_params(kp, head: Sequence[torch.Tensor], device):
-    """Packed buffer + offsets: per layer [V, V^T (or a dummy), u], then head."""
+def _kernel_params(kp, head: Sequence[torch.Tensor], device, mma: bool = False):
+    """Packed f32 buffer + offsets: per layer [V, V^T (or a dummy), u], then
+    head. For the tensor-core kernel (``mma``) V and V^T are dummies and the
+    V's go into a bf16 buffer (:func:`pack_mma_weights`); returns (buffer,
+    offsets, bf16 buffer or None, its offsets or None)."""
     flat = []
     for li in range(len(kp) // 2):
         v = kp[2 * li]
-        flat += [v, v.t().contiguous() if li > 0 else v[:0], kp[2 * li + 1]]
-    return pack_params(flat + list(head), device)
+        if mma:
+            flat += [v[:0], v[:0], kp[2 * li + 1]]
+        else:
+            flat += [v, v.t().contiguous() if li > 0 else v[:0], kp[2 * li + 1]]
+    pb, offs = pack_params(flat + list(head), device)
+    if not mma:
+        return pb, offs, None, None
+    return (pb, offs, *pack_mma_weights(kp[0::2], device))
 
 
 def _slot_split(out, dims, hidden, extra):
@@ -266,6 +296,18 @@ def _slot_split(out, dims, hidden, extra):
     return res
 
 
+def grads_blocks(tiles: int, sms: int, mma: bool) -> int:
+    """Blocks of a K3 / K4 launch: one per SM, each looping over row tiles
+    and adding every tile after its first into its gradient slot. The
+    tensor-core kernel takes one block per tile while the tiles fit in two
+    waves: every block then stores its slot once, and no block's second
+    tile waits on re-reading its slot (one shared-memory-sized block fits
+    an SM, so the second wave starts as the first ends)."""
+    if mma and tiles <= 2 * sms:
+        return max(1, tiles)
+    return max(1, min(tiles, sms))
+
+
 def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
                   act_dim, fn_args):
     rows, d_in = x.shape
@@ -281,34 +323,57 @@ def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
     # the head's parameters have the shapes of its gradients
     require_shapes([*kp, *head], [s for d in dims for s in ((d, hidden), (hidden,))]
                    + extra[: len(head)], "folded parameter")
-    pb, offs = _kernel_params(kp, head, x.device)
+    # the bf16 actor runs on the tensor cores, everything else on FMA
+    mma = kind == "actor" and bf16
+    if mma:
+        check_mma_width(hidden)
+    pb, offs, wb, woffs = _kernel_params(kp, head, x.device, mma)
     lib = cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
-    br = tile_rows(
-        d_in, lambda b: lib.dcc_ppo_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4
-    )
-    slot =sum(d * hidden + hidden for d in dims) + sum(math.prod(s) for s in extra)
-    n_blocks = max(1, min(-(-rows // br), cb.sm_count(x.device)))
+    if mma:
+        br = tile_rows(
+            d_in, lambda b: lib.dcc_actor_mma_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4,
+            sizes=(64, 32),
+        )
+    else:
+        br = tile_rows(
+            d_in, lambda b: lib.dcc_ppo_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4
+        )
+    used = sum(d * hidden + hidden for d in dims) + sum(math.prod(s) for s in extra)
+    slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
+    n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), mma)
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
     offs_c = (cb._L * len(offs))(*offs)
-    common = (int(use_fn), int(use_relu), int(bf16))
-    if kind == "actor":
+    x_bf16 = int(x.dtype == torch.bfloat16)
+    if mma:
+        entry = "dcc_actor_grads_mma"
+        code = lib.dcc_actor_grads_mma(
+            x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
+            int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
+            wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs), slots.data_ptr(), slot,
+            n_blocks, out.data_ptr(), cb.stream_of(x),
+        )
+    elif kind == "actor":
+        entry = "dcc_actor_grads"
         code = lib.dcc_actor_grads(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), aux.data_ptr(), rows, d_in, hidden,
-            n_layers, act_dim, *common, *fn_args, br, pb.data_ptr(), offs_c, len(offs),
+            x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
+            int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
             slots.data_ptr(), slot, n_blocks, out.data_ptr(), cb.stream_of(x),
         )
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
+        entry = "dcc_critic_grads"
         code = lib.dcc_critic_grads(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), aux.data_ptr(), norm.data_ptr(), rows,
-            d_in, hidden, n_layers, *common, *fn_args[1:], br, pb.data_ptr(), offs_c,
-            len(offs), slots.data_ptr(), slot, n_blocks, out.data_ptr(), cb.stream_of(x),
+            x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
+            n_layers, int(use_fn), int(use_relu), int(bf16), *fn_args[1:], br, pb.data_ptr(),
+            offs_c, len(offs), slots.data_ptr(), slot, n_blocks, out.data_ptr(),
+            cb.stream_of(x),
         )
     cb.check("fused_ppo", code, f"{kind}_ppo_grads")
     cb.LAUNCHES[f"{kind}_ppo_grads"] += 1
+    cb.ENTRY[f"{kind}_ppo_grads"] = entry
     parts = _slot_split(out, dims, hidden, extra)
     return parts[: 2 * n_layers], parts[2 * n_layers :]
 

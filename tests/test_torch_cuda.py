@@ -10,7 +10,10 @@ installed (``--noconftest`` skips ``tests/conftest.py``, which imports JAX):
 
 The shapes are small but ragged (row counts that are not a multiple of the
 row tile) and cover the options the default model does not use: tanh, no
-feature norm, one and three layers, other widths, bf16 input rows. The
+feature norm, one and three layers, other widths, bf16 input rows. bf16 K2
+and K3 run on the tensor cores (``*_mma`` entry points), which pad every
+width to a multiple of 16 and tile rows by 16, 32 or 64; their row counts
+around those tiles and their padded widths have tests of their own. The
 tolerances are those of ``chip_smoke.py``: f32 differs by summation order,
 bf16 by 1-ulp flips of the bf16 roundings inside the chain. The K2b checks
 give a zero cotangent to the rows with a relu pre-activation within 1e-5 of
@@ -243,3 +246,70 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         FP.actor_grads_cuda(x[:, :15].contiguous(), aux, kp, hw, hb,
                             torch.zeros(2, device=cuda), n_layers=1, use_fn=True,
                             use_relu=True, bf16=False, clip_param=0.2)
+
+
+_RAGGED = [1, 15, 17, 63, 65, 1000]
+
+
+@pytest.mark.parametrize("rows", _RAGGED)
+@pytest.mark.parametrize("d_in,hidden,use_relu", [(110, 256, True), (440, 256, True),
+                                                  (37, 64, False)])
+def test_bf16_trunk_forward_on_tensor_cores(cuda, rows, d_in, hidden, use_relu):
+    """bf16 K2 on row counts around its tiles and widths it pads (110 -> 112,
+    440 -> 448, 37 -> 48), through the tensor-core entry point."""
+    gen = torch.Generator().manual_seed(rows + d_in)
+    params = _trunk_params(gen, d_in, hidden, 2, True, cuda)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda)
+    kw = dict(n_layers=2, use_fn=True, use_relu=use_relu, bf16=True)
+    cb.reset_launches()
+    got = FM.trunk_forward_cuda(x, params, **kw)
+    assert cb.LAUNCHES["fused_mlp"] == 1 and cb.ENTRY["fused_mlp"] == "dcc_trunk_fwd_mma"
+    assert _rel(got, FM.trunk_forward_plain(x, params, **kw)) < 2e-3
+
+
+@pytest.mark.parametrize("rows", _RAGGED + [20000])
+@pytest.mark.parametrize("d_in,hidden,n_layers,use_relu", [(110, 256, 2, True),
+                                                           (37, 64, 2, False)])
+def test_bf16_actor_grads_on_tensor_cores(cuda, rows, d_in, hidden, n_layers, use_relu):
+    """bf16 K3 on row counts around its tiles (20000 rows: several tiles per
+    block) and padded widths, through the tensor-core entry point; rows past
+    the last are masked, not padded. Rows next to a relu kink get a zero
+    advantage (``relu_kink_rows_folded``): there the tensor cores' summation
+    order and the plain version's may take opposite sides."""
+    gen = torch.Generator().manual_seed(rows + d_in + 1)
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", rows, d_in, hidden, n_layers, True, cuda)
+    log_std = torch.tensor([-0.3, 0.2], device=cuda)
+    x = x.bfloat16()
+    if use_relu:
+        aux[FP.relu_kink_rows_folded(x, kp, n_layers, True), 3] = 0.0
+    kw = dict(n_layers=n_layers, use_fn=True, use_relu=use_relu, bf16=True, clip_param=0.2)
+    cb.reset_launches()
+    got = FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std, **kw)
+    assert cb.ENTRY["actor_ppo_grads"] == "dcc_actor_grads_mma"
+    want = FP.actor_grads_plain(x, aux, kp, hw, hb, log_std, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < 4e-3
+
+
+def test_f32_kernels_stay_on_fma(cuda):
+    """f32 K2 and K3 go through the FMA entry points (full f32, no TF32)."""
+    gen = torch.Generator().manual_seed(3)
+    params = _trunk_params(gen, 110, 64, 2, True, cuda)
+    FM.trunk_forward_cuda(torch.randn(20, 110, generator=gen).to(cuda), params, n_layers=2)
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", 20, 110, 64, 2, True, cuda)
+    FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=2,
+                        use_fn=True, use_relu=True, bf16=False, clip_param=0.2)
+    assert cb.ENTRY["fused_mlp"] == "dcc_trunk_fwd"
+    assert cb.ENTRY["actor_ppo_grads"] == "dcc_actor_grads"
+
+
+@pytest.mark.parametrize("hidden", [36, 264])
+def test_bf16_kernels_refuse_widths_they_cannot_take(cuda, hidden):
+    gen = torch.Generator().manual_seed(hidden)
+    params = _trunk_params(gen, 16, hidden, 1, True, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FM.trunk_forward_cuda(torch.zeros(4, 16, device=cuda), params, n_layers=1, bf16=True)
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", 8, 16, hidden, 1, True, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=1,
+                            use_fn=True, use_relu=True, bf16=True, clip_param=0.2)
