@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
    each tensor-core kernel's registers and spills (``-Xptxas -v``; all of
    the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
    of the built libraries must show HMMA instructions in every bf16
-   tensor-core kernel (``*_mma_kernel``) and none in any other kernel (no
-   TF32 in the f32 kernels);
+   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4) and none in any
+   other kernel (no TF32 in the f32 kernels);
 3. hold each kernel K1-K4 and K2b against its plain PyTorch version on the
    card, in f32 and bf16 where it has both modes, at the default shapes
    (16 envs) and at bench.py's headline 16384 envs (a quarter of that for
@@ -21,10 +21,11 @@ Phases (any failure exits non-zero):
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
-   tells the bf16 rounding points from none at all. The bf16 K3 checks give
-   rows with a relu pre-activation within one bf16 step of the kink a zero
-   advantage: the tensor cores' summation order and the plain version's may
-   put them on opposite sides of it. Times: CUDA events
+   tells the bf16 rounding points from none at all. Rows with a relu
+   pre-activation within one bf16 step of the kink get a zero advantage
+   (bf16 K3), valid = 0 (bf16 K4) or a zero cotangent (K2b): the tensor
+   cores' summation order and the plain version's may put them on opposite
+   sides of it. Times: CUDA events
    around a run of 50 back-to-back launches (fewer, down to 3, when one
    launch takes over 5 ms), divided by the count; K2 is fed parameters
    packed beforehand, as the rollout packs them once per parameter version
@@ -41,10 +42,11 @@ Phases (any failure exits non-zero):
    recurrent f32 config, and 1 of bf16 with the fused loss off; print the
    metrics and phase times, and require each run's kernels to have launched
    exactly as often as its path runs them (K2b 30 times per iteration) and
-   the others not at all, and the bf16 run's K2 and K3 launches to have
-   gone through the tensor-core entry points. Then one more bf16 iteration
-   under ``torch.profiler``: device time by kernel name and the device's
-   idle share over the iteration;
+   the others not at all, and every bf16 run's K2, K2b, K3 and K4 launches
+   to have gone through the tensor-core entry points. After the bf16 run
+   and after the recurrent bf16 run, one more iteration under
+   ``torch.profiler``: device time by kernel name and the device's idle
+   share over the iteration;
 6. print the ``{"kernels": [...]}`` line, the card line, and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -110,10 +112,20 @@ TRAIN_RUNS = (
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16"}
-# the C entry point each bf16 run's kernel must go through, and the library
-# whose SASS holds it
-MMA_ENTRY = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma"}
-MMA_LIBS = ("fused_mlp", "fused_ppo")
+# the C entry point each bf16 run's kernels must go through
+_TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
+MMA_ENTRY = {
+    "bf16": {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
+             "critic_ppo_grads": "dcc_critic_grads_mma"},
+    "recurrent-bf16": _TRUNK_MMA,
+    "bf16-fused-loss-off": _TRUNK_MMA,
+}
+# the tensor-core kernels and the libraries whose SASS holds them
+MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
+               "critic_grads_mma_kernel")
+MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
+# the runs followed by one profiled iteration
+PROFILED = ("bf16", "recurrent-bf16")
 N_TIMED = 50  # launches between the two CUDA events of a timing
 
 
@@ -243,9 +255,9 @@ def ptxas_report(logs: dict, show: bool) -> dict:
 
 
 def sass_check(built: dict) -> dict:
-    """HMMA / HGMMA instructions per kernel function of the K2 and K3
-    libraries (``cuobjdump -sass``). Raises unless the bf16 tensor-core
-    kernels of both are there and hold some, and no other kernel does."""
+    """HMMA / HGMMA instructions per kernel function of the K2, K2b and
+    K3 / K4 libraries (``cuobjdump -sass``). Raises unless every bf16
+    tensor-core kernel is there and holds some, and no other kernel does."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
@@ -266,7 +278,7 @@ def sass_check(built: dict) -> dict:
             elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
                 counts[fn] += 1
     mma = {f: c for f, c in counts.items() if "_mma_kernel" in f}
-    for want in ("trunk_fwd_mma_kernel", "actor_grads_mma_kernel"):
+    for want in MMA_KERNELS:
         if not any(want in f for f in mma):
             raise SmokeFailure(f"SASS check: no {want} in {sorted(counts)}")
     missing = sorted(f for f, c in mma.items() if c == 0)
@@ -285,6 +297,7 @@ def check_kernels(results: list):
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
     from dcc_tpu_torch.envs import EnvConfig
     from dcc_tpu_torch.ops import cuda_gae, fused_mlp as FM, fused_ppo as FP
+    from dcc_tpu_torch.ops.cuda_build import ENTRY
     from dcc_tpu_torch.ops.gae import compute_gae
 
     dev = torch.device("cuda")
@@ -304,13 +317,16 @@ def check_kernels(results: list):
         (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
         hosts = {"wrapper": host_us(kern, n),
                  **{k: host_us(f, n) for k, f in extra_host.items()}}
-        row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, max_abs_err=err,
+        entry = ENTRY.get(kernel)  # the C entry point of the timed launches
+        if mode == "bf16" and not entry.endswith("_mma"):
+            raise SmokeFailure(f"bf16 {kernel} went through {entry}, not its tensor-core entry")
+        row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, entry=entry, max_abs_err=err,
                    rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n, plain_ms=plain_ms,
                    plain_n_timed=plain_n, host_us=hosts, bound_ms=bound_ms,
                    bound_by=bound_by, f32_kernel_rel_err=f32_rel)
         results.append(row)
         extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
-        print(f"  {kernel:17s} {mode:4s} envs={envs:<6d} {shape:28s} max_abs={err:.3e} "
+        print(f"  {kernel:17s} {mode:4s} envs={envs:<6d} {shape:28s} [{entry}] max_abs={err:.3e} "
               f"rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} "
               f"ms bound={bound_ms:.6f} ms ({bound_by}) host us/call: "
               + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items()), flush=True)
@@ -392,7 +408,10 @@ def check_kernels(results: list):
                 # rows next to a relu kink may take either side in the kernel
                 # and in the plain version: they get a zero cotangent
                 g = randn(rows, 256)
-                g[FM.relu_kink_rows(x, params, 2, True, bf16)] = 0.0
+                kink = FM.relu_kink_rows(x, params, 2, True, bf16)
+                g[kink] = 0.0
+                print(f"  K2b {'bf16' if bf16 else 'f32'}, {rows} x {width}: {int(kink.sum())} "
+                      f"rows next to a relu kink get a zero cotangent", flush=True)
                 g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
                 kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
                 plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
@@ -482,6 +501,11 @@ def check_kernels(results: list):
             kpc, wvf, bvf = FP.fold_trunk(
                 [p.detach() for p in critic.base.flat_params()],
                 critic.v_out.weight.detach().t(), critic.v_out.bias.detach(), 2, True)
+            if bf16:  # the kink rule of the actor above: those rows get valid = 0
+                kink = FP.relu_kink_rows_folded(cent, kpc, 2, True)
+                aux_c[kink, 2] = 0.0
+                print(f"  critic bf16, {envs} envs: {int(kink.sum())} of {Rv} rows next to a "
+                      f"relu kink get valid = 0", flush=True)
             ckw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2,
                        huber_delta=10.0, use_huber=True, use_clipped=True)
             kern = lambda: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
@@ -585,11 +609,12 @@ def _short(name: str) -> str:
     return m.group(1) if m else name
 
 
-def profile_iteration(learner) -> dict:
-    """One training iteration under torch.profiler (CPU and CUDA): device
-    time of each kernel by name (a slot reduction is named after the kernel
-    it follows) and the device's idle share, 1 - (union of device-busy
-    intervals) / (the iteration's wall time, synchronised at its end)."""
+def profile_iteration(learner, tag: str) -> dict:
+    """One training iteration of the ``tag`` run under torch.profiler (CPU
+    and CUDA): device time of each kernel by name (a slot reduction is named
+    after the kernel it follows) and the device's idle share, 1 - (union of
+    device-busy intervals) / (the iteration's wall time, synchronised at its
+    end)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -621,7 +646,7 @@ def profile_iteration(learner) -> dict:
         return dict(wall_us=wall_us, device_events=0)
     idle = 1.0 - busy / wall_us
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    print(f"  profiler, one bf16 iteration: wall {wall_us / 1e3:.1f} ms (profiled), device "
+    print(f"  profiler, one {tag} iteration: wall {wall_us / 1e3:.1f} ms (profiled), device "
           f"busy {busy / 1e3:.2f} ms, idle share {idle:.4f}; device time by kernel:",
           flush=True)
     for name, (us, n) in rows[:16]:
@@ -656,11 +681,12 @@ def train_runs(results: dict):
         want = {k: n * learner.n_iters for k, n in per_iter.items()}
         if counts != want:
             raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
-        if tag == "bf16":
-            entries = {k: ENTRY.get(k) for k in MMA_ENTRY}
-            if entries != MMA_ENTRY:
-                raise SmokeFailure(f"bf16 K2 / K3 went through {entries}, not {MMA_ENTRY}")
-            results["profile"] = profile_iteration(learner)
+        want_entry = MMA_ENTRY.get(tag, {})
+        entries = {k: ENTRY.get(k) for k in want_entry}
+        if entries != want_entry:
+            raise SmokeFailure(f"{tag}: the kernels went through {entries}, not {want_entry}")
+        if tag in PROFILED:
+            results[f"profile {tag}"] = profile_iteration(learner, tag)
 
 
 def main(argv=None) -> int:

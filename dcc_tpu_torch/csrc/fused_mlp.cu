@@ -41,15 +41,15 @@ __global__ void __launch_bounds__(DCC_THREADS)
   load_tile<BR>(x, x_bf16, row0, R, d_in, a);
   __syncthreads();
   if (use_fn) {
-    ln_tile<BR>(a, a, d_in, pb + offs.v[0], pb + offs.v[1], false, nullptr);
+    ln_tile<BR>(a, a, d_in, pb + offs.v[0], pb + offs.v[1], nullptr);
     __syncthreads();
   }
   int din = d_in;
   for (int li = 0; li < L; ++li) {
     const long long* o = offs.v + 2 + 4 * li;
-    dense_act_tile<BR, false>(a, din, pb + o[0], pb + o[1], H, relu, z);
+    dense_act_tile<BR>(a, din, pb + o[0], pb + o[1], H, relu, z);
     __syncthreads();
-    ln_tile<BR>(z, a, H, pb + o[2], pb + o[3], false, nullptr);
+    ln_tile<BR>(z, a, H, pb + o[2], pb + o[3], nullptr);
     __syncthreads();
     din = H;
   }

@@ -9,11 +9,11 @@
 //
 // What bounds them on an H100: per row, the forward and the backward do
 // ~3 * 2 * (d_in * H + H * H) operations against d_in * (2 or 4) bytes of
-// input, so the work is compute-bound. The bf16 actor (actor_grads_mma_kernel)
-// runs every product on the tensor cores; the f32 actor and the critic in
-// both modes run them on the CUDA cores in FP32 FMA (67 TFLOP/s). Every
-// kernel re-reads and re-writes its block's gradient slot once per tile,
-// which bounds the bf16 actor at large batch.
+// input, so the work is compute-bound. In bf16 both (actor_grads_mma_kernel,
+// critic_grads_mma_kernel) run every product on the tensor cores; in f32
+// they run them on the CUDA cores in FP32 FMA (67 TFLOP/s). Every kernel
+// re-reads and re-writes its block's gradient slot once per tile after its
+// first, which bounds the bf16 kernels at large batch.
 //
 // Design. The Pallas kernels accumulate the weight gradients into one output
 // block across a sequential grid, which is race-free only on a TPU. Here a
@@ -44,6 +44,20 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   const float m = fmaxf(x, lo);
   const float gmin = m < hi ? 1.f : (m > hi ? 0.f : 0.5f);
   return gmax * gmin;
+}
+
+__device__ __forceinline__ float huber_fn(float e, float delta, int use_huber) {
+  if (!use_huber) return e * e / 2.f;
+  const float a = fabsf(e) <= delta ? 1.f : 0.f;
+  const float b = e > delta ? 1.f : 0.f;  // one-sided, as the reference
+  return a * e * e / 2.f + b * delta * (fabsf(e) - delta / 2.f);
+}
+
+__device__ __forceinline__ float huber_grad(float e, float delta, int use_huber) {
+  if (!use_huber) return e;
+  const float a = fabsf(e) <= delta ? 1.f : 0.f;
+  const float b = e > delta ? 1.f : 0.f;
+  return a * e + b * delta;
 }
 
 // Shared-memory layout of one block: the trunk cache plus per-row head
@@ -118,7 +132,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
-    trunk_fwd_folded<BR, false>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
+    trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
                                offs, c);
     // head + loss, one warp per row
     for (int r = warp; r < BR; r += nw) {
@@ -198,42 +212,148 @@ __global__ void __launch_bounds__(DCC_THREADS)
       c.g[i] = s;
     }
     __syncthreads();
-    trunk_bwd_folded<BR, false>(d_in, H, L, relu, pb, offs, c, sv, su);
+    trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
     __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3 in bf16, on the tensor cores (trunk_mma.cuh). Every product of the
-// folded forward and backward is an mma.sync bf16 product with f32
-// accumulation: the forward's a @ V, the backward's g_prev = bf16(g) V^T and
-// dV = bf16(in)^T bf16(g). The head (A <= 4 outputs) and the loss stay on
-// the CUDA cores. The forward cache is bf16, which holds it exactly: every
-// activation is a bf16 value (relu of a bf16 z, or bf16(tanh)), and each
-// layer's f32 xhat = (act - mu) * inv is recomputed from it with the
-// forward's expression. Shared memory of one block (BR rows, Kp0 =
-// pad16(d_in), Hp = pad16(H); bf16 tiles with rows padded by 8 elements):
+// K4: critic, f32 (the bf16 critic is critic_grads_mma_kernel below). aux
+// rows: [vpred, ret_raw, valid]; norm = [shift, scale]
+// applies the value normalizer in-kernel: target = (ret_raw - shift) / scale.
+// Parameter offsets: trunk, then wv (H) at v[3L], bv at v[3L+1].
+// ---------------------------------------------------------------------------
+template <int BR>
+__global__ void __launch_bounds__(DCC_THREADS)
+    critic_grads_kernel(const void* x, int x_bf16, const float* aux,
+                        const float* norm, long long R, int d_in, int H, int L,
+                        int use_fn, int relu, float clip, float delta,
+                        int use_huber, int use_clipped, const float* pb,
+                        DccOffs offs, float* slots, long long slot_size) {
+  extern __shared__ float smem[];
+  TrunkCache c = carve<BR>(smem, d_in, H, L);
+  float* dv = c.inv + BR * L;  // BR
+  float* row_loss = dv + BR;
+
+  float* slot = slots + (long long)blockIdx.x * slot_size;
+  for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
+  float* sv[DCC_MAX_LAYERS];
+  float* su[DCC_MAX_LAYERS];
+  float* head;
+  slot_ptrs(slot, d_in, H, L, 1, sv, su, &head);
+  float* s_wv = head;
+  float* s_bv = s_wv + H;
+  float* s_met = s_bv + 1;
+  const float* wv = pb + offs.v[3 * L];
+  const float bv = pb[offs.v[3 * L + 1]];
+  const float shift = norm[0], scale = norm[1];
+  const float* feat = c.xhat + (long long)(L - 1) * BR * H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  __syncthreads();
+
+  const long long tiles = (R + BR - 1) / BR;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * BR;
+    trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
+                               offs, c);
+    for (int r = warp; r < BR; r += nw) {
+      const long long row = row0 + r;
+      float s = 0.f;
+      for (int h = lane; h < H; h += 32)
+        s = fmaf(feat[r * H + h], wv[h], s);
+      s = warp_sum(s);
+      if (lane == 0) {
+        float loss = 0.f, g = 0.f;
+        if (row < R) {
+          const float v = s + bv;
+          const float* ar = aux + row * 3;
+          const float vpred = ar[0], valid = ar[2];
+          const float ret = (ar[1] - shift) / scale;
+          const float err = ret - v;
+          float dl;
+          if (use_clipped) {
+            const float dv_raw = v - vpred;
+            const float v_clip = vpred + fminf(fmaxf(dv_raw, -clip), clip);
+            const float err_c = ret - v_clip;
+            const float h1 = huber_fn(err, delta, use_huber);
+            const float h2 = huber_fn(err_c, delta, use_huber);
+            loss = fmaxf(h1, h2) * valid;
+            const float w1 = balanced_lt(h2, h1);
+            dl = -(w1 * huber_grad(err, delta, use_huber) +
+                   (1.f - w1) * huber_grad(err_c, delta, use_huber) *
+                       clip_grad(dv_raw, -clip, clip));
+          } else {
+            loss = huber_fn(err, delta, use_huber) * valid;
+            dl = -huber_grad(err, delta, use_huber);
+          }
+          g = dl * valid;
+        }
+        dv[r] = g;
+        row_loss[r] = loss;
+      }
+    }
+    __syncthreads();
+    for (int h = threadIdx.x; h < H; h += blockDim.x) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < BR; ++r) s = fmaf(feat[r * H + h], dv[r], s);
+      s_wv[h] += s;
+    }
+    if (threadIdx.x == 0) {
+      float sb = 0.f, sl = 0.f;
+      for (int r = 0; r < BR; ++r) {
+        sb += dv[r];
+        sl += row_loss[r];
+      }
+      s_bv[0] += sb;
+      s_met[0] += sl;
+    }
+    for (int i = threadIdx.x; i < BR * H; i += blockDim.x) {
+      const int r = i / H, h = i - r * H;
+      c.g[i] = dv[r] * wv[h];
+    }
+    __syncthreads();
+    trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3 and K4 in bf16, on the tensor cores (trunk_mma.cuh): one kernel body,
+// ppo_grads_mma, shared by the actor and the critic; only the head's loss
+// (ActorLoss, CriticLoss below) differs. Every product of the folded forward
+// and backward is an mma.sync bf16 product with f32 accumulation: the
+// forward's a @ V, the backward's g_prev = bf16(g) V^T and dV = bf16(in)^T
+// bf16(g). The head (A <= 4 outputs) and the loss stay on the CUDA cores.
+// The forward cache is bf16, which holds it exactly: every activation is a
+// bf16 value (relu of a bf16 z, or bf16(tanh)), and each layer's f32 xhat =
+// (act - mu) * inv is recomputed from it with the forward's expression.
+// Shared memory of one block (BR rows, Kp0 = pad16(d_in), Hp = pad16(H);
+// bf16 tiles with rows padded by 8 elements):
 //   a0    BR x Kp0   layer 0's operand
 //   act   L x BR x Hp  each layer's activation
 //   sx    BR x Hp    the operand of layer li >= 1, bf16(xhat_{li-1})
 //   gs    BR x Hp    bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
 //   f32:  mu, inv (L x BR), row-sum partials, column sums (BR/16 x Hp),
-//         bf16(Wh) (H x A) and the biases u (L x H), both loaded once per
-//         block, per-row head values
+//         bf16 of the head's weights (H x A) and the biases u (L x H), both
+//         loaded once per block, per-row head values (the outputs'
+//         cotangents and extra gradients, BR x A each; two metrics)
 // Each tile's gradients go into the block's own slot, stored by the
 // block's first tile and added by the others; every slot element has one
-// owner thread. dV is accumulated per tile in 32 x 64 register slabs.
+// owner thread. dV is accumulated per tile in 32 x 64 register slabs. At
+// d_in 440 a 64-row tile needs more than a block's shared memory, so the
+// critic takes 32- or 16-row tiles.
 // ---------------------------------------------------------------------------
-struct ActorMmaLayout {
-  size_t a0, act, sx, gs, ring, mu, inv, red, colsum, wh, u, dmean, dls, loss, ratio, total;
+struct PpoMmaLayout {
+  size_t a0, act, sx, gs, ring, mu, inv, red, colsum, wh, u, dout, ext, met, total;
 };
 
-__host__ __device__ inline ActorMmaLayout actor_mma_layout(int br, int d_in, int H, int L,
-                                                           int A) {
+__host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, int L, int A) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
   const int st_kn = ring_stage((int)Hp, false), st_nk = ring_stage((int)Hp, true);
-  ActorMmaLayout m;
+  PpoMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * (Kp0 + 8);
   m.act = o;    o += 2 * (size_t)L * br * ldh;
@@ -246,10 +366,9 @@ __host__ __device__ inline ActorMmaLayout actor_mma_layout(int br, int d_in, int
   m.colsum = o; o += 4 * (size_t)(br / 16) * Hp;
   m.wh = o;     o += 4 * (size_t)H * A;
   m.u = o;      o += 4 * (size_t)L * H;
-  m.dmean = o;  o += 4 * (size_t)br * A;
-  m.dls = o;    o += 4 * (size_t)br * A;
-  m.loss = o;   o += 4 * (size_t)br;
-  m.ratio = o;  o += 4 * (size_t)br;
+  m.dout = o;   o += 4 * (size_t)br * A;
+  m.ext = o;    o += 4 * (size_t)br * A;
+  m.met = o;    o += 4 * 2 * (size_t)br;
   m.total = o;
   return m;
 }
@@ -320,18 +439,114 @@ __device__ __forceinline__ void ln_act_bwd(float (&acc)[MmaTile<BR>::NT][4], con
   }
 }
 
-// Parameters: f32 vectors in pb as actor_grads_kernel (u_li at
-// offs.v[3*li+2], head Wh, bh, log_std at offs.v[3L..3L+2]; the V slots may
-// be empty), bf16 V_li (pad16(d_li) x pad16(H), zero padded) at
-// wb + woffs.v[li].
-template <int BR>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-    actor_grads_mma_kernel(const void* x, int x_bf16, const float* aux, long long R, int d_in,
-                           int H, int L, int A, int use_fn, int relu, float clip,
-                           const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
-                           float* slots, long long slot_size) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ActorMmaLayout m = actor_mma_layout(BR, d_in, H, L, A);
+// The loss heads. row() takes one row's head dot products s[d] = sum_h
+// bf16(feat_h) bf16(W_hd) (d < A, f32) and gives each output's cotangent
+// dout[d], its extra gradient ext[d] (when EXT) and the row's NMET metrics.
+// Rows at or beyond R give zeros.
+struct ActorLoss {  // Gaussian head, clipped surrogate; aux [action (A), old_lp, adv, valid]
+  static constexpr int NMET = 2;     // loss, ratio * valid
+  static constexpr bool EXT = true;  // d log_std
+  const float* aux;
+  const float* bh;
+  const float* log_std;
+  float clip;
+  int A;
+
+  __device__ void row(long long row, long long R, const float (&s)[4], float (&dout)[4],
+                      float (&ext)[4], float (&met)[NMET]) const {
+    float lp = 0.f, zd[4], isd[4];
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      zd[d] = isd[d] = 0.f;
+      if (d < A) {
+        const float mean = bf16r(bf16r(s[d]) + bf16r(bh[d]));
+        const float ls = log_std[d];
+        isd[d] = expf(-ls);
+        const float a = row < R ? aux[row * (A + 3) + d] : 0.f;
+        zd[d] = (a - mean) * isd[d];
+        lp += -0.5f * zd[d] * zd[d] - ls - DCC_LOG_SQRT_2PI;
+      }
+    }
+    float loss = 0.f, rv = 0.f, dlp = 0.f;
+    if (row < R) {
+      const float* ar = aux + row * (A + 3);
+      const float old_lp = ar[A], adv = ar[A + 1], valid = ar[A + 2];
+      const float ratio = expf(lp - old_lp);
+      const float clipped = fminf(fmaxf(ratio, 1.f - clip), 1.f + clip);
+      const float s1 = ratio * adv, s2 = clipped * adv;
+      loss = -fminf(s1, s2);
+      rv = ratio * valid;
+      const float w1 = balanced_lt(s1, s2);
+      const float dratio =
+          -(w1 * adv + (1.f - w1) * adv * clip_grad(ratio, 1.f - clip, 1.f + clip));
+      dlp = dratio * ratio;
+    }
+    met[0] = loss;
+    met[1] = rv;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      dout[d] = dlp * zd[d] * isd[d];
+      ext[d] = dlp * (zd[d] * zd[d] - 1.f);
+    }
+  }
+};
+
+struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_raw, valid]
+  static constexpr int NMET = 1;  // value loss
+  static constexpr bool EXT = false;
+  const float* aux;
+  float bv, shift, scale, clip, delta;
+  int use_huber, use_clipped;
+  int A;
+
+  __device__ void row(long long row, long long R, const float (&s)[4], float (&dout)[4],
+                      float (&ext)[4], float (&met)[NMET]) const {
+    float loss = 0.f, g = 0.f;
+    if (row < R) {
+      const float v = bf16r(bf16r(s[0]) + bf16r(bv));
+      const float* ar = aux + row * 3;
+      const float vpred = ar[0], valid = ar[2];
+      const float ret = (ar[1] - shift) / scale;
+      const float err = ret - v;
+      float dl;
+      if (use_clipped) {
+        const float dv_raw = v - vpred;
+        const float v_clip = vpred + fminf(fmaxf(dv_raw, -clip), clip);
+        const float err_c = ret - v_clip;
+        const float h1 = huber_fn(err, delta, use_huber);
+        const float h2 = huber_fn(err_c, delta, use_huber);
+        loss = fmaxf(h1, h2) * valid;
+        const float w1 = balanced_lt(h2, h1);
+        dl = -(w1 * huber_grad(err, delta, use_huber) +
+               (1.f - w1) * huber_grad(err_c, delta, use_huber) *
+                   clip_grad(dv_raw, -clip, clip));
+      } else {
+        loss = huber_fn(err, delta, use_huber) * valid;
+        dl = -huber_grad(err, delta, use_huber);
+      }
+      g = dl * valid;
+    }
+    met[0] = loss;
+#pragma unroll
+    for (int d = 0; d < 4; ++d) dout[d] = ext[d] = 0.f;
+    dout[0] = g;
+  }
+};
+
+// Parameters: f32 vectors in pb (u_li at offs.v[3*li+2], the head's weights
+// (H x A) at offs.v[3L], then its other vectors; the V slots may be empty),
+// bf16 V_li (pad16(d_li) x pad16(H), zero padded) at wb + woffs.v[li]. aux
+// rows are aux_w floats wide. Slot: per layer [dV, du], then the head's
+// [dW (H x A), db (A), ext (A, when EXT), metrics (NMET)].
+template <int BR, class Loss>
+__device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const void* x,
+                                              int x_bf16, const float* aux, int aux_w,
+                                              long long R, int d_in, int H, int L, int A,
+                                              int use_fn, int relu, const float* pb,
+                                              const DccOffs& offs, const bf16* wb,
+                                              const DccOffs& woffs, float* slots,
+                                              long long slot_size, const Loss& loss) {
+  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8;
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
@@ -344,23 +559,25 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   float* colsum = (float*)(smem_raw + m.colsum);
   float* whs = (float*)(smem_raw + m.wh);
   float* us = (float*)(smem_raw + m.u);
-  float* dmean = (float*)(smem_raw + m.dmean);
-  float* row_dls = (float*)(smem_raw + m.dls);
-  float* row_loss = (float*)(smem_raw + m.loss);
-  float* row_ratio = (float*)(smem_raw + m.ratio);
+  float* dout = (float*)(smem_raw + m.dout);
+  float* ext = (float*)(smem_raw + m.ext);
+  float* met = (float*)(smem_raw + m.met);
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
+  const long long tiles = (R + BR - 1) / BR;
+  if (blockIdx.x >= tiles) {  // no rows for this block: its slot holds zeros
+    for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
+    return;
+  }
   float* sv[DCC_MAX_LAYERS];
   float* su[DCC_MAX_LAYERS];
   float* head;
   slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
-  float* s_wh = head;
-  float* s_bh = s_wh + H * A;
-  float* s_ls = s_bh + A;
-  float* s_met = s_ls + A;
+  float* s_w = head;
+  float* s_b = s_w + H * A;
+  float* s_e = s_b + A;
+  float* s_met = s_e + (Loss::EXT ? A : 0);
   const float* Wh = pb + offs.v[3 * L];
-  const float* bh = pb + offs.v[3 * L + 1];
-  const float* log_std = pb + offs.v[3 * L + 2];
   const bf16* feat = act + (long long)(L - 1) * BR * ldh;  // xhat = (feat - fmu) * finv
   const float* fmu = mu_s + (L - 1) * BR;
   const float* finv = inv_s + (L - 1) * BR;
@@ -371,7 +588,6 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   for (int i = threadIdx.x; i < L * H; i += blockDim.x)
     us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
 
-  const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
     const bool first = tile == blockIdx.x;
@@ -379,7 +595,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       // the next tile's rows (thread 0) and aux rows (thread 1), into L2
       const long long r1 = row0 + (long long)gridDim.x * BR;
       const long long n = min((long long)BR, R - r1);
-      const int esz = threadIdx.x == 0 ? (x_bf16 ? 2 : 4) * d_in : 4 * (A + 3);
+      const int esz = threadIdx.x == 0 ? (x_bf16 ? 2 : 4) * d_in : 4 * aux_w;
       const char* p = threadIdx.x == 0 ? (const char*)x : (const char*)aux;
       prefetch_l2_span(p + r1 * esz, n * esz);
     }
@@ -447,41 +663,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
         }
       if (lane < RG) {
         const int r = warp + (j0 + lane) * MMA_WARPS;
-        const long long row = row0 + r;
-        float lp = 0.f, zd[4], isd[4];
+        float dv[4], ev[4], mv[Loss::NMET];
+        loss.row(row0 + r, R, mine, dv, ev, mv);
 #pragma unroll
-        for (int d = 0; d < 4; ++d) {
-          zd[d] = isd[d] = 0.f;
-          if (d < A) {
-            const float mean = bf16r(bf16r(mine[d]) + bf16r(bh[d]));
-            const float ls = log_std[d];
-            isd[d] = expf(-ls);
-            const float a = row < R ? aux[row * (A + 3) + d] : 0.f;
-            zd[d] = (a - mean) * isd[d];
-            lp += -0.5f * zd[d] * zd[d] - ls - DCC_LOG_SQRT_2PI;
-          }
-        }
-        float loss = 0.f, rv = 0.f, dlp = 0.f;
-        if (row < R) {
-          const float* ar = aux + row * (A + 3);
-          const float old_lp = ar[A], adv = ar[A + 1], valid = ar[A + 2];
-          const float ratio = expf(lp - old_lp);
-          const float clipped = fminf(fmaxf(ratio, 1.f - clip), 1.f + clip);
-          const float s1 = ratio * adv, s2 = clipped * adv;
-          loss = -fminf(s1, s2);
-          rv = ratio * valid;
-          const float w1 = balanced_lt(s1, s2);
-          const float dratio =
-              -(w1 * adv + (1.f - w1) * adv * clip_grad(ratio, 1.f - clip, 1.f + clip));
-          dlp = dratio * ratio;
-        }
-        row_loss[r] = loss;
-        row_ratio[r] = rv;
+        for (int k = 0; k < Loss::NMET; ++k) met[k * BR + r] = mv[k];
 #pragma unroll
         for (int d = 0; d < 4; ++d) {
           if (d < A) {
-            dmean[r * A + d] = dlp * zd[d] * isd[d];
-            row_dls[r * A + d] = dlp * (zd[d] * zd[d] - 1.f);
+            dout[r * A + d] = dv[d];
+            ext[r * A + d] = ev[d];
           }
         }
       }
@@ -494,35 +684,33 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
         const float f = bf16r((bf(feat[r * ldh + h]) - fmu[r]) * finv[r]);
 #pragma unroll
         for (int d = 0; d < 4; ++d)
-          if (d < A) s[d] = fmaf(f, bf16r(dmean[r * A + d]), s[d]);
+          if (d < A) s[d] = fmaf(f, bf16r(dout[r * A + d]), s[d]);
       }
-      for (int d = 0; d < A; ++d) s_wh[h * A + d] = first ? s[d] : s_wh[h * A + d] + s[d];
+      for (int d = 0; d < A; ++d) s_w[h * A + d] = first ? s[d] : s_w[h * A + d] + s[d];
     }
     if (threadIdx.x < A) {
       const int d = threadIdx.x;
-      float sb = 0.f, sl = 0.f;
+      float sb = 0.f, se = 0.f;
       for (int r = 0; r < BR; ++r) {
-        sb += dmean[r * A + d];
-        sl += row_dls[r * A + d];
+        sb += dout[r * A + d];
+        if (Loss::EXT) se += ext[r * A + d];
       }
-      s_bh[d] = first ? sb : s_bh[d] + sb;
-      s_ls[d] = first ? sl : s_ls[d] + sl;
+      s_b[d] = first ? sb : s_b[d] + sb;
+      if (Loss::EXT) s_e[d] = first ? se : s_e[d] + se;
     } else if (threadIdx.x == A) {
-      float sl = 0.f, sr = 0.f;
-      for (int r = 0; r < BR; ++r) {
-        sl += row_loss[r];
-        sr += row_ratio[r];
+      for (int k = 0; k < Loss::NMET; ++k) {
+        float sm = 0.f;
+        for (int r = 0; r < BR; ++r) sm += met[k * BR + r];
+        s_met[k] = first ? sm : s_met[k] + sm;
       }
-      s_met[0] = first ? sl : s_met[0] + sl;
-      s_met[1] = first ? sr : s_met[1] + sr;
     }
-    // cotangent of the trunk output: g = bf16(dmean) @ bf16(Wh)^T
+    // cotangent of the trunk output: g = bf16(dout) @ bf16(W_head)^T
     float dm[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int d = 0; d < 4; ++d)
-        dm[h][d] = d < A ? bf16r(dmean[(wt.r0 + 8 * h) * A + d]) : 0.f;
+        dm[h][d] = d < A ? bf16r(dout[(wt.r0 + 8 * h) * A + d]) : 0.f;
 #pragma unroll
     for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
 #pragma unroll
@@ -568,119 +756,34 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// K4: critic. aux rows: [vpred, ret_raw, valid]; norm = [shift, scale]
-// applies the value normalizer in-kernel: target = (ret_raw - shift) / scale.
-// Parameter offsets: trunk, then wv (H) at v[3L], bv at v[3L+1].
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ float huber_fn(float e, float delta, int use_huber) {
-  if (!use_huber) return e * e / 2.f;
-  const float a = fabsf(e) <= delta ? 1.f : 0.f;
-  const float b = e > delta ? 1.f : 0.f;  // one-sided, as the reference
-  return a * e * e / 2.f + b * delta * (fabsf(e) - delta / 2.f);
+// K3 in bf16. Head: Wh (H x A) at offs.v[3L], bh at v[3L+1], log_std at
+// v[3L+2].
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    actor_grads_mma_kernel(const void* x, int x_bf16, const float* aux, long long R, int d_in,
+                           int H, int L, int A, int use_fn, int relu, float clip,
+                           const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
+                           float* slots, long long slot_size) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const ActorLoss loss{aux, pb + offs.v[3 * L + 1], pb + offs.v[3 * L + 2], clip, A};
+  ppo_grads_mma<BR>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A, use_fn, relu, pb, offs,
+                    wb, woffs, slots, slot_size, loss);
 }
 
-__device__ __forceinline__ float huber_grad(float e, float delta, int use_huber) {
-  if (!use_huber) return e;
-  const float a = fabsf(e) <= delta ? 1.f : 0.f;
-  const float b = e > delta ? 1.f : 0.f;
-  return a * e + b * delta;
-}
-
-template <int BR, bool BF16>
-__global__ void __launch_bounds__(DCC_THREADS)
-    critic_grads_kernel(const void* x, int x_bf16, const float* aux,
-                        const float* norm, long long R, int d_in, int H, int L,
-                        int use_fn, int relu, float clip, float delta,
-                        int use_huber, int use_clipped, const float* pb,
-                        DccOffs offs, float* slots, long long slot_size) {
-  extern __shared__ float smem[];
-  TrunkCache c = carve<BR>(smem, d_in, H, L);
-  float* dv = c.inv + BR * L;  // BR
-  float* row_loss = dv + BR;
-
-  float* slot = slots + (long long)blockIdx.x * slot_size;
-  for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
-  float* sv[DCC_MAX_LAYERS];
-  float* su[DCC_MAX_LAYERS];
-  float* head;
-  slot_ptrs(slot, d_in, H, L, 1, sv, su, &head);
-  float* s_wv = head;
-  float* s_bv = s_wv + H;
-  float* s_met = s_bv + 1;
-  const float* wv = pb + offs.v[3 * L];
-  const float bv = pb[offs.v[3 * L + 1]];
-  const float shift = norm[0], scale = norm[1];
-  const float* feat = c.xhat + (long long)(L - 1) * BR * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nw = blockDim.x >> 5;
-  __syncthreads();
-
-  const long long tiles = (R + BR - 1) / BR;
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * BR;
-    trunk_fwd_folded<BR, BF16>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
-                               offs, c);
-    for (int r = warp; r < BR; r += nw) {
-      const long long row = row0 + r;
-      float s = 0.f;
-      for (int h = lane; h < H; h += 32)
-        s = fmaf(rnd<BF16>(feat[r * H + h]), rnd<BF16>(wv[h]), s);
-      s = warp_sum(s);
-      if (lane == 0) {
-        float loss = 0.f, g = 0.f;
-        if (row < R) {
-          const float v = BF16 ? bf16r(bf16r(s) + bf16r(bv)) : s + bv;
-          const float* ar = aux + row * 3;
-          const float vpred = ar[0], valid = ar[2];
-          const float ret = (ar[1] - shift) / scale;
-          const float err = ret - v;
-          float dl;
-          if (use_clipped) {
-            const float dv_raw = v - vpred;
-            const float v_clip = vpred + fminf(fmaxf(dv_raw, -clip), clip);
-            const float err_c = ret - v_clip;
-            const float h1 = huber_fn(err, delta, use_huber);
-            const float h2 = huber_fn(err_c, delta, use_huber);
-            loss = fmaxf(h1, h2) * valid;
-            const float w1 = balanced_lt(h2, h1);
-            dl = -(w1 * huber_grad(err, delta, use_huber) +
-                   (1.f - w1) * huber_grad(err_c, delta, use_huber) *
-                       clip_grad(dv_raw, -clip, clip));
-          } else {
-            loss = huber_fn(err, delta, use_huber) * valid;
-            dl = -huber_grad(err, delta, use_huber);
-          }
-          g = dl * valid;
-        }
-        dv[r] = g;
-        row_loss[r] = loss;
-      }
-    }
-    __syncthreads();
-    for (int h = threadIdx.x; h < H; h += blockDim.x) {
-      float s = 0.f;
-#pragma unroll
-      for (int r = 0; r < BR; ++r) s = fmaf(rnd<BF16>(feat[r * H + h]), rnd<BF16>(dv[r]), s);
-      s_wv[h] += s;
-    }
-    if (threadIdx.x == 0) {
-      float sb = 0.f, sl = 0.f;
-      for (int r = 0; r < BR; ++r) {
-        sb += dv[r];
-        sl += row_loss[r];
-      }
-      s_bv[0] += sb;
-      s_met[0] += sl;
-    }
-    for (int i = threadIdx.x; i < BR * H; i += blockDim.x) {
-      const int r = i / H, h = i - r * H;
-      c.g[i] = rnd<BF16>(dv[r]) * rnd<BF16>(wv[h]);
-    }
-    __syncthreads();
-    trunk_bwd_folded<BR, BF16>(d_in, H, L, relu, pb, offs, c, sv, su);
-    __syncthreads();
-  }
+// K4 in bf16. Head: wv (H) at offs.v[3L], bv at v[3L+1]; norm = [shift,
+// scale] of the value normalizer, applied to the raw returns in the kernel.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    critic_grads_mma_kernel(const void* x, int x_bf16, const float* aux, const float* norm,
+                            long long R, int d_in, int H, int L, int use_fn, int relu,
+                            float clip, float delta, int use_huber, int use_clipped,
+                            const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
+                            float* slots, long long slot_size) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const CriticLoss loss{aux, pb[offs.v[3 * L + 1]], norm[0], norm[1], clip, delta,
+                        use_huber, use_clipped, 1};
+  ppo_grads_mma<BR>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn, relu, pb, offs,
+                    wb, woffs, slots, slot_size, loss);
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -717,13 +820,13 @@ static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long lo
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = actor_mma_layout(BR, d_in, H, L, A).total;
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
                                         pb, o, wb, wo, slots, slot_size);
   return (int)cudaGetLastError();
 }
 
-template <int BR, bool BF16>
+template <int BR>
 static int launch_critic(const void* x, int x_bf16, const float* aux,
                          const float* norm, long long R, int d_in, int H, int L,
                          int use_fn, int relu, float clip, float delta,
@@ -731,7 +834,7 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
                          DccOffs o, float* slots, long long slot_size,
                          int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = critic_grads_kernel<BR, BF16>;
+  auto k = critic_grads_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
@@ -743,14 +846,32 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
   return (int)cudaGetLastError();
 }
 
+template <int BR>
+static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const float* norm,
+                             long long R, int d_in, int H, int L, int use_fn, int relu,
+                             float clip, float delta, int use_huber, int use_clipped,
+                             const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
+                             float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = critic_grads_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
+                                        slots, slot_size);
+  return (int)cudaGetLastError();
+}
+
 extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
                                                  int A) {
   return sizeof(float) * ppo_smem_floats(br, d_in, H, L, A);
 }
 
-extern "C" unsigned long long dcc_actor_mma_smem_bytes(int br, int d_in, int H, int L,
-                                                       int A) {
-  return actor_mma_layout(br, d_in, H, L, A).total;
+extern "C" unsigned long long dcc_ppo_mma_smem_bytes(int br, int d_in, int H, int L, int A) {
+  return ppo_mma_layout(br, d_in, H, L, A).total;
 }
 
 // Actor in f32 (FMA): slots is n_blocks x slot_size scratch, out receives
@@ -805,9 +926,10 @@ extern "C" int dcc_actor_grads_mma(const void* x, int x_bf16, const float* aux, 
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
+// Critic in f32 (FMA); norm = [shift, scale] on the device.
 extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
                                 const float* norm, long long R, int d_in, int H,
-                                int L, int use_fn, int relu, int bf16, float clip,
+                                int L, int use_fn, int relu, float clip,
                                 float delta, int use_huber, int use_clipped,
                                 int br, const float* pb, const long long* offs,
                                 int n_offs, float* slots, long long slot_size,
@@ -817,16 +939,10 @@ extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs);
   int err;
-#define DCC_CASE(B)                                                                \
-  case B:                                                                          \
-    err = bf16 ? launch_critic<B, true>(x, x_bf16, aux, norm, R, d_in, H, L,      \
-                                        use_fn, relu, clip, delta, use_huber,      \
-                                        use_clipped, pb, o, slots, slot_size,      \
-                                        n_blocks, s)                               \
-               : launch_critic<B, false>(x, x_bf16, aux, norm, R, d_in, H, L,     \
-                                         use_fn, relu, clip, delta, use_huber,     \
-                                         use_clipped, pb, o, slots, slot_size,     \
-                                         n_blocks, s);                             \
+#define DCC_CASE(B)                                                                      \
+  case B:                                                                                \
+    err = launch_critic<B>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, \
+                           use_huber, use_clipped, pb, o, slots, slot_size, n_blocks, s); \
     break;
   switch (br) {
     DCC_CASE(32)
@@ -836,6 +952,36 @@ extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
       return (int)cudaErrorInvalidValue;
   }
 #undef DCC_CASE
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// Critic in bf16 on the tensor cores: br in {32, 16}; H a multiple of 8,
+// at most MMA_HMAX; slot_size even (the slabs store float2).
+extern "C" int dcc_critic_grads_mma(const void* x, int x_bf16, const float* aux,
+                                    const float* norm, long long R, int d_in, int H, int L,
+                                    int use_fn, int relu, float clip, float delta,
+                                    int use_huber, int use_clipped, int br, const float* pb,
+                                    const long long* offs, int n_offs, const void* wb,
+                                    const long long* woffs, int n_woffs, float* slots,
+                                    long long slot_size, int n_blocks, float* out,
+                                    void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 32: err = launch_critic_mma<32>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                         clip, delta, use_huber, use_clipped, pb, o, w, wo,
+                                         slots, slot_size, n_blocks, s); break;
+    case 16: err = launch_critic_mma<16>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                         clip, delta, use_huber, use_clipped, pb, o, w, wo,
+                                         slots, slot_size, n_blocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }

@@ -7,15 +7,10 @@
 // trunk backward) and fused_ppo.cu (K3/K4, the actor and critic PPO loss +
 // gradient kernels).
 //
-// Numerics follow dcc_tpu/ops/fused_mlp.py and dcc_tpu/ops/fused_ppo.py:
-// * LN statistics in f32 with the fast variance max(E[x^2] - E[x]^2, 0),
-//   eps 1e-6;
-// * f32 mode is full FP32 on the CUDA cores (no TF32 anywhere);
-// * bf16 mode rounds every matmul operand to bf16 and accumulates in f32.
-//   A bf16 x bf16 product is exact in f32, so plain FMA reproduces "bf16
-//   operands, f32 accumulate" up to summation order. The Dense result is
-//   rounded to bf16 and the bias is added in bf16; activation and LN
-//   statistics run in f32 and the LN output is rounded to bf16.
+// Numerics follow dcc_tpu/ops/fused_mlp.py and dcc_tpu/ops/fused_ppo.py in
+// f32: LN statistics with the fast variance max(E[x^2] - E[x]^2, 0), eps
+// 1e-6, and full FP32 on the CUDA cores (no TF32 anywhere). The bf16 mode
+// runs on the tensor cores (trunk_mma.cuh).
 //
 // Layout: a tile is BR rows x width floats, row-major, in shared memory.
 // Weights are row-major (d_in, H) as the JAX package stores a Dense kernel,
@@ -39,11 +34,6 @@ struct DccOffs {
 
 __device__ __forceinline__ float bf16r(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  return BF16 ? bf16r(x) : x;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -71,12 +61,11 @@ __device__ void load_tile(const void* x, int x_bf16, long long row0,
 
 // Row-wise LayerNorm of src (BR x d) into dst (may alias src): one warp per
 // row, warp-shuffle reductions. y = xhat (* scale + bias when scale is
-// given), rounded to bf16 when round_out. Stores 1/sqrt(var + eps) per row
-// in inv_out when given (the folded backward needs it).
+// given). Stores 1/sqrt(var + eps) per row in inv_out when given (the
+// backward needs it).
 template <int BR>
 __device__ void ln_tile(const float* src, float* dst, int d,
-                        const float* scale, const float* bias, bool round_out,
-                        float* inv_out) {
+                        const float* scale, const float* bias, float* inv_out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   for (int r = warp; r < BR; r += nw) {
@@ -97,7 +86,7 @@ __device__ void ln_tile(const float* src, float* dst, int d,
     for (int k = lane; k < d; k += 32) {
       float y = (s[k] - mu) * inv;
       if (scale != nullptr) y = y * scale[k] + bias[k];
-      o[k] = round_out ? bf16r(y) : y;
+      o[k] = y;
     }
   }
 }
@@ -105,7 +94,7 @@ __device__ void ln_tile(const float* src, float* dst, int d,
 // out (BR x H) = act(in (BR x d_in) @ W (d_in x H) + b). One thread per
 // output column, BR accumulators in registers; the input element is a
 // shared-memory broadcast, the weight a coalesced read from L2.
-template <int BR, bool BF16>
+template <int BR>
 __device__ void dense_act_tile(const float* in, int d_in, const float* W,
                                const float* b, int H, bool relu, float* out) {
   for (int j = threadIdx.x; j < H; j += blockDim.x) {
@@ -114,15 +103,15 @@ __device__ void dense_act_tile(const float* in, int d_in, const float* W,
     for (int r = 0; r < BR; ++r) acc[r] = 0.f;
 #pragma unroll 4
     for (int k = 0; k < d_in; ++k) {
-      const float w = rnd<BF16>(W[(long long)k * H + j]);
+      const float w = W[(long long)k * H + j];
 #pragma unroll
-      for (int r = 0; r < BR; ++r) acc[r] = fmaf(rnd<BF16>(in[r * d_in + k]), w, acc[r]);
+      for (int r = 0; r < BR; ++r) acc[r] = fmaf(in[r * d_in + k], w, acc[r]);
     }
-    const float bj = rnd<BF16>(b[j]);
+    const float bj = b[j];
 #pragma unroll
     for (int r = 0; r < BR; ++r) {
-      const float z = BF16 ? bf16r(bf16r(acc[r]) + bj) : acc[r] + bj;
-      out[r * H + j] = relu ? fmaxf(z, 0.f) : rnd<BF16>(tanhf(z));
+      const float z = acc[r] + bj;
+      out[r * H + j] = relu ? fmaxf(z, 0.f) : tanhf(z);
     }
   }
 }
@@ -131,13 +120,12 @@ __device__ void dense_act_tile(const float* in, int d_in, const float* W,
 struct TrunkCache {
   float* a0;   // BR x d_in: input of layer 0 (feature-normalized obs)
   float* act;  // L x BR x H: post-activation r of each layer
-  float* xhat; // L x BR x H: un-rounded LN output of each layer
+  float* xhat; // L x BR x H: LN output of each layer
   float* inv;  // L x BR: 1/sqrt(var + eps) of each layer's LN
   float* g;    // BR x H: feature cotangent / backward scratch
 };
 
-// Input of layer li: a0 for li == 0, else the previous layer's xhat (read
-// through rnd<BF16>, which makes it the bf16-rounded activation).
+// Input of layer li: a0 for li == 0, else the previous layer's xhat.
 __device__ __forceinline__ const float* layer_input(const TrunkCache& c,
                                                     int li, int BR, int H) {
   return li == 0 ? c.a0 : c.xhat + (long long)(li - 1) * BR * H;
@@ -145,7 +133,7 @@ __device__ __forceinline__ const float* layer_input(const TrunkCache& c,
 
 // Folded forward of one tile (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded).
 // Parameter offsets: V_li at offs.v[3*li], u_li at offs.v[3*li+2].
-template <int BR, bool BF16>
+template <int BR>
 __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
                                  long long R, int d_in, int H, int L,
                                  bool use_fn, bool relu, const float* pb,
@@ -153,18 +141,17 @@ __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
   load_tile<BR>(x, x_bf16, row0, R, d_in, c.a0);
   __syncthreads();
   if (use_fn) {
-    ln_tile<BR>(c.a0, c.a0, d_in, nullptr, nullptr, BF16, nullptr);
+    ln_tile<BR>(c.a0, c.a0, d_in, nullptr, nullptr, nullptr);
     __syncthreads();
   }
   for (int li = 0; li < L; ++li) {
     const float* in = layer_input(c, li, BR, H);
     const int din = li == 0 ? d_in : H;
     float* act = c.act + (long long)li * BR * H;
-    dense_act_tile<BR, BF16>(in, din, pb + offs.v[3 * li], pb + offs.v[3 * li + 2],
-                             H, relu, act);
+    dense_act_tile<BR>(in, din, pb + offs.v[3 * li], pb + offs.v[3 * li + 2], H, relu,
+                       act);
     __syncthreads();
-    ln_tile<BR>(act, c.xhat + (long long)li * BR * H, H, nullptr, nullptr, false,
-                c.inv + li * BR);
+    ln_tile<BR>(act, c.xhat + (long long)li * BR * H, H, nullptr, nullptr, c.inv + li * BR);
     __syncthreads();
   }
 }
@@ -174,7 +161,7 @@ __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
 // per layer into the block's own gradient slot (slot_v[li], slot_u[li]); a
 // slot element is owned by one thread, so no atomics are needed. V_li^T
 // (d_out x d_in) at offs.v[3*li+1] feeds the propagation to layer li-1.
-template <int BR, bool BF16>
+template <int BR>
 __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
                                  const float* pb, const DccOffs& offs,
                                  const TrunkCache& c, float* const* slot_v,
@@ -214,10 +201,6 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
       slot_u[li][j] += s;
     }
     __syncthreads();
-    if (BF16) {
-      for (int i = threadIdx.x; i < BR * H; i += blockDim.x) g[i] = bf16r(g[i]);
-      __syncthreads();
-    }
     // dV = in^T @ g: one thread per (k, j) element of the slot
     const float* in = layer_input(c, li, BR, H);
     const int din = li == 0 ? d_in : H;
@@ -226,7 +209,7 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
       const int k = (int)(e / H), j = (int)(e - (long long)k * H);
       float s = 0.f;
 #pragma unroll
-      for (int r = 0; r < BR; ++r) s = fmaf(rnd<BF16>(in[r * din + k]), g[r * H + j], s);
+      for (int r = 0; r < BR; ++r) s = fmaf(in[r * din + k], g[r * H + j], s);
       sv[e] += s;
     }
     if (li > 0) {
@@ -239,7 +222,7 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
         for (int r = 0; r < BR; ++r) acc[r] = 0.f;
 #pragma unroll 4
         for (int j = 0; j < H; ++j) {
-          const float w = rnd<BF16>(Vt[(long long)j * din + k]);
+          const float w = Vt[(long long)j * din + k];
 #pragma unroll
           for (int r = 0; r < BR; ++r) acc[r] = fmaf(g[r * H + j], w, acc[r]);
         }
@@ -262,10 +245,10 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
 
 // Shared-memory cache of the unfolded forward for one tile of BR rows.
 struct UnfoldedCache {
-  float* xf;   // BR x d_in: un-rounded feature-norm xhat (use_fn only)
+  float* xf;   // BR x d_in: feature-norm xhat (use_fn only)
   float* a0;   // BR x d_in: layer-0 input; after the backward, d(x)
-  float* r;    // L x BR x H: activation of each layer (rounded as the chain)
-  float* xh;   // L x BR x H: un-rounded LN xhat of each layer
+  float* r;    // L x BR x H: activation of each layer
+  float* xh;   // L x BR x H: LN xhat of each layer
   float* y;    // (L-1) x BR x H: LN output of layer li = input of li+1
   float* g;    // BR x H: cotangent of the trunk output
   float* inv;  // (L+1) x BR: 1/sqrt(var+eps), feature norm first
@@ -288,14 +271,14 @@ __device__ UnfoldedCache carve_unfolded(float* smem, int d_in, int H, int L) {
   return c;
 }
 
-// dst (BR x d) = src * scale + bias per column, rounded to bf16 in bf16
-// mode: the affine half of ln_tile, on a stored xhat.
-template <int BR, bool BF16>
+// dst (BR x d) = src * scale + bias per column: the affine half of
+// ln_tile, on a stored xhat.
+template <int BR>
 __device__ void affine_tile(const float* src, float* dst, int d, const float* scale,
                             const float* bias) {
   for (int i = threadIdx.x; i < BR * d; i += blockDim.x) {
     const int k = i % d;
-    dst[i] = rnd<BF16>(src[i] * scale[k] + bias[k]);
+    dst[i] = src[i] * scale[k] + bias[k];
   }
 }
 
@@ -350,7 +333,7 @@ __device__ void ln_bwd_tile(float* g, const float* xh, const float* inv,
 }
 
 // Unfolded forward of one tile, keeping the cache the backward needs.
-template <int BR, bool BF16>
+template <int BR>
 __device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
                                    long long R, int d_in, int H, int L, bool use_fn,
                                    bool relu, const float* pb, const DccOffs& offs,
@@ -358,23 +341,23 @@ __device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
   load_tile<BR>(x, x_bf16, row0, R, d_in, c.a0);
   __syncthreads();
   if (use_fn) {
-    ln_tile<BR>(c.a0, c.xf, d_in, nullptr, nullptr, false, c.inv);
+    ln_tile<BR>(c.a0, c.xf, d_in, nullptr, nullptr, c.inv);
     __syncthreads();
-    affine_tile<BR, BF16>(c.xf, c.a0, d_in, pb + offs.v[0], pb + offs.v[1]);
+    affine_tile<BR>(c.xf, c.a0, d_in, pb + offs.v[0], pb + offs.v[1]);
     __syncthreads();
   }
   for (int li = 0; li < L; ++li) {
     const float* in = li == 0 ? c.a0 : c.y + (long long)(li - 1) * BR * H;
     float* r = c.r + (long long)li * BR * H;
     float* xh = c.xh + (long long)li * BR * H;
-    dense_act_tile<BR, BF16>(in, li == 0 ? d_in : H, pb + offs.v[2 + 4 * li],
-                             pb + offs.v[3 + 4 * li], H, relu, r);
+    dense_act_tile<BR>(in, li == 0 ? d_in : H, pb + offs.v[2 + 4 * li],
+                       pb + offs.v[3 + 4 * li], H, relu, r);
     __syncthreads();
-    ln_tile<BR>(r, xh, H, nullptr, nullptr, false, c.inv + (li + 1) * BR);
+    ln_tile<BR>(r, xh, H, nullptr, nullptr, c.inv + (li + 1) * BR);
     __syncthreads();
     if (li + 1 < L) {
-      affine_tile<BR, BF16>(xh, c.y + (long long)li * BR * H, H, pb + offs.v[4 + 4 * li],
-                            pb + offs.v[5 + 4 * li]);
+      affine_tile<BR>(xh, c.y + (long long)li * BR * H, H, pb + offs.v[4 + 4 * li],
+                      pb + offs.v[5 + 4 * li]);
       __syncthreads();
     }
   }
@@ -383,11 +366,9 @@ __device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
 // Unfolded backward of one tile from the cotangent in c.g. Adds this tile's
 // gradient of every parameter into the block's own slot, laid out as the
 // flat parameter list (so offs.v[] locates each gradient too; each slot
-// element has one owner thread, no atomics). In bf16 mode the matmul
-// operands are rounded: dW = bf16(a)^T bf16(g), g_prev = bf16(g) bf16(W)^T,
-// f32 accumulation; db and the LN gradients use the un-rounded cotangent.
-// Leaves d(x) (BR x d_in, f32) in c.a0.
-template <int BR, bool BF16>
+// element has one owner thread, no atomics). Leaves d(x) (BR x d_in) in
+// c.a0.
+template <int BR>
 __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool relu,
                                    const float* pb, const DccOffs& offs,
                                    const UnfoldedCache& c, float* slot) {
@@ -402,10 +383,6 @@ __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool rel
     __syncthreads();
     col_sums<BR>(g, nullptr, H, nullptr, slot + o[1]);
     __syncthreads();
-    if (BF16) {
-      for (int i = threadIdx.x; i < BR * H; i += blockDim.x) g[i] = bf16r(g[i]);
-      __syncthreads();
-    }
     // dW = in^T @ g: one thread per (k, j) element of the slot
     const float* in = li == 0 ? c.a0 : c.y + (long long)(li - 1) * BR * H;
     const int din = li == 0 ? d_in : H;
@@ -414,7 +391,7 @@ __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool rel
       const int k = (int)(e / H), j = (int)(e - (long long)k * H);
       float s = 0.f;
 #pragma unroll
-      for (int rr = 0; rr < BR; ++rr) s = fmaf(rnd<BF16>(in[rr * din + k]), g[rr * H + j], s);
+      for (int rr = 0; rr < BR; ++rr) s = fmaf(in[rr * din + k], g[rr * H + j], s);
       sw[e] += s;
     }
     __syncthreads();  // layer 0 writes g_prev over its input a0
@@ -428,7 +405,7 @@ __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool rel
       for (int rr = 0; rr < BR; ++rr) acc[rr] = 0.f;
 #pragma unroll 4
       for (int j = 0; j < H; ++j) {
-        const float w = rnd<BF16>(Wt[(long long)j * din + k]);
+        const float w = Wt[(long long)j * din + k];
 #pragma unroll
         for (int rr = 0; rr < BR; ++rr) acc[rr] = fmaf(g[rr * H + j], w, acc[rr]);
       }

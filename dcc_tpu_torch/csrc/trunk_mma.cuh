@@ -1,10 +1,10 @@
-// Tensor-core core of the bf16 trunk kernels (K2 forward in fused_mlp.cu, K3
-// actor loss + gradients in fused_ppo.cu): warp-level
-// mma.sync.m16n8k16 bf16 products with f32 accumulation on shared-memory
-// tiles, operands loaded with ldmatrix, weights streamed from L2 through a
-// three-stage cp.async ring.
+// Tensor-core core of the bf16 trunk kernels (K2 forward in fused_mlp.cu, K2b
+// backward in fused_mlp_bwd.cu, K3 / K4 loss + gradients in fused_ppo.cu):
+// warp-level mma.sync.m16n8k16 bf16 products with f32 accumulation on
+// shared-memory tiles, operands loaded with ldmatrix, weights streamed from
+// L2 through a three-stage cp.async ring.
 //
-// Numerics are those of the FMA kernels in bf16 mode (trunk.cuh): every
+// Numerics are JAX's bf16 mode (dcc_tpu/ops/fused_mlp.py, fused_ppo.py): every
 // matmul operand is a bf16 value and products accumulate in f32. A bf16 x
 // bf16 product is exact in f32, so only the summation order differs. The
 // operands live in shared memory as bf16, rounded once when written; the
@@ -299,11 +299,13 @@ __device__ __forceinline__ void dense_act_stats(float (&acc)[MmaTile<BR>::NT][4]
 // else of x. Columns d_in..Kp0 and rows >= R are 0. Warp w takes rows w,
 // w + 8, ...; each step of a pass loads one element of every one of the
 // warp's rows through the read-only path, so those loads are in flight
-// together.
+// together. With use_fn and mu_out given, each row's mean and
+// 1/sqrt(var + eps) go to mu_out[r] and inv_out[r].
 template <int BR>
 __device__ void load_input(const void* x, int x_bf16, long long row0, long long R, int d_in,
                            int Kp0, bool use_fn, const float* scale, const float* bias,
-                           bf16* a0, int lda) {
+                           bf16* a0, int lda, float* mu_out = nullptr,
+                           float* inv_out = nullptr) {
   constexpr int RW = BR / MMA_WARPS;  // rows per warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float* xf = (const float*)x;
@@ -340,6 +342,10 @@ __device__ void load_input(const void* x, int x_bf16, long long row0, long long 
     for (int j = 0; j < RW; ++j) {
       mu[j] = warp_sum(sum[j]) / d_in;
       inv[j] = 1.f / sqrtf(fmaxf(warp_sum(sq[j]) / d_in - mu[j] * mu[j], 0.f) + 1e-6f);
+      if (mu_out != nullptr && lane == 0) {
+        mu_out[warp + j * MMA_WARPS] = mu[j];
+        inv_out[warp + j * MMA_WARPS] = inv[j];
+      }
     }
   }
   for (int k = lane; k < Kp0; k += 32) {

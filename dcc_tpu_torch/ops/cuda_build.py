@@ -57,10 +57,14 @@ _SIGNATURES = {
     },
     "fused_mlp_bwd": {
         "dcc_trunk_bwd": [
-            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P,
-            _P, _P,
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P,
+        ],
+        "dcc_trunk_bwd_mma": [
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
+            _P, _P, _P,
         ],
         "dcc_trunk_bwd_smem_bytes": [_I, _I, _I, _I],
+        "dcc_trunk_bwd_mma_smem_bytes": [_I, _I, _I, _I],
     },
     "fused_ppo": {
         "dcc_actor_grads": [
@@ -71,12 +75,16 @@ _SIGNATURES = {
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
             _P, _L, _I, _P, _P,
         ],
-        "dcc_actor_mma_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_critic_grads": [
-            _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+            _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
             _P, _P, _I, _P, _L, _I, _P, _P,
         ],
+        "dcc_critic_grads_mma": [
+            _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P,
+        ],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
     },
 }
 

@@ -24,11 +24,12 @@ vectors. :func:`fused_mlp` goes through :class:`FusedTrunk`, so it is
 differentiable on both devices; the raw launcher :func:`trunk_forward_cuda`
 has no backward and refuses a tensor that needs a gradient.
 
-In bf16 K2 runs on the tensor cores (``csrc/trunk_mma.cuh``) and reads a
-bf16 copy of each weight, zero-padded to multiples of 16
+In bf16 K2 and K2b run on the tensor cores (``csrc/trunk_mma.cuh``) and
+read a bf16 copy of each weight, zero-padded to multiples of 16
 (:func:`pack_mma_weights`); :func:`pack_trunk` makes it beside the f32
-buffer of the vectors, once per parameter version on the rollout path. In
-f32 K2 stays on full-f32 FMA.
+buffer of the vectors, once per parameter version (``MLPBase.packed_params``),
+and :class:`FusedTrunk` hands the forward's pack to the backward. In f32
+both stay on full-f32 FMA.
 """
 
 from __future__ import annotations
@@ -151,17 +152,26 @@ def trunk_backward_plain(
 
 def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True, bf16: bool = False,
                    eps: float = 1e-5) -> torch.Tensor:
-    """(rows,) bool: rows with a relu pre-activation within ``eps`` of 0.
-    There two summation orders (kernel and plain version) may take opposite
-    sides of the kink, and the row's gradient differs at full size; the
-    kernel checks give these rows a zero cotangent."""
+    """(rows,) bool: rows with a relu pre-activation z within ``eps`` of 0,
+    and in bf16 also those with z no farther from the kink than the bf16
+    spacing at its pre-rounding accumulator. There two summation orders
+    (kernel and plain version) may take opposite sides of the kink: in f32
+    by rounding, in bf16 because another order (the tensor cores') can move
+    the accumulator across a bf16 rounding boundary. The row's gradient then
+    differs at full size; the kernel checks give these rows a zero
+    cotangent (:func:`dcc_tpu_torch.ops.fused_ppo.relu_kink_rows_folded` is
+    the folded chain's rule)."""
     with torch.no_grad():
         _, _, layers = _forward_chain(x, params, n_layers, use_fn, True, bf16)
         first = 2 if use_fn else 0
         near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         for li, (a, *_) in enumerate(layers):
             w, b = params[first + 4 * li], params[first + 4 * li + 1]
-            near |= (dense(a, w, b, bf16).abs() < eps).any(dim=1)
+            z = dense(a, w, b, bf16).abs()
+            near |= (z < eps).any(dim=1)
+            if bf16:
+                acc = (bf16_round(a) @ bf16_round(w)).abs().clamp_min(1e-30)
+                near |= (z <= torch.exp2(torch.floor(torch.log2(acc)) - 7)).any(dim=1)
     return near
 
 
@@ -240,7 +250,10 @@ def check_mma_width(hidden: int) -> None:
                          f"multiple of 8 and at most 256, not {hidden}")
 
 
-def tile_rows(width: int, floats_per_row_fn, budget: int = 232448,
+SMEM_MAX = 232448  # an H100 block's shared memory, bytes
+
+
+def tile_rows(width: int, floats_per_row_fn, budget: int = SMEM_MAX,
               sizes: Sequence[int] = (32, 8, 1)) -> int:
     """Largest row tile among the ``sizes`` a kernel is built for whose
     shared memory, ``4 * floats_per_row_fn(tile)`` bytes, fits one H100
@@ -249,6 +262,29 @@ def tile_rows(width: int, floats_per_row_fn, budget: int = 232448,
         if 4 * floats_per_row_fn(br) <= budget:
             return br
     raise ValueError(f"a {width}-wide row does not fit the shared-memory budget")
+
+
+def mma_tile_rows(rows: int, width: int, floats_per_row_fn, sms: int,
+                  sizes: Sequence[int]) -> int:
+    """Row tile of a tensor-core gradient kernel (K3, K4, K2b): among the
+    ``sizes`` (largest first) whose shared memory fits one block, the
+    largest that still gives every SM a tile, else the smallest."""
+    fit = [b for b in sizes if 4 * floats_per_row_fn(b) <= SMEM_MAX]
+    if not fit:
+        raise ValueError(f"a {width}-wide row does not fit the shared-memory budget")
+    return next((b for b in fit if -(-rows // b) >= sms), fit[-1])
+
+
+def grads_blocks(tiles: int, sms: int, mma: bool) -> int:
+    """Blocks of a K3, K4 or K2b launch: one per SM, each looping over row
+    tiles and adding every tile after its first into its gradient slot. The
+    tensor-core kernels take one block per tile while the tiles fit in two
+    waves: every block then stores its slot once, and no block's second
+    tile waits on re-reading its slot (one shared-memory-sized block fits
+    an SM, so the second wave starts as the first ends)."""
+    if mma and tiles <= 2 * sms:
+        return max(1, tiles)
+    return max(1, min(tiles, sms))
 
 
 def _check_trunk(x, params, n_layers, use_fn):
@@ -332,40 +368,66 @@ def trunk_backward_cuda(
     use_fn: bool = True,
     use_relu: bool = True,
     bf16: bool = False,
+    packed: Optional[TrunkPack] = None,
 ):
     """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
-    rows and the (rows, H) cotangent; same returns as the plain version."""
+    rows and the (rows, H) cotangent: the tensor-core kernel in bf16, which
+    reads K2's bf16 weight copies (``packed`` as in
+    :func:`trunk_forward_cuda`, or None to pack here), the FMA kernel in f32.
+    Same returns as the plain version."""
     rows, d_in = x.shape
     hidden = _check_trunk(x, params, n_layers, use_fn)
     g = g.to(torch.float32).contiguous()
     cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
-    # the kernel reads W^T (d_out, d_in) for g_prev = g W^T, after the params
-    first = 2 if use_fn else 0
-    wts = [params[first + 4 * li].t() for li in range(n_layers)]
-    pb, offs = pack_params(list(params) + wts, x.device)
+    lib = cb.library("fused_mlp_bwd")
+    sms = cb.sm_count(x.device)
+    if bf16:
+        check_mma_width(hidden)
+        if packed is None:
+            packed = pack_trunk(params, x.device, n_layers, use_fn, True)
+        if packed.weights is None:
+            raise ValueError("bf16 K2b needs the bf16 weight copies: pack_trunk(..., bf16=True)")
+        cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
+        pb, offs = packed.buffer, packed.offsets
+        br = mma_tile_rows(
+            rows, d_in, lambda b: lib.dcc_trunk_bwd_mma_smem_bytes(b, d_in, hidden, n_layers) // 4,
+            sms, sizes=(64, 32, 16),
+        )
+    else:
+        # the FMA kernel reads W^T (d_out, d_in) for g_prev = g W^T, after the params
+        first = 2 if use_fn else 0
+        wts = [params[first + 4 * li].t() for li in range(n_layers)]
+        pb, offs = pack_params(list(params) + wts, x.device)
+        br = tile_rows(
+            d_in, lambda b: lib.dcc_trunk_bwd_smem_bytes(b, d_in, hidden, n_layers) // 4,
+            sizes=(32, 16, 8, 1),
+        )
+    cb.require(pb, "packed parameters", (torch.float32,), device=x.device)
     if not use_fn:
         offs = [0, 0] + offs
-    lib = cb.library("fused_mlp_bwd")
-    br = tile_rows(
-        d_in, lambda b: lib.dcc_trunk_bwd_smem_bytes(b, d_in, hidden, n_layers) // 4,
-        sizes=(32, 16, 8, 1),
-    )
     # each block owns one slot laid out as the flat parameter list
-    slot = sum(p.numel() for p in params)
-    n_blocks = max(1, min(-(-rows // br), cb.sm_count(x.device)))
+    used = sum(p.numel() for p in params)
+    slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
+    n_blocks = grads_blocks(-(-rows // br), sms, bf16)
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     offs_c = (cb._L * len(offs))(*offs)
-    code = lib.dcc_trunk_bwd(
+    weights = ()
+    if bf16:
+        woffs = packed.weight_offsets
+        weights = (packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs))
+    entry = "dcc_trunk_bwd_mma" if bf16 else "dcc_trunk_bwd"
+    code = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
-        n_layers, int(use_fn), int(use_relu), int(bf16), br, pb.data_ptr(), offs_c,
-        len(offs), slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(),
-        cb.stream_of(x),
+        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), offs_c, len(offs), *weights,
+        slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), cb.stream_of(x),
     )
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
     cb.LAUNCHES["fused_mlp_bwd"] += 1
-    grads = [t.view(p.shape) for t, p in zip(out.split([p.numel() for p in params]), params)]
+    cb.ENTRY["fused_mlp_bwd"] = entry
+    grads = [t.view(p.shape) for t, p in zip(out[:used].split([p.numel() for p in params]),
+                                             params)]
     return dx, grads
 
 
@@ -373,11 +435,13 @@ class FusedTrunk(torch.autograd.Function):
     """The trunk as one differentiable op: K2 forward and K2b backward on
     CUDA tensors, their plain versions on CPU tensors. As the JAX package's
     custom VJP, it saves only ``x`` and the parameters; the backward
-    recomputes the forward."""
+    recomputes the forward (reusing the forward's ``packed`` parameters on
+    CUDA)."""
 
     @staticmethod
     def forward(ctx, x, cfg, packed, *params):
         ctx.cfg = cfg
+        ctx.packed = packed
         ctx.save_for_backward(x, *params)
         if x.is_cuda:
             return trunk_forward_cuda(x, params, *cfg, packed=packed)
@@ -387,8 +451,10 @@ class FusedTrunk(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
-        bwd = trunk_backward_cuda if g.is_cuda else trunk_backward_plain
-        dx, grads = bwd(x, params, g, *ctx.cfg)
+        if g.is_cuda:
+            dx, grads = trunk_backward_cuda(x, params, g, *ctx.cfg, packed=ctx.packed)
+        else:
+            dx, grads = trunk_backward_plain(x, params, g, *ctx.cfg)
         return (dx if ctx.needs_input_grad[0] else None, None, None, *grads)
 
 

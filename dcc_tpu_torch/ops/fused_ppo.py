@@ -13,7 +13,9 @@ The plain versions write the folded backward out explicitly, with JAX's
 autodiff tie rules (min / max split the cotangent 50/50 on ties, clip
 composes the two) and the bf16 rounding points of the kernel, so they mirror
 the kernel's algorithm rather than autograd. On CUDA tensors the wrappers
-launch the kernels or raise; on CPU tensors they run the plain versions.
+launch the kernels or raise (in bf16 the tensor-core kernels, on padded bf16
+copies of the folded weights; in f32 the FMA ones); on CPU tensors they run
+the plain versions.
 
 Aux layout (row-major, the GPU needs no lane-padding workaround): actor rows
 ``[action (A), old_log_prob, advantage, valid]``, critic rows ``[vpred,
@@ -34,7 +36,9 @@ from .fused_mlp import (
     bf16_round,
     check_mma_width,
     dense,
+    grads_blocks,
     ln_stats,
+    mma_tile_rows,
     pack_mma_weights,
     pack_params,
     require_shapes,
@@ -296,18 +300,6 @@ def _slot_split(out, dims, hidden, extra):
     return res
 
 
-def grads_blocks(tiles: int, sms: int, mma: bool) -> int:
-    """Blocks of a K3 / K4 launch: one per SM, each looping over row tiles
-    and adding every tile after its first into its gradient slot. The
-    tensor-core kernel takes one block per tile while the tiles fit in two
-    waves: every block then stores its slot once, and no block's second
-    tile waits on re-reading its slot (one shared-memory-sized block fits
-    an SM, so the second wave starts as the first ends)."""
-    if mma and tiles <= 2 * sms:
-        return max(1, tiles)
-    return max(1, min(tiles, sms))
-
-
 def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
                   act_dim, fn_args):
     rows, d_in = x.shape
@@ -323,17 +315,17 @@ def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
     # the head's parameters have the shapes of its gradients
     require_shapes([*kp, *head], [s for d in dims for s in ((d, hidden), (hidden,))]
                    + extra[: len(head)], "folded parameter")
-    # the bf16 actor runs on the tensor cores, everything else on FMA
-    mma = kind == "actor" and bf16
-    if mma:
+    # bf16 runs on the tensor cores, f32 on FMA
+    if bf16:
         check_mma_width(hidden)
-    pb, offs, wb, woffs = _kernel_params(kp, head, x.device, mma)
+    pb, offs, wb, woffs = _kernel_params(kp, head, x.device, bf16)
     lib = cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
-    if mma:
-        br = tile_rows(
-            d_in, lambda b: lib.dcc_actor_mma_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4,
-            sizes=(64, 32),
+    if bf16:
+        br = mma_tile_rows(
+            rows, d_in,
+            lambda b: lib.dcc_ppo_mma_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4,
+            cb.sm_count(x.device), sizes=(64, 32) if kind == "actor" else (32, 16),
         )
     else:
         br = tile_rows(
@@ -341,34 +333,27 @@ def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
         )
     used = sum(d * hidden + hidden for d in dims) + sum(math.prod(s) for s in extra)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
-    n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), mma)
+    n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), bf16)
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
-    if mma:
-        entry = "dcc_actor_grads_mma"
-        code = lib.dcc_actor_grads_mma(
+    weights = (wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs)) if bf16 else ()
+    if kind == "actor":
+        entry = "dcc_actor_grads_mma" if bf16 else "dcc_actor_grads"
+        code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
             int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
-            wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs), slots.data_ptr(), slot,
-            n_blocks, out.data_ptr(), cb.stream_of(x),
-        )
-    elif kind == "actor":
-        entry = "dcc_actor_grads"
-        code = lib.dcc_actor_grads(
-            x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
-            int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
-            slots.data_ptr(), slot, n_blocks, out.data_ptr(), cb.stream_of(x),
+            *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(), cb.stream_of(x),
         )
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
-        entry = "dcc_critic_grads"
-        code = lib.dcc_critic_grads(
+        entry = "dcc_critic_grads_mma" if bf16 else "dcc_critic_grads"
+        code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
-            n_layers, int(use_fn), int(use_relu), int(bf16), *fn_args[1:], br, pb.data_ptr(),
-            offs_c, len(offs), slots.data_ptr(), slot, n_blocks, out.data_ptr(),
+            n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(), offs_c,
+            len(offs), *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(),
             cb.stream_of(x),
         )
     cb.check("fused_ppo", code, f"{kind}_ppo_grads")

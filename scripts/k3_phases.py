@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the bf16 K3 kernel (``actor_grads_mma_kernel``) spends a row tile,
-on one GPU.
+"""Where the bf16 K3 kernel (``actor_grads_mma_kernel``, whose body
+``ppo_grads_mma`` it shares with K4) spends a row tile, on one GPU.
 
     python3 scripts/k3_phases.py [--rows 38400]
 
@@ -50,7 +50,7 @@ def instrument(src: str) -> str:
             "nth < 2) k3_clock[nth][i] = clock64(); } while (0)\n"
             "extern \"C\" int dcc_k3_clock(unsigned long long* out) {\n"
             "  return (int)cudaMemcpyFromSymbol(out, k3_clock, sizeof(k3_clock));\n}\n")
-    k = src.index("actor_grads_mma_kernel(const void* x")
+    k = src.index("ppo_grads_mma(unsigned char* smem_raw")
     pre, body = src[:k], src[k:]
     loop = "  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {\n"
     assert loop in body, "tile loop not found"
@@ -65,7 +65,7 @@ def instrument(src: str) -> str:
             text = anchor + probe
         body = body[:i] + text + body[i + len(anchor):]
         at = i + len(text)
-    s = pre.replace("struct ActorMmaLayout {", head + "struct ActorMmaLayout {", 1)
+    s = pre.replace("struct PpoMmaLayout {", head + "struct PpoMmaLayout {", 1)
     return s + body
 
 

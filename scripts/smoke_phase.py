@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Run one phase of ``chip_smoke.py`` against the PyTorch / CUDA port of any
+checkout, on one GPU.
+
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] updates
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
+
+``updates`` holds the fused f32 update and the recurrent bf16 update on the
+card against the CPU (``chip_smoke.check_updates_against_cpu``).
+``profile`` trains with ``chip_smoke.py``'s base arguments plus the given
+ones (for example ``--compute-dtype bfloat16 --use-recurrent-policy true``),
+then profiles one more iteration (``chip_smoke.profile_iteration``: device
+time by kernel name, the device's idle share). ``--root`` names the checkout
+whose ``dcc_tpu_torch`` runs (default: this one), so that another commit's
+package, unpacked with ``git archive``, is measured by the same code.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--root", default=HERE, help="checkout whose dcc_tpu_torch runs")
+    ap.add_argument("--out", default=None, help="also write the results to this JSON file")
+    ap.add_argument("phase", choices=("updates", "profile"))
+    ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("smoke_phase: no CUDA device", file=sys.stderr)
+        return 2
+    out = os.path.abspath(args.out) if args.out else None
+    sys.path.insert(0, HERE)
+    import chip_smoke
+
+    sys.path.insert(0, os.path.abspath(args.root))
+    os.chdir(args.root)
+    import dcc_tpu_torch
+
+    print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
+          flush=True)
+    if args.phase == "updates":
+        results: dict = {}
+        try:
+            chip_smoke.check_updates_against_cpu(results)
+        except chip_smoke.SmokeFailure as e:
+            print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
+            return 1
+    else:
+        from dcc_tpu_torch import train
+
+        learner = train.main(chip_smoke.BASE_ARGS + args.train_args)
+        results = chip_smoke.profile_iteration(learner, " ".join(args.train_args) or "default")
+    if out:
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,14 +10,15 @@ installed (``--noconftest`` skips ``tests/conftest.py``, which imports JAX):
 
 The shapes are small but ragged (row counts that are not a multiple of the
 row tile) and cover the options the default model does not use: tanh, no
-feature norm, one and three layers, other widths, bf16 input rows. bf16 K2
-and K3 run on the tensor cores (``*_mma`` entry points), which pad every
-width to a multiple of 16 and tile rows by 16, 32 or 64; their row counts
-around those tiles and their padded widths have tests of their own. The
-tolerances are those of ``chip_smoke.py``: f32 differs by summation order,
-bf16 by 1-ulp flips of the bf16 roundings inside the chain. The K2b checks
-give a zero cotangent to the rows with a relu pre-activation within 1e-5 of
-the kink, where the two summation orders may take opposite sides.
+feature norm, one and three layers, other widths, bf16 input rows. In bf16
+K2, K2b, K3 and K4 run on the tensor cores (``*_mma`` entry points), which
+pad every width to a multiple of 16 and tile rows by 16, 32 or 64; their
+row counts around those tiles and their padded widths have tests of their
+own. The tolerances are those of ``chip_smoke.py``: f32 differs by
+summation order, bf16 by 1-ulp flips of the bf16 roundings inside the
+chain. Rows next to a relu kink, where two summation orders may take
+opposite sides, get a zero cotangent (K2b, ``relu_kink_rows``) or a zero
+advantage / valid flag (bf16 K3 / K4, ``relu_kink_rows_folded``).
 
 This module imports no JAX: the JAX comparison of the plain versions is in
 the other ``tests/test_torch_*.py`` files.
@@ -210,6 +211,8 @@ def test_critic_grads_kernel_matches_plain(cuda, rows, n_layers, use_fn, use_rel
     x, aux, kp, hw, hb = _ppo_case(gen, "critic", rows, 440, 128, n_layers, use_fn, cuda)
     if bf16:
         x = x.bfloat16()
+        if use_relu:  # the tensor cores' summation order near a relu kink
+            aux[FP.relu_kink_rows_folded(x, kp, n_layers, use_fn), 2] = 0.0
     norm = torch.tensor([0.5, 2.0], device=cuda)
     kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=bf16,
               clip_param=0.2, huber_delta=10.0, use_huber=use_huber,
@@ -291,16 +294,77 @@ def test_bf16_actor_grads_on_tensor_cores(cuda, rows, d_in, hidden, n_layers, us
         assert _rel(g, w) < 4e-3
 
 
+@pytest.mark.parametrize("rows", _RAGGED + [20000])
+@pytest.mark.parametrize("d_in,hidden,n_layers,use_relu", [(440, 256, 2, True),
+                                                           (110, 256, 2, True),
+                                                           (37, 64, 2, False)])
+def test_bf16_critic_grads_on_tensor_cores(cuda, rows, d_in, hidden, n_layers, use_relu):
+    """bf16 K4 on row counts around its 16- and 32-row tiles (20000 rows:
+    several tiles per block) and padded widths (440 -> 448), through the
+    tensor-core entry point. Rows next to a relu kink get valid = 0
+    (``relu_kink_rows_folded``), which zeros their value-loss cotangent."""
+    gen = torch.Generator().manual_seed(rows + d_in + 2)
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", rows, d_in, hidden, n_layers, True, cuda)
+    x = x.bfloat16()
+    if use_relu:
+        aux[FP.relu_kink_rows_folded(x, kp, n_layers, True), 2] = 0.0
+    norm = torch.tensor([0.5, 2.0], device=cuda)
+    kw = dict(n_layers=n_layers, use_fn=True, use_relu=use_relu, bf16=True, clip_param=0.2,
+              huber_delta=10.0, use_huber=True, use_clipped=True)
+    cb.reset_launches()
+    got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **kw)
+    assert cb.LAUNCHES["critic_ppo_grads"] == 1
+    assert cb.ENTRY["critic_ppo_grads"] == "dcc_critic_grads_mma"
+    want = FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < 4e-3
+
+
+@pytest.mark.parametrize("rows", _RAGGED + [20000])
+@pytest.mark.parametrize("d_in,hidden,n_layers,use_fn,use_relu", [
+    (110, 256, 2, True, True), (440, 256, 2, True, True), (37, 64, 2, True, False),
+    (45, 72, 1, False, True)])
+def test_bf16_trunk_backward_on_tensor_cores(cuda, rows, d_in, hidden, n_layers, use_fn,
+                                             use_relu):
+    """bf16 K2b on row counts around its 16-, 32- and 64-row tiles (20000
+    rows: several tiles per block) and padded widths (110 -> 112, 440 -> 448
+    in two column passes of layer 0's g W^T), through the tensor-core entry
+    point, with bf16 rows as the update stores them. Rows next to a relu
+    kink get a zero cotangent (``relu_kink_rows`` with its bf16 rule)."""
+    gen = torch.Generator().manual_seed(rows + d_in + 3)
+    params = _trunk_params(gen, d_in, hidden, n_layers, use_fn, cuda)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    g = _cotangent(gen, x, params, hidden, n_layers, use_fn, use_relu, True)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True)
+    cb.reset_launches()
+    dx, grads = FM.trunk_backward_cuda(x, params, g, **kw)
+    assert cb.LAUNCHES["fused_mlp_bwd"] == 1
+    assert cb.ENTRY["fused_mlp_bwd"] == "dcc_trunk_bwd_mma"
+    want_dx, want = FM.trunk_backward_plain(x, params, g, **kw)
+    assert dx.dtype == x.dtype
+    for got, ref in zip([dx, *grads], [want_dx, *want]):
+        assert _rel(got, ref) < 4e-3
+
+
 def test_f32_kernels_stay_on_fma(cuda):
-    """f32 K2 and K3 go through the FMA entry points (full f32, no TF32)."""
+    """f32 K2, K2b, K3 and K4 go through the FMA entry points (full f32, no
+    TF32)."""
     gen = torch.Generator().manual_seed(3)
+    cb.reset_launches()
     params = _trunk_params(gen, 110, 64, 2, True, cuda)
-    FM.trunk_forward_cuda(torch.randn(20, 110, generator=gen).to(cuda), params, n_layers=2)
+    x = torch.randn(20, 110, generator=gen).to(cuda)
+    FM.trunk_forward_cuda(x, params, n_layers=2)
+    FM.trunk_backward_cuda(x, params, torch.randn(20, 64, generator=gen).to(cuda), n_layers=2)
     x, aux, kp, hw, hb = _ppo_case(gen, "actor", 20, 110, 64, 2, True, cuda)
     FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=2,
                         use_fn=True, use_relu=True, bf16=False, clip_param=0.2)
-    assert cb.ENTRY["fused_mlp"] == "dcc_trunk_fwd"
-    assert cb.ENTRY["actor_ppo_grads"] == "dcc_actor_grads"
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", 20, 440, 64, 2, True, cuda)
+    FP.critic_grads_cuda(x, aux, torch.tensor([0.5, 2.0], device=cuda), kp, hw, hb,
+                         n_layers=2, use_fn=True, use_relu=True, bf16=False, clip_param=0.2,
+                         huber_delta=10.0, use_huber=True, use_clipped=True)
+    assert cb.ENTRY == {"fused_mlp": "dcc_trunk_fwd", "fused_mlp_bwd": "dcc_trunk_bwd",
+                        "actor_ppo_grads": "dcc_actor_grads",
+                        "critic_ppo_grads": "dcc_critic_grads"}
 
 
 @pytest.mark.parametrize("hidden", [36, 264])
@@ -309,7 +373,15 @@ def test_bf16_kernels_refuse_widths_they_cannot_take(cuda, hidden):
     params = _trunk_params(gen, 16, hidden, 1, True, cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         FM.trunk_forward_cuda(torch.zeros(4, 16, device=cuda), params, n_layers=1, bf16=True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FM.trunk_backward_cuda(torch.zeros(4, 16, device=cuda), params,
+                               torch.zeros(4, hidden, device=cuda), n_layers=1, bf16=True)
     x, aux, kp, hw, hb = _ppo_case(gen, "actor", 8, 16, hidden, 1, True, cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=1,
                             use_fn=True, use_relu=True, bf16=True, clip_param=0.2)
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", 8, 16, hidden, 1, True, cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FP.critic_grads_cuda(x, aux, torch.tensor([0.5, 2.0], device=cuda), kp, hw, hb,
+                             n_layers=1, use_fn=True, use_relu=True, bf16=True, clip_param=0.2,
+                             huber_delta=10.0, use_huber=True, use_clipped=True)
