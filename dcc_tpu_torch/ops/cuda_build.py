@@ -13,8 +13,8 @@ stream and allocate nothing; the Python wrappers allocate with
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
-point of each kernel's latest launch (the tensor-core ``*_mma`` entry or the
-FMA one).
+point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4 and
+K2b the tensor-core ``*_mma`` entry or the FMA one).
 """
 
 from __future__ import annotations
@@ -47,7 +47,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "gae": {"dcc_gae": [_P, _P, _P, _P, _P, _P, _I, _L, _F, _F, _P]},
+    "gae": {"dcc_gae_seg": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _F, _F, _P]},
     "fused_mlp": {
         "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
         "dcc_trunk_fwd_mma": [

@@ -3,10 +3,16 @@
 checkout, on one GPU.
 
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] updates
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] gae
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
 
 ``updates`` holds the fused f32 update and the recurrent bf16 update on the
-card against the CPU (``chip_smoke.check_updates_against_cpu``).
+card against the CPU (``chip_smoke.check_updates_against_cpu``). ``gae``
+builds the kernels, prints K1's registers and spills (where this call
+compiled them) and holds K1 against its plain version through
+``compute_gae_cuda`` at T = 150 and 16 and 16,384 envs, timed (CUDA
+events, the profiler's device us, the wrapper's host us;
+``chip_smoke.check_gae``), whatever C entry it goes through.
 ``profile`` trains with ``chip_smoke.py``'s base arguments plus the given
 ones (for example ``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
@@ -30,7 +36,7 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=HERE, help="checkout whose dcc_tpu_torch runs")
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
-    ap.add_argument("phase", choices=("updates", "profile"))
+    ap.add_argument("phase", choices=("updates", "gae", "profile"))
     ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
     args = ap.parse_args(argv)
 
@@ -49,10 +55,18 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase == "updates":
+    if args.phase in ("updates", "gae"):
         results: dict = {}
         try:
-            chip_smoke.check_updates_against_cpu(results)
+            if args.phase == "updates":
+                chip_smoke.check_updates_against_cpu(results)
+            else:
+                from dcc_tpu_torch.ops import cuda_build
+
+                built = cuda_build.build(verbose=True)
+                results["ptxas"] = chip_smoke.ptxas_report(built.get("_ptxas", {}), False)
+                results["gae"] = []
+                chip_smoke.check_gae(results["gae"], chip_smoke.GAE_TIMED, entry=None)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

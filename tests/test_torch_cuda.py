@@ -30,7 +30,7 @@ import torch
 from dcc_tpu_torch.ops import cuda_build as cb
 from dcc_tpu_torch.ops import fused_mlp as FM
 from dcc_tpu_torch.ops import fused_ppo as FP
-from dcc_tpu_torch.ops.cuda_gae import compute_gae_cuda
+from dcc_tpu_torch.ops.cuda_gae import compute_gae_cuda, gae_columns_cuda, gae_plan
 from dcc_tpu_torch.ops.gae import compute_gae
 
 pytestmark = pytest.mark.cuda
@@ -63,17 +63,102 @@ def _trunk_params(gen, d_in, hidden, n_layers, use_fn, dev):
     return params
 
 
-@pytest.mark.parametrize("T,E", [(7, 37), (150, 300)])
+def _segment_starts(T, S, L):
+    """First steps of K1's segments inside (0, T): rounds of S * L steps from
+    the end of time, S segments of L steps from each round's start."""
+    return sorted({max(t1 - S * L, 0) + s * L for t1 in range(T, 0, -S * L)
+                   for s in range(S)} & set(range(1, T)))
+
+
+def _gae_inputs(T, E, seed, dev, plan=None):
+    """(T, E, 1) rewards, (T + 1, E, 1) values and masks; the masks hold
+    random episode ends and zero runs across every segment and round
+    boundary of K1's plan (``plan``, by default ``gae_plan``'s (S, L)) in
+    every third column."""
+    gen = torch.Generator().manual_seed(seed)
+    r = torch.randn(T, E, 1, generator=gen)
+    v = torch.randn(T + 1, E, 1, generator=gen)
+    m = (torch.rand(T + 1, E, 1, generator=gen) > 0.05).float()
+    S, L = plan or gae_plan(T, E)[1:3]
+    for start in _segment_starts(T, S, L):
+        m[max(start - 1, 1):start + 2, ::3] = 0.0
+    return r.to(dev), v.to(dev), m.to(dev)
+
+
+def _assert_gae_close(adv, ret, want_adv, want_ret):
+    # f32 with FMA contraction and re-associated segment boundaries: a few
+    # ulps of the running sum (chip_smoke.py's bound)
+    tol = 1e-5 * (float(want_adv.abs().max()) + 1.0)
+    for got, want in ((adv, want_adv), (ret, want_ret)):
+        assert _rel(got, want) < 1e-5 and float((got - want).abs().max()) <= tol
+
+
+# the last three walk time in two rounds under gae_plan (T > S * L)
+GAE_SHAPES = [(150, 16), (150, 16384), (1, 16), (5, 3), (151, 17), (150, 16387),
+              (1000, 64), (2000, 16), (600, 16387)]
+
+
+@pytest.mark.parametrize("T,E", GAE_SHAPES)
 def test_gae_kernel_matches_plain(cuda, T, E):
-    gen = torch.Generator().manual_seed(T + E)
-    r = torch.randn(T, E, 1, generator=gen).to(cuda)
-    v = torch.randn(T + 1, E, 1, generator=gen).to(cuda)
-    m = (torch.rand(T + 1, E, 1, generator=gen) > 0.05).float().to(cuda)
+    r, v, m = _gae_inputs(T, E, T + E, cuda)
     cb.reset_launches()
     adv, ret = compute_gae_cuda(r, v, m, 0.99, 0.95)
-    assert cb.LAUNCHES["gae"] == 1
+    assert cb.LAUNCHES["gae"] == 1 and cb.ENTRY["gae"] == "dcc_gae_seg"
+    _assert_gae_close(adv, ret, *compute_gae(r, v, m, 0.99, 0.95))
+
+
+@pytest.mark.parametrize("S,L", [(1, 32), (3, 7), (32, 1)])
+def test_gae_kernel_other_plans(cuda, S, L):
+    # the C entry called directly with plans gae_plan does not pick at
+    # T = 150, each in several rounds: one 32-step segment, three 7-step
+    # segments, 32 one-step segments
+    T, B = 150, 37
+    r, v, m = (x[..., 0] for x in _gae_inputs(T, B, S * L, cuda, (S, L)))
+    adv, ret = torch.empty_like(r), torch.empty_like(r)
+    code = cb.library("gae").dcc_gae_seg(
+        r.data_ptr(), v.data_ptr(), m.data_ptr(), adv.data_ptr(), ret.data_ptr(),
+        T, B, 32, S, L, 0.99, 0.99 * 0.95, cb.stream_of(r))
+    cb.check("gae", code, "gae")
+    _assert_gae_close(adv, ret, *compute_gae(r, v, m, 0.99, 0.95))
+
+
+def test_gae_kernel_broadcast_values(cuda):
+    # values shared by every column: the wrapper broadcasts before the launch
+    r, v, m = _gae_inputs(12, 32, 8, cuda)
+    r, m = r.reshape(12, 8, 4, 1), m.reshape(13, 8, 4, 1)
+    v = v[:, :1, :].reshape(13, 1, 1, 1)
+    adv, ret = compute_gae_cuda(r, v, m, 0.99, 0.95)
     want_adv, want_ret = compute_gae(r, v, m, 0.99, 0.95)
+    assert adv.shape == (12, 8, 4, 1)
     assert _rel(adv, want_adv) < 1e-5 and _rel(ret, want_ret) < 1e-5
+
+
+@pytest.mark.parametrize("T", [150, 600])
+def test_gae_kernel_is_deterministic(cuda, T):
+    r, v, m = _gae_inputs(T, 16387, 5, cuda)
+    first = compute_gae_cuda(r, v, m, 0.99, 0.95)
+    second = compute_gae_cuda(r, v, m, 0.99, 0.95)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_gae_kernel_one_launch_per_call(cuda):
+    r, v, m = _gae_inputs(150, 16, 6, cuda)
+    cb.reset_launches()
+    for calls in (1, 2, 3):
+        gae_columns_cuda(r[..., 0], v[..., 0], m[..., 0], 0.99, 0.95)
+        assert dict(cb.LAUNCHES) == {"gae": calls} and cb.ENTRY == {"gae": "dcc_gae_seg"}
+
+
+def test_gae_kernel_refuses_bad_operands(cuda):
+    r, v, m = (x[..., 0] for x in _gae_inputs(12, 8, 7, cuda))
+    with pytest.raises(ValueError, match="values has shape"):
+        gae_columns_cuda(r, v[1:], m, 0.99, 0.95)  # (T, B): the slice the old wrapper took
+    with pytest.raises(ValueError, match="masks has shape"):
+        gae_columns_cuda(r, v, m[:, :-1], 0.99, 0.95)
+    with pytest.raises(ValueError, match="dtype"):
+        gae_columns_cuda(r, v.double(), m, 0.99, 0.95)
+    with pytest.raises(ValueError, match="contiguous"):
+        gae_columns_cuda(r, v, m.t().contiguous().t(), 0.99, 0.95)
 
 
 @pytest.mark.parametrize(
