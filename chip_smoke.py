@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
    each tensor-core kernel's and K1's registers and spills (``-Xptxas -v``;
    all of the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
    of the built libraries must show HMMA instructions in every bf16
-   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4) and none in any
-   other kernel (no TF32 in the f32 kernels);
+   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4, K3u, K4u) and
+   none in any other kernel (no TF32 in the f32 kernels);
 3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
    and 16,387 envs, and at (T, E) = (1, 16), (5, 3), (151, 17), and at
@@ -20,11 +20,10 @@ Phases (any failure exits non-zero):
    boundaries, one launch a call through ``GAE_ENTRY``; at 16 and 16,384
    envs also its device us per call from ``torch.profiler`` over the timed
    launches (the phase fails where the profiler sees no device time). Then
-   hold each kernel
-   K2-K4 and K2b against its plain PyTorch version on the
-   card, in f32 and bf16 where it has both modes, at the default shapes
-   (16 envs) and at bench.py's headline 16384 envs (a quarter of that for
-   K3 / K4 and K2b, whose plain versions materialize (rows, 256) f32
+   hold each kernel K2-K4, K2b and the unfolded K3u / K4u against its plain
+   PyTorch version on the card, in f32 and bf16, at the default shapes (16
+   envs) and at bench.py's headline 16384 envs (a quarter of that for K3 /
+   K4, K3u / K4u and K2b, whose plain versions materialize (rows, 256) f32
    tensors). K2b runs on the recurrent update's rows: T*E*A for the actor
    and for the critic, whose env rows are duplicated per agent. Biases and
    LN affines are moved off their init values so that every bf16 bias add
@@ -32,9 +31,9 @@ Phases (any failure exits non-zero):
    and requires that reading to lie outside the bf16 bound, so the bound
    tells the bf16 rounding points from none at all. Rows with a relu
    pre-activation within one bf16 step of the kink get a zero advantage
-   (bf16 K3), valid = 0 (bf16 K4) or a zero cotangent (K2b): the tensor
-   cores' summation order and the plain version's may put them on opposite
-   sides of it. Times: CUDA events
+   (bf16 K3, K3u), valid = 0 (bf16 K4, K4u) or a zero cotangent (K2b): the
+   tensor cores' summation order and the plain version's may put them on
+   opposite sides of it. Times: CUDA events
    around a run of 50 back-to-back launches (fewer, down to 3, when one
    launch takes over 5 ms), divided by the count; K2 is fed parameters
    packed beforehand, as the rollout packs them once per parameter version
@@ -43,20 +42,24 @@ Phases (any failure exits non-zero):
    call (``time.perf_counter`` over 50 calls, no synchronisation between
    them) is printed beside it, and for K2 also that of the rollout's call
    through ``MLPBase.forward``;
-4. hold one fused f32 PPO update and one recurrent bf16 update (K2 / K2b)
-   on the card against the same update on the CPU (plain versions) from
-   identical parameters and trajectory;
-5. train through ``dcc_tpu_torch.train.main``: 2 iterations each of the
-   default f32 config, the bf16 config, the recurrent bf16 and the
-   recurrent f32 config, and 1 of bf16 with the fused loss off; print the
-   metrics and phase times, and require each run's kernels to have launched
-   exactly as often as its path runs them (K2b 30 times per iteration) and
-   the others not at all, every run's K1 to have gone through
-   ``GAE_ENTRY`` and every bf16 run's K2, K2b, K3 and K4 launches
-   to have gone through the tensor-core entry points. After the bf16 run
-   and after the recurrent bf16 run, one more iteration under
-   ``torch.profiler``: device time by kernel name and the device's idle
-   share over the iteration;
+4. hold the updates of ``UPDATE_CHECKS`` on the card against the same
+   update on the CPU (plain versions) from identical parameters,
+   trajectory and minibatch permutations: fused f32 (K3 / K4), recurrent
+   bf16 (K2 / K2b; its reading also with K2's forward through its plain
+   version, ``check_k2_plain_update``), and fused f32 unfolded (K3u / K4u)
+   with 2 minibatches and PopArt;
+5. train through ``dcc_tpu_torch.train.main`` the ``TRAIN_RUNS``: 2
+   iterations each of the default f32 config, the bf16 config, the
+   recurrent bf16 config, bf16 with 4 minibatches, bf16 unfolded with
+   PopArt and recurrent bf16 with 2 minibatches, and 1 of recurrent f32,
+   bf16 with the fused loss off and f32 with 4 update chunks and remat;
+   print the metrics and phase times, and require each run's kernels to
+   have launched exactly as often as its path runs them and the others not
+   at all, every run's K1 to have gone through ``GAE_ENTRY`` and every bf16
+   run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
+   tensor-core entry points. After the runs of ``PROFILED``, one more
+   iteration under ``torch.profiler``: device time by kernel name and the
+   device's idle share over the iteration;
 6. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
@@ -106,6 +109,9 @@ REPLACES = {
     "fused_mlp_bwd": "dcc_tpu/ops/fused_mlp.py:299",
     "actor_ppo_grads": "dcc_tpu/ops/fused_ppo.py:575",
     "critic_ppo_grads": "dcc_tpu/ops/fused_ppo.py:667",
+    # the same Pallas programs with folded=False (_actor_kernel, _critic_kernel)
+    "actor_ppo_grads_unfolded": "dcc_tpu/ops/fused_ppo.py:290",
+    "critic_ppo_grads_unfolded": "dcc_tpu/ops/fused_ppo.py:378",
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
@@ -113,6 +119,8 @@ SOURCES = {
     "fused_mlp_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
     "actor_ppo_grads": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "actor_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "critic_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
@@ -125,28 +133,51 @@ TRAIN_RUNS = (
     ("bf16", BF16, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
                     "critic_ppo_grads": 15}),
     ("recurrent-bf16", BF16 + RECURRENT, {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
-    ("recurrent-f32", RECURRENT, {"gae": 1}),
+    ("recurrent-f32", RECURRENT + ["--n-iters", "1"], {"gae": 1}),
     ("bf16-fused-loss-off", BF16 + ["--fused-loss", "off", "--n-iters", "1"],
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    # the fused minibatch path: K3 / K4 on each gathered quarter of the rows
+    ("bf16-nmb4", BF16 + ["--num-mini-batch", "4"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 60, "critic_ppo_grads": 60}),
+    # the unfolded kernels K3u / K4u, with PopArt's head rescale each epoch
+    ("bf16-unfolded-popart", BF16 + ["--fused-fold", "false", "--use-popart", "true",
+                                     "--use-valuenorm", "false"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
+      "critic_ppo_grads_unfolded": 15}),
+    # chunk minibatches: K2 and K2b once per network and minibatch
+    ("recurrent-bf16-nmb2", BF16 + RECURRENT + ["--num-mini-batch", "2"],
+     {"gae": 1, "fused_mlp": 361, "fused_mlp_bwd": 60}),
+    # gradient accumulation over 4 row chunks with recomputed forwards
+    ("f32-chunks4-remat", ["--update-chunks", "4", "--use-remat", "true", "--n-iters", "1"],
+     {"gae": 1}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
-            "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16"}
+            "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16",
+            "actor_ppo_grads_unfolded": "bf16-unfolded-popart",
+            "critic_ppo_grads_unfolded": "bf16-unfolded-popart"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
+_FOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
+               "critic_ppo_grads": "dcc_critic_grads_mma"}
 MMA_ENTRY = {
-    "bf16": {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
-             "critic_ppo_grads": "dcc_critic_grads_mma"},
+    "bf16": _FOLDED_MMA,
     "recurrent-bf16": _TRUNK_MMA,
     "bf16-fused-loss-off": _TRUNK_MMA,
+    "bf16-nmb4": _FOLDED_MMA,
+    "bf16-unfolded-popart": {"fused_mlp": "dcc_trunk_fwd_mma",
+                             "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_mma",
+                             "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_mma"},
+    "recurrent-bf16-nmb2": _TRUNK_MMA,
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
-               "critic_grads_mma_kernel")
+               "critic_grads_mma_kernel", "actor_grads_unfolded_mma_kernel",
+               "critic_grads_unfolded_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
 # the runs followed by one profiled iteration
-PROFILED = ("bf16", "recurrent-bf16")
+PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart")
 N_TIMED = 50  # launches between the two CUDA events of a timing
 
 
@@ -433,26 +464,21 @@ def check_gae(results: list, shapes=GAE_SHAPES, entry=GAE_ENTRY):
                   f"max_abs={errs[0]:.3e} rel={errs[1]:.3e}", flush=True)
 
 
-def check_kernels(results: list):
+def check_trunk_forward(results: list, gen):
+    """K2: the trunk forward on the actor (E*A, 110) and critic (E, 440) rows
+    at 16 and BIG_ENVS envs, in f32 and bf16, on parameters packed
+    beforehand as the rollout packs them (once per parameter version,
+    MLPBase.packed_params)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
     from dcc_tpu_torch.envs import EnvConfig
-    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+    from dcc_tpu_torch.ops import fused_mlp as FM
 
     dev = torch.device("cuda")
     env = EnvConfig()
-    T, A, D = 150, env.n_agents, env.obs_dim
-    gen = torch.Generator(device=dev).manual_seed(0)
+    A, D = env.n_agents, env.obs_dim
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
-    n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
-
-    check_gae(results)  # K1
-
-    # K2: trunk forward on the actor (E*A, 110) and critic (E, 440) rows, on
-    # parameters packed beforehand as the rollout packs them (once per
-    # parameter version, MLPBase.packed_params)
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on"), env, device=dev)
@@ -490,9 +516,36 @@ def check_kernels(results: list):
                        f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel,
                        **{"MLPBase.forward": rollout_call})
 
+
+def _shape(rows: int, d_in: int, nmb: int = 1) -> str:
+    """A kernel check's shape label; ``nmb``: the rows are one of that many
+    minibatches."""
+    return f"rows={rows} d_in={d_in}" + (f" nmb={nmb}" if nmb > 1 else "")
+
+
+def check_kernels(results: list):
+    import torch
+
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.envs import EnvConfig
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    dev = torch.device("cuda")
+    env = EnvConfig()
+    T, A, D = 150, env.n_agents, env.obs_dim
+    gen = torch.Generator(device=dev).manual_seed(0)
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
+    n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
+
+    check_gae(results)  # K1
+    check_trunk_forward(results, gen)  # K2
+
     # K2b: trunk backward on the recurrent update's rows, T*E*A for both
-    # networks, and on the actor's rows at a quarter of the headline envs
-    # (the plain version keeps about ten (rows, 256) f32 tensors alive)
+    # networks, on one of the chunk minibatches of the recurrent run with 2
+    # minibatches (T*E*A/2 rows), and on the actor's rows at a quarter of the
+    # headline envs (the plain version keeps about ten (rows, 256) f32
+    # tensors alive)
     big = BIG_ENVS // 4
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
@@ -501,9 +554,10 @@ def check_kernels(results: list):
         perturb_(actor, gen)
         perturb_(critic, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
-        for envs, nets in ((16, ((actor, D), (critic, A * D))), (big, ((actor, D),))):
+        both = ((actor, D), (critic, A * D))
+        for envs, nmb, nets in ((16, 1, both), (16, 2, both), (big, 1, ((actor, D),))):
             for net, width in nets:
-                rows = T * envs * A
+                rows = T * envs * A // nmb
                 x = randn(rows, width).to(xdt)
                 params = [p.detach() for p in net.base.flat_params()]
                 kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
@@ -533,11 +587,14 @@ def check_kernels(results: list):
                           + 2 * 4 * sum(t.numel() for t in params))
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
-                       f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel)
+                       _shape(rows, width, nmb), errs, kern, plain, b, by, f32_rel)
                 del k, p, x, g
                 torch.cuda.empty_cache()
 
-    # K3 / K4: PPO loss + gradients on the T*E*A actor / T*E critic rows
+    # K3 / K4: PPO loss + gradients on the T*E*A actor / T*E critic rows,
+    # and on one minibatch of the run with 4 minibatches: T*E*A/4 actor rows
+    # and as many critic rows, gathered from the env rows duplicated per
+    # agent, with the returns normalised outside (norm = [0, 1])
     ppo_envs = BIG_ENVS // 4
     print(f"  K3 / K4 at {ppo_envs} envs (a quarter of {BIG_ENVS}): their plain versions "
           f"keep about ten (rows, 256) f32 tensors alive, which must fit in device memory",
@@ -549,8 +606,9 @@ def check_kernels(results: list):
         perturb_(actor, gen)
         perturb_(critic, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
-        for envs in (16, ppo_envs):
-            R, Rv = T * envs * A, T * envs
+        for envs, nmb in ((16, 1), (16, 4), (ppo_envs, 1)):
+            R = T * envs * A // nmb
+            Rv = T * envs if nmb == 1 else R
             obs = randn(R, D).to(xdt)
             act = randn(R, 2) * 0.5
             old_lp = -2.0 + 0.3 * randn(R, 1)
@@ -564,8 +622,8 @@ def check_kernels(results: list):
                 # order and in the plain version's: they get a zero advantage
                 kink = FP.relu_kink_rows_folded(obs, kp, 2, True)
                 adv[kink] = 0.0
-                print(f"  actor bf16, {envs} envs: {int(kink.sum())} of {R} rows next to a "
-                      f"relu kink get a zero advantage", flush=True)
+                print(f"  actor bf16, {envs} envs, {_shape(R, D, nmb)}: {int(kink.sum())} rows "
+                      f"next to a relu kink get a zero advantage", flush=True)
             aux_a = FP.pack_actor_aux(act, old_lp, adv)
             ls = actor.log_std.detach()
             kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
@@ -590,24 +648,29 @@ def check_kernels(results: list):
             nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
             b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
             record(results, "actor_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   f"rows={R} d_in={D}", errs, kern, plain, b, by, f32_rel)
+                   _shape(R, D, nmb), errs, kern, plain, b, by, f32_rel)
             del k, p
 
-            cent = obs.reshape(Rv, A * D)
+            if nmb == 1:
+                cent = obs.reshape(Rv, A * D)
+                norm = torch.tensor([0.5, 2.0], device=dev)
+            else:
+                pick = torch.randperm(T * envs * A, generator=gen, device=dev)[:Rv]
+                cent = randn(T * envs, A * D).to(xdt).repeat_interleave(A, 0)[pick]
+                norm = torch.tensor([0.0, 1.0], device=dev)
             with torch.no_grad():
                 v0 = critic(cent[: min(Rv, 65536)].float())
             vpred = randn(Rv, 1) * float(v0.std() + 0.1)
             ret = vpred + 3.0 * randn(Rv, 1)
             aux_c = FP.pack_critic_aux(vpred, ret)
-            norm = torch.tensor([0.5, 2.0], device=dev)
             kpc, wvf, bvf = FP.fold_trunk(
                 [p.detach() for p in critic.base.flat_params()],
                 critic.v_out.weight.detach().t(), critic.v_out.bias.detach(), 2, True)
             if bf16:  # the kink rule of the actor above: those rows get valid = 0
                 kink = FP.relu_kink_rows_folded(cent, kpc, 2, True)
                 aux_c[kink, 2] = 0.0
-                print(f"  critic bf16, {envs} envs: {int(kink.sum())} of {Rv} rows next to a "
-                      f"relu kink get valid = 0", flush=True)
+                print(f"  critic bf16, {envs} envs, {_shape(Rv, A * D, nmb)}: {int(kink.sum())} "
+                      f"rows next to a relu kink get valid = 0", flush=True)
             ckw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2,
                        huber_delta=10.0, use_huber=True, use_clipped=True)
             kern = lambda: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
@@ -624,7 +687,103 @@ def check_kernels(results: list):
             nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
             b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
             record(results, "critic_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   f"rows={Rv} d_in={A * D}", errs, kern, plain, b, by, f32_rel)
+                   _shape(Rv, A * D, nmb), errs, kern, plain, b, by, f32_rel)
+            del k, p, obs, cent
+            torch.cuda.empty_cache()
+    check_unfolded(results, gen)  # K3u, K4u
+
+
+def check_unfolded(results: list, gen):
+    """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
+    T*E*A actor / T*E critic rows at 16 and BIG_ENVS / 4 envs, in f32 and
+    bf16. In bf16 rows next to a relu kink of the unfolded chain
+    (``relu_kink_rows``) get a zero advantage / valid = 0."""
+    import torch
+
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.envs import EnvConfig
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    dev = torch.device("cuda")
+    env = EnvConfig()
+    T, A, D, H = 150, env.n_agents, env.obs_dim, 256
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    flat = lambda o: [*o[0], *o[1:]]
+    n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))
+    for bf16 in (False, True):
+        algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
+                                 fused_loss="on", fused_fold=False), env, device=dev)
+        actor, critic = algo.make_networks(seed=5)
+        perturb_(actor, gen)
+        perturb_(critic, gen)
+        xdt = torch.bfloat16 if bf16 else torch.float32
+        mode = "bf16" if bf16 else "f32"
+        tol = PPO_BF16_REL if bf16 else 1e-3
+        for envs in (16, BIG_ENVS // 4):
+            R, Rv = T * envs * A, T * envs
+            obs = randn(R, D).to(xdt)
+            adv = randn(R, 1)
+            params = [p.detach() for p in actor.base.flat_params()]
+            wh, bh = actor.act_out.weight.detach().t(), actor.act_out.bias.detach()
+            if bf16:
+                kink = FM.relu_kink_rows(obs, params, 2, True, True)
+                adv[kink] = 0.0
+                print(f"  K3u bf16, {envs} envs: {int(kink.sum())} of {R} rows next to a relu "
+                      f"kink get a zero advantage", flush=True)
+            aux_a = FP.pack_actor_aux(randn(R, 2) * 0.5, -2.0 + 0.3 * randn(R, 1), adv)
+            ls = actor.log_std.detach()
+            kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
+            kern = lambda: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls, **kw)
+            plain = lambda: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls, **kw)
+            k, p = kern(), plain()
+            errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol)
+            f32_rel = None
+            if bf16:
+                f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
+                                                     **{**kw, "bf16": False})
+                f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p), tol)
+                del f32_k
+            # forward, dW and g_prev of every layer (layer 0's for the
+            # feature norm's gradients): 3 products of 2 ops a MAC
+            ops = 6 * R * (D * H + H * H)
+            nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+            record(results, "actor_ppo_grads_unfolded", mode, envs, f"rows={R} d_in={D}", errs,
+                   kern, plain, b, by, f32_rel)
+            del k, p
+
+            cent = obs.reshape(Rv, A * D)
+            with torch.no_grad():
+                v0 = critic(cent[: min(Rv, 65536)].float())
+            vpred = randn(Rv, 1) * float(v0.std() + 0.1)
+            aux_c = FP.pack_critic_aux(vpred, vpred + 3.0 * randn(Rv, 1))
+            norm = torch.tensor([0.5, 2.0], device=dev)
+            cparams = [p.detach() for p in critic.base.flat_params()]
+            wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
+            if bf16:
+                kink = FM.relu_kink_rows(cent, cparams, 2, True, True)
+                aux_c[kink, 2] = 0.0
+                print(f"  K4u bf16, {envs} envs: {int(kink.sum())} of {Rv} rows next to a relu "
+                      f"kink get valid = 0", flush=True)
+            ckw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2,
+                       huber_delta=10.0, use_huber=True, use_clipped=True)
+            kern = lambda: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
+                                                         **ckw)
+            plain = lambda: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams, wv, bv,
+                                                           **ckw)
+            k, p = kern(), plain()
+            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
+            f32_rel = None
+            if bf16:
+                f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
+                                                      **{**ckw, "bf16": False})
+                f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p), tol)
+                del f32_k
+            ops = 6 * Rv * (A * D * H + H * H)
+            nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
+            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+            record(results, "critic_ppo_grads_unfolded", mode, envs, f"rows={Rv} d_in={A * D}",
+                   errs, kern, plain, b, by, f32_rel)
             del k, p, obs, cent
             torch.cuda.empty_cache()
 
@@ -652,12 +811,16 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
     # first-epoch actor gradient is exactly zero and Adam would normalize
     # rounding noise into full-size steps
     traj = algos["cpu"].rollout(states["cpu"], 4)
+    # the same minibatch permutations on every device
+    T, E, A, _ = traj.actions.shape
+    g = torch.Generator().manual_seed(7)
+    perms = torch.stack([torch.randperm(T * E * A, generator=g) for _ in range(cfg.ppo_epoch)])
     metrics = {}
     for d, algo in algos.items():
         tr = type(traj)(*(None if t is None else t.to(algo.device) for t in traj))
         reset_launches()
         adv, ret = algo.compute_returns(states[d], tr)
-        metrics[d] = algo.update(states[d], tr, adv, ret).cpu()
+        metrics[d] = algo.update(states[d], tr, adv, ret, perms=perms).cpu()
         if d == "cuda":
             launched = dict(LAUNCHES)
     missing = [k for k in kernels if launched.get(k, 0) == 0]
@@ -686,23 +849,61 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
                 metrics_cuda=metrics["cuda"].tolist())
 
 
-def check_updates_against_cpu(results: dict):
-    from dcc_tpu_torch.algos.mappo import MAPPOConfig
-
-    small = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
-                 gae_backend="pallas")
+# the updates held on the card against the CPU: (tag, MAPPOConfig fields
+# beyond UPDATE_SMALL, param bound, metrics rtol, metrics atol, kernels that
+# must launch on the card)
+UPDATE_SMALL = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
+                    gae_backend="pallas")
+UPDATE_CHECKS = (
     # f32 summation order over 128 rows, two Adam steps of lr ~4e-4
-    results["fused f32"] = check_update_against_cpu(
-        "fused f32", MAPPOConfig(fused_loss="on", **small), 1e-5, 1e-3, 1e-5,
-        ("gae", "actor_ppo_grads", "critic_ppo_grads"))
+    ("fused f32", dict(fused_loss="on"), 1e-5, 1e-3, 1e-5,
+     ("gae", "actor_ppo_grads", "critic_ppo_grads")),
     # bf16 rounding flips move Adam's normalized steps of the parameters
     # whose gradient is near 0 (measured 1.06e-4 at hidden 256); metrics:
     # the bounds of tests/test_torch_recurrent.py
-    results["recurrent bf16"] = check_update_against_cpu(
-        "recurrent bf16",
-        MAPPOConfig(compute_dtype="bfloat16", use_recurrent_policy=True, data_chunk_length=4,
-                    fused_trunk="on", **small),
-        3e-4, 2e-3, 3e-5, ("gae", "fused_mlp", "fused_mlp_bwd"))
+    ("recurrent bf16", dict(compute_dtype="bfloat16", use_recurrent_policy=True,
+                            data_chunk_length=4, fused_trunk="on"),
+     3e-4, 2e-3, 3e-5, ("gae", "fused_mlp", "fused_mlp_bwd")),
+    # the fused minibatch path through K3u / K4u with PopArt's head rescale,
+    # under the fused f32 bounds
+    ("fused f32 unfolded, 2 minibatches, PopArt",
+     dict(fused_loss="on", fused_fold=False, num_mini_batch=2, use_popart=True,
+          use_valuenorm=False),
+     1e-5, 1e-3, 1e-5, ("gae", "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")),
+)
+
+
+def check_updates_against_cpu(results: dict, tags=None, drop_kernels=()):
+    """The ``UPDATE_CHECKS`` (those named in ``tags``, default all), each
+    requiring its kernels but ``drop_kernels`` to launch."""
+    from dcc_tpu_torch.algos.mappo import MAPPOConfig
+
+    for tag, kw, param_tol, rtol, atol, kernels in UPDATE_CHECKS:
+        if tags is None or tag in tags:
+            results[tag] = check_update_against_cpu(
+                tag, MAPPOConfig(**UPDATE_SMALL, **kw), param_tol, rtol, atol,
+                tuple(k for k in kernels if k not in drop_kernels))
+
+
+def check_k2_plain_update(results: dict):
+    """The recurrent bf16 update again with K2's forward through its bf16
+    plain version on the card (``ops.fused_mlp.trunk_forward_plain``) and K2b
+    unchanged: how far K2's summation order moves that update's reading."""
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    kernel = FM.trunk_forward_cuda
+
+    def plain_forward(x, params, n_layers, use_fn=True, use_relu=True, bf16=False,
+                      packed=None):
+        return FM.trunk_forward_plain(x, params, n_layers, use_fn, use_relu, bf16)
+
+    FM.trunk_forward_cuda = plain_forward  # what FusedTrunk's forward calls
+    try:
+        k2: dict = {}
+        check_updates_against_cpu(k2, ("recurrent bf16",), drop_kernels=("fused_mlp",))
+    finally:
+        FM.trunk_forward_cuda = kernel
+    results["recurrent bf16, K2 plain"] = k2["recurrent bf16"]
 
 
 def _short(name: str) -> str:
@@ -835,6 +1036,7 @@ def main(argv=None) -> int:
           flush=True)
     updates: dict = {}
     check_updates_against_cpu(updates)
+    check_k2_plain_update(updates)
     print(f"[5] training through dcc_tpu_torch.train (at {time.perf_counter() - t0:.0f} s)",
           flush=True)
     runs: dict = {}
@@ -842,10 +1044,10 @@ def main(argv=None) -> int:
     print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
-    for name in ("gae", "fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads"):
+    for name in REPLACES:
         mode = "f32" if name == "gae" else "bf16"
         row = next(c for c in checks if c["kernel"] == name and c["mode"] == mode
-                   and c["envs"] == 16)
+                   and c["envs"] == 16 and "nmb" not in c["shape"])
         # K1's wrapper takes longer on the host than its kernel on the card,
         # so its event time is the host's rate: device_ms beside it
         dev = row["device_us"]

@@ -2,29 +2,36 @@
 in PyTorch.
 
 Counterpart of :mod:`dcc_tpu.algos.mappo` for the shared policy:
-fresh-reset rollout over E batched envs -> ValueNorm-denormalized GAE ->
-``ppo_epoch`` PPO epochs on one minibatch (clipped surrogate + clipped
-one-sided Huber value loss + entropy bonus, two Adams with eps 1e-5,
-optax-style global-norm clip per network, count-based linear LR decay).
+fresh-reset rollout over E batched envs -> value-normalizer-denormalized GAE
+-> ``ppo_epoch`` PPO epochs of ``num_mini_batch`` minibatches (clipped
+surrogate + clipped one-sided Huber value loss + entropy bonus, two Adams
+with eps 1e-5, optax-style global-norm clip per network, count-based linear
+LR decay). The value normalizer is ValueNorm or PopArt (which also rescales
+the value head), or none.
 
-The update runs one of three ways, as in the JAX package:
+``update`` dispatches as the JAX package's does:
 
-* autograd of the plain loss on the feed-forward rows
-  (``_minibatch_update``); with the fused trunk its backward is the K2b
-  kernel (:class:`~dcc_tpu_torch.ops.fused_mlp.FusedTrunk`);
-* the same on ``data_chunk_length`` chunk sequences with GRU warm starts
-  (``_update_recurrent``; ``use_naive_recurrent`` is the whole episode), or
-* the fused loss + gradient kernels K3 / K4 (``_update_fused_full``, the
-  feed-forward policy only): the packed rows are built once, each epoch's
-  value-normalizer scalars come from ``_norm_seq``, and ``_fused_core``
-  turns the SUM-reduced gradients into mean-loss gradients and steps the
-  optimizers.
+* the recurrent policy: epochs on ``data_chunk_length`` chunk sequences
+  with GRU warm starts, ``num_mini_batch`` random chunk subsets an epoch
+  (``_update_recurrent``; ``use_naive_recurrent`` is the whole episode);
+* ``update_chunks`` > 1 without the fused loss: one step an epoch, its
+  gradient accumulated over row chunks (``_update_ff_chunked``);
+* the fused loss with one minibatch: the kernels K3 / K4 (``fused_fold``)
+  or K3u / K4u on rows packed once, each epoch's value-normalizer scalars
+  from ``_norm_seq`` (``_update_fused_full``);
+* otherwise one step per minibatch: by autograd of the loss
+  (``_minibatch_update``; with the fused trunk its backward is the K2b
+  kernel, :class:`~dcc_tpu_torch.ops.fused_mlp.FusedTrunk`; ``use_remat``
+  recomputes the forwards in the backward), or with the fused loss by the
+  kernels on each gathered minibatch (``_fused_minibatch_update``).
+  Minibatches are one permutation of the T*E*A rows an epoch, shared by
+  every field, the remainder dropped.
 
-Dispatch mirrors ``MAPPO.__init__`` of the JAX package: "auto" selects the
-GAE kernel K1 on CUDA, and the fused trunk K2 / K2b and (feed-forward only)
-the fused loss K3 / K4 on CUDA in bf16; "on" forces them (on CPU tensors
-that runs their plain versions). Options this port does not run yet raise
-:class:`NotImplementedError` naming their ROADMAP item.
+Dispatch of the kernels mirrors ``MAPPO.__init__`` of the JAX package:
+"auto" selects the GAE kernel K1 on CUDA, and the fused trunk K2 / K2b and
+(feed-forward only) the fused loss on CUDA in bf16; "on" forces them (on
+CPU tensors that runs their plain versions). Options this port does not run
+yet raise :class:`NotImplementedError` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -35,10 +42,12 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..envs import EnvConfig, check_supported, observation, reset_batch, step_batch
 from ..models import Actor, Critic
 from ..models import distributions as D
+from ..models import popart as PA
 from ..models import valuenorm as VN
 from ..ops import fused_ppo as FP
 from ..ops.cuda_gae import compute_gae_cuda
@@ -105,7 +114,8 @@ class MAPPOConfig(NamedTuple):
 @dataclass
 class TrainState:
     """Mutable training state: networks, both optimizers, the value
-    normalizer, counters and the rollout's random generator."""
+    normalizer (ValueNorm or PopArt), counters and the random generator of
+    the rollout and the minibatch permutations."""
 
     actor: Actor
     critic: Critic
@@ -115,6 +125,7 @@ class TrainState:
     update_count: int  # optimizer steps taken (drives the LR schedule)
     iteration: int  # outer iterations finished
     generator: torch.Generator
+    popart: Optional[PA.PopArtState] = None
 
 
 class Trajectory(NamedTuple):
@@ -186,13 +197,10 @@ class MAPPO:
         else:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent
+        if cfg.use_popart and cfg.use_valuenorm:
+            raise ValueError("use_popart and use_valuenorm are mutually exclusive")
         unported = [
             (not cfg.share_policy, "separated per-agent policies (ROADMAP A8)"),
-            (cfg.use_popart, "PopArt (ROADMAP A8)"),
-            (cfg.num_mini_batch != 1,
-             "num_mini_batch>1, feed-forward or recurrent (ROADMAP: nmb>1 and the "
-             "fused minibatch path)"),
-            (cfg.use_remat, "use_remat (ROADMAP A8)"),
             (cfg.env_dtype not in ("float32", "fp32", "f32"),
              "env_dtype other than float32 (ROADMAP A12)"),
         ]
@@ -221,13 +229,10 @@ class MAPPO:
             )
         self.fused_loss = _resolve_switch(cfg.fused_loss, "fused_loss",
                                           on_cuda and self.bf16 and not self.recurrent)
-        if self.fused_loss and not cfg.fused_fold:
+        if cfg.update_chunks > 1 and (self.recurrent or cfg.num_mini_batch != 1):
             raise NotImplementedError(
-                "fused_fold=False is not ported yet (ROADMAP: fused_fold=False)"
-            )
-        if cfg.update_chunks > 1 and not self.fused_loss:
-            raise NotImplementedError(
-                "update_chunks>1 without the fused loss is not ported yet (ROADMAP A8)"
+                "update_chunks (gradient accumulation) supports the feed-forward "
+                "shared-policy num_mini_batch=1 path"
             )
         if cfg.gae_backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown gae_backend {cfg.gae_backend!r}")
@@ -290,6 +295,7 @@ class MAPPO:
             update_count=0,
             iteration=0,
             generator=torch.Generator(device=self.device).manual_seed(seed + 1),
+            popart=PA.init(device=self.device) if cfg.use_popart else None,
         )
 
     def lr_at(self, base_lr: float, count: int) -> float:
@@ -323,7 +329,11 @@ class MAPPO:
         return ts.critic(cent_obs, rnn_state, masks)
 
     def _denorm(self, ts: TrainState, v):
-        return VN.denormalize(ts.vnorm, v) if self.cfg.use_valuenorm else v
+        if self.cfg.use_valuenorm:
+            return VN.denormalize(ts.vnorm, v)
+        if self.cfg.use_popart:
+            return PA.denormalize(ts.popart, v)
+        return v
 
     # ------------------------------------------------------------------
     # rollout
@@ -405,17 +415,32 @@ class MAPPO:
     # ------------------------------------------------------------------
     # update
     # ------------------------------------------------------------------
-    def update(self, ts: TrainState, traj: Trajectory, adv, returns):
-        """``ppo_epoch`` PPO epochs; returns the epoch-mean metrics tensor
-        [value_loss, policy_loss, dist_entropy, actor_grad_norm,
-        critic_grad_norm, ratio]."""
+    def update(self, ts: TrainState, traj: Trajectory, adv, returns, perms=None,
+               generator: Optional[torch.Generator] = None):
+        """``ppo_epoch`` PPO epochs; returns the metrics tensor [value_loss,
+        policy_loss, dist_entropy, actor_grad_norm, critic_grad_norm, ratio],
+        the mean over epochs and minibatches.
+
+        With ``num_mini_batch`` > 1 every epoch takes one permutation, of the
+        T*E*A rows (feed-forward) or of the C chunks (recurrent), and uses
+        its first ``mb * num_mini_batch`` entries, ``mb = n //
+        num_mini_batch``. ``perms`` gives them, a (ppo_epoch, n) integer
+        array as the JAX package draws them (``permutation(key_e, n)`` of
+        each epoch's key); without it they are drawn from ``generator``
+        (default ``ts.generator``)."""
+        cfg = self.cfg
         T, E, A, _ = traj.actions.shape
         adv_n = normalize_advantages(adv)
+        gen = ts.generator if generator is None else generator
         if self.recurrent:
-            m = self._update_recurrent(ts, traj, adv_n, returns)
-        elif self.fused_loss:
+            m = self._update_recurrent(ts, traj, adv_n, returns, perms, gen)
+        elif cfg.update_chunks > 1 and not self.fused_loss:
+            # gradient accumulation bounds activation memory; the fused loss
+            # materializes nothing (rows, hidden)-sized, so it ignores it
+            m = self._update_ff_chunked(ts, traj, adv_n, returns)
+        elif self.fused_loss and cfg.num_mini_batch == 1:
             m = self._update_fused_full(ts, traj, adv_n, returns)
-        else:
+        elif cfg.num_mini_batch == 1:
             net_in = lambda x: x.to(self.net_dtype)
             batch = (
                 net_in(traj.obs[:-1]),
@@ -427,17 +452,61 @@ class MAPPO:
                 returns,
             )
             m = torch.stack([self._minibatch_update(ts, batch)
-                             for _ in range(self.cfg.ppo_epoch)]).mean(dim=0)
+                             for _ in range(cfg.ppo_epoch)]).mean(dim=0)
+        else:
+            rows = self._ff_rows(traj, adv_n, returns)
+            step = self._fused_minibatch_update if self.fused_loss else self._minibatch_update
+            m = torch.stack([step(ts, tuple(r[idx] for r in rows))
+                             for idx in self._minibatches(T * E * A, perms, gen)]).mean(dim=0)
         ts.iteration += 1
         return m
 
-    def _update_recurrent(self, ts: TrainState, traj: Trajectory, adv_n, returns):
+    def _minibatches(self, n: int, perms, generator):
+        """Each epoch's minibatch indices in order: ``num_mini_batch`` rows of
+        ``n // num_mini_batch`` from that epoch's permutation of ``n``."""
+        nmb, epochs = self.cfg.num_mini_batch, self.cfg.ppo_epoch
+        mb = n // nmb
+        if perms is None:
+            perms = [torch.randperm(n, generator=generator, device=generator.device)
+                     for _ in range(epochs)]
+        perms = torch.stack([torch.as_tensor(p) for p in perms]).to(self.device).long()
+        if perms.shape[0] != epochs or perms.shape[1] < mb * nmb:
+            raise ValueError(f"perms of shape {tuple(perms.shape)}: expected {epochs} "
+                             f"permutations of {n}")
+        return [idx for p in perms for idx in p[: mb * nmb].reshape(nmb, mb)]
+
+    def _ff_rows(self, traj: Trajectory, adv_n, returns):
+        """The trajectory as (T*E*A)-row fields in C order over (t, e, a), as
+        the reference's feed-forward generator flattens its storage: the
+        critic-side fields (team-concat obs, value predictions, returns) are
+        the env rows duplicated per agent, so one permutation gathers every
+        field. Returns (obs, actions, log_probs, adv, cent_obs, value_preds,
+        returns)."""
+        T, E, A, _ = traj.actions.shape
+        B = T * E * A
+        net_in = lambda x: x.to(self.net_dtype)
+        per_agent = lambda x: x[:, :, None].expand(T, E, A, x.shape[-1]).reshape(B, -1)
+        obs = traj.obs[:-1]
+        return (
+            net_in(obs.reshape(B, self.obs_dim)),
+            traj.actions.reshape(B, -1),
+            traj.log_probs.reshape(B, -1),
+            per_agent(adv_n),
+            net_in(per_agent(obs.reshape(T, E, A * self.obs_dim))),
+            per_agent(traj.values[:-1]),
+            per_agent(returns),
+        )
+
+    def _update_recurrent(self, ts: TrainState, traj: Trajectory, adv_n, returns, perms,
+                          generator):
         """PPO epochs on chunk sequences with hidden-state warm starts (JAX
         ``_update_recurrent``): the (T, E, A) rollout is cut in (env, agent,
         time) order into C chunks of L = ``data_chunk_length`` steps (L = T
         for ``use_naive_recurrent``), each GRU warm-started from the stored
         hidden state at its first step; critic rows are the env rows
-        duplicated per agent, as in the reference's shared buffer.
+        duplicated per agent, as in the reference's shared buffer. Each
+        epoch's minibatches are ``num_mini_batch`` sets of C //
+        ``num_mini_batch`` chunks from a permutation of the C chunks.
 
         With num_mini_batch=1 JAX's per-epoch chunk permutation only
         reorders the chunks inside full-batch means, so the chunks stay in
@@ -446,6 +515,11 @@ class MAPPO:
         T, E, A, _ = traj.actions.shape
         L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
         C = E * A * (T // L)
+        if C < cfg.num_mini_batch:
+            raise ValueError(
+                f"num_mini_batch ({cfg.num_mini_batch}) exceeds the number of data chunks "
+                f"({C})"
+            )
 
         def chunks(x):
             """(T, E, A, ...) -> time-major chunks (L, C, ...)."""
@@ -471,8 +545,56 @@ class MAPPO:
         )
         rnn = (chunks(per_agent(traj.masks[:-1])), warm_starts(traj.actor_h),
                warm_starts(per_agent(traj.critic_h)))
-        return torch.stack([self._minibatch_update(ts, batch, rnn)
-                            for _ in range(cfg.ppo_epoch)]).mean(dim=0)
+        if cfg.num_mini_batch == 1:
+            ms = [self._minibatch_update(ts, batch, rnn) for _ in range(cfg.ppo_epoch)]
+        else:
+            ms = [self._minibatch_update(ts, tuple(x[:, idx] for x in batch),
+                                         (rnn[0][:, idx], rnn[1][idx], rnn[2][idx]))
+                  for idx in self._minibatches(C, perms, generator)]
+        return torch.stack(ms).mean(dim=0)
+
+    def _update_ff_chunked(self, ts: TrainState, traj: Trajectory, adv_n, returns):
+        """One optimizer step an epoch, its gradient accumulated over
+        ``update_chunks`` consecutive row chunks (JAX ``_update_ff_chunked``):
+        the batch mean is the equal-weight mean of the chunk means, so it
+        equals the one-pass gradient up to rounding, and peak activation
+        memory is one chunk's. The value normalizer (ValueNorm or PopArt) is
+        updated once an epoch from the full returns."""
+        cfg = self.cfg
+        T, E, A, _ = traj.actions.shape
+        C = cfg.update_chunks
+        R, Rv = T * E * A, T * E
+        if R % C or Rv % C:
+            raise ValueError(f"update_chunks ({C}) must divide T*E*A ({R}) and T*E ({Rv})")
+        net_in = lambda x: x.to(self.net_dtype)
+        obs = traj.obs[:-1]
+        chunks = list(zip(
+            net_in(obs.reshape(C, R // C, self.obs_dim)),
+            traj.actions.reshape(C, R // C, -1),
+            traj.log_probs.reshape(C, R // C, -1),
+            adv_n[:, :, None, :].expand(T, E, A, 1).reshape(C, R // C, 1),
+            net_in(obs.reshape(C, Rv // C, A * self.obs_dim)),
+            traj.values[:-1].reshape(C, Rv // C, 1),
+            returns.reshape(C, Rv // C, 1),
+        ))
+        params = [*ts.actor.parameters(), *ts.critic.parameters()]
+        ms = []
+        for _ in range(cfg.ppo_epoch):
+            norm = self._update_normalizer(ts, returns)
+            ts.actor_opt.zero_grad(set_to_none=False)
+            ts.critic_opt.zero_grad(set_to_none=False)
+            m_sum = 0.0
+            for chunk in chunks:
+                total, *m = self._ppo_loss(ts, chunk, norm(chunk[6]))
+                total.backward()
+                m_sum = m_sum + torch.stack([t.detach() for t in m])
+            with torch.no_grad():
+                for p in params:
+                    p.grad.div_(C)
+            a_norm, c_norm = self._step(ts)
+            m = m_sum / C
+            ms.append(torch.stack([m[0], m[1], m[2], a_norm, c_norm, m[3]]))
+        return torch.stack(ms).mean(dim=0)
 
     def _step(self, ts: TrainState):
         """Clip both networks' gradients and take one optimizer step each at
@@ -492,26 +614,46 @@ class MAPPO:
         ts.update_count += 1
         return norms
 
-    def _minibatch_update(self, ts: TrainState, batch, rnn=None):
-        """One optimizer step by autograd of the PPO loss on feed-forward
-        rows, or with ``rnn = (masks, actor warm starts, critic warm
-        starts)`` on (L, C, .) chunk sequences (JAX
-        ``_seq_minibatch_update``)."""
+    def _update_normalizer(self, ts: TrainState, ret):
+        """Update the value normalizer on ``ret`` BEFORE normalizing (the
+        reference's order); PopArt also rescales the value head in place,
+        under no_grad, leaving Adam's moments as they are, as the JAX package
+        does. Returns the function that normalizes returns with the new
+        statistics."""
         cfg = self.cfg
-        obs_b, act_b, logp_b, adv_b, cent_b, vpred_b, ret_b = batch
         if cfg.use_valuenorm:
-            ts.vnorm = VN.update(ts.vnorm, ret_b)
-            ret_target = VN.normalize(ts.vnorm, ret_b)
-        else:
-            ret_target = ret_b
+            st = ts.vnorm = VN.update(ts.vnorm, ret)
+            return lambda r: VN.normalize(st, r)
+        if cfg.use_popart:
+            head = ts.critic.v_out
+            with torch.no_grad():
+                ts.popart, kernel, bias = PA.update(ts.popart, head.weight, head.bias, ret)
+                head.weight.copy_(kernel)
+                head.bias.copy_(bias)
+            st = ts.popart
+            return lambda r: PA.normalize(st, r)
+        return lambda r: r
 
-        if rnn is None:
-            mean, log_std = ts.actor(obs_b)
-            values = ts.critic(cent_b)
-        else:
+    def _ppo_loss(self, ts: TrainState, batch, ret_target, rnn=None):
+        """The PPO loss of one minibatch of feed-forward rows, or with ``rnn
+        = (masks, actor warm starts, critic warm starts)`` of (L, C, .) chunk
+        sequences (JAX ``_seq_minibatch_update``). With ``use_remat`` the
+        feed-forward actor and critic recompute their forwards in the
+        backward (``torch.utils.checkpoint``, where JAX has
+        ``jax.checkpoint``). Returns (total, value_loss, policy_loss,
+        dist_entropy, mean ratio)."""
+        cfg = self.cfg
+        obs_b, act_b, logp_b, adv_b, cent_b, vpred_b, _ = batch
+        if rnn is not None:
             mask_b, ha_b, hc_b = rnn
             mean, log_std, _ = ts.actor.sequence(obs_b, ha_b, mask_b)
             values, _ = ts.critic.sequence(cent_b, hc_b, mask_b)
+        elif cfg.use_remat:
+            mean, log_std = checkpoint(ts.actor, obs_b, use_reentrant=False)
+            values = checkpoint(ts.critic, cent_b, use_reentrant=False)
+        else:
+            mean, log_std = ts.actor(obs_b)
+            values = ts.critic(cent_b)
         new_logp = D.normal_log_prob(mean, log_std, act_b)
         dist_entropy = D.normal_entropy(log_std, mean).sum(-1).mean()
         ratio = torch.exp(new_logp - logp_b)
@@ -529,34 +671,59 @@ class MAPPO:
 
         total = (policy_loss - dist_entropy * cfg.entropy_coef
                  + value_loss * cfg.value_loss_coef)
+        return total, value_loss, policy_loss, dist_entropy, ratio.mean()
+
+    def _minibatch_update(self, ts: TrainState, batch, rnn=None):
+        """One optimizer step by autograd of the PPO loss (``_ppo_loss``),
+        the value normalizer updated first on the minibatch's returns;
+        returns the six metrics."""
+        ret_target = self._update_normalizer(ts, batch[6])(batch[6])
+        total, value_loss, policy_loss, dist_entropy, ratio = self._ppo_loss(
+            ts, batch, ret_target, rnn)
         ts.actor_opt.zero_grad(set_to_none=False)
         ts.critic_opt.zero_grad(set_to_none=False)
         total.backward()
         a_norm, c_norm = self._step(ts)
         return torch.stack([value_loss.detach(), policy_loss.detach(),
-                            dist_entropy.detach(), a_norm, c_norm,
-                            ratio.detach().mean()])
+                            dist_entropy.detach(), a_norm, c_norm, ratio.detach()])
 
     def _norm_seq(self, ts: TrainState, returns):
-        """Per-epoch (shift, scale) of the value normalizer for the fused
-        epochs: the stats update runs BEFORE normalizing, once per epoch on
-        the same returns, so the sequence is independent of the epoch
-        bodies. Returns ((ppo_epoch, 2) tensor, final vnorm)."""
-        n = self.cfg.ppo_epoch
-        if not self.cfg.use_valuenorm:
-            one = torch.tensor([0.0, 1.0], dtype=torch.float32, device=self.device)
-            return one.expand(n, 2), ts.vnorm
-        vn, rows = ts.vnorm, []
-        for _ in range(n):
-            vn = VN.update(vn, returns)
-            mean, var = VN.stats(vn)
-            rows.append(torch.cat([mean, torch.sqrt(var)]).float())
-        return torch.stack(rows), vn
+        """Per-epoch value-normalizer rows [kscale, bshift, shift, scale] of
+        the fused one-minibatch epochs: (kscale, bshift) rescale the PopArt
+        head (identity otherwise), (shift, scale) normalize the raw returns
+        inside the critic kernel. The statistics update runs BEFORE
+        normalizing, once per epoch on the same returns, so the sequence is
+        independent of the epoch bodies. Returns ((ppo_epoch, 4) tensor,
+        final vnorm, final popart)."""
+        cfg, n = self.cfg, self.cfg.ppo_epoch
+        one = torch.ones(1, dtype=torch.float32, device=self.device)
+        zero = torch.zeros(1, dtype=torch.float32, device=self.device)
+        rows = []
+        if cfg.use_valuenorm:
+            vn = ts.vnorm
+            for _ in range(n):
+                vn = VN.update(vn, returns)
+                mean, var = VN.stats(vn)
+                rows.append(torch.cat([one, zero, mean, torch.sqrt(var)]).float())
+            return torch.stack(rows), vn, ts.popart
+        if cfg.use_popart:
+            # PA.update on a (1, 0) head gives the rescale's coefficients:
+            # kscale = old_std / new_std, bshift = (old_mean - new_mean) / new_std
+            pa = ts.popart
+            for _ in range(n):
+                pa, kscale, bshift = PA.update(pa, one, zero, returns)
+                mean, var = PA.debiased(pa)
+                rows.append(torch.cat([kscale, bshift, mean, torch.sqrt(var)]).float())
+            return torch.stack(rows), ts.vnorm, pa
+        return torch.cat([one, zero, zero, one]).expand(n, 4), ts.vnorm, ts.popart
 
     @torch.no_grad()
     def _update_fused_full(self, ts: TrainState, traj: Trajectory, adv_n, returns):
-        """Fused-loss epochs: rows and packed aux built once; the critic's
-        team-concat rows are a reshape of the same obs buffer."""
+        """Fused-loss epochs on one minibatch: rows and packed aux built
+        once; the critic's team-concat rows are a reshape of the same obs
+        buffer. Each epoch applies its row of ``_norm_seq``: the PopArt head
+        rescale before the kernels (JAX ``_fused_epoch_body``), the
+        normalizer's (shift, scale) inside the critic kernel."""
         T, E, A, _ = traj.actions.shape
         R, Rv = T * E * A, T * E
         obs_in = traj.obs[:-1].to(self.net_dtype)
@@ -568,18 +735,36 @@ class MAPPO:
             adv_n[:, :, None, :].expand(T, E, A, 1).reshape(R, 1),
         )
         aux_c = FP.pack_critic_aux(traj.values[:-1].reshape(Rv, 1), returns.reshape(Rv, 1))
-        seq, vnorm = self._norm_seq(ts, returns)
-        metrics = [
-            self._fused_core(ts, obs_rows, aux_a, cent_rows, aux_c, seq[e].contiguous(), R, Rv)
-            for e in range(self.cfg.ppo_epoch)
-        ]
-        ts.vnorm = vnorm
+        seq, vnorm, popart = self._norm_seq(ts, returns)
+        metrics = []
+        for e in range(self.cfg.ppo_epoch):
+            if self.cfg.use_popart:
+                head = ts.critic.v_out
+                head.weight.mul_(seq[e, 0])
+                head.bias.mul_(seq[e, 0]).add_(seq[e, 1])
+            metrics.append(self._fused_core(ts, obs_rows, aux_a, cent_rows, aux_c,
+                                            seq[e, 2:4].contiguous(), R, Rv))
+        ts.vnorm, ts.popart = vnorm, popart
         return torch.stack(metrics).mean(dim=0)
+
+    @torch.no_grad()
+    def _fused_minibatch_update(self, ts: TrainState, mb):
+        """One optimizer step by the fused kernels on a gathered minibatch of
+        rows (JAX ``_fused_minibatch_update``): the value normalizer is
+        updated and applied to the returns first, so the critic kernel takes
+        ``norm = [0, 1]``, and the aux rows are packed on every call."""
+        obs_b, act_b, logp_b, adv_b, cent_b, vpred_b, ret_b = mb
+        ret_target = self._update_normalizer(ts, ret_b)(ret_b)
+        norm = torch.tensor([0.0, 1.0], dtype=torch.float32, device=self.device)
+        return self._fused_core(ts, obs_b.contiguous(), FP.pack_actor_aux(act_b, logp_b, adv_b),
+                                cent_b.contiguous(), FP.pack_critic_aux(vpred_b, ret_target),
+                                norm, obs_b.shape[0], cent_b.shape[0])
 
     def _fused_core(self, ts: TrainState, obs_rows, aux_a, cent_rows, aux_c, norm,
                     n_a: int, n_c: int):
-        """Both kernels on the packed rows, mean-loss gradients into
-        ``.grad``, one optimizer step each; returns the six metrics."""
+        """Both kernels (K3 / K4 with ``fused_fold``, else K3u / K4u) on the
+        packed rows, mean-loss gradients into ``.grad``, one optimizer step
+        each; returns the six metrics."""
         cfg = self.cfg
         common = dict(
             n_layers=cfg.layer_n + 1,
@@ -621,8 +806,11 @@ class MAPPO:
     # ------------------------------------------------------------------
     # full iteration
     # ------------------------------------------------------------------
-    def train_iteration(self, ts: TrainState, timer=None) -> Metrics:
-        """Rollout -> GAE -> PPO epochs. With a
+    def _iteration(self, ts: TrainState, generator=None, timer=None) -> torch.Tensor:
+        """Rollout -> GAE -> PPO epochs, with random numbers from
+        ``generator`` (default ``ts.generator``); returns the iteration's
+        eight metrics as one tensor on the device, with no host
+        synchronisation. With a
         :class:`~dcc_tpu_torch.utils.profiling.PhaseTimer`, each phase is
         timed to its end on the device."""
 
@@ -631,18 +819,32 @@ class MAPPO:
                 return contextlib.nullcontext()
             return _synced(timer, name, self.device)
 
+        gen = ts.generator if generator is None else generator
         with phase("rollout"):
-            traj = self.rollout(ts, self.cfg.n_rollout_threads)
+            traj = self.rollout(ts, self.cfg.n_rollout_threads, generator=gen)
         with phase("returns"):
             adv, returns = self.compute_returns(ts, traj)
         with phase("update"):
-            m = self.update(ts, traj, adv, returns)
-        stats = torch.cat([
+            m = self.update(ts, traj, adv, returns, generator=gen)
+        return torch.cat([
             traj.rewards.mean(dim=(1, 2)).sum().reshape(1),
             traj.coverage.max(dim=0).values.mean().reshape(1),
             m,
-        ]).tolist()
-        return Metrics(*stats)
+        ])
+
+    def train_iteration(self, ts: TrainState, timer=None) -> Metrics:
+        """One outer iteration (``_iteration``); returns its metrics as
+        floats."""
+        return Metrics(*self._iteration(ts, timer=timer).tolist())
+
+    def train_many(self, ts: TrainState, n_iters: int,
+                   generator: Optional[torch.Generator] = None) -> Metrics:
+        """``n_iters`` iterations in a row with no host synchronisation
+        between them (JAX ``train_many``, its scan of ``train_iteration``);
+        returns :class:`Metrics` whose fields are the per-iteration values
+        stacked, (n_iters,) tensors on the device."""
+        m = torch.stack([self._iteration(ts, generator) for _ in range(n_iters)])
+        return Metrics(*m.unbind(dim=1))
 
     def eval_iteration(self, ts: TrainState, n_envs: int,
                        generator: Optional[torch.Generator] = None):

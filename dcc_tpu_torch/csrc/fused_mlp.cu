@@ -19,7 +19,11 @@
 //   f32 accumulators, and the Dense epilogue, the activation and the LN run
 //   in registers. Blocks are persistent (at most two per SM) and loop over
 //   row tiles; the weights (at most 448 x 256 bf16 per layer) stream from
-//   L2, where the trunk stays resident.
+//   L2, where the trunk stays resident. The LN affine rounds each step on
+//   its own (ln_affine), as the plain version and K2b's forward recompute
+//   do. (K2b's relu re-sum, resum_uncertain, is not applied here: it left
+//   the recurrent bf16 update's reading unchanged and cost 2.7-3.9x at
+//   16,384 envs, PERF.md section 7.)
 // * f32 (trunk_fwd_kernel): full FP32 on the CUDA cores (no TF32), one
 //   block per tile of BR rows, one thread per output column.
 // The ragged last tile is masked on load and store in both.
@@ -108,7 +112,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
             for (int e = 0; e < 2; ++e) {
               y[e] = 0.f;
               if (c + e < H)
-                y[e] = (acc[nt][2 * h + e] - mu[h]) * inv[h] * sc[c + e] + bi[c + e];
+                y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], sc[c + e], bi[c + e]);
             }
             if (li + 1 < L) {
               store_bf16x2(A + r * lda + c, y[0], y[1]);

@@ -31,8 +31,6 @@
 #include "slots.cuh"
 #include "trunk_mma.cuh"
 
-#define FLAG_CAP 128  // listed re-sums of one layer of one tile (more: by their owners)
-
 // ---------------------------------------------------------------------------
 // f32, on the CUDA cores: the tile's cache is f32 (input, feature-norm xhat,
 // each layer's activation, xhat and LN output, 1/sigma per row: 2 d_in +
@@ -132,132 +130,9 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
   m.colsum = o; o += 4 * 3 * (size_t)(br / 16) * Hp;
   m.rnorm = o;  o += 4 * (size_t)br;
   m.cnorm = o;  o += 4 * (size_t)L * Hp;
-  m.flags = o;  o += 16 + 8 * FLAG_CAP;
+  m.flags = o;  o += RESUM_BYTES;
   m.total = o;
   return m;
-}
-
-// The LN output y = xhat * s + c of an activation a, xhat = (a - mu) * inv,
-// in f32 before its bf16 rounding. Every step rounds on its own (no fused
-// multiply-add), so the forward's store and the backward's recompute give
-// the same bits, as PyTorch's separate elementwise operations do.
-__device__ __forceinline__ float ln_affine(float a, float mu, float inv, float s, float c) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a, mu), inv), s), c);
-}
-
-// Whether the relu mask of the pre-activation z = bf16(bf16(acc) + bf16(b))
-// may differ between two f32 summation orders of acc = sum_k a_k w_k: z is
-// within one bf16 step of the accumulator from the kink (the step can move
-// bf16(acc) and z across it), or acc itself is within the bound on any
-// order's rounding error, K 2^-24 sum |a_k w_k| <= 2^-14 |a| |w| for K <=
-// 448, so that the order sets its sign (a sum that cancels: at init every
-// bias is 0 and z = bf16(acc)).
-__device__ __forceinline__ bool relu_uncertain(float acc, float b, float anorm, float wnorm) {
-  int e;
-  frexpf(acc, &e);
-  const float z = bf16r(bf16r(acc) + bf16r(b));
-  return fabsf(z) <= ldexpf(1.f, e - 8) || fabsf(acc) <= 0x1p-14f * anorm * wnorm;
-}
-
-// sum_k a[k] w[k * ldw] for k < K in sequential order, one rounding per term
-// (the bf16 products are exact in f32); with sq, sum_k w[k * ldw]^2. The
-// loads of 16 terms are issued before their sums, so they are in flight
-// together.
-__device__ __noinline__ float dot_sequential(const bf16* a, const bf16* w, int ldw, int K,
-                                             bool sq = false) {
-  float s = 0.f;
-#pragma unroll 1
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    float av[16], wv[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const bool in = k0 + j < K;
-      wv[j] = in ? bf(w[(long long)(k0 + j) * ldw]) : 0.f;
-      av[j] = in ? (sq ? wv[j] : bf(a[k0 + j])) : 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < 16; ++j) s = fmaf(av[j], wv[j], s);
-  }
-  return s;
-}
-
-// The cotangent g (acc) of a layer's LN output y = xhat * scale + bias back
-// through the LN (dcc_tpu/ops/fused_mlp.py::_ln_bwd) and the activation, in
-// registers; columns >= H become 0. Writes the column sums over the warp's
-// 16 rows of g * xhat (the LN scale's gradient), of g (the LN bias's) and of
-// the result (the Dense bias's) to colsum[k][wm][*], k = 0, 1, 2, and the
-// result's bf16 rounding to gs.
-template <int BR>
-__device__ __forceinline__ void ln_affine_act_bwd(float (&acc)[MmaTile<BR>::NT][4],
-                                                  const bf16* act, int ldh, const float* mu,
-                                                  const float* inv, const float* scale, int H,
-                                                  int Hp, bool relu, float* red,
-                                                  const WarpTile& wt, float* colsum, bf16* gs) {
-  constexpr int WM = MmaTile<BR>::WM;
-  const int lane = threadIdx.x & 31;
-  const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
-  const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
-  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-    if (nt < wt.ntw) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
-        if (col < H) {
-          const float xh = (bf(act[(wt.r0 + 8 * h) * ldh + col]) - m[h]) * iv[h];
-          const float gg = acc[nt][i] * __ldg(scale + col);
-          s1[h] += gg;
-          s2[h] += gg * xh;
-        }
-      }
-    }
-  }
-  row_sums<BR>(s1, s2, red, wt);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    s1[h] /= H;
-    s2[h] /= H;
-  }
-#pragma unroll
-  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-    if (nt < wt.ntw) {
-      float cs[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
-        float v = 0.f;
-        if (col < H) {
-          const float a = bf(act[(wt.r0 + 8 * h) * ldh + col]);
-          const float xh = (a - m[h]) * iv[h];
-          const float g = acc[nt][i];
-          cs[0][i & 1] += g * xh;
-          cs[1][i & 1] += g;
-          v = iv[h] * (g * __ldg(scale + col) - s1[h] - xh * s2[h]);
-          v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
-        }
-        acc[nt][i] = v;
-        cs[2][i & 1] += v;
-      }
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-#pragma unroll
-          for (int o = 4; o < 32; o <<= 1) cs[k][e] += __shfl_xor_sync(0xffffffffu, cs[k][e], o);
-      const int c = wt.c0 + nt * 8;
-      if (lane < 4) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          colsum[(k * WM + wt.wm) * Hp + c] = cs[k][0];
-          colsum[(k * WM + wt.wm) * Hp + c + 1] = cs[k][1];
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store_bf16x2(gs + (wt.r0 + 8 * h) * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
-  }
 }
 
 // Parameters: the flat list's f32 vectors in pb (fn scale / bias at
@@ -288,17 +163,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   float* colsum = (float*)(smem_raw + m.colsum);
   float* rnorm = (float*)(smem_raw + m.rnorm);
   float* cnorm = (float*)(smem_raw + m.cnorm);
-  int* nflag = (int*)(smem_raw + m.flags);
-  int* fkey = nflag + 4;
-  float* fval = (float*)(fkey + FLAG_CAP);
+  const ResumList flags = resum_list(smem_raw + m.flags);
   constexpr int WM = MmaTile<BR>::WM;
   const WarpTile wt = warp_tile<BR>(Hp / 8);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* xf = (const float*)x;
-  const unsigned short* xb = (const unsigned short*)x;
-  auto xv = [&](long long i) {
-    return x_bf16 ? __uint_as_float((unsigned)__ldg(xb + i) << 16) : __ldg(xf + i);
-  };
+  auto xv = [&](long long i) { return load_x(x, x_bf16, i); };
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
   const long long tiles = (R + BR - 1) / BR;
@@ -306,14 +175,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
-  if (threadIdx.x == 0) *nflag = 0;
-  if (relu) {  // the column norms of every W, for relu_uncertain
-    for (int i = threadIdx.x; i < L * Hp; i += blockDim.x) {
-      const int li = i / Hp, c = i - li * Hp;
-      cnorm[i] = sqrtf(dot_sequential(nullptr, wb + woffs.v[li] + c, Hp, li == 0 ? Kp0 : Hp,
-                                      true));
-    }
-  }
+  if (threadIdx.x == 0) *flags.n = 0;
+  if (relu) weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm);  // for relu_uncertain
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
     const bool first = tile == blockIdx.x;
@@ -334,67 +197,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       const long long* o = offs.v + 2 + 4 * li;
       const bf16* in = li == 0 ? a0 : sx;
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
-      if (relu) {  // the operand's row norms, for relu_uncertain (visible
-                   // after gemm_stream's first barrier)
-        for (int r = warp; r < BR; r += MMA_WARPS) {
-          float s = 0.f;
-          for (int k = lane; k < K; k += 32) s = fmaf(bf(in[r * lda + k]), bf(in[r * lda + k]), s);
-          s = warp_sum(s);
-          if (lane == 0) rnorm[r] = sqrtf(s);
-        }
-      }
+      if (relu)  // the operand's row norms, for relu_uncertain
+        operand_row_norms<BR>(in, lda, K, rnorm);
       gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
-      if (relu) {  // re-sum the uncertain pre-activations: list, sum, write back
-        unsigned long long listed = 0, own = 0;  // bit 4 nt + i of acc
-#pragma unroll
-        for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
-            if (nt < wt.ntw && col < H && row0 + r < R &&
-                relu_uncertain(acc[nt][i], pb[o[1] + col], rnorm[r], cnorm[li * Hp + col])) {
-              const int j = atomicAdd(nflag, 1);
-              if (j < FLAG_CAP) {
-                fkey[j] = r << 16 | col;
-                listed |= 1ull << (4 * nt + i);
-              } else {
-                own |= 1ull << (4 * nt + i);
-              }
-            }
-          }
-        }
-        if (__syncthreads_or((listed | own) != 0)) {
-          const int n = min(*nflag, FLAG_CAP);
-          for (int j = threadIdx.x; j < n; j += blockDim.x)
-            fval[j] = dot_sequential(in + (fkey[j] >> 16) * lda,
-                                     wb + woffs.v[li] + (fkey[j] & 0xffff), Hp, K);
-          __syncthreads();
-#pragma unroll
-          for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
-              if ((listed >> (4 * nt + i)) & 1) {
-                for (int j = 0; j < n; ++j)
-                  if (fkey[j] == (r << 16 | col)) acc[nt][i] = fval[j];
-              }
-            }
-          }
-#pragma unroll 1
-          for (; own != 0; own &= own - 1) {  // past the list: the owner re-sums
-            const int b = __ffsll((long long)own) - 1, r = wt.r0 + 8 * ((b & 3) >> 1);
-            const int col = wt.c0 + (b >> 2) * 8 + (b & 1);
-            const float v = dot_sequential(in + r * lda, wb + woffs.v[li] + col, Hp, K);
-#pragma unroll
-            for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                if (4 * nt + i == b) acc[nt][i] = v;
-          }
-          __syncthreads();  // the list is read: empty it for the next layer
-          if (threadIdx.x == 0) *nflag = 0;
-        }
-      }
+      if (relu)
+        resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+                            cnorm + li * Hp, row0, R, wt, flags);
       float mu[2], inv[2];
       dense_act_stats<BR>(acc, pb + o[1], H, relu, red, wt, mu, inv);
       if (wt.wn == 0 && (lane & 3) == 0) {
@@ -477,43 +285,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       if (li > 0)  // g_prev = bf16(g) @ W^T
         gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
     }
-    // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns, in passes of at
-    // most MMA_HMAX, into the stage (over a0, which grad_at_g has finished
-    // reading: every thread passed gemm_stream's first barrier after it)
-    for (int c0 = 0; c0 < Kp0; c0 += MMA_HMAX) {
-      const int nc = min(MMA_HMAX, Kp0 - c0);
-      const WarpTile pt = warp_tile<BR>(nc / 8);
-      gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[0] + (long long)c0 * Hp, Hp, nc, ring, pt,
-                        acc);
-#pragma unroll
-      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-        if (nt < pt.ntw) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int c = c0 + pt.c0 + nt * 8;
-            *reinterpret_cast<float2*>(stage + (pt.r0 + 8 * h) * ldf + c) =
-                make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-          }
-        }
-      }
-    }
+    // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns into the stage
+    // (over a0, which grad_at_g has finished reading)
+    gprev_layer0<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
     __syncthreads();
     if (use_fn) {
-      // feature norm: its scale and bias gradients, column sums over the
-      // tile's rows of g * xhat and g (rows >= R have g = 0)
+      // feature norm: its scale and bias gradients (rows >= R have g = 0)
       const float* fs = pb + offs.v[0];
-      for (int k = threadIdx.x; k < d_in; k += blockDim.x) {
-        float sgx = 0.f, sg = 0.f;
-        for (int r = 0; r < BR && row0 + r < R; ++r) {
-          const float g = stage[r * ldf + k];
-          sgx += g * ((xv((row0 + r) * d_in + k) - fmu[r]) * finv[r]);
-          sg += g;
-        }
-        float* ds = slot + offs.v[0] + k;
-        float* db = slot + offs.v[1] + k;
-        *ds = first ? sgx : *ds + sgx;
-        *db = first ? sg : *db + sg;
-      }
+      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fmu, finv, slot + offs.v[0],
+                          slot + offs.v[1], first);
       // its LN backward and d(x), one warp per row
       for (int r = warp; r < BR && row0 + r < R; r += MMA_WARPS) {
         const long long base = (row0 + r) * d_in;

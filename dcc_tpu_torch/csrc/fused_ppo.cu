@@ -1,27 +1,31 @@
 // K3 / K4: fused PPO loss + parameter-gradient kernels for the actor and the
-// critic, on the folded trunk (every LN affine absorbed into the next
-// matmul, dcc_tpu/ops/fused_ppo.py::fold_trunk).
+// critic, in two modes: folded (every LN affine absorbed into the next
+// matmul, dcc_tpu/ops/fused_ppo.py::fold_trunk) and unfolded (K3u / K4u: the
+// LN affines applied inside the kernel as the trunk writes them,
+// dcc_tpu/ops/fused_mlp.py::_forward_chain, and every LN scale and bias
+// gradient accumulated directly, fused_ppo.py::_trunk_bwd).
 //
 // Replace the Pallas kernels dcc_tpu/ops/fused_ppo.py::_actor_kernel
 // (actor_ppo_grads_packed -> _make_actor_op) and ::_critic_kernel
-// (critic_value_grads_packed -> _make_critic_op). Every PPO epoch runs each
-// once over all T*E*A actor rows / T*E critic rows.
+// (critic_value_grads_packed -> _make_critic_op), folded=True and
+// folded=False. Every PPO epoch runs each once over all T*E*A actor rows /
+// T*E critic rows, or once per minibatch over its gathered rows.
 //
 // What bounds them on an H100: per row, the forward and the backward do
 // ~3 * 2 * (d_in * H + H * H) operations against d_in * (2 or 4) bytes of
-// input, so the work is compute-bound. In bf16 both (actor_grads_mma_kernel,
-// critic_grads_mma_kernel) run every product on the tensor cores; in f32
-// they run them on the CUDA cores in FP32 FMA (67 TFLOP/s). Every kernel
-// re-reads and re-writes its block's gradient slot once per tile after its
-// first, which bounds the bf16 kernels at large batch.
+// input, so the work is compute-bound. In bf16 all four
+// (actor_grads_mma_kernel, critic_grads_mma_kernel and their unfolded
+// twins) run every product on the tensor cores; in f32 they run them on the
+// CUDA cores in FP32 FMA (67 TFLOP/s). Every kernel re-reads and re-writes
+// its block's gradient slot once per tile after its first, which bounds the
+// bf16 kernels at large batch.
 //
 // Design. The Pallas kernels accumulate the weight gradients into one output
 // block across a sequential grid, which is race-free only on a TPU. Here a
-// fixed grid of one block per SM (the forward cache of a 32-row tile takes
-// most of an SM's shared memory) loops over row tiles; each block
+// fixed grid of blocks loops over row tiles; each block
 // keeps the tile's forward cache (input, activations, LN outputs and
 // 1/sigma per layer) in shared memory, runs the loss head and the full
-// folded backward on it, and adds the tile's gradients into its OWN slot of
+// backward on it, and adds the tile's gradients into its OWN slot of
 // a scratch buffer (each slot element has one owner thread). A second small
 // kernel sums the slots in a fixed order. The result is deterministic and
 // uses no atomics. The ragged last tile is masked in the kernel, so rows are
@@ -60,8 +64,10 @@ __device__ __forceinline__ float huber_grad(float e, float delta, int use_huber)
   return a * e + b * delta;
 }
 
-// Shared-memory layout of one block: the trunk cache plus per-row head
-// values (2 * A + 2 floats a row).
+// Shared-memory layout of one f32 block: the trunk cache plus per-row head
+// values (2 * A + 2 floats a row); unfolded, also the trunk output (H
+// floats a row), the last layer's LN affine, which the unfolded cache does
+// not keep.
 template <int BR>
 __device__ TrunkCache carve(float* smem, int d_in, int H, int L) {
   TrunkCache c;
@@ -77,9 +83,17 @@ __host__ __device__ inline size_t ppo_smem_floats(int br, int d_in, int H, int L
   return (size_t)br * (d_in + 2 * (size_t)L * H + H + L + 2 * A + 2);
 }
 
-// Gradient slot layout (floats): per layer [dV (d_li x H), du (H)], then
-// head [dW (H x A), db (A)], then per-kind extras (actor: dlog_std (A) and
-// [loss_sum, ratio_sum]; critic: [value_loss_sum]).
+__host__ __device__ inline size_t ppo_unfolded_smem_floats(int br, int d_in, int H, int L,
+                                                           int A) {
+  return unfolded_smem_floats(br, d_in, H, L) + (size_t)br * (H + 2 * A + 2);
+}
+
+// Folded gradient slot layout (floats): per layer [dV (d_li x H), du (H)],
+// then head [dW (H x A), db (A)], then per-kind extras (actor: dlog_std (A)
+// and [loss_sum, ratio_sum]; critic: [value_loss_sum]). Unfolded, the slot
+// starts with the flat trunk list's gradients at the parameter offsets
+// (fn scale, fn bias, then W, b, LN scale, LN bias per layer) and the head
+// follows at offs.v[2 + 4L].
 __device__ void slot_ptrs(float* slot, int d_in, int H, int L, int A,
                           float** sv, float** su, float** head) {
   long long o = 0;
@@ -92,39 +106,94 @@ __device__ void slot_ptrs(float* slot, int d_in, int H, int L, int A,
   *head = slot + o;
 }
 
+// The f32 trunk of one tile for the loss kernels: the folded chain
+// (trunk.cuh's trunk_fwd_folded / trunk_bwd_folded on c) or the unfolded
+// one (trunk_fwd_unfolded / trunk_bwd_unfolded on u, plus the trunk output's
+// LN affine into feat). Parameter offsets: folded, V_li at offs.v[3 li],
+// V_li^T at v[3 li + 1], u_li at v[3 li + 2], the head at v[3L]; unfolded,
+// the flat trunk list (offs.v[0 .. 2 + 4L)), W_li^T at v[2 + 4L + li], the
+// head at v[2 + 5L].
+template <int BR, bool UNF>
+struct F32Trunk {
+  TrunkCache c;
+  UnfoldedCache u;
+  float* feat;  // BR x H: the trunk output (the head's input)
+  float* g;     // BR x H: its cotangent
+  float* rest;  // the per-row head values
+  float* sv[DCC_MAX_LAYERS];
+  float* su[DCC_MAX_LAYERS];
+  float* head;  // the head's part of the slot
+  int hoff;     // offs index of the head's weights
+
+  __device__ F32Trunk(float* smem, float* slot, int d_in, int H, int L, int A,
+                      const DccOffs& offs) {
+    if constexpr (UNF) {
+      u = carve_unfolded<BR>(smem, d_in, H, L);
+      feat = u.inv + (L + 1) * BR;
+      g = u.g;
+      rest = feat + BR * H;
+      head = slot + offs.v[2 + 4 * L];
+      hoff = 2 + 5 * L;
+    } else {
+      c = carve<BR>(smem, d_in, H, L);
+      feat = c.xhat + (long long)(L - 1) * BR * H;
+      g = c.g;
+      rest = c.inv + BR * L;
+      slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
+      hoff = 3 * L;
+    }
+  }
+
+  __device__ void forward(const void* x, int x_bf16, long long row0, long long R, int d_in,
+                          int H, int L, int use_fn, int relu, const float* pb,
+                          const DccOffs& offs) {
+    if constexpr (UNF) {
+      trunk_fwd_unfolded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs, u);
+      affine_tile<BR>(u.xh + (long long)(L - 1) * BR * H, feat, H, pb + offs.v[4 * L],
+                      pb + offs.v[4 * L + 1]);
+      __syncthreads();
+    } else {
+      trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs, c);
+    }
+  }
+
+  __device__ void backward(int d_in, int H, int L, int use_fn, int relu, const float* pb,
+                           const DccOffs& offs, float* slot) {
+    if constexpr (UNF)
+      trunk_bwd_unfolded<BR>(d_in, H, L, use_fn, relu, pb, offs, u, slot);
+    else
+      trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
+  }
+};
+
 // ---------------------------------------------------------------------------
-// K3: actor, f32 (the bf16 actor is actor_grads_mma_kernel below). aux rows:
-// [action (A), old_log_prob, advantage, valid]. Parameter offsets: trunk as
-// trunk_fwd_folded, then Wh (H x A) at v[3L], bh at v[3L+1], log_std at
-// v[3L+2].
+// K3 / K3u: actor, f32 (the bf16 actor is actor_grads_mma_kernel below).
+// aux rows: [action (A), old_log_prob, advantage, valid]. Head: Wh (H x A),
+// bh, log_std at the head's offsets.
 // ---------------------------------------------------------------------------
-template <int BR>
+template <int BR, bool UNF>
 __global__ void __launch_bounds__(DCC_THREADS)
     actor_grads_kernel(const void* x, int x_bf16, const float* aux, long long R,
                        int d_in, int H, int L, int A, int use_fn, int relu,
                        float clip, const float* pb, DccOffs offs, float* slots,
                        long long slot_size) {
   extern __shared__ float smem[];
-  TrunkCache c = carve<BR>(smem, d_in, H, L);
-  float* dmean = c.inv + BR * L;  // BR x A
+  float* slot = slots + (long long)blockIdx.x * slot_size;
+  F32Trunk<BR, UNF> t(smem, slot, d_in, H, L, A, offs);
+  float* dmean = t.rest;  // BR x A
   float* row_dls = dmean + BR * A; // BR x A
   float* row_loss = row_dls + BR * A;
   float* row_ratio = row_loss + BR;
 
-  float* slot = slots + (long long)blockIdx.x * slot_size;
   for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
-  float* sv[DCC_MAX_LAYERS];
-  float* su[DCC_MAX_LAYERS];
-  float* head;
-  slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
-  float* s_wh = head;
+  float* s_wh = t.head;
   float* s_bh = s_wh + H * A;
   float* s_ls = s_bh + A;
   float* s_met = s_ls + A;
-  const float* Wh = pb + offs.v[3 * L];
-  const float* bh = pb + offs.v[3 * L + 1];
-  const float* log_std = pb + offs.v[3 * L + 2];
-  const float* feat = c.xhat + (long long)(L - 1) * BR * H;
+  const float* Wh = pb + offs.v[t.hoff];
+  const float* bh = pb + offs.v[t.hoff + 1];
+  const float* log_std = pb + offs.v[t.hoff + 2];
+  const float* feat = t.feat;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   __syncthreads();
@@ -132,8 +201,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
-    trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
-                               offs, c);
+    t.forward(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs);
     // head + loss, one warp per row
     for (int r = warp; r < BR; r += nw) {
       const long long row = row0 + r;
@@ -209,21 +277,21 @@ __global__ void __launch_bounds__(DCC_THREADS)
       float s = 0.f;
       for (int d = 0; d < A; ++d)
         s = fmaf(dmean[r * A + d], Wh[h * A + d], s);
-      c.g[i] = s;
+      t.g[i] = s;
     }
     __syncthreads();
-    trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
+    t.backward(d_in, H, L, use_fn, relu, pb, offs, slot);
     __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// K4: critic, f32 (the bf16 critic is critic_grads_mma_kernel below). aux
-// rows: [vpred, ret_raw, valid]; norm = [shift, scale]
+// K4 / K4u: critic, f32 (the bf16 critic is critic_grads_mma_kernel below).
+// aux rows: [vpred, ret_raw, valid]; norm = [shift, scale]
 // applies the value normalizer in-kernel: target = (ret_raw - shift) / scale.
-// Parameter offsets: trunk, then wv (H) at v[3L], bv at v[3L+1].
+// Head: wv (H), bv at the head's offsets.
 // ---------------------------------------------------------------------------
-template <int BR>
+template <int BR, bool UNF>
 __global__ void __launch_bounds__(DCC_THREADS)
     critic_grads_kernel(const void* x, int x_bf16, const float* aux,
                         const float* norm, long long R, int d_in, int H, int L,
@@ -231,23 +299,19 @@ __global__ void __launch_bounds__(DCC_THREADS)
                         int use_huber, int use_clipped, const float* pb,
                         DccOffs offs, float* slots, long long slot_size) {
   extern __shared__ float smem[];
-  TrunkCache c = carve<BR>(smem, d_in, H, L);
-  float* dv = c.inv + BR * L;  // BR
+  float* slot = slots + (long long)blockIdx.x * slot_size;
+  F32Trunk<BR, UNF> t(smem, slot, d_in, H, L, 1, offs);
+  float* dv = t.rest;  // BR
   float* row_loss = dv + BR;
 
-  float* slot = slots + (long long)blockIdx.x * slot_size;
   for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
-  float* sv[DCC_MAX_LAYERS];
-  float* su[DCC_MAX_LAYERS];
-  float* head;
-  slot_ptrs(slot, d_in, H, L, 1, sv, su, &head);
-  float* s_wv = head;
+  float* s_wv = t.head;
   float* s_bv = s_wv + H;
   float* s_met = s_bv + 1;
-  const float* wv = pb + offs.v[3 * L];
-  const float bv = pb[offs.v[3 * L + 1]];
+  const float* wv = pb + offs.v[t.hoff];
+  const float bv = pb[offs.v[t.hoff + 1]];
   const float shift = norm[0], scale = norm[1];
-  const float* feat = c.xhat + (long long)(L - 1) * BR * H;
+  const float* feat = t.feat;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   __syncthreads();
@@ -255,8 +319,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
-    trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb,
-                               offs, c);
+    t.forward(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs);
     for (int r = warp; r < BR; r += nw) {
       const long long row = row0 + r;
       float s = 0.f;
@@ -311,72 +374,101 @@ __global__ void __launch_bounds__(DCC_THREADS)
     }
     for (int i = threadIdx.x; i < BR * H; i += blockDim.x) {
       const int r = i / H, h = i - r * H;
-      c.g[i] = dv[r] * wv[h];
+      t.g[i] = dv[r] * wv[h];
     }
     __syncthreads();
-    trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
+    t.backward(d_in, H, L, use_fn, relu, pb, offs, slot);
     __syncthreads();
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3 and K4 in bf16, on the tensor cores (trunk_mma.cuh): one kernel body,
-// ppo_grads_mma, shared by the actor and the critic; only the head's loss
-// (ActorLoss, CriticLoss below) differs. Every product of the folded forward
-// and backward is an mma.sync bf16 product with f32 accumulation: the
-// forward's a @ V, the backward's g_prev = bf16(g) V^T and dV = bf16(in)^T
-// bf16(g). The head (A <= 4 outputs) and the loss stay on the CUDA cores.
-// The forward cache is bf16, which holds it exactly: every activation is a
-// bf16 value (relu of a bf16 z, or bf16(tanh)), and each layer's f32 xhat =
-// (act - mu) * inv is recomputed from it with the forward's expression.
+// K3 / K4 and K3u / K4u in bf16, on the tensor cores (trunk_mma.cuh): one
+// kernel body, ppo_grads_mma<BR, UNF>, shared by the actor and the critic
+// and by both chains; only the head's loss (ActorLoss, CriticLoss below)
+// and the chain (UNF) differ. Every product of the forward and backward is
+// an mma.sync bf16 product with f32 accumulation: the forward's a @ W, the
+// backward's g_prev = bf16(g) W^T and dW = bf16(in)^T bf16(g). The head
+// (A <= 4 outputs) and the loss stay on the CUDA cores. The forward cache
+// is bf16, which holds it exactly: every activation is a bf16 value (relu
+// of a bf16 z, or bf16(tanh)), and each layer's LN output is recomputed
+// from it with the forward's expression.
+//
+// Folded (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded): the operands are
+// bf16(xhat) and the weights V = diag(s) W. Unfolded (_forward_chain /
+// _trunk_bwd), as K2b runs the chain: the operands are the LN affine
+// outputs bf16(xhat * s + c) (ln_affine), the feature norm's affine is
+// applied when the input tile is loaded, the LN backward takes the scale
+// (ln_affine_act_bwd) and gives the LN scale and bias gradients, and layer
+// 0's g_prev (over d_in columns, in passes staged over the dead activation
+// tiles) gives the feature norm's. The unfolded forward re-sums the
+// pre-activations whose relu side a summation order can change
+// (resum_uncertain), as K2b does.
 // Shared memory of one block (BR rows, Kp0 = pad16(d_in), Hp = pad16(H);
 // bf16 tiles with rows padded by 8 elements):
 //   a0    BR x Kp0   layer 0's operand
 //   act   L x BR x Hp  each layer's activation
-//   sx    BR x Hp    the operand of layer li >= 1, bf16(xhat_{li-1})
+//   sx    BR x Hp    the operand of layer li >= 1
+//   stage BR x (Kp0 + 4) f32, unfolded only: layer 0's g_prev, over a0,
+//         act and sx (and beyond them where it is larger)
 //   gs    BR x Hp    bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
-//   f32:  mu, inv (L x BR), row-sum partials, column sums (BR/16 x Hp),
-//         bf16 of the head's weights (H x A) and the biases u (L x H), both
-//         loaded once per block, per-row head values (the outputs'
-//         cotangents and extra gradients, BR x A each; two metrics)
+//   f32:  mu, inv (L x BR), unfolded the feature norm's mu, inv (BR),
+//         row-sum partials, column sums (BR/16 x Hp; unfolded 3 x),
+//         bf16 of the head's weights (H x A), folded the biases u (L x H),
+//         both loaded once per block, per-row head values (the outputs'
+//         cotangents and extra gradients, BR x A each; two metrics),
+//         unfolded the operand's row norms (BR), the weights' column norms
+//         (L x Hp) and the list of re-sums
 // Each tile's gradients go into the block's own slot, stored by the
 // block's first tile and added by the others; every slot element has one
-// owner thread. dV is accumulated per tile in 32 x 64 register slabs. At
+// owner thread. dW is accumulated per tile in 32 x 64 register slabs. At
 // d_in 440 a 64-row tile needs more than a block's shared memory, so the
-// critic takes 32- or 16-row tiles.
+// critic takes 32- or 16-row tiles (unfolded, the actor 32 at d_in 110).
 // ---------------------------------------------------------------------------
 struct PpoMmaLayout {
-  size_t a0, act, sx, gs, ring, mu, inv, red, colsum, wh, u, dout, ext, met, total;
+  size_t a0, act, sx, stage, gs, ring, mu, inv, fmu, finv, red, colsum, wh, u, dout, ext, met,
+      rnorm, cnorm, flags, total;
 };
 
-__host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, int L, int A) {
+__host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, int L, int A,
+                                                       bool unf) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
-  const int st_kn = ring_stage((int)Hp, false), st_nk = ring_stage((int)Hp, true);
+  // unfolded: the widest column pass of layer 0's g_prev
+  const int nk = unf ? (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX) : 0;
+  const int st_kn = ring_stage((int)Hp, false);
+  const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
   PpoMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * (Kp0 + 8);
   m.act = o;    o += 2 * (size_t)L * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
+  m.stage = 0;
+  if (unf && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
   m.gs = o;     o += 2 * br * ldh;
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
   m.mu = o;     o += 4 * (size_t)L * br;
   m.inv = o;    o += 4 * (size_t)L * br;
+  m.fmu = o;    o += unf ? 4 * (size_t)br : 0;
+  m.finv = o;   o += unf ? 4 * (size_t)br : 0;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
-  m.colsum = o; o += 4 * (size_t)(br / 16) * Hp;
+  m.colsum = o; o += 4 * (unf ? 3 : 1) * (size_t)(br / 16) * Hp;
   m.wh = o;     o += 4 * (size_t)H * A;
-  m.u = o;      o += 4 * (size_t)L * H;
+  m.u = o;      o += unf ? 0 : 4 * (size_t)L * H;
   m.dout = o;   o += 4 * (size_t)br * A;
   m.ext = o;    o += 4 * (size_t)br * A;
   m.met = o;    o += 4 * 2 * (size_t)br;
+  m.rnorm = o;  o += unf ? 4 * (size_t)br : 0;
+  m.cnorm = o;  o += unf ? 4 * (size_t)L * Hp : 0;
+  m.flags = o;  o += unf ? RESUM_BYTES : 0;
   m.total = o;
   return m;
 }
 
-// The cotangent g (acc) of a layer's LN output back through the LN (no
-// affine) and the activation, in registers; columns >= H become 0. Writes
-// the column sums of the result over the warp's 16 rows to colsum[wm][*]
-// and its bf16 rounding to gs.
+// The cotangent g (acc) of a layer's LN output (no affine) back through the
+// LN and the activation, in registers; columns >= H become 0. Writes the
+// column sums of the result over the warp's 16 rows to colsum[wm][*] and
+// its bf16 rounding to gs. (The unfolded chain's is ln_affine_act_bwd.)
 template <int BR>
 __device__ __forceinline__ void ln_act_bwd(float (&acc)[MmaTile<BR>::NT][4], const bf16* act,
                                            int ldh, const float* mu, const float* inv, int H,
@@ -533,12 +625,16 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
   }
 };
 
-// Parameters: f32 vectors in pb (u_li at offs.v[3*li+2], the head's weights
-// (H x A) at offs.v[3L], then its other vectors; the V slots may be empty),
-// bf16 V_li (pad16(d_li) x pad16(H), zero padded) at wb + woffs.v[li]. aux
-// rows are aux_w floats wide. Slot: per layer [dV, du], then the head's
-// [dW (H x A), db (A), ext (A, when EXT), metrics (NMET)].
-template <int BR, class Loss>
+// Parameters. Folded: f32 vectors in pb (u_li at offs.v[3*li+2], the
+// head's weights (H x A) at offs.v[3L], then its other vectors; the V slots
+// may be empty), bf16 V_li (pad16(d_li) x pad16(H), zero padded) at wb +
+// woffs.v[li]. Unfolded: the flat trunk list in pb at offs.v[0 .. 2 + 4L)
+// (fn scale, fn bias, then W (not read), b, LN scale, LN bias per layer),
+// the head at offs.v[2 + 4L], bf16 W_li at wb + woffs.v[li]. aux rows are
+// aux_w floats wide. Slot: folded per layer [dV, du], unfolded the trunk
+// list's gradients at its offsets; then the head's [dW (H x A), db (A),
+// ext (A, when EXT), metrics (NMET)].
+template <int BR, bool UNF, class Loss>
 __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const void* x,
                                               int x_bf16, const float* aux, int aux_w,
                                               long long R, int d_in, int H, int L, int A,
@@ -546,15 +642,18 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
                                               const DccOffs& offs, const bf16* wb,
                                               const DccOffs& woffs, float* slots,
                                               long long slot_size, const Loss& loss) {
-  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A);
-  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8;
+  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8, ldf = Kp0 + 4;
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
   bf16* sx = (bf16*)(smem_raw + m.sx);
+  float* stage = (float*)(smem_raw + m.stage);
   bf16* gs = (bf16*)(smem_raw + m.gs);
   bf16* ring = (bf16*)(smem_raw + m.ring);
   float* mu_s = (float*)(smem_raw + m.mu);
   float* inv_s = (float*)(smem_raw + m.inv);
+  float* fnmu = (float*)(smem_raw + m.fmu);
+  float* fninv = (float*)(smem_raw + m.finv);
   float* red = (float*)(smem_raw + m.red);
   float* colsum = (float*)(smem_raw + m.colsum);
   float* whs = (float*)(smem_raw + m.wh);
@@ -562,6 +661,9 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   float* dout = (float*)(smem_raw + m.dout);
   float* ext = (float*)(smem_raw + m.ext);
   float* met = (float*)(smem_raw + m.met);
+  float* rnorm = (float*)(smem_raw + m.rnorm);
+  float* cnorm = (float*)(smem_raw + m.cnorm);
+  const ResumList flags = resum_list(smem_raw + m.flags);
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
   const long long tiles = (R + BR - 1) / BR;
@@ -569,24 +671,42 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
-  float* sv[DCC_MAX_LAYERS];
+  float* sv[DCC_MAX_LAYERS];  // folded: [dV, du] of each layer
   float* su[DCC_MAX_LAYERS];
   float* head;
-  slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
+  if constexpr (UNF)
+    head = slot + offs.v[2 + 4 * L];
+  else
+    slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
   float* s_w = head;
   float* s_b = s_w + H * A;
   float* s_e = s_b + A;
   float* s_met = s_e + (Loss::EXT ? A : 0);
-  const float* Wh = pb + offs.v[3 * L];
-  const bf16* feat = act + (long long)(L - 1) * BR * ldh;  // xhat = (feat - fmu) * finv
-  const float* fmu = mu_s + (L - 1) * BR;
-  const float* finv = inv_s + (L - 1) * BR;
+  const float* Wh = pb + offs.v[UNF ? 2 + 4 * L : 3 * L];
+  const bf16* feat = act + (long long)(L - 1) * BR * ldh;  // the last layer's activation
+  const float* lmu = mu_s + (L - 1) * BR;
+  const float* linv = inv_s + (L - 1) * BR;
+  const float* lscale = pb + offs.v[4 * L];  // unfolded: the last LN's affine
+  const float* lbias = pb + offs.v[4 * L + 1];
+  // the trunk output, the head's input: bf16(xhat), unfolded bf16(xhat * s + c)
+  auto feat_at = [&](int r, int h) {
+    const float a = bf(feat[r * ldh + h]);
+    if constexpr (UNF)
+      return bf16r(ln_affine(a, lmu[r], linv[r], lscale[h], lbias[h]));
+    else
+      return bf16r((a - lmu[r]) * linv[r]);
+  };
   const WarpTile wt = warp_tile<BR>(Hp / 8);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int WM = MmaTile<BR>::WM;
   for (int i = threadIdx.x; i < H * A; i += blockDim.x) whs[i] = bf16r(Wh[i]);
-  for (int i = threadIdx.x; i < L * H; i += blockDim.x)
-    us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
+  if constexpr (UNF) {
+    if (threadIdx.x == 0) *flags.n = 0;
+    if (relu) weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm);  // for relu_uncertain
+  } else {
+    for (int i = threadIdx.x; i < L * H; i += blockDim.x)
+      us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
+  }
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
@@ -599,15 +719,27 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       const char* p = threadIdx.x == 0 ? (const char*)x : (const char*)aux;
       prefetch_l2_span(p + r1 * esz, n * esz);
     }
-    // folded forward (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded)
-    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
+    // forward (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded, or unfolded
+    // dcc_tpu/ops/fused_mlp.py::_forward_chain)
+    if constexpr (UNF)
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
+                     lda0, fnmu, fninv);
+    else
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
     __syncthreads();
     float acc[MmaTile<BR>::NT][4];
     for (int li = 0; li < L; ++li) {
-      gemm_stream<false>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                         wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
+      const bf16* in = li == 0 ? a0 : sx;
+      const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
+      if (UNF && relu)  // the operand's row norms, for relu_uncertain
+        operand_row_norms<BR>(in, lda, K, rnorm);
+      gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      if (UNF && relu)
+        resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+                            cnorm + li * Hp, row0, R, wt, flags);
       float mu[2], inv[2];
-      dense_act_stats<BR>(acc, us + li * H, H, relu, red, wt, mu, inv);
+      dense_act_stats<BR>(acc, UNF ? pb + o[1] : us + li * H, H, relu, red, wt, mu, inv);
       if (wt.wn == 0 && (lane & 3) == 0) {
         for (int h = 0; h < 2; ++h) {
           mu_s[li * BR + wt.r0 + 8 * h] = mu[h];
@@ -622,18 +754,28 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
           for (int h = 0; h < 2; ++h) {
             const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
             store_bf16x2(a + r * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
-            if (li + 1 < L) {
-              const float y0 = c < H ? (acc[nt][2 * h] - mu[h]) * inv[h] : 0.f;
-              const float y1 = c + 1 < H ? (acc[nt][2 * h + 1] - mu[h]) * inv[h] : 0.f;
-              store_bf16x2(sx + r * ldh + c, y0, y1);
+            if (li + 1 < L) {  // the next layer's operand
+              float y[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                y[e] = 0.f;
+                if (c + e < H) {
+                  if constexpr (UNF)
+                    y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], pb[o[2] + c + e],
+                                     pb[o[3] + c + e]);
+                  else
+                    y[e] = (acc[nt][2 * h + e] - mu[h]) * inv[h];
+                }
+              }
+              store_bf16x2(sx + r * ldh + c, y[0], y[1]);
             }
           }
         }
       }
       __syncthreads();
     }
-    if (!first && threadIdx.x == 0)  // this tile adds into the block's [dV, du]
-      prefetch_l2_span((const char*)slot, (long long)(head - slot) * 4);  // slot: into L2
+    if (!first && threadIdx.x == 0)  // this tile adds into the block's slot: into L2
+      prefetch_l2_span((const char*)slot, (long long)(head - slot) * 4);
     // head + loss: warp w takes rows w, w + 8, ..., four at a time; their dot
     // products run together, then lane j finishes the group's row j
     for (int j0 = 0; j0 < BR / MMA_WARPS; j0 += 4) {
@@ -646,8 +788,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       for (int h = lane; h < H; h += 32) {
 #pragma unroll
         for (int j = 0; j < RG; ++j) {
-          const int r = warp + (j0 + j) * MMA_WARPS;
-          const float f = bf16r((bf(feat[r * ldh + h]) - fmu[r]) * finv[r]);
+          const float f = feat_at(warp + (j0 + j) * MMA_WARPS, h);
 #pragma unroll
           for (int d = 0; d < 4; ++d)
             if (d < A) s[j][d] = fmaf(f, whs[h * A + d], s[j][d]);
@@ -681,7 +822,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     for (int h = threadIdx.x; h < H; h += blockDim.x) {
       float s[4] = {0.f, 0.f, 0.f, 0.f};
       for (int r = 0; r < BR; ++r) {
-        const float f = bf16r((bf(feat[r * ldh + h]) - fmu[r]) * finv[r]);
+        const float f = feat_at(r, h);
 #pragma unroll
         for (int d = 0; d < 4; ++d)
           if (d < A) s[d] = fmaf(f, bf16r(dout[r * A + d]), s[d]);
@@ -725,65 +866,140 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         acc[nt][i] = g;
       }
     }
-    // folded backward (dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded)
+    // backward (dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded, or unfolded
+    // ::_trunk_bwd)
     for (int li = L - 1; li >= 0; --li) {
-      ln_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR, inv_s + li * BR,
-                     H, Hp, relu, red, wt, colsum, gs);
+      const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
+      if constexpr (UNF)
+        ln_affine_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR,
+                              inv_s + li * BR, pb + o[2], H, Hp, relu, red, wt, colsum, gs);
+      else
+        ln_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR,
+                       inv_s + li * BR, H, Hp, relu, red, wt, colsum, gs);
       if (li >= 1 && li + 1 < L) {
-        // this layer's operand, bf16(xhat_{li-1}), as the forward wrote it
+        // this layer's operand, the previous layer's LN output, as the
+        // forward wrote it (the last layer's is still in sx)
         const bf16* ap = act + (long long)(li - 1) * BR * ldh;
         const float* pm = mu_s + (li - 1) * BR;
         const float* pi = inv_s + (li - 1) * BR;
         for (int i = threadIdx.x; i < BR * Hp; i += blockDim.x) {
           const int r = i / Hp, c = i - r * Hp;
-          const float y = c < H ? (bf(ap[r * ldh + c]) - pm[r]) * pi[r] : 0.f;
+          float y = 0.f;
+          if (c < H) {
+            if constexpr (UNF)  // the previous layer's LN scale and bias: o[-2], o[-1]
+              y = ln_affine(bf(ap[r * ldh + c]), pm[r], pi[r], pb[o[-2] + c], pb[o[-1] + c]);
+            else
+              y = (bf(ap[r * ldh + c]) - pm[r]) * pi[r];
+          }
           sx[r * ldh + c] = __float2bfloat16_rn(y);
         }
       }
       __syncthreads();
-      // du = column sums of the un-rounded cotangent
+      // bias gradients (unfolded: also the LN scale and bias gradients):
+      // column sums of the un-rounded cotangents in warp order
       for (int j = threadIdx.x; j < H; j += blockDim.x) {
-        float s = 0.f;
-        for (int w = 0; w < WM; ++w) s += colsum[w * Hp + j];
-        su[li][j] = first ? s : su[li][j] + s;
+        if constexpr (UNF) {
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            float s = 0.f;
+            for (int w = 0; w < WM; ++w) s += colsum[(k * WM + w) * Hp + j];
+            float* dst = slot + o[k == 2 ? 1 : 2 + k] + j;
+            *dst = first ? s : *dst + s;
+          }
+        } else {
+          float s = 0.f;
+          for (int w = 0; w < WM; ++w) s += colsum[w * Hp + j];
+          su[li][j] = first ? s : su[li][j] + s;
+        }
       }
       grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                    li == 0 ? d_in : H, gs, ldh, Hp, H, sv[li], first);
-      if (li > 0)  // g_prev = bf16(g) @ V^T
+                    li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? slot + o[0] : sv[li], first);
+      if (li > 0)  // g_prev = bf16(g) @ W^T
         gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
     }
-    __syncthreads();
+    if (UNF && use_fn) {
+      // the feature norm's scale and bias gradients from layer 0's g_prev
+      gprev_layer0<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
+      __syncthreads();
+      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fnmu, fninv, slot + offs.v[0],
+                          slot + offs.v[1], first);
+    }
+    __syncthreads();  // the next tile's forward writes over a0 (and the stage)
   }
 }
 
-// K3 in bf16. Head: Wh (H x A) at offs.v[3L], bh at v[3L+1], log_std at
-// v[3L+2].
-template <int BR>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-    actor_grads_mma_kernel(const void* x, int x_bf16, const float* aux, long long R, int d_in,
-                           int H, int L, int A, int use_fn, int relu, float clip,
-                           const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
-                           float* slots, long long slot_size) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const ActorLoss loss{aux, pb + offs.v[3 * L + 1], pb + offs.v[3 * L + 2], clip, A};
-  ppo_grads_mma<BR>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A, use_fn, relu, pb, offs,
-                    wb, woffs, slots, slot_size, loss);
+// K3 / K3u in bf16. Head: Wh (H x A), bh, log_std at offs.v[h], v[h + 1],
+// v[h + 2]: h = 3L folded, 2 + 4L unfolded.
+template <int BR, bool UNF>
+__device__ __forceinline__ void actor_mma(unsigned char* smem_raw, const void* x, int x_bf16,
+                                          const float* aux, long long R, int d_in, int H,
+                                          int L, int A, int use_fn, int relu, float clip,
+                                          const float* pb, const DccOffs& offs,
+                                          const bf16* wb, const DccOffs& woffs, float* slots,
+                                          long long slot_size) {
+  const int h = UNF ? 2 + 4 * L : 3 * L;
+  const ActorLoss loss{aux, pb + offs.v[h + 1], pb + offs.v[h + 2], clip, A};
+  ppo_grads_mma<BR, UNF>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A, use_fn, relu, pb,
+                         offs, wb, woffs, slots, slot_size, loss);
 }
 
-// K4 in bf16. Head: wv (H) at offs.v[3L], bv at v[3L+1]; norm = [shift,
+// K4 / K4u in bf16. Head: wv (H), bv at offs.v[h], v[h + 1]; norm = [shift,
 // scale] of the value normalizer, applied to the raw returns in the kernel.
+template <int BR, bool UNF>
+__device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* x, int x_bf16,
+                                           const float* aux, const float* norm, long long R,
+                                           int d_in, int H, int L, int use_fn, int relu,
+                                           float clip, float delta, int use_huber,
+                                           int use_clipped, const float* pb,
+                                           const DccOffs& offs, const bf16* wb,
+                                           const DccOffs& woffs, float* slots,
+                                           long long slot_size) {
+  const int h = UNF ? 2 + 4 * L : 3 * L;
+  const CriticLoss loss{aux, pb[offs.v[h + 1]], norm[0], norm[1], clip, delta,
+                        use_huber, use_clipped, 1};
+  ppo_grads_mma<BR, UNF>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn, relu, pb,
+                         offs, wb, woffs, slots, slot_size, loss);
+}
+
+#define DCC_ACTOR_MMA_PARAMS                                                                \
+  const void *x, int x_bf16, const float *aux, long long R, int d_in, int H, int L, int A,  \
+      int use_fn, int relu, float clip, const float *pb, DccOffs offs, const bf16 *wb,      \
+      DccOffs woffs, float *slots, long long slot_size
+#define DCC_CRITIC_MMA_PARAMS                                                               \
+  const void *x, int x_bf16, const float *aux, const float *norm, long long R, int d_in,    \
+      int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,           \
+      int use_clipped, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs,        \
+      float *slots, long long slot_size
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1) actor_grads_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  actor_mma<BR, false>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                       offs, wb, woffs, slots, slot_size);
+}
+
 template <int BR>
 __global__ void __launch_bounds__(MMA_THREADS, 1)
-    critic_grads_mma_kernel(const void* x, int x_bf16, const float* aux, const float* norm,
-                            long long R, int d_in, int H, int L, int use_fn, int relu,
-                            float clip, float delta, int use_huber, int use_clipped,
-                            const float* pb, DccOffs offs, const bf16* wb, DccOffs woffs,
-                            float* slots, long long slot_size) {
+    actor_grads_unfolded_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const CriticLoss loss{aux, pb[offs.v[3 * L + 1]], norm[0], norm[1], clip, delta,
-                        use_huber, use_clipped, 1};
-  ppo_grads_mma<BR>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn, relu, pb, offs,
-                    wb, woffs, slots, slot_size, loss);
+  actor_mma<BR, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                      offs, wb, woffs, slots, slot_size);
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    critic_grads_mma_kernel(DCC_CRITIC_MMA_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  critic_mma<BR, false>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
+                        delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size);
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    critic_grads_unfolded_mma_kernel(DCC_CRITIC_MMA_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  critic_mma<BR, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
+                       delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size);
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -792,41 +1008,44 @@ static DccOffs to_offs(const long long* offs, int n_offs) {
   return o;
 }
 
-template <int BR>
+// Each launcher sets its kernel's shared-memory limit once, launches, and
+// returns cudaGetLastError().
+template <int BR, bool UNF>
 static int launch_actor(const void* x, int x_bf16, const float* aux, long long R,
                         int d_in, int H, int L, int A, int use_fn, int relu,
                         float clip, const float* pb, DccOffs o, float* slots,
                         long long slot_size, int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = actor_grads_kernel<BR>;
+  auto k = actor_grads_kernel<BR, UNF>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = sizeof(float) * ppo_smem_floats(BR, d_in, H, L, A);
+  const size_t smem = sizeof(float) * (UNF ? ppo_unfolded_smem_floats(BR, d_in, H, L, A)
+                                           : ppo_smem_floats(BR, d_in, H, L, A));
   k<<<n_blocks, DCC_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
                                         relu, clip, pb, o, slots, slot_size);
   return (int)cudaGetLastError();
 }
 
-template <int BR>
+template <int BR, bool UNF>
 static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long long R,
                             int d_in, int H, int L, int A, int use_fn, int relu, float clip,
                             const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
                             float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = actor_grads_mma_kernel<BR>;
+  auto k = UNF ? actor_grads_unfolded_mma_kernel<BR> : actor_grads_mma_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A).total;
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
                                         pb, o, wb, wo, slots, slot_size);
   return (int)cudaGetLastError();
 }
 
-template <int BR>
+template <int BR, bool UNF>
 static int launch_critic(const void* x, int x_bf16, const float* aux,
                          const float* norm, long long R, int d_in, int H, int L,
                          int use_fn, int relu, float clip, float delta,
@@ -834,31 +1053,32 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
                          DccOffs o, float* slots, long long slot_size,
                          int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = critic_grads_kernel<BR>;
+  auto k = critic_grads_kernel<BR, UNF>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = sizeof(float) * ppo_smem_floats(BR, d_in, H, L, 1);
+  const size_t smem = sizeof(float) * (UNF ? ppo_unfolded_smem_floats(BR, d_in, H, L, 1)
+                                           : ppo_smem_floats(BR, d_in, H, L, 1));
   k<<<n_blocks, DCC_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                         relu, clip, delta, use_huber, use_clipped,
                                         pb, o, slots, slot_size);
   return (int)cudaGetLastError();
 }
 
-template <int BR>
+template <int BR, bool UNF>
 static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const float* norm,
                              long long R, int d_in, int H, int L, int use_fn, int relu,
                              float clip, float delta, int use_huber, int use_clipped,
                              const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
                              float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = critic_grads_mma_kernel<BR>;
+  auto k = UNF ? critic_grads_unfolded_mma_kernel<BR> : critic_grads_mma_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1).total;
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, UNF).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
                                         clip, delta, use_huber, use_clipped, pb, o, wb, wo,
                                         slots, slot_size);
@@ -871,7 +1091,29 @@ extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
 }
 
 extern "C" unsigned long long dcc_ppo_mma_smem_bytes(int br, int d_in, int H, int L, int A) {
-  return ppo_mma_layout(br, d_in, H, L, A).total;
+  return ppo_mma_layout(br, d_in, H, L, A, false).total;
+}
+
+extern "C" unsigned long long dcc_ppo_unfolded_smem_bytes(int br, int d_in, int H, int L,
+                                                          int A) {
+  return sizeof(float) * ppo_unfolded_smem_floats(br, d_in, H, L, A);
+}
+
+extern "C" unsigned long long dcc_ppo_unfolded_mma_smem_bytes(int br, int d_in, int H, int L,
+                                                              int A) {
+  return ppo_mma_layout(br, d_in, H, L, A, true).total;
+}
+
+// The checks of the unfolded entries: the flat trunk list's offsets (fn
+// scale, fn bias, then W, b, LN scale, LN bias per layer) come first, then
+// (f32) each W^T, then the head's n_head vectors; the tensor-core entries
+// also need every W's slot offset even (the slabs store float2).
+static bool unfolded_ok(const long long* offs, int n_offs, int L, bool mma, int n_head) {
+  if (L < 1 || n_offs != 2 + (mma ? 4 : 5) * L + n_head) return false;
+  if (mma)
+    for (int li = 0; li < L; ++li)
+      if (offs[2 + 4 * li] % 2 != 0) return false;
+  return true;
 }
 
 // Actor in f32 (FMA): slots is n_blocks x slot_size scratch, out receives
@@ -888,14 +1130,46 @@ extern "C" int dcc_actor_grads(const void* x, int x_bf16, const float* aux,
   const DccOffs o = to_offs(offs, n_offs);
   int err;
   switch (br) {
-    case 32: err = launch_actor<32>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                                    o, slots, slot_size, n_blocks, s); break;
-    case 8: err = launch_actor<8>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                                  o, slots, slot_size, n_blocks, s); break;
-    case 1: err = launch_actor<1>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                                  o, slots, slot_size, n_blocks, s); break;
+    case 32: err = launch_actor<32, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
+                                           clip, pb, o, slots, slot_size, n_blocks, s); break;
+    case 8: err = launch_actor<8, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                         pb, o, slots, slot_size, n_blocks, s); break;
+    case 1: err = launch_actor<1, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                         pb, o, slots, slot_size, n_blocks, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K3u, the unfolded actor in f32 (FMA): br in {32, 16, 8, 1}; offs as
+// unfolded_ok with n_head 3 (Wh, bh, log_std).
+extern "C" int dcc_actor_grads_unfolded(const void* x, int x_bf16, const float* aux,
+                                        long long R, int d_in, int H, int L, int A, int use_fn,
+                                        int relu, float clip, int br, const float* pb,
+                                        const long long* offs, int n_offs, float* slots,
+                                        long long slot_size, int n_blocks, float* out,
+                                        void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || A > 4 || n_blocks < 1 ||
+      !unfolded_ok(offs, n_offs, L, false, 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs);
+  int err;
+#define DCC_CASE(B)                                                                           \
+  case B:                                                                                     \
+    err = launch_actor<B, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, o, \
+                                slots, slot_size, n_blocks, s);                               \
+    break;
+  switch (br) {
+    DCC_CASE(32)
+    DCC_CASE(16)
+    DCC_CASE(8)
+    DCC_CASE(1)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }
@@ -916,10 +1190,41 @@ extern "C" int dcc_actor_grads_mma(const void* x, int x_bf16, const float* aux, 
   const bf16* w = (const bf16*)wb;
   int err;
   switch (br) {
-    case 64: err = launch_actor_mma<64>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, w, wo, slots, slot_size, n_blocks, s); break;
-    case 32: err = launch_actor_mma<32>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, w, wo, slots, slot_size, n_blocks, s); break;
+    case 64: err = launch_actor_mma<64, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
+                                               clip, pb, o, w, wo, slots, slot_size, n_blocks,
+                                               s); break;
+    case 32: err = launch_actor_mma<32, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
+                                               clip, pb, o, w, wo, slots, slot_size, n_blocks,
+                                               s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K3u in bf16 on the tensor cores: br in {64, 32}; as dcc_actor_grads_mma,
+// offs as unfolded_ok with n_head 3, n_woffs == L.
+extern "C" int dcc_actor_grads_unfolded_mma(const void* x, int x_bf16, const float* aux,
+                                            long long R, int d_in, int H, int L, int A,
+                                            int use_fn, int relu, float clip, int br,
+                                            const float* pb, const long long* offs, int n_offs,
+                                            const void* wb, const long long* woffs,
+                                            int n_woffs, float* slots, long long slot_size,
+                                            int n_blocks, float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || A > 4 || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 64: err = launch_actor_mma<64, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
+                                              clip, pb, o, w, wo, slots, slot_size, n_blocks,
+                                              s); break;
+    case 32: err = launch_actor_mma<32, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
+                                              clip, pb, o, w, wo, slots, slot_size, n_blocks,
+                                              s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -939,13 +1244,48 @@ extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs);
   int err;
-#define DCC_CASE(B)                                                                      \
-  case B:                                                                                \
-    err = launch_critic<B>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, \
-                           use_huber, use_clipped, pb, o, slots, slot_size, n_blocks, s); \
+#define DCC_CASE(B)                                                                        \
+  case B:                                                                                  \
+    err = launch_critic<B, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, \
+                                  delta, use_huber, use_clipped, pb, o, slots, slot_size,  \
+                                  n_blocks, s);                                            \
     break;
   switch (br) {
     DCC_CASE(32)
+    DCC_CASE(8)
+    DCC_CASE(1)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K4u, the unfolded critic in f32 (FMA): br in {32, 16, 8, 1}; offs as
+// unfolded_ok with n_head 2 (wv, bv).
+extern "C" int dcc_critic_grads_unfolded(const void* x, int x_bf16, const float* aux,
+                                         const float* norm, long long R, int d_in, int H,
+                                         int L, int use_fn, int relu, float clip, float delta,
+                                         int use_huber, int use_clipped, int br,
+                                         const float* pb, const long long* offs, int n_offs,
+                                         float* slots, long long slot_size, int n_blocks,
+                                         float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_blocks < 1 ||
+      !unfolded_ok(offs, n_offs, L, false, 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs);
+  int err;
+#define DCC_CASE(B)                                                                       \
+  case B:                                                                                 \
+    err = launch_critic<B, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, \
+                                 delta, use_huber, use_clipped, pb, o, slots, slot_size,  \
+                                 n_blocks, s);                                            \
+    break;
+  switch (br) {
+    DCC_CASE(32)
+    DCC_CASE(16)
     DCC_CASE(8)
     DCC_CASE(1)
     default:
@@ -974,12 +1314,42 @@ extern "C" int dcc_critic_grads_mma(const void* x, int x_bf16, const float* aux,
   const bf16* w = (const bf16*)wb;
   int err;
   switch (br) {
-    case 32: err = launch_critic_mma<32>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
-                                         clip, delta, use_huber, use_clipped, pb, o, w, wo,
-                                         slots, slot_size, n_blocks, s); break;
-    case 16: err = launch_critic_mma<16>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
-                                         clip, delta, use_huber, use_clipped, pb, o, w, wo,
-                                         slots, slot_size, n_blocks, s); break;
+    case 32: err = launch_critic_mma<32, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                                relu, clip, delta, use_huber, use_clipped, pb, o,
+                                                w, wo, slots, slot_size, n_blocks, s); break;
+    case 16: err = launch_critic_mma<16, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                                relu, clip, delta, use_huber, use_clipped, pb, o,
+                                                w, wo, slots, slot_size, n_blocks, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K4u in bf16 on the tensor cores: br in {32, 16}; as dcc_critic_grads_mma,
+// offs as unfolded_ok with n_head 2, n_woffs == L.
+extern "C" int dcc_critic_grads_unfolded_mma(const void* x, int x_bf16, const float* aux,
+                                             const float* norm, long long R, int d_in, int H,
+                                             int L, int use_fn, int relu, float clip,
+                                             float delta, int use_huber, int use_clipped,
+                                             int br, const float* pb, const long long* offs,
+                                             int n_offs, const void* wb, const long long* woffs,
+                                             int n_woffs, float* slots, long long slot_size,
+                                             int n_blocks, float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 2))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 32: err = launch_critic_mma<32, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                               relu, clip, delta, use_huber, use_clipped, pb, o,
+                                               w, wo, slots, slot_size, n_blocks, s); break;
+    case 16: err = launch_critic_mma<16, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                               relu, clip, delta, use_huber, use_clipped, pb, o,
+                                               w, wo, slots, slot_size, n_blocks, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;

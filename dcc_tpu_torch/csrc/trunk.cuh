@@ -4,8 +4,8 @@
 // and for the unfolded one (the affines applied as written).
 //
 // Used by fused_mlp.cu (K2, the trunk forward), fused_mlp_bwd.cu (K2b, the
-// trunk backward) and fused_ppo.cu (K3/K4, the actor and critic PPO loss +
-// gradient kernels).
+// trunk backward) and fused_ppo.cu (K3/K4 folded and K3u/K4u unfolded, the
+// actor and critic PPO loss + gradient kernels).
 //
 // Numerics follow dcc_tpu/ops/fused_mlp.py and dcc_tpu/ops/fused_ppo.py in
 // f32: LN statistics with the fast variance max(E[x^2] - E[x]^2, 0), eps

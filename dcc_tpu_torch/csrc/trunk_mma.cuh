@@ -1,5 +1,6 @@
 // Tensor-core core of the bf16 trunk kernels (K2 forward in fused_mlp.cu, K2b
-// backward in fused_mlp_bwd.cu, K3 / K4 loss + gradients in fused_ppo.cu):
+// backward in fused_mlp_bwd.cu, K3 / K4 and K3u / K4u loss + gradients in
+// fused_ppo.cu):
 // warp-level mma.sync.m16n8k16 bf16 products with f32 accumulation on
 // shared-memory tiles, operands loaded with ldmatrix, weights streamed from
 // L2 through a three-stage cp.async ring.
@@ -356,7 +357,8 @@ __device__ void load_input(const void* x, int x_bf16, long long row0, long long 
         y = xv(base[j] + k);
         if (use_fn) {
           y = (y - mu[j]) * inv[j];
-          if (scale != nullptr) y = y * scale[k] + bias[k];
+          // each step rounded on its own, as the plain version's
+          if (scale != nullptr) y = __fadd_rn(__fmul_rn(y, scale[k]), bias[k]);
         }
       }
       a0[(warp + j * MMA_WARPS) * lda + k] = __float2bfloat16_rn(y);
@@ -438,5 +440,299 @@ __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g,
             *reinterpret_cast<float2*>(slot + (long long)k * H + j) =
                 make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
         }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The unfolded chain on the tensor cores (dcc_tpu/ops/fused_mlp.py::
+// _forward_chain, its backward _bwd_kernel / fused_ppo.py::_trunk_bwd): the
+// LN affines are applied as written, so the backward also yields every LN
+// scale and bias gradient. Shared by K2b (fused_mlp_bwd.cu) and the unfolded
+// K3 / K4 (fused_ppo.cu).
+// ---------------------------------------------------------------------------
+
+#define FLAG_CAP 128  // listed re-sums of one layer of one tile (more: by their owners)
+#define RESUM_BYTES (16 + 8 * FLAG_CAP)
+
+// The LN output y = xhat * s + c of an activation a, xhat = (a - mu) * inv,
+// in f32 before its bf16 rounding. Every step rounds on its own (no fused
+// multiply-add), so the forward's store and the backward's recompute give
+// the same bits, as PyTorch's separate elementwise operations do.
+__device__ __forceinline__ float ln_affine(float a, float mu, float inv, float s, float c) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a, mu), inv), s), c);
+}
+
+// Whether the relu mask of the pre-activation z = bf16(bf16(acc) + bf16(b))
+// may differ between two f32 summation orders of acc = sum_k a_k w_k: z is
+// within one bf16 step of the accumulator from the kink (the step can move
+// bf16(acc) and z across it), or acc itself is within the bound on any
+// order's rounding error, K 2^-24 sum |a_k w_k| <= 2^-14 |a| |w| for K <=
+// 448, so that the order sets its sign (a sum that cancels: at init every
+// bias is 0 and z = bf16(acc)).
+__device__ __forceinline__ bool relu_uncertain(float acc, float b, float anorm, float wnorm) {
+  int e;
+  frexpf(acc, &e);
+  const float z = bf16r(bf16r(acc) + bf16r(b));
+  return fabsf(z) <= ldexpf(1.f, e - 8) || fabsf(acc) <= 0x1p-14f * anorm * wnorm;
+}
+
+// sum_k a[k] w[k * ldw] for k < K in sequential order, one rounding per term
+// (the bf16 products are exact in f32); with sq, sum_k w[k * ldw]^2. The
+// loads of 16 terms are issued before their sums, so they are in flight
+// together.
+__device__ __noinline__ float dot_sequential(const bf16* a, const bf16* w, int ldw, int K,
+                                             bool sq = false) {
+  float s = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    float av[16], wv[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const bool in = k0 + j < K;
+      wv[j] = in ? bf(w[(long long)(k0 + j) * ldw]) : 0.f;
+      av[j] = in ? (sq ? wv[j] : bf(a[k0 + j])) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) s = fmaf(av[j], wv[j], s);
+  }
+  return s;
+}
+
+// Element i of an input row buffer x (f32, or bf16 when x_bf16), through the
+// read-only path.
+__device__ __forceinline__ float load_x(const void* x, int x_bf16, long long i) {
+  return x_bf16 ? __uint_as_float((unsigned)__ldg((const unsigned short*)x + i) << 16)
+                : __ldg((const float*)x + i);
+}
+
+// The list of one layer's re-sums in shared memory (RESUM_BYTES at p): a
+// count, FLAG_CAP keys (row << 16 | column) and their values.
+struct ResumList {
+  int* n;
+  int* key;
+  float* val;
+};
+
+__device__ __forceinline__ ResumList resum_list(unsigned char* p) {
+  ResumList l;
+  l.n = (int*)p;
+  l.key = l.n + 4;
+  l.val = (float*)(l.key + FLAG_CAP);
+  return l;
+}
+
+// cnorm[li * Hp + c] = |column c of W_li| for every layer (bf16 W_li at wb +
+// woffs.v[li], Kp0 rows for layer 0, Hp for the others), once per block.
+__device__ __forceinline__ void weight_col_norms(const bf16* wb, const DccOffs& woffs, int L,
+                                                 int Kp0, int Hp, float* cnorm) {
+  for (int i = threadIdx.x; i < L * Hp; i += blockDim.x) {
+    const int li = i / Hp, c = i - li * Hp;
+    cnorm[i] = sqrtf(dot_sequential(nullptr, wb + woffs.v[li] + c, Hp, li == 0 ? Kp0 : Hp,
+                                    true));
+  }
+}
+
+// rnorm[r] = |row r of the operand| over its K columns, one warp per row;
+// visible after the caller's next barrier (gemm_stream's first).
+template <int BR>
+__device__ __forceinline__ void operand_row_norms(const bf16* in, int lda, int K,
+                                                  float* rnorm) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < BR; r += MMA_WARPS) {
+    float s = 0.f;
+    for (int k = lane; k < K; k += 32) s = fmaf(bf(in[r * lda + k]), bf(in[r * lda + k]), s);
+    s = warp_sum(s);
+    if (lane == 0) rnorm[r] = sqrtf(s);
+  }
+}
+
+// The relu mask must agree with the plain version's, since it decides
+// whether a whole element of the gradient flows: every pre-activation of
+// acc = in @ W (bias b, column norms cnorm of this W, row norms rnorm of
+// in) whose sign a summation order can change (relu_uncertain) is re-summed
+// on the CUDA cores in sequential k order, the order of the CPU's and the
+// FMA kernels' small products. Such pre-activations are rare (~0.1 %); each
+// layer of a tile lists them in `l` and the block's threads re-sum them in
+// parallel (past FLAG_CAP, by their owners). Every thread calls it.
+template <int BR>
+__device__ __forceinline__ void resum_uncertain(float (&acc)[MmaTile<BR>::NT][4], const bf16* in,
+                                                int lda, int K, const bf16* w, int Hp,
+                                                const float* b, int H, const float* rnorm,
+                                                const float* cnorm, long long row0, long long R,
+                                                const WarpTile& wt, const ResumList& l) {
+  unsigned long long listed = 0, own = 0;  // bit 4 nt + i of acc
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
+      if (nt < wt.ntw && col < H && row0 + r < R &&
+          relu_uncertain(acc[nt][i], b[col], rnorm[r], cnorm[col])) {
+        const int j = atomicAdd(l.n, 1);
+        if (j < FLAG_CAP) {
+          l.key[j] = r << 16 | col;
+          listed |= 1ull << (4 * nt + i);
+        } else {
+          own |= 1ull << (4 * nt + i);
+        }
+      }
+    }
+  }
+  if (__syncthreads_or((listed | own) != 0)) {
+    const int n = min(*l.n, FLAG_CAP);
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      l.val[j] = dot_sequential(in + (l.key[j] >> 16) * lda, w + (l.key[j] & 0xffff), Hp, K);
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
+        if ((listed >> (4 * nt + i)) & 1) {
+          for (int j = 0; j < n; ++j)
+            if (l.key[j] == (r << 16 | col)) acc[nt][i] = l.val[j];
+        }
+      }
+    }
+#pragma unroll 1
+    for (; own != 0; own &= own - 1) {  // past the list: the owner re-sums
+      const int bit = __ffsll((long long)own) - 1, r = wt.r0 + 8 * ((bit & 3) >> 1);
+      const int col = wt.c0 + (bit >> 2) * 8 + (bit & 1);
+      const float v = dot_sequential(in + r * lda, w + col, Hp, K);
+#pragma unroll
+      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (4 * nt + i == bit) acc[nt][i] = v;
+    }
+    __syncthreads();  // the list is read: empty it for the next layer
+    if (threadIdx.x == 0) *l.n = 0;
+  }
+}
+
+// The cotangent g (acc) of a layer's LN output y = xhat * scale + bias back
+// through the LN (dcc_tpu/ops/fused_mlp.py::_ln_bwd) and the activation, in
+// registers; columns >= H become 0. Writes the column sums over the warp's
+// 16 rows of g * xhat (the LN scale's gradient), of g (the LN bias's) and of
+// the result (the Dense bias's) to colsum[k][wm][*], k = 0, 1, 2, and the
+// result's bf16 rounding to gs.
+template <int BR>
+__device__ __forceinline__ void ln_affine_act_bwd(float (&acc)[MmaTile<BR>::NT][4],
+                                                  const bf16* act, int ldh, const float* mu,
+                                                  const float* inv, const float* scale, int H,
+                                                  int Hp, bool relu, float* red,
+                                                  const WarpTile& wt, float* colsum, bf16* gs) {
+  constexpr int WM = MmaTile<BR>::WM;
+  const int lane = threadIdx.x & 31;
+  const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
+  const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
+  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        if (col < H) {
+          const float xh = (bf(act[(wt.r0 + 8 * h) * ldh + col]) - m[h]) * iv[h];
+          const float gg = acc[nt][i] * __ldg(scale + col);
+          s1[h] += gg;
+          s2[h] += gg * xh;
+        }
+      }
+    }
+  }
+  row_sums<BR>(s1, s2, red, wt);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s1[h] /= H;
+    s2[h] /= H;
+  }
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+      float cs[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        float v = 0.f;
+        if (col < H) {
+          const float a = bf(act[(wt.r0 + 8 * h) * ldh + col]);
+          const float xh = (a - m[h]) * iv[h];
+          const float g = acc[nt][i];
+          cs[0][i & 1] += g * xh;
+          cs[1][i & 1] += g;
+          v = iv[h] * (g * __ldg(scale + col) - s1[h] - xh * s2[h]);
+          v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
+        }
+        acc[nt][i] = v;
+        cs[2][i & 1] += v;
+      }
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) cs[k][e] += __shfl_xor_sync(0xffffffffu, cs[k][e], o);
+      const int c = wt.c0 + nt * 8;
+      if (lane < 4) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          colsum[(k * WM + wt.wm) * Hp + c] = cs[k][0];
+          colsum[(k * WM + wt.wm) * Hp + c + 1] = cs[k][1];
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_bf16x2(gs + (wt.r0 + 8 * h) * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
+    }
+  }
+}
+
+// Layer 0's g_prev = bf16(g) @ W_0^T over its Kp0 columns, in passes of at
+// most MMA_HMAX, into stage (BR x ldf f32). gs: bf16(g), BR x Hp (stride
+// ldh); w0: the bf16 W_0 (Kp0 x Hp). The stage may lie over tiles that the
+// block has finished reading (every thread passes gemm_stream's first
+// barrier before any stage store). Every thread calls it.
+template <int BR>
+__device__ __forceinline__ void gprev_layer0(const bf16* gs, int ldh, int Hp, const bf16* w0,
+                                             int Kp0, bf16* ring, float* stage, int ldf) {
+  float acc[MmaTile<BR>::NT][4];
+  for (int c0 = 0; c0 < Kp0; c0 += MMA_HMAX) {
+    const int nc = min(MMA_HMAX, Kp0 - c0);
+    const WarpTile pt = warp_tile<BR>(nc / 8);
+    gemm_stream<true>(gs, ldh, Hp, w0 + (long long)c0 * Hp, Hp, nc, ring, pt, acc);
+#pragma unroll
+    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+      if (nt < pt.ntw) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + pt.c0 + nt * 8;
+          *reinterpret_cast<float2*>(stage + (pt.r0 + 8 * h) * ldf + c) =
+              make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// The feature norm's scale and bias gradients of one tile: column sums over
+// its rows of g * xhat and g, g the staged layer-0 g_prev (gprev_layer0) and
+// xhat = (x - fmu) * finv recomputed from the input rows; rows >= R are
+// skipped. Stored into ds / db by the block's first tile, else added.
+template <int BR>
+__device__ __forceinline__ void fn_affine_grads(const float* stage, int ldf, const void* x,
+                                                int x_bf16, long long row0, long long R,
+                                                int d_in, const float* fmu, const float* finv,
+                                                float* ds, float* db, bool first) {
+  for (int k = threadIdx.x; k < d_in; k += blockDim.x) {
+    float sgx = 0.f, sg = 0.f;
+    for (int r = 0; r < BR && row0 + r < R; ++r) {
+      const float g = stage[r * ldf + k];
+      sgx += g * ((load_x(x, x_bf16, (row0 + r) * d_in + k) - fmu[r]) * finv[r]);
+      sg += g;
+    }
+    ds[k] = first ? sgx : ds[k] + sgx;
+    db[k] = first ? sg : db[k] + sg;
   }
 }

@@ -13,8 +13,9 @@ stream and allocate nothing; the Python wrappers allocate with
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
 where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
-point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4 and
-K2b the tensor-core ``*_mma`` entry or the FMA one).
+point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4,
+K2b and the unfolded K3u / K4u the tensor-core ``*_mma`` entry or the FMA
+one).
 """
 
 from __future__ import annotations
@@ -85,8 +86,18 @@ _SIGNATURES = {
         ],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_unfolded_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I],
     },
 }
+
+
+# the unfolded K3u / K4u entry points take the folded ones' arguments
+_SIGNATURES["fused_ppo"].update({
+    name.replace("_grads", "_grads_unfolded"): _SIGNATURES["fused_ppo"][name]
+    for name in ("dcc_actor_grads", "dcc_actor_grads_mma", "dcc_critic_grads",
+                 "dcc_critic_grads_mma")
+})
 
 
 def reset_launches() -> None:

@@ -28,8 +28,10 @@ In bf16 K2 and K2b run on the tensor cores (``csrc/trunk_mma.cuh``) and
 read a bf16 copy of each weight, zero-padded to multiples of 16
 (:func:`pack_mma_weights`); :func:`pack_trunk` makes it beside the f32
 buffer of the vectors, once per parameter version (``MLPBase.packed_params``),
-and :class:`FusedTrunk` hands the forward's pack to the backward. In f32
-both stay on full-f32 FMA.
+and :class:`FusedTrunk` hands the forward's pack to the backward. K2b
+re-sums in sequential order every relu pre-activation whose side the tensor
+cores' summation order could change, so that its relu masks agree with the
+plain version's. In f32 both stay on full-f32 FMA.
 """
 
 from __future__ import annotations
@@ -119,6 +121,29 @@ def _ln_bwd(g, xhat, inv, scale):
     return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
 
 
+def trunk_bwd_chain(g, params, fn_cache, layers, n_layers: int, use_fn: bool,
+                    use_relu: bool, bf16: bool):
+    """The backward of the chain that :func:`_forward_chain` cached: the
+    cotangent ``g`` (rows, H) of the trunk output back to (f32 cotangent of
+    the trunk's input, [f32 gradient of each parameter])."""
+    mm = (lambda p, q: bf16_round(p) @ bf16_round(q)) if bf16 else torch.matmul
+    g = g.to(torch.float32)
+    grads = [None] * len(params)
+    i = len(params)
+    for li in reversed(range(n_layers)):
+        a, r, xhat, inv = layers[li]
+        i -= 4
+        g, grads[i + 2], grads[i + 3] = _ln_bwd(g, xhat, inv, params[i + 2])
+        g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
+        grads[i] = mm(a.t(), g)
+        grads[i + 1] = g.sum(dim=0)
+        g = mm(g, params[i].t())
+    if use_fn:
+        xhat, inv = fn_cache
+        g, grads[0], grads[1] = _ln_bwd(g, xhat, inv, params[0])
+    return g, grads
+
+
 def trunk_backward_plain(
     x: torch.Tensor,
     params: Sequence[torch.Tensor],
@@ -132,21 +157,8 @@ def trunk_backward_plain(
     back to (dx in x.dtype, [f32 gradient of each parameter])."""
     with torch.no_grad():
         _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
-        mm = (lambda p, q: bf16_round(p) @ bf16_round(q)) if bf16 else torch.matmul
-        g = g.to(torch.float32)
-        grads = [None] * len(params)
-        i = len(params)
-        for li in reversed(range(n_layers)):
-            a, r, xhat, inv = layers[li]
-            i -= 4
-            g, grads[i + 2], grads[i + 3] = _ln_bwd(g, xhat, inv, params[i + 2])
-            g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
-            grads[i] = mm(a.t(), g)
-            grads[i + 1] = g.sum(dim=0)
-            g = mm(g, params[i].t())
-        if use_fn:
-            xhat, inv = fn_cache
-            g, grads[0], grads[1] = _ln_bwd(g, xhat, inv, params[0])
+        g, grads = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu,
+                                   bf16)
     return g.to(x.dtype), grads
 
 

@@ -1,20 +1,24 @@
-"""K3 / K4: fused PPO loss + gradient kernels (``csrc/fused_ppo.cu``) and
-their plain PyTorch versions.
+"""K3 / K4 and K3u / K4u: fused PPO loss + gradient kernels
+(``csrc/fused_ppo.cu``) and their plain PyTorch versions.
 
 Counterparts of :func:`dcc_tpu.ops.fused_ppo.actor_ppo_grads_packed` and
-:func:`dcc_tpu.ops.fused_ppo.critic_value_grads_packed` with ``fold=True``:
-one call per network computes the SUM-reduced loss and every parameter
-gradient over all rows. The trunk runs folded (:func:`fold_trunk` absorbs
-each LN affine into the next matmul; :func:`unfold_trunk_grads` maps the
-gradients back). The caller divides by the row count and applies the loss
-coefficients.
+:func:`dcc_tpu.ops.fused_ppo.critic_value_grads_packed`: one call per
+network computes the SUM-reduced loss and every parameter gradient over all
+rows. With ``fold=True`` (K3 / K4) the trunk runs folded
+(:func:`fold_trunk` absorbs each LN affine into the next matmul;
+:func:`unfold_trunk_grads` maps the gradients back). With ``fold=False``
+(K3u / K4u) it runs as the trunk writes it: the LN affines are applied in
+the chain (:func:`~dcc_tpu_torch.ops.fused_mlp._forward_chain`, bf16
+rounding of each affine output) and every LN scale and bias gradient comes
+out of the backward directly. The caller divides by the row count and
+applies the loss coefficients.
 
-The plain versions write the folded backward out explicitly, with JAX's
-autodiff tie rules (min / max split the cotangent 50/50 on ties, clip
-composes the two) and the bf16 rounding points of the kernel, so they mirror
-the kernel's algorithm rather than autograd. On CUDA tensors the wrappers
-launch the kernels or raise (in bf16 the tensor-core kernels, on padded bf16
-copies of the folded weights; in f32 the FMA ones); on CPU tensors they run
+The plain versions write the backward out explicitly, with JAX's autodiff
+tie rules (min / max split the cotangent 50/50 on ties, clip composes the
+two) and the bf16 rounding points of the kernel, so they mirror the
+kernel's algorithm rather than autograd. On CUDA tensors the wrappers
+launch the kernels or raise (in bf16 the tensor-core kernels, on padded
+bf16 copies of the weights; in f32 the FMA ones); on CPU tensors they run
 the plain versions.
 
 Aux layout (row-major, the GPU needs no lane-padding workaround): actor rows
@@ -32,6 +36,7 @@ import torch
 
 from . import cuda_build as cb
 from .fused_mlp import (
+    _forward_chain,
     activation,
     bf16_round,
     check_mma_width,
@@ -43,13 +48,11 @@ from .fused_mlp import (
     pack_params,
     require_shapes,
     tile_rows,
+    trunk_bwd_chain,
+    trunk_param_shapes,
 )
 
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-_NOT_FOLDED = (
-    "the unfolded fused-loss kernels (fused_fold=False) are not ported yet "
-    "(ROADMAP: fused_fold=False)"
-)
 
 
 # ---------------------------------------------------------------------------
@@ -170,12 +173,11 @@ def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16):
     return grads
 
 
-def actor_grads_plain(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn,
-                      use_relu, bf16, clip_param):
-    """Plain K3 on folded params; returns ([dV, du] * L, dWh', dbh', dlog_std,
-    [loss_sum, ratio_sum])."""
+def _actor_head(feat, aux, whf, bhf, log_std, bf16, clip_param):
+    """Gaussian head and clipped surrogate on the trunk output ``feat``:
+    returns (dWh, dbh, dlog_std, [loss_sum, ratio_sum], the cotangent of
+    ``feat``)."""
     act_dim = whf.shape[1]
-    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
     mean = dense(feat, whf, bhf, bf16)
     a, old_lp = aux[:, :act_dim], aux[:, act_dim : act_dim + 1]
     adv, valid = aux[:, act_dim + 1 : act_dim + 2], aux[:, act_dim + 2 : act_dim + 3]
@@ -194,8 +196,29 @@ def actor_grads_plain(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn,
     dbh = torch.sum(dmean, dim=0)
     dwh = _mm(feat.t(), dmean, bf16)
     g = _mm(dmean, whf.t(), bf16)
+    return dwh, dbh, dls, met, g
+
+
+def actor_grads_plain(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn,
+                      use_relu, bf16, clip_param):
+    """Plain K3 on folded params; returns ([dV, du] * L, dWh', dbh', dlog_std,
+    [loss_sum, ratio_sum])."""
+    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
+    dwh, dbh, dls, met, g = _actor_head(feat, aux, whf, bhf, log_std, bf16, clip_param)
     kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16)
     return kg, dwh, dbh, dls, met
+
+
+def actor_grads_unfolded_plain(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
+                               use_relu, bf16, clip_param):
+    """Plain K3u on the flat trunk list ``params`` (``[fn_scale, fn_bias]? +
+    [W, b, s, c] * L``): the unfolded chain, the head, and the chain's
+    backward without d(input). Returns (trunk gradients shaped like
+    ``params``, dWh, dbh, dlog_std, [loss_sum, ratio_sum])."""
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    dwh, dbh, dls, met, g = _actor_head(feat, aux, wh, bh, log_std, bf16, clip_param)
+    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16)
+    return tg, dwh, dbh, dls, met
 
 
 def relu_kink_rows_folded(x, kp, n_layers: int, use_fn: bool) -> torch.Tensor:
@@ -230,11 +253,11 @@ def _huber_grad(e, delta):
     return a * e + b * delta
 
 
-def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu,
-                       bf16, clip_param, huber_delta, use_huber, use_clipped):
-    """Plain K4 on folded params; returns ([dV, du] * L, dwv', dbv',
-    [value_loss_sum])."""
-    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
+def _critic_head(feat, aux, norm, wvf, bvf, bf16, clip_param, huber_delta, use_huber,
+                 use_clipped):
+    """Value head and clipped / Huber value loss on the trunk output
+    ``feat``: returns (dwv, dbv, [value_loss_sum], the cotangent of
+    ``feat``)."""
     v = dense(feat, wvf, bvf, bf16)
     vpred, valid = aux[:, 0:1], aux[:, 2:3]
     ret = (aux[:, 1:2] - norm[0]) / norm[1]
@@ -259,8 +282,30 @@ def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu
     dv = dloss * valid
     dwv = _mm(feat.t(), dv, bf16)
     g = _mm(dv, wvf.t(), bf16)
+    return dwv, dv.sum(dim=0), loss_rows.sum().reshape(1), g
+
+
+def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu,
+                       bf16, clip_param, huber_delta, use_huber, use_clipped):
+    """Plain K4 on folded params; returns ([dV, du] * L, dwv', dbv',
+    [value_loss_sum])."""
+    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
+    dwv, dbv, met, g = _critic_head(feat, aux, norm, wvf, bvf, bf16, clip_param,
+                                    huber_delta, use_huber, use_clipped)
     kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16)
-    return kg, dwv, dv.sum(dim=0), loss_rows.sum().reshape(1)
+    return kg, dwv, dbv, met
+
+
+def critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
+                                use_relu, bf16, clip_param, huber_delta, use_huber,
+                                use_clipped):
+    """Plain K4u on the flat trunk list ``params``; returns (trunk gradients
+    shaped like ``params``, dwv, dbv, [value_loss_sum])."""
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    dwv, dbv, met, g = _critic_head(feat, aux, norm, wv, bv, bf16, clip_param, huber_delta,
+                                    use_huber, use_clipped)
+    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16)
+    return tg, dwv, dbv, met
 
 
 # ---------------------------------------------------------------------------
@@ -285,53 +330,77 @@ def _kernel_params(kp, head: Sequence[torch.Tensor], device, mma: bool = False):
     return (pb, offs, *pack_mma_weights(kp[0::2], device))
 
 
-def _slot_split(out, dims, hidden, extra):
-    """Split a reduced gradient slot into ([dV, du] * L, *extras)."""
+def _slot_split(out, shapes):
+    """Split a reduced gradient slot into consecutive tensors of ``shapes``."""
     res, o = [], 0
-    for d in dims:
-        res.append(out[o : o + d * hidden].view(d, hidden))
-        o += d * hidden
-        res.append(out[o : o + hidden])
-        o += hidden
-    for shape in extra:
+    for shape in shapes:
         n = math.prod(shape)
         res.append(out[o : o + n].view(shape))
         o += n
     return res
 
 
-def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
-                  act_dim, fn_args):
+def _unfolded_params(trunk, head, n_layers, use_fn, device, mma: bool):
+    """Packed f32 buffer + offsets of K3u / K4u: the flat trunk list (the fn
+    offsets are dummies without the feature norm), then each W^T for the FMA
+    kernel, then the head; for the tensor-core kernel also the padded bf16
+    W's. Returns (buffer, offsets, bf16 buffer or None, its offsets or
+    None)."""
+    first = 2 if use_fn else 0
+    ws = [trunk[first + 4 * li] for li in range(n_layers)]
+    flat = list(trunk) + ([] if mma else [w.t().contiguous() for w in ws]) + list(head)
+    pb, offs = pack_params(flat, device)
+    if not use_fn:
+        offs = [0, 0] + offs
+    if not mma:
+        return pb, offs, None, None
+    return (pb, offs, *pack_mma_weights(ws, device))
+
+
+def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16,
+                  act_dim, fn_args, unfolded=False):
+    """Launch K3 / K4 (``trunk`` the folded [V, u] * L) or K3u / K4u (the
+    flat trunk list) and its slot reduction; returns (trunk gradients,
+    head gradients and metrics)."""
     rows, d_in = x.shape
-    hidden = kp[1].shape[0]
+    hidden = head[0].shape[0]
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(aux, "aux", (torch.float32,), (rows, act_dim + 3 if kind == "actor" else 3),
                x.device)
-    dims = [d_in] + [hidden] * (n_layers - 1)
+    if unfolded:
+        trunk_shapes = trunk_param_shapes(d_in, hidden, n_layers, use_fn)
+    else:
+        dims = [d_in] + [hidden] * (n_layers - 1)
+        trunk_shapes = [s for d in dims for s in ((d, hidden), (hidden,))]
     if kind == "actor":
         extra = [(hidden, act_dim), (act_dim,), (act_dim,), (2,)]
     else:
         extra = [(hidden, 1), (1,), (1,)]
     # the head's parameters have the shapes of its gradients
-    require_shapes([*kp, *head], [s for d in dims for s in ((d, hidden), (hidden,))]
-                   + extra[: len(head)], "folded parameter")
+    require_shapes([*trunk, *head], trunk_shapes + extra[: len(head)],
+                   "unfolded parameter" if unfolded else "folded parameter")
     # bf16 runs on the tensor cores, f32 on FMA
     if bf16:
         check_mma_width(hidden)
-    pb, offs, wb, woffs = _kernel_params(kp, head, x.device, bf16)
+    if unfolded:
+        pb, offs, wb, woffs = _unfolded_params(trunk, head, n_layers, use_fn, x.device, bf16)
+    else:
+        pb, offs, wb, woffs = _kernel_params(trunk, head, x.device, bf16)
     lib = cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
+    tag = "_unfolded" if unfolded else ""
     if bf16:
+        smem = getattr(lib, f"dcc_ppo{tag}_mma_smem_bytes")
         br = mma_tile_rows(
-            rows, d_in,
-            lambda b: lib.dcc_ppo_mma_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4,
+            rows, d_in, lambda b: smem(b, d_in, hidden, n_layers, n_head) // 4,
             cb.sm_count(x.device), sizes=(64, 32) if kind == "actor" else (32, 16),
         )
     else:
-        br = tile_rows(
-            d_in, lambda b: lib.dcc_ppo_smem_bytes(b, d_in, hidden, n_layers, n_head) // 4
-        )
-    used = sum(d * hidden + hidden for d in dims) + sum(math.prod(s) for s in extra)
+        smem = getattr(lib, f"dcc_ppo{tag}_smem_bytes")
+        br = tile_rows(d_in, lambda b: smem(b, d_in, hidden, n_layers, n_head) // 4,
+                       sizes=(32, 16, 8, 1) if unfolded else (32, 8, 1))
+    shapes = trunk_shapes + extra
+    used = sum(math.prod(s) for s in shapes)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
     n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), bf16)
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
@@ -339,8 +408,8 @@ def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
     weights = (wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs)) if bf16 else ()
+    entry = f"dcc_{kind}_grads{tag}" + ("_mma" if bf16 else "")
     if kind == "actor":
-        entry = "dcc_actor_grads_mma" if bf16 else "dcc_actor_grads"
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
             int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
@@ -349,18 +418,18 @@ def _launch_grads(kind, x, aux, kp, head, *, n_layers, use_fn, use_relu, bf16,
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
-        entry = "dcc_critic_grads_mma" if bf16 else "dcc_critic_grads"
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
             n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(), offs_c,
             len(offs), *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(),
             cb.stream_of(x),
         )
-    cb.check("fused_ppo", code, f"{kind}_ppo_grads")
-    cb.LAUNCHES[f"{kind}_ppo_grads"] += 1
-    cb.ENTRY[f"{kind}_ppo_grads"] = entry
-    parts = _slot_split(out, dims, hidden, extra)
-    return parts[: 2 * n_layers], parts[2 * n_layers :]
+    name = f"{kind}_ppo_grads{tag}"
+    cb.check("fused_ppo", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = entry
+    parts = _slot_split(out, shapes)
+    return parts[: len(trunk_shapes)], parts[len(trunk_shapes) :]
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,
@@ -373,16 +442,42 @@ def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_rel
     return kg, dwh, dbh, dls, met
 
 
+def actor_grads_unfolded_cuda(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
+                              use_relu, bf16, clip_param):
+    """Launch K3u (+ its slot reduction); same returns as the plain version."""
+    tg, (dwh, dbh, dls, met) = _launch_grads(
+        "actor", x, aux, list(params), [wh, bh, log_std], n_layers=n_layers, use_fn=use_fn,
+        use_relu=use_relu, bf16=bf16, act_dim=wh.shape[1], fn_args=(float(clip_param),),
+        unfolded=True,
+    )
+    return tg, dwh, dbh, dls, met
+
+
+def _critic_args(norm, clip_param, huber_delta, use_huber, use_clipped):
+    return (norm, float(clip_param), float(huber_delta), int(use_huber), int(use_clipped))
+
+
 def critic_grads_cuda(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu, bf16,
                       clip_param, huber_delta, use_huber, use_clipped):
     """Launch K4 (+ its slot reduction); same returns as the plain version."""
     kg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, kp, [wvf, bvf], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
-        fn_args=(norm, float(clip_param), float(huber_delta), int(use_huber),
-                 int(use_clipped)),
+        fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
     )
     return kg, dwv, dbv, met
+
+
+def critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, *, n_layers, use_fn, use_relu,
+                               bf16, clip_param, huber_delta, use_huber, use_clipped):
+    """Launch K4u (+ its slot reduction); same returns as the plain version."""
+    tg, (dwv, dbv, met) = _launch_grads(
+        "critic", x, aux, list(params), [wv, bv], n_layers=n_layers, use_fn=use_fn,
+        use_relu=use_relu, bf16=bf16, act_dim=1,
+        fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
+        unfolded=True,
+    )
+    return tg, dwv, dbv, met
 
 
 # ---------------------------------------------------------------------------
@@ -394,18 +489,18 @@ def actor_ppo_grads_packed(
     use_feature_norm=True, use_relu=True, bf16=False, clip_param=0.2, fold=True,
 ):
     """SUM-reduced clipped-surrogate loss and gradients over all rows of
-    ``x`` (R, d_in) with packed ``aux`` from :func:`pack_actor_aux`. Returns
-    (trunk_grads shaped like ``trunk_params``, d_head_kernel, d_head_bias,
-    d_log_std, [policy_loss_sum, ratio_sum])."""
+    ``x`` (R, d_in) with packed ``aux`` from :func:`pack_actor_aux`, through
+    K3 (``fold``) or K3u. Returns (trunk_grads shaped like ``trunk_params``,
+    d_head_kernel, d_head_bias, d_log_std, [policy_loss_sum, ratio_sum])."""
+    kw = dict(n_layers=n_layers, use_fn=use_feature_norm, use_relu=use_relu, bf16=bf16,
+              clip_param=clip_param)
     if not fold:
-        raise NotImplementedError(_NOT_FOLDED)
+        fn = actor_grads_unfolded_cuda if x.is_cuda else actor_grads_unfolded_plain
+        return fn(x, aux, list(trunk_params), head_kernel, head_bias, log_std, **kw)
     kp, whf, bhf = fold_trunk(trunk_params, head_kernel, head_bias, n_layers,
                               use_feature_norm)
     fn = actor_grads_cuda if x.is_cuda else actor_grads_plain
-    kg, dwh, dbh, dls, met = fn(
-        x, aux, kp, whf, bhf, log_std, n_layers=n_layers, use_fn=use_feature_norm,
-        use_relu=use_relu, bf16=bf16, clip_param=clip_param,
-    )
+    kg, dwh, dbh, dls, met = fn(x, aux, kp, whf, bhf, log_std, **kw)
     tg, dwh, dbh = unfold_trunk_grads(kg, dwh, dbh, trunk_params, head_kernel,
                                       n_layers, use_feature_norm)
     return tg, dwh, dbh, dls, met
@@ -418,18 +513,18 @@ def critic_value_grads_packed(
 ):
     """SUM-reduced clipped / Huber value loss and gradients over all rows of
     ``x`` (Rv, d_in) with packed ``aux`` from :func:`pack_critic_aux` and
-    ``norm = [shift, scale]``. Returns (trunk_grads, d_head_kernel,
-    d_head_bias, [value_loss_sum])."""
+    ``norm = [shift, scale]``, through K4 (``fold``) or K4u. Returns
+    (trunk_grads, d_head_kernel, d_head_bias, [value_loss_sum])."""
+    kw = dict(n_layers=n_layers, use_fn=use_feature_norm, use_relu=use_relu, bf16=bf16,
+              clip_param=clip_param, huber_delta=huber_delta, use_huber=use_huber,
+              use_clipped=use_clipped)
     if not fold:
-        raise NotImplementedError(_NOT_FOLDED)
+        fn = critic_grads_unfolded_cuda if x.is_cuda else critic_grads_unfolded_plain
+        return fn(x, aux, norm, list(trunk_params), head_kernel, head_bias, **kw)
     kp, wvf, bvf = fold_trunk(trunk_params, head_kernel, head_bias, n_layers,
                               use_feature_norm)
     fn = critic_grads_cuda if x.is_cuda else critic_grads_plain
-    kg, dwv, dbv, met = fn(
-        x, aux, norm, kp, wvf, bvf, n_layers=n_layers, use_fn=use_feature_norm,
-        use_relu=use_relu, bf16=bf16, clip_param=clip_param, huber_delta=huber_delta,
-        use_huber=use_huber, use_clipped=use_clipped,
-    )
+    kg, dwv, dbv, met = fn(x, aux, norm, kp, wvf, bvf, **kw)
     tg, dwv, dbv = unfold_trunk_grads(kg, dwv, dbv, trunk_params, head_kernel,
                                       n_layers, use_feature_norm)
     return tg, dwv, dbv, met

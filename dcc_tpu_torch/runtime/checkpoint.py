@@ -1,7 +1,7 @@
 """Checkpointing of the full train state with ``torch.save``.
 
-Params, both Adam states, the value normalizer, the counters and the rollout
-generator's state round-trip, so training resumes exactly where it stopped.
+Params, both Adam states, the value normalizer (ValueNorm or PopArt), the
+counters and the rollout generator's state round-trip, so training resumes exactly where it stopped.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ def save(path: str, ts: TrainState) -> None:
             "actor_opt": ts.actor_opt.state_dict(),
             "critic_opt": ts.critic_opt.state_dict(),
             "vnorm": None if ts.vnorm is None else tuple(ts.vnorm),
+            "popart": None if ts.popart is None else tuple(ts.popart),
             "update_count": ts.update_count,
             "iteration": ts.iteration,
             "generator": ts.generator.get_state(),
@@ -41,6 +42,8 @@ def load(path: str, ts: TrainState) -> TrainState:
     ts.critic_opt.load_state_dict(blob["critic_opt"])
     if blob["vnorm"] is not None:
         ts.vnorm = type(ts.vnorm)(*blob["vnorm"])
+    if blob.get("popart") is not None:
+        ts.popart = type(ts.popart)(*blob["popart"])
     ts.update_count = int(blob["update_count"])
     ts.iteration = int(blob["iteration"])
     ts.generator.set_state(blob["generator"].cpu())

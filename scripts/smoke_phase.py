@@ -2,19 +2,27 @@
 """Run one phase of ``chip_smoke.py`` against the PyTorch / CUDA port of any
 checkout, on one GPU.
 
-    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] updates
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] updates [--k2-plain]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] gae
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] k2
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
 
-``updates`` holds the fused f32 update and the recurrent bf16 update on the
-card against the CPU (``chip_smoke.check_updates_against_cpu``). ``gae``
+``updates`` holds the updates of ``chip_smoke.UPDATE_CHECKS`` on the card
+against the CPU (``chip_smoke.check_updates_against_cpu``); with
+``--k2-plain`` it then holds the recurrent bf16 update again with K2's
+forward through its bf16 plain version on the card
+(``ops.fused_mlp.trunk_forward_plain``) and K2b unchanged, which tells
+whether K2's summation order moves that update's reading. ``gae``
 builds the kernels, prints K1's registers and spills (where this call
 compiled them) and holds K1 against its plain version through
 ``compute_gae_cuda`` at T = 150 and 16 and 16,384 envs, timed (CUDA
 events, the profiler's device us, the wrapper's host us;
 ``chip_smoke.check_gae``), whatever C entry it goes through.
-``profile`` trains with ``chip_smoke.py``'s base arguments plus the given
-ones (for example ``--compute-dtype bfloat16 --use-recurrent-policy true``),
+``k2`` builds the kernels and holds K2 (the trunk forward) against its plain
+version on the actor and critic rows at 16 and 16,384 envs, f32 and bf16,
+timed (``chip_smoke.check_trunk_forward``). ``profile`` trains with
+``chip_smoke.py``'s base arguments plus the given ones (for example
+``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
 time by kernel name, the device's idle share). ``--root`` names the checkout
 whose ``dcc_tpu_torch`` runs (default: this one), so that another commit's
@@ -36,7 +44,9 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--root", default=HERE, help="checkout whose dcc_tpu_torch runs")
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
-    ap.add_argument("phase", choices=("updates", "gae", "profile"))
+    ap.add_argument("--k2-plain", action="store_true",
+                    help="updates: also the recurrent bf16 update with K2's plain forward")
+    ap.add_argument("phase", choices=("updates", "gae", "k2", "profile"))
     ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
     args = ap.parse_args(argv)
 
@@ -55,18 +65,24 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase in ("updates", "gae"):
+    if args.phase in ("updates", "gae", "k2"):
         results: dict = {}
         try:
             if args.phase == "updates":
                 chip_smoke.check_updates_against_cpu(results)
+                if args.k2_plain:
+                    chip_smoke.check_k2_plain_update(results)
             else:
                 from dcc_tpu_torch.ops import cuda_build
 
                 built = cuda_build.build(verbose=True)
                 results["ptxas"] = chip_smoke.ptxas_report(built.get("_ptxas", {}), False)
-                results["gae"] = []
-                chip_smoke.check_gae(results["gae"], chip_smoke.GAE_TIMED, entry=None)
+                results[args.phase] = []
+                if args.phase == "gae":
+                    chip_smoke.check_gae(results["gae"], chip_smoke.GAE_TIMED, entry=None)
+                else:
+                    gen = torch.Generator(device="cuda").manual_seed(0)
+                    chip_smoke.check_trunk_forward(results["k2"], gen)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

@@ -274,14 +274,3 @@ def test_critic_plain_matches_torch_autograd():
     _close(tg[6], base.fc1.weight.grad.t().numpy(), 2e-4, 5e-5)
     _close(dwv, critic.v_out.weight.grad.t().numpy(), 2e-4, 2e-5)
     _close(dbv, critic.v_out.bias.grad.numpy(), 2e-4, 2e-5)
-
-
-def test_unfolded_kernels_raise():
-    _, params, obs, act, old_lp, adv = _actor_setup(rows=8)
-    p = params["params"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FP.actor_ppo_grads_packed(
-            T(obs), FP.pack_actor_aux(T(act), T(old_lp), T(adv)),
-            [T(x) for x in _flat(p["base"])], T(p["act_out"]["kernel"]),
-            T(p["act_out"]["bias"]), T(p["log_std"]), n_layers=2, fold=False,
-        )

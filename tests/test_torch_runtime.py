@@ -50,28 +50,35 @@ def _state(ts):
     for name, opt in (("ao", ts.actor_opt), ("co", ts.critic_opt)):
         for i, st in opt.state_dict()["state"].items():
             sd.update({f"{name}.{i}.{k}": v for k, v in st.items()})
-    sd.update({f"vn.{i}": v for i, v in enumerate(ts.vnorm)})
+    for name, st in (("vn", ts.vnorm), ("pa", ts.popart)):
+        sd.update({f"{name}.{i}": v for i, v in enumerate(st or ())})
     sd["gen"] = ts.generator.get_state()
     return sd, (ts.update_count, ts.iteration)
 
 
-def test_checkpoint_resume_is_exact(tmp_path):
+# the PopArt statistics round-trip too (with 2 minibatches, whose
+# permutations come from the checkpointed generator)
+@pytest.mark.parametrize(
+    "extra", [{}, dict(use_popart=True, use_valuenorm=False, num_mini_batch=2)],
+    ids=["default", "popart-nmb2"])
+def test_checkpoint_resume_is_exact(tmp_path, extra):
     overrides = dict(
         n_iters=3, n_rollout_threads=2, n_eval_rollout_threads=0, max_ep_len=5,
         ppo_epoch=2, save_interval=1, save_gifs=False, algo_hidden_size=32,
-        main_save_path=str(tmp_path),
+        main_save_path=str(tmp_path), **extra,
     )
     l1 = Learner(overrides, device="cpu")
     l1.train()
     path = os.path.join(l1.output_path, "models_1.pt")
     l2 = Learner({**overrides, "load_model": True, "load_model_path": path},
                  device="cpu")
-    assert (l2.ts.update_count, l2.ts.iteration) == (2, 1)
+    steps = 2 * extra.get("num_mini_batch", 1)  # optimizer steps an iteration
+    assert (l2.ts.update_count, l2.ts.iteration) == (steps, 1)
     # resumed at iteration 1, two more iterations land exactly on l1's state
     for _ in range(2):
         l2.algo.train_iteration(l2.ts)
     (s1, c1), (s2, c2) = _state(l1.ts), _state(l2.ts)
-    assert c1 == c2 == (6, 3)
+    assert c1 == c2 == (3 * steps, 3)
     assert set(s1) == set(s2)
     for k in s1:
         assert torch.equal(s1[k], s2[k]), k
