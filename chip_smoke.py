@@ -25,7 +25,13 @@ Phases (any failure exits non-zero):
    envs) and at bench.py's headline 16384 envs (a quarter of that for K3 /
    K4, K3u / K4u and K2b, whose plain versions materialize (rows, 256) f32
    tensors). K2b runs on the recurrent update's rows: T*E*A for the actor
-   and for the critic, whose env rows are duplicated per agent. Biases and
+   and for the critic, whose env rows are duplicated per agent. Then the
+   same kernels at the one-card presets' widths (``PRESET_CHECKS``: actor /
+   critic 58 / 174, 192 / 960, 122 / 1,220) at their 16 envs, at the shapes
+   their runs give them, each check printing the row tile its launch took;
+   there the bf16 gradient kernels run three trunks (``trunk_variants``:
+   the model's, a reading; the model's with tanh and one relu layer on the
+   rows themselves, both checks). Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
@@ -47,13 +53,22 @@ Phases (any failure exits non-zero):
    trajectory and minibatch permutations: fused f32 (K3 / K4), recurrent
    bf16 (K2 / K2b; its reading also with K2's forward through its plain
    version, ``check_k2_plain_update``), and fused f32 unfolded (K3u / K4u)
-   with 2 minibatches and PopArt;
+   with 2 minibatches and PopArt; and one f32 update per non-Gaussian
+   action head (discrete, multi_discrete, multi_binary, mixed);
 5. train through ``dcc_tpu_torch.train.main`` the ``TRAIN_RUNS``: 2
    iterations each of the default f32 config, the bf16 config, the
    recurrent bf16 config, bf16 with 4 minibatches, bf16 unfolded with
    PopArt and recurrent bf16 with 2 minibatches, and 1 of recurrent f32,
-   bf16 with the fused loss off and f32 with 4 update chunks and remat;
-   print the metrics and phase times, and require each run's kernels to
+   bf16 with the fused loss off and f32 with 4 update chunks and remat,
+   one bf16 iteration per non-Gaussian head (K2 and K2b), one f32
+   iteration of each one-card preset as written and one bf16 iteration of
+   5uav_dense_conn and 10uav_moving_collision (K2, K3, K4 at their widths;
+   the 10-UAV preset's randomized and moving PoIs and collision penalty on
+   the card); then the default command with render (the default YAMLs, 2
+   iterations, ``models_2.gif`` into a temporary directory, which must
+   decode to 151 frames of 700 x 700); and the 20-UAV preset, whose MAPPO
+   must refuse to build (ROADMAP B2). Print the metrics and phase times,
+   and require each run's kernels to
    have launched exactly as often as its path runs them and the others not
    at all, every run's K1 to have gone through ``GAE_ENTRY`` and every bf16
    run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
@@ -128,6 +143,16 @@ BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
              "--n-eval-rollout-threads", "0", "--seed", "0"]
 BF16 = ["--compute-dtype", "bfloat16"]
 RECURRENT = ["--use-recurrent-policy", "true"]
+HEAD_MODES = ("discrete", "multi_discrete", "multi_binary", "mixed")
+BF16_PRESETS = ("5uav_dense_conn", "10uav_moving_collision")
+
+
+def preset_args(name: str) -> list:
+    """The CLI arguments that select a named env preset's YAML."""
+    return ["--env-yaml", os.path.join("dcc_tpu_torch", "configs", "env_config",
+                                       f"dcc_{name}.yaml")]
+
+
 TRAIN_RUNS = (
     ("f32", [], {"gae": 1}),
     ("bf16", BF16, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
@@ -150,6 +175,18 @@ TRAIN_RUNS = (
     # gradient accumulation over 4 row chunks with recomputed forwards
     ("f32-chunks4-remat", ["--update-chunks", "4", "--use-remat", "true", "--n-iters", "1"],
      {"gae": 1}),
+    # the non-Gaussian heads in bf16: K2 in the rollout, the update by
+    # autograd through K2 and K2b (the fused loss takes the Gaussian only)
+    *((f"bf16-{mode}", BF16 + ["--action-mode", mode, "--n-iters", "1"],
+       {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}) for mode in HEAD_MODES),
+    # each one-card preset as written (f32: K1 only), and two in bf16, whose
+    # K2, K3 and K4 run at actor / critic widths 192 / 960 and 122 / 1,220
+    *((f"preset-{name}", preset_args(name) + ["--n-iters", "1"], {"gae": 1})
+      for name in ("3uav_small", "5uav_dense_conn", "10uav_moving_collision",
+                   "throughput_4096")),
+    *((f"preset-{name}-bf16", preset_args(name) + BF16 + ["--n-iters", "1"],
+       {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15})
+      for name in BF16_PRESETS),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -170,6 +207,8 @@ MMA_ENTRY = {
                              "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_mma",
                              "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_mma"},
     "recurrent-bf16-nmb2": _TRUNK_MMA,
+    **{f"bf16-{mode}": _TRUNK_MMA for mode in HEAD_MODES},
+    **{f"preset-{name}-bf16": _FOLDED_MMA for name in BF16_PRESETS},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
@@ -232,8 +271,9 @@ def host_us(fn, n: int = N_TIMED) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def compare(name, got, want, max_rel, max_abs=None):
-    """Per-tensor max |k - p| and ||k - p|| / ||p||; raises past the bounds.
+def compare(name, got, want, max_rel, max_abs=None, gate=True):
+    """Per-tensor max |k - p| and ||k - p|| / ||p||; raises past the bounds
+    (with ``gate`` False, a reading: only on a shape or a non-finite value).
     Returns the worst of each and the index of the tensor with the worst rel."""
     worst_abs, worst_rel, worst_i = 0.0, 0.0, 0
     for i, (g, w) in enumerate(zip(got, want)):
@@ -247,7 +287,7 @@ def compare(name, got, want, max_rel, max_abs=None):
         worst_abs = max(worst_abs, a)
         if r > worst_rel:
             worst_rel, worst_i = r, i
-        if r > max_rel or (max_abs is not None and a > max_abs):
+        if gate and (r > max_rel or (max_abs is not None and a > max_abs)):
             raise SmokeFailure(f"{name}[{i}]: max_abs {a:.3e} rel {r:.3e} exceeds "
                                f"rel {max_rel} / abs {max_abs}")
     return worst_abs, worst_rel, worst_i
@@ -262,6 +302,15 @@ def perturb_(net, gen) -> None:
         for p in net.parameters():
             if p.dim() == 1:
                 p.add_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
+def env_config(preset=None):
+    """The EnvConfig of a named preset (``dcc_tpu_torch.configs.PRESETS``),
+    or the default one."""
+    from dcc_tpu_torch.configs import load_preset
+    from dcc_tpu_torch.envs import EnvConfig
+
+    return EnvConfig() if preset is None else load_preset(preset)[1]
 
 
 def f32_reading(name, got, want, bf16_tol):
@@ -365,12 +414,15 @@ def device_us(fn, n: int, match: str):
 
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
-           f32_rel=None, device_match=None, **extra_host):
+           f32_rel=None, device_match=None, preset=None, gated=True, **extra_host):
     """Time the kernel's wrapper and the plain version, print and keep the
     row. ``device_match``: also the profiler's device us per call of the
-    kernels whose name holds it. ``extra_host``: further callables whose
-    host us per call are printed beside the wrapper's."""
-    from dcc_tpu_torch.ops.cuda_build import ENTRY
+    kernels whose name holds it. ``preset``: the env preset whose widths the
+    check takes (None: the default config). ``gated``: False where the
+    errors are a reading, not a check (``trunk_variants``). ``extra_host``:
+    further callables whose host us per call are printed beside the
+    wrapper's."""
+    from dcc_tpu_torch.ops.cuda_build import ENTRY, TILE
 
     err, rel, worst = errs
     (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
@@ -378,18 +430,22 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
              **{k: host_us(f, n) for k, f in extra_host.items()}}
     dev_us = device_us(kern, n, device_match) if device_match else None
     entry = ENTRY.get(kernel)  # the C entry point of the timed launches
+    tile = TILE.get(kernel)  # and their row tile (K2-K4, K2b, K3u / K4u)
     if mode == "bf16" and not entry.endswith("_mma"):
         raise SmokeFailure(f"bf16 {kernel} went through {entry}, not its tensor-core entry")
-    row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, entry=entry, max_abs_err=err,
-               rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n, plain_ms=plain_ms,
-               plain_n_timed=plain_n, host_us=hosts, device_us=dev_us, bound_ms=bound_ms,
-               bound_by=bound_by, f32_kernel_rel_err=f32_rel)
+    row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, preset=preset, entry=entry,
+               tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n,
+               plain_ms=plain_ms, plain_n_timed=plain_n, host_us=hosts, device_us=dev_us,
+               bound_ms=bound_ms, bound_by=bound_by, f32_kernel_rel_err=f32_rel, gated=gated)
     results.append(row)
     extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
+    extra += "" if gated else " (a reading, not a check: ROADMAP C3)"
     dev = "" if dev_us is None else (f" device us/call: kernel {dev_us['kernel']:.2f}, "
                                      f"all {dev_us['all']:.2f};")
-    print(f"  {kernel:17s} {mode:4s} envs={envs:<6d} {shape:28s} [{entry}] max_abs={err:.3e} "
-          f"rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} "
+    where = "" if preset is None else f" {preset}"
+    shape = shape + ("" if tile is None else f" tile={tile}")
+    print(f"  {kernel:17s} {mode:4s}{where} envs={envs:<6d} {shape:28s} [{entry}] "
+          f"max_abs={err:.3e} rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} "
           f"ms bound={bound_ms:.6f} ms ({bound_by}){dev} host us/call: "
           + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items()), flush=True)
     return row
@@ -464,19 +520,19 @@ def check_gae(results: list, shapes=GAE_SHAPES, entry=GAE_ENTRY):
                   f"max_abs={errs[0]:.3e} rel={errs[1]:.3e}", flush=True)
 
 
-def check_trunk_forward(results: list, gen):
-    """K2: the trunk forward on the actor (E*A, 110) and critic (E, 440) rows
-    at 16 and BIG_ENVS envs, in f32 and bf16, on parameters packed
-    beforehand as the rollout packs them (once per parameter version,
+def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS)):
+    """K2: the trunk forward on the actor (E*A, D) and critic (E, A*D) rows
+    of the default config (D = 110) or of ``preset``, at each of
+    ``envs_list`` envs, in f32 and bf16, on parameters packed beforehand as
+    the rollout packs them (once per parameter version,
     MLPBase.packed_params)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
-    from dcc_tpu_torch.envs import EnvConfig
     from dcc_tpu_torch.ops import fused_mlp as FM
 
     dev = torch.device("cuda")
-    env = EnvConfig()
+    env = env_config(preset)
     A, D = env.n_agents, env.obs_dim
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     for bf16 in (False, True):
@@ -485,7 +541,7 @@ def check_trunk_forward(results: list, gen):
         actor, critic = algo.make_networks(seed=1)
         perturb_(actor, gen)
         perturb_(critic, gen)
-        for envs in (16, BIG_ENVS):
+        for envs in envs_list:
             for net, rows, width in ((actor, envs * A, D), (critic, envs, A * D)):
                 x = randn(rows, width)
                 params = [p.detach() for p in net.base.flat_params()]
@@ -514,7 +570,7 @@ def check_trunk_forward(results: list, gen):
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "fused_mlp", "bf16" if bf16 else "f32", envs,
                        f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel,
-                       **{"MLPBase.forward": rollout_call})
+                       preset=preset, **{"MLPBase.forward": rollout_call})
 
 
 def _shape(rows: int, d_in: int, nmb: int = 1) -> str:
@@ -523,30 +579,72 @@ def _shape(rows: int, d_in: int, nmb: int = 1) -> str:
     return f"rows={rows} d_in={d_in}" + (f" nmb={nmb}" if nmb > 1 else "")
 
 
+def trunk_variants(bf16: bool, preset) -> list:
+    """The trunks a gradient kernel's check runs, as (label, relu, n_layers,
+    use_fn, gated). The default config's checks and every f32 check run the
+    model's trunk (relu, 2 layers, feature norm), gated. In bf16 at a
+    preset's widths three, each a row of its own:
+
+    - the model's trunk, a reading and not a check: the bf16 kink rule (one
+      bf16 step of the accumulator) assumes both sides feed a layer the same
+      input, and a layer's input that came through an LN can differ by one
+      bf16 step (the LN statistics sum in another order), which moves rows
+      up to 17 steps from the kink across it (``scripts/width_probe.py
+      --flips``; ROADMAP C3). At these widths K3 read 1.79e-2, K2b 4.18e-3
+      and K4u 5.8e-3 against the 4e-3 bound under that rule;
+    - " tanh": the model's trunk with tanh, no kink, gated;
+    - " relu L=1": one relu layer on the rows themselves (no feature norm),
+      gated: both sides feed the one kinked layer the same bf16 rows, so
+      the kink rule holds, and the relu path runs at the preset's width
+      (row staging and padding, the products over d_in, the d_in x H
+      gradient). With " tanh" it isolates what the model trunk's reading
+      owes to a kink behind an LN."""
+    if not bf16 or preset is None:
+        return [("", True, 2, True, True)]
+    return [("", True, 2, True, False), (" tanh", False, 2, True, True),
+            (" relu L=1", True, 1, False, True)]
+
+
 def check_kernels(results: list):
     import torch
 
-    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
-    from dcc_tpu_torch.envs import EnvConfig
-    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
-
-    dev = torch.device("cuda")
-    env = EnvConfig()
-    T, A, D = 150, env.n_agents, env.obs_dim
-    gen = torch.Generator(device=dev).manual_seed(0)
-    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
-    n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
-
+    gen = torch.Generator(device="cuda").manual_seed(0)
     check_gae(results)  # K1
     check_trunk_forward(results, gen)  # K2
+    # K2b on the recurrent update's rows, T*E*A for both networks, on one of
+    # the chunk minibatches of the recurrent run with 2 minibatches (T*E*A/2
+    # rows), and on the actor's rows at a quarter of the headline envs (the
+    # plain version keeps about ten (rows, 256) f32 tensors alive)
+    check_trunk_backward(results, gen, cases=((16, 1, "both"), (16, 2, "both"),
+                                              (BIG_ENVS // 4, 1, "actor")))
+    # K3 / K4 on the T*E*A actor / T*E critic rows, and on one minibatch of
+    # the run with 4 minibatches: T*E*A/4 actor rows and as many critic
+    # rows, gathered from the env rows duplicated per agent, with the
+    # returns normalised outside (norm = [0, 1])
+    ppo_envs = BIG_ENVS // 4
+    print(f"  K3 / K4 at {ppo_envs} envs (a quarter of {BIG_ENVS}): their plain versions "
+          f"keep about ten (rows, 256) f32 tensors alive, which must fit in device memory",
+          flush=True)
+    check_ppo(results, gen, cases=((16, 1), (16, 4), (ppo_envs, 1)))
+    check_unfolded(results, gen)  # K3u, K4u
+    check_presets(results)
 
-    # K2b: trunk backward on the recurrent update's rows, T*E*A for both
-    # networks, on one of the chunk minibatches of the recurrent run with 2
-    # minibatches (T*E*A/2 rows), and on the actor's rows at a quarter of the
-    # headline envs (the plain version keeps about ten (rows, 256) f32
-    # tensors alive)
-    big = BIG_ENVS // 4
+
+def check_trunk_backward(results: list, gen, cases, preset=None):
+    """K2b, the trunk backward, on T*E*A/nmb rows of the actor (D wide) and,
+    where a case says "both", of the critic (A*D wide, its env rows
+    duplicated per agent), for each (envs, nmb, which) of ``cases``, in f32
+    and bf16, of the default config or ``preset``, on the trunks of
+    ``trunk_variants``."""
+    import torch
+
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    dev = torch.device("cuda")
+    env = env_config(preset)
+    T, A, D = 150, env.n_agents, env.obs_dim
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  use_recurrent_policy=True, fused_trunk="on"), env, device=dev)
@@ -555,50 +653,69 @@ def check_kernels(results: list):
         perturb_(critic, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
         both = ((actor, D), (critic, A * D))
-        for envs, nmb, nets in ((16, 1, both), (16, 2, both), (big, 1, ((actor, D),))):
-            for net, width in nets:
+        for envs, nmb, which in cases:
+            for net, width in both if which == "both" else both[:1]:
                 rows = T * envs * A // nmb
                 x = randn(rows, width).to(xdt)
-                params = [p.detach() for p in net.base.flat_params()]
-                kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
-                # rows next to a relu kink may take either side in the kernel
-                # and in the plain version: they get a zero cotangent
-                g = randn(rows, 256)
-                kink = FM.relu_kink_rows(x, params, 2, True, bf16)
-                g[kink] = 0.0
-                print(f"  K2b {'bf16' if bf16 else 'f32'}, {rows} x {width}: {int(kink.sum())} "
-                      f"rows next to a relu kink get a zero cotangent", flush=True)
-                g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
-                kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
-                plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
-                k, p = kern(), plain()
-                k, p = [k[0], *k[1]], [p[0], *p[1]]
-                tol = K2B_BF16_REL if bf16 else 1e-4
-                errs = compare("fused_mlp_bwd", k, p, tol)
-                f32_rel = None
-                if bf16:
-                    k32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
-                    f32_rel = f32_reading("fused_mlp_bwd", [k32[0], *k32[1]], p, tol)
-                    del k32
-                # forward recompute, dW and d(input): 3 products of 2 ops a MAC
-                ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
-                # x and g in, dx out; parameters in, their f32 gradients out
-                nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
-                          + 2 * 4 * sum(t.numel() for t in params))
-                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
-                       _shape(rows, width, nmb), errs, kern, plain, b, by, f32_rel)
-                del k, p, x, g
+                full = [p.detach() for p in net.base.flat_params()]
+                for label, relu, L, fn, gated in trunk_variants(bf16, preset):
+                    params = full if fn else full[2:2 + 4 * L]
+                    kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16)
+                    # rows next to a relu kink may take either side in the
+                    # kernel and in the plain version: they get a zero cotangent
+                    g = randn(rows, 256)
+                    if relu:
+                        kink = FM.relu_kink_rows(x, params, L, fn, bf16)
+                        g[kink] = 0.0
+                        print(f"  K2b {'bf16' if bf16 else 'f32'}, {rows} x {width}{label}: "
+                              f"{int(kink.sum())} rows next to a relu kink get a zero "
+                              f"cotangent", flush=True)
+                    g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
+                    kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
+                    plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
+                    k, p = kern(), plain()
+                    k, p = [k[0], *k[1]], [p[0], *p[1]]
+                    tol = K2B_BF16_REL if bf16 else 1e-4
+                    errs = compare("fused_mlp_bwd", k, p, tol, gate=gated)
+                    f32_rel = None
+                    if bf16 and gated:
+                        k32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
+                        f32_rel = f32_reading("fused_mlp_bwd", [k32[0], *k32[1]], p, tol)
+                        del k32
+                    # forward recompute, dW and d(input): 3 products of 2 ops a MAC
+                    ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
+                    # x and g in, dx out; parameters in, their f32 gradients out
+                    nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
+                              + 2 * 4 * sum(t.numel() for t in params))
+                    b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                    record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
+                           _shape(rows, width, nmb) + label, errs, kern, plain, b, by, f32_rel,
+                           preset=preset, gated=gated)
+                    del k, p, g
+                del x
                 torch.cuda.empty_cache()
 
-    # K3 / K4: PPO loss + gradients on the T*E*A actor / T*E critic rows,
-    # and on one minibatch of the run with 4 minibatches: T*E*A/4 actor rows
-    # and as many critic rows, gathered from the env rows duplicated per
-    # agent, with the returns normalised outside (norm = [0, 1])
-    ppo_envs = BIG_ENVS // 4
-    print(f"  K3 / K4 at {ppo_envs} envs (a quarter of {BIG_ENVS}): their plain versions "
-          f"keep about ten (rows, 256) f32 tensors alive, which must fit in device memory",
-          flush=True)
+
+def check_ppo(results: list, gen, cases, preset=None):
+    """K3 / K4, the folded PPO loss + gradient kernels, on T*E*A/nmb actor
+    rows and T*E critic rows (nmb = 1) or as many critic rows as actor rows,
+    gathered from the env rows duplicated per agent (nmb > 1), for each
+    (envs, nmb) of ``cases``, in f32 and bf16, of the default config or
+    ``preset``, on the trunks of ``trunk_variants``.
+
+    At a preset's widths the f32 checks give rows with a relu pre-activation
+    within 1e-5 of the kink a zero advantage / valid = 0."""
+    import torch
+
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.ops import fused_ppo as FP
+
+    dev = torch.device("cuda")
+    env = env_config(preset)
+    T, A, D, H = 150, env.n_agents, env.obs_dim, 256
+    randn = lambda *s: torch.randn(s, generator=gen, device=dev)
+    flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
+    n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on"), env, device=dev)
@@ -606,51 +723,21 @@ def check_kernels(results: list):
         perturb_(actor, gen)
         perturb_(critic, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
-        for envs, nmb in ((16, 1), (16, 4), (ppo_envs, 1)):
+        mode = "bf16" if bf16 else "f32"
+        # f32: summation order of the R-row sums, and the odd row within
+        # rounding of a loss kink (clip bound, min / max tie) that takes the
+        # other branch; bf16: 1-ulp flips of the bf16 roundings in the
+        # forward and of the rounded cotangents
+        tol = PPO_BF16_REL if bf16 else 1e-3
+        actor_p = [p.detach() for p in actor.base.flat_params()]
+        critic_p = [p.detach() for p in critic.base.flat_params()]
+        for envs, nmb in cases:
             R = T * envs * A // nmb
             Rv = T * envs if nmb == 1 else R
             obs = randn(R, D).to(xdt)
             act = randn(R, 2) * 0.5
             old_lp = -2.0 + 0.3 * randn(R, 1)
-            adv = randn(R, 1)
-            kp, whf, bhf = FP.fold_trunk(
-                [p.detach() for p in actor.base.flat_params()],
-                actor.act_out.weight.detach().t(), actor.act_out.bias.detach(), 2, True)
-            if bf16:
-                # rows with a relu pre-activation within one bf16 step of the
-                # kink may take either side in the tensor cores' summation
-                # order and in the plain version's: they get a zero advantage
-                kink = FP.relu_kink_rows_folded(obs, kp, 2, True)
-                adv[kink] = 0.0
-                print(f"  actor bf16, {envs} envs, {_shape(R, D, nmb)}: {int(kink.sum())} rows "
-                      f"next to a relu kink get a zero advantage", flush=True)
-            aux_a = FP.pack_actor_aux(act, old_lp, adv)
-            ls = actor.log_std.detach()
-            kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
-            kern = lambda: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw)
-            plain = lambda: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw)
-            k, p = kern(), plain()
-            # f32: summation order of the R-row sums, and the odd row within
-            # rounding of a loss kink (clip bound, min / max tie) that takes
-            # the other branch; bf16: 1-ulp flips of the
-            # bf16 roundings in the forward and of the rounded cotangents
-            tol = PPO_BF16_REL if bf16 else 1e-3
-            errs = compare("actor_ppo_grads", flat(k), flat(p), tol)
-            f32_rel = None
-            if bf16:
-                f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
-                                            **{**kw, "bf16": False})
-                f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), tol)
-                del f32_k
-            H = 256
-            ops = 2 * R * (2 * D * H + 3 * H * H)
-            # rows and aux in, folded params in, their gradients out
-            nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
-            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-            record(results, "actor_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   _shape(R, D, nmb), errs, kern, plain, b, by, f32_rel)
-            del k, p
-
+            adv0 = randn(R, 1)
             if nmb == 1:
                 cent = obs.reshape(Rv, A * D)
                 norm = torch.tensor([0.5, 2.0], device=dev)
@@ -662,50 +749,91 @@ def check_kernels(results: list):
                 v0 = critic(cent[: min(Rv, 65536)].float())
             vpred = randn(Rv, 1) * float(v0.std() + 0.1)
             ret = vpred + 3.0 * randn(Rv, 1)
-            aux_c = FP.pack_critic_aux(vpred, ret)
-            kpc, wvf, bvf = FP.fold_trunk(
-                [p.detach() for p in critic.base.flat_params()],
-                critic.v_out.weight.detach().t(), critic.v_out.bias.detach(), 2, True)
-            if bf16:  # the kink rule of the actor above: those rows get valid = 0
-                kink = FP.relu_kink_rows_folded(cent, kpc, 2, True)
-                aux_c[kink, 2] = 0.0
-                print(f"  critic bf16, {envs} envs, {_shape(Rv, A * D, nmb)}: {int(kink.sum())} "
-                      f"rows next to a relu kink get valid = 0", flush=True)
-            ckw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2,
-                       huber_delta=10.0, use_huber=True, use_clipped=True)
-            kern = lambda: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
-            plain = lambda: FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
-            k, p = kern(), plain()
-            errs = compare("critic_ppo_grads", flat(k), flat(p), tol)
-            f32_rel = None
-            if bf16:
-                f32_k = FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
-                                             **{**ckw, "bf16": False})
-                f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), tol)
-                del f32_k
-            ops = 2 * Rv * (2 * A * D * H + 3 * H * H)
-            nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
-            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-            record(results, "critic_ppo_grads", "bf16" if bf16 else "f32", envs,
-                   _shape(Rv, A * D, nmb), errs, kern, plain, b, by, f32_rel)
-            del k, p, obs, cent
+            for label, relu, L, fn, gated in trunk_variants(bf16, preset):
+                trunk = actor_p if fn else actor_p[2:2 + 4 * L]
+                kp, whf, bhf = FP.fold_trunk(trunk, actor.act_out.weight.detach().t(),
+                                             actor.act_out.bias.detach(), L, fn)
+                adv = adv0.clone()
+                if relu and (bf16 or preset is not None):
+                    # f32 at a preset's widths: rows within 1e-5 of a relu kink;
+                    # bf16: rows with a relu pre-activation within one bf16 step
+                    # of the kink, which may take either side in the tensor
+                    # cores' summation order and in the plain version's: they
+                    # get a zero advantage
+                    kink = FP.relu_kink_rows_folded(obs, kp, L, fn, bf16=bf16)
+                    adv[kink] = 0.0
+                    print(f"  actor {mode}, {envs} envs, {_shape(R, D, nmb)}{label}: "
+                          f"{int(kink.sum())} rows next to a relu kink get a zero advantage",
+                          flush=True)
+                aux_a = FP.pack_actor_aux(act, old_lp, adv)
+                ls = actor.log_std.detach()
+                kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
+                kern = lambda: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw)
+                plain = lambda: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw)
+                k, p = kern(), plain()
+                errs = compare("actor_ppo_grads", flat(k), flat(p), tol, gate=gated)
+                f32_rel = None
+                if bf16 and gated:
+                    f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
+                                                **{**kw, "bf16": False})
+                    f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), tol)
+                    del f32_k
+                # forward, dW and (past layer 0) g_prev: 2 ops a MAC
+                ops = 2 * R * (2 * D * H + 3 * (L - 1) * H * H)
+                # rows and aux in, folded params in, their gradients out
+                nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb) + label, errs,
+                       kern, plain, b, by, f32_rel, preset=preset, gated=gated)
+                del k, p
+
+                trunk = critic_p if fn else critic_p[2:2 + 4 * L]
+                kpc, wvf, bvf = FP.fold_trunk(trunk, critic.v_out.weight.detach().t(),
+                                              critic.v_out.bias.detach(), L, fn)
+                aux_c = FP.pack_critic_aux(vpred, ret)
+                if relu and (bf16 or preset is not None):  # the actor's rules: valid = 0
+                    kink = FP.relu_kink_rows_folded(cent, kpc, L, fn, bf16=bf16)
+                    aux_c[kink, 2] = 0.0
+                    print(f"  critic {mode}, {envs} envs, {_shape(Rv, A * D, nmb)}{label}: "
+                          f"{int(kink.sum())} rows next to a relu kink get valid = 0",
+                          flush=True)
+                ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
+                           huber_delta=10.0, use_huber=True, use_clipped=True)
+                kern = lambda: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
+                plain = lambda: FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
+                k, p = kern(), plain()
+                errs = compare("critic_ppo_grads", flat(k), flat(p), tol, gate=gated)
+                f32_rel = None
+                if bf16 and gated:
+                    f32_k = FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
+                                                 **{**ckw, "bf16": False})
+                    f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), tol)
+                    del f32_k
+                ops = 2 * Rv * (2 * A * D * H + 3 * (L - 1) * H * H)
+                nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
+                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                record(results, "critic_ppo_grads", mode, envs,
+                       _shape(Rv, A * D, nmb) + label, errs, kern, plain, b, by, f32_rel,
+                       preset=preset, gated=gated)
+                del k, p
+            del obs, cent
             torch.cuda.empty_cache()
-    check_unfolded(results, gen)  # K3u, K4u
 
 
-def check_unfolded(results: list, gen):
+def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4)):
     """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
-    T*E*A actor / T*E critic rows at 16 and BIG_ENVS / 4 envs, in f32 and
-    bf16. In bf16 rows next to a relu kink of the unfolded chain
-    (``relu_kink_rows``) get a zero advantage / valid = 0."""
+    T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in f32 and
+    bf16, of the default config or ``preset``, on the trunks of
+    ``trunk_variants``. In bf16 rows next to a relu kink of the unfolded
+    chain (``relu_kink_rows``) get a zero advantage / valid = 0; at a
+    preset's widths the f32 checks give rows within 1e-5 of a kink the same."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
-    from dcc_tpu_torch.envs import EnvConfig
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
 
     dev = torch.device("cuda")
-    env = EnvConfig()
+    env = env_config(preset)
     T, A, D, H = 150, env.n_agents, env.obs_dim, 256
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]
@@ -719,79 +847,119 @@ def check_unfolded(results: list, gen):
         xdt = torch.bfloat16 if bf16 else torch.float32
         mode = "bf16" if bf16 else "f32"
         tol = PPO_BF16_REL if bf16 else 1e-3
-        for envs in (16, BIG_ENVS // 4):
+        actor_p = [p.detach() for p in actor.base.flat_params()]
+        critic_p = [p.detach() for p in critic.base.flat_params()]
+        wh, bh = actor.act_out.weight.detach().t(), actor.act_out.bias.detach()
+        wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
+        ls = actor.log_std.detach()
+        norm = torch.tensor([0.5, 2.0], device=dev)
+        for envs in envs_list:
             R, Rv = T * envs * A, T * envs
             obs = randn(R, D).to(xdt)
-            adv = randn(R, 1)
-            params = [p.detach() for p in actor.base.flat_params()]
-            wh, bh = actor.act_out.weight.detach().t(), actor.act_out.bias.detach()
-            if bf16:
-                kink = FM.relu_kink_rows(obs, params, 2, True, True)
-                adv[kink] = 0.0
-                print(f"  K3u bf16, {envs} envs: {int(kink.sum())} of {R} rows next to a relu "
-                      f"kink get a zero advantage", flush=True)
-            aux_a = FP.pack_actor_aux(randn(R, 2) * 0.5, -2.0 + 0.3 * randn(R, 1), adv)
-            ls = actor.log_std.detach()
-            kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
-            kern = lambda: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls, **kw)
-            plain = lambda: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls, **kw)
-            k, p = kern(), plain()
-            errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol)
-            f32_rel = None
-            if bf16:
-                f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
-                                                     **{**kw, "bf16": False})
-                f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p), tol)
-                del f32_k
-            # forward, dW and g_prev of every layer (layer 0's for the
-            # feature norm's gradients): 3 products of 2 ops a MAC
-            ops = 6 * R * (D * H + H * H)
-            nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
-            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-            record(results, "actor_ppo_grads_unfolded", mode, envs, f"rows={R} d_in={D}", errs,
-                   kern, plain, b, by, f32_rel)
-            del k, p
-
+            adv0 = randn(R, 1)
+            act, old_lp = randn(R, 2) * 0.5, -2.0 + 0.3 * randn(R, 1)
             cent = obs.reshape(Rv, A * D)
             with torch.no_grad():
                 v0 = critic(cent[: min(Rv, 65536)].float())
             vpred = randn(Rv, 1) * float(v0.std() + 0.1)
-            aux_c = FP.pack_critic_aux(vpred, vpred + 3.0 * randn(Rv, 1))
-            norm = torch.tensor([0.5, 2.0], device=dev)
-            cparams = [p.detach() for p in critic.base.flat_params()]
-            wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
-            if bf16:
-                kink = FM.relu_kink_rows(cent, cparams, 2, True, True)
-                aux_c[kink, 2] = 0.0
-                print(f"  K4u bf16, {envs} envs: {int(kink.sum())} of {Rv} rows next to a relu "
-                      f"kink get valid = 0", flush=True)
-            ckw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2,
-                       huber_delta=10.0, use_huber=True, use_clipped=True)
-            kern = lambda: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
-                                                         **ckw)
-            plain = lambda: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams, wv, bv,
-                                                           **ckw)
-            k, p = kern(), plain()
-            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
-            f32_rel = None
-            if bf16:
-                f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
-                                                      **{**ckw, "bf16": False})
-                f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p), tol)
-                del f32_k
-            ops = 6 * Rv * (A * D * H + H * H)
-            nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
-            b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-            record(results, "critic_ppo_grads_unfolded", mode, envs, f"rows={Rv} d_in={A * D}",
-                   errs, kern, plain, b, by, f32_rel)
-            del k, p, obs, cent
+            ret = vpred + 3.0 * randn(Rv, 1)
+            for label, relu, L, fn, gated in trunk_variants(bf16, preset):
+                params = actor_p if fn else actor_p[2:2 + 4 * L]
+                adv = adv0.clone()
+                if relu and (bf16 or preset is not None):
+                    kink = FM.relu_kink_rows(obs, params, L, fn, bf16)
+                    adv[kink] = 0.0
+                    print(f"  K3u {mode}, {envs} envs{label}: {int(kink.sum())} of {R} rows "
+                          f"next to a relu kink get a zero advantage", flush=True)
+                aux_a = FP.pack_actor_aux(act, old_lp, adv)
+                kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
+                kern = lambda: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls, **kw)
+                plain = lambda: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls,
+                                                              **kw)
+                k, p = kern(), plain()
+                errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol, gate=gated)
+                f32_rel = None
+                if bf16 and gated:
+                    f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
+                                                         **{**kw, "bf16": False})
+                    f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p),
+                                          tol)
+                    del f32_k
+                # forward, dW and g_prev of every layer (layer 0's for the
+                # feature norm's gradients): 3 products of 2 ops a MAC
+                ops = 6 * R * (D * H + (L - 1) * H * H)
+                nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                record(results, "actor_ppo_grads_unfolded", mode, envs,
+                       f"rows={R} d_in={D}{label}", errs, kern, plain, b, by, f32_rel,
+                       preset=preset, gated=gated)
+                del k, p
+
+                cparams = critic_p if fn else critic_p[2:2 + 4 * L]
+                aux_c = FP.pack_critic_aux(vpred, ret)
+                if relu and (bf16 or preset is not None):
+                    kink = FM.relu_kink_rows(cent, cparams, L, fn, bf16)
+                    aux_c[kink, 2] = 0.0
+                    print(f"  K4u {mode}, {envs} envs{label}: {int(kink.sum())} of {Rv} rows "
+                          f"next to a relu kink get valid = 0", flush=True)
+                ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
+                           huber_delta=10.0, use_huber=True, use_clipped=True)
+                kern = lambda: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
+                                                             **ckw)
+                plain = lambda: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams, wv,
+                                                               bv, **ckw)
+                k, p = kern(), plain()
+                errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol, gate=gated)
+                f32_rel = None
+                if bf16 and gated:
+                    f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
+                                                          **{**ckw, "bf16": False})
+                    f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p),
+                                          tol)
+                    del f32_k
+                ops = 6 * Rv * (A * D * H + (L - 1) * H * H)
+                nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
+                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                record(results, "critic_ppo_grads_unfolded", mode, envs,
+                       f"rows={Rv} d_in={A * D}{label}", errs, kern, plain, b, by, f32_rel,
+                       preset=preset, gated=gated)
+                del k, p
+            del obs, cent
             torch.cuda.empty_cache()
 
 
-def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
+# the one-card presets whose row widths K2-K4, K2b and K3u / K4u are held
+# at, at their 16 envs (actor / critic): 58 / 174, 192 / 960, 122 / 1,220;
+# throughput_4096's are the default config's 110 / 440
+PRESET_CHECKS = ("3uav_small", "5uav_dense_conn", "10uav_moving_collision")
+
+
+def check_presets(results: list):
+    """Every kernel but K1 at the presets' widths, at the shapes their runs
+    give it: K2 on E*A actor and E critic rows, K2b on T*E*A rows of each
+    width, K3 / K3u on the T*E*A actor rows, K4 / K4u on the T*E critic
+    rows, each in f32 and bf16 under the bounds and kink rules of the
+    default config's checks, the gradient kernels in bf16 on the trunks of
+    ``trunk_variants``. Each preset draws from a generator of its own, so
+    that ``scripts/smoke_phase.py presets`` draws the same data."""
+    import torch
+
+    for i, preset in enumerate(PRESET_CHECKS):
+        gen = torch.Generator(device="cuda").manual_seed(100 + i)
+        env = env_config(preset)
+        print(f"  preset {preset}: {env.n_agents} agents, actor rows {env.obs_dim} wide, "
+              f"critic rows {env.share_obs_dim} wide", flush=True)
+        check_trunk_forward(results, gen, preset, envs_list=(16,))
+        check_trunk_backward(results, gen, ((16, 1, "both"),), preset)
+        check_ppo(results, gen, ((16, 1),), preset)
+        check_unfolded(results, gen, preset, envs_list=(16,))
+
+
+def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=None):
     """One update on the card vs the plain versions on the CPU, from the
-    same parameters and trajectory; ``kernels`` must launch on the card. In
-    bf16 the same update computed in f32 on the card must land outside
+    same parameters and trajectory, on the default env or
+    ``EnvConfig(**env_kw)``; ``kernels`` must launch on the card. In bf16
+    the same update computed in f32 on the card must land outside
     ``param_tol``. Returns the readings."""
     import torch
 
@@ -801,8 +969,9 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
 
     bf16 = cfg.compute_dtype == "bfloat16"
     devices = ("cpu", "cuda", "cuda-f32") if bf16 else ("cpu", "cuda")
+    env = EnvConfig(**(env_kw or {}))
     algos = {d: MAPPO(cfg._replace(compute_dtype="float32") if d == "cuda-f32" else cfg,
-                      EnvConfig(), device=d.split("-")[0]) for d in devices}
+                      env, device=d.split("-")[0]) for d in devices}
     states = {d: a.init_state(seed=3) for d, a in algos.items()}
     for d in devices[1:]:
         for net in ("actor", "critic"):
@@ -851,7 +1020,7 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels):
 
 # the updates held on the card against the CPU: (tag, MAPPOConfig fields
 # beyond UPDATE_SMALL, param bound, metrics rtol, metrics atol, kernels that
-# must launch on the card)
+# must launch on the card[, EnvConfig fields])
 UPDATE_SMALL = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
                     gae_backend="pallas")
 UPDATE_CHECKS = (
@@ -870,6 +1039,10 @@ UPDATE_CHECKS = (
      dict(fused_loss="on", fused_fold=False, num_mini_batch=2, use_popart=True,
           use_valuenorm=False),
      1e-5, 1e-3, 1e-5, ("gae", "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")),
+    # the non-Gaussian heads: f32 autograd (the fused trunk and loss are off
+    # in f32), under the fused f32 bounds
+    *((f"f32 {mode}", {}, 1e-5, 1e-3, 1e-5, ("gae",), dict(action_mode=mode))
+      for mode in ("discrete", "multi_discrete", "multi_binary", "mixed")),
 )
 
 
@@ -878,11 +1051,11 @@ def check_updates_against_cpu(results: dict, tags=None, drop_kernels=()):
     requiring its kernels but ``drop_kernels`` to launch."""
     from dcc_tpu_torch.algos.mappo import MAPPOConfig
 
-    for tag, kw, param_tol, rtol, atol, kernels in UPDATE_CHECKS:
+    for tag, kw, param_tol, rtol, atol, kernels, *env_kw in UPDATE_CHECKS:
         if tags is None or tag in tags:
             results[tag] = check_update_against_cpu(
                 tag, MAPPOConfig(**UPDATE_SMALL, **kw), param_tol, rtol, atol,
-                tuple(k for k in kernels if k not in drop_kernels))
+                tuple(k for k in kernels if k not in drop_kernels), *env_kw)
 
 
 def check_k2_plain_update(results: dict):
@@ -958,38 +1131,96 @@ def profile_iteration(learner, tag: str) -> dict:
                 kernels={k: dict(total_us=v[0], calls=v[1]) for k, v in rows})
 
 
-def train_runs(results: dict):
+def train_run(results: dict, tag: str, args: list, per_iter: dict):
+    """Train through ``dcc_tpu_torch.train.main(args)``; require finite
+    metrics, each kernel's launches to be ``per_iter`` times the iterations
+    (the others none) and the entry points of ``GAE_ENTRY`` and
+    ``MMA_ENTRY[tag]``. Returns the Learner."""
     import torch
 
     from dcc_tpu_torch import train
     from dcc_tpu_torch.ops import LAUNCHES, reset_launches
     from dcc_tpu_torch.ops.cuda_build import ENTRY
 
+    print(f"--- train, {tag}: python -m dcc_tpu_torch.train {' '.join(args)}", flush=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    learner = train.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    m = learner.last_metrics._asdict()
+    if not all(math.isfinite(v) for v in m.values()):
+        raise SmokeFailure(f"non-finite training metrics ({tag}): {m}")
+    results[tag] = dict(metrics=m, launches=counts, wall_s=wall,
+                        phases=learner.timer.summary())
+    print(f"  launches {counts}; wall {wall:.2f} s", flush=True)
+    print(f"  phases {json.dumps(results[tag]['phases'])}", flush=True)
+    want = {k: n * learner.n_iters for k, n in per_iter.items()}
+    if counts != want:
+        raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
+    want_entry = {"gae": GAE_ENTRY, **MMA_ENTRY.get(tag, {})}
+    entries = {k: ENTRY.get(k) for k in want_entry}
+    if entries != want_entry:
+        raise SmokeFailure(f"{tag}: the kernels went through {entries}, not {want_entry}")
+    return learner
+
+
+def train_runs(results: dict):
     for tag, extra, per_iter in TRAIN_RUNS:
-        args = BASE_ARGS + extra
-        print(f"--- train, {tag}: python -m dcc_tpu_torch.train {' '.join(args)}", flush=True)
-        reset_launches()
-        t0 = time.perf_counter()
-        learner = train.main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = dict(LAUNCHES)
-        m = learner.last_metrics._asdict()
-        if not all(math.isfinite(v) for v in m.values()):
-            raise SmokeFailure(f"non-finite training metrics ({tag}): {m}")
-        results[tag] = dict(metrics=m, launches=counts, wall_s=wall,
-                            phases=learner.timer.summary())
-        print(f"  launches {counts}; wall {wall:.2f} s", flush=True)
-        print(f"  phases {json.dumps(results[tag]['phases'])}", flush=True)
-        want = {k: n * learner.n_iters for k, n in per_iter.items()}
-        if counts != want:
-            raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
-        want_entry = {"gae": GAE_ENTRY, **MMA_ENTRY.get(tag, {})}
-        entries = {k: ENTRY.get(k) for k in want_entry}
-        if entries != want_entry:
-            raise SmokeFailure(f"{tag}: the kernels went through {entries}, not {want_entry}")
+        learner = train_run(results, tag, BASE_ARGS + extra, per_iter)
         if tag in PROFILED:
             results[f"profile {tag}"] = profile_iteration(learner, tag)
+
+
+def render_run(results: dict):
+    """The default command with render: the default YAMLs (f32), 2
+    iterations, the GIF of iteration 2 into a temporary directory. K1 is the
+    only kernel of the run, once an iteration; models_2.gif must decode to
+    T + 1 = 151 frames of 700 x 700."""
+    import tempfile
+
+    from PIL import Image
+
+    out = tempfile.mkdtemp(prefix="chip_smoke_render_")
+    try:
+        args = ["--n-iters", "2", "--render-interval", "2", "--seed", "0",
+                "--main-save-path", out]
+        learner = train_run(results, "default-render", args, {"gae": 1})
+        gif = os.path.join(learner.output_path, "models_2.gif")
+        with Image.open(gif) as im:
+            frames, size = im.n_frames, im.size
+            for i in range(frames):  # every frame decodes
+                im.seek(i)
+                im.convert("RGB")
+        if (frames, size) != (151, (700, 700)):
+            raise SmokeFailure(f"models_2.gif holds {frames} frames of {size}, expected 151 "
+                               f"of (700, 700)")
+        results["default-render"]["gif"] = dict(frames=frames, size=list(size),
+                                                bytes=os.path.getsize(gif))
+        print(f"  models_2.gif: {frames} frames of {size[0]} x {size[1]}, "
+              f"{os.path.getsize(gif)} bytes", flush=True)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def check_wide_preset(results: dict):
+    """The 20-UAV preset on the card: building MAPPO from it raises
+    NotImplementedError naming ROADMAP B2 (its 4,840-wide critic rows fit no
+    row tile of K4)."""
+    from dcc_tpu_torch.algos.mappo import MAPPO
+    from dcc_tpu_torch.configs import load_preset
+
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
+    try:
+        MAPPO(algo_cfg, env_cfg, device="cuda")
+    except NotImplementedError as e:
+        if "B2" not in str(e):
+            raise SmokeFailure(f"20uav_16k_dist: refused without naming ROADMAP B2: {e}")
+        results["20uav_16k_dist"] = str(e)
+        print(f"  20uav_16k_dist refused on the card: {e}", flush=True)
+        return
+    raise SmokeFailure("20uav_16k_dist: MAPPO built on the card; expected the B2 refusal")
 
 
 def main(argv=None) -> int:
@@ -1027,6 +1258,7 @@ def main(argv=None) -> int:
           flush=True)
     ptxas = ptxas_report(built["_ptxas"], args.ptxas)
     sass = sass_check(built)
+    extra: dict = {}
 
     checks: list = []
     print(f"[3] kernels against their plain versions (at {time.perf_counter() - t0:.0f} s)",
@@ -1041,13 +1273,15 @@ def main(argv=None) -> int:
           flush=True)
     runs: dict = {}
     train_runs(runs)
+    render_run(runs)
+    check_wide_preset(extra)
     print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in REPLACES:
         mode = "f32" if name == "gae" else "bf16"
         row = next(c for c in checks if c["kernel"] == name and c["mode"] == mode
-                   and c["envs"] == 16 and "nmb" not in c["shape"])
+                   and c["envs"] == 16 and "nmb" not in c["shape"] and c["preset"] is None)
         # K1's wrapper takes longer on the host than its kernel on the card,
         # so its event time is the host's rate: device_ms beside it
         dev = row["device_us"]
@@ -1064,7 +1298,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            build_s=built["_seconds"], ptxas=ptxas, sass_hmma=sass,
-                           checks=checks, updates=updates, train=runs, kernels=kernels),
+                           checks=checks, updates=updates, train=runs, kernels=kernels,
+                           **extra),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,4 @@
-"""Shared-parameter MAPPO with a Gaussian actor, feed-forward or recurrent,
-in PyTorch.
+"""Shared-parameter MAPPO, feed-forward or recurrent, in PyTorch.
 
 Counterpart of :mod:`dcc_tpu.algos.mappo` for the shared policy:
 fresh-reset rollout over E batched envs -> value-normalizer-denormalized GAE
@@ -7,7 +6,10 @@ fresh-reset rollout over E batched envs -> value-normalizer-denormalized GAE
 surrogate + clipped one-sided Huber value loss + entropy bonus, two Adams
 with eps 1e-5, optax-style global-norm clip per network, count-based linear
 LR decay). The value normalizer is ValueNorm or PopArt (which also rescales
-the value head), or none.
+the value head), or none. The actor's head follows the env's action mode
+(gaussian, categorical, multi_discrete, multi_binary, mixed): actions are
+stored (T, E, A, ``action_width``) and log-probs (T, E, A, k), k the
+multi_discrete branch count and 1 otherwise.
 
 ``update`` dispatches as the JAX package's does:
 
@@ -29,9 +31,11 @@ the value head), or none.
 
 Dispatch of the kernels mirrors ``MAPPO.__init__`` of the JAX package:
 "auto" selects the GAE kernel K1 on CUDA, and the fused trunk K2 / K2b and
-(feed-forward only) the fused loss on CUDA in bf16; "on" forces them (on
-CPU tensors that runs their plain versions). Options this port does not run
-yet raise :class:`NotImplementedError` naming their ROADMAP item.
+(feed-forward Gaussian policy only) the fused loss on CUDA in bf16; "on"
+forces them (on CPU tensors that runs their plain versions). Options this
+port does not run yet raise :class:`NotImplementedError` naming their
+ROADMAP item, and so does a run on CUDA whose rows are too wide for a row
+tile of a kernel it launches (ROADMAP B2).
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from ..models import distributions as D
 from ..models import popart as PA
 from ..models import valuenorm as VN
 from ..ops import fused_ppo as FP
+from ..ops import tiles
 from ..ops.cuda_gae import compute_gae_cuda
 from ..ops.gae import compute_gae, discounted_returns
 from ..utils import clip_by_global_norm_, global_norm, resolve_device
@@ -132,8 +137,8 @@ class Trajectory(NamedTuple):
     """Time-major rollout storage; values / rewards / masks are per env."""
 
     obs: torch.Tensor  # (T+1, E, A, D)
-    actions: torch.Tensor  # (T, E, A, act)
-    log_probs: torch.Tensor  # (T, E, A, 1)
+    actions: torch.Tensor  # (T, E, A, action_width)
+    log_probs: torch.Tensor  # (T, E, A, k): k = branches for multi_discrete, else 1
     values: torch.Tensor  # (T+1, E, 1)
     rewards: torch.Tensor  # (T, E, 1)
     masks: torch.Tensor  # (T+1, E, 1)
@@ -220,15 +225,18 @@ class MAPPO:
                 f"data_chunk_length ({cfg.data_chunk_length})"
             )
 
+        self.head_kind = env_cfg.action_head_kind
+        self.head_dims = env_cfg.action_head_dims
         on_cuda = self.device.type == "cuda"
         self.fused_trunk = _resolve_switch(cfg.fused_trunk, "fused_trunk", on_cuda and self.bf16)
-        if cfg.fused_loss in ("on", "interpret") and self.recurrent:
+        fused_loss_ok = not self.recurrent and self.head_kind == "gaussian"
+        if cfg.fused_loss in ("on", "interpret") and not fused_loss_ok:
             raise ValueError(
                 "fused_loss requires the shared feed-forward gaussian policy (no "
                 "CNN/recurrent/separated/discrete)"
             )
         self.fused_loss = _resolve_switch(cfg.fused_loss, "fused_loss",
-                                          on_cuda and self.bf16 and not self.recurrent)
+                                          on_cuda and self.bf16 and fused_loss_ok)
         if cfg.update_chunks > 1 and (self.recurrent or cfg.num_mini_batch != 1):
             raise NotImplementedError(
                 "update_chunks (gradient accumulation) supports the feed-forward "
@@ -241,11 +249,39 @@ class MAPPO:
         )
         self.obs_dim = env_cfg.obs_dim
         self.cent_obs_dim = env_cfg.share_obs_dim
+        self.logp_cols = len(self.head_dims) if self.head_kind == "multi_discrete" else 1
         self.store_dtype = (
             torch.bfloat16 if self.bf16 and cfg.store_obs_bf16 else torch.float32
         )
         self.net_dtype = torch.bfloat16 if self.bf16 else torch.float32
         self._updates_per_iter = cfg.ppo_epoch * cfg.num_mini_batch
+        if on_cuda:
+            self._check_row_tiles()
+
+    def _check_row_tiles(self) -> None:
+        """Raise (ROADMAP B2) where a kernel this run launches on CUDA has no
+        row tile at its row width: the kernels stage whole rows in shared
+        memory, and a row too wide would first fail inside its launch."""
+        act_n = self.env_cfg.action_dim
+        launches = []  # (kernel, row width, head width)
+        if self.fused_trunk:
+            launches += [("fused_mlp", self.obs_dim, 1), ("fused_mlp", self.cent_obs_dim, 1)]
+            if not self.fused_loss:  # the update differentiates through K2b
+                launches += [("fused_mlp_bwd", self.obs_dim, 1),
+                             ("fused_mlp_bwd", self.cent_obs_dim, 1)]
+        if self.fused_loss:
+            tag = "" if self.cfg.fused_fold else "_unfolded"
+            launches += [(f"actor_ppo_grads{tag}", self.obs_dim, act_n),
+                         (f"critic_ppo_grads{tag}", self.cent_obs_dim, 1)]
+        for kernel, width, n_head in launches:
+            if not tiles.fitting_tiles(kernel, self.bf16, width, self.cfg.hidden_size,
+                                       self.cfg.layer_n + 1, n_head):
+                raise NotImplementedError(
+                    f"{kernel} ({'bf16' if self.bf16 else 'f32'}) has no row tile that fits "
+                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: tile the "
+                    f"first layer over d_in; the 20-UAV preset, whose critic rows are 4,840 "
+                    f"wide, also needs multi-GPU, ROADMAP A13)"
+                )
 
     # ------------------------------------------------------------------
     # init
@@ -269,6 +305,7 @@ class MAPPO:
         gen = torch.Generator().manual_seed(seed)
         rnn = dict(use_rnn=self.recurrent, recurrent_n=self.cfg.recurrent_n)
         actor = Actor(self.obs_dim, self.env_cfg.action_dim, self.cfg.gain, **rnn,
+                      head_kind=self.head_kind, head_dims=self.head_dims,
                       **self._trunk_kwargs(gen))
         critic = Critic(self.cent_obs_dim, **rnn, **self._trunk_kwargs(gen))
         return actor.to(self.device), critic.to(self.device)
@@ -311,17 +348,13 @@ class MAPPO:
     # ------------------------------------------------------------------
     def act(self, ts: TrainState, obs, deterministic: bool = False, generator=None,
             rnn_state=None, masks=None):
-        """obs (..., D) -> (action (..., act), log_prob (..., 1)), plus the
-        new hidden state when ``rnn_state`` (B, L, H) and ``masks`` (B, 1)
-        are given."""
-        out = ts.actor(obs, rnn_state, masks)
-        mean, log_std = out[:2]
-        if deterministic:
-            action = D.normal_mode(mean)
-        else:
-            action = D.normal_sample(mean, log_std, generator)
-        logp = D.normal_log_prob(mean, log_std, action)
-        return (action, logp) if rnn_state is None else (action, logp, out[2])
+        """obs (..., D) -> (action (..., action_width) f32, log_prob (..., k)),
+        plus the new hidden state when ``rnn_state`` (B, L, H) and ``masks``
+        (B, 1) are given."""
+        if rnn_state is None:
+            return D.sample_head(self.head_kind, ts.actor(obs), deterministic, generator)
+        out, h = ts.actor(obs, rnn_state, masks)
+        return (*D.sample_head(self.head_kind, out, deterministic, generator), h)
 
     def value(self, ts: TrainState, cent_obs, rnn_state=None, masks=None):
         """The value (..., 1), plus the new hidden state when ``rnn_state``
@@ -341,17 +374,20 @@ class MAPPO:
     @torch.no_grad()
     def rollout(self, ts: TrainState, n_envs: int, deterministic: bool = False,
                 generator: Optional[torch.Generator] = None) -> Trajectory:
-        """Fresh-reset rollout of episode_length steps over n_envs envs."""
+        """Fresh-reset rollout of episode_length steps over n_envs envs; the
+        actions and a random env reset (``randomize_pois``, ``poi_speed``)
+        draw from ``generator`` (default ``ts.generator``)."""
         cfg, env_cfg = self.cfg, self.env_cfg
         gen = ts.generator if generator is None else generator
         T, A, E = cfg.episode_length, env_cfg.n_agents, n_envs
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
-        states = reset_batch(env_cfg, E, device=dev)
+        env_gen = gen if env_cfg.random_reset else None
+        states = reset_batch(env_cfg, E, device=dev, generator=env_gen)
         obs = observation(env_cfg, states)
         obs_buf = torch.empty((T + 1, E, A, self.obs_dim), dtype=self.store_dtype, device=dev)
-        actions = torch.empty((T, E, A, env_cfg.action_dim), **f32)
-        logps = torch.empty((T, E, A, 1), **f32)
+        actions = torch.empty((T, E, A, env_cfg.action_width), **f32)
+        logps = torch.empty((T, E, A, self.logp_cols), **f32)
         values = torch.empty((T + 1, E, 1), **f32)
         rewards = torch.empty((T, E, 1), **f32)
         masks = torch.ones((T + 1, E, 1), **f32)
@@ -377,8 +413,8 @@ class MAPPO:
                 values[t] = self.value(ts, cent)
             obs_buf[t] = obs
             actions[t] = action.reshape(E, A, -1)
-            logps[t] = logp.reshape(E, A, 1)
-            states, out = step_batch(env_cfg, states, actions[t])
+            logps[t] = logp.reshape(E, A, -1)
+            states, out = step_batch(env_cfg, states, actions[t], env_gen)
             masks[t + 1] = 1.0 - (out.done | out.truncated).float()[:, None]
             bad_masks[t + 1] = 1.0 - out.truncated.float()[:, None]
             rewards[t] = out.reward[:, None]
@@ -646,16 +682,18 @@ class MAPPO:
         obs_b, act_b, logp_b, adv_b, cent_b, vpred_b, _ = batch
         if rnn is not None:
             mask_b, ha_b, hc_b = rnn
-            mean, log_std, _ = ts.actor.sequence(obs_b, ha_b, mask_b)
+            out, _ = ts.actor.sequence(obs_b, ha_b, mask_b)
             values, _ = ts.critic.sequence(cent_b, hc_b, mask_b)
         elif cfg.use_remat:
-            mean, log_std = checkpoint(ts.actor, obs_b, use_reentrant=False)
+            out = checkpoint(ts.actor, obs_b, use_reentrant=False)
             values = checkpoint(ts.critic, cent_b, use_reentrant=False)
         else:
-            mean, log_std = ts.actor(obs_b)
+            out = ts.actor(obs_b)
             values = ts.critic(cent_b)
-        new_logp = D.normal_log_prob(mean, log_std, act_b)
-        dist_entropy = D.normal_entropy(log_std, mean).sum(-1).mean()
+        # log-probs (rows, k) against adv (rows, 1): the ratio, clip and min
+        # broadcast over the k columns, which the surrogate sums
+        new_logp, ent = D.evaluate_head(self.head_kind, out, act_b)
+        dist_entropy = ent.sum(-1).mean()
         ratio = torch.exp(new_logp - logp_b)
         surr1 = ratio * adv_b
         surr2 = jnp_clip(ratio, 1.0 - cfg.clip_param, 1.0 + cfg.clip_param) * adv_b

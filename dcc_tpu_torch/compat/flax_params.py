@@ -2,7 +2,9 @@
 
 The tree is given as nested dicts of numpy arrays (``{"params": {...}}`` or
 its inner dict), as ``jax.device_get`` returns it; the module never imports
-JAX. Names map one to one (``base.fc0.kernel`` <-> ``base.fc0.weight``):
+JAX. Names map one to one (``base.fc0.kernel`` <-> ``base.fc0.weight``; the
+actor heads keep flax's names: ``act_out``, ``act_out{i}`` per
+multi_discrete branch, ``act_out_disc`` and ``log_std``):
 
 * a flax Dense ``kernel`` is (in, out), a torch ``Linear.weight`` is
   (out, in), so it is transposed;

@@ -1,3 +1,12 @@
-from .loader import load, load_yaml_merged, to_algo_config, to_env_config
+from .loader import (
+    PRESETS,
+    load,
+    load_preset,
+    load_yaml_merged,
+    preset_path,
+    to_algo_config,
+    to_env_config,
+)
 
-__all__ = ["load", "load_yaml_merged", "to_algo_config", "to_env_config"]
+__all__ = ["PRESETS", "load", "load_preset", "load_yaml_merged", "preset_path",
+           "to_algo_config", "to_env_config"]

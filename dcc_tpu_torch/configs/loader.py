@@ -121,6 +121,30 @@ def to_algo_config(cfg: Dict[str, Any]) -> MAPPOConfig:
     )
 
 
+#: Named env-config presets (the JAX package's, its BASELINE.json configs).
+PRESETS = {
+    "default": "dcc.yaml",
+    "3uav_small": "dcc_3uav_small.yaml",
+    "5uav_dense_conn": "dcc_5uav_dense_conn.yaml",
+    "10uav_moving_collision": "dcc_10uav_moving_collision.yaml",
+    "throughput_4096": "dcc_throughput_4096.yaml",
+    "20uav_16k_dist": "dcc_20uav_16k_dist.yaml",
+}
+
+
+def preset_path(name: str) -> str:
+    """The env YAML of a named preset (see PRESETS)."""
+    if name not in PRESETS:
+        raise KeyError(f"unknown preset {name!r}; available: {sorted(PRESETS)}")
+    return os.path.join(_CFG_DIR, "env_config", PRESETS[name])
+
+
+def load_preset(name: str, overrides: Optional[Dict[str, Any]] = None
+                ) -> Tuple[Dict[str, Any], EnvConfig, MAPPOConfig]:
+    """Load a named preset (see PRESETS)."""
+    return load(overrides=overrides, env_yaml=preset_path(name))
+
+
 def load(overrides: Optional[Dict[str, Any]] = None,
          **paths) -> Tuple[Dict[str, Any], EnvConfig, MAPPOConfig]:
     cfg = load_yaml_merged(overrides=overrides, **paths)

@@ -4,6 +4,7 @@ from .coverage import (
     StepOut,
     check_supported,
     connectivity,
+    decode_action,
     default_poi_bank,
     observation,
     reset,
@@ -17,6 +18,7 @@ __all__ = [
     "StepOut",
     "check_supported",
     "connectivity",
+    "decode_action",
     "default_poi_bank",
     "observation",
     "reset",

@@ -5,9 +5,12 @@ reward and observation layout (cited there against the reference world),
 written natively over a leading env axis instead of ``vmap``. Every tensor
 of :class:`EnvState` is ``(E, ...)``; ``step`` advances all E envs at once.
 
-Scope of this module: continuous (Box) actions with the deterministic reset
-from the frozen PoI bank. Discrete action modes, randomized or moving PoIs
-(ROADMAP A6) and the compensated df64 pull force (ROADMAP A12) raise
+Every action mode of the JAX package is decoded in :func:`step` (continuous,
+discrete, multi_discrete, multi_binary, mixed). The default reset is
+deterministic (the frozen PoI bank); ``randomize_pois`` and ``poi_speed``
+draw the PoI layout and headings from an explicit ``torch.Generator`` on the
+env's device, where the JAX package keeps a PRNG key per env. The
+compensated df64 pull force (ROADMAP A12) raises
 :class:`NotImplementedError` instead of running a different environment.
 """
 
@@ -89,22 +92,45 @@ class EnvConfig(NamedTuple):
         }[self.resolved_action_mode]
 
     @property
+    def action_head_kind(self) -> str:
+        """The actor head's kind (``models.actor_critic.Actor``)."""
+        return {
+            "continuous": "gaussian",
+            "discrete": "categorical",
+            "multi_discrete": "multi_discrete",
+            "multi_binary": "multi_binary",
+            "mixed": "mixed",
+        }[self.resolved_action_mode]
+
+    @property
+    def action_head_dims(self) -> tuple:
+        """Per-branch category counts (multi_discrete) or (continuous dim,
+        discrete count) (mixed); empty otherwise."""
+        mode = self.resolved_action_mode
+        if mode == "multi_discrete":
+            return (3, 3)
+        if mode == "mixed":
+            return (2, 3)
+        return ()
+
+    @property
+    def action_width(self) -> int:
+        """Width of one agent's action as the env takes it and MAPPO stores
+        it: ``action_dim``, except one category index for discrete."""
+        return 1 if self.resolved_action_mode == "discrete" else self.action_dim
+
+    @property
+    def random_reset(self) -> bool:
+        """Whether a reset draws random numbers (and needs a generator)."""
+        return self.randomize_pois or self.poi_speed > 0.0
+
+    @property
     def effective_contact_force(self) -> float:
         return self.contact_force * self.comm_force_scale
 
 
 def check_supported(cfg: EnvConfig) -> None:
     """Raise for the options this port does not run yet."""
-    if cfg.resolved_action_mode != "continuous":
-        raise NotImplementedError(
-            f"action mode {cfg.resolved_action_mode!r} is not ported yet "
-            "(ROADMAP A6: action modes); only continuous actions run"
-        )
-    if cfg.randomize_pois or cfg.poi_speed > 0.0:
-        raise NotImplementedError(
-            "randomize_pois / poi_speed are not ported yet (ROADMAP A6: env "
-            "extensions)"
-        )
     if cfg.compensated_forces:
         raise NotImplementedError(
             "compensated_forces (df64 pull force) is not ported yet "
@@ -160,22 +186,35 @@ def reset(
     dtype: torch.dtype = torch.float32,
     device=None,
     poi_bank: Optional[np.ndarray] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> EnvState:
     """Reset E envs: agents at the origin at rest, PoIs from rows [0:M] of
-    the frozen bank (the reference's deterministic reset). ``device`` is
-    CUDA unless the caller asks for the CPU; without a GPU the default
-    raises."""
+    the frozen bank (the reference's deterministic reset) or, with
+    ``randomize_pois``, drawn U(-1, 1) per env; with ``poi_speed`` each PoI
+    gets a heading drawn U(0, 2 pi). The draws come from ``generator`` (on
+    ``device``), which a random reset requires. ``device`` is CUDA unless
+    the caller asks for the CPU; without a GPU the default raises."""
     check_supported(cfg)
     device = resolve_device(device)
     n, m = cfg.n_agents, cfg.n_pois
-    bank = default_poi_bank() if poi_bank is None else np.asarray(poi_bank)
-    poi = torch.as_tensor(bank[:m].copy(), dtype=dtype, device=device)
     kw = dict(dtype=dtype, device=device)
+    if cfg.random_reset and generator is None:
+        raise ValueError("randomize_pois / poi_speed draw at every reset: pass a generator")
+    if cfg.randomize_pois:
+        poi = torch.rand((n_envs, m, 2), generator=generator, **kw) * 2.0 - 1.0
+    else:
+        bank = default_poi_bank() if poi_bank is None else np.asarray(poi_bank)
+        poi = torch.as_tensor(bank[:m].copy(), **kw).expand(n_envs, m, 2).clone()
+    if cfg.poi_speed > 0.0:
+        theta = torch.rand((n_envs, m), generator=generator, **kw) * (2.0 * np.pi)
+        poi_vel = cfg.poi_speed * torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+    else:
+        poi_vel = torch.zeros((n_envs, m, 2), **kw)
     return EnvState(
         pos=torch.zeros((n_envs, n, 2), **kw),
         vel=torch.zeros((n_envs, n, 2), **kw),
-        poi_pos=poi.expand(n_envs, m, 2).clone(),
-        poi_vel=torch.zeros((n_envs, m, 2), **kw),
+        poi_pos=poi,
+        poi_vel=poi_vel,
         energy=torch.zeros((n_envs, m), **kw),
         poi_done=torch.zeros((n_envs, m), dtype=torch.bool, device=device),
         t=torch.zeros((n_envs,), dtype=torch.int32, device=device),
@@ -290,12 +329,42 @@ def observation(cfg: EnvConfig, state: EnvState) -> torch.Tensor:
     )
 
 
+def decode_action(cfg: EnvConfig, action: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(E, N, ``action_width``) actions of the config's mode -> (E, N, 2)
+    forces in [-1, 1] (before ``sensitivity``), as ``dcc_tpu.envs.step``:
+
+    * continuous: the Box action itself;
+    * discrete: index {0: noop, 1: -x, 2: +x, 3: -y, 4: +y}, float indices
+      truncated to int32;
+    * multi_discrete: per-axis branch index {0, 1, 2} -> {-1, 0, +1};
+    * multi_binary: thruster bits (+x, -x, +y, -y) -> net axis forces;
+    * mixed: Box(2) direction times the throttle {0.5, 1.0, 1.5} of the
+      rounded (half to even, as ``jnp.round``) index in the last column."""
+    mode = cfg.resolved_action_mode
+    e, n = action.shape[0], cfg.n_agents
+    if mode == "discrete":
+        i = action.reshape(e, n).to(torch.int32)
+        axis = lambda neg, pos: (i == pos).to(dtype) - (i == neg).to(dtype)
+        return torch.stack([axis(1, 2), axis(3, 4)], dim=-1)
+    action = action.to(dtype)
+    if mode == "multi_discrete":
+        return action.reshape(e, n, 2) - 1.0
+    if mode == "multi_binary":
+        b = action.reshape(e, n, 4)
+        return torch.stack([b[..., 0] - b[..., 1], b[..., 2] - b[..., 3]], dim=-1)
+    if mode == "mixed":
+        a = action.reshape(e, n, 3)
+        return a[..., :2] * (0.5 * (torch.round(a[..., 2:3]) + 1.0))
+    return action
+
+
 def step(cfg: EnvConfig, state: EnvState, action: torch.Tensor):
-    """Advance E envs one step; ``action`` is (E, N, 2) in [-1, 1]. Returns
-    the new state and the :class:`StepOut` of the transition."""
+    """Advance E envs one step; ``action`` is (E, N, ``action_width``) in
+    the config's action mode (:func:`decode_action`). Returns the new state
+    and the :class:`StepOut` of the transition."""
     n = cfg.n_agents
     dtype = state.pos.dtype
-    action = action.to(dtype)
+    action = decode_action(cfg, action, dtype)
 
     # connectivity on the OLD positions, then action + pull force
     force = action * cfg.sensitivity
@@ -313,9 +382,17 @@ def step(cfg: EnvConfig, state: EnvState, action: torch.Tensor):
     )
     pos = state.pos + vel * cfg.dt
 
+    # moving PoIs drift, bounce off the +-1 box and are clipped to it
+    if cfg.poi_speed > 0.0:
+        poi_pos = state.poi_pos + state.poi_vel * cfg.dt
+        poi_vel = torch.where(torch.abs(poi_pos) > 1.0, -state.poi_vel, state.poi_vel)
+        poi_pos = torch.clamp(poi_pos, -1.0, 1.0)
+    else:
+        poi_pos, poi_vel = state.poi_pos, state.poi_vel
+
     # PoI energy on the NEW positions
     d_ap = torch.sqrt(
-        torch.sum((pos[:, :, None, :] - state.poi_pos[:, None, :, :]) ** 2, dim=-1)
+        torch.sum((pos[:, :, None, :] - poi_pos[:, None, :, :]) ** 2, dim=-1)
     )  # (E, N, M)
     cover_cnt = torch.sum((d_ap <= cfg.r_cover).to(dtype), dim=1)
     energy = torch.where(state.poi_done, state.energy, state.energy + cover_cnt)
@@ -350,8 +427,8 @@ def step(cfg: EnvConfig, state: EnvState, action: torch.Tensor):
     new_state = EnvState(
         pos=pos,
         vel=vel,
-        poi_pos=state.poi_pos,
-        poi_vel=state.poi_vel,
+        poi_pos=poi_pos,
+        poi_vel=poi_vel,
         energy=energy,
         poi_done=poi_done,
         t=t_next,

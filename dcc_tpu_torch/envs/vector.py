@@ -8,25 +8,34 @@ reward / done / coverage rate, as the reference's worker protocol does.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from .coverage import EnvConfig, EnvState, StepOut, observation, reset, step
 
 
 def reset_batch(
-    cfg: EnvConfig, n_envs: int, dtype: torch.dtype = torch.float32, device=None
+    cfg: EnvConfig, n_envs: int, dtype: torch.dtype = torch.float32, device=None,
+    generator: Optional[torch.Generator] = None,
 ) -> EnvState:
-    """Reset E envs (the default reset is deterministic, so no generator) on
-    ``device``: CUDA unless the caller asks for the CPU."""
-    return reset(cfg, n_envs, dtype=dtype, device=device)
+    """Reset E envs on ``device``: CUDA unless the caller asks for the CPU.
+    The default reset is deterministic and takes no generator; with
+    ``randomize_pois`` or ``poi_speed`` the draws come from ``generator``."""
+    return reset(cfg, n_envs, dtype=dtype, device=device, generator=generator)
 
 
-def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor):
-    """Step E envs with (E, N, 2) actions; auto-reset finished envs."""
+def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
+               generator: Optional[torch.Generator] = None):
+    """Step E envs with (E, N, ``action_width``) actions; auto-reset finished
+    envs. A random reset draws a fresh layout for all E envs from
+    ``generator`` every step and keeps it where an episode ended, so the
+    host never waits for the done mask."""
     new_states, out = step(cfg, states, actions)
     boundary = out.done | out.truncated
     fresh = reset(
-        cfg, states.pos.shape[0], dtype=states.pos.dtype, device=states.pos.device
+        cfg, states.pos.shape[0], dtype=states.pos.dtype, device=states.pos.device,
+        generator=generator,
     )
     selected = new_states.select(boundary, fresh)
     # for envs that did not reset, observation(selected) is out.obs exactly

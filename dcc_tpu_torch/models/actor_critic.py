@@ -1,17 +1,27 @@
-"""Gaussian actor and centralized critic: MLP trunk -> optional GRU -> head.
+"""Actor and centralized critic: MLP trunk -> optional GRU -> head.
 
-Counterparts of :class:`dcc_tpu.models.actor_critic.Actor` (gaussian head:
-Linear mean with orthogonal gain 0.01 and a state-independent ``log_std``)
-and :class:`~dcc_tpu.models.actor_critic.Critic` (``v_out`` with orthogonal
-gain 1). ``trunk`` holds the :class:`MLPBase` arguments; ``use_rnn`` adds a
-:class:`MaskedGRU` (``rnn``) after the trunk. In bf16 mode the head runs with
-bf16 operands and a bf16 bias add, and its outputs are f32, as in the JAX
-package.
+Counterparts of :class:`dcc_tpu.models.actor_critic.Actor` and
+:class:`~dcc_tpu.models.actor_critic.Critic` (``v_out`` with orthogonal gain
+1). The actor's head dispatches on ``head_kind``, as the reference's
+ACTLayer, each Linear with orthogonal gain ``gain`` (0.01) and zero bias:
 
-Feed-forward calls take only the observations. With a GRU, ``forward``
-takes ``(obs, rnn_state (B, L, H), masks (B, 1))`` for one rollout step and
-``sequence`` takes ``(obs (T, B, D), h0, masks (T, B, 1))`` for training;
-both also return the new hidden state.
+* ``gaussian`` (Box): ``act_out`` mean and a state-independent ``log_std``;
+* ``categorical`` (Discrete) and ``multi_binary``: ``act_out`` logits;
+* ``multi_discrete``: ``act_out{i}`` logits per branch, ``head_dims`` the
+  per-branch category counts;
+* ``mixed`` (Box + Discrete): ``act_out`` mean, ``log_std`` and
+  ``act_out_disc`` logits, ``head_dims`` = (continuous dim, category count).
+
+The head's output is what :func:`~dcc_tpu_torch.models.distributions.sample_head`
+takes. ``trunk`` holds the :class:`MLPBase` arguments; ``use_rnn`` adds a
+:class:`MaskedGRU` (``rnn``) after the trunk. In bf16 mode every head Linear
+runs with bf16 operands and a bf16 bias add, and its outputs are f32, as in
+the JAX package.
+
+Feed-forward calls take only the observations and return the head output.
+With a GRU, ``forward`` takes ``(obs, rnn_state (B, L, H), masks (B, 1))``
+for one rollout step and ``sequence`` takes ``(obs (T, B, D), h0, masks (T,
+B, 1))`` for training; both also return the new hidden state.
 """
 
 from __future__ import annotations
@@ -49,29 +59,58 @@ class _Trunk(nn.Module):
 
 class Actor(_Trunk):
     def __init__(self, obs_dim: int, action_dim: int = 2, gain: float = 0.01,
-                 use_rnn: bool = False, recurrent_n: int = 1, **trunk):
+                 use_rnn: bool = False, recurrent_n: int = 1, head_kind: str = "gaussian",
+                 head_dims: tuple = (), **trunk):
         super().__init__(obs_dim, use_rnn, recurrent_n, **trunk)
-        self.act_out = nn.Linear(self.base.fc0.out_features, action_dim)
-        init_linear(self.act_out, gain, trunk.get("use_orthogonal", True),
-                    trunk.get("generator"))
-        self.log_std = nn.Parameter(torch.zeros(action_dim))
+        self.kind = head_kind
+        self.head_dims = tuple(head_dims)
+        hidden = self.base.fc0.out_features
+
+        def linear(name, n):
+            layer = nn.Linear(hidden, n)
+            init_linear(layer, gain, trunk.get("use_orthogonal", True), trunk.get("generator"))
+            setattr(self, name, layer)
+
+        if head_kind == "multi_discrete":
+            for i, n in enumerate(self.head_dims):
+                linear(f"act_out{i}", n)
+        elif head_kind == "mixed":
+            cont_dim, disc_n = self.head_dims
+            linear("act_out", cont_dim)
+            linear("act_out_disc", disc_n)
+            self.log_std = nn.Parameter(torch.zeros(cont_dim))
+        elif head_kind in ("gaussian", "categorical", "multi_binary"):
+            linear("act_out", action_dim)
+            if head_kind == "gaussian":
+                self.log_std = nn.Parameter(torch.zeros(action_dim))
+        else:
+            raise ValueError(f"unknown head kind {head_kind!r}")
+
+    def _dense(self, layer, x):
+        return dense(x, layer.weight.t(), layer.bias, self.base.bf16)
 
     def _head(self, x):
-        return dense(x, self.act_out.weight.t(), self.act_out.bias, self.base.bf16)
+        kind = self.kind
+        if kind == "multi_discrete":
+            return tuple(self._dense(getattr(self, f"act_out{i}"), x)
+                         for i in range(len(self.head_dims)))
+        if kind == "mixed":
+            return ((self._dense(self.act_out, x), self.log_std),
+                    self._dense(self.act_out_disc, x))
+        out = self._dense(self.act_out, x)
+        return (out, self.log_std) if kind == "gaussian" else out
 
     def forward(self, obs: torch.Tensor, rnn_state: Optional[torch.Tensor] = None,
                 masks: Optional[torch.Tensor] = None):
-        """Returns (mean f32, log_std), plus the new hidden state when
-        ``rnn_state`` is given."""
+        """The head output (gaussian: (mean f32, log_std)), and with
+        ``rnn_state`` (head output, new hidden state)."""
         x, h = self.features(obs, rnn_state, masks)
-        if rnn_state is None:
-            return self._head(x), self.log_std
-        return self._head(x), self.log_std, h
+        return self._head(x) if rnn_state is None else (self._head(x), h)
 
     def sequence(self, obs_seq, h0, masks_seq):
-        """(mean (T, B, act) f32, log_std, final hidden)."""
+        """(head output over (T, B, .), final hidden)."""
         x, h = self.features_seq(obs_seq, h0, masks_seq)
-        return self._head(x), self.log_std, h
+        return self._head(x), h
 
 
 class Critic(_Trunk):

@@ -15,7 +15,7 @@ stream and allocate nothing; the Python wrappers allocate with
 where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
 point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4,
 K2b and the unfolded K3u / K4u the tensor-core ``*_mma`` entry or the FMA
-one).
+one), ``TILE`` the row tile of each K2-K4, K2b, K3u / K4u latest launch.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 
 LAUNCHES: collections.Counter = collections.Counter()
 ENTRY: dict = {}
+TILE: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,6 +104,7 @@ _SIGNATURES["fused_ppo"].update({
 def reset_launches() -> None:
     LAUNCHES.clear()
     ENTRY.clear()
+    TILE.clear()
 
 
 def _nvcc() -> str:

@@ -41,8 +41,13 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from . import cuda_build as cb
+from . import tiles
+from .tiles import SMEM_MAX
 
 EPS = 1e-6
+# distance from a relu kink within which two f32 summation orders may take
+# opposite sides (the f32 kink rule of the kernel checks)
+F32_KINK_EPS = 1e-5
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -162,13 +167,13 @@ def trunk_backward_plain(
     return g.to(x.dtype), grads
 
 
-def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True, bf16: bool = False,
-                   eps: float = 1e-5) -> torch.Tensor:
-    """(rows,) bool: rows with a relu pre-activation z within ``eps`` of 0,
-    and in bf16 also those with z no farther from the kink than the bf16
-    spacing at its pre-rounding accumulator. There two summation orders
-    (kernel and plain version) may take opposite sides of the kink: in f32
-    by rounding, in bf16 because another order (the tensor cores') can move
+def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True,
+                   bf16: bool = False) -> torch.Tensor:
+    """(rows,) bool: rows with a relu pre-activation z within
+    ``F32_KINK_EPS`` of 0, and in bf16 also those with z no farther from
+    the kink than the bf16 spacing at its pre-rounding accumulator. There
+    two summation orders (kernel and plain version) may take opposite sides
+    of the kink: in f32 by rounding, in bf16 because another order (the tensor cores') can move
     the accumulator across a bf16 rounding boundary. The row's gradient then
     differs at full size; the kernel checks give these rows a zero
     cotangent (:func:`dcc_tpu_torch.ops.fused_ppo.relu_kink_rows_folded` is
@@ -180,7 +185,7 @@ def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True, bf16: bool = F
         for li, (a, *_) in enumerate(layers):
             w, b = params[first + 4 * li], params[first + 4 * li + 1]
             z = dense(a, w, b, bf16).abs()
-            near |= (z < eps).any(dim=1)
+            near |= (z < F32_KINK_EPS).any(dim=1)
             if bf16:
                 acc = (bf16_round(a) @ bf16_round(w)).abs().clamp_min(1e-30)
                 near |= (z <= torch.exp2(torch.floor(torch.log2(acc)) - 7)).any(dim=1)
@@ -262,16 +267,12 @@ def check_mma_width(hidden: int) -> None:
                          f"multiple of 8 and at most 256, not {hidden}")
 
 
-SMEM_MAX = 232448  # an H100 block's shared memory, bytes
-
-
-def tile_rows(width: int, floats_per_row_fn, budget: int = SMEM_MAX,
-              sizes: Sequence[int] = (32, 8, 1)) -> int:
+def tile_rows(width: int, floats_per_row_fn, sizes: Sequence[int]) -> int:
     """Largest row tile among the ``sizes`` a kernel is built for whose
     shared memory, ``4 * floats_per_row_fn(tile)`` bytes, fits one H100
     block."""
     for br in sizes:
-        if 4 * floats_per_row_fn(br) <= budget:
+        if 4 * floats_per_row_fn(br) <= SMEM_MAX:
             return br
     raise ValueError(f"a {width}-wide row does not fit the shared-memory budget")
 
@@ -339,6 +340,7 @@ def trunk_forward_cuda(
         (rows, hidden), dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device
     )
     lib = cb.library("fused_mlp")
+    smem = lambda b: tiles.smem_bytes("fused_mlp", bf16, b, d_in, hidden, n_layers) // 4
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
     if bf16:
@@ -348,8 +350,7 @@ def trunk_forward_cuda(
         sms = cb.sm_count(x.device)
         # the smallest row tile that still gives every SM a tile
         br = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
-        br = tile_rows(d_in, lambda b: lib.dcc_trunk_fwd_mma_smem_bytes(b, d_in, hidden) // 4,
-                       sizes=[b for b in (64, 32, 16) if b <= br])
+        br = tile_rows(d_in, smem, [b for b in tiles.SIZES[("fused_mlp", True)] if b <= br])
         n_blocks = max(1, min(-(-rows // br), 2 * sms))
         woffs = packed.weight_offsets
         entry = "dcc_trunk_fwd_mma"
@@ -360,7 +361,7 @@ def trunk_forward_cuda(
             cb.stream_of(x),
         )
     else:
-        br = tile_rows(d_in, lambda b: b * (max(d_in, hidden) + hidden))
+        br = tile_rows(d_in, smem, tiles.SIZES[("fused_mlp", False)])
         entry = "dcc_trunk_fwd"
         code = lib.dcc_trunk_fwd(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
@@ -369,6 +370,7 @@ def trunk_forward_cuda(
     cb.check("fused_mlp", code, "fused_mlp")
     cb.LAUNCHES["fused_mlp"] += 1
     cb.ENTRY["fused_mlp"] = entry
+    cb.TILE["fused_mlp"] = br
     return out
 
 
@@ -392,6 +394,7 @@ def trunk_backward_cuda(
     g = g.to(torch.float32).contiguous()
     cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
     lib = cb.library("fused_mlp_bwd")
+    smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers) // 4
     sms = cb.sm_count(x.device)
     if bf16:
         check_mma_width(hidden)
@@ -401,19 +404,13 @@ def trunk_backward_cuda(
             raise ValueError("bf16 K2b needs the bf16 weight copies: pack_trunk(..., bf16=True)")
         cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
         pb, offs = packed.buffer, packed.offsets
-        br = mma_tile_rows(
-            rows, d_in, lambda b: lib.dcc_trunk_bwd_mma_smem_bytes(b, d_in, hidden, n_layers) // 4,
-            sms, sizes=(64, 32, 16),
-        )
+        br = mma_tile_rows(rows, d_in, smem, sms, tiles.SIZES[("fused_mlp_bwd", True)])
     else:
         # the FMA kernel reads W^T (d_out, d_in) for g_prev = g W^T, after the params
         first = 2 if use_fn else 0
         wts = [params[first + 4 * li].t() for li in range(n_layers)]
         pb, offs = pack_params(list(params) + wts, x.device)
-        br = tile_rows(
-            d_in, lambda b: lib.dcc_trunk_bwd_smem_bytes(b, d_in, hidden, n_layers) // 4,
-            sizes=(32, 16, 8, 1),
-        )
+        br = tile_rows(d_in, smem, tiles.SIZES[("fused_mlp_bwd", False)])
     cb.require(pb, "packed parameters", (torch.float32,), device=x.device)
     if not use_fn:
         offs = [0, 0] + offs
@@ -438,6 +435,7 @@ def trunk_backward_cuda(
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
     cb.LAUNCHES["fused_mlp_bwd"] += 1
     cb.ENTRY["fused_mlp_bwd"] = entry
+    cb.TILE["fused_mlp_bwd"] = br
     grads = [t.view(p.shape) for t, p in zip(out[:used].split([p.numel() for p in params]),
                                              params)]
     return dx, grads

@@ -35,7 +35,9 @@ from typing import List, Sequence
 import torch
 
 from . import cuda_build as cb
+from . import tiles
 from .fused_mlp import (
+    F32_KINK_EPS,
     _forward_chain,
     activation,
     bf16_round,
@@ -221,20 +223,26 @@ def actor_grads_unfolded_plain(x, aux, params, wh, bh, log_std, *, n_layers, use
     return tg, dwh, dbh, dls, met
 
 
-def relu_kink_rows_folded(x, kp, n_layers: int, use_fn: bool) -> torch.Tensor:
+def relu_kink_rows_folded(x, kp, n_layers: int, use_fn: bool,
+                          bf16: bool = True) -> torch.Tensor:
     """(rows,) bool: rows of the folded bf16 relu chain with a pre-activation
     z no farther from the kink than the bf16 spacing at its pre-rounding
     accumulator. There a summation order other than the plain version's
     (the tensor cores') can move the accumulator across a bf16 rounding
     boundary and z across the kink, which changes the row's whole cotangent;
-    the bf16 K3 checks give these rows a zero advantage
+    the bf16 K3 checks give these rows a zero advantage. With ``bf16=False``,
+    rows of the f32 chain with z within ``F32_KINK_EPS`` of the kink, where two f32
+    summation orders may take opposite sides
     (:func:`dcc_tpu_torch.ops.fused_mlp.relu_kink_rows` is the unfolded
     chain's rule)."""
     with torch.no_grad():
-        _, cache = _fwd_folded(x, kp, n_layers, use_fn, True, True)
+        _, cache = _fwd_folded(x, kp, n_layers, use_fn, True, bf16)
         near = torch.zeros(x.shape[0], dtype=torch.bool, device=x.device)
         for li, (a, *_) in enumerate(cache):
-            z = dense(a, kp[2 * li], kp[2 * li + 1], True)
+            z = dense(a, kp[2 * li], kp[2 * li + 1], bf16)
+            if not bf16:
+                near |= (z.abs() < F32_KINK_EPS).any(dim=1)
+                continue
             acc = _mm(a, kp[2 * li], True).abs().clamp_min(1e-30)
             near |= (z.abs() <= torch.exp2(torch.floor(torch.log2(acc)) - 7)).any(dim=1)
     return near
@@ -389,16 +397,12 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     lib = cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
+    name = f"{kind}_ppo_grads{tag}"
+    smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head) // 4
     if bf16:
-        smem = getattr(lib, f"dcc_ppo{tag}_mma_smem_bytes")
-        br = mma_tile_rows(
-            rows, d_in, lambda b: smem(b, d_in, hidden, n_layers, n_head) // 4,
-            cb.sm_count(x.device), sizes=(64, 32) if kind == "actor" else (32, 16),
-        )
+        br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), tiles.SIZES[(name, True)])
     else:
-        smem = getattr(lib, f"dcc_ppo{tag}_smem_bytes")
-        br = tile_rows(d_in, lambda b: smem(b, d_in, hidden, n_layers, n_head) // 4,
-                       sizes=(32, 16, 8, 1) if unfolded else (32, 8, 1))
+        br = tile_rows(d_in, smem, tiles.SIZES[(name, False)])
     shapes = trunk_shapes + extra
     used = sum(math.prod(s) for s in shapes)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
@@ -424,10 +428,10 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
             len(offs), *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(),
             cb.stream_of(x),
         )
-    name = f"{kind}_ppo_grads{tag}"
     cb.check("fused_ppo", code, name)
     cb.LAUNCHES[name] += 1
     cb.ENTRY[name] = entry
+    cb.TILE[name] = br
     parts = _slot_split(out, shapes)
     return parts[: len(trunk_shapes)], parts[len(trunk_shapes) :]
 

@@ -1,0 +1,53 @@
+"""The row tiles of the fused kernels and their shared memory.
+
+``SIZES`` lists, per kernel and mode, the row tiles its wrapper chooses
+among, largest first. :func:`smem_bytes` asks the kernel's own library (the
+``*_smem_bytes`` entries of ``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``
+and ``csrc/fused_ppo.cu``; the f32 K2's size is its wrapper's formula), so
+a launch and MAPPO's check at construction read one layout. The kernels
+stage whole rows in shared memory, so a row too wide for the smallest tile
+has no tile (ROADMAP B2: tiling the first layer over d_in).
+"""
+
+from __future__ import annotations
+
+from . import cuda_build as cb
+
+SMEM_MAX = 232448  # an H100 block's shared memory, bytes
+
+# the row tiles each wrapper chooses among, largest first, by (kernel, bf16)
+SIZES = {
+    ("fused_mlp", True): (64, 32, 16), ("fused_mlp", False): (32, 8, 1),
+    ("fused_mlp_bwd", True): (64, 32, 16), ("fused_mlp_bwd", False): (32, 16, 8, 1),
+    ("actor_ppo_grads", True): (64, 32), ("actor_ppo_grads", False): (32, 8, 1),
+    ("critic_ppo_grads", True): (32, 16), ("critic_ppo_grads", False): (32, 8, 1),
+    ("actor_ppo_grads_unfolded", True): (64, 32),
+    ("actor_ppo_grads_unfolded", False): (32, 16, 8, 1),
+    ("critic_ppo_grads_unfolded", True): (32, 16),
+    ("critic_ppo_grads_unfolded", False): (32, 16, 8, 1),
+}
+
+
+def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
+               n_head: int = 1) -> int:
+    """Shared memory of one ``br``-row tile of ``kernel`` (a key of
+    ``ops.LAUNCHES``; ``n_head``: the actor head's width), from its library
+    (built on first use)."""
+    if kernel == "fused_mlp":
+        if not bf16:
+            return 4 * br * (max(d_in, hidden) + hidden)
+        return cb.library("fused_mlp").dcc_trunk_fwd_mma_smem_bytes(br, d_in, hidden)
+    mma = "_mma" if bf16 else ""
+    if kernel == "fused_mlp_bwd":
+        fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}_smem_bytes")
+        return fn(br, d_in, hidden, n_layers)
+    tag = "_unfolded" if kernel.endswith("_unfolded") else ""
+    fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}_smem_bytes")
+    return fn(br, d_in, hidden, n_layers, n_head)
+
+
+def fitting_tiles(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
+                  n_head: int = 1) -> list:
+    """The row tiles of ``kernel`` that fit one block at this width."""
+    return [b for b in SIZES[(kernel, bf16)]
+            if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head) <= SMEM_MAX]

@@ -2,10 +2,13 @@
 
 Counterpart of :class:`dcc_tpu.runtime.learner.Learner`. Run artifacts go to
 ``<main_save_path>/<save_name>/<MMDD_HHMM_sd{seed}>/`` with a ``config.json``
-snapshot. Rendering (ROADMAP A14), device meshes (ROADMAP A13), algorithms
-other than MAPPO (ROADMAP A10) and device-trace capture are not ported yet:
-a config that asks for them raises at construction instead of skipping
-them.
+snapshot. Every ``render_interval`` iterations, with ``save_gifs`` or
+``render_live`` and a saved model, it renders an episode of
+``n_render_rollout_threads`` envs, tiled, to ``models_{it}.gif`` (and shows
+it live), timed as the ``render`` phase. Device meshes (ROADMAP A13),
+algorithms other than MAPPO (ROADMAP A10) and device-trace capture are not
+ported yet: a config that asks for them raises at construction instead of
+skipping them.
 """
 
 from __future__ import annotations
@@ -16,10 +19,12 @@ import os
 import time
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..algos.mappo import MAPPO
 from ..configs.loader import load as load_config
+from ..render import LiveViewer, render_gif, rollout_states
 from ..utils import resolve_device
 from ..utils.profiling import PhaseTimer
 from . import checkpoint as ckpt
@@ -48,14 +53,6 @@ class Learner:
         if "mappo" not in algo_file:
             raise NotImplementedError(
                 f"algo_file {algo_file!r} is not ported yet (ROADMAP A10: MADDPG)"
-            )
-        renders = bool(cfg.get("save_gifs", True)) or bool(cfg.get("render_live", False))
-        if (renders and self.is_save_model
-                and int(cfg.get("render_interval", 200)) <= self.n_iters):
-            raise NotImplementedError(
-                "rendering is not ported yet (ROADMAP A14: render); set "
-                "save_gifs=false (and render_live=false) or a render_interval "
-                "above n_iters"
             )
         if cfg.get("profile_dir"):
             raise NotImplementedError(
@@ -89,6 +86,7 @@ class Learner:
             print("!!!!!Note: Load model, done!!!!!")
 
         self.timer = PhaseTimer()
+        self._live_viewer = None
         self._wandb = None
         if bool(cfg.get("log_wandb", False)):
             try:
@@ -110,6 +108,8 @@ class Learner:
         eval_interval = int(cfg.get("eval_interval", 10))
         save_interval = int(cfg.get("save_interval", 50))
         log_interval = int(cfg.get("log_interval", 1))
+        render_interval = int(cfg.get("render_interval", 200))
+        renders = bool(cfg.get("save_gifs", True)) or bool(cfg.get("render_live", False))
         for it in range(1, self.n_iters + 1):
             with self.timer.phase("train"):
                 m = self.algo.train_iteration(self.ts, timer=self.timer)
@@ -127,6 +127,9 @@ class Learner:
                     logs["test_rollout_info"] = self.algo.eval_iteration(
                         self.ts, self.n_eval, generator=gen
                     )
+            if renders and self.output_path and it % render_interval == 0:
+                with self.timer.phase("render"):
+                    self.render(os.path.join(self.output_path, f"models_{it}.gif"))
             if logs:
                 self.log(it, logs)
             if self.is_save_model and it % save_interval == 0:
@@ -137,6 +140,26 @@ class Learner:
         print("phase timing:", json.dumps(self.timer.summary()))
         if self._wandb is not None:
             self._wandb.finish()
+
+    def render(self, path: str) -> dict:
+        """Roll ``n_render_rollout_threads`` envs (sampled actions from a
+        generator of the seed), draw the frames tiled, each env's frame 700
+        px or, with more envs, smaller so the grid stays about 700 px (at
+        least 128), write them to ``path`` when ``save_gifs`` and show them
+        when ``render_live``. Returns the rollout's states."""
+        cfg = self.cfg
+        n_render = max(1, int(cfg.get("n_render_rollout_threads", 1)))
+        gen = torch.Generator(device=self.device).manual_seed(self.seed + 99)
+        states = rollout_states(self.algo, self.ts, gen, n_envs=n_render)
+        size = 700 if n_render == 1 else max(128, 700 // int(np.ceil(np.sqrt(n_render))))
+        gif_path = path if cfg.get("save_gifs", True) else None
+        frames = render_gif(self.env_cfg, states, gif_path, size=size)
+        if cfg.get("render_live", False):
+            if self._live_viewer is None:
+                self._live_viewer = LiveViewer(title="dcc_tpu_torch training")
+            for frame in frames:
+                self._live_viewer.show(frame)
+        return states
 
     def log(self, it: int, logs: Dict[str, Dict[str, float]]):
         if self._wandb is not None:

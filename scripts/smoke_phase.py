@@ -5,6 +5,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] updates [--k2-plain]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] gae
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] k2
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] presets
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
 
 ``updates`` holds the updates of ``chip_smoke.UPDATE_CHECKS`` on the card
@@ -20,7 +21,9 @@ events, the profiler's device us, the wrapper's host us;
 ``chip_smoke.check_gae``), whatever C entry it goes through.
 ``k2`` builds the kernels and holds K2 (the trunk forward) against its plain
 version on the actor and critic rows at 16 and 16,384 envs, f32 and bf16,
-timed (``chip_smoke.check_trunk_forward``). ``profile`` trains with
+timed (``chip_smoke.check_trunk_forward``). ``presets`` builds the kernels
+and holds K2-K4, K2b and K3u / K4u at the one-card presets' widths, on the
+data the smoke draws for them (``chip_smoke.check_presets``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
@@ -46,7 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
     ap.add_argument("--k2-plain", action="store_true",
                     help="updates: also the recurrent bf16 update with K2's plain forward")
-    ap.add_argument("phase", choices=("updates", "gae", "k2", "profile"))
+    ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "profile"))
     ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
     args = ap.parse_args(argv)
 
@@ -65,7 +68,7 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase in ("updates", "gae", "k2"):
+    if args.phase in ("updates", "gae", "k2", "presets"):
         results: dict = {}
         try:
             if args.phase == "updates":
@@ -80,6 +83,8 @@ def main(argv=None) -> int:
                 results[args.phase] = []
                 if args.phase == "gae":
                     chip_smoke.check_gae(results["gae"], chip_smoke.GAE_TIMED, entry=None)
+                elif args.phase == "presets":
+                    chip_smoke.check_presets(results["presets"])
                 else:
                     gen = torch.Generator(device="cuda").manual_seed(0)
                     chip_smoke.check_trunk_forward(results["k2"], gen)

@@ -675,3 +675,224 @@ def test_unfolded_grads_at_16_envs(cuda, kind, bf16):
     got = _unfolded(kind, x, aux, params, hw, hb, True, **kw)
     want = _unfolded(kind, x, aux, params, hw, hb, False, **kw)
     _assert_unfolded_close(got, want, bf16)
+
+
+# The one-card presets' row widths, at their 16 envs: (preset, agents, actor
+# width, critic width). Every one is not a multiple of 16, so the bf16
+# kernels zero-pad them (64, 176, 192, 960, 128, 1,232).
+PRESET_WIDTHS = [("3uav_small", 3, 58, 174), ("5uav_dense_conn", 5, 192, 960),
+                 ("10uav_moving_collision", 10, 122, 1220)]
+
+
+def _f32_outside(got32, want, tol):
+    """The kernel computed in f32 lands outside the bf16 bound."""
+    assert max(_rel(g, w) for g, w in zip(got32, want)) > tol
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("preset,agents,actor_w,critic_w", PRESET_WIDTHS,
+                         ids=[p[0] for p in PRESET_WIDTHS])
+def test_trunk_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w, bf16):
+    """K2 on the rollout's E*A actor and E critic rows, K2b on the update's
+    T*E*A rows of each width (the critic's env rows duplicated per agent),
+    under the bounds above; a bf16 check also requires the kernel computed
+    in f32 to land outside its bound."""
+    gen = torch.Generator().manual_seed(actor_w + critic_w)
+    kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
+    for width, fwd_rows in ((actor_w, 16 * agents), (critic_w, 16)):
+        params = _trunk_params(gen, width, 256, 2, True, cuda)
+        x = torch.randn(fwd_rows, width, generator=gen).to(cuda)
+        cb.reset_launches()
+        got = FM.trunk_forward_cuda(x, params, **kw)
+        assert cb.LAUNCHES["fused_mlp"] == 1 and cb.TILE["fused_mlp"] in (1, 8, 16, 32, 64)
+        want = FM.trunk_forward_plain(x, params, **kw)
+        assert _rel(got, want) < (2e-3 if bf16 else 1e-5)
+        if bf16:
+            _f32_outside([FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})], [want],
+                         2e-3)
+        rows = 150 * 16 * agents
+        x = torch.randn(rows, width, generator=gen).to(cuda)
+        x = x.bfloat16() if bf16 else x
+        g = _cotangent(gen, x, params, 256, 2, True, True, bf16)
+        dx, grads = FM.trunk_backward_cuda(x, params, g, **kw)
+        want_dx, want = FM.trunk_backward_plain(x, params, g, **kw)
+        for got, ref in zip([dx, *grads], [want_dx, *want]):
+            assert _rel(got, ref) < (4e-3 if bf16 else 1e-4)
+        if bf16:
+            dx32, g32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
+            _f32_outside([dx32, *g32], [want_dx, *want], 4e-3)
+
+
+@pytest.mark.parametrize("trunk", ["model", "one_relu_layer"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("preset,agents,actor_w,critic_w", PRESET_WIDTHS,
+                         ids=[p[0] for p in PRESET_WIDTHS])
+def test_ppo_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w, bf16, trunk):
+    """K3 on the T*E*A actor rows and K4 on the T*E critic rows of the
+    preset's bf16 run, on one of ``chip_smoke.check_ppo``'s trunks. "model":
+    2 layers and the feature norm, relu in f32 and tanh in bf16: with relu
+    the bf16 kink rule misses rows a few bf16 steps from the kink, which a
+    flipped rounding of the layer's input moves across it
+    (``scripts/width_probe.py``). "one_relu_layer": one relu layer fed the
+    rows themselves (no feature norm), where both sides feed the kinked
+    layer the same input and the kink rules hold. Rows next to a relu kink
+    (``relu_kink_rows_folded``: in f32 within 1e-5, K2b's f32 rule; in bf16
+    within one bf16 step) get a zero advantage / valid = 0. A bf16 check
+    also requires the kernel computed in f32 to land outside its bound."""
+    n_layers, use_fn = (2, True) if trunk == "model" else (1, False)
+    relu = not bf16 or trunk != "model"
+    gen = torch.Generator().manual_seed(actor_w * critic_w + (trunk != "model"))
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=relu, bf16=bf16, clip_param=0.2)
+    tol = 4e-3 if bf16 else 1e-3
+
+    def case(kind, rows, width, col):
+        x, aux, kp, hw, hb = _ppo_case(gen, kind, rows, width, 256, n_layers, use_fn, cuda)
+        x = x.bfloat16() if bf16 else x
+        if relu:
+            aux[FP.relu_kink_rows_folded(x, kp, n_layers, use_fn, bf16=bf16), col] = 0.0
+        return x, aux, kp, hw, hb
+
+    log_std = torch.tensor([-0.3, 0.2], device=cuda)
+    x, aux, kp, hw, hb = case("actor", 2400 * agents, actor_w, 3)
+    got = FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std, **kw)
+    want = FP.actor_grads_plain(x, aux, kp, hw, hb, log_std, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < tol
+    if bf16:
+        _f32_outside(_flat(FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std,
+                                               **{**kw, "bf16": False})), _flat(want), tol)
+    x, aux, kp, hw, hb = case("critic", 2400, critic_w, 2)
+    norm = torch.tensor([0.5, 2.0], device=cuda)
+    ckw = dict(kw, huber_delta=10.0, use_huber=True, use_clipped=True)
+    cb.reset_launches()
+    got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **ckw)
+    assert cb.ENTRY["critic_ppo_grads"] == "dcc_critic_grads" + ("_mma" if bf16 else "")
+    want = FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **ckw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < tol
+    if bf16:
+        _f32_outside(_flat(FP.critic_grads_cuda(x, aux, norm, kp, hw, hb,
+                                                **{**ckw, "bf16": False})), _flat(want), tol)
+
+
+@pytest.mark.parametrize("kind", ["actor", "critic"])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("preset,agents,actor_w,critic_w", PRESET_WIDTHS,
+                         ids=[p[0] for p in PRESET_WIDTHS])
+def test_unfolded_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w, bf16,
+                                           kind):
+    """K3u on the T*E*A actor rows, K4u on the T*E critic rows, with the
+    kink and value-flip rules of ``_unfolded_case``."""
+    rows, d_in = (2400 * agents, actor_w) if kind == "actor" else (2400, critic_w)
+    gen = torch.Generator().manual_seed(rows + d_in + 13)
+    x, aux, params, hw, hb = _unfolded_case(gen, kind, rows, d_in, 256, 2, True, True, bf16,
+                                            cuda)
+    kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16, clip_param=0.2)
+    got = _unfolded(kind, x, aux, params, hw, hb, True, **kw)
+    want = _unfolded(kind, x, aux, params, hw, hb, False, **kw)
+    _assert_unfolded_close(got, want, bf16)
+    if bf16:
+        f32 = _unfolded(kind, x, aux, params, hw, hb, True, **{**kw, "bf16": False})
+        _f32_outside(_flat(f32), _flat(want), 4e-3)
+
+
+# The kernels' shared-memory layouts in Python, for the tests that pretend a
+# CUDA device on a host without nvcc (tests/test_torch_presets.py): K2
+# ``fwd_mma_smem_bytes`` (csrc/fused_mlp.cu), K2b ``bwd_mma_layout``
+# (csrc/fused_mlp_bwd.cu), K3 / K4 and K3u / K4u ``ppo_mma_layout`` and
+# ``ppo_*smem_floats`` (csrc/fused_ppo.cu). The package reads the sizes
+# from the libraries (``ops.tiles.smem_bytes``);
+# ``test_row_tile_mirror_matches_the_libraries`` holds the two equal.
+_MMA_KS, _MMA_STAGES, _MMA_WARPS, _MMA_HMAX = 32, 3, 8, 256  # csrc/trunk_mma.cuh
+_RESUM_BYTES = 16 + 8 * 128
+
+
+def _pad16(n):
+    return (n + 15) // 16 * 16
+
+
+def _ring_stage(np_, nk):
+    return np_ * (_MMA_KS + 8) if nk else _MMA_KS * (np_ + 8)
+
+
+def _red(br):
+    return 4 * (_MMA_WARPS // (br // 16)) * br * 2
+
+
+def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded):
+    """The rows, activations, staging and weight ring shared by the K2b and
+    K3 / K4 tensor-core layouts, and their LN statistics."""
+    kp0, hp = _pad16(d_in), _pad16(hidden)
+    ldh = hp + 8
+    nk = min(kp0, _MMA_HMAX) if unfolded else 0
+    o = 2 * br * (kp0 + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
+    if unfolded:
+        o = max(o, 4 * br * (kp0 + 4))
+    o += 2 * br * ldh
+    o += 2 * _MMA_STAGES * max(_ring_stage(hp, False), _ring_stage(max(nk, hp), True))
+    o += 4 * n_layers * br * 2 + (8 * br if unfolded else 0)
+    return o + _red(br) + 4 * (3 if unfolded else 1) * (br // 16) * hp
+
+
+def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1):
+    """Shared memory of one ``br``-row tile of ``kernel``, as
+    ``ops.tiles.smem_bytes`` reads it from the libraries."""
+    unfolded = kernel.endswith("_unfolded")
+    hp = _pad16(hidden)
+    if kernel == "fused_mlp":
+        if not bf16:
+            return 4 * br * (max(d_in, hidden) + hidden)
+        wmax = max(_pad16(d_in), hp)
+        return 2 * (br * (wmax + 8) + _MMA_STAGES * _ring_stage(hp, False)) + _red(br)
+    chain = br * (2 * d_in + 3 * n_layers * hidden + n_layers + 1)  # f32 unfolded floats
+    if kernel == "fused_mlp_bwd":
+        if not bf16:
+            return 4 * chain
+        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True) + 4 * br
+                + 4 * n_layers * hp + _RESUM_BYTES)
+    if bf16:
+        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded) + 4 * hidden * n_head
+        o += 0 if unfolded else 4 * n_layers * hidden
+        o += 4 * br * n_head * 2 + 8 * br
+        if unfolded:
+            o += 4 * br + 4 * n_layers * hp + _RESUM_BYTES
+        return o
+    if unfolded:
+        return 4 * (chain + br * (hidden + 2 * n_head + 2))
+    return 4 * br * (d_in + 2 * n_layers * hidden + hidden + n_layers + 2 * n_head + 2)
+
+
+def pretend_cuda(monkeypatch):
+    """Pretend a CUDA device to code that only asks for one, as MAPPO's
+    construction does, with the kernels' tile sizes from ``smem_layout``
+    (their libraries need nvcc)."""
+    from dcc_tpu_torch.ops import tiles
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tiles, "smem_bytes", smem_layout)
+
+
+def test_row_tile_mirror_matches_the_libraries(cuda):
+    """``smem_layout``, which the tests that pretend a CUDA device read,
+    gives each kernel's shared memory per row tile as the built libraries
+    do (``ops.tiles.smem_bytes``, which MAPPO and the wrappers read)."""
+    from dcc_tpu_torch.ops import tiles
+
+    for (kernel, bf16), sizes in tiles.SIZES.items():
+        n_head = 2 if kernel.startswith("actor") else 1
+        for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 4840):
+            for br in sizes:
+                want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head)
+                assert smem_layout(kernel, bf16, br, d_in, 256, 2, n_head) == want, (
+                    kernel, bf16, br, d_in)
+
+
+def test_20uav_preset_refused_on_the_card(cuda):
+    """The 20-UAV preset's 4,840-wide critic rows fit no row tile of bf16 K4:
+    MAPPO refuses to build (ROADMAP B2) before any launch."""
+    from dcc_tpu_torch.algos import MAPPO
+    from dcc_tpu_torch.configs import load_preset
+
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
+    with pytest.raises(NotImplementedError, match="B2"):
+        MAPPO(algo_cfg, env_cfg, device=cuda)

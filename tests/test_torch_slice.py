@@ -35,6 +35,7 @@ from dcc_tpu_torch.algos import MAPPO, MAPPOConfig, Trajectory
 from dcc_tpu_torch.compat import flax_to_state_dict
 from dcc_tpu_torch.envs import EnvConfig
 from dcc_tpu_torch.ops.fused_mlp import relu_kink_rows
+from test_torch_cuda import pretend_cuda
 
 SMALL = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
              hidden_size=32)
@@ -150,10 +151,11 @@ def test_dispatch_rules_on_cpu():
 )
 def test_dispatch_rules_on_cuda(monkeypatch, kw, trunk, loss):
     """What "auto" picks on a CUDA device (construction touches no device
-    memory, so a CUDA device is pretended): the trunk kernels K2 / K2b in
-    bf16, the fused loss K3 / K4 in bf16 on the feed-forward policy only,
-    never with recurrence; GAE K1 always."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    memory, so a CUDA device is pretended, with the kernels' tile sizes from
+    their Python layouts): the trunk kernels K2 / K2b in bf16, the fused
+    loss K3 / K4 in bf16 on the feed-forward policy only, never with
+    recurrence; GAE K1 always."""
+    pretend_cuda(monkeypatch)
     algo = MAPPO(MAPPOConfig(**kw), EnvConfig(), device="cuda")
     assert (algo.fused_trunk, algo.fused_loss, algo.gae_kernel) == (trunk, loss, True)
 
