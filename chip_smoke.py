@@ -53,8 +53,11 @@ Phases (any failure exits non-zero):
    trajectory and minibatch permutations: fused f32 (K3 / K4), recurrent
    bf16 (K2 / K2b; its reading also with K2's forward through its plain
    version, ``check_k2_plain_update``), and fused f32 unfolded (K3u / K4u)
-   with 2 minibatches and PopArt; and one f32 update per non-Gaussian
-   action head (discrete, multi_discrete, multi_binary, mixed);
+   with 2 minibatches and PopArt; one f32 update per non-Gaussian
+   action head (discrete, multi_discrete, multi_binary, mixed); and two
+   f32 updates of separated per-agent policies (2 minibatches with
+   PopArt, and recurrent), with per-agent permutations; each update must
+   launch exactly its kernels on the card (the separated ones K1 only);
 5. train through ``dcc_tpu_torch.train.main`` the ``TRAIN_RUNS``: 2
    iterations each of the default f32 config, the bf16 config, the
    recurrent bf16 config, bf16 with 4 minibatches, bf16 unfolded with
@@ -64,7 +67,11 @@ Phases (any failure exits non-zero):
    iteration of each one-card preset as written and one bf16 iteration of
    5uav_dense_conn and 10uav_moving_collision (K2, K3, K4 at their widths;
    the 10-UAV preset's randomized and moving PoIs and collision penalty on
-   the card); then the default command with render (the default YAMLs, 2
+   the card); 2 iterations of separated per-agent f32 policies and 1 each
+   in bf16 and recurrent f32 with 2 minibatches, which launch K1 only;
+   then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
+   gate's runner; its file's schema, and K1-K4 as the bf16 path launches
+   them); then the default command with render (the default YAMLs, 2
    iterations, ``models_2.gif`` into a temporary directory, which must
    decode to 151 frames of 700 x 700); and the 20-UAV preset, whose MAPPO
    must refuse to build (ROADMAP B2). Print the metrics and phase times,
@@ -143,6 +150,7 @@ BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
              "--n-eval-rollout-threads", "0", "--seed", "0"]
 BF16 = ["--compute-dtype", "bfloat16"]
 RECURRENT = ["--use-recurrent-policy", "true"]
+SEPARATED = ["--use-separated-policy", "true"]
 HEAD_MODES = ("discrete", "multi_discrete", "multi_binary", "mixed")
 BF16_PRESETS = ("5uav_dense_conn", "10uav_moving_collision")
 
@@ -187,6 +195,12 @@ TRAIN_RUNS = (
     *((f"preset-{name}-bf16", preset_args(name) + BF16 + ["--n-iters", "1"],
        {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15})
       for name in BF16_PRESETS),
+    # separated per-agent policies: K1 on the (env, agent) columns; the
+    # fused trunk and loss take the shared policy only
+    ("separated-f32", SEPARATED, {"gae": 1}),
+    ("separated-bf16", SEPARATED + BF16 + ["--n-iters", "1"], {"gae": 1}),
+    ("separated-recurrent-f32-nmb2", SEPARATED + RECURRENT + ["--num-mini-batch", "2",
+                                                              "--n-iters", "1"], {"gae": 1}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -974,16 +988,21 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=No
                       env, device=d.split("-")[0]) for d in devices}
     states = {d: a.init_state(seed=3) for d, a in algos.items()}
     for d in devices[1:]:
-        for net in ("actor", "critic"):
-            getattr(states[d], net).load_state_dict(getattr(states["cpu"], net).state_dict())
+        for dst, src in zip(states[d].policies(), states["cpu"].policies()):
+            for net in ("actor", "critic"):
+                getattr(dst, net).load_state_dict(getattr(src, net).state_dict())
     # sampled (not deterministic) actions: with actions equal to the mean the
     # first-epoch actor gradient is exactly zero and Adam would normalize
     # rounding noise into full-size steps
     traj = algos["cpu"].rollout(states["cpu"], 4)
-    # the same minibatch permutations on every device
+    # the same minibatch permutations on every device: of the T*E*A rows,
+    # or with separated policies per agent, of its T*E rows or E*T/L chunks
     T, E, A, _ = traj.actions.shape
     g = torch.Generator().manual_seed(7)
-    perms = torch.stack([torch.randperm(T * E * A, generator=g) for _ in range(cfg.ppo_epoch)])
+    L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
+    n = T * E * A if cfg.share_policy else (E * T // L if algos["cpu"].recurrent else T * E)
+    draw = lambda: torch.stack([torch.randperm(n, generator=g) for _ in range(cfg.ppo_epoch)])
+    perms = draw() if cfg.share_policy else torch.stack([draw() for _ in range(A)])
     metrics = {}
     for d, algo in algos.items():
         tr = type(traj)(*(None if t is None else t.to(algo.device) for t in traj))
@@ -992,15 +1011,16 @@ def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=No
         metrics[d] = algo.update(states[d], tr, adv, ret, perms=perms).cpu()
         if d == "cuda":
             launched = dict(LAUNCHES)
-    missing = [k for k in kernels if launched.get(k, 0) == 0]
-    if missing:
-        raise SmokeFailure(f"{tag} update on the card never launched {missing}")
+    if set(launched) != set(kernels):
+        raise SmokeFailure(f"{tag} update on the card launched {launched}, expected each of "
+                           f"{sorted(kernels)} and no other kernel")
 
     def param_gap(d):
         return max(float((a - b.cpu()).abs().max())
+                   for pc, pd in zip(states["cpu"].policies(), states[d].policies())
                    for net in ("actor", "critic")
-                   for a, b in zip(getattr(states["cpu"], net).state_dict().values(),
-                                   getattr(states[d], net).state_dict().values()))
+                   for a, b in zip(getattr(pc, net).state_dict().values(),
+                                   getattr(pd, net).state_dict().values()))
 
     worst = param_gap("cuda")
     if worst > param_tol or not torch.allclose(metrics["cpu"], metrics["cuda"], rtol=rtol,
@@ -1043,6 +1063,14 @@ UPDATE_CHECKS = (
     # in f32), under the fused f32 bounds
     *((f"f32 {mode}", {}, 1e-5, 1e-3, 1e-5, ("gae",), dict(action_mode=mode))
       for mode in ("discrete", "multi_discrete", "multi_binary", "mixed")),
+    # separated per-agent policies: K1 on per-agent values against per-env
+    # rewards and masks, under the fused f32 bounds
+    ("f32 separated, 2 minibatches, PopArt",
+     dict(share_policy=False, num_mini_batch=2, use_popart=True, use_valuenorm=False),
+     1e-5, 1e-3, 1e-5, ("gae",)),
+    ("f32 separated recurrent",
+     dict(share_policy=False, use_recurrent_policy=True, data_chunk_length=4),
+     1e-5, 1e-3, 1e-5, ("gae",)),
 )
 
 
@@ -1173,6 +1201,61 @@ def train_runs(results: dict):
             results[f"profile {tag}"] = profile_iteration(learner, tag)
 
 
+CURVE_KERNELS = {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15}
+
+
+def curve_run(results: dict, n_iters: int = 2):
+    """``scripts/run_torch_curve.py`` (the learning-gate runner) for
+    ``n_iters`` bf16 iterations of seed 0, in this process, into a temporary
+    directory: its file must hold the schema the gate reads, with an entry
+    per iteration in every series, and K1-K4 must have launched as the bf16
+    path runs them (``CURVE_KERNELS`` an iteration)."""
+    import importlib.util
+    import tempfile
+
+    from dcc_tpu_torch.ops import LAUNCHES, reset_launches
+
+    spec = importlib.util.spec_from_file_location(
+        "run_torch_curve", os.path.join(ROOT, "scripts", "run_torch_curve.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    out = tempfile.mkdtemp(prefix="chip_smoke_curve_")
+    env = {"DCC_CURVE_DTYPE": "bfloat16", "DCC_CURVE_ITERS": str(n_iters),
+           "DCC_CURVE_DEVICE": "cuda"}
+    saved = {k: os.environ.get(k) for k in env}
+    print(f"--- curve runner: DCC_CURVE_DTYPE=bfloat16 DCC_CURVE_ITERS={n_iters} "
+          f"python scripts/run_torch_curve.py 0", flush=True)
+    try:
+        os.environ.update(env)
+        reset_launches()
+        t0 = time.perf_counter()
+        runner.run_seed(0, out)
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        with open(os.path.join(out, "dcc_tpu_torch_bf16_seed0.json")) as f:
+            d = json.load(f)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(out, ignore_errors=True)
+    series = ("reward", "coverage_rate", "value_loss", "policy_loss", "dist_entropy", "ratio",
+              "iter_time_s")
+    if (set(d["series"]) != set(series) or d["n_iters"] != n_iters or "NVIDIA" not in d["system"]
+            or any(len(d["series"][k]) != n_iters or not all(map(math.isfinite, d["series"][k]))
+                   for k in series)):
+        raise SmokeFailure(f"curve runner: unexpected file {d}")
+    want = {k: n * n_iters for k, n in CURVE_KERNELS.items()}
+    if counts != want:
+        raise SmokeFailure(f"curve runner: launches {counts}, expected {want}")
+    results["curve-runner-bf16"] = dict(launches=counts, wall_s=wall, system=d["system"],
+                                        iter_time_s=d["series"]["iter_time_s"])
+    print(f"  launches {counts}; wall {wall:.2f} s; system {d['system']!r}; iteration times "
+          f"{d['series']['iter_time_s']} s", flush=True)
+
+
 def render_run(results: dict):
     """The default command with render: the default YAMLs (f32), 2
     iterations, the GIF of iteration 2 into a temporary directory. K1 is the
@@ -1273,6 +1356,7 @@ def main(argv=None) -> int:
           flush=True)
     runs: dict = {}
     train_runs(runs)
+    curve_run(runs)
     render_run(runs)
     check_wide_preset(extra)
     print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)

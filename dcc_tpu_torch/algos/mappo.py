@@ -1,6 +1,7 @@
-"""Shared-parameter MAPPO, feed-forward or recurrent, in PyTorch.
+"""MAPPO, shared-parameter or separated per agent, feed-forward or
+recurrent, in PyTorch.
 
-Counterpart of :mod:`dcc_tpu.algos.mappo` for the shared policy:
+Counterpart of :mod:`dcc_tpu.algos.mappo`:
 fresh-reset rollout over E batched envs -> value-normalizer-denormalized GAE
 -> ``ppo_epoch`` PPO epochs of ``num_mini_batch`` minibatches (clipped
 surrogate + clipped one-sided Huber value loss + entropy bonus, two Adams
@@ -21,6 +22,11 @@ multi_discrete branch count and 1 otherwise.
 * the fused loss with one minibatch: the kernels K3 / K4 (``fused_fold``)
   or K3u / K4u on rows packed once, each epoch's value-normalizer scalars
   from ``_norm_seq`` (``_update_fused_full``);
+* separated per-agent policies (``share_policy=False``): each agent's own
+  actor, critic, Adams and normalizer, updated on its own slice of the
+  rollout with its own advantage normalization and permutations, through
+  the shared path's minibatch step on the agent's own state
+  (``_update_separated``);
 * otherwise one step per minibatch: by autograd of the loss
   (``_minibatch_update``; with the fused trunk its backward is the K2b
   kernel, :class:`~dcc_tpu_torch.ops.fused_mlp.FusedTrunk`; ``use_remat``
@@ -32,7 +38,10 @@ multi_discrete branch count and 1 otherwise.
 Dispatch of the kernels mirrors ``MAPPO.__init__`` of the JAX package:
 "auto" selects the GAE kernel K1 on CUDA, and the fused trunk K2 / K2b and
 (feed-forward Gaussian policy only) the fused loss on CUDA in bf16; "on"
-forces them (on CPU tensors that runs their plain versions). Options this
+forces them (on CPU tensors that runs their plain versions). Separated
+policies run K1 alone, on their (env, agent) columns, where the JAX package
+keeps its scan; the fused trunk and loss need the shared policy, and
+forcing either raises there. Options this
 port does not run yet raise :class:`NotImplementedError` naming their
 ROADMAP item, and so does a run on CUDA whose rows are too wide for a row
 tile of a kernel it launches (ROADMAP B2).
@@ -43,9 +52,10 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..envs import EnvConfig, check_supported, observation, reset_batch, step_batch
@@ -120,26 +130,38 @@ class MAPPOConfig(NamedTuple):
 class TrainState:
     """Mutable training state: networks, both optimizers, the value
     normalizer (ValueNorm or PopArt), counters and the random generator of
-    the rollout and the minibatch permutations."""
+    the rollout and the minibatch permutations.
 
-    actor: Actor
-    critic: Critic
-    actor_opt: torch.optim.Optimizer
-    critic_opt: torch.optim.Optimizer
+    With separated policies (``share_policy=False``) ``agents`` holds one
+    such state per agent, with the agent's own networks, optimizers and
+    normalizer, this state's generator, and the shared ``update_count``,
+    which each agent's update starts from; this state's own networks,
+    optimizers and normalizers are then None."""
+
+    actor: Optional[Actor]
+    critic: Optional[Critic]
+    actor_opt: Optional[torch.optim.Optimizer]
+    critic_opt: Optional[torch.optim.Optimizer]
     vnorm: Optional[VN.ValueNormState]
     update_count: int  # optimizer steps taken (drives the LR schedule)
     iteration: int  # outer iterations finished
     generator: torch.Generator
     popart: Optional[PA.PopArtState] = None
+    agents: Optional[List["TrainState"]] = None  # separated policies: agent i's state
+
+    def policies(self) -> List["TrainState"]:
+        """The states that hold networks: each agent's, or this one."""
+        return self.agents or [self]
 
 
 class Trajectory(NamedTuple):
-    """Time-major rollout storage; values / rewards / masks are per env."""
+    """Time-major rollout storage; rewards / masks are per env, values per
+    env (shared policy) or per agent (separated policies)."""
 
     obs: torch.Tensor  # (T+1, E, A, D)
     actions: torch.Tensor  # (T, E, A, action_width)
     log_probs: torch.Tensor  # (T, E, A, k): k = branches for multi_discrete, else 1
-    values: torch.Tensor  # (T+1, E, 1)
+    values: torch.Tensor  # (T+1, E, 1); separated: (T+1, E, A, 1)
     rewards: torch.Tensor  # (T, E, 1)
     masks: torch.Tensor  # (T+1, E, 1)
     coverage: torch.Tensor  # (T, E)
@@ -147,7 +169,7 @@ class Trajectory(NamedTuple):
     # recurrent policies only: the hidden state ENTERING each step (before
     # its mask reset), the chunk warm starts of the update
     actor_h: Optional[torch.Tensor] = None  # (T, E, A, recurrent_n, H)
-    critic_h: Optional[torch.Tensor] = None  # (T, E, recurrent_n, H)
+    critic_h: Optional[torch.Tensor] = None  # (T, E, recurrent_n, H); separated: (T, E, A, ..)
 
 
 class Metrics(NamedTuple):
@@ -173,10 +195,14 @@ def jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
-def normalize_advantages(adv: torch.Tensor) -> torch.Tensor:
-    """(adv - mean) / (std + 1e-5) over all rows with the POPULATION std, as
-    ``jnp.std`` (``torch.std`` defaults to the unbiased one)."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+def normalize_advantages(adv: torch.Tensor, dim=None) -> torch.Tensor:
+    """(adv - mean) / (std + 1e-5) over all rows, or over the axes ``dim``
+    (separated policies: (0, 1), each agent's (T, E)), with the POPULATION
+    std, as ``jnp.std`` (``torch.std`` defaults to the unbiased one)."""
+    if dim is None:
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-5)
+    return ((adv - adv.mean(dim, keepdim=True))
+            / (adv.std(dim, correction=0, keepdim=True) + 1e-5))
 
 
 def _resolve_switch(value: str, name: str, auto: bool) -> bool:
@@ -204,14 +230,9 @@ class MAPPO:
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent
         if cfg.use_popart and cfg.use_valuenorm:
             raise ValueError("use_popart and use_valuenorm are mutually exclusive")
-        unported = [
-            (not cfg.share_policy, "separated per-agent policies (ROADMAP A8)"),
-            (cfg.env_dtype not in ("float32", "fp32", "f32"),
-             "env_dtype other than float32 (ROADMAP A12)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if cfg.env_dtype not in ("float32", "fp32", "f32"):
+            raise NotImplementedError(
+                "env_dtype other than float32 (ROADMAP A12) is not ported yet")
         if not cfg.use_centralized_v:
             raise ValueError(
                 "use_centralized_v=False: the critic is built on the team-concat "
@@ -227,9 +248,18 @@ class MAPPO:
 
         self.head_kind = env_cfg.action_head_kind
         self.head_dims = env_cfg.action_head_dims
+        self.separated = not cfg.share_policy
+        self.n_agents = env_cfg.n_agents
         on_cuda = self.device.type == "cuda"
-        self.fused_trunk = _resolve_switch(cfg.fused_trunk, "fused_trunk", on_cuda and self.bf16)
-        fused_loss_ok = not self.recurrent and self.head_kind == "gaussian"
+        if self.separated and cfg.fused_trunk in ("on", "interpret"):
+            raise ValueError(
+                "fused_trunk='on' requires share_policy=True (the separated path runs "
+                "per-agent params over the trunk)"
+            )
+        self.fused_trunk = _resolve_switch(cfg.fused_trunk, "fused_trunk",
+                                           on_cuda and self.bf16 and not self.separated)
+        fused_loss_ok = (not self.recurrent and not self.separated
+                         and self.head_kind == "gaussian")
         if cfg.fused_loss in ("on", "interpret") and not fused_loss_ok:
             raise ValueError(
                 "fused_loss requires the shared feed-forward gaussian policy (no "
@@ -237,13 +267,16 @@ class MAPPO:
             )
         self.fused_loss = _resolve_switch(cfg.fused_loss, "fused_loss",
                                           on_cuda and self.bf16 and fused_loss_ok)
-        if cfg.update_chunks > 1 and (self.recurrent or cfg.num_mini_batch != 1):
+        if cfg.update_chunks > 1 and (self.recurrent or self.separated
+                                      or cfg.num_mini_batch != 1):
             raise NotImplementedError(
                 "update_chunks (gradient accumulation) supports the feed-forward "
                 "shared-policy num_mini_batch=1 path"
             )
         if cfg.gae_backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown gae_backend {cfg.gae_backend!r}")
+        # separated values (T+1, E, A, 1) go through K1 too: GAE is per
+        # column, and the kernel takes their (env, agent) columns
         self.gae_kernel = cfg.gae_backend == "pallas" or (
             cfg.gae_backend == "auto" and on_cuda
         )
@@ -301,13 +334,19 @@ class MAPPO:
 
     def make_networks(self, seed: int = 0):
         """Actor and critic, initialized on the CPU from ``seed`` and moved
-        to the device."""
+        to the device; with separated policies an ``nn.ModuleList`` of one
+        per agent each (the actors first, from one generator)."""
         gen = torch.Generator().manual_seed(seed)
         rnn = dict(use_rnn=self.recurrent, recurrent_n=self.cfg.recurrent_n)
-        actor = Actor(self.obs_dim, self.env_cfg.action_dim, self.cfg.gain, **rnn,
-                      head_kind=self.head_kind, head_dims=self.head_dims,
-                      **self._trunk_kwargs(gen))
-        critic = Critic(self.cent_obs_dim, **rnn, **self._trunk_kwargs(gen))
+        make_actor = lambda: Actor(self.obs_dim, self.env_cfg.action_dim, self.cfg.gain,
+                                   **rnn, head_kind=self.head_kind, head_dims=self.head_dims,
+                                   **self._trunk_kwargs(gen))
+        make_critic = lambda: Critic(self.cent_obs_dim, **rnn, **self._trunk_kwargs(gen))
+        if self.separated:
+            actor = nn.ModuleList(make_actor() for _ in range(self.n_agents))
+            critic = nn.ModuleList(make_critic() for _ in range(self.n_agents))
+        else:
+            actor, critic = make_actor(), make_critic()
         return actor.to(self.device), critic.to(self.device)
 
     def _make_opt(self, params, lr: float) -> torch.optim.Optimizer:
@@ -319,9 +358,19 @@ class MAPPO:
 
     def init_state(self, seed: int = 0, actor=None, critic=None) -> TrainState:
         """Fresh train state; ``actor`` / ``critic`` replace the seeded
-        networks (e.g. with parameters converted from the JAX package)."""
+        networks (e.g. with parameters converted from the JAX package; with
+        separated policies, one of each per agent)."""
         if actor is None or critic is None:
             actor, critic = self.make_networks(seed)
+        gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        if self.separated:
+            agents = [self._policy_state(a, c, gen) for a, c in zip(actor, critic)]
+            return TrainState(None, None, None, None, None, 0, 0, gen, agents=agents)
+        return self._policy_state(actor, critic, gen)
+
+    def _policy_state(self, actor, critic, generator) -> TrainState:
+        """A fresh state of one actor and critic: their Adams and
+        normalizer, the counters at 0."""
         cfg = self.cfg
         return TrainState(
             actor=actor,
@@ -331,7 +380,7 @@ class MAPPO:
             vnorm=VN.init(self.device) if cfg.use_valuenorm else None,
             update_count=0,
             iteration=0,
-            generator=torch.Generator(device=self.device).manual_seed(seed + 1),
+            generator=generator,
             popart=PA.init(device=self.device) if cfg.use_popart else None,
         )
 
@@ -362,11 +411,36 @@ class MAPPO:
         return ts.critic(cent_obs, rnn_state, masks)
 
     def _denorm(self, ts: TrainState, v):
+        """Denormalized values; separated values (..., A, 1) with each
+        agent's own normalizer state."""
+        if ts.agents:
+            return torch.stack([self._denorm(a, v[..., i, :]) for i, a in enumerate(ts.agents)],
+                               dim=-2)
         if self.cfg.use_valuenorm:
             return VN.denormalize(ts.vnorm, v)
         if self.cfg.use_popart:
             return PA.denormalize(ts.popart, v)
         return v
+
+    def _act_separated(self, agents, obs, cent, deterministic, gen, hidden=None, mask=None):
+        """One rollout step of separated policies: agent ``i``'s actor on
+        ``obs[:, i]``, its critic on the team-concat ``cent``, the agents in
+        order from one generator. With ``hidden = (h_a, h_c)``, agent-major
+        (A, E, L, H) stacks updated in place, every GRU takes the env
+        ``mask``. Returns actions (E, A, w), log-probs (E, A, k) and values
+        (E, A, 1)."""
+        outs = []
+        for i, agent in enumerate(agents):
+            if hidden is None:
+                action, logp = self.act(agent, obs[:, i], deterministic, gen)
+                value = self.value(agent, cent)
+            else:
+                h_a, h_c = hidden
+                action, logp, h_a[i] = self.act(agent, obs[:, i], deterministic, gen, h_a[i],
+                                                mask)
+                value, h_c[i] = self.value(agent, cent, h_c[i], mask)
+            outs.append((action, logp, value))
+        return tuple(torch.stack(x, dim=1) for x in zip(*outs))
 
     # ------------------------------------------------------------------
     # rollout
@@ -388,20 +462,33 @@ class MAPPO:
         obs_buf = torch.empty((T + 1, E, A, self.obs_dim), dtype=self.store_dtype, device=dev)
         actions = torch.empty((T, E, A, env_cfg.action_width), **f32)
         logps = torch.empty((T, E, A, self.logp_cols), **f32)
-        values = torch.empty((T + 1, E, 1), **f32)
+        values = torch.empty((T + 1, E, A, 1) if self.separated else (T + 1, E, 1), **f32)
         rewards = torch.empty((T, E, 1), **f32)
         masks = torch.ones((T + 1, E, 1), **f32)
         bad_masks = torch.ones((T + 1, E, 1), **f32)
         cover = torch.empty((T, E), **f32)
         hid = None
-        if self.recurrent:
+        if self.recurrent and self.separated:
+            # per-agent GRUs: agent-major hidden stacks
+            L, H = cfg.recurrent_n, cfg.hidden_size
+            h_a = torch.zeros((A, E, L, H), **f32)
+            h_c = torch.zeros((A, E, L, H), **f32)
+            hid = (torch.empty((T, E, A, L, H), **f32), torch.empty((T, E, A, L, H), **f32))
+        elif self.recurrent:
             L, H = cfg.recurrent_n, cfg.hidden_size
             h_a = torch.zeros((E * A, L, H), **f32)
             h_c = torch.zeros((E, L, H), **f32)
             hid = (torch.empty((T, E, A, L, H), **f32), torch.empty((T, E, L, H), **f32))
         for t in range(T):
             flat_obs, cent = obs.reshape(E * A, -1), obs.reshape(E, -1)
-            if self.recurrent:
+            if self.separated:
+                if self.recurrent:
+                    hid[0][t] = h_a.transpose(0, 1)
+                    hid[1][t] = h_c.transpose(0, 1)
+                rnn = dict(hidden=(h_a, h_c), mask=masks[t]) if self.recurrent else {}
+                action, logp, values[t] = self._act_separated(ts.agents, obs, cent,
+                                                              deterministic, gen, **rnn)
+            elif self.recurrent:
                 # stored: the hidden state entering step t, before its reset
                 hid[0][t] = h_a.reshape(E, A, L, H)
                 hid[1][t] = h_c
@@ -421,7 +508,12 @@ class MAPPO:
             cover[t] = out.coverage_rate
             obs = out.obs
         obs_buf[T] = obs
-        if self.recurrent:
+        if self.separated:
+            cent = obs.reshape(E, -1)
+            values[T] = torch.stack([
+                self.value(a, cent, h_c[i], masks[T])[0] if self.recurrent else self.value(a, cent)
+                for i, a in enumerate(ts.agents)], dim=1)
+        elif self.recurrent:
             values[T] = self.value(ts, obs.reshape(E, -1), h_c, masks[T])[0]
         else:
             values[T] = self.value(ts, obs.reshape(E, -1))
@@ -436,14 +528,20 @@ class MAPPO:
         cfg = self.cfg
         values = self._denorm(ts, traj.values)
         bad = traj.bad_masks if cfg.use_proper_time_limits else None
+        rewards, masks = traj.rewards, traj.masks
+        if self.separated:
+            # per-agent values (T+1, E, A, 1) against per-env rewards and
+            # masks: an explicit agent axis, so that the env axis of the
+            # masks never pairs with the agent axis of the values (E == A)
+            rewards, masks = rewards[:, :, None], masks[:, :, None]
+            bad = None if bad is None else bad[:, :, None]
         if cfg.use_gae:
             if bad is None and self.gae_kernel:
-                return compute_gae_cuda(traj.rewards, values, traj.masks, cfg.gamma,
-                                        cfg.gae_lambda)
-            return compute_gae(traj.rewards, values, traj.masks, cfg.gamma,
-                               cfg.gae_lambda, bad_masks=bad)
+                return compute_gae_cuda(rewards, values, masks, cfg.gamma, cfg.gae_lambda)
+            return compute_gae(rewards, values, masks, cfg.gamma, cfg.gae_lambda,
+                               bad_masks=bad)
         returns = discounted_returns(
-            traj.rewards, values[-1], traj.masks, cfg.gamma, bad_masks=bad,
+            rewards, values[-1], masks, cfg.gamma, bad_masks=bad,
             values=values[:-1] if bad is not None else None,
         )
         return returns - values[:-1], returns
@@ -463,11 +561,19 @@ class MAPPO:
         num_mini_batch``. ``perms`` gives them, a (ppo_epoch, n) integer
         array as the JAX package draws them (``permutation(key_e, n)`` of
         each epoch's key); without it they are drawn from ``generator``
-        (default ``ts.generator``)."""
+        (default ``ts.generator``). Separated policies take one such array
+        per agent, (A, ppo_epoch, n) or (A, ppo_epoch, num_mini_batch, mb),
+        of each agent's T*E rows or E*T/L chunks
+        (:meth:`_update_separated`)."""
         cfg = self.cfg
         T, E, A, _ = traj.actions.shape
-        adv_n = normalize_advantages(adv)
         gen = ts.generator if generator is None else generator
+        if self.separated:
+            m = self._update_separated(ts, traj, normalize_advantages(adv, (0, 1)), returns,
+                                       perms, gen)
+            ts.iteration += 1
+            return m
+        adv_n = normalize_advantages(adv)
         if self.recurrent:
             m = self._update_recurrent(ts, traj, adv_n, returns, perms, gen)
         elif cfg.update_chunks > 1 and not self.fused_loss:
@@ -505,7 +611,8 @@ class MAPPO:
         if perms is None:
             perms = [torch.randperm(n, generator=generator, device=generator.device)
                      for _ in range(epochs)]
-        perms = torch.stack([torch.as_tensor(p) for p in perms]).to(self.device).long()
+        perms = torch.stack([torch.as_tensor(p).reshape(-1) for p in perms])
+        perms = perms.to(self.device).long()
         if perms.shape[0] != epochs or perms.shape[1] < mb * nmb:
             raise ValueError(f"perms of shape {tuple(perms.shape)}: expected {epochs} "
                              f"permutations of {n}")
@@ -587,6 +694,74 @@ class MAPPO:
             ms = [self._minibatch_update(ts, tuple(x[:, idx] for x in batch),
                                          (rnn[0][:, idx], rnn[1][idx], rnn[2][idx]))
                   for idx in self._minibatches(C, perms, generator)]
+        return torch.stack(ms).mean(dim=0)
+
+    def _update_separated(self, ts: TrainState, traj: Trajectory, adv_n, returns, perms,
+                          generator):
+        """Per-agent PPO updates with per-agent networks, optimizers and
+        normalizers (JAX ``_update_separated``, the reference's make_algo +
+        SeparatedReplayBuffer path): the agents in order, each on its own
+        (T, E) slice of the rollout through :meth:`_one_agent_update`, with
+        its advantages normalized over its own rows (``adv_n``). The
+        critic's team-concat input is shared by every agent, never copied
+        per agent. Returns the metrics averaged over agents."""
+        cfg = self.cfg
+        T, E, A, _ = traj.actions.shape
+        cent = traj.obs[:-1].reshape(T, E, A * self.obs_dim).to(self.net_dtype)
+        shared = dict(cent=cent, mask=traj.masks[:-1])
+        if self.recurrent:
+            L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
+            # per-env time slices, the same layout for every agent
+            shared = {k: _env_chunks(v, L) for k, v in shared.items()}
+        ms = []
+        for i, agent in enumerate(ts.agents):
+            agent.update_count = ts.update_count  # the LR schedule's count
+            ms.append(self._one_agent_update(agent, traj, i, adv_n, returns, shared,
+                                             None if perms is None else perms[i], generator))
+        ts.update_count += cfg.ppo_epoch * cfg.num_mini_batch
+        return torch.stack(ms).mean(dim=0)
+
+    def _one_agent_update(self, agent: TrainState, traj: Trajectory, i: int, adv_n, returns,
+                          shared, perms, generator):
+        """Agent ``i``'s epochs on its own (T, E) buffer (JAX
+        ``_one_agent_update``), through the shared path's minibatch step on
+        the agent's state. Feed-forward: the T*E rows, one minibatch (no
+        permutation) or ``num_mini_batch`` from a permutation an epoch.
+        Recurrent: C = E*T/L chunks of L = ``data_chunk_length`` steps (T for
+        ``use_naive_recurrent``) in (env, time) order, each GRU warm-started
+        from the stored hidden state at its first step; with one minibatch
+        the chunks stay in order, which equals JAX's permuted order up to
+        summation order. Returns the metrics' mean over the steps."""
+        cfg = self.cfg
+        T, E = traj.actions.shape[:2]
+        net_in = lambda x: x.to(self.net_dtype)
+        own = (net_in(traj.obs[:-1, :, i]), traj.actions[:, :, i], traj.log_probs[:, :, i],
+               adv_n[:, :, i], traj.values[:-1, :, i], returns[:, :, i])
+        if self.recurrent:
+            L = cfg.data_chunk_length if cfg.use_recurrent_policy else T
+            C = E * (T // L)
+            if C < cfg.num_mini_batch:
+                raise ValueError(f"num_mini_batch ({cfg.num_mini_batch}) exceeds the "
+                                 f"per-agent data chunks ({C})")
+            obs, act, logp, adv, vpred, ret = (_env_chunks(x, L) for x in own)
+            batch = (obs, act, logp, adv, shared["cent"], vpred, ret)
+            warm = lambda h: h[:, :, i].transpose(0, 1)[:, ::L].reshape(C, *h.shape[3:])
+            rnn = (shared["mask"], warm(traj.actor_h), warm(traj.critic_h))
+            if cfg.num_mini_batch == 1:
+                ms = [self._minibatch_update(agent, batch, rnn) for _ in range(cfg.ppo_epoch)]
+            else:
+                ms = [self._minibatch_update(agent, tuple(x[:, idx] for x in batch),
+                                             (rnn[0][:, idx], rnn[1][idx], rnn[2][idx]))
+                      for idx in self._minibatches(C, perms, generator)]
+        else:
+            B = T * E
+            obs, act, logp, adv, vpred, ret = (x.reshape(B, x.shape[-1]) for x in own)
+            rows = (obs, act, logp, adv, shared["cent"].reshape(B, -1), vpred, ret)
+            if cfg.num_mini_batch == 1:
+                ms = [self._minibatch_update(agent, rows) for _ in range(cfg.ppo_epoch)]
+            else:
+                ms = [self._minibatch_update(agent, tuple(r[idx] for r in rows))
+                      for idx in self._minibatches(B, perms, generator)]
         return torch.stack(ms).mean(dim=0)
 
     def _update_ff_chunked(self, ts: TrainState, traj: Trajectory, adv_n, returns):
@@ -892,6 +1067,13 @@ class MAPPO:
             "reward": float(traj.rewards.mean(dim=(1, 2)).sum()),
             "coverage_rate": float(traj.coverage.max(dim=0).values.mean()),
         }
+
+
+def _env_chunks(x: torch.Tensor, L: int) -> torch.Tensor:
+    """(T, E, ...) -> time-major chunks (L, C, ...), C = E*T/L, in (env,
+    time) order: the separated buffer's chunking of one agent's data."""
+    x = x.transpose(0, 1)
+    return x.reshape(-1, L, *x.shape[2:]).transpose(0, 1).contiguous()
 
 
 def _set_grads(base, tg, scale: float) -> None:

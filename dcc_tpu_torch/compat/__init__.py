@@ -1,3 +1,11 @@
-from .flax_params import flax_to_state_dict, state_dict_to_flax
+from .flax_params import (
+    flax_to_state_dict,
+    stack_states,
+    stacked_flax_to_state_dicts,
+    state_dict_to_flax,
+    state_dicts_to_stacked_flax,
+    unstack_states,
+)
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax"]
+__all__ = ["flax_to_state_dict", "stack_states", "stacked_flax_to_state_dicts",
+           "state_dict_to_flax", "state_dicts_to_stacked_flax", "unstack_states"]

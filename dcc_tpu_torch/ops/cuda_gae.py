@@ -82,7 +82,9 @@ def compute_gae_cuda(
     gamma: float,
     gae_lambda: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (advantages, returns) shaped like ``rewards``."""
+    """Returns (advantages, returns) of the three's broadcast trailing
+    shape (separated policies: (T, E, 1, 1) rewards and masks against
+    (T+1, E, A, 1) values give (T, E, A, 1))."""
     if not rewards.is_cuda:
         return compute_gae(rewards, values, masks, gamma, gae_lambda)
     trailing = rewards.shape[1:]

@@ -5,10 +5,11 @@ Counterpart of :class:`dcc_tpu.runtime.learner.Learner`. Run artifacts go to
 snapshot. Every ``render_interval`` iterations, with ``save_gifs`` or
 ``render_live`` and a saved model, it renders an episode of
 ``n_render_rollout_threads`` envs, tiled, to ``models_{it}.gif`` (and shows
-it live), timed as the ``render`` phase. Device meshes (ROADMAP A13),
-algorithms other than MAPPO (ROADMAP A10) and device-trace capture are not
-ported yet: a config that asks for them raises at construction instead of
-skipping them.
+it live), timed as the ``render`` phase; a separated policy with rendering
+on raises at construction, since the JAX package cannot render one either.
+Device meshes (ROADMAP A13), algorithms other than MAPPO (ROADMAP A10) and
+device-trace capture are not ported yet: a config that asks for them raises
+at construction instead of skipping them.
 """
 
 from __future__ import annotations
@@ -60,6 +61,16 @@ class Learner:
                 "torch.profiler trace window)"
             )
 
+        renders = bool(cfg.get("save_gifs", True)) or bool(cfg.get("render_live", False))
+        if not self.algo_cfg.share_policy and self.is_save_model and renders:
+            # JAX's render passes the stacked per-agent parameters to one actor
+            # and fails after training (flax ScopeParamShapeError at
+            # dcc_tpu/render/gif.py:58)
+            raise ValueError(
+                "separated policies cannot be rendered (the JAX package's render fails "
+                "with flax's ScopeParamShapeError at dcc_tpu/render/gif.py:58): pass "
+                "--save-gifs false (and no --render-live)"
+            )
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # f32 means full f32: no TF32 in matmuls or convolutions

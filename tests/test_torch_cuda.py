@@ -144,6 +144,20 @@ def test_gae_kernel_broadcast_values(cuda):
     assert _rel(adv, want_adv) < 1e-5 and _rel(ret, want_ret) < 1e-5
 
 
+@pytest.mark.parametrize("E,A", [(4, 4), (16, 4)], ids=["e-eq-a", "e16-a4"])
+def test_gae_kernel_separated_layout(cuda, E, A):
+    # separated policies: per-env rewards and masks (T, E, 1, 1) against
+    # per-agent values (T+1, E, A, 1); at E == A a missing agent axis would
+    # pair the masks' env axis with the values' agent axis
+    r, _, m = _gae_inputs(150, E, 9, cuda)
+    v = torch.randn(151, E, A, 1, generator=torch.Generator().manual_seed(10)).to(cuda)
+    r, m = r[:, :, None], m[:, :, None]
+    adv, ret = compute_gae_cuda(r, v, m, 0.99, 0.95)
+    want_adv, want_ret = compute_gae(r, v, m, 0.99, 0.95)
+    assert adv.shape == ret.shape == (150, E, A, 1)
+    assert _rel(adv, want_adv) < 1e-5 and _rel(ret, want_ret) < 1e-5
+
+
 @pytest.mark.parametrize("T", [150, 600])
 def test_gae_kernel_is_deterministic(cuda, T):
     r, v, m = _gae_inputs(T, 16387, 5, cuda)

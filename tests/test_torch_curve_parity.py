@@ -1,0 +1,112 @@
+"""The port's learning gate: its committed learning curves on the card
+against the reference's and the JAX package's coverage bands.
+
+Reads files only. The port's curves are ``learning_curves_torch/``
+(``scripts/run_torch_curve.py``: 200 iterations x 150 steps x 16 envs of the
+default config on one NVIDIA card, f32 seeds 0-25 and bf16 seeds 0-23, the
+JAX package's own seed counts); the bands are ``reference_seed*`` (the
+original implementation, 10 seeds), ``dcc_tpu_seed*`` (26) and
+``dcc_tpu_bf16_seed*`` (24) in ``benchmarks/learning_curves/``. Each gate is
+``tests/test_curve_parity.py``'s, on the final-20-iteration coverage of runs
+of at least 200 iterations: both arms learn (every seed above 0.5); the f32
+arm is not stochastically below either band (one-sided Mann-Whitney p >
+0.05) and its mean lies less than 0.05 below the band's; the bf16 arm is not
+stochastically below either band (p > 0.05). A missing file fails: a gate
+that skipped would guard nothing.
+
+Regenerate (on the card; ``--pool`` runs the seeds as concurrent processes):
+
+    python scripts/run_torch_curve.py --pool 7 $(seq 0 25)
+    DCC_CURVE_DTYPE=bfloat16 python scripts/run_torch_curve.py --pool 7 $(seq 0 23)
+"""
+
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from scipy.stats import mannwhitneyu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT_DIR = os.path.join(ROOT, "learning_curves_torch")
+BAND_DIR = os.path.join(ROOT, "benchmarks", "learning_curves")
+ARMS = {"f32": ("dcc_tpu_torch", 26), "bf16": ("dcc_tpu_torch_bf16", 24)}
+LAST, MIN_ITERS = 20, 200
+
+
+def _runs(directory, system):
+    return [json.load(open(p))
+            for p in sorted(glob.glob(os.path.join(directory, f"{system}_seed*.json")))]
+
+
+def _final_coverages(directory, system):
+    out = {}
+    for d in _runs(directory, system):
+        cov = np.asarray(d["series"]["coverage_rate"], dtype=float)
+        if len(cov) >= MIN_ITERS:  # partial runs are not counted
+            out[d["seed"]] = float(cov[-LAST:].mean())
+    return out
+
+
+def _arm(arm):
+    return np.array(list(_final_coverages(PORT_DIR, ARMS[arm][0]).values()))
+
+
+@pytest.mark.parametrize("arm", sorted(ARMS))
+def test_artifacts_are_full_runs_on_a_card(arm):
+    system, n_seeds = ARMS[arm]
+    runs = _runs(PORT_DIR, system)
+    assert sorted(d["seed"] for d in runs) == list(range(n_seeds))
+    for d in runs:
+        assert len(d["series"]["coverage_rate"]) >= MIN_ITERS, d["seed"]
+        assert "NVIDIA" in d["system"], d["system"]
+
+
+def test_both_arms_learn():
+    """Both arms end far above the untrained ~0.2-0.3 coverage floor."""
+    for arm in ARMS:
+        assert _arm(arm).min() > 0.5, (arm, sorted(np.round(_arm(arm), 3)))
+
+
+@pytest.mark.parametrize(
+    "arm,band,max_gap",
+    [("f32", "reference", -0.05), ("f32", "dcc_tpu", -0.05),
+     ("bf16", "reference", None), ("bf16", "dcc_tpu_bf16", None)],
+)
+def test_final_coverage_not_below_band(arm, band, max_gap):
+    """One-sided Mann-Whitney U: the port's final-coverage seeds must not be
+    stochastically below the band's at alpha 0.05; in f32 the mean gap must
+    also stay above -0.05 (tests/test_curve_parity.py:76-127)."""
+    a = _arm(arm)
+    b = np.array(list(_final_coverages(BAND_DIR, band).values()))
+    assert len(b) >= 10, band
+    p = float(mannwhitneyu(a, b, alternative="less").pvalue)
+    assert p > 0.05, (f"{arm} arm stochastically below {band} (one-sided MWU p={p:.4f}; "
+                      f"port={sorted(np.round(a, 3))}, band={sorted(np.round(b, 3))})")
+    if max_gap is not None:
+        assert a.mean() - b.mean() > max_gap, (a.mean(), b.mean())
+
+
+def test_curve_runner_writes_the_schema(tmp_path):
+    """The runner on the CPU for two iterations: the file's name, its
+    schema (``run_dcc_curve.py``'s ``_dump``, plus ``concurrent``) and one
+    entry per iteration in every series."""
+    # one thread: the run is small, and the suite's other workers hold the cores
+    env = dict(os.environ, DCC_CURVE_DEVICE="cpu", DCC_CURVE_ITERS="2", OMP_NUM_THREADS="1")
+    env.pop("DCC_CURVE_DTYPE", None)
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "run_torch_curve.py"),
+                    "5", str(tmp_path)], env=env, check=True, capture_output=True)
+    assert os.listdir(tmp_path) == ["dcc_tpu_torch_seed5.json"]
+    d = json.load(open(tmp_path / "dcc_tpu_torch_seed5.json"))
+    assert {"system", "concurrent", "seed", "n_iters", "n_rollout_threads", "max_ep_len",
+            "elapsed_s", "series"} <= set(d)
+    assert (d["seed"], d["n_iters"], d["n_rollout_threads"], d["max_ep_len"],
+            d["concurrent"]) == (5, 2, 16, 150, 1)
+    assert d["system"].startswith("dcc_tpu_torch (torch ")
+    assert set(d["series"]) == {"reward", "coverage_rate", "value_loss", "policy_loss",
+                                "dist_entropy", "ratio", "iter_time_s"}
+    for k, v in d["series"].items():
+        assert len(v) == 2 and np.isfinite(v).all(), k

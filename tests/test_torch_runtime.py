@@ -86,9 +86,12 @@ def test_checkpoint_resume_is_exact(tmp_path, extra):
 
 def test_port_imports_no_jax():
     code = (
-        "import importlib, pkgutil, sys, dcc_tpu_torch, chip_smoke\n"
+        "import importlib, importlib.util, pkgutil, sys, dcc_tpu_torch, chip_smoke\n"
         "for m in pkgutil.walk_packages(dcc_tpu_torch.__path__, 'dcc_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "spec = importlib.util.spec_from_file_location('run_torch_curve',\n"
+        "                                              'scripts/run_torch_curve.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dcc_tpu'))\n"
         "assert not bad, bad\n"

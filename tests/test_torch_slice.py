@@ -160,7 +160,7 @@ def test_dispatch_rules_on_cuda(monkeypatch, kw, trunk, loss):
     assert (algo.fused_trunk, algo.fused_loss, algo.gae_kernel) == (trunk, loss, True)
 
 
-@pytest.mark.parametrize("kw", [dict(share_policy=False), dict(env_dtype="float64")])
+@pytest.mark.parametrize("kw", [dict(env_dtype="float64")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MAPPO(MAPPOConfig(**kw), EnvConfig(), device="cpu")
