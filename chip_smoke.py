@@ -14,7 +14,8 @@ Phases (any failure exits non-zero):
    none in any other kernel (no TF32 in the f32 kernels);
 3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
-   and 16,387 envs, and at (T, E) = (1, 16), (5, 3), (151, 17), and at
+   and 16,387 envs, and at (T, E) = (1, 16), (5, 3), (151, 17), (150,
+   1,024) (the 20-UAV run's), and at
    (1000, 64), (2000, 16), (600, 16387), where the kernel walks time in
    rounds, with masks whose zero runs cross the kernel's segment and round
    boundaries, one launch a call through ``GAE_ENTRY``; at 16 and 16,384
@@ -31,7 +32,12 @@ Phases (any failure exits non-zero):
    their runs give them, each check printing the row tile its launch took;
    there the bf16 gradient kernels run three trunks (``trunk_variants``:
    the model's, a reading; the model's with tanh and one relu layer on the
-   rows themselves, both checks). Biases and
+   rows themselves, both checks). Then the 20-UAV preset's widths
+   (``check_wide``: actor 242, team-concat critic 4,840, where bf16 K4 runs
+   its chunked layer 0 and the dV0 kernel): K2 at 16 and 1,024 envs, K3 /
+   K4 at 16 envs in f32 and bf16 on those trunks and in bf16 at 1,024 envs,
+   the main path's shapes (3,072,000 x 242, 153,600 x 4,840), and the dV0
+   kernel alone at both. Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
@@ -69,23 +75,30 @@ Phases (any failure exits non-zero):
    the 10-UAV preset's randomized and moving PoIs and collision penalty on
    the card); 2 iterations of separated per-agent f32 policies and 1 each
    in bf16 and recurrent f32 with 2 minibatches, which launch K1 only;
+   one iteration of the 20-UAV preset as written but for its envs (1,024
+   of 16,384; bf16, eval 0: K2 on 242- and 4,840-wide rows, K3 15 times,
+   K4 15 times with its dV0 kernel 15 times);
    then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
    gate's runner; its file's schema, and K1-K4 as the bf16 path launches
    them); then the default command with render (the default YAMLs, 2
    iterations, ``models_2.gif`` into a temporary directory, which must
-   decode to 151 frames of 700 x 700); and the 20-UAV preset, whose MAPPO
-   must refuse to build (ROADMAP B2). Print the metrics and phase times,
+   decode to 151 frames of 700 x 700). Print the metrics and phase times,
    and require each run's kernels to
    have launched exactly as often as its path runs them and the others not
    at all, every run's K1 to have gone through ``GAE_ENTRY`` and every bf16
    run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
-   tensor-core entry points. After the runs of ``PROFILED``, one more
+   tensor-core entry points (the 20-UAV run's K4 through
+   ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_mma``). After the runs
+   of ``PROFILED``, one more
    iteration under ``torch.profiler``: device time by kernel name and the
    device's idle share over the iteration;
 6. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
-   others), the card line, and the result.
+   others; K4 at the 20-UAV preset's 153,600 x 4,840 rows as
+   ``critic_ppo_grads_chunked``, both launches, and its dV0 kernel alone
+   as ``critic_ppo_grads_dv0``, ``KERNEL_ROW``), the card line, and the
+   result.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -108,13 +121,18 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_FP32 = 67e12  # FP32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12  # bf16 tensor cores, dense, FLOP/s
 BIG_ENVS = 16384  # bench.py's headline env count
+# the 20-UAV preset (actor rows 242 wide, team-concat critic rows 4,840) at
+# 1,024 of its 16,384 envs: one card, the smoke's time
+WIDE = "20uav_16k_dist"
+WIDE_ENVS = 1024
 # K1: the C entry every launch goes through; the (T, E) shapes held against
 # the plain version (ragged, T = 1, fewer columns than a warp); the timed ones
 GAE_ENTRY = "dcc_gae_seg"
 GAE_TIMED = ((150, 16), (150, BIG_ENVS))
-# the last three walk time in two rounds (T > S * L under gae_plan)
-GAE_SHAPES = GAE_TIMED + ((1, 16), (5, 3), (151, 17), (150, BIG_ENVS + 3), (1000, 64),
-                          (2000, 16), (600, BIG_ENVS + 3))
+# (150, WIDE_ENVS) is the 20-UAV run's; the last three walk time in two
+# rounds (T > S * L under gae_plan)
+GAE_SHAPES = GAE_TIMED + ((1, 16), (5, 3), (151, 17), (150, BIG_ENVS + 3), (150, WIDE_ENVS),
+                          (1000, 64), (2000, 16), (600, BIG_ENVS + 3))
 # bf16 bounds on ||kernel - plain|| / ||plain|| per tensor. Kernel and plain
 # version round at the same points; summation order flips single bf16
 # roundings. The bound sits between those readings and the kernel computed
@@ -125,6 +143,10 @@ PPO_BF16_REL = 4e-3
 # rounding of a cotangent element before the next product (measured up to
 # 1.2e-3); the kernel computed in f32 reads 6.5e-2 to 7.0e-2.
 K2B_BF16_REL = 4e-3
+# the dV0 kernel of the chunked K4 and its plain version take the same bf16
+# operands: only the f32 summation order differs; the product of the
+# unrounded xhat lies about a bf16 step (2^-9 relative) away
+DV0_REL = 1e-4
 REPLACES = {
     "gae": "dcc_tpu/ops/pallas_gae.py:56",
     "fused_mlp": "dcc_tpu/ops/fused_mlp.py:319",
@@ -134,6 +156,11 @@ REPLACES = {
     # the same Pallas programs with folded=False (_actor_kernel, _critic_kernel)
     "actor_ppo_grads_unfolded": "dcc_tpu/ops/fused_ppo.py:290",
     "critic_ppo_grads_unfolded": "dcc_tpu/ops/fused_ppo.py:378",
+    # K4 at rows too wide for a staged tile: its chunked kernel, and the
+    # second launch, layer 0's weight gradient, which the TPU kernel sums in
+    # its own body
+    "critic_ppo_grads_chunked": "dcc_tpu/ops/fused_ppo.py:667",
+    "critic_ppo_grads_dv0": "dcc_tpu/ops/fused_ppo.py:667",
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
@@ -143,7 +170,18 @@ SOURCES = {
     "critic_ppo_grads": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "actor_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "critic_ppo_grads_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "critic_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
+# the check whose numbers the {"kernels": [...]} line reports for each of
+# its names, and the counter of that name's launches: (kernel, envs, preset)
+# of the first gated bf16 check (K1 f32) with no minibatch; (name, 16, None)
+# where not listed. The chunked K4 and the dV0 kernel run only at rows too
+# wide for a staged K4 tile: the 20-UAV preset's, read at the main path's
+# 153,600 rows. The chunked K4 counts under critic_ppo_grads, and its time
+# and bound are both launches'; the dV0 row's are its own.
+KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
+              "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE)}
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
 BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
@@ -201,12 +239,22 @@ TRAIN_RUNS = (
     ("separated-bf16", SEPARATED + BF16 + ["--n-iters", "1"], {"gae": 1}),
     ("separated-recurrent-f32-nmb2", SEPARATED + RECURRENT + ["--num-mini-batch", "2",
                                                               "--n-iters", "1"], {"gae": 1}),
+    # the 20-UAV preset as written but for its envs: bf16, K2 on 242- and
+    # 4,840-wide rows, K3 on 3,072,000 x 242, K4 through its chunked layer 0
+    # and the dV0 kernel on 153,600 x 4,840; update_chunks 4 and remat take
+    # no part in the fused update
+    (f"preset-{WIDE}", preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS),
+                                            "--n-iters", "1"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
+      "critic_ppo_grads_dv0": 15}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16",
             "actor_ppo_grads_unfolded": "bf16-unfolded-popart",
-            "critic_ppo_grads_unfolded": "bf16-unfolded-popart"}
+            "critic_ppo_grads_unfolded": "bf16-unfolded-popart",
+            "critic_ppo_grads_chunked": f"preset-{WIDE}",
+            "critic_ppo_grads_dv0": f"preset-{WIDE}"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
@@ -223,11 +271,14 @@ MMA_ENTRY = {
     "recurrent-bf16-nmb2": _TRUNK_MMA,
     **{f"bf16-{mode}": _TRUNK_MMA for mode in HEAD_MODES},
     **{f"preset-{name}-bf16": _FOLDED_MMA for name in BF16_PRESETS},
+    f"preset-{WIDE}": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
+                       "critic_ppo_grads_dv0": "dcc_dv0_mma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
                "critic_grads_mma_kernel", "actor_grads_unfolded_mma_kernel",
-               "critic_grads_unfolded_mma_kernel")
+               "critic_grads_unfolded_mma_kernel", "critic_grads_chunked_mma_kernel",
+               "dv0_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
 # the runs followed by one profiled iteration
 PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart")
@@ -642,6 +693,7 @@ def check_kernels(results: list):
     check_ppo(results, gen, cases=((16, 1), (16, 4), (ppo_envs, 1)))
     check_unfolded(results, gen)  # K3u, K4u
     check_presets(results)
+    check_wide(results)
 
 
 def check_trunk_backward(results: list, gen, cases, preset=None):
@@ -710,12 +762,14 @@ def check_trunk_backward(results: list, gen, cases, preset=None):
                 torch.cuda.empty_cache()
 
 
-def check_ppo(results: list, gen, cases, preset=None):
+def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
     """K3 / K4, the folded PPO loss + gradient kernels, on T*E*A/nmb actor
     rows and T*E critic rows (nmb = 1) or as many critic rows as actor rows,
     gathered from the env rows duplicated per agent (nmb > 1), for each
-    (envs, nmb) of ``cases``, in f32 and bf16, of the default config or
-    ``preset``, on the trunks of ``trunk_variants``.
+    (envs, nmb) of ``cases``, in the ``modes`` (bf16 True), of the default
+    config or ``preset``, on the trunks of ``trunk_variants``. K4 at rows too
+    wide for a staged tile launches its chunked kernel and the dV0 kernel
+    (``ops.tiles.plan``); its time is both launches'.
 
     At a preset's widths the f32 checks give rows with a relu pre-activation
     within 1e-5 of the kink a zero advantage / valid = 0."""
@@ -730,7 +784,7 @@ def check_ppo(results: list, gen, cases, preset=None):
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
-    for bf16 in (False, True):
+    for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on"), env, device=dev)
         actor, critic = algo.make_networks(seed=2)
@@ -967,6 +1021,57 @@ def check_presets(results: list):
         check_trunk_backward(results, gen, ((16, 1, "both"),), preset)
         check_ppo(results, gen, ((16, 1),), preset)
         check_unfolded(results, gen, preset, envs_list=(16,))
+
+
+def check_wide(results: list):
+    """The 20-UAV preset's widths (actor 242, critic 4,840; bf16 K4 there
+    through its chunked layer 0 and the dV0 kernel): K2 at 16 and
+    ``WIDE_ENVS`` envs (20 x envs actor rows, envs critic rows, as the
+    rollout gives them); K3 and K4 at 16 envs (48,000 x 242, 2,400 x 4,840)
+    in f32 and bf16, and in bf16 at ``WIDE_ENVS`` envs (3,072,000 x 242,
+    153,600 x 4,840), the main path's shapes, on the trunks of
+    ``trunk_variants`` (the plain K3 keeps about ten 3.1 GB f32 tensors
+    alive there); the dV0 kernel against its plain version at both."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    print(f"  the {WIDE} preset's widths, at 16 and {WIDE_ENVS} envs", flush=True)
+    check_trunk_forward(results, gen, preset=WIDE, envs_list=(16, WIDE_ENVS))
+    check_ppo(results, gen, cases=((16, 1),), preset=WIDE)
+    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=WIDE, modes=(True,))
+    check_dv0(results, gen, envs_list=(16, WIDE_ENVS))
+
+
+def check_dv0(results: list, gen, envs_list):
+    """The dV0 kernel (``ops.fused_ppo.dv0_cuda``) against its plain version
+    on the 20-UAV preset's T*E critic rows (4,840 wide, bf16), their
+    feature-norm statistics and a bf16 cotangent of layer 0, within
+    ``DV0_REL``; the product of the unrounded xhat must lie outside it."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_ppo as FP
+
+    env = env_config(WIDE)
+    D, H = env.n_agents * env.obs_dim, 256
+    for envs in envs_list:
+        R = 150 * envs
+        x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
+        xstats = FP.input_stats(x, True)
+        g0 = (0.1 * torch.randn(R, H, generator=gen, device="cuda")).to(torch.bfloat16)
+        kern = lambda: FP.dv0_cuda(x, xstats, g0, H)
+        plain = lambda: FP.dv0_plain(x, xstats, g0, H)
+        want = plain()
+        errs = compare("critic_ppo_grads_dv0", [kern()], [want], DV0_REL)
+        unrounded = ((x.float() - xstats[:, :1]) * xstats[:, 1:]).t() @ g0.float()
+        f32_rel = f32_reading("critic_ppo_grads_dv0", [unrounded], [want], DV0_REL)
+        del unrounded
+        # x, g0 and the statistics in, dV0 out; one product of 2 ops a MAC
+        nbytes = 2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 4 * D * H
+        b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
+        record(results, "critic_ppo_grads_dv0", "bf16", envs, _shape(R, D), errs, kern, plain,
+               b, by, f32_rel, preset=WIDE)
+        del x, g0, want
+        torch.cuda.empty_cache()
 
 
 def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=None):
@@ -1287,25 +1392,6 @@ def render_run(results: dict):
         shutil.rmtree(out, ignore_errors=True)
 
 
-def check_wide_preset(results: dict):
-    """The 20-UAV preset on the card: building MAPPO from it raises
-    NotImplementedError naming ROADMAP B2 (its 4,840-wide critic rows fit no
-    row tile of K4)."""
-    from dcc_tpu_torch.algos.mappo import MAPPO
-    from dcc_tpu_torch.configs import load_preset
-
-    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    try:
-        MAPPO(algo_cfg, env_cfg, device="cuda")
-    except NotImplementedError as e:
-        if "B2" not in str(e):
-            raise SmokeFailure(f"20uav_16k_dist: refused without naming ROADMAP B2: {e}")
-        results["20uav_16k_dist"] = str(e)
-        print(f"  20uav_16k_dist refused on the card: {e}", flush=True)
-        return
-    raise SmokeFailure("20uav_16k_dist: MAPPO built on the card; expected the B2 refusal")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1341,7 +1427,6 @@ def main(argv=None) -> int:
           flush=True)
     ptxas = ptxas_report(built["_ptxas"], args.ptxas)
     sass = sass_check(built)
-    extra: dict = {}
 
     checks: list = []
     print(f"[3] kernels against their plain versions (at {time.perf_counter() - t0:.0f} s)",
@@ -1358,32 +1443,33 @@ def main(argv=None) -> int:
     train_runs(runs)
     curve_run(runs)
     render_run(runs)
-    check_wide_preset(extra)
     print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in REPLACES:
         mode = "f32" if name == "gae" else "bf16"
-        row = next(c for c in checks if c["kernel"] == name and c["mode"] == mode
-                   and c["envs"] == 16 and "nmb" not in c["shape"] and c["preset"] is None)
+        kernel, envs, preset = KERNEL_ROW.get(name, (name, 16, None))
+        row = next(c for c in checks if c["kernel"] == kernel and c["mode"] == mode
+                   and c["envs"] == envs and "nmb" not in c["shape"] and c["preset"] == preset
+                   and c["gated"])
         # K1's wrapper takes longer on the host than its kernel on the card,
         # so its event time is the host's rate: device_ms beside it
         dev = row["device_us"]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=runs[MAIN_RUN[name]]["launches"].get(name, 0),
+            launches=runs[MAIN_RUN[name]]["launches"].get(kernel, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=dev["kernel"] / 1e3 if dev else None, plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
-            mode=mode, shape=row["shape"], host_us=row["host_us"]["wrapper"],
+            mode=mode, shape=row["shape"], entry=row["entry"],
+            host_us=row["host_us"]["wrapper"],
         ))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            build_s=built["_seconds"], ptxas=ptxas, sass_hmma=sass,
-                           checks=checks, updates=updates, train=runs, kernels=kernels,
-                           **extra),
+                           checks=checks, updates=updates, train=runs, kernels=kernels),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -294,7 +294,9 @@ class MAPPO:
     def _check_row_tiles(self) -> None:
         """Raise (ROADMAP B2) where a kernel this run launches on CUDA has no
         row tile at its row width: the kernels stage whole rows in shared
-        memory, and a row too wide would first fail inside its launch."""
+        memory, but for bf16 K4, which streams its first layer in column
+        chunks past the widest staged row (``ops.tiles.plan``), and a row
+        too wide would first fail inside its launch."""
         act_n = self.env_cfg.action_dim
         launches = []  # (kernel, row width, head width)
         if self.fused_trunk:
@@ -307,13 +309,14 @@ class MAPPO:
             launches += [(f"actor_ppo_grads{tag}", self.obs_dim, act_n),
                          (f"critic_ppo_grads{tag}", self.cent_obs_dim, 1)]
         for kernel, width, n_head in launches:
-            if not tiles.fitting_tiles(kernel, self.bf16, width, self.cfg.hidden_size,
-                                       self.cfg.layer_n + 1, n_head):
+            if not tiles.plan(kernel, self.bf16, width, self.cfg.hidden_size,
+                              self.cfg.layer_n + 1, n_head)[1]:
                 raise NotImplementedError(
                     f"{kernel} ({'bf16' if self.bf16 else 'f32'}) has no row tile that fits "
-                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: tile the "
-                    f"first layer over d_in; the 20-UAV preset, whose critic rows are 4,840 "
-                    f"wide, also needs multi-GPU, ROADMAP A13)"
+                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: of the "
+                    f"fused kernels only bf16 K4 streams its first layer over d_in; the "
+                    f"20-UAV preset's 4,840-wide critic rows run with the fused loss on, "
+                    f"folded)"
                 )
 
     # ------------------------------------------------------------------

@@ -28,10 +28,13 @@
 // backward on it, and adds the tile's gradients into its OWN slot of
 // a scratch buffer (each slot element has one owner thread). A second small
 // kernel sums the slots in a fixed order. The result is deterministic and
-// uses no atomics. The ragged last tile is masked in the kernel, so rows are
-// never padded. Loss and backward elementwise math is f32 with JAX's
-// autodiff tie rules: min / max split the cotangent 50/50 on ties, clip
-// composes the two.
+// uses no atomics. bf16 K4 at rows too wide to stage (the 20-UAV preset's
+// 4,840) streams layer 0 in column chunks and hands layer 0's weight
+// gradient to dv0_mma_kernel, whose (d_in x H) sum would not fit a slot
+// that every tile re-reads (see there). The ragged last tile is masked in
+// the kernel, so rows are never padded. Loss and backward elementwise math
+// is f32 with JAX's autodiff tie rules: min / max split the cotangent 50/50
+// on ties, clip composes the two.
 #include "slots.cuh"
 #include "trunk_mma.cuh"
 
@@ -90,16 +93,17 @@ __host__ __device__ inline size_t ppo_unfolded_smem_floats(int br, int d_in, int
 
 // Folded gradient slot layout (floats): per layer [dV (d_li x H), du (H)],
 // then head [dW (H x A), db (A)], then per-kind extras (actor: dlog_std (A)
-// and [loss_sum, ratio_sum]; critic: [value_loss_sum]). Unfolded, the slot
+// and [loss_sum, ratio_sum]; critic: [value_loss_sum]); with dv0_apart
+// (the chunked K4) without layer 0's dV, which a second kernel computes. Unfolded, the slot
 // starts with the flat trunk list's gradients at the parameter offsets
 // (fn scale, fn bias, then W, b, LN scale, LN bias per layer) and the head
 // follows at offs.v[2 + 4L].
 __device__ void slot_ptrs(float* slot, int d_in, int H, int L, int A,
-                          float** sv, float** su, float** head) {
+                          float** sv, float** su, float** head, bool dv0_apart = false) {
   long long o = 0;
   for (int li = 0; li < L; ++li) {
-    sv[li] = slot + o;
-    o += (long long)(li == 0 ? d_in : H) * H;
+    sv[li] = li == 0 && dv0_apart ? nullptr : slot + o;
+    o += li == 0 && dv0_apart ? 0 : (long long)(li == 0 ? d_in : H) * H;
     su[li] = slot + o;
     o += H;
   }
@@ -406,14 +410,16 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // (resum_uncertain), as K2b does.
 // Shared memory of one block (BR rows, Kp0 = pad16(d_in), Hp = pad16(H);
 // bf16 tiles with rows padded by 8 elements):
-//   a0    BR x Kp0   layer 0's operand
+//   a0    BR x Kp0   layer 0's operand; chunked, BR x MMA_KC, one column
+//         chunk of it at a time
 //   act   L x BR x Hp  each layer's activation
 //   sx    BR x Hp    the operand of layer li >= 1
 //   stage BR x (Kp0 + 4) f32, unfolded only: layer 0's g_prev, over a0,
 //         act and sx (and beyond them where it is larger)
 //   gs    BR x Hp    bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
-//   f32:  mu, inv (L x BR), unfolded the feature norm's mu, inv (BR),
+//   f32:  mu, inv (L x BR), unfolded and chunked the feature norm's mu,
+//         inv (BR),
 //         row-sum partials, column sums (BR/16 x Hp; unfolded 3 x),
 //         bf16 of the head's weights (H x A), folded the biases u (L x H),
 //         both loaded once per block, per-row head values (the outputs'
@@ -432,15 +438,16 @@ struct PpoMmaLayout {
 };
 
 __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, int L, int A,
-                                                       bool unf) {
+                                                       bool unf, bool chunked = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const bool fn_stats = unf || chunked;
   // unfolded: the widest column pass of layer 0's g_prev
   const int nk = unf ? (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX) : 0;
   const int st_kn = ring_stage((int)Hp, false);
   const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
   PpoMmaLayout m;
   size_t o = 0;
-  m.a0 = o;     o += 2 * br * (Kp0 + 8);
+  m.a0 = o;     o += 2 * br * (chunked ? MMA_KC + 8 : Kp0 + 8);
   m.act = o;    o += 2 * (size_t)L * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
   m.stage = 0;
@@ -449,8 +456,8 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
   m.mu = o;     o += 4 * (size_t)L * br;
   m.inv = o;    o += 4 * (size_t)L * br;
-  m.fmu = o;    o += unf ? 4 * (size_t)br : 0;
-  m.finv = o;   o += unf ? 4 * (size_t)br : 0;
+  m.fmu = o;    o += fn_stats ? 4 * (size_t)br : 0;
+  m.finv = o;   o += fn_stats ? 4 * (size_t)br : 0;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
   m.colsum = o; o += 4 * (unf ? 3 : 1) * (size_t)(br / 16) * Hp;
   m.wh = o;     o += 4 * (size_t)H * A;
@@ -634,16 +641,25 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
 // aux_w floats wide. Slot: folded per layer [dV, du], unfolded the trunk
 // list's gradients at its offsets; then the head's [dW (H x A), db (A),
 // ext (A, when EXT), metrics (NMET)].
-template <int BR, bool UNF, class Loss>
+// Chunked (CH, folded only; ROADMAP B2's rows too wide to stage whole):
+// layer 0's operand streams through a0 in MMA_KC-column chunks, each
+// normalized from x as it is loaded, and the backward leaves layer 0's dV
+// out of the slot: it writes each row's bf16 cotangent of layer 0 (R x Hp)
+// to g0 and its feature-norm mean and 1/sqrt(var + eps) to xstats (R x 2),
+// from which dv0_mma_kernel computes dV0 = bf16(xhat)^T g0.
+template <int BR, bool UNF, class Loss, bool CH = false>
 __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const void* x,
                                               int x_bf16, const float* aux, int aux_w,
                                               long long R, int d_in, int H, int L, int A,
                                               int use_fn, int relu, const float* pb,
                                               const DccOffs& offs, const bf16* wb,
                                               const DccOffs& woffs, float* slots,
-                                              long long slot_size, const Loss& loss) {
-  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF);
-  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8, ldf = Kp0 + 4;
+                                              long long slot_size, const Loss& loss,
+                                              bf16* g0 = nullptr, float* xstats = nullptr) {
+  static_assert(!(CH && UNF), "the chunked layer 0 runs the folded chain");
+  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
+            ldf = Kp0 + 4;
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
   bf16* sx = (bf16*)(smem_raw + m.sx);
@@ -677,7 +693,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   if constexpr (UNF)
     head = slot + offs.v[2 + 4 * L];
   else
-    slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
+    slot_ptrs(slot, d_in, H, L, A, sv, su, &head, CH);
   float* s_w = head;
   float* s_b = s_w + H * A;
   float* s_e = s_b + A;
@@ -724,6 +740,8 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     if constexpr (UNF)
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
                      lda0, fnmu, fninv);
+    else if constexpr (CH)
+      input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv);
     else
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
     __syncthreads();
@@ -734,7 +752,32 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
       if (UNF && relu)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      if (CH && li == 0) {
+        // each chunk's product on the tensor cores, the chunks summed in
+        // f32 (round to nearest): the tensor cores' accumulation is not
+        // rounded to nearest, and a chain over all 4,840 columns would
+        // bias the pre-activations it rounds to bf16
+        float part[MmaTile<BR>::NT][4];
+        float xv[BR / MMA_WARPS][8];  // the next chunk of the tile's rows
+        fetch_chunk<BR>(x, x_bf16, row0, R, d_in, 0, xv);
+        for (int k0 = 0; k0 < Kp0; k0 += MMA_KC) {
+          const int kc = min(MMA_KC, Kp0 - k0);
+          stage_chunk<BR>(xv, row0, R, d_in, k0, use_fn, fnmu, fninv, a0, lda0);
+          __syncthreads();
+          if (k0 + MMA_KC < Kp0)  // in flight during this chunk's product
+            fetch_chunk<BR>(x, x_bf16, row0, R, d_in, k0 + MMA_KC, xv);
+          gemm_stream<false>(a0, lda0, kc, wb + woffs.v[0] + (long long)k0 * Hp, Hp, Hp, ring,
+                             wt, part);
+#pragma unroll
+          for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[nt][i] = k0 == 0 ? part[nt][i] : acc[nt][i] + part[nt][i];
+        }
+      } else {
+        gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt,
+                           acc);
+      }
       if (UNF && relu)
         resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
                             cnorm + li * Hp, row0, R, wt, flags);
@@ -912,8 +955,23 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
           su[li][j] = first ? s : su[li][j] + s;
         }
       }
-      grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                    li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? slot + o[0] : sv[li], first);
+      if (CH && li == 0) {
+        // layer 0's bf16 cotangent and the rows' statistics, for dv0_mma_kernel
+        const int cpr = Hp / 8;  // 16-byte chunks of a row
+        for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
+          const int r = i / cpr, c = i - r * cpr;
+          if (row0 + r < R)
+            *reinterpret_cast<uint4*>(g0 + (row0 + r) * Hp + c * 8) =
+                *reinterpret_cast<const uint4*>(gs + r * ldh + c * 8);
+        }
+        if (threadIdx.x < BR && row0 + threadIdx.x < R) {
+          xstats[2 * (row0 + threadIdx.x)] = fnmu[threadIdx.x];
+          xstats[2 * (row0 + threadIdx.x) + 1] = fninv[threadIdx.x];
+        }
+      } else {
+        grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
+                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? slot + o[0] : sv[li], first);
+      }
       if (li > 0)  // g_prev = bf16(g) @ W^T
         gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
     }
@@ -945,7 +1003,7 @@ __device__ __forceinline__ void actor_mma(unsigned char* smem_raw, const void* x
 
 // K4 / K4u in bf16. Head: wv (H), bv at offs.v[h], v[h + 1]; norm = [shift,
 // scale] of the value normalizer, applied to the raw returns in the kernel.
-template <int BR, bool UNF>
+template <int BR, bool UNF, bool CH = false>
 __device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* x, int x_bf16,
                                            const float* aux, const float* norm, long long R,
                                            int d_in, int H, int L, int use_fn, int relu,
@@ -953,12 +1011,14 @@ __device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* 
                                            int use_clipped, const float* pb,
                                            const DccOffs& offs, const bf16* wb,
                                            const DccOffs& woffs, float* slots,
-                                           long long slot_size) {
+                                           long long slot_size, bf16* g0 = nullptr,
+                                           float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
   const CriticLoss loss{aux, pb[offs.v[h + 1]], norm[0], norm[1], clip, delta,
                         use_huber, use_clipped, 1};
-  ppo_grads_mma<BR, UNF>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn, relu, pb,
-                         offs, wb, woffs, slots, slot_size, loss);
+  ppo_grads_mma<BR, UNF, CriticLoss, CH>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn,
+                                         relu, pb, offs, wb, woffs, slots, slot_size, loss, g0,
+                                         xstats);
 }
 
 #define DCC_ACTOR_MMA_PARAMS                                                                \
@@ -1000,6 +1060,227 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                        delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size);
+}
+
+// K4 with the chunked layer 0 (ppo_grads_mma's CH): rows too wide for a
+// staged tile, e.g. the 20-UAV preset's 4,840-wide team-concat rows.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    critic_grads_chunked_mma_kernel(DCC_CRITIC_MMA_PARAMS, bf16* g0, float* xstats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  critic_mma<BR, false, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
+                              delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
+                              slot_size, g0, xstats);
+}
+
+// ---------------------------------------------------------------------------
+// dV0 of the chunked K4 (the same Pallas kernel's layer-0 weight gradient,
+// dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded's _mm(a, g, bf16,
+// transpose_a=True) at li = 0): dV0 = bf16(xhat)^T g0 over all R rows, xhat
+// = (x - mu) * inv recomputed from x and xstats exactly as the chunked
+// forward computed it, g0 the bf16 cotangent it wrote. The TPU kernel keeps
+// the (d_in x H) sum resident in VMEM across its sequential grid; here a
+// block that added it into its slot once per row tile would move the 4.96 MB
+// slot (d_in 4,840) per tile. So a grid of (d_in / DV0_KB column blocks) x
+// (row splits) computes it as one product: each block holds its DV0_KB x H
+// part of dV0 in registers (32 x 64 slabs, two a warp) over its split's
+// rows, DV0_RS rows a step, x and g0 staged through two shared-memory
+// stages (the next step's loads in flight during this step's mma.sync
+// products: x in registers, normalized and rounded to bf16 on the way into
+// the stage, g0 by cp.async), and writes it once to part[split]; the slot
+// reduction then sums the splits in order. The tensor cores' accumulation
+// is not rounded to nearest, so a chain over a whole split would drift
+// with its length: every DV0_FLUSH steps each thread adds its registers
+// into its own f32 sums in shared memory (round to nearest) and starts
+// them again. Bound: the bytes of x and g0 (an operations bound below it
+// at d_in 4,840, H 256).
+// ---------------------------------------------------------------------------
+#define DV0_KB 128  // columns of x (rows of dV0) a block takes
+#define DV0_RS 32   // rows a step (two k16 steps of the products)
+#define DV0_ACC 128  // accumulators a thread holds: 2 slabs x 2 x 8 x 4
+#define DV0_FLUSH 16  // steps between the flushes into the f32 sums
+
+// Two stages of x and g0 rows, then each thread's DV0_ACC f32 sums.
+__host__ __device__ inline size_t dv0_smem_bytes(int H) {
+  return 2 * sizeof(bf16) * (size_t)DV0_RS * ((DV0_KB + 8) + (pad16(H) + 8)) +
+         sizeof(float) * (size_t)DV0_ACC * MMA_THREADS;
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    dv0_mma_kernel(const void* x, int x_bf16, long long R, int d_in, const float* xstats,
+                   const bf16* g0, int H, long long split_rows, float* part) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Hp = pad16(H), lda = DV0_KB + 8, ldg = Hp + 8;
+  bf16* as[2];
+  bf16* gs[2];
+  as[0] = (bf16*)smem_raw;
+  gs[0] = as[0] + DV0_RS * lda;
+  as[1] = gs[0] + DV0_RS * ldg;
+  gs[1] = as[1] + DV0_RS * lda;
+  float* sums = (float*)(gs[1] + DV0_RS * ldg);  // [DV0_ACC][MMA_THREADS]
+  for (int i = 0; i < DV0_ACC; ++i) sums[i * MMA_THREADS + threadIdx.x] = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
+  const int k0 = blockIdx.x * DV0_KB;
+  const long long r_begin = (long long)blockIdx.y * split_rows;
+  const long long r_end = min(R, r_begin + split_rows);
+  const long long steps = r_end > r_begin ? (r_end - r_begin + DV0_RS - 1) / DV0_RS : 0;
+  const int ns = Hp / 64 + (Hp % 64 != 0), n_slabs = (DV0_KB / 32) * ns, cpr = Hp / 8;
+  // x: a step's DV0_RS x DV0_KB block in 8-column pieces, piece
+  // threadIdx.x + MMA_THREADS j of the thread at row xr + XROWS j, column
+  // 8 xc: one 16-byte load each when x is bf16 and its rows are 16-byte
+  // aligned, else 8 loads
+  constexpr int XP = DV0_RS * DV0_KB / 8 / MMA_THREADS, XROWS = MMA_THREADS / (DV0_KB / 8);
+  const int xc = threadIdx.x % (DV0_KB / 8), xr = threadIdx.x / (DV0_KB / 8);
+  const bool vec = x_bf16 && d_in % 8 == 0;
+  float xv[XP][8];
+  float2 st[XP];  // the rows' (mu, inv)
+  auto fetch_x = [&](long long step) {
+    const long long rb = r_begin + step * DV0_RS;
+#pragma unroll
+    for (int j = 0; j < XP; ++j) {
+      const long long row = rb + xr + XROWS * j;
+      const int col = k0 + 8 * xc;
+      const bool in = row < r_end;
+      st[j] = in ? __ldg(reinterpret_cast<const float2*>(xstats) + row) : make_float2(0.f, 1.f);
+      if (vec) {
+        uint4 u = make_uint4(0u, 0u, 0u, 0u);
+        if (in && col < d_in)
+          u = __ldg(reinterpret_cast<const uint4*>((const bf16*)x + row * d_in + col));
+        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xv[j][2 * e] = __uint_as_float(w[e] << 16);
+          xv[j][2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          xv[j][e] = in && col + e < d_in ? load_x(x, x_bf16, row * d_in + col + e) : 0.f;
+      }
+    }
+  };
+  // xhat = bf16((x - mu) * inv), as the chunked forward rounded it
+  auto stage_x = [&](int s) {
+#pragma unroll
+    for (int j = 0; j < XP; ++j) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn((xv[j][2 * e] - st[j].x) * st[j].y,
+                                                       (xv[j][2 * e + 1] - st[j].x) * st[j].y);
+        w[e] = *reinterpret_cast<const uint32_t*>(&b);
+      }
+      *reinterpret_cast<uint4*>(as[s] + (xr + XROWS * j) * lda + 8 * xc) =
+          make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  };
+  // g0 rows straight into the stage (cp.async); rows past the split are 0
+  auto fetch_g = [&](long long step, int s) {
+    const long long rb = r_begin + step * DV0_RS;
+    for (int i = threadIdx.x; i < DV0_RS * cpr; i += MMA_THREADS) {
+      const int r = i / cpr, c = i - r * cpr;
+      bf16* dst = gs[s] + r * ldg + c * 8;
+      if (rb + r < r_end)
+        cp_async16(dst, g0 + (rb + r) * Hp + c * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+  };
+  float acc[2][2][8][4];
+  // acc into the thread's sums (its own elements: no barrier), then 0
+  auto flush = [&]() {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float* s = sums + (((q * 2 + mt) * 8 + nt) * 4 + i) * MMA_THREADS + threadIdx.x;
+            *s += acc[q][mt][nt][i];
+            acc[q][mt][nt][i] = 0.f;
+          }
+  };
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[q][mt][nt][i] = 0.f;
+  if (steps > 0) {
+    fetch_g(0, 0);
+    fetch_x(0);
+    stage_x(0);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  for (long long stp = 0; stp < steps; ++stp) {
+    const int cur = (int)(stp & 1), nxt = cur ^ 1;
+    if (stp + 1 < steps) {  // the next step's loads, in flight during this step's products
+      fetch_g(stp + 1, nxt);
+      fetch_x(stp + 1);
+    }
+    const bf16* A = as[cur];
+    const bf16* G = gs[cur];
+#pragma unroll
+    for (int kk = 0; kk < DV0_RS; kk += 16) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int sl = warp + MMA_WARPS * q;
+        if (sl < n_slabs) {
+          const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+          // A = xhat^T, read transposed from the [r][k] stage (as grad_at_g)
+          uint32_t a[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldsm_x4_t(a[mt], A + (kk + (mat >> 1) * 8 + (lane & 7)) * lda + m0 + mt * 16 +
+                                 (mat & 1) * 8);
+#pragma unroll
+          for (int p = 0; p < 8; p += 2) {
+            if (n0 + p * 8 < Hp) {
+              uint32_t b[4];
+              ldsm_x4_t(b, G + (kk + (mat & 1) * 8 + (lane & 7)) * ldg + n0 + (p + (mat >> 1)) * 8);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_bf16(acc[q][mt][p], a[mt], b[0], b[1]);
+                mma_bf16(acc[q][mt][p + 1], a[mt], b[2], b[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    if (stp + 1 < steps) stage_x(nxt);
+    if ((stp + 1) % DV0_FLUSH == 0) flush();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  flush();
+  float* out = part + (long long)blockIdx.y * d_in * H;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int sl = warp + MMA_WARPS * q;
+    if (sl >= n_slabs) continue;
+    const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = k0 + m0 + mt * 16 + (lane >> 2) + 8 * h;
+          const int j = n0 + nt * 8 + (lane & 3) * 2;
+          const float* s = sums + (((q * 2 + mt) * 8 + nt) * 4 + 2 * h) * MMA_THREADS +
+                           threadIdx.x;
+          if (k < d_in && j < H)
+            *reinterpret_cast<float2*>(out + (long long)k * H + j) =
+                make_float2(s[0], s[MMA_THREADS]);
+        }
+  }
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -1085,6 +1366,27 @@ static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const 
   return (int)cudaGetLastError();
 }
 
+template <int BR>
+static int launch_critic_chunked_mma(const void* x, int x_bf16, const float* aux,
+                                     const float* norm, long long R, int d_in, int H, int L,
+                                     int use_fn, int relu, float clip, float delta,
+                                     int use_huber, int use_clipped, const float* pb, DccOffs o,
+                                     const bf16* wb, DccOffs wo, float* slots,
+                                     long long slot_size, int n_blocks, bf16* g0,
+                                     float* xstats, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = critic_grads_chunked_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, false, true).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
+                                        slots, slot_size, g0, xstats);
+  return (int)cudaGetLastError();
+}
+
 extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
                                                  int A) {
   return sizeof(float) * ppo_smem_floats(br, d_in, H, L, A);
@@ -1092,6 +1394,11 @@ extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
 
 extern "C" unsigned long long dcc_ppo_mma_smem_bytes(int br, int d_in, int H, int L, int A) {
   return ppo_mma_layout(br, d_in, H, L, A, false).total;
+}
+
+extern "C" unsigned long long dcc_ppo_mma_chunked_smem_bytes(int br, int d_in, int H, int L,
+                                                             int A) {
+  return ppo_mma_layout(br, d_in, H, L, A, false, true).total;
 }
 
 extern "C" unsigned long long dcc_ppo_unfolded_smem_bytes(int br, int d_in, int H, int L,
@@ -1354,6 +1661,65 @@ extern "C" int dcc_critic_grads_unfolded_mma(const void* x, int x_bf16, const fl
   }
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K4 in bf16 with the chunked layer 0: as dcc_critic_grads_mma, but slots
+// and out hold the slot without layer 0's dV (slot_size floats), and the
+// kernel writes g0 (R x pad16(H) bf16) and xstats (R x 2 f32) for
+// dcc_dv0_mma.
+extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const float* aux,
+                                            const float* norm, long long R, int d_in, int H,
+                                            int L, int use_fn, int relu, float clip,
+                                            float delta, int use_huber, int use_clipped, int br,
+                                            const float* pb, const long long* offs, int n_offs,
+                                            const void* wb, const long long* woffs, int n_woffs,
+                                            float* slots, long long slot_size, int n_blocks,
+                                            void* g0, float* xstats, float* out,
+                                            void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 32: err = launch_critic_chunked_mma<32>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                                 relu, clip, delta, use_huber, use_clipped, pb,
+                                                 o, w, wo, slots, slot_size, n_blocks,
+                                                 (bf16*)g0, xstats, s); break;
+    case 16: err = launch_critic_chunked_mma<16>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
+                                                 relu, clip, delta, use_huber, use_clipped, pb,
+                                                 o, w, wo, slots, slot_size, n_blocks,
+                                                 (bf16*)g0, xstats, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// dV0 = bf16((x - mu) * inv)^T g0 over R rows (d_in x H f32 into out):
+// dv0_mma_kernel on n_splits row splits into part (n_splits x d_in x H
+// scratch), then the splits summed in order.
+extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
+                           const float* xstats, const void* g0, int H, int n_splits,
+                           float* part, float* out, void* stream) {
+  if (H % 8 != 0 || H > MMA_HMAX || n_splits < 1 || d_in < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  static bool smem_set = false;
+  if (!smem_set) {
+    cudaFuncSetAttribute(dv0_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const long long split_rows = ((R + n_splits - 1) / n_splits + DV0_RS - 1) / DV0_RS * DV0_RS;
+  const dim3 grid((pad16(d_in) + DV0_KB - 1) / DV0_KB, n_splits);
+  dv0_mma_kernel<<<grid, MMA_THREADS, dv0_smem_bytes(H), s>>>(
+      x, x_bf16, R, d_in, xstats, (const bf16*)g0, H, split_rows, part);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce(part, n_splits, (long long)d_in * H, out, s);
 }
 
 extern "C" const char* dcc_error_string(int code) {

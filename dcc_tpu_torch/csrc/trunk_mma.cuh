@@ -39,6 +39,7 @@
 #define MMA_STAGES 3        // stages of the weight ring (two slices in flight)
 #define MMA_HMAX 256        // widest hidden layer the tiling takes
 #define MMA_SMEM_MAX 232448 // an H100 block's shared memory
+#define MMA_KC 256          // columns of a chunk of a streamed first operand
 
 typedef __nv_bfloat16 bf16;
 
@@ -503,6 +504,119 @@ __device__ __noinline__ float dot_sequential(const bf16* a, const bf16* w, int l
 __device__ __forceinline__ float load_x(const void* x, int x_bf16, long long i) {
   return x_bf16 ? __uint_as_float((unsigned)__ldg((const unsigned short*)x + i) << 16)
                 : __ldg((const float*)x + i);
+}
+
+// The chunked first operand, for rows too wide to stage whole (ROADMAP B2).
+// input_stats is load_input's first pass: each row's feature-norm mean and
+// 1/sqrt(var + eps) (mean 0 and 1 without use_fn) into mu[BR] and inv[BR],
+// each lane summing columns lane, lane + 32, ... in that order, as
+// load_input does, but with eight columns' loads in flight at a time.
+// Then chunk by chunk of MMA_KC = 256 columns (lane l holds columns
+// 8 l .. 8 l + 7 of each of its rows): fetch_chunk loads one into
+// registers (one 16-byte load a row when x is bf16 with rows 16-byte
+// aligned, else eight), so that it is in flight during the previous
+// chunk's product, and stage_chunk writes bf16((x - mu) * inv) (bf16(x)
+// without use_fn) to dst (BR x MMA_KC, row stride ld); columns past d_in
+// and rows >= R are 0.
+template <int BR>
+__device__ void input_stats(const void* x, int x_bf16, long long row0, long long R, int d_in,
+                            bool use_fn, float* mu, float* inv) {
+  constexpr int RW = BR / MMA_WARPS;  // rows per warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float sum[RW], sq[RW];
+#pragma unroll
+  for (int j = 0; j < RW; ++j) sum[j] = sq[j] = 0.f;
+  if (use_fn) {
+    for (int kb = 0; kb < d_in; kb += 8 * 32) {
+      float v[8][RW];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int k = kb + lane + 32 * u;
+#pragma unroll
+        for (int j = 0; j < RW; ++j) {
+          const long long row = row0 + warp + j * MMA_WARPS;
+          v[u][j] = row < R && k < d_in ? load_x(x, x_bf16, row * d_in + k) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+#pragma unroll
+        for (int j = 0; j < RW; ++j) {
+          if (kb + lane + 32 * u < d_in && row0 + warp + j * MMA_WARPS < R) {
+            sum[j] += v[u][j];
+            sq[j] += v[u][j] * v[u][j];
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RW; ++j) {
+    float m = 0.f, iv = 1.f;
+    if (use_fn) {
+      m = warp_sum(sum[j]) / d_in;
+      iv = 1.f / sqrtf(fmaxf(warp_sum(sq[j]) / d_in - m * m, 0.f) + 1e-6f);
+    }
+    if (lane == 0) {
+      mu[warp + j * MMA_WARPS] = m;
+      inv[warp + j * MMA_WARPS] = iv;
+    }
+  }
+}
+
+template <int BR>
+__device__ __forceinline__ void fetch_chunk(const void* x, int x_bf16, long long row0,
+                                            long long R, int d_in, int k0,
+                                            float (&xv)[BR / MMA_WARPS][8]) {
+  const int warp = threadIdx.x >> 5, col = k0 + 8 * (threadIdx.x & 31);
+  const bool vec = x_bf16 && d_in % 8 == 0;
+#pragma unroll
+  for (int j = 0; j < BR / MMA_WARPS; ++j) {
+    const long long row = row0 + warp + j * MMA_WARPS;
+    const bool in = row < R;
+    if (vec) {
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (in && col < d_in)
+        u = __ldg(reinterpret_cast<const uint4*>((const bf16*)x + row * d_in + col));
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xv[j][2 * e] = __uint_as_float(w[e] << 16);
+        xv[j][2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        xv[j][e] = in && col + e < d_in ? load_x(x, x_bf16, row * d_in + col + e) : 0.f;
+    }
+  }
+}
+
+template <int BR>
+__device__ __forceinline__ void stage_chunk(const float (&xv)[BR / MMA_WARPS][8],
+                                            long long row0, long long R, int d_in, int k0,
+                                            bool use_fn, const float* mu, const float* inv,
+                                            bf16* dst, int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, col = k0 + 8 * lane;
+#pragma unroll
+  for (int j = 0; j < BR / MMA_WARPS; ++j) {
+    const int r = warp + j * MMA_WARPS;
+    const bool in = row0 + r < R;
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float a = xv[j][2 * e], b = xv[j][2 * e + 1];
+      if (use_fn) {
+        a = (a - mu[r]) * inv[r];
+        b = (b - mu[r]) * inv[r];
+      }
+      a = in && col + 2 * e < d_in ? a : 0.f;
+      b = in && col + 2 * e + 1 < d_in ? b : 0.f;
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      w[e] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    *reinterpret_cast<uint4*>(dst + r * ld + 8 * lane) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
 }
 
 // The list of one layer's re-sums in shared memory (RESUM_BYTES at p): a

@@ -85,8 +85,15 @@ _SIGNATURES = {
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
             _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P,
         ],
+        # dcc_critic_grads_mma's arguments, with g0 and xstats before out
+        "dcc_critic_grads_chunked_mma": [
+            _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P,
+        ],
+        "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I],
     },

@@ -19,7 +19,12 @@ two) and the bf16 rounding points of the kernel, so they mirror the
 kernel's algorithm rather than autograd. On CUDA tensors the wrappers
 launch the kernels or raise (in bf16 the tensor-core kernels, on padded
 bf16 copies of the weights; in f32 the FMA ones); on CPU tensors they run
-the plain versions.
+the plain versions. bf16 K4 at rows too wide for a staged row tile (the
+20-UAV preset's 4,840-wide critic rows, ``ops.tiles.plan``) launches its
+chunked kernel, which streams layer 0 over d_in in column chunks and
+leaves layer 0's weight gradient to a second kernel, the dV0 kernel
+(:func:`dv0_cuda`, plain version :func:`dv0_plain`; both launches count
+under K4: ``critic_ppo_grads`` and ``critic_ppo_grads_dv0``).
 
 Aux layout (row-major, the GPU needs no lane-padding workaround): actor rows
 ``[action (A), old_log_prob, advantage, valid]``, critic rows ``[vpred,
@@ -47,6 +52,7 @@ from .fused_mlp import (
     ln_stats,
     mma_tile_rows,
     pack_mma_weights,
+    pad16,
     pack_params,
     require_shapes,
     tile_rows,
@@ -304,6 +310,22 @@ def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu
     return kg, dwv, dbv, met
 
 
+def input_stats(x, use_fn: bool) -> torch.Tensor:
+    """(R, 2) f32: each row's feature-norm mean and 1/sqrt(var + eps), or
+    (0, 1) without the feature norm, as the chunked K4 writes them."""
+    if not use_fn:
+        return torch.cat([torch.zeros_like(x[:, :1], dtype=torch.float32),
+                          torch.ones_like(x[:, :1], dtype=torch.float32)], dim=1)
+    return torch.cat(ln_stats(x), dim=1)
+
+
+def dv0_plain(x, xstats, g0, hidden: int):
+    """Plain dV0 kernel: bf16((x - mu) * inv)^T @ g0[:, :hidden] in f32, with
+    ``xstats`` = (mu, inv) per row and ``g0`` layer 0's bf16 cotangent."""
+    xhat = (x.to(torch.float32) - xstats[:, :1]) * xstats[:, 1:]
+    return bf16_round(xhat).t() @ g0[:, :hidden].to(torch.float32)
+
+
 def critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
                                 use_relu, bf16, clip_param, huber_delta, use_huber,
                                 use_clipped):
@@ -398,12 +420,17 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
     name = f"{kind}_ppo_grads{tag}"
-    smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head) // 4
+    # rows too wide for a staged tile: K4's chunked layer 0 and the dV0 kernel
+    chunked = tiles.plan(name, bf16, d_in, hidden, n_layers, n_head)[0]
+    smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
+                                      chunked) // 4
     if bf16:
         br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), tiles.SIZES[(name, True)])
     else:
         br = tile_rows(d_in, smem, tiles.SIZES[(name, False)])
     shapes = trunk_shapes + extra
+    if chunked:  # layer 0's dV comes from the dV0 kernel, not the slots
+        shapes = shapes[1:]
     used = sum(math.prod(s) for s in shapes)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
     n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), bf16)
@@ -412,7 +439,7 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
     weights = (wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs)) if bf16 else ()
-    entry = f"dcc_{kind}_grads{tag}" + ("_mma" if bf16 else "")
+    entry = f"dcc_{kind}_grads{tag}" + ("_chunked" if chunked else "") + ("_mma" if bf16 else "")
     if kind == "actor":
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
@@ -422,18 +449,55 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
+        if chunked:
+            g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
+            xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+            outs = (g0.data_ptr(), xstats.data_ptr(), out.data_ptr())
+        else:
+            outs = (out.data_ptr(),)
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
             n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(), offs_c,
-            len(offs), *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(),
-            cb.stream_of(x),
+            len(offs), *weights, slots.data_ptr(), slot, n_blocks, *outs, cb.stream_of(x),
         )
     cb.check("fused_ppo", code, name)
     cb.LAUNCHES[name] += 1
     cb.ENTRY[name] = entry
     cb.TILE[name] = br
     parts = _slot_split(out, shapes)
-    return parts[: len(trunk_shapes)], parts[len(trunk_shapes) :]
+    if chunked:
+        parts = [dv0_cuda(x, xstats, g0, hidden)] + parts
+    n_trunk = len(trunk_shapes)
+    return parts[:n_trunk], parts[n_trunk:]
+
+
+def dv0_splits(rows: int, d_in: int, sms: int) -> int:
+    """Row splits of the dV0 kernel: about two waves of its blocks
+    (``DV0_KB`` = 128 columns of x each), at least one step of rows
+    (``DV0_RS`` = 32) a split."""
+    kblocks = -(-pad16(d_in) // 128)
+    return max(1, min(-(-2 * sms // kblocks), -(-rows // 32)))
+
+
+def dv0_cuda(x, xstats, g0, hidden: int):
+    """Launch the dV0 kernel of the chunked K4 (``dcc_dv0_mma``: the product
+    on row splits, then the splits summed in order); same return as
+    :func:`dv0_plain`."""
+    rows, d_in = x.shape
+    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
+    cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
+    cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
+    check_mma_width(hidden)
+    splits = dv0_splits(rows, d_in, cb.sm_count(x.device))
+    part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
+    out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
+    code = cb.library("fused_ppo").dcc_dv0_mma(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
+        g0.data_ptr(), hidden, splits, part.data_ptr(), out.data_ptr(), cb.stream_of(x))
+    cb.check("fused_ppo", code, "critic_ppo_grads_dv0")
+    cb.LAUNCHES["critic_ppo_grads_dv0"] += 1
+    cb.ENTRY["critic_ppo_grads_dv0"] = "dcc_dv0_mma"
+    return out
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,

@@ -5,8 +5,10 @@ among, largest first. :func:`smem_bytes` asks the kernel's own library (the
 ``*_smem_bytes`` entries of ``csrc/fused_mlp.cu``, ``csrc/fused_mlp_bwd.cu``
 and ``csrc/fused_ppo.cu``; the f32 K2's size is its wrapper's formula), so
 a launch and MAPPO's check at construction read one layout. The kernels
-stage whole rows in shared memory, so a row too wide for the smallest tile
-has no tile (ROADMAP B2: tiling the first layer over d_in).
+stage whole rows in shared memory; where a row is too wide for the
+smallest staged tile, the kernels of ``CHUNKED`` stream their first layer
+over d_in in column chunks instead (:func:`plan`), and the others have no
+tile (ROADMAP B2).
 """
 
 from __future__ import annotations
@@ -28,11 +30,16 @@ SIZES = {
 }
 
 
+# the kernels with a chunked first layer, taken where no staged tile fits:
+# bf16 K4 (``csrc/fused_ppo.cu``, ``critic_grads_chunked_mma_kernel``)
+CHUNKED = {("critic_ppo_grads", True)}
+
+
 def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
-               n_head: int = 1) -> int:
+               n_head: int = 1, chunked: bool = False) -> int:
     """Shared memory of one ``br``-row tile of ``kernel`` (a key of
-    ``ops.LAUNCHES``; ``n_head``: the actor head's width), from its library
-    (built on first use)."""
+    ``ops.LAUNCHES``; ``n_head``: the actor head's width; ``chunked``: its
+    chunked layout), from its library (built on first use)."""
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
@@ -42,12 +49,21 @@ def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layer
         fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}_smem_bytes")
         return fn(br, d_in, hidden, n_layers)
     tag = "_unfolded" if kernel.endswith("_unfolded") else ""
-    fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}_smem_bytes")
+    ch = "_chunked" if chunked else ""
+    fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}{ch}_smem_bytes")
     return fn(br, d_in, hidden, n_layers, n_head)
 
 
-def fitting_tiles(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
-                  n_head: int = 1) -> list:
-    """The row tiles of ``kernel`` that fit one block at this width."""
-    return [b for b in SIZES[(kernel, bf16)]
-            if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head) <= SMEM_MAX]
+def plan(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
+         n_head: int = 1) -> tuple:
+    """(chunked, tiles): the row tiles of ``kernel`` that fit one block at
+    this width with whole rows staged, or, where none does and the kernel
+    has a chunked first layer, those of its chunked layout (chunked True)."""
+    key = (kernel, bf16)
+    staged = [b for b in SIZES[key]
+              if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head) <= SMEM_MAX]
+    if staged or key not in CHUNKED:
+        return False, staged
+    return True, [b for b in SIZES[key]
+                  if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, True)
+                  <= SMEM_MAX]

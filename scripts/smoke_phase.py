@@ -6,6 +6,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] gae
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] k2
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] presets
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] wide
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
 
 ``updates`` holds the updates of ``chip_smoke.UPDATE_CHECKS`` on the card
@@ -23,7 +24,10 @@ events, the profiler's device us, the wrapper's host us;
 version on the actor and critic rows at 16 and 16,384 envs, f32 and bf16,
 timed (``chip_smoke.check_trunk_forward``). ``presets`` builds the kernels
 and holds K2-K4, K2b and K3u / K4u at the one-card presets' widths, on the
-data the smoke draws for them (``chip_smoke.check_presets``). ``profile`` trains with
+data the smoke draws for them (``chip_smoke.check_presets``). ``wide``
+builds the kernels and holds K2-K4 and K4's dV0 kernel at the 20-UAV
+preset's widths (actor 242, critic 4,840) at 16 and 1,024 envs
+(``chip_smoke.check_wide``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
@@ -49,7 +53,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
     ap.add_argument("--k2-plain", action="store_true",
                     help="updates: also the recurrent bf16 update with K2's plain forward")
-    ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "profile"))
+    ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "profile"))
     ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
     args = ap.parse_args(argv)
 
@@ -68,7 +72,7 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase in ("updates", "gae", "k2", "presets"):
+    if args.phase in ("updates", "gae", "k2", "presets", "wide"):
         results: dict = {}
         try:
             if args.phase == "updates":
@@ -85,6 +89,8 @@ def main(argv=None) -> int:
                     chip_smoke.check_gae(results["gae"], chip_smoke.GAE_TIMED, entry=None)
                 elif args.phase == "presets":
                     chip_smoke.check_presets(results["presets"])
+                elif args.phase == "wide":
+                    chip_smoke.check_wide(results["wide"])
                 else:
                     gen = torch.Generator(device="cuda").manual_seed(0)
                     chip_smoke.check_trunk_forward(results["k2"], gen)

@@ -743,7 +743,26 @@ def test_trunk_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w,
                          ids=[p[0] for p in PRESET_WIDTHS])
 def test_ppo_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w, bf16, trunk):
     """K3 on the T*E*A actor rows and K4 on the T*E critic rows of the
-    preset's bf16 run, on one of ``chip_smoke.check_ppo``'s trunks. "model":
+    preset's bf16 run (``_ppo_at_widths``)."""
+    _ppo_at_widths(cuda, agents, actor_w, critic_w, bf16, trunk,
+                   "dcc_critic_grads" + ("_mma" if bf16 else ""))
+
+
+@pytest.mark.parametrize("trunk", ["model", "one_relu_layer"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ppo_kernels_at_20uav_widths(cuda, bf16, trunk):
+    """The same at the 20-UAV preset's widths: K3 on 48,000 x 242 actor
+    rows, K4 on 2,400 x 4,840 critic rows, in bf16 through its chunked
+    layer 0 and the dV0 kernel."""
+    _ppo_at_widths(cuda, 20, 242, 4840, bf16, trunk,
+                   "dcc_critic_grads" + ("_chunked_mma" if bf16 else ""))
+    assert cb.LAUNCHES["critic_ppo_grads_dv0"] == (1 if bf16 else 0)
+
+
+def _ppo_at_widths(cuda, agents, actor_w, critic_w, bf16, trunk, critic_entry):
+    """K3 on the T*E*A actor rows and K4 on the T*E critic rows of a
+    preset's 16-env bf16 run, on one of ``chip_smoke.check_ppo``'s trunks, K4
+    through ``critic_entry``. "model":
     2 layers and the feature norm, relu in f32 and tanh in bf16: with relu
     the bf16 kink rule misses rows a few bf16 steps from the kink, which a
     flipped rounding of the layer's input moves across it
@@ -780,7 +799,7 @@ def test_ppo_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic_w, b
     ckw = dict(kw, huber_delta=10.0, use_huber=True, use_clipped=True)
     cb.reset_launches()
     got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **ckw)
-    assert cb.ENTRY["critic_ppo_grads"] == "dcc_critic_grads" + ("_mma" if bf16 else "")
+    assert cb.ENTRY["critic_ppo_grads"] == critic_entry
     want = FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **ckw)
     for g, w in zip(_flat(got), _flat(want)):
         assert _rel(g, w) < tol
@@ -817,7 +836,7 @@ def test_unfolded_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic
 # ``ppo_*smem_floats`` (csrc/fused_ppo.cu). The package reads the sizes
 # from the libraries (``ops.tiles.smem_bytes``);
 # ``test_row_tile_mirror_matches_the_libraries`` holds the two equal.
-_MMA_KS, _MMA_STAGES, _MMA_WARPS, _MMA_HMAX = 32, 3, 8, 256  # csrc/trunk_mma.cuh
+_MMA_KS, _MMA_STAGES, _MMA_WARPS, _MMA_HMAX, _MMA_KC = 32, 3, 8, 256, 256  # csrc/trunk_mma.cuh
 _RESUM_BYTES = 16 + 8 * 128
 
 
@@ -833,24 +852,26 @@ def _red(br):
     return 4 * (_MMA_WARPS // (br // 16)) * br * 2
 
 
-def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded):
-    """The rows, activations, staging and weight ring shared by the K2b and
-    K3 / K4 tensor-core layouts, and their LN statistics."""
+def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False):
+    """The rows (chunked: one column chunk of them), activations, staging
+    and weight ring shared by the K2b and K3 / K4 tensor-core layouts, and
+    their LN statistics."""
     kp0, hp = _pad16(d_in), _pad16(hidden)
     ldh = hp + 8
     nk = min(kp0, _MMA_HMAX) if unfolded else 0
-    o = 2 * br * (kp0 + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
+    o = 2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
     if unfolded:
         o = max(o, 4 * br * (kp0 + 4))
     o += 2 * br * ldh
     o += 2 * _MMA_STAGES * max(_ring_stage(hp, False), _ring_stage(max(nk, hp), True))
-    o += 4 * n_layers * br * 2 + (8 * br if unfolded else 0)
+    o += 4 * n_layers * br * 2 + (8 * br if unfolded or chunked else 0)
     return o + _red(br) + 4 * (3 if unfolded else 1) * (br // 16) * hp
 
 
-def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1):
-    """Shared memory of one ``br``-row tile of ``kernel``, as
-    ``ops.tiles.smem_bytes`` reads it from the libraries."""
+def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=False):
+    """Shared memory of one ``br``-row tile of ``kernel`` (``chunked``: its
+    chunked layout), as ``ops.tiles.smem_bytes`` reads it from the
+    libraries."""
     unfolded = kernel.endswith("_unfolded")
     hp = _pad16(hidden)
     if kernel == "fused_mlp":
@@ -865,7 +886,8 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1):
         return (_mma_chain_bytes(br, d_in, hidden, n_layers, True) + 4 * br
                 + 4 * n_layers * hp + _RESUM_BYTES)
     if bf16:
-        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded) + 4 * hidden * n_head
+        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked)
+        o += 4 * hidden * n_head
         o += 0 if unfolded else 4 * n_layers * hidden
         o += 4 * br * n_head * 2 + 8 * br
         if unfolded:
@@ -894,19 +916,88 @@ def test_row_tile_mirror_matches_the_libraries(cuda):
 
     for (kernel, bf16), sizes in tiles.SIZES.items():
         n_head = 2 if kernel.startswith("actor") else 1
-        for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 4840):
-            for br in sizes:
-                want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head)
-                assert smem_layout(kernel, bf16, br, d_in, 256, 2, n_head) == want, (
-                    kernel, bf16, br, d_in)
+        for chunked in (False, True) if (kernel, bf16) in tiles.CHUNKED else (False,):
+            for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 4840):
+                for br in sizes:
+                    want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
+                    got = smem_layout(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
+                    assert got == want, (kernel, bf16, chunked, br, d_in)
 
 
-def test_20uav_preset_refused_on_the_card(cuda):
-    """The 20-UAV preset's 4,840-wide critic rows fit no row tile of bf16 K4:
-    MAPPO refuses to build (ROADMAP B2) before any launch."""
+@pytest.mark.parametrize("rows", _RAGGED + [20000])
+@pytest.mark.parametrize("trunk,x_bf16", [("tanh", True), ("tanh", False),
+                                          ("one_relu_layer", True)])
+def test_bf16_chunked_critic_on_tensor_cores(cuda, rows, trunk, x_bf16):
+    """bf16 K4 at the 20-UAV preset's 4,840-wide critic rows, which no staged
+    tile takes: the chunked kernel (layer 0 over d_in in 256-column chunks,
+    the last 240 wide) and the dV0 kernel, on row counts around its 16- and
+    32-row tiles (20,000 rows: several tiles per block), with bf16 or f32
+    rows, against the plain version within 4e-3; the kernel computed in f32
+    lands outside. The trunks are ``chip_smoke.trunk_variants``' checks (the
+    model's with tanh; one relu layer fed the rows, whose rows next to the
+    kink get valid = 0): the model's relu trunk is no check for bf16
+    (ROADMAP C3; it read 4.7e-3 at 20,000 rows on the H100)."""
+    n_layers, use_fn, use_relu = (2, True, False) if trunk == "tanh" else (1, False, True)
+    gen = torch.Generator().manual_seed(rows + 4840)
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", rows, 4840, 256, n_layers, use_fn, cuda)
+    x = x.bfloat16() if x_bf16 else x
+    if use_relu:
+        aux[FP.relu_kink_rows_folded(x, kp, n_layers, use_fn), 2] = 0.0
+    norm = torch.tensor([0.5, 2.0], device=cuda)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True, clip_param=0.2,
+              huber_delta=10.0, use_huber=True, use_clipped=True)
+    cb.reset_launches()
+    got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **kw)
+    assert dict(cb.LAUNCHES) == {"critic_ppo_grads": 1, "critic_ppo_grads_dv0": 1}
+    assert cb.ENTRY == {"critic_ppo_grads": "dcc_critic_grads_chunked_mma",
+                        "critic_ppo_grads_dv0": "dcc_dv0_mma"}
+    want = FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < 4e-3
+    if rows > 1:
+        _f32_outside(_flat(FP.critic_grads_cuda(x, aux, norm, kp, hw, hb,
+                                                **{**kw, "bf16": False})), _flat(want), 4e-3)
+
+
+@pytest.mark.parametrize("rows,d_in,hidden", [(1, 4840, 256), (37, 4840, 256),
+                                              (2400, 4840, 256), (20000, 4840, 256),
+                                              (333, 1000, 64), (100, 17, 8)])
+def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden):
+    """The dV0 kernel, bf16((x - mu) * inv)^T g0 over row splits summed in
+    order, against its plain version: the same bf16 operands, so only the
+    f32 summation order differs (bound 1e-4, as chip_smoke's DV0_REL)."""
+    gen = torch.Generator().manual_seed(rows + d_in + hidden)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    xstats = FP.input_stats(x, True)
+    g0 = torch.zeros(rows, FM.pad16(hidden), dtype=torch.bfloat16, device=cuda)
+    g0[:, :hidden] = 0.1 * torch.randn(rows, hidden, generator=gen).to(cuda)
+    cb.reset_launches()
+    got = FP.dv0_cuda(x, xstats, g0, hidden)
+    assert cb.LAUNCHES["critic_ppo_grads_dv0"] == 1
+    assert _rel(got, FP.dv0_plain(x, xstats, g0, hidden)) < 1e-4
+
+
+def test_20uav_preset_builds_on_the_card(cuda):
+    """The 20-UAV preset builds on the card, bf16 K4 taking its 4,840-wide
+    critic rows in the chunked layout (``ops.tiles.plan``)."""
+    from dcc_tpu_torch.algos import MAPPO
+    from dcc_tpu_torch.configs import load_preset
+    from dcc_tpu_torch.ops import tiles
+
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
+    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16])
+    algo = MAPPO(algo_cfg, env_cfg, device=cuda)
+    assert algo.fused_loss and algo.fused_trunk
+
+
+@pytest.mark.parametrize("override", [{"fused_loss": "off"}, {"fused_fold": False}])
+def test_20uav_preset_refused_on_the_card(cuda, override):
+    """What is left of ROADMAP B2: bf16 K2b (the fused loss off) and K4u
+    (unfolded) have no tile at the 4,840-wide critic rows, so MAPPO refuses
+    to build such a run of the 20-UAV preset before any launch."""
     from dcc_tpu_torch.algos import MAPPO
     from dcc_tpu_torch.configs import load_preset
 
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     with pytest.raises(NotImplementedError, match="B2"):
-        MAPPO(algo_cfg, env_cfg, device=cuda)
+        MAPPO(algo_cfg._replace(**override), env_cfg, device=cuda)

@@ -1,9 +1,10 @@
 """The port's named env presets against ``dcc_tpu``'s: the same names, the
 same merged config and the same ``EnvConfig`` / ``MAPPOConfig`` field by
 field; one tiny training iteration of each one-card preset (as
-tests/test_presets.py), and the 20-UAV preset's refusal on CUDA, where its
-4,840-wide critic rows fit no row tile of the fused critic kernel (ROADMAP
-B2)."""
+tests/test_presets.py); the 20-UAV preset's build on CUDA, where its
+4,840-wide critic rows take the chunked layout of bf16 K4; and its refusal
+where a kernel that has no tile at 4,840 would run them (the rest of
+ROADMAP B2: K2b with the fused loss off, K4u unfolded)."""
 
 import numpy as np
 import pytest
@@ -61,12 +62,33 @@ def test_one_card_presets_build_on_cuda(monkeypatch, name, dtype):
     assert algo.fused_loss == algo.fused_trunk == (dtype == "bfloat16")
 
 
-def test_20uav_preset_refused_on_cuda(monkeypatch):
+def test_20uav_preset_builds_on_cuda(monkeypatch):
+    """No staged tile of bf16 K4 fits the 4,840-wide critic rows; its
+    chunked layout does, so MAPPO builds on CUDA with the fused kernels,
+    and the actor's 242-wide rows take K3's staged tiles."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
+    assert (env_cfg.obs_dim, env_cfg.share_obs_dim) == (242, 4840)
+    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16])
+    assert tiles.plan("actor_ppo_grads", True, 242, 256, 2, 2) == (False, [32])
+    assert tiles.plan("critic_ppo_grads", True, 440, 256, 2)[0] is False  # staged as before
+    assert tiles.plan("fused_mlp", True, 4840, 256, 2) == (False, [16])
+    algo = MAPPO(algo_cfg, env_cfg, device="cuda")
+    assert algo.fused_loss and algo.fused_trunk and algo.cfg.fused_fold
+
+
+@pytest.mark.parametrize("override,kernel", [({"fused_loss": "off"}, "fused_mlp_bwd"),
+                                             ({"fused_fold": False},
+                                              "critic_ppo_grads_unfolded")])
+def test_20uav_preset_refused_on_cuda(monkeypatch, override, kernel):
+    """The kernels left in ROADMAP B2 have no tile at 4,840: with the fused
+    loss off the update runs K2b on the critic rows, unfolded it runs K4u;
+    MAPPO refuses to build either on CUDA, naming B2."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     assert env_cfg.share_obs_dim == 4840
-    assert not tiles.fitting_tiles("critic_ppo_grads", True, 4840, 256, 2)
-    with pytest.raises(NotImplementedError, match="B2"):
-        MAPPO(algo_cfg, env_cfg, device="cuda")
+    assert not tiles.plan(kernel, True, 4840, 256, 2)[1]
+    with pytest.raises(NotImplementedError, match=f"{kernel}.*B2"):
+        MAPPO(algo_cfg._replace(**override), env_cfg, device="cuda")
     # on the CPU the plain versions take any width
-    MAPPO(algo_cfg, env_cfg, device="cpu")
+    MAPPO(algo_cfg._replace(**override), env_cfg, device="cpu")
