@@ -10,8 +10,9 @@ Phases (any failure exits non-zero):
    each tensor-core kernel's and K1's registers and spills (``-Xptxas -v``;
    all of the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
    of the built libraries must show HMMA instructions in every bf16
-   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4, K3u, K4u) and
-   none in any other kernel (no TF32 in the f32 kernels);
+   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4, K3u, K4u, the
+   chunked K4, K2b and K4u, the dV0 kernel and the layer-0 input backward)
+   and none in any other kernel (no TF32 in the f32 kernels);
 3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
    and 16,387 envs, and at (T, E) = (1, 16), (5, 3), (151, 17), (150,
@@ -33,11 +34,18 @@ Phases (any failure exits non-zero):
    there the bf16 gradient kernels run three trunks (``trunk_variants``:
    the model's, a reading; the model's with tanh and one relu layer on the
    rows themselves, both checks). Then the 20-UAV preset's widths
-   (``check_wide``: actor 242, team-concat critic 4,840, where bf16 K4 runs
-   its chunked layer 0 and the dV0 kernel): K2 at 16 and 1,024 envs, K3 /
-   K4 at 16 envs in f32 and bf16 on those trunks and in bf16 at 1,024 envs,
-   the main path's shapes (3,072,000 x 242, 153,600 x 4,840), and the dV0
-   kernel alone at both. Biases and
+   (``check_wide``: actor 242, team-concat critic 4,840, where bf16 K4, K2b
+   and K4u run their chunked layer 0, then the dV0 kernel and, for K2b and
+   K4u, the layer-0 input backward): K2 at 16 and 1,024 envs, K3 / K4 at
+   16 envs in f32 and bf16 on those trunks and in bf16 at 1,024 envs, the
+   main path's shapes (3,072,000 x 242, 153,600 x 4,840), the dV0 kernel
+   alone at both in its folded and unfolded (affine) modes, each beside the
+   cuBLAS product of the same bf16 operands (``library_ms``), the chunked
+   K2b on 2,400 and 38,400 critic rows (an update chunk of the
+   fused-loss-off run) and the chunked K4u on 2,400 and 153,600, their f32
+   reading the plain version in f32 (the FMA kernels take one-row tiles
+   there), and the layer-0 input backward alone on 38,400 rows with and
+   without dx and on 153,600 without. Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
@@ -77,7 +85,12 @@ Phases (any failure exits non-zero):
    in bf16 and recurrent f32 with 2 minibatches, which launch K1 only;
    one iteration of the 20-UAV preset as written but for its envs (1,024
    of 16,384; bf16, eval 0: K2 on 242- and 4,840-wide rows, K3 15 times,
-   K4 15 times with its dV0 kernel 15 times);
+   K4 15 times with its dV0 kernel 15 times), and the same with the fused
+   loss off (K2 541 times, with remat; K2b 60 times staged on the actor's
+   rows and 60 chunked on the critic's, each chunked launch followed by the
+   layer-0 input backward and dV0), unfolded (K3u 15, K4u chunked 15, the
+   layer-0 input backward and dV0 15 each) and recurrent at 64 envs without
+   update chunks (K2b 15 staged and 15 chunked, the other two 15 each);
    then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
    gate's runner; its file's schema, and K1-K4 as the bf16 path launches
    them); then the default command with render (the default YAMLs, 2
@@ -97,8 +110,12 @@ Phases (any failure exits non-zero):
    takes longer on the host than its kernel on the card, null for the
    others; K4 at the 20-UAV preset's 153,600 x 4,840 rows as
    ``critic_ppo_grads_chunked``, both launches, and its dV0 kernel alone
-   as ``critic_ppo_grads_dv0``, ``KERNEL_ROW``), the card line, and the
-   result.
+   as ``critic_ppo_grads_dv0``; the chunked K2b at 38,400 x 4,840 as
+   ``fused_mlp_bwd_chunked`` and K4u at 153,600 x 4,840 as
+   ``critic_ppo_grads_unfolded_chunked``, their three launches each; the
+   layer-0 input backward and dV0's unfolded mode alone, ``KERNEL_ROW``;
+   ``library_ms`` for the dV0 rows, null for the others), the card line,
+   and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -145,7 +162,10 @@ PPO_BF16_REL = 4e-3
 K2B_BF16_REL = 4e-3
 # the dV0 kernel of the chunked K4 and its plain version take the same bf16
 # operands: only the f32 summation order differs; the product of the
-# unrounded xhat lies about a bf16 step (2^-9 relative) away
+# unrounded xhat lies about a bf16 step (2^-9 relative) away. The same for
+# its affine mode and for the layer-0 input backward (g0 W_0^T and the
+# feature norm's backward in f32), whose reading is the product with the
+# unrounded W_0
 DV0_REL = 1e-4
 REPLACES = {
     "gae": "dcc_tpu/ops/pallas_gae.py:56",
@@ -161,6 +181,14 @@ REPLACES = {
     # its own body
     "critic_ppo_grads_chunked": "dcc_tpu/ops/fused_ppo.py:667",
     "critic_ppo_grads_dv0": "dcc_tpu/ops/fused_ppo.py:667",
+    # K2b and K4u at those rows: the chunked kernels, and the two launches
+    # that finish their layer 0 (the body of _bwd_kernel below layer 0's
+    # cotangent: dW0 at :194, g_prev and the feature norm's backward at
+    # :208-222; K4u's _critic_kernel runs the same chain)
+    "fused_mlp_bwd_chunked": "dcc_tpu/ops/fused_mlp.py:299",
+    "critic_ppo_grads_unfolded_chunked": "dcc_tpu/ops/fused_ppo.py:378",
+    "layer0_input_bwd": "dcc_tpu/ops/fused_mlp.py:152",
+    "dv0_unfolded": "dcc_tpu/ops/fused_mlp.py:152",
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
@@ -172,6 +200,10 @@ SOURCES = {
     "critic_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "fused_mlp_bwd_chunked": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "critic_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "layer0_input_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
+    "dv0_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
 # the check whose numbers the {"kernels": [...]} line reports for each of
 # its names, and the counter of that name's launches: (kernel, envs, preset)
@@ -179,9 +211,18 @@ SOURCES = {
 # where not listed. The chunked K4 and the dV0 kernel run only at rows too
 # wide for a staged K4 tile: the 20-UAV preset's, read at the main path's
 # 153,600 rows. The chunked K4 counts under critic_ppo_grads, and its time
-# and bound are both launches'; the dV0 row's are its own.
+# and bound are both launches'; the dV0 row's are its own. So for the
+# chunked K2b (the fused-loss-off run's 38,400 critic rows of an update
+# chunk) and K4u (153,600 rows, counted under critic_ppo_grads_unfolded):
+# time and bound of their three launches; the layer-0 input backward's
+# (38,400 rows, no dx) and dV0's unfolded mode (153,600 rows) their own.
 KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
-              "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE)}
+              "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE),
+              "fused_mlp_bwd_chunked": ("fused_mlp_bwd_chunked", WIDE_ENVS, WIDE),
+              "critic_ppo_grads_unfolded_chunked": ("critic_ppo_grads_unfolded", WIDE_ENVS,
+                                                    WIDE),
+              "layer0_input_bwd": ("layer0_input_bwd", WIDE_ENVS, WIDE),
+              "dv0_unfolded": ("dv0_unfolded", WIDE_ENVS, WIDE)}
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
 BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
@@ -247,6 +288,29 @@ TRAIN_RUNS = (
                                             "--n-iters", "1"],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
       "critic_ppo_grads_dv0": 15}),
+    # the same with the fused loss off: autograd through K2 and K2b over 4
+    # update chunks with remat (the forwards run twice), the actor's
+    # 768,000 x 242 rows through the staged K2b, the critic's 38,400 x 4,840
+    # through the chunked K2b, the layer-0 input backward and dV0
+    (f"preset-{WIDE}-fused-loss-off",
+     preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1",
+                          "--fused-loss", "off"],
+     {"gae": 1, "fused_mlp": 541, "fused_mlp_bwd": 60, "fused_mlp_bwd_chunked": 60,
+      "layer0_input_bwd": 60, "dv0_unfolded": 60}),
+    # unfolded: K3u on 3,072,000 x 242, K4u chunked on 153,600 x 4,840
+    (f"preset-{WIDE}-unfolded",
+     preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1",
+                          "--fused-fold", "false"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
+      "critic_ppo_grads_unfolded": 15, "layer0_input_bwd": 15, "dv0_unfolded": 15}),
+    # the recurrent policy at 64 envs (its critic rows, duplicated per agent,
+    # are T*E*A x 4,840: 1.9 GB in bf16), without update chunks, which the
+    # recurrent update does not take (JAX refuses them too)
+    (f"preset-{WIDE}-recurrent",
+     preset_args(WIDE) + ["--n-rollout-threads", "64", "--n-iters", "1",
+                          "--use-recurrent-policy", "true", "--update-chunks", "1"],
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 15, "fused_mlp_bwd_chunked": 15,
+      "layer0_input_bwd": 15, "dv0_unfolded": 15}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -254,10 +318,18 @@ MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "actor_ppo_grads_unfolded": "bf16-unfolded-popart",
             "critic_ppo_grads_unfolded": "bf16-unfolded-popart",
             "critic_ppo_grads_chunked": f"preset-{WIDE}",
-            "critic_ppo_grads_dv0": f"preset-{WIDE}"}
+            "critic_ppo_grads_dv0": f"preset-{WIDE}",
+            "fused_mlp_bwd_chunked": f"preset-{WIDE}-fused-loss-off",
+            "critic_ppo_grads_unfolded_chunked": f"preset-{WIDE}-unfolded",
+            "layer0_input_bwd": f"preset-{WIDE}-fused-loss-off",
+            "dv0_unfolded": f"preset-{WIDE}-fused-loss-off"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
+# K2b at the 20-UAV preset's widths: staged on the actor's rows, chunked on
+# the critic's, with the kernels that finish its layer 0
+_WIDE_TRUNK_MMA = {**_TRUNK_MMA, "fused_mlp_bwd_chunked": "dcc_trunk_bwd_chunked_mma",
+                   "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"}
 _FOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
                "critic_ppo_grads": "dcc_critic_grads_mma"}
 MMA_ENTRY = {
@@ -273,15 +345,24 @@ MMA_ENTRY = {
     **{f"preset-{name}-bf16": _FOLDED_MMA for name in BF16_PRESETS},
     f"preset-{WIDE}": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
                        "critic_ppo_grads_dv0": "dcc_dv0_mma"},
+    f"preset-{WIDE}-fused-loss-off": _WIDE_TRUNK_MMA,
+    f"preset-{WIDE}-unfolded": {
+        "fused_mlp": "dcc_trunk_fwd_mma",
+        "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_mma",
+        "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_chunked_mma",
+        "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
+    f"preset-{WIDE}-recurrent": _WIDE_TRUNK_MMA,
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
                "critic_grads_mma_kernel", "actor_grads_unfolded_mma_kernel",
                "critic_grads_unfolded_mma_kernel", "critic_grads_chunked_mma_kernel",
-               "dv0_mma_kernel")
+               "dv0_mma_kernel", "trunk_bwd_chunked_mma_kernel",
+               "critic_grads_unfolded_chunked_mma_kernel", "layer0_input_bwd_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
 # the runs followed by one profiled iteration
-PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart")
+PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
+            f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded")
 N_TIMED = 50  # launches between the two CUDA events of a timing
 
 
@@ -479,18 +560,21 @@ def device_us(fn, n: int, match: str):
 
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
-           f32_rel=None, device_match=None, preset=None, gated=True, **extra_host):
+           f32_rel=None, device_match=None, preset=None, gated=True, library=None,
+           **extra_host):
     """Time the kernel's wrapper and the plain version, print and keep the
     row. ``device_match``: also the profiler's device us per call of the
     kernels whose name holds it. ``preset``: the env preset whose widths the
     check takes (None: the default config). ``gated``: False where the
-    errors are a reading, not a check (``trunk_variants``). ``extra_host``:
-    further callables whose host us per call are printed beside the
-    wrapper's."""
+    errors are a reading, not a check (``trunk_variants``). ``library``: one
+    PyTorch call that computes the same function, timed as the yardstick
+    (``library_ms``; the port never calls it). ``extra_host``: further
+    callables whose host us per call are printed beside the wrapper's."""
     from dcc_tpu_torch.ops.cuda_build import ENTRY, TILE
 
     err, rel, worst = errs
     (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
+    library_ms = time_ms(library)[0] if library is not None else None
     hosts = {"wrapper": host_us(kern, n),
              **{k: host_us(f, n) for k, f in extra_host.items()}}
     dev_us = device_us(kern, n, device_match) if device_match else None
@@ -501,12 +585,14 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, preset=preset, entry=entry,
                tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n,
                plain_ms=plain_ms, plain_n_timed=plain_n, host_us=hosts, device_us=dev_us,
-               bound_ms=bound_ms, bound_by=bound_by, f32_kernel_rel_err=f32_rel, gated=gated)
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+               f32_kernel_rel_err=f32_rel, gated=gated)
     results.append(row)
     extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
     extra += "" if gated else " (a reading, not a check: ROADMAP C3)"
     dev = "" if dev_us is None else (f" device us/call: kernel {dev_us['kernel']:.2f}, "
                                      f"all {dev_us['all']:.2f};")
+    dev += "" if library_ms is None else f" library={library_ms:.4f} ms;"
     where = "" if preset is None else f" {preset}"
     shape = shape + ("" if tile is None else f" tile={tile}")
     print(f"  {kernel:17s} {mode:4s}{where} envs={envs:<6d} {shape:28s} [{entry}] "
@@ -880,9 +966,12 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
                 ops = 2 * Rv * (2 * A * D * H + 3 * (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                # at the 20-UAV widths in bf16, the device time of the
+                # chunked kernel and the dV0 kernel (their *_mma_kernel names)
                 record(results, "critic_ppo_grads", mode, envs,
                        _shape(Rv, A * D, nmb) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset, gated=gated)
+                       preset=preset, gated=gated,
+                       device_match="mma_kernel" if bf16 and preset == WIDE else None)
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
@@ -1024,14 +1113,18 @@ def check_presets(results: list):
 
 
 def check_wide(results: list):
-    """The 20-UAV preset's widths (actor 242, critic 4,840; bf16 K4 there
-    through its chunked layer 0 and the dV0 kernel): K2 at 16 and
-    ``WIDE_ENVS`` envs (20 x envs actor rows, envs critic rows, as the
-    rollout gives them); K3 and K4 at 16 envs (48,000 x 242, 2,400 x 4,840)
-    in f32 and bf16, and in bf16 at ``WIDE_ENVS`` envs (3,072,000 x 242,
-    153,600 x 4,840), the main path's shapes, on the trunks of
-    ``trunk_variants`` (the plain K3 keeps about ten 3.1 GB f32 tensors
-    alive there); the dV0 kernel against its plain version at both."""
+    """The 20-UAV preset's widths (actor 242, critic 4,840; bf16 K4, K4u and
+    K2b there through their chunked layer 0, the dV0 kernel and, for K2b
+    and K4u, the layer-0 input backward): K2 at 16 and ``WIDE_ENVS`` envs
+    (20 x envs actor rows, envs critic rows, as the rollout gives them); K3
+    and K4 at 16 envs (48,000 x 242, 2,400 x 4,840) in f32 and bf16, and in
+    bf16 at ``WIDE_ENVS`` envs (3,072,000 x 242, 153,600 x 4,840), the main
+    path's shapes, on the trunks of ``trunk_variants`` (the plain K3 keeps
+    about ten 3.1 GB f32 tensors alive there); the dV0 kernel in both modes
+    against its plain version at both; the chunked K2b on 2,400 and 38,400
+    critic rows (the fused-loss-off run's update chunk), the chunked K4u on
+    2,400 and 153,600, and the layer-0 input backward alone on 38,400 rows
+    (with and without dx) and 153,600 (without)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1040,36 +1133,196 @@ def check_wide(results: list):
     check_ppo(results, gen, cases=((16, 1),), preset=WIDE)
     check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=WIDE, modes=(True,))
     check_dv0(results, gen, envs_list=(16, WIDE_ENVS))
+    check_wide_chunked(results, gen)
+    check_layer0(results, gen)
+
+
+def _wide_critic(gen, seed: int):
+    """The 20-UAV preset's bf16 critic (``make_networks(seed)``), its 1-D
+    parameters moved off their init values, and the flat trunk list."""
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+
+    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on"), env_config(WIDE),
+                 device="cuda")
+    critic = algo.make_networks(seed=seed)[1]
+    perturb_(critic, gen)
+    return critic, [p.detach() for p in critic.base.flat_params()]
 
 
 def check_dv0(results: list, gen, envs_list):
-    """The dV0 kernel (``ops.fused_ppo.dv0_cuda``) against its plain version
+    """The dV0 kernel (``ops.fused_mlp.dv0_cuda``) against its plain version
     on the 20-UAV preset's T*E critic rows (4,840 wide, bf16), their
     feature-norm statistics and a bf16 cotangent of layer 0, within
-    ``DV0_REL``; the product of the unrounded xhat must lie outside it."""
+    ``DV0_REL``, in both modes: the folded K4's dV0 = bf16(xhat)^T g0
+    (``critic_ppo_grads_dv0``) and the unfolded chain's dW0 = bf16(xhat *
+    fs + fb)^T g0 (``dv0_unfolded``, the feature norm's affine of the
+    preset's critic); the product of the unrounded operand must lie outside
+    the bound. Beside each, the cuBLAS product ``torch.matmul(a0^T, g0)``
+    of the rounded bf16 operand (bf16 out) as the yardstick."""
     import torch
 
-    from dcc_tpu_torch.ops import fused_ppo as FP
+    from dcc_tpu_torch.ops import fused_mlp as FM
 
     env = env_config(WIDE)
     D, H = env.n_agents * env.obs_dim, 256
+    _, cparams = _wide_critic(gen, 6)
     for envs in envs_list:
         R = 150 * envs
         x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
-        xstats = FP.input_stats(x, True)
+        xstats = FM.input_stats(x, True)
         g0 = (0.1 * torch.randn(R, H, generator=gen, device="cuda")).to(torch.bfloat16)
-        kern = lambda: FP.dv0_cuda(x, xstats, g0, H)
-        plain = lambda: FP.dv0_plain(x, xstats, g0, H)
-        want = plain()
-        errs = compare("critic_ppo_grads_dv0", [kern()], [want], DV0_REL)
-        unrounded = ((x.float() - xstats[:, :1]) * xstats[:, 1:]).t() @ g0.float()
-        f32_rel = f32_reading("critic_ppo_grads_dv0", [unrounded], [want], DV0_REL)
-        del unrounded
-        # x, g0 and the statistics in, dV0 out; one product of 2 ops a MAC
-        nbytes = 2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 4 * D * H
-        b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
-        record(results, "critic_ppo_grads_dv0", "bf16", envs, _shape(R, D), errs, kern, plain,
-               b, by, f32_rel, preset=WIDE)
+        for name, affine in (("critic_ppo_grads_dv0", None),
+                             ("dv0_unfolded", (cparams[0], cparams[1]))):
+            unf = affine is not None
+            kern = lambda: FM.dv0_cuda(x, xstats, g0, H, affine, unfolded=unf)
+            plain = lambda: FM.dv0_plain(x, xstats, g0, H, affine)
+            want = plain()
+            errs = compare(name, [kern()], [want], DV0_REL)
+            a0 = (x.float() - xstats[:, :1]) * xstats[:, 1:]
+            if unf:
+                a0 = a0 * affine[0] + affine[1]
+            f32_rel = f32_reading(name, [a0.t() @ g0.float()], [want], DV0_REL)
+            a0 = a0.to(torch.bfloat16)
+            library = lambda: torch.matmul(a0.t(), g0)
+            # x, g0 and the statistics (and the affine) in, dV0 out; one
+            # product of 2 ops a MAC
+            nbytes = (2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 4 * D * H
+                      + (8 * D if unf else 0))
+            b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
+            record(results, name, "bf16", envs, _shape(R, D), errs, kern, plain, b, by,
+                   f32_rel, preset=WIDE, device_match="dv0_mma_kernel", library=library)
+            del want, a0
+        del x, g0
+        torch.cuda.empty_cache()
+
+
+def check_wide_chunked(results: list, gen):
+    """The chunked K2b (``trunk_backward_cuda`` on rows too wide to stage: its
+    chunked kernel, the layer-0 input backward and dV0, without dx, as the
+    update calls it) on 2,400 and 38,400 of the 20-UAV preset's 4,840-wide
+    critic rows (T*E at 16 envs; one of the 4 update chunks of T*E at
+    ``WIDE_ENVS``), and the chunked K4u (its chunked kernel, the layer-0
+    input backward and dV0) on T*E = 2,400 and 153,600, each on the trunks
+    of ``trunk_variants`` with their kink rules, against the plain version
+    within ``K2B_BF16_REL`` / ``PPO_BF16_REL``. The f32 reading here is the
+    plain version computed in f32: the FMA kernels take these rows in
+    one-row tiles (seconds a call). Each row's time and bound are its three
+    launches'; device us: its ``*_mma_kernel`` launches."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    env = env_config(WIDE)
+    D, H = env.n_agents * env.obs_dim, 256
+    critic, full = _wide_critic(gen, 7)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
+    norm = torch.tensor([0.5, 2.0], device="cuda")
+    for envs, rows, label in ((16, 150 * 16, ""), (WIDE_ENVS, 150 * WIDE_ENVS // 4,
+                                                    " chunk 1/4")):
+        x = randn(rows, D).to(torch.bfloat16)
+        for tag, relu, L, fn, gated in trunk_variants(True, WIDE):
+            params = full if fn else full[2:2 + 4 * L]
+            kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, need_dx=False)
+            g = randn(rows, H)
+            if relu:
+                g[FM.relu_kink_rows(x, params, L, fn, True)] = 0.0
+            kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
+            plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
+            k, p = kern()[1], plain()[1]
+            errs = compare("fused_mlp_bwd_chunked", k, p, K2B_BF16_REL, gate=gated)
+            f32_rel = None
+            if gated:
+                f32_rel = f32_reading("fused_mlp_bwd_chunked",
+                                      FM.trunk_backward_plain(x, params, g, **{**kw,
+                                                                               "bf16": False})[1],
+                                      p, K2B_BF16_REL)
+            ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
+            nbytes = 2 * x.numel() + 4 * g.numel() + 2 * 4 * sum(t.numel() for t in params)
+            b, by = bound(nbytes, ops, PEAK_BF16)
+            record(results, "fused_mlp_bwd_chunked", "bf16", envs, _shape(rows, D) + label + tag,
+                   errs, kern, plain, b, by, f32_rel, preset=WIDE, gated=gated,
+                   device_match="mma_kernel")
+            del k, p, g
+        del x
+        torch.cuda.empty_cache()
+    flat = lambda o: [*o[0], *o[1:]]
+    for envs in (16, WIDE_ENVS):
+        Rv = 150 * envs
+        x = randn(Rv, D).to(torch.bfloat16)
+        vpred = randn(Rv, 1)
+        ret = vpred + 3.0 * randn(Rv, 1)
+        for tag, relu, L, fn, gated in trunk_variants(True, WIDE):
+            params = full if fn else full[2:2 + 4 * L]
+            aux = FP.pack_critic_aux(vpred, ret)
+            if relu:
+                aux[FM.relu_kink_rows(x, params, L, fn, True), 2] = 0.0
+            kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, clip_param=0.2,
+                      huber_delta=10.0, use_huber=True, use_clipped=True)
+            kern = lambda: FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, **kw)
+            plain = lambda: FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, **kw)
+            k, p = kern(), plain()
+            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), PPO_BF16_REL,
+                           gate=gated)
+            f32_rel = None
+            if gated:
+                f32_rel = f32_reading(
+                    "critic_ppo_grads_unfolded",
+                    flat(FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv,
+                                                        **{**kw, "bf16": False})),
+                    flat(p), PPO_BF16_REL)
+            ops = 6 * Rv * (D * H + (L - 1) * H * H)
+            nbytes = 2 * x.numel() + 4 * aux.numel() + 2 * 4 * sum(t.numel() for t in flat(k))
+            b, by = bound(nbytes, ops, PEAK_BF16)
+            record(results, "critic_ppo_grads_unfolded", "bf16", envs, _shape(Rv, D) + tag,
+                   errs, kern, plain, b, by, f32_rel, preset=WIDE, gated=gated,
+                   device_match="mma_kernel")
+            del k, p
+        del x
+        torch.cuda.empty_cache()
+
+
+def check_layer0(results: list, gen):
+    """The layer-0 input backward of the chunked K2b and K4u
+    (``ops.fused_mlp.layer0_input_bwd_cuda``) alone, against its plain
+    version on the same bf16 operands within ``DV0_REL``: on 38,400 of the
+    20-UAV preset's 4,840-wide critic rows (an update chunk of the
+    fused-loss-off run) without dx, as the update calls it, and with dx,
+    and on 153,600 (the unfolded run's) without; the product with the
+    unrounded W_0 must lie outside the bound."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    env = env_config(WIDE)
+    D, H = env.n_agents * env.obs_dim, 256
+    _, cparams = _wide_critic(gen, 8)
+    w0, fs = cparams[2], cparams[0]
+    w0b = FM.pack_mma_weights([w0], "cuda")[0].view(FM.pad16(D), FM.pad16(H))
+    w0f = torch.zeros(FM.pad16(D), FM.pad16(H), device="cuda")
+    w0f[:D, :H] = w0  # unrounded, for the f32 reading
+    for envs, rows, need_dx, label in ((WIDE_ENVS, 150 * WIDE_ENVS // 4, False, " chunk 1/4"),
+                                       (WIDE_ENVS, 150 * WIDE_ENVS // 4, True,
+                                        " chunk 1/4 dx"),
+                                       (WIDE_ENVS, 150 * WIDE_ENVS, False, "")):
+        x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
+        xstats = FM.input_stats(x, True)
+        g0 = (0.1 * torch.randn(rows, H, generator=gen, device="cuda")).to(torch.bfloat16)
+        kern = lambda: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, need_dx)
+        plain = lambda: FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, H, need_dx)
+        keep = lambda o: [t for t in o if t is not None]
+        want = keep(plain())
+        errs = compare("layer0_input_bwd", keep(kern()), want, DV0_REL)
+        f32_rel = f32_reading("layer0_input_bwd",
+                              keep(FM.layer0_input_bwd_plain(x, xstats, g0, w0f, fs, H,
+                                                             need_dx)), want, DV0_REL)
+        # one product g0 W_0^T (2 ops a MAC); x, g0, the statistics, W_0 and
+        # fs in, the two column sums (and dx) out
+        nbytes = (2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 2 * D * H + 4 * D
+                  + 8 * D + (2 * x.numel() if need_dx else 0))
+        b, by = bound(nbytes, 2 * rows * D * H, PEAK_BF16)
+        record(results, "layer0_input_bwd", "bf16", envs, _shape(rows, D) + label, errs, kern,
+               plain, b, by, f32_rel, preset=WIDE, device_match="layer0_input_bwd")
         del x, g0, want
         torch.cuda.empty_cache()
 
@@ -1460,7 +1713,7 @@ def main(argv=None) -> int:
             launches=runs[MAIN_RUN[name]]["launches"].get(kernel, 0),
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=dev["kernel"] / 1e3 if dev else None, plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=None,
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=mode, shape=row["shape"], entry=row["entry"],
             host_us=row["host_us"]["wrapper"],
         ))

@@ -294,9 +294,10 @@ class MAPPO:
     def _check_row_tiles(self) -> None:
         """Raise (ROADMAP B2) where a kernel this run launches on CUDA has no
         row tile at its row width: the kernels stage whole rows in shared
-        memory, but for bf16 K4, which streams its first layer in column
-        chunks past the widest staged row (``ops.tiles.plan``), and a row
-        too wide would first fail inside its launch."""
+        memory, but for bf16 K2b, K4 and K4u, which stream their first
+        layer in column chunks past the widest staged row
+        (``ops.tiles.plan``), and a row too wide would first fail inside its
+        launch."""
         act_n = self.env_cfg.action_dim
         launches = []  # (kernel, row width, head width)
         if self.fused_trunk:
@@ -313,10 +314,9 @@ class MAPPO:
                               self.cfg.layer_n + 1, n_head)[1]:
                 raise NotImplementedError(
                     f"{kernel} ({'bf16' if self.bf16 else 'f32'}) has no row tile that fits "
-                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: of the "
-                    f"fused kernels only bf16 K4 streams its first layer over d_in; the "
-                    f"20-UAV preset's 4,840-wide critic rows run with the fused loss on, "
-                    f"folded)"
+                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: bf16 "
+                    f"K2b, K4 and K4u stream their first layer over d_in, bf16 K3 and K3u "
+                    f"do not yet; no configuration gives the actor rows that wide)"
                 )
 
     # ------------------------------------------------------------------

@@ -17,7 +17,11 @@
 // * f32 (trunk_bwd_kernel): full FP32 on the CUDA cores (trunk.cuh), bound
 //   by the 67 TFLOP/s FP32 rate.
 // Each block re-reads and re-writes its gradient slot once per tile after
-// its first, which bounds both at large batch.
+// its first, which bounds both at large batch. In bf16 at rows too wide to
+// stage (the 20-UAV preset's 4,840-wide critic rows), three launches take
+// the staged kernel's place: trunk_bwd_chunked_mma_kernel down to layer
+// 0's cotangent, the dV0 kernel for dW0 (fused_ppo.cu), and
+// layer0_input_bwd_mma_kernel for the feature norm's gradients and d(x).
 //
 // Design. The Pallas kernel accumulates the gradients into one output block
 // across a sequential grid, race-free only on a TPU. Here a fixed grid of
@@ -101,24 +105,42 @@ __global__ void __launch_bounds__(DCC_THREADS)
 //         partials, column sums (3 x BR/16 x Hp), the operand's row norms
 //         (BR) and the weights' column norms (L x Hp, once per block), the
 //         list of re-sums (a count, FLAG_CAP keys and values)
+//
+// Chunked (trunk_bwd_chunked_mma_kernel; ROADMAP B2's rows too wide to
+// stage whole, e.g. the 20-UAV preset's 4,840-wide critic rows): layer 0's
+// operand streams through a0 (BR x MMA_KC) in column chunks
+// (chunked_layer0: the feature norm's affine applied and rounded step by
+// step, the chunks' products summed in f32), and the backward stops at
+// layer 0's cotangent: it writes each row's bf16 g0 (R x Hp) and its
+// feature-norm mean and 1/sqrt(var + eps) (xstats, R x 2), and leaves the
+// 4,840-wide gradients out of its slot, which starts at layer 0's bias
+// (slot offset = offset in pb - offs.v[3]): dW0 comes from the dV0 kernel
+// in its affine mode (fused_ppo.cu), the feature norm's gradients and d(x)
+// from layer0_input_bwd_mma_kernel below. A 4.96 MB dW0 in each of 132
+// slots, re-read per tile, would cost more than the product. Layer 0's
+// pre-activations are not re-summed (resum_uncertain needs the whole
+// operand row); the layers after it are. No stage: layer 0's g_prev is
+// not computed here.
 // ---------------------------------------------------------------------------
 struct BwdMmaLayout {
   size_t a0, act, sx, stage, gs, ring, mu, inv, fmu, finv, red, colsum, rnorm, cnorm, flags,
       total;
 };
 
-__host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, int L) {
+__host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, int L,
+                                                       bool chunked = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
-  const int nk = (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX);  // widest column pass of g_prev
+  // widest column pass of layer 0's g_prev (none when chunked)
+  const int nk = chunked ? 0 : (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX);
   const int st_kn = ring_stage((int)Hp, false);
   const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
   BwdMmaLayout m;
   size_t o = 0;
-  m.a0 = o;     o += 2 * br * (Kp0 + 8);
+  m.a0 = o;     o += 2 * br * ((chunked ? MMA_KC : Kp0) + 8);
   m.act = o;    o += 2 * (size_t)L * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
   m.stage = 0;
-  const size_t stage = 4 * br * (Kp0 + 4);
+  const size_t stage = chunked ? 0 : 4 * br * (Kp0 + 4);
   if (o < stage) o = stage;
   m.gs = o;     o += 2 * br * ldh;
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
@@ -138,17 +160,21 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
 // Parameters: the flat list's f32 vectors in pb (fn scale / bias at
 // offs.v[0] / v[1]; layer li's b, LN scale, LN bias at offs.v[3+4li] ..
 // v[5+4li]; the W slots offs.v[2+4li] are not read), the same offsets
-// locating each gradient in the slot; bf16 W_li (pad16(d_li) x pad16(H),
-// zero padded) at wb + woffs.v[li]. gout: R x H f32; dx in x's dtype.
-template <int BR>
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-    trunk_bwd_mma_kernel(const void* x, int x_bf16, const float* gout, long long R, int d_in,
-                         int H, int L, int use_fn, int relu, const float* pb, DccOffs offs,
-                         const bf16* wb, DccOffs woffs, float* slots, long long slot_size,
-                         void* dx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdMmaLayout m = bwd_mma_layout(BR, d_in, H, L);
-  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = Kp0 + 8, ldh = Hp + 8, ldf = Kp0 + 4;
+// locating each gradient in the slot (chunked: less offs.v[3]); bf16 W_li
+// (pad16(d_li) x pad16(H), zero padded) at wb + woffs.v[li]. gout: R x H
+// f32; dx in x's dtype (staged); g0, xstats (chunked).
+#define DCC_TRUNK_BWD_MMA_PARAMS                                                          \
+  const void *x, int x_bf16, const float *gout, long long R, int d_in, int H, int L,      \
+      int use_fn, int relu, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, \
+      float *slots, long long slot_size
+
+template <int BR, bool CH>
+__device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
+                                              DCC_TRUNK_BWD_MMA_PARAMS, void* dx, bf16* g0,
+                                              float* xstats) {
+  const BwdMmaLayout m = bwd_mma_layout(BR, d_in, H, L, CH);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
+            ldf = Kp0 + 4;
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
   bf16* sx = (bf16*)(smem_raw + m.sx);
@@ -175,8 +201,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
+  float* sb = CH ? slot - offs.v[3] : slot;  // gradient k of the flat list at sb + offs.v[k]
   if (threadIdx.x == 0) *flags.n = 0;
-  if (relu) weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm);  // for relu_uncertain
+  if (relu)  // for relu_uncertain (chunked: the layers after layer 0)
+    weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm, CH ? 1 : 0);
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
     const bool first = tile == blockIdx.x;
@@ -189,18 +217,29 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       prefetch_l2_span(p + r1 * esz, n * esz);
     }
     // unfolded forward (dcc_tpu/ops/fused_mlp.py::_forward_chain)
-    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
-                   lda0, fmu, finv);
+    if constexpr (CH)
+      input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv);
+    else
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
+                     lda0, fmu, finv);
     __syncthreads();
     float acc[MmaTile<BR>::NT][4];
     for (int li = 0; li < L; ++li) {
       const long long* o = offs.v + 2 + 4 * li;
       const bf16* in = li == 0 ? a0 : sx;
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
-      if (relu)  // the operand's row norms, for relu_uncertain
+      const bool resum = relu && !(CH && li == 0);
+      if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
-      if (relu)
+      if (CH && li == 0)
+        chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
+                                 use_fn ? pb + offs.v[0] : nullptr,
+                                 use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
+                                 Hp, ring, wt, acc);
+      else
+        gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt,
+                           acc);
+      if (resum)
         resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
                             cnorm + li * Hp, row0, R, wt, flags);
       float mu[2], inv[2];
@@ -276,14 +315,34 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
         for (int k = 0; k < 3; ++k) {
           float s = 0.f;
           for (int w = 0; w < WM; ++w) s += colsum[(k * WM + w) * Hp + j];
-          float* dst = slot + o[k == 2 ? 1 : 2 + k] + j;
+          float* dst = sb + o[k == 2 ? 1 : 2 + k] + j;
           *dst = first ? s : *dst + s;
         }
       }
-      grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                    li == 0 ? d_in : H, gs, ldh, Hp, H, slot + o[0], first);
+      if (CH && li == 0) {
+        // layer 0's bf16 cotangent and the rows' statistics, for the dV0
+        // and layer-0 input backward kernels
+        const int cpr = Hp / 8;  // 16-byte chunks of a row
+        for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
+          const int r = i / cpr, c = i - r * cpr;
+          if (row0 + r < R)
+            *reinterpret_cast<uint4*>(g0 + (row0 + r) * Hp + c * 8) =
+                *reinterpret_cast<const uint4*>(gs + r * ldh + c * 8);
+        }
+        if (threadIdx.x < BR && row0 + threadIdx.x < R) {
+          xstats[2 * (row0 + threadIdx.x)] = fmu[threadIdx.x];
+          xstats[2 * (row0 + threadIdx.x) + 1] = finv[threadIdx.x];
+        }
+      } else {
+        grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
+                      li == 0 ? d_in : H, gs, ldh, Hp, H, sb + o[0], first);
+      }
       if (li > 0)  // g_prev = bf16(g) @ W^T
         gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+    }
+    if constexpr (CH) {
+      __syncthreads();  // the next tile's forward writes over gs and a0
+      continue;
     }
     // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns into the stage
     // (over a0, which grad_at_g has finished reading)
@@ -331,6 +390,220 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   }
 }
 
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    trunk_bwd_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, void* dx) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_bwd_mma<BR, false>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
+                           woffs, slots, slot_size, dx, nullptr, nullptr);
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    trunk_bwd_chunked_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, bf16* g0, float* xstats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_bwd_mma<BR, true>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
+                          woffs, slots, slot_size, nullptr, g0, xstats);
+}
+
+// ---------------------------------------------------------------------------
+// The layer-0 input backward of the chunked K2b and K4u (ROADMAP B2): the
+// part of dcc_tpu/ops/fused_mlp.py::_bwd_kernel (and, unfolded,
+// fused_ppo.py::_trunk_bwd) below layer 0's cotangent, at rows too wide to
+// stage. From x, the rows' statistics xstats (mu, inv), layer 0's bf16
+// cotangent g0 (R x Hp) and the bf16 W_0 (Kp0 x Hp): g_prev = g0 @ W_0^T
+// (f32), then the feature norm's backward (_ln_bwd with its scale fs):
+//   dfs[k] = sum_r g_prev[r][k] xhat[r][k], dfb[k] = sum_r g_prev[r][k],
+//   dx[r][k] = inv[r] (g_prev fs - s1[r] - xhat s2[r]),
+//   s1 = mean_k g_prev fs, s2 = mean_k g_prev fs xhat,
+// and without the feature norm dx = g_prev. Each block loops over BR-row
+// tiles: g0's rows are staged once, then g_prev is computed on the tensor
+// cores in L0_KC-column chunks (gemm_stream over column slices of W_0),
+// each chunk's x normalized into an f32 stage (its next chunk's rows load
+// during the product). The first pass adds each chunk's column sums of
+// g_prev xhat and g_prev into the block's slot [dfs (d_in), dfb (d_in)]
+// (stored by its first tile, else added; summed over the blocks by
+// slots.cuh's fixed-order reduction, no atomics) and keeps each row's
+// partial s1 and s2 in registers, summed over the warps in a fixed order
+// at the end. dx, whose row sums span all d_in columns, takes a second pass
+// that computes g_prev again, and only where the caller reads dx (MAPPO's
+// update does not: its rows are observations). Every sum is in f32 on the
+// CUDA cores, round to nearest; g_prev's own products (K = H) accumulate
+// on the tensor cores as the staged K2b's gprev_layer0 does. Bound: the
+// products (2 or 4 R Kp0 Hp operations) against the bytes of x, g0 and,
+// with dx, dx.
+// ---------------------------------------------------------------------------
+#define L0_KC MMA_HMAX  // columns of a chunk of g_prev (one warp tiling's width)
+
+struct L0Layout {
+  size_t gs, ring, xh, colsum, red, mu, inv, total;
+};
+
+__host__ __device__ inline L0Layout l0_layout(int br, int H) {
+  const size_t ldh = pad16(H) + 8;
+  L0Layout m;
+  size_t o = 0;
+  m.gs = o;     o += 2 * br * ldh;
+  m.ring = o;   o += 2 * MMA_STAGES * (size_t)ring_stage(L0_KC, true);
+  m.xh = o;     o += 4 * (size_t)br * (L0_KC + 4);
+  m.colsum = o; o += 4 * 2 * (size_t)(br / 16) * L0_KC;
+  m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
+  m.mu = o;     o += 4 * (size_t)br;
+  m.inv = o;    o += 4 * (size_t)br;
+  m.total = o;
+  return m;
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    layer0_input_bwd_mma_kernel(const void* x, int x_bf16, long long R, int d_in,
+                                const float* xstats, const bf16* g0, int H, const bf16* w0,
+                                const float* fs, int use_fn, float* slots, void* dx) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const L0Layout m = l0_layout(BR, H);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8, ldx = L0_KC + 4;
+  bf16* gs = (bf16*)(smem_raw + m.gs);
+  bf16* ring = (bf16*)(smem_raw + m.ring);
+  float* xh = (float*)(smem_raw + m.xh);
+  float* colsum = (float*)(smem_raw + m.colsum);
+  float* red = (float*)(smem_raw + m.red);
+  float* mu_s = (float*)(smem_raw + m.mu);
+  float* inv_s = (float*)(smem_raw + m.inv);
+  constexpr int WM = MmaTile<BR>::WM, NT = MmaTile<BR>::NT, RW = BR / MMA_WARPS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const WarpTile wt = warp_tile<BR>(L0_KC / 8);  // rows and column group: any chunk's
+  float* slot = slots + (long long)blockIdx.x * 2 * d_in;  // [dfs, dfb]
+  const long long tiles = (R + BR - 1) / BR;
+  if (blockIdx.x >= tiles) {  // no rows for this block: its slot holds zeros
+    if (use_fn)
+      for (int i = threadIdx.x; i < 2 * d_in; i += blockDim.x) slot[i] = 0.f;
+    return;
+  }
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long row0 = tile * BR;
+    const bool first = tile == blockIdx.x;
+    // g0's rows (rows >= R zero) and the rows' statistics (0, 1 past R)
+    const int cpr = Hp / 8;
+    for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
+      const int r = i / cpr, c = i - r * cpr;
+      bf16* dst = gs + r * ldh + c * 8;
+      if (row0 + r < R)
+        cp_async16(dst, g0 + (row0 + r) * Hp + c * 8);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    cp_async_commit();
+    if (threadIdx.x < BR) {
+      const bool in = row0 + threadIdx.x < R;
+      mu_s[threadIdx.x] = in ? xstats[2 * (row0 + threadIdx.x)] : 0.f;
+      inv_s[threadIdx.x] = in ? xstats[2 * (row0 + threadIdx.x) + 1] : 1.f;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};  // rows wt.r0, wt.r0 + 8
+    // pass 0: the column sums and the row sums (with the feature norm);
+    // pass 1: dx (where the caller reads it)
+    for (int pass = use_fn ? 0 : 1; pass < (dx != nullptr ? 2 : 1); ++pass) {
+      float xv[RW][8];
+      if (use_fn) fetch_chunk<BR>(x, x_bf16, row0, R, d_in, 0, xv);
+      for (int k0 = 0; k0 < Kp0; k0 += L0_KC) {
+        const int nc = min(L0_KC, Kp0 - k0);
+        if (use_fn) {
+          // xhat of the chunk, f32: xh[r][8 lane + e]
+#pragma unroll
+          for (int j = 0; j < RW; ++j) {
+            const int r = warp + j * MMA_WARPS;
+            float4 v[2];
+            float* f = reinterpret_cast<float*>(v);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) f[e] = (xv[j][e] - mu_s[r]) * inv_s[r];
+            *reinterpret_cast<float4*>(xh + r * ldx + 8 * lane) = v[0];
+            *reinterpret_cast<float4*>(xh + r * ldx + 8 * lane + 4) = v[1];
+          }
+          if (k0 + L0_KC < Kp0)  // in flight during this chunk's product
+            fetch_chunk<BR>(x, x_bf16, row0, R, d_in, k0 + L0_KC, xv);
+        }
+        const WarpTile pt = warp_tile<BR>(nc / 8);
+        float acc[NT][4];
+        // g_prev of the chunk; its first barrier publishes xh
+        gemm_stream<true>(gs, ldh, Hp, w0 + (long long)k0 * Hp, Hp, nc, ring, pt, acc);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (nt >= pt.ntw) continue;
+          float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // g xhat, g: columns c, c + 1
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int h = i >> 1, r = pt.r0 + 8 * h, c = pt.c0 + nt * 8 + (i & 1), k = k0 + c;
+            if (k >= d_in || row0 + r >= R) continue;
+            const float g = acc[nt][i];
+            if (!use_fn) {
+              if (x_bf16)
+                ((bf16*)dx)[(row0 + r) * d_in + k] = __float2bfloat16_rn(g);
+              else
+                ((float*)dx)[(row0 + r) * d_in + k] = g;
+              continue;
+            }
+            const float xhat = xh[r * ldx + c], gg = g * __ldg(fs + k);
+            if (pass == 0) {
+              s1[h] += gg;
+              s2[h] += gg * xhat;
+              cs[0][i & 1] += g * xhat;
+              cs[1][i & 1] += g;
+            } else {
+              const float v = inv_s[r] * (gg - s1[h] - xhat * s2[h]);
+              if (x_bf16)
+                ((bf16*)dx)[(row0 + r) * d_in + k] = __float2bfloat16_rn(v);
+              else
+                ((float*)dx)[(row0 + r) * d_in + k] = v;
+            }
+          }
+          if (pass == 0) {  // over the warp's 16 rows: lanes with one lane & 3
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+#pragma unroll
+              for (int e = 0; e < 2; ++e)
+#pragma unroll
+                for (int o = 4; o < 32; o <<= 1)
+                  cs[q][e] += __shfl_xor_sync(0xffffffffu, cs[q][e], o);
+            const int c = pt.c0 + nt * 8;
+            if (lane < 4) {
+#pragma unroll
+              for (int q = 0; q < 2; ++q) {
+                colsum[(q * WM + pt.wm) * L0_KC + c] = cs[q][0];
+                colsum[(q * WM + pt.wm) * L0_KC + c + 1] = cs[q][1];
+              }
+            }
+          }
+        }
+        __syncthreads();  // colsum written; xh read
+        if (pass == 0) {
+          // the chunk's column sums over the tile, warps in order, into the slot
+          for (int j = threadIdx.x; j < nc && k0 + j < d_in; j += blockDim.x) {
+            float sx = 0.f, sg = 0.f;
+            for (int w = 0; w < WM; ++w) {
+              sx += colsum[w * L0_KC + j];
+              sg += colsum[(WM + w) * L0_KC + j];
+            }
+            float* ds = slot + k0 + j;
+            float* db = slot + d_in + k0 + j;
+            *ds = first ? sx : *ds + sx;
+            *db = first ? sg : *db + sg;
+          }
+        }
+      }
+      if (pass == 0) {
+        row_sums<BR>(s1, s2, red, wt);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          s1[h] /= d_in;
+          s2[h] /= d_in;
+        }
+      }
+    }
+    __syncthreads();  // the next tile writes over gs and the statistics
+  }
+}
+
 static DccOffs to_offs(const long long* offs, int n_offs) {
   DccOffs o;
   for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
@@ -373,6 +646,43 @@ static int launch_mma(const void* x, int x_bf16, const float* g, long long R, in
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+template <int BR>
+static int launch_chunked_mma(const void* x, int x_bf16, const float* g, long long R, int d_in,
+                              int H, int L, int use_fn, int relu, const float* pb,
+                              const DccOffs& o, const bf16* wb, const DccOffs& wo,
+                              float* slots, long long slot_size, int n_blocks, float* out,
+                              bf16* g0, float* xstats, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = trunk_bwd_chunked_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = bwd_mma_layout(BR, d_in, H, L, true).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, wb,
+                                        wo, slots, slot_size, g0, xstats);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+template <int BR>
+static int launch_layer0(const void* x, int x_bf16, long long R, int d_in, const float* xstats,
+                         const bf16* g0, int H, const bf16* w0, const float* fs, int use_fn,
+                         float* slots, int n_blocks, float* out, void* dx, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = layer0_input_bwd_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  k<<<n_blocks, MMA_THREADS, l0_layout(BR, H).total, s>>>(x, x_bf16, R, d_in, xstats, g0, H,
+                                                          w0, fs, use_fn, slots, dx);
+  const int err = (int)cudaGetLastError();
+  if (err || !use_fn) return err;
+  return reduce(slots, n_blocks, 2LL * d_in, out, s);
 }
 
 extern "C" unsigned long long dcc_trunk_bwd_smem_bytes(int br, int d_in, int H, int L) {
@@ -442,6 +752,76 @@ extern "C" int dcc_trunk_bwd_mma(const void* x, int x_bf16, const float* g, long
       return (int)cudaErrorInvalidValue;
   }
 #undef DCC_CASE
+}
+
+// bf16 K2b with the chunked layer 0 (rows too wide for a staged tile): br
+// in {32, 16}; as dcc_trunk_bwd_mma, but slots and out hold the slot from
+// layer 0's bias on (slot_size floats: every offset less offs[3]), and the
+// kernel writes g0 (R x pad16(H) bf16) and xstats (R x 2 f32) for
+// dcc_dv0_mma (fused_ppo.cu) and dcc_layer0_input_bwd_mma; no dx.
+extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float* g, long long R,
+                                         int d_in, int H, int L, int use_fn, int relu, int br,
+                                         const float* pb, const long long* offs, int n_offs,
+                                         const void* wb, const long long* woffs, int n_woffs,
+                                         float* slots, long long slot_size, int n_blocks,
+                                         float* out, void* g0, float* xstats, void* stream) {
+  if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
+    if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+#define DCC_CASE(B)                                                                        \
+  case B:                                                                                  \
+    return launch_chunked_mma<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, w, wo,  \
+                                 slots, slot_size, n_blocks, out, (bf16*)g0, xstats, s);
+  switch (br) {
+    DCC_CASE(32)
+    DCC_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
+}
+
+extern "C" unsigned long long dcc_trunk_bwd_mma_chunked_smem_bytes(int br, int d_in, int H,
+                                                                   int L) {
+  return bwd_mma_layout(br, d_in, H, L, true).total;
+}
+
+// The layer-0 input backward: br in {64, 32, 16}; g0 R x pad16(H) bf16, w0
+// the bf16 W_0 (pad16(d_in) x pad16(H)); with use_fn, fs (d_in f32) and
+// slots (n_blocks x 2 d_in scratch) give out = [dfs, dfb] (2 d_in f32);
+// dx (x's dtype) is written where not null; one of the two at least.
+extern "C" int dcc_layer0_input_bwd_mma(const void* x, int x_bf16, long long R, int d_in,
+                                        const float* xstats, const void* g0, int H,
+                                        const void* w0, const float* fs, int use_fn, int br,
+                                        float* slots, int n_blocks, float* out, void* dx,
+                                        void* stream) {
+  if (H % 8 != 0 || H > MMA_HMAX || n_blocks < 1 || d_in < 1 || (!use_fn && dx == nullptr) ||
+      (use_fn && (fs == nullptr || slots == nullptr || out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bf16* g = (const bf16*)g0;
+  const bf16* w = (const bf16*)w0;
+#define DCC_CASE(B)                                                                        \
+  case B:                                                                                  \
+    return launch_layer0<B>(x, x_bf16, R, d_in, xstats, g, H, w, fs, use_fn, slots,        \
+                            n_blocks, out, dx, s);
+  switch (br) {
+    DCC_CASE(64)
+    DCC_CASE(32)
+    DCC_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
+}
+
+extern "C" unsigned long long dcc_layer0_input_bwd_smem_bytes(int br, int H) {
+  return l0_layout(br, H).total;
 }
 
 extern "C" const char* dcc_error_string(int code) {

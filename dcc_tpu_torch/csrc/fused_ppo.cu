@@ -414,8 +414,8 @@ __global__ void __launch_bounds__(DCC_THREADS)
 //         chunk of it at a time
 //   act   L x BR x Hp  each layer's activation
 //   sx    BR x Hp    the operand of layer li >= 1
-//   stage BR x (Kp0 + 4) f32, unfolded only: layer 0's g_prev, over a0,
-//         act and sx (and beyond them where it is larger)
+//   stage BR x (Kp0 + 4) f32, unfolded and staged only: layer 0's g_prev,
+//         over a0, act and sx (and beyond them where it is larger)
 //   gs    BR x Hp    bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
 //   f32:  mu, inv (L x BR), unfolded and chunked the feature norm's mu,
@@ -441,8 +441,9 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
                                                        bool unf, bool chunked = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
   const bool fn_stats = unf || chunked;
-  // unfolded: the widest column pass of layer 0's g_prev
-  const int nk = unf ? (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX) : 0;
+  // unfolded and staged: the widest column pass of layer 0's g_prev
+  const bool gprev0 = unf && !chunked;
+  const int nk = gprev0 ? (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX) : 0;
   const int st_kn = ring_stage((int)Hp, false);
   const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
   PpoMmaLayout m;
@@ -451,7 +452,7 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   m.act = o;    o += 2 * (size_t)L * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
   m.stage = 0;
-  if (unf && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
+  if (gprev0 && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
   m.gs = o;     o += 2 * br * ldh;
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
   m.mu = o;     o += 4 * (size_t)L * br;
@@ -641,12 +642,19 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
 // aux_w floats wide. Slot: folded per layer [dV, du], unfolded the trunk
 // list's gradients at its offsets; then the head's [dW (H x A), db (A),
 // ext (A, when EXT), metrics (NMET)].
-// Chunked (CH, folded only; ROADMAP B2's rows too wide to stage whole):
-// layer 0's operand streams through a0 in MMA_KC-column chunks, each
-// normalized from x as it is loaded, and the backward leaves layer 0's dV
-// out of the slot: it writes each row's bf16 cotangent of layer 0 (R x Hp)
-// to g0 and its feature-norm mean and 1/sqrt(var + eps) to xstats (R x 2),
-// from which dv0_mma_kernel computes dV0 = bf16(xhat)^T g0.
+// Chunked (CH; ROADMAP B2's rows too wide to stage whole): layer 0's
+// operand streams through a0 in MMA_KC-column chunks (chunked_layer0), each
+// normalized from x as it is loaded (unfolded, with the feature norm's
+// affine), and the backward leaves layer 0's weight gradient out of the
+// slot: it writes each row's bf16 cotangent of layer 0 (R x Hp) to g0 and
+// its feature-norm mean and 1/sqrt(var + eps) to xstats (R x 2), from
+// which dv0_mma_kernel computes dV0 = bf16(xhat)^T g0 (unfolded, dW0 =
+// bf16(xhat * fs + fb)^T g0) and, unfolded, layer0_input_bwd_mma_kernel
+// (fused_mlp_bwd.cu) the feature norm's scale and bias gradients. Unfolded
+// chunked, the slot starts at layer 0's bias (slot offset = offset in pb -
+// offs.v[3]): the feature norm's and W_0's 4,840-wide gradients are not in
+// it. Layer 0's pre-activations are not re-summed (resum_uncertain needs
+// the whole operand row); the layers after it are.
 template <int BR, bool UNF, class Loss, bool CH = false>
 __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const void* x,
                                               int x_bf16, const float* aux, int aux_w,
@@ -656,7 +664,6 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
                                               const DccOffs& woffs, float* slots,
                                               long long slot_size, const Loss& loss,
                                               bf16* g0 = nullptr, float* xstats = nullptr) {
-  static_assert(!(CH && UNF), "the chunked layer 0 runs the folded chain");
   const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
             ldf = Kp0 + 4;
@@ -687,11 +694,13 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
+  // unfolded: gradient k of the flat list at sb + offs.v[k]
+  float* sb = UNF && CH ? slot - offs.v[3] : slot;
   float* sv[DCC_MAX_LAYERS];  // folded: [dV, du] of each layer
   float* su[DCC_MAX_LAYERS];
   float* head;
   if constexpr (UNF)
-    head = slot + offs.v[2 + 4 * L];
+    head = sb + offs.v[2 + 4 * L];
   else
     slot_ptrs(slot, d_in, H, L, A, sv, su, &head, CH);
   float* s_w = head;
@@ -718,7 +727,8 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   for (int i = threadIdx.x; i < H * A; i += blockDim.x) whs[i] = bf16r(Wh[i]);
   if constexpr (UNF) {
     if (threadIdx.x == 0) *flags.n = 0;
-    if (relu) weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm);  // for relu_uncertain
+    if (relu)  // for relu_uncertain (chunked: the layers after layer 0)
+      weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm, CH ? 1 : 0);
   } else {
     for (int i = threadIdx.x; i < L * H; i += blockDim.x)
       us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
@@ -737,11 +747,11 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     }
     // forward (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded, or unfolded
     // dcc_tpu/ops/fused_mlp.py::_forward_chain)
-    if constexpr (UNF)
+    if constexpr (CH)
+      input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv);
+    else if constexpr (UNF)
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
                      lda0, fnmu, fninv);
-    else if constexpr (CH)
-      input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv);
     else
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
     __syncthreads();
@@ -750,35 +760,18 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
       const bf16* in = li == 0 ? a0 : sx;
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
-      if (UNF && relu)  // the operand's row norms, for relu_uncertain
+      const bool resum = UNF && relu && !(CH && li == 0);
+      if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      if (CH && li == 0) {
-        // each chunk's product on the tensor cores, the chunks summed in
-        // f32 (round to nearest): the tensor cores' accumulation is not
-        // rounded to nearest, and a chain over all 4,840 columns would
-        // bias the pre-activations it rounds to bf16
-        float part[MmaTile<BR>::NT][4];
-        float xv[BR / MMA_WARPS][8];  // the next chunk of the tile's rows
-        fetch_chunk<BR>(x, x_bf16, row0, R, d_in, 0, xv);
-        for (int k0 = 0; k0 < Kp0; k0 += MMA_KC) {
-          const int kc = min(MMA_KC, Kp0 - k0);
-          stage_chunk<BR>(xv, row0, R, d_in, k0, use_fn, fnmu, fninv, a0, lda0);
-          __syncthreads();
-          if (k0 + MMA_KC < Kp0)  // in flight during this chunk's product
-            fetch_chunk<BR>(x, x_bf16, row0, R, d_in, k0 + MMA_KC, xv);
-          gemm_stream<false>(a0, lda0, kc, wb + woffs.v[0] + (long long)k0 * Hp, Hp, Hp, ring,
-                             wt, part);
-#pragma unroll
-          for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              acc[nt][i] = k0 == 0 ? part[nt][i] : acc[nt][i] + part[nt][i];
-        }
-      } else {
+      if (CH && li == 0)
+        chunked_layer0<BR, UNF>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv,
+                                use_fn ? pb + offs.v[0] : nullptr,
+                                use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0], Hp,
+                                ring, wt, acc);
+      else
         gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt,
                            acc);
-      }
-      if (UNF && relu)
+      if (resum)
         resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
                             cnorm + li * Hp, row0, R, wt, flags);
       float mu[2], inv[2];
@@ -946,7 +939,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
           for (int k = 0; k < 3; ++k) {
             float s = 0.f;
             for (int w = 0; w < WM; ++w) s += colsum[(k * WM + w) * Hp + j];
-            float* dst = slot + o[k == 2 ? 1 : 2 + k] + j;
+            float* dst = sb + o[k == 2 ? 1 : 2 + k] + j;
             *dst = first ? s : *dst + s;
           }
         } else {
@@ -970,12 +963,12 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         }
       } else {
         grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? slot + o[0] : sv[li], first);
+                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : sv[li], first);
       }
       if (li > 0)  // g_prev = bf16(g) @ W^T
         gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
     }
-    if (UNF && use_fn) {
+    if (UNF && !CH && use_fn) {
       // the feature norm's scale and bias gradients from layer 0's g_prev
       gprev_layer0<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
       __syncthreads();
@@ -1073,6 +1066,18 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
                               slot_size, g0, xstats);
 }
 
+// K4u with the chunked layer 0: the same rows; its feature norm's scale and
+// bias gradients come from layer0_input_bwd_mma_kernel, dW0 from the dV0
+// kernel in its affine mode.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    critic_grads_unfolded_chunked_mma_kernel(DCC_CRITIC_MMA_PARAMS, bf16* g0, float* xstats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  critic_mma<BR, true, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
+                             delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
+                             slot_size, g0, xstats);
+}
+
 // ---------------------------------------------------------------------------
 // dV0 of the chunked K4 (the same Pallas kernel's layer-0 weight gradient,
 // dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded's _mm(a, g, bf16,
@@ -1094,21 +1099,27 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 // into its own f32 sums in shared memory (round to nearest) and starts
 // them again. Bound: the bytes of x and g0 (an operations bound below it
 // at d_in 4,840, H 256).
+// Affine mode (fs, fb given: the unfolded chain's layer 0, for the chunked
+// K2b and K4u): dW0 = bf16(xhat * fs + fb)^T g0, the operand rounded step
+// by step as the chunked forward's stage_chunk rounds it; the block's
+// DV0_KB entries of fs and fb are read once into shared memory.
 // ---------------------------------------------------------------------------
 #define DV0_KB 128  // columns of x (rows of dV0) a block takes
 #define DV0_RS 32   // rows a step (two k16 steps of the products)
 #define DV0_ACC 128  // accumulators a thread holds: 2 slabs x 2 x 8 x 4
 #define DV0_FLUSH 16  // steps between the flushes into the f32 sums
 
-// Two stages of x and g0 rows, then each thread's DV0_ACC f32 sums.
+// Two stages of x and g0 rows, each thread's DV0_ACC f32 sums, then the
+// block's columns of the affine (fs, fb).
 __host__ __device__ inline size_t dv0_smem_bytes(int H) {
   return 2 * sizeof(bf16) * (size_t)DV0_RS * ((DV0_KB + 8) + (pad16(H) + 8)) +
-         sizeof(float) * (size_t)DV0_ACC * MMA_THREADS;
+         sizeof(float) * (size_t)DV0_ACC * MMA_THREADS + sizeof(float) * 2 * DV0_KB;
 }
 
 __global__ void __launch_bounds__(MMA_THREADS, 1)
     dv0_mma_kernel(const void* x, int x_bf16, long long R, int d_in, const float* xstats,
-                   const bf16* g0, int H, long long split_rows, float* part) {
+                   const bf16* g0, int H, long long split_rows, const float* fs,
+                   const float* fb, float* part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int Hp = pad16(H), lda = DV0_KB + 8, ldg = Hp + 8;
   bf16* as[2];
@@ -1118,9 +1129,16 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   as[1] = gs[0] + DV0_RS * ldg;
   gs[1] = as[1] + DV0_RS * lda;
   float* sums = (float*)(gs[1] + DV0_RS * ldg);  // [DV0_ACC][MMA_THREADS]
+  float* aff = sums + DV0_ACC * MMA_THREADS;      // fs, fb of the block's columns
   for (int i = 0; i < DV0_ACC; ++i) sums[i * MMA_THREADS + threadIdx.x] = 0.f;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
   const int k0 = blockIdx.x * DV0_KB;
+  const bool affine = fs != nullptr;
+  if (affine && threadIdx.x < DV0_KB) {  // read by stage_x after the barrier below
+    const int k = k0 + threadIdx.x;
+    aff[threadIdx.x] = k < d_in ? fs[k] : 0.f;
+    aff[DV0_KB + threadIdx.x] = k < d_in ? fb[k] : 0.f;
+  }
   const long long r_begin = (long long)blockIdx.y * split_rows;
   const long long r_end = min(R, r_begin + split_rows);
   const long long steps = r_end > r_begin ? (r_end - r_begin + DV0_RS - 1) / DV0_RS : 0;
@@ -1159,15 +1177,24 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       }
     }
   };
-  // xhat = bf16((x - mu) * inv), as the chunked forward rounded it
+  // xhat = bf16((x - mu) * inv), or bf16(xhat * fs + fb), as the chunked
+  // forward rounded it
   auto stage_x = [&](int s) {
 #pragma unroll
     for (int j = 0; j < XP; ++j) {
       uint32_t w[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 b = __floats2bfloat162_rn((xv[j][2 * e] - st[j].x) * st[j].y,
-                                                       (xv[j][2 * e + 1] - st[j].x) * st[j].y);
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          v[h] = (xv[j][2 * e + h] - st[j].x) * st[j].y;
+          if (affine) {
+            const int c = 8 * xc + 2 * e + h;
+            v[h] = __fadd_rn(__fmul_rn(v[h], aff[c]), aff[DV0_KB + c]);
+          }
+        }
+        const __nv_bfloat162 b = __floats2bfloat162_rn(v[0], v[1]);
         w[e] = *reinterpret_cast<const uint32_t*>(&b);
       }
       *reinterpret_cast<uint4*>(as[s] + (xr + XROWS * j) * lda + 8 * xc) =
@@ -1211,6 +1238,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[q][mt][nt][i] = 0.f;
+  if (affine) __syncthreads();  // aff, before the first stage_x
   if (steps > 0) {
     fetch_g(0, 0);
     fetch_x(0);
@@ -1387,6 +1415,25 @@ static int launch_critic_chunked_mma(const void* x, int x_bf16, const float* aux
   return (int)cudaGetLastError();
 }
 
+template <int BR>
+static int launch_critic_unfolded_chunked_mma(
+    const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
+    int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
+    int use_clipped, const float* pb, DccOffs o, const bf16* wb, DccOffs wo, float* slots,
+    long long slot_size, int n_blocks, bf16* g0, float* xstats, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = critic_grads_unfolded_chunked_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, true, true).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
+                                        slots, slot_size, g0, xstats);
+  return (int)cudaGetLastError();
+}
+
 extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
                                                  int A) {
   return sizeof(float) * ppo_smem_floats(br, d_in, H, L, A);
@@ -1409,6 +1456,11 @@ extern "C" unsigned long long dcc_ppo_unfolded_smem_bytes(int br, int d_in, int 
 extern "C" unsigned long long dcc_ppo_unfolded_mma_smem_bytes(int br, int d_in, int H, int L,
                                                               int A) {
   return ppo_mma_layout(br, d_in, H, L, A, true).total;
+}
+
+extern "C" unsigned long long dcc_ppo_unfolded_mma_chunked_smem_bytes(int br, int d_in, int H,
+                                                                      int L, int A) {
+  return ppo_mma_layout(br, d_in, H, L, A, true, true).total;
 }
 
 // The checks of the unfolded entries: the flat trunk list's offsets (fn
@@ -1698,13 +1750,50 @@ extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const flo
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// dV0 = bf16((x - mu) * inv)^T g0 over R rows (d_in x H f32 into out):
+// K4u in bf16 with the chunked layer 0: as dcc_critic_grads_unfolded_mma,
+// but slots and out hold the slot from layer 0's bias on (slot_size
+// floats: every offset less offs[3]), and the kernel writes g0 (R x
+// pad16(H) bf16) and xstats (R x 2 f32) for dcc_dv0_mma and
+// dcc_layer0_input_bwd_mma.
+extern "C" int dcc_critic_grads_unfolded_chunked_mma(
+    const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
+    int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
+    int use_clipped, int br, const float* pb, const long long* offs, int n_offs,
+    const void* wb, const long long* woffs, int n_woffs, float* slots, long long slot_size,
+    int n_blocks, void* g0, float* xstats, float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
+      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 2))
+    return (int)cudaErrorInvalidValue;
+  for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
+    if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 32: err = launch_critic_unfolded_chunked_mma<32>(
+                 x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
+                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, s);
+             break;
+    case 16: err = launch_critic_unfolded_chunked_mma<16>(
+                 x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
+                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, s);
+             break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// dV0 = bf16((x - mu) * inv)^T g0 over R rows (d_in x H f32 into out), or
+// with fs and fb given (not null) bf16((x - mu) * inv * fs + fb)^T g0:
 // dv0_mma_kernel on n_splits row splits into part (n_splits x d_in x H
 // scratch), then the splits summed in order.
 extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
                            const float* xstats, const void* g0, int H, int n_splits,
-                           float* part, float* out, void* stream) {
-  if (H % 8 != 0 || H > MMA_HMAX || n_splits < 1 || d_in < 1)
+                           const float* fs, const float* fb, float* part, float* out,
+                           void* stream) {
+  if (H % 8 != 0 || H > MMA_HMAX || n_splits < 1 || d_in < 1 || (fs == nullptr) != (fb == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   static bool smem_set = false;
@@ -1716,7 +1805,7 @@ extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
   const long long split_rows = ((R + n_splits - 1) / n_splits + DV0_RS - 1) / DV0_RS * DV0_RS;
   const dim3 grid((pad16(d_in) + DV0_KB - 1) / DV0_KB, n_splits);
   dv0_mma_kernel<<<grid, MMA_THREADS, dv0_smem_bytes(H), s>>>(
-      x, x_bf16, R, d_in, xstats, (const bf16*)g0, H, split_rows, part);
+      x, x_bf16, R, d_in, xstats, (const bf16*)g0, H, split_rows, fs, fb, part);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(part, n_splits, (long long)d_in * H, out, s);

@@ -516,8 +516,10 @@ __device__ __forceinline__ float load_x(const void* x, int x_bf16, long long i) 
 // registers (one 16-byte load a row when x is bf16 with rows 16-byte
 // aligned, else eight), so that it is in flight during the previous
 // chunk's product, and stage_chunk writes bf16((x - mu) * inv) (bf16(x)
-// without use_fn) to dst (BR x MMA_KC, row stride ld); columns past d_in
-// and rows >= R are 0.
+// without use_fn; with the feature norm's affine fs, fb given,
+// bf16((x - mu) * inv * fs + fb), each step rounded on its own as in
+// load_input) to dst (BR x MMA_KC, row stride ld); columns past d_in and
+// rows >= R are 0.
 template <int BR>
 __device__ void input_stats(const void* x, int x_bf16, long long row0, long long R, int d_in,
                             bool use_fn, float* mu, float* inv) {
@@ -592,12 +594,18 @@ __device__ __forceinline__ void fetch_chunk(const void* x, int x_bf16, long long
   }
 }
 
-template <int BR>
+template <int BR, bool AFF = false>
 __device__ __forceinline__ void stage_chunk(const float (&xv)[BR / MMA_WARPS][8],
                                             long long row0, long long R, int d_in, int k0,
                                             bool use_fn, const float* mu, const float* inv,
-                                            bf16* dst, int ld) {
+                                            bf16* dst, int ld, const float* fs = nullptr,
+                                            const float* fb = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, col = k0 + 8 * lane;
+  // the affine of column col + e (read where it is applied: L1 hits)
+  auto affine = [&](float v, int e) {
+    return col + e < d_in ? __fadd_rn(__fmul_rn(v, __ldg(fs + col + e)), __ldg(fb + col + e))
+                          : 0.f;
+  };
 #pragma unroll
   for (int j = 0; j < BR / MMA_WARPS; ++j) {
     const int r = warp + j * MMA_WARPS;
@@ -609,6 +617,10 @@ __device__ __forceinline__ void stage_chunk(const float (&xv)[BR / MMA_WARPS][8]
       if (use_fn) {
         a = (a - mu[r]) * inv[r];
         b = (b - mu[r]) * inv[r];
+        if constexpr (AFF) {
+          a = affine(a, 2 * e);
+          b = affine(b, 2 * e + 1);
+        }
       }
       a = in && col + 2 * e < d_in ? a : 0.f;
       b = in && col + 2 * e + 1 < d_in ? b : 0.f;
@@ -616,6 +628,40 @@ __device__ __forceinline__ void stage_chunk(const float (&xv)[BR / MMA_WARPS][8]
       w[e] = *reinterpret_cast<const uint32_t*>(&h);
     }
     *reinterpret_cast<uint4*>(dst + r * ld + 8 * lane) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Layer 0's product acc = a0 @ W_0 over a chunked first operand (rows too
+// wide to stage whole, ROADMAP B2): chunk by chunk, stage_chunk writes the
+// operand (folded bf16(xhat); AFF, the unfolded chain's, bf16(xhat * fs +
+// fb)) into a0 (BR x MMA_KC, stride lda0), its product with W_0's rows
+// k0 .. k0 + MMA_KC runs on the tensor cores, and the chunks' products are
+// summed in f32 (round to nearest): the tensor cores' accumulation is not
+// rounded to nearest, and a chain over all 4,840 columns would bias the
+// pre-activations it rounds to bf16. The next chunk's rows load during
+// this chunk's product. mu, inv: the rows' statistics (input_stats). Every
+// thread calls it; it ends with gemm_stream's barrier.
+template <int BR, bool AFF>
+__device__ void chunked_layer0(const void* x, int x_bf16, long long row0, long long R,
+                               int d_in, bool use_fn, const float* mu, const float* inv,
+                               const float* fs, const float* fb, bf16* a0, int lda0,
+                               const bf16* w0, int Hp, bf16* ring, const WarpTile& wt,
+                               float (&acc)[MmaTile<BR>::NT][4]) {
+  const int Kp0 = pad16(d_in);
+  float part[MmaTile<BR>::NT][4];
+  float xv[BR / MMA_WARPS][8];  // the next chunk of the tile's rows
+  fetch_chunk<BR>(x, x_bf16, row0, R, d_in, 0, xv);
+  for (int k0 = 0; k0 < Kp0; k0 += MMA_KC) {
+    const int kc = min(MMA_KC, Kp0 - k0);
+    stage_chunk<BR, AFF>(xv, row0, R, d_in, k0, use_fn, mu, inv, a0, lda0, fs, fb);
+    __syncthreads();
+    if (k0 + MMA_KC < Kp0)  // in flight during this chunk's product
+      fetch_chunk<BR>(x, x_bf16, row0, R, d_in, k0 + MMA_KC, xv);
+    gemm_stream<false>(a0, lda0, kc, w0 + (long long)k0 * Hp, Hp, Hp, ring, wt, part);
+#pragma unroll
+    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] = k0 == 0 ? part[nt][i] : acc[nt][i] + part[nt][i];
   }
 }
 
@@ -635,11 +681,12 @@ __device__ __forceinline__ ResumList resum_list(unsigned char* p) {
   return l;
 }
 
-// cnorm[li * Hp + c] = |column c of W_li| for every layer (bf16 W_li at wb +
-// woffs.v[li], Kp0 rows for layer 0, Hp for the others), once per block.
+// cnorm[li * Hp + c] = |column c of W_li| for every layer from l0 (bf16
+// W_li at wb + woffs.v[li], Kp0 rows for layer 0, Hp for the others), once
+// per block.
 __device__ __forceinline__ void weight_col_norms(const bf16* wb, const DccOffs& woffs, int L,
-                                                 int Kp0, int Hp, float* cnorm) {
-  for (int i = threadIdx.x; i < L * Hp; i += blockDim.x) {
+                                                 int Kp0, int Hp, float* cnorm, int l0 = 0) {
+  for (int i = threadIdx.x + l0 * Hp; i < L * Hp; i += blockDim.x) {
     const int li = i / Hp, c = i - li * Hp;
     cnorm[i] = sqrtf(dot_sequential(nullptr, wb + woffs.v[li] + c, Hp, li == 0 ? Kp0 : Hp,
                                     true));

@@ -16,6 +16,12 @@ where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
 point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4,
 K2b and the unfolded K3u / K4u the tensor-core ``*_mma`` entry or the FMA
 one), ``TILE`` the row tile of each K2-K4, K2b, K3u / K4u latest launch.
+At rows too wide for a staged tile (``ops.tiles.plan``) bf16 K4 and K4u
+count their chunked launches under their own names, the chunked K2b under
+``fused_mlp_bwd_chunked``, and the kernels that finish their layer 0
+under ``critic_ppo_grads_dv0`` (dV0 of the folded K4), ``dv0_unfolded``
+(dW0 of K2b and K4u) and ``layer0_input_bwd`` (the feature norm's
+gradients and d(x) of K2b and K4u).
 """
 
 from __future__ import annotations
@@ -65,8 +71,18 @@ _SIGNATURES = {
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
             _P, _P, _P,
         ],
+        # dcc_trunk_bwd_mma's arguments, with g0 and xstats in dx's place
+        "dcc_trunk_bwd_chunked_mma": [
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
+            _P, _P, _P, _P,
+        ],
+        "dcc_layer0_input_bwd_mma": [
+            _P, _I, _L, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
+        ],
         "dcc_trunk_bwd_smem_bytes": [_I, _I, _I, _I],
         "dcc_trunk_bwd_mma_smem_bytes": [_I, _I, _I, _I],
+        "dcc_trunk_bwd_mma_chunked_smem_bytes": [_I, _I, _I, _I],
+        "dcc_layer0_input_bwd_smem_bytes": [_I, _I],
     },
     "fused_ppo": {
         "dcc_actor_grads": [
@@ -90,12 +106,13 @@ _SIGNATURES = {
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
             _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P,
         ],
-        "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P],
+        "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_unfolded_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
     },
 }
 
@@ -104,7 +121,7 @@ _SIGNATURES = {
 _SIGNATURES["fused_ppo"].update({
     name.replace("_grads", "_grads_unfolded"): _SIGNATURES["fused_ppo"][name]
     for name in ("dcc_actor_grads", "dcc_actor_grads_mma", "dcc_critic_grads",
-                 "dcc_critic_grads_mma")
+                 "dcc_critic_grads_mma", "dcc_critic_grads_chunked_mma")
 })
 
 

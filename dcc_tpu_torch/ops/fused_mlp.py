@@ -32,6 +32,16 @@ and :class:`FusedTrunk` hands the forward's pack to the backward. K2b
 re-sums in sequential order every relu pre-activation whose side the tensor
 cores' summation order could change, so that its relu masks agree with the
 plain version's. In f32 both stay on full-f32 FMA.
+
+bf16 K2b at rows too wide for a staged row tile (the 20-UAV preset's
+4,840-wide critic rows, ``ops.tiles.plan``) runs as three launches: the
+chunked kernel streams layer 0 over d_in in column chunks and stops at
+layer 0's cotangent g0 (plain version :func:`trunk_bwd_chunked_plain`),
+the layer-0 input backward gives the feature norm's gradients and dx
+(:func:`layer0_input_bwd_cuda`, only where a caller reads dx:
+``FusedTrunk`` asks for it only when its input needs a gradient), and the
+dV0 kernel gives W_0's (:func:`dv0_cuda`); the chunked K4 and K4u end in
+the same two kernels.
 """
 
 from __future__ import annotations
@@ -127,10 +137,13 @@ def _ln_bwd(g, xhat, inv, scale):
 
 
 def trunk_bwd_chain(g, params, fn_cache, layers, n_layers: int, use_fn: bool,
-                    use_relu: bool, bf16: bool):
+                    use_relu: bool, bf16: bool, to_layer0: bool = False):
     """The backward of the chain that :func:`_forward_chain` cached: the
     cotangent ``g`` (rows, H) of the trunk output back to (f32 cotangent of
-    the trunk's input, [f32 gradient of each parameter])."""
+    the trunk's input, [f32 gradient of each parameter]). With
+    ``to_layer0``, as the chunked kernels split it: it stops at layer 0's
+    cotangent (after its activation) and returns that instead, with no
+    gradient (None) for W_0 and the feature norm."""
     mm = (lambda p, q: bf16_round(p) @ bf16_round(q)) if bf16 else torch.matmul
     g = g.to(torch.float32)
     grads = [None] * len(params)
@@ -140,8 +153,10 @@ def trunk_bwd_chain(g, params, fn_cache, layers, n_layers: int, use_fn: bool,
         i -= 4
         g, grads[i + 2], grads[i + 3] = _ln_bwd(g, xhat, inv, params[i + 2])
         g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
-        grads[i] = mm(a.t(), g)
         grads[i + 1] = g.sum(dim=0)
+        if to_layer0 and li == 0:
+            return g, grads
+        grads[i] = mm(a.t(), g)
         g = mm(g, params[i].t())
     if use_fn:
         xhat, inv = fn_cache
@@ -157,14 +172,148 @@ def trunk_backward_plain(
     use_fn: bool = True,
     use_relu: bool = True,
     bf16: bool = False,
+    need_dx: bool = True,
 ):
     """Plain PyTorch K2b: the cotangent ``g`` (rows, H) of the trunk output
-    back to (dx in x.dtype, [f32 gradient of each parameter])."""
+    back to (dx in x.dtype, or None without ``need_dx``, [f32 gradient of
+    each parameter])."""
     with torch.no_grad():
         _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
         g, grads = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu,
                                    bf16)
-    return g.to(x.dtype), grads
+    return (g.to(x.dtype) if need_dx else None), grads
+
+
+# ---------------------------------------------------------------------------
+# layer 0 at rows too wide to stage (ROADMAP B2): the chunked K2b stops at
+# layer 0's cotangent g0; the dV0 kernel gives W_0's gradient and the
+# layer-0 input backward the feature norm's gradients and dx. The chunked
+# K4 / K4u (ops.fused_ppo) end in the same two kernels.
+# ---------------------------------------------------------------------------
+
+def input_stats(x, use_fn: bool) -> torch.Tensor:
+    """(R, 2) f32: each row's feature-norm mean and 1/sqrt(var + eps), or
+    (0, 1) without the feature norm, as the chunked kernels write them."""
+    if not use_fn:
+        return torch.cat([torch.zeros_like(x[:, :1], dtype=torch.float32),
+                          torch.ones_like(x[:, :1], dtype=torch.float32)], dim=1)
+    return torch.cat(ln_stats(x), dim=1)
+
+
+def trunk_bwd_chunked_plain(x, params, g, n_layers: int, use_fn: bool = True,
+                            use_relu: bool = True, bf16: bool = True):
+    """Plain chunked K2b (its first launch): the chain down to layer 0's
+    cotangent. Returns (the gradients of ``params`` from layer 0's bias on,
+    layer 0's bf16 cotangent g0 (rows, H), :func:`input_stats`)."""
+    with torch.no_grad():
+        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+        g0, grads = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu,
+                                    bf16, to_layer0=True)
+    first = 2 if use_fn else 0
+    return grads[first + 1:], g0.to(torch.bfloat16), input_stats(x, use_fn)
+
+
+def dv0_plain(x, xstats, g0, hidden: int, affine=None):
+    """Plain dV0 kernel: bf16((x - mu) * inv)^T @ g0[:, :hidden] in f32, with
+    ``xstats`` = (mu, inv) per row and ``g0`` layer 0's bf16 cotangent; with
+    ``affine`` = (fs, fb), the feature norm's scale and bias, the unfolded
+    chain's operand bf16((x - mu) * inv * fs + fb) (dW0 of K2b and K4u)."""
+    xhat = (x.to(torch.float32) - xstats[:, :1]) * xstats[:, 1:]
+    if affine is not None:
+        xhat = xhat * affine[0] + affine[1]
+    return bf16_round(xhat).t() @ g0[:, :hidden].to(torch.float32)
+
+
+def layer0_input_bwd_plain(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = True):
+    """Plain layer-0 input backward: g_prev = g0 @ W_0^T (f32) from layer 0's
+    bf16 cotangent ``g0`` and the bf16 W_0 ``w0b`` (padded, as
+    :func:`pack_mma_weights` packs it), then the feature norm's backward
+    with its scale ``fs`` (None: no feature norm, dx = g_prev). Returns (dx
+    in x.dtype or None without ``need_dx``, d fs, d fb; None, None without
+    the feature norm)."""
+    d_in = x.shape[1]
+    gp = g0[:, :hidden].to(torch.float32) @ w0b[:d_in, :hidden].to(torch.float32).t()
+    if fs is None:
+        return (gp.to(x.dtype) if need_dx else None), None, None
+    xhat = (x.to(torch.float32) - xstats[:, :1]) * xstats[:, 1:]
+    dx, dfs, dfb = _ln_bwd(gp, xhat, xstats[:, 1:], fs)
+    return (dx.to(x.dtype) if need_dx else None), dfs, dfb
+
+
+def dv0_splits(rows: int, d_in: int, sms: int) -> int:
+    """Row splits of the dV0 kernel: about two waves of its blocks
+    (``DV0_KB`` = 128 columns of x each), at least one step of rows
+    (``DV0_RS`` = 32) a split."""
+    kblocks = -(-pad16(d_in) // 128)
+    return max(1, min(-(-2 * sms // kblocks), -(-rows // 32)))
+
+
+def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False):
+    """Launch the dV0 kernel (``dcc_dv0_mma``: the product on row splits,
+    then the splits summed in order); same return as :func:`dv0_plain`.
+    Counts under ``critic_ppo_grads_dv0`` (the folded K4's dV0) or, with
+    ``unfolded``, ``dv0_unfolded`` (dW0 of the chunked K2b and K4u, with the
+    feature norm's ``affine`` where they have one)."""
+    rows, d_in = x.shape
+    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
+    cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
+    cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
+    check_mma_width(hidden)
+    fs = fb = None
+    if affine is not None:
+        fs, fb = affine
+        cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
+        cb.require(fb, "fb", (torch.float32,), (d_in,), x.device)
+    splits = dv0_splits(rows, d_in, cb.sm_count(x.device))
+    part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
+    out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
+    name = "dv0_unfolded" if unfolded else "critic_ppo_grads_dv0"
+    code = cb.library("fused_ppo").dcc_dv0_mma(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
+        g0.data_ptr(), hidden, splits, None if fs is None else fs.data_ptr(),
+        None if fb is None else fb.data_ptr(), part.data_ptr(), out.data_ptr(),
+        cb.stream_of(x))
+    cb.check("fused_ppo", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = "dcc_dv0_mma"
+    return out
+
+
+def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = True):
+    """Launch the layer-0 input backward (``dcc_layer0_input_bwd_mma``, and
+    with the feature norm its slot reduction); same returns as
+    :func:`layer0_input_bwd_plain`."""
+    rows, d_in = x.shape
+    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
+    cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
+    cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
+    cb.require(w0b, "w0b", (torch.bfloat16,), (pad16(d_in), pad16(hidden)), x.device)
+    check_mma_width(hidden)
+    use_fn = fs is not None
+    if not (use_fn or need_dx):
+        raise ValueError("layer0_input_bwd_cuda computes nothing without fs or dx")
+    sms = cb.sm_count(x.device)
+    smem = lambda b: tiles.smem_bytes("layer0_input_bwd", True, b, d_in, hidden, 1) // 4
+    br = mma_tile_rows(rows, d_in, smem, sms, tiles.SIZES[("layer0_input_bwd", True)])
+    n_blocks = grads_blocks(-(-rows // br), sms, True)
+    dx = torch.empty_like(x) if need_dx else None
+    slots = out = None
+    if use_fn:
+        cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
+        slots = torch.empty((n_blocks, 2 * d_in), dtype=torch.float32, device=x.device)
+        out = torch.empty((2 * d_in,), dtype=torch.float32, device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_mma(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
+        g0.data_ptr(), hidden, w0b.data_ptr(), ptr(fs), int(use_fn), br, ptr(slots), n_blocks,
+        ptr(out), ptr(dx), cb.stream_of(x))
+    cb.check("fused_mlp_bwd", code, "layer0_input_bwd")
+    cb.LAUNCHES["layer0_input_bwd"] += 1
+    cb.ENTRY["layer0_input_bwd"] = "dcc_layer0_input_bwd_mma"
+    cb.TILE["layer0_input_bwd"] = br
+    if not use_fn:
+        return dx, None, None
+    return dx, out[:d_in], out[d_in:]
 
 
 def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True,
@@ -383,18 +532,25 @@ def trunk_backward_cuda(
     use_relu: bool = True,
     bf16: bool = False,
     packed: Optional[TrunkPack] = None,
+    need_dx: bool = True,
 ):
     """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
     rows and the (rows, H) cotangent: the tensor-core kernel in bf16, which
     reads K2's bf16 weight copies (``packed`` as in
     :func:`trunk_forward_cuda`, or None to pack here), the FMA kernel in f32.
-    Same returns as the plain version."""
+    bf16 rows too wide for a staged tile (``ops.tiles.plan``) take the
+    chunked K2b, then the layer-0 input backward (with the feature norm, or
+    for dx) and the dV0 kernel in its affine mode; there dx is computed only
+    with ``need_dx``. Same returns as the plain version (dx None where it
+    was not computed)."""
     rows, d_in = x.shape
     hidden = _check_trunk(x, params, n_layers, use_fn)
     g = g.to(torch.float32).contiguous()
     cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
     lib = cb.library("fused_mlp_bwd")
-    smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers) // 4
+    chunked, sizes = tiles.plan("fused_mlp_bwd", bf16, d_in, hidden, n_layers)
+    smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers,
+                                      chunked=chunked) // 4
     sms = cb.sm_count(x.device)
     if bf16:
         check_mma_width(hidden)
@@ -404,7 +560,7 @@ def trunk_backward_cuda(
             raise ValueError("bf16 K2b needs the bf16 weight copies: pack_trunk(..., bf16=True)")
         cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
         pb, offs = packed.buffer, packed.offsets
-        br = mma_tile_rows(rows, d_in, smem, sms, tiles.SIZES[("fused_mlp_bwd", True)])
+        br = mma_tile_rows(rows, d_in, smem, sms, sizes)
     else:
         # the FMA kernel reads W^T (d_out, d_in) for g_prev = g W^T, after the params
         first = 2 if use_fn else 0
@@ -414,6 +570,9 @@ def trunk_backward_cuda(
     cb.require(pb, "packed parameters", (torch.float32,), device=x.device)
     if not use_fn:
         offs = [0, 0] + offs
+    if chunked:
+        return _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs,
+                                       br, need_dx)
     # each block owns one slot laid out as the flat parameter list
     used = sum(p.numel() for p in params)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
@@ -438,7 +597,63 @@ def trunk_backward_cuda(
     cb.TILE["fused_mlp_bwd"] = br
     grads = [t.view(p.shape) for t, p in zip(out[:used].split([p.numel() for p in params]),
                                              params)]
-    return dx, grads
+    return (dx if need_dx else None), grads
+
+
+def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs, br,
+                            need_dx):
+    """bf16 K2b at rows too wide for a staged tile: the chunked kernel
+    (``dcc_trunk_bwd_chunked_mma``: the chain to layer 0's cotangent g0,
+    its slot starting at layer 0's bias), then the layer-0 input backward
+    and the dV0 kernel (affine mode) for the 4,840-wide gradients."""
+    rows, d_in = x.shape
+    hidden = params[-4].shape[1]
+    sms = cb.sm_count(x.device)
+    first = 2 if use_fn else 0
+    rest = params[first + 1:]  # layer 0's bias on: the slot's gradients
+    used = sum(p.numel() for p in rest)
+    slot = -(-used // 4) * 4
+    n_blocks = grads_blocks(-(-rows // br), sms, True)
+    slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
+    out = torch.empty((slot,), dtype=torch.float32, device=x.device)
+    g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
+    xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+    pb, woffs = packed.buffer, packed.weight_offsets
+    code = cb.library("fused_mlp_bwd").dcc_trunk_bwd_chunked_mma(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
+        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), (cb._L * len(offs))(*offs),
+        len(offs), packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs),
+        slots.data_ptr(), slot, n_blocks, out.data_ptr(), g0.data_ptr(), xstats.data_ptr(),
+        cb.stream_of(x),
+    )
+    cb.check("fused_mlp_bwd", code, "fused_mlp_bwd_chunked")
+    cb.LAUNCHES["fused_mlp_bwd_chunked"] += 1
+    cb.ENTRY["fused_mlp_bwd_chunked"] = "dcc_trunk_bwd_chunked_mma"
+    cb.TILE["fused_mlp_bwd_chunked"] = br
+    dx, lead = finish_layer0_cuda(x, xstats, g0, pb, offs, packed.weights, woffs, hidden,
+                                  use_fn, need_dx)
+    return dx, lead + [t.view(p.shape) for t, p in
+                       zip(out[:used].split([p.numel() for p in rest]), rest)]
+
+
+def finish_layer0_cuda(x, xstats, g0, pb, offs, weights, woffs, hidden: int, use_fn: bool,
+                       need_dx: bool):
+    """The launches after a chunked K2b or K4u: the layer-0 input backward
+    (with the feature norm, or for dx) and the dV0 kernel in its unfolded
+    mode, from the kernel's g0 and xstats and its packed parameters (``pb``
+    at the flat list's offsets ``offs``, the bf16 W_0 at ``weights`` +
+    ``woffs[0]``). Returns (dx or None, [d fs, d fb (with the feature
+    norm), dW0])."""
+    d_in = x.shape[1]
+    kp0, hp = pad16(d_in), pad16(hidden)
+    w0b = weights[woffs[0]: woffs[0] + kp0 * hp].view(kp0, hp)
+    fs = pb[offs[0]: offs[0] + d_in] if use_fn else None
+    affine = (fs, pb[offs[1]: offs[1] + d_in]) if use_fn else None
+    dx, lead = None, []
+    if use_fn or need_dx:
+        dx, dfs, dfb = layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden, need_dx)
+        lead = [dfs, dfb] if use_fn else []
+    return dx, lead + [dv0_cuda(x, xstats, g0, hidden, affine, unfolded=True)]
 
 
 class FusedTrunk(torch.autograd.Function):
@@ -461,11 +676,13 @@ class FusedTrunk(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         x, *params = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
         if g.is_cuda:
-            dx, grads = trunk_backward_cuda(x, params, g, *ctx.cfg, packed=ctx.packed)
+            dx, grads = trunk_backward_cuda(x, params, g, *ctx.cfg, packed=ctx.packed,
+                                            need_dx=need_dx)
         else:
-            dx, grads = trunk_backward_plain(x, params, g, *ctx.cfg)
-        return (dx if ctx.needs_input_grad[0] else None, None, None, *grads)
+            dx, grads = trunk_backward_plain(x, params, g, *ctx.cfg, need_dx=need_dx)
+        return (dx, None, None, *grads)
 
 
 def fused_mlp(

@@ -19,12 +19,16 @@ two) and the bf16 rounding points of the kernel, so they mirror the
 kernel's algorithm rather than autograd. On CUDA tensors the wrappers
 launch the kernels or raise (in bf16 the tensor-core kernels, on padded
 bf16 copies of the weights; in f32 the FMA ones); on CPU tensors they run
-the plain versions. bf16 K4 at rows too wide for a staged row tile (the
-20-UAV preset's 4,840-wide critic rows, ``ops.tiles.plan``) launches its
-chunked kernel, which streams layer 0 over d_in in column chunks and
-leaves layer 0's weight gradient to a second kernel, the dV0 kernel
-(:func:`dv0_cuda`, plain version :func:`dv0_plain`; both launches count
-under K4: ``critic_ppo_grads`` and ``critic_ppo_grads_dv0``).
+the plain versions. bf16 K4 and K4u at rows too wide for a staged row
+tile (the 20-UAV preset's 4,840-wide critic rows, ``ops.tiles.plan``)
+launch their chunked kernel, which streams layer 0 over d_in in column
+chunks and leaves layer 0's weight gradient to a second kernel, the dV0
+kernel (:func:`~dcc_tpu_torch.ops.fused_mlp.dv0_cuda`, counted under
+``critic_ppo_grads_dv0``, for K4u, with the feature norm's affine, under
+``dv0_unfolded``), and K4u the feature norm's gradients to the layer-0
+input backward (``layer0_input_bwd``). The chunked launch counts under the
+kernel's own name (plain version of K4u's:
+:func:`critic_grads_unfolded_chunked_plain`).
 
 Aux layout (row-major, the GPU needs no lane-padding workaround): actor rows
 ``[action (A), old_log_prob, advantage, valid]``, critic rows ``[vpred,
@@ -48,7 +52,10 @@ from .fused_mlp import (
     bf16_round,
     check_mma_width,
     dense,
+    dv0_cuda,
+    finish_layer0_cuda,
     grads_blocks,
+    input_stats,
     ln_stats,
     mma_tile_rows,
     pack_mma_weights,
@@ -310,22 +317,6 @@ def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu
     return kg, dwv, dbv, met
 
 
-def input_stats(x, use_fn: bool) -> torch.Tensor:
-    """(R, 2) f32: each row's feature-norm mean and 1/sqrt(var + eps), or
-    (0, 1) without the feature norm, as the chunked K4 writes them."""
-    if not use_fn:
-        return torch.cat([torch.zeros_like(x[:, :1], dtype=torch.float32),
-                          torch.ones_like(x[:, :1], dtype=torch.float32)], dim=1)
-    return torch.cat(ln_stats(x), dim=1)
-
-
-def dv0_plain(x, xstats, g0, hidden: int):
-    """Plain dV0 kernel: bf16((x - mu) * inv)^T @ g0[:, :hidden] in f32, with
-    ``xstats`` = (mu, inv) per row and ``g0`` layer 0's bf16 cotangent."""
-    xhat = (x.to(torch.float32) - xstats[:, :1]) * xstats[:, 1:]
-    return bf16_round(xhat).t() @ g0[:, :hidden].to(torch.float32)
-
-
 def critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
                                 use_relu, bf16, clip_param, huber_delta, use_huber,
                                 use_clipped):
@@ -336,6 +327,23 @@ def critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, *, n_layers, use_f
                                     use_huber, use_clipped)
     _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16)
     return tg, dwv, dbv, met
+
+
+def critic_grads_unfolded_chunked_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
+                                        use_relu, bf16, clip_param, huber_delta, use_huber,
+                                        use_clipped):
+    """Plain chunked K4u (its first launch): the unfolded chain, the head and
+    the backward down to layer 0's cotangent. Returns (the trunk gradients
+    from layer 0's bias on, dwv, dbv, [value_loss_sum], layer 0's bf16
+    cotangent g0, ``input_stats``); the dV0 kernel (affine mode) and the
+    layer-0 input backward give the rest."""
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    dwv, dbv, met, g = _critic_head(feat, aux, norm, wv, bv, bf16, clip_param, huber_delta,
+                                    use_huber, use_clipped)
+    g0, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16,
+                             to_layer0=True)
+    first = 2 if use_fn else 0
+    return tg[first + 1:], dwv, dbv, met, g0.to(torch.bfloat16), input_stats(x, use_fn)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +428,8 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
     name = f"{kind}_ppo_grads{tag}"
-    # rows too wide for a staged tile: K4's chunked layer 0 and the dV0 kernel
+    # rows too wide for a staged tile: K4's / K4u's chunked layer 0, then the
+    # dV0 kernel (and for K4u the layer-0 input backward)
     chunked = tiles.plan(name, bf16, d_in, hidden, n_layers, n_head)[0]
     smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
                                       chunked) // 4
@@ -429,8 +438,9 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     else:
         br = tile_rows(d_in, smem, tiles.SIZES[(name, False)])
     shapes = trunk_shapes + extra
-    if chunked:  # layer 0's dV comes from the dV0 kernel, not the slots
-        shapes = shapes[1:]
+    if chunked:  # layer 0's dV (unfolded: also the feature norm's gradients)
+        # come from the kernels that finish layer 0, not the slots
+        shapes = shapes[1 + (2 if unfolded and use_fn else 0):]
     used = sum(math.prod(s) for s in shapes)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
     n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), bf16)
@@ -465,39 +475,13 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     cb.ENTRY[name] = entry
     cb.TILE[name] = br
     parts = _slot_split(out, shapes)
-    if chunked:
+    if chunked and unfolded:
+        parts = finish_layer0_cuda(x, xstats, g0, pb, offs, wb, woffs, hidden, use_fn,
+                                   need_dx=False)[1] + parts
+    elif chunked:
         parts = [dv0_cuda(x, xstats, g0, hidden)] + parts
     n_trunk = len(trunk_shapes)
     return parts[:n_trunk], parts[n_trunk:]
-
-
-def dv0_splits(rows: int, d_in: int, sms: int) -> int:
-    """Row splits of the dV0 kernel: about two waves of its blocks
-    (``DV0_KB`` = 128 columns of x each), at least one step of rows
-    (``DV0_RS`` = 32) a split."""
-    kblocks = -(-pad16(d_in) // 128)
-    return max(1, min(-(-2 * sms // kblocks), -(-rows // 32)))
-
-
-def dv0_cuda(x, xstats, g0, hidden: int):
-    """Launch the dV0 kernel of the chunked K4 (``dcc_dv0_mma``: the product
-    on row splits, then the splits summed in order); same return as
-    :func:`dv0_plain`."""
-    rows, d_in = x.shape
-    cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
-    cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
-    cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
-    check_mma_width(hidden)
-    splits = dv0_splits(rows, d_in, cb.sm_count(x.device))
-    part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
-    out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
-    code = cb.library("fused_ppo").dcc_dv0_mma(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
-        g0.data_ptr(), hidden, splits, part.data_ptr(), out.data_ptr(), cb.stream_of(x))
-    cb.check("fused_ppo", code, "critic_ppo_grads_dv0")
-    cb.LAUNCHES["critic_ppo_grads_dv0"] += 1
-    cb.ENTRY["critic_ppo_grads_dv0"] = "dcc_dv0_mma"
-    return out
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,

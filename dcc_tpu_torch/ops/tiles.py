@@ -7,8 +7,8 @@ and ``csrc/fused_ppo.cu``; the f32 K2's size is its wrapper's formula), so
 a launch and MAPPO's check at construction read one layout. The kernels
 stage whole rows in shared memory; where a row is too wide for the
 smallest staged tile, the kernels of ``CHUNKED`` stream their first layer
-over d_in in column chunks instead (:func:`plan`), and the others have no
-tile (ROADMAP B2).
+over d_in in column chunks instead (:func:`plan`), and the others (bf16
+K3 / K3u, on no configuration's path) have no tile (ROADMAP B2).
 """
 
 from __future__ import annotations
@@ -27,12 +27,17 @@ SIZES = {
     ("actor_ppo_grads_unfolded", False): (32, 16, 8, 1),
     ("critic_ppo_grads_unfolded", True): (32, 16),
     ("critic_ppo_grads_unfolded", False): (32, 16, 8, 1),
+    # the layer-0 input backward of the chunked K2b and K4u
+    ("layer0_input_bwd", True): (64, 32, 16),
 }
 
 
-# the kernels with a chunked first layer, taken where no staged tile fits:
-# bf16 K4 (``csrc/fused_ppo.cu``, ``critic_grads_chunked_mma_kernel``)
-CHUNKED = {("critic_ppo_grads", True)}
+# the kernels with a chunked first layer, taken where no staged tile fits,
+# and the row tiles of that layout: bf16 K4 and K4u (``csrc/fused_ppo.cu``,
+# ``critic_grads_chunked_mma_kernel``, ``critic_grads_unfolded_chunked_mma_kernel``)
+# and bf16 K2b (``csrc/fused_mlp_bwd.cu``, ``trunk_bwd_chunked_mma_kernel``)
+CHUNKED = {("critic_ppo_grads", True): (32, 16), ("critic_ppo_grads_unfolded", True): (32, 16),
+           ("fused_mlp_bwd", True): (32, 16)}
 
 
 def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
@@ -45,11 +50,13 @@ def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layer
             return 4 * br * (max(d_in, hidden) + hidden)
         return cb.library("fused_mlp").dcc_trunk_fwd_mma_smem_bytes(br, d_in, hidden)
     mma = "_mma" if bf16 else ""
+    ch = "_chunked" if chunked else ""
+    if kernel == "layer0_input_bwd":
+        return cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_smem_bytes(br, hidden)
     if kernel == "fused_mlp_bwd":
-        fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}_smem_bytes")
+        fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}{ch}_smem_bytes")
         return fn(br, d_in, hidden, n_layers)
     tag = "_unfolded" if kernel.endswith("_unfolded") else ""
-    ch = "_chunked" if chunked else ""
     fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}{ch}_smem_bytes")
     return fn(br, d_in, hidden, n_layers, n_head)
 
@@ -64,6 +71,6 @@ def plan(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
               if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head) <= SMEM_MAX]
     if staged or key not in CHUNKED:
         return False, staged
-    return True, [b for b in SIZES[key]
+    return True, [b for b in CHUNKED[key]
                   if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, True)
                   <= SMEM_MAX]

@@ -25,8 +25,9 @@ version on the actor and critic rows at 16 and 16,384 envs, f32 and bf16,
 timed (``chip_smoke.check_trunk_forward``). ``presets`` builds the kernels
 and holds K2-K4, K2b and K3u / K4u at the one-card presets' widths, on the
 data the smoke draws for them (``chip_smoke.check_presets``). ``wide``
-builds the kernels and holds K2-K4 and K4's dV0 kernel at the 20-UAV
-preset's widths (actor 242, critic 4,840) at 16 and 1,024 envs
+builds the kernels and holds K2-K4, the dV0 kernel in both modes, the
+chunked K2b and K4u and the layer-0 input backward at the 20-UAV preset's
+widths (actor 242, critic 4,840) at 16 and 1,024 envs
 (``chip_smoke.check_wide``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),

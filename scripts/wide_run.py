@@ -2,10 +2,11 @@
 card and record its iteration time, the phase table and the peak device
 memory.
 
-    python scripts/wide_run.py [--envs 16384] [--iters 2] [--out FILE]
+    python scripts/wide_run.py [--envs 16384] [--iters 2] [--out FILE] [-- train arguments ...]
 
 The preset as written (20 UAVs, 40 PoIs, bf16, 15 epochs, its 16,384 envs
-unless ``--envs`` says otherwise) through ``dcc_tpu_torch.train.main``; the
+unless ``--envs`` says otherwise; further CLI arguments after ``--``, for
+example ``--fused-loss off``) through ``dcc_tpu_torch.train.main``; the
 kernels are built before the run, so no iteration includes the build.
 Prints one JSON line: the card (``nvidia-smi`` name and power limit), the
 run's wall time, the Learner's phase table (count, total, mean and max of
@@ -36,6 +37,7 @@ def main(argv=None) -> int:
     ap.add_argument("--envs", type=int, default=16384)
     ap.add_argument("--iters", type=int, default=2)
     ap.add_argument("--out", default=None)
+    ap.add_argument("train_args", nargs="*", help="further arguments for dcc_tpu_torch.train")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("wide_run: no CUDA device", file=sys.stderr)
@@ -49,14 +51,15 @@ def main(argv=None) -> int:
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}; kernels built in {cuda_build.build()['_seconds']:.1f} s", flush=True)
     cli = ["--env-yaml", YAML, "--n-rollout-threads", str(args.envs), "--n-iters",
-           str(args.iters), "--save-gifs", "false", "--save-model", "false", "--seed", "0"]
+           str(args.iters), "--save-gifs", "false", "--save-model", "false", "--seed", "0",
+           *args.train_args]
     print(f"python -m dcc_tpu_torch.train {' '.join(cli)}", flush=True)
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     learner = train.main(cli)
     torch.cuda.synchronize()
-    res = dict(card=card, envs=args.envs, iters=args.iters,
+    res = dict(card=card, envs=args.envs, iters=args.iters, train_args=args.train_args,
                wall_s=time.perf_counter() - t0, phases=learner.timer.summary(),
                launches=dict(LAUNCHES),
                max_memory_allocated=torch.cuda.max_memory_allocated(),

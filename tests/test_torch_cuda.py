@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K4, K2b and the unfolded K3u / K4u against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels K1-K4, K2b and the unfolded K3u / K4u (and, at rows too
+wide to stage, the chunked K4, K2b and K4u, the dV0 kernel and the layer-0
+input backward) against their plain PyTorch versions, on the card.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture, which
 skips when no CUDA device is present (the kernels have no CPU mode), so on a
@@ -831,9 +832,10 @@ def test_unfolded_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic
 
 # The kernels' shared-memory layouts in Python, for the tests that pretend a
 # CUDA device on a host without nvcc (tests/test_torch_presets.py): K2
-# ``fwd_mma_smem_bytes`` (csrc/fused_mlp.cu), K2b ``bwd_mma_layout``
-# (csrc/fused_mlp_bwd.cu), K3 / K4 and K3u / K4u ``ppo_mma_layout`` and
-# ``ppo_*smem_floats`` (csrc/fused_ppo.cu). The package reads the sizes
+# ``fwd_mma_smem_bytes`` (csrc/fused_mlp.cu), K2b ``bwd_mma_layout`` and
+# the layer-0 input backward's ``l0_layout`` (csrc/fused_mlp_bwd.cu), K3 /
+# K4 and K3u / K4u ``ppo_mma_layout`` and ``ppo_*smem_floats``
+# (csrc/fused_ppo.cu), each chunked layout too. The package reads the sizes
 # from the libraries (``ops.tiles.smem_bytes``);
 # ``test_row_tile_mirror_matches_the_libraries`` holds the two equal.
 _MMA_KS, _MMA_STAGES, _MMA_WARPS, _MMA_HMAX, _MMA_KC = 32, 3, 8, 256, 256  # csrc/trunk_mma.cuh
@@ -858,9 +860,10 @@ def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False):
     their LN statistics."""
     kp0, hp = _pad16(d_in), _pad16(hidden)
     ldh = hp + 8
-    nk = min(kp0, _MMA_HMAX) if unfolded else 0
+    gprev0 = unfolded and not chunked  # layer 0's g_prev, staged over the dead tiles
+    nk = min(kp0, _MMA_HMAX) if gprev0 else 0
     o = 2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
-    if unfolded:
+    if gprev0:
         o = max(o, 4 * br * (kp0 + 4))
     o += 2 * br * ldh
     o += 2 * _MMA_STAGES * max(_ring_stage(hp, False), _ring_stage(max(nk, hp), True))
@@ -874,6 +877,10 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=Fals
     libraries."""
     unfolded = kernel.endswith("_unfolded")
     hp = _pad16(hidden)
+    if kernel == "layer0_input_bwd":  # g0 rows, the ring, the f32 xhat chunk, sums
+        return (2 * br * (hp + 8) + 2 * _MMA_STAGES * _ring_stage(_MMA_HMAX, True)
+                + 4 * br * (_MMA_HMAX + 4) + 4 * 2 * (br // 16) * _MMA_HMAX + _red(br)
+                + 8 * br)
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
@@ -883,7 +890,7 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=Fals
     if kernel == "fused_mlp_bwd":
         if not bf16:
             return 4 * chain
-        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True) + 4 * br
+        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True, chunked) + 4 * br
                 + 4 * n_layers * hp + _RESUM_BYTES)
     if bf16:
         o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked)
@@ -916,9 +923,12 @@ def test_row_tile_mirror_matches_the_libraries(cuda):
 
     for (kernel, bf16), sizes in tiles.SIZES.items():
         n_head = 2 if kernel.startswith("actor") else 1
-        for chunked in (False, True) if (kernel, bf16) in tiles.CHUNKED else (False,):
+        layouts = [(False, sizes)]
+        if (kernel, bf16) in tiles.CHUNKED:
+            layouts.append((True, tiles.CHUNKED[(kernel, bf16)]))
+        for chunked, tile_sizes in layouts:
             for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 4840):
-                for br in sizes:
+                for br in tile_sizes:
                     want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
                     got = smem_layout(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
                     assert got == want, (kernel, bf16, chunked, br, d_in)
@@ -959,22 +969,133 @@ def test_bf16_chunked_critic_on_tensor_cores(cuda, rows, trunk, x_bf16):
                                                 **{**kw, "bf16": False})), _flat(want), 4e-3)
 
 
+def _g0(gen, rows, hidden, dev):
+    """A bf16 cotangent of layer 0, (rows, pad16(hidden)), padding zero."""
+    g0 = torch.zeros(rows, FM.pad16(hidden), dtype=torch.bfloat16, device=dev)
+    g0[:, :hidden] = 0.1 * torch.randn(rows, hidden, generator=gen).to(dev)
+    return g0
+
+
+@pytest.mark.parametrize("affine", [False, True])
 @pytest.mark.parametrize("rows,d_in,hidden", [(1, 4840, 256), (37, 4840, 256),
                                               (2400, 4840, 256), (20000, 4840, 256),
                                               (333, 1000, 64), (100, 17, 8)])
-def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden):
-    """The dV0 kernel, bf16((x - mu) * inv)^T g0 over row splits summed in
+def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden, affine):
+    """The dV0 kernel, bf16((x - mu) * inv)^T g0 (affine: bf16((x - mu) *
+    inv * fs + fb)^T g0, the unfolded chain's dW0) over row splits summed in
     order, against its plain version: the same bf16 operands, so only the
     f32 summation order differs (bound 1e-4, as chip_smoke's DV0_REL)."""
     gen = torch.Generator().manual_seed(rows + d_in + hidden)
     x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
-    xstats = FP.input_stats(x, True)
-    g0 = torch.zeros(rows, FM.pad16(hidden), dtype=torch.bfloat16, device=cuda)
-    g0[:, :hidden] = 0.1 * torch.randn(rows, hidden, generator=gen).to(cuda)
+    xstats = FM.input_stats(x, True)
+    g0 = _g0(gen, rows, hidden, cuda)
+    aff = None
+    if affine:
+        aff = ((1.0 + 0.1 * torch.randn(d_in, generator=gen)).to(cuda),
+               (0.1 * torch.randn(d_in, generator=gen)).to(cuda))
     cb.reset_launches()
-    got = FP.dv0_cuda(x, xstats, g0, hidden)
-    assert cb.LAUNCHES["critic_ppo_grads_dv0"] == 1
-    assert _rel(got, FP.dv0_plain(x, xstats, g0, hidden)) < 1e-4
+    got = FM.dv0_cuda(x, xstats, g0, hidden, aff, unfolded=affine)
+    assert dict(cb.LAUNCHES) == {"dv0_unfolded" if affine else "critic_ppo_grads_dv0": 1}
+    assert _rel(got, FM.dv0_plain(x, xstats, g0, hidden, aff)) < 1e-4
+
+
+@pytest.mark.parametrize("use_fn,need_dx", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("rows,d_in,hidden", [(1, 4840, 256), (37, 4840, 256),
+                                              (2400, 4840, 256), (20000, 4840, 256),
+                                              (333, 1000, 64), (100, 17, 8)])
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_layer0_input_bwd_kernel_matches_plain(cuda, rows, d_in, hidden, use_fn, need_dx,
+                                               x_bf16):
+    """The layer-0 input backward of the chunked K2b / K4u (g_prev = g0 W_0^T
+    on the tensor cores in 256-column chunks, the feature norm's scale and
+    bias gradients and dx in f32) against its plain version on the same
+    bf16 operands: f32 summation order only, within 1e-4 (dx off: its pass
+    is skipped and it is None; without the feature norm dx = g_prev)."""
+    gen = torch.Generator().manual_seed(rows + d_in + 3 * use_fn + need_dx)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda)
+    x = x.bfloat16() if x_bf16 else x
+    xstats = FM.input_stats(x, use_fn)
+    g0 = _g0(gen, rows, hidden, cuda)
+    w0 = torch.randn(d_in, hidden, generator=gen).to(cuda) * d_in ** -0.5
+    w0b = FM.pack_mma_weights([w0], cuda)[0].view(FM.pad16(d_in), FM.pad16(hidden))
+    fs = (1.0 + 0.1 * torch.randn(d_in, generator=gen)).to(cuda) if use_fn else None
+    cb.reset_launches()
+    got = FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden, need_dx)
+    assert dict(cb.LAUNCHES) == {"layer0_input_bwd": 1}
+    want = FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, hidden, need_dx)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype and _rel(g, w) < 1e-4
+
+
+# the 20-UAV preset's gated bf16 trunks at its critic width (chip_smoke's
+# trunk_variants): (n_layers, use_fn, use_relu)
+WIDE_TRUNKS = {"tanh": (2, True, False), "one_relu_layer": (1, False, True)}
+
+
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("trunk", list(WIDE_TRUNKS))
+@pytest.mark.parametrize("rows", [1, 37, 2400, 20000])
+def test_bf16_chunked_trunk_backward_on_tensor_cores(cuda, rows, trunk, need_dx):
+    """bf16 K2b at the 20-UAV preset's 4,840-wide critic rows, which no staged
+    tile takes: the chunked kernel (the chain to layer 0's cotangent), the
+    layer-0 input backward (with the feature norm, or for dx) and the dV0
+    kernel, on row counts around its 16- and 32-row tiles (37: a ragged
+    last tile; 20,000: several tiles per block), against the one-pass plain
+    version within 4e-3, the kernel computed in f32 outside. On the tanh
+    trunk and on one relu layer fed the rows (rows next to its kink get a
+    zero cotangent); the model's relu trunk is no check in bf16 (ROADMAP
+    C3)."""
+    n_layers, use_fn, use_relu = WIDE_TRUNKS[trunk]
+    gen = torch.Generator().manual_seed(rows + 4840 + need_dx)
+    params = _trunk_params(gen, 4840, 256, n_layers, use_fn, cuda)
+    x = torch.randn(rows, 4840, generator=gen).to(cuda).bfloat16()
+    g = _cotangent(gen, x, params, 256, n_layers, use_fn, use_relu, True)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True)
+    cb.reset_launches()
+    dx, grads = FM.trunk_backward_cuda(x, params, g, need_dx=need_dx, **kw)
+    want = {"fused_mlp_bwd_chunked": 1, "dv0_unfolded": 1}
+    if use_fn or need_dx:
+        want["layer0_input_bwd"] = 1
+    assert dict(cb.LAUNCHES) == want
+    assert cb.ENTRY["fused_mlp_bwd_chunked"] == "dcc_trunk_bwd_chunked_mma"
+    want_dx, want_grads = FM.trunk_backward_plain(x, params, g, **kw)
+    assert (dx is None) != need_dx
+    got, ref = ([dx] if need_dx else []) + grads, ([want_dx] if need_dx else []) + want_grads
+    for a, b in zip(got, ref):
+        assert _rel(a, b) < 4e-3
+    if rows > 1:
+        dx32, g32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
+        _f32_outside([dx32, *g32], [want_dx, *want_grads], 4e-3)
+
+
+@pytest.mark.parametrize("trunk", list(WIDE_TRUNKS))
+@pytest.mark.parametrize("rows", [1, 37, 2400, 20000])
+def test_bf16_chunked_critic_unfolded_on_tensor_cores(cuda, rows, trunk):
+    """bf16 K4u at the 20-UAV preset's 4,840-wide critic rows: the chunked
+    kernel, the layer-0 input backward without dx (with the feature norm)
+    and the dV0 kernel in its affine mode, with the kink and value-flip
+    rules of ``_unfolded_case``, against the plain version within 4e-3, the
+    kernel computed in f32 outside."""
+    n_layers, use_fn, use_relu = WIDE_TRUNKS[trunk]
+    gen = torch.Generator().manual_seed(rows + 4840 + 17)
+    x, aux, params, hw, hb = _unfolded_case(gen, "critic", rows, 4840, 256, n_layers, use_fn,
+                                            use_relu, True, cuda)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True, clip_param=0.2)
+    cb.reset_launches()
+    got = _unfolded("critic", x, aux, params, hw, hb, True, **kw)
+    want = {"critic_ppo_grads_unfolded": 1, "dv0_unfolded": 1}
+    if use_fn:
+        want["layer0_input_bwd"] = 1
+    assert dict(cb.LAUNCHES) == want
+    assert cb.ENTRY["critic_ppo_grads_unfolded"] == "dcc_critic_grads_unfolded_chunked_mma"
+    ref = _unfolded("critic", x, aux, params, hw, hb, False, **kw)
+    assert [tuple(g.shape) for g in got[0]] == [tuple(p.shape) for p in params]
+    _assert_unfolded_close(got, ref, True)
+    if rows > 1:
+        f32 = _unfolded("critic", x, aux, params, hw, hb, True, **{**kw, "bf16": False})
+        _f32_outside(_flat(f32), _flat(ref), 4e-3)
 
 
 def test_20uav_preset_builds_on_the_card(cuda):
@@ -990,14 +1111,60 @@ def test_20uav_preset_builds_on_the_card(cuda):
     assert algo.fused_loss and algo.fused_trunk
 
 
-@pytest.mark.parametrize("override", [{"fused_loss": "off"}, {"fused_fold": False}])
-def test_20uav_preset_refused_on_the_card(cuda, override):
-    """What is left of ROADMAP B2: bf16 K2b (the fused loss off) and K4u
-    (unfolded) have no tile at the 4,840-wide critic rows, so MAPPO refuses
-    to build such a run of the 20-UAV preset before any launch."""
+# the 20-UAV runs whose critic rows take the chunked K2b or K4u, and the
+# launches of one iteration at 2 epochs: the fused loss off (4 update
+# chunks: K2b on each, actor staged, critic chunked), unfolded (K3u at 242,
+# K4u chunked), recurrent (no update chunks: K2b once per network and epoch)
+WIDE_RUNS = {
+    "fused-loss-off": ({"fused_loss": "off"},
+                       {"fused_mlp_bwd": 8, "fused_mlp_bwd_chunked": 8, "layer0_input_bwd": 8,
+                        "dv0_unfolded": 8}),
+    "unfolded": ({"fused_fold": False},
+                 {"actor_ppo_grads_unfolded": 2, "critic_ppo_grads_unfolded": 2,
+                  "layer0_input_bwd": 2, "dv0_unfolded": 2}),
+    "recurrent": ({"use_recurrent_policy": True, "update_chunks": 1},
+                  {"fused_mlp_bwd": 2, "fused_mlp_bwd_chunked": 2, "layer0_input_bwd": 2,
+                   "dv0_unfolded": 2}),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_RUNS))
+def test_20uav_preset_trains_on_the_card(cuda, case):
+    """The 20-UAV preset with the fused loss off, unfolded or recurrent builds
+    on the card and trains one iteration (8 envs, 2 epochs, widths intact):
+    its 4,840-wide critic rows go through the chunked kernels, launched
+    exactly as the path runs them (K2 and K1 besides), with finite
+    metrics."""
+    import math
+
+    from dcc_tpu_torch.algos import MAPPO
+    from dcc_tpu_torch.configs import load_preset
+
+    override, launches = WIDE_RUNS[case]
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist", overrides={
+        "n_rollout_threads": 8, "ppo_epoch": 2, "n_eval_rollout_threads": 0})
+    algo = MAPPO(algo_cfg._replace(**override), env_cfg, device=cuda)
+    ts = algo.init_state(0)
+    cb.reset_launches()
+    m = algo.train_iteration(ts)
+    assert all(math.isfinite(v) for v in m)
+    got = {k: v for k, v in cb.LAUNCHES.items() if k not in ("gae", "fused_mlp")}
+    assert got == launches
+    chunked = [k for k in launches if k.endswith("_chunked") or k == "critic_ppo_grads_unfolded"]
+    assert {cb.ENTRY[k] for k in chunked} <= {"dcc_trunk_bwd_chunked_mma",
+                                              "dcc_critic_grads_unfolded_chunked_mma"}
+
+
+@pytest.mark.parametrize("fold", [True, False])
+def test_20uav_k3_refused_on_the_card(cuda, fold):
+    """What is left of ROADMAP B2: bf16 K3 and K3u have no tile at 4,840-wide
+    rows (on no configuration's path): given such actor rows, MAPPO's check
+    refuses before any launch."""
     from dcc_tpu_torch.algos import MAPPO
     from dcc_tpu_torch.configs import load_preset
 
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    with pytest.raises(NotImplementedError, match="B2"):
-        MAPPO(algo_cfg._replace(**override), env_cfg, device=cuda)
+    algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device=cuda)
+    algo.obs_dim = env_cfg.share_obs_dim
+    with pytest.raises(NotImplementedError, match="actor_ppo_grads.*B2"):
+        algo._check_row_tiles()

@@ -2,9 +2,10 @@
 same merged config and the same ``EnvConfig`` / ``MAPPOConfig`` field by
 field; one tiny training iteration of each one-card preset (as
 tests/test_presets.py); the 20-UAV preset's build on CUDA, where its
-4,840-wide critic rows take the chunked layout of bf16 K4; and its refusal
-where a kernel that has no tile at 4,840 would run them (the rest of
-ROADMAP B2: K2b with the fused loss off, K4u unfolded)."""
+4,840-wide critic rows take the chunked layout of bf16 K4, of K2b (the fused
+loss off, the recurrent policy) and of K4u (unfolded); and MAPPO's refusal
+where a kernel with no tile at 4,840 would run such rows (what is left of
+ROADMAP B2: bf16 K3 and K3u, on no configuration's path)."""
 
 import numpy as np
 import pytest
@@ -77,18 +78,40 @@ def test_20uav_preset_builds_on_cuda(monkeypatch):
     assert algo.fused_loss and algo.fused_trunk and algo.cfg.fused_fold
 
 
-@pytest.mark.parametrize("override,kernel", [({"fused_loss": "off"}, "fused_mlp_bwd"),
-                                             ({"fused_fold": False},
-                                              "critic_ppo_grads_unfolded")])
-def test_20uav_preset_refused_on_cuda(monkeypatch, override, kernel):
-    """The kernels left in ROADMAP B2 have no tile at 4,840: with the fused
-    loss off the update runs K2b on the critic rows, unfolded it runs K4u;
-    MAPPO refuses to build either on CUDA, naming B2."""
+# the runs whose bf16 update takes the 4,840-wide critic rows through the
+# chunked K2b (the fused loss off; the recurrent policy, without update
+# chunks, which it does not take) or the chunked K4u (unfolded)
+CHUNKED_RUNS = [({"fused_loss": "off"}, "fused_mlp_bwd"),
+                ({"fused_fold": False}, "critic_ppo_grads_unfolded"),
+                ({"use_recurrent_policy": True, "update_chunks": 1}, "fused_mlp_bwd")]
+
+
+@pytest.mark.parametrize("override,kernel", CHUNKED_RUNS)
+def test_20uav_preset_overrides_build_on_cuda(monkeypatch, override, kernel):
+    """No staged tile of bf16 K2b or K4u fits the 4,840-wide critic rows;
+    their chunked layouts do, so MAPPO builds on CUDA the preset with the
+    fused loss off or the recurrent policy (K2b) and unfolded (K4u)."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     assert env_cfg.share_obs_dim == 4840
-    assert not tiles.plan(kernel, True, 4840, 256, 2)[1]
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*B2"):
-        MAPPO(algo_cfg._replace(**override), env_cfg, device="cuda")
-    # on the CPU the plain versions take any width
-    MAPPO(algo_cfg._replace(**override), env_cfg, device="cpu")
+    assert tiles.plan(kernel, True, 4840, 256, 2) == (True, [32, 16])
+    assert tiles.plan(kernel, True, 242, 256, 2)[0] is False  # the actor's: staged
+    algo = MAPPO(algo_cfg._replace(**override), env_cfg, device="cuda")
+    assert algo.fused_trunk and algo.fused_loss == (kernel != "fused_mlp_bwd")
+    assert algo.recurrent == ("use_recurrent_policy" in override)
+
+
+@pytest.mark.parametrize("fold,kernel", [(True, "actor_ppo_grads"),
+                                         (False, "actor_ppo_grads_unfolded")])
+def test_20uav_preset_refused_on_cuda(monkeypatch, fold, kernel):
+    """What is left of ROADMAP B2: bf16 K3 and K3u have no tile at 4,840-wide
+    rows and no chunked layout. No configuration gives the actor rows that
+    wide, so the check is driven with the preset's MAPPO given 4,840-wide
+    actor rows: on CUDA it refuses, naming the kernel and B2."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (False, [])
+    algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device="cuda")
+    algo.obs_dim = env_cfg.share_obs_dim
+    with pytest.raises(NotImplementedError, match=f"{kernel} .*B2"):
+        algo._check_row_tiles()
