@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
    all of the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
    of the built libraries must show HMMA instructions in every bf16
    tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4, K3u, K4u, the
-   chunked K4, K2b and K4u, the dV0 kernel and the layer-0 input backward)
+   chunked K2, K2b, K3, K4, K3u and K4u, the dV0 kernel and the layer-0
+   input backward)
    and none in any other kernel (no TF32 in the f32 kernels);
 3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
@@ -45,7 +46,19 @@ Phases (any failure exits non-zero):
    fused-loss-off run) and the chunked K4u on 2,400 and 153,600, their f32
    reading the plain version in f32 (the FMA kernels take one-row tiles
    there), and the layer-0 input backward alone on 38,400 rows with and
-   without dx and on 153,600 without. Biases and
+   without dx and on 153,600 without. Then the many-PoI swarms' widths
+   (``check_many_pois``: 4 UAVs x 300 PoIs, actor 1,510, critic 6,040,
+   where bf16 K2 takes the critic's rows and K3 / K3u the actor's in their
+   chunked layouts): K2 at 16 and 1,024 envs, on the 153,600 critic rows
+   of the fused-loss-off update's forward, and at the 20-UAV preset's
+   5,840-wide critic rows with 50 PoIs (1,024 envs), the staged and the
+   chunked K2 timed side by side at 4,840 wide and at the default widths
+   (16,384 envs), K3 / K4 and K3u / K4u
+   at 16 envs in f32 and bf16 and in bf16 at 1,024 envs (614,400 x 1,510,
+   153,600 x 6,040), K3 / K4 at 4 x 360 PoIs (1,810: the one-relu-layer
+   trunk's K3 chunked), and dV0 in both modes and the layer-0 input
+   backward on the actor's rows; each row with its kernels' ptxas
+   registers and spills. Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
@@ -91,6 +104,12 @@ Phases (any failure exits non-zero):
    layer-0 input backward and dV0), unfolded (K3u 15, K4u chunked 15, the
    layer-0 input backward and dV0 15 each) and recurrent at 64 envs without
    update chunks (K2b 15 staged and 15 chunked, the other two 15 each);
+   one bf16 iteration each of 4 UAVs x 300 PoIs at 1,024 envs
+   (``reduced``): folded (K2 150 staged on the actor's rows and 151
+   chunked on the critic's, ``fused_mlp_chunked``; K3 and K4 chunked 15
+   each, their dV0 15 each), unfolded (K3u and K4u chunked 15 each, the
+   layer-0 input backward and dV0 30 each) and with the fused loss off
+   (K2 165 + 166, K2b 15 staged and 15 chunked, the other two 15 each);
    then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
    gate's runner; its file's schema, and K1-K4 as the bf16 path launches
    them); then the default command with render (the default YAMLs, 2
@@ -113,9 +132,14 @@ Phases (any failure exits non-zero):
    as ``critic_ppo_grads_dv0``; the chunked K2b at 38,400 x 4,840 as
    ``fused_mlp_bwd_chunked`` and K4u at 153,600 x 4,840 as
    ``critic_ppo_grads_unfolded_chunked``, their three launches each; the
-   layer-0 input backward and dV0's unfolded mode alone, ``KERNEL_ROW``;
-   ``library_ms`` for the dV0 rows, null for the others), the card line,
-   and the result.
+   layer-0 input backward and dV0's unfolded mode alone; the chunked K2 on
+   a rollout step's 1,024 x 6,040 critic rows, ``fused_mlp_chunked``, the
+   chunked K3 and K3u on 614,400 x 1,510 actor rows,
+   ``actor_ppo_grads_chunked`` (both launches) and
+   ``actor_ppo_grads_unfolded_chunked`` (three), and K3's dV0 alone,
+   ``actor_ppo_grads_dv0``, ``KERNEL_ROW``; ``library_ms`` for the dV0
+   rows, null for the others; ``ptxas``: the registers and spills of each
+   row's kernels), the card line, and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -142,6 +166,14 @@ BIG_ENVS = 16384  # bench.py's headline env count
 # 1,024 of its 16,384 envs: one card, the smoke's time
 WIDE = "20uav_16k_dist"
 WIDE_ENVS = 1024
+# the many-PoI swarms, no YAML of their own (``--num-pois``): the default
+# env (4 UAVs) with 300 PoIs, actor rows 1,510 wide (past the staged bf16
+# K3's 1,472 and K3u's 1,088 columns), critic rows 6,040 (past the staged
+# K2's 5,632); with 360 PoIs (actor rows 1,810, past one layer's staged K3,
+# 1,760: its one-relu-layer check); and the 20-UAV preset with 50 PoIs,
+# critic rows 5,840. Names of ``env_config``: (base preset, PoIs)
+POIS = "pois300"
+MANY_POIS = {POIS: (None, 300), "pois360": (None, 360), "20uav-pois50": (WIDE, 50)}
 # K1: the C entry every launch goes through; the (T, E) shapes held against
 # the plain version (ragged, T = 1, fewer columns than a warp); the timed ones
 GAE_ENTRY = "dcc_gae_seg"
@@ -189,6 +221,13 @@ REPLACES = {
     "critic_ppo_grads_unfolded_chunked": "dcc_tpu/ops/fused_ppo.py:378",
     "layer0_input_bwd": "dcc_tpu/ops/fused_mlp.py:152",
     "dv0_unfolded": "dcc_tpu/ops/fused_mlp.py:152",
+    # K2, K3 and K3u at rows too wide for a staged tile (the many-PoI swarm's
+    # 6,040-wide critic and 1,510-wide actor rows): the chunked kernels, and
+    # K3's second launch, layer 0's weight gradient (dV0)
+    "fused_mlp_chunked": "dcc_tpu/ops/fused_mlp.py:319",
+    "actor_ppo_grads_chunked": "dcc_tpu/ops/fused_ppo.py:575",
+    "actor_ppo_grads_unfolded_chunked": "dcc_tpu/ops/fused_ppo.py:290",
+    "actor_ppo_grads_dv0": "dcc_tpu/ops/fused_ppo.py:575",
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
@@ -204,6 +243,10 @@ SOURCES = {
     "critic_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "layer0_input_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
     "dv0_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "fused_mlp_chunked": "dcc_tpu_torch/csrc/fused_mlp.cu",
+    "actor_ppo_grads_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "actor_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "actor_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
 # the check whose numbers the {"kernels": [...]} line reports for each of
 # its names, and the counter of that name's launches: (kernel, envs, preset)
@@ -216,13 +259,22 @@ SOURCES = {
 # chunk) and K4u (153,600 rows, counted under critic_ppo_grads_unfolded):
 # time and bound of their three launches; the layer-0 input backward's
 # (38,400 rows, no dx) and dV0's unfolded mode (153,600 rows) their own.
+# The chunked K2, K3 and K3u at the many-PoI swarm's main path (1,024 envs:
+# K2 on 1,024 critic rows of a rollout step, K3 / K3u on 614,400 actor
+# rows); the chunked K2 counts under fused_mlp_chunked, K3 and K3u under
+# their own names, the time and bound of K3 both launches', K3u's three;
+# K3's dV0 alone, actor_ppo_grads_dv0.
 KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
               "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE),
               "fused_mlp_bwd_chunked": ("fused_mlp_bwd_chunked", WIDE_ENVS, WIDE),
               "critic_ppo_grads_unfolded_chunked": ("critic_ppo_grads_unfolded", WIDE_ENVS,
                                                     WIDE),
               "layer0_input_bwd": ("layer0_input_bwd", WIDE_ENVS, WIDE),
-              "dv0_unfolded": ("dv0_unfolded", WIDE_ENVS, WIDE)}
+              "dv0_unfolded": ("dv0_unfolded", WIDE_ENVS, WIDE),
+              "fused_mlp_chunked": ("fused_mlp_chunked", WIDE_ENVS, POIS),
+              "actor_ppo_grads_chunked": ("actor_ppo_grads", WIDE_ENVS, POIS),
+              "actor_ppo_grads_unfolded_chunked": ("actor_ppo_grads_unfolded", WIDE_ENVS, POIS),
+              "actor_ppo_grads_dv0": ("actor_ppo_grads_dv0", WIDE_ENVS, POIS)}
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
 BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
@@ -232,6 +284,14 @@ RECURRENT = ["--use-recurrent-policy", "true"]
 SEPARATED = ["--use-separated-policy", "true"]
 HEAD_MODES = ("discrete", "multi_discrete", "multi_binary", "mixed")
 BF16_PRESETS = ("5uav_dense_conn", "10uav_moving_collision")
+
+
+# the many-PoI swarm's runs: the default env with 300 PoIs, one iteration at
+# 1,024 envs; what each cuts of its scale, kept with its results
+POIS_ARGS = ["--num-pois", "300", "--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1"]
+POIS_REDUCED = {"n_rollout_threads": f"{WIDE_ENVS} of bench.py's headline {BIG_ENVS} envs "
+                                     f"(one card, the smoke's time)",
+                "n_iters": "1 iteration"}
 
 
 def preset_args(name: str) -> list:
@@ -311,6 +371,23 @@ TRAIN_RUNS = (
                           "--use-recurrent-policy", "true", "--update-chunks", "1"],
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 15, "fused_mlp_bwd_chunked": 15,
       "layer0_input_bwd": 15, "dv0_unfolded": 15}),
+    # the many-PoI swarm (4 UAVs, 300 PoIs) in bf16 at 1,024 envs: K2 on the
+    # 1,510-wide actor rows staged (150), on the 6,040-wide critic rows
+    # chunked (151); K3 and K4 chunked on 614,400 x 1,510 and 153,600 x
+    # 6,040, each with its dV0
+    (f"{POIS}-bf16", BF16 + POIS_ARGS,
+     {"gae": 1, "fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads": 15,
+      "critic_ppo_grads": 15, "actor_ppo_grads_dv0": 15, "critic_ppo_grads_dv0": 15}),
+    # unfolded: K3u and K4u chunked, each with the layer-0 input backward and
+    # dV0 in its affine mode
+    (f"{POIS}-bf16-unfolded", BF16 + POIS_ARGS + ["--fused-fold", "false"],
+     {"gae": 1, "fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads_unfolded": 15,
+      "critic_ppo_grads_unfolded": 15, "layer0_input_bwd": 30, "dv0_unfolded": 30}),
+    # the fused loss off: autograd through K2 (once more per network and
+    # epoch) and K2b, staged on the actor's rows, chunked on the critic's
+    (f"{POIS}-bf16-fused-loss-off", BF16 + POIS_ARGS + ["--fused-loss", "off"],
+     {"gae": 1, "fused_mlp": 165, "fused_mlp_chunked": 166, "fused_mlp_bwd": 15,
+      "fused_mlp_bwd_chunked": 15, "layer0_input_bwd": 15, "dv0_unfolded": 15}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -322,7 +399,10 @@ MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "fused_mlp_bwd_chunked": f"preset-{WIDE}-fused-loss-off",
             "critic_ppo_grads_unfolded_chunked": f"preset-{WIDE}-unfolded",
             "layer0_input_bwd": f"preset-{WIDE}-fused-loss-off",
-            "dv0_unfolded": f"preset-{WIDE}-fused-loss-off"}
+            "dv0_unfolded": f"preset-{WIDE}-fused-loss-off",
+            "fused_mlp_chunked": f"{POIS}-bf16", "actor_ppo_grads_chunked": f"{POIS}-bf16",
+            "actor_ppo_grads_unfolded_chunked": f"{POIS}-bf16-unfolded",
+            "actor_ppo_grads_dv0": f"{POIS}-bf16"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
@@ -352,17 +432,32 @@ MMA_ENTRY = {
         "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_chunked_mma",
         "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
     f"preset-{WIDE}-recurrent": _WIDE_TRUNK_MMA,
+    f"{POIS}-bf16": {"fused_mlp": "dcc_trunk_fwd_mma",
+                     "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma",
+                     "actor_ppo_grads": "dcc_actor_grads_chunked_mma",
+                     "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
+                     "actor_ppo_grads_dv0": "dcc_dv0_mma", "critic_ppo_grads_dv0": "dcc_dv0_mma"},
+    f"{POIS}-bf16-unfolded": {
+        "fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma",
+        "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_chunked_mma",
+        "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_chunked_mma",
+        "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
+    f"{POIS}-bf16-fused-loss-off": {**_WIDE_TRUNK_MMA,
+                                    "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
                "critic_grads_mma_kernel", "actor_grads_unfolded_mma_kernel",
                "critic_grads_unfolded_mma_kernel", "critic_grads_chunked_mma_kernel",
                "dv0_mma_kernel", "trunk_bwd_chunked_mma_kernel",
-               "critic_grads_unfolded_chunked_mma_kernel", "layer0_input_bwd_mma_kernel")
+               "critic_grads_unfolded_chunked_mma_kernel", "layer0_input_bwd_mma_kernel",
+               "trunk_fwd_chunked_mma_kernel", "actor_grads_chunked_mma_kernel",
+               "actor_grads_unfolded_chunked_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
 # the runs followed by one profiled iteration
 PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
-            f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded")
+            f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded", f"{POIS}-bf16",
+            f"{POIS}-bf16-unfolded", f"{POIS}-bf16-fused-loss-off")
 N_TIMED = 50  # launches between the two CUDA events of a timing
 
 
@@ -452,10 +547,14 @@ def perturb_(net, gen) -> None:
 
 def env_config(preset=None):
     """The EnvConfig of a named preset (``dcc_tpu_torch.configs.PRESETS``),
-    or the default one."""
-    from dcc_tpu_torch.configs import load_preset
+    of a many-PoI swarm (``MANY_POIS``), or the default one."""
+    from dcc_tpu_torch.configs import load, load_preset
     from dcc_tpu_torch.envs import EnvConfig
 
+    if preset in MANY_POIS:
+        base, n_pois = MANY_POIS[preset]
+        over = {"num_pois": n_pois}
+        return (load(overrides=over) if base is None else load_preset(base, overrides=over))[1]
     return EnvConfig() if preset is None else load_preset(preset)[1]
 
 
@@ -671,30 +770,53 @@ def check_gae(results: list, shapes=GAE_SHAPES, entry=GAE_ENTRY):
                   f"max_abs={errs[0]:.3e} rel={errs[1]:.3e}", flush=True)
 
 
-def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS)):
+def k2_bound(x, params, packed, bf16: bool, hidden: int = 256):
+    """K2's bound on the rows ``x`` (two layers of width ``hidden``): the
+    bytes of x read once, the output written once and the parameters the
+    kernel reads (bf16: the padded bf16 weight copies of ``packed`` and the
+    f32 vectors; f32: every parameter), against 2 * rows * (d_in * H + H *
+    H) operations."""
+    rows, width = x.shape
+    ops = 2 * rows * (width * hidden + hidden * hidden)
+    if bf16:
+        weights = 2 * packed.weights.numel() + 4 * sum(p.numel() for p in params if p.dim() == 1)
+    else:
+        weights = 4 * sum(p.numel() for p in params)
+    nbytes = x.numel() * x.element_size() + rows * hidden * (2 if bf16 else 4) + weights
+    return bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+
+
+def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS),
+                        update_steps: int = 0):
     """K2: the trunk forward on the actor (E*A, D) and critic (E, A*D) rows
     of the default config (D = 110) or of ``preset``, at each of
     ``envs_list`` envs, in f32 and bf16, on parameters packed beforehand as
     the rollout packs them (once per parameter version,
-    MLPBase.packed_params)."""
+    MLPBase.packed_params). bf16 rows too wide for a staged tile take the
+    chunked K2 (``fused_mlp_chunked``, with its profiler device time). With
+    ``update_steps`` T: bf16 only, on the critic's T*E rows stored in bf16,
+    as the update's forward with the fused loss off gives them."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
-    from dcc_tpu_torch.ops import fused_mlp as FM
+    from dcc_tpu_torch.ops import fused_mlp as FM, tiles
 
     dev = torch.device("cuda")
     env = env_config(preset)
     A, D = env.n_agents, env.obs_dim
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    for bf16 in (False, True):
+    for bf16 in ((True,) if update_steps else (False, True)):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on"), env, device=dev)
         actor, critic = algo.make_networks(seed=1)
         perturb_(actor, gen)
         perturb_(critic, gen)
         for envs in envs_list:
-            for net, rows, width in ((actor, envs * A, D), (critic, envs, A * D)):
+            nets = (((critic, update_steps * envs, A * D),) if update_steps
+                    else ((actor, envs * A, D), (critic, envs, A * D)))
+            for net, rows, width in nets:
                 x = randn(rows, width)
+                x = x.to(torch.bfloat16) if update_steps else x
                 params = [p.detach() for p in net.base.flat_params()]
                 kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
                 packed = net.base.packed_params(dev)
@@ -708,20 +830,71 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 # f32: summation order only; bf16: 1-ulp flips of bf16
                 # roundings inside the chain (LN outputs reach |16|, ulp 1/8)
                 tol = (K2_BF16_REL, 0.25) if bf16 else (1e-4, 1e-3)
+                chunked = bf16 and tiles.plan("fused_mlp", True, width, 256, 2)[0]
+                name = "fused_mlp_chunked" if chunked else "fused_mlp"
                 want = plain()
-                errs = compare("fused_mlp", [kern()], [want], *tol)
+                errs = compare(name, [kern()], [want], *tol)
                 f32_rel = None
                 if bf16:
                     f32_out = FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})
-                    f32_rel = f32_reading("fused_mlp", [f32_out], [want], tol[0])
-                H = 256
-                ops = 2 * rows * (width * H + H * H)
-                nbytes = (rows * width * 4 + rows * H * (2 if bf16 else 4)
-                          + 4 * sum(p.numel() for p in params))
-                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                record(results, "fused_mlp", "bf16" if bf16 else "f32", envs,
-                       f"rows={rows} d_in={width}", errs, kern, plain, b, by, f32_rel,
-                       preset=preset, **{"MLPBase.forward": rollout_call})
+                    f32_rel = f32_reading(name, [f32_out], [want], tol[0])
+                b, by = k2_bound(x, params, packed, bf16)
+                shape = f"rows={rows} d_in={width}" + (" update" if update_steps else "")
+                hosts = {} if update_steps else {"MLPBase.forward": rollout_call}
+                record(results, name, "bf16" if bf16 else "f32", envs, shape, errs, kern, plain,
+                       b, by, f32_rel, preset=preset,
+                       device_match="trunk_fwd_chunked" if chunked else None, **hosts)
+
+
+def check_k2_layouts(results: list, gen):
+    """The staged and the chunked K2 on the same rows, each against the
+    plain version at K2's bf16 bounds and timed back to back: whether one
+    layout could serve the widths of both. The rows: the 20-UAV preset's
+    4,840-wide critic rows of a rollout step at ``WIDE_ENVS`` envs (f32) and
+    of the fused-loss-off update's forward (150 x ``WIDE_ENVS``, stored in
+    bf16), and the default config's rollout rows at ``BIG_ENVS`` envs (the
+    actor's 110 wide, the critic's 440). The chunked layout is forced by
+    handing the wrapper ``tiles.plan``'s chunked answer."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, tiles
+
+    kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=True)
+    plan = tiles.plan
+
+    def chunked_plan(kernel, bf16, *args):
+        if kernel == "fused_mlp":
+            return True, list(tiles.CHUNKED[(kernel, bf16)])
+        return plan(kernel, bf16, *args)
+
+    for preset, actor, envs, steps, dtype in (
+            (WIDE, False, WIDE_ENVS, 1, torch.float32),
+            (WIDE, False, WIDE_ENVS, 150, torch.bfloat16),
+            (None, True, BIG_ENVS, 1, torch.float32),
+            (None, False, BIG_ENVS, 1, torch.float32)):
+        net, params = _wide_net(gen, seed=1, preset=preset, actor=actor)
+        packed = net.base.packed_params(torch.device("cuda"))
+        env = env_config(preset)
+        rows = steps * envs * (env.n_agents if actor else 1)
+        width = env.obs_dim if actor else env.share_obs_dim
+        x = torch.randn((rows, width), generator=gen, device="cuda").to(dtype)
+        plain = lambda: FM.trunk_forward_plain(x, params, **kw)
+        staged = lambda: FM.trunk_forward_cuda(x, params, packed=packed, **kw)
+
+        def chunked():
+            tiles.plan = chunked_plan
+            try:
+                return FM.trunk_forward_cuda(x, params, packed=packed, **kw)
+            finally:
+                tiles.plan = plan
+
+        want = plain()
+        b, by = k2_bound(x, params, packed, True)
+        for name, fn, match in (("fused_mlp", staged, "trunk_fwd_mma"),
+                                ("fused_mlp_chunked", chunked, "trunk_fwd_chunked")):
+            errs = compare(name, [fn()], [want], K2_BF16_REL, 0.25)
+            record(results, name, "bf16", envs, f"rows={rows} d_in={width} layouts", errs, fn,
+                   plain, b, by, preset=preset, device_match=match)
 
 
 def _shape(rows: int, d_in: int, nmb: int = 1) -> str:
@@ -756,7 +929,7 @@ def trunk_variants(bf16: bool, preset) -> list:
             (" relu L=1", True, 1, False, True)]
 
 
-def check_kernels(results: list):
+def check_kernels(results: list, ptxas: dict):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -780,6 +953,7 @@ def check_kernels(results: list):
     check_unfolded(results, gen)  # K3u, K4u
     check_presets(results)
     check_wide(results)
+    check_many_pois(results, ptxas)
 
 
 def check_trunk_backward(results: list, gen, cases, preset=None):
@@ -867,6 +1041,7 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
     dev = torch.device("cuda")
     env = env_config(preset)
     T, A, D, H = 150, env.n_agents, env.obs_dim, 256
+    wide = preset == WIDE or preset in MANY_POIS
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
@@ -938,7 +1113,8 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
                 nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb) + label, errs,
-                       kern, plain, b, by, f32_rel, preset=preset, gated=gated)
+                       kern, plain, b, by, f32_rel, preset=preset, gated=gated,
+                       device_match="mma_kernel" if bf16 and wide else None)
                 del k, p
 
                 trunk = critic_p if fn else critic_p[2:2 + 4 * L]
@@ -966,21 +1142,23 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
                 ops = 2 * Rv * (2 * A * D * H + 3 * (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                # at the 20-UAV widths in bf16, the device time of the
-                # chunked kernel and the dV0 kernel (their *_mma_kernel names)
+                # at the 20-UAV and many-PoI widths in bf16, the device time
+                # of the chunked kernel and the dV0 kernel (their
+                # *_mma_kernel names)
                 record(results, "critic_ppo_grads", mode, envs,
                        _shape(Rv, A * D, nmb) + label, errs, kern, plain, b, by, f32_rel,
                        preset=preset, gated=gated,
-                       device_match="mma_kernel" if bf16 and preset == WIDE else None)
+                       device_match="mma_kernel" if bf16 and wide else None)
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
 
 
-def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4)):
+def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4),
+                   modes=(False, True)):
     """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
-    T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in f32 and
-    bf16, of the default config or ``preset``, on the trunks of
+    T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in the
+    ``modes`` (bf16 True), of the default config or ``preset``, on the trunks of
     ``trunk_variants``. In bf16 rows next to a relu kink of the unfolded
     chain (``relu_kink_rows``) get a zero advantage / valid = 0; at a
     preset's widths the f32 checks give rows within 1e-5 of a kink the same."""
@@ -995,7 +1173,8 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))
-    for bf16 in (False, True):
+    dev_match = "mma_kernel" if preset in MANY_POIS else None  # every launch of a chunked K3u
+    for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_fold=False), env, device=dev)
         actor, critic = algo.make_networks(seed=5)
@@ -1049,7 +1228,8 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "actor_ppo_grads_unfolded", mode, envs,
                        f"rows={R} d_in={D}{label}", errs, kern, plain, b, by, f32_rel,
-                       preset=preset, gated=gated)
+                       preset=preset, gated=gated,
+                       device_match=dev_match if bf16 else None)
                 del k, p
 
                 cparams = critic_p if fn else critic_p[2:2 + 4 * L]
@@ -1137,44 +1317,48 @@ def check_wide(results: list):
     check_layer0(results, gen)
 
 
-def _wide_critic(gen, seed: int):
-    """The 20-UAV preset's bf16 critic (``make_networks(seed)``), its 1-D
-    parameters moved off their init values, and the flat trunk list."""
+def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False):
+    """The bf16 critic (or actor) of ``preset`` (``make_networks(seed)``),
+    its 1-D parameters moved off their init values, and the flat trunk
+    list."""
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
 
-    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on"), env_config(WIDE),
+    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on"), env_config(preset),
                  device="cuda")
-    critic = algo.make_networks(seed=seed)[1]
-    perturb_(critic, gen)
-    return critic, [p.detach() for p in critic.base.flat_params()]
+    net = algo.make_networks(seed=seed)[0 if actor else 1]
+    perturb_(net, gen)
+    return net, [p.detach() for p in net.base.flat_params()]
 
 
-def check_dv0(results: list, gen, envs_list):
+def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False):
     """The dV0 kernel (``ops.fused_mlp.dv0_cuda``) against its plain version
-    on the 20-UAV preset's T*E critic rows (4,840 wide, bf16), their
-    feature-norm statistics and a bf16 cotangent of layer 0, within
-    ``DV0_REL``, in both modes: the folded K4's dV0 = bf16(xhat)^T g0
-    (``critic_ppo_grads_dv0``) and the unfolded chain's dW0 = bf16(xhat *
-    fs + fb)^T g0 (``dv0_unfolded``, the feature norm's affine of the
-    preset's critic); the product of the unrounded operand must lie outside
-    the bound. Beside each, the cuBLAS product ``torch.matmul(a0^T, g0)``
-    of the rounded bf16 operand (bf16 out) as the yardstick."""
+    on the T*E critic rows of ``preset`` (the 20-UAV preset's 4,840 wide;
+    with ``actor`` its T*E*A actor rows), bf16, their feature-norm
+    statistics and a bf16 cotangent of layer 0, within ``DV0_REL``, in both
+    modes: the folded K4's (K3's) dV0 = bf16(xhat)^T g0
+    (``critic_ppo_grads_dv0``, ``actor_ppo_grads_dv0``) and the unfolded
+    chain's dW0 = bf16(xhat * fs + fb)^T g0 (``dv0_unfolded``, the feature
+    norm's affine of the preset's network); the product of the unrounded
+    operand must lie outside the bound. Beside each, the cuBLAS product
+    ``torch.matmul(a0^T, g0)`` of the rounded bf16 operand (bf16 out) as the
+    yardstick."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM
 
-    env = env_config(WIDE)
-    D, H = env.n_agents * env.obs_dim, 256
-    _, cparams = _wide_critic(gen, 6)
+    env = env_config(preset)
+    D, H = env.obs_dim * (1 if actor else env.n_agents), 256
+    kind = "actor" if actor else "critic"
+    _, cparams = _wide_net(gen, 6, preset, actor)
     for envs in envs_list:
-        R = 150 * envs
+        R = 150 * envs * (env.n_agents if actor else 1)
         x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
         xstats = FM.input_stats(x, True)
         g0 = (0.1 * torch.randn(R, H, generator=gen, device="cuda")).to(torch.bfloat16)
-        for name, affine in (("critic_ppo_grads_dv0", None),
+        for name, affine in ((f"{kind}_ppo_grads_dv0", None),
                              ("dv0_unfolded", (cparams[0], cparams[1]))):
             unf = affine is not None
-            kern = lambda: FM.dv0_cuda(x, xstats, g0, H, affine, unfolded=unf)
+            kern = lambda: FM.dv0_cuda(x, xstats, g0, H, affine, unfolded=unf, kind=kind)
             plain = lambda: FM.dv0_plain(x, xstats, g0, H, affine)
             want = plain()
             errs = compare(name, [kern()], [want], DV0_REL)
@@ -1190,7 +1374,7 @@ def check_dv0(results: list, gen, envs_list):
                       + (8 * D if unf else 0))
             b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
             record(results, name, "bf16", envs, _shape(R, D), errs, kern, plain, b, by,
-                   f32_rel, preset=WIDE, device_match="dv0_mma_kernel", library=library)
+                   f32_rel, preset=preset, device_match="dv0_mma_kernel", library=library)
             del want, a0
         del x, g0
         torch.cuda.empty_cache()
@@ -1214,7 +1398,7 @@ def check_wide_chunked(results: list, gen):
 
     env = env_config(WIDE)
     D, H = env.n_agents * env.obs_dim, 256
-    critic, full = _wide_critic(gen, 7)
+    critic, full = _wide_net(gen, 7)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
     norm = torch.tensor([0.5, 2.0], device="cuda")
@@ -1282,29 +1466,35 @@ def check_wide_chunked(results: list, gen):
         torch.cuda.empty_cache()
 
 
-def check_layer0(results: list, gen):
-    """The layer-0 input backward of the chunked K2b and K4u
+# the layer-0 input backward's cases at the 20-UAV preset's critic width:
+# (envs, rows, dx, label)
+LAYER0_WIDE = ((WIDE_ENVS, 150 * WIDE_ENVS // 4, False, " chunk 1/4"),
+               (WIDE_ENVS, 150 * WIDE_ENVS // 4, True, " chunk 1/4 dx"),
+               (WIDE_ENVS, 150 * WIDE_ENVS, False, ""))
+
+
+def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAYER0_WIDE):
+    """The layer-0 input backward of the chunked K2b, K3u and K4u
     (``ops.fused_mlp.layer0_input_bwd_cuda``) alone, against its plain
-    version on the same bf16 operands within ``DV0_REL``: on 38,400 of the
-    20-UAV preset's 4,840-wide critic rows (an update chunk of the
-    fused-loss-off run) without dx, as the update calls it, and with dx,
-    and on 153,600 (the unfolded run's) without; the product with the
-    unrounded W_0 must lie outside the bound."""
+    version on the same bf16 operands within ``DV0_REL``, on the critic
+    rows of ``preset`` (with ``actor``, the actor rows) for each (envs,
+    rows, dx, label) of ``cases``: by default on 38,400 of the 20-UAV
+    preset's 4,840-wide critic rows (an update chunk of the fused-loss-off
+    run) without dx, as the update calls it, and with dx, and on 153,600
+    (the unfolded run's) without; the product with the unrounded W_0 must
+    lie outside the bound."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM
 
-    env = env_config(WIDE)
-    D, H = env.n_agents * env.obs_dim, 256
-    _, cparams = _wide_critic(gen, 8)
+    env = env_config(preset)
+    D, H = env.obs_dim * (1 if actor else env.n_agents), 256
+    _, cparams = _wide_net(gen, 8, preset, actor)
     w0, fs = cparams[2], cparams[0]
     w0b = FM.pack_mma_weights([w0], "cuda")[0].view(FM.pad16(D), FM.pad16(H))
     w0f = torch.zeros(FM.pad16(D), FM.pad16(H), device="cuda")
     w0f[:D, :H] = w0  # unrounded, for the f32 reading
-    for envs, rows, need_dx, label in ((WIDE_ENVS, 150 * WIDE_ENVS // 4, False, " chunk 1/4"),
-                                       (WIDE_ENVS, 150 * WIDE_ENVS // 4, True,
-                                        " chunk 1/4 dx"),
-                                       (WIDE_ENVS, 150 * WIDE_ENVS, False, "")):
+    for envs, rows, need_dx, label in cases:
         x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
         xstats = FM.input_stats(x, True)
         g0 = (0.1 * torch.randn(rows, H, generator=gen, device="cuda")).to(torch.bfloat16)
@@ -1322,9 +1512,61 @@ def check_layer0(results: list, gen):
                   + 8 * D + (2 * x.numel() if need_dx else 0))
         b, by = bound(nbytes, 2 * rows * D * H, PEAK_BF16)
         record(results, "layer0_input_bwd", "bf16", envs, _shape(rows, D) + label, errs, kern,
-               plain, b, by, f32_rel, preset=WIDE, device_match="layer0_input_bwd")
+               plain, b, by, f32_rel, preset=preset, device_match="layer0_input_bwd")
         del x, g0, want
         torch.cuda.empty_cache()
+
+
+def kernel_ptxas(ptxas: dict, entry: str) -> dict:
+    """The ptxas registers and spills of the CUDA kernel(s) behind a C
+    entry point (``dcc_x_mma`` launches ``x_mma_kernel``), by their mangled
+    names."""
+    return {fn: v for fn, v in ptxas.items() if f"{entry[4:]}_kernel" in fn}
+
+
+def check_many_pois(results: list, ptxas: dict):
+    """The many-PoI swarms' widths (``MANY_POIS``), where bf16 K2, K3 and K3u
+    run their chunked layer 0: K2 at 16 and ``WIDE_ENVS`` envs of 4 UAVs x
+    300 PoIs (actor rows 1,510 staged, critic rows 6,040 chunked), as the
+    rollout gives them, on the 153,600 critic rows of the fused-loss-off
+    update's forward at ``WIDE_ENVS`` envs, and at ``WIDE_ENVS`` envs of the
+    20-UAV preset with 50 PoIs (critic rows 5,840); the staged and the
+    chunked K2 side by side at the 20-UAV preset's 4,840 and at the default
+    widths (``check_k2_layouts``); K3 / K4 at 16 envs in f32 and bf16, and in bf16
+    at ``WIDE_ENVS`` envs (614,400 x 1,510 and 153,600 x 6,040, the main
+    path's shapes), on the trunks of ``trunk_variants``, and at 4 x
+    360 (1,810 wide) at 16 envs in bf16, whose one-relu-layer trunk takes
+    the chunked K3 (one layer's staged tile holds 1,760 columns); K3u / K4u
+    at 4 x 300 the same way; the dV0 kernel in both modes on the actor's
+    rows at 16 and ``WIDE_ENVS`` envs, and the layer-0 input backward there
+    on 614,400 rows without dx, as K3u calls it. Each check's row keeps the
+    ptxas registers and spills of its kernels, printed for the chunked
+    ones."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    env = env_config(POIS)
+    print(f"  {POIS}: {env.n_agents} agents, {env.n_pois} PoIs, actor rows {env.obs_dim} "
+          f"wide, critic rows {env.share_obs_dim} wide, at 16 and {WIDE_ENVS} envs", flush=True)
+    first = len(results)
+    check_trunk_forward(results, gen, preset=POIS, envs_list=(16, WIDE_ENVS))
+    check_trunk_forward(results, gen, preset=POIS, envs_list=(WIDE_ENVS,), update_steps=150)
+    check_trunk_forward(results, gen, preset="20uav-pois50", envs_list=(WIDE_ENVS,))
+    check_k2_layouts(results, gen)
+    check_ppo(results, gen, cases=((16, 1),), preset=POIS)
+    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=POIS, modes=(True,))
+    check_ppo(results, gen, cases=((16, 1),), preset="pois360", modes=(True,))
+    check_unfolded(results, gen, preset=POIS, envs_list=(16,))
+    check_unfolded(results, gen, preset=POIS, envs_list=(WIDE_ENVS,), modes=(True,))
+    check_dv0(results, gen, (16, WIDE_ENVS), preset=POIS, actor=True)
+    check_layer0(results, gen, preset=POIS, actor=True,
+                 cases=((WIDE_ENVS, 150 * WIDE_ENVS * env.n_agents, False, ""),))
+    shown = set()
+    for row in results[first:]:
+        row["ptxas"] = kernel_ptxas(ptxas, row["entry"])
+        if "chunked" in row["entry"] and row["entry"] not in shown:
+            shown.add(row["entry"])
+            print(f"  ptxas behind {row['entry']}: {row['ptxas']}", flush=True)
 
 
 def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=None):
@@ -1540,6 +1782,9 @@ def train_run(results: dict, tag: str, args: list, per_iter: dict):
         raise SmokeFailure(f"non-finite training metrics ({tag}): {m}")
     results[tag] = dict(metrics=m, launches=counts, wall_s=wall,
                         phases=learner.timer.summary())
+    if tag.startswith(POIS):
+        results[tag]["reduced"] = POIS_REDUCED
+        print(f"  reduced: {POIS_REDUCED}", flush=True)
     print(f"  launches {counts}; wall {wall:.2f} s", flush=True)
     print(f"  phases {json.dumps(results[tag]['phases'])}", flush=True)
     want = {k: n * learner.n_iters for k, n in per_iter.items()}
@@ -1684,7 +1929,7 @@ def main(argv=None) -> int:
     checks: list = []
     print(f"[3] kernels against their plain versions (at {time.perf_counter() - t0:.0f} s)",
           flush=True)
-    check_kernels(checks)
+    check_kernels(checks, ptxas)
     print(f"[4] updates on the card against the CPU (at {time.perf_counter() - t0:.0f} s)",
           flush=True)
     updates: dict = {}
@@ -1715,7 +1960,7 @@ def main(argv=None) -> int:
             device_ms=dev["kernel"] / 1e3 if dev else None, plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=mode, shape=row["shape"], entry=row["entry"],
-            host_us=row["host_us"]["wrapper"],
+            host_us=row["host_us"]["wrapper"], ptxas=kernel_ptxas(ptxas, row["entry"]),
         ))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -63,6 +63,7 @@ from ..models import Actor, Critic
 from ..models import distributions as D
 from ..models import popart as PA
 from ..models import valuenorm as VN
+from ..ops import fused_mlp as FM
 from ..ops import fused_ppo as FP
 from ..ops import tiles
 from ..ops.cuda_gae import compute_gae_cuda
@@ -288,16 +289,30 @@ class MAPPO:
         )
         self.net_dtype = torch.bfloat16 if self.bf16 else torch.float32
         self._updates_per_iter = cfg.ppo_epoch * cfg.num_mini_batch
-        if on_cuda:
+        if on_cuda and (self.fused_trunk or self.fused_loss):
+            self._check_cuda_trunk()
             self._check_row_tiles()
 
+    def _check_cuda_trunk(self) -> None:
+        """Raise (ROADMAP B3) before any launch where the fused CUDA kernels
+        do not take the trunk: more layers than their entries take, or in
+        bf16 a hidden width the tensor-core tiling does not take
+        (``ops.fused_mlp.cuda_trunk_faults``)."""
+        faults = FM.cuda_trunk_faults(self.cfg.hidden_size, self.cfg.layer_n + 1, self.bf16)
+        if faults:
+            raise NotImplementedError(
+                f"the fused CUDA kernels (fused_trunk / fused_loss) do not take "
+                f"{'; '.join(faults)} (ROADMAP B3); turn them off (--fused-trunk off "
+                f"--fused-loss off)")
+
     def _check_row_tiles(self) -> None:
-        """Raise (ROADMAP B2) where a kernel this run launches on CUDA has no
-        row tile at its row width: the kernels stage whole rows in shared
-        memory, but for bf16 K2b, K4 and K4u, which stream their first
-        layer in column chunks past the widest staged row
-        (``ops.tiles.plan``), and a row too wide would first fail inside its
-        launch."""
+        """Raise where a kernel this run launches on CUDA has no row tile at
+        its row width. Every bf16 kernel streams its first layer in column
+        chunks past the widest staged row (``ops.tiles.plan``), so a bf16
+        kernel without a tile is a fault of the port; the f32 FMA kernels
+        stage whole rows (one-row tiles up to 28,161 columns for the
+        unfolded ones at hidden 256), and a row too wide would first fail
+        inside its launch."""
         act_n = self.env_cfg.action_dim
         launches = []  # (kernel, row width, head width)
         if self.fused_trunk:
@@ -310,14 +325,17 @@ class MAPPO:
             launches += [(f"actor_ppo_grads{tag}", self.obs_dim, act_n),
                          (f"critic_ppo_grads{tag}", self.cent_obs_dim, 1)]
         for kernel, width, n_head in launches:
-            if not tiles.plan(kernel, self.bf16, width, self.cfg.hidden_size,
-                              self.cfg.layer_n + 1, n_head)[1]:
-                raise NotImplementedError(
-                    f"{kernel} ({'bf16' if self.bf16 else 'f32'}) has no row tile that fits "
-                    f"one block's shared memory at {width}-wide rows (ROADMAP B2: bf16 "
-                    f"K2b, K4 and K4u stream their first layer over d_in, bf16 K3 and K3u "
-                    f"do not yet; no configuration gives the actor rows that wide)"
-                )
+            if tiles.plan(kernel, self.bf16, width, self.cfg.hidden_size,
+                          self.cfg.layer_n + 1, n_head)[1]:
+                continue
+            if self.bf16:
+                raise RuntimeError(
+                    f"bf16 {kernel} has no row tile at {width}-wide rows: a fault of the "
+                    f"port (every bf16 kernel has a chunked layout, ops.tiles.CHUNKED)")
+            raise NotImplementedError(
+                f"f32 {kernel} stages whole rows and no row tile fits one block's shared "
+                f"memory at {width}-wide rows; run in bf16 (--compute-dtype bfloat16), "
+                f"whose kernels take any width, or with the fused kernels off")
 
     # ------------------------------------------------------------------
     # init

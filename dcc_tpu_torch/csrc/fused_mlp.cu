@@ -27,6 +27,17 @@
 // * f32 (trunk_fwd_kernel): full FP32 on the CUDA cores (no TF32), one
 //   block per tile of BR rows, one thread per output column.
 // The ragged last tile is masked on load and store in both.
+// * bf16 at rows too wide to stage (trunk_fwd_chunked_mma_kernel, the
+//   same body, trunk_fwd_mma<BR, CH>, with CH set; the critic's
+//   team-concat rows past 5,632 columns, e.g. 4 UAVs x 300 PoIs, 6,040):
+//   layer 0's operand streams through one BR x MMA_KC tile in
+//   256-column chunks (trunk_mma.cuh's chunked_layer0, as the chunked K2b's
+//   forward recompute runs it): the feature norm's statistics first, over
+//   all d_in columns (input_stats), then per chunk bf16(xhat * fs + fb),
+//   each step rounded on its own, and its product with W_0's rows, the
+//   chunks' products summed in f32 (round to nearest). The same tile then
+//   holds each later layer's input; the layers after layer 0 run as in the
+//   staged kernel.
 #include "trunk_mma.cuh"
 
 // Offsets in the packed f32 parameter buffer: fn scale, fn bias at v[0],
@@ -63,39 +74,67 @@ __global__ void __launch_bounds__(DCC_THREADS)
   }
 }
 
-__host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H) {
-  const int Hp = pad16(H), wmax = pad16(d_in) > Hp ? pad16(d_in) : Hp;
+// Row stride of the bf16 kernels' operand tile: staged, the widest layer
+// input (pad16(d_in) or pad16(H)); chunked, one MMA_KC-column chunk of layer
+// 0's operand, then each later layer's input (MMA_KC >= MMA_HMAX).
+__host__ __device__ inline int fwd_mma_lda(int d_in, int H, bool ch) {
+  const int Hp = pad16(H), k0 = ch ? MMA_KC : pad16(d_in);
+  return (k0 > Hp ? k0 : Hp) + 8;
+}
+
+// Shared memory of the bf16 kernels: the BR x lda operand tile, the weight
+// ring, the row-sum partials and, chunked, the rows' feature-norm mean and
+// 1/sqrt(var + eps) (then independent of d_in).
+__host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H, bool ch) {
+  const int Hp = pad16(H);
   const int WN = MMA_WARPS / (br / 16);
-  return 2 * ((size_t)br * (wmax + 8) + MMA_STAGES * (size_t)ring_stage(Hp, false)) +
-         4 * (size_t)WN * br * 2;
+  return 2 * ((size_t)br * fwd_mma_lda(d_in, H, ch) +
+              MMA_STAGES * (size_t)ring_stage(Hp, false)) +
+         4 * (size_t)WN * br * 2 + (ch ? 4 * 2 * (size_t)br : 0);
 }
 
 // bf16 trunk on the tensor cores. wb holds each layer's W as bf16, zero
 // padded to pad16(d_li) x pad16(H), at woffs.v[li]; pb the f32 vectors.
-template <int BR>
-__global__ void __launch_bounds__(MMA_THREADS)
-    trunk_fwd_mma_kernel(const void* x, int x_bf16, long long R, int d_in, int H, int L,
-                         int use_fn, int relu, const float* pb, DccOffs offs, const bf16* wb,
-                         DccOffs woffs, bf16* out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Kp0 = pad16(d_in), Hp = pad16(H);
-  const int lda = (Kp0 > Hp ? Kp0 : Hp) + 8;
-  bf16* A = (bf16*)smem_raw;  // BR x lda: the current layer's input
+#define DCC_TRUNK_FWD_MMA_PARAMS                                                           \
+  const void *x, int x_bf16, long long R, int d_in, int H, int L, int use_fn, int relu,    \
+      const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, bf16 *out
+
+// CH: layer 0 chunked (the rows' statistics, then chunked_layer0) instead
+// of staged (load_input, then gemm_stream over the whole row).
+template <int BR, bool CH>
+__device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
+                                              DCC_TRUNK_FWD_MMA_PARAMS) {
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda = fwd_mma_lda(d_in, H, CH);
+  bf16* A = (bf16*)smem_raw;  // BR x lda: the current layer's input (or chunk)
   bf16* ring = A + BR * lda;
   float* red = (float*)(ring + MMA_STAGES * ring_stage(Hp, false));
+  float* fmu = red + MmaTile<BR>::WN * BR * 2;  // chunked: the rows' statistics
+  float* finv = fmu + BR;
   const WarpTile wt = warp_tile<BR>(Hp / 8);
 
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
-    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], A,
-                   lda);
+    if constexpr (CH)
+      input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv);
+    else
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], A,
+                     lda);
     __syncthreads();
-    int Kp = Kp0;
     for (int li = 0; li < L; ++li) {
       const long long* o = offs.v + 2 + 4 * li;
       float acc[MmaTile<BR>::NT][4];
-      gemm_stream<false>(A, lda, Kp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      if constexpr (CH) {
+        if (li == 0)
+          chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
+                                   use_fn ? pb + offs.v[0] : nullptr,
+                                   use_fn ? pb + offs.v[1] : nullptr, A, lda, wb + woffs.v[0],
+                                   Hp, ring, wt, acc);
+        else
+          gemm_stream<false>(A, lda, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      } else {
+        gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      }
       float mu[2], inv[2];
       dense_act_stats<BR>(acc, pb + o[1], H, relu, red, wt, mu, inv);
       // LN output, bf16: the next layer's operand, or the trunk's output
@@ -123,9 +162,25 @@ __global__ void __launch_bounds__(MMA_THREADS)
         }
       }
       __syncthreads();
-      Kp = Hp;
     }
   }
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS)
+    trunk_fwd_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_fwd_mma<BR, false>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
+                           out);
+}
+
+// bf16 trunk with the chunked layer 0, for rows too wide for a staged tile.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS)
+    trunk_fwd_chunked_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  trunk_fwd_mma<BR, true>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
+                          out);
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -152,21 +207,53 @@ static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L
   return (int)cudaGetLastError();
 }
 
-template <int BR>
+template <int BR, bool CH>
 static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, int L,
                       int use_fn, int relu, const float* pb, DccOffs o, const bf16* wb,
                       DccOffs wo, int n_blocks, bf16* out, cudaStream_t stream) {
   static bool smem_set = false;
   auto k = trunk_fwd_mma_kernel<BR>;
+  if constexpr (CH) k = trunk_fwd_chunked_mma_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = fwd_mma_smem_bytes(BR, d_in, H);
+  const size_t smem = fwd_mma_smem_bytes(BR, d_in, H, CH);
   if (R > 0)
     k<<<n_blocks, MMA_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o,
                                                wb, wo, out);
   return (int)cudaGetLastError();
+}
+
+// bf16 trunk, staged (br in {64, 32, 16}) or chunked (br in {32, 16}).
+template <bool CH>
+static int trunk_fwd_mma_entry(const void* x, int x_bf16, long long R, int d_in, int H, int L,
+                               int use_fn, int relu, int br, const float* pb,
+                               const long long* offs, int n_offs, const void* wb,
+                               const long long* woffs, int n_woffs, int n_blocks, void* out,
+                               void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || H % 8 != 0 ||
+      H > MMA_HMAX || n_blocks < 1 || d_in < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  bf16* y = (bf16*)out;
+  switch (br) {
+    case 64:
+      if constexpr (CH) return (int)cudaErrorInvalidValue;
+      else
+        return launch_mma<64, false>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo,
+                                     n_blocks, y, s);
+    case 32:
+      return launch_mma<32, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
+                                y, s);
+    case 16:
+      return launch_mma<16, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
+                                y, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // f32 trunk: br in {32, 8, 1}.
@@ -185,7 +272,11 @@ extern "C" int dcc_trunk_fwd(const void* x, int x_bf16, long long R, int d_in, i
 }
 
 extern "C" unsigned long long dcc_trunk_fwd_mma_smem_bytes(int br, int d_in, int H) {
-  return fwd_mma_smem_bytes(br, d_in, H);
+  return fwd_mma_smem_bytes(br, d_in, H, false);
+}
+
+extern "C" unsigned long long dcc_trunk_fwd_mma_chunked_smem_bytes(int br, int d_in, int H) {
+  return fwd_mma_smem_bytes(br, d_in, H, true);
 }
 
 // bf16 trunk on the tensor cores: br in {64, 32, 16}; H a multiple of 8, at
@@ -195,23 +286,19 @@ extern "C" int dcc_trunk_fwd_mma(const void* x, int x_bf16, long long R, int d_i
                                  const long long* offs, int n_offs, const void* wb,
                                  const long long* woffs, int n_woffs, int n_blocks, void* out,
                                  void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || H % 8 != 0 ||
-      H > MMA_HMAX || n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  bf16* y = (bf16*)out;
-  switch (br) {
-    case 64:
-      return launch_mma<64>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
-    case 32:
-      return launch_mma<32>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
-    case 16:
-      return launch_mma<16>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks, y, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return trunk_fwd_mma_entry<false>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
+                                    n_offs, wb, woffs, n_woffs, n_blocks, out, stream);
+}
+
+// bf16 trunk with the chunked layer 0 (rows too wide for a staged tile): br
+// in {32, 16}; otherwise as dcc_trunk_fwd_mma.
+extern "C" int dcc_trunk_fwd_chunked_mma(const void* x, int x_bf16, long long R, int d_in,
+                                         int H, int L, int use_fn, int relu, int br,
+                                         const float* pb, const long long* offs, int n_offs,
+                                         const void* wb, const long long* woffs, int n_woffs,
+                                         int n_blocks, void* out, void* stream) {
+  return trunk_fwd_mma_entry<true>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
+                                   n_offs, wb, woffs, n_woffs, n_blocks, out, stream);
 }
 
 extern "C" const char* dcc_error_string(int code) {

@@ -28,10 +28,11 @@
 // backward on it, and adds the tile's gradients into its OWN slot of
 // a scratch buffer (each slot element has one owner thread). A second small
 // kernel sums the slots in a fixed order. The result is deterministic and
-// uses no atomics. bf16 K4 at rows too wide to stage (the 20-UAV preset's
-// 4,840) streams layer 0 in column chunks and hands layer 0's weight
-// gradient to dv0_mma_kernel, whose (d_in x H) sum would not fit a slot
-// that every tile re-reads (see there). The ragged last tile is masked in
+// uses no atomics. bf16 K3, K4, K3u and K4u at rows too wide to stage (the
+// 20-UAV preset's 4,840-wide critic rows; 4 UAVs x 300 PoIs, whose actor
+// rows are 1,510 wide) stream layer 0 in column chunks and hand layer 0's
+// weight gradient to dv0_mma_kernel, whose (d_in x H) sum would not fit a
+// slot that every tile re-reads (see there). The ragged last tile is masked in
 // the kernel, so rows are never padded. Loss and backward elementwise math
 // is f32 with JAX's autodiff tie rules: min / max split the cotangent 50/50
 // on ties, clip composes the two.
@@ -980,18 +981,22 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
 }
 
 // K3 / K3u in bf16. Head: Wh (H x A), bh, log_std at offs.v[h], v[h + 1],
-// v[h + 2]: h = 3L folded, 2 + 4L unfolded.
-template <int BR, bool UNF>
+// v[h + 2]: h = 3L folded, 2 + 4L unfolded. CH: the chunked layer 0, as
+// for K4 / K4u (its head's A columns follow the slot's trunk part, which
+// starts after layer 0's dV, unfolded at layer 0's bias).
+template <int BR, bool UNF, bool CH = false>
 __device__ __forceinline__ void actor_mma(unsigned char* smem_raw, const void* x, int x_bf16,
                                           const float* aux, long long R, int d_in, int H,
                                           int L, int A, int use_fn, int relu, float clip,
                                           const float* pb, const DccOffs& offs,
                                           const bf16* wb, const DccOffs& woffs, float* slots,
-                                          long long slot_size) {
+                                          long long slot_size, bf16* g0 = nullptr,
+                                          float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
   const ActorLoss loss{aux, pb + offs.v[h + 1], pb + offs.v[h + 2], clip, A};
-  ppo_grads_mma<BR, UNF>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A, use_fn, relu, pb,
-                         offs, wb, woffs, slots, slot_size, loss);
+  ppo_grads_mma<BR, UNF, ActorLoss, CH>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A,
+                                        use_fn, relu, pb, offs, wb, woffs, slots, slot_size,
+                                        loss, g0, xstats);
 }
 
 // K4 / K4u in bf16. Head: wv (H), bv at offs.v[h], v[h + 1]; norm = [shift,
@@ -1076,6 +1081,26 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   critic_mma<BR, true, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                              delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
                              slot_size, g0, xstats);
+}
+
+// K3 and K3u with the chunked layer 0: actor rows too wide for a staged
+// tile (more than 1,472 columns folded, 1,088 unfolded; e.g. 4 UAVs x 300
+// PoIs, 1,510). dW0 / dV0 then comes from the dV0 kernel, and K3u's
+// feature-norm gradients from layer0_input_bwd_mma_kernel, as for K4 / K4u.
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    actor_grads_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  actor_mma<BR, false, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                             offs, wb, woffs, slots, slot_size, g0, xstats);
+}
+
+template <int BR>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    actor_grads_unfolded_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  actor_mma<BR, true, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                            offs, wb, woffs, slots, slot_size, g0, xstats);
 }
 
 // ---------------------------------------------------------------------------
@@ -1355,6 +1380,24 @@ static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long lo
 }
 
 template <int BR, bool UNF>
+static int launch_actor_chunked_mma(const void* x, int x_bf16, const float* aux, long long R,
+                                    int d_in, int H, int L, int A, int use_fn, int relu,
+                                    float clip, const float* pb, DccOffs o, const bf16* wb,
+                                    DccOffs wo, float* slots, long long slot_size, int n_blocks,
+                                    bf16* g0, float* xstats, cudaStream_t s) {
+  static bool smem_set = false;
+  auto k = UNF ? actor_grads_unfolded_chunked_mma_kernel<BR> : actor_grads_chunked_mma_kernel<BR>;
+  if (!smem_set) {
+    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+    smem_set = true;
+  }
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF, true).total;
+  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                        pb, o, wb, wo, slots, slot_size, g0, xstats);
+  return (int)cudaGetLastError();
+}
+
+template <int BR, bool UNF>
 static int launch_critic(const void* x, int x_bf16, const float* aux,
                          const float* norm, long long R, int d_in, int H, int L,
                          int use_fn, int relu, float clip, float delta,
@@ -1588,6 +1631,66 @@ extern "C" int dcc_actor_grads_unfolded_mma(const void* x, int x_bf16, const flo
   }
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+// K3 (UNF false) or K3u (UNF true) in bf16 with the chunked layer 0: br in {32,
+// 16}; as dcc_actor_grads_mma / dcc_actor_grads_unfolded_mma, but slots and
+// out hold the slot without layer 0's dV (unfolded: from layer 0's bias on,
+// every offset less offs[3]), and the kernel writes g0 (R x pad16(H) bf16)
+// and xstats (R x 2 f32) for dcc_dv0_mma (and, unfolded,
+// dcc_layer0_input_bwd_mma).
+template <bool UNF>
+static int actor_grads_chunked(const void* x, int x_bf16, const float* aux, long long R,
+                               int d_in, int H, int L, int A, int use_fn, int relu, float clip,
+                               int br, const float* pb, const long long* offs, int n_offs,
+                               const void* wb, const long long* woffs, int n_woffs,
+                               float* slots, long long slot_size, int n_blocks, void* g0,
+                               float* xstats, float* out, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
+      n_blocks < 1 || H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (UNF) {
+    if (n_woffs != L || !unfolded_ok(offs, n_offs, L, true, 3)) return (int)cudaErrorInvalidValue;
+    for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
+      if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const bf16* w = (const bf16*)wb;
+  int err;
+  switch (br) {
+    case 32: err = launch_actor_chunked_mma<32, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
+                                                     relu, clip, pb, o, w, wo, slots, slot_size,
+                                                     n_blocks, (bf16*)g0, xstats, s); break;
+    case 16: err = launch_actor_chunked_mma<16, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
+                                                     relu, clip, pb, o, w, wo, slots, slot_size,
+                                                     n_blocks, (bf16*)g0, xstats, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
+extern "C" int dcc_actor_grads_chunked_mma(const void* x, int x_bf16, const float* aux,
+                                           long long R, int d_in, int H, int L, int A,
+                                           int use_fn, int relu, float clip, int br,
+                                           const float* pb, const long long* offs, int n_offs,
+                                           const void* wb, const long long* woffs, int n_woffs,
+                                           float* slots, long long slot_size, int n_blocks,
+                                           void* g0, float* xstats, float* out, void* stream) {
+  return actor_grads_chunked<false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                    br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                    n_blocks, g0, xstats, out, stream);
+}
+
+extern "C" int dcc_actor_grads_unfolded_chunked_mma(
+    const void* x, int x_bf16, const float* aux, long long R, int d_in, int H, int L, int A,
+    int use_fn, int relu, float clip, int br, const float* pb, const long long* offs,
+    int n_offs, const void* wb, const long long* woffs, int n_woffs, float* slots,
+    long long slot_size, int n_blocks, void* g0, float* xstats, float* out, void* stream) {
+  return actor_grads_chunked<true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                   br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                   n_blocks, g0, xstats, out, stream);
 }
 
 // Critic in f32 (FMA); norm = [shift, scale] on the device.

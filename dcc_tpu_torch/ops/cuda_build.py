@@ -16,12 +16,14 @@ where it launches its kernel and nowhere else. ``ENTRY`` records the C entry
 point of each kernel's latest launch (K1's ``dcc_gae_seg``; for K2-K4,
 K2b and the unfolded K3u / K4u the tensor-core ``*_mma`` entry or the FMA
 one), ``TILE`` the row tile of each K2-K4, K2b, K3u / K4u latest launch.
-At rows too wide for a staged tile (``ops.tiles.plan``) bf16 K4 and K4u
-count their chunked launches under their own names, the chunked K2b under
+At rows too wide for a staged tile (``ops.tiles.plan``) bf16 K3, K4, K3u
+and K4u count their chunked launches under their own names, the chunked
+K2 under ``fused_mlp_chunked`` and the chunked K2b under
 ``fused_mlp_bwd_chunked``, and the kernels that finish their layer 0
-under ``critic_ppo_grads_dv0`` (dV0 of the folded K4), ``dv0_unfolded``
-(dW0 of K2b and K4u) and ``layer0_input_bwd`` (the feature norm's
-gradients and d(x) of K2b and K4u).
+under ``actor_ppo_grads_dv0`` and ``critic_ppo_grads_dv0`` (dV0 of the
+folded K3 and K4), ``dv0_unfolded`` (dW0 of K2b, K3u and K4u) and
+``layer0_input_bwd`` (the feature norm's gradients and d(x) of K2b, K3u
+and K4u).
 """
 
 from __future__ import annotations
@@ -62,6 +64,7 @@ _SIGNATURES = {
             _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
         ],
         "dcc_trunk_fwd_mma_smem_bytes": [_I, _I, _I],
+        "dcc_trunk_fwd_mma_chunked_smem_bytes": [_I, _I, _I],
     },
     "fused_mlp_bwd": {
         "dcc_trunk_bwd": [
@@ -106,6 +109,11 @@ _SIGNATURES = {
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
             _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P,
         ],
+        # dcc_actor_grads_mma's arguments, with g0 and xstats before out
+        "dcc_actor_grads_chunked_mma": [
+            _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
+            _P, _L, _I, _P, _P, _P, _P,
+        ],
         "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
@@ -121,8 +129,12 @@ _SIGNATURES = {
 _SIGNATURES["fused_ppo"].update({
     name.replace("_grads", "_grads_unfolded"): _SIGNATURES["fused_ppo"][name]
     for name in ("dcc_actor_grads", "dcc_actor_grads_mma", "dcc_critic_grads",
-                 "dcc_critic_grads_mma", "dcc_critic_grads_chunked_mma")
+                 "dcc_critic_grads_mma", "dcc_critic_grads_chunked_mma",
+                 "dcc_actor_grads_chunked_mma")
 })
+# the chunked K2 takes the staged one's arguments
+_SIGNATURES["fused_mlp"]["dcc_trunk_fwd_chunked_mma"] = _SIGNATURES["fused_mlp"][
+    "dcc_trunk_fwd_mma"]
 
 
 def reset_launches() -> None:

@@ -33,15 +33,23 @@ re-sums in sequential order every relu pre-activation whose side the tensor
 cores' summation order could change, so that its relu masks agree with the
 plain version's. In f32 both stay on full-f32 FMA.
 
-bf16 K2b at rows too wide for a staged row tile (the 20-UAV preset's
-4,840-wide critic rows, ``ops.tiles.plan``) runs as three launches: the
-chunked kernel streams layer 0 over d_in in column chunks and stops at
-layer 0's cotangent g0 (plain version :func:`trunk_bwd_chunked_plain`),
+bf16 K2 at rows too wide for a staged row tile (critic rows past 5,632
+columns, e.g. 4 UAVs x 300 PoIs, ``ops.tiles.plan``) launches its chunked
+kernel, which streams layer 0 over d_in in column chunks (counted under
+``fused_mlp_chunked``).
+bf16 K2b at such rows (the 20-UAV preset's 4,840-wide critic rows) runs as
+three launches: the chunked kernel streams layer 0 the same way and stops
+at layer 0's cotangent g0 (plain version :func:`trunk_bwd_chunked_plain`),
 the layer-0 input backward gives the feature norm's gradients and dx
 (:func:`layer0_input_bwd_cuda`, only where a caller reads dx:
 ``FusedTrunk`` asks for it only when its input needs a gradient), and the
-dV0 kernel gives W_0's (:func:`dv0_cuda`); the chunked K4 and K4u end in
-the same two kernels.
+dV0 kernel gives W_0's (:func:`dv0_cuda`); the chunked K3, K4, K3u and K4u
+end in the same two kernels.
+
+The CUDA entries take at most ``MAX_LAYERS`` layers, and the bf16 tiling
+a hidden width that is a multiple of ``MMA_HSTEP`` and at most
+``MMA_HMAX`` (:func:`cuda_trunk_faults`, which MAPPO asks at construction;
+:func:`check_mma_width` guards each launch).
 """
 
 from __future__ import annotations
@@ -55,6 +63,12 @@ from . import tiles
 from .tiles import SMEM_MAX
 
 EPS = 1e-6
+# the CUDA entries' limits: layers (csrc/trunk.cuh, DCC_MAX_LAYERS), and the
+# bf16 tiling's widest hidden layer and column step (csrc/trunk_mma.cuh,
+# MMA_HMAX; its n-tiles are 8 columns wide)
+MAX_LAYERS = 8
+MMA_HMAX = 256
+MMA_HSTEP = 8
 # distance from a relu kink within which two f32 summation orders may take
 # opposite sides (the f32 kink rule of the kernel checks)
 F32_KINK_EPS = 1e-5
@@ -248,12 +262,14 @@ def dv0_splits(rows: int, d_in: int, sms: int) -> int:
     return max(1, min(-(-2 * sms // kblocks), -(-rows // 32)))
 
 
-def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False):
+def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
+             kind: str = "critic"):
     """Launch the dV0 kernel (``dcc_dv0_mma``: the product on row splits,
     then the splits summed in order); same return as :func:`dv0_plain`.
-    Counts under ``critic_ppo_grads_dv0`` (the folded K4's dV0) or, with
-    ``unfolded``, ``dv0_unfolded`` (dW0 of the chunked K2b and K4u, with the
-    feature norm's ``affine`` where they have one)."""
+    Counts under ``critic_ppo_grads_dv0`` or ``actor_ppo_grads_dv0`` (the
+    folded K4's or K3's dV0, by ``kind``) or, with ``unfolded``,
+    ``dv0_unfolded`` (dW0 of the chunked K2b, K3u and K4u, with the feature
+    norm's ``affine`` where they have one)."""
     rows, d_in = x.shape
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
@@ -267,7 +283,7 @@ def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False):
     splits = dv0_splits(rows, d_in, cb.sm_count(x.device))
     part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
     out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
-    name = "dv0_unfolded" if unfolded else "critic_ppo_grads_dv0"
+    name = "dv0_unfolded" if unfolded else f"{kind}_ppo_grads_dv0"
     code = cb.library("fused_ppo").dcc_dv0_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
         g0.data_ptr(), hidden, splits, None if fs is None else fs.data_ptr(),
@@ -409,11 +425,26 @@ def pack_trunk(params: Sequence[torch.Tensor], device, n_layers: int, use_fn: bo
     return TrunkPack(pb, offs, wb, woffs)
 
 
+def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool) -> list:
+    """What of a ``n_layers``-layer trunk of width ``hidden`` the fused CUDA
+    kernels do not take (ROADMAP B3), one phrase each; empty if nothing."""
+    faults = []
+    if n_layers > MAX_LAYERS:
+        faults.append(f"{n_layers} layers (the CUDA entries take at most {MAX_LAYERS})")
+    if bf16 and hidden > MMA_HMAX:
+        faults.append(f"bf16 hidden width {hidden} (the tensor-core tiling takes at most "
+                      f"{MMA_HMAX})")
+    if bf16 and hidden % MMA_HSTEP:
+        faults.append(f"bf16 hidden width {hidden} (the tensor-core tiling takes multiples "
+                      f"of {MMA_HSTEP})")
+    return faults
+
+
 def check_mma_width(hidden: int) -> None:
     """Raise unless the tensor-core kernels' tiling takes ``hidden``."""
-    if hidden % 8 or hidden > 256:
+    if hidden % MMA_HSTEP or hidden > MMA_HMAX:
         raise ValueError(f"the bf16 tensor-core kernels take a hidden width that is a "
-                         f"multiple of 8 and at most 256, not {hidden}")
+                         f"multiple of {MMA_HSTEP} and at most {MMA_HMAX}, not {hidden}")
 
 
 def tile_rows(width: int, floats_per_row_fn, sizes: Sequence[int]) -> int:
@@ -466,7 +497,8 @@ def trunk_forward_cuda(
     packed: Optional[TrunkPack] = None,
 ) -> torch.Tensor:
     """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows: the tensor-core
-    kernel in bf16, the FMA kernel in f32. ``packed`` is
+    kernel in bf16 (its chunked layout at rows too wide for a staged tile,
+    ``ops.tiles.plan``), the FMA kernel in f32. ``packed`` is
     ``pack_trunk(params, x.device, n_layers, use_fn, bf16)`` made
     beforehand, or None to pack here."""
     rows, d_in = x.shape
@@ -492,18 +524,22 @@ def trunk_forward_cuda(
     smem = lambda b: tiles.smem_bytes("fused_mlp", bf16, b, d_in, hidden, n_layers) // 4
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
+    name = "fused_mlp"
     if bf16:
         if packed.weights is None:
             raise ValueError("bf16 K2 needs the bf16 weight copies: pack_trunk(..., bf16=True)")
         cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
         sms = cb.sm_count(x.device)
-        # the smallest row tile that still gives every SM a tile
-        br = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
-        br = tile_rows(d_in, smem, [b for b in tiles.SIZES[("fused_mlp", True)] if b <= br])
+        chunked, sizes = tiles.plan("fused_mlp", True, d_in, hidden, n_layers)
+        # the smallest row tile that still gives every SM a tile (every
+        # layout, staged or chunked, has a 16-row one)
+        target = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
+        br = next(b for b in sizes if b <= target)
         n_blocks = max(1, min(-(-rows // br), 2 * sms))
         woffs = packed.weight_offsets
-        entry = "dcc_trunk_fwd_mma"
-        code = lib.dcc_trunk_fwd_mma(
+        entry = "dcc_trunk_fwd_chunked_mma" if chunked else "dcc_trunk_fwd_mma"
+        name = "fused_mlp_chunked" if chunked else name
+        code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
             pb.data_ptr(), offs_c, len(offs), packed.weights.data_ptr(),
             (cb._L * len(woffs))(*woffs), len(woffs), n_blocks, out.data_ptr(),
@@ -516,10 +552,10 @@ def trunk_forward_cuda(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
             pb.data_ptr(), offs_c, len(offs), out.data_ptr(), cb.stream_of(x),
         )
-    cb.check("fused_mlp", code, "fused_mlp")
-    cb.LAUNCHES["fused_mlp"] += 1
-    cb.ENTRY["fused_mlp"] = entry
-    cb.TILE["fused_mlp"] = br
+    cb.check("fused_mlp", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = entry
+    cb.TILE[name] = br
     return out
 
 

@@ -19,15 +19,17 @@ two) and the bf16 rounding points of the kernel, so they mirror the
 kernel's algorithm rather than autograd. On CUDA tensors the wrappers
 launch the kernels or raise (in bf16 the tensor-core kernels, on padded
 bf16 copies of the weights; in f32 the FMA ones); on CPU tensors they run
-the plain versions. bf16 K4 and K4u at rows too wide for a staged row
-tile (the 20-UAV preset's 4,840-wide critic rows, ``ops.tiles.plan``)
-launch their chunked kernel, which streams layer 0 over d_in in column
-chunks and leaves layer 0's weight gradient to a second kernel, the dV0
-kernel (:func:`~dcc_tpu_torch.ops.fused_mlp.dv0_cuda`, counted under
-``critic_ppo_grads_dv0``, for K4u, with the feature norm's affine, under
-``dv0_unfolded``), and K4u the feature norm's gradients to the layer-0
-input backward (``layer0_input_bwd``). The chunked launch counts under the
-kernel's own name (plain version of K4u's:
+the plain versions. bf16 K3, K4, K3u and K4u at rows too wide for a
+staged row tile (the 20-UAV preset's 4,840-wide critic rows; 4 UAVs x 300
+PoIs, whose actor rows are 1,510 wide, ``ops.tiles.plan``) launch their
+chunked kernel, which streams layer 0 over d_in in column chunks and
+leaves layer 0's weight gradient to a second kernel, the dV0 kernel
+(:func:`~dcc_tpu_torch.ops.fused_mlp.dv0_cuda`, counted under
+``actor_ppo_grads_dv0`` / ``critic_ppo_grads_dv0``, for K3u / K4u, with
+the feature norm's affine, under ``dv0_unfolded``), and K3u / K4u the
+feature norm's gradients to the layer-0 input backward
+(``layer0_input_bwd``). The chunked launch counts under the kernel's own
+name (plain version of K4u's first launch:
 :func:`critic_grads_unfolded_chunked_plain`).
 
 Aux layout (row-major, the GPU needs no lane-padding workaround): actor rows
@@ -172,7 +174,11 @@ def _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16):
     return a, cache
 
 
-def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16):
+def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, to_layer0=False):
+    """The folded chain's backward: [dV, du] * L. With ``to_layer0``, as the
+    chunked K3 / K4 split it, it stops at layer 0's cotangent (after its
+    activation) and returns (that cotangent, the gradients with None for
+    layer 0's dV)."""
     grads = [None] * (2 * n_layers)
     for li in reversed(range(n_layers)):
         a, r, xhat, inv = cache[li]
@@ -181,8 +187,10 @@ def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16):
             - xhat * (g * xhat).mean(dim=-1, keepdim=True)
         )
         g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
-        grads[2 * li] = _mm(a.t(), g, bf16)
         grads[2 * li + 1] = g.sum(dim=0)
+        if to_layer0 and li == 0:
+            return g, grads
+        grads[2 * li] = _mm(a.t(), g, bf16)
         if li > 0:
             g = _mm(g, kp[2 * li].t(), bf16)
     return grads
@@ -428,13 +436,13 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
     name = f"{kind}_ppo_grads{tag}"
-    # rows too wide for a staged tile: K4's / K4u's chunked layer 0, then the
-    # dV0 kernel (and for K4u the layer-0 input backward)
-    chunked = tiles.plan(name, bf16, d_in, hidden, n_layers, n_head)[0]
+    # rows too wide for a staged tile: the chunked layer 0, then the dV0
+    # kernel (and unfolded the layer-0 input backward)
+    chunked, sizes = tiles.plan(name, bf16, d_in, hidden, n_layers, n_head)
     smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
                                       chunked) // 4
     if bf16:
-        br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), tiles.SIZES[(name, True)])
+        br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), sizes)
     else:
         br = tile_rows(d_in, smem, tiles.SIZES[(name, False)])
     shapes = trunk_shapes + extra
@@ -450,21 +458,21 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     x_bf16 = int(x.dtype == torch.bfloat16)
     weights = (wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs)) if bf16 else ()
     entry = f"dcc_{kind}_grads{tag}" + ("_chunked" if chunked else "") + ("_mma" if bf16 else "")
+    if chunked:
+        g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
+        xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
+        outs = (g0.data_ptr(), xstats.data_ptr(), out.data_ptr())
+    else:
+        outs = (out.data_ptr(),)
     if kind == "actor":
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
             int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
-            *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(), cb.stream_of(x),
+            *weights, slots.data_ptr(), slot, n_blocks, *outs, cb.stream_of(x),
         )
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
-        if chunked:
-            g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
-            xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
-            outs = (g0.data_ptr(), xstats.data_ptr(), out.data_ptr())
-        else:
-            outs = (out.data_ptr(),)
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
             n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(), offs_c,
@@ -479,7 +487,7 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
         parts = finish_layer0_cuda(x, xstats, g0, pb, offs, wb, woffs, hidden, use_fn,
                                    need_dx=False)[1] + parts
     elif chunked:
-        parts = [dv0_cuda(x, xstats, g0, hidden)] + parts
+        parts = [dv0_cuda(x, xstats, g0, hidden, kind=kind)] + parts
     n_trunk = len(trunk_shapes)
     return parts[:n_trunk], parts[n_trunk:]
 

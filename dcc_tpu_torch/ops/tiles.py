@@ -6,9 +6,12 @@ among, largest first. :func:`smem_bytes` asks the kernel's own library (the
 and ``csrc/fused_ppo.cu``; the f32 K2's size is its wrapper's formula), so
 a launch and MAPPO's check at construction read one layout. The kernels
 stage whole rows in shared memory; where a row is too wide for the
-smallest staged tile, the kernels of ``CHUNKED`` stream their first layer
-over d_in in column chunks instead (:func:`plan`), and the others (bf16
-K3 / K3u, on no configuration's path) have no tile (ROADMAP B2).
+smallest staged tile, the bf16 kernels stream their first layer over d_in
+in column chunks instead (``CHUNKED``, :func:`plan`), whose shared memory
+does not grow with d_in. So every kernel takes rows of any width in bf16.
+The f32 FMA kernels have no chunked layout; their one-row tiles take rows
+up to 28,161 columns (the unfolded K3u / K4u, hidden 256, two layers) and
+more for the others.
 """
 
 from __future__ import annotations
@@ -33,11 +36,14 @@ SIZES = {
 
 
 # the kernels with a chunked first layer, taken where no staged tile fits,
-# and the row tiles of that layout: bf16 K4 and K4u (``csrc/fused_ppo.cu``,
-# ``critic_grads_chunked_mma_kernel``, ``critic_grads_unfolded_chunked_mma_kernel``)
-# and bf16 K2b (``csrc/fused_mlp_bwd.cu``, ``trunk_bwd_chunked_mma_kernel``)
+# and the row tiles of that layout: bf16 K3, K4, K3u and K4u
+# (``csrc/fused_ppo.cu``, ``actor_grads_chunked_mma_kernel``,
+# ``critic_grads_chunked_mma_kernel`` and their unfolded twins), bf16 K2
+# (``csrc/fused_mlp.cu``, ``trunk_fwd_chunked_mma_kernel``) and bf16 K2b
+# (``csrc/fused_mlp_bwd.cu``, ``trunk_bwd_chunked_mma_kernel``)
 CHUNKED = {("critic_ppo_grads", True): (32, 16), ("critic_ppo_grads_unfolded", True): (32, 16),
-           ("fused_mlp_bwd", True): (32, 16)}
+           ("actor_ppo_grads", True): (32, 16), ("actor_ppo_grads_unfolded", True): (32, 16),
+           ("fused_mlp", True): (32, 16), ("fused_mlp_bwd", True): (32, 16)}
 
 
 def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
@@ -45,12 +51,13 @@ def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layer
     """Shared memory of one ``br``-row tile of ``kernel`` (a key of
     ``ops.LAUNCHES``; ``n_head``: the actor head's width; ``chunked``: its
     chunked layout), from its library (built on first use)."""
+    mma = "_mma" if bf16 else ""
+    ch = "_chunked" if chunked else ""
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
-        return cb.library("fused_mlp").dcc_trunk_fwd_mma_smem_bytes(br, d_in, hidden)
-    mma = "_mma" if bf16 else ""
-    ch = "_chunked" if chunked else ""
+        return getattr(cb.library("fused_mlp"), f"dcc_trunk_fwd_mma{ch}_smem_bytes")(
+            br, d_in, hidden)
     if kernel == "layer0_input_bwd":
         return cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_smem_bytes(br, hidden)
     if kernel == "fused_mlp_bwd":

@@ -7,6 +7,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] k2
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] presets
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] wide
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] pois
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
 
 ``updates`` holds the updates of ``chip_smoke.UPDATE_CHECKS`` on the card
@@ -28,7 +29,11 @@ data the smoke draws for them (``chip_smoke.check_presets``). ``wide``
 builds the kernels and holds K2-K4, the dV0 kernel in both modes, the
 chunked K2b and K4u and the layer-0 input backward at the 20-UAV preset's
 widths (actor 242, critic 4,840) at 16 and 1,024 envs
-(``chip_smoke.check_wide``). ``profile`` trains with
+(``chip_smoke.check_wide``). ``pois`` builds the kernels and holds the
+chunked K2, K3 and K3u (with K4, K4u, dV0 and the layer-0 input backward)
+at the many-PoI swarms' widths: 4 UAVs x 300 PoIs (actor 1,510, critic
+6,040) at 16 and 1,024 envs, 4 x 360 and the 20-UAV preset with 50 PoIs
+(``chip_smoke.check_many_pois``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
@@ -54,7 +59,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
     ap.add_argument("--k2-plain", action="store_true",
                     help="updates: also the recurrent bf16 update with K2's plain forward")
-    ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "profile"))
+    ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
+                                       "profile"))
     ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
     args = ap.parse_args(argv)
 
@@ -73,7 +79,7 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase in ("updates", "gae", "k2", "presets", "wide"):
+    if args.phase in ("updates", "gae", "k2", "presets", "wide", "pois"):
         results: dict = {}
         try:
             if args.phase == "updates":
@@ -92,6 +98,8 @@ def main(argv=None) -> int:
                     chip_smoke.check_presets(results["presets"])
                 elif args.phase == "wide":
                     chip_smoke.check_wide(results["wide"])
+                elif args.phase == "pois":
+                    chip_smoke.check_many_pois(results["pois"], results["ptxas"])
                 else:
                     gen = torch.Generator(device="cuda").manual_seed(0)
                     chip_smoke.check_trunk_forward(results["k2"], gen)

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K4, K2b and the unfolded K3u / K4u (and, at rows too
-wide to stage, the chunked K4, K2b and K4u, the dV0 kernel and the layer-0
-input backward) against their plain PyTorch versions, on the card.
+wide to stage, the chunked K2, K2b, K3, K4, K3u and K4u, the dV0 kernel and
+the layer-0 input backward) against their plain PyTorch versions, on the
+card.
 
 Every test carries the ``cuda`` marker and takes the ``cuda`` fixture, which
 skips when no CUDA device is present (the kernels have no CPU mode), so on a
@@ -832,7 +833,7 @@ def test_unfolded_kernels_at_preset_widths(cuda, preset, agents, actor_w, critic
 
 # The kernels' shared-memory layouts in Python, for the tests that pretend a
 # CUDA device on a host without nvcc (tests/test_torch_presets.py): K2
-# ``fwd_mma_smem_bytes`` (csrc/fused_mlp.cu), K2b ``bwd_mma_layout`` and
+# ``fwd_mma_smem_bytes``, staged and chunked (csrc/fused_mlp.cu), K2b ``bwd_mma_layout`` and
 # the layer-0 input backward's ``l0_layout`` (csrc/fused_mlp_bwd.cu), K3 /
 # K4 and K3u / K4u ``ppo_mma_layout`` and ``ppo_*smem_floats``
 # (csrc/fused_ppo.cu), each chunked layout too. The package reads the sizes
@@ -884,6 +885,9 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=Fals
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
+        if chunked:  # a chunk of the rows (then a layer's input), ring, sums, row statistics
+            return (2 * (br * (_MMA_KC + 8) + _MMA_STAGES * _ring_stage(hp, False)) + _red(br)
+                    + 8 * br)
         wmax = max(_pad16(d_in), hp)
         return 2 * (br * (wmax + 8) + _MMA_STAGES * _ring_stage(hp, False)) + _red(br)
     chain = br * (2 * d_in + 3 * n_layers * hidden + n_layers + 1)  # f32 unfolded floats
@@ -927,7 +931,8 @@ def test_row_tile_mirror_matches_the_libraries(cuda):
         if (kernel, bf16) in tiles.CHUNKED:
             layouts.append((True, tiles.CHUNKED[(kernel, bf16)]))
         for chunked, tile_sizes in layouts:
-            for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 4840):
+            for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 1475, 1510, 4840, 5840,
+                         6040):
                 for br in tile_sizes:
                     want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
                     got = smem_layout(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
@@ -1156,15 +1161,160 @@ def test_20uav_preset_trains_on_the_card(cuda, case):
 
 
 @pytest.mark.parametrize("fold", [True, False])
-def test_20uav_k3_refused_on_the_card(cuda, fold):
-    """What is left of ROADMAP B2: bf16 K3 and K3u have no tile at 4,840-wide
-    rows (on no configuration's path): given such actor rows, MAPPO's check
-    refuses before any launch."""
+def test_20uav_wide_actor_rows_build_on_the_card(cuda, fold):
+    """bf16 K3 and K3u take 4,840-wide rows in their chunked layouts
+    (``ops.tiles.CHUNKED``): MAPPO's check passes such actor rows on the
+    card, reading the built libraries' layouts."""
     from dcc_tpu_torch.algos import MAPPO
     from dcc_tpu_torch.configs import load_preset
+    from dcc_tpu_torch.ops import tiles
 
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device=cuda)
     algo.obs_dim = env_cfg.share_obs_dim
-    with pytest.raises(NotImplementedError, match="actor_ppo_grads.*B2"):
-        algo._check_row_tiles()
+    algo._check_row_tiles()
+    kernel = "actor_ppo_grads" + ("" if fold else "_unfolded")
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16])
+
+
+# the many-PoI widths: critic rows of 4 UAVs x 300 PoIs (6,040) and of 20 x 50
+# (5,840), wider than any staged bf16 K2 tile (5,632); actor rows of 4 x 300
+# (1,510), wider than any staged bf16 K3 (1,472) or K3u (1,088) tile. The
+# trunks: WIDE_TRUNKS, and for K2, whose output is continuous at a relu kink,
+# the model's (relu, two layers, the feature norm) too
+POIS_ACTOR, POIS_CRITICS = 1510, (5840, 6040)
+FWD_TRUNKS = {**WIDE_TRUNKS, "model": (2, True, True)}
+
+
+@pytest.mark.parametrize("trunk", list(FWD_TRUNKS))
+@pytest.mark.parametrize("d_in", POIS_CRITICS)
+@pytest.mark.parametrize("rows", [1, 37, 2400, 20000])
+def test_bf16_chunked_trunk_forward_on_tensor_cores(cuda, rows, d_in, trunk):
+    """bf16 K2 at critic rows no staged tile takes: the chunked kernel (the
+    rows' feature-norm statistics, then layer 0 over d_in in 256-column
+    chunks, the last ragged: 6,040 = 23 x 256 + 152), one launch, on f32
+    rows as the rollout gives them, on row counts around its 16- and 32-row
+    tiles, against the plain version within 2e-3 (max abs 0.25, the
+    smoke's K2 bounds); the kernel computed in f32 lands outside."""
+    n_layers, use_fn, use_relu = FWD_TRUNKS[trunk]
+    gen = torch.Generator().manual_seed(rows + d_in + n_layers)
+    params = _trunk_params(gen, d_in, 256, n_layers, use_fn, cuda)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True)
+    cb.reset_launches()
+    got = FM.trunk_forward_cuda(x, params, **kw)
+    assert dict(cb.LAUNCHES) == {"fused_mlp_chunked": 1}
+    assert cb.ENTRY["fused_mlp_chunked"] == "dcc_trunk_fwd_chunked_mma"
+    want = FM.trunk_forward_plain(x, params, **kw)
+    assert got.dtype == torch.bfloat16 and _rel(got, want) < 2e-3
+    assert float((got.float() - want.float()).abs().max()) <= 0.25
+    if rows > 1:
+        _f32_outside([FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})], [want], 2e-3)
+
+
+# one layer's staged K3 tile takes actor rows up to 1,760 columns, so the
+# one-relu-layer trunk runs the chunked K3 at 4 UAVs x 360 PoIs (1,810)
+K3_WIDTHS = {"tanh": POIS_ACTOR, "one_relu_layer": 1810}
+
+
+@pytest.mark.parametrize("trunk", list(WIDE_TRUNKS))
+@pytest.mark.parametrize("rows", [1, 37, 2400, 20000])
+def test_bf16_chunked_actor_on_tensor_cores(cuda, rows, trunk):
+    """bf16 K3 at actor rows no staged tile takes (``K3_WIDTHS``): the chunked
+    kernel (the loss, the Gaussian head's two columns and the backward to
+    layer 0's cotangent) and the dV0 kernel, on row counts around its 16-
+    and 32-row tiles, against the one-pass plain version within 4e-3; the
+    kernel computed in f32 lands outside. Rows next to a relu kink get a
+    zero advantage."""
+    n_layers, use_fn, use_relu = WIDE_TRUNKS[trunk]
+    d_in = K3_WIDTHS[trunk]
+    gen = torch.Generator().manual_seed(rows + d_in)
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", rows, d_in, 256, n_layers, use_fn, cuda)
+    x = x.bfloat16()
+    if use_relu:
+        aux[FP.relu_kink_rows_folded(x, kp, n_layers, use_fn), 3] = 0.0
+    log_std = torch.tensor([-0.3, 0.2], device=cuda)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True, clip_param=0.2)
+    cb.reset_launches()
+    got = FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std, **kw)
+    assert dict(cb.LAUNCHES) == {"actor_ppo_grads": 1, "actor_ppo_grads_dv0": 1}
+    assert cb.ENTRY == {"actor_ppo_grads": "dcc_actor_grads_chunked_mma",
+                        "actor_ppo_grads_dv0": "dcc_dv0_mma"}
+    want = FP.actor_grads_plain(x, aux, kp, hw, hb, log_std, **kw)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < 4e-3
+    if rows > 1:
+        _f32_outside(_flat(FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std,
+                                               **{**kw, "bf16": False})), _flat(want), 4e-3)
+
+
+@pytest.mark.parametrize("trunk", list(WIDE_TRUNKS))
+@pytest.mark.parametrize("rows", [1, 37, 2400, 20000])
+def test_bf16_chunked_actor_unfolded_on_tensor_cores(cuda, rows, trunk):
+    """bf16 K3u at 1,510-wide actor rows: the chunked kernel, the layer-0
+    input backward without dx (with the feature norm) and the dV0 kernel in
+    its affine mode, against the plain version within 4e-3, the kernel
+    computed in f32 outside; rows next to a relu kink of the unfolded chain
+    get a zero advantage."""
+    n_layers, use_fn, use_relu = WIDE_TRUNKS[trunk]
+    gen = torch.Generator().manual_seed(rows + POIS_ACTOR + 17)
+    x, aux, params, hw, hb = _unfolded_case(gen, "actor", rows, POIS_ACTOR, 256, n_layers,
+                                            use_fn, use_relu, True, cuda)
+    kw = dict(n_layers=n_layers, use_fn=use_fn, use_relu=use_relu, bf16=True, clip_param=0.2)
+    cb.reset_launches()
+    got = _unfolded("actor", x, aux, params, hw, hb, True, **kw)
+    want = {"actor_ppo_grads_unfolded": 1, "dv0_unfolded": 1}
+    if use_fn:
+        want["layer0_input_bwd"] = 1
+    assert dict(cb.LAUNCHES) == want
+    assert cb.ENTRY["actor_ppo_grads_unfolded"] == "dcc_actor_grads_unfolded_chunked_mma"
+    ref = _unfolded("actor", x, aux, params, hw, hb, False, **kw)
+    assert [tuple(g.shape) for g in got[0]] == [tuple(p.shape) for p in params]
+    _assert_unfolded_close(got, ref, True)
+    if rows > 1:
+        f32 = _unfolded("actor", x, aux, params, hw, hb, True, **{**kw, "bf16": False})
+        _f32_outside(_flat(f32), _flat(ref), 4e-3)
+
+
+# 4 UAVs x 300 PoIs in bf16 at 8 envs and 2 epochs: the launches of one
+# iteration beside K1 and the rollout's K2 (150 staged on the actor's rows,
+# 151 chunked on the critic's): folded (K3 and K4 chunked, each with its
+# dV0), unfolded (K3u and K4u chunked, each with the layer-0 input backward
+# and dV0) and the fused loss off (autograd: K2 once more per network and
+# epoch, K2b staged on the actor's rows, chunked on the critic's)
+POIS_RUNS = {
+    "folded": ({}, {"fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads": 2,
+                    "critic_ppo_grads": 2, "actor_ppo_grads_dv0": 2,
+                    "critic_ppo_grads_dv0": 2}),
+    "unfolded": ({"fused_fold": False},
+                 {"fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads_unfolded": 2,
+                  "critic_ppo_grads_unfolded": 2, "layer0_input_bwd": 4, "dv0_unfolded": 4}),
+    "fused-loss-off": ({"fused_loss": "off"},
+                       {"fused_mlp": 152, "fused_mlp_chunked": 153, "fused_mlp_bwd": 2,
+                        "fused_mlp_bwd_chunked": 2, "layer0_input_bwd": 2, "dv0_unfolded": 2}),
+}
+
+
+@pytest.mark.parametrize("case", list(POIS_RUNS))
+def test_many_pois_trains_on_the_card(cuda, case):
+    """The default env with 300 PoIs (actor rows 1,510, critic rows 6,040)
+    in bf16 builds on the card and trains one iteration at 8 envs and 2
+    epochs through the chunked kernels, launched exactly as the path runs
+    them, with finite metrics."""
+    import math
+
+    from dcc_tpu_torch.algos import MAPPO
+    from dcc_tpu_torch.configs import load
+
+    override, launches = POIS_RUNS[case]
+    _, env_cfg, algo_cfg = load(overrides={
+        "num_pois": 300, "compute_dtype": "bfloat16", "n_rollout_threads": 8, "ppo_epoch": 2,
+        "n_eval_rollout_threads": 0})
+    assert (env_cfg.obs_dim, env_cfg.share_obs_dim) == (1510, 6040)
+    algo = MAPPO(algo_cfg._replace(**override), env_cfg, device=cuda)
+    ts = algo.init_state(0)
+    cb.reset_launches()
+    m = algo.train_iteration(ts)
+    assert all(math.isfinite(v) for v in m)
+    assert {k: v for k, v in cb.LAUNCHES.items() if k != "gae"} == launches
+    assert cb.ENTRY["fused_mlp_chunked"] == "dcc_trunk_fwd_chunked_mma"

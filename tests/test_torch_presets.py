@@ -3,9 +3,12 @@ same merged config and the same ``EnvConfig`` / ``MAPPOConfig`` field by
 field; one tiny training iteration of each one-card preset (as
 tests/test_presets.py); the 20-UAV preset's build on CUDA, where its
 4,840-wide critic rows take the chunked layout of bf16 K4, of K2b (the fused
-loss off, the recurrent policy) and of K4u (unfolded); and MAPPO's refusal
-where a kernel with no tile at 4,840 would run such rows (what is left of
-ROADMAP B2: bf16 K3 and K3u, on no configuration's path)."""
+loss off, the recurrent policy) and of K4u (unfolded), and where bf16 K3 and
+K3u are given rows that wide; the builds of the many-PoI swarms, 4 UAVs x
+300 PoIs (actor rows 1,510, critic rows 6,040: chunked K2, K3, K3u, K4,
+K4u, K2b) and the 20-UAV preset with 50 PoIs (critic rows 5,840: chunked
+K2); and MAPPO's refusal at construction of a trunk the fused CUDA kernels
+do not take (ROADMAP B3)."""
 
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ import pytest
 from dcc_tpu.configs import PRESETS as J_PRESETS
 from dcc_tpu.configs import load_preset as j_load_preset
 from dcc_tpu_torch.algos import MAPPO
-from dcc_tpu_torch.configs import PRESETS, load_preset
+from dcc_tpu_torch.configs import PRESETS, load, load_preset
 from dcc_tpu_torch.ops import tiles
 from test_torch_cuda import pretend_cuda
 
@@ -103,15 +106,100 @@ def test_20uav_preset_overrides_build_on_cuda(monkeypatch, override, kernel):
 
 @pytest.mark.parametrize("fold,kernel", [(True, "actor_ppo_grads"),
                                          (False, "actor_ppo_grads_unfolded")])
-def test_20uav_preset_refused_on_cuda(monkeypatch, fold, kernel):
-    """What is left of ROADMAP B2: bf16 K3 and K3u have no tile at 4,840-wide
-    rows and no chunked layout. No configuration gives the actor rows that
-    wide, so the check is driven with the preset's MAPPO given 4,840-wide
-    actor rows: on CUDA it refuses, naming the kernel and B2."""
+def test_20uav_wide_actor_rows_build_on_cuda(monkeypatch, fold, kernel):
+    """bf16 K3 and K3u have a chunked layout at 4,840-wide actor rows, so the
+    preset's MAPPO given 4,840-wide actor rows passes the check on CUDA, as
+    does bf16 K2 at 6,040-wide rows."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (False, [])
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16])
+    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16])
     algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device="cuda")
     algo.obs_dim = env_cfg.share_obs_dim
-    with pytest.raises(NotImplementedError, match=f"{kernel} .*B2"):
-        algo._check_row_tiles()
+    algo._check_row_tiles()
+
+
+def _many_pois(num_pois, preset=None, **over):
+    """(EnvConfig, MAPPOConfig) in bf16 of the default env, or of a preset,
+    with ``num_pois`` PoIs and the config fields ``over`` set."""
+    overrides = {"num_pois": num_pois, "compute_dtype": "bfloat16"}
+    _, env_cfg, algo_cfg = (load(overrides=overrides) if preset is None
+                            else load_preset(preset, overrides=overrides))
+    return env_cfg, algo_cfg._replace(**over)
+
+
+# 4 UAVs x 300 PoIs in bf16: folded, unfolded and with the fused loss off,
+# and the kernels each path takes in the chunked layout at its widths
+POIS_BUILDS = {
+    "folded": ({}, ("actor_ppo_grads", "critic_ppo_grads")),
+    "unfolded": ({"fused_fold": False},
+                 ("actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")),
+    "fused-loss-off": ({"fused_loss": "off"}, ("fused_mlp_bwd",)),
+}
+
+
+@pytest.mark.parametrize("case", list(POIS_BUILDS))
+def test_many_pois_builds_on_cuda(monkeypatch, case):
+    """The default env with 300 PoIs: actor rows 1,510 wide, wider than any
+    staged bf16 K3 (1,472) or K3u (1,088) tile, and critic rows 6,040 wide,
+    wider than any staged K2 (5,632), K4, K4u or K2b tile. Every kernel of
+    the path has a chunked layout there, so MAPPO builds on CUDA with the
+    fused kernels."""
+    pretend_cuda(monkeypatch)
+    over, kernels = POIS_BUILDS[case]
+    env_cfg, algo_cfg = _many_pois(300, **over)
+    assert (env_cfg.n_agents, env_cfg.obs_dim, env_cfg.share_obs_dim) == (4, 1510, 6040)
+    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16])
+    assert tiles.plan("fused_mlp", True, 1510, 256, 2)[0] is False  # the actor's: staged
+    for kernel in kernels:
+        n_head = 2 if kernel.startswith("actor") else 1
+        width = 1510 if kernel.startswith("actor") else 6040
+        assert tiles.plan(kernel, True, width, 256, 2, n_head) == (True, [32, 16]), kernel
+    algo = MAPPO(algo_cfg, env_cfg, device="cuda")
+    assert algo.fused_trunk and algo.fused_loss == (case != "fused-loss-off")
+    assert algo.cfg.fused_fold == (case != "unfolded")
+
+
+def test_20uav_fifty_pois_builds_on_cuda(monkeypatch):
+    """The 20-UAV preset with 50 PoIs: critic rows 5,840 wide, past the
+    staged bf16 K2's 5,632, take its chunked layout; the 292-wide actor rows
+    stay staged. MAPPO builds on CUDA with the fused kernels."""
+    pretend_cuda(monkeypatch)
+    env_cfg, algo_cfg = _many_pois(50, "20uav_16k_dist")
+    assert (env_cfg.n_agents, env_cfg.obs_dim, env_cfg.share_obs_dim) == (20, 292, 5840)
+    assert tiles.plan("fused_mlp", True, 5840, 256, 2) == (True, [32, 16])
+    assert tiles.plan("actor_ppo_grads", True, 292, 256, 2, 2)[0] is False
+    algo = MAPPO(algo_cfg, env_cfg, device="cuda")
+    assert algo.fused_loss and algo.fused_trunk
+
+
+# trunks the fused CUDA kernels do not take (ROADMAP B3): (config fields)
+B3_REFUSALS = {
+    "bf16-hidden-320": {"compute_dtype": "bfloat16", "hidden_size": 320},
+    "bf16-hidden-100": {"compute_dtype": "bfloat16", "hidden_size": 100},
+    "bf16-layer-n-8": {"compute_dtype": "bfloat16", "layer_n": 8},
+    "f32-fused-layer-n-8": {"layer_n": 8, "fused_loss": "on", "fused_trunk": "on"},
+}
+
+
+@pytest.mark.parametrize("case", list(B3_REFUSALS))
+def test_cuda_trunk_refused_at_construction(monkeypatch, case):
+    """ROADMAP C5: a trunk the fused CUDA kernels do not take (a bf16 hidden
+    width above 256 or off multiples of 8; more than 8 layers, which the
+    CUDA entries refuse in f32 too) is refused when MAPPO is built on CUDA,
+    before any launch, naming B3, not at the first launch inside the
+    rollout."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load()
+    with pytest.raises(NotImplementedError, match="B3"):
+        MAPPO(algo_cfg._replace(**B3_REFUSALS[case]), env_cfg, device="cuda")
+
+
+def test_cuda_trunk_without_fused_kernels_builds(monkeypatch):
+    """The same trunks build on CUDA where no fused kernel runs (f32 with
+    the defaults: autograd, K1 only)."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load()
+    for over in ({"hidden_size": 320}, {"hidden_size": 100}, {"layer_n": 8}):
+        algo = MAPPO(algo_cfg._replace(**over), env_cfg, device="cuda")
+        assert not (algo.fused_trunk or algo.fused_loss)
