@@ -33,8 +33,8 @@ Phases (any failure exits non-zero):
    critic 58 / 174, 192 / 960, 122 / 1,220) at their 16 envs, at the shapes
    their runs give them, each check printing the row tile its launch took;
    there the bf16 gradient kernels run three trunks (``trunk_variants``:
-   the model's, a reading; the model's with tanh and one relu layer on the
-   rows themselves, both checks). Then the 20-UAV preset's widths
+   the model's, the model's with tanh, and one relu layer on the rows
+   themselves). Then the 20-UAV preset's widths
    (``check_wide``: actor 242, team-concat critic 4,840, where bf16 K4, K2b
    and K4u run their chunked layer 0, then the dV0 kernel and, for K2b and
    K4u, the layer-0 input backward): K2 at 16 and 1,024 envs, K3 / K4 at
@@ -58,15 +58,20 @@ Phases (any failure exits non-zero):
    153,600 x 6,040), K3 / K4 at 4 x 360 PoIs (1,810: the one-relu-layer
    trunk's K3 chunked), and dV0 in both modes and the layer-0 input
    backward on the actor's rows; each row with its kernels' ptxas
-   registers and spills. Biases and
+   registers and spills. Then ROADMAP B3's hidden widths
+   (``check_wide_hidden``: 100, off multiples of 8, and 264 to 1,024, in
+   column passes of 256): every kernel at 16 envs, f32 and bf16, on the
+   three trunks; the chunked layouts at 512; at 512 and 1,024 the main
+   path's shapes at 1,024 envs, timed, with ptxas registers and spills.
+   Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
    and requires that reading to lie outside the bf16 bound, so the bound
-   tells the bf16 rounding points from none at all. Rows with a relu
-   pre-activation within one bf16 step of the kink get a zero advantage
-   (bf16 K3, K3u), valid = 0 (bf16 K4, K4u) or a zero cotangent (K2b): the
-   tensor cores' summation order and the plain version's may put them on
-   opposite sides of it. Times: CUDA events
+   tells the bf16 rounding points from none at all. bf16 relu trunks run
+   under the relu mask rule (``masked_relu``, ROADMAP C3): the kernel
+   writes its relu masks, each that differs from the plain version's must
+   lie within what a one-bf16-step change of the layer's input moves, and
+   the plain version then runs on the kernel's masks. Times: CUDA events
    around a run of 50 back-to-back launches (fewer, down to 3, when one
    launch takes over 5 ms), divided by the count; K2 is fed parameters
    packed beforehand, as the rollout packs them once per parameter version
@@ -104,6 +109,11 @@ Phases (any failure exits non-zero):
    layer-0 input backward and dV0), unfolded (K3u 15, K4u chunked 15, the
    layer-0 input backward and dV0 15 each) and recurrent at 64 envs without
    update chunks (K2b 15 staged and 15 chunked, the other two 15 each);
+   B3's hidden widths at 16 envs, one bf16 iteration each (512 folded,
+   unfolded and with the fused loss off, 100 unfolded, 1,024 with the
+   fused loss off, recurrent at 300) and the 20-UAV preset at hidden 512
+   (1,024 envs: K3 on 3,072,000 x 242 x 512, K4 chunked with dV0 on
+   153,600 x 4,840 x 512);
    one bf16 iteration each of 4 UAVs x 300 PoIs at 1,024 envs
    (``reduced``): folded (K2 150 staged on the actor's rows and 151
    chunked on the critic's, ``fused_mlp_chunked``; K3 and K4 chunked 15
@@ -137,7 +147,8 @@ Phases (any failure exits non-zero):
    chunked K3 and K3u on 614,400 x 1,510 actor rows,
    ``actor_ppo_grads_chunked`` (both launches) and
    ``actor_ppo_grads_unfolded_chunked`` (three), and K3's dV0 alone,
-   ``actor_ppo_grads_dv0``, ``KERNEL_ROW``; ``library_ms`` for the dV0
+   ``actor_ppo_grads_dv0``; the kernels at hidden 512, ``*_h512``, at the
+   main path's shapes, ``KERNEL_ROW``; ``library_ms`` for the dV0
    rows, null for the others; ``ptxas``: the registers and spills of each
    row's kernels), the card line, and the result.
 
@@ -174,6 +185,13 @@ WIDE_ENVS = 1024
 # critic rows 5,840. Names of ``env_config``: (base preset, PoIs)
 POIS = "pois300"
 MANY_POIS = {POIS: (None, 300), "pois360": (None, 360), "20uav-pois50": (WIDE, 50)}
+# ROADMAP B3's hidden widths: each held at 16 envs (``check_wide_hidden``),
+# past one column pass (264 .. 1,024) and off multiples of 8 (100); the main
+# path's shapes at 1,024 envs timed at 512 and 1,024; the {"kernels": [...]}
+# line's rows at ``HIDDEN_ROW`` wide (names with the suffix ``_h512``)
+HIDDEN_CHECKS = (100, 264, 300, 512, 1024)
+HIDDEN_TIMED = (512, 1024)
+HIDDEN_ROW = 512
 # K1: the C entry every launch goes through; the (T, E) shapes held against
 # the plain version (ragged, T = 1, fewer columns than a warp); the timed ones
 GAE_ENTRY = "dcc_gae_seg"
@@ -228,6 +246,18 @@ REPLACES = {
     "actor_ppo_grads_chunked": "dcc_tpu/ops/fused_ppo.py:575",
     "actor_ppo_grads_unfolded_chunked": "dcc_tpu/ops/fused_ppo.py:290",
     "actor_ppo_grads_dv0": "dcc_tpu/ops/fused_ppo.py:575",
+    # the same kernels at hidden 512 (two column passes a layer): K2, K2b,
+    # K3, K4 and K3u / K4u at the default widths, K4's chunked kernel and
+    # dV0 at the 20-UAV preset's
+    **{f"{k}_h{HIDDEN_ROW}": v for k, v in (
+        ("fused_mlp", "dcc_tpu/ops/fused_mlp.py:265"),
+        ("fused_mlp_bwd", "dcc_tpu/ops/fused_mlp.py:299"),
+        ("actor_ppo_grads", "dcc_tpu/ops/fused_ppo.py:552"),
+        ("critic_ppo_grads", "dcc_tpu/ops/fused_ppo.py:644"),
+        ("actor_ppo_grads_unfolded", "dcc_tpu/ops/fused_ppo.py:552"),
+        ("critic_ppo_grads_unfolded", "dcc_tpu/ops/fused_ppo.py:644"),
+        ("critic_ppo_grads_chunked", "dcc_tpu/ops/fused_ppo.py:644"),
+        ("critic_ppo_grads_dv0", "dcc_tpu/ops/fused_ppo.py:644"))},
 }
 SOURCES = {
     "gae": "dcc_tpu_torch/csrc/gae.cu",
@@ -248,9 +278,13 @@ SOURCES = {
     "actor_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "actor_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
 }
+SOURCES.update({f"{k}_h{HIDDEN_ROW}": SOURCES[k] for k in (
+    "fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads",
+    "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded", "critic_ppo_grads_chunked",
+    "critic_ppo_grads_dv0")})
 # the check whose numbers the {"kernels": [...]} line reports for each of
 # its names, and the counter of that name's launches: (kernel, envs, preset)
-# of the first gated bf16 check (K1 f32) with no minibatch; (name, 16, None)
+# of the first bf16 check (K1 f32) with no minibatch; (name, 16, None)
 # where not listed. The chunked K4 and the dV0 kernel run only at rows too
 # wide for a staged K4 tile: the 20-UAV preset's, read at the main path's
 # 153,600 rows. The chunked K4 counts under critic_ppo_grads, and its time
@@ -264,6 +298,11 @@ SOURCES = {
 # rows); the chunked K2 counts under fused_mlp_chunked, K3 and K3u under
 # their own names, the time and bound of K3 both launches', K3u's three;
 # K3's dV0 alone, actor_ppo_grads_dv0.
+# The rows at hidden 512: the main path's shapes at WIDE_ENVS envs (K2 on a
+# rollout step's 1,024 x 440 critic rows, 614,400 x 110 and 153,600 x 440
+# for K3 / K4 and K3u / K4u; K4's chunked kernel and dV0 on the 20-UAV
+# preset's 153,600 x 4,840), K2b at 16 envs (9,600 x 110, the run's).
+# Entries: (kernel, envs, preset[, hidden[, text the row's shape holds]]).
 KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
               "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE),
               "fused_mlp_bwd_chunked": ("fused_mlp_bwd_chunked", WIDE_ENVS, WIDE),
@@ -274,7 +313,16 @@ KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
               "fused_mlp_chunked": ("fused_mlp_chunked", WIDE_ENVS, POIS),
               "actor_ppo_grads_chunked": ("actor_ppo_grads", WIDE_ENVS, POIS),
               "actor_ppo_grads_unfolded_chunked": ("actor_ppo_grads_unfolded", WIDE_ENVS, POIS),
-              "actor_ppo_grads_dv0": ("actor_ppo_grads_dv0", WIDE_ENVS, POIS)}
+              "actor_ppo_grads_dv0": ("actor_ppo_grads_dv0", WIDE_ENVS, POIS),
+              **{f"{k}_h{HIDDEN_ROW}": (k, WIDE_ENVS, None, HIDDEN_ROW) for k in (
+                  "actor_ppo_grads", "critic_ppo_grads", "actor_ppo_grads_unfolded",
+                  "critic_ppo_grads_unfolded")},
+              f"fused_mlp_h{HIDDEN_ROW}": ("fused_mlp", WIDE_ENVS, None, HIDDEN_ROW, "d_in=440"),
+              f"fused_mlp_bwd_h{HIDDEN_ROW}": ("fused_mlp_bwd", 16, None, HIDDEN_ROW),
+              f"critic_ppo_grads_chunked_h{HIDDEN_ROW}": ("critic_ppo_grads", WIDE_ENVS, WIDE,
+                                                         HIDDEN_ROW),
+              f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE,
+                                                     HIDDEN_ROW)}
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
 BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
@@ -298,6 +346,11 @@ def preset_args(name: str) -> list:
     """The CLI arguments that select a named env preset's YAML."""
     return ["--env-yaml", os.path.join("dcc_tpu_torch", "configs", "env_config",
                                        f"dcc_{name}.yaml")]
+
+
+def hidden_args(hidden: int) -> list:
+    """The CLI arguments of one iteration at the hidden width ``hidden``."""
+    return ["--algo-hidden-size", str(hidden), "--n-iters", "1"]
 
 
 TRAIN_RUNS = (
@@ -388,6 +441,30 @@ TRAIN_RUNS = (
     (f"{POIS}-bf16-fused-loss-off", BF16 + POIS_ARGS + ["--fused-loss", "off"],
      {"gae": 1, "fused_mlp": 165, "fused_mlp_chunked": 166, "fused_mlp_bwd": 15,
       "fused_mlp_bwd_chunked": 15, "layer0_input_bwd": 15, "dv0_unfolded": 15}),
+    # ROADMAP B3's hidden widths, one bf16 iteration each at 16 envs, every
+    # kernel in column passes past 256 or zero-padded off multiples of 8:
+    # 512 folded (K2, K3, K4), unfolded (K3u, K4u) and with the fused loss off
+    # (K2, K2b); 100 unfolded; 1,024 with the fused loss off; recurrent at 300
+    ("bf16-h512", BF16 + hidden_args(512),
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15}),
+    ("bf16-h512-unfolded", BF16 + hidden_args(512) + ["--fused-fold", "false"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
+      "critic_ppo_grads_unfolded": 15}),
+    ("bf16-h512-fused-loss-off", BF16 + hidden_args(512) + ["--fused-loss", "off"],
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    ("bf16-h100-unfolded", BF16 + hidden_args(100) + ["--fused-fold", "false"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
+      "critic_ppo_grads_unfolded": 15}),
+    ("bf16-h1024-fused-loss-off", BF16 + hidden_args(1024) + ["--fused-loss", "off"],
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    ("recurrent-bf16-h300", BF16 + RECURRENT + hidden_args(300),
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    # the 20-UAV preset at hidden 512, 1,024 envs: K3 staged on 3,072,000 x
+    # 242 x 512, K4 chunked with dV0 on 153,600 x 4,840 x 512
+    (f"preset-{WIDE}-h512", preset_args(WIDE) + hidden_args(512)
+     + ["--n-rollout-threads", str(WIDE_ENVS)],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
+      "critic_ppo_grads_dv0": 15}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -402,7 +479,14 @@ MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "dv0_unfolded": f"preset-{WIDE}-fused-loss-off",
             "fused_mlp_chunked": f"{POIS}-bf16", "actor_ppo_grads_chunked": f"{POIS}-bf16",
             "actor_ppo_grads_unfolded_chunked": f"{POIS}-bf16-unfolded",
-            "actor_ppo_grads_dv0": f"{POIS}-bf16"}
+            "actor_ppo_grads_dv0": f"{POIS}-bf16",
+            **{f"{k}_h{HIDDEN_ROW}": f"bf16-h{HIDDEN_ROW}" for k in (
+                "fused_mlp", "actor_ppo_grads", "critic_ppo_grads")},
+            f"fused_mlp_bwd_h{HIDDEN_ROW}": f"bf16-h{HIDDEN_ROW}-fused-loss-off",
+            **{f"{k}_h{HIDDEN_ROW}": f"bf16-h{HIDDEN_ROW}-unfolded" for k in (
+                "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")},
+            f"critic_ppo_grads_chunked_h{HIDDEN_ROW}": f"preset-{WIDE}-h{HIDDEN_ROW}",
+            f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": f"preset-{WIDE}-h{HIDDEN_ROW}"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
@@ -412,6 +496,9 @@ _WIDE_TRUNK_MMA = {**_TRUNK_MMA, "fused_mlp_bwd_chunked": "dcc_trunk_bwd_chunked
                    "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"}
 _FOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
                "critic_ppo_grads": "dcc_critic_grads_mma"}
+_UNFOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma",
+                 "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_mma",
+                 "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_mma"}
 MMA_ENTRY = {
     "bf16": _FOLDED_MMA,
     "recurrent-bf16": _TRUNK_MMA,
@@ -444,6 +531,14 @@ MMA_ENTRY = {
         "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
     f"{POIS}-bf16-fused-loss-off": {**_WIDE_TRUNK_MMA,
                                     "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma"},
+    "bf16-h512": _FOLDED_MMA,
+    "bf16-h512-unfolded": _UNFOLDED_MMA,
+    "bf16-h512-fused-loss-off": _TRUNK_MMA,
+    "bf16-h100-unfolded": _UNFOLDED_MMA,
+    "bf16-h1024-fused-loss-off": _TRUNK_MMA,
+    "recurrent-bf16-h300": _TRUNK_MMA,
+    f"preset-{WIDE}-h512": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
+                            "critic_ppo_grads_dv0": "dcc_dv0_mma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
@@ -453,7 +548,9 @@ MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_
                "critic_grads_unfolded_chunked_mma_kernel", "layer0_input_bwd_mma_kernel",
                "trunk_fwd_chunked_mma_kernel", "actor_grads_chunked_mma_kernel",
                "actor_grads_unfolded_chunked_mma_kernel")
-MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo")
+MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide", "fused_mlp_bwd_wide",
+            "fused_ppo_wide")
+WIDE_TAG = " [wide]"  # a kernel of a ``*_wide`` library (its layers in column passes)
 # the runs followed by one profiled iteration
 PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
             f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded", f"{POIS}-bf16",
@@ -512,10 +609,10 @@ def host_us(fn, n: int = N_TIMED) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def compare(name, got, want, max_rel, max_abs=None, gate=True):
-    """Per-tensor max |k - p| and ||k - p|| / ||p||; raises past the bounds
-    (with ``gate`` False, a reading: only on a shape or a non-finite value).
-    Returns the worst of each and the index of the tensor with the worst rel."""
+def compare(name, got, want, max_rel, max_abs=None):
+    """Per-tensor max |k - p| and ||k - p|| / ||p||; raises past the bounds,
+    on a shape or on a non-finite value. Returns the worst of each and the
+    index of the tensor with the worst rel."""
     worst_abs, worst_rel, worst_i = 0.0, 0.0, 0
     for i, (g, w) in enumerate(zip(got, want)):
         g, w = g.float(), w.float()
@@ -528,7 +625,7 @@ def compare(name, got, want, max_rel, max_abs=None, gate=True):
         worst_abs = max(worst_abs, a)
         if r > worst_rel:
             worst_rel, worst_i = r, i
-        if gate and (r > max_rel or (max_abs is not None and a > max_abs)):
+        if r > max_rel or (max_abs is not None and a > max_abs):
             raise SmokeFailure(f"{name}[{i}]: max_abs {a:.3e} rel {r:.3e} exceeds "
                                f"rel {max_rel} / abs {max_abs}")
     return worst_abs, worst_rel, worst_i
@@ -575,18 +672,20 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 
 def ptxas_report(logs: dict, show: bool) -> dict:
-    """Registers and spills of every kernel from the ``-Xptxas -v`` reports;
-    prints the tensor-core kernels' and K1's (and the whole report with
-    ``show``)."""
+    """Registers and spills of every kernel from the ``-Xptxas -v`` reports,
+    by mangled name (``WIDE_TAG`` appended for the ``*_wide`` libraries'
+    kernels); prints the tensor-core kernels' and K1's (and the whole report
+    with ``show``)."""
     info, fn = {}, None
     for name, text in sorted(logs.items()):
         if show:
             print(f"--- nvcc {name}.cu ---\n{text}")
+        tag = WIDE_TAG if name.endswith("_wide") else ""
         for line in text.splitlines():
             m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)",
                           line)
             if m:
-                fn = m.group(1)
+                fn = m.group(1) + tag
                 info.setdefault(fn, {})
                 continue
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -620,7 +719,7 @@ def sass_check(built: dict) -> dict:
         for line in out.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
-                fn = m.group(1)
+                fn = m.group(1) + (WIDE_TAG if lib.endswith("_wide") else "")
                 counts[fn] = 0
             elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
                 counts[fn] += 1
@@ -659,16 +758,16 @@ def device_us(fn, n: int, match: str):
 
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
-           f32_rel=None, device_match=None, preset=None, gated=True, library=None,
+           f32_rel=None, device_match=None, preset=None, library=None, hidden: int = 256,
            **extra_host):
     """Time the kernel's wrapper and the plain version, print and keep the
     row. ``device_match``: also the profiler's device us per call of the
     kernels whose name holds it. ``preset``: the env preset whose widths the
-    check takes (None: the default config). ``gated``: False where the
-    errors are a reading, not a check (``trunk_variants``). ``library``: one
+    check takes (None: the default config). ``library``: one
     PyTorch call that computes the same function, timed as the yardstick
-    (``library_ms``; the port never calls it). ``extra_host``: further
-    callables whose host us per call are printed beside the wrapper's."""
+    (``library_ms``; the port never calls it). ``hidden``: the trunk's
+    width. ``extra_host``: further callables whose host us per call are
+    printed beside the wrapper's."""
     from dcc_tpu_torch.ops.cuda_build import ENTRY, TILE
 
     err, rel, worst = errs
@@ -681,14 +780,14 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     tile = TILE.get(kernel)  # and their row tile (K2-K4, K2b, K3u / K4u)
     if mode == "bf16" and not entry.endswith("_mma"):
         raise SmokeFailure(f"bf16 {kernel} went through {entry}, not its tensor-core entry")
-    row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, preset=preset, entry=entry,
-               tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms, n_timed=n,
+    row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, preset=preset, hidden=hidden,
+               entry=entry, tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms,
+               n_timed=n,
                plain_ms=plain_ms, plain_n_timed=plain_n, host_us=hosts, device_us=dev_us,
                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               f32_kernel_rel_err=f32_rel, gated=gated)
+               f32_kernel_rel_err=f32_rel)
     results.append(row)
     extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
-    extra += "" if gated else " (a reading, not a check: ROADMAP C3)"
     dev = "" if dev_us is None else (f" device us/call: kernel {dev_us['kernel']:.2f}, "
                                      f"all {dev_us['all']:.2f};")
     dev += "" if library_ms is None else f" library={library_ms:.4f} ms;"
@@ -787,7 +886,7 @@ def k2_bound(x, params, packed, bf16: bool, hidden: int = 256):
 
 
 def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS),
-                        update_steps: int = 0):
+                        update_steps: int = 0, hidden: int = 256):
     """K2: the trunk forward on the actor (E*A, D) and critic (E, A*D) rows
     of the default config (D = 110) or of ``preset``, at each of
     ``envs_list`` envs, in f32 and bf16, on parameters packed beforehand as
@@ -795,7 +894,8 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     MLPBase.packed_params). bf16 rows too wide for a staged tile take the
     chunked K2 (``fused_mlp_chunked``, with its profiler device time). With
     ``update_steps`` T: bf16 only, on the critic's T*E rows stored in bf16,
-    as the update's forward with the fused loss off gives them."""
+    as the update's forward with the fused loss off gives them. ``hidden``:
+    the networks' hidden width."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -807,7 +907,8 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     for bf16 in ((True,) if update_steps else (False, True)):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_trunk="on"), env, device=dev)
+                                 fused_loss="on", fused_trunk="on", hidden_size=hidden), env,
+                     device=dev)
         actor, critic = algo.make_networks(seed=1)
         perturb_(actor, gen)
         perturb_(critic, gen)
@@ -830,7 +931,7 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 # f32: summation order only; bf16: 1-ulp flips of bf16
                 # roundings inside the chain (LN outputs reach |16|, ulp 1/8)
                 tol = (K2_BF16_REL, 0.25) if bf16 else (1e-4, 1e-3)
-                chunked = bf16 and tiles.plan("fused_mlp", True, width, 256, 2)[0]
+                chunked = bf16 and tiles.plan("fused_mlp", True, width, hidden, 2)[0]
                 name = "fused_mlp_chunked" if chunked else "fused_mlp"
                 want = plain()
                 errs = compare(name, [kern()], [want], *tol)
@@ -838,12 +939,14 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 if bf16:
                     f32_out = FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})
                     f32_rel = f32_reading(name, [f32_out], [want], tol[0])
-                b, by = k2_bound(x, params, packed, bf16)
-                shape = f"rows={rows} d_in={width}" + (" update" if update_steps else "")
+                b, by = k2_bound(x, params, packed, bf16, hidden)
+                shape = (f"rows={rows} d_in={width}" + (" update" if update_steps else "")
+                         + _hidden_label(hidden))
                 hosts = {} if update_steps else {"MLPBase.forward": rollout_call}
                 record(results, name, "bf16" if bf16 else "f32", envs, shape, errs, kern, plain,
                        b, by, f32_rel, preset=preset,
-                       device_match="trunk_fwd_chunked" if chunked else None, **hosts)
+                       device_match="trunk_fwd_chunked" if chunked else None, hidden=hidden,
+                       **hosts)
 
 
 def check_k2_layouts(results: list, gen):
@@ -897,36 +1000,57 @@ def check_k2_layouts(results: list, gen):
                    plain, b, by, preset=preset, device_match=match)
 
 
-def _shape(rows: int, d_in: int, nmb: int = 1) -> str:
+def _shape(rows: int, d_in: int, nmb: int = 1, hidden: int = 256) -> str:
     """A kernel check's shape label; ``nmb``: the rows are one of that many
-    minibatches."""
-    return f"rows={rows} d_in={d_in}" + (f" nmb={nmb}" if nmb > 1 else "")
+    minibatches; ``hidden``: the trunk's width, where it is not 256."""
+    return f"rows={rows} d_in={d_in}" + (f" nmb={nmb}" if nmb > 1 else "") + _hidden_label(hidden)
 
 
-def trunk_variants(bf16: bool, preset) -> list:
+def _hidden_label(hidden: int) -> str:
+    return "" if hidden == 256 else f" H={hidden}"
+
+
+def trunk_variants(bf16: bool, preset, hidden: int = 256) -> list:
     """The trunks a gradient kernel's check runs, as (label, relu, n_layers,
-    use_fn, gated). The default config's checks and every f32 check run the
-    model's trunk (relu, 2 layers, feature norm), gated. In bf16 at a
-    preset's widths three, each a row of its own:
+    use_fn). The default config's checks and every f32 check run the
+    model's trunk (relu, 2 layers, feature norm). In bf16 at a preset's
+    widths or a hidden width other than 256, three, each a row of its own:
 
-    - the model's trunk, a reading and not a check: the bf16 kink rule (one
-      bf16 step of the accumulator) assumes both sides feed a layer the same
-      input, and a layer's input that came through an LN can differ by one
-      bf16 step (the LN statistics sum in another order), which moves rows
-      up to 17 steps from the kink across it (``scripts/width_probe.py
-      --flips``; ROADMAP C3). At these widths K3 read 1.79e-2, K2b 4.18e-3
-      and K4u 5.8e-3 against the 4e-3 bound under that rule;
-    - " tanh": the model's trunk with tanh, no kink, gated;
-    - " relu L=1": one relu layer on the rows themselves (no feature norm),
-      gated: both sides feed the one kinked layer the same bf16 rows, so
-      the kink rule holds, and the relu path runs at the preset's width
-      (row staging and padding, the products over d_in, the d_in x H
-      gradient). With " tanh" it isolates what the model trunk's reading
-      owes to a kink behind an LN."""
-    if not bf16 or preset is None:
-        return [("", True, 2, True, True)]
-    return [("", True, 2, True, False), (" tanh", False, 2, True, True),
-            (" relu L=1", True, 1, False, True)]
+    - the model's trunk, under the relu mask rule (``masked_relu``, ROADMAP
+      C3): the kernel's relu masks may differ from the plain version's only
+      within what a one-bf16-step change of the layer's input can move, and
+      the plain version runs on the kernel's masks;
+    - " tanh": the model's trunk with tanh, no kink;
+    - " relu L=1": one relu layer on the rows themselves (no feature norm):
+      the relu path at the preset's width (row staging and padding, the
+      products over d_in, the d_in x H gradient) with no LN before the kink."""
+    if not bf16 or (preset is None and hidden == 256):
+        return [("", True, 2, True)]
+    return [("", True, 2, True), (" tanh", False, 2, True), (" relu L=1", True, 1, False)]
+
+
+def masked_relu(name, kern, plain, gap, n_layers: int, rows: int, hidden: int):
+    """A bf16 relu trunk's check under the relu mask rule (ROADMAP C3): the
+    kernel writes its relu masks (``relu_masks``); every mask that differs
+    from the plain version's must lie within what a one-bf16-step change of
+    every element of the layer's input can move the pre-activation
+    (``gap(masks)``: ``ops.fused_mlp.relu_mask_gap`` or the folded chain's,
+    ratio at most 1); the plain version then runs on the kernel's masks, so
+    that the comparison holds the rest of the arithmetic. Returns (kernel
+    outputs, plain outputs, (masks that differ, worst ratio))."""
+    import torch
+
+    masks = torch.zeros((n_layers, rows, hidden), dtype=torch.uint8, device="cuda")
+    k = kern(relu_masks=masks)
+    n, worst = gap(masks)
+    print(f"  {name}: {n} of {masks.numel()} relu masks differ from the plain version's, "
+          f"at most {worst:.3f} of the rule's bound", flush=True)
+    if worst > 1.0:
+        raise SmokeFailure(f"{name}: a relu mask differs from the plain version's at "
+                           f"{worst:.3f} of the one-bf16-step bound")
+    p = plain(masks=masks)
+    del masks
+    return k, p, (n, worst)
 
 
 def check_kernels(results: list, ptxas: dict):
@@ -954,14 +1078,16 @@ def check_kernels(results: list, ptxas: dict):
     check_presets(results)
     check_wide(results)
     check_many_pois(results, ptxas)
+    check_wide_hidden(results, ptxas)
 
 
-def check_trunk_backward(results: list, gen, cases, preset=None):
+def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 256,
+                         variants=None):
     """K2b, the trunk backward, on T*E*A/nmb rows of the actor (D wide) and,
     where a case says "both", of the critic (A*D wide, its env rows
     duplicated per agent), for each (envs, nmb, which) of ``cases``, in f32
-    and bf16, of the default config or ``preset``, on the trunks of
-    ``trunk_variants``."""
+    and bf16, of the default config or ``preset``, at the hidden width
+    ``hidden``, on the trunks of ``trunk_variants`` (or ``variants``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -973,7 +1099,8 @@ def check_trunk_backward(results: list, gen, cases, preset=None):
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 use_recurrent_policy=True, fused_trunk="on"), env, device=dev)
+                                 use_recurrent_policy=True, fused_trunk="on",
+                                 hidden_size=hidden), env, device=dev)
         actor, critic = algo.make_networks(seed=4)
         perturb_(actor, gen)
         perturb_(critic, gen)
@@ -984,27 +1111,32 @@ def check_trunk_backward(results: list, gen, cases, preset=None):
                 rows = T * envs * A // nmb
                 x = randn(rows, width).to(xdt)
                 full = [p.detach() for p in net.base.flat_params()]
-                for label, relu, L, fn, gated in trunk_variants(bf16, preset):
+                for label, relu, L, fn in variants or trunk_variants(bf16, preset, hidden):
                     params = full if fn else full[2:2 + 4 * L]
                     kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16)
-                    # rows next to a relu kink may take either side in the
-                    # kernel and in the plain version: they get a zero cotangent
-                    g = randn(rows, 256)
-                    if relu:
-                        kink = FM.relu_kink_rows(x, params, L, fn, bf16)
+                    # f32: rows within 1e-5 of a relu kink may take either side
+                    # in the kernel and in the plain version: they get a zero
+                    # cotangent; bf16: the relu mask rule
+                    g = randn(rows, hidden)
+                    if relu and not bf16:
+                        kink = FM.relu_kink_rows(x, params, L, fn, False)
                         g[kink] = 0.0
-                        print(f"  K2b {'bf16' if bf16 else 'f32'}, {rows} x {width}{label}: "
-                              f"{int(kink.sum())} rows next to a relu kink get a zero "
-                              f"cotangent", flush=True)
+                        print(f"  K2b f32, {rows} x {width}{label}: {int(kink.sum())} rows next "
+                              f"to a relu kink get a zero cotangent", flush=True)
                     g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
-                    kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
-                    plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
-                    k, p = kern(), plain()
+                    kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m)
+                    plain = lambda **m: FM.trunk_backward_plain(x, params, g, **kw, **m)
+                    if relu and bf16:
+                        k, p, _ = masked_relu(
+                            f"K2b {rows} x {width}{label}{_hidden_label(hidden)}", kern, plain,
+                            lambda m: FM.relu_mask_gap(x, params, L, fn, m), L, rows, hidden)
+                    else:
+                        k, p = kern(), plain()
                     k, p = [k[0], *k[1]], [p[0], *p[1]]
                     tol = K2B_BF16_REL if bf16 else 1e-4
-                    errs = compare("fused_mlp_bwd", k, p, tol, gate=gated)
+                    errs = compare("fused_mlp_bwd", k, p, tol)
                     f32_rel = None
-                    if bf16 and gated:
+                    if bf16:
                         k32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
                         f32_rel = f32_reading("fused_mlp_bwd", [k32[0], *k32[1]], p, tol)
                         del k32
@@ -1015,24 +1147,29 @@ def check_trunk_backward(results: list, gen, cases, preset=None):
                               + 2 * 4 * sum(t.numel() for t in params))
                     b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                     record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
-                           _shape(rows, width, nmb) + label, errs, kern, plain, b, by, f32_rel,
-                           preset=preset, gated=gated)
+                           _shape(rows, width, nmb, hidden) + label, errs, kern, plain, b, by,
+                           f32_rel, preset=preset, hidden=hidden)
                     del k, p, g
                 del x
                 torch.cuda.empty_cache()
 
 
-def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
+def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidden: int = 256,
+              variants=None, kinds=("actor", "critic")):
     """K3 / K4, the folded PPO loss + gradient kernels, on T*E*A/nmb actor
     rows and T*E critic rows (nmb = 1) or as many critic rows as actor rows,
     gathered from the env rows duplicated per agent (nmb > 1), for each
     (envs, nmb) of ``cases``, in the ``modes`` (bf16 True), of the default
     config or ``preset``, on the trunks of ``trunk_variants``. K4 at rows too
     wide for a staged tile launches its chunked kernel and the dV0 kernel
-    (``ops.tiles.plan``); its time is both launches'.
+    (``ops.tiles.plan``); its time is both launches'. ``hidden``: the
+    networks' hidden width; ``variants``: the trunks, by default
+    ``trunk_variants``'; ``kinds``: the networks checked.
 
-    At a preset's widths the f32 checks give rows with a relu pre-activation
-    within 1e-5 of the kink a zero advantage / valid = 0."""
+    At a preset's widths and hidden widths other than 256 the f32 checks give
+    rows with a relu pre-activation within 1e-5 of the kink a zero advantage
+    / valid = 0; the bf16 checks of relu trunks run under the relu mask rule
+    (``masked_relu``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1040,14 +1177,15 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
 
     dev = torch.device("cuda")
     env = env_config(preset)
-    T, A, D, H = 150, env.n_agents, env.obs_dim, 256
+    T, A, D, H = 150, env.n_agents, env.obs_dim, hidden
     wide = preset == WIDE or preset in MANY_POIS
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
     for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_trunk="on"), env, device=dev)
+                                 fused_loss="on", fused_trunk="on", hidden_size=hidden), env,
+                     device=dev)
         actor, critic = algo.make_networks(seed=2)
         perturb_(actor, gen)
         perturb_(critic, gen)
@@ -1078,63 +1216,78 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
                 v0 = critic(cent[: min(Rv, 65536)].float())
             vpred = randn(Rv, 1) * float(v0.std() + 0.1)
             ret = vpred + 3.0 * randn(Rv, 1)
-            for label, relu, L, fn, gated in trunk_variants(bf16, preset):
-                trunk = actor_p if fn else actor_p[2:2 + 4 * L]
-                kp, whf, bhf = FP.fold_trunk(trunk, actor.act_out.weight.detach().t(),
-                                             actor.act_out.bias.detach(), L, fn)
-                adv = adv0.clone()
-                if relu and (bf16 or preset is not None):
-                    # f32 at a preset's widths: rows within 1e-5 of a relu kink;
-                    # bf16: rows with a relu pre-activation within one bf16 step
-                    # of the kink, which may take either side in the tensor
-                    # cores' summation order and in the plain version's: they
-                    # get a zero advantage
-                    kink = FP.relu_kink_rows_folded(obs, kp, L, fn, bf16=bf16)
-                    adv[kink] = 0.0
-                    print(f"  actor {mode}, {envs} envs, {_shape(R, D, nmb)}{label}: "
-                          f"{int(kink.sum())} rows next to a relu kink get a zero advantage",
-                          flush=True)
-                aux_a = FP.pack_actor_aux(act, old_lp, adv)
-                ls = actor.log_std.detach()
-                kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
-                kern = lambda: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw)
-                plain = lambda: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw)
-                k, p = kern(), plain()
-                errs = compare("actor_ppo_grads", flat(k), flat(p), tol, gate=gated)
-                f32_rel = None
-                if bf16 and gated:
-                    f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
-                                                **{**kw, "bf16": False})
-                    f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), tol)
-                    del f32_k
-                # forward, dW and (past layer 0) g_prev: 2 ops a MAC
-                ops = 2 * R * (2 * D * H + 3 * (L - 1) * H * H)
-                # rows and aux in, folded params in, their gradients out
-                nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
-                b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb) + label, errs,
-                       kern, plain, b, by, f32_rel, preset=preset, gated=gated,
-                       device_match="mma_kernel" if bf16 and wide else None)
-                del k, p
+            for label, relu, L, fn in variants or trunk_variants(bf16, preset, H):
+                if "actor" in kinds:
+                    trunk = actor_p if fn else actor_p[2:2 + 4 * L]
+                    kp, whf, bhf = FP.fold_trunk(trunk, actor.act_out.weight.detach().t(),
+                                                 actor.act_out.bias.detach(), L, fn)
+                    adv = adv0.clone()
+                    if relu and not bf16 and (preset is not None or H != 256):
+                        # f32 at a preset's widths or another hidden width: rows
+                        # within 1e-5 of a relu kink may take either side in the
+                        # two summation orders: they get a zero advantage (bf16:
+                        # the relu mask rule)
+                        kink = FP.relu_kink_rows_folded(obs, kp, L, fn, bf16=False)
+                        adv[kink] = 0.0
+                        print(f"  actor {mode}, {envs} envs, {_shape(R, D, nmb, H)}{label}: "
+                              f"{int(kink.sum())} rows next to a relu kink get a zero advantage",
+                              flush=True)
+                    aux_a = FP.pack_actor_aux(act, old_lp, adv)
+                    ls = actor.log_std.detach()
+                    kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
+                    kern = lambda **m: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw, **m)
+                    plain = lambda **m: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw,
+                                                             **m)
+                    if relu and bf16:
+                        k, p, _ = masked_relu(
+                            f"K3 {envs} envs, {_shape(R, D, nmb, H)}{label}", kern, plain,
+                            lambda m: FP.relu_mask_gap_folded(obs, kp, L, fn, m), L, R, H)
+                    else:
+                        k, p = kern(), plain()
+                    errs = compare("actor_ppo_grads", flat(k), flat(p), tol)
+                    f32_rel = None
+                    if bf16:
+                        f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
+                                                    **{**kw, "bf16": False})
+                        f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), tol)
+                        del f32_k
+                    # forward, dW and (past layer 0) g_prev: 2 ops a MAC
+                    ops = 2 * R * (2 * D * H + 3 * (L - 1) * H * H)
+                    # rows and aux in, folded params in, their gradients out
+                    nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+                    b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
+                    record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb, H) + label,
+                           errs, kern, plain, b, by, f32_rel, preset=preset,
+                           device_match="mma_kernel" if bf16 and wide else None, hidden=H)
+                    del k, p
 
+                if "critic" not in kinds:
+                    continue
                 trunk = critic_p if fn else critic_p[2:2 + 4 * L]
                 kpc, wvf, bvf = FP.fold_trunk(trunk, critic.v_out.weight.detach().t(),
                                               critic.v_out.bias.detach(), L, fn)
                 aux_c = FP.pack_critic_aux(vpred, ret)
-                if relu and (bf16 or preset is not None):  # the actor's rules: valid = 0
-                    kink = FP.relu_kink_rows_folded(cent, kpc, L, fn, bf16=bf16)
+                if relu and not bf16 and (preset is not None or H != 256):  # actor's: valid = 0
+                    kink = FP.relu_kink_rows_folded(cent, kpc, L, fn, bf16=False)
                     aux_c[kink, 2] = 0.0
-                    print(f"  critic {mode}, {envs} envs, {_shape(Rv, A * D, nmb)}{label}: "
+                    print(f"  critic {mode}, {envs} envs, {_shape(Rv, A * D, nmb, H)}{label}: "
                           f"{int(kink.sum())} rows next to a relu kink get valid = 0",
                           flush=True)
                 ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
                            huber_delta=10.0, use_huber=True, use_clipped=True)
-                kern = lambda: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
-                plain = lambda: FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf, **ckw)
-                k, p = kern(), plain()
-                errs = compare("critic_ppo_grads", flat(k), flat(p), tol, gate=gated)
+                kern = lambda **m: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw,
+                                                        **m)
+                plain = lambda **m: FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf,
+                                                          **ckw, **m)
+                if relu and bf16:
+                    k, p, _ = masked_relu(
+                        f"K4 {envs} envs, {_shape(Rv, A * D, nmb, H)}{label}", kern, plain,
+                        lambda m: FP.relu_mask_gap_folded(cent, kpc, L, fn, m), L, Rv, H)
+                else:
+                    k, p = kern(), plain()
+                errs = compare("critic_ppo_grads", flat(k), flat(p), tol)
                 f32_rel = None
-                if bf16 and gated:
+                if bf16:
                     f32_k = FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
                                                  **{**ckw, "bf16": False})
                     f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), tol)
@@ -1146,22 +1299,23 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True)):
                 # of the chunked kernel and the dV0 kernel (their
                 # *_mma_kernel names)
                 record(results, "critic_ppo_grads", mode, envs,
-                       _shape(Rv, A * D, nmb) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset, gated=gated,
-                       device_match="mma_kernel" if bf16 and wide else None)
+                       _shape(Rv, A * D, nmb, H) + label, errs, kern, plain, b, by, f32_rel,
+                       preset=preset,
+                       device_match="mma_kernel" if bf16 and wide else None, hidden=H)
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
 
 
 def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4),
-                   modes=(False, True)):
+                   modes=(False, True), hidden: int = 256, variants=None):
     """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
     T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in the
-    ``modes`` (bf16 True), of the default config or ``preset``, on the trunks of
-    ``trunk_variants``. In bf16 rows next to a relu kink of the unfolded
-    chain (``relu_kink_rows``) get a zero advantage / valid = 0; at a
-    preset's widths the f32 checks give rows within 1e-5 of a kink the same."""
+    ``modes`` (bf16 True), of the default config or ``preset``, at the hidden
+    width ``hidden``, on the trunks of ``trunk_variants``. In bf16 relu trunks
+    run under the relu mask rule (``masked_relu``); at a preset's widths and
+    hidden widths other than 256 the f32 checks give rows within 1e-5 of a
+    kink a zero advantage / valid = 0."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1169,14 +1323,15 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
 
     dev = torch.device("cuda")
     env = env_config(preset)
-    T, A, D, H = 150, env.n_agents, env.obs_dim, 256
+    T, A, D, H = 150, env.n_agents, env.obs_dim, hidden
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))
     dev_match = "mma_kernel" if preset in MANY_POIS else None  # every launch of a chunked K3u
     for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_fold=False), env, device=dev)
+                                 fused_loss="on", fused_fold=False, hidden_size=hidden), env,
+                     device=dev)
         actor, critic = algo.make_networks(seed=5)
         perturb_(actor, gen)
         perturb_(critic, gen)
@@ -1199,23 +1354,29 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 v0 = critic(cent[: min(Rv, 65536)].float())
             vpred = randn(Rv, 1) * float(v0.std() + 0.1)
             ret = vpred + 3.0 * randn(Rv, 1)
-            for label, relu, L, fn, gated in trunk_variants(bf16, preset):
+            for label, relu, L, fn in variants or trunk_variants(bf16, preset, H):
                 params = actor_p if fn else actor_p[2:2 + 4 * L]
                 adv = adv0.clone()
-                if relu and (bf16 or preset is not None):
-                    kink = FM.relu_kink_rows(obs, params, L, fn, bf16)
+                if relu and not bf16 and (preset is not None or H != 256):
+                    kink = FM.relu_kink_rows(obs, params, L, fn, False)
                     adv[kink] = 0.0
                     print(f"  K3u {mode}, {envs} envs{label}: {int(kink.sum())} of {R} rows "
                           f"next to a relu kink get a zero advantage", flush=True)
                 aux_a = FP.pack_actor_aux(act, old_lp, adv)
                 kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
-                kern = lambda: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls, **kw)
-                plain = lambda: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls,
-                                                              **kw)
-                k, p = kern(), plain()
-                errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol, gate=gated)
+                kern = lambda **m: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
+                                                                **kw, **m)
+                plain = lambda **m: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls,
+                                                                  **kw, **m)
+                if relu and bf16:
+                    k, p, _ = masked_relu(
+                        f"K3u {envs} envs, {_shape(R, D, 1, H)}{label}", kern, plain,
+                        lambda m: FM.relu_mask_gap(obs, params, L, fn, m), L, R, H)
+                else:
+                    k, p = kern(), plain()
+                errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol)
                 f32_rel = None
-                if bf16 and gated:
+                if bf16:
                     f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
                                                          **{**kw, "bf16": False})
                     f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p),
@@ -1227,28 +1388,33 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "actor_ppo_grads_unfolded", mode, envs,
-                       f"rows={R} d_in={D}{label}", errs, kern, plain, b, by, f32_rel,
-                       preset=preset, gated=gated,
-                       device_match=dev_match if bf16 else None)
+                       _shape(R, D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
+                       preset=preset,
+                       device_match=dev_match if bf16 else None, hidden=H)
                 del k, p
 
                 cparams = critic_p if fn else critic_p[2:2 + 4 * L]
                 aux_c = FP.pack_critic_aux(vpred, ret)
-                if relu and (bf16 or preset is not None):
-                    kink = FM.relu_kink_rows(cent, cparams, L, fn, bf16)
+                if relu and not bf16 and (preset is not None or H != 256):
+                    kink = FM.relu_kink_rows(cent, cparams, L, fn, False)
                     aux_c[kink, 2] = 0.0
                     print(f"  K4u {mode}, {envs} envs{label}: {int(kink.sum())} of {Rv} rows "
                           f"next to a relu kink get valid = 0", flush=True)
                 ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
                            huber_delta=10.0, use_huber=True, use_clipped=True)
-                kern = lambda: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
-                                                             **ckw)
-                plain = lambda: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams, wv,
-                                                               bv, **ckw)
-                k, p = kern(), plain()
-                errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol, gate=gated)
+                kern = lambda **m: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv,
+                                                                 bv, **ckw, **m)
+                plain = lambda **m: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams,
+                                                                   wv, bv, **ckw, **m)
+                if relu and bf16:
+                    k, p, _ = masked_relu(
+                        f"K4u {envs} envs, {_shape(Rv, A * D, 1, H)}{label}", kern, plain,
+                        lambda m: FM.relu_mask_gap(cent, cparams, L, fn, m), L, Rv, H)
+                else:
+                    k, p = kern(), plain()
+                errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
                 f32_rel = None
-                if bf16 and gated:
+                if bf16:
                     f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
                                                           **{**ckw, "bf16": False})
                     f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p),
@@ -1258,8 +1424,8 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "critic_ppo_grads_unfolded", mode, envs,
-                       f"rows={Rv} d_in={A * D}{label}", errs, kern, plain, b, by, f32_rel,
-                       preset=preset, gated=gated)
+                       _shape(Rv, A * D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
+                       preset=preset, hidden=H)
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
@@ -1317,20 +1483,21 @@ def check_wide(results: list):
     check_layer0(results, gen)
 
 
-def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False):
-    """The bf16 critic (or actor) of ``preset`` (``make_networks(seed)``),
-    its 1-D parameters moved off their init values, and the flat trunk
-    list."""
+def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False, hidden: int = 256):
+    """The bf16 critic (or actor) of ``preset`` (``make_networks(seed)``) at
+    the hidden width ``hidden``, its 1-D parameters moved off their init
+    values, and the flat trunk list."""
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
 
-    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on"), env_config(preset),
-                 device="cuda")
+    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on", hidden_size=hidden),
+                 env_config(preset), device="cuda")
     net = algo.make_networks(seed=seed)[0 if actor else 1]
     perturb_(net, gen)
     return net, [p.detach() for p in net.base.flat_params()]
 
 
-def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False):
+def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False,
+              hidden: int = 256):
     """The dV0 kernel (``ops.fused_mlp.dv0_cuda``) against its plain version
     on the T*E critic rows of ``preset`` (the 20-UAV preset's 4,840 wide;
     with ``actor`` its T*E*A actor rows), bf16, their feature-norm
@@ -1341,20 +1508,20 @@ def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False):
     norm's affine of the preset's network); the product of the unrounded
     operand must lie outside the bound. Beside each, the cuBLAS product
     ``torch.matmul(a0^T, g0)`` of the rounded bf16 operand (bf16 out) as the
-    yardstick."""
+    yardstick. ``hidden``: the width of layer 0 (g0 zero-padded to 16)."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM
 
     env = env_config(preset)
-    D, H = env.obs_dim * (1 if actor else env.n_agents), 256
+    D, H = env.obs_dim * (1 if actor else env.n_agents), hidden
     kind = "actor" if actor else "critic"
-    _, cparams = _wide_net(gen, 6, preset, actor)
+    _, cparams = _wide_net(gen, 6, preset, actor, hidden)
     for envs in envs_list:
         R = 150 * envs * (env.n_agents if actor else 1)
         x = torch.randn(R, D, generator=gen, device="cuda").to(torch.bfloat16)
         xstats = FM.input_stats(x, True)
-        g0 = (0.1 * torch.randn(R, H, generator=gen, device="cuda")).to(torch.bfloat16)
+        g0 = _layer0_cotangent(gen, R, H)
         for name, affine in ((f"{kind}_ppo_grads_dv0", None),
                              ("dv0_unfolded", (cparams[0], cparams[1]))):
             unf = affine is not None
@@ -1365,102 +1532,111 @@ def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False):
             a0 = (x.float() - xstats[:, :1]) * xstats[:, 1:]
             if unf:
                 a0 = a0 * affine[0] + affine[1]
-            f32_rel = f32_reading(name, [a0.t() @ g0.float()], [want], DV0_REL)
+            f32_rel = f32_reading(name, [a0.t() @ g0[:, :H].float()], [want], DV0_REL)
             a0 = a0.to(torch.bfloat16)
-            library = lambda: torch.matmul(a0.t(), g0)
+            library = lambda: torch.matmul(a0.t(), g0[:, :H])
             # x, g0 and the statistics (and the affine) in, dV0 out; one
             # product of 2 ops a MAC
             nbytes = (2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 4 * D * H
                       + (8 * D if unf else 0))
             b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
-            record(results, name, "bf16", envs, _shape(R, D), errs, kern, plain, b, by,
-                   f32_rel, preset=preset, device_match="dv0_mma_kernel", library=library)
+            record(results, name, "bf16", envs, _shape(R, D, 1, H), errs, kern, plain, b, by,
+                   f32_rel, preset=preset, device_match="dv0_mma_kernel", library=library,
+                   hidden=H)
             del want, a0
         del x, g0
         torch.cuda.empty_cache()
 
 
-def check_wide_chunked(results: list, gen):
+def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WIDE_ENVS)):
     """The chunked K2b (``trunk_backward_cuda`` on rows too wide to stage: its
     chunked kernel, the layer-0 input backward and dV0, without dx, as the
     update calls it) on 2,400 and 38,400 of the 20-UAV preset's 4,840-wide
     critic rows (T*E at 16 envs; one of the 4 update chunks of T*E at
     ``WIDE_ENVS``), and the chunked K4u (its chunked kernel, the layer-0
     input backward and dV0) on T*E = 2,400 and 153,600, each on the trunks
-    of ``trunk_variants`` with their kink rules, against the plain version
+    of ``trunk_variants`` (relu under the relu mask rule), against the plain version
     within ``K2B_BF16_REL`` / ``PPO_BF16_REL``. The f32 reading here is the
     plain version computed in f32: the FMA kernels take these rows in
     one-row tiles (seconds a call). Each row's time and bound are its three
-    launches'; device us: its ``*_mma_kernel`` launches."""
+    launches'; device us: its ``*_mma_kernel`` launches. ``hidden``: the
+    network's hidden width; ``envs_list``: of 16 and ``WIDE_ENVS``, the env
+    counts whose rows are checked."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
 
     env = env_config(WIDE)
-    D, H = env.n_agents * env.obs_dim, 256
-    critic, full = _wide_net(gen, 7)
+    D, H = env.n_agents * env.obs_dim, hidden
+    critic, full = _wide_net(gen, 7, hidden=hidden)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
     norm = torch.tensor([0.5, 2.0], device="cuda")
     for envs, rows, label in ((16, 150 * 16, ""), (WIDE_ENVS, 150 * WIDE_ENVS // 4,
                                                     " chunk 1/4")):
+        if envs not in envs_list:
+            continue
         x = randn(rows, D).to(torch.bfloat16)
-        for tag, relu, L, fn, gated in trunk_variants(True, WIDE):
+        for tag, relu, L, fn in trunk_variants(True, WIDE, H):
             params = full if fn else full[2:2 + 4 * L]
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, need_dx=False)
             g = randn(rows, H)
+            kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m)
+            plain = lambda **m: FM.trunk_backward_plain(x, params, g, **kw, **m)
             if relu:
-                g[FM.relu_kink_rows(x, params, L, fn, True)] = 0.0
-            kern = lambda: FM.trunk_backward_cuda(x, params, g, **kw)
-            plain = lambda: FM.trunk_backward_plain(x, params, g, **kw)
-            k, p = kern()[1], plain()[1]
-            errs = compare("fused_mlp_bwd_chunked", k, p, K2B_BF16_REL, gate=gated)
-            f32_rel = None
-            if gated:
-                f32_rel = f32_reading("fused_mlp_bwd_chunked",
-                                      FM.trunk_backward_plain(x, params, g, **{**kw,
-                                                                               "bf16": False})[1],
-                                      p, K2B_BF16_REL)
+                k, p, _ = masked_relu(
+                    f"chunked K2b {_shape(rows, D)}{label}{tag}", kern, plain,
+                    lambda m: FM.relu_mask_gap(x, params, L, fn, m), L, rows, H)
+            else:
+                k, p = kern(), plain()
+            k, p = k[1], p[1]
+            errs = compare("fused_mlp_bwd_chunked", k, p, K2B_BF16_REL)
+            f32_rel = f32_reading("fused_mlp_bwd_chunked",
+                                  FM.trunk_backward_plain(x, params, g,
+                                                          **{**kw, "bf16": False})[1],
+                                  p, K2B_BF16_REL)
             ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
             nbytes = 2 * x.numel() + 4 * g.numel() + 2 * 4 * sum(t.numel() for t in params)
             b, by = bound(nbytes, ops, PEAK_BF16)
-            record(results, "fused_mlp_bwd_chunked", "bf16", envs, _shape(rows, D) + label + tag,
-                   errs, kern, plain, b, by, f32_rel, preset=WIDE, gated=gated,
-                   device_match="mma_kernel")
+            record(results, "fused_mlp_bwd_chunked", "bf16", envs,
+                   _shape(rows, D, 1, H) + label + tag, errs, kern, plain, b, by, f32_rel,
+                   preset=WIDE, device_match="mma_kernel", hidden=H)
             del k, p, g
         del x
         torch.cuda.empty_cache()
     flat = lambda o: [*o[0], *o[1:]]
-    for envs in (16, WIDE_ENVS):
+    for envs in envs_list:
         Rv = 150 * envs
         x = randn(Rv, D).to(torch.bfloat16)
         vpred = randn(Rv, 1)
         ret = vpred + 3.0 * randn(Rv, 1)
-        for tag, relu, L, fn, gated in trunk_variants(True, WIDE):
+        for tag, relu, L, fn in trunk_variants(True, WIDE, H):
             params = full if fn else full[2:2 + 4 * L]
             aux = FP.pack_critic_aux(vpred, ret)
-            if relu:
-                aux[FM.relu_kink_rows(x, params, L, fn, True), 2] = 0.0
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, clip_param=0.2,
                       huber_delta=10.0, use_huber=True, use_clipped=True)
-            kern = lambda: FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, **kw)
-            plain = lambda: FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, **kw)
-            k, p = kern(), plain()
-            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), PPO_BF16_REL,
-                           gate=gated)
-            f32_rel = None
-            if gated:
-                f32_rel = f32_reading(
-                    "critic_ppo_grads_unfolded",
-                    flat(FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv,
-                                                        **{**kw, "bf16": False})),
-                    flat(p), PPO_BF16_REL)
+            kern = lambda **m: FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, **kw,
+                                                             **m)
+            plain = lambda **m: FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, **kw,
+                                                               **m)
+            if relu:
+                k, p, _ = masked_relu(
+                    f"chunked K4u {_shape(Rv, D)}{tag}", kern, plain,
+                    lambda m: FM.relu_mask_gap(x, params, L, fn, m), L, Rv, H)
+            else:
+                k, p = kern(), plain()
+            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), PPO_BF16_REL)
+            f32_rel = f32_reading(
+                "critic_ppo_grads_unfolded",
+                flat(FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv,
+                                                    **{**kw, "bf16": False})),
+                flat(p), PPO_BF16_REL)
             ops = 6 * Rv * (D * H + (L - 1) * H * H)
             nbytes = 2 * x.numel() + 4 * aux.numel() + 2 * 4 * sum(t.numel() for t in flat(k))
             b, by = bound(nbytes, ops, PEAK_BF16)
-            record(results, "critic_ppo_grads_unfolded", "bf16", envs, _shape(Rv, D) + tag,
-                   errs, kern, plain, b, by, f32_rel, preset=WIDE, gated=gated,
-                   device_match="mma_kernel")
+            record(results, "critic_ppo_grads_unfolded", "bf16", envs, _shape(Rv, D, 1, H) + tag,
+                   errs, kern, plain, b, by, f32_rel, preset=WIDE,
+                   device_match="mma_kernel", hidden=H)
             del k, p
         del x
         torch.cuda.empty_cache()
@@ -1473,7 +1649,20 @@ LAYER0_WIDE = ((WIDE_ENVS, 150 * WIDE_ENVS // 4, False, " chunk 1/4"),
                (WIDE_ENVS, 150 * WIDE_ENVS, False, ""))
 
 
-def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAYER0_WIDE):
+def _layer0_cotangent(gen, rows: int, hidden: int):
+    """A bf16 cotangent of layer 0 as the chunked kernels write it: (rows,
+    pad16(hidden)), the padding zero."""
+    import torch
+
+    from dcc_tpu_torch.ops.fused_mlp import pad16
+
+    g0 = torch.zeros((rows, pad16(hidden)), dtype=torch.bfloat16, device="cuda")
+    g0[:, :hidden] = 0.1 * torch.randn(rows, hidden, generator=gen, device="cuda")
+    return g0
+
+
+def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAYER0_WIDE,
+                 hidden: int = 256):
     """The layer-0 input backward of the chunked K2b, K3u and K4u
     (``ops.fused_mlp.layer0_input_bwd_cuda``) alone, against its plain
     version on the same bf16 operands within ``DV0_REL``, on the critic
@@ -1488,8 +1677,8 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
     from dcc_tpu_torch.ops import fused_mlp as FM
 
     env = env_config(preset)
-    D, H = env.obs_dim * (1 if actor else env.n_agents), 256
-    _, cparams = _wide_net(gen, 8, preset, actor)
+    D, H = env.obs_dim * (1 if actor else env.n_agents), hidden
+    _, cparams = _wide_net(gen, 8, preset, actor, hidden)
     w0, fs = cparams[2], cparams[0]
     w0b = FM.pack_mma_weights([w0], "cuda")[0].view(FM.pad16(D), FM.pad16(H))
     w0f = torch.zeros(FM.pad16(D), FM.pad16(H), device="cuda")
@@ -1497,7 +1686,7 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
     for envs, rows, need_dx, label in cases:
         x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
         xstats = FM.input_stats(x, True)
-        g0 = (0.1 * torch.randn(rows, H, generator=gen, device="cuda")).to(torch.bfloat16)
+        g0 = _layer0_cotangent(gen, rows, H)
         kern = lambda: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, need_dx)
         plain = lambda: FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, H, need_dx)
         keep = lambda o: [t for t in o if t is not None]
@@ -1511,17 +1700,96 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
         nbytes = (2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 2 * D * H + 4 * D
                   + 8 * D + (2 * x.numel() if need_dx else 0))
         b, by = bound(nbytes, 2 * rows * D * H, PEAK_BF16)
-        record(results, "layer0_input_bwd", "bf16", envs, _shape(rows, D) + label, errs, kern,
-               plain, b, by, f32_rel, preset=preset, device_match="layer0_input_bwd")
+        record(results, "layer0_input_bwd", "bf16", envs, _shape(rows, D, 1, H) + label, errs,
+               kern, plain, b, by, f32_rel, preset=preset, device_match="layer0_input_bwd",
+               hidden=H)
         del x, g0, want
         torch.cuda.empty_cache()
 
 
-def kernel_ptxas(ptxas: dict, entry: str) -> dict:
+def check_default_timing(results: list):
+    """The bf16 K2, K2b, K3 / K4 and K3u / K4u at the default widths (hidden
+    256), timed against their plain versions as ``check_kernels`` times
+    them, on the model's trunk with tanh: no relu masks are asked for, so
+    the same calls run on any checkout since the unfolded kernels
+    (``scripts/smoke_phase.py [--root DIR] timing``)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tanh = [(" tanh", False, 2, True)]
+    check_trunk_forward(results, gen, envs_list=(16, BIG_ENVS))
+    check_trunk_backward(results, gen, ((16, 1, "both"), (BIG_ENVS // 4, 1, "actor")),
+                         variants=tanh)
+    check_ppo(results, gen, ((16, 1), (BIG_ENVS // 4, 1)), modes=(True,), variants=tanh)
+    check_unfolded(results, gen, envs_list=(16, BIG_ENVS // 4), modes=(True,), variants=tanh)
+
+
+def check_wide_hidden(results: list, ptxas: dict):
+    """ROADMAP B3's hidden widths (``HIDDEN_CHECKS``: 100, off multiples of
+    8; 264 to 1,024, two to four column passes a layer): K2, K2b, K3 / K4 and
+    K3u / K4u on the default config's rows at 16 envs, in f32 and bf16, on
+    the trunks of ``trunk_variants`` (bf16: the model's relu trunk under
+    the relu mask rule, the model's with tanh, one relu layer); the chunked
+    layouts at 512 (K4 on the 20-UAV preset's 4,840-wide critic rows, the
+    chunked K2b and K4u, dV0 in both modes, the layer-0 input backward with
+    dx); then at 512 and 1,024 (``HIDDEN_TIMED``) every kernel at the main
+    path's shapes at ``WIDE_ENVS`` envs on the model's trunk: K2 on a
+    rollout step's rows, K2b on the 153,600 rows of an update chunk, K3 /
+    K4 and K3u / K4u on 614,400 x 110 and 153,600 x 440, and at 512 K4's
+    chunked kernel and dV0 on the 20-UAV preset's 153,600 x 4,840 (the
+    critic only: the plain K3 on its 3,072,000 actor rows would keep about
+    ten 6.3 GB f32 tensors alive). Each row keeps its kernels' ptxas
+    registers and spills."""
+    import torch
+
+    first, t0 = len(results), time.perf_counter()
+    model = [("", True, 2, True)]
+    for i, hidden in enumerate(HIDDEN_CHECKS):
+        gen = torch.Generator(device="cuda").manual_seed(200 + i)
+        print(f"  hidden {hidden}, 16 envs", flush=True)
+        check_trunk_forward(results, gen, envs_list=(16,), hidden=hidden)
+        check_trunk_backward(results, gen, ((16, 1, "both"),), hidden=hidden)
+        check_ppo(results, gen, ((16, 1),), hidden=hidden)
+        check_unfolded(results, gen, envs_list=(16,), hidden=hidden)
+    gen = torch.Generator(device="cuda").manual_seed(210)
+    print(f"  hidden {HIDDEN_ROW}: the chunked layouts at the {WIDE} preset's widths, 16 envs",
+          flush=True)
+    check_ppo(results, gen, ((16, 1),), preset=WIDE, modes=(True,), hidden=HIDDEN_ROW,
+              kinds=("critic",))
+    check_wide_chunked(results, gen, hidden=HIDDEN_ROW, envs_list=(16,))
+    check_dv0(results, gen, (16,), hidden=HIDDEN_ROW)
+    check_layer0(results, gen, cases=((16, 2400, True, " dx"),), hidden=HIDDEN_ROW)
+    for hidden in HIDDEN_TIMED:
+        print(f"  hidden {hidden}, the main path's shapes at {WIDE_ENVS} envs", flush=True)
+        check_trunk_forward(results, gen, envs_list=(WIDE_ENVS,), hidden=hidden)
+        check_trunk_backward(results, gen, ((WIDE_ENVS // 4, 1, "both"),), hidden=hidden,
+                             variants=model)
+        check_ppo(results, gen, ((WIDE_ENVS, 1),), modes=(True,), hidden=hidden, variants=model)
+        check_unfolded(results, gen, envs_list=(WIDE_ENVS,), modes=(True,), hidden=hidden,
+                       variants=model)
+    check_ppo(results, gen, ((WIDE_ENVS, 1),), preset=WIDE, modes=(True,), hidden=HIDDEN_ROW,
+              variants=model, kinds=("critic",))
+    check_dv0(results, gen, (WIDE_ENVS,), hidden=HIDDEN_ROW)
+    shown = set()
+    for row in results[first:]:
+        row["ptxas"] = kernel_ptxas(ptxas, row["entry"], row["hidden"])
+        key = (row["entry"], min(row["ptxas"], default=""))
+        if row["mode"] == "bf16" and key not in shown:
+            shown.add(key)
+            print(f"  ptxas behind {row['entry']} (hidden {row['hidden']}): {row['ptxas']}",
+                  flush=True)
+    print(f"  B3's hidden widths: {len(results) - first} checks in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def kernel_ptxas(ptxas: dict, entry: str, hidden: int = 256) -> dict:
     """The ptxas registers and spills of the CUDA kernel(s) behind a C
-    entry point (``dcc_x_mma`` launches ``x_mma_kernel``), by their mangled
+    entry point (``dcc_x_mma`` launches ``x_mma_kernel``) at hidden width
+    ``hidden`` (past 256 the ``*_wide`` libraries'), by their mangled
     names."""
-    return {fn: v for fn, v in ptxas.items() if f"{entry[4:]}_kernel" in fn}
+    wide = hidden % 2 == 1 or -(-hidden // 16) * 16 > 256
+    return {fn: v for fn, v in ptxas.items()
+            if f"{entry[4:]}_kernel" in fn and fn.endswith(WIDE_TAG) == wide}
 
 
 def check_many_pois(results: list, ptxas: dict):
@@ -1567,6 +1835,99 @@ def check_many_pois(results: list, ptxas: dict):
         if "chunked" in row["entry"] and row["entry"] not in shown:
             shown.add(row["entry"])
             print(f"  ptxas behind {row['entry']}: {row['ptxas']}", flush=True)
+
+
+# the widths whose kernel outputs ``kernel_bits`` records: (name, rows, row
+# width) of each launch, hidden 256, two layers, bf16 (the 20-UAV preset's
+# 4,840-wide critic rows take the chunked K2b, K4 and K4u)
+BITS_CASES = (("actor", 9600, 110), ("critic", 2400, 440), ("actor", 3000, 242),
+              ("critic", 600, 4840))
+
+
+def kernel_bits(seed: int = 0) -> dict:
+    """Every bf16 kernel's outputs at the widths the kernels took before
+    their hidden layers ran in column passes (``BITS_CASES``: actor 110,
+    critic 440, the 20-UAV preset's 242 / 4,840, hidden 256, the model's
+    relu trunk): K2, K2b, K3 / K4 and K3u / K4u (with dV0 and the layer-0
+    input backward at 4,840), each call's outputs and its launches' row
+    tiles and its time (CUDA events, ``time_ms``), on inputs drawn on the
+    CPU from ``seed``. Calls only what every checkout since the unfolded
+    kernels has, so two checkouts' outputs can be compared bit for bit
+    (``scripts/smoke_phase.py bits``)."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+    from dcc_tpu_torch.ops.cuda_build import LAUNCHES, TILE, reset_launches
+
+    gen = torch.Generator().manual_seed(seed)
+    rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen)).cuda()
+    out = {}
+    for kind, rows, d in BITS_CASES:
+        params = [1.0 + rnd(d, scale=0.1), rnd(d, scale=0.1)]
+        for k in (d, 256):
+            params += [rnd(k, 256, scale=k ** -0.5), rnd(256, scale=0.1),
+                       1.0 + rnd(256, scale=0.1), rnd(256, scale=0.1)]
+        x = rnd(rows, d).bfloat16()
+        n_out = 2 if kind == "actor" else 1
+        hw, hb = rnd(256, n_out, scale=0.1), rnd(n_out, scale=0.1)
+        g = rnd(rows, 256).bfloat16()
+        kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=True)
+        if kind == "actor":
+            aux = FP.pack_actor_aux(rnd(rows, 2, scale=0.5), -2.0 + rnd(rows, 1, scale=0.3),
+                                    rnd(rows, 1))
+            ls = torch.tensor([-0.3, 0.2], device="cuda")
+            pk = dict(kw, use_feature_norm=True, clip_param=0.2)
+            pk.pop("use_fn")
+            ppo = lambda fold: FP.actor_ppo_grads_packed(x, aux, params, hw, hb, ls, fold=fold,
+                                                         **pk)
+        else:
+            vpred = rnd(rows, 1)
+            aux = FP.pack_critic_aux(vpred, vpred + 3.0 * rnd(rows, 1))
+            norm = torch.tensor([0.5, 2.0], device="cuda")
+            pk = dict(kw, use_feature_norm=True, clip_param=0.2, huber_delta=10.0,
+                      use_huber=True, use_clipped=True)
+            pk.pop("use_fn")
+            ppo = lambda fold: FP.critic_value_grads_packed(x, aux, norm, params, hw, hb,
+                                                            fold=fold, **pk)
+        calls = {"fused_mlp": lambda: [FM.trunk_forward_cuda(x, params, **kw)],
+                 "fused_mlp_bwd": lambda: (lambda r: [r[0], *r[1]])(
+                     FM.trunk_backward_cuda(x, params, g, **kw)),
+                 f"{kind}_ppo_grads": lambda: (lambda r: [*r[0], *r[1:]])(ppo(True)),
+                 f"{kind}_ppo_grads_unfolded": lambda: (lambda r: [*r[0], *r[1:]])(ppo(False))}
+        for name, call in calls.items():
+            reset_launches()
+            tensors = [t.detach().cpu() for t in call()]
+            torch.cuda.synchronize()
+            out[f"{name} {rows}x{d}"] = dict(tensors=tensors, launches=dict(LAUNCHES),
+                                             tiles=dict(TILE), ms=time_ms(call)[0])
+    return out
+
+
+def compare_bits(got: dict, want: dict) -> list:
+    """The differences between two ``kernel_bits`` records: per call, the
+    tensors that are not bit for bit equal, and unequal launch counts or
+    row tiles; empty where they agree."""
+    import torch
+
+    faults = []
+    for key in sorted(set(got) | set(want)):
+        if key not in got or key not in want:
+            faults.append(f"{key}: only in one record")
+            continue
+        a, b = got[key], want[key]
+        raw = lambda t: t.reshape(-1).contiguous().view(torch.uint8)
+        for i, (x, y) in enumerate(zip(a["tensors"], b["tensors"])):
+            if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(raw(x), raw(y)):
+                diff = float((x.float() - y.float()).abs().max()) if x.shape == y.shape else None
+                faults.append(f"{key}[{i}]: not bit-identical (max |diff| {diff})")
+        if len(a["tensors"]) != len(b["tensors"]):
+            faults.append(f"{key}: {len(a['tensors'])} vs {len(b['tensors'])} outputs")
+        for what in ("launches", "tiles"):
+            if a[what] != b[what]:
+                faults.append(f"{key}: {what} {a[what]} vs {b[what]}")
+        if "ms" in a and "ms" in b:  # times are readings, not checks
+            print(f"  {key}: {a['ms']:.4f} ms against {b['ms']:.4f} ms", flush=True)
+    return faults
 
 
 def check_update_against_cpu(tag, cfg, param_tol, rtol, atol, kernels, env_kw=None):
@@ -1671,6 +2032,18 @@ UPDATE_CHECKS = (
     ("f32 separated recurrent",
      dict(share_policy=False, use_recurrent_policy=True, data_chunk_length=4),
      1e-5, 1e-3, 1e-5, ("gae",)),
+    # ROADMAP B3's hidden widths in bf16: the fused update at 512 (two column
+    # passes a layer) and the unfolded one at 100 (zero-padded to 112); the
+    # parameter bound of tests/test_torch_separated_update.py (Adam turns
+    # each bf16 rounding that flips a near-zero gradient into a step of the
+    # learning rate: 4.6e-4 measured at hidden 300 between the port's plain
+    # versions and the JAX package, tests/test_torch_wide_hidden.py)
+    ("bf16 fused, hidden 512", dict(compute_dtype="bfloat16", fused_loss="on",
+                                    hidden_size=512),
+     1e-3, 2e-3, 3e-5, ("gae", "actor_ppo_grads", "critic_ppo_grads")),
+    ("bf16 unfolded, hidden 100", dict(compute_dtype="bfloat16", fused_loss="on",
+                                       fused_fold=False, hidden_size=100),
+     1e-3, 2e-3, 3e-5, ("gae", "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")),
 )
 
 
@@ -1946,21 +2319,24 @@ def main(argv=None) -> int:
     kernels = []
     for name in REPLACES:
         mode = "f32" if name == "gae" else "bf16"
-        kernel, envs, preset = KERNEL_ROW.get(name, (name, 16, None))
+        kernel, envs, preset, *more = KERNEL_ROW.get(name, (name, 16, None))
+        hidden = more[0] if more else 256
+        has = more[1] if len(more) > 1 else ""
         row = next(c for c in checks if c["kernel"] == kernel and c["mode"] == mode
                    and c["envs"] == envs and "nmb" not in c["shape"] and c["preset"] == preset
-                   and c["gated"])
+                   and c["hidden"] == hidden and has in c["shape"])
         # K1's wrapper takes longer on the host than its kernel on the card,
         # so its event time is the host's rate: device_ms beside it
         dev = row["device_us"]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=runs[MAIN_RUN[name]]["launches"].get(kernel, 0),
+            launches=runs[MAIN_RUN[name]]["launches"].get(kernel, 0), hidden=hidden,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=dev["kernel"] / 1e3 if dev else None, plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
             mode=mode, shape=row["shape"], entry=row["entry"],
-            host_us=row["host_us"]["wrapper"], ptxas=kernel_ptxas(ptxas, row["entry"]),
+            host_us=row["host_us"]["wrapper"],
+            ptxas=kernel_ptxas(ptxas, row["entry"], hidden),
         ))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -293,28 +293,11 @@ class MAPPO:
             self._check_cuda_trunk()
             self._check_row_tiles()
 
-    def _check_cuda_trunk(self) -> None:
-        """Raise (ROADMAP B3) before any launch where the fused CUDA kernels
-        do not take the trunk: more layers than their entries take, or in
-        bf16 a hidden width the tensor-core tiling does not take
-        (``ops.fused_mlp.cuda_trunk_faults``)."""
-        faults = FM.cuda_trunk_faults(self.cfg.hidden_size, self.cfg.layer_n + 1, self.bf16)
-        if faults:
-            raise NotImplementedError(
-                f"the fused CUDA kernels (fused_trunk / fused_loss) do not take "
-                f"{'; '.join(faults)} (ROADMAP B3); turn them off (--fused-trunk off "
-                f"--fused-loss off)")
-
-    def _check_row_tiles(self) -> None:
-        """Raise where a kernel this run launches on CUDA has no row tile at
-        its row width. Every bf16 kernel streams its first layer in column
-        chunks past the widest staged row (``ops.tiles.plan``), so a bf16
-        kernel without a tile is a fault of the port; the f32 FMA kernels
-        stage whole rows (one-row tiles up to 28,161 columns for the
-        unfolded ones at hidden 256), and a row too wide would first fail
-        inside its launch."""
+    def _fused_launches(self) -> list:
+        """(kernel, row width, head width) of every fused kernel this run
+        launches on CUDA."""
         act_n = self.env_cfg.action_dim
-        launches = []  # (kernel, row width, head width)
+        launches = []
         if self.fused_trunk:
             launches += [("fused_mlp", self.obs_dim, 1), ("fused_mlp", self.cent_obs_dim, 1)]
             if not self.fused_loss:  # the update differentiates through K2b
@@ -324,18 +307,38 @@ class MAPPO:
             tag = "" if self.cfg.fused_fold else "_unfolded"
             launches += [(f"actor_ppo_grads{tag}", self.obs_dim, act_n),
                          (f"critic_ppo_grads{tag}", self.cent_obs_dim, 1)]
-        for kernel, width, n_head in launches:
-            if tiles.plan(kernel, self.bf16, width, self.cfg.hidden_size,
-                          self.cfg.layer_n + 1, n_head)[1]:
-                continue
-            if self.bf16:
-                raise RuntimeError(
-                    f"bf16 {kernel} has no row tile at {width}-wide rows: a fault of the "
-                    f"port (every bf16 kernel has a chunked layout, ops.tiles.CHUNKED)")
+        return launches
+
+    def _check_cuda_trunk(self) -> None:
+        """Raise before any launch where the fused CUDA kernels do not take
+        the trunk (``ops.fused_mlp.cuda_trunk_faults``): more layers than
+        their entries take (ROADMAP B3b), or in bf16 a hidden width at which
+        a kernel this run launches has no row tile that fits one block
+        (ROADMAP B3). Every bf16 kernel runs its layers in column passes and
+        streams its first layer in column chunks past the widest staged row
+        (``ops.tiles.plan``), so no other bf16 width is refused."""
+        faults = FM.cuda_trunk_faults(self.cfg.hidden_size, self.cfg.layer_n + 1, self.bf16,
+                                      self._fused_launches())
+        if faults:
             raise NotImplementedError(
-                f"f32 {kernel} stages whole rows and no row tile fits one block's shared "
-                f"memory at {width}-wide rows; run in bf16 (--compute-dtype bfloat16), "
-                f"whose kernels take any width, or with the fused kernels off")
+                f"the fused CUDA kernels (fused_trunk / fused_loss) do not take "
+                f"{'; '.join(faults)}; turn them off (--fused-trunk off --fused-loss off)")
+
+    def _check_row_tiles(self) -> None:
+        """Raise where an f32 kernel this run launches on CUDA has no row
+        tile at its row width: the f32 FMA kernels stage whole rows (one-row
+        tiles up to 28,161 columns for the unfolded ones at hidden 256), and
+        a row too wide would first fail inside its launch. (The bf16 kernels'
+        tiles are :meth:`_check_cuda_trunk`'s.)"""
+        if self.bf16:
+            return
+        for kernel, width, n_head in self._fused_launches():
+            if not tiles.plan(kernel, False, width, self.cfg.hidden_size,
+                              self.cfg.layer_n + 1, n_head)[1]:
+                raise NotImplementedError(
+                    f"f32 {kernel} stages whole rows and no row tile fits one block's shared "
+                    f"memory at {width}-wide rows; run in bf16 (--compute-dtype bfloat16), "
+                    f"whose kernels take any width, or with the fused kernels off")
 
     # ------------------------------------------------------------------
     # init

@@ -76,41 +76,51 @@ __global__ void __launch_bounds__(DCC_THREADS)
 
 // Row stride of the bf16 kernels' operand tile: staged, the widest layer
 // input (pad16(d_in) or pad16(H)); chunked, one MMA_KC-column chunk of layer
-// 0's operand, then each later layer's input (MMA_KC >= MMA_HMAX).
+// 0's operand or each later layer's input, pad16(H).
 __host__ __device__ inline int fwd_mma_lda(int d_in, int H, bool ch) {
   const int Hp = pad16(H), k0 = ch ? MMA_KC : pad16(d_in);
   return (k0 > Hp ? k0 : Hp) + 8;
 }
 
 // Shared memory of the bf16 kernels: the BR x lda operand tile, the weight
-// ring, the row-sum partials and, chunked, the rows' feature-norm mean and
-// 1/sqrt(var + eps) (then independent of d_in).
+// ring (stages of one column pass), the row-sum partials, chunked the rows'
+// feature-norm mean and 1/sqrt(var + eps) (then independent of d_in) and,
+// at hidden widths of more than one column pass, the BR x (Hp + 8) bf16
+// activations of the layer.
 __host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H, bool ch) {
   const int Hp = pad16(H);
   const int WN = MMA_WARPS / (br / 16);
   return 2 * ((size_t)br * fwd_mma_lda(d_in, H, ch) +
-              MMA_STAGES * (size_t)ring_stage(Hp, false)) +
-         4 * (size_t)WN * br * 2 + (ch ? 4 * 2 * (size_t)br : 0);
+              MMA_STAGES * (size_t)ring_stage(pass_cols(Hp), false)) +
+         4 * (size_t)WN * br * 2 + (ch ? 4 * 2 * (size_t)br : 0) +
+         (Hp > MMA_HMAX ? 2 * (size_t)br * (Hp + 8) : 0);
 }
 
 // bf16 trunk on the tensor cores. wb holds each layer's W as bf16, zero
 // padded to pad16(d_li) x pad16(H), at woffs.v[li]; pb the f32 vectors.
+// mask: null, or the relu masks' debug output (L x R x H bytes, z > 0).
 #define DCC_TRUNK_FWD_MMA_PARAMS                                                           \
   const void *x, int x_bf16, long long R, int d_in, int H, int L, int use_fn, int relu,    \
-      const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, bf16 *out
+      const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, bf16 *out,            \
+      unsigned char *mask
 
 // CH: layer 0 chunked (the rows' statistics, then chunked_layer0) instead
-// of staged (load_input, then gemm_stream over the whole row).
+// of staged (load_input, then gemm_stream over the whole row). Each layer
+// runs in column passes (trunk_mma.cuh): one at H <= MMA_HMAX, whose
+// activations stay in registers up to the LN output; more, whose
+// activations go to act before the LN sweep.
 template <int BR, bool CH>
 __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
                                               DCC_TRUNK_FWD_MMA_PARAMS) {
-  const int Kp0 = pad16(d_in), Hp = pad16(H), lda = fwd_mma_lda(d_in, H, CH);
+  const int Kp0 = pad16(d_in), Hp = pad16(H), lda = fwd_mma_lda(d_in, H, CH), ldh = Hp + 8;
+  const bool multi = DCC_WIDE && Hp > MMA_HMAX;
   bf16* A = (bf16*)smem_raw;  // BR x lda: the current layer's input (or chunk)
   bf16* ring = A + BR * lda;
-  float* red = (float*)(ring + MMA_STAGES * ring_stage(Hp, false));
+  float* red = (float*)(ring + MMA_STAGES * ring_stage(pass_cols(Hp), false));
   float* fmu = red + MmaTile<BR>::WN * BR * 2;  // chunked: the rows' statistics
   float* finv = fmu + BR;
-  const WarpTile wt = warp_tile<BR>(Hp / 8);
+  bf16* act = (bf16*)(fmu + (CH ? 2 * BR : 0));  // more than one pass: the activations
+  const WarpTile wt = pass_tile<BR>(Hp, 0);
 
   const long long tiles = (R + BR - 1) / BR;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -124,39 +134,59 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
     for (int li = 0; li < L; ++li) {
       const long long* o = offs.v + 2 + 4 * li;
       float acc[MmaTile<BR>::NT][4];
-      if constexpr (CH) {
-        if (li == 0)
-          chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
-                                   use_fn ? pb + offs.v[0] : nullptr,
-                                   use_fn ? pb + offs.v[1] : nullptr, A, lda, wb + woffs.v[0],
-                                   Hp, ring, wt, acc);
-        else
-          gemm_stream<false>(A, lda, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
-      } else {
-        gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+      unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        const int np = min(MMA_HMAX, Hp - n0);
+        if constexpr (CH) {
+          if (li == 0)
+            chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
+                                     use_fn ? pb + offs.v[0] : nullptr,
+                                     use_fn ? pb + offs.v[1] : nullptr, A, lda, wb + woffs.v[0],
+                                     Hp, n0, ring, pt, acc);
+          else
+            gemm_stream<false>(A, lda, Hp, wb + woffs.v[li] + n0, Hp, np, ring, pt, acc);
+        } else {
+          gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp, np, ring, pt,
+                             acc);
+        }
+        dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
+        if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
+        if (multi) store_pass<BR>(acc, act, ldh, n0, pt);
       }
       float mu[2], inv[2];
-      dense_act_stats<BR>(acc, pb + o[1], H, relu, red, wt, mu, inv);
+      ln_stats<BR>(s, q, H, red, wt, mu, inv);
       // LN output, bf16: the next layer's operand, or the trunk's output
       const float* sc = pb + o[2];
       const float* bi = pb + o[3];
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (multi) load_pass<BR>(acc, act, ldh, n0, pt);
 #pragma unroll
-      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-        if (nt < wt.ntw) {
+        for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+          if (nt < pt.ntw) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
-            float y[2];
+            for (int h = 0; h < 2; ++h) {
+              const int r = pt.r0 + 8 * h, c = n0 + pt.c0 + nt * 8;
+              float y[2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              y[e] = 0.f;
-              if (c + e < H)
-                y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], sc[c + e], bi[c + e]);
-            }
-            if (li + 1 < L) {
-              store_bf16x2(A + r * lda + c, y[0], y[1]);
-            } else if (row0 + r < R && c < H) {
-              store_bf16x2(out + (row0 + r) * H + c, y[0], y[1]);
+              for (int e = 0; e < 2; ++e) {
+                y[e] = 0.f;
+                if (c + e < H)
+                  y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], sc[c + e], bi[c + e]);
+              }
+              if (li + 1 < L) {
+                store_bf16x2(A + r * lda + c, y[0], y[1]);
+              } else if (row0 + r < R && c < H) {
+                bf16* p = out + (row0 + r) * H + c;
+                if (!DCC_WIDE || (H & 1) == 0) {
+                  store_bf16x2(p, y[0], y[1]);
+                } else {  // odd rows: one element at a time
+                  p[0] = __float2bfloat16_rn(y[0]);
+                  if (c + 1 < H) p[1] = __float2bfloat16_rn(y[1]);
+                }
+              }
             }
           }
         }
@@ -171,7 +201,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     trunk_fwd_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_fwd_mma<BR, false>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
-                           out);
+                           out, mask);
 }
 
 // bf16 trunk with the chunked layer 0, for rows too wide for a staged tile.
@@ -180,7 +210,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     trunk_fwd_chunked_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_fwd_mma<BR, true>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
-                          out);
+                          out, mask);
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -210,7 +240,8 @@ static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L
 template <int BR, bool CH>
 static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, int L,
                       int use_fn, int relu, const float* pb, DccOffs o, const bf16* wb,
-                      DccOffs wo, int n_blocks, bf16* out, cudaStream_t stream) {
+                      DccOffs wo, int n_blocks, bf16* out, unsigned char* mask,
+                      cudaStream_t stream) {
   static bool smem_set = false;
   auto k = trunk_fwd_mma_kernel<BR>;
   if constexpr (CH) k = trunk_fwd_chunked_mma_kernel<BR>;
@@ -221,7 +252,7 @@ static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, i
   const size_t smem = fwd_mma_smem_bytes(BR, d_in, H, CH);
   if (R > 0)
     k<<<n_blocks, MMA_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o,
-                                               wb, wo, out);
+                                               wb, wo, out, mask);
   return (int)cudaGetLastError();
 }
 
@@ -231,26 +262,27 @@ static int trunk_fwd_mma_entry(const void* x, int x_bf16, long long R, int d_in,
                                int use_fn, int relu, int br, const float* pb,
                                const long long* offs, int n_offs, const void* wb,
                                const long long* woffs, int n_woffs, int n_blocks, void* out,
-                               void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || H % 8 != 0 ||
-      H > MMA_HMAX || n_blocks < 1 || d_in < 1)
+                               void* mask, void* stream) {
+  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || !mma_width_ok(H) ||
+      n_blocks < 1 || d_in < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
   bf16* y = (bf16*)out;
+  unsigned char* m = (unsigned char*)mask;
   switch (br) {
     case 64:
       if constexpr (CH) return (int)cudaErrorInvalidValue;
       else
         return launch_mma<64, false>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo,
-                                     n_blocks, y, s);
+                                     n_blocks, y, m, s);
     case 32:
       return launch_mma<32, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
-                                y, s);
+                                y, m, s);
     case 16:
       return launch_mma<16, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
-                                y, s);
+                                y, m, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -279,15 +311,16 @@ extern "C" unsigned long long dcc_trunk_fwd_mma_chunked_smem_bytes(int br, int d
   return fwd_mma_smem_bytes(br, d_in, H, true);
 }
 
-// bf16 trunk on the tensor cores: br in {64, 32, 16}; H a multiple of 8, at
-// most MMA_HMAX; n_blocks persistent blocks loop over the row tiles.
+// bf16 trunk on the tensor cores: br in {64, 32, 16}; any H whose tile fits
+// (dcc_trunk_fwd_mma_smem_bytes); n_blocks persistent blocks loop over the
+// row tiles; mask null or the relu masks' debug output (L x R x H bytes).
 extern "C" int dcc_trunk_fwd_mma(const void* x, int x_bf16, long long R, int d_in, int H,
                                  int L, int use_fn, int relu, int br, const float* pb,
                                  const long long* offs, int n_offs, const void* wb,
                                  const long long* woffs, int n_woffs, int n_blocks, void* out,
-                                 void* stream) {
+                                 void* mask, void* stream) {
   return trunk_fwd_mma_entry<false>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
-                                    n_offs, wb, woffs, n_woffs, n_blocks, out, stream);
+                                    n_offs, wb, woffs, n_woffs, n_blocks, out, mask, stream);
 }
 
 // bf16 trunk with the chunked layer 0 (rows too wide for a staged tile): br
@@ -296,9 +329,9 @@ extern "C" int dcc_trunk_fwd_chunked_mma(const void* x, int x_bf16, long long R,
                                          int H, int L, int use_fn, int relu, int br,
                                          const float* pb, const long long* offs, int n_offs,
                                          const void* wb, const long long* woffs, int n_woffs,
-                                         int n_blocks, void* out, void* stream) {
+                                         int n_blocks, void* out, void* mask, void* stream) {
   return trunk_fwd_mma_entry<true>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
-                                   n_offs, wb, woffs, n_woffs, n_blocks, out, stream);
+                                   n_offs, wb, woffs, n_woffs, n_blocks, out, mask, stream);
 }
 
 extern "C" const char* dcc_error_string(int code) {

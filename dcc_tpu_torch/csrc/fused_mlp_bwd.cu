@@ -98,7 +98,11 @@ __global__ void __launch_bounds__(DCC_THREADS)
 //   act   L x BR x Hp  each layer's activation
 //   sx    BR x Hp      the operand of layer li >= 1 (its input's LN output)
 //   stage BR x (Kp0 + 4) f32, layer 0's g_prev; over a0, act and sx, which
-//         are dead by then (and beyond them where it is larger)
+//         are dead by then (and beyond them where it is larger); at hidden
+//         widths of more than one column pass, also each layer li >= 1's
+//         g_prev, BR x (Hp + 4) f32 over act[li ..] and sx, which the
+//         backward no longer reads by then
+//         (trunk_mma.cuh)
 //   gs    BR x Hp      bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
 //   f32:  mu, inv (L x BR), the feature norm's mu, inv (BR), row-sum
@@ -130,10 +134,10 @@ struct BwdMmaLayout {
 __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, int L,
                                                        bool chunked = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
-  // widest column pass of layer 0's g_prev (none when chunked)
-  const int nk = chunked ? 0 : (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX);
-  const int st_kn = ring_stage((int)Hp, false);
-  const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
+  // widest column pass of layer 0's g_prev (none when chunked) and of a layer
+  const int nk = chunked ? 0 : pass_cols((int)Kp0), nh = pass_cols((int)Hp);
+  const int st_kn = ring_stage(nh, false);
+  const int st_nk = ring_stage(nk > nh ? nk : nh, true);
   BwdMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * ((chunked ? MMA_KC : Kp0) + 8);
@@ -162,11 +166,12 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
 // v[5+4li]; the W slots offs.v[2+4li] are not read), the same offsets
 // locating each gradient in the slot (chunked: less offs.v[3]); bf16 W_li
 // (pad16(d_li) x pad16(H), zero padded) at wb + woffs.v[li]. gout: R x H
-// f32; dx in x's dtype (staged); g0, xstats (chunked).
+// f32; dx in x's dtype (staged); g0, xstats (chunked); mask null, or the
+// relu masks' debug output of the forward recompute (L x R x H bytes).
 #define DCC_TRUNK_BWD_MMA_PARAMS                                                          \
   const void *x, int x_bf16, const float *gout, long long R, int d_in, int H, int L,      \
       int use_fn, int relu, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, \
-      float *slots, long long slot_size
+      float *slots, long long slot_size, unsigned char *mask
 
 template <int BR, bool CH>
 __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
@@ -174,7 +179,8 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
                                               float* xstats) {
   const BwdMmaLayout m = bwd_mma_layout(BR, d_in, H, L, CH);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
-            ldf = Kp0 + 4;
+            ldf = Kp0 + 4, ldgf = Hp + 4;
+  const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
   bf16* sx = (bf16*)(smem_raw + m.sx);
@@ -191,9 +197,10 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
   float* cnorm = (float*)(smem_raw + m.cnorm);
   const ResumList flags = resum_list(smem_raw + m.flags);
   constexpr int WM = MmaTile<BR>::WM;
-  const WarpTile wt = warp_tile<BR>(Hp / 8);
+  const WarpTile wt = pass_tile<BR>(Hp, 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   auto xv = [&](long long i) { return load_x(x, x_bf16, i); };
+  float acc[MmaTile<BR>::NT][4];
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
   const long long tiles = (R + BR - 1) / BR;
@@ -223,7 +230,6 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
                      lda0, fmu, finv);
     __syncthreads();
-    float acc[MmaTile<BR>::NT][4];
     for (int li = 0; li < L; ++li) {
       const long long* o = offs.v + 2 + 4 * li;
       const bf16* in = li == 0 ? a0 : sx;
@@ -231,41 +237,52 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
       const bool resum = relu && !(CH && li == 0);
       if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      if (CH && li == 0)
-        chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
-                                 use_fn ? pb + offs.v[0] : nullptr,
-                                 use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
-                                 Hp, ring, wt, acc);
-      else
-        gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt,
-                           acc);
-      if (resum)
-        resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
-                            cnorm + li * Hp, row0, R, wt, flags);
+      bf16* a = act + (long long)li * BR * ldh;
+      unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
+      float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (CH && li == 0)
+          chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
+                                   use_fn ? pb + offs.v[0] : nullptr,
+                                   use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
+                                   Hp, n0, ring, pt, acc);
+        else
+          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp,
+                             min(MMA_HMAX, Hp - n0), ring, pt, acc);
+        if (resum)
+          resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+                              cnorm + li * Hp, row0, R, pt, n0, flags);
+        dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
+        if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
+        store_pass<BR>(acc, a, ldh, n0, pt);
+      }
       float mu[2], inv[2];
-      dense_act_stats<BR>(acc, pb + o[1], H, relu, red, wt, mu, inv);
+      ln_stats<BR>(s, q, H, red, wt, mu, inv);
       if (wt.wn == 0 && (lane & 3) == 0) {
         for (int h = 0; h < 2; ++h) {
           mu_s[li * BR + wt.r0 + 8 * h] = mu[h];
           inv_s[li * BR + wt.r0 + 8 * h] = inv[h];
         }
       }
-      bf16* a = act + (long long)li * BR * ldh;
+      if (li + 1 < L) {  // the next layer's operand
+        for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+          const WarpTile pt = pass_tile<BR>(Hp, n0);
+          if (multi) load_pass<BR>(acc, a, ldh, n0, pt);
 #pragma unroll
-      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-        if (nt < wt.ntw) {
+          for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+            if (nt < pt.ntw) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
-            store_bf16x2(a + r * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
-            if (li + 1 < L) {  // the next layer's operand
-              float y[2];
+              for (int h = 0; h < 2; ++h) {
+                const int r = pt.r0 + 8 * h, c = n0 + pt.c0 + nt * 8;
+                float y[2];
 #pragma unroll
-              for (int e = 0; e < 2; ++e)
-                y[e] = c + e < H ? ln_affine(acc[nt][2 * h + e], mu[h], inv[h],
-                                             pb[o[2] + c + e], pb[o[3] + c + e])
-                                 : 0.f;
-              store_bf16x2(sx + r * ldh + c, y[0], y[1]);
+                for (int e = 0; e < 2; ++e)
+                  y[e] = c + e < H ? ln_affine(acc[nt][2 * h + e], mu[h], inv[h],
+                                               pb[o[2] + c + e], pb[o[3] + c + e])
+                                   : 0.f;
+                store_bf16x2(sx + r * ldh + c, y[0], y[1]);
+              }
             }
           }
         }
@@ -274,28 +291,60 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     }
     if (!first && threadIdx.x == 0)  // this tile adds into the block's slot: into L2
       prefetch_l2_span((const char*)slot, slot_size * 4);
-    // the cotangent of the trunk output, rows >= R zero
+    // the cotangent of the trunk output, rows >= R zero (odd H: one element
+    // at a time)
+    auto top_g = [&](int n0, const WarpTile& pt) {
 #pragma unroll
-    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long long row = row0 + wt.r0 + 8 * h;
-        const int c = wt.c0 + nt * 8;
-        float2 v = make_float2(0.f, 0.f);
-        if (nt < wt.ntw && row < R && c < H)
-          v = __ldg(reinterpret_cast<const float2*>(gout + row * H + c));
-        acc[nt][2 * h] = v.x;
-        acc[nt][2 * h + 1] = v.y;
+        for (int h = 0; h < 2; ++h) {
+          const long long row = row0 + pt.r0 + 8 * h;
+          const int c = n0 + pt.c0 + nt * 8;
+          float2 v = make_float2(0.f, 0.f);
+          if (nt < pt.ntw && row < R && c < H) {
+            const float* p = gout + row * H + c;
+            v = !DCC_WIDE || (H & 1) == 0
+                    ? __ldg(reinterpret_cast<const float2*>(p))
+                    : make_float2(__ldg(p), c + 1 < H ? __ldg(p + 1) : 0.f);
+          }
+          acc[nt][2 * h] = v.x;
+          acc[nt][2 * h + 1] = v.y;
+        }
       }
-    }
-    // unfolded backward (dcc_tpu/ops/fused_mlp.py::_bwd_kernel)
+    };
+    if (!multi) top_g(0, wt);
+    // unfolded backward (dcc_tpu/ops/fused_mlp.py::_bwd_kernel); with more
+    // than one column pass, each layer's cotangent is read pass by pass: the
+    // last layer's from gout, the others' from the stage gprev_passes wrote
     for (int li = L - 1; li >= 0; --li) {
       const long long* o = offs.v + 2 + 4 * li;  // W, b, LN scale, LN bias
-      ln_affine_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR,
-                            inv_s + li * BR, pb + o[2], H, Hp, relu, red, wt, colsum, gs);
+      const bf16* a = act + (long long)li * BR * ldh;
+      const float* gf = (const float*)(act + (long long)(li + 1) * BR * ldh);
+      auto load_g = [&](int n0, const WarpTile& pt) {
+        if (li + 1 == L)
+          top_g(n0, pt);
+        else
+          load_pass_f32<BR>(acc, gf, ldgf, n0, pt);
+      };
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (multi) load_g(n0, pt);
+        ln_bwd_sums<BR, true>(acc, a, ldh, mu_s + li * BR, inv_s + li * BR, pb + o[2], H, n0, pt,
+                              s1, s2);
+      }
+      ln_bwd_rows<BR>(s1, s2, H, red, wt);
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (multi) load_g(n0, pt);
+        ln_bwd_apply<BR, true>(acc, a, ldh, mu_s + li * BR, inv_s + li * BR, pb + o[2], H, Hp,
+                               n0, relu, s1, s2, pt, colsum, gs);
+      }
       if (li >= 1 && li + 1 < L) {
         // this layer's operand, the previous layer's LN output, as the
-        // forward wrote it (the last layer's is still in sx)
+        // forward wrote it (the last layer's is still in sx); more than one
+        // pass: after every thread has read the stage, which lies over sx
+        if (multi) __syncthreads();
         const long long* op = o - 4;
         const bf16* ap = act + (long long)(li - 1) * BR * ldh;
         const float* pm = mu_s + (li - 1) * BR;
@@ -337,8 +386,15 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
         grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
                       li == 0 ? d_in : H, gs, ldh, Hp, H, sb + o[0], first);
       }
-      if (li > 0)  // g_prev = bf16(g) @ W^T
-        gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      if (li > 0) {  // g_prev = bf16(g) @ W^T
+        if (multi) {  // into the stage over act[li ..] and sx
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[li], Hp, ring,
+                           (float*)(act + (long long)li * BR * ldh), ldgf);
+          __syncthreads();
+        } else {
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+        }
+      }
     }
     if constexpr (CH) {
       __syncthreads();  // the next tile's forward writes over gs and a0
@@ -346,7 +402,7 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     }
     // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns into the stage
     // (over a0, which grad_at_g has finished reading)
-    gprev_layer0<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
+    gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
     __syncthreads();
     if (use_fn) {
       // feature norm: its scale and bias gradients (rows >= R have g = 0)
@@ -395,7 +451,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     trunk_bwd_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, void* dx) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_bwd_mma<BR, false>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
-                           woffs, slots, slot_size, dx, nullptr, nullptr);
+                           woffs, slots, slot_size, mask, dx, nullptr, nullptr);
 }
 
 template <int BR>
@@ -403,7 +459,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     trunk_bwd_chunked_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_bwd_mma<BR, true>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
-                          woffs, slots, slot_size, nullptr, g0, xstats);
+                          woffs, slots, slot_size, mask, nullptr, g0, xstats);
 }
 
 // ---------------------------------------------------------------------------
@@ -429,7 +485,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 // that computes g_prev again, and only where the caller reads dx (MAPPO's
 // update does not: its rows are observations). Every sum is in f32 on the
 // CUDA cores, round to nearest; g_prev's own products (K = H) accumulate
-// on the tensor cores as the staged K2b's gprev_layer0 does. Bound: the
+// on the tensor cores as the staged K2b's gprev_passes does. Bound: the
 // products (2 or 4 R Kp0 Hp operations) against the bytes of x, g0 and,
 // with dx, dx.
 // ---------------------------------------------------------------------------
@@ -633,7 +689,7 @@ template <int BR>
 static int launch_mma(const void* x, int x_bf16, const float* g, long long R, int d_in, int H,
                       int L, int use_fn, int relu, const float* pb, const DccOffs& o,
                       const bf16* wb, const DccOffs& wo, float* slots, long long slot_size,
-                      int n_blocks, float* out, void* dx, cudaStream_t s) {
+                      int n_blocks, float* out, void* dx, unsigned char* mask, cudaStream_t s) {
   static bool smem_set = false;
   auto k = trunk_bwd_mma_kernel<BR>;
   if (!smem_set) {
@@ -642,7 +698,7 @@ static int launch_mma(const void* x, int x_bf16, const float* g, long long R, in
   }
   const size_t smem = bwd_mma_layout(BR, d_in, H, L).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, wb,
-                                        wo, slots, slot_size, dx);
+                                        wo, slots, slot_size, mask, dx);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
@@ -653,7 +709,7 @@ static int launch_chunked_mma(const void* x, int x_bf16, const float* g, long lo
                               int H, int L, int use_fn, int relu, const float* pb,
                               const DccOffs& o, const bf16* wb, const DccOffs& wo,
                               float* slots, long long slot_size, int n_blocks, float* out,
-                              bf16* g0, float* xstats, cudaStream_t s) {
+                              bf16* g0, float* xstats, unsigned char* mask, cudaStream_t s) {
   static bool smem_set = false;
   auto k = trunk_bwd_chunked_mma_kernel<BR>;
   if (!smem_set) {
@@ -662,7 +718,7 @@ static int launch_chunked_mma(const void* x, int x_bf16, const float* g, long lo
   }
   const size_t smem = bwd_mma_layout(BR, d_in, H, L, true).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, wb,
-                                        wo, slots, slot_size, g0, xstats);
+                                        wo, slots, slot_size, mask, g0, xstats);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
@@ -722,28 +778,28 @@ extern "C" int dcc_trunk_bwd(const void* x, int x_bf16, const float* g, long lon
 #undef DCC_CASE
 }
 
-// bf16 on the tensor cores: br in {64, 32, 16}; H a multiple of 8, at most
-// MMA_HMAX; offs: [fn scale, fn bias, (W, b, LN scale, LN bias) x L] into
-// pb and into a slot (2 + 4L entries, each W's even so the slabs can store
-// float2; slot_size even); woffs: the bf16 W_li in wb.
+// bf16 on the tensor cores: br in {64, 32, 16}; any H whose tile fits
+// (dcc_trunk_bwd_mma_smem_bytes); offs: [fn scale, fn bias, (W, b, LN
+// scale, LN bias) x L] into pb and into a slot (2 + 4L entries); woffs:
+// the bf16 W_li in wb; mask null or the relu masks' debug output (L x R x
+// H bytes).
 extern "C" int dcc_trunk_bwd_mma(const void* x, int x_bf16, const float* g, long long R,
                                  int d_in, int H, int L, int use_fn, int relu, int br,
                                  const float* pb, const long long* offs, int n_offs,
                                  const void* wb, const long long* woffs, int n_woffs,
                                  float* slots, long long slot_size, int n_blocks, float* out,
-                                 void* dx, void* stream) {
+                                 void* dx, void* mask, void* stream) {
   if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
-  for (int li = 0; li < L; ++li)
-    if (offs[2 + 4 * li] % 2 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
 #define DCC_CASE(B)                                                                      \
   case B:                                                                                \
     return launch_mma<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, w, wo, slots, \
-                         slot_size, n_blocks, out, dx, s);
+                         slot_size, n_blocks, out, dx, m, s);
   switch (br) {
     DCC_CASE(64)
     DCC_CASE(32)
@@ -764,19 +820,19 @@ extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float*
                                          const float* pb, const long long* offs, int n_offs,
                                          const void* wb, const long long* woffs, int n_woffs,
                                          float* slots, long long slot_size, int n_blocks,
-                                         float* out, void* g0, float* xstats, void* stream) {
+                                         float* out, void* g0, float* xstats, void* mask,
+                                         void* stream) {
   if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
-  for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
-    if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
 #define DCC_CASE(B)                                                                        \
   case B:                                                                                  \
     return launch_chunked_mma<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, w, wo,  \
-                                 slots, slot_size, n_blocks, out, (bf16*)g0, xstats, s);
+                                 slots, slot_size, n_blocks, out, (bf16*)g0, xstats, m, s);
   switch (br) {
     DCC_CASE(32)
     DCC_CASE(16)
@@ -800,7 +856,7 @@ extern "C" int dcc_layer0_input_bwd_mma(const void* x, int x_bf16, long long R, 
                                         const void* w0, const float* fs, int use_fn, int br,
                                         float* slots, int n_blocks, float* out, void* dx,
                                         void* stream) {
-  if (H % 8 != 0 || H > MMA_HMAX || n_blocks < 1 || d_in < 1 || (!use_fn && dx == nullptr) ||
+  if (H < 1 || n_blocks < 1 || d_in < 1 || (!use_fn && dx == nullptr) ||
       (use_fn && (fs == nullptr || slots == nullptr || out == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

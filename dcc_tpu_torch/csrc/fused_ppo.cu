@@ -404,7 +404,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // _trunk_bwd), as K2b runs the chain: the operands are the LN affine
 // outputs bf16(xhat * s + c) (ln_affine), the feature norm's affine is
 // applied when the input tile is loaded, the LN backward takes the scale
-// (ln_affine_act_bwd) and gives the LN scale and bias gradients, and layer
+// (ln_bwd_apply) and gives the LN scale and bias gradients, and layer
 // 0's g_prev (over d_in columns, in passes staged over the dead activation
 // tiles) gives the feature norm's. The unfolded forward re-sums the
 // pre-activations whose relu side a summation order can change
@@ -416,7 +416,9 @@ __global__ void __launch_bounds__(DCC_THREADS)
 //   act   L x BR x Hp  each layer's activation
 //   sx    BR x Hp    the operand of layer li >= 1
 //   stage BR x (Kp0 + 4) f32, unfolded and staged only: layer 0's g_prev,
-//         over a0, act and sx (and beyond them where it is larger)
+//         over a0, act and sx (and beyond them where it is larger); at
+//         hidden widths of more than one column pass, each layer li >= 1's
+//         g_prev, BR x (Hp + 4) f32 over act[li ..] and sx (trunk_mma.cuh)
 //   gs    BR x Hp    bf16 of the current layer's cotangent
 //   ring  the stages of the weight stream
 //   f32:  mu, inv (L x BR), unfolded and chunked the feature norm's mu,
@@ -444,9 +446,9 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   const bool fn_stats = unf || chunked;
   // unfolded and staged: the widest column pass of layer 0's g_prev
   const bool gprev0 = unf && !chunked;
-  const int nk = gprev0 ? (int)(Kp0 < MMA_HMAX ? Kp0 : MMA_HMAX) : 0;
-  const int st_kn = ring_stage((int)Hp, false);
-  const int st_nk = ring_stage(nk > (int)Hp ? nk : (int)Hp, true);
+  const int nk = gprev0 ? pass_cols((int)Kp0) : 0, nh = pass_cols((int)Hp);
+  const int st_kn = ring_stage(nh, false);
+  const int st_nk = ring_stage(nk > nh ? nk : nh, true);
   PpoMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * (chunked ? MMA_KC + 8 : Kp0 + 8);
@@ -472,72 +474,6 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   m.flags = o;  o += unf ? RESUM_BYTES : 0;
   m.total = o;
   return m;
-}
-
-// The cotangent g (acc) of a layer's LN output (no affine) back through the
-// LN and the activation, in registers; columns >= H become 0. Writes the
-// column sums of the result over the warp's 16 rows to colsum[wm][*] and
-// its bf16 rounding to gs. (The unfolded chain's is ln_affine_act_bwd.)
-template <int BR>
-__device__ __forceinline__ void ln_act_bwd(float (&acc)[MmaTile<BR>::NT][4], const bf16* act,
-                                           int ldh, const float* mu, const float* inv, int H,
-                                           int Hp, bool relu, float* red, const WarpTile& wt,
-                                           float* colsum, bf16* gs) {
-  const int lane = threadIdx.x & 31;
-  const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
-  const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
-  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-    if (nt < wt.ntw) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
-        if (col < H) {
-          const float xh = (bf(act[(wt.r0 + 8 * h) * ldh + col]) - m[h]) * iv[h];
-          s1[h] += acc[nt][i];
-          s2[h] += acc[nt][i] * xh;
-        }
-      }
-    }
-  }
-  row_sums<BR>(s1, s2, red, wt);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    s1[h] /= H;
-    s2[h] /= H;
-  }
-#pragma unroll
-  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-    if (nt < wt.ntw) {
-      float cs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
-        float v = 0.f;
-        if (col < H) {
-          const float a = bf(act[(wt.r0 + 8 * h) * ldh + col]);
-          const float xh = (a - m[h]) * iv[h];
-          v = iv[h] * (acc[nt][i] - s1[h] - xh * s2[h]);
-          v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
-        }
-        acc[nt][i] = v;
-        cs[i & 1] += v;
-      }
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
-      const int c = wt.c0 + nt * 8;
-      if (lane < 4) {
-        colsum[wt.wm * Hp + c] = cs[0];
-        colsum[wt.wm * Hp + c + 1] = cs[1];
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        store_bf16x2(gs + (wt.r0 + 8 * h) * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
-    }
-  }
 }
 
 // The loss heads. row() takes one row's head dot products s[d] = sum_h
@@ -664,10 +600,12 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
                                               const DccOffs& offs, const bf16* wb,
                                               const DccOffs& woffs, float* slots,
                                               long long slot_size, const Loss& loss,
-                                              bf16* g0 = nullptr, float* xstats = nullptr) {
+                                              unsigned char* mask, bf16* g0 = nullptr,
+                                              float* xstats = nullptr) {
   const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
-            ldf = Kp0 + 4;
+            ldf = Kp0 + 4, ldgf = Hp + 4;
+  const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
   bf16* a0 = (bf16*)(smem_raw + m.a0);
   bf16* act = (bf16*)(smem_raw + m.act);
   bf16* sx = (bf16*)(smem_raw + m.sx);
@@ -722,9 +660,10 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     else
       return bf16r((a - lmu[r]) * linv[r]);
   };
-  const WarpTile wt = warp_tile<BR>(Hp / 8);
+  const WarpTile wt = pass_tile<BR>(Hp, 0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   constexpr int WM = MmaTile<BR>::WM;
+  float acc[MmaTile<BR>::NT][4];
   for (int i = threadIdx.x; i < H * A; i += blockDim.x) whs[i] = bf16r(Wh[i]);
   if constexpr (UNF) {
     if (threadIdx.x == 0) *flags.n = 0;
@@ -756,7 +695,6 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     else
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
     __syncthreads();
-    float acc[MmaTile<BR>::NT][4];
     for (int li = 0; li < L; ++li) {
       const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
       const bf16* in = li == 0 ? a0 : sx;
@@ -764,47 +702,59 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       const bool resum = UNF && relu && !(CH && li == 0);
       if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      if (CH && li == 0)
-        chunked_layer0<BR, UNF>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv,
-                                use_fn ? pb + offs.v[0] : nullptr,
-                                use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0], Hp,
-                                ring, wt, acc);
-      else
-        gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li], Hp, Hp, ring, wt,
-                           acc);
-      if (resum)
-        resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
-                            cnorm + li * Hp, row0, R, wt, flags);
+      const float* bias = UNF ? pb + o[1] : us + li * H;
+      bf16* a = act + (long long)li * BR * ldh;
+      unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
+      float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (CH && li == 0)
+          chunked_layer0<BR, UNF>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv,
+                                  use_fn ? pb + offs.v[0] : nullptr,
+                                  use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
+                                  Hp, n0, ring, pt, acc);
+        else
+          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp,
+                             min(MMA_HMAX, Hp - n0), ring, pt, acc);
+        if (resum)
+          resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+                              cnorm + li * Hp, row0, R, pt, n0, flags);
+        dense_act<BR>(acc, bias, H, n0, relu, pt, s, q);
+        if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
+        store_pass<BR>(acc, a, ldh, n0, pt);
+      }
       float mu[2], inv[2];
-      dense_act_stats<BR>(acc, UNF ? pb + o[1] : us + li * H, H, relu, red, wt, mu, inv);
+      ln_stats<BR>(s, q, H, red, wt, mu, inv);
       if (wt.wn == 0 && (lane & 3) == 0) {
         for (int h = 0; h < 2; ++h) {
           mu_s[li * BR + wt.r0 + 8 * h] = mu[h];
           inv_s[li * BR + wt.r0 + 8 * h] = inv[h];
         }
       }
-      bf16* a = act + (long long)li * BR * ldh;
+      if (li + 1 < L) {  // the next layer's operand
+        for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+          const WarpTile pt = pass_tile<BR>(Hp, n0);
+          if (multi) load_pass<BR>(acc, a, ldh, n0, pt);
 #pragma unroll
-      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
-        if (nt < wt.ntw) {
+          for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+            if (nt < pt.ntw) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = wt.r0 + 8 * h, c = wt.c0 + nt * 8;
-            store_bf16x2(a + r * ldh + c, acc[nt][2 * h], acc[nt][2 * h + 1]);
-            if (li + 1 < L) {  // the next layer's operand
-              float y[2];
+              for (int h = 0; h < 2; ++h) {
+                const int r = pt.r0 + 8 * h, c = n0 + pt.c0 + nt * 8;
+                float y[2];
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                y[e] = 0.f;
-                if (c + e < H) {
-                  if constexpr (UNF)
-                    y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], pb[o[2] + c + e],
-                                     pb[o[3] + c + e]);
-                  else
-                    y[e] = (acc[nt][2 * h + e] - mu[h]) * inv[h];
+                for (int e = 0; e < 2; ++e) {
+                  y[e] = 0.f;
+                  if (c + e < H) {
+                    if constexpr (UNF)
+                      y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], pb[o[2] + c + e],
+                                       pb[o[3] + c + e]);
+                    else
+                      y[e] = (acc[nt][2 * h + e] - mu[h]) * inv[h];
+                  }
                 }
+                store_bf16x2(sx + r * ldh + c, y[0], y[1]);
               }
-              store_bf16x2(sx + r * ldh + c, y[0], y[1]);
             }
           }
         }
@@ -882,40 +832,64 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         s_met[k] = first ? sm : s_met[k] + sm;
       }
     }
-    // cotangent of the trunk output: g = bf16(dout) @ bf16(W_head)^T
+    // cotangent of the trunk output: g = bf16(dout) @ bf16(W_head)^T, for
+    // the pass of columns from n0
     float dm[2][4];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int d = 0; d < 4; ++d)
         dm[h][d] = d < A ? bf16r(dout[(wt.r0 + 8 * h) * A + d]) : 0.f;
+    auto top_g = [&](int n0, const WarpTile& pt) {
 #pragma unroll
-    for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+      for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = wt.c0 + nt * 8 + (i & 1);
-        float g = 0.f;
-        if (nt < wt.ntw && col < H) {
+        for (int i = 0; i < 4; ++i) {
+          const int col = n0 + pt.c0 + nt * 8 + (i & 1);
+          float g = 0.f;
+          if (nt < pt.ntw && col < H) {
 #pragma unroll
-          for (int d = 0; d < 4; ++d)
-            if (d < A) g = fmaf(dm[i >> 1][d], whs[col * A + d], g);
+            for (int d = 0; d < 4; ++d)
+              if (d < A) g = fmaf(dm[i >> 1][d], whs[col * A + d], g);
+          }
+          acc[nt][i] = g;
         }
-        acc[nt][i] = g;
       }
-    }
+    };
+    if (!multi) top_g(0, wt);
     // backward (dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded, or unfolded
-    // ::_trunk_bwd)
+    // ::_trunk_bwd); with more than one column pass, each layer's cotangent
+    // is read pass by pass: the last layer's from the head, the others' from
+    // the stage gprev_passes wrote
     for (int li = L - 1; li >= 0; --li) {
       const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
-      if constexpr (UNF)
-        ln_affine_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR,
-                              inv_s + li * BR, pb + o[2], H, Hp, relu, red, wt, colsum, gs);
-      else
-        ln_act_bwd<BR>(acc, act + (long long)li * BR * ldh, ldh, mu_s + li * BR,
-                       inv_s + li * BR, H, Hp, relu, red, wt, colsum, gs);
+      const bf16* a = act + (long long)li * BR * ldh;
+      const float* gf = (const float*)(act + (long long)(li + 1) * BR * ldh);
+      auto load_g = [&](int n0, const WarpTile& pt) {
+        if (li + 1 == L)
+          top_g(n0, pt);
+        else
+          load_pass_f32<BR>(acc, gf, ldgf, n0, pt);
+      };
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (multi) load_g(n0, pt);
+        ln_bwd_sums<BR, UNF>(acc, a, ldh, mu_s + li * BR, inv_s + li * BR, pb + o[2], H, n0, pt,
+                             s1, s2);
+      }
+      ln_bwd_rows<BR>(s1, s2, H, red, wt);
+      for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
+        const WarpTile pt = pass_tile<BR>(Hp, n0);
+        if (multi) load_g(n0, pt);
+        ln_bwd_apply<BR, UNF>(acc, a, ldh, mu_s + li * BR, inv_s + li * BR, pb + o[2], H, Hp, n0,
+                              relu, s1, s2, pt, colsum, gs);
+      }
       if (li >= 1 && li + 1 < L) {
         // this layer's operand, the previous layer's LN output, as the
-        // forward wrote it (the last layer's is still in sx)
+        // forward wrote it (the last layer's is still in sx); more than one
+        // pass: after every thread has read the stage, which lies over sx
+        if (multi) __syncthreads();
         const bf16* ap = act + (long long)(li - 1) * BR * ldh;
         const float* pm = mu_s + (li - 1) * BR;
         const float* pi = inv_s + (li - 1) * BR;
@@ -966,12 +940,19 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
                       li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : sv[li], first);
       }
-      if (li > 0)  // g_prev = bf16(g) @ W^T
-        gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+      if (li > 0) {  // g_prev = bf16(g) @ W^T
+        if (multi) {  // into the stage over act[li ..] and sx
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[li], Hp, ring,
+                           (float*)(act + (long long)li * BR * ldh), ldgf);
+          __syncthreads();
+        } else {
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+        }
+      }
     }
     if (UNF && !CH && use_fn) {
       // the feature norm's scale and bias gradients from layer 0's g_prev
-      gprev_layer0<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
+      gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
       __syncthreads();
       fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fnmu, fninv, slot + offs.v[0],
                           slot + offs.v[1], first);
@@ -990,13 +971,13 @@ __device__ __forceinline__ void actor_mma(unsigned char* smem_raw, const void* x
                                           int L, int A, int use_fn, int relu, float clip,
                                           const float* pb, const DccOffs& offs,
                                           const bf16* wb, const DccOffs& woffs, float* slots,
-                                          long long slot_size, bf16* g0 = nullptr,
-                                          float* xstats = nullptr) {
+                                          long long slot_size, unsigned char* mask,
+                                          bf16* g0 = nullptr, float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
   const ActorLoss loss{aux, pb + offs.v[h + 1], pb + offs.v[h + 2], clip, A};
   ppo_grads_mma<BR, UNF, ActorLoss, CH>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A,
                                         use_fn, relu, pb, offs, wb, woffs, slots, slot_size,
-                                        loss, g0, xstats);
+                                        loss, mask, g0, xstats);
 }
 
 // K4 / K4u in bf16. Head: wv (H), bv at offs.v[h], v[h + 1]; norm = [shift,
@@ -1009,31 +990,31 @@ __device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* 
                                            int use_clipped, const float* pb,
                                            const DccOffs& offs, const bf16* wb,
                                            const DccOffs& woffs, float* slots,
-                                           long long slot_size, bf16* g0 = nullptr,
-                                           float* xstats = nullptr) {
+                                           long long slot_size, unsigned char* mask,
+                                           bf16* g0 = nullptr, float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
   const CriticLoss loss{aux, pb[offs.v[h + 1]], norm[0], norm[1], clip, delta,
                         use_huber, use_clipped, 1};
   ppo_grads_mma<BR, UNF, CriticLoss, CH>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn,
-                                         relu, pb, offs, wb, woffs, slots, slot_size, loss, g0,
-                                         xstats);
+                                         relu, pb, offs, wb, woffs, slots, slot_size, loss, mask,
+                                         g0, xstats);
 }
 
 #define DCC_ACTOR_MMA_PARAMS                                                                \
   const void *x, int x_bf16, const float *aux, long long R, int d_in, int H, int L, int A,  \
       int use_fn, int relu, float clip, const float *pb, DccOffs offs, const bf16 *wb,      \
-      DccOffs woffs, float *slots, long long slot_size
+      DccOffs woffs, float *slots, long long slot_size, unsigned char *mask
 #define DCC_CRITIC_MMA_PARAMS                                                               \
   const void *x, int x_bf16, const float *aux, const float *norm, long long R, int d_in,    \
       int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,           \
       int use_clipped, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs,        \
-      float *slots, long long slot_size
+      float *slots, long long slot_size, unsigned char *mask
 
 template <int BR>
 __global__ void __launch_bounds__(MMA_THREADS, 1) actor_grads_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, false>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                       offs, wb, woffs, slots, slot_size);
+                       offs, wb, woffs, slots, slot_size, mask);
 }
 
 template <int BR>
@@ -1041,7 +1022,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_unfolded_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                      offs, wb, woffs, slots, slot_size);
+                      offs, wb, woffs, slots, slot_size, mask);
 }
 
 template <int BR>
@@ -1049,7 +1030,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     critic_grads_mma_kernel(DCC_CRITIC_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, false>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
-                        delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size);
+                        delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size,
+                        mask);
 }
 
 template <int BR>
@@ -1057,7 +1039,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     critic_grads_unfolded_mma_kernel(DCC_CRITIC_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
-                       delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size);
+                       delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size,
+                       mask);
 }
 
 // K4 with the chunked layer 0 (ppo_grads_mma's CH): rows too wide for a
@@ -1068,7 +1051,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, false, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                               delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
-                              slot_size, g0, xstats);
+                              slot_size, mask, g0, xstats);
 }
 
 // K4u with the chunked layer 0: the same rows; its feature norm's scale and
@@ -1080,7 +1063,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, true, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                              delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
-                             slot_size, g0, xstats);
+                             slot_size, mask, g0, xstats);
 }
 
 // K3 and K3u with the chunked layer 0: actor rows too wide for a staged
@@ -1092,7 +1075,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, false, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                             offs, wb, woffs, slots, slot_size, g0, xstats);
+                             offs, wb, woffs, slots, slot_size, mask, g0, xstats);
 }
 
 template <int BR>
@@ -1100,7 +1083,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_unfolded_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, true, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                            offs, wb, woffs, slots, slot_size, g0, xstats);
+                            offs, wb, woffs, slots, slot_size, mask, g0, xstats);
 }
 
 // ---------------------------------------------------------------------------
@@ -1127,17 +1110,19 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 // Affine mode (fs, fb given: the unfolded chain's layer 0, for the chunked
 // K2b and K4u): dW0 = bf16(xhat * fs + fb)^T g0, the operand rounded step
 // by step as the chunked forward's stage_chunk rounds it; the block's
-// DV0_KB entries of fs and fb are read once into shared memory.
+// DV0_KB entries of fs and fb are read once into shared memory. Hidden
+// widths past MMA_HMAX: the grid's third dimension takes dV0's columns in
+// passes of MMA_HMAX (one at H <= MMA_HMAX).
 // ---------------------------------------------------------------------------
 #define DV0_KB 128  // columns of x (rows of dV0) a block takes
 #define DV0_RS 32   // rows a step (two k16 steps of the products)
 #define DV0_ACC 128  // accumulators a thread holds: 2 slabs x 2 x 8 x 4
 #define DV0_FLUSH 16  // steps between the flushes into the f32 sums
 
-// Two stages of x and g0 rows, each thread's DV0_ACC f32 sums, then the
-// block's columns of the affine (fs, fb).
+// Two stages of x and g0 rows (one column pass of g0), each thread's
+// DV0_ACC f32 sums, then the block's columns of the affine (fs, fb).
 __host__ __device__ inline size_t dv0_smem_bytes(int H) {
-  return 2 * sizeof(bf16) * (size_t)DV0_RS * ((DV0_KB + 8) + (pad16(H) + 8)) +
+  return 2 * sizeof(bf16) * (size_t)DV0_RS * ((DV0_KB + 8) + (pass_cols(pad16(H)) + 8)) +
          sizeof(float) * (size_t)DV0_ACC * MMA_THREADS + sizeof(float) * 2 * DV0_KB;
 }
 
@@ -1146,7 +1131,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
                    const bf16* g0, int H, long long split_rows, const float* fs,
                    const float* fb, float* part) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Hp = pad16(H), lda = DV0_KB + 8, ldg = Hp + 8;
+  // this block's pass of dV0's columns: n0 .. n0 + Hp of g0's Hg (padded)
+  const int Hg = pad16(H), n0 = blockIdx.z * MMA_HMAX, Hp = min(MMA_HMAX, Hg - n0);
+  const int lda = DV0_KB + 8, ldg = Hp + 8;
   bf16* as[2];
   bf16* gs[2];
   as[0] = (bf16*)smem_raw;
@@ -1233,7 +1220,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       const int r = i / cpr, c = i - r * cpr;
       bf16* dst = gs[s] + r * ldg + c * 8;
       if (rb + r < r_end)
-        cp_async16(dst, g0 + (rb + r) * Hp + c * 8);
+        cp_async16(dst, g0 + (rb + r) * Hg + n0 + c * 8);
       else
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -1285,7 +1272,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
       for (int q = 0; q < 2; ++q) {
         const int sl = warp + MMA_WARPS * q;
         if (sl < n_slabs) {
-          const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+          const int m0 = (sl / ns) * 32, c0 = (sl % ns) * 64;
           // A = xhat^T, read transposed from the [r][k] stage (as grad_at_g)
           uint32_t a[2][4];
 #pragma unroll
@@ -1294,9 +1281,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
                                  (mat & 1) * 8);
 #pragma unroll
           for (int p = 0; p < 8; p += 2) {
-            if (n0 + p * 8 < Hp) {
+            if (c0 + p * 8 < Hp) {
               uint32_t b[4];
-              ldsm_x4_t(b, G + (kk + (mat & 1) * 8 + (lane & 7)) * ldg + n0 + (p + (mat >> 1)) * 8);
+              ldsm_x4_t(b, G + (kk + (mat & 1) * 8 + (lane & 7)) * ldg + c0 + (p + (mat >> 1)) * 8);
 #pragma unroll
               for (int mt = 0; mt < 2; ++mt) {
                 mma_bf16(acc[q][mt][p], a[mt], b[0], b[1]);
@@ -1318,7 +1305,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   for (int q = 0; q < 2; ++q) {
     const int sl = warp + MMA_WARPS * q;
     if (sl >= n_slabs) continue;
-    const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+    const int m0 = (sl / ns) * 32, c0 = (sl % ns) * 64;
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -1326,12 +1313,18 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int k = k0 + m0 + mt * 16 + (lane >> 2) + 8 * h;
-          const int j = n0 + nt * 8 + (lane & 3) * 2;
+          const int j = n0 + c0 + nt * 8 + (lane & 3) * 2;
           const float* s = sums + (((q * 2 + mt) * 8 + nt) * 4 + 2 * h) * MMA_THREADS +
                            threadIdx.x;
-          if (k < d_in && j < H)
-            *reinterpret_cast<float2*>(out + (long long)k * H + j) =
-                make_float2(s[0], s[MMA_THREADS]);
+          if (k < d_in && j < H) {
+            float* p = out + (long long)k * H + j;
+            if (!DCC_WIDE || (H & 1) == 0) {
+              *reinterpret_cast<float2*>(p) = make_float2(s[0], s[MMA_THREADS]);
+            } else {  // odd H: one element at a time
+              p[0] = s[0];
+              if (j + 1 < H) p[1] = s[MMA_THREADS];
+            }
+          }
         }
   }
 }
@@ -1366,7 +1359,8 @@ template <int BR, bool UNF>
 static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long long R,
                             int d_in, int H, int L, int A, int use_fn, int relu, float clip,
                             const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
-                            float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
+                            float* slots, long long slot_size, int n_blocks,
+                            unsigned char* mask, cudaStream_t s) {
   static bool smem_set = false;
   auto k = UNF ? actor_grads_unfolded_mma_kernel<BR> : actor_grads_mma_kernel<BR>;
   if (!smem_set) {
@@ -1375,7 +1369,7 @@ static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long lo
   }
   const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, wb, wo, slots, slot_size);
+                                        pb, o, wb, wo, slots, slot_size, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1384,7 +1378,8 @@ static int launch_actor_chunked_mma(const void* x, int x_bf16, const float* aux,
                                     int d_in, int H, int L, int A, int use_fn, int relu,
                                     float clip, const float* pb, DccOffs o, const bf16* wb,
                                     DccOffs wo, float* slots, long long slot_size, int n_blocks,
-                                    bf16* g0, float* xstats, cudaStream_t s) {
+                                    bf16* g0, float* xstats, unsigned char* mask,
+                                    cudaStream_t s) {
   static bool smem_set = false;
   auto k = UNF ? actor_grads_unfolded_chunked_mma_kernel<BR> : actor_grads_chunked_mma_kernel<BR>;
   if (!smem_set) {
@@ -1393,7 +1388,7 @@ static int launch_actor_chunked_mma(const void* x, int x_bf16, const float* aux,
   }
   const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF, true).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, wb, wo, slots, slot_size, g0, xstats);
+                                        pb, o, wb, wo, slots, slot_size, mask, g0, xstats);
   return (int)cudaGetLastError();
 }
 
@@ -1423,7 +1418,8 @@ static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const 
                              long long R, int d_in, int H, int L, int use_fn, int relu,
                              float clip, float delta, int use_huber, int use_clipped,
                              const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
-                             float* slots, long long slot_size, int n_blocks, cudaStream_t s) {
+                             float* slots, long long slot_size, int n_blocks,
+                             unsigned char* mask, cudaStream_t s) {
   static bool smem_set = false;
   auto k = UNF ? critic_grads_unfolded_mma_kernel<BR> : critic_grads_mma_kernel<BR>;
   if (!smem_set) {
@@ -1433,7 +1429,7 @@ static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const 
   const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, UNF).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
                                         clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size);
+                                        slots, slot_size, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1444,7 +1440,7 @@ static int launch_critic_chunked_mma(const void* x, int x_bf16, const float* aux
                                      int use_huber, int use_clipped, const float* pb, DccOffs o,
                                      const bf16* wb, DccOffs wo, float* slots,
                                      long long slot_size, int n_blocks, bf16* g0,
-                                     float* xstats, cudaStream_t s) {
+                                     float* xstats, unsigned char* mask, cudaStream_t s) {
   static bool smem_set = false;
   auto k = critic_grads_chunked_mma_kernel<BR>;
   if (!smem_set) {
@@ -1454,7 +1450,7 @@ static int launch_critic_chunked_mma(const void* x, int x_bf16, const float* aux
   const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, false, true).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
                                         clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size, g0, xstats);
+                                        slots, slot_size, mask, g0, xstats);
   return (int)cudaGetLastError();
 }
 
@@ -1463,7 +1459,8 @@ static int launch_critic_unfolded_chunked_mma(
     const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
     int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
     int use_clipped, const float* pb, DccOffs o, const bf16* wb, DccOffs wo, float* slots,
-    long long slot_size, int n_blocks, bf16* g0, float* xstats, cudaStream_t s) {
+    long long slot_size, int n_blocks, bf16* g0, float* xstats, unsigned char* mask,
+    cudaStream_t s) {
   static bool smem_set = false;
   auto k = critic_grads_unfolded_chunked_mma_kernel<BR>;
   if (!smem_set) {
@@ -1473,7 +1470,7 @@ static int launch_critic_unfolded_chunked_mma(
   const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, true, true).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
                                         clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size, g0, xstats);
+                                        slots, slot_size, mask, g0, xstats);
   return (int)cudaGetLastError();
 }
 
@@ -1508,14 +1505,9 @@ extern "C" unsigned long long dcc_ppo_unfolded_mma_chunked_smem_bytes(int br, in
 
 // The checks of the unfolded entries: the flat trunk list's offsets (fn
 // scale, fn bias, then W, b, LN scale, LN bias per layer) come first, then
-// (f32) each W^T, then the head's n_head vectors; the tensor-core entries
-// also need every W's slot offset even (the slabs store float2).
+// (f32) each W^T, then the head's n_head vectors.
 static bool unfolded_ok(const long long* offs, int n_offs, int L, bool mma, int n_head) {
-  if (L < 1 || n_offs != 2 + (mma ? 4 : 5) * L + n_head) return false;
-  if (mma)
-    for (int li = 0; li < L; ++li)
-      if (offs[2 + 4 * li] % 2 != 0) return false;
-  return true;
+  return L >= 1 && n_offs == 2 + (mma ? 4 : 5) * L + n_head;
 }
 
 // Actor in f32 (FMA): slots is n_blocks x slot_size scratch, out receives
@@ -1576,59 +1568,71 @@ extern "C" int dcc_actor_grads_unfolded(const void* x, int x_bf16, const float* 
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// Actor in bf16 on the tensor cores: br in {64, 32}; H a multiple of 8,
-// at most MMA_HMAX; slot_size even (the slabs store float2).
+// Actor in bf16 on the tensor cores: br in {64, 32, 16} (16 where no larger
+// tile fits, ops.tiles.SIZES); any H whose tile fits
+// (dcc_ppo_mma_smem_bytes); mask null or the relu masks' debug output (L x
+// R x H bytes).
 extern "C" int dcc_actor_grads_mma(const void* x, int x_bf16, const float* aux, long long R,
                                    int d_in, int H, int L, int A, int use_fn, int relu,
                                    float clip, int br, const float* pb, const long long* offs,
                                    int n_offs, const void* wb, const long long* woffs,
                                    int n_woffs, float* slots, long long slot_size,
-                                   int n_blocks, float* out, void* stream) {
+                                   int n_blocks, float* out, void* mask, void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
-      n_blocks < 1 || H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      n_blocks < 1 || !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
+#define DCC_CASE(B)                                                                            \
+  case B:                                                                                      \
+    err = launch_actor_mma<B, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, \
+                                     o, w, wo, slots, slot_size, n_blocks, m, s);              \
+    break;
   switch (br) {
-    case 64: err = launch_actor_mma<64, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
-                                               clip, pb, o, w, wo, slots, slot_size, n_blocks,
-                                               s); break;
-    case 32: err = launch_actor_mma<32, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
-                                               clip, pb, o, w, wo, slots, slot_size, n_blocks,
-                                               s); break;
-    default: return (int)cudaErrorInvalidValue;
+    DCC_CASE(64)
+    DCC_CASE(32)
+    DCC_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+#undef DCC_CASE
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// K3u in bf16 on the tensor cores: br in {64, 32}; as dcc_actor_grads_mma,
-// offs as unfolded_ok with n_head 3, n_woffs == L.
+// K3u in bf16 on the tensor cores: br in {64, 32, 16}; as
+// dcc_actor_grads_mma, offs as unfolded_ok with n_head 3, n_woffs == L.
 extern "C" int dcc_actor_grads_unfolded_mma(const void* x, int x_bf16, const float* aux,
                                             long long R, int d_in, int H, int L, int A,
                                             int use_fn, int relu, float clip, int br,
                                             const float* pb, const long long* offs, int n_offs,
                                             const void* wb, const long long* woffs,
                                             int n_woffs, float* slots, long long slot_size,
-                                            int n_blocks, float* out, void* stream) {
+                                            int n_blocks, float* out, void* mask, void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || A > 4 || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 3))
+      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
+#define DCC_CASE(B)                                                                           \
+  case B:                                                                                     \
+    err = launch_actor_mma<B, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, \
+                                    o, w, wo, slots, slot_size, n_blocks, m, s);              \
+    break;
   switch (br) {
-    case 64: err = launch_actor_mma<64, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
-                                              clip, pb, o, w, wo, slots, slot_size, n_blocks,
-                                              s); break;
-    case 32: err = launch_actor_mma<32, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
-                                              clip, pb, o, w, wo, slots, slot_size, n_blocks,
-                                              s); break;
-    default: return (int)cudaErrorInvalidValue;
+    DCC_CASE(64)
+    DCC_CASE(32)
+    DCC_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
+#undef DCC_CASE
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }
@@ -1645,26 +1649,24 @@ static int actor_grads_chunked(const void* x, int x_bf16, const float* aux, long
                                int br, const float* pb, const long long* offs, int n_offs,
                                const void* wb, const long long* woffs, int n_woffs,
                                float* slots, long long slot_size, int n_blocks, void* g0,
-                               float* xstats, float* out, void* stream) {
+                               float* xstats, float* out, void* mask, void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
-      n_blocks < 1 || H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      n_blocks < 1 || !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
-  if (UNF) {
-    if (n_woffs != L || !unfolded_ok(offs, n_offs, L, true, 3)) return (int)cudaErrorInvalidValue;
-    for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
-      if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
-  }
+  if (UNF && (n_woffs != L || !unfolded_ok(offs, n_offs, L, true, 3)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
   switch (br) {
     case 32: err = launch_actor_chunked_mma<32, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
                                                      relu, clip, pb, o, w, wo, slots, slot_size,
-                                                     n_blocks, (bf16*)g0, xstats, s); break;
+                                                     n_blocks, (bf16*)g0, xstats, m, s); break;
     case 16: err = launch_actor_chunked_mma<16, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
                                                      relu, clip, pb, o, w, wo, slots, slot_size,
-                                                     n_blocks, (bf16*)g0, xstats, s); break;
+                                                     n_blocks, (bf16*)g0, xstats, m, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1677,20 +1679,22 @@ extern "C" int dcc_actor_grads_chunked_mma(const void* x, int x_bf16, const floa
                                            const float* pb, const long long* offs, int n_offs,
                                            const void* wb, const long long* woffs, int n_woffs,
                                            float* slots, long long slot_size, int n_blocks,
-                                           void* g0, float* xstats, float* out, void* stream) {
+                                           void* g0, float* xstats, float* out, void* mask,
+                                           void* stream) {
   return actor_grads_chunked<false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
                                     br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
-                                    n_blocks, g0, xstats, out, stream);
+                                    n_blocks, g0, xstats, out, mask, stream);
 }
 
 extern "C" int dcc_actor_grads_unfolded_chunked_mma(
     const void* x, int x_bf16, const float* aux, long long R, int d_in, int H, int L, int A,
     int use_fn, int relu, float clip, int br, const float* pb, const long long* offs,
     int n_offs, const void* wb, const long long* woffs, int n_woffs, float* slots,
-    long long slot_size, int n_blocks, void* g0, float* xstats, float* out, void* stream) {
+    long long slot_size, int n_blocks, void* g0, float* xstats, float* out, void* mask,
+    void* stream) {
   return actor_grads_chunked<true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
                                    br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
-                                   n_blocks, g0, xstats, out, stream);
+                                   n_blocks, g0, xstats, out, mask, stream);
 }
 
 // Critic in f32 (FMA); norm = [shift, scale] on the device.
@@ -1758,30 +1762,32 @@ extern "C" int dcc_critic_grads_unfolded(const void* x, int x_bf16, const float*
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// Critic in bf16 on the tensor cores: br in {32, 16}; H a multiple of 8,
-// at most MMA_HMAX; slot_size even (the slabs store float2).
+// Critic in bf16 on the tensor cores: br in {32, 16}; any H whose tile
+// fits (dcc_ppo_mma_smem_bytes); mask null or the relu masks' debug output
+// (L x R x H bytes).
 extern "C" int dcc_critic_grads_mma(const void* x, int x_bf16, const float* aux,
                                     const float* norm, long long R, int d_in, int H, int L,
                                     int use_fn, int relu, float clip, float delta,
                                     int use_huber, int use_clipped, int br, const float* pb,
                                     const long long* offs, int n_offs, const void* wb,
                                     const long long* woffs, int n_woffs, float* slots,
-                                    long long slot_size, int n_blocks, float* out,
+                                    long long slot_size, int n_blocks, float* out, void* mask,
                                     void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
   switch (br) {
     case 32: err = launch_critic_mma<32, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                 relu, clip, delta, use_huber, use_clipped, pb, o,
-                                                w, wo, slots, slot_size, n_blocks, s); break;
+                                                w, wo, slots, slot_size, n_blocks, m, s); break;
     case 16: err = launch_critic_mma<16, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                 relu, clip, delta, use_huber, use_clipped, pb, o,
-                                                w, wo, slots, slot_size, n_blocks, s); break;
+                                                w, wo, slots, slot_size, n_blocks, m, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1797,21 +1803,23 @@ extern "C" int dcc_critic_grads_unfolded_mma(const void* x, int x_bf16, const fl
                                              int br, const float* pb, const long long* offs,
                                              int n_offs, const void* wb, const long long* woffs,
                                              int n_woffs, float* slots, long long slot_size,
-                                             int n_blocks, float* out, void* stream) {
+                                             int n_blocks, float* out, void* mask,
+                                             void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 2))
+      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
   switch (br) {
     case 32: err = launch_critic_mma<32, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                relu, clip, delta, use_huber, use_clipped, pb, o,
-                                               w, wo, slots, slot_size, n_blocks, s); break;
+                                               w, wo, slots, slot_size, n_blocks, m, s); break;
     case 16: err = launch_critic_mma<16, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                relu, clip, delta, use_huber, use_clipped, pb, o,
-                                               w, wo, slots, slot_size, n_blocks, s); break;
+                                               w, wo, slots, slot_size, n_blocks, m, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1829,24 +1837,25 @@ extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const flo
                                             const float* pb, const long long* offs, int n_offs,
                                             const void* wb, const long long* woffs, int n_woffs,
                                             float* slots, long long slot_size, int n_blocks,
-                                            void* g0, float* xstats, float* out,
+                                            void* g0, float* xstats, float* out, void* mask,
                                             void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0)
+      !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
   switch (br) {
     case 32: err = launch_critic_chunked_mma<32>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                  relu, clip, delta, use_huber, use_clipped, pb,
                                                  o, w, wo, slots, slot_size, n_blocks,
-                                                 (bf16*)g0, xstats, s); break;
+                                                 (bf16*)g0, xstats, m, s); break;
     case 16: err = launch_critic_chunked_mma<16>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
                                                  relu, clip, delta, use_huber, use_clipped, pb,
                                                  o, w, wo, slots, slot_size, n_blocks,
-                                                 (bf16*)g0, xstats, s); break;
+                                                 (bf16*)g0, xstats, m, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;
@@ -1863,24 +1872,23 @@ extern "C" int dcc_critic_grads_unfolded_chunked_mma(
     int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
     int use_clipped, int br, const float* pb, const long long* offs, int n_offs,
     const void* wb, const long long* woffs, int n_woffs, float* slots, long long slot_size,
-    int n_blocks, void* g0, float* xstats, float* out, void* stream) {
+    int n_blocks, void* g0, float* xstats, float* out, void* mask, void* stream) {
   if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
-      H % 8 != 0 || H > MMA_HMAX || slot_size % 2 != 0 || !unfolded_ok(offs, n_offs, L, true, 2))
+      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 2))
     return (int)cudaErrorInvalidValue;
-  for (int li = 1; li < L; ++li)  // W_li's slot offset even (float2 slabs)
-    if ((offs[2 + 4 * li] - offs[3]) % 2 != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
   const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
   int err;
   switch (br) {
     case 32: err = launch_critic_unfolded_chunked_mma<32>(
                  x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
-                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, s);
+                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, m, s);
              break;
     case 16: err = launch_critic_unfolded_chunked_mma<16>(
                  x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
-                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, s);
+                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, m, s);
              break;
     default: return (int)cudaErrorInvalidValue;
   }
@@ -1896,7 +1904,8 @@ extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
                            const float* xstats, const void* g0, int H, int n_splits,
                            const float* fs, const float* fb, float* part, float* out,
                            void* stream) {
-  if (H % 8 != 0 || H > MMA_HMAX || n_splits < 1 || d_in < 1 || (fs == nullptr) != (fb == nullptr))
+  if (H < 1 || (!DCC_WIDE && H % 2 != 0) || n_splits < 1 || d_in < 1 ||
+      (fs == nullptr) != (fb == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   static bool smem_set = false;
@@ -1906,7 +1915,8 @@ extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
     smem_set = true;
   }
   const long long split_rows = ((R + n_splits - 1) / n_splits + DV0_RS - 1) / DV0_RS * DV0_RS;
-  const dim3 grid((pad16(d_in) + DV0_KB - 1) / DV0_KB, n_splits);
+  const dim3 grid((pad16(d_in) + DV0_KB - 1) / DV0_KB, n_splits,
+                  (pad16(H) + MMA_HMAX - 1) / MMA_HMAX);
   dv0_mma_kernel<<<grid, MMA_THREADS, dv0_smem_bytes(H), s>>>(
       x, x_bf16, R, d_in, xstats, (const bf16*)g0, H, split_rows, fs, fb, part);
   const int err = (int)cudaGetLastError();

@@ -27,6 +27,20 @@
 // registers. Row reductions (LN statistics) use the quad shuffles of the
 // m16n8 accumulator layout, then the column groups' partials through shared
 // memory, summed in a fixed order.
+//
+// Hidden widths. A layer's output columns run in passes of at most MMA_HMAX
+// (pass_cols): each pass streams W[:, n0 : n0 + MMA_HMAX] through the ring
+// and runs the epilogue on its accumulators, adding each row's LN sums
+// pass by pass; the statistics follow the last pass. A layer of one pass
+// (pad16(H) <= MMA_HMAX) keeps its accumulators in registers from the
+// product to the LN output, as the kernels always did. Wider layers store
+// each pass's activations (bf16 values, so exactly) in shared memory and
+// apply the LN in a second sweep over them; the backward sums the LN
+// backward's row sums over the passes first, then forms each pass's
+// cotangent, and g_prev = bf16(g) W^T runs in column passes into an f32
+// stage over the activation tiles the backward no longer reads
+// (gprev_passes). Columns past H (the zero padding of pad16(H), any H) are
+// masked in every sum, read and store.
 #pragma once
 
 #include <stdint.h>
@@ -37,13 +51,36 @@
 #define MMA_WARPS 8
 #define MMA_KS 32           // K-slice of a streamed weight
 #define MMA_STAGES 3        // stages of the weight ring (two slices in flight)
-#define MMA_HMAX 256        // widest hidden layer the tiling takes
+#define MMA_HMAX 256        // widest column pass of a layer (one warp tiling)
 #define MMA_SMEM_MAX 232448 // an H100 block's shared memory
 #define MMA_KC 256          // columns of a chunk of a streamed first operand
+
+// DCC_WIDE: the library's kernels take any hidden width: each layer in
+// column passes (widths past MMA_HMAX), odd widths writing their rows and
+// gradient slots one element at a time. fused_*_wide.cu define it to 1 and
+// include their base source, which builds without it (0): there every
+// layer is one pass of an even width up to MMA_HMAX, a compile-time fact,
+// so those kernels keep their one-pass code with paired stores. Each
+// wrapper picks the library by the width.
+#ifndef DCC_WIDE
+#define DCC_WIDE 0
+#endif
 
 typedef __nv_bfloat16 bf16;
 
 __host__ __device__ inline int pad16(int n) { return (n + 15) / 16 * 16; }
+
+// Columns of the widest pass of a layer with Np (padded) output columns.
+__host__ __device__ inline int pass_cols(int Np) { return Np < MMA_HMAX ? Np : MMA_HMAX; }
+
+// The end of the column passes of a layer with Np (padded) output columns:
+// one pass (from column 0) in a library built without DCC_WIDE.
+__host__ __device__ inline int pass_end(int Np) { return DCC_WIDE ? Np : 1; }
+
+// Whether this library's tensor-core kernels take hidden width H.
+inline bool mma_width_ok(int H) {
+  return H >= 1 && (DCC_WIDE || (pad16(H) <= MMA_HMAX && H % 2 == 0));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -107,7 +144,7 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float a, float b) {
 }
 
 // The warp grid of a BR-row tile and the n-tiles one warp holds at the
-// widest hidden layer (MMA_HMAX columns): 16 at BR = 64, 8 at 32, 4 at 16.
+// widest pass (MMA_HMAX columns): 16 at BR = 64, 8 at 32, 4 at 16.
 template <int BR>
 struct MmaTile {
   static constexpr int WM = BR / 16, WN = MMA_WARPS / WM;
@@ -260,22 +297,20 @@ __device__ __forceinline__ void row_sums(float (&a)[2], float (&b)[2], float* re
   __syncthreads();
 }
 
-// Dense epilogue and LayerNorm statistics of one layer, in registers:
-// acc <- act(z), z = bf16(bf16(acc) + bf16(b)), act = relu or bf16(tanh);
-// columns >= H are 0. Returns each of the thread's two rows' mean and
-// 1/sqrt(var + eps) over the H real columns (fast variance).
+// Dense epilogue of one pass of a layer (its columns from n0), in
+// registers: acc <- act(z), z = bf16(bf16(acc) + bf16(b)), act = relu or
+// bf16(tanh); columns >= H are 0. Adds each of the thread's two rows' sum
+// and sum of squares into s, q.
 template <int BR>
-__device__ __forceinline__ void dense_act_stats(float (&acc)[MmaTile<BR>::NT][4], const float* b,
-                                                int H,
-                                                bool relu, float* red, const WarpTile& wt,
-                                                float (&mu)[2], float (&inv)[2]) {
-  float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
+__device__ __forceinline__ void dense_act(float (&acc)[MmaTile<BR>::NT][4], const float* b, int H,
+                                          int n0, bool relu, const WarpTile& wt, float (&s)[2],
+                                          float (&q)[2]) {
 #pragma unroll
   for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
     if (nt < wt.ntw) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = wt.c0 + nt * 8 + (i & 1);
+        const int col = n0 + wt.c0 + nt * 8 + (i & 1);
         float r = 0.f;
         if (col < H) {
           const float z = bf16r(bf16r(acc[nt][i]) + bf16r(b[col]));
@@ -287,6 +322,33 @@ __device__ __forceinline__ void dense_act_stats(float (&acc)[MmaTile<BR>::NT][4]
       }
     }
   }
+}
+
+// The relu masks' debug output of one pass (columns from n0) of a layer,
+// from its activations in acc (dense_act's: relu(z) > 0 exactly where z >
+// 0): mask holds the layer's rows from the tile's first, nrows of them, H
+// bytes each. Called only where the caller asked for the masks.
+template <int BR>
+__device__ __forceinline__ void store_relu_mask(const float (&acc)[MmaTile<BR>::NT][4], int H,
+                                                int n0, const WarpTile& wt, unsigned char* mask,
+                                                long long nrows) {
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
+    if (nt < wt.ntw) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int col = n0 + wt.c0 + nt * 8 + (i & 1), row = wt.r0 + 8 * (i >> 1);
+        if (col < H && row < nrows) mask[(long long)row * H + col] = acc[nt][i] > 0.f;
+      }
+    }
+  }
+}
+
+// Each of the thread's two rows' mean and 1/sqrt(var + eps) over the H real
+// columns (fast variance) from its partial sums s, q. All threads call it.
+template <int BR>
+__device__ __forceinline__ void ln_stats(float (&s)[2], float (&q)[2], int H, float* red,
+                                         const WarpTile& wt, float (&mu)[2], float (&inv)[2]) {
   row_sums<BR>(s, q, red, wt);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -294,6 +356,50 @@ __device__ __forceinline__ void dense_act_stats(float (&acc)[MmaTile<BR>::NT][4]
     const float var = fmaxf(q[h] / H - mu[h] * mu[h], 0.f);
     inv[h] = 1.f / sqrtf(var + 1e-6f);
   }
+}
+
+// The warp tile of the pass from column n0 of a layer with Np (padded)
+// output columns.
+template <int BR>
+__device__ __forceinline__ WarpTile pass_tile(int Np, int n0) {
+  return warp_tile<BR>(min(MMA_HMAX, Np - n0) / 8);
+}
+
+// acc (the pass's accumulators) to or from a bf16 tile (row stride ld):
+// columns n0 + the warp tile's.
+template <int BR>
+__device__ __forceinline__ void store_pass(const float (&acc)[MmaTile<BR>::NT][4], bf16* t, int ld,
+                                           int n0, const WarpTile& wt) {
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+    if (nt < wt.ntw)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_bf16x2(t + (wt.r0 + 8 * h) * ld + n0 + wt.c0 + nt * 8, acc[nt][2 * h],
+                     acc[nt][2 * h + 1]);
+}
+
+template <int BR>
+__device__ __forceinline__ void load_pass(float (&acc)[MmaTile<BR>::NT][4], const bf16* t, int ld,
+                                          int n0, const WarpTile& wt) {
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+    if (nt < wt.ntw)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[nt][i] = bf(t[(wt.r0 + 8 * (i >> 1)) * ld + n0 + wt.c0 + nt * 8 + (i & 1)]);
+}
+
+// The same from an f32 stage (row stride ld), as gprev_passes writes it.
+template <int BR>
+__device__ __forceinline__ void load_pass_f32(float (&acc)[MmaTile<BR>::NT][4], const float* t,
+                                              int ld, int n0, const WarpTile& wt) {
+#pragma unroll
+  for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
+    if (nt < wt.ntw)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        acc[nt][i] = t[(wt.r0 + 8 * (i >> 1)) * ld + n0 + wt.c0 + nt * 8 + (i & 1)];
 }
 
 // First operand tile of the trunk for rows [row0, row0 + BR): bf16 of the
@@ -372,14 +478,16 @@ __device__ void load_input(const void* x, int x_bf16, long long row0, long long 
 // lda), g: BR x Hp bf16 (stride ldg), both in shared memory. Each warp
 // accumulates 32 x 64 slabs of the product in registers over the tile's
 // rows and adds each slab into the slot once; every slot element has one
-// owner thread, so there are no atomics. The slot must be 8-byte aligned
-// and H even (float2 accesses). A slab's slot reads all come before its
-// stores, so they are in flight together.
+// owner thread, so there are no atomics. With the slot 8-byte aligned and H
+// even it reads and writes element pairs (float2), else single elements. A
+// slab's slot reads all come before its stores, so they are in flight
+// together.
 template <int BR>
 __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g, int ldg,
                           int Hp, int H, float* slot, bool first) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
   const int ms = (Kp + 31) / 32, ns = (Hp + 63) / 64;
+  const bool pairs = !DCC_WIDE || ((H & 1) == 0 && ((unsigned long long)slot & 7) == 0);
   for (int sl = warp; sl < ms * ns; sl += MMA_WARPS) {
     const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
     float acc[2][8][4];
@@ -423,7 +531,9 @@ __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g,
             const int k = m0 + mt * 16 + (lane >> 2) + 8 * h;
             const int j = n0 + nt * 8 + (lane & 3) * 2;
             if (k < d && j < H) {
-              const float2 o = *reinterpret_cast<const float2*>(slot + (long long)k * H + j);
+              const float* p = slot + (long long)k * H + j;
+              const float2 o = pairs ? *reinterpret_cast<const float2*>(p)
+                                     : make_float2(p[0], j + 1 < H ? p[1] : 0.f);
               acc[mt][nt][2 * h] += o.x;
               acc[mt][nt][2 * h + 1] += o.y;
             }
@@ -437,9 +547,16 @@ __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g,
         for (int h = 0; h < 2; ++h) {
           const int k = m0 + mt * 16 + (lane >> 2) + 8 * h;
           const int j = n0 + nt * 8 + (lane & 3) * 2;
-          if (k < d && j < H)
-            *reinterpret_cast<float2*>(slot + (long long)k * H + j) =
-                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+          if (k < d && j < H) {
+            float* p = slot + (long long)k * H + j;
+            if (pairs) {
+              *reinterpret_cast<float2*>(p) =
+                  make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+            } else {
+              p[0] = acc[mt][nt][2 * h];
+              if (j + 1 < H) p[1] = acc[mt][nt][2 * h + 1];
+            }
+          }
         }
   }
 }
@@ -631,8 +748,9 @@ __device__ __forceinline__ void stage_chunk(const float (&xv)[BR / MMA_WARPS][8]
   }
 }
 
-// Layer 0's product acc = a0 @ W_0 over a chunked first operand (rows too
-// wide to stage whole, ROADMAP B2): chunk by chunk, stage_chunk writes the
+// Layer 0's product acc = a0 @ W_0[:, n0 : n0 + pass] (one column pass,
+// warp tile wt) over a chunked first operand (rows too wide to stage
+// whole, ROADMAP B2): chunk by chunk, stage_chunk writes the
 // operand (folded bf16(xhat); AFF, the unfolded chain's, bf16(xhat * fs +
 // fb)) into a0 (BR x MMA_KC, stride lda0), its product with W_0's rows
 // k0 .. k0 + MMA_KC runs on the tensor cores, and the chunks' products are
@@ -645,7 +763,7 @@ template <int BR, bool AFF>
 __device__ void chunked_layer0(const void* x, int x_bf16, long long row0, long long R,
                                int d_in, bool use_fn, const float* mu, const float* inv,
                                const float* fs, const float* fb, bf16* a0, int lda0,
-                               const bf16* w0, int Hp, bf16* ring, const WarpTile& wt,
+                               const bf16* w0, int Hp, int n0, bf16* ring, const WarpTile& wt,
                                float (&acc)[MmaTile<BR>::NT][4]) {
   const int Kp0 = pad16(d_in);
   float part[MmaTile<BR>::NT][4];
@@ -657,7 +775,8 @@ __device__ void chunked_layer0(const void* x, int x_bf16, long long row0, long l
     __syncthreads();
     if (k0 + MMA_KC < Kp0)  // in flight during this chunk's product
       fetch_chunk<BR>(x, x_bf16, row0, R, d_in, k0 + MMA_KC, xv);
-    gemm_stream<false>(a0, lda0, kc, w0 + (long long)k0 * Hp, Hp, Hp, ring, wt, part);
+    gemm_stream<false>(a0, lda0, kc, w0 + (long long)k0 * Hp + n0, Hp, min(MMA_HMAX, Hp - n0),
+                       ring, wt, part);
 #pragma unroll
     for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
 #pragma unroll
@@ -714,19 +833,20 @@ __device__ __forceinline__ void operand_row_norms(const bf16* in, int lda, int K
 // on the CUDA cores in sequential k order, the order of the CPU's and the
 // FMA kernels' small products. Such pre-activations are rare (~0.1 %); each
 // layer of a tile lists them in `l` and the block's threads re-sum them in
-// parallel (past FLAG_CAP, by their owners). Every thread calls it.
+// parallel (past FLAG_CAP, by their owners). acc holds the pass of the
+// layer's columns from n0 (warp tile wt). Every thread calls it.
 template <int BR>
 __device__ __forceinline__ void resum_uncertain(float (&acc)[MmaTile<BR>::NT][4], const bf16* in,
                                                 int lda, int K, const bf16* w, int Hp,
                                                 const float* b, int H, const float* rnorm,
                                                 const float* cnorm, long long row0, long long R,
-                                                const WarpTile& wt, const ResumList& l) {
+                                                const WarpTile& wt, int n0, const ResumList& l) {
   unsigned long long listed = 0, own = 0;  // bit 4 nt + i of acc
 #pragma unroll
   for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
+      const int r = wt.r0 + 8 * (i >> 1), col = n0 + wt.c0 + nt * 8 + (i & 1);
       if (nt < wt.ntw && col < H && row0 + r < R &&
           relu_uncertain(acc[nt][i], b[col], rnorm[r], cnorm[col])) {
         const int j = atomicAdd(l.n, 1);
@@ -748,7 +868,7 @@ __device__ __forceinline__ void resum_uncertain(float (&acc)[MmaTile<BR>::NT][4]
     for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int r = wt.r0 + 8 * (i >> 1), col = wt.c0 + nt * 8 + (i & 1);
+        const int r = wt.r0 + 8 * (i >> 1), col = n0 + wt.c0 + nt * 8 + (i & 1);
         if ((listed >> (4 * nt + i)) & 1) {
           for (int j = 0; j < n; ++j)
             if (l.key[j] == (r << 16 | col)) acc[nt][i] = l.val[j];
@@ -758,7 +878,7 @@ __device__ __forceinline__ void resum_uncertain(float (&acc)[MmaTile<BR>::NT][4]
 #pragma unroll 1
     for (; own != 0; own &= own - 1) {  // past the list: the owner re-sums
       const int bit = __ffsll((long long)own) - 1, r = wt.r0 + 8 * ((bit & 3) >> 1);
-      const int col = wt.c0 + (bit >> 2) * 8 + (bit & 1);
+      const int col = n0 + wt.c0 + (bit >> 2) * 8 + (bit & 1);
       const float v = dot_sequential(in + r * lda, w + col, Hp, K);
 #pragma unroll
       for (int nt = 0; nt < MmaTile<BR>::NT; ++nt)
@@ -771,76 +891,109 @@ __device__ __forceinline__ void resum_uncertain(float (&acc)[MmaTile<BR>::NT][4]
   }
 }
 
-// The cotangent g (acc) of a layer's LN output y = xhat * scale + bias back
-// through the LN (dcc_tpu/ops/fused_mlp.py::_ln_bwd) and the activation, in
-// registers; columns >= H become 0. Writes the column sums over the warp's
-// 16 rows of g * xhat (the LN scale's gradient), of g (the LN bias's) and of
-// the result (the Dense bias's) to colsum[k][wm][*], k = 0, 1, 2, and the
-// result's bf16 rounding to gs.
-template <int BR>
-__device__ __forceinline__ void ln_affine_act_bwd(float (&acc)[MmaTile<BR>::NT][4],
-                                                  const bf16* act, int ldh, const float* mu,
-                                                  const float* inv, const float* scale, int H,
-                                                  int Hp, bool relu, float* red,
-                                                  const WarpTile& wt, float* colsum, bf16* gs) {
-  constexpr int WM = MmaTile<BR>::WM;
-  const int lane = threadIdx.x & 31;
+// The LN backward of a layer (dcc_tpu/ops/fused_mlp.py::_ln_bwd) and its
+// activation's, one column pass at a time: acc holds the pass (columns from
+// n0, warp tile wt) of the cotangent g of the layer's LN output, y = xhat *
+// scale + bias with AFF (the unfolded chain's), y = xhat without (the
+// folded chain's, scale unread). act: the layer's activations (row stride
+// ldh); mu, inv: its rows' LN statistics. ln_bwd_sums adds the thread's two
+// rows' partial sums of g s and g s xhat (s = scale, or 1) over the pass
+// into s1, s2; ln_bwd_rows completes them over the tile and takes their
+// means over the H columns; ln_bwd_apply then turns acc into the cotangent
+// of the layer's pre-activation (columns >= H 0), writes its bf16 rounding
+// to gs and the column sums over the warp's 16 rows of it (the Dense bias's
+// gradient) to colsum[wm][*] (folded) or colsum[2][wm][*], with AFF those
+// of g xhat and g (the LN scale's and bias's) to colsum[0] and colsum[1].
+template <int BR, bool AFF>
+__device__ __forceinline__ void ln_bwd_sums(const float (&acc)[MmaTile<BR>::NT][4],
+                                            const bf16* act, int ldh, const float* mu,
+                                            const float* inv, const float* scale, int H, int n0,
+                                            const WarpTile& wt, float (&s1)[2], float (&s2)[2]) {
   const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
   const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
-  float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
 #pragma unroll
   for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
     if (nt < wt.ntw) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        const int h = i >> 1, col = n0 + wt.c0 + nt * 8 + (i & 1);
         if (col < H) {
           const float xh = (bf(act[(wt.r0 + 8 * h) * ldh + col]) - m[h]) * iv[h];
-          const float gg = acc[nt][i] * __ldg(scale + col);
-          s1[h] += gg;
-          s2[h] += gg * xh;
+          if constexpr (AFF) {
+            const float gg = acc[nt][i] * __ldg(scale + col);
+            s1[h] += gg;
+            s2[h] += gg * xh;
+          } else {
+            s1[h] += acc[nt][i];
+            s2[h] += acc[nt][i] * xh;
+          }
         }
       }
     }
   }
+}
+
+template <int BR>
+__device__ __forceinline__ void ln_bwd_rows(float (&s1)[2], float (&s2)[2], int H, float* red,
+                                            const WarpTile& wt) {
   row_sums<BR>(s1, s2, red, wt);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     s1[h] /= H;
     s2[h] /= H;
   }
+}
+
+template <int BR, bool AFF>
+__device__ __forceinline__ void ln_bwd_apply(float (&acc)[MmaTile<BR>::NT][4], const bf16* act,
+                                             int ldh, const float* mu, const float* inv,
+                                             const float* scale, int H, int Hp, int n0,
+                                             bool relu, const float (&s1)[2],
+                                             const float (&s2)[2], const WarpTile& wt,
+                                             float* colsum, bf16* gs) {
+  constexpr int WM = MmaTile<BR>::WM, NK = AFF ? 3 : 1;  // column sums kept
+  const int lane = threadIdx.x & 31;
+  const float m[2] = {mu[wt.r0], mu[wt.r0 + 8]};
+  const float iv[2] = {inv[wt.r0], inv[wt.r0 + 8]};
 #pragma unroll
   for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
     if (nt < wt.ntw) {
-      float cs[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+      float cs[NK][2];
+#pragma unroll
+      for (int k = 0; k < NK; ++k) cs[k][0] = cs[k][1] = 0.f;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, col = wt.c0 + nt * 8 + (i & 1);
+        const int h = i >> 1, col = n0 + wt.c0 + nt * 8 + (i & 1);
         float v = 0.f;
         if (col < H) {
           const float a = bf(act[(wt.r0 + 8 * h) * ldh + col]);
           const float xh = (a - m[h]) * iv[h];
           const float g = acc[nt][i];
-          cs[0][i & 1] += g * xh;
-          cs[1][i & 1] += g;
-          v = iv[h] * (g * __ldg(scale + col) - s1[h] - xh * s2[h]);
+          if constexpr (AFF) {
+            cs[0][i & 1] += g * xh;
+            cs[1][i & 1] += g;
+            v = iv[h] * (g * __ldg(scale + col) - s1[h] - xh * s2[h]);
+          } else {
+            v = iv[h] * (g - s1[h] - xh * s2[h]);
+          }
           v = relu ? (a > 0.f ? v : 0.f) : v * (1.f - a * a);
         }
         acc[nt][i] = v;
-        cs[2][i & 1] += v;
+        cs[NK - 1][i & 1] += v;
       }
 #pragma unroll
-      for (int k = 0; k < 3; ++k)
+      for (int k = 0; k < NK; ++k)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
 #pragma unroll
           for (int o = 4; o < 32; o <<= 1) cs[k][e] += __shfl_xor_sync(0xffffffffu, cs[k][e], o);
-      const int c = wt.c0 + nt * 8;
+      const int c = n0 + wt.c0 + nt * 8;
       if (lane < 4) {
 #pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          colsum[(k * WM + wt.wm) * Hp + c] = cs[k][0];
-          colsum[(k * WM + wt.wm) * Hp + c + 1] = cs[k][1];
+        for (int k = 0; k < NK; ++k) {
+          const int kk = AFF ? k : 0;
+          colsum[(kk * WM + wt.wm) * Hp + c] = cs[k][0];
+          colsum[(kk * WM + wt.wm) * Hp + c + 1] = cs[k][1];
         }
       }
 #pragma unroll
@@ -850,13 +1003,15 @@ __device__ __forceinline__ void ln_affine_act_bwd(float (&acc)[MmaTile<BR>::NT][
   }
 }
 
-// Layer 0's g_prev = bf16(g) @ W_0^T over its Kp0 columns, in passes of at
-// most MMA_HMAX, into stage (BR x ldf f32). gs: bf16(g), BR x Hp (stride
-// ldh); w0: the bf16 W_0 (Kp0 x Hp). The stage may lie over tiles that the
-// block has finished reading (every thread passes gemm_stream's first
-// barrier before any stage store). Every thread calls it.
+// A layer's g_prev = bf16(g) @ W^T over its Kp0 input columns (layer 0's
+// d_in, padded; a hidden layer's Hp), in passes of at most MMA_HMAX, into
+// stage (BR x ldf f32). gs: bf16(g), BR x Hp (stride ldh); w0: the layer's
+// bf16 W (Kp0 x Hp). The stage may lie over tiles that the block has
+// finished reading (every thread passes gemm_stream's first barrier before
+// any stage store). Every thread calls it; the stage is complete after the
+// caller's next barrier.
 template <int BR>
-__device__ __forceinline__ void gprev_layer0(const bf16* gs, int ldh, int Hp, const bf16* w0,
+__device__ __forceinline__ void gprev_passes(const bf16* gs, int ldh, int Hp, const bf16* w0,
                                              int Kp0, bf16* ring, float* stage, int ldf) {
   float acc[MmaTile<BR>::NT][4];
   for (int c0 = 0; c0 < Kp0; c0 += MMA_HMAX) {
@@ -878,7 +1033,7 @@ __device__ __forceinline__ void gprev_layer0(const bf16* gs, int ldh, int Hp, co
 }
 
 // The feature norm's scale and bias gradients of one tile: column sums over
-// its rows of g * xhat and g, g the staged layer-0 g_prev (gprev_layer0) and
+// its rows of g * xhat and g, g the staged layer-0 g_prev (gprev_passes) and
 // xhat = (x - fmu) * finv recomputed from the input rows; rows >= R are
 // skipped. Stored into ds / db by the block's first tile, else added.
 template <int BR>

@@ -42,7 +42,13 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dcc_tpu_torch")
-SOURCES = ("gae", "fused_mlp", "fused_mlp_bwd", "fused_ppo")
+SOURCES = ("gae", "fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide",
+           "fused_mlp_bwd_wide", "fused_ppo_wide")
+# the tensor-core kernels' hidden widths: an even width up to MMA_HMAX
+# (csrc/trunk_mma.cuh) runs every layer in one pass in the base libraries;
+# any other width (wider layers in column passes, odd widths element by
+# element) the ``*_wide`` ones, the same sources built with DCC_WIDE
+MMA_HMAX = 256
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -61,7 +67,7 @@ _SIGNATURES = {
     "fused_mlp": {
         "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
         "dcc_trunk_fwd_mma": [
-            _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P,
+            _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
         ],
         "dcc_trunk_fwd_mma_smem_bytes": [_I, _I, _I],
         "dcc_trunk_fwd_mma_chunked_smem_bytes": [_I, _I, _I],
@@ -72,12 +78,12 @@ _SIGNATURES = {
         ],
         "dcc_trunk_bwd_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
-            _P, _P, _P,
+            _P, _P, _P, _P,
         ],
         # dcc_trunk_bwd_mma's arguments, with g0 and xstats in dx's place
         "dcc_trunk_bwd_chunked_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
-            _P, _P, _P, _P,
+            _P, _P, _P, _P, _P,
         ],
         "dcc_layer0_input_bwd_mma": [
             _P, _I, _L, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
@@ -94,7 +100,7 @@ _SIGNATURES = {
         ],
         "dcc_actor_grads_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
-            _P, _L, _I, _P, _P,
+            _P, _L, _I, _P, _P, _P,
         ],
         "dcc_critic_grads": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
@@ -102,17 +108,17 @@ _SIGNATURES = {
         ],
         "dcc_critic_grads_mma": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P,
         ],
         # dcc_critic_grads_mma's arguments, with g0 and xstats before out
         "dcc_critic_grads_chunked_mma": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _P,
         ],
         # dcc_actor_grads_mma's arguments, with g0 and xstats before out
         "dcc_actor_grads_chunked_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
-            _P, _L, _I, _P, _P, _P, _P,
+            _P, _L, _I, _P, _P, _P, _P, _P,
         ],
         "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
@@ -135,6 +141,9 @@ _SIGNATURES["fused_ppo"].update({
 # the chunked K2 takes the staged one's arguments
 _SIGNATURES["fused_mlp"]["dcc_trunk_fwd_chunked_mma"] = _SIGNATURES["fused_mlp"][
     "dcc_trunk_fwd_mma"]
+# the wide libraries hold the same entry points
+for _name in ("fused_mlp", "fused_mlp_bwd", "fused_ppo"):
+    _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[_name]
 
 
 def reset_launches() -> None:
@@ -217,6 +226,15 @@ def _libraries() -> dict:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
     return _libraries()[name]
+
+
+def mma_library(name: str, hidden: int) -> ctypes.CDLL:
+    """The library whose tensor-core kernels take hidden width ``hidden``:
+    ``name``'s for an even width up to ``MMA_HMAX``, else its ``_wide``
+    twin (layers in column passes past ``MMA_HMAX`` padded to 16, odd
+    widths element by element)."""
+    wide = hidden % 2 or -(-hidden // 16) * 16 > MMA_HMAX
+    return library(f"{name}_wide" if wide else name)
 
 
 def check(name: str, code: int, kernel: str) -> None:

@@ -46,10 +46,19 @@ the layer-0 input backward gives the feature norm's gradients and dx
 dV0 kernel gives W_0's (:func:`dv0_cuda`); the chunked K3, K4, K3u and K4u
 end in the same two kernels.
 
-The CUDA entries take at most ``MAX_LAYERS`` layers, and the bf16 tiling
-a hidden width that is a multiple of ``MMA_HSTEP`` and at most
-``MMA_HMAX`` (:func:`cuda_trunk_faults`, which MAPPO asks at construction;
+The CUDA entries take at most ``MAX_LAYERS`` layers (ROADMAP B3b). The
+bf16 kernels take any hidden width whose smallest row tile fits one
+block's shared memory: each layer runs in column passes of at most 256
+(``csrc/trunk_mma.cuh``), and widths off multiples of 16 are zero-padded
+and masked, so at two layers every width up to 1,024 is taken
+(:func:`cuda_trunk_faults`, which MAPPO asks at construction;
 :func:`check_mma_width` guards each launch).
+
+Every bf16 K2, K2b, K3, K4, K3u and K4u wrapper takes ``relu_masks``, an
+(L, rows, H) uint8 CUDA tensor that the kernel fills with each layer's
+relu mask (z > 0) as its epilogue decides it, for the kernel checks; the
+main path passes None. The plain versions take the same masks
+(``masks``) in place of their own decisions.
 """
 
 from __future__ import annotations
@@ -63,12 +72,8 @@ from . import tiles
 from .tiles import SMEM_MAX
 
 EPS = 1e-6
-# the CUDA entries' limits: layers (csrc/trunk.cuh, DCC_MAX_LAYERS), and the
-# bf16 tiling's widest hidden layer and column step (csrc/trunk_mma.cuh,
-# MMA_HMAX; its n-tiles are 8 columns wide)
+# the CUDA entries' limit on layers (csrc/trunk.cuh, DCC_MAX_LAYERS)
 MAX_LAYERS = 8
-MMA_HMAX = 256
-MMA_HSTEP = 8
 # distance from a relu kink within which two f32 summation orders may take
 # opposite sides (the f32 kink rule of the kernel checks)
 F32_KINK_EPS = 1e-5
@@ -95,18 +100,32 @@ def dense(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool) -> torc
     return a.to(torch.float32) @ w + b
 
 
-def activation(z: torch.Tensor, use_relu: bool, bf16: bool) -> torch.Tensor:
+def activation(z: torch.Tensor, use_relu: bool, bf16: bool, mask=None) -> torch.Tensor:
+    """relu (with ``mask``, a kernel's relu mask: z where it is set, else
+    0) or tanh, rounded to bf16 in bf16 mode."""
     if use_relu:
-        return torch.relu(z)
+        return torch.relu(z) if mask is None else torch.where(mask.bool(), z, 0.0)
     r = torch.tanh(z)
     return bf16_round(r) if bf16 else r
 
 
-def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16):
+def relu_grad_mask(r: torch.Tensor, mask=None) -> torch.Tensor:
+    """The relu derivative of a layer with activation ``r``: r > 0, or the
+    kernel's ``mask`` where one is given."""
+    return (r > 0 if mask is None else mask.bool()).to(r.dtype)
+
+
+def _layer_mask(masks, li):
+    return None if masks is None else masks[li]
+
+
+def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks=None):
     """The trunk on (rows, d_in) f32, keeping what the backward needs: the
     feature norm's (xhat, inv) and per layer (a, r, xhat, inv), with ``a``
     the layer's input and ``r`` its activation as the chain rounds them.
-    Returns (output f32, feature-norm cache or None, layer caches)."""
+    ``masks``: each layer's relu mask to take instead of z > 0 (a kernel's,
+    ``relu_masks``), or None. Returns (output f32, feature-norm cache or
+    None, layer caches)."""
     a = x.to(torch.float32)
     i, fn_cache = 0, None
     if use_fn:
@@ -117,10 +136,10 @@ def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16):
         a = bf16_round(a) if bf16 else a
         i = 2
     layers = []
-    for _ in range(n_layers):
+    for li in range(n_layers):
         w, b, s, c = params[i : i + 4]
         i += 4
-        r = activation(dense(a, w, b, bf16), use_relu, bf16)
+        r = activation(dense(a, w, b, bf16), use_relu, bf16, _layer_mask(masks, li))
         mu, inv = ln_stats(r)
         xhat = (r - mu) * inv
         layers.append((a, r, xhat, inv))
@@ -136,9 +155,11 @@ def trunk_forward_plain(
     use_fn: bool = True,
     use_relu: bool = True,
     bf16: bool = False,
+    masks=None,
 ) -> torch.Tensor:
-    """Plain PyTorch K2 on (rows, d_in); returns (rows, H) in bf16 or f32."""
-    a, _, _ = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    """Plain PyTorch K2 on (rows, d_in); returns (rows, H) in bf16 or f32.
+    ``masks``: the relu masks to take (a kernel's ``relu_masks``), or None."""
+    a, _, _ = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
     return a.to(torch.bfloat16) if bf16 else a
 
 
@@ -151,13 +172,14 @@ def _ln_bwd(g, xhat, inv, scale):
 
 
 def trunk_bwd_chain(g, params, fn_cache, layers, n_layers: int, use_fn: bool,
-                    use_relu: bool, bf16: bool, to_layer0: bool = False):
+                    use_relu: bool, bf16: bool, to_layer0: bool = False, masks=None):
     """The backward of the chain that :func:`_forward_chain` cached: the
     cotangent ``g`` (rows, H) of the trunk output back to (f32 cotangent of
     the trunk's input, [f32 gradient of each parameter]). With
     ``to_layer0``, as the chunked kernels split it: it stops at layer 0's
     cotangent (after its activation) and returns that instead, with no
-    gradient (None) for W_0 and the feature norm."""
+    gradient (None) for W_0 and the feature norm. ``masks``: the relu
+    masks the forward took, or None."""
     mm = (lambda p, q: bf16_round(p) @ bf16_round(q)) if bf16 else torch.matmul
     g = g.to(torch.float32)
     grads = [None] * len(params)
@@ -166,7 +188,7 @@ def trunk_bwd_chain(g, params, fn_cache, layers, n_layers: int, use_fn: bool,
         a, r, xhat, inv = layers[li]
         i -= 4
         g, grads[i + 2], grads[i + 3] = _ln_bwd(g, xhat, inv, params[i + 2])
-        g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
+        g = g * relu_grad_mask(r, _layer_mask(masks, li)) if use_relu else g * (1.0 - r * r)
         grads[i + 1] = g.sum(dim=0)
         if to_layer0 and li == 0:
             return g, grads
@@ -187,14 +209,15 @@ def trunk_backward_plain(
     use_relu: bool = True,
     bf16: bool = False,
     need_dx: bool = True,
+    masks=None,
 ):
     """Plain PyTorch K2b: the cotangent ``g`` (rows, H) of the trunk output
     back to (dx in x.dtype, or None without ``need_dx``, [f32 gradient of
-    each parameter])."""
+    each parameter]). ``masks``: the relu masks to take, or None."""
     with torch.no_grad():
-        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
         g, grads = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu,
-                                   bf16)
+                                   bf16, masks=masks)
     return (g.to(x.dtype) if need_dx else None), grads
 
 
@@ -215,14 +238,14 @@ def input_stats(x, use_fn: bool) -> torch.Tensor:
 
 
 def trunk_bwd_chunked_plain(x, params, g, n_layers: int, use_fn: bool = True,
-                            use_relu: bool = True, bf16: bool = True):
+                            use_relu: bool = True, bf16: bool = True, masks=None):
     """Plain chunked K2b (its first launch): the chain down to layer 0's
     cotangent. Returns (the gradients of ``params`` from layer 0's bias on,
     layer 0's bf16 cotangent g0 (rows, H), :func:`input_stats`)."""
     with torch.no_grad():
-        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+        _, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
         g0, grads = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu,
-                                    bf16, to_layer0=True)
+                                    bf16, to_layer0=True, masks=masks)
     first = 2 if use_fn else 0
     return grads[first + 1:], g0.to(torch.bfloat16), input_stats(x, use_fn)
 
@@ -274,7 +297,6 @@ def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
     cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
-    check_mma_width(hidden)
     fs = fb = None
     if affine is not None:
         fs, fb = affine
@@ -284,7 +306,7 @@ def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
     part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
     out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
     name = "dv0_unfolded" if unfolded else f"{kind}_ppo_grads_dv0"
-    code = cb.library("fused_ppo").dcc_dv0_mma(
+    code = cb.mma_library("fused_ppo", hidden).dcc_dv0_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
         g0.data_ptr(), hidden, splits, None if fs is None else fs.data_ptr(),
         None if fb is None else fb.data_ptr(), part.data_ptr(), out.data_ptr(),
@@ -304,7 +326,6 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
     cb.require(g0, "g0", (torch.bfloat16,), (rows, pad16(hidden)), x.device)
     cb.require(w0b, "w0b", (torch.bfloat16,), (pad16(d_in), pad16(hidden)), x.device)
-    check_mma_width(hidden)
     use_fn = fs is not None
     if not (use_fn or need_dx):
         raise ValueError("layer0_input_bwd_cuda computes nothing without fs or dx")
@@ -355,6 +376,48 @@ def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True,
                 acc = (bf16_round(a) @ bf16_round(w)).abs().clamp_min(1e-30)
                 near |= (z <= torch.exp2(torch.floor(torch.log2(acc)) - 7)).any(dim=1)
     return near
+
+
+# a relu mask of a kernel may differ from the plain version's where a change
+# of one bf16 step (relative 2^-8) in every element of the layer's input can
+# move the pre-activation across the kink (the relu mask rule of the kernel
+# checks, relu_mask_gap)
+MASK_STEP = 2.0 ** -8
+
+
+def mask_gap(layers, masks, bf16: bool = True) -> tuple:
+    """How a kernel's relu masks differ from the plain version's. ``layers``:
+    per layer (its input a, W, b) on the plain chain that took the kernel's
+    ``masks`` (L, rows, H), so each layer's input is the kernel's up to
+    rounding. Returns (elements whose mask differs from z > 0, the largest
+    |z| / bound over them, 0 if none), with z the plain pre-activation and
+    bound = ``MASK_STEP`` * sum_k |a_k w_k| + the bf16 step at z's
+    accumulator: how far z moves when every element of a moves by one bf16
+    step. A ratio above 1 is a mask the kernel's rounding cannot explain."""
+    n, worst = 0, 0.0
+    with torch.no_grad():
+        for li, (a, w, b) in enumerate(layers):
+            z = dense(a, w, b, bf16)
+            ar, wr = (bf16_round(a), bf16_round(w)) if bf16 else (a, w)
+            acc = (ar @ wr).abs().clamp_min(1e-30)
+            bound = MASK_STEP * (ar.abs() @ wr.abs()) + torch.exp2(torch.floor(torch.log2(acc))
+                                                                    - 7)
+            diff = (z > 0) != masks[li].bool()
+            k = int(diff.sum())
+            if k:
+                n += k
+                worst = max(worst, float((z.abs() / bound)[diff].max()))
+    return n, worst
+
+
+def relu_mask_gap(x, params, n_layers: int, use_fn: bool, masks, bf16: bool = True) -> tuple:
+    """:func:`mask_gap` of the unfolded chain (K2, K2b, K3u, K4u) on rows
+    ``x`` with the flat trunk list ``params``."""
+    with torch.no_grad():
+        _, _, layers = _forward_chain(x, params, n_layers, use_fn, True, bf16, masks)
+    first = 2 if use_fn else 0
+    return mask_gap([(a, params[first + 4 * li], params[first + 4 * li + 1])
+                     for li, (a, *_) in enumerate(layers)], masks, bf16)
 
 
 def trunk_param_shapes(d_in: int, hidden: int, n_layers: int, use_fn: bool) -> list:
@@ -425,26 +488,33 @@ def pack_trunk(params: Sequence[torch.Tensor], device, n_layers: int, use_fn: bo
     return TrunkPack(pb, offs, wb, woffs)
 
 
-def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool) -> list:
+def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool, launches=()) -> list:
     """What of a ``n_layers``-layer trunk of width ``hidden`` the fused CUDA
-    kernels do not take (ROADMAP B3), one phrase each; empty if nothing."""
+    kernels do not take, one phrase each; empty if nothing: more layers
+    than the entries take (ROADMAP B3b) and, in bf16, each of the
+    ``launches`` ((kernel, row width, head width), the kernels a run
+    launches) with no row tile that fits one block (ROADMAP B3)."""
     faults = []
     if n_layers > MAX_LAYERS:
-        faults.append(f"{n_layers} layers (the CUDA entries take at most {MAX_LAYERS})")
-    if bf16 and hidden > MMA_HMAX:
-        faults.append(f"bf16 hidden width {hidden} (the tensor-core tiling takes at most "
-                      f"{MMA_HMAX})")
-    if bf16 and hidden % MMA_HSTEP:
-        faults.append(f"bf16 hidden width {hidden} (the tensor-core tiling takes multiples "
-                      f"of {MMA_HSTEP})")
+        faults.append(f"{n_layers} layers (the CUDA entries take at most {MAX_LAYERS}; "
+                      f"ROADMAP B3b)")
+    if bf16:
+        for kernel, d_in, n_head in launches:
+            fault = tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)
+            if fault and fault not in faults:
+                faults.append(fault)
     return faults
 
 
-def check_mma_width(hidden: int) -> None:
-    """Raise unless the tensor-core kernels' tiling takes ``hidden``."""
-    if hidden % MMA_HSTEP or hidden > MMA_HMAX:
-        raise ValueError(f"the bf16 tensor-core kernels take a hidden width that is a "
-                         f"multiple of {MMA_HSTEP} and at most {MMA_HMAX}, not {hidden}")
+def check_mma_width(kernel: str, d_in: int, hidden: int, n_layers: int,
+                    n_head: int = 1) -> tuple:
+    """The bf16 ``kernel``'s tile plan at this width (``ops.tiles.plan``);
+    raises naming ROADMAP B3 and the shared memory where no row tile fits."""
+    chunked, sizes = tiles.plan(kernel, True, d_in, hidden, n_layers, n_head)
+    if not sizes:
+        raise ValueError(f"the bf16 tensor-core kernels do not take "
+                         f"{tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)}")
+    return chunked, sizes
 
 
 def tile_rows(width: int, floats_per_row_fn, sizes: Sequence[int]) -> int:
@@ -480,6 +550,17 @@ def grads_blocks(tiles: int, sms: int, mma: bool) -> int:
     return max(1, min(tiles, sms))
 
 
+def _mask_ptr(relu_masks, n_layers: int, rows: int, hidden: int, bf16: bool, device):
+    """The relu masks' debug output for a tensor-core launch: None (the main
+    path) or the pointer of an (L, rows, H) uint8 tensor."""
+    if relu_masks is None:
+        return None
+    if not bf16:
+        raise ValueError("relu_masks is an output of the bf16 tensor-core kernels")
+    cb.require(relu_masks, "relu_masks", (torch.uint8,), (n_layers, rows, hidden), device)
+    return relu_masks.data_ptr()
+
+
 def _check_trunk(x, params, n_layers, use_fn):
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     hidden = params[-4].shape[1]
@@ -495,12 +576,14 @@ def trunk_forward_cuda(
     use_relu: bool = True,
     bf16: bool = False,
     packed: Optional[TrunkPack] = None,
+    relu_masks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows: the tensor-core
     kernel in bf16 (its chunked layout at rows too wide for a staged tile,
     ``ops.tiles.plan``), the FMA kernel in f32. ``packed`` is
     ``pack_trunk(params, x.device, n_layers, use_fn, bf16)`` made
-    beforehand, or None to pack here."""
+    beforehand, or None to pack here. ``relu_masks`` (bf16 only): None, or
+    an (L, rows, H) uint8 tensor the kernel fills with its relu masks."""
     rows, d_in = x.shape
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         raise RuntimeError(
@@ -508,8 +591,7 @@ def trunk_forward_cuda(
             "backward is the K2b kernel) or run under torch.no_grad()"
         )
     hidden = _check_trunk(x, params, n_layers, use_fn)
-    if bf16:
-        check_mma_width(hidden)
+    mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
     if packed is None:
         packed = pack_trunk(params, x.device, n_layers, use_fn, bf16)
     pb, offs = packed.buffer, packed.offsets
@@ -520,7 +602,7 @@ def trunk_forward_cuda(
     out = torch.empty(
         (rows, hidden), dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device
     )
-    lib = cb.library("fused_mlp")
+    lib = cb.mma_library("fused_mlp", hidden) if bf16 else cb.library("fused_mlp")
     smem = lambda b: tiles.smem_bytes("fused_mlp", bf16, b, d_in, hidden, n_layers) // 4
     offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
@@ -530,7 +612,7 @@ def trunk_forward_cuda(
             raise ValueError("bf16 K2 needs the bf16 weight copies: pack_trunk(..., bf16=True)")
         cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
         sms = cb.sm_count(x.device)
-        chunked, sizes = tiles.plan("fused_mlp", True, d_in, hidden, n_layers)
+        chunked, sizes = check_mma_width("fused_mlp", d_in, hidden, n_layers)
         # the smallest row tile that still gives every SM a tile (every
         # layout, staged or chunked, has a 16-row one)
         target = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
@@ -542,7 +624,7 @@ def trunk_forward_cuda(
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
             pb.data_ptr(), offs_c, len(offs), packed.weights.data_ptr(),
-            (cb._L * len(woffs))(*woffs), len(woffs), n_blocks, out.data_ptr(),
+            (cb._L * len(woffs))(*woffs), len(woffs), n_blocks, out.data_ptr(), mask_ptr,
             cb.stream_of(x),
         )
     else:
@@ -569,6 +651,7 @@ def trunk_backward_cuda(
     bf16: bool = False,
     packed: Optional[TrunkPack] = None,
     need_dx: bool = True,
+    relu_masks: Optional[torch.Tensor] = None,
 ):
     """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
     rows and the (rows, H) cotangent: the tensor-core kernel in bf16, which
@@ -577,19 +660,23 @@ def trunk_backward_cuda(
     bf16 rows too wide for a staged tile (``ops.tiles.plan``) take the
     chunked K2b, then the layer-0 input backward (with the feature norm, or
     for dx) and the dV0 kernel in its affine mode; there dx is computed only
-    with ``need_dx``. Same returns as the plain version (dx None where it
-    was not computed)."""
+    with ``need_dx``. ``relu_masks`` as in :func:`trunk_forward_cuda` (of
+    the forward recompute). Same returns as the plain version (dx None where
+    it was not computed)."""
     rows, d_in = x.shape
     hidden = _check_trunk(x, params, n_layers, use_fn)
     g = g.to(torch.float32).contiguous()
     cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
-    lib = cb.library("fused_mlp_bwd")
-    chunked, sizes = tiles.plan("fused_mlp_bwd", bf16, d_in, hidden, n_layers)
+    mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
+    lib = cb.mma_library("fused_mlp_bwd", hidden) if bf16 else cb.library("fused_mlp_bwd")
+    if bf16:
+        chunked, sizes = check_mma_width("fused_mlp_bwd", d_in, hidden, n_layers)
+    else:
+        chunked, sizes = tiles.plan("fused_mlp_bwd", False, d_in, hidden, n_layers)
     smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers,
                                       chunked=chunked) // 4
     sms = cb.sm_count(x.device)
     if bf16:
-        check_mma_width(hidden)
         if packed is None:
             packed = pack_trunk(params, x.device, n_layers, use_fn, True)
         if packed.weights is None:
@@ -608,7 +695,7 @@ def trunk_backward_cuda(
         offs = [0, 0] + offs
     if chunked:
         return _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs,
-                                       br, need_dx)
+                                       br, need_dx, mask_ptr)
     # each block owns one slot laid out as the flat parameter list
     used = sum(p.numel() for p in params)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
@@ -617,15 +704,16 @@ def trunk_backward_cuda(
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     offs_c = (cb._L * len(offs))(*offs)
-    weights = ()
+    weights, mask = (), ()
     if bf16:
         woffs = packed.weight_offsets
         weights = (packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs))
+        mask = (mask_ptr,)
     entry = "dcc_trunk_bwd_mma" if bf16 else "dcc_trunk_bwd"
     code = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
         n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), offs_c, len(offs), *weights,
-        slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), cb.stream_of(x),
+        slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), *mask, cb.stream_of(x),
     )
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
     cb.LAUNCHES["fused_mlp_bwd"] += 1
@@ -637,7 +725,7 @@ def trunk_backward_cuda(
 
 
 def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs, br,
-                            need_dx):
+                            need_dx, mask_ptr=None):
     """bf16 K2b at rows too wide for a staged tile: the chunked kernel
     (``dcc_trunk_bwd_chunked_mma``: the chain to layer 0's cotangent g0,
     its slot starting at layer 0's bias), then the layer-0 input backward
@@ -655,12 +743,12 @@ def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, of
     g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
     xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     pb, woffs = packed.buffer, packed.weight_offsets
-    code = cb.library("fused_mlp_bwd").dcc_trunk_bwd_chunked_mma(
+    code = cb.mma_library("fused_mlp_bwd", hidden).dcc_trunk_bwd_chunked_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
         n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), (cb._L * len(offs))(*offs),
         len(offs), packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs),
         slots.data_ptr(), slot, n_blocks, out.data_ptr(), g0.data_ptr(), xstats.data_ptr(),
-        cb.stream_of(x),
+        mask_ptr, cb.stream_of(x),
     )
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd_chunked")
     cb.LAUNCHES["fused_mlp_bwd_chunked"] += 1

@@ -54,6 +54,9 @@ from .fused_mlp import (
     bf16_round,
     check_mma_width,
     dense,
+    _mask_ptr,
+    mask_gap,
+    relu_grad_mask,
     dv0_cuda,
     finish_layer0_cuda,
     grads_blocks,
@@ -158,7 +161,9 @@ def _clip_grad(x, lo: float, hi: float):
     return gmax * gmin
 
 
-def _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16):
+def _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16, masks=None):
+    """The folded chain's forward; ``masks``: each layer's relu mask to take
+    instead of z > 0 (a kernel's ``relu_masks``), or None."""
     a = x.to(torch.float32)
     if use_fn:
         mu, inv = ln_stats(a)
@@ -166,7 +171,8 @@ def _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16):
         a = bf16_round(a) if bf16 else a
     cache = []
     for li in range(n_layers):
-        r = activation(dense(a, kp[2 * li], kp[2 * li + 1], bf16), use_relu, bf16)
+        m = None if masks is None else masks[li]
+        r = activation(dense(a, kp[2 * li], kp[2 * li + 1], bf16), use_relu, bf16, m)
         mu, inv = ln_stats(r)
         xhat = (r - mu) * inv
         cache.append((a, r, xhat, inv))
@@ -174,11 +180,11 @@ def _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16):
     return a, cache
 
 
-def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, to_layer0=False):
+def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, to_layer0=False, masks=None):
     """The folded chain's backward: [dV, du] * L. With ``to_layer0``, as the
     chunked K3 / K4 split it, it stops at layer 0's cotangent (after its
     activation) and returns (that cotangent, the gradients with None for
-    layer 0's dV)."""
+    layer 0's dV). ``masks``: the relu masks the forward took, or None."""
     grads = [None] * (2 * n_layers)
     for li in reversed(range(n_layers)):
         a, r, xhat, inv = cache[li]
@@ -186,7 +192,10 @@ def _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, to_layer0=False):
             g - g.mean(dim=-1, keepdim=True)
             - xhat * (g * xhat).mean(dim=-1, keepdim=True)
         )
-        g = g * (r > 0).to(g.dtype) if use_relu else g * (1.0 - r * r)
+        if use_relu:
+            g = g * relu_grad_mask(r, None if masks is None else masks[li])
+        else:
+            g = g * (1.0 - r * r)
         grads[2 * li + 1] = g.sum(dim=0)
         if to_layer0 and li == 0:
             return g, grads
@@ -223,25 +232,37 @@ def _actor_head(feat, aux, whf, bhf, log_std, bf16, clip_param):
 
 
 def actor_grads_plain(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn,
-                      use_relu, bf16, clip_param):
+                      use_relu, bf16, clip_param, masks=None):
     """Plain K3 on folded params; returns ([dV, du] * L, dWh', dbh', dlog_std,
-    [loss_sum, ratio_sum])."""
-    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
+    [loss_sum, ratio_sum]). ``masks``: the relu masks to take (a kernel's
+    ``relu_masks``), or None."""
+    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16, masks)
     dwh, dbh, dls, met, g = _actor_head(feat, aux, whf, bhf, log_std, bf16, clip_param)
-    kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16)
+    kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, masks=masks)
     return kg, dwh, dbh, dls, met
 
 
 def actor_grads_unfolded_plain(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
-                               use_relu, bf16, clip_param):
+                               use_relu, bf16, clip_param, masks=None):
     """Plain K3u on the flat trunk list ``params`` (``[fn_scale, fn_bias]? +
     [W, b, s, c] * L``): the unfolded chain, the head, and the chain's
     backward without d(input). Returns (trunk gradients shaped like
     ``params``, dWh, dbh, dlog_std, [loss_sum, ratio_sum])."""
-    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
     dwh, dbh, dls, met, g = _actor_head(feat, aux, wh, bh, log_std, bf16, clip_param)
-    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16)
+    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16,
+                            masks=masks)
     return tg, dwh, dbh, dls, met
+
+
+def relu_mask_gap_folded(x, kp, n_layers: int, use_fn: bool, masks,
+                         bf16: bool = True) -> tuple:
+    """:func:`~dcc_tpu_torch.ops.fused_mlp.mask_gap` of the folded chain (K3,
+    K4) on rows ``x`` with the folded [V, u] * L ``kp``."""
+    with torch.no_grad():
+        _, cache = _fwd_folded(x, kp, n_layers, use_fn, True, bf16, masks)
+    return mask_gap([(a, kp[2 * li], kp[2 * li + 1]) for li, (a, *_) in enumerate(cache)],
+                    masks, bf16)
 
 
 def relu_kink_rows_folded(x, kp, n_layers: int, use_fn: bool,
@@ -315,41 +336,42 @@ def _critic_head(feat, aux, norm, wvf, bvf, bf16, clip_param, huber_delta, use_h
 
 
 def critic_grads_plain(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu,
-                       bf16, clip_param, huber_delta, use_huber, use_clipped):
+                       bf16, clip_param, huber_delta, use_huber, use_clipped, masks=None):
     """Plain K4 on folded params; returns ([dV, du] * L, dwv', dbv',
-    [value_loss_sum])."""
-    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16)
+    [value_loss_sum]). ``masks`` as in :func:`actor_grads_plain`."""
+    feat, cache = _fwd_folded(x, kp, n_layers, use_fn, use_relu, bf16, masks)
     dwv, dbv, met, g = _critic_head(feat, aux, norm, wvf, bvf, bf16, clip_param,
                                     huber_delta, use_huber, use_clipped)
-    kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16)
+    kg = _bwd_folded(g, cache, kp, n_layers, use_relu, bf16, masks=masks)
     return kg, dwv, dbv, met
 
 
 def critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
                                 use_relu, bf16, clip_param, huber_delta, use_huber,
-                                use_clipped):
+                                use_clipped, masks=None):
     """Plain K4u on the flat trunk list ``params``; returns (trunk gradients
     shaped like ``params``, dwv, dbv, [value_loss_sum])."""
-    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
     dwv, dbv, met, g = _critic_head(feat, aux, norm, wv, bv, bf16, clip_param, huber_delta,
                                     use_huber, use_clipped)
-    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16)
+    _, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16,
+                            masks=masks)
     return tg, dwv, dbv, met
 
 
 def critic_grads_unfolded_chunked_plain(x, aux, norm, params, wv, bv, *, n_layers, use_fn,
                                         use_relu, bf16, clip_param, huber_delta, use_huber,
-                                        use_clipped):
+                                        use_clipped, masks=None):
     """Plain chunked K4u (its first launch): the unfolded chain, the head and
     the backward down to layer 0's cotangent. Returns (the trunk gradients
     from layer 0's bias on, dwv, dbv, [value_loss_sum], layer 0's bf16
     cotangent g0, ``input_stats``); the dV0 kernel (affine mode) and the
     layer-0 input backward give the rest."""
-    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16)
+    feat, fn_cache, layers = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
     dwv, dbv, met, g = _critic_head(feat, aux, norm, wv, bv, bf16, clip_param, huber_delta,
                                     use_huber, use_clipped)
     g0, tg = trunk_bwd_chain(g, params, fn_cache, layers, n_layers, use_fn, use_relu, bf16,
-                             to_layer0=True)
+                             to_layer0=True, masks=masks)
     first = 2 if use_fn else 0
     return tg[first + 1:], dwv, dbv, met, g0.to(torch.bfloat16), input_stats(x, use_fn)
 
@@ -404,10 +426,11 @@ def _unfolded_params(trunk, head, n_layers, use_fn, device, mma: bool):
 
 
 def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16,
-                  act_dim, fn_args, unfolded=False):
+                  act_dim, fn_args, unfolded=False, relu_masks=None):
     """Launch K3 / K4 (``trunk`` the folded [V, u] * L) or K3u / K4u (the
     flat trunk list) and its slot reduction; returns (trunk gradients,
-    head gradients and metrics)."""
+    head gradients and metrics). ``relu_masks`` (bf16): None, or an (L,
+    rows, H) uint8 tensor the kernel fills with its relu masks."""
     rows, d_in = x.shape
     hidden = head[0].shape[0]
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
@@ -425,20 +448,22 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     # the head's parameters have the shapes of its gradients
     require_shapes([*trunk, *head], trunk_shapes + extra[: len(head)],
                    "unfolded parameter" if unfolded else "folded parameter")
-    # bf16 runs on the tensor cores, f32 on FMA
-    if bf16:
-        check_mma_width(hidden)
+    mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
     if unfolded:
         pb, offs, wb, woffs = _unfolded_params(trunk, head, n_layers, use_fn, x.device, bf16)
     else:
         pb, offs, wb, woffs = _kernel_params(trunk, head, x.device, bf16)
-    lib = cb.library("fused_ppo")
+    lib = cb.mma_library("fused_ppo", hidden) if bf16 else cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
     name = f"{kind}_ppo_grads{tag}"
     # rows too wide for a staged tile: the chunked layer 0, then the dV0
     # kernel (and unfolded the layer-0 input backward)
-    chunked, sizes = tiles.plan(name, bf16, d_in, hidden, n_layers, n_head)
+    # bf16 runs on the tensor cores, f32 on FMA
+    if bf16:
+        chunked, sizes = check_mma_width(name, d_in, hidden, n_layers, n_head)
+    else:
+        chunked, sizes = tiles.plan(name, False, d_in, hidden, n_layers, n_head)
     smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
                                       chunked) // 4
     if bf16:
@@ -464,6 +489,8 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
         outs = (g0.data_ptr(), xstats.data_ptr(), out.data_ptr())
     else:
         outs = (out.data_ptr(),)
+    if bf16:
+        outs += (mask_ptr,)
     if kind == "actor":
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
@@ -493,22 +520,24 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,
-                     bf16, clip_param):
-    """Launch K3 (+ its slot reduction); same returns as the plain version."""
+                     bf16, clip_param, relu_masks=None):
+    """Launch K3 (+ its slot reduction); same returns as the plain version.
+    ``relu_masks`` as in :func:`_launch_grads`."""
     kg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, kp, [whf, bhf, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=whf.shape[1], fn_args=(float(clip_param),),
+        relu_masks=relu_masks,
     )
     return kg, dwh, dbh, dls, met
 
 
 def actor_grads_unfolded_cuda(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
-                              use_relu, bf16, clip_param):
+                              use_relu, bf16, clip_param, relu_masks=None):
     """Launch K3u (+ its slot reduction); same returns as the plain version."""
     tg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, list(params), [wh, bh, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=wh.shape[1], fn_args=(float(clip_param),),
-        unfolded=True,
+        unfolded=True, relu_masks=relu_masks,
     )
     return tg, dwh, dbh, dls, met
 
@@ -518,24 +547,26 @@ def _critic_args(norm, clip_param, huber_delta, use_huber, use_clipped):
 
 
 def critic_grads_cuda(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu, bf16,
-                      clip_param, huber_delta, use_huber, use_clipped):
+                      clip_param, huber_delta, use_huber, use_clipped, relu_masks=None):
     """Launch K4 (+ its slot reduction); same returns as the plain version."""
     kg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, kp, [wvf, bvf], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
+        relu_masks=relu_masks,
     )
     return kg, dwv, dbv, met
 
 
 def critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, *, n_layers, use_fn, use_relu,
-                               bf16, clip_param, huber_delta, use_huber, use_clipped):
+                               bf16, clip_param, huber_delta, use_huber, use_clipped,
+                               relu_masks=None):
     """Launch K4u (+ its slot reduction); same returns as the plain version."""
     tg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, list(params), [wv, bv], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
-        unfolded=True,
+        unfolded=True, relu_masks=relu_masks,
     )
     return tg, dwv, dbv, met
 

@@ -12,6 +12,15 @@ does not grow with d_in. So every kernel takes rows of any width in bf16.
 The f32 FMA kernels have no chunked layout; their one-row tiles take rows
 up to 28,161 columns (the unfolded K3u / K4u, hidden 256, two layers) and
 more for the others.
+
+The hidden width sets the rest of a tile's shared memory (activations,
+cotangents, one column pass of the weight ring). Past 256 the bf16 kernels
+run each layer in column passes; a width whose smallest tile does not fit
+one block in either layout (above about 1,024 at two layers) is refused
+(:func:`no_tile`, ROADMAP B3). ``LAST`` offers the bf16 actor kernels a
+16-row staged tile, taken only where no larger tile fits in either layout
+(hidden widths of 768 and more), so that the launches that fit at
+narrower widths keep their tiles.
 """
 
 from __future__ import annotations
@@ -34,6 +43,9 @@ SIZES = {
     ("layer0_input_bwd", True): (64, 32, 16),
 }
 
+
+# row tiles offered only where none of SIZES' fits, by (kernel, bf16)
+LAST = {("actor_ppo_grads", True): (16,), ("actor_ppo_grads_unfolded", True): (16,)}
 
 # the kernels with a chunked first layer, taken where no staged tile fits,
 # and the row tiles of that layout: bf16 K3, K4, K3u and K4u
@@ -72,12 +84,31 @@ def plan(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
          n_head: int = 1) -> tuple:
     """(chunked, tiles): the row tiles of ``kernel`` that fit one block at
     this width with whole rows staged, or, where none does and the kernel
-    has a chunked first layer, those of its chunked layout (chunked True)."""
+    has a chunked first layer, those of its chunked layout (chunked True);
+    ``LAST``'s staged tiles where neither layout has a larger one."""
     key = (kernel, bf16)
-    staged = [b for b in SIZES[key]
-              if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head) <= SMEM_MAX]
-    if staged or key not in CHUNKED:
+    fits = lambda sizes, ch=False: [
+        b for b in sizes
+        if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, ch) <= SMEM_MAX]
+    staged = fits(SIZES[key])
+    if staged:
         return False, staged
-    return True, [b for b in CHUNKED[key]
-                  if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, True)
-                  <= SMEM_MAX]
+    chunked, last = fits(CHUNKED.get(key, ()), True), fits(LAST.get(key, ()))
+    if last and max(chunked, default=0) <= max(last):  # no larger tile fits
+        return False, last
+    return key in CHUNKED, chunked
+
+
+def no_tile(kernel: str, d_in: int, hidden: int, n_layers: int, n_head: int = 1):
+    """None where the bf16 ``kernel`` has a row tile at this width
+    (:func:`plan`), else why not: its smallest tile's shared memory in the
+    layout it would take (chunked where it has one), naming ROADMAP B3."""
+    key = (kernel, True)
+    if plan(kernel, True, d_in, hidden, n_layers, n_head)[1]:
+        return None
+    chunked = key in CHUNKED
+    br = min(CHUNKED[key] if chunked else SIZES[key] + LAST.get(key, ()))
+    need = smem_bytes(kernel, True, br, d_in, hidden, n_layers, n_head, chunked)
+    return (f"bf16 {kernel} at hidden width {hidden} ({d_in}-wide rows, {n_layers} layers): "
+            f"its smallest row tile ({br} rows) needs {need} bytes of shared memory, more "
+            f"than one block's {SMEM_MAX} (ROADMAP B3)")

@@ -8,7 +8,12 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] presets
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] wide
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] pois
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] hidden
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] timing
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
+    python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
+    python3 scripts/smoke_phase.py [--root DIR] --compare FILE.pt bits
 
 ``updates`` holds the updates of ``chip_smoke.UPDATE_CHECKS`` on the card
 against the CPU (``chip_smoke.check_updates_against_cpu``); with
@@ -33,11 +38,27 @@ widths (actor 242, critic 4,840) at 16 and 1,024 envs
 chunked K2, K3 and K3u (with K4, K4u, dV0 and the layer-0 input backward)
 at the many-PoI swarms' widths: 4 UAVs x 300 PoIs (actor 1,510, critic
 6,040) at 16 and 1,024 envs, 4 x 360 and the 20-UAV preset with 50 PoIs
-(``chip_smoke.check_many_pois``). ``profile`` trains with
+(``chip_smoke.check_many_pois``). ``hidden`` builds the kernels and holds
+every kernel at ROADMAP B3's hidden widths, 100 to 1,024, and times them at
+the main path's shapes at 512 and 1,024 (``chip_smoke.check_wide_hidden``).
+``timing`` builds the kernels and times the bf16 K2, K2b, K3 / K4 and K3u
+/ K4u at the default widths, hidden 256, on the model's trunk with tanh (no
+relu masks asked for), against their plain versions, at 16 envs and at
+16,384 (a quarter of that for the gradient kernels), as ``chip_smoke.py``
+times them: the same code on any checkout since the unfolded kernels, so
+that two builds are compared in one call (parent, change, change, parent).
+``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
+their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
 then profiles one more iteration (``chip_smoke.profile_iteration``: device
-time by kernel name, the device's idle share). ``--root`` names the checkout
+time by kernel name, the device's idle share). ``bits`` runs every bf16
+kernel at the widths the kernels took before their hidden layers ran in
+column passes (``chip_smoke.kernel_bits``) and saves the outputs, launch
+counts and row tiles to ``--out``, or with ``--compare`` holds them bit for
+bit against a record saved before (exit 1 where any differs): run it with
+``--root`` on a ``git archive`` of another commit, then here with
+``--compare``. ``--root`` names the checkout
 whose ``dcc_tpu_torch`` runs (default: this one), so that another commit's
 package, unpacked with ``git archive``, is measured by the same code.
 """
@@ -59,9 +80,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the results to this JSON file")
     ap.add_argument("--k2-plain", action="store_true",
                     help="updates: also the recurrent bf16 update with K2's plain forward")
+    ap.add_argument("--compare", default=None,
+                    help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
-                                       "profile"))
-    ap.add_argument("train_args", nargs="*", help="arguments for dcc_tpu_torch.train (profile)")
+                                       "hidden", "timing", "train", "profile", "bits"))
+    ap.add_argument("train_args", nargs="*",
+                    help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
 
     import torch
@@ -70,6 +94,7 @@ def main(argv=None) -> int:
         print("smoke_phase: no CUDA device", file=sys.stderr)
         return 2
     out = os.path.abspath(args.out) if args.out else None
+    against = os.path.abspath(args.compare) if args.compare else None
     sys.path.insert(0, HERE)
     import chip_smoke
 
@@ -79,7 +104,34 @@ def main(argv=None) -> int:
 
     print(f"card: {chip_smoke.card_line()}; package {os.path.dirname(dcc_tpu_torch.__file__)}",
           flush=True)
-    if args.phase in ("updates", "gae", "k2", "presets", "wide", "pois"):
+    if args.phase == "bits":
+        record = chip_smoke.kernel_bits()
+        if against:
+            faults = chip_smoke.compare_bits(record, torch.load(against))
+            for f in faults:
+                print(f"  {f}", flush=True)
+            print(f"bits: {len(record)} calls, {sum(len(r['tensors']) for r in record.values())} "
+                  f"outputs against {against}: "
+                  f"{'bit-identical' if not faults else f'{len(faults)} differences'}",
+                  flush=True)
+            return 1 if faults else 0
+        if not out:
+            print("smoke_phase: bits needs --out or --compare", file=sys.stderr)
+            return 2
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        torch.save(record, out)
+        print(f"bits: {len(record)} calls saved to {out}", flush=True)
+        return 0
+    if args.phase == "train":
+        results = {}
+        try:
+            for tag, extra, per_iter in chip_smoke.TRAIN_RUNS:
+                if tag in args.train_args:
+                    chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra, per_iter)
+        except chip_smoke.SmokeFailure as e:
+            print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
+            return 1
+    elif args.phase in ("updates", "gae", "k2", "presets", "wide", "pois", "hidden", "timing"):
         results: dict = {}
         try:
             if args.phase == "updates":
@@ -100,6 +152,10 @@ def main(argv=None) -> int:
                     chip_smoke.check_wide(results["wide"])
                 elif args.phase == "pois":
                     chip_smoke.check_many_pois(results["pois"], results["ptxas"])
+                elif args.phase == "hidden":
+                    chip_smoke.check_wide_hidden(results["hidden"], results["ptxas"])
+                elif args.phase == "timing":
+                    chip_smoke.check_default_timing(results["timing"])
                 else:
                     gen = torch.Generator(device="cuda").manual_seed(0)
                     chip_smoke.check_trunk_forward(results["k2"], gen)

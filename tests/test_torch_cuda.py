@@ -37,6 +37,8 @@ This module imports no JAX: the JAX comparison of the plain versions is in
 the other ``tests/test_torch_*.py`` files.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -479,23 +481,24 @@ def test_f32_kernels_stay_on_fma(cuda):
                         "critic_ppo_grads": "dcc_critic_grads"}
 
 
-@pytest.mark.parametrize("hidden", [36, 264])
+@pytest.mark.parametrize("hidden", [2048, 4096])
 def test_bf16_kernels_refuse_widths_they_cannot_take(cuda, hidden):
+    """A hidden width whose smallest row tile does not fit one block is
+    refused at launch, naming ROADMAP B3 (K2, whose forward keeps no
+    activation cache, still takes it)."""
     gen = torch.Generator().manual_seed(hidden)
-    params = _trunk_params(gen, 16, hidden, 1, True, cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        FM.trunk_forward_cuda(torch.zeros(4, 16, device=cuda), params, n_layers=1, bf16=True)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    params = _trunk_params(gen, 16, hidden, 2, True, cuda)
+    with pytest.raises(ValueError, match="ROADMAP B3"):
         FM.trunk_backward_cuda(torch.zeros(4, 16, device=cuda), params,
-                               torch.zeros(4, hidden, device=cuda), n_layers=1, bf16=True)
-    x, aux, kp, hw, hb = _ppo_case(gen, "actor", 8, 16, hidden, 1, True, cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=1,
+                               torch.zeros(4, hidden, device=cuda), n_layers=2, bf16=True)
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", 8, 16, hidden, 2, True, cuda)
+    with pytest.raises(ValueError, match="ROADMAP B3"):
+        FP.actor_grads_cuda(x, aux, kp, hw, hb, torch.zeros(2, device=cuda), n_layers=2,
                             use_fn=True, use_relu=True, bf16=True, clip_param=0.2)
-    x, aux, kp, hw, hb = _ppo_case(gen, "critic", 8, 16, hidden, 1, True, cuda)
-    with pytest.raises(ValueError, match="multiple of 8"):
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", 8, 16, hidden, 2, True, cuda)
+    with pytest.raises(ValueError, match="ROADMAP B3"):
         FP.critic_grads_cuda(x, aux, torch.tensor([0.5, 2.0], device=cuda), kp, hw, hb,
-                             n_layers=1, use_fn=True, use_relu=True, bf16=True, clip_param=0.2,
+                             n_layers=2, use_fn=True, use_relu=True, bf16=True, clip_param=0.2,
                              huber_delta=10.0, use_huber=True, use_clipped=True)
 
 
@@ -539,7 +542,7 @@ def _bf16_step(v):
     return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-40))) - 7)
 
 
-def _value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu) -> dict:
+def _value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu, masks=None) -> dict:
     """{row: (|kernel - plain| in bf16 steps of the plain value,
     ||kernel - plain features|| / ||plain features|| in units of bf16's
     epsilon 2^-7)} for the rows with valid != 0 whose value in bf16 K4u is
@@ -556,7 +559,7 @@ def _value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu) -> dict
     ``xhat * scale``, or where a step of an earlier rounding moves xhat),
     and the kernel's value (dbv of the unclipped squared loss against the
     plain value) is theirs through the head, up to one rounding step."""
-    feat = FM._forward_chain(x, params, n_layers, use_fn, use_relu, True)[0].float()
+    feat = FM._forward_chain(x, params, n_layers, use_fn, use_relu, True, masks)[0].float()
     v = FM.dense(feat, hw, hb, True)[:, 0]
     step = _bf16_step(v)
     norm = torch.tensor([0.0, 1.0], device=x.device)
@@ -851,6 +854,11 @@ def _ring_stage(np_, nk):
     return np_ * (_MMA_KS + 8) if nk else _MMA_KS * (np_ + 8)
 
 
+def _pass_cols(np_):
+    """Columns of a layer's widest column pass (csrc/trunk_mma.cuh)."""
+    return min(np_, _MMA_HMAX)
+
+
 def _red(br):
     return 4 * (_MMA_WARPS // (br // 16)) * br * 2
 
@@ -862,12 +870,13 @@ def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False):
     kp0, hp = _pad16(d_in), _pad16(hidden)
     ldh = hp + 8
     gprev0 = unfolded and not chunked  # layer 0's g_prev, staged over the dead tiles
-    nk = min(kp0, _MMA_HMAX) if gprev0 else 0
+    nk = _pass_cols(kp0) if gprev0 else 0
+    nh = _pass_cols(hp)  # a layer's column pass; wider layers' g_prev over the dead tiles
     o = 2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
     if gprev0:
         o = max(o, 4 * br * (kp0 + 4))
     o += 2 * br * ldh
-    o += 2 * _MMA_STAGES * max(_ring_stage(hp, False), _ring_stage(max(nk, hp), True))
+    o += 2 * _MMA_STAGES * max(_ring_stage(nh, False), _ring_stage(max(nk, nh), True))
     o += 4 * n_layers * br * 2 + (8 * br if unfolded or chunked else 0)
     return o + _red(br) + 4 * (3 if unfolded else 1) * (br // 16) * hp
 
@@ -885,11 +894,13 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=Fals
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
+        # past one column pass, the layer's activations
+        act = 2 * br * (hp + 8) if hp > _MMA_HMAX else 0
+        ring = _MMA_STAGES * _ring_stage(_pass_cols(hp), False)
         if chunked:  # a chunk of the rows (then a layer's input), ring, sums, row statistics
-            return (2 * (br * (_MMA_KC + 8) + _MMA_STAGES * _ring_stage(hp, False)) + _red(br)
-                    + 8 * br)
+            return 2 * (br * (max(_MMA_KC, hp) + 8) + ring) + _red(br) + 8 * br + act
         wmax = max(_pad16(d_in), hp)
-        return 2 * (br * (wmax + 8) + _MMA_STAGES * _ring_stage(hp, False)) + _red(br)
+        return 2 * (br * (wmax + 8) + ring) + _red(br) + act
     chain = br * (2 * d_in + 3 * n_layers * hidden + n_layers + 1)  # f32 unfolded floats
     if kernel == "fused_mlp_bwd":
         if not bf16:
@@ -927,16 +938,18 @@ def test_row_tile_mirror_matches_the_libraries(cuda):
 
     for (kernel, bf16), sizes in tiles.SIZES.items():
         n_head = 2 if kernel.startswith("actor") else 1
-        layouts = [(False, sizes)]
+        layouts = [(False, sizes + tiles.LAST.get((kernel, bf16), ()))]
         if (kernel, bf16) in tiles.CHUNKED:
             layouts.append((True, tiles.CHUNKED[(kernel, bf16)]))
         for chunked, tile_sizes in layouts:
             for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 1475, 1510, 4840, 5840,
                          6040):
-                for br in tile_sizes:
-                    want = tiles.smem_bytes(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
-                    got = smem_layout(kernel, bf16, br, d_in, 256, 2, n_head, chunked)
-                    assert got == want, (kernel, bf16, chunked, br, d_in)
+                for hidden in (256, 100, 264, 300, 512, 1024):
+                    for br in tile_sizes:
+                        want = tiles.smem_bytes(kernel, bf16, br, d_in, hidden, 2, n_head,
+                                                chunked)
+                        got = smem_layout(kernel, bf16, br, d_in, hidden, 2, n_head, chunked)
+                        assert got == want, (kernel, bf16, chunked, br, d_in, hidden)
 
 
 @pytest.mark.parametrize("rows", _RAGGED + [20000])
@@ -1172,7 +1185,7 @@ def test_20uav_wide_actor_rows_build_on_the_card(cuda, fold):
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device=cuda)
     algo.obs_dim = env_cfg.share_obs_dim
-    algo._check_row_tiles()
+    algo._check_cuda_trunk()
     kernel = "actor_ppo_grads" + ("" if fold else "_unfolded")
     assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16])
 
@@ -1318,3 +1331,178 @@ def test_many_pois_trains_on_the_card(cuda, case):
     assert all(math.isfinite(v) for v in m)
     assert {k: v for k, v in cb.LAUNCHES.items() if k != "gae"} == launches
     assert cb.ENTRY["fused_mlp_chunked"] == "dcc_trunk_fwd_chunked_mma"
+
+
+# ROADMAP B3's hidden widths: past one column pass (264 .. 1,024), off
+# multiples of 8 (65 odd, 100) and within one pass (65, 100). Relu trunks
+# are the model's (two layers, the feature norm); the kernel writes its relu
+# masks (``relu_masks``), every mask that differs from the plain version's
+# must lie within what a one-bf16-step change of the layer's input can move
+# (``FM.relu_mask_gap``, ratio <= 1), and the plain version then takes the
+# kernel's masks: the rest is held to the bf16 bounds.
+WIDE_HIDDEN = [65, 100, 264, 300, 512, 1024]
+HIDDEN_TRUNKS = {"tanh": False, "relu": True}
+
+
+def _clip_kink_rows(feat, aux, hw, hb, log_std, clip=0.2):
+    """(rows,) bool: actor rows whose plain ratio lies within what one bf16
+    step of each head output (mean) moves it from a clip bound (1 +- clip),
+    where the kernel and its plain version may take the other branch of the
+    clipped surrogate and the row's whole cotangent with it; the wide-hidden
+    checks give them a zero advantage, as the relu kink rows got before the
+    mask rule."""
+    mean = FM.dense(feat.float(), hw, hb, True)
+    inv_std = torch.exp(-log_std)
+    z = (aux[:, :2] - mean) * inv_std
+    lp = torch.sum(-0.5 * z * z - log_std - FP.LOG_SQRT_2PI, dim=1)
+    log_ratio = lp - aux[:, 2]
+    slack = torch.sum(z.abs() * inv_std * _bf16_step(mean), dim=1)
+    return torch.stack([(log_ratio - math.log(1.0 + b)).abs() <= slack
+                        for b in (-clip, clip)]).any(dim=0)
+
+
+def _masks(relu, n_layers, rows, hidden, dev):
+    if not relu:
+        return None
+    return torch.zeros((n_layers, rows, hidden), dtype=torch.uint8, device=dev)
+
+
+def _mask_ok(gap):
+    n, worst = gap
+    assert worst <= 1.0, f"{n} relu masks differ, up to {worst:.2f} of the rule's bound"
+
+
+@pytest.mark.parametrize("trunk", list(HIDDEN_TRUNKS))
+@pytest.mark.parametrize("hidden", WIDE_HIDDEN)
+@pytest.mark.parametrize("rows,d_in", [(333, 110), (2000, 440)])
+def test_bf16_trunk_kernels_at_wide_hidden(cuda, rows, d_in, hidden, trunk):
+    """K2 and K2b at ROADMAP B3's hidden widths, against their plain
+    versions within 2e-3 and 4e-3; the kernels computed in f32 land
+    outside."""
+    relu = HIDDEN_TRUNKS[trunk]
+    gen = torch.Generator().manual_seed(rows + hidden)
+    params = _trunk_params(gen, d_in, hidden, 2, True, cuda)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    kw = dict(n_layers=2, use_fn=True, use_relu=relu, bf16=True)
+    m = _masks(relu, 2, rows, hidden, cuda)
+    got = FM.trunk_forward_cuda(x, params, relu_masks=m, **kw)
+    if relu:
+        _mask_ok(FM.relu_mask_gap(x, params, 2, True, m))
+    want = FM.trunk_forward_plain(x, params, masks=m, **kw)
+    assert _rel(got, want) < 2e-3
+    g = (torch.randn(rows, hidden, generator=gen)).to(cuda).bfloat16()
+    m = _masks(relu, 2, rows, hidden, cuda)
+    cb.reset_launches()
+    dx, grads = FM.trunk_backward_cuda(x, params, g, relu_masks=m, **kw)
+    assert cb.ENTRY["fused_mlp_bwd"] == "dcc_trunk_bwd_mma"
+    if relu:
+        _mask_ok(FM.relu_mask_gap(x, params, 2, True, m))
+    want_dx, want = FM.trunk_backward_plain(x, params, g, masks=m, **kw)
+    for k, p in zip([dx, *grads], [want_dx, *want]):
+        assert _rel(k, p) < 4e-3
+    f32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
+    _f32_outside([f32[0], *f32[1]], [want_dx, *want], 4e-3)
+
+
+@pytest.mark.parametrize("trunk", list(HIDDEN_TRUNKS))
+@pytest.mark.parametrize("hidden", WIDE_HIDDEN)
+@pytest.mark.parametrize("kind", ["actor", "critic"])
+def test_bf16_folded_grads_at_wide_hidden(cuda, kind, hidden, trunk):
+    """K3 / K4 at ROADMAP B3's hidden widths on 2,000 rows (actor 110 wide,
+    critic 440), against their plain versions within 4e-3."""
+    relu = HIDDEN_TRUNKS[trunk]
+    d_in = 110 if kind == "actor" else 440
+    gen = torch.Generator().manual_seed(hidden + d_in)
+    x, aux, kp, hw, hb = _ppo_case(gen, kind, 2000, d_in, hidden, 2, True, cuda)
+    x = x.bfloat16()
+    m = _masks(relu, 2, 2000, hidden, cuda)
+    kw = dict(n_layers=2, use_fn=True, use_relu=relu, bf16=True, clip_param=0.2)
+    if kind == "actor":
+        ls = torch.tensor([-0.3, 0.2], device=cuda)
+        run = lambda fn, **k: fn(x, aux, kp, hw, hb, ls, **{**kw, **k})
+        cuda_fn, plain_fn = FP.actor_grads_cuda, FP.actor_grads_plain
+    else:
+        norm = torch.tensor([0.5, 2.0], device=cuda)
+        kw.update(huber_delta=10.0, use_huber=True, use_clipped=True)
+        run = lambda fn, **k: fn(x, aux, norm, kp, hw, hb, **{**kw, **k})
+        cuda_fn, plain_fn = FP.critic_grads_cuda, FP.critic_grads_plain
+    if kind == "actor":  # the clip's kink: the kernel's masks, then the plain ratio
+        run(cuda_fn, relu_masks=m)
+        feat = FP._fwd_folded(x, kp, 2, True, relu, True, m)[0]
+        aux[_clip_kink_rows(feat, aux, hw, hb, ls), 3] = 0.0
+    got = run(cuda_fn, relu_masks=m)
+    if relu:
+        _mask_ok(FP.relu_mask_gap_folded(x, kp, 2, True, m))
+    want = run(plain_fn, masks=m)
+    for g, w in zip(_flat(got), _flat(want)):
+        assert _rel(g, w) < 4e-3
+    _f32_outside(_flat(run(cuda_fn, bf16=False)), _flat(want), 4e-3)
+
+
+@pytest.mark.parametrize("trunk", list(HIDDEN_TRUNKS))
+@pytest.mark.parametrize("hidden", WIDE_HIDDEN)
+@pytest.mark.parametrize("kind", ["actor", "critic"])
+def test_bf16_unfolded_grads_at_wide_hidden(cuda, kind, hidden, trunk):
+    """K3u / K4u at ROADMAP B3's hidden widths on 2,000 rows (the critic's
+    440-wide rows at 1,024 take the chunked layout, with the layer-0 input
+    backward and dV0), against their plain versions within 4e-3."""
+    relu = HIDDEN_TRUNKS[trunk]
+    d_in = 110 if kind == "actor" else 440
+    gen = torch.Generator().manual_seed(hidden + d_in + 1)
+    x, aux, params, hw, hb = _unfolded_case(gen, kind, 2000, d_in, hidden, 2, True, False,
+                                            False, cuda)
+    x = x.bfloat16()
+    m = _masks(relu, 2, 2000, hidden, cuda)
+    kw = dict(n_layers=2, use_fn=True, use_relu=relu, bf16=True, clip_param=0.2)
+    if relu:  # the kernel's masks, for the plain features
+        _unfolded(kind, x, aux, params, hw, hb, True, relu_masks=m, **kw)
+    if kind == "critic":  # the rows whose value the kernel rounds apart
+        flips = _value_flip_rows(x, aux, params, hw, hb, 2, True, relu, masks=m)
+        assert len(flips) <= 3 + 2000 // 20
+        aux[list(flips), 2] = 0.0
+    else:  # the clip's kink
+        feat = FM._forward_chain(x, params, 2, True, relu, True, m)[0]
+        aux[_clip_kink_rows(feat, aux, hw, hb, torch.tensor([-0.3, 0.2], device=cuda)), 3] = 0.0
+    got = _unfolded(kind, x, aux, params, hw, hb, True, relu_masks=m, **kw)
+    if relu:
+        _mask_ok(FM.relu_mask_gap(x, params, 2, True, m))
+    want = _unfolded(kind, x, aux, params, hw, hb, False, masks=m, **kw)
+    _assert_unfolded_close(got, want, True)
+    f32 = _unfolded(kind, x, aux, params, hw, hb, True, **{**kw, "bf16": False})
+    _f32_outside(_flat(f32), _flat(want), 4e-3)
+
+
+@pytest.mark.parametrize("hidden", [264, 300, 512])
+def test_bf16_chunked_kernels_at_wide_hidden(cuda, hidden):
+    """The chunked layouts at ROADMAP B3's widths: K4 and K4u (with dV0 and
+    the layer-0 input backward) and K2b on the 20-UAV preset's 4,840-wide
+    critic rows, K3 on 1,510-wide actor rows, tanh trunks, within 4e-3."""
+    gen = torch.Generator().manual_seed(hidden + 4840)
+    kw = dict(n_layers=2, use_fn=True, use_relu=False, bf16=True, clip_param=0.2)
+    ckw = dict(kw, huber_delta=10.0, use_huber=True, use_clipped=True)
+    norm = torch.tensor([0.5, 2.0], device=cuda)
+    x, aux, kp, hw, hb = _ppo_case(gen, "critic", 600, 4840, hidden, 2, True, cuda)
+    cb.reset_launches()
+    got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **ckw)
+    assert cb.ENTRY["critic_ppo_grads"] == "dcc_critic_grads_chunked_mma"
+    for g, w in zip(_flat(got), _flat(FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **ckw))):
+        assert _rel(g, w) < 4e-3
+    x, aux, kp, hw, hb = _ppo_case(gen, "actor", 600, 1510, hidden, 2, True, cuda)
+    ls = torch.tensor([-0.3, 0.2], device=cuda)
+    got = FP.actor_grads_cuda(x, aux, kp, hw, hb, ls, **kw)
+    for g, w in zip(_flat(got), _flat(FP.actor_grads_plain(x, aux, kp, hw, hb, ls, **kw))):
+        assert _rel(g, w) < 4e-3
+    x, aux, params, hw, hb = _unfolded_case(gen, "critic", 600, 4840, hidden, 2, True, False,
+                                            True, cuda)
+    cb.reset_launches()
+    got = _unfolded("critic", x, aux, params, hw, hb, True, **kw)
+    assert cb.ENTRY["critic_ppo_grads_unfolded"] == "dcc_critic_grads_unfolded_chunked_mma"
+    _assert_unfolded_close(got, _unfolded("critic", x, aux, params, hw, hb, False, **kw), True)
+    tkw = dict(n_layers=2, use_fn=True, use_relu=False, bf16=True)
+    g = torch.randn(600, hidden, generator=gen).to(cuda).bfloat16()
+    cb.reset_launches()
+    dx, grads = FM.trunk_backward_cuda(x, params, g, **tkw)
+    assert cb.LAUNCHES["fused_mlp_bwd_chunked"] == 1
+    want_dx, want = FM.trunk_backward_plain(x, params, g, **tkw)
+    for k, p in zip([dx, *grads], [want_dx, *want]):
+        assert _rel(k, p) < 4e-3

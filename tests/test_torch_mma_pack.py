@@ -21,6 +21,8 @@ import torch
 from dcc_tpu_torch.models import MLPBase
 from dcc_tpu_torch.ops import fused_mlp as FM
 from dcc_tpu_torch.ops import fused_ppo as FP
+from dcc_tpu_torch.ops import tiles
+from test_torch_cuda import smem_layout
 
 
 def _mats(shapes, seed=0):
@@ -162,9 +164,16 @@ def test_critic_kernel_params_for_the_tensor_cores(n_layers):
 
 
 @pytest.mark.parametrize("hidden", [36, 264])
-def test_mma_width_check(hidden):
-    with pytest.raises(ValueError, match="multiple of 8"):
-        FM.check_mma_width(hidden)
+def test_mma_width_check(monkeypatch, hidden):
+    """The launch-time width check takes widths off multiples of 8 (36) and
+    past one column pass (264), and refuses, naming ROADMAP B3 and the
+    shared memory, a width whose smallest row tile does not fit one block
+    (the kernels' layouts from the tests' mirror of them)."""
+    monkeypatch.setattr(tiles, "smem_bytes", smem_layout)
+    assert FM.check_mma_width("fused_mlp_bwd", 110, hidden, 2)[1]
+    with pytest.raises(ValueError, match="ROADMAP B3") as err:
+        FM.check_mma_width("fused_mlp_bwd", 110, 4096, 2)
+    assert "bytes of shared memory" in str(err.value)
 
 
 def test_folded_kink_rows_flag_a_pre_activation_on_the_kink():

@@ -7,8 +7,10 @@ loss off, the recurrent policy) and of K4u (unfolded), and where bf16 K3 and
 K3u are given rows that wide; the builds of the many-PoI swarms, 4 UAVs x
 300 PoIs (actor rows 1,510, critic rows 6,040: chunked K2, K3, K3u, K4,
 K4u, K2b) and the 20-UAV preset with 50 PoIs (critic rows 5,840: chunked
-K2); and MAPPO's refusal at construction of a trunk the fused CUDA kernels
-do not take (ROADMAP B3)."""
+K2); MAPPO's builds with the fused kernels at bf16 hidden widths past 256
+and off multiples of 8, which the kernels run in column passes; and
+MAPPO's refusal at construction of a trunk the fused CUDA kernels do not
+take (ROADMAP B3, B3b)."""
 
 import numpy as np
 import pytest
@@ -173,26 +175,50 @@ def test_20uav_fifty_pois_builds_on_cuda(monkeypatch):
     assert algo.fused_loss and algo.fused_trunk
 
 
-# trunks the fused CUDA kernels do not take (ROADMAP B3): (config fields)
+# trunks the fused CUDA kernels do not take: (config fields, the ROADMAP item named)
 B3_REFUSALS = {
-    "bf16-hidden-320": {"compute_dtype": "bfloat16", "hidden_size": 320},
-    "bf16-hidden-100": {"compute_dtype": "bfloat16", "hidden_size": 100},
-    "bf16-layer-n-8": {"compute_dtype": "bfloat16", "layer_n": 8},
-    "f32-fused-layer-n-8": {"layer_n": 8, "fused_loss": "on", "fused_trunk": "on"},
+    "bf16-layer-n-8": ({"compute_dtype": "bfloat16", "layer_n": 8}, "B3b"),
+    "f32-fused-layer-n-8": ({"layer_n": 8, "fused_loss": "on", "fused_trunk": "on"}, "B3b"),
+    "bf16-hidden-2048": ({"compute_dtype": "bfloat16", "hidden_size": 2048}, r"B3\)"),
 }
 
 
 @pytest.mark.parametrize("case", list(B3_REFUSALS))
 def test_cuda_trunk_refused_at_construction(monkeypatch, case):
-    """ROADMAP C5: a trunk the fused CUDA kernels do not take (a bf16 hidden
-    width above 256 or off multiples of 8; more than 8 layers, which the
-    CUDA entries refuse in f32 too) is refused when MAPPO is built on CUDA,
-    before any launch, naming B3, not at the first launch inside the
-    rollout."""
+    """ROADMAP C5: a trunk the fused CUDA kernels do not take (more than 8
+    layers, which the CUDA entries refuse in f32 too, B3b; a bf16 hidden
+    width at which a launched kernel has no row tile that fits one block,
+    B3) is refused when MAPPO is built on CUDA, before any launch, naming
+    the ROADMAP item and, for a width, the shared memory, not at the first
+    launch inside the rollout."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load()
-    with pytest.raises(NotImplementedError, match="B3"):
-        MAPPO(algo_cfg._replace(**B3_REFUSALS[case]), env_cfg, device="cuda")
+    over, item = B3_REFUSALS[case]
+    with pytest.raises(NotImplementedError, match=item) as err:
+        MAPPO(algo_cfg._replace(**over), env_cfg, device="cuda")
+    if "hidden_size" in over:
+        assert "bytes of shared memory" in str(err.value)
+
+
+# bf16 hidden widths the tensor-core kernels take in column passes (past 256)
+# or zero-padded (off multiples of 8): (config fields)
+WIDE_HIDDEN_BUILDS = {
+    "bf16-hidden-320": {"compute_dtype": "bfloat16", "hidden_size": 320},
+    "bf16-hidden-100": {"compute_dtype": "bfloat16", "hidden_size": 100},
+    "bf16-hidden-512": {"compute_dtype": "bfloat16", "hidden_size": 512},
+    "bf16-hidden-1024": {"compute_dtype": "bfloat16", "hidden_size": 1024},
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE_HIDDEN_BUILDS))
+def test_wide_hidden_builds_with_fused_kernels(monkeypatch, case):
+    """ROADMAP B3's hidden widths: MAPPO builds on CUDA in bf16 with the
+    fused trunk and the fused loss on, as the JAX package picks them, at
+    widths the kernels used to refuse."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load()
+    algo = MAPPO(algo_cfg._replace(**WIDE_HIDDEN_BUILDS[case]), env_cfg, device="cuda")
+    assert algo.fused_trunk and algo.fused_loss
 
 
 def test_cuda_trunk_without_fused_kernels_builds(monkeypatch):
