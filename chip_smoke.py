@@ -9,10 +9,11 @@ Phases (any failure exits non-zero):
 2. build the CUDA kernels from ``dcc_tpu_torch/csrc`` and print the time,
    each tensor-core kernel's and K1's registers and spills (``-Xptxas -v``;
    all of the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
-   of the built libraries must show HMMA instructions in every bf16
-   tensor-core kernel (``*_mma_kernel``: K2, K2b, K3, K4, K3u, K4u, the
-   chunked K2, K2b, K3, K4, K3u and K4u, the dV0 kernel and the layer-0
-   input backward)
+   of the built libraries must show HMMA or HGMMA instructions in every
+   bf16 tensor-core kernel (``*mma_kernel``: K2, K2b, K3, K4, K3u, K4u, the
+   chunked K2, K2b, K3, K4, K3u and K4u, the layer-0 input backward, and
+   on the warpgroup tensor cores the dV0 kernel and the layer-0 input
+   backward without dx, ``*_wgmma_kernel``)
    and none in any other kernel (no TF32 in the f32 kernels);
 3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
@@ -46,7 +47,12 @@ Phases (any failure exits non-zero):
    fused-loss-off run) and the chunked K4u on 2,400 and 153,600, their f32
    reading the plain version in f32 (the FMA kernels take one-row tiles
    there), and the layer-0 input backward alone on 38,400 rows with and
-   without dx and on 153,600 without. Then the many-PoI swarms' widths
+   without dx and on 153,600 without; dV0 also on 38,400 rows; then the
+   layer-0 tail (dV0 in both modes, the layer-0 input backward with and
+   without dx, ``layer0_tail``'s two launches) at every shape its kernels
+   distinguish (``check_tail``: rows 1 to 20,000 around the flush and the
+   steps, d_in 17 to 6,040, hidden 8 to 1,024, x in bf16 and f32). Then
+   the many-PoI swarms' widths
    (``check_many_pois``: 4 UAVs x 300 PoIs, actor 1,510, critic 6,040,
    where bf16 K2 takes the critic's rows and K3 / K3u the actor's in their
    chunked layouts): K2 at 16 and 1,024 envs, on the 153,600 critic rows
@@ -57,7 +63,8 @@ Phases (any failure exits non-zero):
    at 16 envs in f32 and bf16 and in bf16 at 1,024 envs (614,400 x 1,510,
    153,600 x 6,040), K3 / K4 at 4 x 360 PoIs (1,810: the one-relu-layer
    trunk's K3 chunked), and dV0 in both modes and the layer-0 input
-   backward on the actor's rows; each row with its kernels' ptxas
+   backward on the actor's rows and on the critic's 153,600 x 6,040;
+   each row with its kernels' ptxas
    registers and spills. Then ROADMAP B3's hidden widths
    (``check_wide_hidden``: 100, off multiples of 8, and 264 to 1,024, in
    column passes of 256): every kernel at 16 envs, f32 and bf16, on the
@@ -72,12 +79,12 @@ Phases (any failure exits non-zero):
    writes its relu masks, each that differs from the plain version's must
    lie within what a one-bf16-step change of the layer's input moves, and
    the plain version then runs on the kernel's masks. Times: CUDA events
-   around a run of 50 back-to-back launches (fewer, down to 3, when one
+   around a run of 30 back-to-back launches (fewer, down to 3, when one
    launch takes over 5 ms), divided by the count; K2 is fed parameters
    packed beforehand, as the rollout packs them once per parameter version
    (``MLPBase.packed_params``), while K3 / K4 and K2b pack inside the
    window, as their wrappers do every epoch. The wrapper's host time per
-   call (``time.perf_counter`` over 50 calls, no synchronisation between
+   call (``time.perf_counter`` over 30 calls, no synchronisation between
    them) is printed beside it, and for K2 also that of the rollout's call
    through ``MLPBase.forward``;
 4. hold the updates of ``UPDATE_CHECKS`` on the card against the same
@@ -130,7 +137,7 @@ Phases (any failure exits non-zero):
    at all, every run's K1 to have gone through ``GAE_ENTRY`` and every bf16
    run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
    tensor-core entry points (the 20-UAV run's K4 through
-   ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_mma``). After the runs
+   ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_wgmma``). After the runs
    of ``PROFILED``, one more
    iteration under ``torch.profiler``: device time by kernel name and the
    device's idle share over the iteration;
@@ -268,15 +275,15 @@ SOURCES = {
     "actor_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "critic_ppo_grads_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
-    "critic_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "critic_ppo_grads_dv0": "dcc_tpu_torch/csrc/layer0_tail.cu",
     "fused_mlp_bwd_chunked": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
     "critic_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
-    "layer0_input_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd.cu",
-    "dv0_unfolded": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "layer0_input_bwd": "dcc_tpu_torch/csrc/layer0_tail.cu",
+    "dv0_unfolded": "dcc_tpu_torch/csrc/layer0_tail.cu",
     "fused_mlp_chunked": "dcc_tpu_torch/csrc/fused_mlp.cu",
     "actor_ppo_grads_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
     "actor_ppo_grads_unfolded_chunked": "dcc_tpu_torch/csrc/fused_ppo.cu",
-    "actor_ppo_grads_dv0": "dcc_tpu_torch/csrc/fused_ppo.cu",
+    "actor_ppo_grads_dv0": "dcc_tpu_torch/csrc/layer0_tail.cu",
 }
 SOURCES.update({f"{k}_h{HIDDEN_ROW}": SOURCES[k] for k in (
     "fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads",
@@ -493,7 +500,7 @@ _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_
 # K2b at the 20-UAV preset's widths: staged on the actor's rows, chunked on
 # the critic's, with the kernels that finish its layer 0
 _WIDE_TRUNK_MMA = {**_TRUNK_MMA, "fused_mlp_bwd_chunked": "dcc_trunk_bwd_chunked_mma",
-                   "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"}
+                   "layer0_input_bwd": "dcc_layer0_input_bwd_wgmma", "dv0_unfolded": "dcc_dv0_wgmma"}
 _FOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "actor_ppo_grads": "dcc_actor_grads_mma",
                "critic_ppo_grads": "dcc_critic_grads_mma"}
 _UNFOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma",
@@ -511,24 +518,24 @@ MMA_ENTRY = {
     **{f"bf16-{mode}": _TRUNK_MMA for mode in HEAD_MODES},
     **{f"preset-{name}-bf16": _FOLDED_MMA for name in BF16_PRESETS},
     f"preset-{WIDE}": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
-                       "critic_ppo_grads_dv0": "dcc_dv0_mma"},
+                       "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
     f"preset-{WIDE}-fused-loss-off": _WIDE_TRUNK_MMA,
     f"preset-{WIDE}-unfolded": {
         "fused_mlp": "dcc_trunk_fwd_mma",
         "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_mma",
         "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_chunked_mma",
-        "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
+        "layer0_input_bwd": "dcc_layer0_input_bwd_wgmma", "dv0_unfolded": "dcc_dv0_wgmma"},
     f"preset-{WIDE}-recurrent": _WIDE_TRUNK_MMA,
     f"{POIS}-bf16": {"fused_mlp": "dcc_trunk_fwd_mma",
                      "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma",
                      "actor_ppo_grads": "dcc_actor_grads_chunked_mma",
                      "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
-                     "actor_ppo_grads_dv0": "dcc_dv0_mma", "critic_ppo_grads_dv0": "dcc_dv0_mma"},
+                     "actor_ppo_grads_dv0": "dcc_dv0_wgmma", "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
     f"{POIS}-bf16-unfolded": {
         "fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma",
         "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded_chunked_mma",
         "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_chunked_mma",
-        "layer0_input_bwd": "dcc_layer0_input_bwd_mma", "dv0_unfolded": "dcc_dv0_mma"},
+        "layer0_input_bwd": "dcc_layer0_input_bwd_wgmma", "dv0_unfolded": "dcc_dv0_wgmma"},
     f"{POIS}-bf16-fused-loss-off": {**_WIDE_TRUNK_MMA,
                                     "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma"},
     "bf16-h512": _FOLDED_MMA,
@@ -538,24 +545,25 @@ MMA_ENTRY = {
     "bf16-h1024-fused-loss-off": _TRUNK_MMA,
     "recurrent-bf16-h300": _TRUNK_MMA,
     f"preset-{WIDE}-h512": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
-                            "critic_ppo_grads_dv0": "dcc_dv0_mma"},
+                            "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
                "critic_grads_mma_kernel", "actor_grads_unfolded_mma_kernel",
                "critic_grads_unfolded_mma_kernel", "critic_grads_chunked_mma_kernel",
-               "dv0_mma_kernel", "trunk_bwd_chunked_mma_kernel",
+               "dv0_wgmma_kernel", "trunk_bwd_chunked_mma_kernel",
                "critic_grads_unfolded_chunked_mma_kernel", "layer0_input_bwd_mma_kernel",
+               "layer0_input_bwd_wgmma_kernel",
                "trunk_fwd_chunked_mma_kernel", "actor_grads_chunked_mma_kernel",
                "actor_grads_unfolded_chunked_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide", "fused_mlp_bwd_wide",
-            "fused_ppo_wide")
+            "fused_ppo_wide", "layer0_tail")
 WIDE_TAG = " [wide]"  # a kernel of a ``*_wide`` library (its layers in column passes)
 # the runs followed by one profiled iteration
 PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
             f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded", f"{POIS}-bf16",
             f"{POIS}-bf16-unfolded", f"{POIS}-bf16-fused-loss-off")
-N_TIMED = 50  # launches between the two CUDA events of a timing
+N_TIMED = 30  # launches between the two CUDA events of a timing
 
 
 class SmokeFailure(Exception):
@@ -695,7 +703,7 @@ def ptxas_report(logs: dict, show: bool) -> dict:
             if m and fn:
                 info[fn]["registers"] = int(m.group(1))
     for fn, v in sorted(info.items()):
-        if "_mma_kernel" in fn or "gae" in fn:
+        if "mma_kernel" in fn or "gae" in fn:
             print(f"  ptxas {fn}: {v}", flush=True)
     return info
 
@@ -712,18 +720,22 @@ def sass_check(built: dict) -> dict:
     if tool is None:
         raise SmokeFailure("cuobjdump not found: the SASS check needs the CUDA toolkit")
     counts = {}
-    for lib in MMA_LIBS:
-        out = subprocess.run([tool, "-sass", built[lib]], capture_output=True, text=True,
-                             check=True, timeout=300).stdout
+    # every library's disassembly at once
+    procs = {lib: subprocess.Popen([tool, "-sass", built[lib]], stdout=subprocess.PIPE,
+                                   text=True) for lib in MMA_LIBS}
+    for lib, proc in procs.items():
+        out, _ = proc.communicate(timeout=300)
+        if proc.returncode:
+            raise SmokeFailure(f"cuobjdump -sass {built[lib]} failed ({proc.returncode})")
         fn = None
         for line in out.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1) + (WIDE_TAG if lib.endswith("_wide") else "")
+            if "Function :" in line:
+                fn = re.search(r"Function : (\S+)", line).group(1) + (
+                    WIDE_TAG if lib.endswith("_wide") else "")
                 counts[fn] = 0
-            elif fn is not None and re.search(r"\bH(G)?MMA\b", line):
+            elif fn is not None and "MMA" in line and re.search(r"\bH(G)?MMA\b", line):
                 counts[fn] += 1
-    mma = {f: c for f, c in counts.items() if "_mma_kernel" in f}
+    mma = {f: c for f, c in counts.items() if "mma_kernel" in f}
     for want in MMA_KERNELS:
         if not any(want in f for f in mma):
             raise SmokeFailure(f"SASS check: no {want} in {sorted(counts)}")
@@ -739,8 +751,13 @@ def sass_check(built: dict) -> dict:
 
 def device_us(fn, n: int, match: str):
     """Device microseconds per call over ``n`` back-to-back calls under
-    torch.profiler: of the kernels whose name holds ``match``, and of all
-    device work. None where the profiler sees no device events."""
+    torch.profiler: of the kernels whose name holds ``match`` (each such
+    kernel's mean record times its records a call, at least one: late in
+    the smoke the profiler returns records for fewer calls than ran, and
+    the records' sum divided by the calls then read the hidden-512 dV0 and
+    chunked K4 at half their time), of all device work (records / calls),
+    and the kernel records a call (``launches``) with their names. None
+    where the profiler sees no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -753,8 +770,13 @@ def device_us(fn, n: int, match: str):
     dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
         return None
-    return dict(kernel=sum(e.time_range.elapsed_us() for e in dev if match in e.name) / n,
-                all=sum(e.time_range.elapsed_us() for e in dev) / n)
+    by_name = collections.defaultdict(list)
+    for e in dev:
+        if match in e.name:
+            by_name[e.name].append(e.time_range.elapsed_us())
+    kernel = sum(sum(t) / len(t) * max(1, round(len(t) / n)) for t in by_name.values())
+    return dict(kernel=kernel, all=sum(e.time_range.elapsed_us() for e in dev) / n,
+                launches=sum(len(t) for t in by_name.values()) / n, names=sorted(by_name))
 
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
@@ -778,7 +800,7 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     dev_us = device_us(kern, n, device_match) if device_match else None
     entry = ENTRY.get(kernel)  # the C entry point of the timed launches
     tile = TILE.get(kernel)  # and their row tile (K2-K4, K2b, K3u / K4u)
-    if mode == "bf16" and not entry.endswith("_mma"):
+    if mode == "bf16" and not entry.endswith("mma"):
         raise SmokeFailure(f"bf16 {kernel} went through {entry}, not its tensor-core entry")
     row = dict(kernel=kernel, mode=mode, envs=envs, shape=shape, preset=preset, hidden=hidden,
                entry=entry, tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms,
@@ -1467,10 +1489,12 @@ def check_wide(results: list):
     bf16 at ``WIDE_ENVS`` envs (3,072,000 x 242, 153,600 x 4,840), the main
     path's shapes, on the trunks of ``trunk_variants`` (the plain K3 keeps
     about ten 3.1 GB f32 tensors alive there); the dV0 kernel in both modes
-    against its plain version at both; the chunked K2b on 2,400 and 38,400
-    critic rows (the fused-loss-off run's update chunk), the chunked K4u on
-    2,400 and 153,600, and the layer-0 input backward alone on 38,400 rows
-    (with and without dx) and 153,600 (without)."""
+    against its plain version at both and on 38,400 rows (an update chunk of
+    the fused-loss-off run); the chunked K2b on 2,400 and 38,400 critic rows
+    (the fused-loss-off run's update chunk), the chunked K4u on 2,400 and
+    153,600, and the layer-0 input backward alone on 38,400 rows (with and
+    without dx) and 153,600 (without); then the layer-0 tail at every shape
+    its kernels distinguish (``check_tail``)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -1478,9 +1502,10 @@ def check_wide(results: list):
     check_trunk_forward(results, gen, preset=WIDE, envs_list=(16, WIDE_ENVS))
     check_ppo(results, gen, cases=((16, 1),), preset=WIDE)
     check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=WIDE, modes=(True,))
-    check_dv0(results, gen, envs_list=(16, WIDE_ENVS))
+    check_dv0(results, gen, envs_list=(16, WIDE_ENVS // 4, WIDE_ENVS))
     check_wide_chunked(results, gen)
     check_layer0(results, gen)
+    check_tail(results)
 
 
 def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False, hidden: int = 256):
@@ -1541,7 +1566,7 @@ def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False,
                       + (8 * D if unf else 0))
             b, by = bound(nbytes, 2 * R * D * H, PEAK_BF16)
             record(results, name, "bf16", envs, _shape(R, D, 1, H), errs, kern, plain, b, by,
-                   f32_rel, preset=preset, device_match="dv0_mma_kernel", library=library,
+                   f32_rel, preset=preset, device_match="dv0_wgmma_kernel", library=library,
                    hidden=H)
             del want, a0
         del x, g0
@@ -1707,6 +1732,122 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
         torch.cuda.empty_cache()
 
 
+# the layer-0 tail's shapes held against the plain versions (``check_tail``):
+# (rows, d_in, hidden, bf16 x). Rows at the dV0 kernel's flush (512) and its
+# steps' and splits' edges; d_in 17 (odd: bf16 x by plain loads), 1,000,
+# 1,510 (rows not 16-byte aligned), 4,840, 6,040; hidden 8 to 1,024 (the
+# dV0 kernel's column passes past 256, the row-tiled layer-0 input
+# backward there)
+TAIL_SHAPES = ((1, 4840, 256, True), (37, 4840, 256, False), (511, 1510, 256, True),
+               (512, 1510, 100, True), (513, 4840, 264, True), (20000, 4840, 256, True),
+               (20000, 1510, 512, False), (513, 6040, 1024, True), (333, 1000, 64, False),
+               (100, 17, 8, True), (20000, 6040, 100, True), (512, 17, 1024, False),
+               (37, 1000, 512, True), (511, 6040, 8, False))
+
+
+def _tail_operands(gen, rows: int, d_in: int, hidden: int, x_bf16: bool = True):
+    """Rows x (bf16 or f32), their statistics, a layer-0 cotangent, the
+    feature norm's scale and bias and a bf16 W_0 as the kernels read it."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    x = torch.randn(rows, d_in, generator=gen, device="cuda")
+    x = x.to(torch.bfloat16) if x_bf16 else x
+    fs = 1.0 + 0.1 * torch.randn(d_in, generator=gen, device="cuda")
+    fb = 0.1 * torch.randn(d_in, generator=gen, device="cuda")
+    w0 = torch.randn(d_in, hidden, generator=gen, device="cuda") * d_in ** -0.5
+    w0b = FM.pack_mma_weights([w0], "cuda")[0].view(FM.pad16(d_in), FM.pad16(hidden))
+    return x, FM.input_stats(x, True), _layer0_cotangent(gen, rows, hidden), fs, fb, w0b
+
+
+def check_tail(results: list):
+    """The layer-0 tail at every shape its kernels distinguish
+    (``TAIL_SHAPES``): dV0 in both modes, the layer-0 input backward with and
+    without dx, and ``layer0_tail`` (its two launches: dfs, dfb, dW0 of the
+    unfolded chunked chain) against their plain versions within
+    ``DV0_REL``, each call's launches counted. Not timed."""
+    import torch
+
+    from dcc_tpu_torch.ops import cuda_build as cb
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    t0, worst = time.perf_counter(), 0.0
+    for rows, d_in, H, x_bf16 in TAIL_SHAPES:
+        x, xstats, g0, fs, fb, w0b = _tail_operands(gen, rows, d_in, H, x_bf16)
+        cases = [("critic_ppo_grads_dv0", lambda: [FM.dv0_cuda(x, xstats, g0, H)],
+                  lambda: [FM.dv0_plain(x, xstats, g0, H)]),
+                 ("dv0_unfolded", lambda: [FM.dv0_cuda(x, xstats, g0, H, (fs, fb), True)],
+                  lambda: [FM.dv0_plain(x, xstats, g0, H, (fs, fb))])]
+        for dx in (False, True):
+            cases.append(("layer0_input_bwd",
+                          lambda dx=dx: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, dx),
+                          lambda dx=dx: FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, H,
+                                                                  dx)))
+        cases.append(("layer0_tail", lambda: FM.layer0_tail(x, xstats, g0, w0b, fs, fb, H)[1],
+                      lambda: FM.layer0_tail(*[t.cpu() for t in (x, xstats, g0, w0b, fs, fb)],
+                                             H)[1]))
+        for name, kern, plain in cases:
+            cb.reset_launches()
+            got = [t for t in kern() if t is not None]
+            want = {"layer0_tail": {"layer0_input_bwd": 1, "dv0_unfolded": 1}}.get(name,
+                                                                                 {name: 1})
+            if dict(cb.LAUNCHES) != want:
+                raise SmokeFailure(f"{name} at {rows} x {d_in} x {H}: launches "
+                                   f"{dict(cb.LAUNCHES)}, expected {want}")
+            err = compare(f"{name} {rows}x{d_in}x{H} x_bf16={x_bf16}", got,
+                          [t.to("cuda") for t in plain() if t is not None], DV0_REL)
+            worst = max(worst, err[1])
+        del x, xstats, g0, w0b
+    print(f"  layer-0 tail: {len(TAIL_SHAPES)} shapes x 5 calls held within {DV0_REL} "
+          f"(worst rel {worst:.3e}) in {time.perf_counter() - t0:.1f} s", flush=True)
+    results.append(dict(kernel="layer0_tail_shapes", mode="bf16", shapes=len(TAIL_SHAPES),
+                        rel_err=worst))
+
+
+# the layer-0 tail's timed shapes (``check_tail_timing``): (rows, d_in,
+# hidden) of the 20-UAV preset (153,600 critic rows, an update chunk of
+# 38,400), 4 UAVs x 300 PoIs (614,400 actor rows, 153,600 critic rows) and
+# the 20-UAV preset at hidden 512
+TAIL_TIMED = ((153600, 4840, 256), (38400, 4840, 256), (614400, 1510, 256),
+              (153600, 6040, 256), (153600, 4840, 512))
+
+
+def check_tail_timing(results: list):
+    """dV0 (folded and affine) and the layer-0 input backward without dx at
+    ``TAIL_TIMED`` on bf16 rows: CUDA events, the profiler's device us with
+    the launches it matched a call, cuBLAS's product of the bf16 operands
+    beside dV0. It calls only ``dv0_cuda`` and ``layer0_input_bwd_cuda``, so
+    any checkout with both wrappers runs it (``scripts/smoke_phase.py timing``)."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for rows, d_in, H in TAIL_TIMED:
+        x, xstats, g0, fs, fb, w0b = _tail_operands(gen, rows, d_in, H)
+        a0 = ((x.float() - xstats[:, :1]) * xstats[:, 1:]).to(torch.bfloat16)
+        cases = [("dv0 folded", lambda: FM.dv0_cuda(x, xstats, g0, H), "dv0_"),
+                 ("dv0 affine", lambda: FM.dv0_cuda(x, xstats, g0, H, (fs, fb), True), "dv0_"),
+                 ("cuBLAS a0^T g0", lambda: torch.matmul(a0.t(), g0[:, :H]), "")]
+        if FM.pad16(H) <= 256:
+            cases.append(("layer0_input_bwd",
+                          lambda: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, False),
+                          "layer0_input_bwd"))
+        for name, fn, match in cases:
+            ms, n = time_ms(fn)
+            dev = device_us(fn, n, match) if match else None
+            results.append(dict(kernel=name, rows=rows, d_in=d_in, hidden=H, ms=ms, n_timed=n,
+                                device_us=dev))
+            extra = "" if dev is None else (f" device us/call {dev['kernel']:.1f} (all "
+                                            f"{dev['all']:.1f}, {dev['launches']:g} launches "
+                                            f"{dev['names']})")
+            print(f"  {name:18s} {rows} x {d_in} x {H}: {ms:.4f} ms (x{n}){extra}", flush=True)
+        del x, xstats, g0, a0, w0b
+        torch.cuda.empty_cache()
+
+
 def check_default_timing(results: list):
     """The bf16 K2, K2b, K3 / K4 and K3u / K4u at the default widths (hidden
     256), timed against their plain versions as ``check_kernels`` times
@@ -1722,6 +1863,7 @@ def check_default_timing(results: list):
                          variants=tanh)
     check_ppo(results, gen, ((16, 1), (BIG_ENVS // 4, 1)), modes=(True,), variants=tanh)
     check_unfolded(results, gen, envs_list=(16, BIG_ENVS // 4), modes=(True,), variants=tanh)
+    check_tail_timing(results)
 
 
 def check_wide_hidden(results: list, ptxas: dict):
@@ -1789,7 +1931,8 @@ def kernel_ptxas(ptxas: dict, entry: str, hidden: int = 256) -> dict:
     names."""
     wide = hidden % 2 == 1 or -(-hidden // 16) * 16 > 256
     return {fn: v for fn, v in ptxas.items()
-            if f"{entry[4:]}_kernel" in fn and fn.endswith(WIDE_TAG) == wide}
+            if f"{entry[4:]}_kernel" in fn
+            and (fn.endswith(WIDE_TAG) == wide or entry.endswith("_wgmma"))}
 
 
 def check_many_pois(results: list, ptxas: dict):
@@ -1807,7 +1950,8 @@ def check_many_pois(results: list, ptxas: dict):
     the chunked K3 (one layer's staged tile holds 1,760 columns); K3u / K4u
     at 4 x 300 the same way; the dV0 kernel in both modes on the actor's
     rows at 16 and ``WIDE_ENVS`` envs, and the layer-0 input backward there
-    on 614,400 rows without dx, as K3u calls it. Each check's row keeps the
+    on 614,400 rows without dx, as K3u calls it; both on the critic's
+    153,600 x 6,040 (K4's dV0, K4u's tail). Each check's row keeps the
     ptxas registers and spills of its kernels, printed for the chunked
     ones."""
     import torch
@@ -1829,6 +1973,8 @@ def check_many_pois(results: list, ptxas: dict):
     check_dv0(results, gen, (16, WIDE_ENVS), preset=POIS, actor=True)
     check_layer0(results, gen, preset=POIS, actor=True,
                  cases=((WIDE_ENVS, 150 * WIDE_ENVS * env.n_agents, False, ""),))
+    check_dv0(results, gen, (WIDE_ENVS,), preset=POIS)
+    check_layer0(results, gen, preset=POIS, cases=((WIDE_ENVS, 150 * WIDE_ENVS, False, ""),))
     shown = set()
     for row in results[first:]:
         row["ptxas"] = kernel_ptxas(ptxas, row["entry"])

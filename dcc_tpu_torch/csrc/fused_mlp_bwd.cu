@@ -20,8 +20,9 @@
 // its first, which bounds both at large batch. In bf16 at rows too wide to
 // stage (the 20-UAV preset's 4,840-wide critic rows), three launches take
 // the staged kernel's place: trunk_bwd_chunked_mma_kernel down to layer
-// 0's cotangent, the dV0 kernel for dW0 (fused_ppo.cu), and
-// layer0_input_bwd_mma_kernel for the feature norm's gradients and d(x).
+// 0's cotangent, the dV0 kernel for dW0 (layer0_tail.cu), and the layer-0
+// input backward for the feature norm's gradients (layer0_tail.cu) or, where
+// d(x) is asked for, layer0_input_bwd_mma_kernel below.
 //
 // Design. The Pallas kernel accumulates the gradients into one output block
 // across a sequential grid, race-free only on a TPU. Here a fixed grid of
@@ -119,8 +120,9 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // feature-norm mean and 1/sqrt(var + eps) (xstats, R x 2), and leaves the
 // 4,840-wide gradients out of its slot, which starts at layer 0's bias
 // (slot offset = offset in pb - offs.v[3]): dW0 comes from the dV0 kernel
-// in its affine mode (fused_ppo.cu), the feature norm's gradients and d(x)
-// from layer0_input_bwd_mma_kernel below. A 4.96 MB dW0 in each of 132
+// in its affine mode (layer0_tail.cu), the feature norm's gradients and d(x)
+// from the layer-0 input backward (layer0_tail.cu without d(x) at hidden
+// widths to 256, else layer0_input_bwd_mma_kernel below). A 4.96 MB dW0 in each of 132
 // slots, re-read per tile, would cost more than the product. Layer 0's
 // pre-activations are not re-summed (resum_uncertain needs the whole
 // operand row); the layers after it are. No stage: layer 0's g_prev is
@@ -463,7 +465,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The layer-0 input backward of the chunked K2b and K4u (ROADMAP B2): the
+// The layer-0 input backward of the chunked K2b and K4u (ROADMAP B2) where
+// d(x) is asked for or the hidden width is past 256 (layer0_tail.cu takes
+// the update's calls, without d(x), at hidden widths to 256): the
 // part of dcc_tpu/ops/fused_mlp.py::_bwd_kernel (and, unfolded,
 // fused_ppo.py::_trunk_bwd) below layer 0's cotangent, at rows too wide to
 // stage. From x, the rows' statistics xstats (mu, inv), layer 0's bf16
@@ -814,7 +818,8 @@ extern "C" int dcc_trunk_bwd_mma(const void* x, int x_bf16, const float* g, long
 // in {32, 16}; as dcc_trunk_bwd_mma, but slots and out hold the slot from
 // layer 0's bias on (slot_size floats: every offset less offs[3]), and the
 // kernel writes g0 (R x pad16(H) bf16) and xstats (R x 2 f32) for
-// dcc_dv0_mma (fused_ppo.cu) and dcc_layer0_input_bwd_mma; no dx.
+// dcc_dv0_wgmma and dcc_layer0_input_bwd_wgmma (layer0_tail.cu) or
+// dcc_layer0_input_bwd_mma; no dx.
 extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float* g, long long R,
                                          int d_in, int H, int L, int use_fn, int relu, int br,
                                          const float* pb, const long long* offs, int n_offs,

@@ -31,8 +31,8 @@
 // uses no atomics. bf16 K3, K4, K3u and K4u at rows too wide to stage (the
 // 20-UAV preset's 4,840-wide critic rows; 4 UAVs x 300 PoIs, whose actor
 // rows are 1,510 wide) stream layer 0 in column chunks and hand layer 0's
-// weight gradient to dv0_mma_kernel, whose (d_in x H) sum would not fit a
-// slot that every tile re-reads (see there). The ragged last tile is masked in
+// weight gradient to dv0_wgmma_kernel (layer0_tail.cu), whose (d_in x H)
+// sum would not fit a slot that every tile re-reads (see there). The ragged last tile is masked in
 // the kernel, so rows are never padded. Loss and backward elementwise math
 // is f32 with JAX's autodiff tie rules: min / max split the cotangent 50/50
 // on ties, clip composes the two.
@@ -585,9 +585,10 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
 // affine), and the backward leaves layer 0's weight gradient out of the
 // slot: it writes each row's bf16 cotangent of layer 0 (R x Hp) to g0 and
 // its feature-norm mean and 1/sqrt(var + eps) to xstats (R x 2), from
-// which dv0_mma_kernel computes dV0 = bf16(xhat)^T g0 (unfolded, dW0 =
-// bf16(xhat * fs + fb)^T g0) and, unfolded, layer0_input_bwd_mma_kernel
-// (fused_mlp_bwd.cu) the feature norm's scale and bias gradients. Unfolded
+// which dv0_wgmma_kernel (layer0_tail.cu) computes dV0 = bf16(xhat)^T g0
+// (unfolded, dW0 = bf16(xhat * fs + fb)^T g0) and, unfolded,
+// layer0_input_bwd_wgmma_kernel (the same file) the feature norm's scale
+// and bias gradients. Unfolded
 // chunked, the slot starts at layer 0's bias (slot offset = offset in pb -
 // offs.v[3]): the feature norm's and W_0's 4,840-wide gradients are not in
 // it. Layer 0's pre-activations are not re-summed (resum_uncertain needs
@@ -924,7 +925,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         }
       }
       if (CH && li == 0) {
-        // layer 0's bf16 cotangent and the rows' statistics, for dv0_mma_kernel
+        // layer 0's bf16 cotangent and the rows' statistics, for dv0_wgmma_kernel
         const int cpr = Hp / 8;  // 16-byte chunks of a row
         for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
           const int r = i / cpr, c = i - r * cpr;
@@ -1084,249 +1085,6 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, true, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
                             offs, wb, woffs, slots, slot_size, mask, g0, xstats);
-}
-
-// ---------------------------------------------------------------------------
-// dV0 of the chunked K4 (the same Pallas kernel's layer-0 weight gradient,
-// dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded's _mm(a, g, bf16,
-// transpose_a=True) at li = 0): dV0 = bf16(xhat)^T g0 over all R rows, xhat
-// = (x - mu) * inv recomputed from x and xstats exactly as the chunked
-// forward computed it, g0 the bf16 cotangent it wrote. The TPU kernel keeps
-// the (d_in x H) sum resident in VMEM across its sequential grid; here a
-// block that added it into its slot once per row tile would move the 4.96 MB
-// slot (d_in 4,840) per tile. So a grid of (d_in / DV0_KB column blocks) x
-// (row splits) computes it as one product: each block holds its DV0_KB x H
-// part of dV0 in registers (32 x 64 slabs, two a warp) over its split's
-// rows, DV0_RS rows a step, x and g0 staged through two shared-memory
-// stages (the next step's loads in flight during this step's mma.sync
-// products: x in registers, normalized and rounded to bf16 on the way into
-// the stage, g0 by cp.async), and writes it once to part[split]; the slot
-// reduction then sums the splits in order. The tensor cores' accumulation
-// is not rounded to nearest, so a chain over a whole split would drift
-// with its length: every DV0_FLUSH steps each thread adds its registers
-// into its own f32 sums in shared memory (round to nearest) and starts
-// them again. Bound: the bytes of x and g0 (an operations bound below it
-// at d_in 4,840, H 256).
-// Affine mode (fs, fb given: the unfolded chain's layer 0, for the chunked
-// K2b and K4u): dW0 = bf16(xhat * fs + fb)^T g0, the operand rounded step
-// by step as the chunked forward's stage_chunk rounds it; the block's
-// DV0_KB entries of fs and fb are read once into shared memory. Hidden
-// widths past MMA_HMAX: the grid's third dimension takes dV0's columns in
-// passes of MMA_HMAX (one at H <= MMA_HMAX).
-// ---------------------------------------------------------------------------
-#define DV0_KB 128  // columns of x (rows of dV0) a block takes
-#define DV0_RS 32   // rows a step (two k16 steps of the products)
-#define DV0_ACC 128  // accumulators a thread holds: 2 slabs x 2 x 8 x 4
-#define DV0_FLUSH 16  // steps between the flushes into the f32 sums
-
-// Two stages of x and g0 rows (one column pass of g0), each thread's
-// DV0_ACC f32 sums, then the block's columns of the affine (fs, fb).
-__host__ __device__ inline size_t dv0_smem_bytes(int H) {
-  return 2 * sizeof(bf16) * (size_t)DV0_RS * ((DV0_KB + 8) + (pass_cols(pad16(H)) + 8)) +
-         sizeof(float) * (size_t)DV0_ACC * MMA_THREADS + sizeof(float) * 2 * DV0_KB;
-}
-
-__global__ void __launch_bounds__(MMA_THREADS, 1)
-    dv0_mma_kernel(const void* x, int x_bf16, long long R, int d_in, const float* xstats,
-                   const bf16* g0, int H, long long split_rows, const float* fs,
-                   const float* fb, float* part) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // this block's pass of dV0's columns: n0 .. n0 + Hp of g0's Hg (padded)
-  const int Hg = pad16(H), n0 = blockIdx.z * MMA_HMAX, Hp = min(MMA_HMAX, Hg - n0);
-  const int lda = DV0_KB + 8, ldg = Hp + 8;
-  bf16* as[2];
-  bf16* gs[2];
-  as[0] = (bf16*)smem_raw;
-  gs[0] = as[0] + DV0_RS * lda;
-  as[1] = gs[0] + DV0_RS * ldg;
-  gs[1] = as[1] + DV0_RS * lda;
-  float* sums = (float*)(gs[1] + DV0_RS * ldg);  // [DV0_ACC][MMA_THREADS]
-  float* aff = sums + DV0_ACC * MMA_THREADS;      // fs, fb of the block's columns
-  for (int i = 0; i < DV0_ACC; ++i) sums[i * MMA_THREADS + threadIdx.x] = 0.f;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
-  const int k0 = blockIdx.x * DV0_KB;
-  const bool affine = fs != nullptr;
-  if (affine && threadIdx.x < DV0_KB) {  // read by stage_x after the barrier below
-    const int k = k0 + threadIdx.x;
-    aff[threadIdx.x] = k < d_in ? fs[k] : 0.f;
-    aff[DV0_KB + threadIdx.x] = k < d_in ? fb[k] : 0.f;
-  }
-  const long long r_begin = (long long)blockIdx.y * split_rows;
-  const long long r_end = min(R, r_begin + split_rows);
-  const long long steps = r_end > r_begin ? (r_end - r_begin + DV0_RS - 1) / DV0_RS : 0;
-  const int ns = Hp / 64 + (Hp % 64 != 0), n_slabs = (DV0_KB / 32) * ns, cpr = Hp / 8;
-  // x: a step's DV0_RS x DV0_KB block in 8-column pieces, piece
-  // threadIdx.x + MMA_THREADS j of the thread at row xr + XROWS j, column
-  // 8 xc: one 16-byte load each when x is bf16 and its rows are 16-byte
-  // aligned, else 8 loads
-  constexpr int XP = DV0_RS * DV0_KB / 8 / MMA_THREADS, XROWS = MMA_THREADS / (DV0_KB / 8);
-  const int xc = threadIdx.x % (DV0_KB / 8), xr = threadIdx.x / (DV0_KB / 8);
-  const bool vec = x_bf16 && d_in % 8 == 0;
-  float xv[XP][8];
-  float2 st[XP];  // the rows' (mu, inv)
-  auto fetch_x = [&](long long step) {
-    const long long rb = r_begin + step * DV0_RS;
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      const long long row = rb + xr + XROWS * j;
-      const int col = k0 + 8 * xc;
-      const bool in = row < r_end;
-      st[j] = in ? __ldg(reinterpret_cast<const float2*>(xstats) + row) : make_float2(0.f, 1.f);
-      if (vec) {
-        uint4 u = make_uint4(0u, 0u, 0u, 0u);
-        if (in && col < d_in)
-          u = __ldg(reinterpret_cast<const uint4*>((const bf16*)x + row * d_in + col));
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          xv[j][2 * e] = __uint_as_float(w[e] << 16);
-          xv[j][2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          xv[j][e] = in && col + e < d_in ? load_x(x, x_bf16, row * d_in + col + e) : 0.f;
-      }
-    }
-  };
-  // xhat = bf16((x - mu) * inv), or bf16(xhat * fs + fb), as the chunked
-  // forward rounded it
-  auto stage_x = [&](int s) {
-#pragma unroll
-    for (int j = 0; j < XP; ++j) {
-      uint32_t w[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float v[2];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          v[h] = (xv[j][2 * e + h] - st[j].x) * st[j].y;
-          if (affine) {
-            const int c = 8 * xc + 2 * e + h;
-            v[h] = __fadd_rn(__fmul_rn(v[h], aff[c]), aff[DV0_KB + c]);
-          }
-        }
-        const __nv_bfloat162 b = __floats2bfloat162_rn(v[0], v[1]);
-        w[e] = *reinterpret_cast<const uint32_t*>(&b);
-      }
-      *reinterpret_cast<uint4*>(as[s] + (xr + XROWS * j) * lda + 8 * xc) =
-          make_uint4(w[0], w[1], w[2], w[3]);
-    }
-  };
-  // g0 rows straight into the stage (cp.async); rows past the split are 0
-  auto fetch_g = [&](long long step, int s) {
-    const long long rb = r_begin + step * DV0_RS;
-    for (int i = threadIdx.x; i < DV0_RS * cpr; i += MMA_THREADS) {
-      const int r = i / cpr, c = i - r * cpr;
-      bf16* dst = gs[s] + r * ldg + c * 8;
-      if (rb + r < r_end)
-        cp_async16(dst, g0 + (rb + r) * Hg + n0 + c * 8);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-    cp_async_commit();
-  };
-  float acc[2][2][8][4];
-  // acc into the thread's sums (its own elements: no barrier), then 0
-  auto flush = [&]() {
-#pragma unroll
-    for (int q = 0; q < 2; ++q)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float* s = sums + (((q * 2 + mt) * 8 + nt) * 4 + i) * MMA_THREADS + threadIdx.x;
-            *s += acc[q][mt][nt][i];
-            acc[q][mt][nt][i] = 0.f;
-          }
-  };
-#pragma unroll
-  for (int q = 0; q < 2; ++q)
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[q][mt][nt][i] = 0.f;
-  if (affine) __syncthreads();  // aff, before the first stage_x
-  if (steps > 0) {
-    fetch_g(0, 0);
-    fetch_x(0);
-    stage_x(0);
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  for (long long stp = 0; stp < steps; ++stp) {
-    const int cur = (int)(stp & 1), nxt = cur ^ 1;
-    if (stp + 1 < steps) {  // the next step's loads, in flight during this step's products
-      fetch_g(stp + 1, nxt);
-      fetch_x(stp + 1);
-    }
-    const bf16* A = as[cur];
-    const bf16* G = gs[cur];
-#pragma unroll
-    for (int kk = 0; kk < DV0_RS; kk += 16) {
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int sl = warp + MMA_WARPS * q;
-        if (sl < n_slabs) {
-          const int m0 = (sl / ns) * 32, c0 = (sl % ns) * 64;
-          // A = xhat^T, read transposed from the [r][k] stage (as grad_at_g)
-          uint32_t a[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt)
-            ldsm_x4_t(a[mt], A + (kk + (mat >> 1) * 8 + (lane & 7)) * lda + m0 + mt * 16 +
-                                 (mat & 1) * 8);
-#pragma unroll
-          for (int p = 0; p < 8; p += 2) {
-            if (c0 + p * 8 < Hp) {
-              uint32_t b[4];
-              ldsm_x4_t(b, G + (kk + (mat & 1) * 8 + (lane & 7)) * ldg + c0 + (p + (mat >> 1)) * 8);
-#pragma unroll
-              for (int mt = 0; mt < 2; ++mt) {
-                mma_bf16(acc[q][mt][p], a[mt], b[0], b[1]);
-                mma_bf16(acc[q][mt][p + 1], a[mt], b[2], b[3]);
-              }
-            }
-          }
-        }
-      }
-    }
-    if (stp + 1 < steps) stage_x(nxt);
-    if ((stp + 1) % DV0_FLUSH == 0) flush();
-    cp_async_wait<0>();
-    __syncthreads();
-  }
-  flush();
-  float* out = part + (long long)blockIdx.y * d_in * H;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int sl = warp + MMA_WARPS * q;
-    if (sl >= n_slabs) continue;
-    const int m0 = (sl / ns) * 32, c0 = (sl % ns) * 64;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int k = k0 + m0 + mt * 16 + (lane >> 2) + 8 * h;
-          const int j = n0 + c0 + nt * 8 + (lane & 3) * 2;
-          const float* s = sums + (((q * 2 + mt) * 8 + nt) * 4 + 2 * h) * MMA_THREADS +
-                           threadIdx.x;
-          if (k < d_in && j < H) {
-            float* p = out + (long long)k * H + j;
-            if (!DCC_WIDE || (H & 1) == 0) {
-              *reinterpret_cast<float2*>(p) = make_float2(s[0], s[MMA_THREADS]);
-            } else {  // odd H: one element at a time
-              p[0] = s[0];
-              if (j + 1 < H) p[1] = s[MMA_THREADS];
-            }
-          }
-        }
-  }
 }
 
 static DccOffs to_offs(const long long* offs, int n_offs) {
@@ -1641,8 +1399,8 @@ extern "C" int dcc_actor_grads_unfolded_mma(const void* x, int x_bf16, const flo
 // 16}; as dcc_actor_grads_mma / dcc_actor_grads_unfolded_mma, but slots and
 // out hold the slot without layer 0's dV (unfolded: from layer 0's bias on,
 // every offset less offs[3]), and the kernel writes g0 (R x pad16(H) bf16)
-// and xstats (R x 2 f32) for dcc_dv0_mma (and, unfolded,
-// dcc_layer0_input_bwd_mma).
+// and xstats (R x 2 f32) for dcc_dv0_wgmma (and, unfolded,
+// dcc_layer0_input_bwd_wgmma).
 template <bool UNF>
 static int actor_grads_chunked(const void* x, int x_bf16, const float* aux, long long R,
                                int d_in, int H, int L, int A, int use_fn, int relu, float clip,
@@ -1829,7 +1587,7 @@ extern "C" int dcc_critic_grads_unfolded_mma(const void* x, int x_bf16, const fl
 // K4 in bf16 with the chunked layer 0: as dcc_critic_grads_mma, but slots
 // and out hold the slot without layer 0's dV (slot_size floats), and the
 // kernel writes g0 (R x pad16(H) bf16) and xstats (R x 2 f32) for
-// dcc_dv0_mma.
+// dcc_dv0_wgmma.
 extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const float* aux,
                                             const float* norm, long long R, int d_in, int H,
                                             int L, int use_fn, int relu, float clip,
@@ -1865,8 +1623,8 @@ extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const flo
 // K4u in bf16 with the chunked layer 0: as dcc_critic_grads_unfolded_mma,
 // but slots and out hold the slot from layer 0's bias on (slot_size
 // floats: every offset less offs[3]), and the kernel writes g0 (R x
-// pad16(H) bf16) and xstats (R x 2 f32) for dcc_dv0_mma and
-// dcc_layer0_input_bwd_mma.
+// pad16(H) bf16) and xstats (R x 2 f32) for dcc_dv0_wgmma and
+// dcc_layer0_input_bwd_wgmma.
 extern "C" int dcc_critic_grads_unfolded_chunked_mma(
     const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
     int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
@@ -1894,34 +1652,6 @@ extern "C" int dcc_critic_grads_unfolded_chunked_mma(
   }
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
-}
-
-// dV0 = bf16((x - mu) * inv)^T g0 over R rows (d_in x H f32 into out), or
-// with fs and fb given (not null) bf16((x - mu) * inv * fs + fb)^T g0:
-// dv0_mma_kernel on n_splits row splits into part (n_splits x d_in x H
-// scratch), then the splits summed in order.
-extern "C" int dcc_dv0_mma(const void* x, int x_bf16, long long R, int d_in,
-                           const float* xstats, const void* g0, int H, int n_splits,
-                           const float* fs, const float* fb, float* part, float* out,
-                           void* stream) {
-  if (H < 1 || (!DCC_WIDE && H % 2 != 0) || n_splits < 1 || d_in < 1 ||
-      (fs == nullptr) != (fb == nullptr))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  static bool smem_set = false;
-  if (!smem_set) {
-    cudaFuncSetAttribute(dv0_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         MMA_SMEM_MAX);
-    smem_set = true;
-  }
-  const long long split_rows = ((R + n_splits - 1) / n_splits + DV0_RS - 1) / DV0_RS * DV0_RS;
-  const dim3 grid((pad16(d_in) + DV0_KB - 1) / DV0_KB, n_splits,
-                  (pad16(H) + MMA_HMAX - 1) / MMA_HMAX);
-  dv0_mma_kernel<<<grid, MMA_THREADS, dv0_smem_bytes(H), s>>>(
-      x, x_bf16, R, d_in, xstats, (const bf16*)g0, H, split_rows, fs, fb, part);
-  const int err = (int)cudaGetLastError();
-  if (err) return err;
-  return reduce(part, n_splits, (long long)d_in * H, out, s);
 }
 
 extern "C" const char* dcc_error_string(int code) {

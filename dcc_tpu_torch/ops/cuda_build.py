@@ -23,7 +23,9 @@ K2 under ``fused_mlp_chunked`` and the chunked K2b under
 under ``actor_ppo_grads_dv0`` and ``critic_ppo_grads_dv0`` (dV0 of the
 folded K3 and K4), ``dv0_unfolded`` (dW0 of K2b, K3u and K4u) and
 ``layer0_input_bwd`` (the feature norm's gradients and d(x) of K2b, K3u
-and K4u).
+and K4u); ``csrc/layer0_tail.cu`` holds dV0 and the layer-0 input
+backward without d(x) on the warpgroup tensor cores (``dcc_dv0_wgmma``,
+``dcc_layer0_input_bwd_wgmma``).
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dcc_tpu_torch")
 SOURCES = ("gae", "fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide",
-           "fused_mlp_bwd_wide", "fused_ppo_wide")
+           "fused_mlp_bwd_wide", "fused_ppo_wide", "layer0_tail")
 # the tensor-core kernels' hidden widths: an even width up to MMA_HMAX
 # (csrc/trunk_mma.cuh) runs every layer in one pass in the base libraries;
 # any other width (wider layers in column passes, odd widths element by
@@ -120,13 +122,20 @@ _SIGNATURES = {
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
             _P, _L, _I, _P, _P, _P, _P, _P,
         ],
-        "dcc_dv0_mma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
+    },
+    # the layer-0 tail of the chunked kernels on warpgroup tensor cores: dV0
+    # (dW0 in its affine mode) and the layer-0 input backward without dx
+    "layer0_tail": {
+        "dcc_dv0_wgmma": [_P, _I, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "dcc_layer0_input_bwd_wgmma": [_P, _I, _L, _I, _P, _P, _I, _P, _I, _P, _P, _P],
+        "dcc_dv0_wgmma_smem_bytes": [_I, _I],
+        "dcc_layer0_input_bwd_wgmma_smem_bytes": [_I, _I],
     },
 }
 

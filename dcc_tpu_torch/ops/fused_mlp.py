@@ -40,11 +40,13 @@ kernel, which streams layer 0 over d_in in column chunks (counted under
 bf16 K2b at such rows (the 20-UAV preset's 4,840-wide critic rows) runs as
 three launches: the chunked kernel streams layer 0 the same way and stops
 at layer 0's cotangent g0 (plain version :func:`trunk_bwd_chunked_plain`),
-the layer-0 input backward gives the feature norm's gradients and dx
-(:func:`layer0_input_bwd_cuda`, only where a caller reads dx:
-``FusedTrunk`` asks for it only when its input needs a gradient), and the
-dV0 kernel gives W_0's (:func:`dv0_cuda`); the chunked K3, K4, K3u and K4u
-end in the same two kernels.
+then :func:`layer0_tail`: the layer-0 input backward gives the feature
+norm's gradients and dx (:func:`layer0_input_bwd_cuda`, dx only where a
+caller reads it: ``FusedTrunk`` asks for it only when its input needs a
+gradient), and the dV0 kernel gives W_0's (:func:`dv0_cuda`), both on the
+warpgroup tensor cores (``csrc/layer0_tail.cu``; dx and hidden widths past
+256 on the row-tiled kernel); the chunked K3, K4, K3u and K4u end in the
+same two kernels.
 
 The CUDA entries take at most ``MAX_LAYERS`` layers (ROADMAP B3b). The
 bf16 kernels take any hidden width whose smallest row tile fits one
@@ -277,22 +279,15 @@ def layer0_input_bwd_plain(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = 
     return (dx.to(x.dtype) if need_dx else None), dfs, dfb
 
 
-def dv0_splits(rows: int, d_in: int, sms: int) -> int:
-    """Row splits of the dV0 kernel: about two waves of its blocks
-    (``DV0_KB`` = 128 columns of x each), at least one step of rows
-    (``DV0_RS`` = 32) a split."""
-    kblocks = -(-pad16(d_in) // 128)
-    return max(1, min(-(-2 * sms // kblocks), -(-rows // 32)))
-
-
 def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
              kind: str = "critic"):
-    """Launch the dV0 kernel (``dcc_dv0_mma``: the product on row splits,
-    then the splits summed in order); same return as :func:`dv0_plain`.
-    Counts under ``critic_ppo_grads_dv0`` or ``actor_ppo_grads_dv0`` (the
-    folded K4's or K3's dV0, by ``kind``) or, with ``unfolded``,
-    ``dv0_unfolded`` (dW0 of the chunked K2b, K3u and K4u, with the feature
-    norm's ``affine`` where they have one)."""
+    """Launch the dV0 kernel (``dcc_dv0_wgmma``, ``csrc/layer0_tail.cu``:
+    the product on row splits on the warpgroup tensor cores, then the
+    splits summed in order); same return as :func:`dv0_plain`. Counts under
+    ``critic_ppo_grads_dv0`` or ``actor_ppo_grads_dv0`` (the folded K4's or
+    K3's dV0, by ``kind``) or, with ``unfolded``, ``dv0_unfolded`` (dW0 of
+    the chunked K2b, K3u and K4u, with the feature norm's ``affine`` where
+    they have one)."""
     rows, d_in = x.shape
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
@@ -302,25 +297,30 @@ def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
         fs, fb = affine
         cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
         cb.require(fb, "fb", (torch.float32,), (d_in,), x.device)
-    splits = dv0_splits(rows, d_in, cb.sm_count(x.device))
+    splits = tiles.tail_plan("dv0", rows, d_in, hidden, cb.sm_count(x.device))[0]
     part = torch.empty((splits, d_in, hidden), dtype=torch.float32, device=x.device)
     out = torch.empty((d_in, hidden), dtype=torch.float32, device=x.device)
     name = "dv0_unfolded" if unfolded else f"{kind}_ppo_grads_dv0"
-    code = cb.mma_library("fused_ppo", hidden).dcc_dv0_mma(
+    code = cb.library("layer0_tail").dcc_dv0_wgmma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
         g0.data_ptr(), hidden, splits, None if fs is None else fs.data_ptr(),
         None if fb is None else fb.data_ptr(), part.data_ptr(), out.data_ptr(),
         cb.stream_of(x))
-    cb.check("fused_ppo", code, name)
+    cb.check("layer0_tail", code, name)
     cb.LAUNCHES[name] += 1
-    cb.ENTRY[name] = "dcc_dv0_mma"
+    cb.ENTRY[name] = "dcc_dv0_wgmma"
     return out
 
 
 def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = True):
-    """Launch the layer-0 input backward (``dcc_layer0_input_bwd_mma``, and
-    with the feature norm its slot reduction); same returns as
-    :func:`layer0_input_bwd_plain`."""
+    """Launch the layer-0 input backward; same returns as
+    :func:`layer0_input_bwd_plain`. With the feature norm, without dx and
+    at hidden widths to ``tiles.TAIL_HMAX`` (the update's calls) the
+    warpgroup kernel (``dcc_layer0_input_bwd_wgmma``, ``csrc/layer0_tail.cu``:
+    W_0's slice resident, g_prev and the column sums over row splits, the
+    splits summed in order); else the row-tiled one
+    (``dcc_layer0_input_bwd_mma``, and with the feature norm its slot
+    reduction). Both count under ``layer0_input_bwd``."""
     rows, d_in = x.shape
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
@@ -330,15 +330,28 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
     if not (use_fn or need_dx):
         raise ValueError("layer0_input_bwd_cuda computes nothing without fs or dx")
     sms = cb.sm_count(x.device)
+    if use_fn:
+        cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
+    out = torch.empty((2 * d_in,), dtype=torch.float32, device=x.device) if use_fn else None
+    if use_fn and not need_dx and pad16(hidden) <= tiles.TAIL_HMAX:
+        splits = tiles.tail_plan("layer0_input_bwd", rows, d_in, hidden, sms)[0]
+        slots = torch.empty((splits, 2 * d_in), dtype=torch.float32, device=x.device)
+        code = cb.library("layer0_tail").dcc_layer0_input_bwd_wgmma(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
+            g0.data_ptr(), hidden, w0b.data_ptr(), splits, slots.data_ptr(), out.data_ptr(),
+            cb.stream_of(x))
+        cb.check("layer0_tail", code, "layer0_input_bwd")
+        cb.LAUNCHES["layer0_input_bwd"] += 1
+        cb.ENTRY["layer0_input_bwd"] = "dcc_layer0_input_bwd_wgmma"
+        cb.TILE["layer0_input_bwd"] = tiles.TAIL_STEP["layer0_input_bwd"]
+        return None, out[:d_in], out[d_in:]
     smem = lambda b: tiles.smem_bytes("layer0_input_bwd", True, b, d_in, hidden, 1) // 4
     br = mma_tile_rows(rows, d_in, smem, sms, tiles.SIZES[("layer0_input_bwd", True)])
     n_blocks = grads_blocks(-(-rows // br), sms, True)
     dx = torch.empty_like(x) if need_dx else None
-    slots = out = None
+    slots = None
     if use_fn:
-        cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
         slots = torch.empty((n_blocks, 2 * d_in), dtype=torch.float32, device=x.device)
-        out = torch.empty((2 * d_in,), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     code = cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
@@ -351,6 +364,29 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
     if not use_fn:
         return dx, None, None
     return dx, out[:d_in], out[d_in:]
+
+
+def layer0_tail(x, xstats, g0, w0b, fs, fb, hidden: int, need_dx: bool = False):
+    """The layer-0 tail of the unfolded chunked chain (the chunked K2b, K3u
+    and K4u): from layer 0's bf16 cotangent ``g0``, the rows' statistics
+    ``xstats``, the bf16 W_0 ``w0b`` (as :func:`pack_mma_weights` pads it)
+    and the feature norm's scale and bias ``fs``, ``fb`` (None without the
+    feature norm), returns (dx or None, [d fs, d fb (with the feature
+    norm), dW0]). On CUDA tensors the layer-0 input backward (with the
+    feature norm, or for dx) and the dV0 kernel in its affine mode, two
+    launches; on CPU tensors their plain versions."""
+    use_fn = fs is not None
+    affine = (fs, fb) if use_fn else None
+    dx, lead = None, []
+    if x.is_cuda:
+        if use_fn or need_dx:
+            dx, dfs, dfb = layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden, need_dx)
+            lead = [dfs, dfb] if use_fn else []
+        return dx, lead + [dv0_cuda(x, xstats, g0, hidden, affine, unfolded=True)]
+    if use_fn or need_dx:
+        dx, dfs, dfb = layer0_input_bwd_plain(x, xstats, g0, w0b, fs, hidden, need_dx)
+        lead = [dfs, dfb] if use_fn else []
+    return dx, lead + [dv0_plain(x, xstats, g0, hidden, affine)]
 
 
 def relu_kink_rows(x, params, n_layers: int, use_fn: bool = True,
@@ -762,22 +798,17 @@ def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, of
 
 def finish_layer0_cuda(x, xstats, g0, pb, offs, weights, woffs, hidden: int, use_fn: bool,
                        need_dx: bool):
-    """The launches after a chunked K2b or K4u: the layer-0 input backward
-    (with the feature norm, or for dx) and the dV0 kernel in its unfolded
-    mode, from the kernel's g0 and xstats and its packed parameters (``pb``
-    at the flat list's offsets ``offs``, the bf16 W_0 at ``weights`` +
+    """The launches after a chunked K2b or K4u (:func:`layer0_tail`), from
+    the kernel's g0 and xstats and its packed parameters (``pb`` at the
+    flat list's offsets ``offs``, the bf16 W_0 at ``weights`` +
     ``woffs[0]``). Returns (dx or None, [d fs, d fb (with the feature
     norm), dW0])."""
     d_in = x.shape[1]
     kp0, hp = pad16(d_in), pad16(hidden)
     w0b = weights[woffs[0]: woffs[0] + kp0 * hp].view(kp0, hp)
     fs = pb[offs[0]: offs[0] + d_in] if use_fn else None
-    affine = (fs, pb[offs[1]: offs[1] + d_in]) if use_fn else None
-    dx, lead = None, []
-    if use_fn or need_dx:
-        dx, dfs, dfb = layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden, need_dx)
-        lead = [dfs, dfb] if use_fn else []
-    return dx, lead + [dv0_cuda(x, xstats, g0, hidden, affine, unfolded=True)]
+    fb = pb[offs[1]: offs[1] + d_in] if use_fn else None
+    return layer0_tail(x, xstats, g0, w0b, fs, fb, hidden, need_dx)
 
 
 class FusedTrunk(torch.autograd.Function):

@@ -112,3 +112,89 @@ def no_tile(kernel: str, d_in: int, hidden: int, n_layers: int, n_head: int = 1)
     return (f"bf16 {kernel} at hidden width {hidden} ({d_in}-wide rows, {n_layers} layers): "
             f"its smallest row tile ({br} rows) needs {need} bytes of shared memory, more "
             f"than one block's {SMEM_MAX} (ROADMAP B3)")
+
+
+# The layer-0 tail on the warpgroup tensor cores (``csrc/layer0_tail.cu``):
+# dV0 (``dv0_wgmma_kernel``) and the layer-0 input backward without dx
+# (``layer0_input_bwd_wgmma_kernel``). A block owns ``TAIL_KB`` columns of x
+# (and for dV0 one pass of ``DV0_N`` of g0's columns) and one row split, a
+# whole number of steps of ``TAIL_STEP`` rows; its shared memory does not
+# grow with d_in. The layer-0 input backward keeps W_0's slice resident and
+# takes hidden widths to ``TAIL_HMAX`` (the dx mode and wider layers keep
+# the row-tiled kernel of ``csrc/fused_mlp_bwd.cu``). How x reaches shared
+# memory sets the stages (``TAIL_XMODES``): dV0 takes rows whose pointer
+# and stride are 16-byte aligned by TMA (bf16 straight into the swizzled
+# operand, f32 into a raw stage) and other rows as windows of aligned
+# 16-byte pieces (``TAIL_WIN`` bytes a row), also by TMA, through a view of
+# x whose rows hold a few of its rows; the layer-0 input backward copies
+# aligned bf16 rows into the swizzled layout and every other row (f32 ones
+# too) as windows, by cp.async.
+TAIL_KB = 128
+DV0_N = 128
+TAIL_HMAX = 256
+TAIL_STEP = {"dv0": 64, "layer0_input_bwd": 64}
+TAIL_XMODES = ("bf16", "bf16_window", "f32", "f32_window")
+TAIL_WIN = {"bf16": 0, "bf16_window": 272, "f32": 528, "f32_window": 528}
+TAIL_STAGES = {"dv0": {"bf16": 6, "bf16_window": 4, "f32": 3, "f32_window": 3},
+               "layer0_input_bwd": {"bf16": 3, "bf16_window": 3, "f32": 2, "f32_window": 2}}
+# the split count is the smallest that fills whole waves of the SMs to this share
+TAIL_WAVE_FILL = 0.95
+TAIL_MAX_SPLITS = 256
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tail_smem_bytes(kernel: str, xmode: str, hidden: int) -> int:
+    """Shared memory of one block of the layer-0 tail ``kernel`` ("dv0" or
+    "layer0_input_bwd") with x copied in ``xmode``, as ``dv0_layout`` /
+    ``l0w_layout`` of ``csrc/layer0_tail.cu`` lay it out (with the 1,024
+    bytes of alignment slack); the library's ``*_smem_bytes`` entries give
+    the same number."""
+    s, rs, win = TAIL_STAGES[kernel][xmode], TAIL_STEP[kernel], TAIL_WIN[xmode]
+    if kernel == "dv0":  # the f32 rows by TMA: 4 boxes of 32 columns (512 bytes a row)
+        raw = rs * (512 if xmode == "f32" else win)
+        return s * (2 * rs * 128 + 2 * rs * 128 + raw + rs * 8) + 2 * s * 8 + 1024
+    nb = -(-_pad16(hidden) // 64)
+    per = nb * rs * 128 + rs * (256 if xmode == "bf16" else win) + rs * 8
+    return nb * TAIL_KB * 128 + s * per + 8 * 2 * TAIL_KB * 4 + (2 * s + 1) * 8 + 1024
+
+
+def tail_plan(kernel: str, rows: int, d_in: int, hidden: int, sms: int) -> tuple:
+    """(splits, rows a split, blocks a split) of the layer-0 tail
+    ``kernel``: the blocks of one split are the column blocks of x (times
+    dV0's passes over g0's columns); the split count is the smallest that
+    fills whole waves of ``sms`` blocks (one an SM) to ``TAIL_WAVE_FILL``,
+    or else the fullest, each split a whole number of steps."""
+    step = TAIL_STEP[kernel]
+    units = -(-d_in // TAIL_KB)
+    if kernel == "dv0":
+        units *= -(-_pad16(hidden) // DV0_N)
+    most = max(1, min(TAIL_MAX_SPLITS, -(-rows // step)))
+    best, fill = 1, 0.0
+    for s in range(1, most + 1):
+        blocks = units * s
+        f = blocks / (-(-blocks // sms) * sms)
+        if f > fill + 1e-12:
+            best, fill = s, f
+        if f >= TAIL_WAVE_FILL:
+            break
+    split_rows = -(-(-(-rows // best)) // step) * step
+    return best, split_rows, units
+
+
+def tail_blocks(kernel: str, rows: int, d_in: int, hidden: int, sms: int) -> list:
+    """Every block of the layer-0 tail ``kernel`` as the kernel walks it:
+    (split, first and last row + 1, first and last column of x + 1, first
+    and last column of g0 + 1), empty ranges clipped to length 0."""
+    splits, split_rows, _ = tail_plan(kernel, rows, d_in, hidden, sms)
+    n_step = DV0_N if kernel == "dv0" else _pad16(hidden)
+    out = []
+    for sp in range(splits):
+        r0 = min(rows, sp * split_rows)
+        r1 = min(rows, r0 + split_rows)
+        for k0 in range(0, d_in, TAIL_KB):
+            for n0 in range(0, _pad16(hidden), n_step):
+                out.append((sp, r0, r1, k0, min(d_in, k0 + TAIL_KB), n0, min(hidden, n0 + n_step)))
+    return out

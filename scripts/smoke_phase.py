@@ -45,8 +45,11 @@ the main path's shapes at 512 and 1,024 (``chip_smoke.check_wide_hidden``).
 / K4u at the default widths, hidden 256, on the model's trunk with tanh (no
 relu masks asked for), against their plain versions, at 16 envs and at
 16,384 (a quarter of that for the gradient kernels), as ``chip_smoke.py``
-times them: the same code on any checkout since the unfolded kernels, so
-that two builds are compared in one call (parent, change, change, parent).
+times them, then the layer-0 tail (dV0 folded and affine, cuBLAS's product
+beside it, the layer-0 input backward without dx) at the wide runs' shapes
+(``chip_smoke.check_tail_timing``): the same code on any checkout since
+the chunked K4u, so that two builds are compared in one call (parent,
+change, change, parent).
 ``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example

@@ -978,7 +978,7 @@ def test_bf16_chunked_critic_on_tensor_cores(cuda, rows, trunk, x_bf16):
     got = FP.critic_grads_cuda(x, aux, norm, kp, hw, hb, **kw)
     assert dict(cb.LAUNCHES) == {"critic_ppo_grads": 1, "critic_ppo_grads_dv0": 1}
     assert cb.ENTRY == {"critic_ppo_grads": "dcc_critic_grads_chunked_mma",
-                        "critic_ppo_grads_dv0": "dcc_dv0_mma"}
+                        "critic_ppo_grads_dv0": "dcc_dv0_wgmma"}
     want = FP.critic_grads_plain(x, aux, norm, kp, hw, hb, **kw)
     for g, w in zip(_flat(got), _flat(want)):
         assert _rel(g, w) < 4e-3
@@ -994,17 +994,29 @@ def _g0(gen, rows, hidden, dev):
     return g0
 
 
+# the layer-0 tail's shapes: rows at the dV0 kernel's flush (512) and the
+# steps' edges (1, 37, 511, 513, 20,000), d_in 17 (odd: bf16 x by plain
+# loads), 1,000, 1,510 (rows not 16-byte aligned: 4-byte copies), 4,840,
+# 6,040, hidden 8 to 1,024 (past 256 the dV0 kernel's column passes and the
+# row-tiled layer-0 input backward)
+TAIL_CASES = [(1, 4840, 256), (37, 4840, 256), (511, 1510, 256), (512, 1510, 100),
+              (513, 4840, 264), (2400, 4840, 256), (20000, 4840, 256), (20000, 1510, 512),
+              (513, 6040, 1024), (333, 1000, 64), (100, 17, 8), (20000, 6040, 100),
+              (37, 1000, 512), (512, 17, 256)]
+
+
+@pytest.mark.parametrize("x_bf16", [True, False])
 @pytest.mark.parametrize("affine", [False, True])
-@pytest.mark.parametrize("rows,d_in,hidden", [(1, 4840, 256), (37, 4840, 256),
-                                              (2400, 4840, 256), (20000, 4840, 256),
-                                              (333, 1000, 64), (100, 17, 8)])
-def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden, affine):
-    """The dV0 kernel, bf16((x - mu) * inv)^T g0 (affine: bf16((x - mu) *
-    inv * fs + fb)^T g0, the unfolded chain's dW0) over row splits summed in
-    order, against its plain version: the same bf16 operands, so only the
-    f32 summation order differs (bound 1e-4, as chip_smoke's DV0_REL)."""
+@pytest.mark.parametrize("rows,d_in,hidden", TAIL_CASES)
+def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden, affine, x_bf16):
+    """The dV0 kernel (``dcc_dv0_wgmma``), bf16((x - mu) * inv)^T g0
+    (affine: bf16((x - mu) * inv * fs + fb)^T g0, the unfolded chain's dW0)
+    over row splits summed in order, against its plain version: the same
+    bf16 operands, so only the f32 summation order differs (bound 1e-4, as
+    chip_smoke's DV0_REL), x in bf16 and f32; one launch."""
     gen = torch.Generator().manual_seed(rows + d_in + hidden)
-    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    x = torch.randn(rows, d_in, generator=gen).to(cuda)
+    x = x.bfloat16() if x_bf16 else x
     xstats = FM.input_stats(x, True)
     g0 = _g0(gen, rows, hidden, cuda)
     aff = None
@@ -1014,21 +1026,22 @@ def test_dv0_kernel_matches_plain(cuda, rows, d_in, hidden, affine):
     cb.reset_launches()
     got = FM.dv0_cuda(x, xstats, g0, hidden, aff, unfolded=affine)
     assert dict(cb.LAUNCHES) == {"dv0_unfolded" if affine else "critic_ppo_grads_dv0": 1}
+    assert cb.ENTRY == {"dv0_unfolded" if affine else "critic_ppo_grads_dv0": "dcc_dv0_wgmma"}
     assert _rel(got, FM.dv0_plain(x, xstats, g0, hidden, aff)) < 1e-4
 
 
 @pytest.mark.parametrize("use_fn,need_dx", [(True, True), (True, False), (False, True)])
-@pytest.mark.parametrize("rows,d_in,hidden", [(1, 4840, 256), (37, 4840, 256),
-                                              (2400, 4840, 256), (20000, 4840, 256),
-                                              (333, 1000, 64), (100, 17, 8)])
+@pytest.mark.parametrize("rows,d_in,hidden", TAIL_CASES)
 @pytest.mark.parametrize("x_bf16", [True, False])
 def test_layer0_input_bwd_kernel_matches_plain(cuda, rows, d_in, hidden, use_fn, need_dx,
                                                x_bf16):
     """The layer-0 input backward of the chunked K2b / K4u (g_prev = g0 W_0^T
-    on the tensor cores in 256-column chunks, the feature norm's scale and
-    bias gradients and dx in f32) against its plain version on the same
-    bf16 operands: f32 summation order only, within 1e-4 (dx off: its pass
-    is skipped and it is None; without the feature norm dx = g_prev)."""
+    on the tensor cores, the feature norm's scale and bias gradients and dx
+    in f32) against its plain version on the same bf16 operands: f32
+    summation order only, within 1e-4 (dx off: it is None; without the
+    feature norm dx = g_prev). With the feature norm and without dx at
+    hidden widths to 256 the warpgroup kernel (``dcc_layer0_input_bwd_wgmma``)
+    runs, else the row-tiled one."""
     gen = torch.Generator().manual_seed(rows + d_in + 3 * use_fn + need_dx)
     x = torch.randn(rows, d_in, generator=gen).to(cuda)
     x = x.bfloat16() if x_bf16 else x
@@ -1040,11 +1053,72 @@ def test_layer0_input_bwd_kernel_matches_plain(cuda, rows, d_in, hidden, use_fn,
     cb.reset_launches()
     got = FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden, need_dx)
     assert dict(cb.LAUNCHES) == {"layer0_input_bwd": 1}
+    tail = use_fn and not need_dx and FM.pad16(hidden) <= 256
+    assert cb.ENTRY["layer0_input_bwd"] == ("dcc_layer0_input_bwd_wgmma" if tail
+                                            else "dcc_layer0_input_bwd_mma")
     want = FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, hidden, need_dx)
     for g, w in zip(got, want):
         assert (g is None) == (w is None)
         if w is not None:
             assert g.dtype == w.dtype and _rel(g, w) < 1e-4
+
+
+@pytest.mark.parametrize("need_dx", [False, True])
+@pytest.mark.parametrize("rows,d_in,hidden", [(513, 4840, 256), (20000, 1510, 256),
+                                              (37, 6040, 100), (512, 1000, 512)])
+def test_layer0_tail_matches_plain(cuda, rows, d_in, hidden, need_dx):
+    """``layer0_tail`` on CUDA tensors (the layer-0 input backward and dV0
+    in its affine mode, two launches) against its plain path on the same
+    operands: dfs, dfb, dW0 (and dx) within 1e-4."""
+    gen = torch.Generator().manual_seed(rows + d_in + hidden + need_dx)
+    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    xstats = FM.input_stats(x, True)
+    g0 = _g0(gen, rows, hidden, cuda)
+    w0 = torch.randn(d_in, hidden, generator=gen).to(cuda) * d_in ** -0.5
+    w0b = FM.pack_mma_weights([w0], cuda)[0].view(FM.pad16(d_in), FM.pad16(hidden))
+    fs = (1.0 + 0.1 * torch.randn(d_in, generator=gen)).to(cuda)
+    fb = (0.1 * torch.randn(d_in, generator=gen)).to(cuda)
+    cb.reset_launches()
+    dx, got = FM.layer0_tail(x, xstats, g0, w0b, fs, fb, hidden, need_dx)
+    assert dict(cb.LAUNCHES) == {"layer0_input_bwd": 1, "dv0_unfolded": 1}
+    cpu = lambda t: t.cpu()
+    dx2, want = FM.layer0_tail(*map(cpu, (x, xstats, g0, w0b, fs, fb)), hidden, need_dx)
+    assert (dx is None) == (dx2 is None) == (not need_dx)
+    for g, w in zip(got + ([dx] if need_dx else []), want + ([dx2] if need_dx else [])):
+        assert _rel(g.cpu(), w) < 1e-4
+
+
+def test_tail_smem_mirror(cuda):
+    """``ops.tiles.tail_smem_bytes`` is the library's layout of the layer-0
+    tail's blocks, in each way x is copied."""
+    lib = cb.library("layer0_tail")
+    l0_code = {"bf16": 0, "bf16_window": 1, "f32": 2, "f32_window": 2}
+    for xmode in FM.tiles.TAIL_XMODES:
+        assert FM.tiles.tail_smem_bytes("dv0", xmode, 256) == lib.dcc_dv0_wgmma_smem_bytes(
+            int(xmode.startswith("bf16")), int(xmode.endswith("window")))
+        for hidden in (8, 100, 256):
+            assert FM.tiles.tail_smem_bytes("layer0_input_bwd", xmode, hidden) == \
+                lib.dcc_layer0_input_bwd_wgmma_smem_bytes(l0_code[xmode], hidden)
+
+
+@pytest.mark.parametrize("kernel", ["dv0", "layer0"])
+def test_tail_takes_unaligned_rows(cuda, kernel):
+    """Rows of a view that starts off a 16-byte boundary (the window copy)
+    give the same dV0 and layer-0 input backward as the same rows copied to
+    a fresh tensor."""
+    gen = torch.Generator().manual_seed(5)
+    big = torch.randn(1001, 4840, generator=gen).to(cuda).bfloat16()
+    x = big.view(-1)[3: 3 + 1000 * 4840].view(1000, 4840)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    xstats = FM.input_stats(x, True)
+    g0 = _g0(gen, 1000, 256, cuda)
+    w0 = torch.randn(4840, 256, generator=gen).to(cuda) * 4840 ** -0.5
+    w0b = FM.pack_mma_weights([w0], cuda)[0].view(4848, 256)
+    fs = (1.0 + 0.1 * torch.randn(4840, generator=gen)).to(cuda)
+    run = ((lambda xx: [FM.dv0_cuda(xx, xstats, g0, 256)]) if kernel == "dv0" else
+           (lambda xx: FM.layer0_input_bwd_cuda(xx, xstats, g0, w0b, fs, 256, False)[1:]))
+    for g, w in zip(run(x), run(x.clone())):
+        assert _rel(g, w) < 1e-6
 
 
 # the 20-UAV preset's gated bf16 trunks at its critic width (chip_smoke's
@@ -1252,7 +1326,7 @@ def test_bf16_chunked_actor_on_tensor_cores(cuda, rows, trunk):
     got = FP.actor_grads_cuda(x, aux, kp, hw, hb, log_std, **kw)
     assert dict(cb.LAUNCHES) == {"actor_ppo_grads": 1, "actor_ppo_grads_dv0": 1}
     assert cb.ENTRY == {"actor_ppo_grads": "dcc_actor_grads_chunked_mma",
-                        "actor_ppo_grads_dv0": "dcc_dv0_mma"}
+                        "actor_ppo_grads_dv0": "dcc_dv0_wgmma"}
     want = FP.actor_grads_plain(x, aux, kp, hw, hb, log_std, **kw)
     for g, w in zip(_flat(got), _flat(want)):
         assert _rel(g, w) < 4e-3
