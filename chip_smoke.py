@@ -97,6 +97,13 @@ Phases (any failure exits non-zero):
    f32 updates of separated per-agent policies (2 minibatches with
    PopArt, and recurrent), with per-agent permutations; each update must
    launch exactly its kernels on the card (the separated ones K1 only);
+   then one MADDPG update (``check_maddpg_update``: the tuned YAML's 2 x
+   128 networks and 1,024-row batch on the default env, f32, batched
+   ``torch`` products, no kernel of the port) from the buffer one
+   iteration collected on the card, against the same update on the CPU
+   from the same parameters and rows: every parameter tensor of the four
+   networks and both losses within ``MADDPG_PARAM_RTOL`` /
+   ``MADDPG_LOSS_RTOL`` relative;
 5. train through ``dcc_tpu_torch.train.main`` the ``TRAIN_RUNS``: 2
    iterations each of the default f32 config, the bf16 config, the
    recurrent bf16 config, bf16 with 4 minibatches, bf16 unfolded with
@@ -127,6 +134,11 @@ Phases (any failure exits non-zero):
    each, their dV0 15 each), unfolded (K3u and K4u chunked 15 each, the
    layer-0 input backward and dV0 30 each) and with the fused loss off
    (K2 165 + 166, K2b 15 staged and 15 chunked, the other two 15 each);
+   2 iterations each of MADDPG with ``maddpg.yaml`` and
+   ``maddpg_tuned.yaml`` on coverage and with ``maddpg.yaml`` on ``spread``
+   (``--scenario-name spread --num-landmarks 4``), each evaluated at its
+   second iteration, which launch no kernel of the port, and of bf16 MAPPO
+   on ``spread`` (K1, K2 301, K3 and K4 15 each on 18- and 72-wide rows);
    then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
    gate's runner; its file's schema, and K1-K4 as the bf16 path launches
    them); then the default command with render (the default YAMLs, 2
@@ -134,13 +146,14 @@ Phases (any failure exits non-zero):
    decode to 151 frames of 700 x 700). Print the metrics and phase times,
    and require each run's kernels to
    have launched exactly as often as its path runs them and the others not
-   at all, every run's K1 to have gone through ``GAE_ENTRY`` and every bf16
+   at all, every MAPPO run's K1 to have gone through ``GAE_ENTRY`` and every bf16
    run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
    tensor-core entry points (the 20-UAV run's K4 through
    ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_wgmma``). After the runs
-   of ``PROFILED``, one more
-   iteration under ``torch.profiler``: device time by kernel name and the
-   device's idle share over the iteration;
+   of ``PROFILED`` (among them the two MADDPG runs on coverage), one more
+   iteration under ``torch.profiler``: device time by kernel name, the
+   number of device kernels and the device's idle share over the
+   iteration;
 6. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
@@ -360,6 +373,16 @@ def hidden_args(hidden: int) -> list:
     return ["--algo-hidden-size", str(hidden), "--n-iters", "1"]
 
 
+def algo_yaml(name: str) -> list:
+    """The CLI arguments that select an algo YAML of the port."""
+    return ["--algo-yaml", os.path.join("dcc_tpu_torch", "configs", "algo_config",
+                                        f"{name}.yaml")]
+
+
+# MADDPG's runs evaluate once, at their last iteration
+MADDPG_ARGS = ["--n-eval-rollout-threads", "16", "--eval-interval", "2"]
+SPREAD = ["--scenario-name", "spread", "--num-landmarks", "4"]
+
 TRAIN_RUNS = (
     ("f32", [], {"gae": 1}),
     ("bf16", BF16, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
@@ -472,7 +495,17 @@ TRAIN_RUNS = (
      + ["--n-rollout-threads", str(WIDE_ENVS)],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
       "critic_ppo_grads_dv0": 15}),
+    # MADDPG (batched torch products over agent-stacked parameters, no
+    # kernel of the port) with both YAMLs on coverage and on spread; MAPPO in
+    # bf16 on spread (18 / 72-wide rows through K2, K3 and K4)
+    ("maddpg", algo_yaml("maddpg") + MADDPG_ARGS, {}),
+    ("maddpg-tuned", algo_yaml("maddpg_tuned") + MADDPG_ARGS, {}),
+    ("maddpg-spread", algo_yaml("maddpg") + SPREAD + MADDPG_ARGS, {}),
+    ("spread-bf16", BF16 + SPREAD, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
+                                    "critic_ppo_grads": 15}),
 )
+# the runs of MADDPG and of the spread scenario (scripts/smoke_phase.py maddpg)
+SCENARIO_RUNS = ("maddpg", "maddpg-tuned", "maddpg-spread", "spread-bf16")
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16",
@@ -508,6 +541,7 @@ _UNFOLDED_MMA = {"fused_mlp": "dcc_trunk_fwd_mma",
                  "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded_mma"}
 MMA_ENTRY = {
     "bf16": _FOLDED_MMA,
+    "spread-bf16": _FOLDED_MMA,
     "recurrent-bf16": _TRUNK_MMA,
     "bf16-fused-loss-off": _TRUNK_MMA,
     "bf16-nmb4": _FOLDED_MMA,
@@ -562,7 +596,7 @@ WIDE_TAG = " [wide]"  # a kernel of a ``*_wide`` library (its layers in column p
 # the runs followed by one profiled iteration
 PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
             f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded", f"{POIS}-bf16",
-            f"{POIS}-bf16-unfolded", f"{POIS}-bf16-fused-loss-off")
+            f"{POIS}-bf16-unfolded", f"{POIS}-bf16-fused-loss-off", "maddpg", "maddpg-tuned")
 N_TIMED = 30  # launches between the two CUDA events of a timing
 
 
@@ -2205,6 +2239,70 @@ def check_updates_against_cpu(results: dict, tags=None, drop_kernels=()):
                 tuple(k for k in kernels if k not in drop_kernels), *env_kw)
 
 
+# phase 4's MADDPG update: the tuned YAML's networks (2 x 128) and batch
+# (1,024 rows) at the default env's 16 envs, f32. Bound on every parameter
+# tensor of the four networks, ||card - CPU|| / ||CPU||: f32 summation order
+# through one Adam step (an update itself moves them by about 1e-3 to 1e-2)
+MADDPG_PARAM_RTOL = 1e-5
+MADDPG_LOSS_RTOL = 1e-5
+
+
+def check_maddpg_update(results: dict):
+    """One ``MADDPG.update_once`` on the card against the same update on
+    the CPU: both states from seed 0 (the same networks), the card's buffer
+    after one iteration's collection (150 steps, OU noise and warm-up
+    actions drawn on the CPU) copied to the CPU, the same rows. Every
+    parameter tensor and both losses within their relative bounds."""
+    import torch
+
+    from dcc_tpu_torch.algos import MADDPG
+    from dcc_tpu_torch.algos.maddpg import MADDPGState, ReplayBuffer
+    from dcc_tpu_torch.configs.loader import load, to_maddpg_config
+
+    cfg, env_cfg, _ = load({"seed": 0}, algo_yaml=algo_yaml("maddpg_tuned")[1])
+    mcfg = to_maddpg_config(cfg)
+    algos = {d: MADDPG(mcfg, env_cfg, device=d) for d in ("cpu", "cuda")}
+    states = {d: a.init_state(seed=0) for d, a in algos.items()}
+    g = torch.Generator().manual_seed(1)
+    T, shape = mcfg.steps_per_iter, states["cuda"].ou_state.shape
+    noise = torch.randn((T, *shape), generator=g)
+    uniform = torch.rand((T, *shape), generator=g) * 2.0 - 1.0
+    t0 = time.perf_counter()
+    algos["cuda"].collect(states["cuda"], T, noise.cuda(), uniform.cuda())
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    src, dst = states["cuda"].buffer, states["cpu"].buffer
+    for k in ReplayBuffer.TENSORS:
+        getattr(dst, k).copy_(getattr(src, k).cpu())
+    dst.ptr, dst.size = src.ptr, src.size
+    idx = torch.randint(0, src.size, (mcfg.batch_size,), generator=g)
+    before = {n: [p.detach().clone() for p in getattr(states["cpu"], n).parameters()]
+              for n in MADDPGState.NETS}
+    losses = {d: torch.stack(algos[d].update_once(states[d], idx.to(d))).cpu()
+              for d in algos}
+    gaps, moves = {}, {}
+    for n in MADDPGState.NETS:
+        named = zip(getattr(states["cpu"], n).named_parameters(),
+                    getattr(states["cuda"], n).parameters(), before[n])
+        for (name, pc), pg, p0 in named:
+            norm = float(pc.detach().norm())
+            gaps[f"{n}.{name}"] = float((pg.detach().cpu() - pc.detach()).norm()) / norm
+            moves[f"{n}.{name}"] = float((pc.detach() - p0).norm()) / norm
+    worst = max(gaps, key=gaps.get)
+    loss_gap = float(((losses["cuda"] - losses["cpu"]).abs() / losses["cpu"].abs()).max())
+    print(f"  MADDPG update (tuned: 2 x 128, {mcfg.batch_size} rows), card vs CPU: largest "
+          f"parameter gap {gaps[worst]:.3e} ({worst}; bound {MADDPG_PARAM_RTOL}), the update "
+          f"moved that tensor {moves[worst]:.3e}; losses {losses['cuda'].tolist()} vs "
+          f"{losses['cpu'].tolist()} (gap {loss_gap:.3e}); collect of {T} steps on the card "
+          f"{collect_s:.3f} s", flush=True)
+    if gaps[worst] > MADDPG_PARAM_RTOL or loss_gap > MADDPG_LOSS_RTOL:
+        raise SmokeFailure(f"MADDPG update on the card differs from the CPU: {worst} "
+                           f"{gaps[worst]:.3e}, losses {loss_gap:.3e}")
+    results["maddpg update"] = dict(param_gaps=gaps, param_moves=moves, loss_gap=loss_gap,
+                                    losses_cpu=losses["cpu"].tolist(),
+                                    losses_cuda=losses["cuda"].tolist(), collect_s=collect_s)
+
+
 def check_k2_plain_update(results: dict):
     """The recurrent bf16 update again with K2's forward through its bf16
     plain version on the card (``ops.fused_mlp.trunk_forward_plain``) and K2b
@@ -2274,7 +2372,8 @@ def profile_iteration(learner, tag: str) -> dict:
           flush=True)
     for name, (us, n) in rows[:16]:
         print(f"    {us / 1e3:10.3f} ms {n:6d} calls {us / n:10.2f} us/call  {name}", flush=True)
-    return dict(wall_us=wall_us, busy_us=busy, idle_share=idle,
+    print(f"    {len(dev)} device kernels in the iteration", flush=True)
+    return dict(wall_us=wall_us, busy_us=busy, idle_share=idle, device_events=len(dev),
                 kernels={k: dict(total_us=v[0], calls=v[1]) for k, v in rows})
 
 
@@ -2296,7 +2395,8 @@ def train_run(results: dict, tag: str, args: list, per_iter: dict):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(LAUNCHES)
-    m = learner.last_metrics._asdict()
+    m = learner.last_metrics
+    m = m._asdict() if hasattr(m, "_asdict") else dict(m)  # MAPPO's Metrics, MADDPG's dict
     if not all(math.isfinite(v) for v in m.values()):
         raise SmokeFailure(f"non-finite training metrics ({tag}): {m}")
     results[tag] = dict(metrics=m, launches=counts, wall_s=wall,
@@ -2309,7 +2409,7 @@ def train_run(results: dict, tag: str, args: list, per_iter: dict):
     want = {k: n * learner.n_iters for k, n in per_iter.items()}
     if counts != want:
         raise SmokeFailure(f"{tag}: launches {counts}, expected {want}")
-    want_entry = {"gae": GAE_ENTRY, **MMA_ENTRY.get(tag, {})}
+    want_entry = {"gae": GAE_ENTRY, **MMA_ENTRY.get(tag, {})} if per_iter else {}
     entries = {k: ENTRY.get(k) for k in want_entry}
     if entries != want_entry:
         raise SmokeFailure(f"{tag}: the kernels went through {entries}, not {want_entry}")
@@ -2454,6 +2554,7 @@ def main(argv=None) -> int:
     updates: dict = {}
     check_updates_against_cpu(updates)
     check_k2_plain_update(updates)
+    check_maddpg_update(updates)
     print(f"[5] training through dcc_tpu_torch.train (at {time.perf_counter() - t0:.0f} s)",
           flush=True)
     runs: dict = {}

@@ -49,7 +49,6 @@ tile of a kernel it launches (ROADMAP B2).
 
 from __future__ import annotations
 
-import contextlib
 import math
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -58,7 +57,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..envs import EnvConfig, check_supported, observation, reset_batch, step_batch
+from ..envs import EnvConfig, check_supported, get_scenario, make_vec_fns
 from ..models import Actor, Critic
 from ..models import distributions as D
 from ..models import popart as PA
@@ -69,6 +68,7 @@ from ..ops import tiles
 from ..ops.cuda_gae import compute_gae_cuda
 from ..ops.gae import compute_gae, discounted_returns
 from ..utils import clip_by_global_norm_, global_norm, resolve_device
+from ..utils.profiling import timed_phase
 
 
 class MAPPOConfig(NamedTuple):
@@ -217,11 +217,17 @@ def _resolve_switch(value: str, name: str, auto: bool) -> bool:
 
 
 class MAPPO:
-    def __init__(self, cfg: MAPPOConfig, env_cfg: EnvConfig, device=None):
+    def __init__(self, cfg: MAPPOConfig, env_cfg: EnvConfig, device=None,
+                 scenario: str = "coverage"):
         self.cfg = cfg
         self.env_cfg = env_cfg
         self.device = resolve_device(device)
-        check_supported(env_cfg)
+        # scenario dispatch: the registry's batched env functions
+        self.scenario = scenario
+        if scenario == "coverage":
+            check_supported(env_cfg)
+        self._reset_batch, self._step_batch = make_vec_fns(scenario)
+        self._obs_fn = get_scenario(scenario)["observation"]
         if cfg.compute_dtype in ("bfloat16", "bf16"):
             self.bf16 = True
         elif cfg.compute_dtype in ("float32", "fp32", "f32"):
@@ -231,6 +237,11 @@ class MAPPO:
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent
         if cfg.use_popart and cfg.use_valuenorm:
             raise ValueError("use_popart and use_valuenorm are mutually exclusive")
+        if cfg.env_dtype in ("float64", "f64", "fp64") and scenario != "coverage":
+            raise NotImplementedError(
+                "env_dtype='float64' is plumbed for the coverage "
+                "scenario's reset_batch only"
+            )
         if cfg.env_dtype not in ("float32", "fp32", "f32"):
             raise NotImplementedError(
                 "env_dtype other than float32 (ROADMAP A12) is not ported yet")
@@ -481,8 +492,8 @@ class MAPPO:
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
         env_gen = gen if env_cfg.random_reset else None
-        states = reset_batch(env_cfg, E, device=dev, generator=env_gen)
-        obs = observation(env_cfg, states)
+        states = self._reset_batch(env_cfg, E, device=dev, generator=env_gen)
+        obs = self._obs_fn(env_cfg, states)
         obs_buf = torch.empty((T + 1, E, A, self.obs_dim), dtype=self.store_dtype, device=dev)
         actions = torch.empty((T, E, A, env_cfg.action_width), **f32)
         logps = torch.empty((T, E, A, self.logp_cols), **f32)
@@ -525,7 +536,7 @@ class MAPPO:
             obs_buf[t] = obs
             actions[t] = action.reshape(E, A, -1)
             logps[t] = logp.reshape(E, A, -1)
-            states, out = step_batch(env_cfg, states, actions[t], env_gen)
+            states, out = self._step_batch(env_cfg, states, actions[t], env_gen)
             masks[t + 1] = 1.0 - (out.done | out.truncated).float()[:, None]
             bad_masks[t + 1] = 1.0 - out.truncated.float()[:, None]
             rewards[t] = out.reward[:, None]
@@ -1051,17 +1062,12 @@ class MAPPO:
         :class:`~dcc_tpu_torch.utils.profiling.PhaseTimer`, each phase is
         timed to its end on the device."""
 
-        def phase(name):
-            if timer is None:
-                return contextlib.nullcontext()
-            return _synced(timer, name, self.device)
-
         gen = ts.generator if generator is None else generator
-        with phase("rollout"):
+        with timed_phase(timer, "rollout", self.device):
             traj = self.rollout(ts, self.cfg.n_rollout_threads, generator=gen)
-        with phase("returns"):
+        with timed_phase(timer, "returns", self.device):
             adv, returns = self.compute_returns(ts, traj)
-        with phase("update"):
+        with timed_phase(timer, "update", self.device):
             m = self.update(ts, traj, adv, returns, generator=gen)
         return torch.cat([
             traj.rewards.mean(dim=(1, 2)).sum().reshape(1),
@@ -1116,10 +1122,3 @@ def _set_grads(base, tg, scale: float) -> None:
         ln.bias.grad = tg[i + 3] * scale
         i += 4
 
-
-@contextlib.contextmanager
-def _synced(timer, name: str, device: torch.device):
-    with timer.phase(name):
-        yield
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)

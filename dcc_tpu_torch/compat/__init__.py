@@ -1,11 +1,14 @@
 from .flax_params import (
     flax_to_state_dict,
+    rlkit_flax_to_state_dict,
     stack_states,
     stacked_flax_to_state_dicts,
     state_dict_to_flax,
+    state_dict_to_rlkit_flax,
     state_dicts_to_stacked_flax,
     unstack_states,
 )
 
-__all__ = ["flax_to_state_dict", "stack_states", "stacked_flax_to_state_dicts",
-           "state_dict_to_flax", "state_dicts_to_stacked_flax", "unstack_states"]
+__all__ = ["flax_to_state_dict", "rlkit_flax_to_state_dict", "stack_states",
+           "stacked_flax_to_state_dicts", "state_dict_to_flax", "state_dict_to_rlkit_flax",
+           "state_dicts_to_stacked_flax", "unstack_states"]

@@ -17,6 +17,15 @@ and :func:`state_dicts_to_stacked_flax` convert between such a tree and A
 state dicts, and :func:`unstack_states` / :func:`stack_states` between a
 stacked ValueNorm or PopArt state (a NamedTuple of arrays with the leading
 axis A) and A of the port's states.
+
+MADDPG's stacked rlkit networks (``MADDPGState.actor_params`` and its
+critic and target trees) stay stacked in the port:
+:func:`rlkit_flax_to_state_dict` and :func:`state_dict_to_rlkit_flax` convert
+between such a tree and the state dict of
+:class:`~dcc_tpu_torch.models.rlkit_mlp.RlkitMlp`, whose kernels (A, in,
+out) keep flax's orientation, so names map one to one
+(``fc0.kernel``, ``fc0.bias``, ..., ``last_fc.kernel``) and nothing is
+transposed.
 """
 
 from __future__ import annotations
@@ -93,6 +102,23 @@ def stack_states(states: list) -> Dict[str, np.ndarray]:
     axis}, the fields of the JAX package's stacked state."""
     return {k: np.stack([getattr(st, k).detach().cpu().numpy() for st in states])
             for k in states[0]._fields}
+
+
+def rlkit_flax_to_state_dict(tree: Dict[str, Any], device="cpu") -> Dict[str, torch.Tensor]:
+    """A stacked flax ``RlkitMlp`` tree -> the port's ``RlkitMlp`` state
+    dict."""
+    tree = tree.get("params", tree)
+    return {f"{layer}.{name}": torch.tensor(np.asarray(val, dtype=np.float32), device=device)
+            for layer, leaves in tree.items() for name, val in leaves.items()}
+
+
+def state_dict_to_rlkit_flax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``RlkitMlp`` state dict -> a stacked flax tree."""
+    params: Dict[str, Any] = {}
+    for key, val in sd.items():
+        layer, name = key.split(".")
+        params.setdefault(layer, {})[name] = val.detach().cpu().numpy()
+    return {"params": params}
 
 
 def _first_leaf(tree):

@@ -1,6 +1,8 @@
 """Config loading: YAML merge env -> algo -> expt (later wins), overrides
 last, then the typed configs. Counterpart of :mod:`dcc_tpu.configs.loader`
-over this package's own copies of the YAML files."""
+over this package's own copies of the YAML files. ``scenario_name`` routes
+through the scenario registry: a scenario other than coverage builds its
+env config with its own ``config_from_yaml``."""
 
 from __future__ import annotations
 
@@ -121,6 +123,31 @@ def to_algo_config(cfg: Dict[str, Any]) -> MAPPOConfig:
     )
 
 
+def to_maddpg_config(cfg: Dict[str, Any]):
+    """Merged YAML keys -> MADDPGConfig (``algo_config/maddpg.yaml``)."""
+    from ..algos.maddpg import MADDPGConfig
+
+    return MADDPGConfig(
+        actor_lr=float(cfg.get("actor_lr", 5e-4)),
+        critic_lr=float(cfg.get("critic_lr", 1e-3)),
+        gamma=float(cfg.get("gamma", 0.99)),
+        tau=float(cfg.get("tau", 0.01)),
+        hidden_sizes=tuple(cfg.get("hidden_sizes_mlp", [64])),
+        buffer_capacity=int(cfg.get("buffer_capacity", 100_000)),
+        batch_size=int(cfg.get("batch_size", 256)),
+        ou_mu=float(cfg.get("ou_mu", 0.0)),
+        ou_theta=float(cfg.get("ou_theta", 0.15)),
+        ou_sigma=float(cfg.get("ou_sigma", 0.2)),
+        n_envs=int(cfg.get("n_rollout_threads", 16)),
+        steps_per_iter=int(cfg.get("max_ep_len", 150)),
+        updates_per_iter=int(cfg.get("updates_per_iter", 50)),
+        warmup_steps=int(cfg.get("warmup_steps", 1000)),
+        reward_scale=float(cfg.get("reward_scale", 0.01)),
+        action_reg=float(cfg.get("action_reg", 1e-3)),
+        clip_grad=float(cfg.get("clip_grad_value") or 0.0),
+    )
+
+
 #: Named env-config presets (the JAX package's, its BASELINE.json configs).
 PRESETS = {
     "default": "dcc.yaml",
@@ -146,11 +173,20 @@ def load_preset(name: str, overrides: Optional[Dict[str, Any]] = None
 
 
 def load(overrides: Optional[Dict[str, Any]] = None,
-         **paths) -> Tuple[Dict[str, Any], EnvConfig, MAPPOConfig]:
+         **paths) -> Tuple[Dict[str, Any], Any, MAPPOConfig]:
+    """The merged config, the scenario's env config and the MAPPO config
+    (MADDPG's comes from :func:`to_maddpg_config`)."""
     cfg = load_yaml_merged(overrides=overrides, **paths)
     scenario = str(cfg.get("scenario_name", "coverage"))
-    if scenario != "coverage":
-        raise NotImplementedError(
-            f"scenario {scenario!r} is not ported yet (ROADMAP A11: scenarios)"
-        )
-    return cfg, to_env_config(cfg), to_algo_config(cfg)
+    if scenario == "coverage":
+        env_cfg = to_env_config(cfg)
+    else:
+        from ..envs import get_scenario
+
+        entry = get_scenario(scenario)
+        if entry["config_from_yaml"] is None:
+            raise NotImplementedError(
+                f"scenario {scenario!r} registered without a config_from_yaml"
+            )
+        env_cfg = entry["config_from_yaml"](cfg)
+    return cfg, env_cfg, to_algo_config(cfg)

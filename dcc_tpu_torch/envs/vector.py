@@ -8,11 +8,12 @@ reward / done / coverage rate, as the reference's worker protocol does.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
-from .coverage import EnvConfig, EnvState, StepOut, observation, reset, step
+from .coverage import EnvConfig, EnvState, observation, reset, step
 
 
 def reset_batch(
@@ -31,22 +32,20 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
     envs. A random reset draws a fresh layout for all E envs from
     ``generator`` every step and keeps it where an episode ended, so the
     host never waits for the done mask."""
-    new_states, out = step(cfg, states, actions)
+    return _auto_reset_step(step, reset, observation, cfg, states, actions, generator)
+
+
+def _auto_reset_step(step_fn, reset_fn, obs_fn, cfg, states, actions, generator):
+    """One batched step of a scenario's functions, each env that ended (done
+    or truncated) replaced by a fresh reset; the observation is the reset
+    one there, the reward, done and coverage those of the step."""
+    new_states, out = step_fn(cfg, states, actions)
     boundary = out.done | out.truncated
-    fresh = reset(
-        cfg, states.pos.shape[0], dtype=states.pos.dtype, device=states.pos.device,
-        generator=generator,
-    )
+    fresh = reset_fn(cfg, states.pos.shape[0], dtype=states.pos.dtype,
+                     device=states.pos.device, generator=generator)
     selected = new_states.select(boundary, fresh)
-    # for envs that did not reset, observation(selected) is out.obs exactly
-    obs = observation(cfg, selected)
-    return selected, StepOut(
-        obs=obs,
-        reward=out.reward,
-        done=out.done,
-        coverage_rate=out.coverage_rate,
-        truncated=out.truncated,
-    )
+    # for envs that did not reset, obs_fn(selected) is out.obs exactly
+    return selected, out._replace(obs=obs_fn(cfg, selected))
 
 
 def share_obs_from_obs(obs: torch.Tensor) -> torch.Tensor:
@@ -54,3 +53,20 @@ def share_obs_from_obs(obs: torch.Tensor) -> torch.Tensor:
     concat of all agents' obs replicated per agent."""
     *lead, n, d = obs.shape
     return obs.reshape(*lead, 1, n * d).expand(*lead, n, n * d)
+
+
+def make_vec_fns(scenario: str = "coverage"):
+    """(reset_batch, step_batch) of a registered scenario, with the
+    signatures and auto-reset of the coverage pair above (its own pair for
+    coverage): ``reset_batch(cfg, n_envs, dtype=, device=, generator=)``
+    and ``step_batch(cfg, states, actions, generator)``, which resets an
+    env on done or on truncation, from a fresh layout for all E envs drawn
+    from ``generator`` every step (counterpart of
+    ``dcc_tpu.envs.vector.make_vec_fns``)."""
+    if scenario == "coverage":
+        return reset_batch, step_batch
+    from . import get_scenario
+
+    sc = get_scenario(scenario)
+    return sc["reset"], functools.partial(_auto_reset_step, sc["step"], sc["reset"],
+                                          sc["observation"])

@@ -20,7 +20,7 @@ import numpy as np
 import torch
 from PIL import Image, ImageDraw
 
-from ..envs import EnvConfig, observation, reset_batch, step
+from ..envs import EnvConfig, get_scenario
 
 FRAME_MS = 100  # a GIF frame's duration
 
@@ -28,16 +28,20 @@ FRAME_MS = 100  # a GIF frame's duration
 @torch.no_grad()
 def rollout_states(algo, ts, generator: Optional[torch.Generator] = None,
                    deterministic: bool = False, n_envs: int = 1) -> dict:
-    """Roll ``n_envs`` envs for episode_length steps from a fresh reset,
-    without auto-reset, as the JAX package's render rollout. Returns numpy
-    arrays pos (T+1, N, 2), poi_pos (T+1, M, 2), energy (T+1, M), poi_done
-    (T+1, M), reward (T,) and coverage (T,); with ``n_envs`` > 1 each gains
-    an env axis after time ((T+1, E, N, 2), ...). Actions and a random reset
-    draw from ``generator`` (default ``ts.generator``)."""
-    env_cfg, T = algo.env_cfg, algo.cfg.episode_length
+    """Roll ``n_envs`` envs of the algorithm's scenario for its horizon
+    (MAPPO's ``episode_length``, MADDPG's ``steps_per_iter``) from a fresh
+    reset, without auto-reset, as the JAX package's render rollout. Returns
+    numpy arrays pos (T+1, N, 2), poi_pos (T+1, M, 2), energy (T+1, M),
+    poi_done (T+1, M), reward (T,) and coverage (T,); with ``n_envs`` > 1
+    each gains an env axis after time ((T+1, E, N, 2), ...). Actions and a
+    random reset draw from ``generator`` (default ``ts.generator``)."""
+    env_cfg = algo.env_cfg
+    T = getattr(algo.cfg, "episode_length", None) or algo.cfg.steps_per_iter
+    sc = get_scenario(algo.scenario)
+    reset, step, observation = sc["reset"], sc["step"], sc["observation"]
     gen = ts.generator if generator is None else generator
-    state = reset_batch(env_cfg, n_envs, device=algo.device,
-                        generator=gen if env_cfg.random_reset else None)
+    state = reset(env_cfg, n_envs, device=algo.device,
+                  generator=gen if env_cfg.random_reset else None)
     obs = observation(env_cfg, state)
     logs = [(state.pos, state.poi_pos, state.energy, state.poi_done)]
     rew, cover = [], []
@@ -100,33 +104,40 @@ def draw_frame(
         r = radius_world * scale
         draw.ellipse([c[0] - r, c[1] - r, c[0] + r, c[1] + r], fill=rgba)
 
+    # a scenario config without coverage's fields takes the JAX package's
+    # fallbacks (spread: occupy_radius as the cover disc, no comm)
+    r_comm = getattr(env_cfg, "r_comm", 0.0)
+    r_cover = getattr(env_cfg, "r_cover", getattr(env_cfg, "occupy_radius", 0.1))
+    m_energy = getattr(env_cfg, "m_energy", 1.0)
+    ent_size = getattr(env_cfg, "size", 0.02)
+
     # boundary square (corners at +-bb)
-    bb = env_cfg.bb
+    bb = getattr(env_cfg, "bb", getattr(env_cfg, "soft_bound", 1.0))
     corners = _w2p(np.array([[bb, bb], [bb, -bb], [-bb, -bb], [-bb, bb], [bb, bb]]), size)
     draw.line([tuple(p) for p in corners], fill=(0, 0, 0, 255), width=2)
 
     # comm / cover discs (alpha 0.15 over white)
     for p in pos:
-        if env_cfg.r_comm > 0:
-            circle(p, env_cfg.r_comm, (13, 89, 13, 38))
-        circle(p, env_cfg.r_cover, (13, 64, 13, 38))
+        if r_comm > 0:
+            circle(p, r_comm, (13, 89, 13, 38))
+        circle(p, r_cover, (13, 64, 13, 38))
 
     # comm links between agents within 2 r_comm
     n = len(pos)
     for a in range(n):
         for b in range(a + 1, n):
-            if env_cfg.r_comm > 0 and np.linalg.norm(pos[a] - pos[b]) < 2.0 * env_cfg.r_comm:
+            if r_comm > 0 and np.linalg.norm(pos[a] - pos[b]) < 2.0 * r_comm:
                 pa, pb = _w2p(pos[a].astype(float), size), _w2p(pos[b].astype(float), size)
                 draw.line([tuple(pa), tuple(pb)], fill=(0, 0, 0, 180), width=1)
 
     # PoIs: color (0.25, 0.25 + energy / m_energy * 0.75, 0.25), clamped
     for p, e in zip(poi_pos, energy):
-        g = min(0.25 + float(e) / env_cfg.m_energy * 0.75, 1.0)
-        circle(p, env_cfg.size, (64, int(255 * g), 64, 255))
+        g = min(0.25 + float(e) / m_energy * 0.75, 1.0)
+        circle(p, ent_size, (64, int(255 * g), 64, 255))
 
     # agent bodies (color 0.05, 0.15, 0.05, alpha 0.5)
     for p in pos:
-        circle(p, env_cfg.size, (13, 38, 13, 128))
+        circle(p, ent_size, (13, 38, 13, 128))
 
     return np.asarray(img.convert("RGB"))
 

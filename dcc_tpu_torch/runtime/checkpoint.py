@@ -1,17 +1,25 @@
 """Checkpointing of the full train state with ``torch.save``.
 
-Params, both Adam states, the value normalizer (ValueNorm or PopArt), the
-counters and the rollout generator's state round-trip, so training resumes exactly where it stopped.
-Separated policies save each agent's networks, optimizers and normalizer
-under ``agents``, in agent order.
+MAPPO: params, both Adam states, the value normalizer (ValueNorm or
+PopArt), the counters and the rollout generator's state. Separated policies
+save each agent's networks, optimizers and normalizer under ``agents``, in
+agent order.
+
+MADDPG: the stacked networks and their targets, both Adams, the replay
+buffer with ``ptr`` and ``size``, the env states, observations and OU
+state, the counters and the generator's state.
+
+Either way training resumes exactly where it stopped.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import torch
 
+from ..algos.maddpg import MADDPGState, ReplayBuffer
 from ..algos.mappo import TrainState
 
 
@@ -27,24 +35,48 @@ def _policy(ts: TrainState) -> dict:
     }
 
 
-def save(path: str, ts: TrainState) -> None:
+def _maddpg(st: MADDPGState) -> dict:
+    buf = st.buffer
+    return {
+        **{net: getattr(st, net).state_dict() for net in MADDPGState.NETS},
+        "actor_opt": st.actor_opt.state_dict(),
+        "critic_opt": st.critic_opt.state_dict(),
+        "buffer": {k: getattr(buf, k) for k in ReplayBuffer.TENSORS},
+        "buffer_ptr": buf.ptr,
+        "buffer_size": buf.size,
+        "env_states": {f.name: getattr(st.env_states, f.name)
+                       for f in dataclasses.fields(st.env_states)},
+        "obs": st.obs,
+        "ou_state": st.ou_state,
+        "total_steps": st.total_steps,
+    }
+
+
+def save(path: str, ts) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    torch.save(
-        {
-            **({"agents": [_policy(a) for a in ts.agents]} if ts.agents else _policy(ts)),
-            "update_count": ts.update_count,
-            "iteration": ts.iteration,
-            "generator": ts.generator.get_state(),
-        },
-        path,
-    )
+    if isinstance(ts, MADDPGState):
+        body = _maddpg(ts)
+    else:
+        body = {"agents": [_policy(a) for a in ts.agents]} if ts.agents else _policy(ts)
+        body["update_count"] = ts.update_count
+    torch.save({**body, "iteration": ts.iteration, "generator": ts.generator.get_state()},
+               path)
 
 
-def load(path: str, ts: TrainState) -> TrainState:
-    """Restore a checkpoint into ``ts`` (built by ``MAPPO.init_state`` with
-    the same config) in place; returns it."""
-    device = next(ts.policies()[0].actor.parameters()).device
-    blob = torch.load(path, map_location=device, weights_only=True)
+def _load_maddpg(blob: dict, st: MADDPGState) -> None:
+    for net in MADDPGState.NETS:
+        getattr(st, net).load_state_dict(blob[net])
+    st.actor_opt.load_state_dict(blob["actor_opt"])
+    st.critic_opt.load_state_dict(blob["critic_opt"])
+    for k in ReplayBuffer.TENSORS:
+        getattr(st.buffer, k).copy_(blob["buffer"][k])
+    st.buffer.ptr, st.buffer.size = int(blob["buffer_ptr"]), int(blob["buffer_size"])
+    st.env_states = type(st.env_states)(**blob["env_states"])
+    st.obs, st.ou_state = blob["obs"], blob["ou_state"]
+    st.total_steps = int(blob["total_steps"])
+
+
+def _load_mappo(blob: dict, ts: TrainState) -> None:
     for p, saved in zip(ts.policies(), blob.get("agents", [blob])):
         p.actor.load_state_dict(saved["actor"])
         p.critic.load_state_dict(saved["critic"])
@@ -55,6 +87,15 @@ def load(path: str, ts: TrainState) -> TrainState:
         if saved.get("popart") is not None:
             p.popart = type(p.popart)(*saved["popart"])
     ts.update_count = int(blob["update_count"])
+
+
+def load(path: str, ts):
+    """Restore a checkpoint into ``ts`` (built by the algorithm's
+    ``init_state`` with the same config) in place; returns it."""
+    maddpg = isinstance(ts, MADDPGState)
+    device = ts.obs.device if maddpg else next(ts.policies()[0].actor.parameters()).device
+    blob = torch.load(path, map_location=device, weights_only=True)
+    (_load_maddpg if maddpg else _load_mappo)(blob, ts)
     ts.iteration = int(blob["iteration"])
     ts.generator.set_state(blob["generator"].cpu())
     return ts

@@ -1,4 +1,6 @@
-"""Learner: the train / eval / save / log cadence around :class:`MAPPO`.
+"""Learner: the train / eval / save / log cadence around the trainer that
+``algo_file`` selects (MAPPO or MADDPG, :func:`~dcc_tpu_torch.algos.make_algo`)
+on the scenario that ``scenario_name`` selects.
 
 Counterpart of :class:`dcc_tpu.runtime.learner.Learner`. Run artifacts go to
 ``<main_save_path>/<save_name>/<MMDD_HHMM_sd{seed}>/`` with a ``config.json``
@@ -7,9 +9,8 @@ snapshot. Every ``render_interval`` iterations, with ``save_gifs`` or
 ``n_render_rollout_threads`` envs, tiled, to ``models_{it}.gif`` (and shows
 it live), timed as the ``render`` phase; a separated policy with rendering
 on raises at construction, since the JAX package cannot render one either.
-Device meshes (ROADMAP A13), algorithms other than MAPPO (ROADMAP A10) and
-device-trace capture are not ported yet: a config that asks for them raises
-at construction instead of skipping them.
+Device meshes (ROADMAP A13) and device-trace capture are not ported yet: a
+config that asks for them raises at construction instead of skipping them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..algos.mappo import MAPPO
+from ..algos import make_algo
 from ..configs.loader import load as load_config
 from ..render import LiveViewer, render_gif, rollout_states
 from ..utils import resolve_device
@@ -51,10 +52,6 @@ class Learner:
         if use_mesh:
             raise NotImplementedError("--mesh is not ported yet (ROADMAP A13: multi-GPU)")
         algo_file = str(cfg.get("algo_file", "mappo"))
-        if "mappo" not in algo_file:
-            raise NotImplementedError(
-                f"algo_file {algo_file!r} is not ported yet (ROADMAP A10: MADDPG)"
-            )
         if cfg.get("profile_dir"):
             raise NotImplementedError(
                 "device-trace capture (profile_dir) is not ported yet (ROADMAP: "
@@ -62,7 +59,8 @@ class Learner:
             )
 
         renders = bool(cfg.get("save_gifs", True)) or bool(cfg.get("render_live", False))
-        if not self.algo_cfg.share_policy and self.is_save_model and renders:
+        if "mappo" in algo_file and not self.algo_cfg.share_policy and self.is_save_model \
+                and renders:
             # JAX's render passes the stacked per-agent parameters to one actor
             # and fails after training (flax ScopeParamShapeError at
             # dcc_tpu/render/gif.py:58)
@@ -76,7 +74,8 @@ class Learner:
             # f32 means full f32: no TF32 in matmuls or convolutions
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.algo = MAPPO(self.algo_cfg, self.env_cfg, device=self.device)
+        self.algo = make_algo(cfg, self.env_cfg, device=self.device)
+        self.algo_cfg = self.algo.cfg
         self.ts = self.algo.init_state(self.seed)
         self.n_eval = int(cfg.get("n_eval_rollout_threads", 16))
 
@@ -127,7 +126,9 @@ class Learner:
             self.last_metrics = m
             logs: Dict[str, Dict[str, float]] = {}
             if it % log_interval == 0:
-                md = m._asdict()
+                # MAPPO returns Metrics, MADDPG a dict: both split into the
+                # rollout_info / rl_train_info sections
+                md = m._asdict() if hasattr(m, "_asdict") else dict(m)
                 logs["rollout_info"] = {k: md.pop(k) for k in ("reward", "coverage_rate")}
                 logs["rl_train_info"] = md
             if self.n_eval > 0 and it % eval_interval == 0:

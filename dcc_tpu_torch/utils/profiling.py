@@ -11,6 +11,8 @@ import contextlib
 import time
 from typing import Dict, Tuple
 
+import torch
+
 
 class PhaseTimer:
     """Accumulates per-phase wall-clock stats (count / total / max)."""
@@ -37,4 +39,21 @@ class PhaseTimer:
         }
 
 
-__all__ = ["PhaseTimer"]
+def timed_phase(timer, name: str, device: torch.device):
+    """``timer.phase(name)`` that waits for the device at the phase's end,
+    so that the phase holds its device time; a no-op context without a
+    timer."""
+    if timer is None:
+        return contextlib.nullcontext()
+    return _synced(timer, name, device)
+
+
+@contextlib.contextmanager
+def _synced(timer, name: str, device: torch.device):
+    with timer.phase(name):
+        yield
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+
+__all__ = ["PhaseTimer", "timed_phase"]

@@ -6,8 +6,12 @@ x 16 envs, shared feed-forward MAPPO), seeded with SEED, and
 ``train_iteration`` called ``n_iters`` times. The series and the metric
 definitions are those of ``run_dcc_curve.py``'s ``_dump``: reward = sum over
 steps of the mean per-env team reward, coverage_rate = mean over envs of the
-max coverage over the episode. ``tests/test_torch_curve_parity.py`` reads the
-files; it never runs this script at full length.
+max coverage over the episode. With ``DCC_CURVE_ALGO_YAML`` naming MADDPG's
+YAML, the algorithm is MADDPG on the same env and run shape, its series
+those of ``run_dcc_curve.py``'s MADDPG arm (reward = mean over steps of the
+mean team reward, ``qf_loss``, ``policy_loss``).
+``tests/test_torch_curve_parity.py`` reads the files; it never runs this
+script at full length.
 
 One seed:
 
@@ -20,6 +24,10 @@ the repository. Environment:
 
 * ``DCC_CURVE_DTYPE``: the compute dtype (``bfloat16`` is the arm that runs
   K1-K4 on the card);
+* ``DCC_CURVE_ALGO_YAML``: the algo YAML (default ``mappo.yaml``); the file's
+  stem then names the arm, e.g.
+  ``DCC_CURVE_ALGO_YAML=dcc_tpu_torch/configs/algo_config/maddpg_tuned.yaml``
+  writes ``dcc_tpu_torch_maddpg_tuned_seed{SEED}.json``;
 * ``DCC_CURVE_ITERS``: fewer iterations (a short check);
 * ``DCC_CURVE_DEVICE``: ``cuda`` (default) or ``cpu``.
 
@@ -46,11 +54,13 @@ sys.path.insert(0, REPO)
 
 import torch  # noqa: E402
 
-from dcc_tpu_torch.algos import MAPPO  # noqa: E402
+from dcc_tpu_torch.algos import MAPPO, make_algo  # noqa: E402
 from dcc_tpu_torch.configs.loader import load as load_config  # noqa: E402
+from dcc_tpu_torch.configs.loader import load_yaml_merged  # noqa: E402
 
 DEFAULT_OUT = os.path.join(REPO, "learning_curves_torch")
 FIELDS = ["value_loss", "policy_loss", "dist_entropy", "ratio"]
+MADDPG_FIELDS = ["qf_loss", "policy_loss"]
 # set by the pool for its children: how many seeds share the card
 CONCURRENT_ENV = "DCC_CURVE_CONCURRENT"
 
@@ -71,6 +81,9 @@ def card(device: torch.device) -> str:
 
 
 def stem() -> str:
+    algo_yaml = os.environ.get("DCC_CURVE_ALGO_YAML")
+    if algo_yaml:
+        return "dcc_tpu_torch_" + os.path.splitext(os.path.basename(algo_yaml))[0]
     dtype = os.environ.get("DCC_CURVE_DTYPE", "float32")
     return "dcc_tpu_torch" if dtype in ("float32", "fp32", "f32") else "dcc_tpu_torch_bf16"
 
@@ -89,28 +102,32 @@ def run_seed(seed: int, out_dir: str, tag: str = "") -> None:
         overrides["compute_dtype"] = os.environ["DCC_CURVE_DTYPE"]
     if os.environ.get("DCC_CURVE_ITERS"):
         overrides["n_iters"] = int(os.environ["DCC_CURVE_ITERS"])
-    cfg, env_cfg, algo_cfg = load_config(overrides)
+    algo_yaml = os.environ.get("DCC_CURVE_ALGO_YAML") or None
+    cfg, env_cfg, _ = load_config(overrides, algo_yaml=algo_yaml)
     n_iters = int(cfg["n_iters"])
-    algo = MAPPO(algo_cfg, env_cfg, device=device)
+    algo = make_algo(cfg, env_cfg, device=device)
+    fields = FIELDS if isinstance(algo, MAPPO) else MADDPG_FIELDS
     ts = algo.init_state(seed)
     meta = {
         "system": f"dcc_tpu_torch (torch {torch.__version__}, {card(device)})",
         "concurrent": int(os.environ.get(CONCURRENT_ENV, "1")),
-        "compute_dtype": algo_cfg.compute_dtype,
+        "algo_yaml": os.path.basename(algo_yaml or "mappo.yaml"),
+        "compute_dtype": getattr(algo.cfg, "compute_dtype", "float32"),
         "seed": seed,
         "n_iters": n_iters,
         "n_rollout_threads": int(cfg["n_rollout_threads"]),
         "max_ep_len": int(cfg["max_ep_len"]),
     }
     path = os.path.join(out_dir, f"{stem()}{tag}_seed{seed}.json")
-    series = {k: [] for k in ["reward", "coverage_rate"] + FIELDS + ["iter_time_s"]}
+    series = {k: [] for k in ["reward", "coverage_rate"] + fields + ["iter_time_s"]}
     t_start = time.time()
     for it in range(1, n_iters + 1):
         t0 = time.time()
         m = algo.train_iteration(ts)  # returns floats: the iteration has ended
         dt = time.time() - t0
-        for k in ["reward", "coverage_rate"] + FIELDS:
-            series[k].append(float(getattr(m, k)))
+        m = m._asdict() if hasattr(m, "_asdict") else m
+        for k in ["reward", "coverage_rate"] + fields:
+            series[k].append(float(m[k]))
         series["iter_time_s"].append(round(dt, 4))
         if it % 10 == 0 or it == 1:
             print(f"[torch sd{seed}] iter {it}/{n_iters} reward {series['reward'][-1]:.1f} "
@@ -132,7 +149,10 @@ def run_pool(n: int, jobs, out_dir: str, script: str = os.path.abspath(__file__)
     ``n`` at a time; a job is a seed, or the arguments before OUT_DIR as a
     list of strings. Returns the number of children that failed (each is
     reported with its arguments)."""
-    if os.environ.get("DCC_CURVE_DEVICE", "cuda") == "cuda":
+    algo_file = str(load_yaml_merged(algo_yaml=os.environ.get("DCC_CURVE_ALGO_YAML") or None)
+                    .get("algo_file", "mappo"))
+    if os.environ.get("DCC_CURVE_DEVICE", "cuda") == "cuda" and "mappo" in algo_file:
+        # MAPPO's kernels; MADDPG runs none
         from dcc_tpu_torch.ops import cuda_build
 
         print(f"[pool] kernels built in {cuda_build.build()['_seconds']:.1f}s", flush=True)

@@ -10,6 +10,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] pois
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] hidden
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] timing
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] maddpg
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
     python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
@@ -50,6 +51,10 @@ beside it, the layer-0 input backward without dx) at the wide runs' shapes
 (``chip_smoke.check_tail_timing``): the same code on any checkout since
 the chunked K4u, so that two builds are compared in one call (parent,
 change, change, parent).
+``maddpg`` holds one MADDPG update on the card against the CPU
+(``chip_smoke.check_maddpg_update``), then trains the smoke's MADDPG and
+``spread`` runs (``chip_smoke.SCENARIO_RUNS``) with their checks and
+profiles the MADDPG runs on coverage.
 ``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
@@ -86,7 +91,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", default=None,
                     help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
-                                       "hidden", "timing", "train", "profile", "bits"))
+                                       "hidden", "timing", "maddpg", "train", "profile",
+                                       "bits"))
     ap.add_argument("train_args", nargs="*",
                     help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
@@ -131,6 +137,19 @@ def main(argv=None) -> int:
             for tag, extra, per_iter in chip_smoke.TRAIN_RUNS:
                 if tag in args.train_args:
                     chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra, per_iter)
+        except chip_smoke.SmokeFailure as e:
+            print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
+            return 1
+    elif args.phase == "maddpg":
+        results = {}
+        try:
+            chip_smoke.check_maddpg_update(results)
+            for tag, extra, per_iter in chip_smoke.TRAIN_RUNS:
+                if tag in chip_smoke.SCENARIO_RUNS:
+                    learner = chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra,
+                                                   per_iter)
+                    if tag in chip_smoke.PROFILED:
+                        results[f"profile {tag}"] = chip_smoke.profile_iteration(learner, tag)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

@@ -14,10 +14,22 @@ arm is not stochastically below either band (one-sided Mann-Whitney p >
 stochastically below either band (p > 0.05). A missing file fails: a gate
 that skipped would guard nothing.
 
+MADDPG's arms (``dcc_tpu_torch_maddpg[_tuned]_seed*``: 200 iterations x 150
+steps x 16 envs with ``algo_config/maddpg.yaml``, 12 seeds, and
+``maddpg_tuned.yaml``, 10 seeds) are held to the JAX package's own MADDPG
+thresholds (``tests/test_curve_parity.py:143-173``: default median above
+0.3 and all seeds but one above 0.25; tuned minimum above 0.6 and mean
+above 0.75) and are not stochastically below the JAX package's bands
+``dcc_tpu_maddpg[_tuned]_seed*`` (one-sided Mann-Whitney p > 0.05).
+
 Regenerate (on the card; ``--pool`` runs the seeds as concurrent processes):
 
     python scripts/run_torch_curve.py --pool 7 $(seq 0 25)
     DCC_CURVE_DTYPE=bfloat16 python scripts/run_torch_curve.py --pool 7 $(seq 0 23)
+    DCC_CURVE_ALGO_YAML=dcc_tpu_torch/configs/algo_config/maddpg.yaml \
+        python scripts/run_torch_curve.py --pool 7 $(seq 0 11)
+    DCC_CURVE_ALGO_YAML=dcc_tpu_torch/configs/algo_config/maddpg_tuned.yaml \
+        python scripts/run_torch_curve.py --pool 7 $(seq 0 9)
 """
 
 import glob
@@ -34,6 +46,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_DIR = os.path.join(ROOT, "learning_curves_torch")
 BAND_DIR = os.path.join(ROOT, "benchmarks", "learning_curves")
 ARMS = {"f32": ("dcc_tpu_torch", 26), "bf16": ("dcc_tpu_torch_bf16", 24)}
+# MADDPG's arms: (the port's stem, its seed count, the JAX package's band)
+MADDPG_ARMS = {"maddpg": ("dcc_tpu_torch_maddpg", 12, "dcc_tpu_maddpg"),
+               "maddpg_tuned": ("dcc_tpu_torch_maddpg_tuned", 10, "dcc_tpu_maddpg_tuned")}
 LAST, MIN_ITERS = 20, 200
 
 
@@ -52,12 +67,13 @@ def _final_coverages(directory, system):
 
 
 def _arm(arm):
-    return np.array(list(_final_coverages(PORT_DIR, ARMS[arm][0]).values()))
+    system = (ARMS.get(arm) or MADDPG_ARMS[arm])[0]
+    return np.array(list(_final_coverages(PORT_DIR, system).values()))
 
 
-@pytest.mark.parametrize("arm", sorted(ARMS))
+@pytest.mark.parametrize("arm", sorted(ARMS) + sorted(MADDPG_ARMS))
 def test_artifacts_are_full_runs_on_a_card(arm):
-    system, n_seeds = ARMS[arm]
+    system, n_seeds = (ARMS.get(arm) or MADDPG_ARMS[arm])[:2]
     runs = _runs(PORT_DIR, system)
     assert sorted(d["seed"] for d in runs) == list(range(n_seeds))
     for d in runs:
@@ -90,6 +106,36 @@ def test_final_coverage_not_below_band(arm, band, max_gap):
         assert a.mean() - b.mean() > max_gap, (a.mean(), b.mean())
 
 
+def test_maddpg_band():
+    """The JAX package's MADDPG self-band thresholds at the reference-key
+    config (``tests/test_curve_parity.py:143-159``): median above 0.3, all
+    seeds but one above 0.25."""
+    vals = _arm("maddpg")
+    assert np.median(vals) > 0.3, sorted(np.round(vals, 3))
+    assert (vals > 0.25).sum() >= len(vals) - 1, sorted(np.round(vals, 3))
+
+
+def test_maddpg_tuned_band():
+    """The tuned config's thresholds (``tests/test_curve_parity.py:162-173``):
+    every seed above 0.6, the mean above 0.75."""
+    vals = _arm("maddpg_tuned")
+    assert vals.min() > 0.6, sorted(np.round(vals, 3))
+    assert vals.mean() > 0.75, sorted(np.round(vals, 3))
+
+
+@pytest.mark.parametrize("arm", sorted(MADDPG_ARMS))
+def test_maddpg_not_below_jax_band(arm):
+    """One-sided Mann-Whitney U: the port's MADDPG seeds are not
+    stochastically below the JAX package's band of the same YAML at alpha
+    0.05."""
+    a = _arm(arm)
+    b = np.array(list(_final_coverages(BAND_DIR, MADDPG_ARMS[arm][2]).values()))
+    assert len(b) == MADDPG_ARMS[arm][1], arm
+    p = float(mannwhitneyu(a, b, alternative="less").pvalue)
+    assert p > 0.05, (f"{arm} stochastically below the JAX band (one-sided MWU p={p:.4f}; "
+                      f"port={sorted(np.round(a, 3))}, band={sorted(np.round(b, 3))})")
+
+
 def test_curve_runner_writes_the_schema(tmp_path):
     """The runner on the CPU for two iterations: the file's name, its
     schema (``run_dcc_curve.py``'s ``_dump``, plus ``concurrent``) and one
@@ -110,3 +156,23 @@ def test_curve_runner_writes_the_schema(tmp_path):
                                 "dist_entropy", "ratio", "iter_time_s"}
     for k, v in d["series"].items():
         assert len(v) == 2 and np.isfinite(v).all(), k
+
+
+def test_curve_runner_writes_the_maddpg_schema(tmp_path):
+    """The runner with ``DCC_CURVE_ALGO_YAML`` naming MADDPG's YAML, on the
+    CPU for two iterations: the arm's file name and MADDPG's series."""
+    env = dict(os.environ, DCC_CURVE_DEVICE="cpu", DCC_CURVE_ITERS="2", OMP_NUM_THREADS="1",
+               DCC_CURVE_ALGO_YAML=os.path.join(ROOT, "dcc_tpu_torch", "configs",
+                                                "algo_config", "maddpg.yaml"))
+    env.pop("DCC_CURVE_DTYPE", None)
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "run_torch_curve.py"),
+                    "4", str(tmp_path)], env=env, check=True, capture_output=True)
+    assert os.listdir(tmp_path) == ["dcc_tpu_torch_maddpg_seed4.json"]
+    d = json.load(open(tmp_path / "dcc_tpu_torch_maddpg_seed4.json"))
+    assert (d["seed"], d["n_iters"], d["n_rollout_threads"], d["max_ep_len"],
+            d["algo_yaml"]) == (4, 2, 16, 150, "maddpg.yaml")
+    assert set(d["series"]) == {"reward", "coverage_rate", "qf_loss", "policy_loss",
+                                "iter_time_s"}
+    for k, v in d["series"].items():
+        assert len(v) == 2 and np.isfinite(v).all(), k
+    assert d["series"]["qf_loss"][1] > 0.0  # 2,400 rows an iteration, past the batch of 256

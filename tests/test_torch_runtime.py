@@ -128,14 +128,20 @@ def test_default_device_without_gpu_raises(monkeypatch):
     ],
 )
 def test_learner_refuses_unported_features(tmp_path, overrides, kw):
-    """Meshes (ROADMAP A13), MADDPG (A10) and trace capture are refused.
-    Rendering, refused until the port ran it, now builds a Learner that
-    renders (tests/test_torch_render.py writes its GIF)."""
+    """Meshes (ROADMAP A13) and trace capture are refused. Rendering and
+    MADDPG, refused until the port ran them, now build a Learner that
+    renders (tests/test_torch_render.py writes its GIF) and one that trains
+    MADDPG (tests/test_torch_maddpg.py trains it)."""
     overrides = {**overrides, "main_save_path": str(tmp_path)}
     if "render_interval" in overrides:
         learner = Learner(overrides, device="cpu", **kw)
         assert learner.output_path and os.path.isdir(learner.output_path)
         assert learner.cfg["save_gifs"] and learner.cfg["render_interval"] == 1
+        return
+    if overrides.get("algo_file") == "maddpg":
+        learner = Learner(overrides, device="cpu", **kw)
+        assert type(learner.algo).__name__ == "MADDPG"
+        assert learner.algo_cfg is learner.algo.cfg
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Learner(overrides, device="cpu", **kw)
