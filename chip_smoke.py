@@ -154,7 +154,25 @@ Phases (any failure exits non-zero):
    iteration under ``torch.profiler``: device time by kernel name, the
    number of device kernels and the device's idle share over the
    iteration;
-6. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
+6. the precision phase (``check_precision``, ROADMAP A12): (a) the df64
+   primitives and the compensated ``_connect_force`` on the card at
+   16,384 envs x 4 agents against the same functions on the CPU (at most
+   ``DF64_ULPS`` f32 ulps apart), the force in tests/test_compensated.py's
+   two regimes against an f64 evaluation of the same f32 positions (below
+   ``COMP_TRUTH_REL`` of the force, the plain f32 force ``COMP_GAIN`` times
+   worse or more), each call timed; (b) the six golden traces replayed on
+   the card in f64 through ``compat.compare`` at tests/test_env_parity.py's
+   tolerances (``GOLDEN_TOLS``); (c) an env step's device kernels with the
+   df64 force on and off and in f64, then the three connectivity-force
+   arms (``PRECISION_RUNS``: the connect variant plain, with
+   ``--compensated-forces true`` and with ``--env-dtype float64``) trained
+   through ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and 1,024
+   (1): K1 once an iteration by the launch counts and, at 16 envs, by the
+   profiler, every env tensor on the card (``EnvWatch``) and in f64 for
+   the f64 arm, the iteration times printed; (d) one deterministic f64-env
+   rollout (16 envs, 150 steps) on the card against the CPU from the same
+   parameters within ``ROLLOUT_ATOL``;
+7. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
    others; K4 at the 20-UAV preset's 153,600 x 4,840 rows as
@@ -2331,16 +2349,17 @@ def _short(name: str) -> str:
 
 
 def profile_iteration(learner, tag: str) -> dict:
-    """One training iteration of the ``tag`` run under torch.profiler (CPU
-    and CUDA): device time of each kernel by name (a slot reduction is named
-    after the kernel it follows) and the device's idle share, 1 - (union of
-    device-busy intervals) / (the iteration's wall time, synchronised at its
-    end)."""
+    """One training iteration of the ``tag`` run under torch.profiler (CUDA
+    activity only: the host's op events, tens of thousands an iteration,
+    took longer to collect than the iteration and are not read): device time
+    of each kernel by name (a slot reduction is named after the kernel it
+    follows) and the device's idle share, 1 - (union of device-busy
+    intervals) / (the iteration's wall time, synchronised at its end)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         learner.algo.train_iteration(learner.ts)
         torch.cuda.synchronize()
@@ -2509,6 +2528,346 @@ def render_run(results: dict):
         shutil.rmtree(out, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# precision: the df64 pull force, the float64 env and the golden traces on
+# the card (ROADMAP A12)
+
+PRECISION_ENVS = 16384  # the df64 checks' envs, 4 agents each
+CONNECT = dict(comm_force_scale=5.0, comm_r_scale=0.95)  # run_dcc_curve.py's connect variant
+CONNECT_ARGS = ["--comm-force-scale", "5.0", "--comm-r-scale", "0.95"]
+# the learning gate's three connectivity-force arms: (tag, CLI arguments,
+# the env's float dtype)
+PRECISION_RUNS = (("connect", [], "torch.float32"),
+                  ("connect-comp", ["--compensated-forces", "true"], "torch.float32"),
+                  ("connect-envf64", ["--env-dtype", "float64"], "torch.float64"))
+PRECISION_ENV_COUNTS = (16, WIDE_ENVS)
+# tests/test_env_parity.py's tolerances: (obs, reward); dones exact, coverage
+# and the reset obs 1e-12
+GOLDEN_TOLS = {"default_4x20": (1e-10, 1e-8), "connect_4x20": (1e-6, 1e-5),
+               "connect_smallact_4x20": (1e-10, 1e-8), "default_5x10": (1e-10, 1e-8),
+               "connect_5x10": (1e-10, 1e-8), "default_10x20": (1e-10, 1e-8)}
+# the compensated force against an f64 evaluation of the same f32 positions,
+# relative to the force's scale (tests/test_compensated.py:137); the plain
+# f32 force must read at least COMP_GAIN times worse
+COMP_TRUTH_REL = 1.5e-7
+COMP_GAIN = 10.0
+# the df64 chain on the card against the CPU, in f32 ulps of the result
+DF64_ULPS = 1.0
+# (d): one deterministic f64-env rollout (the connect variant, 16 envs, 150
+# steps) on the card against the CPU from the same parameters, the actor's
+# mean layer scaled by ROLLOUT_ACT_SCALE so that the agents move. Only the
+# networks' f32 summation orders differ (cuBLAS against the CPU's, no TF32);
+# the env's f64 ops round alike. Perturbing every parameter by 1e-6 relative
+# (about what a 256-term f32 dot product's order moves) moved the same CPU
+# rollout by obs 7.9e-6, actions 9.2e-6, values 3.4e-6, rewards 6.6e-3 and
+# coverage 0; the bounds are 10x that, coverage exact.
+ROLLOUT_ACT_SCALE = 30.0
+ROLLOUT_ATOL = {"obs": 1e-4, "actions": 1e-4, "values": 5e-5, "rewards": 7e-2, "coverage": 0.0}
+
+
+def regime_positions(case: str, n_envs: int, seed: int):
+    """(n_envs, 4, 2) f32 positions in tests/test_compensated.py's force-onset
+    regimes: ``isolated``, a tight cluster and one agent just past the
+    scaled radius 0.76 (case 1); ``pair``, two tight pairs just past the
+    unscaled radius 0.8 (case 2, softplus argument about 40-50)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gap = rng.uniform(1e-4, 0.01, n_envs)[:, None]
+    theta = rng.uniform(0, 2 * np.pi, n_envs)
+    u = np.stack([np.cos(theta), np.sin(theta)], -1)
+    if case == "isolated":
+        pos = rng.uniform(-0.05, 0.05, (n_envs, 4, 2))
+        pos[:, 0] = pos[:, 1] + (2.0 * 0.95 * 0.4 + gap) * u
+    else:
+        pos = np.zeros((n_envs, 4, 2))
+        pos[:, 1] = [0.02, 0.0]
+        pos[:, 2] = (2.0 * 0.4 + gap) * u
+        pos[:, 3] = pos[:, 2] + [0.02, 0.0]
+    return pos.astype(np.float32)
+
+
+def ulps(got, want, hi=None) -> float:
+    """Largest |got - want| in f32 ulps of ``hi`` (default ``want``); CPU
+    tensors, compared in f64."""
+    import torch
+
+    ref = (want if hi is None else hi).float().abs()
+    ulp = (torch.nextafter(ref, torch.full_like(ref, math.inf)) - ref).double()
+    return float(((got.double() - want.double()).abs() / ulp).max())
+
+
+def check_df64(results: dict):
+    """(a) The df64 primitives and the compensated ``_connect_force`` on the
+    card at PRECISION_ENVS x 4 agents: against the same functions on the CPU
+    (bit for bit, else within DF64_ULPS), and the force in both regimes
+    against an f64 evaluation of the same f32 positions (COMP_TRUTH_REL;
+    the plain f32 force COMP_GAIN times worse or more). Times one force
+    call each way."""
+    import numpy as np
+    import torch
+
+    from dcc_tpu_torch.envs import EnvConfig, connectivity
+    from dcc_tpu_torch.envs import coverage as cov
+    from dcc_tpu_torch.ops import df64
+
+    n = PRECISION_ENVS * 4 * 2
+    rng = np.random.default_rng(1)
+
+    def pair(v):
+        hi = v.astype(np.float32)
+        lo = (v - hi.astype(np.float64)).astype(np.float32)
+        return torch.from_numpy(hi), torch.from_numpy(lo)
+
+    x = pair(rng.uniform(-2, 2, n) * 10.0 ** rng.integers(-3, 3, n))
+    y = pair(rng.uniform(0.1, 2, n) * np.where(rng.random(n) < 0.5, -1.0, 1.0))
+    b = torch.from_numpy(rng.uniform(-3, 3, n).astype(np.float32))
+    ya = (y[0].abs(), torch.where(y[0] < 0, -y[1], y[1]))
+
+    def primitives(x, y, b, ya):
+        return {"two_sum": df64.two_sum(x[0], y[0]), "two_diff": df64.two_diff(x[0], y[0]),
+                "two_prod": df64.two_prod(x[0], y[0]), "add": df64.add(x, y),
+                "sub": df64.sub(x, y), "add_f32": df64.add_f32(x, b), "mul": df64.mul(x, y),
+                "mul_f32": df64.mul_f32(x, b), "div": df64.div(x, y),
+                "div_f32": df64.div_f32(x, y[0]), "sqrt": df64.sqrt(ya)}
+
+    cuda = lambda p: tuple(t.cuda() for t in p)
+    value = lambda p: p[0].double() + p[1].double()
+    wants = primitives(x, y, b, ya)
+    gots = primitives(cuda(x), cuda(y), b.cuda(), cuda(ya))
+    prims = {}
+    for name, want in wants.items():
+        got = tuple(t.cpu() for t in gots[name])
+        prims[name] = dict(bitwise=all(torch.equal(g, w) for g, w in zip(got, want)),
+                           ulps=ulps(value(got), value(want), hi=want[0]))
+    worst = max(p["ulps"] for p in prims.values())
+    print(f"  df64 primitives, card against CPU on {n} f32 pairs: bit for bit "
+          f"{sorted(k for k, p in prims.items() if p['bitwise'])}; largest gap {worst:.3g} "
+          f"f32 ulps (bound {DF64_ULPS})", flush=True)
+    if worst > DF64_ULPS:
+        raise SmokeFailure(f"df64 primitives on the card: {prims}")
+    results["df64_primitives"] = prims
+
+    base = EnvConfig(**CONNECT)
+    comp = base._replace(compensated_forces=True)
+
+    def force(cfg, pos):
+        dist, _, adj_, _, connect_s = connectivity(cfg, pos)
+        return cov._connect_force(cfg, pos, dist, adj_, connect_s), connect_s
+
+    def partners(pos):
+        """Each env's partner choices (case 1's nearest agents, case 2's pair)."""
+        dist = connectivity(base, pos)[0]
+        masked = torch.where(dist < base.comm_r_scale * 2.0 * base.r_comm, 1e5, dist)
+        return torch.cat([torch.argmin(dist, 2), torch.argmin(masked.flatten(1), 1)[:, None]], 1)
+
+    for case, seed in (("isolated", 3), ("pair", 4)):
+        pos = torch.from_numpy(regime_positions(case, PRECISION_ENVS, seed))
+        pos_d = pos.cuda()
+        got, _ = force(comp, pos_d)
+        want, cs = force(comp, pos)
+        gap = ulps(got.cpu(), want)
+        plain = force(base, pos_d)[0].cpu().double()
+        truth, cs64 = force(base, pos.double())
+        scale = truth.abs().amax(dim=(1, 2))
+        # the partners are chosen in f32; where f64 breaks a tie (the pair
+        # regime's two cross pairs lie equally far apart) the forces differ
+        # by design, so those envs are left out
+        same = (partners(pos) == partners(pos.double())).all(1)
+        keep = ~cs & ~cs64 & (scale >= 1e-6) & same
+        err = lambda f: float(((f - truth).abs().amax(dim=(1, 2)) / scale)[keep].max())
+        err_c, err_f = err(got.cpu().double()), err(plain)
+        comp_ms, _ = time_ms(lambda: force(comp, pos_d))
+        plain_ms, _ = time_ms(lambda: force(base, pos_d))
+        row = dict(envs=PRECISION_ENVS, forced=int(keep.sum()), ties=int((~same).sum()),
+                   card_vs_cpu_ulps=gap, bitwise=bool(torch.equal(got.cpu(), want)),
+                   rel_err_comp=err_c, rel_err_f32=err_f, ms_comp=comp_ms, ms_plain=plain_ms)
+        results[f"df64_force_{case}"] = row
+        print(f"  compensated _connect_force, {case}: {row['forced']} of {PRECISION_ENVS} envs "
+              f"forced ({row['ties']} left out: f64 broke a partner tie); card against CPU "
+              f"{gap:.3g} f32 ulps (bit for bit: {row['bitwise']}); against the f64 truth "
+              f"{err_c:.3e} (bound {COMP_TRUTH_REL}), plain f32 "
+              f"{err_f:.3e} ({err_f / max(err_c, 1e-30):.1f}x); one call {comp_ms:.3f} ms "
+              f"(plain f32 {plain_ms:.3f} ms)", flush=True)
+        if row["forced"] < 100 or gap > DF64_ULPS or err_c >= COMP_TRUTH_REL \
+                or err_f < COMP_GAIN * err_c:
+            raise SmokeFailure(f"compensated force, {case}: {row}")
+
+
+def check_golden(results: dict):
+    """(b) The six golden traces replayed on the card in f64 through
+    ``compat.compare`` at GOLDEN_TOLS."""
+    from dcc_tpu_torch.compat import compare, load_golden
+
+    for name, (tol_obs, tol_rew) in GOLDEN_TOLS.items():
+        t0 = time.perf_counter()
+        err = compare(load_golden(name), device="cuda")
+        err["s"] = time.perf_counter() - t0
+        results[f"golden {name}"] = err
+        print(f"  golden {name} on the card: obs0 {err['obs0']:.3g} obs {err['obs']:.3g} "
+              f"(bound {tol_obs}) reward {err['reward']:.3g} (bound {tol_rew}) done "
+              f"{err['done']:.3g} coverage {err['coverage']:.3g}; {err['s']:.2f} s", flush=True)
+        if (err["obs0"] > 1e-12 or err["obs"] > tol_obs or err["reward"] > tol_rew
+                or err["done"] != 0.0 or err["coverage"] > 1e-12):
+            raise SmokeFailure(f"golden trace {name} on the card: {err}")
+
+
+class EnvWatch:
+    """Wraps the coverage env's batched reset and step (``envs.vector``,
+    where ``make_vec_fns`` finds them) and counts the (device, dtype) of
+    every env tensor they take and give, while active and for each trainer
+    built while active."""
+
+    def __init__(self):
+        self.seen = collections.Counter()
+
+    def note(self, *objs):
+        import dataclasses
+
+        for o in objs:
+            ts = ([getattr(o, f.name) for f in dataclasses.fields(o)]
+                  if dataclasses.is_dataclass(o) else list(o))
+            for t in ts:
+                self.seen[(t.device.type, str(t.dtype))] += 1
+
+    def __enter__(self):
+        from dcc_tpu_torch.envs import vector
+
+        self.saved = vector.reset_batch, vector.step_batch
+        reset0, step0 = self.saved
+
+        def reset(*a, **k):
+            s = reset0(*a, **k)
+            self.note(s)
+            return s
+
+        def step(cfg, states, actions, generator=None):
+            new, out = step0(cfg, states, actions, generator)
+            self.note(states, new, out)
+            return new, out
+
+        vector.reset_batch, vector.step_batch = reset, step
+        return self
+
+    def __exit__(self, *exc):
+        from dcc_tpu_torch.envs import vector
+
+        vector.reset_batch, vector.step_batch = self.saved
+
+    def check(self, tag: str, float_dtype: str):
+        """Every env tensor on the card, every float among them in
+        ``float_dtype``."""
+        floats = {d for _, d in self.seen if "float" in d}
+        if not self.seen or {dev for dev, _ in self.seen} != {"cuda"} or floats != {float_dtype}:
+            raise SmokeFailure(f"{tag}: env tensors {dict(self.seen)}, expected all on the "
+                               f"card, floats in {float_dtype}")
+
+
+def env_step_kernels(results: dict, envs: int = 16, n: int = 50):
+    """Device kernels (the profiler's CUDA events) of one batched env step
+    of the connect variant with the df64 force on and off and in f64, and
+    the host ms per step over ``n`` steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcc_tpu_torch.envs import EnvConfig, reset_batch, step_batch
+
+    cases = (("f32", EnvConfig(**CONNECT), torch.float32),
+             ("f32, df64 force", EnvConfig(**CONNECT, compensated_forces=True), torch.float32),
+             ("f64", EnvConfig(**CONNECT), torch.float64))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for label, cfg, dtype in cases:
+        states = reset_batch(cfg, envs, dtype=dtype, device="cuda")
+        actions = torch.rand((envs, cfg.n_agents, 2), generator=gen, device="cuda") * 2 - 1
+        states, _ = step_batch(cfg, states, actions)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step_batch(cfg, states, actions)
+            torch.cuda.synchronize()
+        kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            states, _ = step_batch(cfg, states, actions)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n * 1e3
+        results[f"env step {label}"] = dict(envs=envs, device_kernels=kernels, host_ms=ms)
+        print(f"  one env step at {envs} envs, {label}: {kernels} device kernels, "
+              f"{ms:.3f} ms a step", flush=True)
+        if not kernels:
+            raise SmokeFailure(f"env step {label}: the profiler saw no device kernel")
+
+
+def precision_runs(results: dict):
+    """(c) The three connectivity-force arms through
+    ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and at 1,024 (1):
+    K1 once an iteration by the launch counts and, at 16 envs, by the
+    profiler; every env tensor on the card in the arm's dtype (f64 for
+    ``--env-dtype float64``)."""
+    for tag, extra, float_dtype in PRECISION_RUNS:
+        for envs in PRECISION_ENV_COUNTS:
+            args = BASE_ARGS + CONNECT_ARGS + extra + ["--n-rollout-threads", str(envs)]
+            if envs > 16:
+                args += ["--n-iters", "1"]
+            name = f"{tag}-{envs}"
+            with EnvWatch() as watch:
+                learner = train_run(results, name, args, {"gae": 1})
+            watch.check(name, float_dtype)
+            results[name]["env_tensors"] = {f"{d} {t}": c for (d, t), c in watch.seen.items()}
+            if envs == 16:
+                prof = profile_iteration(learner, name)
+                results[f"profile {name}"] = prof
+                calls = prof.get("kernels", {}).get("gae_seg_kernel", {}).get("calls")
+                if calls != 1:
+                    raise SmokeFailure(f"{name}: the profiler saw K1 {calls} times in an "
+                                       f"iteration, expected 1")
+    print("  iteration times (train phase mean, s): " + ", ".join(
+        f"{tag} {envs}: {results[f'{tag}-{envs}']['phases']['train']['mean_s']:.3f}"
+        for tag, _, _ in PRECISION_RUNS for envs in PRECISION_ENV_COUNTS), flush=True)
+
+
+def check_rollout_f64(results: dict):
+    """(d) One deterministic rollout of MAPPO on the f64 connect env (16
+    envs, 150 steps) on the card and on the CPU from the same parameters,
+    held to ROLLOUT_ATOL field by field; the card's env in f64 on the card."""
+    import torch
+
+    from dcc_tpu_torch.algos import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.envs import EnvConfig
+
+    trajs = {}
+    for dev in ("cuda", "cpu"):
+        with EnvWatch() as watch:
+            algo = MAPPO(MAPPOConfig(env_dtype="float64"), EnvConfig(**CONNECT), device=dev)
+            actor, critic = algo.make_networks(0)
+            with torch.no_grad():
+                actor.act_out.weight.mul_(ROLLOUT_ACT_SCALE)
+            trajs[dev] = algo.rollout(algo.init_state(actor=actor, critic=critic), 16,
+                                      deterministic=True)
+        if dev == "cuda":
+            watch.check("f64 rollout", "torch.float64")
+    gaps = {f: float((getattr(trajs["cuda"], f).cpu().double()
+                      - getattr(trajs["cpu"], f).double()).abs().max()) for f in ROLLOUT_ATOL}
+    moved = float(trajs["cpu"].obs[..., 2:4].abs().max())
+    results["f64 rollout card vs cpu"] = dict(gaps=gaps, bounds=ROLLOUT_ATOL, moved=moved)
+    print(f"  f64 rollout, card against CPU (16 envs, 150 steps; agents up to {moved:.3f} "
+          f"from the origin): " + ", ".join(f"{f} {g:.3g} (bound {ROLLOUT_ATOL[f]})"
+                                            for f, g in gaps.items()), flush=True)
+    if any(g > ROLLOUT_ATOL[f] for f, g in gaps.items()) or moved < 0.1:
+        raise SmokeFailure(f"f64 rollout, card against CPU: {gaps}, moved {moved}")
+
+
+def check_precision(results: dict):
+    """The precision phase, (a)-(d) in order, each part's seconds printed."""
+    seconds = results.setdefault("seconds", {})
+    for name, part in (("df64", check_df64), ("golden", check_golden),
+                       ("env step", env_step_kernels), ("training", precision_runs),
+                       ("f64 rollout", check_rollout_f64)):
+        t0 = time.perf_counter()
+        part(results)
+        seconds[name] = time.perf_counter() - t0
+    print(f"  precision phase seconds: {json.dumps(seconds)}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2561,7 +2920,11 @@ def main(argv=None) -> int:
     train_runs(runs)
     curve_run(runs)
     render_run(runs)
-    print(f"[6] done at {time.perf_counter() - t0:.0f} s", flush=True)
+    print(f"[6] precision: the df64 pull force, the golden traces and the float64 env on the "
+          f"card (at {time.perf_counter() - t0:.0f} s)", flush=True)
+    precision: dict = {}
+    check_precision(precision)
+    print(f"[7] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -2590,7 +2953,8 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            build_s=built["_seconds"], ptxas=ptxas, sass_hmma=sass,
-                           checks=checks, updates=updates, train=runs, kernels=kernels),
+                           checks=checks, updates=updates, train=runs, precision=precision,
+                           kernels=kernels),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -34,7 +34,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..envs import check_supported, get_scenario, make_vec_fns
+from ..envs import get_scenario, make_vec_fns
 from ..models.rlkit_mlp import RlkitMlp
 from ..utils import resolve_device
 from ..utils.profiling import timed_phase
@@ -109,8 +109,6 @@ class MADDPG:
         self.env_cfg = env_cfg
         self.device = resolve_device(device)
         self.scenario = scenario
-        if scenario == "coverage":
-            check_supported(env_cfg)
         self._reset_batch, self._step_batch = make_vec_fns(scenario)
         self._obs_fn = get_scenario(scenario)["observation"]
         if getattr(env_cfg, "resolved_action_mode", "continuous") != "continuous":

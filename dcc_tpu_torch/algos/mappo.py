@@ -57,7 +57,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..envs import EnvConfig, check_supported, get_scenario, make_vec_fns
+from ..envs import EnvConfig, get_scenario, make_vec_fns
 from ..models import Actor, Critic
 from ..models import distributions as D
 from ..models import popart as PA
@@ -122,7 +122,7 @@ class MAPPOConfig(NamedTuple):
     fused_trunk: str = "auto"  # auto | on | off ("interpret" = on)
     fused_block_rows: int = 6144
     fused_fold: bool = True
-    env_dtype: str = "float32"
+    env_dtype: str = "float32"  # float32 | float64: the env's physics; networks stay f32
     store_obs_bf16: bool = True
     fused_loss: str = "auto"  # auto | on | off ("interpret" = on)
 
@@ -224,8 +224,6 @@ class MAPPO:
         self.device = resolve_device(device)
         # scenario dispatch: the registry's batched env functions
         self.scenario = scenario
-        if scenario == "coverage":
-            check_supported(env_cfg)
         self._reset_batch, self._step_batch = make_vec_fns(scenario)
         self._obs_fn = get_scenario(scenario)["observation"]
         if cfg.compute_dtype in ("bfloat16", "bf16"):
@@ -237,14 +235,19 @@ class MAPPO:
         self.recurrent = cfg.use_recurrent_policy or cfg.use_naive_recurrent
         if cfg.use_popart and cfg.use_valuenorm:
             raise ValueError("use_popart and use_valuenorm are mutually exclusive")
-        if cfg.env_dtype in ("float64", "f64", "fp64") and scenario != "coverage":
-            raise NotImplementedError(
-                "env_dtype='float64' is plumbed for the coverage "
-                "scenario's reset_batch only"
-            )
-        if cfg.env_dtype not in ("float32", "fp32", "f32"):
-            raise NotImplementedError(
-                "env_dtype other than float32 (ROADMAP A12) is not ported yet")
+        # the env's dtype: float64 runs the reference's f64 physics, on the
+        # device (the GPU has native FP64), with f32 networks
+        if cfg.env_dtype in ("float64", "f64", "fp64"):
+            if scenario != "coverage":
+                raise NotImplementedError(
+                    "env_dtype='float64' is plumbed for the coverage "
+                    "scenario's reset_batch only"
+                )
+            self.env_dtype = torch.float64
+        elif cfg.env_dtype in ("float32", "fp32", "f32"):
+            self.env_dtype = torch.float32
+        else:
+            raise ValueError(f"unknown env_dtype {cfg.env_dtype!r}")
         if not cfg.use_centralized_v:
             raise ValueError(
                 "use_centralized_v=False: the critic is built on the team-concat "
@@ -485,15 +488,18 @@ class MAPPO:
                 generator: Optional[torch.Generator] = None) -> Trajectory:
         """Fresh-reset rollout of episode_length steps over n_envs envs; the
         actions and a random env reset (``randomize_pois``, ``poi_speed``)
-        draw from ``generator`` (default ``ts.generator``)."""
+        draw from ``generator`` (default ``ts.generator``). The envs run in
+        ``env_dtype`` on the device; observations reach the networks in f32
+        and the trajectory in ``store_dtype``, rewards and coverage in f32."""
         cfg, env_cfg = self.cfg, self.env_cfg
         gen = ts.generator if generator is None else generator
         T, A, E = cfg.episode_length, env_cfg.n_agents, n_envs
         dev = self.device
         f32 = dict(dtype=torch.float32, device=dev)
         env_gen = gen if env_cfg.random_reset else None
-        states = self._reset_batch(env_cfg, E, device=dev, generator=env_gen)
-        obs = self._obs_fn(env_cfg, states)
+        states = self._reset_batch(env_cfg, E, dtype=self.env_dtype, device=dev,
+                                   generator=env_gen)
+        obs = self._obs_fn(env_cfg, states).float()  # the env -> network boundary
         obs_buf = torch.empty((T + 1, E, A, self.obs_dim), dtype=self.store_dtype, device=dev)
         actions = torch.empty((T, E, A, env_cfg.action_width), **f32)
         logps = torch.empty((T, E, A, self.logp_cols), **f32)
@@ -541,7 +547,7 @@ class MAPPO:
             bad_masks[t + 1] = 1.0 - out.truncated.float()[:, None]
             rewards[t] = out.reward[:, None]
             cover[t] = out.coverage_rate
-            obs = out.obs
+            obs = out.obs.float()
         obs_buf[T] = obs
         if self.separated:
             cent = obs.reshape(E, -1)

@@ -2,7 +2,6 @@ from .coverage import (
     EnvConfig,
     EnvState,
     StepOut,
-    check_supported,
     connectivity,
     decode_action,
     default_poi_bank,
@@ -86,7 +85,6 @@ __all__ = [
     "StepOut",
     "TupleSpace",
     "VecDCEnv",
-    "check_supported",
     "connectivity",
     "decode_action",
     "default_poi_bank",

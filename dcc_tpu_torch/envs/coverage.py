@@ -9,9 +9,11 @@ Every action mode of the JAX package is decoded in :func:`step` (continuous,
 discrete, multi_discrete, multi_binary, mixed). The default reset is
 deterministic (the frozen PoI bank); ``randomize_pois`` and ``poi_speed``
 draw the PoI layout and headings from an explicit ``torch.Generator`` on the
-env's device, where the JAX package keeps a PRNG key per env. The
-compensated df64 pull force (ROADMAP A12) raises
-:class:`NotImplementedError` instead of running a different environment.
+env's device, where the JAX package keeps a PRNG key per env. With
+``compensated_forces`` on an f32 state the pull force's distance chain runs
+in double-float (:mod:`dcc_tpu_torch.ops.df64`); the state may also be
+float64 throughout (``reset(..., dtype=torch.float64)``), on the CPU or on
+the GPU.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ops import df64
 from ..utils import resolve_device
 
 _ASSET_DIR = os.path.join(os.path.dirname(__file__), "assets")
@@ -129,15 +132,6 @@ class EnvConfig(NamedTuple):
         return self.contact_force * self.comm_force_scale
 
 
-def check_supported(cfg: EnvConfig) -> None:
-    """Raise for the options this port does not run yet."""
-    if cfg.compensated_forces:
-        raise NotImplementedError(
-            "compensated_forces (df64 pull force) is not ported yet "
-            "(ROADMAP A12: precision arms)"
-        )
-
-
 @dataclass
 class EnvState:
     """Dynamic state of E envs; every field has a leading env axis."""
@@ -194,7 +188,6 @@ def reset(
     gets a heading drawn U(0, 2 pi). The draws come from ``generator`` (on
     ``device``), which a random reset requires. ``device`` is CUDA unless
     the caller asks for the CPU; without a GPU the default raises."""
-    check_supported(cfg)
     device = resolve_device(device)
     n, m = cfg.n_agents, cfg.n_pois
     kw = dict(dtype=dtype, device=device)
@@ -265,34 +258,67 @@ def _pull_force(cfg: EnvConfig, delta: torch.Tensor, dist: torch.Tensor) -> torc
     return cfg.effective_contact_force * delta / dist * penetration
 
 
+def _pull_force_df64(cfg: EnvConfig, delta) -> torch.Tensor:
+    """The pull force of :func:`_pull_force` with its distance -> softplus
+    argument -> penetration chain in double-float (``compensated_forces``;
+    ``dcc_tpu.envs.coverage._pull_force_df64``): no f32 rounding of the
+    distance for the 1 / contact_margin argument scale to amplify.
+    ``delta`` is an exact (hi, lo) pair of ``pos_a - pos_b``, (..., 2)
+    each; returns the f32 force on *b*, (..., 2). The x and y components
+    share each op."""
+    const = lambda v: df64.from_f64(v, device=delta[0].device)
+    sq = df64.mul(delta, delta)
+    d = df64.sqrt(df64.add((sq[0][..., 0], sq[1][..., 0]), (sq[0][..., 1], sq[1][..., 1])))
+    k = const(cfg.contact_margin)
+    arg = df64.div(df64.sub(d, const(2.0 * cfg.r_comm * cfg.comm_r_scale)), k)
+    # softplus in double-float to first order: sp(hi + lo) ~= sp(hi) + sig(hi) * lo,
+    # sp(hi) taken in f64 and split into a pair: the f32 libraries' exp and
+    # log1p differ by an ulp or two between the CPU and the GPU
+    sp64 = torch.logaddexp(arg[0].double(), torch.zeros_like(arg[0], dtype=torch.float64))
+    sp_hi = sp64.float()
+    sp = (sp_hi, (sp64 - sp_hi.double()).float() + torch.sigmoid(arg[0]) * arg[1])
+    factor = df64.mul(df64.div(df64.mul(sp, k), d), const(cfg.effective_contact_force))
+    return df64.to_f32(df64.mul((factor[0][..., None], factor[1][..., None]), delta))
+
+
 def _connect_force(cfg: EnvConfig, pos, dist, adj_, connect_s) -> torch.Tensor:
     """Rule-based connectivity-preservation force (case 1: pull isolated
     agents to their nearest agent; case 2: pull the closest too-far pair),
-    zero when already strongly connected."""
+    zero when already strongly connected. The partners are chosen in the
+    state's dtype; with ``compensated_forces`` on an f32 state the force
+    runs in double-float (:func:`_pull_force_df64`), in an f64 state the
+    flag does nothing."""
     n = cfg.n_agents
     dtype = pos.dtype
     e = pos.shape[0]
     isolated = torch.sum(adj_, dim=1) == 0  # (E, N) column sums
     any_isolated = torch.any(isolated, dim=1)
 
-    # case 1: nearest-neighbour pull for every isolated agent
+    # case 1's partner: the nearest agent of every agent
     b1 = torch.argmin(dist, dim=2)  # (E, N)
     idx = b1[..., None].expand(-1, -1, 2)
-    delta1 = pos - torch.gather(pos, 1, idx)
-    d1 = torch.min(dist, dim=2, keepdim=True).values
-    f1 = _pull_force(cfg, delta1, d1)
-    fw = f1 * isolated.to(dtype)[..., None]
-    case1 = -fw + torch.zeros_like(fw).scatter_add(1, idx, fw)
-
-    # case 2: the global closest pair farther apart than the scaled radius
+    partner1 = torch.gather(pos, 1, idx)
+    # case 2's pair: the global closest pair farther apart than the scaled radius
     far = torch.tensor(_FAR, dtype=dtype, device=pos.device)
     masked = torch.where(dist < cfg.comm_r_scale * 2.0 * cfg.r_comm, far, dist)
     flat = torch.argmin(masked.reshape(e, -1), dim=1)
     ia, ib = flat // n, flat % n
     rows = torch.arange(e, device=pos.device)
-    delta2 = pos[rows, ia] - pos[rows, ib]
-    d2 = torch.min(masked.reshape(e, -1), dim=1).values[:, None]
-    f2 = _pull_force(cfg, delta2, d2)[:, None, :]
+    if cfg.compensated_forces and dtype == torch.float32:
+        # both cases' pairs in one double-float chain; the exact differences
+        # come from gathers, never from one-hot products (a TF32 or bf16
+        # product would round the operands and break two_diff)
+        a = torch.cat([pos, pos[rows, ia][:, None]], dim=1)
+        b = torch.cat([partner1, pos[rows, ib][:, None]], dim=1)
+        f = _pull_force_df64(cfg, df64.two_diff(a, b))
+        f1, f2 = f[:, :n], f[:, n:]
+    else:
+        d1 = torch.min(dist, dim=2, keepdim=True).values
+        f1 = _pull_force(cfg, pos - partner1, d1)
+        d2 = torch.min(masked.reshape(e, -1), dim=1).values[:, None]
+        f2 = _pull_force(cfg, pos[rows, ia] - pos[rows, ib], d2)[:, None, :]
+    fw = f1 * isolated.to(dtype)[..., None]
+    case1 = -fw + torch.zeros_like(fw).scatter_add(1, idx, fw)
     hot_a = torch.nn.functional.one_hot(ia, n).to(dtype)[..., None]
     hot_b = torch.nn.functional.one_hot(ib, n).to(dtype)[..., None]
     case2 = hot_b * f2 - hot_a * f2

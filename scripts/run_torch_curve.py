@@ -28,6 +28,16 @@ the repository. Environment:
   stem then names the arm, e.g.
   ``DCC_CURVE_ALGO_YAML=dcc_tpu_torch/configs/algo_config/maddpg_tuned.yaml``
   writes ``dcc_tpu_torch_maddpg_tuned_seed{SEED}.json``;
+* ``DCC_CURVE_CONFIG=connect``: the connectivity force on
+  (``comm_force_scale`` 5.0, ``comm_r_scale`` 0.95, as
+  ``run_dcc_curve.py``'s ``connect`` variant); adds ``_connect`` to the stem;
+* ``DCC_CURVE_COMPENSATED=1``: the pull force's chain in double-float
+  (``compensated_forces``); adds ``_comp``;
+* ``DCC_CURVE_ENV_DTYPE=float64``: the env in float64 on the device
+  (``env_dtype``); adds ``_envf64``. So the three connectivity arms write
+  ``dcc_tpu_torch_connect``, ``dcc_tpu_torch_connect_comp`` and
+  ``dcc_tpu_torch_connect_envf64``, and no knob's files can overwrite
+  another arm's;
 * ``DCC_CURVE_ITERS``: fewer iterations (a short check);
 * ``DCC_CURVE_DEVICE``: ``cuda`` (default) or ``cpu``.
 
@@ -80,12 +90,33 @@ def card(device: torch.device) -> str:
         return torch.cuda.get_device_name(device)
 
 
+def env_overrides() -> dict:
+    """The env knobs' config overrides (``run_dcc_curve.py:68-102``)."""
+    out = {}
+    variant = os.environ.get("DCC_CURVE_CONFIG", "default")
+    if variant == "connect":
+        out.update(comm_force_scale=5.0, comm_r_scale=0.95)
+    elif variant != "default":
+        raise SystemExit(f"unknown DCC_CURVE_CONFIG {variant!r}")
+    if os.environ.get("DCC_CURVE_COMPENSATED"):
+        out["compensated_forces"] = True
+    if os.environ.get("DCC_CURVE_ENV_DTYPE"):
+        out["env_dtype"] = os.environ["DCC_CURVE_ENV_DTYPE"]
+    return out
+
+
 def stem() -> str:
     algo_yaml = os.environ.get("DCC_CURVE_ALGO_YAML")
     if algo_yaml:
-        return "dcc_tpu_torch_" + os.path.splitext(os.path.basename(algo_yaml))[0]
-    dtype = os.environ.get("DCC_CURVE_DTYPE", "float32")
-    return "dcc_tpu_torch" if dtype in ("float32", "fp32", "f32") else "dcc_tpu_torch_bf16"
+        base = "dcc_tpu_torch_" + os.path.splitext(os.path.basename(algo_yaml))[0]
+    elif os.environ.get("DCC_CURVE_DTYPE", "float32") in ("float32", "fp32", "f32"):
+        base = "dcc_tpu_torch"
+    else:
+        base = "dcc_tpu_torch_bf16"
+    env = env_overrides()
+    f64 = env.get("env_dtype", "float32") in ("float64", "f64", "fp64")
+    return (base + ("_connect" if "comm_force_scale" in env else "")
+            + ("_comp" if env.get("compensated_forces") else "") + ("_envf64" if f64 else ""))
 
 
 def run_seed(seed: int, out_dir: str, tag: str = "") -> None:
@@ -97,7 +128,7 @@ def run_seed(seed: int, out_dir: str, tag: str = "") -> None:
         # f32 means full f32, as the Learner sets it
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    overrides = {"seed": seed}
+    overrides = {"seed": seed, **env_overrides()}
     if os.environ.get("DCC_CURVE_DTYPE"):
         overrides["compute_dtype"] = os.environ["DCC_CURVE_DTYPE"]
     if os.environ.get("DCC_CURVE_ITERS"):
@@ -113,6 +144,10 @@ def run_seed(seed: int, out_dir: str, tag: str = "") -> None:
         "concurrent": int(os.environ.get(CONCURRENT_ENV, "1")),
         "algo_yaml": os.path.basename(algo_yaml or "mappo.yaml"),
         "compute_dtype": getattr(algo.cfg, "compute_dtype", "float32"),
+        "env_dtype": getattr(algo.cfg, "env_dtype", "float32"),
+        "comm_force_scale": env_cfg.comm_force_scale,
+        "comm_r_scale": env_cfg.comm_r_scale,
+        "compensated_forces": env_cfg.compensated_forces,
         "seed": seed,
         "n_iters": n_iters,
         "n_rollout_threads": int(cfg["n_rollout_threads"]),

@@ -11,6 +11,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] hidden
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] timing
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] maddpg
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] precision
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
     python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
@@ -55,6 +56,12 @@ change, change, parent).
 (``chip_smoke.check_maddpg_update``), then trains the smoke's MADDPG and
 ``spread`` runs (``chip_smoke.SCENARIO_RUNS``) with their checks and
 profiles the MADDPG runs on coverage.
+``precision`` builds the kernels and runs the smoke's precision phase
+(``chip_smoke.check_precision``): the df64 primitives and the compensated
+pull force on the card against the CPU and the f64 truth, the six golden
+traces replayed on the card in f64, the env step's device kernels with the
+df64 force on and off, the three connectivity-force arms trained at 16 and
+1,024 envs, and one f64-env rollout on the card against the CPU.
 ``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
@@ -91,8 +98,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", default=None,
                     help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
-                                       "hidden", "timing", "maddpg", "train", "profile",
-                                       "bits"))
+                                       "hidden", "timing", "maddpg", "precision", "train",
+                                       "profile", "bits"))
     ap.add_argument("train_args", nargs="*",
                     help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
@@ -137,6 +144,16 @@ def main(argv=None) -> int:
             for tag, extra, per_iter in chip_smoke.TRAIN_RUNS:
                 if tag in args.train_args:
                     chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra, per_iter)
+        except chip_smoke.SmokeFailure as e:
+            print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
+            return 1
+    elif args.phase == "precision":
+        from dcc_tpu_torch.ops import cuda_build
+
+        cuda_build.build(verbose=True)
+        results = {}
+        try:
+            chip_smoke.check_precision(results)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

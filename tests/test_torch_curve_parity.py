@@ -22,6 +22,18 @@ thresholds (``tests/test_curve_parity.py:143-173``: default median above
 above 0.75) and are not stochastically below the JAX package's bands
 ``dcc_tpu_maddpg[_tuned]_seed*`` (one-sided Mann-Whitney p > 0.05).
 
+The connectivity-force arms (``dcc_tpu_torch_connect[_comp|_envf64]_seed*``:
+200 iterations x 150 steps x 16 envs with ``comm_force_scale`` 5.0 and
+``comm_r_scale`` 0.95, as ``scripts/run_dcc_curve.py``'s ``connect``
+variant; 16 seeds, 16 with the compensated df64 pull force and 6 with the
+float64 env, the JAX bands' counts) are held as
+``tests/test_curve_parity.py::test_connect_distribution`` holds the JAX
+package's connect arm: not stochastically below the band (one-sided
+Mann-Whitney p > 0.05) with a mean gap above -0.05; the plain arm against
+``reference_connect`` (16 seeds) and ``dcc_tpu_connect`` (32), the
+compensated arm against ``dcc_tpu_connect_comp`` (16), and the f64 arm
+against ``dcc_tpu_connect_envf64`` (6; p only).
+
 Regenerate (on the card; ``--pool`` runs the seeds as concurrent processes):
 
     python scripts/run_torch_curve.py --pool 7 $(seq 0 25)
@@ -30,6 +42,11 @@ Regenerate (on the card; ``--pool`` runs the seeds as concurrent processes):
         python scripts/run_torch_curve.py --pool 7 $(seq 0 11)
     DCC_CURVE_ALGO_YAML=dcc_tpu_torch/configs/algo_config/maddpg_tuned.yaml \
         python scripts/run_torch_curve.py --pool 7 $(seq 0 9)
+    DCC_CURVE_CONFIG=connect python scripts/run_torch_curve.py --pool 8 $(seq 0 15)
+    DCC_CURVE_CONFIG=connect DCC_CURVE_COMPENSATED=1 \
+        python scripts/run_torch_curve.py --pool 8 $(seq 0 15)
+    DCC_CURVE_CONFIG=connect DCC_CURVE_ENV_DTYPE=float64 \
+        python scripts/run_torch_curve.py --pool 6 $(seq 0 5)
 """
 
 import glob
@@ -49,6 +66,18 @@ ARMS = {"f32": ("dcc_tpu_torch", 26), "bf16": ("dcc_tpu_torch_bf16", 24)}
 # MADDPG's arms: (the port's stem, its seed count, the JAX package's band)
 MADDPG_ARMS = {"maddpg": ("dcc_tpu_torch_maddpg", 12, "dcc_tpu_maddpg"),
                "maddpg_tuned": ("dcc_tpu_torch_maddpg_tuned", 10, "dcc_tpu_maddpg_tuned")}
+# the connectivity-force arms: (the port's stem, its seed count, the
+# env fields its files record)
+CONNECT = dict(comm_force_scale=5.0, comm_r_scale=0.95)
+CONNECT_ARMS = {
+    "connect": ("dcc_tpu_torch_connect", 16,
+                dict(CONNECT, compensated_forces=False, env_dtype="float32")),
+    "connect_comp": ("dcc_tpu_torch_connect_comp", 16,
+                     dict(CONNECT, compensated_forces=True, env_dtype="float32")),
+    "connect_envf64": ("dcc_tpu_torch_connect_envf64", 6,
+                       dict(CONNECT, compensated_forces=False, env_dtype="float64")),
+}
+ALL_ARMS = {**ARMS, **MADDPG_ARMS, **CONNECT_ARMS}
 LAST, MIN_ITERS = 20, 200
 
 
@@ -67,18 +96,19 @@ def _final_coverages(directory, system):
 
 
 def _arm(arm):
-    system = (ARMS.get(arm) or MADDPG_ARMS[arm])[0]
-    return np.array(list(_final_coverages(PORT_DIR, system).values()))
+    return np.array(list(_final_coverages(PORT_DIR, ALL_ARMS[arm][0]).values()))
 
 
-@pytest.mark.parametrize("arm", sorted(ARMS) + sorted(MADDPG_ARMS))
+@pytest.mark.parametrize("arm", sorted(ARMS) + sorted(MADDPG_ARMS) + sorted(CONNECT_ARMS))
 def test_artifacts_are_full_runs_on_a_card(arm):
-    system, n_seeds = (ARMS.get(arm) or MADDPG_ARMS[arm])[:2]
+    system, n_seeds = ALL_ARMS[arm][:2]
     runs = _runs(PORT_DIR, system)
     assert sorted(d["seed"] for d in runs) == list(range(n_seeds))
     for d in runs:
         assert len(d["series"]["coverage_rate"]) >= MIN_ITERS, d["seed"]
         assert "NVIDIA" in d["system"], d["system"]
+        if arm in CONNECT_ARMS:  # the files are the arm's runs
+            assert {k: d[k] for k in CONNECT_ARMS[arm][2]} == CONNECT_ARMS[arm][2], d["seed"]
 
 
 def test_both_arms_learn():
@@ -99,6 +129,27 @@ def test_final_coverage_not_below_band(arm, band, max_gap):
     a = _arm(arm)
     b = np.array(list(_final_coverages(BAND_DIR, band).values()))
     assert len(b) >= 10, band
+    p = float(mannwhitneyu(a, b, alternative="less").pvalue)
+    assert p > 0.05, (f"{arm} arm stochastically below {band} (one-sided MWU p={p:.4f}; "
+                      f"port={sorted(np.round(a, 3))}, band={sorted(np.round(b, 3))})")
+    if max_gap is not None:
+        assert a.mean() - b.mean() > max_gap, (a.mean(), b.mean())
+
+
+@pytest.mark.parametrize(
+    "arm,band,n_band,max_gap",
+    [("connect", "reference_connect", 16, -0.05), ("connect", "dcc_tpu_connect", 32, -0.05),
+     ("connect_comp", "dcc_tpu_connect_comp", 16, -0.05),
+     ("connect_envf64", "dcc_tpu_connect_envf64", 6, None)],
+)
+def test_connect_arm_not_below_band(arm, band, n_band, max_gap):
+    """One-sided Mann-Whitney U: the connectivity-force arm's seeds are not
+    stochastically below the band's at alpha 0.05; where a mean gap is
+    given, the arm's mean lies above the band's plus it
+    (tests/test_curve_parity.py:211-225)."""
+    a = _arm(arm)
+    b = np.array(list(_final_coverages(BAND_DIR, band).values()))
+    assert len(a) == CONNECT_ARMS[arm][1] and len(b) == n_band, (len(a), len(b))
     p = float(mannwhitneyu(a, b, alternative="less").pvalue)
     assert p > 0.05, (f"{arm} arm stochastically below {band} (one-sided MWU p={p:.4f}; "
                       f"port={sorted(np.round(a, 3))}, band={sorted(np.round(b, 3))})")
@@ -176,3 +227,36 @@ def test_curve_runner_writes_the_maddpg_schema(tmp_path):
     for k, v in d["series"].items():
         assert len(v) == 2 and np.isfinite(v).all(), k
     assert d["series"]["qf_loss"][1] > 0.0  # 2,400 rows an iteration, past the batch of 256
+
+
+@pytest.mark.parametrize(
+    "knobs,stem,fields",
+    [(dict(DCC_CURVE_CONFIG="connect"), "dcc_tpu_torch_connect", CONNECT_ARMS["connect"][2]),
+     (dict(DCC_CURVE_CONFIG="connect", DCC_CURVE_COMPENSATED="1"), "dcc_tpu_torch_connect_comp",
+      CONNECT_ARMS["connect_comp"][2]),
+     (dict(DCC_CURVE_CONFIG="connect", DCC_CURVE_ENV_DTYPE="float64"),
+      "dcc_tpu_torch_connect_envf64", CONNECT_ARMS["connect_envf64"][2])],
+    ids=["connect", "comp", "envf64"],
+)
+def test_curve_runner_env_knobs(tmp_path, monkeypatch, knobs, stem, fields):
+    """The runner's env knobs (``run_dcc_curve.py:68-102``) on the CPU for two
+    iterations, in this process: each arm's file name, the env fields it
+    records, and finite series."""
+    import importlib.util
+
+    for k in ("DCC_CURVE_DTYPE", "DCC_CURVE_ALGO_YAML", "DCC_CURVE_COMPENSATED",
+              "DCC_CURVE_ENV_DTYPE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in dict(knobs, DCC_CURVE_DEVICE="cpu", DCC_CURVE_ITERS="2").items():
+        monkeypatch.setenv(k, v)
+    spec = importlib.util.spec_from_file_location(
+        "run_torch_curve", os.path.join(ROOT, "scripts", "run_torch_curve.py"))
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    runner.run_seed(3, str(tmp_path))
+    assert os.listdir(tmp_path) == [f"{stem}_seed3.json"]
+    d = json.load(open(tmp_path / f"{stem}_seed3.json"))
+    assert {k: d[k] for k in fields} == fields
+    assert (d["seed"], d["n_iters"], d["n_rollout_threads"]) == (3, 2, 16)
+    for k, v in d["series"].items():
+        assert len(v) == 2 and np.isfinite(v).all(), k

@@ -112,15 +112,11 @@ def test_share_obs_matches_jax():
      dict(compensated_forces=True)],
 )
 def test_unported_env_options_raise(kw):
-    """compensated_forces (ROADMAP A12) is still refused. Discrete actions and
-    randomized and moving PoIs, refused until the port ran them, now reset
-    and step (held against JAX in tests/test_torch_env.py's mode and PoI
-    tests below)."""
+    """Every env option is ported now. Discrete actions, randomized and
+    moving PoIs and the compensated pull force, each refused until the port
+    ran it, reset and step (held against JAX in tests/test_torch_env.py's
+    mode and PoI tests below and in tests/test_torch_df64.py)."""
     cfg = EnvConfig(**kw)
-    if cfg.compensated_forces:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            reset_batch(cfg, 2, device="cpu")
-        return
     gen = torch.Generator().manual_seed(0)
     states = reset_batch(cfg, 2, device="cpu", generator=gen)
     actions = torch.ones((2, cfg.n_agents, cfg.action_width))

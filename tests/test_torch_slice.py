@@ -162,8 +162,12 @@ def test_dispatch_rules_on_cuda(monkeypatch, kw, trunk, loss):
 
 @pytest.mark.parametrize("kw", [dict(env_dtype="float64")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MAPPO(MAPPOConfig(**kw), EnvConfig(), device="cpu")
+    """env_dtype="float64", refused until the port ran it, builds
+    (tests/test_torch_precision.py holds its rollout against JAX); a dtype
+    outside both alias sets raises as JAX's does."""
+    assert MAPPO(MAPPOConfig(**kw), EnvConfig(), device="cpu").env_dtype == torch.float64
+    with pytest.raises(ValueError, match="unknown env_dtype"):
+        MAPPO(MAPPOConfig(env_dtype="float16"), EnvConfig(), device="cpu")
 
 
 # Options the port accepts beyond the default config, each alone: (id,
