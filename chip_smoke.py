@@ -172,7 +172,21 @@ Phases (any failure exits non-zero):
    the f64 arm, the iteration times printed; (d) one deterministic f64-env
    rollout (16 envs, 150 steps) on the card against the CPU from the same
    parameters within ``ROLLOUT_ATOL``;
-7. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
+7. the env axis over ranks (``check_mesh``, ROADMAP A13): a 1-rank NCCL
+   mesh in this process, the default bf16 config at 16 envs, 3 iterations,
+   bit for bit against the unsharded run; 2 gloo ranks spawned on card 0
+   (NCCL puts no two ranks on one device; gloo's collectives take the CUDA
+   tensors), 8 envs each, against one process at 16: each rank's rollout
+   its rows of the one-process rollout bit for bit (``rows_fingerprint``),
+   K1 1, K2 301, K3 15 and K4 15 launches a rank, the update's metrics and
+   parameters within the bf16 update's bound (``MESH_PARAM_TOL``,
+   ``MESH_RTOL``, ``MESH_ATOL``), the ranks bit-identical; the 20-UAV
+   preset at 1,024 envs over the same ranks the same way (K3 and the
+   chunked K4 + dV0 on each rank's 512 envs; ``MESH_REDUCED``); MADDPG
+   over 2 ranks (the replicated buffer against one process's); 2 NCCL ranks
+   on two cards where the machine shows two, else a line that says why
+   not; each iteration's time per rank beside one process's;
+8. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
    others; K4 at the 20-UAV preset's 153,600 x 4,840 rows as
@@ -2868,6 +2882,404 @@ def check_precision(results: dict):
     print(f"  precision phase seconds: {json.dumps(seconds)}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the env axis over ranks (dcc_tpu_torch.parallel, ROADMAP A13)
+# ---------------------------------------------------------------------------
+
+MESH_ITERS = 3  # iterations of a mesh case: the first held against one process, all timed
+# each rank's kernels in the first iteration of the default bf16 config and of
+# the 20-UAV preset (the one-process run's, TRAIN_RUNS)
+MESH_LAUNCHES = {"default": next(k for t, _, k in TRAIN_RUNS if t == "bf16"),
+                 WIDE: next(k for t, _, k in TRAIN_RUNS if t == f"preset-{WIDE}")}
+# the bf16 update's bound of check_update_against_cpu (UPDATE_CHECKS' bf16
+# fused entries): max |param diff|, metrics rtol / atol
+MESH_PARAM_TOL, MESH_RTOL, MESH_ATOL = 1e-3, 2e-3, 3e-5
+# the first step's all-reduced gradients against one process's (max |diff| /
+# max |one process's|, a tensor at a time): only the f32 summation order of
+# the kernels' row sums differs, whose terms cancel (advantages of mean 0;
+# 7.0e-5 on the actor's head at 16 envs). A reduction fault (a term counted
+# per rank, a rank's own mean or count) moves a gradient by a rank's share
+# of it, 1e-2 and more
+MESH_GRAD_RTOL = 1e-3
+MESH_REDUCED = {"n_rollout_threads": f"{WIDE_ENVS} of the preset's 16,384 envs, over 2 ranks "
+                                     f"on one card (the smoke's time)", "n_iters": "1 iteration"}
+TRAJ_FIELDS = ("obs", "actions", "log_probs", "values", "rewards", "masks", "coverage")
+
+
+def rows_fingerprint(x):
+    """(T, E) int64 of a (T, E, ...) trajectory field: for each step and
+    env, a position-weighted sum of the bit patterns of its entries, so that
+    two runs whose fingerprints agree hold the same bits there (up to a hash
+    collision)."""
+    import torch
+
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16, torch.float64: torch.int64}
+    x = x.reshape(x.shape[0], x.shape[1], -1)
+    w = torch.arange(1, x.shape[2] + 1, dtype=torch.int64, device=x.device)
+    return torch.cat([(chunk.contiguous().view(ints[x.dtype]).long() * w).sum(dim=2)
+                      for chunk in x.split(64, dim=1)], dim=1)
+
+
+def mesh_spec(tag: str, algo: str = "mappo", preset=None, envs: int = 16,
+              iters: int = MESH_ITERS) -> dict:
+    return dict(tag=tag, algo=algo, preset=preset, envs=envs, iters=iters)
+
+
+def bf16_fingerprint(t):
+    """An int64 of a tensor's bf16 rounding: a position-weighted sum of its
+    bit patterns (the kernels' weight copies; equal fingerprints, equal
+    copies up to a hash collision)."""
+    import torch
+
+    x = t.detach().reshape(-1).to(torch.bfloat16).view(torch.int16).long()
+    return (x * torch.arange(1, x.numel() + 1, dtype=torch.int64, device=x.device)).sum()
+
+
+def mesh_program(spec: dict, mesh, device) -> dict:
+    """One mesh case on ``device``, data-parallel over ``mesh`` (None: one
+    process): MAPPO in bf16 (the default config, or ``preset``) or MADDPG
+    (``maddpg.yaml``) at ``envs`` envs, from seed 0. MAPPO's first
+    iteration runs by its parts, recording the launches, the rollout's
+    fingerprints, the update's metrics and the parameters after it, the
+    first optimizer step's (all-reduced) gradients and parameters, and
+    after every step the fingerprints of the parameters' bf16 roundings;
+    every iteration is timed to its end on the device."""
+    import torch
+
+    from dcc_tpu_torch.algos import make_algo
+    from dcc_tpu_torch.algos.maddpg import ReplayBuffer
+    from dcc_tpu_torch.configs import load, load_preset
+    from dcc_tpu_torch.ops import LAUNCHES, reset_launches
+
+    over = {"n_rollout_threads": spec["envs"], "n_eval_rollout_threads": 0, "seed": 0}
+    if spec["algo"] == "maddpg":
+        cfg, env_cfg, _ = load(over, algo_yaml=os.path.join(
+            ROOT, "dcc_tpu_torch", "configs", "algo_config", "maddpg.yaml"))
+    elif spec["preset"]:
+        cfg, env_cfg, _ = load_preset(spec["preset"], overrides={**over,
+                                                                 "compute_dtype": "bfloat16"})
+    else:
+        cfg, env_cfg, _ = load({**over, "compute_dtype": "bfloat16"})
+    algo = make_algo(cfg, env_cfg, device=device, mesh=mesh)
+    ts = algo.init_state(0)
+    params = lambda: {f"{net}.{k}": v.detach().cpu().clone()
+                      for net in ("actor", "critic") for k, v in
+                      getattr(ts, net).state_dict().items()}
+    times, out = [], {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return r
+
+    if spec["algo"] == "maddpg":
+        out["metrics"] = [timed(lambda: algo.train_iteration(ts)) for _ in range(spec["iters"])]
+        n = spec["iters"] * algo.cfg.n_envs * algo.cfg.steps_per_iter
+        out["buffer"] = {k: getattr(ts.buffer, k)[:n].cpu() for k in ReplayBuffer.TENSORS}
+    else:
+        reset_launches()
+        phases, collectives, current = {}, collections.Counter(), [None]
+        if mesh is not None:
+            # the first iteration's collectives by phase, each timed to its end
+            all_sum_ = mesh.all_sum_
+
+            def timed_sum(tensors):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                all_sum_(tensors)
+                torch.cuda.synchronize()
+                collectives[current[0]] += time.perf_counter() - t0
+
+            mesh.all_sum_ = timed_sum
+
+        def phase(name, fn):
+            current[0] = name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            phases[name] = time.perf_counter() - t0
+            current[0] = None
+            return r
+
+        grads1, step1, bf16_steps, step = {}, {}, [], algo._step
+
+        def traced_step(ts_):
+            named = [(f"{net}.{k}", p) for net in ("actor", "critic")
+                     for k, p in getattr(ts_, net).named_parameters()]
+            if not grads1:
+                grads1.update({k: p.grad.detach().float().cpu() for k, p in named})
+            norms = step(ts_)
+            if not step1:
+                step1.update({k: p.detach().cpu().clone() for k, p in named})
+            bf16_steps.append(torch.stack([bf16_fingerprint(p) for _, p in named]))
+            return norms
+
+        algo._step = traced_step
+
+        def first():
+            traj = phase("rollout", lambda: algo.rollout(ts, algo.cfg.n_rollout_threads))
+            adv, ret = phase("returns", lambda: algo.compute_returns(ts, traj))
+            m = phase("update", lambda: algo.update(ts, traj, adv, ret))
+            return traj, torch.cat([algo.episode_metrics(traj, algo.cfg.n_rollout_threads), m])
+
+        traj, m = timed(first)
+        algo._step = step
+        if mesh is not None:
+            mesh.all_sum_ = all_sum_
+        out.update(grads1=grads1, step1=step1, bf16_steps=torch.stack(bf16_steps).cpu(),
+                   param_keys=list(grads1))
+        out.update(launches=dict(LAUNCHES), metrics=m.cpu(), state1=params(), phases=phases,
+                   collective_s=collectives["update"],
+                   fingerprint={f: rows_fingerprint(getattr(traj, f)).cpu()
+                                for f in TRAJ_FIELDS},
+                   values=traj.values.cpu(),
+                   rows=(0, spec["envs"]) if mesh is None else
+                   (mesh.rows(spec["envs"]).start, mesh.rows(spec["envs"]).stop))
+        del traj
+        for _ in range(spec["iters"] - 1):
+            timed(lambda: algo.train_iteration(ts))
+    out.update(times=times, state=params(), ranks=1 if mesh is None else mesh.size)
+    return out
+
+
+def _mesh_rank(specs: list, out_dir: str, backend: str, one_card: bool) -> None:
+    """One rank of the mesh cases ``specs``, started by
+    ``dcc_tpu_torch.parallel.distributed.spawn``: joins the group over
+    ``backend`` on card 0 (``one_card``) or on its own, runs each case and
+    writes its results to ``out_dir``."""
+    import torch
+
+    from dcc_tpu_torch.parallel import distributed, make_mesh
+
+    # the ranks keep this process's host thread count: the networks are
+    # initialized on the host, where the orthogonal init's QR rounds by it,
+    # and the rollouts are held bit for bit
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(backend=backend)
+    try:
+        rank = distributed.process_index()
+        device = torch.device("cuda", 0 if one_card else distributed.local_rank())
+        torch.cuda.set_device(device)
+        for spec in specs:
+            out = mesh_program(spec, make_mesh(device), device)
+            torch.save(out, os.path.join(out_dir, f"{spec['tag']}_{rank}.pt"))
+        distributed.barrier("exit")
+    finally:
+        distributed.shutdown()
+
+
+def _run_ranks(specs: list, backend: str, one_card: bool, world: int = 2) -> dict:
+    """``specs`` on ``world`` spawned ranks; returns {tag: [rank results]}."""
+    import tempfile
+
+    import torch
+
+    from dcc_tpu_torch.parallel import distributed
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        distributed.spawn(_mesh_rank, world, (specs, out_dir, backend, one_card))
+        return {s["tag"]: [torch.load(os.path.join(out_dir, f"{s['tag']}_{r}.pt"),
+                                      weights_only=True) for r in range(world)]
+                for s in specs}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _params_gap(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def check_mesh_case(results: dict, tag: str, ref: dict, ranks: list, launches: dict,
+                    exact: bool, card: str):
+    """Hold a MAPPO mesh case's ranks against the one-process run ``ref``:
+    each rank's rollout its rows of ``ref``'s bit for bit (fingerprints),
+    ``launches`` on each rank in the first iteration, the update's metrics
+    and parameters within the bf16 update's bound (``exact``: bit for bit,
+    every iteration), the ranks' parameters bit for bit."""
+    import torch
+
+    row = dict(ranks=len(ranks), ref_times=ref["times"],
+               rank_times=[r["times"] for r in ranks], card=card)
+    for i, r in enumerate(ranks):
+        lo, hi = r["rows"]
+        for f in TRAJ_FIELDS:
+            apart = r["fingerprint"][f] != ref["fingerprint"][f][:, lo:hi]
+            if apart.any():
+                steps = apart.any(dim=1).nonzero().flatten().tolist()
+                gap = float((r["values"] - ref["values"][:, lo:hi]).abs().max())
+                raise SmokeFailure(f"mesh {tag}: rank {i}'s rollout {f} differs from the "
+                                   f"one-process run's envs {lo}:{hi} at {int(apart.sum())} "
+                                   f"(step, env) of {apart.numel()}, first at step {steps[0]} "
+                                   f"(values apart by up to {gap:.3e})")
+        if r["launches"] != launches:
+            raise SmokeFailure(f"mesh {tag}: rank {i} launched {r['launches']}, expected "
+                               f"{launches}")
+    gap = _params_gap(ranks[0]["state1"], ref["state1"])
+    mgap = float((ranks[0]["metrics"] - ref["metrics"]).abs().max())
+    # the first step's gradients, before any parameter differs: a reduction
+    # fault shows here, where the update's parameters would divide it by lr
+    g, g_ref = ranks[0]["grads1"], ref["grads1"]
+    grad_rel = {k: float((g[k] - g_ref[k]).abs().max() / g_ref[k].abs().max().clamp_min(1e-30))
+                for k in g_ref}
+    grad_key = max(grad_rel, key=grad_rel.get)
+    # where the update's parameters part: the tensor and entry of the largest
+    # gap, that entry's first gradient, the gap after the first step, and the
+    # first step after which a bf16 weight copy differs
+    s1_gap = _params_gap(ranks[0]["step1"], ref["step1"])
+    key_gaps = {k: float((ranks[0]["state1"][k].float() - ref["state1"][k].float()).abs().max())
+                for k in ref["state1"]}
+    gap_key = max(key_gaps, key=key_gaps.get)
+    apart = ranks[0]["bf16_steps"] != ref["bf16_steps"]  # (steps, tensors)
+    first_bf16 = int(apart.any(dim=1).nonzero()[0]) + 1 if apart.any() else None
+    diff = (ranks[0]["state1"][gap_key].float() - ref["state1"][gap_key].float()).abs()
+    at = int(diff.argmax())
+    g_at = (float(g_ref[gap_key].reshape(-1)[at]) if gap_key in g_ref else None)
+    parting = dict(grad_rel=grad_rel[grad_key], grad_key=grad_key, step1_param_gap=s1_gap,
+                   grad_rel_by_tensor=grad_rel,
+                   gap_key=gap_key, gap_entry=at, gap_entry_grad1=g_at,
+                   gap_key_grad1_max=(float(g_ref[gap_key].abs().max())
+                                      if gap_key in g_ref else None),
+                   first_bf16_step=first_bf16,
+                   bf16_tensors_apart=apart.sum(dim=1).tolist(),
+                   tensors=len(ranks[0]["param_keys"]))
+    row.update(param_gap=gap, metrics_gap=mgap, parting=parting, launches=ranks[0]["launches"],
+               metrics=ranks[0]["metrics"].tolist(), ref_phases=ref["phases"],
+               rank_phases=[r["phases"] for r in ranks],
+               collective_s=[r["collective_s"] for r in ranks])
+    results[tag] = row
+    fmt = lambda ts: "/".join(f"{t:.3f}" for t in ts)
+    ph = lambda p: ", ".join(f"{k} {v:.4f}" for k, v in p.items())
+    print(f"  {tag}: rollouts bit for bit on every rank; launches a rank {ranks[0]['launches']}; "
+          f"update vs one process: max |param diff| {gap:.3e}, metrics {mgap:.3e}"
+          f"{' (bit for bit)' if exact else ''}", flush=True)
+    print(f"    first step's gradients vs one process: {parting['grad_rel']:.3e} of the "
+          f"largest entry at most ({parting['grad_key']}); parameters after it "
+          f"{s1_gap:.3e}; bf16 weight copies first apart after step "
+          f"{parting['first_bf16_step']} (tensors apart a step "
+          f"{parting['bf16_tensors_apart']} of {parting['tensors']}); the largest gap in "
+          f"{gap_key}[{at}], its first gradient {g_at} (the tensor's largest "
+          f"{parting['gap_key_grad1_max']})", flush=True)
+    print("    first step's gradients, the most apart: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in sorted(grad_rel.items(), key=lambda kv: -kv[1])[:4]),
+        flush=True)
+    print(f"    iteration s: one process {fmt(ref['times'])}; "
+          + "; ".join(f"rank {i} {fmt(r['times'])}" for i, r in enumerate(ranks))
+          + f" ({card})", flush=True)
+    print(f"    first iteration's phases s: one process {ph(ref['phases'])}; "
+          + "; ".join(f"rank {i} {ph(r['phases'])}, of the update in collectives "
+                      f"{r['collective_s']:.4f}" for i, r in enumerate(ranks)), flush=True)
+    if exact:
+        same = (torch.equal(ranks[0]["metrics"], ref["metrics"])
+                and all(torch.equal(ranks[0][s][k], ref[s][k])
+                        for s in ("state1", "state") for k in ref[s]))
+        if not same:
+            raise SmokeFailure(f"mesh {tag}: not bit for bit against one process (params "
+                               f"{gap:.3e}, metrics {mgap:.3e})")
+    elif gap > MESH_PARAM_TOL or not torch.allclose(ranks[0]["metrics"], ref["metrics"],
+                                                     rtol=MESH_RTOL, atol=MESH_ATOL):
+        raise SmokeFailure(f"mesh {tag}: the update differs from one process's: params "
+                           f"{gap:.3e} (bound {MESH_PARAM_TOL}), metrics "
+                           f"{ranks[0]['metrics'].tolist()} vs {ref['metrics'].tolist()}")
+    for r in ranks[1:]:
+        if not (torch.equal(r["metrics"], ranks[0]["metrics"])
+                and all(torch.equal(r[s][k], ranks[0][s][k])
+                        for s in ("state1", "state") for k in r[s])):
+            raise SmokeFailure(f"mesh {tag}: the ranks' parameters or metrics differ")
+    if grad_rel[grad_key] > (0.0 if exact else MESH_GRAD_RTOL):
+        raise SmokeFailure(f"mesh {tag}: the first step's gradient {grad_key} differs from one "
+                           f"process's by {grad_rel[grad_key]:.3e} of its largest entry (bound "
+                           f"{0.0 if exact else MESH_GRAD_RTOL})")
+    print("    ranks bit-identical; every bound held", flush=True)
+
+
+def check_maddpg_mesh(results: dict, ref: dict, ranks: list, card: str):
+    """MADDPG over the ranks: the replicated buffer within JAX's bound of
+    one process's (tests/test_parallel.py:120-127), the ranks' networks bit
+    for bit."""
+    import torch
+
+    equal = 0
+    for k, want in ref["buffer"].items():
+        got = ranks[0]["buffer"][k]
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise SmokeFailure(f"mesh maddpg: buffer {k} differs from one process's: "
+                               f"{float((got - want).abs().max()):.3e}")
+        equal += int(torch.equal(got, want))
+        if not torch.equal(got, ranks[1]["buffer"][k]):
+            raise SmokeFailure(f"mesh maddpg: the ranks' buffers {k} differ")
+    if not all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+               for k in ranks[0]["state"]):
+        raise SmokeFailure("mesh maddpg: the ranks' networks differ")
+    gap = _params_gap(ranks[0]["state"], ref["state"])
+    results["maddpg-gloo-2ranks"] = dict(buffer_fields_bit_for_bit=equal, param_gap=gap,
+                                         ref_times=ref["times"],
+                                         rank_times=[r["times"] for r in ranks], card=card)
+    fmt = lambda ts: "/".join(f"{t:.3f}" for t in ts)
+    print(f"  maddpg-gloo-2ranks: buffer within 1e-5 of one process's ({equal} of "
+          f"{len(ref['buffer'])} fields bit for bit), ranks bit-identical, networks vs one "
+          f"process {gap:.3e}; iteration s: one process {fmt(ref['times'])}; "
+          + "; ".join(f"rank {i} {fmt(r['times'])}" for i, r in enumerate(ranks))
+          + f" ({card})", flush=True)
+
+
+def check_mesh(results: dict):
+    """Phase 7: (1) a 1-rank NCCL mesh in this process against the
+    unsharded run, bit for bit; (2) 2 gloo ranks on card 0 (8 envs each),
+    the default bf16 config, against one process at 16 envs; (3) the 20-UAV
+    preset at 1,024 envs over the same 2 ranks (``MESH_REDUCED``); (4)
+    MADDPG over 2 ranks; (5) 2 NCCL ranks on two cards where the machine
+    has them."""
+    import torch
+
+    from dcc_tpu_torch.parallel import distributed, make_mesh
+
+    card = card_line()
+    dev = torch.device("cuda", 0)
+    default = mesh_spec("default")
+    wide = mesh_spec(f"{WIDE}", preset=WIDE, envs=WIDE_ENVS, iters=1)
+    maddpg = mesh_spec("maddpg", algo="maddpg", iters=1)
+    refs = {s["tag"]: mesh_program(s, None, dev) for s in (default, wide, maddpg)}
+    for tag, key in (("default", "default"), (WIDE, WIDE)):
+        if refs[tag]["launches"] != MESH_LAUNCHES[key]:
+            raise SmokeFailure(f"mesh {tag}: one process launched {refs[tag]['launches']}")
+    print(f"  one process: default {refs['default']['launches']}", flush=True)
+
+    distributed.initialize(coordinator_address=f"127.0.0.1:{distributed.free_port()}",
+                           num_processes=1, process_id=0, backend="nccl")
+    try:
+        one = mesh_program(default, make_mesh(dev), dev)
+    finally:
+        distributed.shutdown()
+    check_mesh_case(results, "nccl-1rank", refs["default"], [one], MESH_LAUNCHES["default"],
+                    True, card)
+
+    torch.cuda.empty_cache()  # the card's memory for the ranks
+    gloo = _run_ranks([default, wide, maddpg], "gloo", one_card=True)
+    check_mesh_case(results, "gloo-2ranks-cuda0", refs["default"], gloo["default"],
+                    MESH_LAUNCHES["default"], False, card)
+    check_mesh_case(results, f"gloo-2ranks-{WIDE}", refs[WIDE], gloo[WIDE],
+                    MESH_LAUNCHES[WIDE], False, card)
+    results[f"gloo-2ranks-{WIDE}"]["reduced"] = MESH_REDUCED
+    print(f"    reduced: {MESH_REDUCED}", flush=True)
+    check_maddpg_mesh(results, refs["maddpg"], gloo["maddpg"], card)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = _run_ranks([default], "nccl", one_card=False)
+        check_mesh_case(results, "nccl-2cards", refs["default"], nccl["default"],
+                        MESH_LAUNCHES["default"], False, card)
+    else:
+        results["nccl-2cards"] = dict(run=False, cards=n_cards)
+        print(f"  nccl-2cards: not run: this machine shows {n_cards} card (NCCL puts no two "
+              f"ranks on one device); NCCL across cards stays unverified", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2924,7 +3336,14 @@ def main(argv=None) -> int:
           f"card (at {time.perf_counter() - t0:.0f} s)", flush=True)
     precision: dict = {}
     check_precision(precision)
-    print(f"[7] done at {time.perf_counter() - t0:.0f} s", flush=True)
+    print(f"[7] the env axis over ranks: a 1-rank NCCL mesh, 2 gloo ranks on card 0, MADDPG "
+          f"(at {time.perf_counter() - t0:.0f} s)", flush=True)
+    mesh: dict = {}
+    t_mesh = time.perf_counter()
+    check_mesh(mesh)
+    mesh["seconds"] = time.perf_counter() - t_mesh
+    print(f"  mesh phase {mesh['seconds']:.1f} s", flush=True)
+    print(f"[8] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -2954,7 +3373,7 @@ def main(argv=None) -> int:
             json.dump(dict(card=card, kind=kind, torch=torch.__version__,
                            build_s=built["_seconds"], ptxas=ptxas, sass_hmma=sass,
                            checks=checks, updates=updates, train=runs, precision=precision,
-                           kernels=kernels),
+                           mesh=mesh, kernels=kernels),
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(card)

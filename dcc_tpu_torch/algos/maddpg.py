@@ -24,6 +24,14 @@ step loop never waits for the device. The buffer indices, the OU noise, the
 warm-up actions and a random env reset draw from the state's one
 ``torch.Generator``; ``collect``, ``update_once`` and ``train_iteration``
 also take injected draws (JAX's, in the tests).
+
+With a :class:`~dcc_tpu_torch.parallel.mesh.Mesh` (``mesh=``) this is the
+JAX package's "replicated buffer + sharded collection": each rank steps its
+block of the env farm, OU state and observations, drawing the noise of all
+``n_envs`` envs from the generator every rank holds and keeping its rows;
+every step all-gathers the fresh transitions into the replicated buffer in
+global env order, and ``update_once`` runs identically on every rank (no
+gradient sum). ``eval_iteration`` runs all its envs on every rank.
 """
 
 from __future__ import annotations
@@ -34,8 +42,9 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..envs import get_scenario, make_vec_fns
+from ..envs import get_scenario
 from ..models.rlkit_mlp import RlkitMlp
+from ..parallel.mesh import Mesh, env_fns
 from ..utils import resolve_device
 from ..utils.profiling import timed_phase
 
@@ -104,12 +113,19 @@ class MADDPGState:
 
 
 class MADDPG:
-    def __init__(self, cfg: MADDPGConfig, env_cfg, device=None, scenario: str = "coverage"):
+    def __init__(self, cfg: MADDPGConfig, env_cfg, device=None, scenario: str = "coverage",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.env_cfg = env_cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if device is None and mesh else device)
+        if mesh is not None and not mesh.divides(cfg.n_envs):
+            raise ValueError(
+                f"n_envs ({cfg.n_envs}) must divide over the mesh ({mesh.size} devices)")
         self.scenario = scenario
-        self._reset_batch, self._step_batch = make_vec_fns(scenario)
+        # the collection's env farm: this rank's block of the n_envs envs
+        self.rows = slice(0, cfg.n_envs) if mesh is None else mesh.rows(cfg.n_envs)
+        self._reset_batch, self._step_batch = env_fns(scenario, mesh, cfg.n_envs)
         self._obs_fn = get_scenario(scenario)["observation"]
         if getattr(env_cfg, "resolved_action_mode", "continuous") != "continuous":
             raise NotImplementedError(
@@ -141,7 +157,8 @@ class MADDPG:
             actor, critic = self.make_networks(seed)
         n, d, a = self.n_agents, self.obs_dim, self.act_dim
         gen = torch.Generator(device=self.device).manual_seed(seed + 1)
-        env_states = self._reset_batch(self.env_cfg, cfg.n_envs, device=self.device,
+        n_local = self.rows.stop - self.rows.start
+        env_states = self._reset_batch(self.env_cfg, n_local, device=self.device,
                                        generator=self._env_gen(gen))
         f32 = dict(dtype=torch.float32, device=self.device)
         cap = cfg.buffer_capacity
@@ -152,7 +169,7 @@ class MADDPG:
             next_obs=torch.zeros((cap, n, d), **f32),
             dones=torch.zeros((cap, 1), **f32),
         )
-        return MADDPGState(
+        st = MADDPGState(
             actor=actor,
             critic=critic,
             target_actor=_frozen_copy(actor),
@@ -162,11 +179,21 @@ class MADDPG:
             buffer=buffer,
             env_states=env_states,
             obs=self._obs_fn(self.env_cfg, env_states),
-            ou_state=torch.full((cfg.n_envs, n, a), cfg.ou_mu, **f32),
+            ou_state=torch.full((n_local, n, a), cfg.ou_mu, **f32),
             total_steps=0,
             iteration=0,
             generator=gen,
         )
+        self.replicate(st)
+        return st
+
+    def replicate(self, st: MADDPGState) -> None:
+        """Under a mesh, every rank's networks, targets and Adam moments set
+        to the coordinator's (after init and after a load). No-op without
+        one."""
+        if self.mesh is not None:
+            self.mesh.replicate_([getattr(st, net) for net in MADDPGState.NETS],
+                                 (st.actor_opt, st.critic_opt))
 
     def _env_gen(self, gen: torch.Generator) -> Optional[torch.Generator]:
         return gen if self.env_cfg.random_reset else None
@@ -211,39 +238,59 @@ class MADDPG:
         / ``uniform`` (n_steps, E, N, act) replace the generator's normal
         and U(-1, 1) draws. Returns the mean over steps of the mean reward
         and the mean over envs of each env's best coverage, on the
-        device."""
+        device. Under a mesh the rank steps its rows of the E envs, and
+        the buffer and the metrics take every rank's."""
         cfg, env_cfg = self.cfg, self.env_cfg
         E, cap = cfg.n_envs, cfg.buffer_capacity
-        gen, buf = st.generator, st.buffer
-        shape = st.ou_state.shape
+        gen, buf, rows = st.generator, st.buffer, self.rows
+        shape = (E, *st.ou_state.shape[1:])
         rewards, cover = [], []
         for t in range(n_steps):
-            eps = noise[t] if noise is not None else torch.randn(
-                shape, generator=gen, device=self.device)
+            eps = (noise[t] if noise is not None else torch.randn(
+                shape, generator=gen, device=self.device))[rows]
             ou = self._ou_step(st.ou_state, eps)
             if st.total_steps < cfg.warmup_steps:
-                action = uniform[t] if uniform is not None else (
-                    torch.rand(shape, generator=gen, device=self.device) * 2.0 - 1.0)
+                action = (uniform[t] if uniform is not None else (
+                    torch.rand(shape, generator=gen, device=self.device) * 2.0 - 1.0))[rows]
             else:
                 action = torch.clamp(self._actors(st.actor, st.obs) + ou, -1.0, 1.0)
             env_states, out = self._step_batch(env_cfg, st.env_states, action,
-                                               self._env_gen(gen))
-            idx = torch.arange(buf.ptr, buf.ptr + E, device=self.device) % cap
-            buf.obs[idx] = st.obs
-            buf.actions[idx] = action
-            buf.rewards[idx] = out.reward[:, None]
+                                                self._env_gen(gen))
             # next_obs is the reset observation where an episode ended, and
             # done is the real termination alone (not truncation)
-            buf.next_obs[idx] = out.obs
-            buf.dones[idx] = out.done.to(torch.float32)[:, None]
+            obs, action_all, reward, next_obs, done, coverage = self._gather(
+                st.obs, action, out.reward, out.obs, out.done.to(torch.float32),
+                out.coverage_rate)
+            idx = torch.arange(buf.ptr, buf.ptr + E, device=self.device) % cap
+            buf.obs[idx] = obs
+            buf.actions[idx] = action_all
+            buf.rewards[idx] = reward[:, None]
+            buf.next_obs[idx] = next_obs
+            buf.dones[idx] = done[:, None]
             buf.ptr = (buf.ptr + E) % cap
             buf.size = min(buf.size + E, cap)
             st.env_states, st.obs = env_states, out.obs
             st.ou_state = ou.masked_fill(out.done[:, None, None], cfg.ou_mu)
             st.total_steps += E
-            rewards.append(out.reward.mean())
-            cover.append(out.coverage_rate)
+            rewards.append(reward.mean())
+            cover.append(coverage)
         return torch.stack(rewards).mean(), torch.stack(cover).max(dim=0).values.mean()
+
+    def _gather(self, *fields: torch.Tensor):
+        """Each f32 field of this rank's envs (E_local, ...) as that of all
+        E envs in global env order, in one collective (the fields
+        themselves without a mesh)."""
+        if self.mesh is None:
+            return fields
+        E = self.cfg.n_envs
+        flat = torch.cat([f.reshape(f.shape[0], -1) for f in fields], dim=1)
+        full = self.mesh.all_gather(flat, E)
+        out, i = [], 0
+        for f in fields:
+            w = f[0].numel()
+            out.append(full[:, i:i + w].reshape(E, *f.shape[1:]).contiguous())
+            i += w
+        return out
 
     # ------------------------------------------------------------------
     def update_once(self, st: MADDPGState, idx: Optional[torch.Tensor] = None):
@@ -308,11 +355,13 @@ class MADDPG:
         coverage."""
         env_cfg = self.env_cfg
         env_gen = self._env_gen(st.generator if generator is None else generator)
-        states = self._reset_batch(env_cfg, n_envs, device=self.device, generator=env_gen)
+        # every rank runs all n_envs envs, as JAX's replicated eval does
+        reset_batch, step_batch = env_fns(self.scenario, None, n_envs)
+        states = reset_batch(env_cfg, n_envs, device=self.device, generator=env_gen)
         obs = self._obs_fn(env_cfg, states)
         rewards, cover = [], []
         for _ in range(self.cfg.steps_per_iter):
-            states, out = self._step_batch(env_cfg, states, self._actors(st.actor, obs), env_gen)
+            states, out = step_batch(env_cfg, states, self._actors(st.actor, obs), env_gen)
             obs = out.obs
             rewards.append(out.reward)
             cover.append(out.coverage_rate)

@@ -55,18 +55,20 @@ def share_obs_from_obs(obs: torch.Tensor) -> torch.Tensor:
     return obs.reshape(*lead, 1, n * d).expand(*lead, n, n * d)
 
 
-def make_vec_fns(scenario: str = "coverage"):
+def make_vec_fns(scenario: str = "coverage", reset=None):
     """(reset_batch, step_batch) of a registered scenario, with the
     signatures and auto-reset of the coverage pair above (its own pair for
     coverage): ``reset_batch(cfg, n_envs, dtype=, device=, generator=)``
     and ``step_batch(cfg, states, actions, generator)``, which resets an
     env on done or on truncation, from a fresh layout for all E envs drawn
     from ``generator`` every step (counterpart of
-    ``dcc_tpu.envs.vector.make_vec_fns``)."""
-    if scenario == "coverage":
+    ``dcc_tpu.envs.vector.make_vec_fns``). ``reset`` (the same signature)
+    replaces the scenario's reset in both (a rank's share of the envs,
+    :func:`dcc_tpu_torch.parallel.mesh.sharded_reset`)."""
+    if scenario == "coverage" and reset is None:
         return reset_batch, step_batch
     from . import get_scenario
 
     sc = get_scenario(scenario)
-    return sc["reset"], functools.partial(_auto_reset_step, sc["step"], sc["reset"],
-                                          sc["observation"])
+    reset = sc["reset"] if reset is None else reset
+    return reset, functools.partial(_auto_reset_step, sc["step"], reset, sc["observation"])

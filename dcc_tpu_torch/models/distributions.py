@@ -11,7 +11,9 @@
 :func:`sample_head` and :func:`evaluate_head` dispatch on the actor head's
 kind as the reference's ACTLayer does, with the JAX package's reductions.
 Sampling takes an explicit ``torch.Generator``; a sampled action is always
-f32 (category indices as floats).
+f32 (category indices as floats). With ``rows = (n, r)`` a sampler draws
+its noise for all ``n`` rows and keeps the rows ``r``: a rank of a mesh
+draws as one process holding every env would.
 """
 
 from __future__ import annotations
@@ -25,15 +27,21 @@ import torch.nn.functional as F
 LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
+def _draw(fn, like: torch.Tensor, generator, rows) -> torch.Tensor:
+    """``fn`` (``torch.randn`` / ``torch.rand``) at ``like``'s shape, or
+    at ``n`` rows of it keeping the rows ``r`` when ``rows = (n, r)``."""
+    shape = like.shape if rows is None else (rows[0], *like.shape[1:])
+    x = fn(shape, generator=generator, dtype=like.dtype, device=like.device)
+    return x if rows is None else x[rows[1]]
+
+
 # Diagonal Gaussian
 
 def normal_sample(
-    mean: torch.Tensor, log_std: torch.Tensor, generator: Optional[torch.Generator] = None
+    mean: torch.Tensor, log_std: torch.Tensor, generator: Optional[torch.Generator] = None,
+    rows=None,
 ) -> torch.Tensor:
-    noise = torch.randn(
-        mean.shape, generator=generator, dtype=mean.dtype, device=mean.device
-    )
-    return mean + torch.exp(log_std) * noise
+    return mean + torch.exp(log_std) * _draw(torch.randn, mean, generator, rows)
 
 
 def normal_log_prob(mean, log_std, action) -> torch.Tensor:
@@ -54,12 +62,11 @@ def normal_mode(mean: torch.Tensor) -> torch.Tensor:
 
 # Categorical
 
-def categorical_sample(logits: torch.Tensor,
-                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+def categorical_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                       rows=None) -> torch.Tensor:
     """(..., 1) indices drawn by the Gumbel-max trick (as
     ``jax.random.categorical``): no host synchronisation."""
-    u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                   device=logits.device)
+    u = _draw(torch.rand, logits, generator, rows)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1, keepdim=True)
 
 
@@ -80,10 +87,9 @@ def categorical_mode(logits: torch.Tensor) -> torch.Tensor:
 
 # Bernoulli (MultiBinary actions)
 
-def bernoulli_sample(logits: torch.Tensor,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    u = torch.rand(logits.shape, generator=generator, dtype=logits.dtype,
-                   device=logits.device)
+def bernoulli_sample(logits: torch.Tensor, generator: Optional[torch.Generator] = None,
+                     rows=None) -> torch.Tensor:
+    u = _draw(torch.rand, logits, generator, rows)
     return (u < torch.sigmoid(logits)).to(logits.dtype)
 
 
@@ -114,32 +120,35 @@ def bernoulli_mode(logits: torch.Tensor) -> torch.Tensor:
 # entropies are pre-scaled so that reproduces the reference's weightings.
 
 def sample_head(kind: str, out, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, rows=None):
     if kind == "gaussian":
         mean, log_std = out
-        action = normal_mode(mean) if deterministic else normal_sample(mean, log_std, generator)
+        action = normal_mode(mean) if deterministic else normal_sample(mean, log_std, generator,
+                                                                       rows)
         return action, normal_log_prob(mean, log_std, action)
     if kind == "categorical":
-        action = categorical_mode(out) if deterministic else categorical_sample(out, generator)
+        action = categorical_mode(out) if deterministic else categorical_sample(out, generator,
+                                                                                rows)
         return action.float(), categorical_log_prob(out, action)
     if kind == "multi_discrete":
         # one generator feeds the branches in order; the per-branch
         # log-probs stay separate columns (the reference cats, not sums)
         actions, lps = [], []
         for logits in out:
-            a = categorical_mode(logits) if deterministic else categorical_sample(logits,
-                                                                                  generator)
+            a = categorical_mode(logits) if deterministic else categorical_sample(
+                logits, generator, rows)
             actions.append(a.float())
             lps.append(categorical_log_prob(logits, a))
         return torch.cat(actions, dim=-1), torch.cat(lps, dim=-1)
     if kind == "multi_binary":
-        action = bernoulli_mode(out) if deterministic else bernoulli_sample(out, generator)
+        action = bernoulli_mode(out) if deterministic else bernoulli_sample(out, generator, rows)
         return action, bernoulli_log_prob(out, action)
     if kind == "mixed":
         (mean, log_std), logits = out
-        a_c = normal_mode(mean) if deterministic else normal_sample(mean, log_std, generator)
+        a_c = normal_mode(mean) if deterministic else normal_sample(mean, log_std, generator,
+                                                                    rows)
         a_d = categorical_mode(logits) if deterministic else categorical_sample(logits,
-                                                                                generator)
+                                                                                generator, rows)
         lp = normal_log_prob(mean, log_std, a_c) + categorical_log_prob(logits, a_d)
         return torch.cat([a_c, a_d.to(a_c.dtype)], dim=-1), lp
     raise ValueError(f"unknown head kind {kind!r}")

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils import resolve_device
+from .valuenorm import batch_moments
 
 
 class PopArtState(NamedTuple):
@@ -36,16 +37,19 @@ def init(out_shape: int = 1, device=None, beta: float = 0.99999) -> PopArtState:
                        c(beta), c(1e-5))
 
 
-def update(st: PopArtState, kernel: torch.Tensor, bias: torch.Tensor, batch: torch.Tensor):
+def update(st: PopArtState, kernel: torch.Tensor, bias: torch.Tensor, batch: torch.Tensor,
+           allsum=None, n=None):
     """EMA-update the statistics on ``batch`` (..., out) and rescale the head
     (new std from the raw EMA statistics, clamped at 1e-4; kernel *=
     old_std / new_std; bias = (old_std * bias + old_mean - new_mean) /
-    new_std). Returns (state, kernel, bias)."""
+    new_std); over the ranks with ``allsum`` and ``n``
+    (:func:`~dcc_tpu_torch.models.valuenorm.batch_moments`). Returns
+    (state, kernel, bias)."""
     old_mean, old_std = st.mean, st.stddev
-    flat = batch.reshape(-1, batch.shape[-1]).to(st.mean.dtype)
+    b_mean, b_mean_sq = batch_moments(batch, st.mean.dtype, allsum, n)
     w = st.beta
-    mean = st.mean * w + flat.mean(dim=0) * (1.0 - w)
-    mean_sq = st.mean_sq * w + (flat**2).mean(dim=0) * (1.0 - w)
+    mean = st.mean * w + b_mean * (1.0 - w)
+    mean_sq = st.mean_sq * w + b_mean_sq * (1.0 - w)
     debias = st.debias * w + (1.0 - w)
     stddev = torch.clamp(torch.sqrt(mean_sq - mean**2), min=1e-4)
     new_kernel = kernel * (old_std / stddev)

@@ -38,13 +38,27 @@ def stats(st: ValueNormState):
     return mean, torch.clamp(mean_sq - mean**2, min=1e-2)
 
 
-def update(st: ValueNormState, batch: torch.Tensor) -> ValueNormState:
-    """batch (..., 1): mean over all leading axes."""
-    flat = batch.reshape(-1, batch.shape[-1]).to(st.mean.dtype)
+def batch_moments(batch: torch.Tensor, dtype: torch.dtype, allsum=None, n=None):
+    """(mean, mean of squares) of ``batch`` (..., out) over all leading
+    axes, each (out,): the sums over this process's rows, summed over the
+    ranks by ``allsum`` (a mesh's; None in one process), over ``n`` rows in
+    all (default this process's)."""
+    flat = batch.reshape(-1, batch.shape[-1]).to(dtype)
+    s = torch.stack([flat.sum(dim=0), (flat**2).sum(dim=0)])
+    if allsum is not None:
+        s = allsum(s)
+    s = s / (flat.shape[0] if n is None else n)
+    return s[0], s[1]
+
+
+def update(st: ValueNormState, batch: torch.Tensor, allsum=None, n=None) -> ValueNormState:
+    """batch (..., 1): mean over all leading axes (over the ranks with
+    ``allsum`` and ``n``, :func:`batch_moments`)."""
+    mean, mean_sq = batch_moments(batch, st.mean.dtype, allsum, n)
     w = st.beta
     return st._replace(
-        mean=st.mean * w + flat.mean(dim=0) * (1.0 - w),
-        mean_sq=st.mean_sq * w + (flat**2).mean(dim=0) * (1.0 - w),
+        mean=st.mean * w + mean * (1.0 - w),
+        mean_sq=st.mean_sq * w + mean_sq * (1.0 - w),
         debias=st.debias * w + (1.0 - w),
     )
 

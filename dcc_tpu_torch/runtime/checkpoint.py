@@ -9,7 +9,10 @@ MADDPG: the stacked networks and their targets, both Adams, the replay
 buffer with ``ptr`` and ``size``, the env states, observations and OU
 state, the counters and the generator's state.
 
-Either way training resumes exactly where it stopped.
+Either way training resumes exactly where it stopped. Under a mesh the
+state is replicated but for MADDPG's env farm, which is saved gathered in
+global env order and loaded as each rank's rows; the coordinator alone
+writes the file (the caller holds the ranks at a barrier around it).
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import torch
 
 from ..algos.maddpg import MADDPGState, ReplayBuffer
 from ..algos.mappo import TrainState
+from ..parallel import distributed
+from ..parallel.mesh import take_rows
 
 
 def _policy(ts: TrainState) -> dict:
@@ -35,8 +40,10 @@ def _policy(ts: TrainState) -> dict:
     }
 
 
-def _maddpg(st: MADDPGState) -> dict:
+def _maddpg(st: MADDPGState, mesh=None) -> dict:
     buf = st.buffer
+    n = st.obs.shape[0] * (1 if mesh is None else mesh.size)  # the farm's envs
+    gather = (lambda x: x) if mesh is None else (lambda x: mesh.all_gather(x, n))
     return {
         **{net: getattr(st, net).state_dict() for net in MADDPGState.NETS},
         "actor_opt": st.actor_opt.state_dict(),
@@ -44,26 +51,29 @@ def _maddpg(st: MADDPGState) -> dict:
         "buffer": {k: getattr(buf, k) for k in ReplayBuffer.TENSORS},
         "buffer_ptr": buf.ptr,
         "buffer_size": buf.size,
-        "env_states": {f.name: getattr(st.env_states, f.name)
+        "env_states": {f.name: gather(getattr(st.env_states, f.name))
                        for f in dataclasses.fields(st.env_states)},
-        "obs": st.obs,
-        "ou_state": st.ou_state,
+        "obs": gather(st.obs),
+        "ou_state": gather(st.ou_state),
         "total_steps": st.total_steps,
     }
 
 
-def save(path: str, ts) -> None:
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+def save(path: str, ts, mesh=None) -> None:
+    """Write ``ts`` to ``path`` (under ``mesh``: every rank gathers, the
+    coordinator writes)."""
     if isinstance(ts, MADDPGState):
-        body = _maddpg(ts)
+        body = _maddpg(ts, mesh)
     else:
         body = {"agents": [_policy(a) for a in ts.agents]} if ts.agents else _policy(ts)
         body["update_count"] = ts.update_count
-    torch.save({**body, "iteration": ts.iteration, "generator": ts.generator.get_state()},
-               path)
+    if distributed.is_coordinator():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.save({**body, "iteration": ts.iteration, "generator": ts.generator.get_state()},
+                   path)
 
 
-def _load_maddpg(blob: dict, st: MADDPGState) -> None:
+def _load_maddpg(blob: dict, st: MADDPGState, mesh=None) -> None:
     for net in MADDPGState.NETS:
         getattr(st, net).load_state_dict(blob[net])
     st.actor_opt.load_state_dict(blob["actor_opt"])
@@ -71,8 +81,9 @@ def _load_maddpg(blob: dict, st: MADDPGState) -> None:
     for k in ReplayBuffer.TENSORS:
         getattr(st.buffer, k).copy_(blob["buffer"][k])
     st.buffer.ptr, st.buffer.size = int(blob["buffer_ptr"]), int(blob["buffer_size"])
-    st.env_states = type(st.env_states)(**blob["env_states"])
-    st.obs, st.ou_state = blob["obs"], blob["ou_state"]
+    rows = slice(None) if mesh is None else mesh.rows(blob["obs"].shape[0])
+    st.env_states = take_rows(type(st.env_states)(**blob["env_states"]), rows)
+    st.obs, st.ou_state = blob["obs"][rows], blob["ou_state"][rows]
     st.total_steps = int(blob["total_steps"])
 
 
@@ -89,13 +100,17 @@ def _load_mappo(blob: dict, ts: TrainState) -> None:
     ts.update_count = int(blob["update_count"])
 
 
-def load(path: str, ts):
+def load(path: str, ts, mesh=None):
     """Restore a checkpoint into ``ts`` (built by the algorithm's
-    ``init_state`` with the same config) in place; returns it."""
+    ``init_state`` with the same config, under the same ``mesh``) in place;
+    returns it."""
     maddpg = isinstance(ts, MADDPGState)
     device = ts.obs.device if maddpg else next(ts.policies()[0].actor.parameters()).device
     blob = torch.load(path, map_location=device, weights_only=True)
-    (_load_maddpg if maddpg else _load_mappo)(blob, ts)
+    if maddpg:
+        _load_maddpg(blob, ts, mesh)
+    else:
+        _load_mappo(blob, ts)
     ts.iteration = int(blob["iteration"])
     ts.generator.set_state(blob["generator"].cpu())
     return ts

@@ -9,8 +9,18 @@ snapshot. Every ``render_interval`` iterations, with ``save_gifs`` or
 ``n_render_rollout_threads`` envs, tiled, to ``models_{it}.gif`` (and shows
 it live), timed as the ``render`` phase; a separated policy with rendering
 on raises at construction, since the JAX package cannot render one either.
-Device meshes (ROADMAP A13) and device-trace capture are not ported yet: a
-config that asks for them raises at construction instead of skipping them.
+Device-trace capture is not ported yet: a config that asks for it raises at
+construction instead of skipping it.
+
+Several processes (one rank a device, joined by
+:func:`dcc_tpu_torch.parallel.distributed.initialize`) train as one with
+``use_mesh``: the envs split over the ranks, the parameters replicated
+(counterpart of ``dcc_tpu.runtime.learner`` with its ``--mesh``; in one
+process ``use_mesh`` leaves the mesh off, as JAX's on one device). The
+coordinator alone makes the host's side effects: the run dir (its name
+broadcast to the other ranks), ``config.json``, wandb, the console log,
+render and GIFs, and the checkpoint files, which every rank meets at a
+barrier.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 
 from ..algos import make_algo
 from ..configs.loader import load as load_config
+from ..parallel import distributed, make_mesh
 from ..render import LiveViewer, render_gif, rollout_states
 from ..utils import resolve_device
 from ..utils.profiling import PhaseTimer
@@ -49,8 +60,6 @@ class Learner:
         self.seed = int(cfg.get("seed", 0))
         self.n_iters = int(cfg.get("n_iters", 200))
         self.is_save_model = bool(cfg.get("save_model", True))
-        if use_mesh:
-            raise NotImplementedError("--mesh is not ported yet (ROADMAP A13: multi-GPU)")
         algo_file = str(cfg.get("algo_file", "mappo"))
         if cfg.get("profile_dir"):
             raise NotImplementedError(
@@ -70,35 +79,47 @@ class Learner:
                 "--save-gifs false (and no --render-live)"
             )
         self.device = resolve_device(device)
+        # join the process group when launched as one of several ranks
+        # (no-op in one process); a rank's device is its local one
+        distributed.initialize(backend="nccl" if self.device.type == "cuda" else "gloo")
+        self.is_coordinator = distributed.is_coordinator()
+        if distributed.process_count() > 1 and self.device.type == "cuda":
+            self.device = torch.device("cuda", distributed.local_rank())
+        self.mesh = (make_mesh(self.device)
+                     if use_mesh and distributed.process_count() > 1 else None)
         if self.device.type == "cuda":
             # f32 means full f32: no TF32 in matmuls or convolutions
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.algo = make_algo(cfg, self.env_cfg, device=self.device)
+        self.algo = make_algo(cfg, self.env_cfg, device=self.device, mesh=self.mesh)
         self.algo_cfg = self.algo.cfg
         self.ts = self.algo.init_state(self.seed)
         self.n_eval = int(cfg.get("n_eval_rollout_threads", 16))
 
         self.output_path = None
         if self.is_save_model:
-            name = datetime.datetime.now().strftime("%m%d_%H%M_") + f"sd{self.seed}"
+            name = None
+            if self.is_coordinator:
+                name = datetime.datetime.now().strftime("%m%d_%H%M_") + f"sd{self.seed}"
             self.output_path = os.path.join(
                 str(cfg.get("main_save_path", "results/")),
                 str(cfg.get("save_name", "uav_dcc")),
-                name,
+                distributed.broadcast_str(name),
             )
-            os.makedirs(self.output_path, exist_ok=True)
-            with open(os.path.join(self.output_path, "config.json"), "w") as f:
-                json.dump(cfg, f, indent=4, default=str)
+            if self.is_coordinator:
+                os.makedirs(self.output_path, exist_ok=True)
+                with open(os.path.join(self.output_path, "config.json"), "w") as f:
+                    json.dump(cfg, f, indent=4, default=str)
 
         if cfg.get("load_model") and cfg.get("load_model_path"):
             self.load_model(str(cfg["load_model_path"]))
-            print("!!!!!Note: Load model, done!!!!!")
+            if self.is_coordinator:
+                print("!!!!!Note: Load model, done!!!!!")
 
         self.timer = PhaseTimer()
         self._live_viewer = None
         self._wandb = None
-        if bool(cfg.get("log_wandb", False)):
+        if bool(cfg.get("log_wandb", False)) and self.is_coordinator:
             try:
                 import wandb
             except ImportError as e:
@@ -139,7 +160,8 @@ class Learner:
                     logs["test_rollout_info"] = self.algo.eval_iteration(
                         self.ts, self.n_eval, generator=gen
                     )
-            if renders and self.output_path and it % render_interval == 0:
+            if renders and self.output_path and self.is_coordinator \
+                    and it % render_interval == 0:
                 with self.timer.phase("render"):
                     self.render(os.path.join(self.output_path, f"models_{it}.gif"))
             if logs:
@@ -148,8 +170,10 @@ class Learner:
                 with self.timer.phase("save"):
                     path = os.path.join(self.output_path, f"models_{it}.pt")
                     self.save_model(path)
-                print(f"model saved in {path}")
-        print("phase timing:", json.dumps(self.timer.summary()))
+                if self.is_coordinator:
+                    print(f"model saved in {path}")
+        if self.is_coordinator:
+            print("phase timing:", json.dumps(self.timer.summary()))
         if self._wandb is not None:
             self._wandb.finish()
 
@@ -177,6 +201,8 @@ class Learner:
         if self._wandb is not None:
             for d in logs.values():
                 self._wandb.log(d, step=it)
+        if not self.is_coordinator:
+            return
         now = time.time()
         print(
             f"******** iter: {it}, iter_time: {now - self._check:.2f}s, "
@@ -187,7 +213,13 @@ class Learner:
         self._check = now
 
     def save_model(self, path: str):
-        ckpt.save(path, self.ts)
+        # every rank gathers (MADDPG's env farm), the coordinator writes; the
+        # barrier keeps the others from running ahead while it writes
+        ckpt.save(path, self.ts, self.mesh)
+        distributed.barrier("save_model")
 
     def load_model(self, path: str):
-        ckpt.load(path, self.ts)
+        distributed.barrier("load_model_enter")
+        ckpt.load(path, self.ts, self.mesh)
+        distributed.barrier("load_model_exit")
+        self.algo.replicate(self.ts)

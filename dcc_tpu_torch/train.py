@@ -9,11 +9,18 @@ as with the JAX package's ``train.py``; ``--device`` picks the device
     python -m dcc_tpu_torch.train --compute-dtype bfloat16 --save-gifs false
     python -m dcc_tpu_torch.train --device cpu --n-iters 2 --n-rollout-threads 4 \\
         --save-gifs false
+    python -m dcc_tpu_torch.train --mesh                # the envs over every local GPU
+    torchrun --nproc-per-node 8 -m dcc_tpu_torch.train --mesh   # or one rank a process
+
+``--mesh`` with more than one visible GPU and no ``WORLD_SIZE`` spawns one
+rank per GPU; under torchrun's variables each process joins the group; on
+one device it runs as one process.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -53,9 +60,27 @@ def parse_overrides(argv):
     return args, overrides
 
 
+def _rank_main(argv) -> None:
+    """One spawned rank of ``--mesh``: train, then leave the group."""
+    from dcc_tpu_torch.parallel import distributed
+
+    main(argv)
+    distributed.shutdown()
+
+
 def main(argv=None):
-    args, overrides = parse_overrides(sys.argv[1:] if argv is None else argv)
+    argv = sys.argv[1:] if argv is None else argv
+    args, overrides = parse_overrides(argv)
+    import torch
+
+    from dcc_tpu_torch.parallel import distributed
     from dcc_tpu_torch.runtime.learner import Learner
+
+    if (args.mesh and "WORLD_SIZE" not in os.environ and args.device in (None, "cuda")
+            and torch.cuda.device_count() > 1):
+        # one command uses every local GPU: a rank each
+        distributed.spawn(_rank_main, torch.cuda.device_count(), (argv,))
+        return None
 
     learner = Learner(
         overrides,
@@ -71,3 +96,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from dcc_tpu_torch.parallel import distributed
+
+    distributed.shutdown()

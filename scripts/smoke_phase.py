@@ -12,6 +12,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] timing
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] maddpg
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] precision
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] mesh
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
     python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
@@ -62,6 +63,11 @@ pull force on the card against the CPU and the f64 truth, the six golden
 traces replayed on the card in f64, the env step's device kernels with the
 df64 force on and off, the three connectivity-force arms trained at 16 and
 1,024 envs, and one f64-env rollout on the card against the CPU.
+``mesh`` builds the kernels and runs the smoke's mesh phase
+(``chip_smoke.check_mesh``): a 1-rank NCCL mesh against the unsharded run,
+2 gloo ranks on card 0 for the default bf16 config and the 20-UAV preset at
+1,024 envs against one process, MADDPG over 2 ranks, and 2 NCCL ranks on
+two cards where the machine shows two.
 ``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
@@ -98,8 +104,8 @@ def main(argv=None) -> int:
     ap.add_argument("--compare", default=None,
                     help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
-                                       "hidden", "timing", "maddpg", "precision", "train",
-                                       "profile", "bits"))
+                                       "hidden", "timing", "maddpg", "precision", "mesh",
+                                       "train", "profile", "bits"))
     ap.add_argument("train_args", nargs="*",
                     help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
@@ -147,13 +153,14 @@ def main(argv=None) -> int:
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1
-    elif args.phase == "precision":
+    elif args.phase in ("precision", "mesh"):
         from dcc_tpu_torch.ops import cuda_build
 
         cuda_build.build(verbose=True)
         results = {}
         try:
-            chip_smoke.check_precision(results)
+            (chip_smoke.check_precision if args.phase == "precision"
+             else chip_smoke.check_mesh)(results)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

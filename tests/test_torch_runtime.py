@@ -128,11 +128,17 @@ def test_default_device_without_gpu_raises(monkeypatch):
     ],
 )
 def test_learner_refuses_unported_features(tmp_path, overrides, kw):
-    """Meshes (ROADMAP A13) and trace capture are refused. Rendering and
-    MADDPG, refused until the port ran them, now build a Learner that
-    renders (tests/test_torch_render.py writes its GIF) and one that trains
-    MADDPG (tests/test_torch_maddpg.py trains it)."""
+    """Trace capture is refused. Rendering, MADDPG and meshes, refused until
+    the port ran them, now build a Learner that renders
+    (tests/test_torch_render.py writes its GIF), one that trains MADDPG
+    (tests/test_torch_maddpg.py trains it) and, in one process, one whose
+    ``use_mesh`` leaves the mesh off, as JAX's on one device (2 ranks train
+    in tests/test_torch_distributed.py)."""
     overrides = {**overrides, "main_save_path": str(tmp_path)}
+    if kw.get("use_mesh"):
+        learner = Learner(overrides, device="cpu", **kw)
+        assert learner.mesh is None and learner.algo.mesh is None
+        return
     if "render_interval" in overrides:
         learner = Learner(overrides, device="cpu", **kw)
         assert learner.output_path and os.path.isdir(learner.output_path)
