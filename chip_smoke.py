@@ -186,7 +186,16 @@ Phases (any failure exits non-zero):
    over 2 ranks (the replicated buffer against one process's); 2 NCCL ranks
    on two cards where the machine shows two, else a line that says why
    not; each iteration's time per rank beside one process's;
-8. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
+8. trunks of any depth (``check_deep``): every kernel's row-tile plan at 8,
+   9 and 32 layers (the bf16 gradient kernels in their depth layout at 32
+   only); K2, K2b, K3 / K4 and K3u / K4u in f32 and bf16 against their
+   plain versions at 16 envs at 8, 9 and 32 layers, timed at 9 and 32;
+   the chunked K2, K4, K2b and K4u on the 20-UAV preset's 4,840-wide
+   critic rows at 9 and 32 layers; then ``DEEP_RUNS`` through the entry
+   point (``--layer-N`` 8 and 31 folded, unfolded and with the fused loss
+   off; f32 with the fused kernels forced on at 8 and 9 layers; the 20-UAV
+   preset at 9 layers, 1,024 envs) with their launch counts and entries;
+9. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
    others; K4 at the 20-UAV preset's 153,600 x 4,840 rows as
@@ -200,8 +209,9 @@ Phases (any failure exits non-zero):
    ``actor_ppo_grads_chunked`` (both launches) and
    ``actor_ppo_grads_unfolded_chunked`` (three), and K3's dV0 alone,
    ``actor_ppo_grads_dv0``; the kernels at hidden 512, ``*_h512``, at the
-   main path's shapes, ``KERNEL_ROW``; ``library_ms`` for the dV0
-   rows, null for the others; ``ptxas``: the registers and spills of each
+   main path's shapes, ``KERNEL_ROW``; the kernels at 9 and 32 layers,
+   ``*_L9`` and ``*_L32``, at 16 envs, their launches those of the deep
+   runs; ``library_ms`` for the dV0 rows, null for the others; ``ptxas``: the registers and spills of each
    row's kernels), the card line, and the result.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -211,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -244,6 +255,24 @@ MANY_POIS = {POIS: (None, 300), "pois360": (None, 360), "20uav-pois50": (WIDE, 5
 HIDDEN_CHECKS = (100, 264, 300, 512, 1024)
 HIDDEN_TIMED = (512, 1024)
 HIDDEN_ROW = 512
+# the trunks' layers the deep phase holds every kernel at (16 envs), and
+# those whose bf16 rows it times for the {"kernels": [...]} line
+DEEP_LAYERS = (8, 9, 32)
+DEEP_TIMED = (9, 32)
+# past two layers a bf16 check's limit is the larger of its bound and
+# ORDER_FACTOR times the plain version's own spread in another summation
+# order (``bf16_limit``): at 32 layers that spread passes the bounds (ROADMAP
+# C8), and the kernels read 1.05 to 2.05 times it there; the kernel
+# computed in f32 must lie outside the limit, as outside a bound (K2's, the
+# bf16 rounding of its output alone, reads 2.4 to 3.5 times the spread
+# there, the gradient kernels' 69 times and more)
+ORDER_FACTOR = 2.25
+# the value-flip rule's allowance (``value_flips``): VALUE_FLIP_FACTOR times
+# as many rows as the plain version rounds apart itself in another
+# summation order (the kernel 3.2 to 3.6 times as many at 9 and 32 layers)
+VALUE_FLIP_FACTOR = 4
+DEEP_KERNELS = ("fused_mlp", "fused_mlp_bwd", "actor_ppo_grads", "critic_ppo_grads",
+                "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")
 # K1: the C entry every launch goes through; the (T, E) shapes held against
 # the plain version (ragged, T = 1, fewer columns than a warp); the timed ones
 GAE_ENTRY = "dcc_gae_seg"
@@ -375,6 +404,15 @@ KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
                                                          HIDDEN_ROW),
               f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE,
                                                      HIDDEN_ROW)}
+# the deep phase's rows (``check_deep``), names with the suffix _L9 or _L32:
+# each bf16 kernel at 16 envs (K2 on the actor's 64 rows, K2b on the
+# actor's 9,600, K3 / K3u on 9,600 x 110, K4 / K4u on 2,400 x 440) at 9
+# and 32 layers, the same JAX sites as at two
+for _L in DEEP_TIMED:
+    for _k in DEEP_KERNELS:
+        REPLACES[f"{_k}_L{_L}"] = REPLACES[_k]
+        SOURCES[f"{_k}_L{_L}"] = SOURCES[_k]
+        KERNEL_ROW[f"{_k}_L{_L}"] = (_k, 16, None, 256, f" L={_L}")
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
 BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
@@ -538,6 +576,42 @@ TRAIN_RUNS = (
 )
 # the runs of MADDPG and of the spread scenario (scripts/smoke_phase.py maddpg)
 SCENARIO_RUNS = ("maddpg", "maddpg-tuned", "maddpg-spread", "spread-bf16")
+
+
+def depth_args(layer_n: int) -> list:
+    """The CLI arguments of one iteration of a trunk of ``layer_n`` + 1
+    layers."""
+    return ["--layer-N", str(layer_n), "--n-iters", "1"]
+
+
+# the deep phase's runs (``check_deep``): the main path at 9 layers
+# (``--layer-N`` 8, the first depth the CUDA entries used to refuse; every
+# bf16 kernel still stages its layers in shared memory) and at 32 (every bf16
+# gradient kernel in its depth layout), folded, unfolded and with the fused
+# loss off; f32 with the fused kernels forced on at 8 and 9 layers (the f32
+# K2b, K3u and K4u read 42 to 45 offsets at 8 layers, past the by-value
+# table the entries took before); the 20-UAV preset at 9 layers and 1,024
+# envs (the chunked K2 and K4 on its 4,840-wide critic rows)
+FORCED = ["--fused-trunk", "on", "--fused-loss", "on"]
+FOLDED_LAUNCHES = {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15}
+UNFOLDED_LAUNCHES = {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
+                     "critic_ppo_grads_unfolded": 15}
+LOSS_OFF_LAUNCHES = {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}
+DEEP_RUNS = (
+    *((f"bf16-L{n + 1}", BF16 + depth_args(n), FOLDED_LAUNCHES) for n in (8, 31)),
+    *((f"bf16-L{n + 1}-unfolded", BF16 + depth_args(n) + ["--fused-fold", "false"],
+       UNFOLDED_LAUNCHES) for n in (8, 31)),
+    *((f"bf16-L{n + 1}-fused-loss-off", BF16 + depth_args(n) + ["--fused-loss", "off"],
+       LOSS_OFF_LAUNCHES) for n in (8, 31)),
+    *((f"f32-L{n + 1}-fused", FORCED + depth_args(n), FOLDED_LAUNCHES) for n in (7, 8)),
+    ("f32-L8-fused-unfolded", FORCED + depth_args(7) + ["--fused-fold", "false"],
+     UNFOLDED_LAUNCHES),
+    *((f"f32-L{n + 1}-fused-loss-off", ["--fused-trunk", "on"] + depth_args(n)
+       + ["--fused-loss", "off"], LOSS_OFF_LAUNCHES) for n in (7, 8)),
+    (f"preset-{WIDE}-L9", preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS)]
+     + depth_args(8), {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
+                       "critic_ppo_grads": 15, "critic_ppo_grads_dv0": 15}),
+)
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             "critic_ppo_grads": "bf16", "fused_mlp_bwd": "recurrent-bf16",
@@ -558,7 +632,12 @@ MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
             **{f"{k}_h{HIDDEN_ROW}": f"bf16-h{HIDDEN_ROW}-unfolded" for k in (
                 "actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")},
             f"critic_ppo_grads_chunked_h{HIDDEN_ROW}": f"preset-{WIDE}-h{HIDDEN_ROW}",
-            f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": f"preset-{WIDE}-h{HIDDEN_ROW}"}
+            f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": f"preset-{WIDE}-h{HIDDEN_ROW}",
+            **{f"{k}_L{L}": f"bf16-L{L}" for L in DEEP_TIMED
+               for k in ("fused_mlp", "actor_ppo_grads", "critic_ppo_grads")},
+            **{f"fused_mlp_bwd_L{L}": f"bf16-L{L}-fused-loss-off" for L in DEEP_TIMED},
+            **{f"{k}_L{L}": f"bf16-L{L}-unfolded" for L in DEEP_TIMED
+               for k in ("actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")}}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
@@ -612,6 +691,19 @@ MMA_ENTRY = {
     "recurrent-bf16-h300": _TRUNK_MMA,
     f"preset-{WIDE}-h512": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
                             "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
+    # the deep phase's runs; the f32 ones through the FMA entries
+    **{f"bf16-L{L}": _FOLDED_MMA for L in DEEP_TIMED},
+    **{f"bf16-L{L}-unfolded": _UNFOLDED_MMA for L in DEEP_TIMED},
+    **{f"bf16-L{L}-fused-loss-off": _TRUNK_MMA for L in DEEP_TIMED},
+    **{f"f32-L{L}-fused": {"fused_mlp": "dcc_trunk_fwd", "actor_ppo_grads": "dcc_actor_grads",
+                           "critic_ppo_grads": "dcc_critic_grads"} for L in (8, 9)},
+    "f32-L8-fused-unfolded": {"fused_mlp": "dcc_trunk_fwd",
+                              "actor_ppo_grads_unfolded": "dcc_actor_grads_unfolded",
+                              "critic_ppo_grads_unfolded": "dcc_critic_grads_unfolded"},
+    **{f"f32-L{L}-fused-loss-off": {"fused_mlp": "dcc_trunk_fwd",
+                                    "fused_mlp_bwd": "dcc_trunk_bwd"} for L in (8, 9)},
+    f"preset-{WIDE}-L9": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
+                          "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
@@ -714,6 +806,189 @@ def perturb_(net, gen) -> None:
         for p in net.parameters():
             if p.dim() == 1:
                 p.add_(0.1 * torch.randn(p.shape, generator=gen, device=p.device))
+
+
+def condition_deep_(net, gen) -> None:
+    """Redraw the trunk's Dense and LayerNorm biases from N(0, 1), in place:
+    the depth checks' trunks (ROADMAP C8). Past a few layers the model's
+    initial trunk carries one bf16 rounding difference, the kind two
+    summation orders make, into the later layers' outputs and gradients
+    (``scripts/depth_spread.py``); biases of the order of the products damp
+    it."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in net.base.named_parameters():
+            if name.endswith("bias") and not name.startswith("feature_norm"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device))
+
+
+def f64_products():
+    """A ``torch.overrides.TorchFunctionMode`` in which every product of two
+    f32 tensors is accumulated in f64, then rounded to f32: the plain
+    versions' products in another summation order, the same roundings
+    (ROADMAP C8's ``order`` reading). Use it as a context manager."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class F64Products(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func in (torch.matmul, torch.Tensor.matmul) and len(args) == 2
+                    and all(a.dtype == torch.float32 for a in args)):
+                return func(args[0].double(), args[1].double(), **kwargs).float()
+            return func(*args, **kwargs)
+
+    return F64Products()
+
+
+def max_rel(got, want) -> float:
+    """The largest ||g - w|| / ||w|| over the tensors."""
+    return max(float((g.float() - w.float()).norm() / w.float().norm().clamp_min(1e-30))
+               for g, w in zip(got, want))
+
+
+def bf16_limit(name, bound, layer_n: int, kern, plain, flat, want, relu: bool, mask_shape):
+    """A bf16 check's limit on ||kernel - plain|| / ||plain||: ``bound`` at
+    ``layer_n`` 1; past that the larger of ``bound`` and ``ORDER_FACTOR``
+    times how far the plain version moves from ``want`` (its own outputs)
+    with its products summed in another order (``f64_products``), on the
+    kernel's relu masks where the trunk is relu: the spread that a chain
+    this deep gives any two summation orders (ROADMAP C8). Prints both."""
+    import torch
+
+    if layer_n == 1:
+        return bound
+    masks = None
+    if relu:
+        masks = torch.zeros(mask_shape, dtype=torch.uint8, device="cuda")
+        kern(relu_masks=masks)
+    with f64_products():
+        p64 = flat(plain(masks=masks) if relu else plain())
+    spread = max_rel(p64, want)
+    limit = max(bound, ORDER_FACTOR * spread)
+    print(f"  {name}: the plain version against itself with f64 products reads "
+          f"{spread:.3e}; limit {limit:.3e} (bound {bound})", flush=True)
+    return limit
+
+
+def bf16_step(v):
+    """The spacing of bf16 numbers at |v| (8 significant bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(2.0**-40))) - 7)
+
+
+def clip_kink_rows(feat, aux, hw, hb, log_std, clip=0.2):
+    """(rows,) bool: actor rows whose plain ratio lies within what one bf16
+    step of each head output moves it from a clip bound (1 +- clip), where
+    a kernel and its plain version may take the other branch of the clipped
+    surrogate and the row's whole cotangent with it (tests/test_torch_cuda.py's
+    rule, which the deep checks give a zero advantage)."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    mean = FM.dense(feat.float(), hw, hb, True)
+    inv_std = torch.exp(-log_std)
+    A = hw.shape[1]
+    z = (aux[:, :A] - mean) * inv_std
+    lp = torch.sum(-0.5 * z * z - log_std - FP.LOG_SQRT_2PI, dim=1)
+    log_ratio = lp - aux[:, A]
+    slack = torch.sum(z.abs() * inv_std * bf16_step(mean), dim=1)
+    return torch.stack([(log_ratio - math.log(1.0 + b)).abs() <= slack
+                        for b in (-clip, clip)]).any(dim=0)
+
+
+def value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu, masks=None) -> dict:
+    """{row: (steps, feature gap)} of the rows with valid != 0 whose value
+    in bf16 K4u is not the plain version's (tests/test_torch_cuda.py's
+    ``_value_flip_rows``): found by probing the kernel with the unclipped
+    squared loss against the plain values, weighted so that a row's loss is
+    its squared step count, and bisecting; each must owe its value to
+    features within bf16's epsilon (2^-7) of the plain version's in norm,
+    read back from the kernel (dwv of a saturated one-sided Huber), else
+    the phase fails. The deep checks give these rows valid = 0."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    feat = FM._forward_chain(x, params, n_layers, use_fn, use_relu, True, masks)[0].float()
+    v = FM.dense(feat, hw, hb, True)[:, 0]
+    step = bf16_step(v)
+    norm = torch.tensor([0.0, 1.0], device=x.device)
+
+    def launch(ret, valid, huber_delta=None):
+        a = torch.stack([v, ret, valid], dim=1)
+        return FP.critic_grads_unfolded_cuda(
+            x, a, norm, params, hw, hb, n_layers=n_layers, use_fn=use_fn, use_relu=use_relu,
+            bf16=True, clip_param=0.2, huber_delta=huber_delta or 1.0,
+            use_huber=huber_delta is not None, use_clipped=False)
+
+    def steps2(rows):
+        valid = torch.zeros_like(v)
+        valid[rows] = 2.0 / step[rows] ** 2
+        return float(launch(v, valid)[-1][0])
+
+    found, todo = {}, [torch.nonzero(aux[:, 2] != 0)[:, 0]]
+    while todo:
+        rows = todo.pop()
+        s2 = steps2(rows) if len(rows) else 0.0
+        if s2 == 0.0:
+            continue
+        if len(rows) == 1:
+            found[int(rows[0])] = s2**0.5
+        else:
+            todo += [rows[: len(rows) // 2], rows[len(rows) // 2:]]
+    for r in found:
+        one = torch.zeros_like(v)
+        one[r] = 1.0
+        f_k = -launch(v + 100.0, one, huber_delta=1.0)[1][:, 0]  # dwv = -features
+        gap = float((f_k - feat[r]).norm() / feat[r].norm()) * 2**7
+        if gap > 1.0:
+            raise SmokeFailure(f"K4u row {r}: its value is off by {found[r]:.1f} bf16 steps "
+                               f"with features {gap:.2f} bf16 epsilons from the plain "
+                               f"version's")
+        found[r] = (found[r], gap)
+    return found
+
+
+def value_flips(name, x, aux, norm, params, wv, bv, kw) -> None:
+    """The value-flip rule of a bf16 K4u check past two layers on a
+    conditioned trunk (``condition_deep_``, whose values are large enough
+    that one bf16 step moves a row's cotangent past the bound): the rows
+    whose value the kernel rounds apart from the plain version's
+    (``value_flip_rows``, on the kernel's relu masks where the trunk is
+    relu) get valid = 0 in ``aux``, in place. More than 3 + rows / 20 of
+    them, plus ``VALUE_FLIP_FACTOR`` times as many as the plain version
+    rounds apart itself with its products summed in f64 (``f64_products``;
+    a chain this deep moves values, ROADMAP C8), fail the check."""
+    import torch
+
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    L, H, rows = kw["n_layers"], wv.shape[0], x.shape[0]
+    fn, relu = kw["use_fn"], kw["use_relu"]
+    masks = None
+    if relu:
+        masks = torch.zeros((L, rows, H), dtype=torch.uint8, device=x.device)
+        FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, relu_masks=masks, **kw)
+    flips = value_flip_rows(x, aux, params, wv, bv, L, fn, relu, masks)
+    values = []
+    for order in (contextlib.nullcontext(), f64_products()):
+        with order:
+            feat = FM._forward_chain(x, params, L, fn, relu, True, masks)[0].float()
+            values.append(FM.dense(feat, wv, bv, True)[:, 0])
+    own = int(((values[0] != values[1]) & (aux[:, 2] != 0)).sum())
+    cap = 3 + rows // 20 + VALUE_FLIP_FACTOR * own
+    worst = max((g for _, g in flips.values()), default=0.0)
+    print(f"  {name}: {len(flips)} of {rows} rows' values round apart from the plain "
+          f"version's (at most {cap}; the plain version with f64 products: {own}), at most "
+          f"{max((s for s, _ in flips.values()), default=0.0):.1f} bf16 steps, features at "
+          f"most {worst:.3f} bf16 epsilons apart; they get valid = 0", flush=True)
+    if len(flips) > cap:
+        raise SmokeFailure(f"{name}: {len(flips)} values round apart, more than {cap}")
+    aux[list(flips), 2] = 0.0
 
 
 def env_config(preset=None):
@@ -847,23 +1122,31 @@ def device_us(fn, n: int, match: str):
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
            f32_rel=None, device_match=None, preset=None, library=None, hidden: int = 256,
-           **extra_host):
+           timed: bool = True, **extra_host):
     """Time the kernel's wrapper and the plain version, print and keep the
     row. ``device_match``: also the profiler's device us per call of the
     kernels whose name holds it. ``preset``: the env preset whose widths the
     check takes (None: the default config). ``library``: one
     PyTorch call that computes the same function, timed as the yardstick
     (``library_ms``; the port never calls it). ``hidden``: the trunk's
-    width. ``extra_host``: further callables whose host us per call are
-    printed beside the wrapper's."""
+    width. ``timed`` False: the check's readings only, no timing (ms None).
+    ``extra_host``: further callables whose host us per call are printed
+    beside the wrapper's."""
     from dcc_tpu_torch.ops.cuda_build import ENTRY, TILE
 
     err, rel, worst = errs
-    (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
-    library_ms = time_ms(library)[0] if library is not None else None
-    hosts = {"wrapper": host_us(kern, n),
-             **{k: host_us(f, n) for k, f in extra_host.items()}}
-    dev_us = device_us(kern, n, device_match) if device_match else None
+    if timed:
+        (ms, n), (plain_ms, plain_n) = time_ms(kern), time_ms(plain)
+        library_ms = time_ms(library)[0] if library is not None else None
+        hosts = {"wrapper": host_us(kern, n),
+                 **{k: host_us(f, n) for k, f in extra_host.items()}}
+        dev_us = device_us(kern, n, device_match) if device_match else None
+    else:
+        ms = plain_ms = library_ms = dev_us = None
+        n = plain_n = 0
+        hosts = {}
+        if mode == "bf16":  # the entry point and tile read below are this launch's
+            kern()
     entry = ENTRY.get(kernel)  # the C entry point of the timed launches
     tile = TILE.get(kernel)  # and their row tile (K2-K4, K2b, K3u / K4u)
     if mode == "bf16" and not entry.endswith("mma"):
@@ -881,10 +1164,12 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     dev += "" if library_ms is None else f" library={library_ms:.4f} ms;"
     where = "" if preset is None else f" {preset}"
     shape = shape + ("" if tile is None else f" tile={tile}")
+    times = (f" kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} ms" if timed else " (not timed)")
     print(f"  {kernel:17s} {mode:4s}{where} envs={envs:<6d} {shape:28s} [{entry}] "
-          f"max_abs={err:.3e} rel={rel:.3e} [{worst}]{extra} kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} "
-          f"ms bound={bound_ms:.6f} ms ({bound_by}){dev} host us/call: "
-          + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items()), flush=True)
+          f"max_abs={err:.3e} rel={rel:.3e} [{worst}]{extra}{times} "
+          f"bound={bound_ms:.6f} ms ({bound_by}){dev}"
+          + (" host us/call: " + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items())
+             if hosts else ""), flush=True)
     return row
 
 
@@ -957,14 +1242,14 @@ def check_gae(results: list, shapes=GAE_SHAPES, entry=GAE_ENTRY):
                   f"max_abs={errs[0]:.3e} rel={errs[1]:.3e}", flush=True)
 
 
-def k2_bound(x, params, packed, bf16: bool, hidden: int = 256):
-    """K2's bound on the rows ``x`` (two layers of width ``hidden``): the
-    bytes of x read once, the output written once and the parameters the
-    kernel reads (bf16: the padded bf16 weight copies of ``packed`` and the
-    f32 vectors; f32: every parameter), against 2 * rows * (d_in * H + H *
-    H) operations."""
+def k2_bound(x, params, packed, bf16: bool, hidden: int = 256, n_layers: int = 2):
+    """K2's bound on the rows ``x`` (``n_layers`` layers of width
+    ``hidden``): the bytes of x read once, the output written once and the
+    parameters the kernel reads (bf16: the padded bf16 weight copies of
+    ``packed`` and the f32 vectors; f32: every parameter), against 2 * rows
+    * (d_in * H + (L - 1) * H * H) operations."""
     rows, width = x.shape
-    ops = 2 * rows * (width * hidden + hidden * hidden)
+    ops = 2 * rows * (width * hidden + (n_layers - 1) * hidden * hidden)
     if bf16:
         weights = 2 * packed.weights.numel() + 4 * sum(p.numel() for p in params if p.dim() == 1)
     else:
@@ -974,7 +1259,8 @@ def k2_bound(x, params, packed, bf16: bool, hidden: int = 256):
 
 
 def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS),
-                        update_steps: int = 0, hidden: int = 256):
+                        update_steps: int = 0, hidden: int = 256, layer_n: int = 1,
+                        timed: bool = True):
     """K2: the trunk forward on the actor (E*A, D) and critic (E, A*D) rows
     of the default config (D = 110) or of ``preset``, at each of
     ``envs_list`` envs, in f32 and bf16, on parameters packed beforehand as
@@ -983,7 +1269,10 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     chunked K2 (``fused_mlp_chunked``, with its profiler device time). With
     ``update_steps`` T: bf16 only, on the critic's T*E rows stored in bf16,
     as the update's forward with the fused loss off gives them. ``hidden``:
-    the networks' hidden width."""
+    the networks' hidden width; ``layer_n``: their ``layer_N`` (layer_n + 1
+    layers; past two, the bf16 limit is ``bf16_limit``'s and their biases
+    ``condition_deep_``); ``timed``: as
+    ``record``'s (past two layers, of the bf16 rows only)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -995,11 +1284,13 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     for bf16 in ((True,) if update_steps else (False, True)):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_trunk="on", hidden_size=hidden), env,
-                     device=dev)
+                                 fused_loss="on", fused_trunk="on", hidden_size=hidden,
+                                 layer_n=layer_n), env, device=dev)
         actor, critic = algo.make_networks(seed=1)
-        perturb_(actor, gen)
-        perturb_(critic, gen)
+        for net in (actor, critic):
+            perturb_(net, gen)
+            if layer_n != 1:
+                condition_deep_(net, gen)
         for envs in envs_list:
             nets = (((critic, update_steps * envs, A * D),) if update_steps
                     else ((actor, envs * A, D), (critic, envs, A * D)))
@@ -1007,7 +1298,8 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 x = randn(rows, width)
                 x = x.to(torch.bfloat16) if update_steps else x
                 params = [p.detach() for p in net.base.flat_params()]
-                kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=bf16)
+                L = layer_n + 1
+                kw = dict(n_layers=L, use_fn=True, use_relu=True, bf16=bf16)
                 packed = net.base.packed_params(dev)
                 kern = lambda: FM.trunk_forward_cuda(x, params, packed=packed, **kw)
                 plain = lambda: FM.trunk_forward_plain(x, params, **kw)
@@ -1019,22 +1311,29 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 # f32: summation order only; bf16: 1-ulp flips of bf16
                 # roundings inside the chain (LN outputs reach |16|, ulp 1/8)
                 tol = (K2_BF16_REL, 0.25) if bf16 else (1e-4, 1e-3)
-                chunked = bf16 and tiles.plan("fused_mlp", True, width, hidden, 2)[0]
+                chunked = bf16 and tiles.plan("fused_mlp", True, width, hidden, L)[0]
                 name = "fused_mlp_chunked" if chunked else "fused_mlp"
                 want = plain()
+                if bf16:
+                    tol = (bf16_limit(f"{name} rows={rows} L={L}", tol[0], layer_n,
+                                      lambda **m: FM.trunk_forward_cuda(x, params, packed=packed,
+                                                                        **kw, **m),
+                                      lambda masks=None: FM.trunk_forward_plain(
+                                          x, params, **kw, masks=masks),
+                                      lambda o: [o], [want], True, (L, rows, hidden)), tol[1])
                 errs = compare(name, [kern()], [want], *tol)
                 f32_rel = None
                 if bf16:
                     f32_out = FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})
                     f32_rel = f32_reading(name, [f32_out], [want], tol[0])
-                b, by = k2_bound(x, params, packed, bf16, hidden)
+                b, by = k2_bound(x, params, packed, bf16, hidden, L)
                 shape = (f"rows={rows} d_in={width}" + (" update" if update_steps else "")
-                         + _hidden_label(hidden))
+                         + _hidden_label(hidden) + _layers_label(L))
                 hosts = {} if update_steps else {"MLPBase.forward": rollout_call}
                 record(results, name, "bf16" if bf16 else "f32", envs, shape, errs, kern, plain,
                        b, by, f32_rel, preset=preset,
-                       device_match="trunk_fwd_chunked" if chunked else None, hidden=hidden,
-                       **hosts)
+                       device_match="trunk_fwd_chunked" if chunked else deep_match(bf16, layer_n),
+                       hidden=hidden, timed=timed and (bf16 or layer_n == 1), **hosts)
 
 
 def check_k2_layouts(results: list, gen):
@@ -1055,7 +1354,7 @@ def check_k2_layouts(results: list, gen):
 
     def chunked_plan(kernel, bf16, *args):
         if kernel == "fused_mlp":
-            return True, list(tiles.CHUNKED[(kernel, bf16)])
+            return tiles.Plan(True, list(tiles.CHUNKED[(kernel, bf16)]))
         return plan(kernel, bf16, *args)
 
     for preset, actor, envs, steps, dtype in (
@@ -1096,6 +1395,36 @@ def _shape(rows: int, d_in: int, nmb: int = 1, hidden: int = 256) -> str:
 
 def _hidden_label(hidden: int) -> str:
     return "" if hidden == 256 else f" H={hidden}"
+
+
+def deep_match(bf16: bool, layer_n: int):
+    """The profiler's kernel names a timed row of the deep phase reads its
+    device us from (its tensor-core kernel's, ``*_mma_kernel``), else
+    None."""
+    return "mma_kernel" if bf16 and layer_n != 1 else None
+
+
+def _layers_label(n_layers: int) -> str:
+    """A check's shape label of a trunk of other than the default's two
+    layers."""
+    return "" if n_layers == 2 else f" L={n_layers}"
+
+
+def deep_bytes(kernel: str, rows: int, width: int, hidden: int, n_layers: int,
+               n_head: int = 1) -> int:
+    """The device-memory traffic of the bf16 ``kernel``'s depth layout on
+    ``rows`` rows (0 where ``ops.tiles.plan`` gives it another layout): each
+    layer's saved bf16 tile (pad16(H) + 8 columns) written once in the
+    forward, read once when the backward stages it and once more to
+    recompute the next layer's operand, beside its rows' LN statistics
+    written and read once."""
+    from dcc_tpu_torch.ops import tiles
+
+    # (a checkout from before the depth layout plans no ``deep``)
+    if not getattr(tiles.plan(kernel, True, width, hidden, n_layers, n_head), "deep", False):
+        return 0
+    hp = -(-hidden // 16) * 16
+    return 3 * 2 * n_layers * rows * (hp + 8) + 2 * 8 * n_layers * rows
 
 
 def trunk_variants(bf16: bool, preset, hidden: int = 256) -> list:
@@ -1170,12 +1499,15 @@ def check_kernels(results: list, ptxas: dict):
 
 
 def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 256,
-                         variants=None):
+                         variants=None, layer_n: int = 1, timed: bool = True):
     """K2b, the trunk backward, on T*E*A/nmb rows of the actor (D wide) and,
     where a case says "both", of the critic (A*D wide, its env rows
     duplicated per agent), for each (envs, nmb, which) of ``cases``, in f32
     and bf16, of the default config or ``preset``, at the hidden width
-    ``hidden``, on the trunks of ``trunk_variants`` (or ``variants``)."""
+    ``hidden``, on the trunks of ``trunk_variants`` (or ``variants``), of
+    networks with ``layer_n`` + 1 layers (past two, their biases
+    ``condition_deep_``); ``timed`` as ``check_trunk_forward``'s. The bf16
+    bound counts the depth layout's traffic (``deep_bytes``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1188,10 +1520,12 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
     for bf16 in (False, True):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  use_recurrent_policy=True, fused_trunk="on",
-                                 hidden_size=hidden), env, device=dev)
+                                 hidden_size=hidden, layer_n=layer_n), env, device=dev)
         actor, critic = algo.make_networks(seed=4)
-        perturb_(actor, gen)
-        perturb_(critic, gen)
+        for net in (actor, critic):
+            perturb_(net, gen)
+            if layer_n != 1:
+                condition_deep_(net, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
         both = ((actor, D), (critic, A * D))
         for envs, nmb, which in cases:
@@ -1221,7 +1555,11 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
                     else:
                         k, p = kern(), plain()
                     k, p = [k[0], *k[1]], [p[0], *p[1]]
-                    tol = K2B_BF16_REL if bf16 else 1e-4
+                    tol = 1e-4
+                    if bf16:
+                        tol = bf16_limit(f"K2b {rows} x {width}{label}", K2B_BF16_REL, layer_n,
+                                         kern, plain, lambda o: [o[0], *o[1]], p, relu,
+                                         (L, rows, hidden))
                     errs = compare("fused_mlp_bwd", k, p, tol)
                     f32_rel = None
                     if bf16:
@@ -1233,17 +1571,21 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
                     # x and g in, dx out; parameters in, their f32 gradients out
                     nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
                               + 2 * 4 * sum(t.numel() for t in params))
+                    if bf16:
+                        nbytes += deep_bytes("fused_mlp_bwd", rows, width, hidden, L)
                     b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                     record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
                            _shape(rows, width, nmb, hidden) + label, errs, kern, plain, b, by,
-                           f32_rel, preset=preset, hidden=hidden)
+                           f32_rel, preset=preset, hidden=hidden,
+                           device_match=deep_match(bf16, layer_n),
+                           timed=timed and (bf16 or layer_n == 1))
                     del k, p, g
                 del x
                 torch.cuda.empty_cache()
 
 
 def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidden: int = 256,
-              variants=None, kinds=("actor", "critic")):
+              variants=None, kinds=("actor", "critic"), layer_n: int = 1, timed: bool = True):
     """K3 / K4, the folded PPO loss + gradient kernels, on T*E*A/nmb actor
     rows and T*E critic rows (nmb = 1) or as many critic rows as actor rows,
     gathered from the env rows duplicated per agent (nmb > 1), for each
@@ -1252,7 +1594,13 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
     wide for a staged tile launches its chunked kernel and the dV0 kernel
     (``ops.tiles.plan``); its time is both launches'. ``hidden``: the
     networks' hidden width; ``variants``: the trunks, by default
-    ``trunk_variants``'; ``kinds``: the networks checked.
+    ``trunk_variants``'; ``kinds``: the networks checked; ``layer_n``: the
+    networks' ``layer_N`` (a trunk past two layers counts as another width
+    for the f32 kink rule below; past two layers, their biases
+    ``condition_deep_``, and in bf16 the actor's rows at the clip's kink a
+    zero advantage, ``clip_kink_rows``); ``timed`` as
+    ``check_trunk_forward``'s. The bf16 bound counts the depth layout's
+    traffic (``deep_bytes``).
 
     At a preset's widths and hidden widths other than 256 the f32 checks give
     rows with a relu pre-activation within 1e-5 of the kink a zero advantage
@@ -1267,16 +1615,19 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
     env = env_config(preset)
     T, A, D, H = 150, env.n_agents, env.obs_dim, hidden
     wide = preset == WIDE or preset in MANY_POIS
+    kinky = preset is not None or H != 256 or layer_n != 1  # the f32 kink rule applies
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
     flat = lambda o: [*o[0], *o[1:]]  # K3 / K4 outputs as one list of tensors
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))  # f32 gradients
     for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_trunk="on", hidden_size=hidden), env,
-                     device=dev)
+                                 fused_loss="on", fused_trunk="on", hidden_size=hidden,
+                                 layer_n=layer_n), env, device=dev)
         actor, critic = algo.make_networks(seed=2)
-        perturb_(actor, gen)
-        perturb_(critic, gen)
+        for net in (actor, critic):
+            perturb_(net, gen)
+            if layer_n != 1:
+                condition_deep_(net, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
         mode = "bf16" if bf16 else "f32"
         # f32: summation order of the R-row sums, and the odd row within
@@ -1310,7 +1661,7 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                     kp, whf, bhf = FP.fold_trunk(trunk, actor.act_out.weight.detach().t(),
                                                  actor.act_out.bias.detach(), L, fn)
                     adv = adv0.clone()
-                    if relu and not bf16 and (preset is not None or H != 256):
+                    if relu and not bf16 and kinky:
                         # f32 at a preset's widths or another hidden width: rows
                         # within 1e-5 of a relu kink may take either side in the
                         # two summation orders: they get a zero advantage (bf16:
@@ -1320,8 +1671,12 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                         print(f"  actor {mode}, {envs} envs, {_shape(R, D, nmb, H)}{label}: "
                               f"{int(kink.sum())} rows next to a relu kink get a zero advantage",
                               flush=True)
-                    aux_a = FP.pack_actor_aux(act, old_lp, adv)
                     ls = actor.log_std.detach()
+                    if bf16 and layer_n != 1:  # the clip's kink
+                        feat = FP._fwd_folded(obs, kp, L, fn, relu, True)[0]
+                        adv[clip_kink_rows(feat, FP.pack_actor_aux(act, old_lp, adv), whf, bhf,
+                                           ls)] = 0.0
+                    aux_a = FP.pack_actor_aux(act, old_lp, adv)
                     kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
                     kern = lambda **m: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw, **m)
                     plain = lambda **m: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw,
@@ -1332,21 +1687,29 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                             lambda m: FP.relu_mask_gap_folded(obs, kp, L, fn, m), L, R, H)
                     else:
                         k, p = kern(), plain()
-                    errs = compare("actor_ppo_grads", flat(k), flat(p), tol)
+                    limit = tol
+                    if bf16:
+                        limit = bf16_limit(f"K3 {_shape(R, D, nmb, H)}{label}", tol, layer_n,
+                                           kern, plain, flat, flat(p), relu, (L, R, H))
+                    errs = compare("actor_ppo_grads", flat(k), flat(p), limit)
                     f32_rel = None
                     if bf16:
                         f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
                                                     **{**kw, "bf16": False})
-                        f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), tol)
+                        f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), limit)
                         del f32_k
                     # forward, dW and (past layer 0) g_prev: 2 ops a MAC
                     ops = 2 * R * (2 * D * H + 3 * (L - 1) * H * H)
                     # rows and aux in, folded params in, their gradients out
                     nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+                    if bf16:
+                        nbytes += deep_bytes("actor_ppo_grads", R, D, H, L, 2)
                     b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                     record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb, H) + label,
                            errs, kern, plain, b, by, f32_rel, preset=preset,
-                           device_match="mma_kernel" if bf16 and wide else None, hidden=H)
+                           device_match=("mma_kernel" if bf16 and wide
+                                         else deep_match(bf16, layer_n)), hidden=H,
+                           timed=timed and (bf16 or layer_n == 1))
                     del k, p
 
                 if "critic" not in kinds:
@@ -1355,7 +1718,7 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                 kpc, wvf, bvf = FP.fold_trunk(trunk, critic.v_out.weight.detach().t(),
                                               critic.v_out.bias.detach(), L, fn)
                 aux_c = FP.pack_critic_aux(vpred, ret)
-                if relu and not bf16 and (preset is not None or H != 256):  # actor's: valid = 0
+                if relu and not bf16 and kinky:  # as the actor's: valid = 0
                     kink = FP.relu_kink_rows_folded(cent, kpc, L, fn, bf16=False)
                     aux_c[kink, 2] = 0.0
                     print(f"  critic {mode}, {envs} envs, {_shape(Rv, A * D, nmb, H)}{label}: "
@@ -1373,15 +1736,21 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                         lambda m: FP.relu_mask_gap_folded(cent, kpc, L, fn, m), L, Rv, H)
                 else:
                     k, p = kern(), plain()
-                errs = compare("critic_ppo_grads", flat(k), flat(p), tol)
+                limit = tol
+                if bf16:
+                    limit = bf16_limit(f"K4 {_shape(Rv, A * D, nmb, H)}{label}", tol, layer_n,
+                                       kern, plain, flat, flat(p), relu, (L, Rv, H))
+                errs = compare("critic_ppo_grads", flat(k), flat(p), limit)
                 f32_rel = None
                 if bf16:
                     f32_k = FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
                                                  **{**ckw, "bf16": False})
-                    f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), tol)
+                    f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), limit)
                     del f32_k
                 ops = 2 * Rv * (2 * A * D * H + 3 * (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
+                if bf16:
+                    nbytes += deep_bytes("critic_ppo_grads", Rv, A * D, H, L)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 # at the 20-UAV and many-PoI widths in bf16, the device time
                 # of the chunked kernel and the dV0 kernel (their
@@ -1389,21 +1758,30 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                 record(results, "critic_ppo_grads", mode, envs,
                        _shape(Rv, A * D, nmb, H) + label, errs, kern, plain, b, by, f32_rel,
                        preset=preset,
-                       device_match="mma_kernel" if bf16 and wide else None, hidden=H)
+                       device_match=("mma_kernel" if bf16 and wide
+                                     else deep_match(bf16, layer_n)), hidden=H,
+                       timed=timed and (bf16 or layer_n == 1))
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
 
 
 def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4),
-                   modes=(False, True), hidden: int = 256, variants=None):
+                   modes=(False, True), hidden: int = 256, variants=None, layer_n: int = 1,
+                   timed: bool = True):
     """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
     T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in the
     ``modes`` (bf16 True), of the default config or ``preset``, at the hidden
     width ``hidden``, on the trunks of ``trunk_variants``. In bf16 relu trunks
     run under the relu mask rule (``masked_relu``); at a preset's widths and
-    hidden widths other than 256 the f32 checks give rows within 1e-5 of a
-    kink a zero advantage / valid = 0."""
+    hidden widths other than 256 (and past two layers, ``layer_n``) the f32
+    checks give rows within 1e-5 of a kink a zero advantage / valid = 0.
+    Past two layers (``layer_n``) the networks' biases ``condition_deep_``
+    and in bf16 the actor's rows at the clip's kink get a zero advantage
+    (``clip_kink_rows``) and the critic's rows whose value the kernel
+    rounds apart valid = 0 (``value_flips``). ``timed`` as
+    ``check_trunk_forward``'s; the bf16 bound counts the depth layout's
+    traffic (``deep_bytes``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1416,13 +1794,16 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
     flat = lambda o: [*o[0], *o[1:]]
     n_bytes = lambda o: 4 * sum(t.numel() for t in flat(o))
     dev_match = "mma_kernel" if preset in MANY_POIS else None  # every launch of a chunked K3u
+    kinky = preset is not None or H != 256 or layer_n != 1  # the f32 kink rule applies
     for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
-                                 fused_loss="on", fused_fold=False, hidden_size=hidden), env,
-                     device=dev)
+                                 fused_loss="on", fused_fold=False, hidden_size=hidden,
+                                 layer_n=layer_n), env, device=dev)
         actor, critic = algo.make_networks(seed=5)
-        perturb_(actor, gen)
-        perturb_(critic, gen)
+        for net in (actor, critic):
+            perturb_(net, gen)
+            if layer_n != 1:
+                condition_deep_(net, gen)
         xdt = torch.bfloat16 if bf16 else torch.float32
         mode = "bf16" if bf16 else "f32"
         tol = PPO_BF16_REL if bf16 else 1e-3
@@ -1445,11 +1826,15 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
             for label, relu, L, fn in variants or trunk_variants(bf16, preset, H):
                 params = actor_p if fn else actor_p[2:2 + 4 * L]
                 adv = adv0.clone()
-                if relu and not bf16 and (preset is not None or H != 256):
+                if relu and not bf16 and kinky:
                     kink = FM.relu_kink_rows(obs, params, L, fn, False)
                     adv[kink] = 0.0
                     print(f"  K3u {mode}, {envs} envs{label}: {int(kink.sum())} of {R} rows "
                           f"next to a relu kink get a zero advantage", flush=True)
+                if bf16 and layer_n != 1:  # the clip's kink
+                    feat = FM._forward_chain(obs, params, L, fn, relu, True)[0]
+                    adv[clip_kink_rows(feat, FP.pack_actor_aux(act, old_lp, adv), wh, bh,
+                                       ls)] = 0.0
                 aux_a = FP.pack_actor_aux(act, old_lp, adv)
                 kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
                 kern = lambda **m: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
@@ -1462,34 +1847,45 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                         lambda m: FM.relu_mask_gap(obs, params, L, fn, m), L, R, H)
                 else:
                     k, p = kern(), plain()
-                errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), tol)
+                limit = tol
+                if bf16:
+                    limit = bf16_limit(f"K3u {_shape(R, D, 1, H)}{label}", tol, layer_n, kern,
+                                       plain, flat, flat(p), relu, (L, R, H))
+                errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), limit)
                 f32_rel = None
                 if bf16:
                     f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
                                                          **{**kw, "bf16": False})
                     f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p),
-                                          tol)
+                                          limit)
                     del f32_k
                 # forward, dW and g_prev of every layer (layer 0's for the
                 # feature norm's gradients): 3 products of 2 ops a MAC
                 ops = 6 * R * (D * H + (L - 1) * H * H)
                 nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
+                if bf16:
+                    nbytes += deep_bytes("actor_ppo_grads_unfolded", R, D, H, L, 2)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "actor_ppo_grads_unfolded", mode, envs,
                        _shape(R, D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
                        preset=preset,
-                       device_match=dev_match if bf16 else None, hidden=H)
+                       device_match=(dev_match or deep_match(bf16, layer_n)) if bf16 else None,
+                       hidden=H,
+                       timed=timed and (bf16 or layer_n == 1))
                 del k, p
 
                 cparams = critic_p if fn else critic_p[2:2 + 4 * L]
                 aux_c = FP.pack_critic_aux(vpred, ret)
-                if relu and not bf16 and (preset is not None or H != 256):
+                if relu and not bf16 and kinky:
                     kink = FM.relu_kink_rows(cent, cparams, L, fn, False)
                     aux_c[kink, 2] = 0.0
                     print(f"  K4u {mode}, {envs} envs{label}: {int(kink.sum())} of {Rv} rows "
                           f"next to a relu kink get valid = 0", flush=True)
                 ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
                            huber_delta=10.0, use_huber=True, use_clipped=True)
+                if bf16 and layer_n != 1:  # the rows whose value it rounds apart
+                    value_flips(f"K4u {envs} envs{label}", cent, aux_c, norm, cparams, wv, bv,
+                                ckw)
                 kern = lambda **m: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv,
                                                                  bv, **ckw, **m)
                 plain = lambda **m: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams,
@@ -1500,20 +1896,27 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                         lambda m: FM.relu_mask_gap(cent, cparams, L, fn, m), L, Rv, H)
                 else:
                     k, p = kern(), plain()
-                errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
+                limit = tol
+                if bf16:
+                    limit = bf16_limit(f"K4u {_shape(Rv, A * D, 1, H)}{label}", tol, layer_n,
+                                       kern, plain, flat, flat(p), relu, (L, Rv, H))
+                errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), limit)
                 f32_rel = None
                 if bf16:
                     f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
                                                           **{**ckw, "bf16": False})
                     f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p),
-                                          tol)
+                                          limit)
                     del f32_k
                 ops = 6 * Rv * (A * D * H + (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
+                if bf16:
+                    nbytes += deep_bytes("critic_ppo_grads_unfolded", Rv, A * D, H, L)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 record(results, "critic_ppo_grads_unfolded", mode, envs,
                        _shape(Rv, A * D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset, hidden=H)
+                       preset=preset, hidden=H, device_match=deep_match(bf16, layer_n),
+                       timed=timed and (bf16 or layer_n == 1))
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
@@ -1574,16 +1977,19 @@ def check_wide(results: list):
     check_tail(results)
 
 
-def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False, hidden: int = 256):
+def _wide_net(gen, seed: int, preset=WIDE, actor: bool = False, hidden: int = 256,
+              layer_n: int = 1):
     """The bf16 critic (or actor) of ``preset`` (``make_networks(seed)``) at
-    the hidden width ``hidden``, its 1-D parameters moved off their init
-    values, and the flat trunk list."""
+    the hidden width ``hidden`` and ``layer_n``, its 1-D parameters moved
+    off their init values, and the flat trunk list."""
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
 
-    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on", hidden_size=hidden),
-                 env_config(preset), device="cuda")
+    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_trunk="on", hidden_size=hidden,
+                             layer_n=layer_n), env_config(preset), device="cuda")
     net = algo.make_networks(seed=seed)[0 if actor else 1]
     perturb_(net, gen)
+    if layer_n != 1:
+        condition_deep_(net, gen)
     return net, [p.detach() for p in net.base.flat_params()]
 
 
@@ -1639,7 +2045,8 @@ def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False,
         torch.cuda.empty_cache()
 
 
-def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WIDE_ENVS)):
+def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WIDE_ENVS),
+                       layer_n: int = 1, variants=None, timed: bool = True):
     """The chunked K2b (``trunk_backward_cuda`` on rows too wide to stage: its
     chunked kernel, the layer-0 input backward and dV0, without dx, as the
     update calls it) on 2,400 and 38,400 of the 20-UAV preset's 4,840-wide
@@ -1652,14 +2059,18 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
     one-row tiles (seconds a call). Each row's time and bound are its three
     launches'; device us: its ``*_mma_kernel`` launches. ``hidden``: the
     network's hidden width; ``envs_list``: of 16 and ``WIDE_ENVS``, the env
-    counts whose rows are checked."""
+    counts whose rows are checked; ``layer_n``: the network's ``layer_N``,
+    ``variants`` its trunks (default ``trunk_variants``'); ``timed`` as
+    ``check_trunk_forward``'s; past two layers, the bf16 limits are
+    ``bf16_limit``'s and K4u's rows whose value it rounds apart get valid =
+    0 (``value_flips``)."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
 
     env = env_config(WIDE)
     D, H = env.n_agents * env.obs_dim, hidden
-    critic, full = _wide_net(gen, 7, hidden=hidden)
+    critic, full = _wide_net(gen, 7, hidden=hidden, layer_n=layer_n)
     randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
     wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
     norm = torch.tensor([0.5, 2.0], device="cuda")
@@ -1668,7 +2079,7 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
         if envs not in envs_list:
             continue
         x = randn(rows, D).to(torch.bfloat16)
-        for tag, relu, L, fn in trunk_variants(True, WIDE, H):
+        for tag, relu, L, fn in variants or trunk_variants(True, WIDE, H):
             params = full if fn else full[2:2 + 4 * L]
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, need_dx=False)
             g = randn(rows, H)
@@ -1681,17 +2092,18 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
             else:
                 k, p = kern(), plain()
             k, p = k[1], p[1]
-            errs = compare("fused_mlp_bwd_chunked", k, p, K2B_BF16_REL)
+            tol = bf16_limit(f"chunked K2b {_shape(rows, D)}{tag}", K2B_BF16_REL, layer_n, kern,
+                             plain, lambda o: o[1], p, relu, (L, rows, H))
+            errs = compare("fused_mlp_bwd_chunked", k, p, tol)
             f32_rel = f32_reading("fused_mlp_bwd_chunked",
                                   FM.trunk_backward_plain(x, params, g,
-                                                          **{**kw, "bf16": False})[1],
-                                  p, K2B_BF16_REL)
+                                                          **{**kw, "bf16": False})[1], p, tol)
             ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
             nbytes = 2 * x.numel() + 4 * g.numel() + 2 * 4 * sum(t.numel() for t in params)
             b, by = bound(nbytes, ops, PEAK_BF16)
             record(results, "fused_mlp_bwd_chunked", "bf16", envs,
                    _shape(rows, D, 1, H) + label + tag, errs, kern, plain, b, by, f32_rel,
-                   preset=WIDE, device_match="mma_kernel", hidden=H)
+                   preset=WIDE, device_match="mma_kernel", hidden=H, timed=timed)
             del k, p, g
         del x
         torch.cuda.empty_cache()
@@ -1701,11 +2113,13 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
         x = randn(Rv, D).to(torch.bfloat16)
         vpred = randn(Rv, 1)
         ret = vpred + 3.0 * randn(Rv, 1)
-        for tag, relu, L, fn in trunk_variants(True, WIDE, H):
+        for tag, relu, L, fn in variants or trunk_variants(True, WIDE, H):
             params = full if fn else full[2:2 + 4 * L]
             aux = FP.pack_critic_aux(vpred, ret)
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, clip_param=0.2,
                       huber_delta=10.0, use_huber=True, use_clipped=True)
+            if layer_n != 1:  # the rows whose value the kernel rounds apart
+                value_flips(f"chunked K4u {_shape(Rv, D)}{tag}", x, aux, norm, params, wv, bv, kw)
             kern = lambda **m: FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, **kw,
                                                              **m)
             plain = lambda **m: FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, **kw,
@@ -1716,18 +2130,19 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
                     lambda m: FM.relu_mask_gap(x, params, L, fn, m), L, Rv, H)
             else:
                 k, p = kern(), plain()
-            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), PPO_BF16_REL)
+            tol = bf16_limit(f"chunked K4u {_shape(Rv, D)}{tag}", PPO_BF16_REL, layer_n, kern,
+                             plain, flat, flat(p), relu, (L, Rv, H))
+            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
             f32_rel = f32_reading(
                 "critic_ppo_grads_unfolded",
                 flat(FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv,
-                                                    **{**kw, "bf16": False})),
-                flat(p), PPO_BF16_REL)
+                                                    **{**kw, "bf16": False})), flat(p), tol)
             ops = 6 * Rv * (D * H + (L - 1) * H * H)
             nbytes = 2 * x.numel() + 4 * aux.numel() + 2 * 4 * sum(t.numel() for t in flat(k))
             b, by = bound(nbytes, ops, PEAK_BF16)
             record(results, "critic_ppo_grads_unfolded", "bf16", envs, _shape(Rv, D, 1, H) + tag,
                    errs, kern, plain, b, by, f32_rel, preset=WIDE,
-                   device_match="mma_kernel", hidden=H)
+                   device_match="mma_kernel", hidden=H, timed=timed)
             del k, p
         del x
         torch.cuda.empty_cache()
@@ -3280,6 +3695,206 @@ def check_mesh(results: dict):
               f"ranks on one device); NCCL across cards stays unverified", flush=True)
 
 
+def deep_kernel_cases(gen, n_layers: int, hidden: int, conditioned: bool, preset=None,
+                      envs: int = 16):
+    """(name, kernel(bf16, **kw) -> tensors, plain(**masks) -> tensors,
+    rows) of every kernel of the trunk at ``envs`` envs, relu, ``n_layers``
+    layers of width ``hidden`` (``conditioned``: the biases
+    ``condition_deep_``): K2 on the actor's 64 rows, K2b, K3 and K3u on its
+    150 * envs * 4 rows (9,600 x 110 at 16 envs), K4 / K4u on the critic's
+    150 * envs (2,400 x 440); with ``preset``, K4, K4u and K2b on its critic
+    rows (the 20-UAV preset's: the chunked layouts)."""
+    import torch
+
+    from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
+    from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
+
+    env = env_config(preset)
+    T, A, D, H, L = 150, env.n_agents, env.obs_dim, hidden, n_layers
+    algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16", fused_loss="on", fused_trunk="on",
+                             hidden_size=H, layer_n=L - 1), env, device="cuda")
+    actor, critic = algo.make_networks(seed=2)
+    for net in (actor, critic):
+        perturb_(net, gen)
+        if conditioned:
+            condition_deep_(net, gen)
+    randn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    ap = [p.detach() for p in actor.base.flat_params()]
+    cp = [p.detach() for p in critic.base.flat_params()]
+    R, Rv = T * envs * A, T * envs
+    obs = randn(R, D).bfloat16()
+    cent = obs.reshape(Rv, A * D) if preset is None else randn(Rv, A * D).bfloat16()
+    flat = lambda o: [*o[0], *o[1:]]
+    aux_a = FP.pack_actor_aux(randn(R, 2) * 0.5, -2.0 + 0.3 * randn(R, 1), randn(R, 1))
+    vpred = randn(Rv, 1)
+    aux_c = FP.pack_critic_aux(vpred, vpred + 3.0 * randn(Rv, 1))
+    norm = torch.tensor([0.5, 2.0], device="cuda")
+    wh, bh, ls = (actor.act_out.weight.detach().t(), actor.act_out.bias.detach(),
+                  actor.log_std.detach())
+    wv, bv = critic.v_out.weight.detach().t(), critic.v_out.bias.detach()
+    kp, whf, bhf = FP.fold_trunk(ap, wh, bh, L, True)
+    kpc, wvf, bvf = FP.fold_trunk(cp, wv, bv, L, True)
+    tkw = dict(n_layers=L, use_fn=True, use_relu=True)
+    akw = dict(tkw, clip_param=0.2)
+    ckw = dict(tkw, clip_param=0.2, huber_delta=10.0, use_huber=True, use_clipped=True)
+    x64 = obs[:64]
+    g = randn(R, H).bfloat16()
+    gc = randn(Rv, H)
+    cases = [
+        ("fused_mlp", lambda bf16, **m: [FM.trunk_forward_cuda(x64, ap, bf16=bf16, **tkw, **m)],
+         lambda **m: [FM.trunk_forward_plain(x64, ap, bf16=True, **tkw, **m)], 64),
+        ("fused_mlp_bwd",
+         lambda bf16, **m: (lambda o: [o[0], *o[1]])(
+             FM.trunk_backward_cuda(obs, ap, g, bf16=bf16, **tkw, **m)),
+         lambda **m: (lambda o: [o[0], *o[1]])(
+             FM.trunk_backward_plain(obs, ap, g, bf16=True, **tkw, **m)), R),
+        ("actor_ppo_grads",
+         lambda bf16, **m: flat(FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, bf16=bf16,
+                                                    **akw, **m)),
+         lambda **m: flat(FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, bf16=True, **akw,
+                                               **m)), R),
+        ("critic_ppo_grads",
+         lambda bf16, **m: flat(FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
+                                                     bf16=bf16, **ckw, **m)),
+         lambda **m: flat(FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf, bf16=True,
+                                                **ckw, **m)), Rv),
+        ("actor_ppo_grads_unfolded",
+         lambda bf16, **m: flat(FP.actor_grads_unfolded_cuda(obs, aux_a, ap, wh, bh, ls,
+                                                             bf16=bf16, **akw, **m)),
+         lambda **m: flat(FP.actor_grads_unfolded_plain(obs, aux_a, ap, wh, bh, ls, bf16=True,
+                                                        **akw, **m)), R),
+        ("critic_ppo_grads_unfolded",
+         lambda bf16, **m: flat(FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cp, wv, bv,
+                                                              bf16=bf16, **ckw, **m)),
+         lambda **m: flat(FP.critic_grads_unfolded_plain(cent, aux_c, norm, cp, wv, bv,
+                                                         bf16=True, **ckw, **m)), Rv),
+    ]
+    if preset is not None:  # the critic's rows: K4, K4u and the chunked K2b
+        cases = [c for c in cases if c[0].startswith("critic")] + [
+            ("fused_mlp_bwd",
+             lambda bf16, **m: FM.trunk_backward_cuda(cent, cp, gc, bf16=bf16, need_dx=False,
+                                                      **tkw, **m)[1],
+             lambda **m: FM.trunk_backward_plain(cent, cp, gc, bf16=True, need_dx=False, **tkw,
+                                                 **m)[1], Rv)]
+    return cases
+
+
+# (layers, hidden width, envs) of the depth layout's bit-for-bit checks: on
+# 16-row tiles at 9 layers, hidden 256 and 32 layers, hidden 128; on the
+# largest staged tiles (64 rows for K2b, K3 and K3u on 110-wide rows; 32 for
+# the rest, K3u at hidden 256 too: the depth layout's tiles at 32 layers and
+# hidden 256) at 2 layers, hidden 256 and 7 layers, hidden 128
+DEEP_BITS = ((9, 256, 16), (32, 128, 16), (2, 256, 64), (7, 128, 64))
+
+
+def check_deep_bits(results: list):
+    """Each bf16 gradient kernel in its depth layout (the wrappers'
+    ``_deep``) against its staged layout on the same rows, tile and inputs,
+    bit for bit, relu masks too, at the ``DEEP_BITS`` depths and widths,
+    where the staged tiles hold the trunk; K2b, K3, K4, K3u and K4u on the
+    default rows, K4, K4u and K2b on the 20-UAV preset's 4,840-wide critic
+    rows (the chunked layouts, but K4's staged at hidden 128 and 7 layers).
+    The depth layout keeps the staged layout's roundings and summation
+    orders, so anything else is a fault. Each row tile of the depth layout
+    (16, 32 and 64 rows) must be among those checked."""
+    import torch
+
+    from dcc_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    seen = set()
+    for L, hidden, envs in DEEP_BITS:
+        for preset in (None, WIDE):
+            for name, kern, _, rows in deep_kernel_cases(gen, L, hidden, True, preset, envs):
+                if name == "fused_mlp":
+                    continue
+                masks = torch.zeros((L, rows, hidden), dtype=torch.uint8, device="cuda")
+                staged = kern(True, relu_masks=masks)
+                staged_tile = dict(cuda_build.TILE)
+                deep_masks = torch.zeros_like(masks)
+                deep = kern(True, relu_masks=deep_masks, _deep=True)
+                same = (all(torch.equal(a, b) for a, b in zip(deep, staged))
+                        and torch.equal(masks, deep_masks)
+                        and dict(cuda_build.TILE) == staged_tile)
+                tile = staged_tile[name + ("_chunked" if name == "fused_mlp_bwd"
+                                           and preset else "")]
+                seen.add(tile)
+                where = "" if preset is None else f" {preset}"
+                results.append(dict(layers=L, hidden=hidden, preset=preset, kernel=name,
+                                    rows=rows, tile=tile, bit_identical=same))
+                print(f"  bits L={L} H={hidden}{where} {name} {rows} rows (tile {tile}): "
+                      f"depth layout {'bit for bit' if same else 'DIFFERS from'} the staged "
+                      f"layout", flush=True)
+                if not same:
+                    raise SmokeFailure(f"{name} at {L} layers, hidden {hidden}{where}: the "
+                                       f"depth layout differs from the staged layout")
+                del staged, deep, masks, deep_masks
+                torch.cuda.empty_cache()
+    if seen != {16, 32, 64}:
+        raise SmokeFailure(f"the depth layout's bit checks took tiles {sorted(seen)}, not "
+                           f"16, 32 and 64")
+
+
+def check_deep(results: list, runs: dict):
+    """The deep phase: trunks of any depth. The row-tile plans (at 32
+    layers every bf16 gradient kernel takes its depth layout, not before);
+    the depth layout bit for bit against the staged one (``check_deep_bits``);
+    every kernel of the trunk, K2, K2b, K3 / K4 and K3u / K4u, in f32 and
+    bf16, against its plain version at 16 envs on the model's relu trunk
+    with its biases ``condition_deep_`` (ROADMAP C8) at 8, 9 and 32 layers
+    (``DEEP_LAYERS``; bf16 under the relu mask rule and the clip-kink and
+    value-flip rules, f32 with the rows next to a kink given a zero
+    cotangent, advantage or valid flag), each bf16 reading held to
+    ``bf16_limit`` (the bound, or where the plain version's own spread in
+    another summation order passes it, ``ORDER_FACTOR`` times that
+    spread), timed at 9 and 32 (``DEEP_TIMED``, the {"kernels": [...]}
+    line's ``_L9`` / ``_L32`` rows). Then the chunked K2, K4, K2b and K4u on
+    the 20-UAV preset's 4,840-wide critic rows (2,400 rows) at 9 layers
+    (their chunked depth layouts are held bit for bit to the chunked staged
+    ones, ``check_deep_bits``). Then the runs of ``DEEP_RUNS`` through the
+    entry point, with their launch counts and entry points, into ``runs``."""
+    import torch
+
+    from dcc_tpu_torch.ops import tiles
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    plans = ((k, w, n) for k, w, n in (("fused_mlp", 110, 1), ("fused_mlp_bwd", 110, 1),
+                                       ("actor_ppo_grads", 110, 2),
+                                       ("critic_ppo_grads", 440, 1),
+                                       ("actor_ppo_grads_unfolded", 110, 2),
+                                       ("critic_ppo_grads_unfolded", 440, 1),
+                                       ("critic_ppo_grads", 4840, 1),
+                                       ("fused_mlp_bwd", 4840, 1),
+                                       ("critic_ppo_grads_unfolded", 4840, 1)))
+    for kernel, width, n_head in plans:
+        for L in DEEP_LAYERS:
+            p = tiles.plan(kernel, True, width, 256, L, n_head)
+            print(f"  plan {kernel} {width} wide, {L} layers: chunked {p.chunked}, tiles "
+                  f"{p.tiles}, depth layout {p.deep}", flush=True)
+            if not p.tiles or p.deep != (L == 32 and kernel != "fused_mlp"):
+                raise SmokeFailure(f"{kernel} at {L} layers: plan {p}, depth layout {p.deep}")
+    bits: list = []
+    check_deep_bits(bits)
+    for L in DEEP_LAYERS:
+        timed = L in DEEP_TIMED
+        v = [(f" L={L}", True, L, True)]
+        print(f"  {L} layers (layer_N {L - 1}), 16 envs{', timed' if timed else ''}", flush=True)
+        kw = dict(layer_n=L - 1, timed=timed)
+        check_trunk_forward(results, gen, envs_list=(16,), **kw)
+        check_trunk_backward(results, gen, cases=((16, 1, "both"),), variants=v, **kw)
+        check_ppo(results, gen, cases=((16, 1),), variants=v, **kw)
+        check_unfolded(results, gen, envs_list=(16,), variants=v, **kw)
+    v = [(" L=9", True, 9, True)]
+    kw = dict(layer_n=8, timed=False)
+    print(f"  the {WIDE} preset's 4,840-wide critic rows, 9 layers", flush=True)
+    check_trunk_forward(results, gen, preset=WIDE, envs_list=(16,), **kw)
+    check_ppo(results, gen, cases=((16, 1),), preset=WIDE, modes=(True,), variants=v,
+              kinds=("critic",), **kw)
+    check_wide_chunked(results, gen, envs_list=(16,), variants=v, **kw)
+    for tag, extra, per_iter in DEEP_RUNS:
+        train_run(runs, tag, BASE_ARGS + extra, per_iter)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3343,7 +3958,12 @@ def main(argv=None) -> int:
     check_mesh(mesh)
     mesh["seconds"] = time.perf_counter() - t_mesh
     print(f"  mesh phase {mesh['seconds']:.1f} s", flush=True)
-    print(f"[8] done at {time.perf_counter() - t0:.0f} s", flush=True)
+    print(f"[8] deep trunks: every kernel at 8, 9 and 32 layers, the deep runs (at "
+          f"{time.perf_counter() - t0:.0f} s)", flush=True)
+    t_deep = time.perf_counter()
+    check_deep(checks, runs)
+    print(f"  deep phase {time.perf_counter() - t_deep:.1f} s", flush=True)
+    print(f"[9] done at {time.perf_counter() - t0:.0f} s", flush=True)
 
     kernels = []
     for name in REPLACES:

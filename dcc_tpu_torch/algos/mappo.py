@@ -387,12 +387,15 @@ class MAPPO:
 
     def _check_cuda_trunk(self) -> None:
         """Raise before any launch where the fused CUDA kernels do not take
-        the trunk (``ops.fused_mlp.cuda_trunk_faults``): more layers than
-        their entries take (ROADMAP B3b), or in bf16 a hidden width at which
-        a kernel this run launches has no row tile that fits one block
-        (ROADMAP B3). Every bf16 kernel runs its layers in column passes and
-        streams its first layer in column chunks past the widest staged row
-        (``ops.tiles.plan``), so no other bf16 width is refused."""
+        the trunk (``ops.fused_mlp.cuda_trunk_faults``): in bf16, a hidden
+        width at which a kernel this run launches has no row tile that fits
+        one block (ROADMAP B3: above about 1,024). Every depth is taken: the
+        kernels read their offsets from a device table, and past the depth
+        whose activations fit one block the bf16 gradient kernels keep them
+        in device memory (their depth layout). Every bf16 kernel runs its
+        layers in column passes and streams its first layer in column chunks
+        past the widest staged row (``ops.tiles.plan``), so no other bf16
+        width is refused."""
         faults = FM.cuda_trunk_faults(self.cfg.hidden_size, self.cfg.layer_n + 1, self.bf16,
                                       self._fused_launches())
         if faults:
@@ -410,7 +413,7 @@ class MAPPO:
             return
         for kernel, width, n_head in self._fused_launches():
             if not tiles.plan(kernel, False, width, self.cfg.hidden_size,
-                              self.cfg.layer_n + 1, n_head)[1]:
+                              self.cfg.layer_n + 1, n_head).tiles:
                 raise NotImplementedError(
                     f"f32 {kernel} stages whole rows and no row tile fits one block's shared "
                     f"memory at {width}-wide rows; run in bf16 (--compute-dtype bfloat16), "

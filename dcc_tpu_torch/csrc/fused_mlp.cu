@@ -40,13 +40,14 @@
 //   staged kernel.
 #include "trunk_mma.cuh"
 
-// Offsets in the packed f32 parameter buffer: fn scale, fn bias at v[0],
-// v[1]; layer li: W at v[2+4li], b at v[3+4li], LN scale at v[4+4li], LN
-// bias at v[5+4li].
+// Offsets in the packed f32 parameter buffer (offs, a device table of 2 +
+// 4L entries): fn scale, fn bias at offs[0], offs[1]; layer li: W at
+// offs[2+4li], b at offs[3+4li], LN scale at offs[4+4li], LN bias at
+// offs[5+4li].
 template <int BR>
 __global__ void __launch_bounds__(DCC_THREADS)
     trunk_fwd_kernel(const void* x, int x_bf16, long long R, int d_in, int H, int L,
-                     int use_fn, int relu, const float* pb, DccOffs offs, float* out) {
+                     int use_fn, int relu, const float* pb, const long long* offs, float* out) {
   extern __shared__ float smem[];
   const int wmax = d_in > H ? d_in : H;
   float* a = smem;             // BR x wmax
@@ -56,12 +57,12 @@ __global__ void __launch_bounds__(DCC_THREADS)
   load_tile<BR>(x, x_bf16, row0, R, d_in, a);
   __syncthreads();
   if (use_fn) {
-    ln_tile<BR>(a, a, d_in, pb + offs.v[0], pb + offs.v[1], nullptr);
+    ln_tile<BR>(a, a, d_in, pb + offs[0], pb + offs[1], nullptr);
     __syncthreads();
   }
   int din = d_in;
   for (int li = 0; li < L; ++li) {
-    const long long* o = offs.v + 2 + 4 * li;
+    const long long* o = offs + 2 + 4 * li;
     dense_act_tile<BR>(a, din, pb + o[0], pb + o[1], H, relu, z);
     __syncthreads();
     ln_tile<BR>(z, a, H, pb + o[2], pb + o[3], nullptr);
@@ -97,12 +98,13 @@ __host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H, bo
 }
 
 // bf16 trunk on the tensor cores. wb holds each layer's W as bf16, zero
-// padded to pad16(d_li) x pad16(H), at woffs.v[li]; pb the f32 vectors.
+// padded to pad16(d_li) x pad16(H), at woffs[li] (a device table of L
+// entries); pb the f32 vectors at offs, as the f32 kernel's.
 // mask: null, or the relu masks' debug output (L x R x H bytes, z > 0).
 #define DCC_TRUNK_FWD_MMA_PARAMS                                                           \
   const void *x, int x_bf16, long long R, int d_in, int H, int L, int use_fn, int relu,    \
-      const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, bf16 *out,            \
-      unsigned char *mask
+      const float *pb, const long long *offs, const bf16 *wb, const long long *woffs,      \
+      bf16 *out, unsigned char *mask
 
 // CH: layer 0 chunked (the rows' statistics, then chunked_layer0) instead
 // of staged (load_input, then gemm_stream over the whole row). Each layer
@@ -128,11 +130,10 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
     if constexpr (CH)
       input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv);
     else
-      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], A,
-                     lda);
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs[0], pb + offs[1], A, lda);
     __syncthreads();
     for (int li = 0; li < L; ++li) {
-      const long long* o = offs.v + 2 + 4 * li;
+      const long long* o = offs + 2 + 4 * li;
       float acc[MmaTile<BR>::NT][4];
       float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
       unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
@@ -142,13 +143,13 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
         if constexpr (CH) {
           if (li == 0)
             chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
-                                     use_fn ? pb + offs.v[0] : nullptr,
-                                     use_fn ? pb + offs.v[1] : nullptr, A, lda, wb + woffs.v[0],
-                                     Hp, n0, ring, pt, acc);
+                                     use_fn ? pb + offs[0] : nullptr,
+                                     use_fn ? pb + offs[1] : nullptr, A, lda, wb + woffs[0], Hp,
+                                     n0, ring, pt, acc);
           else
-            gemm_stream<false>(A, lda, Hp, wb + woffs.v[li] + n0, Hp, np, ring, pt, acc);
+            gemm_stream<false>(A, lda, Hp, wb + woffs[li] + n0, Hp, np, ring, pt, acc);
         } else {
-          gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp, np, ring, pt,
+          gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp, np, ring, pt,
                              acc);
         }
         dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
@@ -213,15 +214,10 @@ __global__ void __launch_bounds__(MMA_THREADS)
                           out, mask);
 }
 
-static DccOffs to_offs(const long long* offs, int n_offs) {
-  DccOffs o;
-  for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
-  return o;
-}
-
 template <int BR>
 static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L, int use_fn,
-                  int relu, const float* pb, DccOffs o, float* out, cudaStream_t stream) {
+                  int relu, const float* pb, const long long* o, float* out,
+                  cudaStream_t stream) {
   static bool smem_set = false;
   auto k = trunk_fwd_kernel<BR>;
   if (!smem_set) {
@@ -239,8 +235,8 @@ static int launch(const void* x, int x_bf16, long long R, int d_in, int H, int L
 
 template <int BR, bool CH>
 static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, int L,
-                      int use_fn, int relu, const float* pb, DccOffs o, const bf16* wb,
-                      DccOffs wo, int n_blocks, bf16* out, unsigned char* mask,
+                      int use_fn, int relu, const float* pb, const long long* o, const bf16* wb,
+                      const long long* wo, int n_blocks, bf16* out, unsigned char* mask,
                       cudaStream_t stream) {
   static bool smem_set = false;
   auto k = trunk_fwd_mma_kernel<BR>;
@@ -256,18 +252,19 @@ static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, i
   return (int)cudaGetLastError();
 }
 
-// bf16 trunk, staged (br in {64, 32, 16}) or chunked (br in {32, 16}).
+// bf16 trunk, staged (br in {64, 32, 16}) or chunked (br in {32, 16});
+// offs (2 + 4L entries) and woffs (L entries) are device tables.
 template <bool CH>
 static int trunk_fwd_mma_entry(const void* x, int x_bf16, long long R, int d_in, int H, int L,
                                int use_fn, int relu, int br, const float* pb,
                                const long long* offs, int n_offs, const void* wb,
                                const long long* woffs, int n_woffs, int n_blocks, void* out,
                                void* mask, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || !mma_width_ok(H) ||
-      n_blocks < 1 || d_in < 1)
+  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || !mma_width_ok(H) || n_blocks < 1 ||
+      d_in < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const long long *o = offs, *wo = woffs;
   const bf16* w = (const bf16*)wb;
   bf16* y = (bf16*)out;
   unsigned char* m = (unsigned char*)mask;
@@ -288,13 +285,13 @@ static int trunk_fwd_mma_entry(const void* x, int x_bf16, long long R, int d_in,
   }
 }
 
-// f32 trunk: br in {32, 8, 1}.
+// f32 trunk: br in {32, 8, 1}; offs a device table of 2 + 4L entries.
 extern "C" int dcc_trunk_fwd(const void* x, int x_bf16, long long R, int d_in, int H, int L,
                              int use_fn, int relu, int br, const float* pb,
                              const long long* offs, int n_offs, float* out, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS) return (int)cudaErrorInvalidValue;
+  if (L < 1 || n_offs != 2 + 4 * L) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
+  const long long* o = offs;
   switch (br) {
     case 32: return launch<32>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, out, s);
     case 8: return launch<8>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, out, s);

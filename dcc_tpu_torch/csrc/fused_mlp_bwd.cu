@@ -44,8 +44,8 @@
 template <int BR>
 __global__ void __launch_bounds__(DCC_THREADS)
     trunk_bwd_kernel(const void* x, int x_bf16, const float* gout, long long R, int d_in,
-                     int H, int L, int use_fn, int relu, const float* pb, DccOffs offs,
-                     float* slots, long long slot_size, void* dx) {
+                     int H, int L, int use_fn, int relu, const float* pb,
+                     const long long* offs, float* slots, long long slot_size, void* dx) {
   extern __shared__ float smem[];
   const UnfoldedCache c = carve_unfolded<BR>(smem, d_in, H, L);
   float* slot = slots + (long long)blockIdx.x * slot_size;
@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // layer 0's cotangent: it writes each row's bf16 g0 (R x Hp) and its
 // feature-norm mean and 1/sqrt(var + eps) (xstats, R x 2), and leaves the
 // 4,840-wide gradients out of its slot, which starts at layer 0's bias
-// (slot offset = offset in pb - offs.v[3]): dW0 comes from the dV0 kernel
+// (slot offset = offset in pb - offs[3]): dW0 comes from the dV0 kernel
 // in its affine mode (layer0_tail.cu), the feature norm's gradients and d(x)
 // from the layer-0 input backward (layer0_tail.cu without d(x) at hidden
 // widths to 256, else layer0_input_bwd_mma_kernel below). A 4.96 MB dW0 in each of 132
@@ -127,15 +127,23 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // pre-activations are not re-summed (resum_uncertain needs the whole
 // operand row); the layers after it are. No stage: layer 0's g_prev is
 // not computed here.
+//
+// Depth layout (deep, staged or chunked; trunk_mma.cuh's
+// DeepScratch): act holds one layer's tile, and every layer's tile, its
+// mu, inv and the column norms live in the block's scratch in global
+// memory, so shared memory does not grow with L. At more than one column
+// pass a layer, each layer's f32 g_prev has its own stage, gst (BR x (Hp +
+// 4)), since act then holds the layer being differentiated.
 // ---------------------------------------------------------------------------
 struct BwdMmaLayout {
-  size_t a0, act, sx, stage, gs, ring, mu, inv, fmu, finv, red, colsum, rnorm, cnorm, flags,
+  size_t a0, act, sx, gst, stage, gs, ring, mu, inv, fmu, finv, red, colsum, rnorm, cnorm, flags,
       total;
 };
 
 __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, int L,
-                                                       bool chunked = false) {
+                                                       bool chunked = false, bool deep = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const size_t Ls = deep ? 0 : L;  // layers whose tiles and statistics stay in shared memory
   // widest column pass of layer 0's g_prev (none when chunked) and of a layer
   const int nk = chunked ? 0 : pass_cols((int)Kp0), nh = pass_cols((int)Hp);
   const int st_kn = ring_stage(nh, false);
@@ -143,43 +151,47 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
   BwdMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * ((chunked ? MMA_KC : Kp0) + 8);
-  m.act = o;    o += 2 * (size_t)L * br * ldh;
+  m.act = o;    o += 2 * (deep ? 1 : (size_t)L) * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
+  m.gst = o;    o += deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
   m.stage = 0;
   const size_t stage = chunked ? 0 : 4 * br * (Kp0 + 4);
   if (o < stage) o = stage;
   m.gs = o;     o += 2 * br * ldh;
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
-  m.mu = o;     o += 4 * (size_t)L * br;
-  m.inv = o;    o += 4 * (size_t)L * br;
+  m.mu = o;     o += 4 * Ls * br;
+  m.inv = o;    o += 4 * Ls * br;
   m.fmu = o;    o += 4 * (size_t)br;
   m.finv = o;   o += 4 * (size_t)br;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
   m.colsum = o; o += 4 * 3 * (size_t)(br / 16) * Hp;
   m.rnorm = o;  o += 4 * (size_t)br;
-  m.cnorm = o;  o += 4 * (size_t)L * Hp;
+  m.cnorm = o;  o += 4 * Ls * Hp;
   m.flags = o;  o += RESUM_BYTES;
   m.total = o;
   return m;
 }
 
 // Parameters: the flat list's f32 vectors in pb (fn scale / bias at
-// offs.v[0] / v[1]; layer li's b, LN scale, LN bias at offs.v[3+4li] ..
-// v[5+4li]; the W slots offs.v[2+4li] are not read), the same offsets
-// locating each gradient in the slot (chunked: less offs.v[3]); bf16 W_li
-// (pad16(d_li) x pad16(H), zero padded) at wb + woffs.v[li]. gout: R x H
-// f32; dx in x's dtype (staged); g0, xstats (chunked); mask null, or the
-// relu masks' debug output of the forward recompute (L x R x H bytes).
-#define DCC_TRUNK_BWD_MMA_PARAMS                                                          \
-  const void *x, int x_bf16, const float *gout, long long R, int d_in, int H, int L,      \
-      int use_fn, int relu, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs, \
-      float *slots, long long slot_size, unsigned char *mask
+// offs[0] / offs[1]; layer li's b, LN scale, LN bias at offs[3+4li] ..
+// offs[5+4li]; the W slots offs[2+4li] are not read), the same offsets
+// locating each gradient in the slot (chunked: less offs[3]); bf16 W_li
+// (pad16(d_li) x pad16(H), zero padded) at wb + woffs[li]; offs and woffs
+// are device tables. gout: R x H f32; dx in x's dtype (staged); g0, xstats
+// (chunked); mask null, or the relu masks' debug output of the forward
+// recompute (L x R x H bytes); deep null (the staged layout) or the depth
+// layout's scratch (gridDim.x x deep_scratch_bytes(BR, H, L) bytes).
+#define DCC_TRUNK_BWD_MMA_PARAMS                                                           \
+  const void *x, int x_bf16, const float *gout, long long R, int d_in, int H, int L,       \
+      int use_fn, int relu, const float *pb, const long long *offs, const bf16 *wb,        \
+      const long long *woffs, float *slots, long long slot_size, unsigned char *mask,      \
+      unsigned char *deep
 
 template <int BR, bool CH>
 __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
                                               DCC_TRUNK_BWD_MMA_PARAMS, void* dx, bf16* g0,
                                               float* xstats) {
-  const BwdMmaLayout m = bwd_mma_layout(BR, d_in, H, L, CH);
+  const BwdMmaLayout m = bwd_mma_layout(BR, d_in, H, L, CH, deep != nullptr);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
             ldf = Kp0 + 4, ldgf = Hp + 4;
   const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
@@ -189,14 +201,27 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
   float* stage = (float*)(smem_raw + m.stage);
   bf16* gs = (bf16*)(smem_raw + m.gs);
   bf16* ring = (bf16*)(smem_raw + m.ring);
-  float* mu_s = (float*)(smem_raw + m.mu);
-  float* inv_s = (float*)(smem_raw + m.inv);
   float* fmu = (float*)(smem_raw + m.fmu);
   float* finv = (float*)(smem_raw + m.finv);
   float* red = (float*)(smem_raw + m.red);
   float* colsum = (float*)(smem_raw + m.colsum);
   float* rnorm = (float*)(smem_raw + m.rnorm);
-  float* cnorm = (float*)(smem_raw + m.cnorm);
+  // the depth layout: every layer's tile and statistics and the column norms
+  // in the block's scratch, one layer's tile in act
+  const DeepScratch ds = deep_scratch<BR>(deep, H, L);
+  float* mu_s = deep ? ds.mu : (float*)(smem_raw + m.mu);
+  float* inv_s = deep ? ds.inv : (float*)(smem_raw + m.inv);
+  float* cnorm = deep ? ds.cnorm : (float*)(smem_raw + m.cnorm);
+  auto act_tile = [&](int li) { return deep ? act : act + (long long)li * BR * ldh; };
+  // layer li's saved tile as the backward reads it to recompute an operand
+  auto saved = [&](int li) -> const bf16* {
+    return deep ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
+  };
+  // the f32 g_prev of layer li (more than one column pass): staged over
+  // act[li ..] and sx, deep in gst
+  auto gstage = [&](int li) {
+    return deep ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+  };
   const ResumList flags = resum_list(smem_raw + m.flags);
   constexpr int WM = MmaTile<BR>::WM;
   const WarpTile wt = pass_tile<BR>(Hp, 0);
@@ -210,7 +235,7 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
-  float* sb = CH ? slot - offs.v[3] : slot;  // gradient k of the flat list at sb + offs.v[k]
+  float* sb = CH ? slot - offs[3] : slot;  // gradient k of the flat list at sb + offs[k]
   if (threadIdx.x == 0) *flags.n = 0;
   if (relu)  // for relu_uncertain (chunked: the layers after layer 0)
     weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm, CH ? 1 : 0);
@@ -229,35 +254,36 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     if constexpr (CH)
       input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv);
     else
-      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
-                     lda0, fmu, finv);
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs[0], pb + offs[1], a0, lda0,
+                     fmu, finv);
     __syncthreads();
     for (int li = 0; li < L; ++li) {
-      const long long* o = offs.v + 2 + 4 * li;
+      const long long* o = offs + 2 + 4 * li;
       const bf16* in = li == 0 ? a0 : sx;
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
       const bool resum = relu && !(CH && li == 0);
       if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      bf16* a = act + (long long)li * BR * ldh;
+      bf16* a = act_tile(li);
       unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
       float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
       for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
         const WarpTile pt = pass_tile<BR>(Hp, n0);
         if (CH && li == 0)
           chunked_layer0<BR, true>(x, x_bf16, row0, R, d_in, use_fn, fmu, finv,
-                                   use_fn ? pb + offs.v[0] : nullptr,
-                                   use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
-                                   Hp, n0, ring, pt, acc);
+                                   use_fn ? pb + offs[0] : nullptr,
+                                   use_fn ? pb + offs[1] : nullptr, a0, lda0, wb + woffs[0], Hp,
+                                   n0, ring, pt, acc);
         else
-          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp,
+          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp,
                              min(MMA_HMAX, Hp - n0), ring, pt, acc);
         if (resum)
-          resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+          resum_uncertain<BR>(acc, in, lda, K, wb + woffs[li], Hp, pb + o[1], H, rnorm,
                               cnorm + li * Hp, row0, R, pt, n0, flags);
         dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
         if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
         store_pass<BR>(acc, a, ldh, n0, pt);
+        if (deep) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
       }
       float mu[2], inv[2];
       ln_stats<BR>(s, q, H, red, wt, mu, inv);
@@ -319,9 +345,13 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     // than one column pass, each layer's cotangent is read pass by pass: the
     // last layer's from gout, the others' from the stage gprev_passes wrote
     for (int li = L - 1; li >= 0; --li) {
-      const long long* o = offs.v + 2 + 4 * li;  // W, b, LN scale, LN bias
-      const bf16* a = act + (long long)li * BR * ldh;
-      const float* gf = (const float*)(act + (long long)(li + 1) * BR * ldh);
+      const long long* o = offs + 2 + 4 * li;  // W, b, LN scale, LN bias
+      // deep: layer li's tile into act (the last layer's is there from the
+      // forward); every thread is done with act since the barrier after the
+      // previous layer's LN backward
+      if (deep && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
+      const bf16* a = act_tile(li);
+      const float* gf = gstage(li + 1);
       auto load_g = [&](int n0, const WarpTile& pt) {
         if (li + 1 == L)
           top_g(n0, pt);
@@ -348,7 +378,7 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
         // pass: after every thread has read the stage, which lies over sx
         if (multi) __syncthreads();
         const long long* op = o - 4;
-        const bf16* ap = act + (long long)(li - 1) * BR * ldh;
+        const bf16* ap = saved(li - 1);
         const float* pm = mu_s + (li - 1) * BR;
         const float* pi = inv_s + (li - 1) * BR;
         for (int i = threadIdx.x; i < BR * Hp; i += blockDim.x) {
@@ -389,12 +419,11 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
                       li == 0 ? d_in : H, gs, ldh, Hp, H, sb + o[0], first);
       }
       if (li > 0) {  // g_prev = bf16(g) @ W^T
-        if (multi) {  // into the stage over act[li ..] and sx
-          gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[li], Hp, ring,
-                           (float*)(act + (long long)li * BR * ldh), ldgf);
+        if (multi) {  // into the stage over act[li ..] and sx, deep gst
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf);
           __syncthreads();
         } else {
-          gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc);
         }
       }
     }
@@ -404,13 +433,13 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     }
     // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns into the stage
     // (over a0, which grad_at_g has finished reading)
-    gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
+    gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf);
     __syncthreads();
     if (use_fn) {
       // feature norm: its scale and bias gradients (rows >= R have g = 0)
-      const float* fs = pb + offs.v[0];
-      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fmu, finv, slot + offs.v[0],
-                          slot + offs.v[1], first);
+      const float* fs = pb + offs[0];
+      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fmu, finv, slot + offs[0],
+                          slot + offs[1], first);
       // its LN backward and d(x), one warp per row
       for (int r = warp; r < BR && row0 + r < R; r += MMA_WARPS) {
         const long long base = (row0 + r) * d_in;
@@ -453,7 +482,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     trunk_bwd_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, void* dx) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_bwd_mma<BR, false>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
-                           woffs, slots, slot_size, mask, dx, nullptr, nullptr);
+                           woffs, slots, slot_size, mask, deep, dx, nullptr, nullptr);
 }
 
 template <int BR>
@@ -461,7 +490,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     trunk_bwd_chunked_mma_kernel(DCC_TRUNK_BWD_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_bwd_mma<BR, true>(smem_raw, x, x_bf16, gout, R, d_in, H, L, use_fn, relu, pb, offs, wb,
-                          woffs, slots, slot_size, mask, nullptr, g0, xstats);
+                          woffs, slots, slot_size, mask, deep, nullptr, g0, xstats);
 }
 
 // ---------------------------------------------------------------------------
@@ -664,15 +693,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   }
 }
 
-static DccOffs to_offs(const long long* offs, int n_offs) {
-  DccOffs o;
-  for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
-  return o;
-}
-
 template <int BR>
 static int launch(const void* x, int x_bf16, const float* g, long long R, int d_in, int H,
-                  int L, int use_fn, int relu, const float* pb, const DccOffs& o,
+                  int L, int use_fn, int relu, const float* pb, const long long* o,
                   float* slots, long long slot_size, int n_blocks, float* out, void* dx,
                   cudaStream_t s) {
   static bool smem_set = false;
@@ -691,18 +714,19 @@ static int launch(const void* x, int x_bf16, const float* g, long long R, int d_
 
 template <int BR>
 static int launch_mma(const void* x, int x_bf16, const float* g, long long R, int d_in, int H,
-                      int L, int use_fn, int relu, const float* pb, const DccOffs& o,
-                      const bf16* wb, const DccOffs& wo, float* slots, long long slot_size,
-                      int n_blocks, float* out, void* dx, unsigned char* mask, cudaStream_t s) {
+                      int L, int use_fn, int relu, const float* pb, const long long* o,
+                      const bf16* wb, const long long* wo, float* slots, long long slot_size,
+                      int n_blocks, float* out, void* dx, unsigned char* mask,
+                      unsigned char* deep, cudaStream_t s) {
   static bool smem_set = false;
   auto k = trunk_bwd_mma_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = bwd_mma_layout(BR, d_in, H, L).total;
+  const size_t smem = bwd_mma_layout(BR, d_in, H, L, false, deep != nullptr).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, wb,
-                                        wo, slots, slot_size, mask, dx);
+                                        wo, slots, slot_size, mask, deep, dx);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
@@ -711,18 +735,19 @@ static int launch_mma(const void* x, int x_bf16, const float* g, long long R, in
 template <int BR>
 static int launch_chunked_mma(const void* x, int x_bf16, const float* g, long long R, int d_in,
                               int H, int L, int use_fn, int relu, const float* pb,
-                              const DccOffs& o, const bf16* wb, const DccOffs& wo,
+                              const long long* o, const bf16* wb, const long long* wo,
                               float* slots, long long slot_size, int n_blocks, float* out,
-                              bf16* g0, float* xstats, unsigned char* mask, cudaStream_t s) {
+                              bf16* g0, float* xstats, unsigned char* mask, unsigned char* deep,
+                              cudaStream_t s) {
   static bool smem_set = false;
   auto k = trunk_bwd_chunked_mma_kernel<BR>;
   if (!smem_set) {
     cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
     smem_set = true;
   }
-  const size_t smem = bwd_mma_layout(BR, d_in, H, L, true).total;
+  const size_t smem = bwd_mma_layout(BR, d_in, H, L, true, deep != nullptr).total;
   k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, wb,
-                                        wo, slots, slot_size, mask, g0, xstats);
+                                        wo, slots, slot_size, mask, deep, g0, xstats);
   const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
@@ -749,24 +774,30 @@ extern "C" unsigned long long dcc_trunk_bwd_smem_bytes(int br, int d_in, int H, 
   return sizeof(float) * unfolded_smem_floats(br, d_in, H, L);
 }
 
-extern "C" unsigned long long dcc_trunk_bwd_mma_smem_bytes(int br, int d_in, int H, int L) {
-  return bwd_mma_layout(br, d_in, H, L).total;
+extern "C" unsigned long long dcc_trunk_bwd_mma_smem_bytes(int br, int d_in, int H, int L,
+                                                           int deep) {
+  return bwd_mma_layout(br, d_in, H, L, false, deep).total;
 }
 
-// f32 (FMA). offs: [fn scale, fn bias, (W, b, LN scale, LN bias) x L, W^T x
-// L] into pb (2 + 5L entries; the first 2 + 4L also locate each gradient in
-// a slot). slots is n_blocks x slot_size scratch; out receives the
-// slot_size summed gradients; dx has x's dtype and shape.
+// Bytes of one block's scratch in the depth layout of every bf16 gradient
+// kernel (K2b here, K3 / K4 and K3u / K4u in fused_ppo.cu, which share
+// trunk_mma.cuh's deep_scratch_bytes).
+extern "C" unsigned long long dcc_deep_scratch_bytes(int br, int H, int L) {
+  return deep_scratch_bytes(br, H, L);
+}
+
+// f32 (FMA). offs: a device table of [fn scale, fn bias, (W, b, LN scale,
+// LN bias) x L, W^T x L] into pb (2 + 5L entries; the first 2 + 4L also
+// locate each gradient in a slot). slots is n_blocks x slot_size scratch;
+// out receives the slot_size summed gradients; dx has x's dtype and shape.
 extern "C" int dcc_trunk_bwd(const void* x, int x_bf16, const float* g, long long R,
                              int d_in, int H, int L, int use_fn, int relu, int br,
                              const float* pb, const long long* offs, int n_offs, float* slots,
                              long long slot_size, int n_blocks, float* out, void* dx,
                              void* stream) {
-  if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 5 * L || n_offs > DCC_MAX_OFFS ||
-      n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
+  if (L < 1 || n_offs != 2 + 5 * L || n_blocks < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
+  const long long* o = offs;
 #define DCC_CASE(B)                                                                        \
   case B:                                                                                  \
     return launch<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, slots, slot_size, \
@@ -783,27 +814,28 @@ extern "C" int dcc_trunk_bwd(const void* x, int x_bf16, const float* g, long lon
 }
 
 // bf16 on the tensor cores: br in {64, 32, 16}; any H whose tile fits
-// (dcc_trunk_bwd_mma_smem_bytes); offs: [fn scale, fn bias, (W, b, LN
-// scale, LN bias) x L] into pb and into a slot (2 + 4L entries); woffs:
-// the bf16 W_li in wb; mask null or the relu masks' debug output (L x R x
-// H bytes).
+// (dcc_trunk_bwd_mma_smem_bytes); offs: a device table of [fn scale, fn
+// bias, (W, b, LN scale, LN bias) x L] into pb and into a slot (2 + 4L
+// entries); woffs: a device table of the bf16 W_li in wb; mask null or the
+// relu masks' debug output (L x R x H bytes); deep null (the staged
+// layout) or the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes.
 extern "C" int dcc_trunk_bwd_mma(const void* x, int x_bf16, const float* g, long long R,
                                  int d_in, int H, int L, int use_fn, int relu, int br,
                                  const float* pb, const long long* offs, int n_offs,
                                  const void* wb, const long long* woffs, int n_woffs,
                                  float* slots, long long slot_size, int n_blocks, float* out,
-                                 void* dx, void* mask, void* stream) {
-  if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 ||
-      !mma_width_ok(H))
+                                 void* dx, void* mask, void* deep, void* stream) {
+  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const long long *o = offs, *wo = woffs;
   const bf16* w = (const bf16*)wb;
   unsigned char* m = (unsigned char*)mask;
+  unsigned char* dp = (unsigned char*)deep;
 #define DCC_CASE(B)                                                                      \
   case B:                                                                                \
     return launch_mma<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, w, wo, slots, \
-                         slot_size, n_blocks, out, dx, m, s);
+                         slot_size, n_blocks, out, dx, m, dp, s);
   switch (br) {
     DCC_CASE(64)
     DCC_CASE(32)
@@ -826,18 +858,19 @@ extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float*
                                          const void* wb, const long long* woffs, int n_woffs,
                                          float* slots, long long slot_size, int n_blocks,
                                          float* out, void* g0, float* xstats, void* mask,
-                                         void* stream) {
-  if (L < 1 || L > DCC_MAX_LAYERS || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 ||
-      !mma_width_ok(H))
+                                         void* deep, void* stream) {
+  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
+  const long long *o = offs, *wo = woffs;
   const bf16* w = (const bf16*)wb;
   unsigned char* m = (unsigned char*)mask;
+  unsigned char* dp = (unsigned char*)deep;
 #define DCC_CASE(B)                                                                        \
   case B:                                                                                  \
     return launch_chunked_mma<B>(x, x_bf16, g, R, d_in, H, L, use_fn, relu, pb, o, w, wo,  \
-                                 slots, slot_size, n_blocks, out, (bf16*)g0, xstats, m, s);
+                                 slots, slot_size, n_blocks, out, (bf16*)g0, xstats, m, dp, \
+                                 s);
   switch (br) {
     DCC_CASE(32)
     DCC_CASE(16)
@@ -848,8 +881,8 @@ extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float*
 }
 
 extern "C" unsigned long long dcc_trunk_bwd_mma_chunked_smem_bytes(int br, int d_in, int H,
-                                                                   int L) {
-  return bwd_mma_layout(br, d_in, H, L, true).total;
+                                                                   int L, int deep) {
+  return bwd_mma_layout(br, d_in, H, L, true, deep).total;
 }
 
 // The layer-0 input backward: br in {64, 32, 16}; g0 R x pad16(H) bf16, w0

@@ -92,32 +92,20 @@ __host__ __device__ inline size_t ppo_unfolded_smem_floats(int br, int d_in, int
   return unfolded_smem_floats(br, d_in, H, L) + (size_t)br * (H + 2 * A + 2);
 }
 
-// Folded gradient slot layout (floats): per layer [dV (d_li x H), du (H)],
-// then head [dW (H x A), db (A)], then per-kind extras (actor: dlog_std (A)
-// and [loss_sum, ratio_sum]; critic: [value_loss_sum]); with dv0_apart
-// (the chunked K4) without layer 0's dV, which a second kernel computes. Unfolded, the slot
-// starts with the flat trunk list's gradients at the parameter offsets
-// (fn scale, fn bias, then W, b, LN scale, LN bias per layer) and the head
-// follows at offs.v[2 + 4L].
-__device__ void slot_ptrs(float* slot, int d_in, int H, int L, int A,
-                          float** sv, float** su, float** head, bool dv0_apart = false) {
-  long long o = 0;
-  for (int li = 0; li < L; ++li) {
-    sv[li] = li == 0 && dv0_apart ? nullptr : slot + o;
-    o += li == 0 && dv0_apart ? 0 : (long long)(li == 0 ? d_in : H) * H;
-    su[li] = slot + o;
-    o += H;
-  }
-  *head = slot + o;
-}
+// Folded gradient slot layout: trunk.cuh's FoldedSlot (per layer [dV, du]),
+// then the head [dW (H x A), db (A)], then per-kind extras (actor: dlog_std
+// (A) and [loss_sum, ratio_sum]; critic: [value_loss_sum]). Unfolded, the
+// slot starts with the flat trunk list's gradients at the parameter
+// offsets (fn scale, fn bias, then W, b, LN scale, LN bias per layer) and
+// the head follows at offs[2 + 4L].
 
 // The f32 trunk of one tile for the loss kernels: the folded chain
 // (trunk.cuh's trunk_fwd_folded / trunk_bwd_folded on c) or the unfolded
 // one (trunk_fwd_unfolded / trunk_bwd_unfolded on u, plus the trunk output's
-// LN affine into feat). Parameter offsets: folded, V_li at offs.v[3 li],
-// V_li^T at v[3 li + 1], u_li at v[3 li + 2], the head at v[3L]; unfolded,
-// the flat trunk list (offs.v[0 .. 2 + 4L)), W_li^T at v[2 + 4L + li], the
-// head at v[2 + 5L].
+// LN affine into feat). Parameter offsets (a device table): folded, V_li at
+// offs[3 li], V_li^T at offs[3 li + 1], u_li at offs[3 li + 2], the head at
+// offs[3L]; unfolded, the flat trunk list (offs[0 .. 2 + 4L)), W_li^T at
+// offs[2 + 4L + li], the head at offs[2 + 5L].
 template <int BR, bool UNF>
 struct F32Trunk {
   TrunkCache c;
@@ -125,37 +113,37 @@ struct F32Trunk {
   float* feat;  // BR x H: the trunk output (the head's input)
   float* g;     // BR x H: its cotangent
   float* rest;  // the per-row head values
-  float* sv[DCC_MAX_LAYERS];
-  float* su[DCC_MAX_LAYERS];
+  FoldedSlot fslot;  // folded: each layer's [dV, du]
   float* head;  // the head's part of the slot
   int hoff;     // offs index of the head's weights
 
   __device__ F32Trunk(float* smem, float* slot, int d_in, int H, int L, int A,
-                      const DccOffs& offs) {
+                      const long long* offs)
+      : fslot(slot, d_in, H) {
     if constexpr (UNF) {
       u = carve_unfolded<BR>(smem, d_in, H, L);
       feat = u.inv + (L + 1) * BR;
       g = u.g;
       rest = feat + BR * H;
-      head = slot + offs.v[2 + 4 * L];
+      head = slot + offs[2 + 4 * L];
       hoff = 2 + 5 * L;
     } else {
       c = carve<BR>(smem, d_in, H, L);
       feat = c.xhat + (long long)(L - 1) * BR * H;
       g = c.g;
       rest = c.inv + BR * L;
-      slot_ptrs(slot, d_in, H, L, A, sv, su, &head);
+      head = fslot.head(L);
       hoff = 3 * L;
     }
   }
 
   __device__ void forward(const void* x, int x_bf16, long long row0, long long R, int d_in,
                           int H, int L, int use_fn, int relu, const float* pb,
-                          const DccOffs& offs) {
+                          const long long* offs) {
     if constexpr (UNF) {
       trunk_fwd_unfolded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs, u);
-      affine_tile<BR>(u.xh + (long long)(L - 1) * BR * H, feat, H, pb + offs.v[4 * L],
-                      pb + offs.v[4 * L + 1]);
+      affine_tile<BR>(u.xh + (long long)(L - 1) * BR * H, feat, H, pb + offs[4 * L],
+                      pb + offs[4 * L + 1]);
       __syncthreads();
     } else {
       trunk_fwd_folded<BR>(x, x_bf16, row0, R, d_in, H, L, use_fn, relu, pb, offs, c);
@@ -163,11 +151,11 @@ struct F32Trunk {
   }
 
   __device__ void backward(int d_in, int H, int L, int use_fn, int relu, const float* pb,
-                           const DccOffs& offs, float* slot) {
+                           const long long* offs, float* slot) {
     if constexpr (UNF)
       trunk_bwd_unfolded<BR>(d_in, H, L, use_fn, relu, pb, offs, u, slot);
     else
-      trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, sv, su);
+      trunk_bwd_folded<BR>(d_in, H, L, relu, pb, offs, c, fslot);
   }
 };
 
@@ -180,7 +168,7 @@ template <int BR, bool UNF>
 __global__ void __launch_bounds__(DCC_THREADS)
     actor_grads_kernel(const void* x, int x_bf16, const float* aux, long long R,
                        int d_in, int H, int L, int A, int use_fn, int relu,
-                       float clip, const float* pb, DccOffs offs, float* slots,
+                       float clip, const float* pb, const long long* offs, float* slots,
                        long long slot_size) {
   extern __shared__ float smem[];
   float* slot = slots + (long long)blockIdx.x * slot_size;
@@ -195,9 +183,9 @@ __global__ void __launch_bounds__(DCC_THREADS)
   float* s_bh = s_wh + H * A;
   float* s_ls = s_bh + A;
   float* s_met = s_ls + A;
-  const float* Wh = pb + offs.v[t.hoff];
-  const float* bh = pb + offs.v[t.hoff + 1];
-  const float* log_std = pb + offs.v[t.hoff + 2];
+  const float* Wh = pb + offs[t.hoff];
+  const float* bh = pb + offs[t.hoff + 1];
+  const float* log_std = pb + offs[t.hoff + 2];
   const float* feat = t.feat;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
@@ -302,7 +290,7 @@ __global__ void __launch_bounds__(DCC_THREADS)
                         const float* norm, long long R, int d_in, int H, int L,
                         int use_fn, int relu, float clip, float delta,
                         int use_huber, int use_clipped, const float* pb,
-                        DccOffs offs, float* slots, long long slot_size) {
+                        const long long* offs, float* slots, long long slot_size) {
   extern __shared__ float smem[];
   float* slot = slots + (long long)blockIdx.x * slot_size;
   F32Trunk<BR, UNF> t(smem, slot, d_in, H, L, 1, offs);
@@ -313,8 +301,8 @@ __global__ void __launch_bounds__(DCC_THREADS)
   float* s_wv = t.head;
   float* s_bv = s_wv + H;
   float* s_met = s_bv + 1;
-  const float* wv = pb + offs.v[t.hoff];
-  const float bv = pb[offs.v[t.hoff + 1]];
+  const float* wv = pb + offs[t.hoff];
+  const float bv = pb[offs[t.hoff + 1]];
   const float shift = norm[0], scale = norm[1];
   const float* feat = t.feat;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -434,15 +422,23 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // owner thread. dW is accumulated per tile in 32 x 64 register slabs. At
 // d_in 440 a 64-row tile needs more than a block's shared memory, so the
 // critic takes 32- or 16-row tiles (unfolded, the actor 32 at d_in 110).
+// Depth layout (deep; trunk_mma.cuh's DeepScratch), as K2b's:
+// act holds one layer's tile (after the forward, the last layer's: the
+// head's input), the layers' tiles, mu, inv and (unfolded) the column norms
+// live in the block's scratch, the folded biases u are read from pb, and at
+// more than one column pass a layer the f32 g_prev has its own stage gst;
+// shared memory then does not grow with L.
 // ---------------------------------------------------------------------------
 struct PpoMmaLayout {
-  size_t a0, act, sx, stage, gs, ring, mu, inv, fmu, finv, red, colsum, wh, u, dout, ext, met,
-      rnorm, cnorm, flags, total;
+  size_t a0, act, sx, gst, stage, gs, ring, mu, inv, fmu, finv, red, colsum, wh, u, dout, ext,
+      met, rnorm, cnorm, flags, total;
 };
 
 __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, int L, int A,
-                                                       bool unf, bool chunked = false) {
+                                                       bool unf, bool chunked = false,
+                                                       bool deep = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const size_t Ls = deep ? 0 : L;  // layers whose tiles and statistics stay in shared memory
   const bool fn_stats = unf || chunked;
   // unfolded and staged: the widest column pass of layer 0's g_prev
   const bool gprev0 = unf && !chunked;
@@ -452,25 +448,26 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   PpoMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * (chunked ? MMA_KC + 8 : Kp0 + 8);
-  m.act = o;    o += 2 * (size_t)L * br * ldh;
+  m.act = o;    o += 2 * (deep ? 1 : (size_t)L) * br * ldh;
   m.sx = o;     o += 2 * br * ldh;
+  m.gst = o;    o += deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
   m.stage = 0;
   if (gprev0 && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
   m.gs = o;     o += 2 * br * ldh;
   m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
-  m.mu = o;     o += 4 * (size_t)L * br;
-  m.inv = o;    o += 4 * (size_t)L * br;
+  m.mu = o;     o += 4 * Ls * br;
+  m.inv = o;    o += 4 * Ls * br;
   m.fmu = o;    o += fn_stats ? 4 * (size_t)br : 0;
   m.finv = o;   o += fn_stats ? 4 * (size_t)br : 0;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
   m.colsum = o; o += 4 * (unf ? 3 : 1) * (size_t)(br / 16) * Hp;
   m.wh = o;     o += 4 * (size_t)H * A;
-  m.u = o;      o += unf ? 0 : 4 * (size_t)L * H;
+  m.u = o;      o += unf ? 0 : 4 * Ls * H;
   m.dout = o;   o += 4 * (size_t)br * A;
   m.ext = o;    o += 4 * (size_t)br * A;
   m.met = o;    o += 4 * 2 * (size_t)br;
   m.rnorm = o;  o += unf ? 4 * (size_t)br : 0;
-  m.cnorm = o;  o += unf ? 4 * (size_t)L * Hp : 0;
+  m.cnorm = o;  o += unf ? 4 * Ls * Hp : 0;
   m.flags = o;  o += unf ? RESUM_BYTES : 0;
   m.total = o;
   return m;
@@ -570,15 +567,17 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
   }
 };
 
-// Parameters. Folded: f32 vectors in pb (u_li at offs.v[3*li+2], the
-// head's weights (H x A) at offs.v[3L], then its other vectors; the V slots
-// may be empty), bf16 V_li (pad16(d_li) x pad16(H), zero padded) at wb +
-// woffs.v[li]. Unfolded: the flat trunk list in pb at offs.v[0 .. 2 + 4L)
-// (fn scale, fn bias, then W (not read), b, LN scale, LN bias per layer),
-// the head at offs.v[2 + 4L], bf16 W_li at wb + woffs.v[li]. aux rows are
-// aux_w floats wide. Slot: folded per layer [dV, du], unfolded the trunk
-// list's gradients at its offsets; then the head's [dW (H x A), db (A),
-// ext (A, when EXT), metrics (NMET)].
+// Parameters (offs and woffs are device tables). Folded: f32 vectors in pb
+// (u_li at offs[3*li+2], the head's weights (H x A) at offs[3L], then its
+// other vectors; the V slots may be empty), bf16 V_li (pad16(d_li) x
+// pad16(H), zero padded) at wb + woffs[li]. Unfolded: the flat trunk list
+// in pb at offs[0 .. 2 + 4L) (fn scale, fn bias, then W (not read), b, LN
+// scale, LN bias per layer), the head at offs[2 + 4L], bf16 W_li at wb +
+// woffs[li]. aux rows are aux_w floats wide. Slot: folded per layer [dV,
+// du] (FoldedSlot), unfolded the trunk list's gradients at its offsets;
+// then the head's [dW (H x A), db (A), ext (A, when EXT), metrics (NMET)].
+// deep: null (the staged layout) or the depth layout's scratch, gridDim.x x
+// deep_scratch_bytes(BR, H, L) bytes.
 // Chunked (CH; ROADMAP B2's rows too wide to stage whole): layer 0's
 // operand streams through a0 in MMA_KC-column chunks (chunked_layer0), each
 // normalized from x as it is loaded (unfolded, with the feature norm's
@@ -590,7 +589,7 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
 // layer0_input_bwd_wgmma_kernel (the same file) the feature norm's scale
 // and bias gradients. Unfolded
 // chunked, the slot starts at layer 0's bias (slot offset = offset in pb -
-// offs.v[3]): the feature norm's and W_0's 4,840-wide gradients are not in
+// offs[3]): the feature norm's and W_0's 4,840-wide gradients are not in
 // it. Layer 0's pre-activations are not re-summed (resum_uncertain needs
 // the whole operand row); the layers after it are.
 template <int BR, bool UNF, class Loss, bool CH = false>
@@ -598,12 +597,12 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
                                               int x_bf16, const float* aux, int aux_w,
                                               long long R, int d_in, int H, int L, int A,
                                               int use_fn, int relu, const float* pb,
-                                              const DccOffs& offs, const bf16* wb,
-                                              const DccOffs& woffs, float* slots,
+                                              const long long* offs, const bf16* wb,
+                                              const long long* woffs, float* slots,
                                               long long slot_size, const Loss& loss,
-                                              unsigned char* mask, bf16* g0 = nullptr,
-                                              float* xstats = nullptr) {
-  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH);
+                                              unsigned char* mask, unsigned char* deep,
+                                              bf16* g0 = nullptr, float* xstats = nullptr) {
+  const PpoMmaLayout m = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH, deep != nullptr);
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
             ldf = Kp0 + 4, ldgf = Hp + 4;
   const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
@@ -613,8 +612,6 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   float* stage = (float*)(smem_raw + m.stage);
   bf16* gs = (bf16*)(smem_raw + m.gs);
   bf16* ring = (bf16*)(smem_raw + m.ring);
-  float* mu_s = (float*)(smem_raw + m.mu);
-  float* inv_s = (float*)(smem_raw + m.inv);
   float* fnmu = (float*)(smem_raw + m.fmu);
   float* fninv = (float*)(smem_raw + m.finv);
   float* red = (float*)(smem_raw + m.red);
@@ -625,8 +622,23 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   float* ext = (float*)(smem_raw + m.ext);
   float* met = (float*)(smem_raw + m.met);
   float* rnorm = (float*)(smem_raw + m.rnorm);
-  float* cnorm = (float*)(smem_raw + m.cnorm);
   const ResumList flags = resum_list(smem_raw + m.flags);
+  // the depth layout: every layer's tile and statistics and the column norms
+  // in the block's scratch, one layer's tile in act
+  const DeepScratch ds = deep_scratch<BR>(deep, H, L);
+  float* mu_s = deep ? ds.mu : (float*)(smem_raw + m.mu);
+  float* inv_s = deep ? ds.inv : (float*)(smem_raw + m.inv);
+  float* cnorm = deep ? ds.cnorm : (float*)(smem_raw + m.cnorm);
+  auto act_tile = [&](int li) { return deep ? act : act + (long long)li * BR * ldh; };
+  // layer li's saved tile as the backward reads it to recompute an operand
+  auto saved = [&](int li) -> const bf16* {
+    return deep ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
+  };
+  // the f32 g_prev of layer li (more than one column pass): staged over
+  // act[li ..] and sx, deep in gst
+  auto gstage = [&](int li) {
+    return deep ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+  };
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
   const long long tiles = (R + BR - 1) / BR;
@@ -634,25 +646,21 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     for (long long i = threadIdx.x; i < slot_size; i += blockDim.x) slot[i] = 0.f;
     return;
   }
-  // unfolded: gradient k of the flat list at sb + offs.v[k]
-  float* sb = UNF && CH ? slot - offs.v[3] : slot;
-  float* sv[DCC_MAX_LAYERS];  // folded: [dV, du] of each layer
-  float* su[DCC_MAX_LAYERS];
-  float* head;
-  if constexpr (UNF)
-    head = sb + offs.v[2 + 4 * L];
-  else
-    slot_ptrs(slot, d_in, H, L, A, sv, su, &head, CH);
+  // unfolded: gradient k of the flat list at sb + offs[k]
+  float* sb = UNF && CH ? slot - offs[3] : slot;
+  const FoldedSlot fslot(slot, d_in, H, CH);  // folded: [dV, du] of each layer
+  float* head = UNF ? sb + offs[2 + 4 * L] : fslot.head(L);
   float* s_w = head;
   float* s_b = s_w + H * A;
   float* s_e = s_b + A;
   float* s_met = s_e + (Loss::EXT ? A : 0);
-  const float* Wh = pb + offs.v[UNF ? 2 + 4 * L : 3 * L];
-  const bf16* feat = act + (long long)(L - 1) * BR * ldh;  // the last layer's activation
+  const float* Wh = pb + offs[UNF ? 2 + 4 * L : 3 * L];
+  const bf16* feat = act_tile(L - 1);  // the last layer's activation
   const float* lmu = mu_s + (L - 1) * BR;
   const float* linv = inv_s + (L - 1) * BR;
-  const float* lscale = pb + offs.v[4 * L];  // unfolded: the last LN's affine
-  const float* lbias = pb + offs.v[4 * L + 1];
+  // unfolded: the last LN's affine (the folded table ends before 4L)
+  const float* lscale = UNF ? pb + offs[4 * L] : nullptr;
+  const float* lbias = UNF ? pb + offs[4 * L + 1] : nullptr;
   // the trunk output, the head's input: bf16(xhat), unfolded bf16(xhat * s + c)
   auto feat_at = [&](int r, int h) {
     const float a = bf(feat[r * ldh + h]);
@@ -670,9 +678,9 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     if (threadIdx.x == 0) *flags.n = 0;
     if (relu)  // for relu_uncertain (chunked: the layers after layer 0)
       weight_col_norms(wb, woffs, L, Kp0, Hp, cnorm, CH ? 1 : 0);
-  } else {
+  } else if (!deep) {
     for (int i = threadIdx.x; i < L * H; i += blockDim.x)
-      us[i] = pb[offs.v[3 * (i / H) + 2] + i % H];
+      us[i] = pb[offs[3 * (i / H) + 2] + i % H];
   }
 
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
@@ -691,38 +699,39 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     if constexpr (CH)
       input_stats<BR>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv);
     else if constexpr (UNF)
-      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs.v[0], pb + offs.v[1], a0,
-                     lda0, fnmu, fninv);
+      load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, pb + offs[0], pb + offs[1], a0, lda0,
+                     fnmu, fninv);
     else
       load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);
     __syncthreads();
     for (int li = 0; li < L; ++li) {
-      const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
+      const long long* o = offs + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
       const bf16* in = li == 0 ? a0 : sx;
       const int lda = li == 0 ? lda0 : ldh, K = li == 0 ? d_in : H;
       const bool resum = UNF && relu && !(CH && li == 0);
       if (resum)  // the operand's row norms, for relu_uncertain
         operand_row_norms<BR>(in, lda, K, rnorm);
-      const float* bias = UNF ? pb + o[1] : us + li * H;
-      bf16* a = act + (long long)li * BR * ldh;
+      const float* bias = UNF ? pb + o[1] : deep ? pb + offs[3 * li + 2] : us + li * H;
+      bf16* a = act_tile(li);
       unsigned char* mrow = mask != nullptr ? mask + ((long long)li * R + row0) * H : nullptr;
       float s[2] = {0.f, 0.f}, q[2] = {0.f, 0.f};
       for (int n0 = 0; n0 < pass_end(Hp); n0 += MMA_HMAX) {
         const WarpTile pt = pass_tile<BR>(Hp, n0);
         if (CH && li == 0)
           chunked_layer0<BR, UNF>(x, x_bf16, row0, R, d_in, use_fn, fnmu, fninv,
-                                  use_fn ? pb + offs.v[0] : nullptr,
-                                  use_fn ? pb + offs.v[1] : nullptr, a0, lda0, wb + woffs.v[0],
-                                  Hp, n0, ring, pt, acc);
+                                  use_fn ? pb + offs[0] : nullptr,
+                                  use_fn ? pb + offs[1] : nullptr, a0, lda0, wb + woffs[0], Hp,
+                                  n0, ring, pt, acc);
         else
-          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs.v[li] + n0, Hp,
+          gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp,
                              min(MMA_HMAX, Hp - n0), ring, pt, acc);
         if (resum)
-          resum_uncertain<BR>(acc, in, lda, K, wb + woffs.v[li], Hp, pb + o[1], H, rnorm,
+          resum_uncertain<BR>(acc, in, lda, K, wb + woffs[li], Hp, pb + o[1], H, rnorm,
                               cnorm + li * Hp, row0, R, pt, n0, flags);
         dense_act<BR>(acc, bias, H, n0, relu, pt, s, q);
         if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
         store_pass<BR>(acc, a, ldh, n0, pt);
+        if (deep) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
       }
       float mu[2], inv[2];
       ln_stats<BR>(s, q, H, red, wt, mu, inv);
@@ -863,9 +872,13 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
     // is read pass by pass: the last layer's from the head, the others' from
     // the stage gprev_passes wrote
     for (int li = L - 1; li >= 0; --li) {
-      const long long* o = offs.v + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
-      const bf16* a = act + (long long)li * BR * ldh;
-      const float* gf = (const float*)(act + (long long)(li + 1) * BR * ldh);
+      const long long* o = offs + 2 + 4 * li;  // unfolded: W, b, LN scale, LN bias
+      // deep: layer li's tile into act (the last layer's is there from the
+      // forward); every thread is done with act since the barrier after the
+      // previous layer's LN backward
+      if (deep && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
+      const bf16* a = act_tile(li);
+      const float* gf = gstage(li + 1);
       auto load_g = [&](int n0, const WarpTile& pt) {
         if (li + 1 == L)
           top_g(n0, pt);
@@ -891,7 +904,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         // forward wrote it (the last layer's is still in sx); more than one
         // pass: after every thread has read the stage, which lies over sx
         if (multi) __syncthreads();
-        const bf16* ap = act + (long long)(li - 1) * BR * ldh;
+        const bf16* ap = saved(li - 1);
         const float* pm = mu_s + (li - 1) * BR;
         const float* pi = inv_s + (li - 1) * BR;
         for (int i = threadIdx.x; i < BR * Hp; i += blockDim.x) {
@@ -921,7 +934,8 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         } else {
           float s = 0.f;
           for (int w = 0; w < WM; ++w) s += colsum[w * Hp + j];
-          su[li][j] = first ? s : su[li][j] + s;
+          float* du = fslot.u(li) + j;
+          *du = first ? s : *du + s;
         }
       }
       if (CH && li == 0) {
@@ -939,49 +953,49 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
         }
       } else {
         grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : sv[li], first);
+                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : fslot.v(li), first);
       }
       if (li > 0) {  // g_prev = bf16(g) @ W^T
-        if (multi) {  // into the stage over act[li ..] and sx
-          gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[li], Hp, ring,
-                           (float*)(act + (long long)li * BR * ldh), ldgf);
+        if (multi) {  // into the stage over act[li ..] and sx, deep gst
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf);
           __syncthreads();
         } else {
-          gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc);
         }
       }
     }
     if (UNF && !CH && use_fn) {
       // the feature norm's scale and bias gradients from layer 0's g_prev
-      gprev_passes<BR>(gs, ldh, Hp, wb + woffs.v[0], Kp0, ring, stage, ldf);
+      gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf);
       __syncthreads();
-      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fnmu, fninv, slot + offs.v[0],
-                          slot + offs.v[1], first);
+      fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fnmu, fninv, slot + offs[0],
+                          slot + offs[1], first);
     }
     __syncthreads();  // the next tile's forward writes over a0 (and the stage)
   }
 }
 
-// K3 / K3u in bf16. Head: Wh (H x A), bh, log_std at offs.v[h], v[h + 1],
-// v[h + 2]: h = 3L folded, 2 + 4L unfolded. CH: the chunked layer 0, as
+// K3 / K3u in bf16. Head: Wh (H x A), bh, log_std at offs[h], offs[h + 1],
+// offs[h + 2]: h = 3L folded, 2 + 4L unfolded. CH: the chunked layer 0, as
 // for K4 / K4u (its head's A columns follow the slot's trunk part, which
 // starts after layer 0's dV, unfolded at layer 0's bias).
 template <int BR, bool UNF, bool CH = false>
 __device__ __forceinline__ void actor_mma(unsigned char* smem_raw, const void* x, int x_bf16,
                                           const float* aux, long long R, int d_in, int H,
                                           int L, int A, int use_fn, int relu, float clip,
-                                          const float* pb, const DccOffs& offs,
-                                          const bf16* wb, const DccOffs& woffs, float* slots,
+                                          const float* pb, const long long* offs,
+                                          const bf16* wb, const long long* woffs, float* slots,
                                           long long slot_size, unsigned char* mask,
-                                          bf16* g0 = nullptr, float* xstats = nullptr) {
+                                          unsigned char* deep, bf16* g0 = nullptr,
+                                          float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
-  const ActorLoss loss{aux, pb + offs.v[h + 1], pb + offs.v[h + 2], clip, A};
+  const ActorLoss loss{aux, pb + offs[h + 1], pb + offs[h + 2], clip, A};
   ppo_grads_mma<BR, UNF, ActorLoss, CH>(smem_raw, x, x_bf16, aux, A + 3, R, d_in, H, L, A,
                                         use_fn, relu, pb, offs, wb, woffs, slots, slot_size,
-                                        loss, mask, g0, xstats);
+                                        loss, mask, deep, g0, xstats);
 }
 
-// K4 / K4u in bf16. Head: wv (H), bv at offs.v[h], v[h + 1]; norm = [shift,
+// K4 / K4u in bf16. Head: wv (H), bv at offs[h], offs[h + 1]; norm = [shift,
 // scale] of the value normalizer, applied to the raw returns in the kernel.
 template <int BR, bool UNF, bool CH = false>
 __device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* x, int x_bf16,
@@ -989,33 +1003,36 @@ __device__ __forceinline__ void critic_mma(unsigned char* smem_raw, const void* 
                                            int d_in, int H, int L, int use_fn, int relu,
                                            float clip, float delta, int use_huber,
                                            int use_clipped, const float* pb,
-                                           const DccOffs& offs, const bf16* wb,
-                                           const DccOffs& woffs, float* slots,
+                                           const long long* offs, const bf16* wb,
+                                           const long long* woffs, float* slots,
                                            long long slot_size, unsigned char* mask,
-                                           bf16* g0 = nullptr, float* xstats = nullptr) {
+                                           unsigned char* deep, bf16* g0 = nullptr,
+                                           float* xstats = nullptr) {
   const int h = UNF ? 2 + 4 * L : 3 * L;
-  const CriticLoss loss{aux, pb[offs.v[h + 1]], norm[0], norm[1], clip, delta,
+  const CriticLoss loss{aux, pb[offs[h + 1]], norm[0], norm[1], clip, delta,
                         use_huber, use_clipped, 1};
   ppo_grads_mma<BR, UNF, CriticLoss, CH>(smem_raw, x, x_bf16, aux, 3, R, d_in, H, L, 1, use_fn,
                                          relu, pb, offs, wb, woffs, slots, slot_size, loss, mask,
-                                         g0, xstats);
+                                         deep, g0, xstats);
 }
 
 #define DCC_ACTOR_MMA_PARAMS                                                                \
   const void *x, int x_bf16, const float *aux, long long R, int d_in, int H, int L, int A,  \
-      int use_fn, int relu, float clip, const float *pb, DccOffs offs, const bf16 *wb,      \
-      DccOffs woffs, float *slots, long long slot_size, unsigned char *mask
+      int use_fn, int relu, float clip, const float *pb, const long long *offs,             \
+      const bf16 *wb, const long long *woffs, float *slots, long long slot_size,            \
+      unsigned char *mask, unsigned char *deep
 #define DCC_CRITIC_MMA_PARAMS                                                               \
   const void *x, int x_bf16, const float *aux, const float *norm, long long R, int d_in,    \
       int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,           \
-      int use_clipped, const float *pb, DccOffs offs, const bf16 *wb, DccOffs woffs,        \
-      float *slots, long long slot_size, unsigned char *mask
+      int use_clipped, const float *pb, const long long *offs, const bf16 *wb,              \
+      const long long *woffs, float *slots, long long slot_size, unsigned char *mask,       \
+      unsigned char *deep
 
 template <int BR>
 __global__ void __launch_bounds__(MMA_THREADS, 1) actor_grads_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, false>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                       offs, wb, woffs, slots, slot_size, mask);
+                       offs, wb, woffs, slots, slot_size, mask, deep);
 }
 
 template <int BR>
@@ -1023,7 +1040,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_unfolded_mma_kernel(DCC_ACTOR_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                      offs, wb, woffs, slots, slot_size, mask);
+                      offs, wb, woffs, slots, slot_size, mask, deep);
 }
 
 template <int BR>
@@ -1032,7 +1049,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, false>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                         delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size,
-                        mask);
+                        mask, deep);
 }
 
 template <int BR>
@@ -1041,7 +1058,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                        delta, use_huber, use_clipped, pb, offs, wb, woffs, slots, slot_size,
-                       mask);
+                       mask, deep);
 }
 
 // K4 with the chunked layer 0 (ppo_grads_mma's CH): rows too wide for a
@@ -1052,7 +1069,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, false, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                               delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
-                              slot_size, mask, g0, xstats);
+                              slot_size, mask, deep, g0, xstats);
 }
 
 // K4u with the chunked layer 0: the same rows; its feature norm's scale and
@@ -1064,7 +1081,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   critic_mma<BR, true, true>(smem_raw, x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,
                              delta, use_huber, use_clipped, pb, offs, wb, woffs, slots,
-                             slot_size, mask, g0, xstats);
+                             slot_size, mask, deep, g0, xstats);
 }
 
 // K3 and K3u with the chunked layer 0: actor rows too wide for a staged
@@ -1076,7 +1093,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, false, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                             offs, wb, woffs, slots, slot_size, mask, g0, xstats);
+                             offs, wb, woffs, slots, slot_size, mask, deep, g0, xstats);
 }
 
 template <int BR>
@@ -1084,13 +1101,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
     actor_grads_unfolded_chunked_mma_kernel(DCC_ACTOR_MMA_PARAMS, bf16* g0, float* xstats) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   actor_mma<BR, true, true>(smem_raw, x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
-                            offs, wb, woffs, slots, slot_size, mask, g0, xstats);
-}
-
-static DccOffs to_offs(const long long* offs, int n_offs) {
-  DccOffs o;
-  for (int i = 0; i < DCC_MAX_OFFS; ++i) o.v[i] = i < n_offs ? offs[i] : 0;
-  return o;
+                            offs, wb, woffs, slots, slot_size, mask, deep, g0, xstats);
 }
 
 // Each launcher sets its kernel's shared-memory limit once, launches, and
@@ -1098,7 +1109,7 @@ static DccOffs to_offs(const long long* offs, int n_offs) {
 template <int BR, bool UNF>
 static int launch_actor(const void* x, int x_bf16, const float* aux, long long R,
                         int d_in, int H, int L, int A, int use_fn, int relu,
-                        float clip, const float* pb, DccOffs o, float* slots,
+                        float clip, const float* pb, const long long* o, float* slots,
                         long long slot_size, int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
   auto k = actor_grads_kernel<BR, UNF>;
@@ -1113,41 +1124,34 @@ static int launch_actor(const void* x, int x_bf16, const float* aux, long long R
   return (int)cudaGetLastError();
 }
 
-template <int BR, bool UNF>
-static int launch_actor_mma(const void* x, int x_bf16, const float* aux, long long R,
-                            int d_in, int H, int L, int A, int use_fn, int relu, float clip,
-                            const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
-                            float* slots, long long slot_size, int n_blocks,
-                            unsigned char* mask, cudaStream_t s) {
+// The bf16 actor kernel of a chain (UNF) and layout (CH).
+template <int BR, bool UNF, bool CH>
+static void actor_mma_kernel(const void* x, int x_bf16, const float* aux, long long R,
+                             int d_in, int H, int L, int A, int use_fn, int relu, float clip,
+                             const float* pb, const long long* o, const bf16* wb,
+                             const long long* wo, float* slots, long long slot_size,
+                             int n_blocks, bf16* g0, float* xstats, unsigned char* mask,
+                             unsigned char* deep, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = UNF ? actor_grads_unfolded_mma_kernel<BR> : actor_grads_mma_kernel<BR>;
-  if (!smem_set) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
-    smem_set = true;
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF, CH, deep != nullptr).total;
+  if constexpr (CH) {
+    auto k = UNF ? actor_grads_unfolded_chunked_mma_kernel<BR> : actor_grads_chunked_mma_kernel<BR>;
+    if (!smem_set) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+      smem_set = true;
+    }
+    k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                          pb, o, wb, wo, slots, slot_size, mask, deep, g0,
+                                          xstats);
+  } else {
+    auto k = UNF ? actor_grads_unfolded_mma_kernel<BR> : actor_grads_mma_kernel<BR>;
+    if (!smem_set) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+      smem_set = true;
+    }
+    k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                          pb, o, wb, wo, slots, slot_size, mask, deep);
   }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF).total;
-  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, wb, wo, slots, slot_size, mask);
-  return (int)cudaGetLastError();
-}
-
-template <int BR, bool UNF>
-static int launch_actor_chunked_mma(const void* x, int x_bf16, const float* aux, long long R,
-                                    int d_in, int H, int L, int A, int use_fn, int relu,
-                                    float clip, const float* pb, DccOffs o, const bf16* wb,
-                                    DccOffs wo, float* slots, long long slot_size, int n_blocks,
-                                    bf16* g0, float* xstats, unsigned char* mask,
-                                    cudaStream_t s) {
-  static bool smem_set = false;
-  auto k = UNF ? actor_grads_unfolded_chunked_mma_kernel<BR> : actor_grads_chunked_mma_kernel<BR>;
-  if (!smem_set) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
-    smem_set = true;
-  }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, A, UNF, true).total;
-  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                        pb, o, wb, wo, slots, slot_size, mask, g0, xstats);
-  return (int)cudaGetLastError();
 }
 
 template <int BR, bool UNF>
@@ -1155,7 +1159,7 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
                          const float* norm, long long R, int d_in, int H, int L,
                          int use_fn, int relu, float clip, float delta,
                          int use_huber, int use_clipped, const float* pb,
-                         DccOffs o, float* slots, long long slot_size,
+                         const long long* o, float* slots, long long slot_size,
                          int n_blocks, cudaStream_t s) {
   static bool smem_set = false;
   auto k = critic_grads_kernel<BR, UNF>;
@@ -1171,65 +1175,37 @@ static int launch_critic(const void* x, int x_bf16, const float* aux,
   return (int)cudaGetLastError();
 }
 
-template <int BR, bool UNF>
-static int launch_critic_mma(const void* x, int x_bf16, const float* aux, const float* norm,
-                             long long R, int d_in, int H, int L, int use_fn, int relu,
-                             float clip, float delta, int use_huber, int use_clipped,
-                             const float* pb, DccOffs o, const bf16* wb, DccOffs wo,
-                             float* slots, long long slot_size, int n_blocks,
-                             unsigned char* mask, cudaStream_t s) {
+// The bf16 critic kernel of a chain (UNF) and layout (CH).
+template <int BR, bool UNF, bool CH>
+static void critic_mma_kernel(const void* x, int x_bf16, const float* aux, const float* norm,
+                              long long R, int d_in, int H, int L, int use_fn, int relu,
+                              float clip, float delta, int use_huber, int use_clipped,
+                              const float* pb, const long long* o, const bf16* wb,
+                              const long long* wo, float* slots, long long slot_size,
+                              int n_blocks, bf16* g0, float* xstats, unsigned char* mask,
+                              unsigned char* deep, cudaStream_t s) {
   static bool smem_set = false;
-  auto k = UNF ? critic_grads_unfolded_mma_kernel<BR> : critic_grads_mma_kernel<BR>;
-  if (!smem_set) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
-    smem_set = true;
+  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, UNF, CH, deep != nullptr).total;
+  if constexpr (CH) {
+    auto k = UNF ? critic_grads_unfolded_chunked_mma_kernel<BR>
+                 : critic_grads_chunked_mma_kernel<BR>;
+    if (!smem_set) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+      smem_set = true;
+    }
+    k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                          clip, delta, use_huber, use_clipped, pb, o, wb, wo,
+                                          slots, slot_size, mask, deep, g0, xstats);
+  } else {
+    auto k = UNF ? critic_grads_unfolded_mma_kernel<BR> : critic_grads_mma_kernel<BR>;
+    if (!smem_set) {
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
+      smem_set = true;
+    }
+    k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                          clip, delta, use_huber, use_clipped, pb, o, wb, wo,
+                                          slots, slot_size, mask, deep);
   }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, UNF).total;
-  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
-                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size, mask);
-  return (int)cudaGetLastError();
-}
-
-template <int BR>
-static int launch_critic_chunked_mma(const void* x, int x_bf16, const float* aux,
-                                     const float* norm, long long R, int d_in, int H, int L,
-                                     int use_fn, int relu, float clip, float delta,
-                                     int use_huber, int use_clipped, const float* pb, DccOffs o,
-                                     const bf16* wb, DccOffs wo, float* slots,
-                                     long long slot_size, int n_blocks, bf16* g0,
-                                     float* xstats, unsigned char* mask, cudaStream_t s) {
-  static bool smem_set = false;
-  auto k = critic_grads_chunked_mma_kernel<BR>;
-  if (!smem_set) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
-    smem_set = true;
-  }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, false, true).total;
-  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
-                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size, mask, g0, xstats);
-  return (int)cudaGetLastError();
-}
-
-template <int BR>
-static int launch_critic_unfolded_chunked_mma(
-    const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
-    int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
-    int use_clipped, const float* pb, DccOffs o, const bf16* wb, DccOffs wo, float* slots,
-    long long slot_size, int n_blocks, bf16* g0, float* xstats, unsigned char* mask,
-    cudaStream_t s) {
-  static bool smem_set = false;
-  auto k = critic_grads_unfolded_chunked_mma_kernel<BR>;
-  if (!smem_set) {
-    cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_MAX);
-    smem_set = true;
-  }
-  const size_t smem = ppo_mma_layout(BR, d_in, H, L, 1, true, true).total;
-  k<<<n_blocks, MMA_THREADS, smem, s>>>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
-                                        clip, delta, use_huber, use_clipped, pb, o, wb, wo,
-                                        slots, slot_size, mask, g0, xstats);
-  return (int)cudaGetLastError();
 }
 
 extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
@@ -1237,13 +1213,14 @@ extern "C" unsigned long long dcc_ppo_smem_bytes(int br, int d_in, int H, int L,
   return sizeof(float) * ppo_smem_floats(br, d_in, H, L, A);
 }
 
-extern "C" unsigned long long dcc_ppo_mma_smem_bytes(int br, int d_in, int H, int L, int A) {
-  return ppo_mma_layout(br, d_in, H, L, A, false).total;
+extern "C" unsigned long long dcc_ppo_mma_smem_bytes(int br, int d_in, int H, int L, int A,
+                                                     int deep) {
+  return ppo_mma_layout(br, d_in, H, L, A, false, false, deep).total;
 }
 
 extern "C" unsigned long long dcc_ppo_mma_chunked_smem_bytes(int br, int d_in, int H, int L,
-                                                             int A) {
-  return ppo_mma_layout(br, d_in, H, L, A, false, true).total;
+                                                             int A, int deep) {
+  return ppo_mma_layout(br, d_in, H, L, A, false, true, deep).total;
 }
 
 extern "C" unsigned long long dcc_ppo_unfolded_smem_bytes(int br, int d_in, int H, int L,
@@ -1252,183 +1229,148 @@ extern "C" unsigned long long dcc_ppo_unfolded_smem_bytes(int br, int d_in, int 
 }
 
 extern "C" unsigned long long dcc_ppo_unfolded_mma_smem_bytes(int br, int d_in, int H, int L,
-                                                              int A) {
-  return ppo_mma_layout(br, d_in, H, L, A, true).total;
+                                                              int A, int deep) {
+  return ppo_mma_layout(br, d_in, H, L, A, true, false, deep).total;
 }
 
 extern "C" unsigned long long dcc_ppo_unfolded_mma_chunked_smem_bytes(int br, int d_in, int H,
-                                                                      int L, int A) {
-  return ppo_mma_layout(br, d_in, H, L, A, true, true).total;
+                                                                      int L, int A, int deep) {
+  return ppo_mma_layout(br, d_in, H, L, A, true, true, deep).total;
 }
 
-// The checks of the unfolded entries: the flat trunk list's offsets (fn
-// scale, fn bias, then W, b, LN scale, LN bias per layer) come first, then
-// (f32) each W^T, then the head's n_head vectors.
-static bool unfolded_ok(const long long* offs, int n_offs, int L, bool mma, int n_head) {
-  return L >= 1 && n_offs == 2 + (mma ? 4 : 5) * L + n_head;
+// The checks of the offsets tables (device arrays of n_offs entries).
+// Folded: per layer [V, V^T, u], then the head's n_head vectors. Unfolded:
+// the flat trunk list's offsets (fn scale, fn bias, then W, b, LN scale, LN
+// bias per layer) come first, then (f32) each W^T, then the head's n_head
+// vectors. The tensor-core kernels' woffs holds one entry a layer.
+static bool offs_ok(int n_offs, int L, bool unf, bool mma, int n_head) {
+  return L >= 1 && n_offs == (unf ? 2 + (mma ? 4 : 5) * L : 3 * L) + n_head;
 }
 
-// Actor in f32 (FMA): slots is n_blocks x slot_size scratch, out receives
-// slot_size floats.
+// The f32 (FMA) loss kernels, K3 / K4 (UNF false) and K3u / K4u: slots is
+// n_blocks x slot_size scratch, out receives slot_size floats. Actor br in
+// {32, 8, 1} folded, {32, 16, 8, 1} unfolded.
+template <bool UNF>
+static int actor_grads_f32(const void* x, int x_bf16, const float* aux, long long R, int d_in,
+                           int H, int L, int A, int use_fn, int relu, float clip, int br,
+                           const float* pb, const long long* offs, int n_offs, float* slots,
+                           long long slot_size, int n_blocks, float* out, void* stream) {
+  if (A > 4 || n_blocks < 1 || !offs_ok(n_offs, L, UNF, false, 3))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+#define DCC_CASE(B)                                                                          \
+  case B:                                                                                    \
+    err = launch_actor<B, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,     \
+                               offs, slots, slot_size, n_blocks, s);                         \
+    break;
+  switch (br) {
+    DCC_CASE(32)
+    DCC_CASE(8)
+    DCC_CASE(1)
+    case 16:  // the unfolded kernel's only
+      if constexpr (!UNF) return (int)cudaErrorInvalidValue;
+      else err = launch_actor<16, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
+                                        pb, offs, slots, slot_size, n_blocks, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
 extern "C" int dcc_actor_grads(const void* x, int x_bf16, const float* aux,
                                long long R, int d_in, int H, int L, int A,
                                int use_fn, int relu, float clip,
                                int br, const float* pb, const long long* offs,
                                int n_offs, float* slots, long long slot_size,
                                int n_blocks, float* out, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || A > 4 || n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
-  int err;
-  switch (br) {
-    case 32: err = launch_actor<32, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu,
-                                           clip, pb, o, slots, slot_size, n_blocks, s); break;
-    case 8: err = launch_actor<8, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                         pb, o, slots, slot_size, n_blocks, s); break;
-    case 1: err = launch_actor<1, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                         pb, o, slots, slot_size, n_blocks, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+  return actor_grads_f32<false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br, pb,
+                                offs, n_offs, slots, slot_size, n_blocks, out, stream);
 }
 
-// K3u, the unfolded actor in f32 (FMA): br in {32, 16, 8, 1}; offs as
-// unfolded_ok with n_head 3 (Wh, bh, log_std).
 extern "C" int dcc_actor_grads_unfolded(const void* x, int x_bf16, const float* aux,
                                         long long R, int d_in, int H, int L, int A, int use_fn,
                                         int relu, float clip, int br, const float* pb,
                                         const long long* offs, int n_offs, float* slots,
                                         long long slot_size, int n_blocks, float* out,
                                         void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || A > 4 || n_blocks < 1 ||
-      !unfolded_ok(offs, n_offs, L, false, 3))
+  return actor_grads_f32<true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br, pb,
+                               offs, n_offs, slots, slot_size, n_blocks, out, stream);
+}
+
+// The bf16 actor on the tensor cores, K3 (UNF false) or K3u, staged (CH
+// false: br in {64, 32, 16}, 16 where no larger tile fits, ops.tiles) or
+// with the chunked layer 0 (br in {32, 16}; slots and out then hold the
+// slot without layer 0's dV, unfolded from layer 0's bias on, every offset
+// less offs[3], and the kernel writes g0 (R x pad16(H) bf16) and xstats (R
+// x 2 f32) for dcc_dv0_wgmma and, unfolded, dcc_layer0_input_bwd_wgmma);
+// any H whose tile fits (dcc_ppo_*mma*_smem_bytes); mask null or the relu
+// masks' debug output (L x R x H bytes); deep null (the staged layout) or
+// the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes.
+template <bool UNF, bool CH>
+static int actor_grads_mma(const void* x, int x_bf16, const float* aux, long long R, int d_in,
+                           int H, int L, int A, int use_fn, int relu, float clip, int br,
+                           const float* pb, const long long* offs, int n_offs, const void* wb,
+                           const long long* woffs, int n_woffs, float* slots,
+                           long long slot_size, int n_blocks, void* g0, float* xstats,
+                           float* out, void* mask, void* deep, void* stream) {
+  if (A > 4 || n_blocks < 1 || !mma_width_ok(H) || n_woffs != L ||
+      !offs_ok(n_offs, L, UNF, true, 3))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
-  int err;
-#define DCC_CASE(B)                                                                           \
-  case B:                                                                                     \
-    err = launch_actor<B, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, o, \
-                                slots, slot_size, n_blocks, s);                               \
+  const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
+  unsigned char* dp = (unsigned char*)deep;
+#define DCC_CASE(B)                                                                            \
+  case B:                                                                                      \
+    actor_mma_kernel<B, UNF, CH>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,     \
+                                 offs, w, woffs, slots, slot_size, n_blocks, (bf16*)g0, xstats, \
+                                 m, dp, s);                                                    \
     break;
   switch (br) {
+    case 64:
+      if (CH) return (int)cudaErrorInvalidValue;
+      actor_mma_kernel<64, UNF, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb,
+                                       offs, w, woffs, slots, slot_size, n_blocks, nullptr,
+                                       nullptr, m, dp, s);
+      break;
     DCC_CASE(32)
     DCC_CASE(16)
-    DCC_CASE(8)
-    DCC_CASE(1)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef DCC_CASE
+  const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// Actor in bf16 on the tensor cores: br in {64, 32, 16} (16 where no larger
-// tile fits, ops.tiles.SIZES); any H whose tile fits
-// (dcc_ppo_mma_smem_bytes); mask null or the relu masks' debug output (L x
-// R x H bytes).
 extern "C" int dcc_actor_grads_mma(const void* x, int x_bf16, const float* aux, long long R,
                                    int d_in, int H, int L, int A, int use_fn, int relu,
                                    float clip, int br, const float* pb, const long long* offs,
                                    int n_offs, const void* wb, const long long* woffs,
                                    int n_woffs, float* slots, long long slot_size,
-                                   int n_blocks, float* out, void* mask, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
-      n_blocks < 1 || !mma_width_ok(H))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-#define DCC_CASE(B)                                                                            \
-  case B:                                                                                      \
-    err = launch_actor_mma<B, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, \
-                                     o, w, wo, slots, slot_size, n_blocks, m, s);              \
-    break;
-  switch (br) {
-    DCC_CASE(64)
-    DCC_CASE(32)
-    DCC_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DCC_CASE
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+                                   int n_blocks, float* out, void* mask, void* deep,
+                                   void* stream) {
+  return actor_grads_mma<false, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br,
+                                       pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                       n_blocks, nullptr, nullptr, out, mask, deep, stream);
 }
 
-// K3u in bf16 on the tensor cores: br in {64, 32, 16}; as
-// dcc_actor_grads_mma, offs as unfolded_ok with n_head 3, n_woffs == L.
 extern "C" int dcc_actor_grads_unfolded_mma(const void* x, int x_bf16, const float* aux,
                                             long long R, int d_in, int H, int L, int A,
                                             int use_fn, int relu, float clip, int br,
                                             const float* pb, const long long* offs, int n_offs,
                                             const void* wb, const long long* woffs,
                                             int n_woffs, float* slots, long long slot_size,
-                                            int n_blocks, float* out, void* mask, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || A > 4 || n_blocks < 1 ||
-      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 3))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-#define DCC_CASE(B)                                                                           \
-  case B:                                                                                     \
-    err = launch_actor_mma<B, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, pb, \
-                                    o, w, wo, slots, slot_size, n_blocks, m, s);              \
-    break;
-  switch (br) {
-    DCC_CASE(64)
-    DCC_CASE(32)
-    DCC_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DCC_CASE
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
-}
-
-// K3 (UNF false) or K3u (UNF true) in bf16 with the chunked layer 0: br in {32,
-// 16}; as dcc_actor_grads_mma / dcc_actor_grads_unfolded_mma, but slots and
-// out hold the slot without layer 0's dV (unfolded: from layer 0's bias on,
-// every offset less offs[3]), and the kernel writes g0 (R x pad16(H) bf16)
-// and xstats (R x 2 f32) for dcc_dv0_wgmma (and, unfolded,
-// dcc_layer0_input_bwd_wgmma).
-template <bool UNF>
-static int actor_grads_chunked(const void* x, int x_bf16, const float* aux, long long R,
-                               int d_in, int H, int L, int A, int use_fn, int relu, float clip,
-                               int br, const float* pb, const long long* offs, int n_offs,
-                               const void* wb, const long long* woffs, int n_woffs,
-                               float* slots, long long slot_size, int n_blocks, void* g0,
-                               float* xstats, float* out, void* mask, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || A > 4 ||
-      n_blocks < 1 || !mma_width_ok(H))
-    return (int)cudaErrorInvalidValue;
-  if (UNF && (n_woffs != L || !unfolded_ok(offs, n_offs, L, true, 3)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-  switch (br) {
-    case 32: err = launch_actor_chunked_mma<32, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
-                                                     relu, clip, pb, o, w, wo, slots, slot_size,
-                                                     n_blocks, (bf16*)g0, xstats, m, s); break;
-    case 16: err = launch_actor_chunked_mma<16, UNF>(x, x_bf16, aux, R, d_in, H, L, A, use_fn,
-                                                     relu, clip, pb, o, w, wo, slots, slot_size,
-                                                     n_blocks, (bf16*)g0, xstats, m, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+                                            int n_blocks, float* out, void* mask, void* deep,
+                                            void* stream) {
+  return actor_grads_mma<true, false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br,
+                                      pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                      n_blocks, nullptr, nullptr, out, mask, deep, stream);
 }
 
 extern "C" int dcc_actor_grads_chunked_mma(const void* x, int x_bf16, const float* aux,
@@ -1438,10 +1380,10 @@ extern "C" int dcc_actor_grads_chunked_mma(const void* x, int x_bf16, const floa
                                            const void* wb, const long long* woffs, int n_woffs,
                                            float* slots, long long slot_size, int n_blocks,
                                            void* g0, float* xstats, float* out, void* mask,
-                                           void* stream) {
-  return actor_grads_chunked<false>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                    br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
-                                    n_blocks, g0, xstats, out, mask, stream);
+                                           void* deep, void* stream) {
+  return actor_grads_mma<false, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br,
+                                      pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                      n_blocks, g0, xstats, out, mask, deep, stream);
 }
 
 extern "C" int dcc_actor_grads_unfolded_chunked_mma(
@@ -1449,13 +1391,47 @@ extern "C" int dcc_actor_grads_unfolded_chunked_mma(
     int use_fn, int relu, float clip, int br, const float* pb, const long long* offs,
     int n_offs, const void* wb, const long long* woffs, int n_woffs, float* slots,
     long long slot_size, int n_blocks, void* g0, float* xstats, float* out, void* mask,
-    void* stream) {
-  return actor_grads_chunked<true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip,
-                                   br, pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
-                                   n_blocks, g0, xstats, out, mask, stream);
+    void* deep, void* stream) {
+  return actor_grads_mma<true, true>(x, x_bf16, aux, R, d_in, H, L, A, use_fn, relu, clip, br,
+                                     pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size,
+                                     n_blocks, g0, xstats, out, mask, deep, stream);
 }
 
-// Critic in f32 (FMA); norm = [shift, scale] on the device.
+// The f32 critic (FMA), K4 or K4u; norm = [shift, scale] on the device. br
+// in {32, 8, 1} folded, {32, 16, 8, 1} unfolded.
+template <bool UNF>
+static int critic_grads_f32(const void* x, int x_bf16, const float* aux, const float* norm,
+                            long long R, int d_in, int H, int L, int use_fn, int relu,
+                            float clip, float delta, int use_huber, int use_clipped, int br,
+                            const float* pb, const long long* offs, int n_offs, float* slots,
+                            long long slot_size, int n_blocks, float* out, void* stream) {
+  if (n_blocks < 1 || !offs_ok(n_offs, L, UNF, false, 2)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int err;
+#define DCC_CASE(B)                                                                       \
+  case B:                                                                                 \
+    err = launch_critic<B, UNF>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,  \
+                                delta, use_huber, use_clipped, pb, offs, slots, slot_size, \
+                                n_blocks, s);                                             \
+    break;
+  switch (br) {
+    DCC_CASE(32)
+    DCC_CASE(8)
+    DCC_CASE(1)
+    case 16:  // the unfolded kernel's only
+      if constexpr (!UNF) return (int)cudaErrorInvalidValue;
+      else err = launch_critic<16, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu,
+                                         clip, delta, use_huber, use_clipped, pb, offs, slots,
+                                         slot_size, n_blocks, s);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef DCC_CASE
+  if (err) return err;
+  return reduce(slots, n_blocks, slot_size, out, s);
+}
+
 extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
                                 const float* norm, long long R, int d_in, int H,
                                 int L, int use_fn, int relu, float clip,
@@ -1463,31 +1439,11 @@ extern "C" int dcc_critic_grads(const void* x, int x_bf16, const float* aux,
                                 int br, const float* pb, const long long* offs,
                                 int n_offs, float* slots, long long slot_size,
                                 int n_blocks, float* out, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
-  int err;
-#define DCC_CASE(B)                                                                        \
-  case B:                                                                                  \
-    err = launch_critic<B, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, \
-                                  delta, use_huber, use_clipped, pb, o, slots, slot_size,  \
-                                  n_blocks, s);                                            \
-    break;
-  switch (br) {
-    DCC_CASE(32)
-    DCC_CASE(8)
-    DCC_CASE(1)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DCC_CASE
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+  return critic_grads_f32<false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta,
+                                 use_huber, use_clipped, br, pb, offs, n_offs, slots, slot_size,
+                                 n_blocks, out, stream);
 }
 
-// K4u, the unfolded critic in f32 (FMA): br in {32, 16, 8, 1}; offs as
-// unfolded_ok with n_head 2 (wv, bv).
 extern "C" int dcc_critic_grads_unfolded(const void* x, int x_bf16, const float* aux,
                                          const float* norm, long long R, int d_in, int H,
                                          int L, int use_fn, int relu, float clip, float delta,
@@ -1495,163 +1451,78 @@ extern "C" int dcc_critic_grads_unfolded(const void* x, int x_bf16, const float*
                                          const float* pb, const long long* offs, int n_offs,
                                          float* slots, long long slot_size, int n_blocks,
                                          float* out, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_blocks < 1 ||
-      !unfolded_ok(offs, n_offs, L, false, 2))
+  return critic_grads_f32<true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta,
+                                use_huber, use_clipped, br, pb, offs, n_offs, slots, slot_size,
+                                n_blocks, out, stream);
+}
+
+// The bf16 critic on the tensor cores, K4 (UNF false) or K4u, staged or
+// with the chunked layer 0 (CH), br in {32, 16}; as actor_grads_mma.
+template <bool UNF, bool CH>
+static int critic_grads_mma(const void* x, int x_bf16, const float* aux, const float* norm,
+                            long long R, int d_in, int H, int L, int use_fn, int relu,
+                            float clip, float delta, int use_huber, int use_clipped, int br,
+                            const float* pb, const long long* offs, int n_offs, const void* wb,
+                            const long long* woffs, int n_woffs, float* slots,
+                            long long slot_size, int n_blocks, void* g0, float* xstats,
+                            float* out, void* mask, void* deep, void* stream) {
+  if (n_blocks < 1 || !mma_width_ok(H) || n_woffs != L || !offs_ok(n_offs, L, UNF, true, 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs);
-  int err;
-#define DCC_CASE(B)                                                                       \
-  case B:                                                                                 \
-    err = launch_critic<B, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, \
-                                 delta, use_huber, use_clipped, pb, o, slots, slot_size,  \
-                                 n_blocks, s);                                            \
+  const bf16* w = (const bf16*)wb;
+  unsigned char* m = (unsigned char*)mask;
+  unsigned char* dp = (unsigned char*)deep;
+#define DCC_CASE(B)                                                                          \
+  case B:                                                                                    \
+    critic_mma_kernel<B, UNF, CH>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip,   \
+                                  delta, use_huber, use_clipped, pb, offs, w, woffs, slots,  \
+                                  slot_size, n_blocks, (bf16*)g0, xstats, m, dp, s);         \
     break;
   switch (br) {
     DCC_CASE(32)
     DCC_CASE(16)
-    DCC_CASE(8)
-    DCC_CASE(1)
     default:
       return (int)cudaErrorInvalidValue;
   }
 #undef DCC_CASE
+  const int err = (int)cudaGetLastError();
   if (err) return err;
   return reduce(slots, n_blocks, slot_size, out, s);
 }
 
-// Critic in bf16 on the tensor cores: br in {32, 16}; any H whose tile
-// fits (dcc_ppo_mma_smem_bytes); mask null or the relu masks' debug output
-// (L x R x H bytes).
-extern "C" int dcc_critic_grads_mma(const void* x, int x_bf16, const float* aux,
-                                    const float* norm, long long R, int d_in, int H, int L,
-                                    int use_fn, int relu, float clip, float delta,
-                                    int use_huber, int use_clipped, int br, const float* pb,
-                                    const long long* offs, int n_offs, const void* wb,
-                                    const long long* woffs, int n_woffs, float* slots,
-                                    long long slot_size, int n_blocks, float* out, void* mask,
+#define DCC_CRITIC_ENTRY_PARAMS                                                               \
+  const void *x, int x_bf16, const float *aux, const float *norm, long long R, int d_in,     \
+      int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,            \
+      int use_clipped, int br, const float *pb, const long long *offs, int n_offs,           \
+      const void *wb, const long long *woffs, int n_woffs, float *slots, long long slot_size, \
+      int n_blocks
+#define DCC_CRITIC_ENTRY_ARGS                                                                  \
+  x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber, use_clipped, br, \
+      pb, offs, n_offs, wb, woffs, n_woffs, slots, slot_size, n_blocks
+
+extern "C" int dcc_critic_grads_mma(DCC_CRITIC_ENTRY_PARAMS, float* out, void* mask, void* deep,
                                     void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
-      !mma_width_ok(H))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-  switch (br) {
-    case 32: err = launch_critic_mma<32, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                                relu, clip, delta, use_huber, use_clipped, pb, o,
-                                                w, wo, slots, slot_size, n_blocks, m, s); break;
-    case 16: err = launch_critic_mma<16, false>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                                relu, clip, delta, use_huber, use_clipped, pb, o,
-                                                w, wo, slots, slot_size, n_blocks, m, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+  return critic_grads_mma<false, false>(DCC_CRITIC_ENTRY_ARGS, nullptr, nullptr, out, mask,
+                                        deep, stream);
 }
 
-// K4u in bf16 on the tensor cores: br in {32, 16}; as dcc_critic_grads_mma,
-// offs as unfolded_ok with n_head 2, n_woffs == L.
-extern "C" int dcc_critic_grads_unfolded_mma(const void* x, int x_bf16, const float* aux,
-                                             const float* norm, long long R, int d_in, int H,
-                                             int L, int use_fn, int relu, float clip,
-                                             float delta, int use_huber, int use_clipped,
-                                             int br, const float* pb, const long long* offs,
-                                             int n_offs, const void* wb, const long long* woffs,
-                                             int n_woffs, float* slots, long long slot_size,
-                                             int n_blocks, float* out, void* mask,
-                                             void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
-      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 2))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-  switch (br) {
-    case 32: err = launch_critic_mma<32, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                               relu, clip, delta, use_huber, use_clipped, pb, o,
-                                               w, wo, slots, slot_size, n_blocks, m, s); break;
-    case 16: err = launch_critic_mma<16, true>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                               relu, clip, delta, use_huber, use_clipped, pb, o,
-                                               w, wo, slots, slot_size, n_blocks, m, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+extern "C" int dcc_critic_grads_unfolded_mma(DCC_CRITIC_ENTRY_PARAMS, float* out, void* mask,
+                                             void* deep, void* stream) {
+  return critic_grads_mma<true, false>(DCC_CRITIC_ENTRY_ARGS, nullptr, nullptr, out, mask,
+                                       deep, stream);
 }
 
-// K4 in bf16 with the chunked layer 0: as dcc_critic_grads_mma, but slots
-// and out hold the slot without layer 0's dV (slot_size floats), and the
-// kernel writes g0 (R x pad16(H) bf16) and xstats (R x 2 f32) for
-// dcc_dv0_wgmma.
-extern "C" int dcc_critic_grads_chunked_mma(const void* x, int x_bf16, const float* aux,
-                                            const float* norm, long long R, int d_in, int H,
-                                            int L, int use_fn, int relu, float clip,
-                                            float delta, int use_huber, int use_clipped, int br,
-                                            const float* pb, const long long* offs, int n_offs,
-                                            const void* wb, const long long* woffs, int n_woffs,
-                                            float* slots, long long slot_size, int n_blocks,
-                                            void* g0, float* xstats, float* out, void* mask,
-                                            void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs > DCC_MAX_OFFS || n_blocks < 1 ||
-      !mma_width_ok(H))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-  switch (br) {
-    case 32: err = launch_critic_chunked_mma<32>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                                 relu, clip, delta, use_huber, use_clipped, pb,
-                                                 o, w, wo, slots, slot_size, n_blocks,
-                                                 (bf16*)g0, xstats, m, s); break;
-    case 16: err = launch_critic_chunked_mma<16>(x, x_bf16, aux, norm, R, d_in, H, L, use_fn,
-                                                 relu, clip, delta, use_huber, use_clipped, pb,
-                                                 o, w, wo, slots, slot_size, n_blocks,
-                                                 (bf16*)g0, xstats, m, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+extern "C" int dcc_critic_grads_chunked_mma(DCC_CRITIC_ENTRY_PARAMS, void* g0, float* xstats,
+                                            float* out, void* mask, void* deep, void* stream) {
+  return critic_grads_mma<false, true>(DCC_CRITIC_ENTRY_ARGS, g0, xstats, out, mask, deep,
+                                       stream);
 }
 
-// K4u in bf16 with the chunked layer 0: as dcc_critic_grads_unfolded_mma,
-// but slots and out hold the slot from layer 0's bias on (slot_size
-// floats: every offset less offs[3]), and the kernel writes g0 (R x
-// pad16(H) bf16) and xstats (R x 2 f32) for dcc_dv0_wgmma and
-// dcc_layer0_input_bwd_wgmma.
-extern "C" int dcc_critic_grads_unfolded_chunked_mma(
-    const void* x, int x_bf16, const float* aux, const float* norm, long long R, int d_in,
-    int H, int L, int use_fn, int relu, float clip, float delta, int use_huber,
-    int use_clipped, int br, const float* pb, const long long* offs, int n_offs,
-    const void* wb, const long long* woffs, int n_woffs, float* slots, long long slot_size,
-    int n_blocks, void* g0, float* xstats, float* out, void* mask, void* stream) {
-  if (L > DCC_MAX_LAYERS || n_offs > DCC_MAX_OFFS || n_woffs != L || n_blocks < 1 ||
-      !mma_width_ok(H) || !unfolded_ok(offs, n_offs, L, true, 2))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const DccOffs o = to_offs(offs, n_offs), wo = to_offs(woffs, n_woffs);
-  const bf16* w = (const bf16*)wb;
-  unsigned char* m = (unsigned char*)mask;
-  int err;
-  switch (br) {
-    case 32: err = launch_critic_unfolded_chunked_mma<32>(
-                 x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
-                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, m, s);
-             break;
-    case 16: err = launch_critic_unfolded_chunked_mma<16>(
-                 x, x_bf16, aux, norm, R, d_in, H, L, use_fn, relu, clip, delta, use_huber,
-                 use_clipped, pb, o, w, wo, slots, slot_size, n_blocks, (bf16*)g0, xstats, m, s);
-             break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err) return err;
-  return reduce(slots, n_blocks, slot_size, out, s);
+extern "C" int dcc_critic_grads_unfolded_chunked_mma(DCC_CRITIC_ENTRY_PARAMS, void* g0,
+                                                     float* xstats, float* out, void* mask,
+                                                     void* deep, void* stream) {
+  return critic_grads_mma<true, true>(DCC_CRITIC_ENTRY_ARGS, g0, xstats, out, mask, deep,
+                                      stream);
 }
 
 extern "C" const char* dcc_error_string(int code) {

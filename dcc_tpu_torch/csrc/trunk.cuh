@@ -23,13 +23,32 @@
 #include <cuda_runtime.h>
 
 #define DCC_THREADS 256
-#define DCC_MAX_LAYERS 8
-#define DCC_MAX_OFFS (4 * DCC_MAX_LAYERS + 8)
 
-// Offsets (in floats) of every parameter inside one packed parameter buffer;
-// passed by value so the kernel needs no device-side table.
-struct DccOffs {
-  long long v[DCC_MAX_OFFS];
+// Parameter offsets: every kernel takes `offs`, a device table of long long
+// offsets (in elements) of each parameter inside its packed buffer, built
+// once per trunk shape by the wrapper (ops.cuda_build.offsets_table), so a
+// trunk of any depth needs no compile-time bound.
+
+// The folded gradient slot (floats): per layer [dV (d_li x H), du (H)], then
+// the head's gradients; with dv0_apart (the chunked K3 / K4) without layer 0's
+// dV, which a second kernel computes. Each part is located from the layer's
+// index, so no per-layer table is held.
+struct FoldedSlot {
+  float* slot;
+  long long d0;  // floats of layer 0's dV in the slot (0 with dv0_apart)
+  long long H;
+
+  __host__ __device__ FoldedSlot(float* s, int d_in, int h, bool dv0_apart = false)
+      : slot(s), d0(dv0_apart ? 0 : (long long)d_in * h), H(h) {}
+  // start of layer li's part; at li = L, the head's
+  __device__ __forceinline__ long long base(int li) const {
+    return li == 0 ? 0 : d0 + H + (long long)(li - 1) * (H * H + H);
+  }
+  __device__ __forceinline__ float* v(int li) const { return slot + base(li); }
+  __device__ __forceinline__ float* u(int li) const {
+    return slot + base(li) + (li == 0 ? d0 : H * H);
+  }
+  __device__ __forceinline__ float* head(int L) const { return slot + base(L); }
 };
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -132,12 +151,12 @@ __device__ __forceinline__ const float* layer_input(const TrunkCache& c,
 }
 
 // Folded forward of one tile (dcc_tpu/ops/fused_ppo.py::_fwd_chain_folded).
-// Parameter offsets: V_li at offs.v[3*li], u_li at offs.v[3*li+2].
+// Parameter offsets: V_li at offs[3*li], u_li at offs[3*li+2].
 template <int BR>
 __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
                                  long long R, int d_in, int H, int L,
                                  bool use_fn, bool relu, const float* pb,
-                                 const DccOffs& offs, const TrunkCache& c) {
+                                 const long long* offs, const TrunkCache& c) {
   load_tile<BR>(x, x_bf16, row0, R, d_in, c.a0);
   __syncthreads();
   if (use_fn) {
@@ -148,8 +167,7 @@ __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
     const float* in = layer_input(c, li, BR, H);
     const int din = li == 0 ? d_in : H;
     float* act = c.act + (long long)li * BR * H;
-    dense_act_tile<BR>(in, din, pb + offs.v[3 * li], pb + offs.v[3 * li + 2], H, relu,
-                       act);
+    dense_act_tile<BR>(in, din, pb + offs[3 * li], pb + offs[3 * li + 2], H, relu, act);
     __syncthreads();
     ln_tile<BR>(act, c.xhat + (long long)li * BR * H, H, nullptr, nullptr, c.inv + li * BR);
     __syncthreads();
@@ -158,14 +176,13 @@ __device__ void trunk_fwd_folded(const void* x, int x_bf16, long long row0,
 
 // Folded backward (dcc_tpu/ops/fused_ppo.py::_trunk_bwd_folded) from the
 // cotangent of the final LN output, held in c.g. Adds this tile's [dV, du]
-// per layer into the block's own gradient slot (slot_v[li], slot_u[li]); a
+// per layer into the block's own gradient slot (fs.v(li), fs.u(li)); a
 // slot element is owned by one thread, so no atomics are needed. V_li^T
-// (d_out x d_in) at offs.v[3*li+1] feeds the propagation to layer li-1.
+// (d_out x d_in) at offs[3*li+1] feeds the propagation to layer li-1.
 template <int BR>
 __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
-                                 const float* pb, const DccOffs& offs,
-                                 const TrunkCache& c, float* const* slot_v,
-                                 float* const* slot_u) {
+                                 const float* pb, const long long* offs,
+                                 const TrunkCache& c, const FoldedSlot& fs) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nw = blockDim.x >> 5;
   float* g = c.g;
@@ -198,13 +215,13 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
       float s = 0.f;
 #pragma unroll
       for (int r = 0; r < BR; ++r) s += g[r * H + j];
-      slot_u[li][j] += s;
+      fs.u(li)[j] += s;
     }
     __syncthreads();
     // dV = in^T @ g: one thread per (k, j) element of the slot
     const float* in = layer_input(c, li, BR, H);
     const int din = li == 0 ? d_in : H;
-    float* sv = slot_v[li];
+    float* sv = fs.v(li);
     for (long long e = threadIdx.x; e < (long long)din * H; e += blockDim.x) {
       const int k = (int)(e / H), j = (int)(e - (long long)k * H);
       float s = 0.f;
@@ -215,7 +232,7 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
     if (li > 0) {
       // g_prev (BR x H) = g @ V^T, written over this layer's activation
       // buffer, which the backward no longer needs
-      const float* Vt = pb + offs.v[3 * li + 1];  // (H, d_prev), row-major
+      const float* Vt = pb + offs[3 * li + 1];  // (H, d_prev), row-major
       for (int k = threadIdx.x; k < din; k += blockDim.x) {
         float acc[BR];
 #pragma unroll
@@ -239,8 +256,9 @@ __device__ void trunk_bwd_folded(int d_in, int H, int L, bool relu,
 // Unfolded chain (dcc_tpu/ops/fused_mlp.py::_forward_chain / _bwd_kernel):
 // the LN affines are applied as written, so the backward also yields the
 // gradients of every LN scale and bias. Parameter offsets as K2's: feature
-// norm scale / bias at v[0] / v[1], layer li's W (d_li x H), b, LN scale,
-// LN bias at v[2+4li] .. v[5+4li]; W_li^T (H x d_li) at v[2+4L+li].
+// norm scale / bias at offs[0] / offs[1], layer li's W (d_li x H), b, LN
+// scale, LN bias at offs[2+4li] .. offs[5+4li]; W_li^T (H x d_li) at
+// offs[2+4L+li].
 // ---------------------------------------------------------------------------
 
 // Shared-memory cache of the unfolded forward for one tile of BR rows.
@@ -336,28 +354,28 @@ __device__ void ln_bwd_tile(float* g, const float* xh, const float* inv,
 template <int BR>
 __device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
                                    long long R, int d_in, int H, int L, bool use_fn,
-                                   bool relu, const float* pb, const DccOffs& offs,
+                                   bool relu, const float* pb, const long long* offs,
                                    const UnfoldedCache& c) {
   load_tile<BR>(x, x_bf16, row0, R, d_in, c.a0);
   __syncthreads();
   if (use_fn) {
     ln_tile<BR>(c.a0, c.xf, d_in, nullptr, nullptr, c.inv);
     __syncthreads();
-    affine_tile<BR>(c.xf, c.a0, d_in, pb + offs.v[0], pb + offs.v[1]);
+    affine_tile<BR>(c.xf, c.a0, d_in, pb + offs[0], pb + offs[1]);
     __syncthreads();
   }
   for (int li = 0; li < L; ++li) {
     const float* in = li == 0 ? c.a0 : c.y + (long long)(li - 1) * BR * H;
     float* r = c.r + (long long)li * BR * H;
     float* xh = c.xh + (long long)li * BR * H;
-    dense_act_tile<BR>(in, li == 0 ? d_in : H, pb + offs.v[2 + 4 * li],
-                       pb + offs.v[3 + 4 * li], H, relu, r);
+    dense_act_tile<BR>(in, li == 0 ? d_in : H, pb + offs[2 + 4 * li], pb + offs[3 + 4 * li], H,
+                       relu, r);
     __syncthreads();
     ln_tile<BR>(r, xh, H, nullptr, nullptr, c.inv + (li + 1) * BR);
     __syncthreads();
     if (li + 1 < L) {
-      affine_tile<BR>(xh, c.y + (long long)li * BR * H, H, pb + offs.v[4 + 4 * li],
-                      pb + offs.v[5 + 4 * li]);
+      affine_tile<BR>(xh, c.y + (long long)li * BR * H, H, pb + offs[4 + 4 * li],
+                      pb + offs[5 + 4 * li]);
       __syncthreads();
     }
   }
@@ -365,18 +383,18 @@ __device__ void trunk_fwd_unfolded(const void* x, int x_bf16, long long row0,
 
 // Unfolded backward of one tile from the cotangent in c.g. Adds this tile's
 // gradient of every parameter into the block's own slot, laid out as the
-// flat parameter list (so offs.v[] locates each gradient too; each slot
+// flat parameter list (so offs[] locates each gradient too; each slot
 // element has one owner thread, no atomics). Leaves d(x) (BR x d_in) in
 // c.a0.
 template <int BR>
 __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool relu,
-                                   const float* pb, const DccOffs& offs,
+                                   const float* pb, const long long* offs,
                                    const UnfoldedCache& c, float* slot) {
   float* g = c.g;
   for (int li = L - 1; li >= 0; --li) {
     float* r = c.r + (long long)li * BR * H;
     const float* xh = c.xh + (long long)li * BR * H;
-    const long long* o = offs.v + 2 + 4 * li;  // W, b, LN scale, LN bias
+    const long long* o = offs + 2 + 4 * li;  // W, b, LN scale, LN bias
     col_sums<BR>(g, xh, H, slot + o[2], slot + o[3]);
     __syncthreads();
     ln_bwd_tile<BR>(g, xh, c.inv + (li + 1) * BR, pb + o[2], H, r, relu);
@@ -397,7 +415,7 @@ __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool rel
     __syncthreads();  // layer 0 writes g_prev over its input a0
     // g_prev (BR x din) = g @ W^T, over this layer's activation buffer (or
     // a0 for layer 0), which the backward no longer needs
-    const float* Wt = pb + offs.v[2 + 4 * L + li];  // (H, din), row-major
+    const float* Wt = pb + offs[2 + 4 * L + li];  // (H, din), row-major
     float* gp = li == 0 ? c.a0 : r;
     for (int k = threadIdx.x; k < din; k += blockDim.x) {
       float acc[BR];
@@ -416,9 +434,9 @@ __device__ void trunk_bwd_unfolded(int d_in, int H, int L, bool use_fn, bool rel
     g = gp;
   }
   if (use_fn) {
-    col_sums<BR>(c.a0, c.xf, d_in, slot + offs.v[0], slot + offs.v[1]);
+    col_sums<BR>(c.a0, c.xf, d_in, slot + offs[0], slot + offs[1]);
     __syncthreads();
-    ln_bwd_tile<BR>(c.a0, c.xf, c.inv, pb + offs.v[0], d_in, nullptr, relu);
+    ln_bwd_tile<BR>(c.a0, c.xf, c.inv, pb + offs[0], d_in, nullptr, relu);
     __syncthreads();
   }
 }

@@ -801,15 +801,71 @@ __device__ __forceinline__ ResumList resum_list(unsigned char* p) {
 }
 
 // cnorm[li * Hp + c] = |column c of W_li| for every layer from l0 (bf16
-// W_li at wb + woffs.v[li], Kp0 rows for layer 0, Hp for the others), once
+// W_li at wb + woffs[li], Kp0 rows for layer 0, Hp for the others), once
 // per block.
-__device__ __forceinline__ void weight_col_norms(const bf16* wb, const DccOffs& woffs, int L,
+__device__ __forceinline__ void weight_col_norms(const bf16* wb, const long long* woffs, int L,
                                                  int Kp0, int Hp, float* cnorm, int l0 = 0) {
   for (int i = threadIdx.x + l0 * Hp; i < L * Hp; i += blockDim.x) {
     const int li = i / Hp, c = i - li * Hp;
-    cnorm[i] = sqrtf(dot_sequential(nullptr, wb + woffs.v[li] + c, Hp, li == 0 ? Kp0 : Hp,
-                                    true));
+    cnorm[i] = sqrtf(dot_sequential(nullptr, wb + woffs[li] + c, Hp, li == 0 ? Kp0 : Hp, true));
   }
+}
+
+// ---------------------------------------------------------------------------
+// The depth layout of the bf16 gradient kernels (K2b, K3 / K4,
+// K3u / K4u). Their staged layouts keep every layer's bf16 activations, LN
+// statistics and (unfolded) weight column norms in shared memory, which
+// bounds the trunk's depth (13-15 layers at hidden 256). In the depth
+// layout those live in a per-block scratch in global memory, and shared
+// memory holds one layer's activation tile at a time: the forward writes
+// each layer's tile to the scratch as it stores it (beside the shared
+// tile, which the LN sweep and the head read), and the backward stages
+// layer li's tile back into the shared tile by cp.async before its LN
+// backward (stage_tile). The previous layer's tile, which the backward
+// reads once to recompute its operand, and the statistics are read from the
+// scratch where they are used. The arithmetic and its order are the staged
+// layout's, so both give the same bits. A block's scratch is its own
+// (blockIdx.x's slice), so no block reads another's.
+// ---------------------------------------------------------------------------
+struct DeepScratch {
+  bf16* act;     // L x BR x (Hp + 8): each layer's activation tile
+  float* mu;     // L x BR: each layer's rows' LN mean
+  float* inv;    // L x BR: and 1/sqrt(var + eps)
+  float* cnorm;  // L x Hp: the weights' column norms (unfolded relu)
+};
+
+// Bytes of one block's scratch; a multiple of 16, so every block's slice
+// and every tile in it is 16-byte aligned.
+__host__ __device__ inline size_t deep_scratch_bytes(int br, int H, int L) {
+  const size_t Hp = pad16(H);
+  return 2 * (size_t)L * br * (Hp + 8) + 4 * 2 * (size_t)L * br + 4 * (size_t)L * Hp;
+}
+
+// Block blockIdx.x's slice of the scratch at base (null: the staged layout,
+// every member null).
+template <int BR>
+__device__ __forceinline__ DeepScratch deep_scratch(unsigned char* base, int H, int L) {
+  DeepScratch d{nullptr, nullptr, nullptr, nullptr};
+  if (base == nullptr) return d;
+  const long long Hp = pad16(H);
+  unsigned char* p = base + (long long)blockIdx.x * deep_scratch_bytes(BR, H, L);
+  d.act = (bf16*)p;
+  d.mu = (float*)(p + 2LL * L * BR * (Hp + 8));
+  d.inv = d.mu + (long long)L * BR;
+  d.cnorm = d.inv + (long long)L * BR;
+  return d;
+}
+
+// One layer's saved tile (BR x ldh bf16, ldh a multiple of 8) from the
+// scratch into the shared tile dst, by cp.async; every thread calls it, and
+// the tile is complete for every thread on return. The caller has made sure
+// no thread still reads dst.
+template <int BR>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int ldh) {
+  for (int i = threadIdx.x; i < BR * ldh / 8; i += blockDim.x) cp_async16(dst + 8 * i, src + 8 * i);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 }
 
 // rnorm[r] = |row r of the operand| over its K columns, one warp per row;

@@ -26,6 +26,13 @@ folded K3 and K4), ``dv0_unfolded`` (dW0 of K2b, K3u and K4u) and
 and K4u); ``csrc/layer0_tail.cu`` holds dV0 and the layer-0 input
 backward without d(x) on the warpgroup tensor cores (``dcc_dv0_wgmma``,
 ``dcc_layer0_input_bwd_wgmma``).
+
+The trunk kernels read their parameter offsets from a device table
+(:func:`offsets_table`, one per offsets list and device, made once and
+never copied per launch), so they take a trunk of any depth. The bf16
+gradient kernels' depth layout keeps each layer's saved tiles in a scratch
+in device memory (:func:`deep_scratch`, one buffer per device that grows to
+the largest launch).
 """
 
 from __future__ import annotations
@@ -80,20 +87,21 @@ _SIGNATURES = {
         ],
         "dcc_trunk_bwd_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
-            _P, _P, _P, _P,
+            _P, _P, _P, _P, _P,
         ],
         # dcc_trunk_bwd_mma's arguments, with g0 and xstats in dx's place
         "dcc_trunk_bwd_chunked_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _L, _I,
-            _P, _P, _P, _P, _P,
+            _P, _P, _P, _P, _P, _P,
         ],
         "dcc_layer0_input_bwd_mma": [
             _P, _I, _L, _I, _P, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P,
         ],
         "dcc_trunk_bwd_smem_bytes": [_I, _I, _I, _I],
-        "dcc_trunk_bwd_mma_smem_bytes": [_I, _I, _I, _I],
-        "dcc_trunk_bwd_mma_chunked_smem_bytes": [_I, _I, _I, _I],
+        "dcc_trunk_bwd_mma_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_trunk_bwd_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_layer0_input_bwd_smem_bytes": [_I, _I],
+        "dcc_deep_scratch_bytes": [_I, _I, _I],
     },
     "fused_ppo": {
         "dcc_actor_grads": [
@@ -102,7 +110,7 @@ _SIGNATURES = {
         ],
         "dcc_actor_grads_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
-            _P, _L, _I, _P, _P, _P,
+            _P, _L, _I, _P, _P, _P, _P,
         ],
         "dcc_critic_grads": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
@@ -110,24 +118,24 @@ _SIGNATURES = {
         ],
         "dcc_critic_grads_mma": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P,
         ],
         # dcc_critic_grads_mma's arguments, with g0 and xstats before out
         "dcc_critic_grads_chunked_mma": [
             _P, _I, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I,
-            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _P,
+            _P, _P, _I, _P, _P, _I, _P, _L, _I, _P, _P, _P, _P, _P, _P,
         ],
         # dcc_actor_grads_mma's arguments, with g0 and xstats before out
         "dcc_actor_grads_chunked_mma": [
             _P, _I, _P, _L, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _I, _P, _P, _I,
-            _P, _L, _I, _P, _P, _P, _P, _P,
+            _P, _L, _I, _P, _P, _P, _P, _P, _P,
         ],
         "dcc_ppo_smem_bytes": [_I, _I, _I, _I, _I],
-        "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I],
-        "dcc_ppo_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_mma_smem_bytes": [_I, _I, _I, _I, _I, _I],
+        "dcc_ppo_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I, _I],
         "dcc_ppo_unfolded_smem_bytes": [_I, _I, _I, _I, _I],
-        "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I],
-        "dcc_ppo_unfolded_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
+        "dcc_ppo_unfolded_mma_smem_bytes": [_I, _I, _I, _I, _I, _I],
+        "dcc_ppo_unfolded_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I, _I],
     },
     # the layer-0 tail of the chunked kernels on warpgroup tensor cores: dV0
     # (dW0 in its affine mode) and the layer-0 input backward without dx
@@ -153,6 +161,32 @@ _SIGNATURES["fused_mlp"]["dcc_trunk_fwd_chunked_mma"] = _SIGNATURES["fused_mlp"]
 # the wide libraries hold the same entry points
 for _name in ("fused_mlp", "fused_mlp_bwd", "fused_ppo"):
     _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[_name]
+
+
+_TABLES: dict = {}
+_SCRATCH: dict = {}
+
+
+def offsets_table(offs, device) -> torch.Tensor:
+    """The int64 device table of the element offsets ``offs`` that a
+    kernel reads its parameters at, cached by (device, offsets): the copy
+    to the device happens at the first launch of each trunk shape only."""
+    key = (str(device), tuple(offs))
+    t = _TABLES.get(key)
+    if t is None:
+        t = _TABLES[key] = torch.tensor(offs, dtype=torch.int64, device=device)
+    return t
+
+
+def deep_scratch(nbytes: int, device) -> torch.Tensor:
+    """A uint8 device buffer of at least ``nbytes`` for the depth layout's
+    saved tiles, one per device, kept between launches and grown to the
+    largest asked for. Launches on one stream use it in turn."""
+    key = str(device)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    return buf
 
 
 def reset_launches() -> None:
@@ -225,7 +259,7 @@ def _libraries() -> dict:
         for fn, argtypes in _SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
-            f.restype = ctypes.c_ulonglong if fn.endswith("_smem_bytes") else ctypes.c_int
+            f.restype = ctypes.c_ulonglong if fn.endswith("_bytes") else ctypes.c_int
         lib.dcc_error_string.argtypes = [ctypes.c_int]
         lib.dcc_error_string.restype = ctypes.c_char_p
         libs[name] = lib

@@ -48,13 +48,19 @@ warpgroup tensor cores (``csrc/layer0_tail.cu``; dx and hidden widths past
 256 on the row-tiled kernel); the chunked K3, K4, K3u and K4u end in the
 same two kernels.
 
-The CUDA entries take at most ``MAX_LAYERS`` layers (ROADMAP B3b). The
-bf16 kernels take any hidden width whose smallest row tile fits one
-block's shared memory: each layer runs in column passes of at most 256
-(``csrc/trunk_mma.cuh``), and widths off multiples of 16 are zero-padded
-and masked, so at two layers every width up to 1,024 is taken
-(:func:`cuda_trunk_faults`, which MAPPO asks at construction;
-:func:`check_mma_width` guards each launch).
+The CUDA entries take a trunk of any depth: they read the parameters'
+offsets from a device table (:attr:`TrunkPack.table`, ``cuda_build.
+offsets_table``), and past the depth whose activations fit one block
+(13 to 15 layers at hidden 256) the bf16 K2b, K3, K4, K3u and K4u take
+their depth layout (``ops.tiles.plan``'s ``deep``), which keeps each
+layer's saved tile in a scratch in device memory (``cuda_build.
+deep_scratch``) and one layer's in shared memory. The bf16 kernels take
+any hidden width whose smallest row tile fits one block's shared memory:
+each layer runs in column passes of at most 256 (``csrc/trunk_mma.cuh``),
+and widths off multiples of 16 are zero-padded and masked, so at two
+layers every width up to 1,024 is taken (:func:`cuda_trunk_faults`, which
+MAPPO asks at construction; :func:`check_mma_width` guards each
+launch).
 
 Every bf16 K2, K2b, K3, K4, K3u and K4u wrapper takes ``relu_masks``, an
 (L, rows, H) uint8 CUDA tensor that the kernel fills with each layer's
@@ -74,8 +80,6 @@ from . import tiles
 from .tiles import SMEM_MAX
 
 EPS = 1e-6
-# the CUDA entries' limit on layers (csrc/trunk.cuh, DCC_MAX_LAYERS)
-MAX_LAYERS = 8
 # distance from a relu kink within which two f32 summation orders may take
 # opposite sides (the f32 kink rule of the kernel checks)
 F32_KINK_EPS = 1e-5
@@ -505,35 +509,44 @@ def pack_mma_weights(mats: Sequence[torch.Tensor], device) -> tuple:
 class TrunkPack(NamedTuple):
     """K2's parameters packed for one launch: every parameter in one f32
     buffer (:func:`pack_params`) and, for bf16, the weights' bf16 copies
-    (:func:`pack_mma_weights`)."""
+    (:func:`pack_mma_weights`); ``table`` and ``weight_table`` are the
+    kernels' device tables of ``offsets`` (with the feature norm's two
+    entries in front, zeros without it) and ``weight_offsets``, made once
+    per trunk shape (``cuda_build.offsets_table``)."""
 
     buffer: torch.Tensor
     offsets: list
     weights: Optional[torch.Tensor] = None
     weight_offsets: Optional[list] = None
+    table: Optional[torch.Tensor] = None
+    weight_table: Optional[torch.Tensor] = None
+
+
+def kernel_offsets(offs: list, use_fn: bool) -> list:
+    """The trunk kernels' offsets of the flat list: the feature norm's two
+    entries are zeros without it."""
+    return offs if use_fn else [0, 0] + offs
 
 
 def pack_trunk(params: Sequence[torch.Tensor], device, n_layers: int, use_fn: bool,
                bf16: bool) -> TrunkPack:
     """Pack the flat trunk list for :func:`trunk_forward_cuda`."""
     pb, offs = pack_params(params, device)
+    table = cb.offsets_table(kernel_offsets(offs, use_fn), device)
     if not bf16:
-        return TrunkPack(pb, offs)
+        return TrunkPack(pb, offs, table=table)
     first = 2 if use_fn else 0
     wb, woffs = pack_mma_weights([params[first + 4 * li] for li in range(n_layers)], device)
-    return TrunkPack(pb, offs, wb, woffs)
+    return TrunkPack(pb, offs, wb, woffs, table, cb.offsets_table(woffs, device))
 
 
 def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool, launches=()) -> list:
     """What of a ``n_layers``-layer trunk of width ``hidden`` the fused CUDA
-    kernels do not take, one phrase each; empty if nothing: more layers
-    than the entries take (ROADMAP B3b) and, in bf16, each of the
-    ``launches`` ((kernel, row width, head width), the kernels a run
-    launches) with no row tile that fits one block (ROADMAP B3)."""
+    kernels do not take, one phrase each; empty if nothing: in bf16, each
+    of the ``launches`` ((kernel, row width, head width), the kernels a run
+    launches) with no row tile that fits one block (ROADMAP B3). Every
+    depth is taken (past the staged layouts' depth, in the depth layout)."""
     faults = []
-    if n_layers > MAX_LAYERS:
-        faults.append(f"{n_layers} layers (the CUDA entries take at most {MAX_LAYERS}; "
-                      f"ROADMAP B3b)")
     if bf16:
         for kernel, d_in, n_head in launches:
             fault = tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)
@@ -543,14 +556,25 @@ def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool, launches=()) -> li
 
 
 def check_mma_width(kernel: str, d_in: int, hidden: int, n_layers: int,
-                    n_head: int = 1) -> tuple:
+                    n_head: int = 1) -> tiles.Plan:
     """The bf16 ``kernel``'s tile plan at this width (``ops.tiles.plan``);
-    raises naming ROADMAP B3 and the shared memory where no row tile fits."""
-    chunked, sizes = tiles.plan(kernel, True, d_in, hidden, n_layers, n_head)
-    if not sizes:
+    raises naming ROADMAP B3 and the shared
+    memory where no row tile fits."""
+    p = tiles.plan(kernel, True, d_in, hidden, n_layers, n_head)
+    if not p.tiles:
         raise ValueError(f"the bf16 tensor-core kernels do not take "
                          f"{tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)}")
-    return chunked, sizes
+    return p
+
+
+def deep_scratch_ptr(deep: bool, br: int, hidden: int, n_layers: int, n_blocks: int, device):
+    """The depth layout's scratch argument of a bf16 gradient launch: None
+    (the staged layouts) or the pointer of a cached device buffer of
+    ``n_blocks`` blocks' slices (``ops.tiles.deep_scratch_bytes``)."""
+    if not deep:
+        return None
+    nbytes = n_blocks * tiles.deep_scratch_bytes(br, hidden, n_layers)
+    return cb.deep_scratch(nbytes, device).data_ptr()
 
 
 def tile_rows(width: int, floats_per_row_fn, sizes: Sequence[int]) -> int:
@@ -630,37 +654,36 @@ def trunk_forward_cuda(
     mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
     if packed is None:
         packed = pack_trunk(params, x.device, n_layers, use_fn, bf16)
-    pb, offs = packed.buffer, packed.offsets
+    pb, table = packed.buffer, packed.table
     cb.require(pb, "packed parameters", (torch.float32,),
                (sum(p.numel() for p in params),), x.device)
-    if not use_fn:
-        offs = [0, 0] + offs
+    cb.require(table, "offsets table", (torch.int64,), (2 + 4 * n_layers,), x.device)
     out = torch.empty(
         (rows, hidden), dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device
     )
     lib = cb.mma_library("fused_mlp", hidden) if bf16 else cb.library("fused_mlp")
     smem = lambda b: tiles.smem_bytes("fused_mlp", bf16, b, d_in, hidden, n_layers) // 4
-    offs_c = (cb._L * len(offs))(*offs)
     x_bf16 = int(x.dtype == torch.bfloat16)
     name = "fused_mlp"
     if bf16:
         if packed.weights is None:
             raise ValueError("bf16 K2 needs the bf16 weight copies: pack_trunk(..., bf16=True)")
         cb.require(packed.weights, "bf16 weights", (torch.bfloat16,), device=x.device)
+        cb.require(packed.weight_table, "weight offsets table", (torch.int64,), (n_layers,),
+                   x.device)
         sms = cb.sm_count(x.device)
-        chunked, sizes = check_mma_width("fused_mlp", d_in, hidden, n_layers)
+        chunked, sizes, _ = check_mma_width("fused_mlp", d_in, hidden, n_layers)
         # the smallest row tile that still gives every SM a tile (every
         # layout, staged or chunked, has a 16-row one)
         target = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
         br = next(b for b in sizes if b <= target)
         n_blocks = max(1, min(-(-rows // br), 2 * sms))
-        woffs = packed.weight_offsets
         entry = "dcc_trunk_fwd_chunked_mma" if chunked else "dcc_trunk_fwd_mma"
         name = "fused_mlp_chunked" if chunked else name
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
-            pb.data_ptr(), offs_c, len(offs), packed.weights.data_ptr(),
-            (cb._L * len(woffs))(*woffs), len(woffs), n_blocks, out.data_ptr(), mask_ptr,
+            pb.data_ptr(), table.data_ptr(), table.numel(), packed.weights.data_ptr(),
+            packed.weight_table.data_ptr(), n_layers, n_blocks, out.data_ptr(), mask_ptr,
             cb.stream_of(x),
         )
     else:
@@ -668,7 +691,7 @@ def trunk_forward_cuda(
         entry = "dcc_trunk_fwd"
         code = lib.dcc_trunk_fwd(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
-            pb.data_ptr(), offs_c, len(offs), out.data_ptr(), cb.stream_of(x),
+            pb.data_ptr(), table.data_ptr(), table.numel(), out.data_ptr(), cb.stream_of(x),
         )
     cb.check("fused_mlp", code, name)
     cb.LAUNCHES[name] += 1
@@ -688,6 +711,7 @@ def trunk_backward_cuda(
     packed: Optional[TrunkPack] = None,
     need_dx: bool = True,
     relu_masks: Optional[torch.Tensor] = None,
+    _deep: bool = False,
 ):
     """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
     rows and the (rows, H) cotangent: the tensor-core kernel in bf16, which
@@ -697,8 +721,10 @@ def trunk_backward_cuda(
     chunked K2b, then the layer-0 input backward (with the feature norm, or
     for dx) and the dV0 kernel in its affine mode; there dx is computed only
     with ``need_dx``. ``relu_masks`` as in :func:`trunk_forward_cuda` (of
-    the forward recompute). Same returns as the plain version (dx None where
-    it was not computed)."""
+    the forward recompute). ``_deep`` (bf16): the depth layout on the tiles
+    ``ops.tiles.plan`` gives, for holding it against the staged layout on
+    the same tile. Same returns as the plain version (dx None where it was
+    not computed)."""
     rows, d_in = x.shape
     hidden = _check_trunk(x, params, n_layers, use_fn)
     g = g.to(torch.float32).contiguous()
@@ -706,11 +732,12 @@ def trunk_backward_cuda(
     mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
     lib = cb.mma_library("fused_mlp_bwd", hidden) if bf16 else cb.library("fused_mlp_bwd")
     if bf16:
-        chunked, sizes = check_mma_width("fused_mlp_bwd", d_in, hidden, n_layers)
+        tp = check_mma_width("fused_mlp_bwd", d_in, hidden, n_layers)
     else:
-        chunked, sizes = tiles.plan("fused_mlp_bwd", False, d_in, hidden, n_layers)
+        tp = tiles.plan("fused_mlp_bwd", False, d_in, hidden, n_layers)
+    chunked, sizes, deep = tp._replace(deep=True) if _deep and bf16 else tp
     smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers,
-                                      chunked=chunked) // 4
+                                      chunked=chunked, deep=deep) // 4
     sms = cb.sm_count(x.device)
     if bf16:
         if packed is None:
@@ -727,11 +754,11 @@ def trunk_backward_cuda(
         pb, offs = pack_params(list(params) + wts, x.device)
         br = tile_rows(d_in, smem, tiles.SIZES[("fused_mlp_bwd", False)])
     cb.require(pb, "packed parameters", (torch.float32,), device=x.device)
-    if not use_fn:
-        offs = [0, 0] + offs
+    offs = kernel_offsets(offs, use_fn)
+    table = cb.offsets_table(offs, x.device)
     if chunked:
         return _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs,
-                                       br, need_dx, mask_ptr)
+                                       br, need_dx, mask_ptr, deep)
     # each block owns one slot laid out as the flat parameter list
     used = sum(p.numel() for p in params)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
@@ -739,17 +766,17 @@ def trunk_backward_cuda(
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    offs_c = (cb._L * len(offs))(*offs)
     weights, mask = (), ()
     if bf16:
-        woffs = packed.weight_offsets
-        weights = (packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs))
-        mask = (mask_ptr,)
+        wtable = cb.offsets_table(packed.weight_offsets, x.device)
+        weights = (packed.weights.data_ptr(), wtable.data_ptr(), wtable.numel())
+        mask = (mask_ptr, deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device))
     entry = "dcc_trunk_bwd_mma" if bf16 else "dcc_trunk_bwd"
     code = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
-        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), offs_c, len(offs), *weights,
-        slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), *mask, cb.stream_of(x),
+        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), table.data_ptr(), table.numel(),
+        *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), *mask,
+        cb.stream_of(x),
     )
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
     cb.LAUNCHES["fused_mlp_bwd"] += 1
@@ -761,11 +788,12 @@ def trunk_backward_cuda(
 
 
 def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs, br,
-                            need_dx, mask_ptr=None):
+                            need_dx, mask_ptr=None, deep=False):
     """bf16 K2b at rows too wide for a staged tile: the chunked kernel
     (``dcc_trunk_bwd_chunked_mma``: the chain to layer 0's cotangent g0,
-    its slot starting at layer 0's bias), then the layer-0 input backward
-    and the dV0 kernel (affine mode) for the 4,840-wide gradients."""
+    its slot starting at layer 0's bias; ``deep``: in its depth layout),
+    then the layer-0 input backward and the dV0 kernel (affine mode) for
+    the 4,840-wide gradients."""
     rows, d_in = x.shape
     hidden = params[-4].shape[1]
     sms = cb.sm_count(x.device)
@@ -779,12 +807,13 @@ def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, of
     g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
     xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     pb, woffs = packed.buffer, packed.weight_offsets
+    table, wtable = cb.offsets_table(offs, x.device), cb.offsets_table(woffs, x.device)
     code = cb.mma_library("fused_mlp_bwd", hidden).dcc_trunk_bwd_chunked_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
-        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), (cb._L * len(offs))(*offs),
-        len(offs), packed.weights.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs),
-        slots.data_ptr(), slot, n_blocks, out.data_ptr(), g0.data_ptr(), xstats.data_ptr(),
-        mask_ptr, cb.stream_of(x),
+        n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), table.data_ptr(), table.numel(),
+        packed.weights.data_ptr(), wtable.data_ptr(), wtable.numel(), slots.data_ptr(), slot,
+        n_blocks, out.data_ptr(), g0.data_ptr(), xstats.data_ptr(), mask_ptr,
+        deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device), cb.stream_of(x),
     )
     cb.check("fused_mlp_bwd", code, "fused_mlp_bwd_chunked")
     cb.LAUNCHES["fused_mlp_bwd_chunked"] += 1

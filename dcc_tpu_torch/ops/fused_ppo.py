@@ -53,6 +53,7 @@ from .fused_mlp import (
     activation,
     bf16_round,
     check_mma_width,
+    deep_scratch_ptr,
     dense,
     _mask_ptr,
     mask_gap,
@@ -61,6 +62,7 @@ from .fused_mlp import (
     finish_layer0_cuda,
     grads_blocks,
     input_stats,
+    kernel_offsets,
     ln_stats,
     mma_tile_rows,
     pack_mma_weights,
@@ -418,19 +420,20 @@ def _unfolded_params(trunk, head, n_layers, use_fn, device, mma: bool):
     ws = [trunk[first + 4 * li] for li in range(n_layers)]
     flat = list(trunk) + ([] if mma else [w.t().contiguous() for w in ws]) + list(head)
     pb, offs = pack_params(flat, device)
-    if not use_fn:
-        offs = [0, 0] + offs
+    offs = kernel_offsets(offs, use_fn)
     if not mma:
         return pb, offs, None, None
     return (pb, offs, *pack_mma_weights(ws, device))
 
 
 def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16,
-                  act_dim, fn_args, unfolded=False, relu_masks=None):
+                  act_dim, fn_args, unfolded=False, relu_masks=None, _deep=False):
     """Launch K3 / K4 (``trunk`` the folded [V, u] * L) or K3u / K4u (the
     flat trunk list) and its slot reduction; returns (trunk gradients,
     head gradients and metrics). ``relu_masks`` (bf16): None, or an (L,
-    rows, H) uint8 tensor the kernel fills with its relu masks."""
+    rows, H) uint8 tensor the kernel fills with its relu masks. ``_deep``
+    (bf16): the depth layout on the tiles ``ops.tiles.plan`` gives, for
+    holding it against the staged layout on the same tile."""
     rows, d_in = x.shape
     hidden = head[0].shape[0]
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
@@ -461,11 +464,12 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     # kernel (and unfolded the layer-0 input backward)
     # bf16 runs on the tensor cores, f32 on FMA
     if bf16:
-        chunked, sizes = check_mma_width(name, d_in, hidden, n_layers, n_head)
+        tp = check_mma_width(name, d_in, hidden, n_layers, n_head)
     else:
-        chunked, sizes = tiles.plan(name, False, d_in, hidden, n_layers, n_head)
+        tp = tiles.plan(name, False, d_in, hidden, n_layers, n_head)
+    chunked, sizes, deep = tp._replace(deep=True) if _deep and bf16 else tp
     smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
-                                      chunked) // 4
+                                      chunked, deep) // 4
     if bf16:
         br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), sizes)
     else:
@@ -479,9 +483,13 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     n_blocks = grads_blocks(-(-rows // br), cb.sm_count(x.device), bf16)
     slots = torch.empty((n_blocks, slot), dtype=torch.float32, device=x.device)
     out = torch.empty((slot,), dtype=torch.float32, device=x.device)
-    offs_c = (cb._L * len(offs))(*offs)
+    # the offsets as the kernels read them: device tables, one per trunk shape
+    table = cb.offsets_table(offs, x.device)
     x_bf16 = int(x.dtype == torch.bfloat16)
-    weights = (wb.data_ptr(), (cb._L * len(woffs))(*woffs), len(woffs)) if bf16 else ()
+    weights = ()
+    if bf16:
+        wtable = cb.offsets_table(woffs, x.device)
+        weights = (wb.data_ptr(), wtable.data_ptr(), wtable.numel())
     entry = f"dcc_{kind}_grads{tag}" + ("_chunked" if chunked else "") + ("_mma" if bf16 else "")
     if chunked:
         g0 = torch.empty((rows, pad16(hidden)), dtype=torch.bfloat16, device=x.device)
@@ -490,20 +498,21 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     else:
         outs = (out.data_ptr(),)
     if bf16:
-        outs += (mask_ptr,)
+        outs += (mask_ptr, deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device))
     if kind == "actor":
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
-            int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), offs_c, len(offs),
-            *weights, slots.data_ptr(), slot, n_blocks, *outs, cb.stream_of(x),
+            int(use_fn), int(use_relu), *fn_args, br, pb.data_ptr(), table.data_ptr(),
+            table.numel(), *weights, slots.data_ptr(), slot, n_blocks, *outs, cb.stream_of(x),
         )
     else:
         norm = fn_args[0]
         cb.require(norm, "norm", (torch.float32,), (2,), x.device)
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), norm.data_ptr(), rows, d_in, hidden,
-            n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(), offs_c,
-            len(offs), *weights, slots.data_ptr(), slot, n_blocks, *outs, cb.stream_of(x),
+            n_layers, int(use_fn), int(use_relu), *fn_args[1:], br, pb.data_ptr(),
+            table.data_ptr(), table.numel(), *weights, slots.data_ptr(), slot, n_blocks, *outs,
+            cb.stream_of(x),
         )
     cb.check("fused_ppo", code, name)
     cb.LAUNCHES[name] += 1
@@ -520,24 +529,24 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,
-                     bf16, clip_param, relu_masks=None):
+                     bf16, clip_param, relu_masks=None, _deep=False):
     """Launch K3 (+ its slot reduction); same returns as the plain version.
     ``relu_masks`` as in :func:`_launch_grads`."""
     kg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, kp, [whf, bhf, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=whf.shape[1], fn_args=(float(clip_param),),
-        relu_masks=relu_masks,
+        relu_masks=relu_masks, _deep=_deep,
     )
     return kg, dwh, dbh, dls, met
 
 
 def actor_grads_unfolded_cuda(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
-                              use_relu, bf16, clip_param, relu_masks=None):
+                              use_relu, bf16, clip_param, relu_masks=None, _deep=False):
     """Launch K3u (+ its slot reduction); same returns as the plain version."""
     tg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, list(params), [wh, bh, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=wh.shape[1], fn_args=(float(clip_param),),
-        unfolded=True, relu_masks=relu_masks,
+        unfolded=True, relu_masks=relu_masks, _deep=_deep,
     )
     return tg, dwh, dbh, dls, met
 
@@ -547,26 +556,27 @@ def _critic_args(norm, clip_param, huber_delta, use_huber, use_clipped):
 
 
 def critic_grads_cuda(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu, bf16,
-                      clip_param, huber_delta, use_huber, use_clipped, relu_masks=None):
+                      clip_param, huber_delta, use_huber, use_clipped, relu_masks=None,
+                      _deep=False):
     """Launch K4 (+ its slot reduction); same returns as the plain version."""
     kg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, kp, [wvf, bvf], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
-        relu_masks=relu_masks,
+        relu_masks=relu_masks, _deep=_deep,
     )
     return kg, dwv, dbv, met
 
 
 def critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, *, n_layers, use_fn, use_relu,
                                bf16, clip_param, huber_delta, use_huber, use_clipped,
-                               relu_masks=None):
+                               relu_masks=None, _deep=False):
     """Launch K4u (+ its slot reduction); same returns as the plain version."""
     tg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, list(params), [wv, bv], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
-        unfolded=True, relu_masks=relu_masks,
+        unfolded=True, relu_masks=relu_masks, _deep=_deep,
     )
     return tg, dwv, dbv, met
 

@@ -21,9 +21,21 @@ one block in either layout (above about 1,024 at two layers) is refused
 16-row staged tile, taken only where no larger tile fits in either layout
 (hidden widths of 768 and more), so that the launches that fit at
 narrower widths keep their tiles.
+
+The depth of the trunk sets the rest. The bf16 gradient kernels (K2b, K3 /
+K4, K3u / K4u) keep every layer's activations and LN statistics in shared
+memory, so at hidden 256 their smallest tiles hold 13 to 15 layers. Past
+that they take their depth layout (``DEEP``), staged or
+chunked, whose shared memory holds one layer's tile and does not grow with
+the depth; the other layers' tiles go to a scratch in device memory
+(:func:`deep_scratch_bytes` a block). :func:`plan` takes it only where no
+staged, chunked or ``LAST`` tile holds the stack, so every launch that fits
+those keeps its layout and its tile.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 from . import cuda_build as cb
 
@@ -58,11 +70,31 @@ CHUNKED = {("critic_ppo_grads", True): (32, 16), ("critic_ppo_grads_unfolded", T
            ("fused_mlp", True): (32, 16), ("fused_mlp_bwd", True): (32, 16)}
 
 
+# the bf16 gradient kernels with a depth layout (staged or, where they have
+# one, chunked), taken where no tile of their other layouts holds the
+# trunk's layers, and the row tiles of its staged form (its chunked form
+# takes CHUNKED's): K2b (``csrc/fused_mlp_bwd.cu``) and K3, K4, K3u, K4u
+# (``csrc/fused_ppo.cu``), each with the ``deep`` scratch argument set
+DEEP = {key: SIZES[key] for key in (
+    ("fused_mlp_bwd", True), ("actor_ppo_grads", True), ("critic_ppo_grads", True),
+    ("actor_ppo_grads_unfolded", True), ("critic_ppo_grads_unfolded", True))}
+
+
+class Plan(NamedTuple):
+    """A kernel's row tiles as :func:`plan` gives them: ``chunked``, its
+    chunked first layer; ``tiles``, largest first; ``deep``, its depth
+    layout."""
+    chunked: bool
+    tiles: list
+    deep: bool = False
+
+
 def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
-               n_head: int = 1, chunked: bool = False) -> int:
+               n_head: int = 1, chunked: bool = False, deep: bool = False) -> int:
     """Shared memory of one ``br``-row tile of ``kernel`` (a key of
     ``ops.LAUNCHES``; ``n_head``: the actor head's width; ``chunked``: its
-    chunked layout), from its library (built on first use)."""
+    chunked layout; ``deep``: its depth layout, ``DEEP``), from its library
+    (built on first use)."""
     mma = "_mma" if bf16 else ""
     ch = "_chunked" if chunked else ""
     if kernel == "fused_mlp":
@@ -72,46 +104,63 @@ def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layer
             br, d_in, hidden)
     if kernel == "layer0_input_bwd":
         return cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_smem_bytes(br, hidden)
+    args = (int(deep),) if bf16 else ()
     if kernel == "fused_mlp_bwd":
         fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}{ch}_smem_bytes")
-        return fn(br, d_in, hidden, n_layers)
+        return fn(br, d_in, hidden, n_layers, *args)
     tag = "_unfolded" if kernel.endswith("_unfolded") else ""
     fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}{ch}_smem_bytes")
-    return fn(br, d_in, hidden, n_layers, n_head)
+    return fn(br, d_in, hidden, n_layers, n_head, *args)
+
+
+def deep_scratch_bytes(br: int, hidden: int, n_layers: int) -> int:
+    """Bytes of one block's scratch in the depth layout: each layer's bf16
+    activation tile (br x (pad16(hidden) + 8)), its rows' LN mean and
+    1/sqrt(var + eps), and the weights' column norms, from the library."""
+    return cb.library("fused_mlp_bwd").dcc_deep_scratch_bytes(br, hidden, n_layers)
 
 
 def plan(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
-         n_head: int = 1) -> tuple:
-    """(chunked, tiles): the row tiles of ``kernel`` that fit one block at
-    this width with whole rows staged, or, where none does and the kernel
-    has a chunked first layer, those of its chunked layout (chunked True);
-    ``LAST``'s staged tiles where neither layout has a larger one."""
+         n_head: int = 1) -> Plan:
+    """The :class:`Plan` of ``kernel``: the row tiles of ``kernel`` that fit
+    one block at this width with whole rows staged, or, where none does and
+    the kernel has a chunked first layer, those of its chunked layout
+    (chunked True); ``LAST``'s staged tiles where neither layout has a
+    larger one; where none of those holds the trunk's layers, the depth
+    layout's (``DEEP``; staged, else chunked), with ``deep`` True."""
     key = (kernel, bf16)
-    fits = lambda sizes, ch=False: [
+    fits = lambda sizes, ch=False, deep=False: [
         b for b in sizes
-        if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, ch) <= SMEM_MAX]
+        if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, ch, deep) <= SMEM_MAX]
     staged = fits(SIZES[key])
     if staged:
-        return False, staged
+        return Plan(False, staged)
     chunked, last = fits(CHUNKED.get(key, ()), True), fits(LAST.get(key, ()))
     if last and max(chunked, default=0) <= max(last):  # no larger tile fits
-        return False, last
-    return key in CHUNKED, chunked
+        return Plan(False, last)
+    if chunked or key not in DEEP:
+        return Plan(key in CHUNKED, chunked)
+    deep = fits(DEEP[key], deep=True)
+    if deep:
+        return Plan(False, deep, deep=True)
+    return Plan(key in CHUNKED, fits(CHUNKED.get(key, ()), True, True), deep=True)
 
 
 def no_tile(kernel: str, d_in: int, hidden: int, n_layers: int, n_head: int = 1):
     """None where the bf16 ``kernel`` has a row tile at this width
     (:func:`plan`), else why not: its smallest tile's shared memory in the
-    layout it would take (chunked where it has one), naming ROADMAP B3."""
+    layout it would take last (chunked where it has one, in its depth
+    layout where it has one), naming ROADMAP B3."""
     key = (kernel, True)
-    if plan(kernel, True, d_in, hidden, n_layers, n_head)[1]:
+    if plan(kernel, True, d_in, hidden, n_layers, n_head).tiles:
         return None
-    chunked = key in CHUNKED
+    chunked, deep = key in CHUNKED, key in DEEP
     br = min(CHUNKED[key] if chunked else SIZES[key] + LAST.get(key, ()))
-    need = smem_bytes(kernel, True, br, d_in, hidden, n_layers, n_head, chunked)
+    need = smem_bytes(kernel, True, br, d_in, hidden, n_layers, n_head, chunked, deep)
+    layout = " in its depth layout" if deep else ""
     return (f"bf16 {kernel} at hidden width {hidden} ({d_in}-wide rows, {n_layers} layers): "
-            f"its smallest row tile ({br} rows) needs {need} bytes of shared memory, more "
-            f"than one block's {SMEM_MAX} (ROADMAP B3)")
+            f"its smallest row tile ({br} rows){layout} needs {need} bytes of shared memory, "
+            f"more than one block's {SMEM_MAX} (ROADMAP B3)")
 
 
 # The layer-0 tail on the warpgroup tensor cores (``csrc/layer0_tail.cu``):

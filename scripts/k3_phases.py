@@ -30,16 +30,16 @@ PHASES = ["load input", "forward L0 product", "L0 epilogue", "forward L1 product
 CHECKPOINTS = [  # (anchor, checkpoint inserted after it), found in this order
     ("    load_input<BR>(x, x_bf16, row0, R, d_in, Kp0, use_fn, nullptr, nullptr, a0, lda0);\n"
      "    __syncthreads();\n", "    DBG(1);\n"),
-    ("                         wb + woffs.v[li], Hp, Hp, ring, wt, acc);\n",
+    ("                         wb + woffs[li], Hp, Hp, ring, wt, acc);\n",
      "      DBG(2 + 2 * li);\n"),
     ("      __syncthreads();\n    }\n    if (!first", None),
     ("\n    __syncthreads();\n", "    DBG(6);\n"),  # the barrier after the head
     ("        acc[nt][i] = g;\n      }\n    }\n", "    DBG(7);\n"),
     ("      __syncthreads();\n      // du = column sums of the un-rounded cotangent\n",
      "      DBG(8 + 3 * (1 - li));\n"),
-    ("                    li == 0 ? d_in : H, gs, ldh, Hp, H, sv[li], first);\n",
+    ("                    li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : fslot.v(li), first);\n",
      "      DBG(9 + 3 * (1 - li));\n"),
-    ("        gemm_stream<true>(gs, ldh, Hp, wb + woffs.v[li], Hp, Hp, ring, wt, acc);\n",
+    ("        gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc);\n",
      "      DBG(10 + 3 * (1 - li));\n"),
 ]
 

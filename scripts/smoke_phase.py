@@ -13,6 +13,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] maddpg
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] precision
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] mesh
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] deep
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
     python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
@@ -68,7 +69,13 @@ df64 force on and off, the three connectivity-force arms trained at 16 and
 2 gloo ranks on card 0 for the default bf16 config and the 20-UAV preset at
 1,024 envs against one process, MADDPG over 2 ranks, and 2 NCCL ranks on
 two cards where the machine shows two.
-``train`` trains the ``chip_smoke.TRAIN_RUNS`` whose tags are given, with
+``deep`` builds the kernels and runs the smoke's deep phase
+(``chip_smoke.check_deep``): every kernel's row-tile plan at 8, 9 and 32
+layers, every kernel of the trunk in f32 and bf16 against its plain version
+at those depths (timed at 9 and 32), the chunked layouts on the 20-UAV
+preset's critic rows at 9 and 32 layers, and the deep training runs
+(``chip_smoke.DEEP_RUNS``) with their launch checks.
+``train`` trains the ``chip_smoke.TRAIN_RUNS`` (and ``DEEP_RUNS``) whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
@@ -105,7 +112,7 @@ def main(argv=None) -> int:
                     help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
                                        "hidden", "timing", "maddpg", "precision", "mesh",
-                                       "train", "profile", "bits"))
+                                       "deep", "train", "profile", "bits"))
     ap.add_argument("train_args", nargs="*",
                     help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
@@ -147,20 +154,25 @@ def main(argv=None) -> int:
     if args.phase == "train":
         results = {}
         try:
-            for tag, extra, per_iter in chip_smoke.TRAIN_RUNS:
+            for tag, extra, per_iter in (*chip_smoke.TRAIN_RUNS,
+                                         *getattr(chip_smoke, "DEEP_RUNS", ())):
                 if tag in args.train_args:
                     chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra, per_iter)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1
-    elif args.phase in ("precision", "mesh"):
+    elif args.phase in ("precision", "mesh", "deep"):
         from dcc_tpu_torch.ops import cuda_build
 
         cuda_build.build(verbose=True)
         results = {}
         try:
-            (chip_smoke.check_precision if args.phase == "precision"
-             else chip_smoke.check_mesh)(results)
+            if args.phase == "deep":
+                results["checks"], results["runs"] = [], {}
+                chip_smoke.check_deep(results["checks"], results["runs"])
+            else:
+                (chip_smoke.check_precision if args.phase == "precision"
+                 else chip_smoke.check_mesh)(results)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1

@@ -33,6 +33,10 @@ for the rows whose value is not the plain version's (``_value_flip_rows``:
 owe it to features within one bf16 step of the plain version's, and give
 those rows valid = 0; then every tensor is held to the bf16 bound.
 
+Trunks past 8 layers: each bf16 gradient kernel's depth layout bit for bit
+against its staged layout, and every kernel against its plain version at 8
+and 9 layers on trunks whose biases are drawn from N(0, 1) (ROADMAP C8).
+
 This module imports no JAX: the JAX comparison of the plain versions is in
 the other ``tests/test_torch_*.py`` files.
 """
@@ -863,30 +867,36 @@ def _red(br):
     return 4 * (_MMA_WARPS // (br // 16)) * br * 2
 
 
-def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False):
+def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False, deep=False):
     """The rows (chunked: one column chunk of them), activations, staging
     and weight ring shared by the K2b and K3 / K4 tensor-core layouts, and
-    their LN statistics."""
+    their LN statistics (``deep``: the depth layout's one activation tile,
+    its own g_prev stage past one column pass, no statistics)."""
     kp0, hp = _pad16(d_in), _pad16(hidden)
     ldh = hp + 8
+    kept = 0 if deep else n_layers  # layers whose tiles and statistics stay in shared memory
     gprev0 = unfolded and not chunked  # layer 0's g_prev, staged over the dead tiles
     nk = _pass_cols(kp0) if gprev0 else 0
     nh = _pass_cols(hp)  # a layer's column pass; wider layers' g_prev over the dead tiles
-    o = 2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * n_layers * br * ldh + 2 * br * ldh
+    o = (2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * (1 if deep else n_layers) * br * ldh
+         + 2 * br * ldh)
+    if deep and hp > _MMA_HMAX:
+        o += 4 * br * (hp + 4)
     if gprev0:
         o = max(o, 4 * br * (kp0 + 4))
     o += 2 * br * ldh
     o += 2 * _MMA_STAGES * max(_ring_stage(nh, False), _ring_stage(max(nk, nh), True))
-    o += 4 * n_layers * br * 2 + (8 * br if unfolded or chunked else 0)
+    o += 4 * kept * br * 2 + (8 * br if unfolded or chunked else 0)
     return o + _red(br) + 4 * (3 if unfolded else 1) * (br // 16) * hp
 
 
-def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=False):
+def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=False, deep=False):
     """Shared memory of one ``br``-row tile of ``kernel`` (``chunked``: its
-    chunked layout), as ``ops.tiles.smem_bytes`` reads it from the
-    libraries."""
+    chunked layout; ``deep``: its depth layout), as ``ops.tiles.smem_bytes``
+    reads it from the libraries."""
     unfolded = kernel.endswith("_unfolded")
     hp = _pad16(hidden)
+    kept = 0 if deep else n_layers
     if kernel == "layer0_input_bwd":  # g0 rows, the ring, the f32 xhat chunk, sums
         return (2 * br * (hp + 8) + 2 * _MMA_STAGES * _ring_stage(_MMA_HMAX, True)
                 + 4 * br * (_MMA_HMAX + 4) + 4 * 2 * (br // 16) * _MMA_HMAX + _red(br)
@@ -905,15 +915,15 @@ def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=Fals
     if kernel == "fused_mlp_bwd":
         if not bf16:
             return 4 * chain
-        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True, chunked) + 4 * br
-                + 4 * n_layers * hp + _RESUM_BYTES)
+        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True, chunked, deep) + 4 * br
+                + 4 * kept * hp + _RESUM_BYTES)
     if bf16:
-        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked)
+        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked, deep)
         o += 4 * hidden * n_head
-        o += 0 if unfolded else 4 * n_layers * hidden
+        o += 0 if unfolded else 4 * kept * hidden
         o += 4 * br * n_head * 2 + 8 * br
         if unfolded:
-            o += 4 * br + 4 * n_layers * hp + _RESUM_BYTES
+            o += 4 * br + 4 * kept * hp + _RESUM_BYTES
         return o
     if unfolded:
         return 4 * (chain + br * (hidden + 2 * n_head + 2))
@@ -933,23 +943,32 @@ def pretend_cuda(monkeypatch):
 def test_row_tile_mirror_matches_the_libraries(cuda):
     """``smem_layout``, which the tests that pretend a CUDA device read,
     gives each kernel's shared memory per row tile as the built libraries
-    do (``ops.tiles.smem_bytes``, which MAPPO and the wrappers read)."""
+    do (``ops.tiles.smem_bytes``, which MAPPO and the wrappers read), in
+    every layout: staged, chunked and, for the bf16 gradient kernels, the
+    depth layout of both, at 2, 9 and 32 layers."""
     from dcc_tpu_torch.ops import tiles
 
     for (kernel, bf16), sizes in tiles.SIZES.items():
+        key = (kernel, bf16)
         n_head = 2 if kernel.startswith("actor") else 1
-        layouts = [(False, sizes + tiles.LAST.get((kernel, bf16), ()))]
-        if (kernel, bf16) in tiles.CHUNKED:
-            layouts.append((True, tiles.CHUNKED[(kernel, bf16)]))
-        for chunked, tile_sizes in layouts:
+        layouts = [(False, False, sizes + tiles.LAST.get(key, ()))]
+        if key in tiles.CHUNKED:
+            layouts.append((True, False, tiles.CHUNKED[key]))
+        if key in tiles.DEEP:
+            layouts.append((False, True, tiles.DEEP[key]))
+            layouts.append((True, True, tiles.CHUNKED[key]))
+        for chunked, deep, tile_sizes in layouts:
             for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 1475, 1510, 4840, 5840,
                          6040):
                 for hidden in (256, 100, 264, 300, 512, 1024):
-                    for br in tile_sizes:
-                        want = tiles.smem_bytes(kernel, bf16, br, d_in, hidden, 2, n_head,
-                                                chunked)
-                        got = smem_layout(kernel, bf16, br, d_in, hidden, 2, n_head, chunked)
-                        assert got == want, (kernel, bf16, chunked, br, d_in, hidden)
+                    for n_layers in (2, 9, 32):
+                        for br in tile_sizes:
+                            want = tiles.smem_bytes(kernel, bf16, br, d_in, hidden, n_layers,
+                                                    n_head, chunked, deep)
+                            got = smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head,
+                                              chunked, deep)
+                            assert got == want, (kernel, bf16, chunked, deep, br, d_in, hidden,
+                                                 n_layers)
 
 
 @pytest.mark.parametrize("rows", _RAGGED + [20000])
@@ -1198,7 +1217,7 @@ def test_20uav_preset_builds_on_the_card(cuda):
     from dcc_tpu_torch.ops import tiles
 
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16])
+    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16], False)
     algo = MAPPO(algo_cfg, env_cfg, device=cuda)
     assert algo.fused_loss and algo.fused_trunk
 
@@ -1261,7 +1280,7 @@ def test_20uav_wide_actor_rows_build_on_the_card(cuda, fold):
     algo.obs_dim = env_cfg.share_obs_dim
     algo._check_cuda_trunk()
     kernel = "actor_ppo_grads" + ("" if fold else "_unfolded")
-    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16])
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16], False)
 
 
 # the many-PoI widths: critic rows of 4 UAVs x 300 PoIs (6,040) and of 20 x 50
@@ -1580,3 +1599,169 @@ def test_bf16_chunked_kernels_at_wide_hidden(cuda, hidden):
     want_dx, want = FM.trunk_backward_plain(x, params, g, **tkw)
     for k, p in zip([dx, *grads], [want_dx, *want]):
         assert _rel(k, p) < 4e-3
+
+
+# Trunks past 8 layers, which the entries once refused (their offsets now a
+# device table). Past a few layers the model's trunk carries one bf16
+# rounding difference of two summation orders into the later layers'
+# outputs and gradients (ROADMAP C8, scripts/depth_spread.py): these checks
+# draw the Dense and LN biases from N(0, 1), which damps it, and run relu
+# under the relu mask rule (bf16) or with the rows next to a kink given a
+# zero cotangent, advantage or valid flag (f32). The bf16 gradient kernels'
+# depth layout (every layer's tile in device memory, one in shared memory)
+# must give the staged layout's bits on the same tile.
+DEEP_KINDS = ("fused_mlp_bwd", "actor", "critic", "actor_unfolded", "critic_unfolded")
+
+
+def _deep_case(gen, kind, rows, d_in, hidden, n_layers, dev):
+    """A trunk of ``n_layers`` layers (biases N(0, 1)), its head, rows and
+    the kernel's other operands: (x, aux, params, head_w, head_b)."""
+    params = _trunk_params(gen, d_in, hidden, n_layers, True, dev)
+    for li in range(n_layers):
+        for j in (1, 3):  # the Dense bias, the LN bias
+            params[2 + 4 * li + j] = torch.randn(hidden, generator=gen).to(dev)
+    n_out = 2 if kind.startswith("actor") else 1
+    hw = (0.1 * torch.randn(hidden, n_out, generator=gen)).to(dev)
+    hb = (0.1 * torch.randn(n_out, generator=gen)).to(dev)
+    x = torch.randn(rows, d_in, generator=gen).to(dev)
+    if kind.startswith("actor"):
+        aux = FP.pack_actor_aux((0.5 * torch.randn(rows, 2, generator=gen)).to(dev),
+                                (-2.0 + 0.3 * torch.randn(rows, 1, generator=gen)).to(dev),
+                                torch.randn(rows, 1, generator=gen).to(dev))
+    elif kind.startswith("critic"):
+        vpred = torch.randn(rows, 1, generator=gen)
+        aux = FP.pack_critic_aux(vpred.to(dev), (vpred + 3.0 * torch.randn(rows, 1,
+                                                                           generator=gen)).to(dev))
+    else:  # K2 / K2b: the cotangent of the trunk output
+        aux = torch.randn(rows, hidden, generator=gen).to(dev)
+    return x, aux, params, hw, hb
+
+
+def _deep_call(kind, x, aux, params, hw, hb, n_layers, bf16, on_card=True, relu=True, **m):
+    """One K2, K2b, K3, K4, K3u or K4u call as one list of tensors."""
+    kw = dict(n_layers=n_layers, use_fn=True, use_relu=relu, bf16=bf16)
+    if kind == "fused_mlp":
+        fn = FM.trunk_forward_cuda if on_card else FM.trunk_forward_plain
+        return [fn(x, params, **kw, **m)]
+    if kind == "fused_mlp_bwd":
+        fn = FM.trunk_backward_cuda if on_card else FM.trunk_backward_plain
+        dx, grads = fn(x, params, aux, **kw, **m)
+        return [dx, *grads]
+    if kind.endswith("unfolded"):
+        return _flat(_unfolded(kind.split("_")[0], x, aux, params, hw, hb, on_card,
+                               clip_param=0.2, **kw, **m))
+    kp, whf, bhf = FP.fold_trunk(params, hw, hb, n_layers, True)
+    if kind == "actor":
+        fn = FP.actor_grads_cuda if on_card else FP.actor_grads_plain
+        return _flat(fn(x, aux, kp, whf, bhf, torch.tensor([-0.3, 0.2], device=x.device),
+                        clip_param=0.2, **kw, **m))
+    fn = FP.critic_grads_cuda if on_card else FP.critic_grads_plain
+    return _flat(fn(x, aux, torch.tensor([0.5, 2.0], device=x.device), kp, whf, bhf,
+                    clip_param=0.2, huber_delta=10.0, use_huber=True, use_clipped=True, **kw,
+                    **m))
+
+
+_DEEP_NAME = {"fused_mlp_bwd": "fused_mlp_bwd", "actor": "actor_ppo_grads",
+              "critic": "critic_ppo_grads", "actor_unfolded": "actor_ppo_grads_unfolded",
+              "critic_unfolded": "critic_ppo_grads_unfolded"}
+
+
+# (kind, layers, hidden, row width, rows): every kernel on the default rows,
+# the critic's kernels and K2b on the 20-UAV preset's 4,840-wide critic rows;
+# on 1,000 rows each takes its smallest tile (16 rows), on 9,000 its largest
+# staged one: 64 rows for K2b, K3 and K3u at 110 wide (K3u 32 at hidden 256),
+# 32 for the rest, the depth layout's tiles at 32 layers and hidden 256
+DEEP_BITS = [(k, L, h, w, r) for L, h, r in ((9, 256, 1000), (32, 128, 1000), (2, 256, 9000),
+                                             (7, 128, 9000))
+             for k in DEEP_KINDS
+             for w in (110, 440, 4840) if w != 4840 or not k.startswith("actor")
+             if (L, w) != (32, 440)]
+
+
+@pytest.mark.parametrize("kind,n_layers,hidden,d_in,rows", DEEP_BITS)
+def test_deep_layout_bit_identical_to_staged(cuda, kind, n_layers, hidden, d_in, rows):
+    """Each bf16 gradient kernel in its depth layout (the wrappers' ``_deep``)
+    against its staged layout on the same rows, tile and inputs: bit for
+    bit, relu masks too, at 9 layers and hidden 256 and at 32 layers and
+    hidden 128 on 16-row tiles, and at 2 layers and hidden 256 and 7 layers
+    and hidden 128 on the largest staged tiles (32 and 64 rows), where the
+    staged tiles hold the trunk; 4,840-wide rows in the chunked layouts (the
+    critic's kernels and K2b)."""
+    from dcc_tpu_torch.ops import tiles
+
+    gen = torch.Generator().manual_seed(n_layers + hidden + d_in)
+    x, aux, params, hw, hb = _deep_case(gen, kind, rows, d_in, hidden, n_layers, cuda)
+    x = x.bfloat16()
+    name = _DEEP_NAME[kind]
+    want_plan = tiles.plan(name, True, d_in, hidden, n_layers, 2 if kind.startswith("actor")
+                           else 1)
+    assert want_plan.tiles and not want_plan.deep
+    masks = torch.zeros((n_layers, rows, hidden), dtype=torch.uint8, device=cuda)
+    staged = _deep_call(kind, x, aux, params, hw, hb, n_layers, True, relu_masks=masks)
+    staged_tile = dict(cb.TILE)
+    launched = name + ("_chunked" if name == "fused_mlp_bwd" and want_plan.chunked else "")
+    assert staged_tile[launched] == want_plan.tiles[0 if rows > 1000 else -1]
+    deep_masks = torch.zeros_like(masks)
+    deep = _deep_call(kind, x, aux, params, hw, hb, n_layers, True, relu_masks=deep_masks,
+                      _deep=True)
+    assert dict(cb.TILE) == staged_tile
+    assert all(torch.equal(a, b) for a, b in zip(deep, staged))
+    assert torch.equal(masks, deep_masks)
+
+
+@pytest.mark.parametrize("kind", ("fused_mlp", *DEEP_KINDS))
+@pytest.mark.parametrize("n_layers", [8, 9])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_deep_trunk_kernels_match_plain(cuda, kind, n_layers, bf16):
+    """K2, K2b, K3, K4, K3u and K4u at 8 and 9 relu layers (the f32 K2b,
+    K3u and K4u read 42 to 45 offsets at 8) against their plain versions:
+    f32 within 1e-4 (K2, K2b) and 1e-3, bf16 within 2e-3 (K2) and 4e-3, the
+    kernel computed in f32 outside the bf16 bound. bf16 runs under the relu
+    mask rule (the kernel's relu masks within one bf16 step of the plain
+    version's, which then takes them); K3 and K3u give the rows at the
+    clip's kink a zero advantage (``_clip_kink_rows``), K4u the rows whose
+    value it rounds apart valid = 0 (``_value_flip_rows``), as the other
+    bf16 checks do."""
+    d_in = 440 if kind.startswith("critic") else 110
+    gen = torch.Generator().manual_seed(n_layers + d_in + 13)
+    rows, L = 777, n_layers
+    x, aux, params, hw, hb = _deep_case(gen, kind, rows, d_in, 256, L, cuda)
+    if bf16:
+        x = x.bfloat16()
+    folded = kind in ("actor", "critic")
+    kp, whf, bhf = FP.fold_trunk(params, hw, hb, L, True)
+    if not bf16:  # rows next to a relu kink
+        kink = (FP.relu_kink_rows_folded(x, kp, L, True, bf16=False) if folded
+                else FM.relu_kink_rows(x, params, L, True, False))
+        if kind.startswith("fused_mlp"):
+            aux[kink] = 0.0
+        else:
+            aux[kink, 2 if kind.startswith("critic") else 3] = 0.0
+    masks = None
+    if bf16:
+        masks = torch.zeros((L, rows, 256), dtype=torch.uint8, device=cuda)
+        _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks)
+        if kind == "critic_unfolded":
+            flips = _value_flip_rows(x, aux, params, hw, hb, L, True, True, masks=masks)
+            assert len(flips) <= 3 + rows // 20
+            aux[list(flips), 2] = 0.0
+        if kind.startswith("actor"):  # the clip's kink
+            ls = torch.tensor([-0.3, 0.2], device=cuda)
+            if folded:
+                feat = FP._fwd_folded(x, kp, L, True, True, True, masks)[0]
+                aux[_clip_kink_rows(feat, aux, whf, bhf, ls), 3] = 0.0
+            else:
+                feat = FM._forward_chain(x, params, L, True, True, True, masks)[0]
+                aux[_clip_kink_rows(feat, aux, hw, hb, ls), 3] = 0.0
+        got = _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks)
+        _mask_ok(FP.relu_mask_gap_folded(x, kp, L, True, masks) if folded
+                 else FM.relu_mask_gap(x, params, L, True, masks))
+    else:
+        got = _deep_call(kind, x, aux, params, hw, hb, L, False)
+    want = _deep_call(kind, x, aux, params, hw, hb, L, bf16, on_card=False, masks=masks)
+    tol = (2e-3 if kind == "fused_mlp" else 4e-3) if bf16 else (
+        1e-4 if kind.startswith("fused_mlp") else 1e-3)
+    assert max(_rel(g, w) for g, w in zip(got, want)) < tol
+    if bf16:
+        f32 = _deep_call(kind, x, aux, params, hw, hb, L, False)
+        assert max(_rel(g, w) for g, w in zip(f32, want)) > tol

@@ -298,19 +298,48 @@ def test_mappo_builds_with_fused_kernels_at_wide_hidden(monkeypatch, hidden):
                  device="cuda")
     assert algo.fused_trunk and algo.fused_loss
     for (kernel, width, n_head), want in BUILD_TILES[hidden].items():
-        assert tiles.plan(kernel, True, width, hidden, 2, n_head) == want, kernel
+        assert tiles.plan(kernel, True, width, hidden, 2, n_head) == (*want, False), kernel
 
 
-@pytest.mark.parametrize("over,item", [({"hidden_size": 2048}, r"ROADMAP B3\)"),
-                                       ({"layer_n": 8}, "ROADMAP B3b")],
-                         ids=["hidden-2048", "layer-n-8"])
+@pytest.mark.parametrize("over,item", [({"hidden_size": 2048}, r"ROADMAP B3\)")],
+                         ids=["hidden-2048"])
 def test_mappo_refuses_what_no_tile_takes(monkeypatch, over, item):
-    """A bf16 hidden width whose smallest row tile does not fit one block,
-    and more than 8 layers, are refused when MAPPO is built, naming ROADMAP
-    B3 (with the shared memory the tile would need) and B3b."""
+    """A bf16 hidden width whose smallest row tile does not fit one block is
+    refused when MAPPO is built, naming ROADMAP B3 with the shared memory
+    the tile would need."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load()
     with pytest.raises(NotImplementedError, match=item) as err:
         MAPPO(algo_cfg._replace(compute_dtype="bfloat16", **over), env_cfg, device="cuda")
-    if "hidden_size" in over:
-        assert "bytes of shared memory" in str(err.value)
+    assert "bytes of shared memory" in str(err.value)
+
+
+# the row tiles each bf16 gradient kernel takes at the default widths at
+# layer_n 8 and 31 (9 and 32 layers): (chunked, tiles, depth layout)
+DEEP_TILES = {
+    8: {("actor_ppo_grads", 110, 2): (False, [16], False),
+        ("actor_ppo_grads_unfolded", 110, 2): (False, [16], False),
+        ("critic_ppo_grads", 440, 1): (False, [16], False),
+        ("critic_ppo_grads_unfolded", 440, 1): (False, [16], False),
+        ("fused_mlp_bwd", 440, 1): (False, [16], False)},
+    31: {("actor_ppo_grads", 110, 2): (False, [64, 32], True),
+         ("actor_ppo_grads_unfolded", 110, 2): (False, [64, 32], True),
+         ("critic_ppo_grads", 440, 1): (False, [32, 16], True),
+         ("critic_ppo_grads_unfolded", 440, 1): (False, [32, 16], True),
+         ("fused_mlp_bwd", 440, 1): (False, [32, 16], True)},
+}
+
+
+@pytest.mark.parametrize("layer_n", list(DEEP_TILES), ids=["layer-n-8", "layer-n-31"])
+def test_mappo_builds_deep_trunks_with_fused_kernels(monkeypatch, layer_n):
+    """More than 8 layers, which MAPPO used to refuse: in bf16 it builds on
+    CUDA with the fused trunk and loss on, and each gradient kernel takes
+    the tiles listed (at 32 layers its depth layout)."""
+    pretend_cuda(monkeypatch)
+    _, env_cfg, algo_cfg = load()
+    algo = MAPPO(algo_cfg._replace(compute_dtype="bfloat16", layer_n=layer_n), env_cfg,
+                 device="cuda")
+    assert algo.fused_trunk and algo.fused_loss
+    for (kernel, width, n_head), (chunked, sizes, deep) in DEEP_TILES[layer_n].items():
+        p = tiles.plan(kernel, True, width, 256, layer_n + 1, n_head)
+        assert p == (chunked, sizes, deep), kernel
