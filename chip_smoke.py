@@ -3,10 +3,15 @@
 
     python3 chip_smoke.py [--ptxas] [--out results.json]
 
-Phases (any failure exits non-zero):
+Phases, in the order they run (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit, torch / CUDA);
-2. build the CUDA kernels from ``dcc_tpu_torch/csrc`` and print the time,
+2. build K1's source (``gae``), then the others in a background thread
+   (``cuda_build.build``, one ``nvcc`` a source) while the ``TRAIN_RUNS``
+   not in ``PROFILED``, the precision phase, the ``DEEP_RUNS`` and the
+   ``BLOCKED_RUNS`` (phases 8 and 3) run (a run that needs a
+   kernel still building waits for its library alone; their times carry
+   the build's load on the host's cores); then print the build's time,
    each tensor-core kernel's and K1's registers and spills (``-Xptxas -v``;
    all of the report with ``--ptxas``), and the SASS check: ``cuobjdump -sass``
    of the built libraries must show HMMA or HGMMA instructions in every
@@ -15,7 +20,80 @@ Phases (any failure exits non-zero):
    on the warpgroup tensor cores the dV0 kernel and the layer-0 input
    backward without dx, ``*_wgmma_kernel``)
    and none in any other kernel (no TF32 in the f32 kernels);
-3. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
+   The training runs are the ``TRAIN_RUNS`` through
+   ``dcc_tpu_torch.train.main``: 2 iterations each of the bf16 config, the
+   recurrent bf16 config and bf16 unfolded with PopArt (each fused path's
+   second rollout on parameters packed after an update), and 1 of the
+   default f32 config, bf16 with 4 minibatches, recurrent bf16 with 2
+   minibatches, recurrent f32, bf16 with the fused loss off and f32 with
+   4 update chunks and remat,
+   one bf16 iteration per non-Gaussian head (K2 and K2b), one f32
+   iteration of each one-card preset as written and one bf16 iteration of
+   5uav_dense_conn and 10uav_moving_collision (K2, K3, K4 at their widths;
+   the 10-UAV preset's randomized and moving PoIs and collision penalty on
+   the card); 1 iteration of separated per-agent f32 policies and 1 each
+   in bf16 and recurrent f32 with 2 minibatches, which launch K1 only;
+   one iteration of the 20-UAV preset as written but for its envs (256
+   of 16,384; bf16, eval 0: K2 on 242- and 4,840-wide rows, K3 15 times,
+   K4 15 times with its dV0 kernel 15 times), and the same with the fused
+   loss off (K2 541 times, with remat; K2b 60 times staged on the actor's
+   rows and 60 chunked on the critic's, each chunked launch followed by the
+   layer-0 input backward and dV0), unfolded (K3u 15, K4u chunked 15, the
+   layer-0 input backward and dV0 15 each) and recurrent at 64 envs without
+   update chunks (K2b 15 staged and 15 chunked, the other two 15 each);
+   B3's hidden widths at 16 envs, one bf16 iteration each (512 folded,
+   unfolded and with the fused loss off, 100 unfolded, 1,024 with the
+   fused loss off, recurrent at 300) and the 20-UAV preset at hidden 512
+   (256 envs: K3 on 768,000 x 242 x 512, K4 chunked with dV0 on
+   38,400 x 4,840 x 512);
+   one bf16 iteration each of 4 UAVs x 300 PoIs at 256 envs
+   (``reduced``): folded (K2 150 staged on the actor's rows and 151
+   chunked on the critic's, ``fused_mlp_chunked``; K3 and K4 chunked 15
+   each, their dV0 15 each), unfolded (K3u and K4u chunked 15 each, the
+   layer-0 input backward and dV0 30 each) and with the fused loss off
+   (K2 165 + 166, K2b 15 staged and 15 chunked, the other two 15 each);
+   2 iterations each of MADDPG with ``maddpg.yaml`` and
+   ``maddpg_tuned.yaml`` on coverage and with ``maddpg.yaml`` on ``spread``
+   (``--scenario-name spread --num-landmarks 4``), each evaluated at its
+   second iteration, which launch no kernel of the port, and of bf16 MAPPO
+   on ``spread`` (K1, K2 301, K3 and K4 15 each on 18- and 72-wide rows);
+   The precision phase (``check_precision``, ROADMAP A12): (a) the df64
+   primitives and the compensated ``_connect_force`` on the card at
+   16,384 envs x 4 agents against the same functions on the CPU (at most
+   ``DF64_ULPS`` f32 ulps apart), the force in tests/test_compensated.py's
+   two regimes against an f64 evaluation of the same f32 positions (below
+   ``COMP_TRUTH_REL`` of the force, the plain f32 force ``COMP_GAIN`` times
+   worse or more), each call timed; (b) the six golden traces replayed on
+   the card in f64 through ``compat.compare`` at tests/test_env_parity.py's
+   tolerances (``GOLDEN_TOLS``); (c) an env step's device kernels with the
+   df64 force on and off and in f64, then the three connectivity-force
+   arms (``PRECISION_RUNS``: the connect variant plain, with
+   ``--compensated-forces true`` and with ``--env-dtype float64``) trained
+   through ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and 1,024
+   (1): K1 once an iteration by the launch counts and, at 16 envs, by the
+   profiler, every env tensor on the card (``EnvWatch``) and in f64 for
+   the f64 arm, the iteration times printed; (d) one deterministic f64-env
+   rollout (16 envs, 150 steps) on the card against the CPU from the same
+   parameters within ``ROLLOUT_ATOL``;
+3. the column-blocked layout (``check_blocked``, ROADMAP B3 rest: hidden
+   widths past what a staged, chunked or depth tile holds): the row-tile
+   plans (``BLOCKED_PLANS``); the layout bit for bit against the staged
+   and depth layouts at ``BLOCKED_BITS`` (512, 800 with a partial last
+   column pass, 1,024) on 16-, 32- and 64-row tiles, the default rows and
+   the 20-UAV preset's 4,840-wide critic rows; at ``BLOCKED_CHECKS``
+   (1,152, 2,048, 4,096) the layout's chunked K2b, K4u and K4 (with the
+   layer-0 tail) on 2,400 of those rows, as the preset's runs take them,
+   and K2 at 4,096 on the preset's rows and chunked on the 300-PoI swarm's
+   6,040-wide ones; each kernel forced into it on the default rows at 16
+   envs (K2, K2b, K3 / K4, K3u / K4u, the layer-0 input backward with dx),
+   relu under the mask rule (timed) and tanh, K4 and K4u under the
+   value-flip rule; every bf16 check with the kernel in f32 (or, on the
+   4,840-wide rows, the plain version in f32) outside its bound; at
+   ``BLOCKED_TIMED`` the main path's shapes at ``BLOCKED_ENVS`` envs,
+   timed; its ``BLOCKED_RUNS`` through the entry point, in phase 2 (2 iterations at
+   hidden 2,048 and 256 envs folded, unfolded and with the fused loss off;
+   4,096; the 20-UAV preset at 2,048 and at 4,800 unfolded);
+4. hold K1 (GAE) against its plain version through ``compute_gae_cuda`` on
    (T, E, 1) tensors, as the main path calls it, at T = 150 and 16, 16,384
    and 16,387 envs, and at (T, E) = (1, 16), (5, 3), (151, 17), (150,
    1,024) (the 20-UAV run's), and at
@@ -66,10 +144,11 @@ Phases (any failure exits non-zero):
    backward on the actor's rows and on the critic's 153,600 x 6,040;
    each row with its kernels' ptxas
    registers and spills. Then ROADMAP B3's hidden widths
-   (``check_wide_hidden``: 100, off multiples of 8, and 264 to 1,024, in
+   (``check_wide_hidden``: 100, off multiples of 8, 300 and 1,024, in
    column passes of 256): every kernel at 16 envs, f32 and bf16, on the
    three trunks; the chunked layouts at 512; at 512 and 1,024 the main
-   path's shapes at 1,024 envs, timed, with ptxas registers and spills.
+   path's shapes at 1,024 envs (timed at 512), with ptxas registers and
+   spills.
    Biases and
    LN affines are moved off their init values so that every bf16 bias add
    rounds. Each bf16 check also runs the kernel in f32 on the same inputs
@@ -79,15 +158,16 @@ Phases (any failure exits non-zero):
    writes its relu masks, each that differs from the plain version's must
    lie within what a one-bf16-step change of the layer's input moves, and
    the plain version then runs on the kernel's masks. Times: CUDA events
-   around a run of 30 back-to-back launches (fewer, down to 3, when one
-   launch takes over 5 ms), divided by the count; K2 is fed parameters
+   around a run of 30 back-to-back launches (fewer where they would take
+   over ``TIMED_MS``: down to 5, and to 3 past 50 ms a launch), divided
+   by the count; K2 is fed parameters
    packed beforehand, as the rollout packs them once per parameter version
    (``MLPBase.packed_params``), while K3 / K4 and K2b pack inside the
    window, as their wrappers do every epoch. The wrapper's host time per
-   call (``time.perf_counter`` over 30 calls, no synchronisation between
-   them) is printed beside it, and for K2 also that of the rollout's call
+   call (``time.perf_counter`` over as many calls, no synchronisation
+   between them) is printed beside it, and for K2 also that of the rollout's call
    through ``MLPBase.forward``;
-4. hold the updates of ``UPDATE_CHECKS`` on the card against the same
+5. hold the updates of ``UPDATE_CHECKS`` on the card against the same
    update on the CPU (plain versions) from identical parameters,
    trajectory and minibatch permutations: fused f32 (K3 / K4), recurrent
    bf16 (K2 / K2b; its reading also with K2's forward through its plain
@@ -104,41 +184,8 @@ Phases (any failure exits non-zero):
    from the same parameters and rows: every parameter tensor of the four
    networks and both losses within ``MADDPG_PARAM_RTOL`` /
    ``MADDPG_LOSS_RTOL`` relative;
-5. train through ``dcc_tpu_torch.train.main`` the ``TRAIN_RUNS``: 2
-   iterations each of the default f32 config, the bf16 config, the
-   recurrent bf16 config, bf16 with 4 minibatches, bf16 unfolded with
-   PopArt and recurrent bf16 with 2 minibatches, and 1 of recurrent f32,
-   bf16 with the fused loss off and f32 with 4 update chunks and remat,
-   one bf16 iteration per non-Gaussian head (K2 and K2b), one f32
-   iteration of each one-card preset as written and one bf16 iteration of
-   5uav_dense_conn and 10uav_moving_collision (K2, K3, K4 at their widths;
-   the 10-UAV preset's randomized and moving PoIs and collision penalty on
-   the card); 2 iterations of separated per-agent f32 policies and 1 each
-   in bf16 and recurrent f32 with 2 minibatches, which launch K1 only;
-   one iteration of the 20-UAV preset as written but for its envs (1,024
-   of 16,384; bf16, eval 0: K2 on 242- and 4,840-wide rows, K3 15 times,
-   K4 15 times with its dV0 kernel 15 times), and the same with the fused
-   loss off (K2 541 times, with remat; K2b 60 times staged on the actor's
-   rows and 60 chunked on the critic's, each chunked launch followed by the
-   layer-0 input backward and dV0), unfolded (K3u 15, K4u chunked 15, the
-   layer-0 input backward and dV0 15 each) and recurrent at 64 envs without
-   update chunks (K2b 15 staged and 15 chunked, the other two 15 each);
-   B3's hidden widths at 16 envs, one bf16 iteration each (512 folded,
-   unfolded and with the fused loss off, 100 unfolded, 1,024 with the
-   fused loss off, recurrent at 300) and the 20-UAV preset at hidden 512
-   (1,024 envs: K3 on 3,072,000 x 242 x 512, K4 chunked with dV0 on
-   153,600 x 4,840 x 512);
-   one bf16 iteration each of 4 UAVs x 300 PoIs at 1,024 envs
-   (``reduced``): folded (K2 150 staged on the actor's rows and 151
-   chunked on the critic's, ``fused_mlp_chunked``; K3 and K4 chunked 15
-   each, their dV0 15 each), unfolded (K3u and K4u chunked 15 each, the
-   layer-0 input backward and dV0 30 each) and with the fused loss off
-   (K2 165 + 166, K2b 15 staged and 15 chunked, the other two 15 each);
-   2 iterations each of MADDPG with ``maddpg.yaml`` and
-   ``maddpg_tuned.yaml`` on coverage and with ``maddpg.yaml`` on ``spread``
-   (``--scenario-name spread --num-landmarks 4``), each evaluated at its
-   second iteration, which launch no kernel of the port, and of bf16 MAPPO
-   on ``spread`` (K1, K2 301, K3 and K4 15 each on 18- and 72-wide rows);
+6. the runs of ``PROFILED`` (the bf16 config, MADDPG on coverage, the
+   20-UAV preset with the fused loss off and the 300-PoI swarm folded);
    then 2 bf16 iterations of ``scripts/run_torch_curve.py`` (the learning
    gate's runner; its file's schema, and K1-K4 as the bf16 path launches
    them); then the default command with render (the default YAMLs, 2
@@ -149,29 +196,10 @@ Phases (any failure exits non-zero):
    at all, every MAPPO run's K1 to have gone through ``GAE_ENTRY`` and every bf16
    run's K2, K2b, K3, K4, K3u and K4u launches to have gone through the
    tensor-core entry points (the 20-UAV run's K4 through
-   ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_wgmma``). After the runs
-   of ``PROFILED`` (among them the two MADDPG runs on coverage), one more
-   iteration under ``torch.profiler``: device time by kernel name, the
+   ``dcc_critic_grads_chunked_mma`` and ``dcc_dv0_wgmma``). After each
+   run of ``PROFILED``, one more iteration under ``torch.profiler``: device time by kernel name, the
    number of device kernels and the device's idle share over the
    iteration;
-6. the precision phase (``check_precision``, ROADMAP A12): (a) the df64
-   primitives and the compensated ``_connect_force`` on the card at
-   16,384 envs x 4 agents against the same functions on the CPU (at most
-   ``DF64_ULPS`` f32 ulps apart), the force in tests/test_compensated.py's
-   two regimes against an f64 evaluation of the same f32 positions (below
-   ``COMP_TRUTH_REL`` of the force, the plain f32 force ``COMP_GAIN`` times
-   worse or more), each call timed; (b) the six golden traces replayed on
-   the card in f64 through ``compat.compare`` at tests/test_env_parity.py's
-   tolerances (``GOLDEN_TOLS``); (c) an env step's device kernels with the
-   df64 force on and off and in f64, then the three connectivity-force
-   arms (``PRECISION_RUNS``: the connect variant plain, with
-   ``--compensated-forces true`` and with ``--env-dtype float64``) trained
-   through ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and 1,024
-   (1): K1 once an iteration by the launch counts and, at 16 envs, by the
-   profiler, every env tensor on the card (``EnvWatch``) and in f64 for
-   the f64 arm, the iteration times printed; (d) one deterministic f64-env
-   rollout (16 envs, 150 steps) on the card against the CPU from the same
-   parameters within ``ROLLOUT_ATOL``;
 7. the env axis over ranks (``check_mesh``, ROADMAP A13): a 1-rank NCCL
    mesh in this process, the default bf16 config at 16 envs, 3 iterations,
    bit for bit against the unsharded run; 2 gloo ranks spawned on card 0
@@ -191,10 +219,10 @@ Phases (any failure exits non-zero):
    only); K2, K2b, K3 / K4 and K3u / K4u in f32 and bf16 against their
    plain versions at 16 envs at 8, 9 and 32 layers, timed at 9 and 32;
    the chunked K2, K4, K2b and K4u on the 20-UAV preset's 4,840-wide
-   critic rows at 9 and 32 layers; then ``DEEP_RUNS`` through the entry
-   point (``--layer-N`` 8 and 31 folded, unfolded and with the fused loss
+   critic rows at 9 and 32 layers; its ``DEEP_RUNS`` through the entry
+   point, in phase 2 (``--layer-N`` 8 and 31 folded, unfolded and with the fused loss
    off; f32 with the fused kernels forced on at 8 and 9 layers; the 20-UAV
-   preset at 9 layers, 1,024 envs) with their launch counts and entries;
+   preset at 9 layers, 256 envs) with their launch counts and entries;
 9. print the ``{"kernels": [...]}`` line (``ms``: the CUDA event time of
    every kernel; ``device_ms``: K1's profiler device time, whose wrapper
    takes longer on the host than its kernel on the card, null for the
@@ -228,6 +256,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import sys
 import time
 
@@ -237,9 +266,13 @@ PEAK_FP32 = 67e12  # FP32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12  # bf16 tensor cores, dense, FLOP/s
 BIG_ENVS = 16384  # bench.py's headline env count
 # the 20-UAV preset (actor rows 242 wide, team-concat critic rows 4,840) at
-# 1,024 of its 16,384 envs: one card, the smoke's time
+# 1,024 of its 16,384 envs: one card, the smoke's time; the many-PoI swarms
+# too. The training runs of the wide configurations (the 20-UAV preset, the
+# many-PoI swarm, the connectivity-force arms) take RUN_ENVS (1,024 before
+# the column-blocked phase took its share of the 1,200 s)
 WIDE = "20uav_16k_dist"
 WIDE_ENVS = 1024
+RUN_ENVS = 256
 # the many-PoI swarms, no YAML of their own (``--num-pois``): the default
 # env (4 UAVs) with 300 PoIs, actor rows 1,510 wide (past the staged bf16
 # K3's 1,472 and K3u's 1,088 columns), critic rows 6,040 (past the staged
@@ -249,11 +282,22 @@ WIDE_ENVS = 1024
 POIS = "pois300"
 MANY_POIS = {POIS: (None, 300), "pois360": (None, 360), "20uav-pois50": (WIDE, 50)}
 # ROADMAP B3's hidden widths: each held at 16 envs (``check_wide_hidden``),
-# past one column pass (264 .. 1,024) and off multiples of 8 (100); the main
-# path's shapes at 1,024 envs timed at 512 and 1,024; the {"kernels": [...]}
-# line's rows at ``HIDDEN_ROW`` wide (names with the suffix ``_h512``)
-HIDDEN_CHECKS = (100, 264, 300, 512, 1024)
+# past one column pass (300, 1,024) and off multiples of 8 (100); the main
+# path's shapes at HIDDEN_ENVS envs at 512 and 1,024, timed at ``HIDDEN_ROW``
+# only (the {"kernels": [...]} line's rows, names with the suffix ``_h512``;
+# 1,024's readings only, for the smoke's time)
+HIDDEN_CHECKS = (100, 300, 1024)
 HIDDEN_TIMED = (512, 1024)
+HIDDEN_ENVS = 1024  # the env count of the HIDDEN_TIMED shapes
+# ROADMAP B3 rest, the column-blocked layout (``check_blocked``): each kernel
+# in it at these hidden widths at 16 envs; the main path's shapes at
+# BLOCKED_TIMED wide and BLOCKED_ENVS envs, timed; the widths of its
+# bit-for-bit checks against the staged and depth layouts; the
+# {"kernels": [...]} line's rows, names with the suffix ``_blocked_h<H>``
+BLOCKED_CHECKS = (1152, 2048, 4096)
+BLOCKED_TIMED = 2048
+BLOCKED_ENVS = 256
+BLOCKED_BITS = (512, 800, 1024)
 HIDDEN_ROW = 512
 # the trunks' layers the deep phase holds every kernel at (16 envs), and
 # those whose bf16 rows it times for the {"kernels": [...]} line
@@ -379,10 +423,11 @@ SOURCES.update({f"{k}_h{HIDDEN_ROW}": SOURCES[k] for k in (
 # rows); the chunked K2 counts under fused_mlp_chunked, K3 and K3u under
 # their own names, the time and bound of K3 both launches', K3u's three;
 # K3's dV0 alone, actor_ppo_grads_dv0.
-# The rows at hidden 512: the main path's shapes at WIDE_ENVS envs (K2 on a
+# The rows at hidden 512: the main path's shapes at HIDDEN_ENVS envs (K2 on a
 # rollout step's 1,024 x 440 critic rows, 614,400 x 110 and 153,600 x 440
 # for K3 / K4 and K3u / K4u; K4's chunked kernel and dV0 on the 20-UAV
-# preset's 153,600 x 4,840), K2b at 16 envs (9,600 x 110, the run's).
+# preset's 153,600 x 4,840), K2b on the 153,600 x 110 rows of an update
+# chunk at HIDDEN_ENVS (its 16-env rows are at HIDDEN_CHECKS only).
 # Entries: (kernel, envs, preset[, hidden[, text the row's shape holds]]).
 KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
               "critic_ppo_grads_dv0": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE),
@@ -395,14 +440,16 @@ KERNEL_ROW = {"critic_ppo_grads_chunked": ("critic_ppo_grads", WIDE_ENVS, WIDE),
               "actor_ppo_grads_chunked": ("actor_ppo_grads", WIDE_ENVS, POIS),
               "actor_ppo_grads_unfolded_chunked": ("actor_ppo_grads_unfolded", WIDE_ENVS, POIS),
               "actor_ppo_grads_dv0": ("actor_ppo_grads_dv0", WIDE_ENVS, POIS),
-              **{f"{k}_h{HIDDEN_ROW}": (k, WIDE_ENVS, None, HIDDEN_ROW) for k in (
+              **{f"{k}_h{HIDDEN_ROW}": (k, HIDDEN_ENVS, None, HIDDEN_ROW) for k in (
                   "actor_ppo_grads", "critic_ppo_grads", "actor_ppo_grads_unfolded",
                   "critic_ppo_grads_unfolded")},
-              f"fused_mlp_h{HIDDEN_ROW}": ("fused_mlp", WIDE_ENVS, None, HIDDEN_ROW, "d_in=440"),
-              f"fused_mlp_bwd_h{HIDDEN_ROW}": ("fused_mlp_bwd", 16, None, HIDDEN_ROW),
-              f"critic_ppo_grads_chunked_h{HIDDEN_ROW}": ("critic_ppo_grads", WIDE_ENVS, WIDE,
+              f"fused_mlp_h{HIDDEN_ROW}": ("fused_mlp", HIDDEN_ENVS, None, HIDDEN_ROW,
+                                           "d_in=440"),
+              f"fused_mlp_bwd_h{HIDDEN_ROW}": ("fused_mlp_bwd", HIDDEN_ENVS // 4, None,
+                                               HIDDEN_ROW),
+              f"critic_ppo_grads_chunked_h{HIDDEN_ROW}": ("critic_ppo_grads", HIDDEN_ENVS, WIDE,
                                                          HIDDEN_ROW),
-              f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": ("critic_ppo_grads_dv0", WIDE_ENVS, WIDE,
+              f"critic_ppo_grads_dv0_h{HIDDEN_ROW}": ("critic_ppo_grads_dv0", HIDDEN_ENVS, WIDE,
                                                      HIDDEN_ROW)}
 # the deep phase's rows (``check_deep``), names with the suffix _L9 or _L32:
 # each bf16 kernel at 16 envs (K2 on the actor's 64 rows, K2b on the
@@ -413,11 +460,45 @@ for _L in DEEP_TIMED:
         REPLACES[f"{_k}_L{_L}"] = REPLACES[_k]
         SOURCES[f"{_k}_L{_L}"] = SOURCES[_k]
         KERNEL_ROW[f"{_k}_L{_L}"] = (_k, 16, None, 256, f" L={_L}")
+# the column-blocked phase's rows (``check_blocked``), names with the suffix
+# _blocked_h<H>: each bf16 kernel in the column-blocked layout at 16 envs at
+# each of BLOCKED_CHECKS (K2 on the actor's 64 rows, K2b on its 9,600 x 110,
+# K3 / K3u on 9,600 x 110, K4 / K4u on 2,400 x 440, the layer-0 input
+# backward with dx on 2,400 x 4,840), and _blocked_h<H>_e<envs> at the main
+# path's shapes (K2 on a rollout step's critic rows, K2b on the 153,600 x
+# 110 rows of an update, K3 / K3u on 153,600 x 110, K4 / K4u on 38,400 x
+# 440); the same JAX sites, their blocked sources
+BLOCKED_KERNELS = DEEP_KERNELS + ("layer0_input_bwd",)
+BLOCKED_SOURCE = {"fused_mlp": "dcc_tpu_torch/csrc/fused_mlp_blocked.cu",
+                  "fused_mlp_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd_blocked.cu",
+                  "layer0_input_bwd": "dcc_tpu_torch/csrc/fused_mlp_bwd_blocked.cu"}
+for _H in BLOCKED_CHECKS:
+    for _k in BLOCKED_KERNELS:
+        _name = f"{_k}_blocked_h{_H}"
+        REPLACES[_name] = REPLACES[_k]
+        SOURCES[_name] = BLOCKED_SOURCE.get(_k, "dcc_tpu_torch/csrc/fused_ppo_blocked.cu")
+        KERNEL_ROW[_name] = (f"{_k}_blocked", 16, WIDE if _k == "layer0_input_bwd" else None,
+                             _H)
+# the layout's chunked K4 and K4u on 2,400 of the 20-UAV preset's
+# 4,840-wide critic rows at BLOCKED_TIMED (16 envs; time and bound with
+# the layer-0 tail's launches), as the preset's runs launch them
+for _k in ("critic_ppo_grads", "critic_ppo_grads_unfolded"):
+    _name = f"{_k}_chunked_blocked_h{BLOCKED_TIMED}"
+    REPLACES[_name] = REPLACES[_k]
+    SOURCES[_name] = "dcc_tpu_torch/csrc/fused_ppo_blocked.cu"
+    KERNEL_ROW[_name] = (f"{_k}_blocked", 16, WIDE, BLOCKED_TIMED)
+for _k in DEEP_KERNELS:
+    _name = f"{_k}_blocked_h{BLOCKED_TIMED}_e{BLOCKED_ENVS}"
+    REPLACES[_name] = REPLACES[_k]
+    SOURCES[_name] = BLOCKED_SOURCE.get(_k, "dcc_tpu_torch/csrc/fused_ppo_blocked.cu")
+    KERNEL_ROW[_name] = (f"{_k}_blocked", BLOCKED_ENVS, None, BLOCKED_TIMED,
+                         "d_in=440" if _k == "fused_mlp" else "")
 # the training runs of phase 5: (tag, arguments beyond BASE_ARGS, launches
 # per iteration of each kernel; every other kernel must not launch)
-BASE_ARGS = ["--n-iters", "2", "--save-gifs", "false", "--save-model", "false",
+BASE_ARGS = ["--n-iters", "1", "--save-gifs", "false", "--save-model", "false",
              "--n-eval-rollout-threads", "0", "--seed", "0"]
 BF16 = ["--compute-dtype", "bfloat16"]
+TWO_ITERS = ["--n-iters", "2"]
 RECURRENT = ["--use-recurrent-policy", "true"]
 SEPARATED = ["--use-separated-policy", "true"]
 HEAD_MODES = ("discrete", "multi_discrete", "multi_binary", "mixed")
@@ -425,9 +506,9 @@ BF16_PRESETS = ("5uav_dense_conn", "10uav_moving_collision")
 
 
 # the many-PoI swarm's runs: the default env with 300 PoIs, one iteration at
-# 1,024 envs; what each cuts of its scale, kept with its results
-POIS_ARGS = ["--num-pois", "300", "--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1"]
-POIS_REDUCED = {"n_rollout_threads": f"{WIDE_ENVS} of bench.py's headline {BIG_ENVS} envs "
+# 256 envs; what each cuts of its scale, kept with its results
+POIS_ARGS = ["--num-pois", "300", "--n-rollout-threads", str(RUN_ENVS), "--n-iters", "1"]
+POIS_REDUCED = {"n_rollout_threads": f"{RUN_ENVS} of bench.py's headline {BIG_ENVS} envs "
                                      f"(one card, the smoke's time)",
                 "n_iters": "1 iteration"}
 
@@ -450,14 +531,17 @@ def algo_yaml(name: str) -> list:
 
 
 # MADDPG's runs evaluate once, at their last iteration
-MADDPG_ARGS = ["--n-eval-rollout-threads", "16", "--eval-interval", "2"]
+MADDPG_ARGS = ["--n-eval-rollout-threads", "16", "--eval-interval", "2", "--n-iters", "2"]
 SPREAD = ["--scenario-name", "spread", "--num-landmarks", "4"]
 
 TRAIN_RUNS = (
     ("f32", [], {"gae": 1}),
-    ("bf16", BF16, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
-                    "critic_ppo_grads": 15}),
-    ("recurrent-bf16", BF16 + RECURRENT, {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
+    # 2 iterations for each fused path (folded, unfolded and the fused loss
+    # off): the second rolls out on parameters packed after an update
+    ("bf16", BF16 + TWO_ITERS, {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
+                                "critic_ppo_grads": 15}),
+    ("recurrent-bf16", BF16 + RECURRENT + TWO_ITERS,
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
     ("recurrent-f32", RECURRENT + ["--n-iters", "1"], {"gae": 1}),
     ("bf16-fused-loss-off", BF16 + ["--fused-loss", "off", "--n-iters", "1"],
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
@@ -465,8 +549,8 @@ TRAIN_RUNS = (
     ("bf16-nmb4", BF16 + ["--num-mini-batch", "4"],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 60, "critic_ppo_grads": 60}),
     # the unfolded kernels K3u / K4u, with PopArt's head rescale each epoch
-    ("bf16-unfolded-popart", BF16 + ["--fused-fold", "false", "--use-popart", "true",
-                                     "--use-valuenorm", "false"],
+    ("bf16-unfolded-popart", BF16 + TWO_ITERS + ["--fused-fold", "false", "--use-popart",
+                                                 "true", "--use-valuenorm", "false"],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
       "critic_ppo_grads_unfolded": 15}),
     # chunk minibatches: K2 and K2b once per network and minibatch
@@ -494,25 +578,25 @@ TRAIN_RUNS = (
     ("separated-recurrent-f32-nmb2", SEPARATED + RECURRENT + ["--num-mini-batch", "2",
                                                               "--n-iters", "1"], {"gae": 1}),
     # the 20-UAV preset as written but for its envs: bf16, K2 on 242- and
-    # 4,840-wide rows, K3 on 3,072,000 x 242, K4 through its chunked layer 0
-    # and the dV0 kernel on 153,600 x 4,840; update_chunks 4 and remat take
+    # 4,840-wide rows, K3 on 768,000 x 242, K4 through its chunked layer 0
+    # and the dV0 kernel on 38,400 x 4,840; update_chunks 4 and remat take
     # no part in the fused update
-    (f"preset-{WIDE}", preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS),
+    (f"preset-{WIDE}", preset_args(WIDE) + ["--n-rollout-threads", str(RUN_ENVS),
                                             "--n-iters", "1"],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
       "critic_ppo_grads_dv0": 15}),
     # the same with the fused loss off: autograd through K2 and K2b over 4
     # update chunks with remat (the forwards run twice), the actor's
-    # 768,000 x 242 rows through the staged K2b, the critic's 38,400 x 4,840
+    # 192,000 x 242 rows through the staged K2b, the critic's 9,600 x 4,840
     # through the chunked K2b, the layer-0 input backward and dV0
     (f"preset-{WIDE}-fused-loss-off",
-     preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1",
+     preset_args(WIDE) + ["--n-rollout-threads", str(RUN_ENVS), "--n-iters", "1",
                           "--fused-loss", "off"],
      {"gae": 1, "fused_mlp": 541, "fused_mlp_bwd": 60, "fused_mlp_bwd_chunked": 60,
       "layer0_input_bwd": 60, "dv0_unfolded": 60}),
-    # unfolded: K3u on 3,072,000 x 242, K4u chunked on 153,600 x 4,840
+    # unfolded: K3u on 768,000 x 242, K4u chunked on 38,400 x 4,840
     (f"preset-{WIDE}-unfolded",
-     preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS), "--n-iters", "1",
+     preset_args(WIDE) + ["--n-rollout-threads", str(RUN_ENVS), "--n-iters", "1",
                           "--fused-fold", "false"],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded": 15,
       "critic_ppo_grads_unfolded": 15, "layer0_input_bwd": 15, "dv0_unfolded": 15}),
@@ -524,9 +608,9 @@ TRAIN_RUNS = (
                           "--use-recurrent-policy", "true", "--update-chunks", "1"],
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 15, "fused_mlp_bwd_chunked": 15,
       "layer0_input_bwd": 15, "dv0_unfolded": 15}),
-    # the many-PoI swarm (4 UAVs, 300 PoIs) in bf16 at 1,024 envs: K2 on the
+    # the many-PoI swarm (4 UAVs, 300 PoIs) in bf16 at 256 envs: K2 on the
     # 1,510-wide actor rows staged (150), on the 6,040-wide critic rows
-    # chunked (151); K3 and K4 chunked on 614,400 x 1,510 and 153,600 x
+    # chunked (151); K3 and K4 chunked on 153,600 x 1,510 and 38,400 x
     # 6,040, each with its dV0
     (f"{POIS}-bf16", BF16 + POIS_ARGS,
      {"gae": 1, "fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads": 15,
@@ -559,10 +643,10 @@ TRAIN_RUNS = (
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
     ("recurrent-bf16-h300", BF16 + RECURRENT + hidden_args(300),
      {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd": 30}),
-    # the 20-UAV preset at hidden 512, 1,024 envs: K3 staged on 3,072,000 x
-    # 242 x 512, K4 chunked with dV0 on 153,600 x 4,840 x 512
+    # the 20-UAV preset at hidden 512, 256 envs: K3 staged on 768,000 x
+    # 242 x 512, K4 chunked with dV0 on 38,400 x 4,840 x 512
     (f"preset-{WIDE}-h512", preset_args(WIDE) + hidden_args(512)
-     + ["--n-rollout-threads", str(WIDE_ENVS)],
+     + ["--n-rollout-threads", str(RUN_ENVS)],
      {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15,
       "critic_ppo_grads_dv0": 15}),
     # MADDPG (batched torch products over agent-stacked parameters, no
@@ -608,9 +692,41 @@ DEEP_RUNS = (
      UNFOLDED_LAUNCHES),
     *((f"f32-L{n + 1}-fused-loss-off", ["--fused-trunk", "on"] + depth_args(n)
        + ["--fused-loss", "off"], LOSS_OFF_LAUNCHES) for n in (7, 8)),
-    (f"preset-{WIDE}-L9", preset_args(WIDE) + ["--n-rollout-threads", str(WIDE_ENVS)]
+    (f"preset-{WIDE}-L9", preset_args(WIDE) + ["--n-rollout-threads", str(RUN_ENVS)]
      + depth_args(8), {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15,
                        "critic_ppo_grads": 15, "critic_ppo_grads_dv0": 15}),
+)
+# the column-blocked phase's runs (``check_blocked``): bf16 at hidden
+# BLOCKED_TIMED, 2 iterations at BLOCKED_ENVS envs, folded, unfolded and with
+# the fused loss off (every gradient kernel in the column-blocked layout, K2
+# staged); hidden 4,096, one iteration at 16 envs (K2 too); the 20-UAV
+# preset at BLOCKED_TIMED (K3 column-blocked, K4's chunked column-blocked
+# kernel and dV0, K2 staged and chunked) and at 4,800 unfolded (K2 and K3u
+# column-blocked, K4u chunked column-blocked, the layer-0 input backward's
+# column-blocked build, dV0), one iteration at 16 envs each
+BLOCKED_ARGS = BF16 + ["--algo-hidden-size", str(BLOCKED_TIMED), "--n-rollout-threads",
+                       str(BLOCKED_ENVS), "--n-iters", "2"]
+BLOCKED_RUNS = (
+    (f"bf16-h{BLOCKED_TIMED}", BLOCKED_ARGS,
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_blocked": 15,
+      "critic_ppo_grads_blocked": 15}),
+    (f"bf16-h{BLOCKED_TIMED}-unfolded", BLOCKED_ARGS + ["--fused-fold", "false"],
+     {"gae": 1, "fused_mlp": 301, "actor_ppo_grads_unfolded_blocked": 15,
+      "critic_ppo_grads_unfolded_blocked": 15}),
+    (f"bf16-h{BLOCKED_TIMED}-fused-loss-off", BLOCKED_ARGS + ["--fused-loss", "off"],
+     {"gae": 1, "fused_mlp": 331, "fused_mlp_bwd_blocked": 30}),
+    ("bf16-h4096", BF16 + hidden_args(4096),
+     {"gae": 1, "fused_mlp_blocked": 301, "actor_ppo_grads_blocked": 15,
+      "critic_ppo_grads_blocked": 15}),
+    (f"preset-{WIDE}-h{BLOCKED_TIMED}", preset_args(WIDE) + hidden_args(BLOCKED_TIMED)
+     + ["--n-rollout-threads", "16"],
+     {"gae": 1, "fused_mlp": 150, "fused_mlp_chunked": 151, "actor_ppo_grads_blocked": 15,
+      "critic_ppo_grads_blocked": 15, "critic_ppo_grads_dv0": 15}),
+    (f"preset-{WIDE}-h4800-unfolded", preset_args(WIDE) + hidden_args(4800)
+     + ["--n-rollout-threads", "16", "--fused-fold", "false"],
+     {"gae": 1, "fused_mlp_blocked": 301, "actor_ppo_grads_unfolded_blocked": 15,
+      "critic_ppo_grads_unfolded_blocked": 15, "layer0_input_bwd_blocked": 15,
+      "dv0_unfolded": 15}),
 )
 # the run whose launches the {"kernels": [...]} line reports for each kernel
 MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
@@ -637,7 +753,19 @@ MAIN_RUN = {"gae": "bf16", "fused_mlp": "bf16", "actor_ppo_grads": "bf16",
                for k in ("fused_mlp", "actor_ppo_grads", "critic_ppo_grads")},
             **{f"fused_mlp_bwd_L{L}": f"bf16-L{L}-fused-loss-off" for L in DEEP_TIMED},
             **{f"{k}_L{L}": f"bf16-L{L}-unfolded" for L in DEEP_TIMED
-               for k in ("actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")}}
+               for k in ("actor_ppo_grads_unfolded", "critic_ppo_grads_unfolded")},
+            **{f"{k}_blocked_h{H}{e}": run for H in BLOCKED_CHECKS
+               for e in ("", f"_e{BLOCKED_ENVS}") for k, run in (
+                   ("fused_mlp", "bf16-h4096"),
+                   ("fused_mlp_bwd", f"bf16-h{BLOCKED_TIMED}-fused-loss-off"),
+                   ("actor_ppo_grads", f"bf16-h{BLOCKED_TIMED}"),
+                   ("critic_ppo_grads", f"bf16-h{BLOCKED_TIMED}"),
+                   ("actor_ppo_grads_unfolded", f"bf16-h{BLOCKED_TIMED}-unfolded"),
+                   ("critic_ppo_grads_unfolded", f"bf16-h{BLOCKED_TIMED}-unfolded"),
+                   ("layer0_input_bwd", f"preset-{WIDE}-h4800-unfolded"))},
+            f"critic_ppo_grads_chunked_blocked_h{BLOCKED_TIMED}": f"preset-{WIDE}-h{BLOCKED_TIMED}",
+            f"critic_ppo_grads_unfolded_chunked_blocked_h{BLOCKED_TIMED}":
+                f"preset-{WIDE}-h4800-unfolded"}
 # the C entry point each bf16 run's kernels must go through (and every
 # run's K1, GAE_ENTRY)
 _TRUNK_MMA = {"fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_bwd": "dcc_trunk_bwd_mma"}
@@ -704,6 +832,30 @@ MMA_ENTRY = {
                                     "fused_mlp_bwd": "dcc_trunk_bwd"} for L in (8, 9)},
     f"preset-{WIDE}-L9": {**_FOLDED_MMA, "critic_ppo_grads": "dcc_critic_grads_chunked_mma",
                           "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
+    # the column-blocked phase's runs (their launches count under *_blocked)
+    f"bf16-h{BLOCKED_TIMED}": {"fused_mlp": "dcc_trunk_fwd_mma",
+                               "actor_ppo_grads_blocked": "dcc_actor_grads_mma",
+                               "critic_ppo_grads_blocked": "dcc_critic_grads_mma"},
+    f"bf16-h{BLOCKED_TIMED}-unfolded": {
+        "fused_mlp": "dcc_trunk_fwd_mma",
+        "actor_ppo_grads_unfolded_blocked": "dcc_actor_grads_unfolded_mma",
+        "critic_ppo_grads_unfolded_blocked": "dcc_critic_grads_unfolded_mma"},
+    f"bf16-h{BLOCKED_TIMED}-fused-loss-off": {"fused_mlp": "dcc_trunk_fwd_mma",
+                                              "fused_mlp_bwd_blocked": "dcc_trunk_bwd_mma"},
+    "bf16-h4096": {"fused_mlp_blocked": "dcc_trunk_fwd_mma",
+                   "actor_ppo_grads_blocked": "dcc_actor_grads_mma",
+                   "critic_ppo_grads_blocked": "dcc_critic_grads_mma"},
+    f"preset-{WIDE}-h{BLOCKED_TIMED}": {
+        "fused_mlp": "dcc_trunk_fwd_mma", "fused_mlp_chunked": "dcc_trunk_fwd_chunked_mma",
+        "actor_ppo_grads_blocked": "dcc_actor_grads_mma",
+        "critic_ppo_grads_blocked": "dcc_critic_grads_chunked_mma",
+        "critic_ppo_grads_dv0": "dcc_dv0_wgmma"},
+    f"preset-{WIDE}-h4800-unfolded": {
+        "fused_mlp_blocked": "dcc_trunk_fwd_mma",
+        "actor_ppo_grads_unfolded_blocked": "dcc_actor_grads_unfolded_mma",
+        "critic_ppo_grads_unfolded_blocked": "dcc_critic_grads_unfolded_chunked_mma",
+        "layer0_input_bwd_blocked": "dcc_layer0_input_bwd_mma",
+        "dv0_unfolded": "dcc_dv0_wgmma"},
 }
 # the tensor-core kernels and the libraries whose SASS holds them
 MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_kernel",
@@ -715,13 +867,28 @@ MMA_KERNELS = ("trunk_fwd_mma_kernel", "trunk_bwd_mma_kernel", "actor_grads_mma_
                "trunk_fwd_chunked_mma_kernel", "actor_grads_chunked_mma_kernel",
                "actor_grads_unfolded_chunked_mma_kernel")
 MMA_LIBS = ("fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide", "fused_mlp_bwd_wide",
-            "fused_ppo_wide", "layer0_tail")
+            "fused_ppo_wide", "fused_mlp_blocked", "fused_mlp_bwd_blocked", "fused_ppo_blocked",
+            "layer0_tail")
 WIDE_TAG = " [wide]"  # a kernel of a ``*_wide`` library (its layers in column passes)
+BLOCKED_TAG = " [blocked]"  # a kernel of a ``*_blocked`` library (the column-blocked layout)
+
+
+def lib_tag(lib: str) -> str:
+    """The tag of a library's kernel names in the ptxas and SASS reports."""
+    return WIDE_TAG if lib.endswith("_wide") else BLOCKED_TAG if lib.endswith("_blocked") else ""
 # the runs followed by one profiled iteration
-PROFILED = ("bf16", "recurrent-bf16", "bf16-nmb4", "bf16-unfolded-popart",
-            f"preset-{WIDE}-fused-loss-off", f"preset-{WIDE}-unfolded", f"{POIS}-bf16",
-            f"{POIS}-bf16-unfolded", f"{POIS}-bf16-fused-loss-off", "maddpg", "maddpg-tuned")
-N_TIMED = 30  # launches between the two CUDA events of a timing
+PROFILED = ("bf16", "maddpg", f"preset-{WIDE}-fused-loss-off", f"{POIS}-bf16")
+# launches between the two CUDA events of a timing, fewer where they would
+# take over TIMED_MS (down to 5, and to 3 for launches past 50 ms)
+N_TIMED = 30
+TIMED_MS = 25.0
+# the value-flip rule's probes in flight at once (``probe_streams``), and
+# their streams, made on first use
+PROBE_STREAMS = 32
+_PROBE_STREAMS: list = []
+# the clock of the last row ``record`` kept: each row prints (and keeps as
+# ``check_s``) the seconds since the one before, its check and timing
+_ROW_CLOCK = [time.perf_counter()]
 
 
 class SmokeFailure(Exception):
@@ -738,8 +905,8 @@ def card_line() -> str:
 
 def time_ms(fn, n: int = N_TIMED):
     """Device ms per call: CUDA events around ``n`` back-to-back calls after
-    a warm-up call (fewer, down to 3, when one call takes over 5 ms).
-    Returns (ms, calls timed)."""
+    a warm-up call (fewer where they would take over ``TIMED_MS``: down to
+    5, and to 3 past 50 ms a call). Returns (ms, calls timed)."""
     import torch
 
     def window(k):
@@ -755,9 +922,15 @@ def time_ms(fn, n: int = N_TIMED):
     fn()
     torch.cuda.synchronize()
     one = window(1)
-    if one > 5.0:
-        n = max(3, min(n, int(250.0 / one)))
+    n = max(3 if one > 50.0 else 5, min(n, int(TIMED_MS / one)))
     return window(n), n
+
+
+def timed_for(timed, label: str) -> bool:
+    """Whether a check of the trunk variant ``label`` is timed: ``timed``
+    True or False, or the labels of the variants to time (the others'
+    readings only)."""
+    return timed if isinstance(timed, bool) else label in timed
 
 
 def host_us(fn, n: int = N_TIMED) -> float:
@@ -900,60 +1073,117 @@ def clip_kink_rows(feat, aux, hw, hb, log_std, clip=0.2):
                         for b in (-clip, clip)]).any(dim=0)
 
 
-def value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu, masks=None) -> dict:
+def probe_streams(calls, device) -> list:
+    """Run each of ``calls`` (a kernel launch through its wrapper, returning
+    a tensor it owns) on a stream of its own, ``PROBE_STREAMS`` at a time,
+    each stream with its own depth / column-blocked scratch (the wrappers
+    take ``ops.cuda_build.deep_scratch``'s one buffer a device, which
+    launches in flight at once must not share); returns their results once
+    the card is done with them. The probes of ``value_flip_rows`` each run
+    one or a few row tiles, so that run one after another they leave the
+    card all but idle for most of a check at hidden 4,096."""
+    import torch
+
+    from dcc_tpu_torch.ops import cuda_build as cb
+
+    key, main = str(device), torch.cuda.current_stream(device)
+    while len(_PROBE_STREAMS) < PROBE_STREAMS:
+        _PROBE_STREAMS.append(torch.cuda.Stream(device))
+    own = cb._SCRATCH.pop(key, None)
+    scratch, out = {}, []
+    try:
+        for i in range(0, len(calls), PROBE_STREAMS):
+            batch = []
+            for s, call in zip(_PROBE_STREAMS, calls[i:i + PROBE_STREAMS]):
+                s.wait_stream(main)
+                cb._SCRATCH.pop(key, None)
+                if s in scratch:
+                    cb._SCRATCH[key] = scratch[s]
+                with torch.cuda.stream(s):
+                    batch.append(call())
+                if key in cb._SCRATCH:
+                    scratch[s] = cb._SCRATCH[key]
+            torch.cuda.synchronize(device)
+            out += batch
+    finally:
+        cb._SCRATCH.pop(key, None)
+        if own is not None:
+            cb._SCRATCH[key] = own
+        del scratch
+        torch.cuda.empty_cache()
+    return out
+
+
+def value_flip_rows(x, aux, params, hw, hb, n_layers, use_fn, use_relu, masks=None,
+                    folded: bool = False) -> dict:
     """{row: (steps, feature gap)} of the rows with valid != 0 whose value
-    in bf16 K4u is not the plain version's (tests/test_torch_cuda.py's
-    ``_value_flip_rows``): found by probing the kernel with the unclipped
-    squared loss against the plain values, weighted so that a row's loss is
-    its squared step count, and bisecting; each must owe its value to
-    features within bf16's epsilon (2^-7) of the plain version's in norm,
-    read back from the kernel (dwv of a saturated one-sided Huber), else
-    the phase fails. The deep checks give these rows valid = 0."""
+    in bf16 K4u (``folded``: K4, ``params`` its folded [V, u] list and
+    ``hw``, ``hb`` its folded head) is not the plain version's
+    (tests/test_torch_cuda.py's ``_value_flip_rows``): found by probing the
+    kernel with the unclipped squared loss against the plain values,
+    weighted so that a row's loss is its squared step count, and bisecting
+    (the probes of one level of the bisection at once, ``probe_streams``);
+    each must owe its value to features within bf16's epsilon (2^-7) of the
+    plain version's in norm, read back from the kernel (dwv of a saturated
+    one-sided Huber), else the phase fails. The deep checks give these rows
+    valid = 0."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
 
-    feat = FM._forward_chain(x, params, n_layers, use_fn, use_relu, True, masks)[0].float()
+    if folded:
+        feat = FP._fwd_folded(x, params, n_layers, use_fn, use_relu, True, masks)[0].float()
+    else:
+        feat = FM._forward_chain(x, params, n_layers, use_fn, use_relu, True, masks)[0].float()
     v = FM.dense(feat, hw, hb, True)[:, 0]
+    kernel = FP.critic_grads_cuda if folded else FP.critic_grads_unfolded_cuda
     step = bf16_step(v)
     norm = torch.tensor([0.0, 1.0], device=x.device)
 
-    def launch(ret, valid, huber_delta=None):
-        a = torch.stack([v, ret, valid], dim=1)
-        return FP.critic_grads_unfolded_cuda(
-            x, a, norm, params, hw, hb, n_layers=n_layers, use_fn=use_fn, use_relu=use_relu,
-            bf16=True, clip_param=0.2, huber_delta=huber_delta or 1.0,
+    # a probe launches the kernel on the probed rows alone: a row's value is
+    # its own (each output's products run in one order whatever rows share
+    # its tile), and a probe then costs what its rows do
+    def launch(rows, ret, valid, huber_delta=None):
+        a = torch.stack([v[rows], ret, valid], dim=1)
+        return kernel(
+            x[rows], a, norm, params, hw, hb, n_layers=n_layers, use_fn=use_fn,
+            use_relu=use_relu, bf16=True, clip_param=0.2, huber_delta=huber_delta or 1.0,
             use_huber=huber_delta is not None, use_clipped=False)
 
     def steps2(rows):
-        valid = torch.zeros_like(v)
-        valid[rows] = 2.0 / step[rows] ** 2
-        return float(launch(v, valid)[-1][0])
+        return launch(rows, v[rows], 2.0 / step[rows] ** 2)[-1][0].clone()
 
-    found, todo = {}, [torch.nonzero(aux[:, 2] != 0)[:, 0]]
-    while todo:
-        rows = todo.pop()
-        s2 = steps2(rows) if len(rows) else 0.0
-        if s2 == 0.0:
-            continue
-        if len(rows) == 1:
-            found[int(rows[0])] = s2**0.5
-        else:
-            todo += [rows[: len(rows) // 2], rows[len(rows) // 2:]]
-    for r in found:
-        one = torch.zeros_like(v)
-        one[r] = 1.0
-        f_k = -launch(v + 100.0, one, huber_delta=1.0)[1][:, 0]  # dwv = -features
+    def features(r):  # dwv = -features
+        row = torch.tensor([r], device=x.device)
+        return -launch(row, v[row] + 100.0, torch.ones_like(v[row]), huber_delta=1.0)[1][:, 0]
+
+    found, level = {}, [torch.nonzero(aux[:, 2] != 0)[:, 0]]
+    while level := [rows for rows in level if len(rows)]:
+        s2 = probe_streams([lambda rows=rows: steps2(rows) for rows in level], x.device)
+        below = []
+        for rows, s in zip(level, s2):
+            s = float(s)
+            if s == 0.0:
+                continue
+            if len(rows) == 1:
+                found[int(rows[0])] = s**0.5
+            else:
+                below += [rows[: len(rows) // 2], rows[len(rows) // 2:]]
+        level = below
+    rows = list(found)
+    got = probe_streams([lambda r=r: features(r) for r in rows], x.device)
+    for r, f_k in zip(rows, got):
         gap = float((f_k - feat[r]).norm() / feat[r].norm()) * 2**7
         if gap > 1.0:
-            raise SmokeFailure(f"K4u row {r}: its value is off by {found[r]:.1f} bf16 steps "
+            raise SmokeFailure(f"K4{'' if folded else 'u'} row {r}: its value is off by "
+                               f"{found[r]:.1f} bf16 steps "
                                f"with features {gap:.2f} bf16 epsilons from the plain "
                                f"version's")
         found[r] = (found[r], gap)
     return found
 
 
-def value_flips(name, x, aux, norm, params, wv, bv, kw) -> None:
+def value_flips(name, x, aux, norm, params, wv, bv, kw, folded: bool = False) -> None:
     """The value-flip rule of a bf16 K4u check past two layers on a
     conditioned trunk (``condition_deep_``, whose values are large enough
     that one bf16 step moves a row's cotangent past the bound): the rows
@@ -962,7 +1192,9 @@ def value_flips(name, x, aux, norm, params, wv, bv, kw) -> None:
     relu) get valid = 0 in ``aux``, in place. More than 3 + rows / 20 of
     them, plus ``VALUE_FLIP_FACTOR`` times as many as the plain version
     rounds apart itself with its products summed in f64 (``f64_products``;
-    a chain this deep moves values, ROADMAP C8), fail the check."""
+    a chain this deep moves values, ROADMAP C8), fail the check. ``folded``:
+    K4's (``params`` its folded [V, u] list, ``wv``, ``bv`` its folded
+    head)."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
@@ -970,14 +1202,16 @@ def value_flips(name, x, aux, norm, params, wv, bv, kw) -> None:
     L, H, rows = kw["n_layers"], wv.shape[0], x.shape[0]
     fn, relu = kw["use_fn"], kw["use_relu"]
     masks = None
+    kernel = FP.critic_grads_cuda if folded else FP.critic_grads_unfolded_cuda
+    chain = FP._fwd_folded if folded else FM._forward_chain
     if relu:
         masks = torch.zeros((L, rows, H), dtype=torch.uint8, device=x.device)
-        FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, relu_masks=masks, **kw)
-    flips = value_flip_rows(x, aux, params, wv, bv, L, fn, relu, masks)
+        kernel(x, aux, norm, params, wv, bv, relu_masks=masks, **kw)
+    flips = value_flip_rows(x, aux, params, wv, bv, L, fn, relu, masks, folded)
     values = []
     for order in (contextlib.nullcontext(), f64_products()):
         with order:
-            feat = FM._forward_chain(x, params, L, fn, relu, True, masks)[0].float()
+            feat = chain(x, params, L, fn, relu, True, masks)[0].float()
             values.append(FM.dense(feat, wv, bv, True)[:, 0])
     own = int(((values[0] != values[1]) & (aux[:, 2] != 0)).sum())
     cap = 3 + rows // 20 + VALUE_FLIP_FACTOR * own
@@ -1016,8 +1250,19 @@ def f32_reading(name, got, want, bf16_tol):
 
 
 def bound(bytes_moved: float, ops: float, peak_ops: float):
+    """The least ms the card could take for a function that moves
+    ``bytes_moved`` (its inputs read once, its outputs written once) and
+    does ``ops`` operations at ``peak_ops``, and which of the two sets it."""
     tb, to = bytes_moved / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def scratch_ms(nbytes: float) -> float:
+    """The ms a layout's own scratch traffic (the depth and column-blocked
+    layouts' tiles in device memory, ``layout_bytes``) takes at the
+    memory rate: the layout's overhead, reported beside the bound and not
+    in it (the function does not need it)."""
+    return nbytes / PEAK_BYTES * 1e3
 
 
 def ptxas_report(logs: dict, show: bool) -> dict:
@@ -1029,7 +1274,7 @@ def ptxas_report(logs: dict, show: bool) -> dict:
     for name, text in sorted(logs.items()):
         if show:
             print(f"--- nvcc {name}.cu ---\n{text}")
-        tag = WIDE_TAG if name.endswith("_wide") else ""
+        tag = lib_tag(name)
         for line in text.splitlines():
             m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)",
                           line)
@@ -1071,8 +1316,7 @@ def sass_check(built: dict) -> dict:
         fn = None
         for line in out.splitlines():
             if "Function :" in line:
-                fn = re.search(r"Function : (\S+)", line).group(1) + (
-                    WIDE_TAG if lib.endswith("_wide") else "")
+                fn = re.search(r"Function : (\S+)", line).group(1) + lib_tag(lib)
                 counts[fn] = 0
             elif fn is not None and "MMA" in line and re.search(r"\bH(G)?MMA\b", line):
                 counts[fn] += 1
@@ -1122,7 +1366,7 @@ def device_us(fn, n: int, match: str):
 
 def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, bound_by,
            f32_rel=None, device_match=None, preset=None, library=None, hidden: int = 256,
-           timed: bool = True, **extra_host):
+           timed: bool = True, scratch_ms: float = 0.0, **extra_host):
     """Time the kernel's wrapper and the plain version, print and keep the
     row. ``device_match``: also the profiler's device us per call of the
     kernels whose name holds it. ``preset``: the env preset whose widths the
@@ -1130,8 +1374,10 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     PyTorch call that computes the same function, timed as the yardstick
     (``library_ms``; the port never calls it). ``hidden``: the trunk's
     width. ``timed`` False: the check's readings only, no timing (ms None).
-    ``extra_host``: further callables whose host us per call are printed
-    beside the wrapper's."""
+    ``scratch_ms``: the layout's own scratch traffic at the memory rate
+    (``scratch_ms()``), kept and printed beside the bound. ``extra_host``:
+    further callables whose host us per call are printed beside the
+    wrapper's."""
     from dcc_tpu_torch.ops.cuda_build import ENTRY, TILE
 
     err, rel, worst = errs
@@ -1155,8 +1401,8 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
                entry=entry, tile=tile, max_abs_err=err, rel_err=rel, worst_tensor=worst, ms=ms,
                n_timed=n,
                plain_ms=plain_ms, plain_n_timed=plain_n, host_us=hosts, device_us=dev_us,
-               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-               f32_kernel_rel_err=f32_rel)
+               bound_ms=bound_ms, bound_by=bound_by, scratch_ms=scratch_ms,
+               library_ms=library_ms, f32_kernel_rel_err=f32_rel)
     results.append(row)
     extra = "" if f32_rel is None else f" (f32 kernel: rel={f32_rel:.3e})"
     dev = "" if dev_us is None else (f" device us/call: kernel {dev_us['kernel']:.2f}, "
@@ -1165,11 +1411,14 @@ def record(results, kernel, mode, envs, shape, errs, kern, plain, bound_ms, boun
     where = "" if preset is None else f" {preset}"
     shape = shape + ("" if tile is None else f" tile={tile}")
     times = (f" kernel={ms:.4f} ms (x{n}) plain={plain_ms:.4f} ms" if timed else " (not timed)")
+    now = time.perf_counter()
+    row["check_s"], _ROW_CLOCK[0] = now - _ROW_CLOCK[0], now
     print(f"  {kernel:17s} {mode:4s}{where} envs={envs:<6d} {shape:28s} [{entry}] "
           f"max_abs={err:.3e} rel={rel:.3e} [{worst}]{extra}{times} "
-          f"bound={bound_ms:.6f} ms ({bound_by}){dev}"
+          f"bound={bound_ms:.6f} ms ({bound_by})"
+          + (f" scratch={scratch_ms:.6f} ms" if scratch_ms else "") + f"{dev}"
           + (" host us/call: " + ", ".join(f"{k} {v:.1f}" for k, v in hosts.items())
-             if hosts else ""), flush=True)
+             if hosts else "") + f" (+{row['check_s']:.1f} s)", flush=True)
     return row
 
 
@@ -1247,7 +1496,8 @@ def k2_bound(x, params, packed, bf16: bool, hidden: int = 256, n_layers: int = 2
     ``hidden``): the bytes of x read once, the output written once and the
     parameters the kernel reads (bf16: the padded bf16 weight copies of
     ``packed`` and the f32 vectors; f32: every parameter), against 2 * rows
-    * (d_in * H + (L - 1) * H * H) operations."""
+    * (d_in * H + (L - 1) * H * H) operations. A layout's own scratch
+    traffic is not the function's, so not the bound's (``scratch_ms``)."""
     rows, width = x.shape
     ops = 2 * rows * (width * hidden + (n_layers - 1) * hidden * hidden)
     if bf16:
@@ -1260,7 +1510,7 @@ def k2_bound(x, params, packed, bf16: bool, hidden: int = 256, n_layers: int = 2
 
 def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS),
                         update_steps: int = 0, hidden: int = 256, layer_n: int = 1,
-                        timed: bool = True):
+                        timed: bool = True, blocked: bool = False, modes=(False, True)):
     """K2: the trunk forward on the actor (E*A, D) and critic (E, A*D) rows
     of the default config (D = 110) or of ``preset``, at each of
     ``envs_list`` envs, in f32 and bf16, on parameters packed beforehand as
@@ -1272,7 +1522,9 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     the networks' hidden width; ``layer_n``: their ``layer_N`` (layer_n + 1
     layers; past two, the bf16 limit is ``bf16_limit``'s and their biases
     ``condition_deep_``); ``timed``: as
-    ``record``'s (past two layers, of the bf16 rows only)."""
+    ``record``'s (past two layers, of the bf16 rows only); ``blocked``: the
+    bf16 kernel in its column-blocked layout, forced (rows named
+    ``*_blocked``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1282,7 +1534,7 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
     env = env_config(preset)
     A, D = env.n_agents, env.obs_dim
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    for bf16 in ((True,) if update_steps else (False, True)):
+    for bf16 in ((True,) if update_steps else modes):
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  fused_loss="on", fused_trunk="on", hidden_size=hidden,
                                  layer_n=layer_n), env, device=dev)
@@ -1301,7 +1553,8 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 L = layer_n + 1
                 kw = dict(n_layers=L, use_fn=True, use_relu=True, bf16=bf16)
                 packed = net.base.packed_params(dev)
-                kern = lambda: FM.trunk_forward_cuda(x, params, packed=packed, **kw)
+                kern = lambda: FM.trunk_forward_cuda(x, params, packed=packed, **kw,
+                                                     _blocked=blocked)
                 plain = lambda: FM.trunk_forward_plain(x, params, **kw)
 
                 def rollout_call(net=net, x=x):  # the rollout's path to K2
@@ -1311,13 +1564,16 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                 # f32: summation order only; bf16: 1-ulp flips of bf16
                 # roundings inside the chain (LN outputs reach |16|, ulp 1/8)
                 tol = (K2_BF16_REL, 0.25) if bf16 else (1e-4, 1e-3)
-                chunked = bf16 and tiles.plan("fused_mlp", True, width, hidden, L)[0]
-                name = "fused_mlp_chunked" if chunked else "fused_mlp"
+                chunked = bf16 and tiles.plan("fused_mlp", True, width, hidden, L,
+                                              blocked=blocked)[0]
+                name = ("fused_mlp_chunked" if chunked else "fused_mlp") + (
+                    "_blocked" if blocked and bf16 else "")
                 want = plain()
                 if bf16:
                     tol = (bf16_limit(f"{name} rows={rows} L={L}", tol[0], layer_n,
                                       lambda **m: FM.trunk_forward_cuda(x, params, packed=packed,
-                                                                        **kw, **m),
+                                                                        **kw, **m,
+                                                                        _blocked=blocked),
                                       lambda masks=None: FM.trunk_forward_plain(
                                           x, params, **kw, masks=masks),
                                       lambda o: [o], [want], True, (L, rows, hidden)), tol[1])
@@ -1327,12 +1583,14 @@ def check_trunk_forward(results: list, gen, preset=None, envs_list=(16, BIG_ENVS
                     f32_out = FM.trunk_forward_cuda(x, params, **{**kw, "bf16": False})
                     f32_rel = f32_reading(name, [f32_out], [want], tol[0])
                 b, by = k2_bound(x, params, packed, bf16, hidden, L)
+                scratch = blocked_bytes(name, rows, hidden, L) if blocked and bf16 else 0
                 shape = (f"rows={rows} d_in={width}" + (" update" if update_steps else "")
                          + _hidden_label(hidden) + _layers_label(L))
                 hosts = {} if update_steps else {"MLPBase.forward": rollout_call}
                 record(results, name, "bf16" if bf16 else "f32", envs, shape, errs, kern, plain,
-                       b, by, f32_rel, preset=preset,
-                       device_match="trunk_fwd_chunked" if chunked else deep_match(bf16, layer_n),
+                       b, by, f32_rel, preset=preset, scratch_ms=scratch_ms(scratch),
+                       device_match=("trunk_fwd_chunked" if chunked else "mma_kernel" if
+                                     blocked and bf16 else deep_match(bf16, layer_n)),
                        hidden=hidden, timed=timed and (bf16 or layer_n == 1), **hosts)
 
 
@@ -1352,10 +1610,10 @@ def check_k2_layouts(results: list, gen):
     kw = dict(n_layers=2, use_fn=True, use_relu=True, bf16=True)
     plan = tiles.plan
 
-    def chunked_plan(kernel, bf16, *args):
+    def chunked_plan(kernel, bf16, *args, **kw):
         if kernel == "fused_mlp":
             return tiles.Plan(True, list(tiles.CHUNKED[(kernel, bf16)]))
-        return plan(kernel, bf16, *args)
+        return plan(kernel, bf16, *args, **kw)
 
     for preset, actor, envs, steps, dtype in (
             (WIDE, False, WIDE_ENVS, 1, torch.float32),
@@ -1427,6 +1685,31 @@ def deep_bytes(kernel: str, rows: int, width: int, hidden: int, n_layers: int,
     return 3 * 2 * n_layers * rows * (hp + 8) + 2 * 8 * n_layers * rows
 
 
+def blocked_bytes(kernel: str, rows: int, hidden: int, n_layers: int) -> int:
+    """The device-memory traffic of the bf16 ``kernel``'s column-blocked
+    layout on ``rows`` rows, each tile as wide as the hidden layer (pad16(H)
+    + 8 columns) counted once where it is written and once where it is read:
+    K2 a layer's activations and its output (the next layer's input); the
+    gradient kernels those two in the forward, then in the backward the
+    activations read, the operand recomputed (written, read), the bf16
+    cotangent (written, read) and the f32 g_prev stage (written, read); the
+    layer-0 input backward keeps none."""
+    if kernel.startswith("layer0_input_bwd"):
+        return 0
+    hp = -(-hidden // 16) * 16 + 8
+    per_layer = 8 if kernel.startswith("fused_mlp") and "bwd" not in kernel else 26
+    return per_layer * n_layers * rows * hp
+
+
+def layout_bytes(kernel: str, rows: int, width: int, hidden: int, n_layers: int,
+                 n_head: int = 1, blocked: bool = False) -> int:
+    """A bf16 check's scratch traffic: ``blocked_bytes`` in the column-blocked
+    layout, else ``deep_bytes``."""
+    if blocked:
+        return blocked_bytes(kernel, rows, hidden, n_layers)
+    return deep_bytes(kernel, rows, width, hidden, n_layers, n_head)
+
+
 def trunk_variants(bf16: bool, preset, hidden: int = 256) -> list:
     """The trunks a gradient kernel's check runs, as (label, relu, n_layers,
     use_fn). The default config's checks and every f32 check run the
@@ -1481,17 +1764,17 @@ def check_kernels(results: list, ptxas: dict):
     # rows), and on the actor's rows at a quarter of the headline envs (the
     # plain version keeps about ten (rows, 256) f32 tensors alive)
     check_trunk_backward(results, gen, cases=((16, 1, "both"), (16, 2, "both"),
-                                              (BIG_ENVS // 4, 1, "actor")))
+                                              (BIG_ENVS // 64, 1, "actor")))
     # K3 / K4 on the T*E*A actor / T*E critic rows, and on one minibatch of
     # the run with 4 minibatches: T*E*A/4 actor rows and as many critic
     # rows, gathered from the env rows duplicated per agent, with the
     # returns normalised outside (norm = [0, 1])
-    ppo_envs = BIG_ENVS // 4
-    print(f"  K3 / K4 at {ppo_envs} envs (a quarter of {BIG_ENVS}): their plain versions "
+    ppo_envs = BIG_ENVS // 64
+    print(f"  K3 / K4 at {ppo_envs} envs (a sixty-fourth of {BIG_ENVS}): their plain versions "
           f"keep about ten (rows, 256) f32 tensors alive, which must fit in device memory",
           flush=True)
     check_ppo(results, gen, cases=((16, 1), (16, 4), (ppo_envs, 1)))
-    check_unfolded(results, gen)  # K3u, K4u
+    check_unfolded(results, gen, envs_list=(16, BIG_ENVS // 64))  # K3u, K4u
     check_presets(results)
     check_wide(results)
     check_many_pois(results, ptxas)
@@ -1499,15 +1782,22 @@ def check_kernels(results: list, ptxas: dict):
 
 
 def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 256,
-                         variants=None, layer_n: int = 1, timed: bool = True):
+                         variants=None, layer_n: int = 1, timed: bool = True,
+                         blocked: bool = False, modes=(False, True), control: bool = True):
     """K2b, the trunk backward, on T*E*A/nmb rows of the actor (D wide) and,
     where a case says "both", of the critic (A*D wide, its env rows
     duplicated per agent), for each (envs, nmb, which) of ``cases``, in f32
     and bf16, of the default config or ``preset``, at the hidden width
     ``hidden``, on the trunks of ``trunk_variants`` (or ``variants``), of
     networks with ``layer_n`` + 1 layers (past two, their biases
-    ``condition_deep_``); ``timed`` as ``check_trunk_forward``'s. The bf16
-    bound counts the depth layout's traffic (``deep_bytes``)."""
+    ``condition_deep_``); ``timed`` and ``blocked`` as
+    ``check_trunk_forward``'s (``timed`` may also name the variants to
+    time, ``timed_for``); ``control`` False: the bf16 checks without the
+    kernel computed in f32 (the column-blocked phase's timed rows at the
+    main path's shapes, whose f32 FMA kernels take most of that phase's
+    time; each kernel's control is read at 16 envs at every width). The
+    bf16 row keeps the depth or column-blocked layout's own traffic
+    apart from the bound (``layout_bytes``, ``scratch_ms``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1517,7 +1807,7 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
     env = env_config(preset)
     T, A, D = 150, env.n_agents, env.obs_dim
     randn = lambda *s: torch.randn(s, generator=gen, device=dev)
-    for bf16 in (False, True):
+    for bf16 in modes:
         algo = MAPPO(MAPPOConfig(compute_dtype="bfloat16" if bf16 else "float32",
                                  use_recurrent_policy=True, fused_trunk="on",
                                  hidden_size=hidden, layer_n=layer_n), env, device=dev)
@@ -1546,7 +1836,8 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
                         print(f"  K2b f32, {rows} x {width}{label}: {int(kink.sum())} rows next "
                               f"to a relu kink get a zero cotangent", flush=True)
                     g = g.to(xdt)  # the cotangent of the trunk output, in its dtype
-                    kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m)
+                    kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m,
+                                                              _blocked=blocked)
                     plain = lambda **m: FM.trunk_backward_plain(x, params, g, **kw, **m)
                     if relu and bf16:
                         k, p, _ = masked_relu(
@@ -1562,7 +1853,7 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
                                          (L, rows, hidden))
                     errs = compare("fused_mlp_bwd", k, p, tol)
                     f32_rel = None
-                    if bf16:
+                    if bf16 and control:
                         k32 = FM.trunk_backward_cuda(x, params, g, **{**kw, "bf16": False})
                         f32_rel = f32_reading("fused_mlp_bwd", [k32[0], *k32[1]], p, tol)
                         del k32
@@ -1571,21 +1862,24 @@ def check_trunk_backward(results: list, gen, cases, preset=None, hidden: int = 2
                     # x and g in, dx out; parameters in, their f32 gradients out
                     nbytes = (2 * x.numel() * x.element_size() + g.numel() * g.element_size()
                               + 2 * 4 * sum(t.numel() for t in params))
-                    if bf16:
-                        nbytes += deep_bytes("fused_mlp_bwd", rows, width, hidden, L)
+                    scratch = (layout_bytes("fused_mlp_bwd", rows, width, hidden, L,
+                                            blocked=blocked) if bf16 else 0)
                     b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                    record(results, "fused_mlp_bwd", "bf16" if bf16 else "f32", envs,
+                    record(results, "fused_mlp_bwd" + ("_blocked" if blocked and bf16 else ""),
+                           "bf16" if bf16 else "f32", envs,
                            _shape(rows, width, nmb, hidden) + label, errs, kern, plain, b, by,
-                           f32_rel, preset=preset, hidden=hidden,
-                           device_match=deep_match(bf16, layer_n),
-                           timed=timed and (bf16 or layer_n == 1))
+                           f32_rel, preset=preset, hidden=hidden, scratch_ms=scratch_ms(scratch),
+                           device_match=("mma_kernel" if blocked and bf16
+                                         else deep_match(bf16, layer_n)),
+                           timed=timed_for(timed, label) and (bf16 or layer_n == 1))
                     del k, p, g
                 del x
                 torch.cuda.empty_cache()
 
 
 def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidden: int = 256,
-              variants=None, kinds=("actor", "critic"), layer_n: int = 1, timed: bool = True):
+              variants=None, kinds=("actor", "critic"), layer_n: int = 1, timed: bool = True,
+              blocked: bool = False, control: bool = True):
     """K3 / K4, the folded PPO loss + gradient kernels, on T*E*A/nmb actor
     rows and T*E critic rows (nmb = 1) or as many critic rows as actor rows,
     gathered from the env rows duplicated per agent (nmb > 1), for each
@@ -1598,14 +1892,17 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
     networks' ``layer_N`` (a trunk past two layers counts as another width
     for the f32 kink rule below; past two layers, their biases
     ``condition_deep_``, and in bf16 the actor's rows at the clip's kink a
-    zero advantage, ``clip_kink_rows``); ``timed`` as
-    ``check_trunk_forward``'s. The bf16 bound counts the depth layout's
-    traffic (``deep_bytes``).
+    zero advantage, ``clip_kink_rows``); ``timed``, ``blocked`` and
+    ``control`` as ``check_trunk_backward``'s. A bf16 row keeps the depth or
+    column-blocked layout's own traffic apart from the bound
+    (``layout_bytes``, ``scratch_ms``).
 
     At a preset's widths and hidden widths other than 256 the f32 checks give
     rows with a relu pre-activation within 1e-5 of the kink a zero advantage
     / valid = 0; the bf16 checks of relu trunks run under the relu mask rule
-    (``masked_relu``)."""
+    (``masked_relu``). The column-blocked checks at 16 envs give K4's rows
+    whose value the kernel rounds apart valid = 0 (``value_flips``, folded),
+    as ``check_unfolded`` does K4u's."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1678,7 +1975,8 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                                            ls)] = 0.0
                     aux_a = FP.pack_actor_aux(act, old_lp, adv)
                     kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
-                    kern = lambda **m: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw, **m)
+                    kern = lambda **m: FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls, **kw, **m,
+                                                           _blocked=blocked)
                     plain = lambda **m: FP.actor_grads_plain(obs, aux_a, kp, whf, bhf, ls, **kw,
                                                              **m)
                     if relu and bf16:
@@ -1693,7 +1991,7 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                                            kern, plain, flat, flat(p), relu, (L, R, H))
                     errs = compare("actor_ppo_grads", flat(k), flat(p), limit)
                     f32_rel = None
-                    if bf16:
+                    if bf16 and control:
                         f32_k = FP.actor_grads_cuda(obs, aux_a, kp, whf, bhf, ls,
                                                     **{**kw, "bf16": False})
                         f32_rel = f32_reading("actor_ppo_grads", flat(f32_k), flat(p), limit)
@@ -1702,14 +2000,15 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                     ops = 2 * R * (2 * D * H + 3 * (L - 1) * H * H)
                     # rows and aux in, folded params in, their gradients out
                     nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
-                    if bf16:
-                        nbytes += deep_bytes("actor_ppo_grads", R, D, H, L, 2)
+                    scratch = layout_bytes("actor_ppo_grads", R, D, H, L, 2, blocked) if bf16 else 0
                     b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                    record(results, "actor_ppo_grads", mode, envs, _shape(R, D, nmb, H) + label,
+                    record(results, "actor_ppo_grads" + ("_blocked" if blocked and bf16 else ""),
+                           mode, envs, _shape(R, D, nmb, H) + label,
                            errs, kern, plain, b, by, f32_rel, preset=preset,
-                           device_match=("mma_kernel" if bf16 and wide
+                           scratch_ms=scratch_ms(scratch),
+                           device_match=("mma_kernel" if bf16 and (wide or blocked)
                                          else deep_match(bf16, layer_n)), hidden=H,
-                           timed=timed and (bf16 or layer_n == 1))
+                           timed=timed_for(timed, label) and (bf16 or layer_n == 1))
                     del k, p
 
                 if "critic" not in kinds:
@@ -1726,8 +2025,11 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                           flush=True)
                 ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
                            huber_delta=10.0, use_huber=True, use_clipped=True)
+                if bf16 and blocked and envs == 16:  # as K4u's (check_unfolded)
+                    value_flips(f"K4 {envs} envs{label}", cent, aux_c, norm, kpc, wvf, bvf, ckw,
+                                folded=True)
                 kern = lambda **m: FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf, **ckw,
-                                                        **m)
+                                                        **m, _blocked=blocked)
                 plain = lambda **m: FP.critic_grads_plain(cent, aux_c, norm, kpc, wvf, bvf,
                                                           **ckw, **m)
                 if relu and bf16:
@@ -1742,25 +2044,26 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
                                        kern, plain, flat, flat(p), relu, (L, Rv, H))
                 errs = compare("critic_ppo_grads", flat(k), flat(p), limit)
                 f32_rel = None
-                if bf16:
+                if bf16 and control:
                     f32_k = FP.critic_grads_cuda(cent, aux_c, norm, kpc, wvf, bvf,
                                                  **{**ckw, "bf16": False})
                     f32_rel = f32_reading("critic_ppo_grads", flat(f32_k), flat(p), limit)
                     del f32_k
                 ops = 2 * Rv * (2 * A * D * H + 3 * (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
-                if bf16:
-                    nbytes += deep_bytes("critic_ppo_grads", Rv, A * D, H, L)
+                scratch = (layout_bytes("critic_ppo_grads", Rv, A * D, H, L, 1, blocked)
+                           if bf16 else 0)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
                 # at the 20-UAV and many-PoI widths in bf16, the device time
                 # of the chunked kernel and the dV0 kernel (their
                 # *_mma_kernel names)
-                record(results, "critic_ppo_grads", mode, envs,
+                record(results, "critic_ppo_grads" + ("_blocked" if blocked and bf16 else ""),
+                       mode, envs,
                        _shape(Rv, A * D, nmb, H) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset,
-                       device_match=("mma_kernel" if bf16 and wide
+                       preset=preset, scratch_ms=scratch_ms(scratch),
+                       device_match=("mma_kernel" if bf16 and (wide or blocked)
                                      else deep_match(bf16, layer_n)), hidden=H,
-                       timed=timed and (bf16 or layer_n == 1))
+                       timed=timed_for(timed, label) and (bf16 or layer_n == 1))
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
@@ -1768,7 +2071,7 @@ def check_ppo(results: list, gen, cases, preset=None, modes=(False, True), hidde
 
 def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4),
                    modes=(False, True), hidden: int = 256, variants=None, layer_n: int = 1,
-                   timed: bool = True):
+                   timed: bool = True, blocked: bool = False, control: bool = True):
     """K3u / K4u, the unfolded actor and critic PPO-gradient kernels, on the
     T*E*A actor / T*E critic rows at each of ``envs_list`` envs, in the
     ``modes`` (bf16 True), of the default config or ``preset``, at the hidden
@@ -1779,9 +2082,13 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
     Past two layers (``layer_n``) the networks' biases ``condition_deep_``
     and in bf16 the actor's rows at the clip's kink get a zero advantage
     (``clip_kink_rows``) and the critic's rows whose value the kernel
-    rounds apart valid = 0 (``value_flips``). ``timed`` as
-    ``check_trunk_forward``'s; the bf16 bound counts the depth layout's
-    traffic (``deep_bytes``)."""
+    rounds apart valid = 0 (``value_flips``, also in the column-blocked
+    checks at 16 envs: past hidden 1,024 a value's bf16 step moves its
+    row's cotangent past the bound too, as tests/test_torch_cuda.py's K4u
+    checks hold at every width). ``timed``, ``blocked`` and ``control`` as
+    ``check_trunk_backward``'s; a bf16 row keeps the depth or
+    column-blocked layout's own traffic apart from the bound
+    (``layout_bytes``, ``scratch_ms``)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -1838,7 +2145,7 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 aux_a = FP.pack_actor_aux(act, old_lp, adv)
                 kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2)
                 kern = lambda **m: FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
-                                                                **kw, **m)
+                                                                **kw, **m, _blocked=blocked)
                 plain = lambda **m: FP.actor_grads_unfolded_plain(obs, aux_a, params, wh, bh, ls,
                                                                   **kw, **m)
                 if relu and bf16:
@@ -1853,7 +2160,7 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                                        plain, flat, flat(p), relu, (L, R, H))
                 errs = compare("actor_ppo_grads_unfolded", flat(k), flat(p), limit)
                 f32_rel = None
-                if bf16:
+                if bf16 and control:
                     f32_k = FP.actor_grads_unfolded_cuda(obs, aux_a, params, wh, bh, ls,
                                                          **{**kw, "bf16": False})
                     f32_rel = f32_reading("actor_ppo_grads_unfolded", flat(f32_k), flat(p),
@@ -1863,15 +2170,17 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                 # feature norm's gradients): 3 products of 2 ops a MAC
                 ops = 6 * R * (D * H + (L - 1) * H * H)
                 nbytes = R * D * (2 if bf16 else 4) + aux_a.numel() * 4 + 2 * n_bytes(k)
-                if bf16:
-                    nbytes += deep_bytes("actor_ppo_grads_unfolded", R, D, H, L, 2)
+                scratch = (layout_bytes("actor_ppo_grads_unfolded", R, D, H, L, 2, blocked)
+                           if bf16 else 0)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                record(results, "actor_ppo_grads_unfolded", mode, envs,
+                record(results, "actor_ppo_grads_unfolded" + (
+                           "_blocked" if blocked and bf16 else ""), mode, envs,
                        _shape(R, D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset,
-                       device_match=(dev_match or deep_match(bf16, layer_n)) if bf16 else None,
+                       preset=preset, scratch_ms=scratch_ms(scratch),
+                       device_match=(dev_match or ("mma_kernel" if blocked else
+                                                   deep_match(bf16, layer_n))) if bf16 else None,
                        hidden=H,
-                       timed=timed and (bf16 or layer_n == 1))
+                       timed=timed_for(timed, label) and (bf16 or layer_n == 1))
                 del k, p
 
                 cparams = critic_p if fn else critic_p[2:2 + 4 * L]
@@ -1883,11 +2192,15 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                           f"next to a relu kink get valid = 0", flush=True)
                 ckw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=bf16, clip_param=0.2,
                            huber_delta=10.0, use_huber=True, use_clipped=True)
-                if bf16 and layer_n != 1:  # the rows whose value it rounds apart
+                # the rows whose value it rounds apart; column-blocked, at 16
+                # envs, whose 2,400 rows take the 16-row tile that the
+                # probe's subsets take
+                if bf16 and (layer_n != 1 or (blocked and envs == 16)):
                     value_flips(f"K4u {envs} envs{label}", cent, aux_c, norm, cparams, wv, bv,
                                 ckw)
                 kern = lambda **m: FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv,
-                                                                 bv, **ckw, **m)
+                                                                 bv, **ckw, **m,
+                                                                 _blocked=blocked)
                 plain = lambda **m: FP.critic_grads_unfolded_plain(cent, aux_c, norm, cparams,
                                                                    wv, bv, **ckw, **m)
                 if relu and bf16:
@@ -1902,7 +2215,7 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                                        kern, plain, flat, flat(p), relu, (L, Rv, H))
                 errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), limit)
                 f32_rel = None
-                if bf16:
+                if bf16 and control:
                     f32_k = FP.critic_grads_unfolded_cuda(cent, aux_c, norm, cparams, wv, bv,
                                                           **{**ckw, "bf16": False})
                     f32_rel = f32_reading("critic_ppo_grads_unfolded", flat(f32_k), flat(p),
@@ -1910,13 +2223,15 @@ def check_unfolded(results: list, gen, preset=None, envs_list=(16, BIG_ENVS // 4
                     del f32_k
                 ops = 6 * Rv * (A * D * H + (L - 1) * H * H)
                 nbytes = Rv * A * D * (2 if bf16 else 4) + aux_c.numel() * 4 + 2 * n_bytes(k)
-                if bf16:
-                    nbytes += deep_bytes("critic_ppo_grads_unfolded", Rv, A * D, H, L)
+                scratch = (layout_bytes("critic_ppo_grads_unfolded", Rv, A * D, H, L, 1, blocked)
+                           if bf16 else 0)
                 b, by = bound(nbytes, ops, PEAK_BF16 if bf16 else PEAK_FP32)
-                record(results, "critic_ppo_grads_unfolded", mode, envs,
+                record(results, "critic_ppo_grads_unfolded" + (
+                           "_blocked" if blocked and bf16 else ""), mode, envs,
                        _shape(Rv, A * D, 1, H) + label, errs, kern, plain, b, by, f32_rel,
-                       preset=preset, hidden=H, device_match=deep_match(bf16, layer_n),
-                       timed=timed and (bf16 or layer_n == 1))
+                       preset=preset, hidden=H, scratch_ms=scratch_ms(scratch),
+                       device_match="mma_kernel" if blocked and bf16 else deep_match(bf16, layer_n),
+                       timed=timed_for(timed, label) and (bf16 or layer_n == 1))
                 del k, p
             del obs, cent
             torch.cuda.empty_cache()
@@ -1956,7 +2271,8 @@ def check_wide(results: list):
     (20 x envs actor rows, envs critic rows, as the rollout gives them); K3
     and K4 at 16 envs (48,000 x 242, 2,400 x 4,840) in f32 and bf16, and in
     bf16 at ``WIDE_ENVS`` envs (3,072,000 x 242, 153,600 x 4,840), the main
-    path's shapes, on the trunks of ``trunk_variants`` (the plain K3 keeps
+    path's shapes, on the trunks of ``trunk_variants`` (there the model
+    trunk's rows timed, the others' readings only) (the plain K3 keeps
     about ten 3.1 GB f32 tensors alive there); the dV0 kernel in both modes
     against its plain version at both and on 38,400 rows (an update chunk of
     the fused-loss-off run); the chunked K2b on 2,400 and 38,400 critic rows
@@ -1970,7 +2286,8 @@ def check_wide(results: list):
     print(f"  the {WIDE} preset's widths, at 16 and {WIDE_ENVS} envs", flush=True)
     check_trunk_forward(results, gen, preset=WIDE, envs_list=(16, WIDE_ENVS))
     check_ppo(results, gen, cases=((16, 1),), preset=WIDE)
-    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=WIDE, modes=(True,))
+    # at WIDE_ENVS the model trunk's rows timed, the others' readings only
+    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=WIDE, modes=(True,), timed=("",))
     check_dv0(results, gen, envs_list=(16, WIDE_ENVS // 4, WIDE_ENVS))
     check_wide_chunked(results, gen)
     check_layer0(results, gen)
@@ -2046,7 +2363,8 @@ def check_dv0(results: list, gen, envs_list, preset=WIDE, actor: bool = False,
 
 
 def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WIDE_ENVS),
-                       layer_n: int = 1, variants=None, timed: bool = True):
+                       layer_n: int = 1, variants=None, timed: bool = True,
+                       blocked: bool = False):
     """The chunked K2b (``trunk_backward_cuda`` on rows too wide to stage: its
     chunked kernel, the layer-0 input backward and dV0, without dx, as the
     update calls it) on 2,400 and 38,400 of the 20-UAV preset's 4,840-wide
@@ -2063,7 +2381,12 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
     ``variants`` its trunks (default ``trunk_variants``'); ``timed`` as
     ``check_trunk_forward``'s; past two layers, the bf16 limits are
     ``bf16_limit``'s and K4u's rows whose value it rounds apart get valid =
-    0 (``value_flips``)."""
+    0 (``value_flips``). ``blocked``: the column-blocked layout's chunked
+    kernels, forced (rows named ``*_blocked``), and the folded K4's too
+    (its chunked kernel and dV0, K4's folded parameters), K4 and K4u under
+    the value-flip rule (past hidden 1,024 a value's bf16 step moves its
+    row's cotangent past the bound, as in ``check_blocked``'s other
+    checks)."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM, fused_ppo as FP
@@ -2083,7 +2406,7 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
             params = full if fn else full[2:2 + 4 * L]
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, need_dx=False)
             g = randn(rows, H)
-            kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m)
+            kern = lambda **m: FM.trunk_backward_cuda(x, params, g, **kw, **m, _blocked=blocked)
             plain = lambda **m: FM.trunk_backward_plain(x, params, g, **kw, **m)
             if relu:
                 k, p, _ = masked_relu(
@@ -2094,16 +2417,19 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
             k, p = k[1], p[1]
             tol = bf16_limit(f"chunked K2b {_shape(rows, D)}{tag}", K2B_BF16_REL, layer_n, kern,
                              plain, lambda o: o[1], p, relu, (L, rows, H))
-            errs = compare("fused_mlp_bwd_chunked", k, p, tol)
-            f32_rel = f32_reading("fused_mlp_bwd_chunked",
+            name = "fused_mlp_bwd_chunked" + ("_blocked" if blocked else "")
+            errs = compare(name, k, p, tol)
+            f32_rel = f32_reading(name,
                                   FM.trunk_backward_plain(x, params, g,
                                                           **{**kw, "bf16": False})[1], p, tol)
             ops = 6 * rows * sum(t.numel() for t in params if t.dim() == 2)
             nbytes = 2 * x.numel() + 4 * g.numel() + 2 * 4 * sum(t.numel() for t in params)
             b, by = bound(nbytes, ops, PEAK_BF16)
-            record(results, "fused_mlp_bwd_chunked", "bf16", envs,
+            scratch = layout_bytes("fused_mlp_bwd", rows, D, H, L, blocked=blocked)
+            record(results, name, "bf16", envs,
                    _shape(rows, D, 1, H) + label + tag, errs, kern, plain, b, by, f32_rel,
-                   preset=WIDE, device_match="mma_kernel", hidden=H, timed=timed)
+                   preset=WIDE, device_match="mma_kernel", hidden=H, timed=timed,
+                   scratch_ms=scratch_ms(scratch))
             del k, p, g
         del x
         torch.cuda.empty_cache()
@@ -2118,10 +2444,11 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
             aux = FP.pack_critic_aux(vpred, ret)
             kw = dict(n_layers=L, use_fn=fn, use_relu=relu, bf16=True, clip_param=0.2,
                       huber_delta=10.0, use_huber=True, use_clipped=True)
-            if layer_n != 1:  # the rows whose value the kernel rounds apart
-                value_flips(f"chunked K4u {_shape(Rv, D)}{tag}", x, aux, norm, params, wv, bv, kw)
+            if layer_n != 1 or blocked:  # the rows whose value the kernel rounds apart
+                value_flips(f"chunked K4u {_shape(Rv, D, 1, H)}{tag}", x, aux, norm, params, wv,
+                            bv, kw)
             kern = lambda **m: FP.critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, **kw,
-                                                             **m)
+                                                             **m, _blocked=blocked)
             plain = lambda **m: FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv, **kw,
                                                                **m)
             if relu:
@@ -2132,17 +2459,51 @@ def check_wide_chunked(results: list, gen, hidden: int = 256, envs_list=(16, WID
                 k, p = kern(), plain()
             tol = bf16_limit(f"chunked K4u {_shape(Rv, D)}{tag}", PPO_BF16_REL, layer_n, kern,
                              plain, flat, flat(p), relu, (L, Rv, H))
-            errs = compare("critic_ppo_grads_unfolded", flat(k), flat(p), tol)
+            name = "critic_ppo_grads_unfolded" + ("_blocked" if blocked else "")
+            errs = compare(name, flat(k), flat(p), tol)
             f32_rel = f32_reading(
-                "critic_ppo_grads_unfolded",
+                name,
                 flat(FP.critic_grads_unfolded_plain(x, aux, norm, params, wv, bv,
                                                     **{**kw, "bf16": False})), flat(p), tol)
             ops = 6 * Rv * (D * H + (L - 1) * H * H)
             nbytes = 2 * x.numel() + 4 * aux.numel() + 2 * 4 * sum(t.numel() for t in flat(k))
             b, by = bound(nbytes, ops, PEAK_BF16)
-            record(results, "critic_ppo_grads_unfolded", "bf16", envs, _shape(Rv, D, 1, H) + tag,
+            scratch = layout_bytes("critic_ppo_grads_unfolded", Rv, D, H, L, 1, blocked)
+            record(results, name, "bf16", envs, _shape(Rv, D, 1, H) + tag,
                    errs, kern, plain, b, by, f32_rel, preset=WIDE,
-                   device_match="mma_kernel", hidden=H, timed=timed)
+                   device_match="mma_kernel", hidden=H, timed=timed,
+                   scratch_ms=scratch_ms(scratch))
+            del k, p
+            if not blocked:
+                continue
+            # the folded K4 on the same rows: its chunked kernel, then dV0
+            kpc, wvf, bvf = FP.fold_trunk(params, wv, bv, L, fn)
+            aux = FP.pack_critic_aux(vpred, ret)
+            value_flips(f"chunked K4 {_shape(Rv, D, 1, H)}{tag}", x, aux, norm, kpc, wvf, bvf,
+                        kw, folded=True)
+            kern = lambda **m: FP.critic_grads_cuda(x, aux, norm, kpc, wvf, bvf, **kw, **m,
+                                                    _blocked=True)
+            plain = lambda **m: FP.critic_grads_plain(x, aux, norm, kpc, wvf, bvf, **kw, **m)
+            if relu:
+                k, p, _ = masked_relu(
+                    f"chunked K4 {_shape(Rv, D, 1, H)}{tag}", kern, plain,
+                    lambda m: FP.relu_mask_gap_folded(x, kpc, L, fn, m), L, Rv, H)
+            else:
+                k, p = kern(), plain()
+            tol = bf16_limit(f"chunked K4 {_shape(Rv, D)}{tag}", PPO_BF16_REL, layer_n, kern,
+                             plain, flat, flat(p), relu, (L, Rv, H))
+            errs = compare("critic_ppo_grads_blocked", flat(k), flat(p), tol)
+            f32_rel = f32_reading(
+                "critic_ppo_grads_blocked",
+                flat(FP.critic_grads_plain(x, aux, norm, kpc, wvf, bvf,
+                                           **{**kw, "bf16": False})), flat(p), tol)
+            ops = 2 * Rv * (2 * D * H + 3 * (L - 1) * H * H)
+            nbytes = 2 * x.numel() + 4 * aux.numel() + 2 * 4 * sum(t.numel() for t in flat(k))
+            b, by = bound(nbytes, ops, PEAK_BF16)
+            scratch = layout_bytes("critic_ppo_grads", Rv, D, H, L, 1, True)
+            record(results, "critic_ppo_grads_blocked", "bf16", envs, _shape(Rv, D, 1, H) + tag,
+                   errs, kern, plain, b, by, f32_rel, preset=WIDE, device_match="mma_kernel",
+                   hidden=H, timed=timed, scratch_ms=scratch_ms(scratch))
             del k, p
         del x
         torch.cuda.empty_cache()
@@ -2168,7 +2529,7 @@ def _layer0_cotangent(gen, rows: int, hidden: int):
 
 
 def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAYER0_WIDE,
-                 hidden: int = 256):
+                 hidden: int = 256, blocked: bool = False):
     """The layer-0 input backward of the chunked K2b, K3u and K4u
     (``ops.fused_mlp.layer0_input_bwd_cuda``) alone, against its plain
     version on the same bf16 operands within ``DV0_REL``, on the critic
@@ -2177,7 +2538,8 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
     preset's 4,840-wide critic rows (an update chunk of the fused-loss-off
     run) without dx, as the update calls it, and with dx, and on 153,600
     (the unfolded run's) without; the product with the unrounded W_0 must
-    lie outside the bound."""
+    lie outside the bound. ``blocked``: its row-tiled kernel's
+    column-blocked build, forced (rows ``layer0_input_bwd_blocked``)."""
     import torch
 
     from dcc_tpu_torch.ops import fused_mlp as FM
@@ -2193,22 +2555,27 @@ def check_layer0(results: list, gen, preset=WIDE, actor: bool = False, cases=LAY
         x = torch.randn(rows, D, generator=gen, device="cuda").to(torch.bfloat16)
         xstats = FM.input_stats(x, True)
         g0 = _layer0_cotangent(gen, rows, H)
-        kern = lambda: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, need_dx)
+        kern = lambda: FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, H, need_dx,
+                                                _blocked=blocked)
         plain = lambda: FM.layer0_input_bwd_plain(x, xstats, g0, w0b, fs, H, need_dx)
         keep = lambda o: [t for t in o if t is not None]
         want = keep(plain())
-        errs = compare("layer0_input_bwd", keep(kern()), want, DV0_REL)
+        # g_prev's products (K = pad16(H)) accumulate in f32 on the tensor
+        # cores, whose error grows with the sum's length: past 1,024 the
+        # bound grows with it
+        tol = DV0_REL * max(1.0, FM.pad16(H) / 1024)
+        errs = compare("layer0_input_bwd", keep(kern()), want, tol)
         f32_rel = f32_reading("layer0_input_bwd",
                               keep(FM.layer0_input_bwd_plain(x, xstats, g0, w0f, fs, H,
-                                                             need_dx)), want, DV0_REL)
+                                                             need_dx)), want, tol)
         # one product g0 W_0^T (2 ops a MAC); x, g0, the statistics, W_0 and
         # fs in, the two column sums (and dx) out
         nbytes = (2 * x.numel() + 2 * g0.numel() + 4 * xstats.numel() + 2 * D * H + 4 * D
                   + 8 * D + (2 * x.numel() if need_dx else 0))
         b, by = bound(nbytes, 2 * rows * D * H, PEAK_BF16)
-        record(results, "layer0_input_bwd", "bf16", envs, _shape(rows, D, 1, H) + label, errs,
-               kern, plain, b, by, f32_rel, preset=preset, device_match="layer0_input_bwd",
-               hidden=H)
+        record(results, "layer0_input_bwd" + ("_blocked" if blocked else ""), "bf16", envs,
+               _shape(rows, D, 1, H) + label, errs, kern, plain, b, by, f32_rel, preset=preset,
+               device_match="layer0_input_bwd", hidden=H)
         del x, g0, want
         torch.cuda.empty_cache()
 
@@ -2355,13 +2722,13 @@ def check_wide_hidden(results: list, ptxas: dict):
     the relu mask rule, the model's with tanh, one relu layer); the chunked
     layouts at 512 (K4 on the 20-UAV preset's 4,840-wide critic rows, the
     chunked K2b and K4u, dV0 in both modes, the layer-0 input backward with
-    dx); then at 512 and 1,024 (``HIDDEN_TIMED``) every kernel at the main
-    path's shapes at ``WIDE_ENVS`` envs on the model's trunk: K2 on a
-    rollout step's rows, K2b on the 153,600 rows of an update chunk, K3 /
-    K4 and K3u / K4u on 614,400 x 110 and 153,600 x 440, and at 512 K4's
-    chunked kernel and dV0 on the 20-UAV preset's 153,600 x 4,840 (the
-    critic only: the plain K3 on its 3,072,000 actor rows would keep about
-    ten 6.3 GB f32 tensors alive). Each row keeps its kernels' ptxas
+    dx); then at 512 and 1,024 (``HIDDEN_TIMED``; at 512 timed and with
+    the f32 controls, at 1,024 the readings only) every
+    kernel at the main path's shapes at ``HIDDEN_ENVS`` envs on the model's
+    trunk: K2 on a rollout step's rows, K2b on the 153,600 rows of an
+    update chunk, K3 / K4 and K3u / K4u on 614,400 x 110 and 153,600 x 440,
+    and at 512 K4's chunked kernel and dV0 on the 20-UAV preset's 153,600 x
+    4,840 (the critic only, as at the preset's own env counts). Each row keeps its kernels' ptxas
     registers and spills."""
     import torch
 
@@ -2383,16 +2750,18 @@ def check_wide_hidden(results: list, ptxas: dict):
     check_dv0(results, gen, (16,), hidden=HIDDEN_ROW)
     check_layer0(results, gen, cases=((16, 2400, True, " dx"),), hidden=HIDDEN_ROW)
     for hidden in HIDDEN_TIMED:
-        print(f"  hidden {hidden}, the main path's shapes at {WIDE_ENVS} envs", flush=True)
-        check_trunk_forward(results, gen, envs_list=(WIDE_ENVS,), hidden=hidden)
-        check_trunk_backward(results, gen, ((WIDE_ENVS // 4, 1, "both"),), hidden=hidden,
-                             variants=model)
-        check_ppo(results, gen, ((WIDE_ENVS, 1),), modes=(True,), hidden=hidden, variants=model)
-        check_unfolded(results, gen, envs_list=(WIDE_ENVS,), modes=(True,), hidden=hidden,
-                       variants=model)
-    check_ppo(results, gen, ((WIDE_ENVS, 1),), preset=WIDE, modes=(True,), hidden=HIDDEN_ROW,
+        print(f"  hidden {hidden}, the main path's shapes at {HIDDEN_ENVS} envs", flush=True)
+        # past HIDDEN_ROW the readings only, without the f32 FMA controls
+        # (one-row tiles; each kernel's is read at 16 envs at 1,024 above)
+        timed = hidden == HIDDEN_ROW
+        kw = dict(hidden=hidden, variants=model, timed=timed, control=timed)
+        check_trunk_forward(results, gen, envs_list=(HIDDEN_ENVS,), hidden=hidden, timed=timed)
+        check_trunk_backward(results, gen, ((HIDDEN_ENVS // 4, 1, "both"),), **kw)
+        check_ppo(results, gen, ((HIDDEN_ENVS, 1),), modes=(True,), **kw)
+        check_unfolded(results, gen, envs_list=(HIDDEN_ENVS,), modes=(True,), **kw)
+    check_ppo(results, gen, ((HIDDEN_ENVS, 1),), preset=WIDE, modes=(True,), hidden=HIDDEN_ROW,
               variants=model, kinds=("critic",))
-    check_dv0(results, gen, (WIDE_ENVS,), hidden=HIDDEN_ROW)
+    check_dv0(results, gen, (HIDDEN_ENVS,), hidden=HIDDEN_ROW)
     shown = set()
     for row in results[first:]:
         row["ptxas"] = kernel_ptxas(ptxas, row["entry"], row["hidden"])
@@ -2405,15 +2774,16 @@ def check_wide_hidden(results: list, ptxas: dict):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def kernel_ptxas(ptxas: dict, entry: str, hidden: int = 256) -> dict:
+def kernel_ptxas(ptxas: dict, entry: str, hidden: int = 256, blocked: bool = False) -> dict:
     """The ptxas registers and spills of the CUDA kernel(s) behind a C
     entry point (``dcc_x_mma`` launches ``x_mma_kernel``) at hidden width
-    ``hidden`` (past 256 the ``*_wide`` libraries'), by their mangled
-    names."""
-    wide = hidden % 2 == 1 or -(-hidden // 16) * 16 > 256
+    ``hidden`` (past 256 the ``*_wide`` libraries'; ``blocked``, the
+    ``*_blocked`` libraries'), by their mangled names."""
+    wide = not blocked and (hidden % 2 == 1 or -(-hidden // 16) * 16 > 256)
     return {fn: v for fn, v in ptxas.items()
             if f"{entry[4:]}_kernel" in fn
-            and (fn.endswith(WIDE_TAG) == wide or entry.endswith("_wgmma"))}
+            and ((fn.endswith(WIDE_TAG) == wide and fn.endswith(BLOCKED_TAG) == blocked)
+                 or entry.endswith("_wgmma"))}
 
 
 def check_many_pois(results: list, ptxas: dict):
@@ -2426,7 +2796,8 @@ def check_many_pois(results: list, ptxas: dict):
     chunked K2 side by side at the 20-UAV preset's 4,840 and at the default
     widths (``check_k2_layouts``); K3 / K4 at 16 envs in f32 and bf16, and in bf16
     at ``WIDE_ENVS`` envs (614,400 x 1,510 and 153,600 x 6,040, the main
-    path's shapes), on the trunks of ``trunk_variants``, and at 4 x
+    path's shapes), on the trunks of ``trunk_variants`` (there the model
+    trunk's rows timed), and at 4 x
     360 (1,810 wide) at 16 envs in bf16, whose one-relu-layer trunk takes
     the chunked K3 (one layer's staged tile holds 1,760 columns); K3u / K4u
     at 4 x 300 the same way; the dV0 kernel in both modes on the actor's
@@ -2447,10 +2818,11 @@ def check_many_pois(results: list, ptxas: dict):
     check_trunk_forward(results, gen, preset="20uav-pois50", envs_list=(WIDE_ENVS,))
     check_k2_layouts(results, gen)
     check_ppo(results, gen, cases=((16, 1),), preset=POIS)
-    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=POIS, modes=(True,))
+    check_ppo(results, gen, cases=((WIDE_ENVS, 1),), preset=POIS, modes=(True,), timed=("",))
     check_ppo(results, gen, cases=((16, 1),), preset="pois360", modes=(True,))
     check_unfolded(results, gen, preset=POIS, envs_list=(16,))
-    check_unfolded(results, gen, preset=POIS, envs_list=(WIDE_ENVS,), modes=(True,))
+    check_unfolded(results, gen, preset=POIS, envs_list=(WIDE_ENVS,), modes=(True,),
+                   timed=("",))
     check_dv0(results, gen, (16, WIDE_ENVS), preset=POIS, actor=True)
     check_layer0(results, gen, preset=POIS, actor=True,
                  cases=((WIDE_ENVS, 150 * WIDE_ENVS * env.n_agents, False, ""),))
@@ -2864,11 +3236,40 @@ def train_run(results: dict, tag: str, args: list, per_iter: dict):
     return learner
 
 
-def train_runs(results: dict):
-    for tag, extra, per_iter in TRAIN_RUNS:
-        learner = train_run(results, tag, BASE_ARGS + extra, per_iter)
-        if tag in PROFILED:
-            results[f"profile {tag}"] = profile_iteration(learner, tag)
+def train_runs(results: dict, table=TRAIN_RUNS, profiled: bool = False):
+    """The runs of ``table`` ((tag, arguments beyond ``BASE_ARGS``,
+    launches an iteration): ``TRAIN_RUNS``, ``DEEP_RUNS``,
+    ``BLOCKED_RUNS``) through the entry point (``train_run``): those of
+    ``PROFILED``, each followed by its profiled iteration, or, ``profiled``
+    False, the others."""
+    for tag, extra, per_iter in table:
+        if (tag in PROFILED) == profiled:
+            learner = train_run(results, tag, BASE_ARGS + extra, per_iter)
+            if profiled:
+                results[f"profile {tag}"] = profile_iteration(learner, tag)
+
+
+def in_background(fn, *args, **kw):
+    """Start ``fn(*args, **kw)`` in a thread of its own; returns a function
+    that waits for it and returns its result or raises its exception."""
+    box: dict = {}
+
+    def run():
+        try:
+            box["out"] = fn(*args, **kw)
+        except BaseException as e:  # handed to the caller of join
+            box["err"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return join
 
 
 CURVE_KERNELS = {"gae": 1, "fused_mlp": 301, "actor_ppo_grads": 15, "critic_ppo_grads": 15}
@@ -2969,7 +3370,7 @@ CONNECT_ARGS = ["--comm-force-scale", "5.0", "--comm-r-scale", "0.95"]
 PRECISION_RUNS = (("connect", [], "torch.float32"),
                   ("connect-comp", ["--compensated-forces", "true"], "torch.float32"),
                   ("connect-envf64", ["--env-dtype", "float64"], "torch.float64"))
-PRECISION_ENV_COUNTS = (16, WIDE_ENVS)
+PRECISION_ENV_COUNTS = (16, RUN_ENVS)
 # tests/test_env_parity.py's tolerances: (obs, reward); dones exact, coverage
 # and the reset obs 1e-12
 GOLDEN_TOLS = {"default_4x20": (1e-10, 1e-8), "connect_4x20": (1e-6, 1e-5),
@@ -3228,7 +3629,7 @@ def env_step_kernels(results: dict, envs: int = 16, n: int = 50):
 
 def precision_runs(results: dict):
     """(c) The three connectivity-force arms through
-    ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and at 1,024 (1):
+    ``dcc_tpu_torch.train.main`` at 16 envs (2 iterations) and at 256 (1):
     K1 once an iteration by the launch counts and, at 16 envs, by the
     profiler; every env tensor on the card in the arm's dtype (f64 for
     ``--env-dtype float64``)."""
@@ -3696,14 +4097,14 @@ def check_mesh(results: dict):
 
 
 def deep_kernel_cases(gen, n_layers: int, hidden: int, conditioned: bool, preset=None,
-                      envs: int = 16):
+                      envs: int = 16, k2_rows: int = 64):
     """(name, kernel(bf16, **kw) -> tensors, plain(**masks) -> tensors,
     rows) of every kernel of the trunk at ``envs`` envs, relu, ``n_layers``
     layers of width ``hidden`` (``conditioned``: the biases
-    ``condition_deep_``): K2 on the actor's 64 rows, K2b, K3 and K3u on its
-    150 * envs * 4 rows (9,600 x 110 at 16 envs), K4 / K4u on the critic's
-    150 * envs (2,400 x 440); with ``preset``, K4, K4u and K2b on its critic
-    rows (the 20-UAV preset's: the chunked layouts)."""
+    ``condition_deep_``): K2 on the actor's first ``k2_rows`` rows, K2b, K3
+    and K3u on its 150 * envs * 4 rows (9,600 x 110 at 16 envs), K4 / K4u
+    on the critic's 150 * envs (2,400 x 440); with ``preset``, K4, K4u and
+    K2b on its critic rows (the 20-UAV preset's: the chunked layouts)."""
     import torch
 
     from dcc_tpu_torch.algos.mappo import MAPPO, MAPPOConfig
@@ -3737,12 +4138,12 @@ def deep_kernel_cases(gen, n_layers: int, hidden: int, conditioned: bool, preset
     tkw = dict(n_layers=L, use_fn=True, use_relu=True)
     akw = dict(tkw, clip_param=0.2)
     ckw = dict(tkw, clip_param=0.2, huber_delta=10.0, use_huber=True, use_clipped=True)
-    x64 = obs[:64]
+    x64 = obs[:k2_rows]
     g = randn(R, H).bfloat16()
     gc = randn(Rv, H)
     cases = [
         ("fused_mlp", lambda bf16, **m: [FM.trunk_forward_cuda(x64, ap, bf16=bf16, **tkw, **m)],
-         lambda **m: [FM.trunk_forward_plain(x64, ap, bf16=True, **tkw, **m)], 64),
+         lambda **m: [FM.trunk_forward_plain(x64, ap, bf16=True, **tkw, **m)], x64.shape[0]),
         ("fused_mlp_bwd",
          lambda bf16, **m: (lambda o: [o[0], *o[1]])(
              FM.trunk_backward_cuda(obs, ap, g, bf16=bf16, **tkw, **m)),
@@ -3769,8 +4170,12 @@ def deep_kernel_cases(gen, n_layers: int, hidden: int, conditioned: bool, preset
          lambda **m: flat(FP.critic_grads_unfolded_plain(cent, aux_c, norm, cp, wv, bv,
                                                          bf16=True, **ckw, **m)), Rv),
     ]
-    if preset is not None:  # the critic's rows: K4, K4u and the chunked K2b
+    if preset is not None:  # the critic's rows: K4, K4u, the chunked K2b and K2
+        xc = cent[:k2_rows]
         cases = [c for c in cases if c[0].startswith("critic")] + [
+            ("fused_mlp",
+             lambda bf16, **m: [FM.trunk_forward_cuda(xc, cp, bf16=bf16, **tkw, **m)],
+             lambda **m: [FM.trunk_forward_plain(xc, cp, bf16=True, **tkw, **m)], xc.shape[0]),
             ("fused_mlp_bwd",
              lambda bf16, **m: FM.trunk_backward_cuda(cent, cp, gc, bf16=bf16, need_dx=False,
                                                       **tkw, **m)[1],
@@ -3835,7 +4240,7 @@ def check_deep_bits(results: list):
                            f"16, 32 and 64")
 
 
-def check_deep(results: list, runs: dict):
+def check_deep(results: list):
     """The deep phase: trunks of any depth. The row-tile plans (at 32
     layers every bf16 gradient kernel takes its depth layout, not before);
     the depth layout bit for bit against the staged one (``check_deep_bits``);
@@ -3851,8 +4256,8 @@ def check_deep(results: list, runs: dict):
     line's ``_L9`` / ``_L32`` rows). Then the chunked K2, K4, K2b and K4u on
     the 20-UAV preset's 4,840-wide critic rows (2,400 rows) at 9 layers
     (their chunked depth layouts are held bit for bit to the chunked staged
-    ones, ``check_deep_bits``). Then the runs of ``DEEP_RUNS`` through the
-    entry point, with their launch counts and entry points, into ``runs``."""
+    ones, ``check_deep_bits``). ``DEEP_RUNS`` run through the entry point
+    apart (``train_runs``)."""
     import torch
 
     from dcc_tpu_torch.ops import tiles
@@ -3891,8 +4296,213 @@ def check_deep(results: list, runs: dict):
     check_ppo(results, gen, cases=((16, 1),), preset=WIDE, modes=(True,), variants=v,
               kinds=("critic",), **kw)
     check_wide_chunked(results, gen, envs_list=(16,), variants=v, **kw)
-    for tag, extra, per_iter in DEEP_RUNS:
-        train_run(runs, tag, BASE_ARGS + extra, per_iter)
+
+
+def check_blocked_bits(results: list):
+    """Each bf16 kernel in its column-blocked layout (the wrappers'
+    ``_blocked``, which keeps the tile and first layer ``ops.tiles.plan``
+    gives otherwise) against its staged layout and, for the gradient kernels
+    where their depth layout fits the tile, against that (``_deep``) on the
+    same rows, tile and inputs, bit for bit, relu masks and row tiles too,
+    at the ``BLOCKED_BITS`` hidden widths and two layers, 16 envs: K2 and
+    K2b on the actor's 9,600 x 110 rows, K3 / K3u on them, K4 / K4u on the
+    critic's 2,400 x 440; K4, K4u, K2b and K2 on the 20-UAV preset's
+    4,840-wide critic rows (their chunked layouts; K2's at 1,024); the
+    layer-0 input backward with dx on 2,400 of those rows at the
+    ``BLOCKED_BITS`` and ``BLOCKED_CHECKS`` widths, where its g0 rows still
+    fit a block. The column-blocked layout keeps the staged layout's
+    roundings and summation orders, so anything else is a fault. The tiles
+    taken must include 16, 32 and 64 rows."""
+    import torch
+
+    from dcc_tpu_torch.ops import cuda_build, tiles
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    seen = set()
+    for hidden in BLOCKED_BITS:
+        for preset in (None, WIDE):
+            env = env_config(preset)
+            for name, kern, _, rows in deep_kernel_cases(gen, 2, hidden, False, preset,
+                                                         k2_rows=None):
+                # the critic's rows (K4, K4u; with the preset, K2b too) or the actor's
+                width = env.obs_dim * (env.n_agents if preset or name.startswith("critic")
+                                       else 1)
+                n_head = 2 if name.startswith("actor") else 1
+                runs = {}
+                for layout, kw in (("staged", {}), ("blocked", {"_blocked": True}),
+                                   ("depth", {"_deep": True})):
+                    if layout == "depth":  # where the depth layout fits the staged tile
+                        if name == "fused_mlp":
+                            continue
+                        p = tiles.plan(name, True, width, hidden, 2, n_head)
+                        staged_tiles = runs["staged"][2]
+                        tile = staged_tiles.get(name, staged_tiles.get(f"{name}_chunked"))
+                        if tiles.smem_bytes(name, True, tile, width, hidden, 2, n_head,
+                                            p.chunked, deep=True) > tiles.SMEM_MAX:
+                            continue
+                    masks = torch.zeros((2, rows, hidden), dtype=torch.uint8, device="cuda")
+                    cuda_build.TILE.clear()
+                    out = kern(True, relu_masks=masks, **kw)
+                    runs[layout] = (out, masks, {k.replace("_blocked", ""): v
+                                                 for k, v in cuda_build.TILE.items()})
+                out, masks, tile_of = runs["blocked"]
+                seen.update(tile_of.values())
+                for other in ("staged", "depth"):
+                    if other not in runs:
+                        continue
+                    o_out, o_masks, o_tiles = runs[other]
+                    same = (all(torch.equal(a, b) for a, b in zip(out, o_out))
+                            and torch.equal(masks, o_masks) and tile_of == o_tiles)
+                    where = "" if preset is None else f" {preset}"
+                    results.append(dict(hidden=hidden, preset=preset, kernel=name, rows=rows,
+                                        tiles=tile_of, against=other, bit_identical=same))
+                    print(f"  bits H={hidden}{where} {name} {rows} rows (tiles {tile_of}): "
+                          f"column-blocked layout {'bit for bit' if same else 'DIFFERS from'} "
+                          f"the {other} layout", flush=True)
+                    if not same:
+                        raise SmokeFailure(f"{name} at hidden {hidden}{where}: the column-"
+                                           f"blocked layout differs from the {other} layout")
+                del runs
+                torch.cuda.empty_cache()
+    # the layer-0 input backward with dx, where its g0 rows still fit a block
+    from dcc_tpu_torch.ops import fused_mlp as FM
+
+    env = env_config(WIDE)
+    D = env.obs_dim * env.n_agents
+    for hidden in BLOCKED_BITS + BLOCKED_CHECKS:
+        _, cparams = _wide_net(gen, 9, WIDE, False, hidden)
+        w0b = FM.pack_mma_weights([cparams[2]], "cuda")[0].view(FM.pad16(D), FM.pad16(hidden))
+        x = torch.randn(2400, D, generator=gen, device="cuda").to(torch.bfloat16)
+        xstats = FM.input_stats(x, True)
+        g0 = _layer0_cotangent(gen, 2400, hidden)
+        runs = []
+        for kw in ({}, {"_blocked": True}):
+            cuda_build.TILE.clear()
+            out = FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, cparams[0], hidden, True, **kw)
+            runs.append((out, {k.replace("_blocked", ""): v for k, v in cuda_build.TILE.items()}))
+        same = (all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+                and runs[0][1] == runs[1][1])
+        results.append(dict(hidden=hidden, preset=WIDE, kernel="layer0_input_bwd", rows=2400,
+                            tiles=runs[1][1], against="staged", bit_identical=same))
+        print(f"  bits H={hidden} {WIDE} layer0_input_bwd dx 2400 rows (tiles {runs[1][1]}): "
+              f"column-blocked build {'bit for bit' if same else 'DIFFERS from'} the staged one",
+              flush=True)
+        if not same:
+            raise SmokeFailure(f"layer0_input_bwd at hidden {hidden}: the column-blocked build "
+                               f"differs from the staged one")
+    if not {16, 32, 64} <= seen:
+        raise SmokeFailure(f"the column-blocked layout's bit checks took tiles {sorted(seen)}, "
+                           f"not 16, 32 and 64")
+
+
+# the plans the column-blocked phase requires at BLOCKED_CHECKS: (kernel,
+# row width, head width, hidden widths at which it takes the column-blocked
+# layout unforced); every other launch keeps its earlier layout
+BLOCKED_PLANS = (("fused_mlp", 110, 1, (4096,)), ("fused_mlp", 440, 1, (4096,)),
+                 ("fused_mlp", 4840, 1, (4096,)),
+                 ("fused_mlp_bwd", 110, 1, BLOCKED_CHECKS),
+                 ("fused_mlp_bwd", 440, 1, BLOCKED_CHECKS),
+                 ("actor_ppo_grads", 110, 2, BLOCKED_CHECKS),
+                 ("critic_ppo_grads", 440, 1, BLOCKED_CHECKS),
+                 ("actor_ppo_grads_unfolded", 110, 2, BLOCKED_CHECKS),
+                 ("critic_ppo_grads_unfolded", 440, 1, BLOCKED_CHECKS),
+                 ("critic_ppo_grads", 4840, 1, BLOCKED_CHECKS),
+                 ("critic_ppo_grads_unfolded", 4840, 1, BLOCKED_CHECKS),
+                 ("fused_mlp_bwd", 4840, 1, BLOCKED_CHECKS),
+                 ("layer0_input_bwd", 4840, 1, ()))
+
+
+def check_blocked(results: list, ptxas: dict):
+    """ROADMAP B3 rest: hidden widths past what a staged, chunked or depth
+    tile holds, the column-blocked layout (``csrc/trunk_mma.cuh``'s
+    DCC_BLOCKED, the ``*_blocked`` libraries). The row-tile plans
+    (``BLOCKED_PLANS``); the layout bit for bit against the staged and depth
+    layouts (``check_blocked_bits``); each kernel in it, forced (K2, K2b,
+    K3 / K4, K3u / K4u on the default config's rows, the layer-0 input
+    backward with dx on 2,400 of the 20-UAV preset's 4,840-wide critic
+    rows), against its plain version at ``BLOCKED_CHECKS`` at 16 envs, bf16,
+    on the model's relu trunk under the relu mask rule and the model's trunk
+    with tanh (``trunk_variants``' first two; K4 and K4u under the
+    value-flip rule), the kernel computed in f32 outside the bound, the
+    relu rows timed; at ``BLOCKED_TIMED`` the main path's shapes at
+    ``BLOCKED_ENVS`` envs on the model's trunk (K2 on a rollout step's rows,
+    K2b on the 153,600 rows of an update, K3 / K4 and K3u / K4u on 153,600
+    x 110 and 38,400 x 440), timed, the f32 control only for K2 there; each
+    row with its kernels' ptxas registers and spills. Before these (after
+    the bit checks), the layout's chunked K2b, K4u and K4 on 2,400 of the
+    20-UAV preset's 4,840-wide critic rows at ``BLOCKED_CHECKS``, the plan's
+    own layout there (``check_wide_chunked``: relu under the mask and
+    value-flip rules, the plain version in f32 as the f32 reading, timed at
+    ``BLOCKED_TIMED``), and K2 at 4,096 on the preset's rows and, chunked,
+    on the 300-PoI swarm's. ``BLOCKED_RUNS`` run through the entry point
+    apart (``train_runs``)."""
+    import torch
+
+    from dcc_tpu_torch.ops import tiles
+
+    first, t0 = len(results), time.perf_counter()
+    for kernel, width, n_head, blocked_at in BLOCKED_PLANS:
+        for hidden in BLOCKED_CHECKS:
+            p = tiles.plan(kernel, True, width, hidden, 2, n_head)
+            print(f"  plan {kernel} {width} wide, hidden {hidden}: chunked {p.chunked}, tiles "
+                  f"{p.tiles}, column-blocked {p.blocked}", flush=True)
+            # a blocked plan keeps the first layer the row takes at hidden 256
+            wide = p.blocked and tiles.plan(kernel, True, width, 256, 2, n_head).chunked
+            if not p.tiles or p.blocked != (hidden in blocked_at) or p.blocked and (
+                    p.chunked != wide):
+                raise SmokeFailure(f"{kernel} at hidden {hidden}: plan {p}")
+    bits: list = []
+    check_blocked_bits(bits)
+    print(f"  bit checks done at {time.perf_counter() - t0:.1f} s", flush=True)
+    # the chunked kernels of the layout on the 20-UAV preset's 4,840-wide
+    # critic rows, as its runs launch them (the plan's own choice there):
+    # K2b, K4u and K4, then the layer-0 tail, on the model's relu trunk
+    # under the mask and value-flip rules, timed at BLOCKED_TIMED (the
+    # {"kernels": [...]} line's ``*_chunked_blocked_h*``); K2 at 4,096 on the
+    # preset's rows and, chunked, on the 300-PoI swarm's 6,040-wide ones
+    model = [("", True, 2, True)]
+    for i, hidden in enumerate(BLOCKED_CHECKS):
+        gen = torch.Generator(device="cuda").manual_seed(320 + i)
+        print(f"  hidden {hidden}, the {WIDE} preset's rows at 16 envs, the column-blocked "
+              f"layout's chunked kernels (at {time.perf_counter() - t0:.1f} s)", flush=True)
+        check_wide_chunked(results, gen, hidden=hidden, envs_list=(16,), variants=model,
+                           timed=hidden == BLOCKED_TIMED, blocked=True)
+    gen = torch.Generator(device="cuda").manual_seed(330)
+    for preset in (WIDE, POIS):
+        check_trunk_forward(results, gen, preset=preset, envs_list=(16,), modes=(True,),
+                            hidden=BLOCKED_CHECKS[-1], blocked=True)
+    # relu (mask rule), timed; tanh, its readings only
+    trunks = trunk_variants(True, None, BLOCKED_CHECKS[0])[:2]
+    for i, hidden in enumerate(BLOCKED_CHECKS):
+        gen = torch.Generator(device="cuda").manual_seed(300 + i)
+        print(f"  hidden {hidden}, 16 envs, the column-blocked layout (at "
+              f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        kw = dict(hidden=hidden, blocked=True)
+        check_trunk_forward(results, gen, envs_list=(16,), modes=(True,), **kw)
+        check_trunk_backward(results, gen, ((16, 1, "both"),), modes=(True,), variants=trunks,
+                             timed=("",), **kw)
+        check_ppo(results, gen, ((16, 1),), modes=(True,), variants=trunks, timed=("",), **kw)
+        check_unfolded(results, gen, envs_list=(16,), modes=(True,), variants=trunks,
+                       timed=("",), **kw)
+        check_layer0(results, gen, cases=((16, 2400, True, " dx"),), **kw)
+    gen = torch.Generator(device="cuda").manual_seed(310)
+    kw = dict(hidden=BLOCKED_TIMED, blocked=True, modes=(True,))
+    print(f"  hidden {BLOCKED_TIMED}, the main path's shapes at {BLOCKED_ENVS} envs, the "
+          f"column-blocked layout (at {time.perf_counter() - t0:.1f} s)", flush=True)
+    check_trunk_forward(results, gen, envs_list=(BLOCKED_ENVS,), **kw)
+    kw.update(variants=model, control=False)  # the f32 controls: at 16 envs, above
+    check_trunk_backward(results, gen, ((BLOCKED_ENVS, 1, "both"),), **kw)
+    check_ppo(results, gen, ((BLOCKED_ENVS, 1),), **kw)
+    check_unfolded(results, gen, envs_list=(BLOCKED_ENVS,), **kw)
+    shown = set()
+    for row in results[first:]:
+        row["ptxas"] = kernel_ptxas(ptxas, row["entry"], row["hidden"], True)
+        key = (row["entry"], min(row["ptxas"], default=""))
+        if key not in shown:
+            shown.add(key)
+            print(f"  ptxas behind {row['entry']} [blocked]: {row['ptxas']}", flush=True)
+    print(f"  the column-blocked layout: {len(results) - first} checks in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -3924,46 +4534,64 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}, python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    built = cuda_build.build(verbose=True)
-    print(f"[2] built {sorted(k for k in built if not k.startswith('_'))} in "
-          f"{built['_seconds']:.1f} s ({time.perf_counter() - t0:.1f} s with hashing)",
-          flush=True)
+    at = lambda: f"(at {time.perf_counter() - t0:.0f} s)"
+    # K1 first; the other sources build in a background thread while the
+    # runs that need no other kernel, or wait for theirs, go on (the
+    # libraries load one at a time, each once its source is built)
+    k1 = cuda_build.build(verbose=True, names=("gae",))
+    join_build = in_background(cuda_build.build, verbose=True)
+    print(f"[2] built ['gae'] in {k1['_seconds']:.1f} s; the other kernels build in the "
+          f"background {at()}", flush=True)
+    runs: dict = {}
+    precision: dict = {}
+    try:
+        print(f"[3] while they build: training through dcc_tpu_torch.train {at()}", flush=True)
+        train_runs(runs)
+        print(f"[3b] precision: the df64 pull force, the golden traces and the float64 env on "
+              f"the card {at()}", flush=True)
+        check_precision(precision)
+        print(f"[3c] the deep trunks' runs and the runs at hidden {BLOCKED_TIMED}, 4,096 and "
+              f"4,800 {at()}", flush=True)
+        train_runs(runs, DEEP_RUNS)
+        train_runs(runs, BLOCKED_RUNS)
+        built = join_build()
+    except BaseException:
+        cuda_build.stop_builds()
+        raise
+    built["_ptxas"].update(k1["_ptxas"])
+    print(f"[4] built {sorted(k for k in built if not k.startswith('_'))} in "
+          f"{built['_seconds']:.1f} s {at()}", flush=True)
     ptxas = ptxas_report(built["_ptxas"], args.ptxas)
     sass = sass_check(built)
 
     checks: list = []
-    print(f"[3] kernels against their plain versions (at {time.perf_counter() - t0:.0f} s)",
-          flush=True)
+    print(f"[5] hidden widths past 1,024: the column-blocked layout {at()}", flush=True)
+    t_blocked = time.perf_counter()
+    check_blocked(checks, ptxas)
+    print(f"  column-blocked phase {time.perf_counter() - t_blocked:.1f} s", flush=True)
+    print(f"[6] kernels against their plain versions {at()}", flush=True)
     check_kernels(checks, ptxas)
-    print(f"[4] updates on the card against the CPU (at {time.perf_counter() - t0:.0f} s)",
-          flush=True)
+    print(f"[7] updates on the card against the CPU {at()}", flush=True)
     updates: dict = {}
     check_updates_against_cpu(updates)
     check_k2_plain_update(updates)
     check_maddpg_update(updates)
-    print(f"[5] training through dcc_tpu_torch.train (at {time.perf_counter() - t0:.0f} s)",
-          flush=True)
-    runs: dict = {}
-    train_runs(runs)
+    print(f"[8] the profiled runs, the curve runner and the render {at()}", flush=True)
+    train_runs(runs, profiled=True)
     curve_run(runs)
     render_run(runs)
-    print(f"[6] precision: the df64 pull force, the golden traces and the float64 env on the "
-          f"card (at {time.perf_counter() - t0:.0f} s)", flush=True)
-    precision: dict = {}
-    check_precision(precision)
-    print(f"[7] the env axis over ranks: a 1-rank NCCL mesh, 2 gloo ranks on card 0, MADDPG "
-          f"(at {time.perf_counter() - t0:.0f} s)", flush=True)
+    print(f"[9] the env axis over ranks: a 1-rank NCCL mesh, 2 gloo ranks on card 0, MADDPG "
+          f"{at()}", flush=True)
     mesh: dict = {}
     t_mesh = time.perf_counter()
     check_mesh(mesh)
     mesh["seconds"] = time.perf_counter() - t_mesh
     print(f"  mesh phase {mesh['seconds']:.1f} s", flush=True)
-    print(f"[8] deep trunks: every kernel at 8, 9 and 32 layers, the deep runs (at "
-          f"{time.perf_counter() - t0:.0f} s)", flush=True)
+    print(f"[10] deep trunks: every kernel at 8, 9 and 32 layers {at()}", flush=True)
     t_deep = time.perf_counter()
-    check_deep(checks, runs)
+    check_deep(checks)
     print(f"  deep phase {time.perf_counter() - t_deep:.1f} s", flush=True)
-    print(f"[9] done at {time.perf_counter() - t0:.0f} s", flush=True)
+    print(f"[11] done {at()}", flush=True)
 
     kernels = []
     for name in REPLACES:
@@ -3982,10 +4610,11 @@ def main(argv=None) -> int:
             launches=runs[MAIN_RUN[name]]["launches"].get(kernel, 0), hidden=hidden,
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             device_ms=dev["kernel"] / 1e3 if dev else None, plain_ms=row["plain_ms"],
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"], library_ms=row["library_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"], scratch_ms=row["scratch_ms"],
+            library_ms=row["library_ms"],
             mode=mode, shape=row["shape"], entry=row["entry"],
             host_us=row["host_us"]["wrapper"],
-            ptxas=kernel_ptxas(ptxas, row["entry"], hidden),
+            ptxas=kernel_ptxas(ptxas, row["entry"], hidden, "_blocked" in kernel),
         ))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

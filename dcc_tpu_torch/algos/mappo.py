@@ -359,7 +359,6 @@ class MAPPO:
         self.net_dtype = torch.bfloat16 if self.bf16 else torch.float32
         self._updates_per_iter = cfg.ppo_epoch * cfg.num_mini_batch
         if on_cuda and (self.fused_trunk or self.fused_loss):
-            self._check_cuda_trunk()
             self._check_row_tiles()
         if mesh is not None and on_cuda and (self.gae_kernel or self.fused_trunk
                                              or self.fused_loss):
@@ -385,34 +384,19 @@ class MAPPO:
                          (f"critic_ppo_grads{tag}", self.cent_obs_dim, 1)]
         return launches
 
-    def _check_cuda_trunk(self) -> None:
-        """Raise before any launch where the fused CUDA kernels do not take
-        the trunk (``ops.fused_mlp.cuda_trunk_faults``): in bf16, a hidden
-        width at which a kernel this run launches has no row tile that fits
-        one block (ROADMAP B3: above about 1,024). Every depth is taken: the
-        kernels read their offsets from a device table, and past the depth
-        whose activations fit one block the bf16 gradient kernels keep them
-        in device memory (their depth layout). Every bf16 kernel runs its
-        layers in column passes and streams its first layer in column chunks
-        past the widest staged row (``ops.tiles.plan``), so no other bf16
-        width is refused."""
-        faults = FM.cuda_trunk_faults(self.cfg.hidden_size, self.cfg.layer_n + 1, self.bf16,
-                                      self._fused_launches())
-        if faults:
-            raise NotImplementedError(
-                f"the fused CUDA kernels (fused_trunk / fused_loss) do not take "
-                f"{'; '.join(faults)}; turn them off (--fused-trunk off --fused-loss off)")
-
     def _check_row_tiles(self) -> None:
-        """Raise where an f32 kernel this run launches on CUDA has no row
-        tile at its row width: the f32 FMA kernels stage whole rows (one-row
-        tiles up to 28,161 columns for the unfolded ones at hidden 256), and
-        a row too wide would first fail inside its launch. (The bf16 kernels'
-        tiles are :meth:`_check_cuda_trunk`'s.)"""
-        if self.bf16:
-            return
+        """Raise where a fused kernel this run launches on CUDA has no row
+        tile at its row width, before any launch: the f32 FMA kernels stage
+        whole rows (one-row tiles up to 28,161 columns for the unfolded ones
+        at hidden 256), and a row too wide would first fail inside its
+        launch. In bf16 every width and depth has one (``ops.tiles.plan``):
+        the kernels run their layers in column passes, stream their first
+        layer in column chunks past the widest staged row, keep every layer's
+        tile in device memory past the depth a block holds (the depth
+        layout) and every tile as wide as the hidden layer past the widths
+        one holds (the column-blocked layout)."""
         for kernel, width, n_head in self._fused_launches():
-            if not tiles.plan(kernel, False, width, self.cfg.hidden_size,
+            if not tiles.plan(kernel, self.bf16, width, self.cfg.hidden_size,
                               self.cfg.layer_n + 1, n_head).tiles:
                 raise NotImplementedError(
                     f"f32 {kernel} stages whole rows and no row tile fits one block's shared "
@@ -487,6 +471,11 @@ class MAPPO:
         """A fresh state of one actor and critic: their Adams and
         normalizer, the counters at 0."""
         cfg = self.cfg
+        if self.mesh is not None and self.bf16:
+            # each rank's bf16 Dense gradients stay f32 partial sums until
+            # _sync has added them (one process rounds the whole sum once)
+            actor.defer_grad_rounding()
+            critic.defer_grad_rounding()
         return TrainState(
             actor=actor,
             critic=critic,
@@ -1035,11 +1024,21 @@ class MAPPO:
         """Under a mesh, both networks' ``.grad`` and a step's metric
         ``partials`` (this rank's shares of the means) summed over the
         ranks in one collective, before the clip; returns the metrics.
-        No-op without a mesh."""
+        In bf16 the Dense layers' gradients, summed unrounded, are then
+        rounded to bf16, as one process's autograd rounds its sum over all
+        rows (``defer_grad_rounding``); rounding each rank's share instead
+        would move the steps apart from one process's. No-op without a
+        mesh."""
         if self.mesh is not None:
             grads = [p.grad for net in (ts.actor, ts.critic) for p in net.parameters()
                      if p.grad is not None]
             self.mesh.all_sum_([*grads, partials])
+            with torch.no_grad():
+                for net in (ts.actor, ts.critic):
+                    if net.defer_grad_round:
+                        for p in net.dense_params():
+                            if p.grad is not None:
+                                p.grad.copy_(FM.bf16_round(p.grad))
         return partials
 
     def _update_normalizer(self, ts: TrainState, ret, n=None):

@@ -38,6 +38,15 @@
 //   chunks' products summed in f32 (round to nearest). The same tile then
 //   holds each later layer's input; the layers after layer 0 run as in the
 //   staged kernel.
+// * bf16 at hidden widths whose operand tile fits no block (past about
+//   2,800 at 440-wide rows): the column-blocked library
+//   (fused_mlp_blocked.cu, DCC_BLOCKED) keeps each later layer's input and
+//   the layer's activations in the block's scratch in device memory (two
+//   BR x (Hp + 8) bf16 tiles, fwd_scratch_bytes) and streams the input's
+//   K-slices through the weight ring (trunk_mma.cuh's gemm_stream with
+//   arows), so that shared memory holds layer 0's operand (or its chunk),
+//   the ring and the row sums, and does not grow with H. Same products in
+//   the same order: the staged kernel's bits.
 #include "trunk_mma.cuh"
 
 // Offsets in the packed f32 parameter buffer (offs, a device table of 2 +
@@ -77,34 +86,44 @@ __global__ void __launch_bounds__(DCC_THREADS)
 
 // Row stride of the bf16 kernels' operand tile: staged, the widest layer
 // input (pad16(d_in) or pad16(H)); chunked, one MMA_KC-column chunk of layer
-// 0's operand or each later layer's input, pad16(H).
+// 0's operand or each later layer's input, pad16(H); blocked, layer 0's
+// operand (or its chunk) alone.
 __host__ __device__ inline int fwd_mma_lda(int d_in, int H, bool ch) {
-  const int Hp = pad16(H), k0 = ch ? MMA_KC : pad16(d_in);
+  const int Hp = DCC_BLOCKED ? 0 : pad16(H), k0 = ch ? MMA_KC : pad16(d_in);
   return (k0 > Hp ? k0 : Hp) + 8;
 }
 
 // Shared memory of the bf16 kernels: the BR x lda operand tile, the weight
-// ring (stages of one column pass), the row-sum partials, chunked the rows'
-// feature-norm mean and 1/sqrt(var + eps) (then independent of d_in) and,
-// at hidden widths of more than one column pass, the BR x (Hp + 8) bf16
+// ring (stages of one column pass; blocked, with the streamed input's
+// slices), the row-sum partials, chunked the rows' feature-norm mean and
+// 1/sqrt(var + eps) (then independent of d_in) and, at hidden widths of
+// more than one column pass and not blocked, the BR x (Hp + 8) bf16
 // activations of the layer.
 __host__ __device__ inline size_t fwd_mma_smem_bytes(int br, int d_in, int H, bool ch) {
   const int Hp = pad16(H);
   const int WN = MMA_WARPS / (br / 16);
   return 2 * ((size_t)br * fwd_mma_lda(d_in, H, ch) +
-              MMA_STAGES * (size_t)ring_stage(pass_cols(Hp), false)) +
+              MMA_STAGES * (size_t)(ring_stage(pass_cols(Hp), false) +
+                                    (DCC_BLOCKED ? ring_a(br) : 0))) +
          4 * (size_t)WN * br * 2 + (ch ? 4 * 2 * (size_t)br : 0) +
-         (Hp > MMA_HMAX ? 2 * (size_t)br * (Hp + 8) : 0);
+         (Hp > MMA_HMAX && !DCC_BLOCKED ? 2 * (size_t)br * (Hp + 8) : 0);
+}
+
+// Bytes of one block's scratch in the column-blocked library: a later
+// layer's input and the layer's activations, BR x (Hp + 8) bf16 each.
+__host__ __device__ inline size_t fwd_scratch_bytes(int br, int H) {
+  return 2 * 2 * (size_t)br * (pad16(H) + 8);
 }
 
 // bf16 trunk on the tensor cores. wb holds each layer's W as bf16, zero
 // padded to pad16(d_li) x pad16(H), at woffs[li] (a device table of L
 // entries); pb the f32 vectors at offs, as the f32 kernel's.
 // mask: null, or the relu masks' debug output (L x R x H bytes, z > 0).
+// scratch: the blocked library's (gridDim.x x fwd_scratch_bytes), else unread.
 #define DCC_TRUNK_FWD_MMA_PARAMS                                                           \
   const void *x, int x_bf16, long long R, int d_in, int H, int L, int use_fn, int relu,    \
       const float *pb, const long long *offs, const bf16 *wb, const long long *woffs,      \
-      bf16 *out, unsigned char *mask
+      bf16 *out, unsigned char *mask, unsigned char *scratch
 
 // CH: layer 0 chunked (the rows' statistics, then chunked_layer0) instead
 // of staged (load_input, then gemm_stream over the whole row). Each layer
@@ -116,12 +135,19 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
                                               DCC_TRUNK_FWD_MMA_PARAMS) {
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda = fwd_mma_lda(d_in, H, CH), ldh = Hp + 8;
   const bool multi = DCC_WIDE && Hp > MMA_HMAX;
+  constexpr bool blk = DCC_BLOCKED;
   bf16* A = (bf16*)smem_raw;  // BR x lda: the current layer's input (or chunk)
   bf16* ring = A + BR * lda;
-  float* red = (float*)(ring + MMA_STAGES * ring_stage(pass_cols(Hp), false));
+  float* red = (float*)(ring + MMA_STAGES * (ring_stage(pass_cols(Hp), false) +
+                                             (blk ? ring_a(BR) : 0)));
   float* fmu = red + MmaTile<BR>::WN * BR * 2;  // chunked: the rows' statistics
   float* finv = fmu + BR;
-  bf16* act = (bf16*)(fmu + (CH ? 2 * BR : 0));  // more than one pass: the activations
+  // more than one pass: the activations; blocked, they and the later
+  // layers' input (sx, streamed by the products) in the block's scratch
+  bf16* scr = blk ? (bf16*)(scratch + (long long)blockIdx.x * fwd_scratch_bytes(BR, H)) : nullptr;
+  bf16* sx = blk ? scr : A;
+  const int ldx = blk ? ldh : lda;
+  bf16* act = blk ? scr + BR * ldh : (bf16*)(fmu + (CH ? 2 * BR : 0));
   const WarpTile wt = pass_tile<BR>(Hp, 0);
 
   const long long tiles = (R + BR - 1) / BR;
@@ -147,10 +173,13 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
                                      use_fn ? pb + offs[1] : nullptr, A, lda, wb + woffs[0], Hp,
                                      n0, ring, pt, acc);
           else
-            gemm_stream<false>(A, lda, Hp, wb + woffs[li] + n0, Hp, np, ring, pt, acc);
+            gemm_stream<false>(sx, ldx, Hp, wb + woffs[li] + n0, Hp, np, ring, pt, acc,
+                               blk ? BR : 0);
+        } else if (li == 0) {
+          gemm_stream<false>(A, lda, Kp0, wb + woffs[0] + n0, Hp, np, ring, pt, acc);
         } else {
-          gemm_stream<false>(A, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp, np, ring, pt,
-                             acc);
+          gemm_stream<false>(sx, ldx, Hp, wb + woffs[li] + n0, Hp, np, ring, pt, acc,
+                             blk ? BR : 0);
         }
         dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
         if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
@@ -178,7 +207,7 @@ __device__ __forceinline__ void trunk_fwd_mma(unsigned char* smem_raw,
                   y[e] = ln_affine(acc[nt][2 * h + e], mu[h], inv[h], sc[c + e], bi[c + e]);
               }
               if (li + 1 < L) {
-                store_bf16x2(A + r * lda + c, y[0], y[1]);
+                store_bf16x2(sx + r * ldx + c, y[0], y[1]);
               } else if (row0 + r < R && c < H) {
                 bf16* p = out + (row0 + r) * H + c;
                 if (!DCC_WIDE || (H & 1) == 0) {
@@ -202,7 +231,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     trunk_fwd_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_fwd_mma<BR, false>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
-                           out, mask);
+                           out, mask, scratch);
 }
 
 // bf16 trunk with the chunked layer 0, for rows too wide for a staged tile.
@@ -211,7 +240,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     trunk_fwd_chunked_mma_kernel(DCC_TRUNK_FWD_MMA_PARAMS) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   trunk_fwd_mma<BR, true>(smem_raw, x, x_bf16, R, d_in, H, L, use_fn, relu, pb, offs, wb, woffs,
-                          out, mask);
+                          out, mask, scratch);
 }
 
 template <int BR>
@@ -237,7 +266,7 @@ template <int BR, bool CH>
 static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, int L,
                       int use_fn, int relu, const float* pb, const long long* o, const bf16* wb,
                       const long long* wo, int n_blocks, bf16* out, unsigned char* mask,
-                      cudaStream_t stream) {
+                      unsigned char* scratch, cudaStream_t stream) {
   static bool smem_set = false;
   auto k = trunk_fwd_mma_kernel<BR>;
   if constexpr (CH) k = trunk_fwd_chunked_mma_kernel<BR>;
@@ -248,7 +277,7 @@ static int launch_mma(const void* x, int x_bf16, long long R, int d_in, int H, i
   const size_t smem = fwd_mma_smem_bytes(BR, d_in, H, CH);
   if (R > 0)
     k<<<n_blocks, MMA_THREADS, smem, stream>>>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o,
-                                               wb, wo, out, mask);
+                                               wb, wo, out, mask, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -259,27 +288,28 @@ static int trunk_fwd_mma_entry(const void* x, int x_bf16, long long R, int d_in,
                                int use_fn, int relu, int br, const float* pb,
                                const long long* offs, int n_offs, const void* wb,
                                const long long* woffs, int n_woffs, int n_blocks, void* out,
-                               void* mask, void* stream) {
+                               void* mask, void* scratch, void* stream) {
   if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || !mma_width_ok(H) || n_blocks < 1 ||
-      d_in < 1)
+      d_in < 1 || (DCC_BLOCKED && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long *o = offs, *wo = woffs;
   const bf16* w = (const bf16*)wb;
   bf16* y = (bf16*)out;
   unsigned char* m = (unsigned char*)mask;
+  unsigned char* sc = (unsigned char*)scratch;
   switch (br) {
     case 64:
       if constexpr (CH) return (int)cudaErrorInvalidValue;
       else
         return launch_mma<64, false>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo,
-                                     n_blocks, y, m, s);
+                                     n_blocks, y, m, sc, s);
     case 32:
       return launch_mma<32, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
-                                y, m, s);
+                                y, m, sc, s);
     case 16:
       return launch_mma<16, CH>(x, x_bf16, R, d_in, H, L, use_fn, relu, pb, o, w, wo, n_blocks,
-                                y, m, s);
+                                y, m, sc, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -310,14 +340,21 @@ extern "C" unsigned long long dcc_trunk_fwd_mma_chunked_smem_bytes(int br, int d
 
 // bf16 trunk on the tensor cores: br in {64, 32, 16}; any H whose tile fits
 // (dcc_trunk_fwd_mma_smem_bytes); n_blocks persistent blocks loop over the
-// row tiles; mask null or the relu masks' debug output (L x R x H bytes).
+// row tiles; mask null or the relu masks' debug output (L x R x H bytes);
+// scratch: null, or in the blocked library (required) n_blocks x
+// dcc_trunk_fwd_scratch_bytes.
 extern "C" int dcc_trunk_fwd_mma(const void* x, int x_bf16, long long R, int d_in, int H,
                                  int L, int use_fn, int relu, int br, const float* pb,
                                  const long long* offs, int n_offs, const void* wb,
                                  const long long* woffs, int n_woffs, int n_blocks, void* out,
-                                 void* mask, void* stream) {
+                                 void* mask, void* scratch, void* stream) {
   return trunk_fwd_mma_entry<false>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
-                                    n_offs, wb, woffs, n_woffs, n_blocks, out, mask, stream);
+                                    n_offs, wb, woffs, n_woffs, n_blocks, out, mask, scratch,
+                                    stream);
+}
+
+extern "C" unsigned long long dcc_trunk_fwd_scratch_bytes(int br, int H) {
+  return fwd_scratch_bytes(br, H);
 }
 
 // bf16 trunk with the chunked layer 0 (rows too wide for a staged tile): br
@@ -326,9 +363,11 @@ extern "C" int dcc_trunk_fwd_chunked_mma(const void* x, int x_bf16, long long R,
                                          int H, int L, int use_fn, int relu, int br,
                                          const float* pb, const long long* offs, int n_offs,
                                          const void* wb, const long long* woffs, int n_woffs,
-                                         int n_blocks, void* out, void* mask, void* stream) {
+                                         int n_blocks, void* out, void* mask, void* scratch,
+                                         void* stream) {
   return trunk_fwd_mma_entry<true>(x, x_bf16, R, d_in, H, L, use_fn, relu, br, pb, offs,
-                                   n_offs, wb, woffs, n_woffs, n_blocks, out, mask, stream);
+                                   n_offs, wb, woffs, n_woffs, n_blocks, out, mask, scratch,
+                                   stream);
 }
 
 extern "C" const char* dcc_error_string(int code) {

@@ -134,6 +134,14 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // memory, so shared memory does not grow with L. At more than one column
 // pass a layer, each layer's f32 g_prev has its own stage, gst (BR x (Hp +
 // 4)), since act then holds the layer being differentiated.
+//
+// Column-blocked layout (fused_mlp_bwd_blocked.cu, DCC_BLOCKED; hidden
+// widths whose smallest tile fits no other layout): the depth layout with
+// act (every layer's tile, read where it lies), sx, gs, gst, the stage
+// and the column sums in the block's scratch too (trunk_mma.cuh), so that
+// shared memory holds a0, the ring (with the streamed operand's slices, and
+// grad_at_g_blocked's column blocks over it) and the per-row values, and
+// does not grow with H.
 // ---------------------------------------------------------------------------
 struct BwdMmaLayout {
   size_t a0, act, sx, gst, stage, gs, ring, mu, inv, fmu, finv, red, colsum, rnorm, cnorm, flags,
@@ -143,7 +151,10 @@ struct BwdMmaLayout {
 __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, int L,
                                                        bool chunked = false, bool deep = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const bool blk = DCC_BLOCKED;  // the tiles H wide in the scratch
+  deep = deep || blk;
   const size_t Ls = deep ? 0 : L;  // layers whose tiles and statistics stay in shared memory
+  const size_t tile = blk ? 0 : 2 * br * ldh;  // a bf16 tile H wide in shared memory
   // widest column pass of layer 0's g_prev (none when chunked) and of a layer
   const int nk = chunked ? 0 : pass_cols((int)Kp0), nh = pass_cols((int)Hp);
   const int st_kn = ring_stage(nh, false);
@@ -151,20 +162,20 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
   BwdMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * ((chunked ? MMA_KC : Kp0) + 8);
-  m.act = o;    o += 2 * (deep ? 1 : (size_t)L) * br * ldh;
-  m.sx = o;     o += 2 * br * ldh;
-  m.gst = o;    o += deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
+  m.act = o;    o += (deep ? 1 : (size_t)L) * tile;
+  m.sx = o;     o += tile;
+  m.gst = o;    o += !blk && deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
   m.stage = 0;
-  const size_t stage = chunked ? 0 : 4 * br * (Kp0 + 4);
+  const size_t stage = chunked || blk ? 0 : 4 * br * (Kp0 + 4);
   if (o < stage) o = stage;
-  m.gs = o;     o += 2 * br * ldh;
-  m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
+  m.gs = o;     o += tile;
+  m.ring = o;   o += ring_bytes(br, st_kn > st_nk ? st_kn : st_nk);
   m.mu = o;     o += 4 * Ls * br;
   m.inv = o;    o += 4 * Ls * br;
   m.fmu = o;    o += 4 * (size_t)br;
   m.finv = o;   o += 4 * (size_t)br;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
-  m.colsum = o; o += 4 * 3 * (size_t)(br / 16) * Hp;
+  m.colsum = o; o += blk ? 0 : 4 * 3 * (size_t)(br / 16) * Hp;
   m.rnorm = o;  o += 4 * (size_t)br;
   m.cnorm = o;  o += 4 * Ls * Hp;
   m.flags = o;  o += RESUM_BYTES;
@@ -180,7 +191,8 @@ __host__ __device__ inline BwdMmaLayout bwd_mma_layout(int br, int d_in, int H, 
 // are device tables. gout: R x H f32; dx in x's dtype (staged); g0, xstats
 // (chunked); mask null, or the relu masks' debug output of the forward
 // recompute (L x R x H bytes); deep null (the staged layout) or the depth
-// layout's scratch (gridDim.x x deep_scratch_bytes(BR, H, L) bytes).
+// layout's scratch (gridDim.x x deep_scratch_bytes(BR, H, L) bytes; the
+// column-blocked library's: blocked_scratch_bytes, never null).
 #define DCC_TRUNK_BWD_MMA_PARAMS                                                           \
   const void *x, int x_bf16, const float *gout, long long R, int d_in, int H, int L,       \
       int use_fn, int relu, const float *pb, const long long *offs, const bf16 *wb,        \
@@ -195,32 +207,47 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
             ldf = Kp0 + 4, ldgf = Hp + 4;
   const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
+  // the column-blocked layout: the tiles H wide in the scratch, every
+  // layer's tile read where it lies (as staged), products over them with
+  // their first operand streamed (ar rows)
+  constexpr bool blk = DCC_BLOCKED;
+  const int ar = blk ? BR : 0;
+  const DeepScratch ds = deep_scratch<BR>(deep, d_in, H, L, CH);
+  const bool dp = deep != nullptr && !blk;  // the depth layout: one layer's tile in act
   bf16* a0 = (bf16*)(smem_raw + m.a0);
-  bf16* act = (bf16*)(smem_raw + m.act);
-  bf16* sx = (bf16*)(smem_raw + m.sx);
-  float* stage = (float*)(smem_raw + m.stage);
-  bf16* gs = (bf16*)(smem_raw + m.gs);
+  bf16* act = blk ? ds.act : (bf16*)(smem_raw + m.act);
+  bf16* sx = blk ? ds.sx : (bf16*)(smem_raw + m.sx);
+  float* stage = blk ? ds.stage : (float*)(smem_raw + m.stage);
+  bf16* gs = blk ? ds.gs : (bf16*)(smem_raw + m.gs);
   bf16* ring = (bf16*)(smem_raw + m.ring);
   float* fmu = (float*)(smem_raw + m.fmu);
   float* finv = (float*)(smem_raw + m.finv);
   float* red = (float*)(smem_raw + m.red);
-  float* colsum = (float*)(smem_raw + m.colsum);
+  float* colsum = blk ? ds.colsum : (float*)(smem_raw + m.colsum);
   float* rnorm = (float*)(smem_raw + m.rnorm);
-  // the depth layout: every layer's tile and statistics and the column norms
-  // in the block's scratch, one layer's tile in act
-  const DeepScratch ds = deep_scratch<BR>(deep, H, L);
+  // the depth and blocked layouts: every layer's tile and statistics and the
+  // column norms in the block's scratch
   float* mu_s = deep ? ds.mu : (float*)(smem_raw + m.mu);
   float* inv_s = deep ? ds.inv : (float*)(smem_raw + m.inv);
   float* cnorm = deep ? ds.cnorm : (float*)(smem_raw + m.cnorm);
-  auto act_tile = [&](int li) { return deep ? act : act + (long long)li * BR * ldh; };
+  auto act_tile = [&](int li) { return dp ? act : act + (long long)li * BR * ldh; };
   // layer li's saved tile as the backward reads it to recompute an operand
   auto saved = [&](int li) -> const bf16* {
-    return deep ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
+    return dp ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
   };
   // the f32 g_prev of layer li (more than one column pass): staged over
-  // act[li ..] and sx, deep in gst
+  // act[li ..] and sx, deep in gst (blocked: the scratch's)
   auto gstage = [&](int li) {
-    return deep ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+    return blk ? ds.gst : dp ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+  };
+  // dW = in^T g into the slot: staged, grad_at_g on the shared tiles;
+  // blocked, over column blocks staged over the ring
+  auto dw = [&](const bf16* in, int lda, int Kp, int d, float* dst, bool first) {
+    if constexpr (blk)
+      grad_at_g_blocked<BR>(in, lda, in == a0, Kp, d, gs, ldh, Hp, H, dst, first, ring,
+                            ring + BR * (MMA_HMAX + 8));
+    else
+      grad_at_g<BR>(in, lda, Kp, d, gs, ldh, Hp, H, dst, first);
   };
   const ResumList flags = resum_list(smem_raw + m.flags);
   constexpr int WM = MmaTile<BR>::WM;
@@ -276,14 +303,14 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
                                    n0, ring, pt, acc);
         else
           gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp,
-                             min(MMA_HMAX, Hp - n0), ring, pt, acc);
+                             min(MMA_HMAX, Hp - n0), ring, pt, acc, li == 0 ? 0 : ar);
         if (resum)
           resum_uncertain<BR>(acc, in, lda, K, wb + woffs[li], Hp, pb + o[1], H, rnorm,
                               cnorm + li * Hp, row0, R, pt, n0, flags);
         dense_act<BR>(acc, pb + o[1], H, n0, relu, pt, s, q);
         if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
         store_pass<BR>(acc, a, ldh, n0, pt);
-        if (deep) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
+        if (dp) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
       }
       float mu[2], inv[2];
       ln_stats<BR>(s, q, H, red, wt, mu, inv);
@@ -349,7 +376,7 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
       // deep: layer li's tile into act (the last layer's is there from the
       // forward); every thread is done with act since the barrier after the
       // previous layer's LN backward
-      if (deep && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
+      if (dp && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
       const bf16* a = act_tile(li);
       const float* gf = gstage(li + 1);
       auto load_g = [&](int n0, const WarpTile& pt) {
@@ -415,15 +442,15 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
           xstats[2 * (row0 + threadIdx.x) + 1] = finv[threadIdx.x];
         }
       } else {
-        grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                      li == 0 ? d_in : H, gs, ldh, Hp, H, sb + o[0], first);
+        dw(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp, li == 0 ? d_in : H,
+           sb + o[0], first);
       }
       if (li > 0) {  // g_prev = bf16(g) @ W^T
         if (multi) {  // into the stage over act[li ..] and sx, deep gst
-          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf);
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf, ar);
           __syncthreads();
         } else {
-          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc);
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc, ar);
         }
       }
     }
@@ -433,7 +460,7 @@ __device__ __forceinline__ void trunk_bwd_mma(unsigned char* smem_raw,
     }
     // layer 0's g_prev = bf16(g) @ W_0^T over Kp0 columns into the stage
     // (over a0, which grad_at_g has finished reading)
-    gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf);
+    gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf, ar);
     __syncthreads();
     if (use_fn) {
       // feature norm: its scale and bias gradients (rows >= R have g = 0)
@@ -520,7 +547,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
 // CUDA cores, round to nearest; g_prev's own products (K = H) accumulate
 // on the tensor cores as the staged K2b's gprev_passes does. Bound: the
 // products (2 or 4 R Kp0 Hp operations) against the bytes of x, g0 and,
-// with dx, dx.
+// with dx, dx. In the column-blocked library (DCC_BLOCKED; hidden widths
+// whose gs fits no block, past about 4,700) g0's rows are not staged: the
+// products stream them from g0 through the ring (gemm_stream's arows, rows
+// past R zero), in the same order.
 // ---------------------------------------------------------------------------
 #define L0_KC MMA_HMAX  // columns of a chunk of g_prev (one warp tiling's width)
 
@@ -532,8 +562,8 @@ __host__ __device__ inline L0Layout l0_layout(int br, int H) {
   const size_t ldh = pad16(H) + 8;
   L0Layout m;
   size_t o = 0;
-  m.gs = o;     o += 2 * br * ldh;
-  m.ring = o;   o += 2 * MMA_STAGES * (size_t)ring_stage(L0_KC, true);
+  m.gs = o;     o += DCC_BLOCKED ? 0 : 2 * br * ldh;
+  m.ring = o;   o += ring_bytes(br, ring_stage(L0_KC, true));
   m.xh = o;     o += 4 * (size_t)br * (L0_KC + 4);
   m.colsum = o; o += 4 * 2 * (size_t)(br / 16) * L0_KC;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
@@ -571,8 +601,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long long row0 = tile * BR;
     const bool first = tile == blockIdx.x;
-    // g0's rows (rows >= R zero) and the rows' statistics (0, 1 past R)
-    const int cpr = Hp / 8;
+    // g0's rows (rows >= R zero; blocked: streamed by the products) and the
+    // rows' statistics (0, 1 past R)
+    const int cpr = DCC_BLOCKED ? 0 : Hp / 8;
     for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
       const int r = i / cpr, c = i - r * cpr;
       bf16* dst = gs + r * ldh + c * 8;
@@ -615,7 +646,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 1)
         const WarpTile pt = warp_tile<BR>(nc / 8);
         float acc[NT][4];
         // g_prev of the chunk; its first barrier publishes xh
-        gemm_stream<true>(gs, ldh, Hp, w0 + (long long)k0 * Hp, Hp, nc, ring, pt, acc);
+        if (DCC_BLOCKED)
+          gemm_stream<true>(g0 + row0 * Hp, Hp, Hp, w0 + (long long)k0 * Hp, Hp, nc, ring, pt,
+                            acc, BR, (int)min((long long)BR, R - row0));
+        else
+          gemm_stream<true>(gs, ldh, Hp, w0 + (long long)k0 * Hp, Hp, nc, ring, pt, acc);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           if (nt >= pt.ntw) continue;
@@ -786,6 +821,13 @@ extern "C" unsigned long long dcc_deep_scratch_bytes(int br, int H, int L) {
   return deep_scratch_bytes(br, H, L);
 }
 
+// Bytes of one block's scratch in the column-blocked layout (the blocked
+// libraries' gradient kernels; chunked: their chunked layout).
+extern "C" unsigned long long dcc_blocked_scratch_bytes(int br, int d_in, int H, int L,
+                                                        int chunked) {
+  return blocked_scratch_bytes(br, d_in, H, L, chunked);
+}
+
 // f32 (FMA). offs: a device table of [fn scale, fn bias, (W, b, LN scale,
 // LN bias) x L, W^T x L] into pb (2 + 5L entries; the first 2 + 4L also
 // locate each gradient in a slot). slots is n_blocks x slot_size scratch;
@@ -818,14 +860,16 @@ extern "C" int dcc_trunk_bwd(const void* x, int x_bf16, const float* g, long lon
 // bias, (W, b, LN scale, LN bias) x L] into pb and into a slot (2 + 4L
 // entries); woffs: a device table of the bf16 W_li in wb; mask null or the
 // relu masks' debug output (L x R x H bytes); deep null (the staged
-// layout) or the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes.
+// layout) or the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes
+// (the blocked library: n_blocks x dcc_blocked_scratch_bytes, required).
 extern "C" int dcc_trunk_bwd_mma(const void* x, int x_bf16, const float* g, long long R,
                                  int d_in, int H, int L, int use_fn, int relu, int br,
                                  const float* pb, const long long* offs, int n_offs,
                                  const void* wb, const long long* woffs, int n_woffs,
                                  float* slots, long long slot_size, int n_blocks, float* out,
                                  void* dx, void* mask, void* deep, void* stream) {
-  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H))
+  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H) ||
+      (DCC_BLOCKED && deep == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long *o = offs, *wo = woffs;
@@ -859,7 +903,8 @@ extern "C" int dcc_trunk_bwd_chunked_mma(const void* x, int x_bf16, const float*
                                          float* slots, long long slot_size, int n_blocks,
                                          float* out, void* g0, float* xstats, void* mask,
                                          void* deep, void* stream) {
-  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H))
+  if (L < 1 || n_offs != 2 + 4 * L || n_woffs != L || n_blocks < 1 || !mma_width_ok(H) ||
+      (DCC_BLOCKED && deep == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const long long *o = offs, *wo = woffs;

@@ -428,6 +428,11 @@ __global__ void __launch_bounds__(DCC_THREADS)
 // live in the block's scratch, the folded biases u are read from pb, and at
 // more than one column pass a layer the f32 g_prev has its own stage gst;
 // shared memory then does not grow with L.
+// Column-blocked layout (fused_ppo_blocked.cu, DCC_BLOCKED; hidden widths
+// whose smallest tile fits no other layout), as K2b's: the depth layout
+// with act (every layer's tile, read where it lies), sx, gs, gst, the
+// stage, the column sums and the head's weights in the block's scratch
+// (trunk_mma.cuh), so that shared memory does not grow with H.
 // ---------------------------------------------------------------------------
 struct PpoMmaLayout {
   size_t a0, act, sx, gst, stage, gs, ring, mu, inv, fmu, finv, red, colsum, wh, u, dout, ext,
@@ -438,7 +443,10 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
                                                        bool unf, bool chunked = false,
                                                        bool deep = false) {
   const size_t Kp0 = pad16(d_in), Hp = pad16(H), ldh = Hp + 8;
+  const bool blk = DCC_BLOCKED;  // the tiles H wide in the scratch
+  deep = deep || blk;
   const size_t Ls = deep ? 0 : L;  // layers whose tiles and statistics stay in shared memory
+  const size_t tile = blk ? 0 : 2 * br * ldh;  // a bf16 tile H wide in shared memory
   const bool fn_stats = unf || chunked;
   // unfolded and staged: the widest column pass of layer 0's g_prev
   const bool gprev0 = unf && !chunked;
@@ -448,20 +456,20 @@ __host__ __device__ inline PpoMmaLayout ppo_mma_layout(int br, int d_in, int H, 
   PpoMmaLayout m;
   size_t o = 0;
   m.a0 = o;     o += 2 * br * (chunked ? MMA_KC + 8 : Kp0 + 8);
-  m.act = o;    o += 2 * (deep ? 1 : (size_t)L) * br * ldh;
-  m.sx = o;     o += 2 * br * ldh;
-  m.gst = o;    o += deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
+  m.act = o;    o += (deep ? 1 : (size_t)L) * tile;
+  m.sx = o;     o += tile;
+  m.gst = o;    o += !blk && deep && Hp > MMA_HMAX ? 4 * br * (Hp + 4) : 0;
   m.stage = 0;
-  if (gprev0 && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
-  m.gs = o;     o += 2 * br * ldh;
-  m.ring = o;   o += 2 * MMA_STAGES * (size_t)(st_kn > st_nk ? st_kn : st_nk);
+  if (gprev0 && !blk && o < 4 * br * (Kp0 + 4)) o = 4 * br * (Kp0 + 4);
+  m.gs = o;     o += tile;
+  m.ring = o;   o += ring_bytes(br, st_kn > st_nk ? st_kn : st_nk);
   m.mu = o;     o += 4 * Ls * br;
   m.inv = o;    o += 4 * Ls * br;
   m.fmu = o;    o += fn_stats ? 4 * (size_t)br : 0;
   m.finv = o;   o += fn_stats ? 4 * (size_t)br : 0;
   m.red = o;    o += 4 * (size_t)(MMA_WARPS / (br / 16)) * br * 2;
-  m.colsum = o; o += 4 * (unf ? 3 : 1) * (size_t)(br / 16) * Hp;
-  m.wh = o;     o += 4 * (size_t)H * A;
+  m.colsum = o; o += blk ? 0 : 4 * (unf ? 3 : 1) * (size_t)(br / 16) * Hp;
+  m.wh = o;     o += blk ? 0 : 4 * (size_t)H * A;
   m.u = o;      o += unf ? 0 : 4 * Ls * H;
   m.dout = o;   o += 4 * (size_t)br * A;
   m.ext = o;    o += 4 * (size_t)br * A;
@@ -577,7 +585,8 @@ struct CriticLoss {  // value head, clipped / Huber value loss; aux [vpred, ret_
 // du] (FoldedSlot), unfolded the trunk list's gradients at its offsets;
 // then the head's [dW (H x A), db (A), ext (A, when EXT), metrics (NMET)].
 // deep: null (the staged layout) or the depth layout's scratch, gridDim.x x
-// deep_scratch_bytes(BR, H, L) bytes.
+// deep_scratch_bytes(BR, H, L) bytes (the column-blocked library's:
+// blocked_scratch_bytes, never null).
 // Chunked (CH; ROADMAP B2's rows too wide to stage whole): layer 0's
 // operand streams through a0 in MMA_KC-column chunks (chunked_layer0), each
 // normalized from x as it is loaded (unfolded, with the feature norm's
@@ -606,38 +615,53 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
   const int Kp0 = pad16(d_in), Hp = pad16(H), lda0 = (CH ? MMA_KC : Kp0) + 8, ldh = Hp + 8,
             ldf = Kp0 + 4, ldgf = Hp + 4;
   const bool multi = DCC_WIDE && Hp > MMA_HMAX;  // more than one column pass a layer
+  // the column-blocked layout: the tiles H wide in the scratch, every
+  // layer's tile read where it lies (as staged), products over them with
+  // their first operand streamed (ar rows)
+  constexpr bool blk = DCC_BLOCKED;
+  const int ar = blk ? BR : 0;
+  const DeepScratch ds = deep_scratch<BR>(deep, d_in, H, L, CH);
+  const bool dp = deep != nullptr && !blk;  // the depth layout: one layer's tile in act
   bf16* a0 = (bf16*)(smem_raw + m.a0);
-  bf16* act = (bf16*)(smem_raw + m.act);
-  bf16* sx = (bf16*)(smem_raw + m.sx);
-  float* stage = (float*)(smem_raw + m.stage);
-  bf16* gs = (bf16*)(smem_raw + m.gs);
+  bf16* act = blk ? ds.act : (bf16*)(smem_raw + m.act);
+  bf16* sx = blk ? ds.sx : (bf16*)(smem_raw + m.sx);
+  float* stage = blk ? ds.stage : (float*)(smem_raw + m.stage);
+  bf16* gs = blk ? ds.gs : (bf16*)(smem_raw + m.gs);
   bf16* ring = (bf16*)(smem_raw + m.ring);
   float* fnmu = (float*)(smem_raw + m.fmu);
   float* fninv = (float*)(smem_raw + m.finv);
   float* red = (float*)(smem_raw + m.red);
-  float* colsum = (float*)(smem_raw + m.colsum);
-  float* whs = (float*)(smem_raw + m.wh);
+  float* colsum = blk ? ds.colsum : (float*)(smem_raw + m.colsum);
+  float* whs = blk ? ds.wh : (float*)(smem_raw + m.wh);
   float* us = (float*)(smem_raw + m.u);
   float* dout = (float*)(smem_raw + m.dout);
   float* ext = (float*)(smem_raw + m.ext);
   float* met = (float*)(smem_raw + m.met);
   float* rnorm = (float*)(smem_raw + m.rnorm);
   const ResumList flags = resum_list(smem_raw + m.flags);
-  // the depth layout: every layer's tile and statistics and the column norms
-  // in the block's scratch, one layer's tile in act
-  const DeepScratch ds = deep_scratch<BR>(deep, H, L);
+  // the depth and blocked layouts: every layer's tile and statistics and the
+  // column norms in the block's scratch
   float* mu_s = deep ? ds.mu : (float*)(smem_raw + m.mu);
   float* inv_s = deep ? ds.inv : (float*)(smem_raw + m.inv);
   float* cnorm = deep ? ds.cnorm : (float*)(smem_raw + m.cnorm);
-  auto act_tile = [&](int li) { return deep ? act : act + (long long)li * BR * ldh; };
+  auto act_tile = [&](int li) { return dp ? act : act + (long long)li * BR * ldh; };
   // layer li's saved tile as the backward reads it to recompute an operand
   auto saved = [&](int li) -> const bf16* {
-    return deep ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
+    return dp ? ds.act + (long long)li * BR * ldh : act + (long long)li * BR * ldh;
   };
   // the f32 g_prev of layer li (more than one column pass): staged over
-  // act[li ..] and sx, deep in gst
+  // act[li ..] and sx, deep in gst (blocked: the scratch's)
   auto gstage = [&](int li) {
-    return deep ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+    return blk ? ds.gst : dp ? (float*)(smem_raw + m.gst) : (float*)(act + (long long)li * BR * ldh);
+  };
+  // dW = in^T g into the slot: staged, grad_at_g on the shared tiles;
+  // blocked, over column blocks staged over the ring
+  auto dw = [&](const bf16* in, int lda, int Kp, int d, float* dst, bool first) {
+    if constexpr (blk)
+      grad_at_g_blocked<BR>(in, lda, in == a0, Kp, d, gs, ldh, Hp, H, dst, first, ring,
+                            ring + BR * (MMA_HMAX + 8));
+    else
+      grad_at_g<BR>(in, lda, Kp, d, gs, ldh, Hp, H, dst, first);
   };
 
   float* slot = slots + (long long)blockIdx.x * slot_size;
@@ -724,14 +748,14 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
                                   n0, ring, pt, acc);
         else
           gemm_stream<false>(in, lda, li == 0 ? Kp0 : Hp, wb + woffs[li] + n0, Hp,
-                             min(MMA_HMAX, Hp - n0), ring, pt, acc);
+                             min(MMA_HMAX, Hp - n0), ring, pt, acc, li == 0 ? 0 : ar);
         if (resum)
           resum_uncertain<BR>(acc, in, lda, K, wb + woffs[li], Hp, pb + o[1], H, rnorm,
                               cnorm + li * Hp, row0, R, pt, n0, flags);
         dense_act<BR>(acc, bias, H, n0, relu, pt, s, q);
         if (mrow != nullptr) store_relu_mask<BR>(acc, H, n0, pt, mrow, R - row0);
         store_pass<BR>(acc, a, ldh, n0, pt);
-        if (deep) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
+        if (dp) store_pass<BR>(acc, ds.act + (long long)li * BR * ldh, ldh, n0, pt);
       }
       float mu[2], inv[2];
       ln_stats<BR>(s, q, H, red, wt, mu, inv);
@@ -876,7 +900,7 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
       // deep: layer li's tile into act (the last layer's is there from the
       // forward); every thread is done with act since the barrier after the
       // previous layer's LN backward
-      if (deep && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
+      if (dp && li + 1 < L) stage_tile<BR>(act, saved(li), ldh);
       const bf16* a = act_tile(li);
       const float* gf = gstage(li + 1);
       auto load_g = [&](int n0, const WarpTile& pt) {
@@ -952,21 +976,21 @@ __device__ __forceinline__ void ppo_grads_mma(unsigned char* smem_raw, const voi
           xstats[2 * (row0 + threadIdx.x) + 1] = fninv[threadIdx.x];
         }
       } else {
-        grad_at_g<BR>(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp,
-                      li == 0 ? d_in : H, gs, ldh, Hp, H, UNF ? sb + o[0] : fslot.v(li), first);
+        dw(li == 0 ? a0 : sx, li == 0 ? lda0 : ldh, li == 0 ? Kp0 : Hp, li == 0 ? d_in : H,
+           UNF ? sb + o[0] : fslot.v(li), first);
       }
       if (li > 0) {  // g_prev = bf16(g) @ W^T
         if (multi) {  // into the stage over act[li ..] and sx, deep gst
-          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf);
+          gprev_passes<BR>(gs, ldh, Hp, wb + woffs[li], Hp, ring, gstage(li), ldgf, ar);
           __syncthreads();
         } else {
-          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc);
+          gemm_stream<true>(gs, ldh, Hp, wb + woffs[li], Hp, Hp, ring, wt, acc, ar);
         }
       }
     }
     if (UNF && !CH && use_fn) {
       // the feature norm's scale and bias gradients from layer 0's g_prev
-      gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf);
+      gprev_passes<BR>(gs, ldh, Hp, wb + woffs[0], Kp0, ring, stage, ldf, ar);
       __syncthreads();
       fn_affine_grads<BR>(stage, ldf, x, x_bf16, row0, R, d_in, fnmu, fninv, slot + offs[0],
                           slot + offs[1], first);
@@ -1309,7 +1333,8 @@ extern "C" int dcc_actor_grads_unfolded(const void* x, int x_bf16, const float* 
 // x 2 f32) for dcc_dv0_wgmma and, unfolded, dcc_layer0_input_bwd_wgmma);
 // any H whose tile fits (dcc_ppo_*mma*_smem_bytes); mask null or the relu
 // masks' debug output (L x R x H bytes); deep null (the staged layout) or
-// the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes.
+// the depth layout's scratch, n_blocks x dcc_deep_scratch_bytes (the blocked
+// library: n_blocks x dcc_blocked_scratch_bytes, required).
 template <bool UNF, bool CH>
 static int actor_grads_mma(const void* x, int x_bf16, const float* aux, long long R, int d_in,
                            int H, int L, int A, int use_fn, int relu, float clip, int br,
@@ -1318,7 +1343,7 @@ static int actor_grads_mma(const void* x, int x_bf16, const float* aux, long lon
                            long long slot_size, int n_blocks, void* g0, float* xstats,
                            float* out, void* mask, void* deep, void* stream) {
   if (A > 4 || n_blocks < 1 || !mma_width_ok(H) || n_woffs != L ||
-      !offs_ok(n_offs, L, UNF, true, 3))
+      !offs_ok(n_offs, L, UNF, true, 3) || (DCC_BLOCKED && deep == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bf16* w = (const bf16*)wb;
@@ -1466,7 +1491,8 @@ static int critic_grads_mma(const void* x, int x_bf16, const float* aux, const f
                             const long long* woffs, int n_woffs, float* slots,
                             long long slot_size, int n_blocks, void* g0, float* xstats,
                             float* out, void* mask, void* deep, void* stream) {
-  if (n_blocks < 1 || !mma_width_ok(H) || n_woffs != L || !offs_ok(n_offs, L, UNF, true, 2))
+  if (n_blocks < 1 || !mma_width_ok(H) || n_woffs != L || !offs_ok(n_offs, L, UNF, true, 2) ||
+      (DCC_BLOCKED && deep == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bf16* w = (const bf16*)wb;

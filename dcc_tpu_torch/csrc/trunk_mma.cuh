@@ -55,6 +55,20 @@
 #define MMA_SMEM_MAX 232448 // an H100 block's shared memory
 #define MMA_KC 256          // columns of a chunk of a streamed first operand
 
+// DCC_BLOCKED: the column-blocked layout (fused_*_blocked.cu, which also set
+// DCC_WIDE). Every BR x pad16(H) tile (activations, operands, cotangents,
+// f32 stages, column sums) lives in the block's scratch in device memory
+// (DeepScratch below) instead of shared memory, and shared memory holds
+// only what does not grow with H: layer 0's operand, the weight ring and
+// the per-row values. A product whose first operand is such a tile streams
+// that operand's K-slices through the ring beside the weight's (gemm_stream
+// with arows), and dW = in^T g stages both in column blocks of MMA_HMAX
+// (grad_at_g_blocked). The arithmetic and its order are the staged
+// layout's, so both give the same bits where both fit.
+#ifndef DCC_BLOCKED
+#define DCC_BLOCKED 0
+#endif
+
 // DCC_WIDE: the library's kernels take any hidden width: each layer in
 // column passes (widths past MMA_HMAX), odd widths writing their rows and
 // gradient slots one element at a time. fused_*_wide.cu define it to 1 and
@@ -191,26 +205,47 @@ __host__ __device__ inline int ring_stage(int Np, bool nk) {
   return nk ? Np * (MMA_KS + 8) : MMA_KS * (Np + 8);
 }
 
+// Elements of one stage's copy of a streamed first operand of arows rows
+// (the column-blocked layout; 0 without one).
+__host__ __device__ inline int ring_a(int arows) { return arows * (MMA_KS + 8); }
+
 // acc (the warp's 16 rows x its n-tiles) = A @ B. A: BR x Kp bf16 in shared
 // memory, row stride lda. B (Kp x Np) streams from global memory in K-slices
 // through the ring, two slices ahead of the one being multiplied: NK =
 // false reads B stored as B[k][n], NK = true reads it stored transposed,
-// Bt[n][k]; ldg is the stored row stride. One barrier per slice: after it
-// every thread is done with the stage the next load overwrites. Every
-// thread of the block calls it; it ends with a barrier, so A and the ring
-// are free again on return.
+// Bt[n][k]; ldg is the stored row stride. With arows (the column-blocked
+// layout only), A lies in device memory instead: each stage also takes A's
+// K-slice (arows rows, those from avalid on zero), and the products read it
+// there, in the same order. One barrier per slice: after it every thread
+// is done with the stage the next load overwrites; a streamed A must be
+// complete for every thread on entry. Every thread of the block calls it;
+// it ends with a barrier, so A and the ring are free again on return.
 template <bool NK, int NT>
 __device__ __forceinline__ void gemm_stream(const bf16* A, int lda, int Kp, const bf16* Bg,
                                             int ldg, int Np, bf16* ring, const WarpTile& wt,
-                                            float (&acc)[NT][4]) {
+                                            float (&acc)[NT][4], int arows = 0,
+                                            int avalid = 1 << 30) {
   const int lane = threadIdx.x & 31, mat = lane >> 3;
-  const int stage = ring_stage(Np, NK);
+  const bool ga = DCC_BLOCKED && arows > 0;  // A streams through the ring
+  const int bstage = ring_stage(Np, NK);
+  const int stage = bstage + (ga ? ring_a(arows) : 0);
   const int ldb = NK ? MMA_KS + 8 : Np + 8;
   const int ns = (Kp + MMA_KS - 1) / MMA_KS;
   zero_acc(acc);
   auto load = [&](int s) {
     bf16* dst = ring + (s % MMA_STAGES) * stage;
     const int k0 = s * MMA_KS, ks = min(MMA_KS, Kp - k0);
+    if (ga) {
+      const int cpr = ks / 8;
+      for (int i = threadIdx.x; i < arows * cpr; i += blockDim.x) {
+        const int r = i / cpr, c = i - r * cpr;
+        bf16* d = dst + bstage + r * (MMA_KS + 8) + c * 8;
+        if (r < avalid)
+          cp_async16(d, A + (long long)r * lda + k0 + c * 8);
+        else
+          *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
     if (NK) {
       const int cpr = ks / 8;  // 16-byte chunks per stored row
       for (int i = threadIdx.x; i < Np * cpr; i += blockDim.x) {
@@ -239,7 +274,10 @@ __device__ __forceinline__ void gemm_stream(const bf16* A, int lda, int Kp, cons
     const int k0 = s * MMA_KS, ks = min(MMA_KS, Kp - k0);
     for (int kk = 0; kk < ks; kk += 16) {
       uint32_t a[4];
-      ldsm_x4(a, A + (wt.wm * 16 + (lane & 15)) * lda + k0 + kk + (lane >> 4) * 8);
+      if (ga)
+        ldsm_x4(a, B + bstage + (wt.wm * 16 + (lane & 15)) * (MMA_KS + 8) + kk + (lane >> 4) * 8);
+      else
+        ldsm_x4(a, A + (wt.wm * 16 + (lane & 15)) * lda + k0 + kk + (lane >> 4) * 8);
 #pragma unroll
       for (int p = 0; p < NT; p += 2) {
         if (p < wt.ntw) {
@@ -481,15 +519,18 @@ __device__ void load_input(const void* x, int x_bf16, long long row0, long long 
 // owner thread, so there are no atomics. With the slot 8-byte aligned and H
 // even it reads and writes element pairs (float2), else single elements. A
 // slab's slot reads all come before its stores, so they are in flight
-// together.
+// together. With m_lo, n_lo (grad_at_g_blocked's column blocks) only the
+// slabs of rows k in [m_lo, Kp) and columns j in [n_lo, Hp) are formed,
+// in pointing at in's column m_lo and g at g's column n_lo; each slab is
+// the one the whole call forms.
 template <int BR>
 __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g, int ldg,
-                          int Hp, int H, float* slot, bool first) {
+                          int Hp, int H, float* slot, bool first, int m_lo = 0, int n_lo = 0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, mat = lane >> 3;
-  const int ms = (Kp + 31) / 32, ns = (Hp + 63) / 64;
+  const int ms = (Kp - m_lo + 31) / 32, ns = (Hp - n_lo + 63) / 64;
   const bool pairs = !DCC_WIDE || ((H & 1) == 0 && ((unsigned long long)slot & 7) == 0);
   for (int sl = warp; sl < ms * ns; sl += MMA_WARPS) {
-    const int m0 = (sl / ns) * 32, n0 = (sl % ns) * 64;
+    const int m0 = m_lo + (sl / ns) * 32, n0 = n_lo + (sl % ns) * 64;
     float acc[2][8][4];
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -504,13 +545,14 @@ __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g,
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt)
         if (m0 + mt * 16 < Kp)
-          ldsm_x4_t(a[mt], in + (r + (mat >> 1) * 8 + (lane & 7)) * lda + m0 + mt * 16 +
+          ldsm_x4_t(a[mt], in + (r + (mat >> 1) * 8 + (lane & 7)) * lda + m0 - m_lo + mt * 16 +
                                (mat & 1) * 8);
 #pragma unroll
       for (int p = 0; p < 8; p += 2) {
         if (n0 + p * 8 < Hp) {
           uint32_t b[4];
-          ldsm_x4_t(b, g + (r + (mat & 1) * 8 + (lane & 7)) * ldg + n0 + (p + (mat >> 1)) * 8);
+          ldsm_x4_t(b, g + (r + (mat & 1) * 8 + (lane & 7)) * ldg + n0 - n_lo +
+                           (p + (mat >> 1)) * 8);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             if (m0 + mt * 16 < Kp) {
@@ -558,6 +600,47 @@ __device__ void grad_at_g(const bf16* in, int lda, int Kp, int d, const bf16* g,
             }
           }
         }
+  }
+}
+
+// ncols (a multiple of 8) columns of BR rows of a tile in device memory
+// (row stride lds) into shared memory (row stride ldd), by cp.async; the
+// caller commits and waits.
+template <int BR>
+__device__ __forceinline__ void stage_cols(bf16* dst, int ldd, const bf16* src, int lds,
+                                           int ncols) {
+  const int cpr = ncols / 8;
+  for (int i = threadIdx.x; i < BR * cpr; i += blockDim.x) {
+    const int r = i / cpr, c = i - r * cpr;
+    cp_async16(dst + r * ldd + c * 8, src + (long long)r * lds + c * 8);
+  }
+}
+
+// grad_at_g in the column-blocked layout: g (BR x Hp) in device memory and
+// in (BR x Kp) there too, or in shared memory with in_smem (layer 0's
+// operand). Per block of MMA_HMAX columns of g and of in, both staged into
+// shared memory (sin, sg: BR x (MMA_HMAX + 8) bf16 each; in_smem: in read
+// in place), grad_at_g forms the block's slabs: each slot element is one
+// slab's, summed as the whole call sums it. Every thread calls it; the
+// operands must be complete on entry, and it ends with a barrier.
+template <int BR>
+__device__ void grad_at_g_blocked(const bf16* in, int lda, bool in_smem, int Kp, int d,
+                                  const bf16* g, int ldg, int Hp, int H, float* slot, bool first,
+                                  bf16* sin, bf16* sg) {
+  constexpr int ld = MMA_HMAX + 8;
+  for (int j0 = 0; j0 < Hp; j0 += MMA_HMAX) {
+    const int jn = min(MMA_HMAX, Hp - j0);
+    for (int k0 = 0; k0 < Kp; k0 += MMA_HMAX) {
+      const int kn = min(MMA_HMAX, Kp - k0);
+      if (k0 == 0) stage_cols<BR>(sg, ld, g + j0, ldg, jn);
+      if (!in_smem) stage_cols<BR>(sin, ld, in + k0, lda, kn);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      grad_at_g<BR>(in_smem ? in + k0 : sin, in_smem ? lda : ld, k0 + kn, d, sg, ld, j0 + jn, H,
+                    slot, first, k0, j0);
+      __syncthreads();
+    }
   }
 }
 
@@ -827,11 +910,22 @@ __device__ __forceinline__ void weight_col_norms(const bf16* wb, const long long
 // layout's, so both give the same bits. A block's scratch is its own
 // (blockIdx.x's slice), so no block reads another's.
 // ---------------------------------------------------------------------------
+//
+// The column-blocked layout (DCC_BLOCKED) extends the scratch with the
+// tiles whose width is the hidden width's: the operand sx, the cotangent
+// gs, the f32 g_prev stages and the column sums, and the head's weights;
+// there every layer's tile is read where it lies (act[li]), never staged.
 struct DeepScratch {
-  bf16* act;     // L x BR x (Hp + 8): each layer's activation tile
-  float* mu;     // L x BR: each layer's rows' LN mean
-  float* inv;    // L x BR: and 1/sqrt(var + eps)
-  float* cnorm;  // L x Hp: the weights' column norms (unfolded relu)
+  bf16* act;      // L x BR x (Hp + 8): each layer's activation tile
+  float* mu;      // L x BR: each layer's rows' LN mean
+  float* inv;     // L x BR: and 1/sqrt(var + eps)
+  float* cnorm;   // L x Hp: the weights' column norms (unfolded relu)
+  bf16* sx;       // blocked: BR x (Hp + 8), the operand of layer li >= 1
+  bf16* gs;       // blocked: BR x (Hp + 8), bf16 of the current cotangent
+  float* gst;     // blocked: BR x (Hp + 4), a layer's f32 g_prev
+  float* stage;   // blocked, staged layer 0: BR x (Kp0 + 4), layer 0's f32 g_prev
+  float* colsum;  // blocked: 3 x BR/16 x Hp, the column sums
+  float* wh;      // blocked: 4 x Hp, the head's weights (H x A, A <= 4)
 };
 
 // Bytes of one block's scratch; a multiple of 16, so every block's slice
@@ -841,19 +935,50 @@ __host__ __device__ inline size_t deep_scratch_bytes(int br, int H, int L) {
   return 2 * (size_t)L * br * (Hp + 8) + 4 * 2 * (size_t)L * br + 4 * (size_t)L * Hp;
 }
 
+// The column-blocked layout's: the depth layout's, then sx, gs, gst, the
+// stage (chunked: none), colsum and wh; also a multiple of 16.
+__host__ __device__ inline size_t blocked_scratch_bytes(int br, int d_in, int H, int L,
+                                                        bool chunked) {
+  const size_t Hp = pad16(H), Kp0 = chunked ? 0 : pad16(d_in) + 4;
+  return deep_scratch_bytes(br, H, L) + 2 * 2 * (size_t)br * (Hp + 8) + 4 * (size_t)br * (Hp + 4) +
+         4 * (size_t)br * Kp0 + 4 * 3 * (size_t)(br / 16) * Hp + 4 * 4 * Hp;
+}
+
 // Block blockIdx.x's slice of the scratch at base (null: the staged layout,
-// every member null).
+// every member null); the blocked members are null outside DCC_BLOCKED.
 template <int BR>
-__device__ __forceinline__ DeepScratch deep_scratch(unsigned char* base, int H, int L) {
-  DeepScratch d{nullptr, nullptr, nullptr, nullptr};
+__device__ __forceinline__ DeepScratch deep_scratch(unsigned char* base, int d_in, int H, int L,
+                                                    bool chunked) {
+  DeepScratch d{};
   if (base == nullptr) return d;
   const long long Hp = pad16(H);
-  unsigned char* p = base + (long long)blockIdx.x * deep_scratch_bytes(BR, H, L);
+  const size_t slice = DCC_BLOCKED ? blocked_scratch_bytes(BR, d_in, H, L, chunked)
+                                   : deep_scratch_bytes(BR, H, L);
+  unsigned char* p = base + (long long)blockIdx.x * slice;
   d.act = (bf16*)p;
   d.mu = (float*)(p + 2LL * L * BR * (Hp + 8));
   d.inv = d.mu + (long long)L * BR;
   d.cnorm = d.inv + (long long)L * BR;
+  if (DCC_BLOCKED) {
+    unsigned char* q = p + deep_scratch_bytes(BR, H, L);
+    d.sx = (bf16*)q;
+    d.gs = d.sx + BR * (Hp + 8);
+    d.gst = (float*)(d.gs + BR * (Hp + 8));
+    d.stage = d.gst + BR * (Hp + 4);
+    d.colsum = d.stage + (chunked ? 0 : BR * (pad16(d_in) + 4));
+    d.wh = d.colsum + 3 * (BR / 16) * Hp;
+  }
   return d;
+}
+
+// Shared memory of the weight ring of a gradient kernel (stages of
+// ring_stage(nmax, nk)), where the column-blocked layout also streams a
+// BR-row first operand through it and stages grad_at_g_blocked's two column
+// blocks over it.
+__host__ __device__ inline size_t ring_bytes(int br, int st) {
+  size_t b = 2 * MMA_STAGES * (size_t)(st + (DCC_BLOCKED ? ring_a(br) : 0));
+  const size_t blocks = DCC_BLOCKED ? 2 * 2 * (size_t)br * (MMA_HMAX + 8) : 0;
+  return b > blocks ? b : blocks;
 }
 
 // One layer's saved tile (BR x ldh bf16, ldh a multiple of 8) from the
@@ -1065,15 +1190,17 @@ __device__ __forceinline__ void ln_bwd_apply(float (&acc)[MmaTile<BR>::NT][4], c
 // bf16 W (Kp0 x Hp). The stage may lie over tiles that the block has
 // finished reading (every thread passes gemm_stream's first barrier before
 // any stage store). Every thread calls it; the stage is complete after the
-// caller's next barrier.
+// caller's next barrier. arows: gs lies in device memory (the column-blocked
+// layout, gemm_stream's).
 template <int BR>
 __device__ __forceinline__ void gprev_passes(const bf16* gs, int ldh, int Hp, const bf16* w0,
-                                             int Kp0, bf16* ring, float* stage, int ldf) {
+                                             int Kp0, bf16* ring, float* stage, int ldf,
+                                             int arows = 0) {
   float acc[MmaTile<BR>::NT][4];
   for (int c0 = 0; c0 < Kp0; c0 += MMA_HMAX) {
     const int nc = min(MMA_HMAX, Kp0 - c0);
     const WarpTile pt = warp_tile<BR>(nc / 8);
-    gemm_stream<true>(gs, ldh, Hp, w0 + (long long)c0 * Hp, Hp, nc, ring, pt, acc);
+    gemm_stream<true>(gs, ldh, Hp, w0 + (long long)c0 * Hp, Hp, nc, ring, pt, acc, arows);
 #pragma unroll
     for (int nt = 0; nt < MmaTile<BR>::NT; ++nt) {
       if (nt < pt.ntw) {

@@ -40,9 +40,23 @@ class _Trunk(nn.Module):
     def __init__(self, in_dim: int, use_rnn: bool = False, recurrent_n: int = 1, **trunk):
         super().__init__()
         self.base = MLPBase(in_dim, **trunk)
+        self.defer_grad_round = False  # see defer_grad_rounding
         hidden = self.base.fc0.out_features
         self.rnn = (MaskedGRU(hidden, recurrent_n, trunk.get("use_orthogonal", True),
                               trunk.get("generator")) if use_rnn else None)
+
+    def defer_grad_rounding(self) -> None:
+        """Leave the bf16 Dense layers' parameter gradients (those of
+        :meth:`dense_params`) unrounded f32 sums over the rows, for a caller
+        that adds them over ranks and then rounds them as one process's
+        autograd does (MAPPO under a mesh)."""
+        self.defer_grad_round = self.base.defer_grad_round = True
+
+    def dense_params(self) -> list:
+        """The parameters of the bf16 Dense layers run by autograd: the
+        heads' and, unfused, the trunk's W and b."""
+        heads = [m for n, m in self.named_children() if n.startswith(("act_out", "v_out"))]
+        return [p for m in heads for p in (m.weight, m.bias)] + self.base.dense_params()
 
     def features(self, obs, rnn_state=None, masks=None):
         x = self.base(obs)
@@ -87,7 +101,8 @@ class Actor(_Trunk):
             raise ValueError(f"unknown head kind {head_kind!r}")
 
     def _dense(self, layer, x):
-        return dense(x, layer.weight.t(), layer.bias, self.base.bf16)
+        return dense(x, layer.weight.t(), layer.bias, self.base.bf16,
+                     not self.defer_grad_round)
 
     def _head(self, x):
         kind = self.kind
@@ -122,7 +137,8 @@ class Critic(_Trunk):
                     trunk.get("generator"))
 
     def _head(self, x):
-        return dense(x, self.v_out.weight.t(), self.v_out.bias, self.base.bf16)
+        return dense(x, self.v_out.weight.t(), self.v_out.bias, self.base.bf16,
+                     not self.defer_grad_round)
 
     def forward(self, cent_obs: torch.Tensor, rnn_state: Optional[torch.Tensor] = None,
                 masks: Optional[torch.Tensor] = None):

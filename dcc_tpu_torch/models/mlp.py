@@ -63,6 +63,10 @@ class MLPBase(nn.Module):
         self.use_fn = use_feature_normalization
         self.bf16 = bf16
         self.fused = fused
+        # bf16 autograd of the plain chain: leave the Dense parameters'
+        # gradients unrounded (ops.fused_mlp.dense's round_grads), for a
+        # caller that sums them over ranks before rounding (MAPPO's mesh)
+        self.defer_grad_round = False
         self._packed = None  # (key, pack_trunk output) of the K2 launches
         if self.use_fn:
             self.feature_norm = LNParams(in_dim)
@@ -106,6 +110,16 @@ class MLPBase(nn.Module):
                              packed=packed, **kw)
         lead = x.shape[:-1]
         out = trunk_forward_plain(
-            x.reshape(-1, x.shape[-1]), self.flat_params(), use_fn=self.use_fn, **kw
+            x.reshape(-1, x.shape[-1]), self.flat_params(), use_fn=self.use_fn,
+            round_grads=not self.defer_grad_round, **kw
         )
         return out.reshape(*lead, out.shape[-1])
+
+    def dense_params(self) -> List[torch.Tensor]:
+        """The parameters whose bf16 gradients the plain chain rounds as sums
+        over the rows (each layer's W and b); none through the fused trunk,
+        whose gradients are f32 sums."""
+        if self.fused:
+            return []
+        return [p for i in range(self.n_layers) for p in (getattr(self, f"fc{i}").weight,
+                                                           getattr(self, f"fc{i}").bias)]

@@ -2,7 +2,8 @@
 
 Each ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with :mod:`ctypes`. The build runs at the
-first CUDA use, all sources at once (one ``nvcc`` process per source), into
+first CUDA use, all sources at once (one ``nvcc`` process per source; or
+in a background thread of the caller's, :func:`build`), into
 ``build/dcc_tpu_torch/<hash>/`` under the repository root; the hash covers
 every source and the compiler flags, so an edited source rebuilds.
 
@@ -32,7 +33,12 @@ The trunk kernels read their parameter offsets from a device table
 never copied per launch), so they take a trunk of any depth. The bf16
 gradient kernels' depth layout keeps each layer's saved tiles in a scratch
 in device memory (:func:`deep_scratch`, one buffer per device that grows to
-the largest launch).
+the largest launch); their column-blocked layout (the ``*_blocked``
+libraries, hidden widths past what a staged or depth tile holds) keeps
+every tile as wide as the hidden layer there too, as K2's does the later
+layers' input, and their launches count under the kernel's name with
+``_blocked`` appended (``fused_mlp_blocked``, ``fused_mlp_chunked_blocked``,
+``critic_ppo_grads_blocked``, ...).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -52,11 +59,14 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "dcc_tpu_torch")
 SOURCES = ("gae", "fused_mlp", "fused_mlp_bwd", "fused_ppo", "fused_mlp_wide",
-           "fused_mlp_bwd_wide", "fused_ppo_wide", "layer0_tail")
+           "fused_mlp_bwd_wide", "fused_ppo_wide", "fused_mlp_blocked",
+           "fused_mlp_bwd_blocked", "fused_ppo_blocked", "layer0_tail")
 # the tensor-core kernels' hidden widths: an even width up to MMA_HMAX
 # (csrc/trunk_mma.cuh) runs every layer in one pass in the base libraries;
 # any other width (wider layers in column passes, odd widths element by
-# element) the ``*_wide`` ones, the same sources built with DCC_WIDE
+# element) the ``*_wide`` ones, the same sources built with DCC_WIDE; the
+# column-blocked layout (``ops.tiles.plan``'s ``blocked``) the
+# ``*_blocked`` ones, built with DCC_WIDE and DCC_BLOCKED
 MMA_HMAX = 256
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,10 +86,11 @@ _SIGNATURES = {
     "fused_mlp": {
         "dcc_trunk_fwd": [_P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P],
         "dcc_trunk_fwd_mma": [
-            _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+            _P, _I, _L, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
         ],
         "dcc_trunk_fwd_mma_smem_bytes": [_I, _I, _I],
         "dcc_trunk_fwd_mma_chunked_smem_bytes": [_I, _I, _I],
+        "dcc_trunk_fwd_scratch_bytes": [_I, _I],
     },
     "fused_mlp_bwd": {
         "dcc_trunk_bwd": [
@@ -102,6 +113,7 @@ _SIGNATURES = {
         "dcc_trunk_bwd_mma_chunked_smem_bytes": [_I, _I, _I, _I, _I],
         "dcc_layer0_input_bwd_smem_bytes": [_I, _I],
         "dcc_deep_scratch_bytes": [_I, _I, _I],
+        "dcc_blocked_scratch_bytes": [_I, _I, _I, _I, _I],
     },
     "fused_ppo": {
         "dcc_actor_grads": [
@@ -158,13 +170,18 @@ _SIGNATURES["fused_ppo"].update({
 # the chunked K2 takes the staged one's arguments
 _SIGNATURES["fused_mlp"]["dcc_trunk_fwd_chunked_mma"] = _SIGNATURES["fused_mlp"][
     "dcc_trunk_fwd_mma"]
-# the wide libraries hold the same entry points
+# the wide and blocked libraries hold the same entry points
 for _name in ("fused_mlp", "fused_mlp_bwd", "fused_ppo"):
-    _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[_name]
+    _SIGNATURES[f"{_name}_wide"] = _SIGNATURES[f"{_name}_blocked"] = _SIGNATURES[_name]
 
 
 _TABLES: dict = {}
 _SCRATCH: dict = {}
+# the sources being compiled ({name: Event set when done}) and their nvcc
+# processes, shared by the threads that build (:func:`build`)
+_BUILD_LOCK = threading.Lock()
+_BUILDING: dict = {}
+_PROCS: set = set()
 
 
 def offsets_table(offs, device) -> torch.Tensor:
@@ -216,32 +233,56 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> dict:
-    """Compile every source whose library is missing, in parallel; returns
-    {name: path of the .so}, the seconds the build took under key
-    ``"_seconds"`` and, with ``verbose``, each compiled source's
-    ``-Xptxas -v`` report (registers, spills) under ``"_ptxas"``."""
+def build(verbose: bool = False, names=SOURCES) -> dict:
+    """Compile every source of ``names`` whose library is missing, in
+    parallel; returns {name: path of the .so} of ``names``, the seconds the
+    build took under key ``"_seconds"`` and, with ``verbose``, each source
+    it compiled's ``-Xptxas -v`` report (registers, spills) under
+    ``"_ptxas"``. Threads of one process may call it at once: a source in
+    flight in another call is waited for, never compiled twice, so a
+    program may build in a background thread and load the libraries it
+    needs meanwhile (:func:`library` waits for its own source only)."""
     out_dir = os.path.join(BUILD_ROOT, _source_hash())
     os.makedirs(out_dir, exist_ok=True)
-    paths = {n: os.path.join(out_dir, f"libdcc_{n}.so") for n in SOURCES}
-    todo = [n for n in SOURCES if not os.path.exists(paths[n])]
+    paths = {n: os.path.join(out_dir, f"libdcc_{n}.so") for n in names}
+    with _BUILD_LOCK:
+        waits = [_BUILDING[n] for n in names if n in _BUILDING]
+        todo = [n for n in names if n not in _BUILDING and not os.path.exists(paths[n])]
+        for n in todo:
+            _BUILDING[n] = threading.Event()
     t0 = time.perf_counter()
-    procs = {}
-    for n in todo:
-        tmp = paths[n] + f".tmp{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
-        procs[n] = (tmp, subprocess.Popen(
-            cmd, cwd=CSRC, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ))
     failed, logs = [], {}
-    for n, (tmp, p) in procs.items():
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
-            continue
-        logs[n] = log
-        os.replace(tmp, paths[n])
+    try:
+        procs = {}
+        for n in todo:
+            # each compiler's output to a file of its own: a pipe that
+            # nobody reads while another compile is waited for would stall it
+            tmp = paths[n] + f".tmp{os.getpid()}"
+            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+            with open(tmp + ".log", "w") as out:
+                procs[n] = (tmp, subprocess.Popen(cmd, cwd=CSRC, stdout=out,
+                                                  stderr=subprocess.STDOUT))
+            _PROCS.add(procs[n][1])
+        for n, (tmp, p) in procs.items():
+            p.wait()
+            _PROCS.discard(p)
+            with open(tmp + ".log") as f:
+                log = f.read()
+            os.remove(tmp + ".log")
+            if p.returncode != 0:
+                failed.append(f"{n}.cu (rc {p.returncode}):\n{log}")
+                continue
+            logs[n] = log
+            os.replace(tmp, paths[n])
+    finally:
+        with _BUILD_LOCK:
+            for n in todo:
+                _BUILDING.pop(n).set()
+    for event in waits:
+        event.wait()
+    failed += [f"{n}.cu (built by another call)" for n in names
+               if n not in todo and not os.path.exists(paths[n])]
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     paths["_seconds"] = time.perf_counter() - t0
@@ -250,32 +291,38 @@ def build(verbose: bool = False) -> dict:
     return paths
 
 
+def stop_builds() -> None:
+    """Kill the ``nvcc`` processes of every build in flight (a program that
+    fails while a background thread builds)."""
+    for p in list(_PROCS):
+        p.kill()
+
+
 @functools.lru_cache(maxsize=None)
-def _libraries() -> dict:
-    paths = build()
-    libs = {}
-    for name in SOURCES:
-        lib = ctypes.CDLL(paths[name])
-        for fn, argtypes in _SIGNATURES[name].items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_ulonglong if fn.endswith("_bytes") else ctypes.c_int
-        lib.dcc_error_string.argtypes = [ctypes.c_int]
-        lib.dcc_error_string.restype = ctypes.c_char_p
-        libs[name] = lib
-    return libs
-
-
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
-    return _libraries()[name]
+    """The loaded library of ``csrc/<name>.cu`` (built on first use, with
+    every other missing source unless a build is already in flight)."""
+    with _BUILD_LOCK:
+        building = bool(_BUILDING)
+    path = build(names=(name,) if building else SOURCES)[name]
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_ulonglong if fn.endswith("_bytes") else ctypes.c_int
+    lib.dcc_error_string.argtypes = [ctypes.c_int]
+    lib.dcc_error_string.restype = ctypes.c_char_p
+    return lib
 
 
-def mma_library(name: str, hidden: int) -> ctypes.CDLL:
+def mma_library(name: str, hidden: int, blocked: bool = False) -> ctypes.CDLL:
     """The library whose tensor-core kernels take hidden width ``hidden``:
     ``name``'s for an even width up to ``MMA_HMAX``, else its ``_wide``
     twin (layers in column passes past ``MMA_HMAX`` padded to 16, odd
-    widths element by element)."""
+    widths element by element); with ``blocked``, its ``_blocked`` twin
+    (the column-blocked layout, any width)."""
+    if blocked:
+        return library(f"{name}_blocked")
     wide = hidden % 2 or -(-hidden // 16) * 16 > MMA_HMAX
     return library(f"{name}_wide" if wide else name)
 

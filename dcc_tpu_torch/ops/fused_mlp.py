@@ -55,12 +55,16 @@ offsets_table``), and past the depth whose activations fit one block
 their depth layout (``ops.tiles.plan``'s ``deep``), which keeps each
 layer's saved tile in a scratch in device memory (``cuda_build.
 deep_scratch``) and one layer's in shared memory. The bf16 kernels take
-any hidden width whose smallest row tile fits one block's shared memory:
-each layer runs in column passes of at most 256 (``csrc/trunk_mma.cuh``),
-and widths off multiples of 16 are zero-padded and masked, so at two
-layers every width up to 1,024 is taken (:func:`cuda_trunk_faults`, which
-MAPPO asks at construction; :func:`check_mma_width` guards each
-launch).
+any hidden width: each layer runs in column passes of at most 256
+(``csrc/trunk_mma.cuh``), widths off multiples of 16 are zero-padded and
+masked, and past the widths whose smallest row tile fits one block's
+shared memory in the staged, chunked or depth layout (about 1,024 at two
+layers for the gradient kernels, 2,800 for K2 at 440-wide rows) they take
+their column-blocked layout (``ops.tiles.plan``'s ``blocked``, the
+``*_blocked`` libraries), which keeps every tile as wide as the hidden
+layer in the per-block scratch and streams it through shared memory, and
+count those launches under their names with ``_blocked`` appended
+(:func:`check_mma_width` guards each launch).
 
 Every bf16 K2, K2b, K3, K4, K3u and K4u wrapper takes ``relu_masks``, an
 (L, rows, H) uint8 CUDA tensor that the kernel fills with each layer's
@@ -98,11 +102,29 @@ def ln_stats(x: torch.Tensor):
     return mu, torch.rsqrt(var + EPS)
 
 
-def dense(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool) -> torch.Tensor:
-    """a @ w + b in the given mode (w is (d_in, d_out)); f32 result."""
+class _RoundForward(torch.autograd.Function):
+    """bf16 rounding in the forward only: the gradient passes unrounded."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return bf16_round(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def dense(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool,
+          round_grads: bool = True) -> torch.Tensor:
+    """a @ w + b in the given mode (w is (d_in, d_out)); f32 result. In bf16
+    autograd rounds w's and b's gradients, sums over the rows, to bf16, as
+    JAX's bf16 Dense does; with ``round_grads`` False it leaves them the f32
+    sums, for a caller that adds them over ranks first and rounds the total
+    (``MAPPO`` under a mesh)."""
     if bf16:
-        z = bf16_round(bf16_round(a) @ bf16_round(w))
-        return bf16_round(z + bf16_round(b))
+        rp = bf16_round if round_grads else _RoundForward.apply
+        z = bf16_round(bf16_round(a) @ rp(w))
+        return bf16_round(z + rp(b))
     return a.to(torch.float32) @ w + b
 
 
@@ -125,13 +147,14 @@ def _layer_mask(masks, li):
     return None if masks is None else masks[li]
 
 
-def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks=None):
+def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks=None,
+                   round_grads=True):
     """The trunk on (rows, d_in) f32, keeping what the backward needs: the
     feature norm's (xhat, inv) and per layer (a, r, xhat, inv), with ``a``
     the layer's input and ``r`` its activation as the chain rounds them.
     ``masks``: each layer's relu mask to take instead of z > 0 (a kernel's,
-    ``relu_masks``), or None. Returns (output f32, feature-norm cache or
-    None, layer caches)."""
+    ``relu_masks``), or None; ``round_grads``: :func:`dense`'s. Returns
+    (output f32, feature-norm cache or None, layer caches)."""
     a = x.to(torch.float32)
     i, fn_cache = 0, None
     if use_fn:
@@ -145,7 +168,8 @@ def _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks=None):
     for li in range(n_layers):
         w, b, s, c = params[i : i + 4]
         i += 4
-        r = activation(dense(a, w, b, bf16), use_relu, bf16, _layer_mask(masks, li))
+        r = activation(dense(a, w, b, bf16, round_grads), use_relu, bf16,
+                       _layer_mask(masks, li))
         mu, inv = ln_stats(r)
         xhat = (r - mu) * inv
         layers.append((a, r, xhat, inv))
@@ -162,10 +186,12 @@ def trunk_forward_plain(
     use_relu: bool = True,
     bf16: bool = False,
     masks=None,
+    round_grads: bool = True,
 ) -> torch.Tensor:
     """Plain PyTorch K2 on (rows, d_in); returns (rows, H) in bf16 or f32.
-    ``masks``: the relu masks to take (a kernel's ``relu_masks``), or None."""
-    a, _, _ = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks)
+    ``masks``: the relu masks to take (a kernel's ``relu_masks``), or None;
+    ``round_grads``: :func:`dense`'s, for autograd through it."""
+    a, _, _ = _forward_chain(x, params, n_layers, use_fn, use_relu, bf16, masks, round_grads)
     return a.to(torch.bfloat16) if bf16 else a
 
 
@@ -316,7 +342,8 @@ def dv0_cuda(x, xstats, g0, hidden: int, affine=None, unfolded: bool = False,
     return out
 
 
-def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = True):
+def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = True,
+                          _blocked: bool = False):
     """Launch the layer-0 input backward; same returns as
     :func:`layer0_input_bwd_plain`. With the feature norm, without dx and
     at hidden widths to ``tiles.TAIL_HMAX`` (the update's calls) the
@@ -324,7 +351,10 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
     W_0's slice resident, g_prev and the column sums over row splits, the
     splits summed in order); else the row-tiled one
     (``dcc_layer0_input_bwd_mma``, and with the feature norm its slot
-    reduction). Both count under ``layer0_input_bwd``."""
+    reduction; at hidden widths whose g0 rows fit no block, or with
+    ``_blocked``, its column-blocked build, counted under
+    ``layer0_input_bwd_blocked``). The others count under
+    ``layer0_input_bwd``."""
     rows, d_in = x.shape
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
     cb.require(xstats, "xstats", (torch.float32,), (rows, 2), x.device)
@@ -337,7 +367,7 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
     if use_fn:
         cb.require(fs, "fs", (torch.float32,), (d_in,), x.device)
     out = torch.empty((2 * d_in,), dtype=torch.float32, device=x.device) if use_fn else None
-    if use_fn and not need_dx and pad16(hidden) <= tiles.TAIL_HMAX:
+    if use_fn and not need_dx and pad16(hidden) <= tiles.TAIL_HMAX and not _blocked:
         splits = tiles.tail_plan("layer0_input_bwd", rows, d_in, hidden, sms)[0]
         slots = torch.empty((splits, 2 * d_in), dtype=torch.float32, device=x.device)
         code = cb.library("layer0_tail").dcc_layer0_input_bwd_wgmma(
@@ -349,22 +379,27 @@ def layer0_input_bwd_cuda(x, xstats, g0, w0b, fs, hidden: int, need_dx: bool = T
         cb.ENTRY["layer0_input_bwd"] = "dcc_layer0_input_bwd_wgmma"
         cb.TILE["layer0_input_bwd"] = tiles.TAIL_STEP["layer0_input_bwd"]
         return None, out[:d_in], out[d_in:]
-    smem = lambda b: tiles.smem_bytes("layer0_input_bwd", True, b, d_in, hidden, 1) // 4
-    br = mma_tile_rows(rows, d_in, smem, sms, tiles.SIZES[("layer0_input_bwd", True)])
+    # g0's rows staged whole, or past the widths whose tile fits a block
+    # (about 4,700), streamed by the products (the column-blocked library)
+    tp = check_mma_width("layer0_input_bwd", d_in, hidden, 1, blocked=_blocked)
+    smem = lambda b: tiles.smem_bytes("layer0_input_bwd", True, b, d_in, hidden, 1,
+                                      blocked=tp.blocked) // 4
+    br = mma_tile_rows(rows, d_in, smem, sms, tp.tiles)
     n_blocks = grads_blocks(-(-rows // br), sms, True)
     dx = torch.empty_like(x) if need_dx else None
     slots = None
     if use_fn:
         slots = torch.empty((n_blocks, 2 * d_in), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    code = cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_mma(
+    code = cb.mma_library("fused_mlp_bwd", hidden, tp.blocked).dcc_layer0_input_bwd_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d_in, xstats.data_ptr(),
         g0.data_ptr(), hidden, w0b.data_ptr(), ptr(fs), int(use_fn), br, ptr(slots), n_blocks,
         ptr(out), ptr(dx), cb.stream_of(x))
-    cb.check("fused_mlp_bwd", code, "layer0_input_bwd")
-    cb.LAUNCHES["layer0_input_bwd"] += 1
-    cb.ENTRY["layer0_input_bwd"] = "dcc_layer0_input_bwd_mma"
-    cb.TILE["layer0_input_bwd"] = br
+    name = launch_name("layer0_input_bwd", tp)
+    cb.check("fused_mlp_bwd", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = "dcc_layer0_input_bwd_mma"
+    cb.TILE[name] = br
     if not use_fn:
         return dx, None, None
     return dx, out[:d_in], out[d_in:]
@@ -540,41 +575,33 @@ def pack_trunk(params: Sequence[torch.Tensor], device, n_layers: int, use_fn: bo
     return TrunkPack(pb, offs, wb, woffs, table, cb.offsets_table(woffs, device))
 
 
-def cuda_trunk_faults(hidden: int, n_layers: int, bf16: bool, launches=()) -> list:
-    """What of a ``n_layers``-layer trunk of width ``hidden`` the fused CUDA
-    kernels do not take, one phrase each; empty if nothing: in bf16, each
-    of the ``launches`` ((kernel, row width, head width), the kernels a run
-    launches) with no row tile that fits one block (ROADMAP B3). Every
-    depth is taken (past the staged layouts' depth, in the depth layout)."""
-    faults = []
-    if bf16:
-        for kernel, d_in, n_head in launches:
-            fault = tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)
-            if fault and fault not in faults:
-                faults.append(fault)
-    return faults
-
-
 def check_mma_width(kernel: str, d_in: int, hidden: int, n_layers: int,
-                    n_head: int = 1) -> tiles.Plan:
-    """The bf16 ``kernel``'s tile plan at this width (``ops.tiles.plan``);
-    raises naming ROADMAP B3 and the shared
-    memory where no row tile fits."""
-    p = tiles.plan(kernel, True, d_in, hidden, n_layers, n_head)
+                    n_head: int = 1, blocked: bool = False) -> tiles.Plan:
+    """The bf16 ``kernel``'s tile plan at this width (``ops.tiles.plan``;
+    ``blocked`` forces the column-blocked layout); raises where no row tile
+    fits one block (none at any width since that layout)."""
+    p = tiles.plan(kernel, True, d_in, hidden, n_layers, n_head, blocked=blocked)
     if not p.tiles:
-        raise ValueError(f"the bf16 tensor-core kernels do not take "
-                         f"{tiles.no_tile(kernel, d_in, hidden, n_layers, n_head)}")
+        raise ValueError(f"bf16 {kernel} has no row tile at hidden width {hidden} "
+                         f"({d_in}-wide rows, {n_layers} layers) that fits one block's "
+                         f"{tiles.SMEM_MAX} bytes of shared memory")
     return p
 
 
-def deep_scratch_ptr(deep: bool, br: int, hidden: int, n_layers: int, n_blocks: int, device):
-    """The depth layout's scratch argument of a bf16 gradient launch: None
-    (the staged layouts) or the pointer of a cached device buffer of
-    ``n_blocks`` blocks' slices (``ops.tiles.deep_scratch_bytes``)."""
-    if not deep:
-        return None
-    nbytes = n_blocks * tiles.deep_scratch_bytes(br, hidden, n_layers)
-    return cb.deep_scratch(nbytes, device).data_ptr()
+def scratch_ptr(kernel: str, p: tiles.Plan, br: int, d_in: int, hidden: int, n_layers: int,
+                n_blocks: int, device):
+    """The scratch argument of a bf16 launch on the plan ``p``: None (the
+    staged and chunked layouts) or, in the depth and column-blocked
+    layouts, the pointer of a cached device buffer of ``n_blocks`` blocks'
+    slices (``ops.tiles.scratch_bytes``)."""
+    nbytes = n_blocks * tiles.scratch_bytes(kernel, p, br, d_in, hidden, n_layers)
+    return cb.deep_scratch(nbytes, device).data_ptr() if nbytes else None
+
+
+def launch_name(name: str, p: tiles.Plan) -> str:
+    """The ``LAUNCHES`` key of a launch on the plan ``p``: ``name``, with
+    ``_blocked`` in the column-blocked layout."""
+    return f"{name}_blocked" if p.blocked else name
 
 
 def tile_rows(width: int, floats_per_row_fn, sizes: Sequence[int]) -> int:
@@ -637,13 +664,17 @@ def trunk_forward_cuda(
     bf16: bool = False,
     packed: Optional[TrunkPack] = None,
     relu_masks: Optional[torch.Tensor] = None,
+    _blocked: bool = False,
 ) -> torch.Tensor:
     """Launch K2 on (rows, d_in) f32 or bf16 CUDA rows: the tensor-core
     kernel in bf16 (its chunked layout at rows too wide for a staged tile,
+    its column-blocked one at hidden widths no other tile takes,
     ``ops.tiles.plan``), the FMA kernel in f32. ``packed`` is
     ``pack_trunk(params, x.device, n_layers, use_fn, bf16)`` made
     beforehand, or None to pack here. ``relu_masks`` (bf16 only): None, or
-    an (L, rows, H) uint8 tensor the kernel fills with its relu masks."""
+    an (L, rows, H) uint8 tensor the kernel fills with its relu masks.
+    ``_blocked`` (bf16): the column-blocked layout forced, for holding it
+    against the others."""
     rows, d_in = x.shape
     if torch.is_grad_enabled() and any(p.requires_grad for p in params):
         raise RuntimeError(
@@ -661,7 +692,6 @@ def trunk_forward_cuda(
     out = torch.empty(
         (rows, hidden), dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device
     )
-    lib = cb.mma_library("fused_mlp", hidden) if bf16 else cb.library("fused_mlp")
     smem = lambda b: tiles.smem_bytes("fused_mlp", bf16, b, d_in, hidden, n_layers) // 4
     x_bf16 = int(x.dtype == torch.bfloat16)
     name = "fused_mlp"
@@ -672,21 +702,24 @@ def trunk_forward_cuda(
         cb.require(packed.weight_table, "weight offsets table", (torch.int64,), (n_layers,),
                    x.device)
         sms = cb.sm_count(x.device)
-        chunked, sizes, _ = check_mma_width("fused_mlp", d_in, hidden, n_layers)
+        tp = check_mma_width("fused_mlp", d_in, hidden, n_layers, blocked=_blocked)
+        lib = cb.mma_library("fused_mlp", hidden, tp.blocked)
         # the smallest row tile that still gives every SM a tile (every
         # layout, staged or chunked, has a 16-row one)
         target = 16 if rows <= 16 * sms else 32 if rows <= 32 * sms else 64
-        br = next(b for b in sizes if b <= target)
+        br = next(b for b in tp.tiles if b <= target)
         n_blocks = max(1, min(-(-rows // br), 2 * sms))
-        entry = "dcc_trunk_fwd_chunked_mma" if chunked else "dcc_trunk_fwd_mma"
-        name = "fused_mlp_chunked" if chunked else name
+        entry = "dcc_trunk_fwd_chunked_mma" if tp.chunked else "dcc_trunk_fwd_mma"
+        name = launch_name("fused_mlp_chunked" if tp.chunked else name, tp)
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, rows, d_in, hidden, n_layers, int(use_fn), int(use_relu), br,
             pb.data_ptr(), table.data_ptr(), table.numel(), packed.weights.data_ptr(),
             packed.weight_table.data_ptr(), n_layers, n_blocks, out.data_ptr(), mask_ptr,
+            scratch_ptr("fused_mlp", tp, br, d_in, hidden, n_layers, n_blocks, x.device),
             cb.stream_of(x),
         )
     else:
+        lib = cb.library("fused_mlp")
         br = tile_rows(d_in, smem, tiles.SIZES[("fused_mlp", False)])
         entry = "dcc_trunk_fwd"
         code = lib.dcc_trunk_fwd(
@@ -712,6 +745,7 @@ def trunk_backward_cuda(
     need_dx: bool = True,
     relu_masks: Optional[torch.Tensor] = None,
     _deep: bool = False,
+    _blocked: bool = False,
 ):
     """Launch K2b (+ its slot reduction) on (rows, d_in) f32 or bf16 CUDA
     rows and the (rows, H) cotangent: the tensor-core kernel in bf16, which
@@ -723,21 +757,24 @@ def trunk_backward_cuda(
     with ``need_dx``. ``relu_masks`` as in :func:`trunk_forward_cuda` (of
     the forward recompute). ``_deep`` (bf16): the depth layout on the tiles
     ``ops.tiles.plan`` gives, for holding it against the staged layout on
-    the same tile. Same returns as the plain version (dx None where it was
-    not computed)."""
+    the same tile; ``_blocked`` (bf16): the column-blocked layout forced.
+    Same returns as the plain version (dx None where it was not
+    computed)."""
     rows, d_in = x.shape
     hidden = _check_trunk(x, params, n_layers, use_fn)
     g = g.to(torch.float32).contiguous()
     cb.require(g, "g", (torch.float32,), (rows, hidden), x.device)
     mask_ptr = _mask_ptr(relu_masks, n_layers, rows, hidden, bf16, x.device)
-    lib = cb.mma_library("fused_mlp_bwd", hidden) if bf16 else cb.library("fused_mlp_bwd")
     if bf16:
-        tp = check_mma_width("fused_mlp_bwd", d_in, hidden, n_layers)
+        tp = check_mma_width("fused_mlp_bwd", d_in, hidden, n_layers, blocked=_blocked)
+        tp = tp._replace(deep=True) if _deep else tp
+        lib = cb.mma_library("fused_mlp_bwd", hidden, tp.blocked)
     else:
         tp = tiles.plan("fused_mlp_bwd", False, d_in, hidden, n_layers)
-    chunked, sizes, deep = tp._replace(deep=True) if _deep and bf16 else tp
+        lib = cb.library("fused_mlp_bwd")
+    chunked, sizes, deep, blocked = tp
     smem = lambda b: tiles.smem_bytes("fused_mlp_bwd", bf16, b, d_in, hidden, n_layers,
-                                      chunked=chunked, deep=deep) // 4
+                                      chunked=chunked, deep=deep, blocked=blocked) // 4
     sms = cb.sm_count(x.device)
     if bf16:
         if packed is None:
@@ -758,7 +795,7 @@ def trunk_backward_cuda(
     table = cb.offsets_table(offs, x.device)
     if chunked:
         return _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs,
-                                       br, need_dx, mask_ptr, deep)
+                                       br, need_dx, mask_ptr, tp)
     # each block owns one slot laid out as the flat parameter list
     used = sum(p.numel() for p in params)
     slot = -(-used // 4) * 4  # 16-byte aligned slots; the tail is not read
@@ -770,7 +807,8 @@ def trunk_backward_cuda(
     if bf16:
         wtable = cb.offsets_table(packed.weight_offsets, x.device)
         weights = (packed.weights.data_ptr(), wtable.data_ptr(), wtable.numel())
-        mask = (mask_ptr, deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device))
+        mask = (mask_ptr,
+                scratch_ptr("fused_mlp_bwd", tp, br, d_in, hidden, n_layers, n_blocks, x.device))
     entry = "dcc_trunk_bwd_mma" if bf16 else "dcc_trunk_bwd"
     code = getattr(lib, entry)(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
@@ -778,22 +816,23 @@ def trunk_backward_cuda(
         *weights, slots.data_ptr(), slot, n_blocks, out.data_ptr(), dx.data_ptr(), *mask,
         cb.stream_of(x),
     )
-    cb.check("fused_mlp_bwd", code, "fused_mlp_bwd")
-    cb.LAUNCHES["fused_mlp_bwd"] += 1
-    cb.ENTRY["fused_mlp_bwd"] = entry
-    cb.TILE["fused_mlp_bwd"] = br
+    name = launch_name("fused_mlp_bwd", tp)
+    cb.check("fused_mlp_bwd", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = entry
+    cb.TILE[name] = br
     grads = [t.view(p.shape) for t, p in zip(out[:used].split([p.numel() for p in params]),
                                              params)]
     return (dx if need_dx else None), grads
 
 
 def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, offs, br,
-                            need_dx, mask_ptr=None, deep=False):
+                            need_dx, mask_ptr, tp: tiles.Plan):
     """bf16 K2b at rows too wide for a staged tile: the chunked kernel
     (``dcc_trunk_bwd_chunked_mma``: the chain to layer 0's cotangent g0,
-    its slot starting at layer 0's bias; ``deep``: in its depth layout),
-    then the layer-0 input backward and the dV0 kernel (affine mode) for
-    the 4,840-wide gradients."""
+    its slot starting at layer 0's bias; in the depth or column-blocked
+    layout where the plan ``tp`` says so), then the layer-0 input backward
+    and the dV0 kernel (affine mode) for the 4,840-wide gradients."""
     rows, d_in = x.shape
     hidden = params[-4].shape[1]
     sms = cb.sm_count(x.device)
@@ -808,17 +847,19 @@ def _trunk_backward_chunked(x, params, g, n_layers, use_fn, use_relu, packed, of
     xstats = torch.empty((rows, 2), dtype=torch.float32, device=x.device)
     pb, woffs = packed.buffer, packed.weight_offsets
     table, wtable = cb.offsets_table(offs, x.device), cb.offsets_table(woffs, x.device)
-    code = cb.mma_library("fused_mlp_bwd", hidden).dcc_trunk_bwd_chunked_mma(
+    code = cb.mma_library("fused_mlp_bwd", hidden, tp.blocked).dcc_trunk_bwd_chunked_mma(
         x.data_ptr(), int(x.dtype == torch.bfloat16), g.data_ptr(), rows, d_in, hidden,
         n_layers, int(use_fn), int(use_relu), br, pb.data_ptr(), table.data_ptr(), table.numel(),
         packed.weights.data_ptr(), wtable.data_ptr(), wtable.numel(), slots.data_ptr(), slot,
         n_blocks, out.data_ptr(), g0.data_ptr(), xstats.data_ptr(), mask_ptr,
-        deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device), cb.stream_of(x),
+        scratch_ptr("fused_mlp_bwd", tp, br, d_in, hidden, n_layers, n_blocks, x.device),
+        cb.stream_of(x),
     )
-    cb.check("fused_mlp_bwd", code, "fused_mlp_bwd_chunked")
-    cb.LAUNCHES["fused_mlp_bwd_chunked"] += 1
-    cb.ENTRY["fused_mlp_bwd_chunked"] = "dcc_trunk_bwd_chunked_mma"
-    cb.TILE["fused_mlp_bwd_chunked"] = br
+    name = launch_name("fused_mlp_bwd_chunked", tp)
+    cb.check("fused_mlp_bwd", code, name)
+    cb.LAUNCHES[name] += 1
+    cb.ENTRY[name] = "dcc_trunk_bwd_chunked_mma"
+    cb.TILE[name] = br
     dx, lead = finish_layer0_cuda(x, xstats, g0, pb, offs, packed.weights, woffs, hidden,
                                   use_fn, need_dx)
     return dx, lead + [t.view(p.shape) for t, p in

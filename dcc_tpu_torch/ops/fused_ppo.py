@@ -53,7 +53,8 @@ from .fused_mlp import (
     activation,
     bf16_round,
     check_mma_width,
-    deep_scratch_ptr,
+    launch_name,
+    scratch_ptr,
     dense,
     _mask_ptr,
     mask_gap,
@@ -427,13 +428,15 @@ def _unfolded_params(trunk, head, n_layers, use_fn, device, mma: bool):
 
 
 def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16,
-                  act_dim, fn_args, unfolded=False, relu_masks=None, _deep=False):
+                  act_dim, fn_args, unfolded=False, relu_masks=None, _deep=False,
+                  _blocked=False):
     """Launch K3 / K4 (``trunk`` the folded [V, u] * L) or K3u / K4u (the
     flat trunk list) and its slot reduction; returns (trunk gradients,
     head gradients and metrics). ``relu_masks`` (bf16): None, or an (L,
     rows, H) uint8 tensor the kernel fills with its relu masks. ``_deep``
     (bf16): the depth layout on the tiles ``ops.tiles.plan`` gives, for
-    holding it against the staged layout on the same tile."""
+    holding it against the staged layout on the same tile; ``_blocked``
+    (bf16): the column-blocked layout forced."""
     rows, d_in = x.shape
     hidden = head[0].shape[0]
     cb.require(x, "x", (torch.float32, torch.bfloat16), device=x.device)
@@ -456,7 +459,6 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
         pb, offs, wb, woffs = _unfolded_params(trunk, head, n_layers, use_fn, x.device, bf16)
     else:
         pb, offs, wb, woffs = _kernel_params(trunk, head, x.device, bf16)
-    lib = cb.mma_library("fused_ppo", hidden) if bf16 else cb.library("fused_ppo")
     n_head = 1 if kind == "critic" else act_dim
     tag = "_unfolded" if unfolded else ""
     name = f"{kind}_ppo_grads{tag}"
@@ -464,12 +466,15 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     # kernel (and unfolded the layer-0 input backward)
     # bf16 runs on the tensor cores, f32 on FMA
     if bf16:
-        tp = check_mma_width(name, d_in, hidden, n_layers, n_head)
+        tp = check_mma_width(name, d_in, hidden, n_layers, n_head, blocked=_blocked)
+        tp = tp._replace(deep=True) if _deep else tp
+        lib = cb.mma_library("fused_ppo", hidden, tp.blocked)
     else:
         tp = tiles.plan(name, False, d_in, hidden, n_layers, n_head)
-    chunked, sizes, deep = tp._replace(deep=True) if _deep and bf16 else tp
+        lib = cb.library("fused_ppo")
+    chunked, sizes, deep, blocked = tp
     smem = lambda b: tiles.smem_bytes(name, bf16, b, d_in, hidden, n_layers, n_head,
-                                      chunked, deep) // 4
+                                      chunked, deep, blocked) // 4
     if bf16:
         br = mma_tile_rows(rows, d_in, smem, cb.sm_count(x.device), sizes)
     else:
@@ -498,7 +503,7 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
     else:
         outs = (out.data_ptr(),)
     if bf16:
-        outs += (mask_ptr, deep_scratch_ptr(deep, br, hidden, n_layers, n_blocks, x.device))
+        outs += (mask_ptr, scratch_ptr(name, tp, br, d_in, hidden, n_layers, n_blocks, x.device))
     if kind == "actor":
         code = getattr(lib, entry)(
             x.data_ptr(), x_bf16, aux.data_ptr(), rows, d_in, hidden, n_layers, act_dim,
@@ -514,10 +519,11 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
             table.data_ptr(), table.numel(), *weights, slots.data_ptr(), slot, n_blocks, *outs,
             cb.stream_of(x),
         )
-    cb.check("fused_ppo", code, name)
-    cb.LAUNCHES[name] += 1
-    cb.ENTRY[name] = entry
-    cb.TILE[name] = br
+    counted = launch_name(name, tp)
+    cb.check("fused_ppo", code, counted)
+    cb.LAUNCHES[counted] += 1
+    cb.ENTRY[counted] = entry
+    cb.TILE[counted] = br
     parts = _slot_split(out, shapes)
     if chunked and unfolded:
         parts = finish_layer0_cuda(x, xstats, g0, pb, offs, wb, woffs, hidden, use_fn,
@@ -529,24 +535,25 @@ def _launch_grads(kind, x, aux, trunk, head, *, n_layers, use_fn, use_relu, bf16
 
 
 def actor_grads_cuda(x, aux, kp, whf, bhf, log_std, *, n_layers, use_fn, use_relu,
-                     bf16, clip_param, relu_masks=None, _deep=False):
+                     bf16, clip_param, relu_masks=None, _deep=False, _blocked=False):
     """Launch K3 (+ its slot reduction); same returns as the plain version.
     ``relu_masks`` as in :func:`_launch_grads`."""
     kg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, kp, [whf, bhf, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=whf.shape[1], fn_args=(float(clip_param),),
-        relu_masks=relu_masks, _deep=_deep,
+        relu_masks=relu_masks, _deep=_deep, _blocked=_blocked,
     )
     return kg, dwh, dbh, dls, met
 
 
 def actor_grads_unfolded_cuda(x, aux, params, wh, bh, log_std, *, n_layers, use_fn,
-                              use_relu, bf16, clip_param, relu_masks=None, _deep=False):
+                              use_relu, bf16, clip_param, relu_masks=None, _deep=False,
+                              _blocked=False):
     """Launch K3u (+ its slot reduction); same returns as the plain version."""
     tg, (dwh, dbh, dls, met) = _launch_grads(
         "actor", x, aux, list(params), [wh, bh, log_std], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=wh.shape[1], fn_args=(float(clip_param),),
-        unfolded=True, relu_masks=relu_masks, _deep=_deep,
+        unfolded=True, relu_masks=relu_masks, _deep=_deep, _blocked=_blocked,
     )
     return tg, dwh, dbh, dls, met
 
@@ -557,26 +564,26 @@ def _critic_args(norm, clip_param, huber_delta, use_huber, use_clipped):
 
 def critic_grads_cuda(x, aux, norm, kp, wvf, bvf, *, n_layers, use_fn, use_relu, bf16,
                       clip_param, huber_delta, use_huber, use_clipped, relu_masks=None,
-                      _deep=False):
+                      _deep=False, _blocked=False):
     """Launch K4 (+ its slot reduction); same returns as the plain version."""
     kg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, kp, [wvf, bvf], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
-        relu_masks=relu_masks, _deep=_deep,
+        relu_masks=relu_masks, _deep=_deep, _blocked=_blocked,
     )
     return kg, dwv, dbv, met
 
 
 def critic_grads_unfolded_cuda(x, aux, norm, params, wv, bv, *, n_layers, use_fn, use_relu,
                                bf16, clip_param, huber_delta, use_huber, use_clipped,
-                               relu_masks=None, _deep=False):
+                               relu_masks=None, _deep=False, _blocked=False):
     """Launch K4u (+ its slot reduction); same returns as the plain version."""
     tg, (dwv, dbv, met) = _launch_grads(
         "critic", x, aux, list(params), [wv, bv], n_layers=n_layers, use_fn=use_fn,
         use_relu=use_relu, bf16=bf16, act_dim=1,
         fn_args=_critic_args(norm, clip_param, huber_delta, use_huber, use_clipped),
-        unfolded=True, relu_masks=relu_masks, _deep=_deep,
+        unfolded=True, relu_masks=relu_masks, _deep=_deep, _blocked=_blocked,
     )
     return tg, dwv, dbv, met
 

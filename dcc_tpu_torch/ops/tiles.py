@@ -15,12 +15,18 @@ more for the others.
 
 The hidden width sets the rest of a tile's shared memory (activations,
 cotangents, one column pass of the weight ring). Past 256 the bf16 kernels
-run each layer in column passes; a width whose smallest tile does not fit
-one block in either layout (above about 1,024 at two layers) is refused
-(:func:`no_tile`, ROADMAP B3). ``LAST`` offers the bf16 actor kernels a
+run each layer in column passes. ``LAST`` offers the bf16 actor kernels a
 16-row staged tile, taken only where no larger tile fits in either layout
 (hidden widths of 768 and more), so that the launches that fit at
-narrower widths keep their tiles.
+narrower widths keep their tiles. Where the smallest tile fits one block
+in none of the staged, chunked, ``LAST`` or depth layouts (past about
+1,024 at two layers for the gradient kernels, 2,800 for K2 at 440-wide
+rows), the bf16 kernels take their column-blocked layout (``BLOCKED``,
+the ``*_blocked`` libraries): every tile as wide as the hidden layer lives
+in a per-block scratch in device memory (:func:`scratch_bytes`), and the
+shared memory, layer 0's operand (staged or chunked), the weight ring and
+the per-row values, does not grow with the hidden width. So in bf16 every
+hidden width is taken.
 
 The depth of the trunk sets the rest. The bf16 gradient kernels (K2b, K3 /
 K4, K3u / K4u) keep every layer's activations and LN statistics in shared
@@ -28,7 +34,7 @@ memory, so at hidden 256 their smallest tiles hold 13 to 15 layers. Past
 that they take their depth layout (``DEEP``), staged or
 chunked, whose shared memory holds one layer's tile and does not grow with
 the depth; the other layers' tiles go to a scratch in device memory
-(:func:`deep_scratch_bytes` a block). :func:`plan` takes it only where no
+(:func:`scratch_bytes` a block). :func:`plan` takes it only where no
 staged, chunked or ``LAST`` tile holds the stack, so every launch that fits
 those keeps its layout and its tile.
 """
@@ -80,87 +86,129 @@ DEEP = {key: SIZES[key] for key in (
     ("actor_ppo_grads_unfolded", True), ("critic_ppo_grads_unfolded", True))}
 
 
+# the bf16 kernels' column-blocked layout (the ``*_blocked`` libraries), taken
+# where no tile of their other layouts fits, and the row tiles of its staged
+# form (its chunked form takes CHUNKED's): K2, K2b, K3, K4, K3u, K4u and the
+# row-tiled layer-0 input backward
+BLOCKED = {key: SIZES[key] + LAST.get(key, ()) for key in (
+    ("fused_mlp", True), ("fused_mlp_bwd", True), ("actor_ppo_grads", True),
+    ("critic_ppo_grads", True), ("actor_ppo_grads_unfolded", True),
+    ("critic_ppo_grads_unfolded", True), ("layer0_input_bwd", True))}
+
+
 class Plan(NamedTuple):
     """A kernel's row tiles as :func:`plan` gives them: ``chunked``, its
     chunked first layer; ``tiles``, largest first; ``deep``, its depth
-    layout."""
+    layout; ``blocked``, its column-blocked layout."""
     chunked: bool
     tiles: list
     deep: bool = False
+    blocked: bool = False
 
 
 def smem_bytes(kernel: str, bf16: bool, br: int, d_in: int, hidden: int, n_layers: int,
-               n_head: int = 1, chunked: bool = False, deep: bool = False) -> int:
+               n_head: int = 1, chunked: bool = False, deep: bool = False,
+               blocked: bool = False) -> int:
     """Shared memory of one ``br``-row tile of ``kernel`` (a key of
     ``ops.LAUNCHES``; ``n_head``: the actor head's width; ``chunked``: its
-    chunked layout; ``deep``: its depth layout, ``DEEP``), from its library
-    (built on first use)."""
+    chunked layout; ``deep``: its depth layout, ``DEEP``; ``blocked``: its
+    column-blocked layout, ``BLOCKED``), from its library (built on first
+    use)."""
     mma = "_mma" if bf16 else ""
     ch = "_chunked" if chunked else ""
+    lib = lambda name: cb.library(f"{name}_blocked" if blocked else name)
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
-        return getattr(cb.library("fused_mlp"), f"dcc_trunk_fwd_mma{ch}_smem_bytes")(
+        return getattr(lib("fused_mlp"), f"dcc_trunk_fwd_mma{ch}_smem_bytes")(
             br, d_in, hidden)
     if kernel == "layer0_input_bwd":
-        return cb.library("fused_mlp_bwd").dcc_layer0_input_bwd_smem_bytes(br, hidden)
+        return lib("fused_mlp_bwd").dcc_layer0_input_bwd_smem_bytes(br, hidden)
     args = (int(deep),) if bf16 else ()
     if kernel == "fused_mlp_bwd":
-        fn = getattr(cb.library("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}{ch}_smem_bytes")
+        fn = getattr(lib("fused_mlp_bwd"), f"dcc_trunk_bwd{mma}{ch}_smem_bytes")
         return fn(br, d_in, hidden, n_layers, *args)
     tag = "_unfolded" if kernel.endswith("_unfolded") else ""
-    fn = getattr(cb.library("fused_ppo"), f"dcc_ppo{tag}{mma}{ch}_smem_bytes")
+    fn = getattr(lib("fused_ppo"), f"dcc_ppo{tag}{mma}{ch}_smem_bytes")
     return fn(br, d_in, hidden, n_layers, n_head, *args)
 
 
-def deep_scratch_bytes(br: int, hidden: int, n_layers: int) -> int:
-    """Bytes of one block's scratch in the depth layout: each layer's bf16
-    activation tile (br x (pad16(hidden) + 8)), its rows' LN mean and
-    1/sqrt(var + eps), and the weights' column norms, from the library."""
-    return cb.library("fused_mlp_bwd").dcc_deep_scratch_bytes(br, hidden, n_layers)
+def scratch_bytes(kernel: str, p: Plan, br: int, d_in: int, hidden: int, n_layers: int) -> int:
+    """Bytes of one block's scratch in device memory of a bf16 launch of
+    ``kernel`` on the plan ``p``, from the library: 0 in the staged and
+    chunked layouts; in the depth layout each layer's bf16 activation tile
+    (br x (pad16(hidden) + 8)), its rows' LN mean and 1/sqrt(var + eps),
+    and the weights' column norms; in the column-blocked layout also the
+    operand, cotangent, f32 stages, column sums and head weights (K2: a
+    later layer's input and the activations; the layer-0 input backward:
+    none)."""
+    if p.blocked:
+        if kernel == "fused_mlp":
+            return cb.library("fused_mlp_blocked").dcc_trunk_fwd_scratch_bytes(br, hidden)
+        if kernel == "layer0_input_bwd":
+            return 0
+        return cb.library("fused_mlp_bwd_blocked").dcc_blocked_scratch_bytes(
+            br, d_in, hidden, n_layers, int(p.chunked))
+    if p.deep:
+        return cb.library("fused_mlp_bwd").dcc_deep_scratch_bytes(br, hidden, n_layers)
+    return 0
 
 
 def plan(kernel: str, bf16: bool, d_in: int, hidden: int, n_layers: int,
-         n_head: int = 1) -> Plan:
+         n_head: int = 1, blocked: bool = False) -> Plan:
     """The :class:`Plan` of ``kernel``: the row tiles of ``kernel`` that fit
     one block at this width with whole rows staged, or, where none does and
     the kernel has a chunked first layer, those of its chunked layout
     (chunked True); ``LAST``'s staged tiles where neither layout has a
     larger one; where none of those holds the trunk's layers, the depth
-    layout's (``DEEP``; staged, else chunked), with ``deep`` True."""
+    layout's (``DEEP``; staged, else chunked), with ``deep`` True; where
+    none of those fits (in bf16), the column-blocked layout's (``BLOCKED``),
+    with ``blocked`` True: chunked where the kernel's rows are, at this
+    width, too wide for its staged tiles at hidden 256 (so that a row's
+    width alone decides its first layer, as at the widths the other layouts
+    take), else staged where a tile fits. ``blocked`` forces that layout on
+    the tiles and first layer the kernel takes otherwise (the checks that
+    hold the layouts against each other on one tile)."""
     key = (kernel, bf16)
-    fits = lambda sizes, ch=False, deep=False: [
-        b for b in sizes
-        if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, ch, deep) <= SMEM_MAX]
+    fits = lambda sizes, ch=False, deep=False, blk=False: [
+        b for b in sizes if smem_bytes(kernel, bf16, b, d_in, hidden, n_layers, n_head, ch,
+                                       deep, blocked=blk) <= SMEM_MAX]
+    wide_rows = lambda: key in CHUNKED and plan(kernel, bf16, d_in, 256, n_layers, n_head).chunked
+    p = _plan(key, fits, wide_rows)
+    if blocked and not p.blocked:
+        return Plan(p.chunked, fits(p.tiles, p.chunked, blk=True), blocked=True)
+    return p
+
+
+def _plan(key, fits, wide_rows) -> Plan:
+    """:func:`plan`'s layouts in turn, ``fits`` the tiles of a layout that
+    fit one block, ``wide_rows()`` whether the column-blocked layout takes
+    the chunked first layer."""
+
+    def column_blocked():
+        staged = [] if wide_rows() else fits(BLOCKED[key], blk=True)
+        if staged:
+            return Plan(False, staged, blocked=True)
+        return Plan(key in CHUNKED, fits(CHUNKED.get(key, ()), True, blk=True), blocked=True)
+
     staged = fits(SIZES[key])
     if staged:
         return Plan(False, staged)
     chunked, last = fits(CHUNKED.get(key, ()), True), fits(LAST.get(key, ()))
     if last and max(chunked, default=0) <= max(last):  # no larger tile fits
         return Plan(False, last)
-    if chunked or key not in DEEP:
-        return Plan(key in CHUNKED, chunked)
-    deep = fits(DEEP[key], deep=True)
-    if deep:
-        return Plan(False, deep, deep=True)
-    return Plan(key in CHUNKED, fits(CHUNKED.get(key, ()), True, True), deep=True)
-
-
-def no_tile(kernel: str, d_in: int, hidden: int, n_layers: int, n_head: int = 1):
-    """None where the bf16 ``kernel`` has a row tile at this width
-    (:func:`plan`), else why not: its smallest tile's shared memory in the
-    layout it would take last (chunked where it has one, in its depth
-    layout where it has one), naming ROADMAP B3."""
-    key = (kernel, True)
-    if plan(kernel, True, d_in, hidden, n_layers, n_head).tiles:
-        return None
-    chunked, deep = key in CHUNKED, key in DEEP
-    br = min(CHUNKED[key] if chunked else SIZES[key] + LAST.get(key, ()))
-    need = smem_bytes(kernel, True, br, d_in, hidden, n_layers, n_head, chunked, deep)
-    layout = " in its depth layout" if deep else ""
-    return (f"bf16 {kernel} at hidden width {hidden} ({d_in}-wide rows, {n_layers} layers): "
-            f"its smallest row tile ({br} rows){layout} needs {need} bytes of shared memory, "
-            f"more than one block's {SMEM_MAX} (ROADMAP B3)")
+    if chunked:
+        return Plan(True, chunked)
+    if key in DEEP:
+        deep = fits(DEEP[key], deep=True)
+        if deep:
+            return Plan(False, deep, deep=True)
+        deep = fits(CHUNKED.get(key, ()), True, True)
+        if deep:
+            return Plan(key in CHUNKED, deep, deep=True)
+    if key in BLOCKED:
+        return column_blocked()
+    return Plan(key in CHUNKED, [])
 
 
 # The layer-0 tail on the warpgroup tensor cores (``csrc/layer0_tail.cu``):

@@ -14,6 +14,7 @@ checkout, on one GPU.
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] precision
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] mesh
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] deep
+    python3 scripts/smoke_phase.py [--root DIR] [--out FILE] blocked
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] train -- TAG [TAG ...]
     python3 scripts/smoke_phase.py [--root DIR] [--out FILE] profile [-- train arguments ...]
     python3 scripts/smoke_phase.py [--root DIR] --out FILE.pt bits
@@ -44,7 +45,7 @@ at the many-PoI swarms' widths: 4 UAVs x 300 PoIs (actor 1,510, critic
 6,040) at 16 and 1,024 envs, 4 x 360 and the 20-UAV preset with 50 PoIs
 (``chip_smoke.check_many_pois``). ``hidden`` builds the kernels and holds
 every kernel at ROADMAP B3's hidden widths, 100 to 1,024, and times them at
-the main path's shapes at 512 and 1,024 (``chip_smoke.check_wide_hidden``).
+the main path's shapes at 512 (``chip_smoke.check_wide_hidden``).
 ``timing`` builds the kernels and times the bf16 K2, K2b, K3 / K4 and K3u
 / K4u at the default widths, hidden 256, on the model's trunk with tanh (no
 relu masks asked for), against their plain versions, at 16 envs and at
@@ -75,7 +76,13 @@ layers, every kernel of the trunk in f32 and bf16 against its plain version
 at those depths (timed at 9 and 32), the chunked layouts on the 20-UAV
 preset's critic rows at 9 and 32 layers, and the deep training runs
 (``chip_smoke.DEEP_RUNS``) with their launch checks.
-``train`` trains the ``chip_smoke.TRAIN_RUNS`` (and ``DEEP_RUNS``) whose tags are given, with
+``blocked`` builds the kernels and runs the smoke's column-blocked phase
+(``chip_smoke.check_blocked``): the row-tile plans at hidden 1,152, 2,048
+and 4,096, the column-blocked layout bit for bit against the staged and
+depth layouts at 512 and 1,024, every kernel in it against its plain
+version at 1,152, 2,048 and 4,096 (16 envs) and at the main path's shapes
+at 2,048 (256 envs), timed, and the runs of ``chip_smoke.BLOCKED_RUNS``.
+``train`` trains the ``chip_smoke.TRAIN_RUNS`` (and ``DEEP_RUNS``, ``BLOCKED_RUNS``) whose tags are given, with
 their launch checks (``chip_smoke.train_run``). ``profile`` trains with
 ``chip_smoke.py``'s base arguments plus the given ones (for example
 ``--compute-dtype bfloat16 --use-recurrent-policy true``),
@@ -112,7 +119,7 @@ def main(argv=None) -> int:
                     help="bits: hold the outputs against this record of another checkout")
     ap.add_argument("phase", choices=("updates", "gae", "k2", "presets", "wide", "pois",
                                        "hidden", "timing", "maddpg", "precision", "mesh",
-                                       "deep", "train", "profile", "bits"))
+                                       "deep", "blocked", "train", "profile", "bits"))
     ap.add_argument("train_args", nargs="*",
                     help="arguments for dcc_tpu_torch.train (profile); run tags (train)")
     args = ap.parse_args(argv)
@@ -155,21 +162,29 @@ def main(argv=None) -> int:
         results = {}
         try:
             for tag, extra, per_iter in (*chip_smoke.TRAIN_RUNS,
-                                         *getattr(chip_smoke, "DEEP_RUNS", ())):
+                                         *getattr(chip_smoke, "DEEP_RUNS", ()),
+                                         *getattr(chip_smoke, "BLOCKED_RUNS", ())):
                 if tag in args.train_args:
                     chip_smoke.train_run(results, tag, chip_smoke.BASE_ARGS + extra, per_iter)
         except chip_smoke.SmokeFailure as e:
             print(f"smoke_phase: FAILED: {e}", file=sys.stderr)
             return 1
-    elif args.phase in ("precision", "mesh", "deep"):
+    elif args.phase in ("precision", "mesh", "deep", "blocked"):
         from dcc_tpu_torch.ops import cuda_build
 
-        cuda_build.build(verbose=True)
+        built = cuda_build.build(verbose=True)
+        print(f"built in {built['_seconds']:.1f} s", flush=True)
         results = {}
         try:
-            if args.phase == "deep":
+            if args.phase == "blocked":
                 results["checks"], results["runs"] = [], {}
-                chip_smoke.check_deep(results["checks"], results["runs"])
+                results["ptxas"] = chip_smoke.ptxas_report(built.get("_ptxas", {}), False)
+                chip_smoke.check_blocked(results["checks"], results["ptxas"])
+                chip_smoke.train_runs(results["runs"], chip_smoke.BLOCKED_RUNS)
+            elif args.phase == "deep":
+                results["checks"], results["runs"] = [], {}
+                chip_smoke.check_deep(results["checks"])
+                chip_smoke.train_runs(results["runs"], chip_smoke.DEEP_RUNS)
             else:
                 (chip_smoke.check_precision if args.phase == "precision"
                  else chip_smoke.check_mesh)(results)

@@ -867,59 +867,77 @@ def _red(br):
     return 4 * (_MMA_WARPS // (br // 16)) * br * 2
 
 
-def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False, deep=False):
+def _ring_bytes(br, stage, blocked):
+    """The gradient kernels' weight ring (csrc/trunk_mma.cuh ``ring_bytes``):
+    column-blocked, each stage also holds a first operand's K-slice, and
+    grad_at_g_blocked's two column blocks lie over the ring."""
+    if not blocked:
+        return 2 * _MMA_STAGES * stage
+    return max(2 * _MMA_STAGES * (stage + br * (_MMA_KS + 8)), 4 * br * (_MMA_HMAX + 8))
+
+
+def _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked=False, deep=False,
+                     blocked=False):
     """The rows (chunked: one column chunk of them), activations, staging
     and weight ring shared by the K2b and K3 / K4 tensor-core layouts, and
     their LN statistics (``deep``: the depth layout's one activation tile,
-    its own g_prev stage past one column pass, no statistics)."""
+    its own g_prev stage past one column pass, no statistics;
+    ``blocked``: the column-blocked layout's rows and ring alone)."""
     kp0, hp = _pad16(d_in), _pad16(hidden)
     ldh = hp + 8
+    deep = deep or blocked
     kept = 0 if deep else n_layers  # layers whose tiles and statistics stay in shared memory
+    tile = 0 if blocked else 2 * br * ldh  # a bf16 tile H wide in shared memory
     gprev0 = unfolded and not chunked  # layer 0's g_prev, staged over the dead tiles
     nk = _pass_cols(kp0) if gprev0 else 0
     nh = _pass_cols(hp)  # a layer's column pass; wider layers' g_prev over the dead tiles
-    o = (2 * br * ((_MMA_KC if chunked else kp0) + 8) + 2 * (1 if deep else n_layers) * br * ldh
-         + 2 * br * ldh)
-    if deep and hp > _MMA_HMAX:
+    o = 2 * br * ((_MMA_KC if chunked else kp0) + 8) + (1 if deep else n_layers) * tile + tile
+    if deep and hp > _MMA_HMAX and not blocked:
         o += 4 * br * (hp + 4)
-    if gprev0:
+    if gprev0 and not blocked:
         o = max(o, 4 * br * (kp0 + 4))
-    o += 2 * br * ldh
-    o += 2 * _MMA_STAGES * max(_ring_stage(nh, False), _ring_stage(max(nk, nh), True))
+    o += tile
+    o += _ring_bytes(br, max(_ring_stage(nh, False), _ring_stage(max(nk, nh), True)), blocked)
     o += 4 * kept * br * 2 + (8 * br if unfolded or chunked else 0)
-    return o + _red(br) + 4 * (3 if unfolded else 1) * (br // 16) * hp
+    return o + _red(br) + (0 if blocked else 4 * (3 if unfolded else 1) * (br // 16) * hp)
 
 
-def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=False, deep=False):
+def smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head=1, chunked=False, deep=False,
+                blocked=False):
     """Shared memory of one ``br``-row tile of ``kernel`` (``chunked``: its
-    chunked layout; ``deep``: its depth layout), as ``ops.tiles.smem_bytes``
-    reads it from the libraries."""
+    chunked layout; ``deep``: its depth layout; ``blocked``: its
+    column-blocked layout), as ``ops.tiles.smem_bytes`` reads it from the
+    libraries."""
     unfolded = kernel.endswith("_unfolded")
     hp = _pad16(hidden)
-    kept = 0 if deep else n_layers
+    kept = 0 if deep or blocked else n_layers
     if kernel == "layer0_input_bwd":  # g0 rows, the ring, the f32 xhat chunk, sums
-        return (2 * br * (hp + 8) + 2 * _MMA_STAGES * _ring_stage(_MMA_HMAX, True)
+        return ((0 if blocked else 2 * br * (hp + 8))
+                + _ring_bytes(br, _ring_stage(_MMA_HMAX, True), blocked)
                 + 4 * br * (_MMA_HMAX + 4) + 4 * 2 * (br // 16) * _MMA_HMAX + _red(br)
                 + 8 * br)
     if kernel == "fused_mlp":
         if not bf16:
             return 4 * br * (max(d_in, hidden) + hidden)
-        # past one column pass, the layer's activations
-        act = 2 * br * (hp + 8) if hp > _MMA_HMAX else 0
-        ring = _MMA_STAGES * _ring_stage(_pass_cols(hp), False)
+        # past one column pass, the layer's activations (column-blocked: in
+        # the scratch, with the later layers' input, which the ring streams)
+        act = 2 * br * (hp + 8) if hp > _MMA_HMAX and not blocked else 0
+        ring = _MMA_STAGES * (_ring_stage(_pass_cols(hp), False)
+                              + (br * (_MMA_KS + 8) if blocked else 0))
+        wide = 0 if blocked else hp
         if chunked:  # a chunk of the rows (then a layer's input), ring, sums, row statistics
-            return 2 * (br * (max(_MMA_KC, hp) + 8) + ring) + _red(br) + 8 * br + act
-        wmax = max(_pad16(d_in), hp)
+            return 2 * (br * (max(_MMA_KC, wide) + 8) + ring) + _red(br) + 8 * br + act
+        wmax = max(_pad16(d_in), wide)
         return 2 * (br * (wmax + 8) + ring) + _red(br) + act
     chain = br * (2 * d_in + 3 * n_layers * hidden + n_layers + 1)  # f32 unfolded floats
     if kernel == "fused_mlp_bwd":
         if not bf16:
             return 4 * chain
-        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True, chunked, deep) + 4 * br
-                + 4 * kept * hp + _RESUM_BYTES)
+        return (_mma_chain_bytes(br, d_in, hidden, n_layers, True, chunked, deep, blocked)
+                + 4 * br + 4 * kept * hp + _RESUM_BYTES)
     if bf16:
-        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked, deep)
-        o += 4 * hidden * n_head
+        o = _mma_chain_bytes(br, d_in, hidden, n_layers, unfolded, chunked, deep, blocked)
+        o += 0 if blocked else 4 * hidden * n_head
         o += 0 if unfolded else 4 * kept * hidden
         o += 4 * br * n_head * 2 + 8 * br
         if unfolded:
@@ -945,30 +963,37 @@ def test_row_tile_mirror_matches_the_libraries(cuda):
     gives each kernel's shared memory per row tile as the built libraries
     do (``ops.tiles.smem_bytes``, which MAPPO and the wrappers read), in
     every layout: staged, chunked and, for the bf16 gradient kernels, the
-    depth layout of both, at 2, 9 and 32 layers."""
+    depth layout of both, at 2, 9 and 32 layers; the column-blocked layout
+    of both (``tiles.BLOCKED``) at hidden widths to 6,144."""
     from dcc_tpu_torch.ops import tiles
 
     for (kernel, bf16), sizes in tiles.SIZES.items():
         key = (kernel, bf16)
         n_head = 2 if kernel.startswith("actor") else 1
-        layouts = [(False, False, sizes + tiles.LAST.get(key, ()))]
+        layouts = [(False, False, False, sizes + tiles.LAST.get(key, ()))]
         if key in tiles.CHUNKED:
-            layouts.append((True, False, tiles.CHUNKED[key]))
+            layouts.append((True, False, False, tiles.CHUNKED[key]))
         if key in tiles.DEEP:
-            layouts.append((False, True, tiles.DEEP[key]))
-            layouts.append((True, True, tiles.CHUNKED[key]))
-        for chunked, deep, tile_sizes in layouts:
+            layouts.append((False, True, False, tiles.DEEP[key]))
+            layouts.append((True, True, False, tiles.CHUNKED[key]))
+        if key in tiles.BLOCKED:
+            layouts.append((False, False, True, tiles.BLOCKED[key]))
+            if key in tiles.CHUNKED:
+                layouts.append((True, False, True, tiles.CHUNKED[key]))
+        for chunked, deep, blocked, tile_sizes in layouts:
+            widths = (256, 100, 264, 300, 512, 1024) + ((1152, 2048, 4096, 6144) if blocked
+                                                        else ())
             for d_in in (58, 110, 174, 192, 242, 440, 960, 1220, 1475, 1510, 4840, 5840,
                          6040):
-                for hidden in (256, 100, 264, 300, 512, 1024):
+                for hidden in widths:
                     for n_layers in (2, 9, 32):
                         for br in tile_sizes:
                             want = tiles.smem_bytes(kernel, bf16, br, d_in, hidden, n_layers,
-                                                    n_head, chunked, deep)
+                                                    n_head, chunked, deep, blocked)
                             got = smem_layout(kernel, bf16, br, d_in, hidden, n_layers, n_head,
-                                              chunked, deep)
-                            assert got == want, (kernel, bf16, chunked, deep, br, d_in, hidden,
-                                                 n_layers)
+                                              chunked, deep, blocked)
+                            assert got == want, (kernel, bf16, chunked, deep, blocked, br, d_in,
+                                                 hidden, n_layers)
 
 
 @pytest.mark.parametrize("rows", _RAGGED + [20000])
@@ -1217,7 +1242,7 @@ def test_20uav_preset_builds_on_the_card(cuda):
     from dcc_tpu_torch.ops import tiles
 
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16], False)
+    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16], False, False)
     algo = MAPPO(algo_cfg, env_cfg, device=cuda)
     assert algo.fused_loss and algo.fused_trunk
 
@@ -1278,9 +1303,9 @@ def test_20uav_wide_actor_rows_build_on_the_card(cuda, fold):
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device=cuda)
     algo.obs_dim = env_cfg.share_obs_dim
-    algo._check_cuda_trunk()
+    algo._check_row_tiles()
     kernel = "actor_ppo_grads" + ("" if fold else "_unfolded")
-    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16], False)
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16], False, False)
 
 
 # the many-PoI widths: critic rows of 4 UAVs x 300 PoIs (6,040) and of 20 x 50
@@ -1722,10 +1747,18 @@ def test_deep_trunk_kernels_match_plain(cuda, kind, n_layers, bf16):
     clip's kink a zero advantage (``_clip_kink_rows``), K4u the rows whose
     value it rounds apart valid = 0 (``_value_flip_rows``), as the other
     bf16 checks do."""
-    d_in = 440 if kind.startswith("critic") else 110
+    _check_against_plain(cuda, kind, n_layers, 256, bf16)
+
+
+def _check_against_plain(cuda, kind, n_layers, hidden, bf16, d_in=None, **force):
+    """``test_deep_trunk_kernels_match_plain``'s check of ``kind`` at
+    ``n_layers`` layers of width ``hidden`` on 777 rows, 440 wide for the
+    critic's kernels and 110 for the rest unless ``d_in``; ``force``: the
+    wrappers' private layout arguments (``_blocked``) of the bf16 calls."""
+    d_in = d_in or (440 if kind.startswith("critic") else 110)
     gen = torch.Generator().manual_seed(n_layers + d_in + 13)
     rows, L = 777, n_layers
-    x, aux, params, hw, hb = _deep_case(gen, kind, rows, d_in, 256, L, cuda)
+    x, aux, params, hw, hb = _deep_case(gen, kind, rows, d_in, hidden, L, cuda)
     if bf16:
         x = x.bfloat16()
     folded = kind in ("actor", "critic")
@@ -1739,8 +1772,8 @@ def test_deep_trunk_kernels_match_plain(cuda, kind, n_layers, bf16):
             aux[kink, 2 if kind.startswith("critic") else 3] = 0.0
     masks = None
     if bf16:
-        masks = torch.zeros((L, rows, 256), dtype=torch.uint8, device=cuda)
-        _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks)
+        masks = torch.zeros((L, rows, hidden), dtype=torch.uint8, device=cuda)
+        _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks, **force)
         if kind == "critic_unfolded":
             flips = _value_flip_rows(x, aux, params, hw, hb, L, True, True, masks=masks)
             assert len(flips) <= 3 + rows // 20
@@ -1753,7 +1786,7 @@ def test_deep_trunk_kernels_match_plain(cuda, kind, n_layers, bf16):
             else:
                 feat = FM._forward_chain(x, params, L, True, True, True, masks)[0]
                 aux[_clip_kink_rows(feat, aux, hw, hb, ls), 3] = 0.0
-        got = _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks)
+        got = _deep_call(kind, x, aux, params, hw, hb, L, True, relu_masks=masks, **force)
         _mask_ok(FP.relu_mask_gap_folded(x, kp, L, True, masks) if folded
                  else FM.relu_mask_gap(x, params, L, True, masks))
     else:
@@ -1765,3 +1798,56 @@ def test_deep_trunk_kernels_match_plain(cuda, kind, n_layers, bf16):
     if bf16:
         f32 = _deep_call(kind, x, aux, params, hw, hb, L, False)
         assert max(_rel(g, w) for g, w in zip(f32, want)) > tol
+
+
+@pytest.mark.parametrize("kind", ("fused_mlp", *DEEP_KINDS))
+def test_blocked_kernels_match_plain(cuda, kind):
+    """ROADMAP B3 rest: K2, K2b, K3, K4, K3u and K4u in their column-blocked
+    layout (``_blocked``: the ``*_blocked`` libraries) at hidden 1,152, two
+    relu layers, against their plain versions under the rules of
+    ``test_deep_trunk_kernels_match_plain`` (bf16 within 2e-3 for K2, 4e-3
+    for the rest, the kernel computed in f32 outside), each launch counted
+    under its ``*_blocked`` name."""
+    cb.reset_launches()
+    _check_against_plain(cuda, kind, 2, 1152, True, _blocked=True)
+    name = "fused_mlp" if kind == "fused_mlp" else _DEEP_NAME[kind]
+    assert cb.LAUNCHES[f"{name}_blocked"] > 0
+    assert cb.ENTRY[f"{name}_blocked"].endswith("_mma")
+
+
+@pytest.mark.parametrize("kind", ("fused_mlp_bwd", "critic_unfolded"))
+def test_blocked_chunked_kernels_match_plain(cuda, kind):
+    """K2b and K4u on the 20-UAV preset's 4,840-wide critic rows at hidden
+    1,152, where the plan gives them the column-blocked layout's chunked
+    kernels unforced, then the layer-0 tail, against their plain versions
+    under ``test_blocked_kernels_match_plain``'s rules."""
+    from dcc_tpu_torch.ops import tiles
+
+    name = _DEEP_NAME[kind]
+    assert tiles.plan(name, True, 4840, 1152, 2, 1).blocked
+    cb.reset_launches()
+    _check_against_plain(cuda, kind, 2, 1152, True, d_in=4840)
+    chunked = "fused_mlp_bwd_chunked" if kind == "fused_mlp_bwd" else name
+    assert cb.LAUNCHES[f"{chunked}_blocked"] > 0
+    assert "_chunked_mma" in cb.ENTRY[f"{chunked}_blocked"]
+
+
+def test_blocked_layer0_input_bwd_matches_plain(cuda):
+    """The layer-0 input backward's column-blocked build (g0 streamed by the
+    products) at hidden 1,152 on 777 rows of 4,840 columns, with dx, against
+    its plain version within 1e-4 and bit for bit its staged build (the
+    tile it takes otherwise)."""
+    gen = torch.Generator().manual_seed(4840 + 1152)
+    d_in, hidden, rows = 4840, 1152, 777
+    params = _trunk_params(gen, d_in, hidden, 1, True, cuda)
+    w0b = FM.pack_mma_weights([params[2]], cuda)[0].view(FM.pad16(d_in), FM.pad16(hidden))
+    x = torch.randn(rows, d_in, generator=gen).to(cuda).bfloat16()
+    xstats = FM.input_stats(x, True)
+    g0 = torch.zeros(rows, FM.pad16(hidden), dtype=torch.bfloat16, device=cuda)
+    g0[:, :hidden] = torch.randn(rows, hidden, generator=gen).to(cuda)
+    staged = FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, params[0], hidden, True)
+    got = FM.layer0_input_bwd_cuda(x, xstats, g0, w0b, params[0], hidden, True, _blocked=True)
+    assert cb.ENTRY["layer0_input_bwd_blocked"] == "dcc_layer0_input_bwd_mma"
+    assert all(torch.equal(a, b) for a, b in zip(got, staged))
+    want = FM.layer0_input_bwd_plain(x, xstats, g0, w0b, params[0], hidden, True)
+    assert max(_rel(g, w) for g, w in zip(got, want)) < 1e-4

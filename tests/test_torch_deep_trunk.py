@@ -443,7 +443,7 @@ def test_tile_plans_by_depth(monkeypatch):
                     assert p == tiles.plan(kernel, True, width, 256, n_layers, n_head)
     for n_layers in (1, 9, 32):
         p = tiles.plan("fused_mlp", True, 440, 256, n_layers)
-        assert p == (False, [64, 32, 16], False)
+        assert p == (False, [64, 32, 16], False, False)
     # MAPPO builds with every fused kernel on at every depth from 1 to 32
     # layers, bf16 and f32
     _, env_cfg, algo_cfg = load()

@@ -166,14 +166,17 @@ def test_critic_kernel_params_for_the_tensor_cores(n_layers):
 @pytest.mark.parametrize("hidden", [36, 264])
 def test_mma_width_check(monkeypatch, hidden):
     """The launch-time width check takes widths off multiples of 8 (36) and
-    past one column pass (264), and refuses, naming ROADMAP B3 and the
-    shared memory, a width whose smallest row tile does not fit one block
-    (the kernels' layouts from the tests' mirror of them)."""
+    past one column pass (264) in the layouts they took before, and a width
+    whose smallest staged or depth tile does not fit one block (4,096) in
+    the column-blocked layout, which it takes forced at the narrower widths
+    too (the kernels' layouts from the tests' mirror of them)."""
     monkeypatch.setattr(tiles, "smem_bytes", smem_layout)
-    assert FM.check_mma_width("fused_mlp_bwd", 110, hidden, 2)[1]
-    with pytest.raises(ValueError, match="ROADMAP B3") as err:
-        FM.check_mma_width("fused_mlp_bwd", 110, 4096, 2)
-    assert "bytes of shared memory" in str(err.value)
+    p = FM.check_mma_width("fused_mlp_bwd", 110, hidden, 2)
+    assert p.tiles and not p.blocked
+    assert FM.check_mma_width("fused_mlp_bwd", 110, 4096, 2) == (False, [64, 32, 16], False,
+                                                                 True)
+    assert FM.check_mma_width("fused_mlp_bwd", 110, hidden, 2, blocked=True) == (
+        p.chunked, p.tiles, False, True)
 
 
 def test_folded_kink_rows_flag_a_pre_activation_on_the_kink():

@@ -9,8 +9,7 @@ K3u are given rows that wide; the builds of the many-PoI swarms, 4 UAVs x
 K4u, K2b) and the 20-UAV preset with 50 PoIs (critic rows 5,840: chunked
 K2); MAPPO's builds with the fused kernels at bf16 hidden widths past 256
 and off multiples of 8, which the kernels run in column passes, and at 9
-layers; and MAPPO's refusal at construction of a trunk the fused CUDA
-kernels do not take (ROADMAP B3)."""
+layers."""
 
 import numpy as np
 import pytest
@@ -75,10 +74,10 @@ def test_20uav_preset_builds_on_cuda(monkeypatch):
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     assert (env_cfg.obs_dim, env_cfg.share_obs_dim) == (242, 4840)
-    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16], False)
-    assert tiles.plan("actor_ppo_grads", True, 242, 256, 2, 2) == (False, [32], False)
+    assert tiles.plan("critic_ppo_grads", True, 4840, 256, 2) == (True, [32, 16], False, False)
+    assert tiles.plan("actor_ppo_grads", True, 242, 256, 2, 2) == (False, [32], False, False)
     assert tiles.plan("critic_ppo_grads", True, 440, 256, 2)[0] is False  # staged as before
-    assert tiles.plan("fused_mlp", True, 4840, 256, 2) == (False, [16], False)
+    assert tiles.plan("fused_mlp", True, 4840, 256, 2) == (False, [16], False, False)
     algo = MAPPO(algo_cfg, env_cfg, device="cuda")
     assert algo.fused_loss and algo.fused_trunk and algo.cfg.fused_fold
 
@@ -99,7 +98,7 @@ def test_20uav_preset_overrides_build_on_cuda(monkeypatch, override, kernel):
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
     assert env_cfg.share_obs_dim == 4840
-    assert tiles.plan(kernel, True, 4840, 256, 2) == (True, [32, 16], False)
+    assert tiles.plan(kernel, True, 4840, 256, 2) == (True, [32, 16], False, False)
     assert tiles.plan(kernel, True, 242, 256, 2)[0] is False  # the actor's: staged
     algo = MAPPO(algo_cfg._replace(**override), env_cfg, device="cuda")
     assert algo.fused_trunk and algo.fused_loss == (kernel != "fused_mlp_bwd")
@@ -114,8 +113,8 @@ def test_20uav_wide_actor_rows_build_on_cuda(monkeypatch, fold, kernel):
     does bf16 K2 at 6,040-wide rows."""
     pretend_cuda(monkeypatch)
     _, env_cfg, algo_cfg = load_preset("20uav_16k_dist")
-    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16], False)
-    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16], False)
+    assert tiles.plan(kernel, True, 4840, 256, 2, 2) == (True, [32, 16], False, False)
+    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16], False, False)
     algo = MAPPO(algo_cfg._replace(fused_fold=fold), env_cfg, device="cuda")
     algo.obs_dim = env_cfg.share_obs_dim
     algo._check_row_tiles()
@@ -151,12 +150,13 @@ def test_many_pois_builds_on_cuda(monkeypatch, case):
     over, kernels = POIS_BUILDS[case]
     env_cfg, algo_cfg = _many_pois(300, **over)
     assert (env_cfg.n_agents, env_cfg.obs_dim, env_cfg.share_obs_dim) == (4, 1510, 6040)
-    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16], False)
+    assert tiles.plan("fused_mlp", True, 6040, 256, 2) == (True, [32, 16], False, False)
     assert tiles.plan("fused_mlp", True, 1510, 256, 2)[0] is False  # the actor's: staged
     for kernel in kernels:
         n_head = 2 if kernel.startswith("actor") else 1
         width = 1510 if kernel.startswith("actor") else 6040
-        assert tiles.plan(kernel, True, width, 256, 2, n_head) == (True, [32, 16], False), kernel
+        assert tiles.plan(kernel, True, width, 256, 2, n_head) == (True, [32, 16], False,
+                                                                   False), kernel
     algo = MAPPO(algo_cfg, env_cfg, device="cuda")
     assert algo.fused_trunk and algo.fused_loss == (case != "fused-loss-off")
     assert algo.cfg.fused_fold == (case != "unfolded")
@@ -169,32 +169,10 @@ def test_20uav_fifty_pois_builds_on_cuda(monkeypatch):
     pretend_cuda(monkeypatch)
     env_cfg, algo_cfg = _many_pois(50, "20uav_16k_dist")
     assert (env_cfg.n_agents, env_cfg.obs_dim, env_cfg.share_obs_dim) == (20, 292, 5840)
-    assert tiles.plan("fused_mlp", True, 5840, 256, 2) == (True, [32, 16], False)
+    assert tiles.plan("fused_mlp", True, 5840, 256, 2) == (True, [32, 16], False, False)
     assert tiles.plan("actor_ppo_grads", True, 292, 256, 2, 2)[0] is False
     algo = MAPPO(algo_cfg, env_cfg, device="cuda")
     assert algo.fused_loss and algo.fused_trunk
-
-
-# trunks the fused CUDA kernels do not take: (config fields, the ROADMAP item named)
-B3_REFUSALS = {
-    "bf16-hidden-2048": ({"compute_dtype": "bfloat16", "hidden_size": 2048}, r"B3\)"),
-}
-
-
-@pytest.mark.parametrize("case", list(B3_REFUSALS))
-def test_cuda_trunk_refused_at_construction(monkeypatch, case):
-    """ROADMAP C5: a trunk the fused CUDA kernels do not take (a bf16 hidden
-    width at which a launched kernel has no row tile that fits one block,
-    B3) is refused when MAPPO is built on CUDA, before any launch, naming
-    the ROADMAP item and the shared memory, not at the first launch inside
-    the rollout."""
-    pretend_cuda(monkeypatch)
-    _, env_cfg, algo_cfg = load()
-    over, item = B3_REFUSALS[case]
-    with pytest.raises(NotImplementedError, match=item) as err:
-        MAPPO(algo_cfg._replace(**over), env_cfg, device="cuda")
-    if "hidden_size" in over:
-        assert "bytes of shared memory" in str(err.value)
 
 
 # trunks past 8 layers (layer_n 8: 9 layers), which the CUDA entries used to
@@ -229,7 +207,7 @@ def test_deep_trunk_builds_with_fused_kernels(monkeypatch, case):
     n_layers = over["layer_n"] + 1
     for (kernel, width, n_head), (chunked, sizes, deep) in plans.items():
         p = tiles.plan(kernel, bf16, width, 256, n_layers, n_head)
-        assert p == (chunked, sizes, deep), kernel
+        assert p == (chunked, sizes, deep, False), kernel
 
 
 # bf16 hidden widths the tensor-core kernels take in column passes (past 256)

@@ -45,7 +45,7 @@ from dcc_tpu_torch.envs import EnvConfig
 from dcc_tpu_torch.ops import fused_mlp as FM
 from dcc_tpu_torch.ops import fused_ppo as FP
 from dcc_tpu_torch.ops import tiles
-from test_torch_cuda import pretend_cuda
+from test_torch_cuda import _clip_kink_rows, pretend_cuda
 from test_torch_slice import _to_torch
 
 ROWS, BLOCK, CLIP = 70, 32, 0.2
@@ -90,6 +90,12 @@ def _rows(d_in, seed):
 def test_plain_trunk_matches_jax_at_wide_hidden(hidden, relu):
     """K2's plain forward against ``fused_mlp`` and K2b's against its custom
     VJP (``op_bwd``, the interpreted ``_bwd_kernel``)."""
+    check_plain_trunk(hidden, relu)
+
+
+def check_plain_trunk(hidden: int, relu: bool):
+    """K2's and K2b's plain versions against the JAX package's at hidden
+    width ``hidden``, a relu or a tanh trunk."""
     params = _params(110, hidden, hidden)
     xt, xj = _rows(110, hidden + 1)
     tp = [torch.from_numpy(p) for p in params]
@@ -154,6 +160,24 @@ PPO_CASES = [("actor", True, w) for w in WIDTHS[0::2]] + \
 def test_plain_ppo_matches_jax_at_wide_hidden(kind, fold, width):
     """K3 / K4 (folded) and K3u / K4u (unfolded) plain versions against
     ``actor_ppo_grads_packed`` / ``critic_value_grads_packed``."""
+    check_plain_ppo(kind, fold, width)
+
+
+def check_plain_ppo(kind: str, fold: bool, width: tuple, policy_ratios: bool = False):
+    """The ``kind`` ("actor" or "critic") PPO kernel's plain version, folded
+    or not, against the JAX package's at ``width`` (hidden, relu). With
+    ``policy_ratios`` the actor's rows are a rollout's: actions drawn from
+    the policy (the plain chain's means and ``log_std``), old
+    log-probabilities within 0.3 of the policy's own, as
+    tests/test_torch_unfolded.py draws them, so that every row's ratio is
+    near 1 and carries its share of the gradient (actions drawn around 0 and
+    old log-probabilities around -2 leave most ratios near 0, and a row or
+    two carry the whole gradient); its rows within one bf16 step of a head
+    output from the clip's kink then get a zero advantage
+    (tests/test_torch_cuda.py's ``_clip_kink_rows``, which its wide-hidden
+    checks apply), where one summation order's mean can take the other
+    branch of the clipped surrogate, and the row's whole cotangent with
+    it."""
     hidden, relu = width
     d_in = 110 if kind == "actor" else 440
     rng = np.random.default_rng(hidden + d_in)
@@ -176,6 +200,20 @@ def test_plain_ppo_matches_jax_at_wide_hidden(kind, fold, width):
         old_lp = (-2.0 + 0.3 * rng.normal(size=(ROWS, 1))).astype(np.float32)
         adv = rng.normal(size=(ROWS, 1)).astype(np.float32)
         adv[kink] = 0.0
+        if policy_ratios:
+            ls = torch.tensor([-0.3, 0.2])
+            if fold:
+                kp, whf, bhf = FP.fold_trunk(tp, T(hw), T(hb), 2, True)
+                feat = FP._fwd_folded(xt, kp, 2, True, relu, True)[0]
+            else:
+                feat, whf, bhf = FM._forward_chain(xt, tp, 2, True, relu, True)[0], T(hw), T(hb)
+            mean = FM.dense(feat, whf, bhf, True)
+            act = (mean + torch.exp(ls) * T(rng.normal(size=(ROWS, 2)).astype(np.float32))).numpy()
+            z = (T(act) - mean) * torch.exp(-ls)
+            lp = torch.sum(-0.5 * z * z - ls - FP.LOG_SQRT_2PI, dim=1, keepdim=True)
+            old_lp = (lp.numpy() + 0.3 * rng.normal(size=(ROWS, 1))).astype(np.float32)
+            aux = FP.pack_actor_aux(T(act), T(old_lp), T(adv))
+            adv[_clip_kink_rows(feat, aux, whf, bhf, ls).numpy()] = 0.0
         jout = _jax_ppo(kind, fold, relu, params, hw, hb, xj, (act, old_lp, adv))
         out = FP.actor_ppo_grads_packed(
             xt, FP.pack_actor_aux(T(act), T(old_lp), T(adv)), tp, T(hw), T(hb),
@@ -206,20 +244,24 @@ def test_plain_ppo_matches_jax_at_wide_hidden(kind, fold, width):
 UPDATE_REL, UPDATE_ABS = 0.05, 1e-3
 
 
-def _update():
-    """One update at hidden 300 from the same parameters and trajectory:
-    JAX's in bf16 (its kernels interpreted), then the port's in bf16 and
-    in f32. Returns the port's {dtype: ((actor, critic) state dicts,
-    metrics)}, JAX's (actor, critic) before and after, and its metrics."""
+def _update(hidden: int = 300, exact: bool = False):
+    """One update at hidden width ``hidden`` from the same parameters and
+    trajectory: JAX's in bf16 (its kernels interpreted; with ``exact``,
+    compiled with every bf16 rounding kept, ``_jax_exact``), then the
+    port's in bf16 and in f32. Returns the port's {dtype: ((actor, critic)
+    state dicts, metrics)}, JAX's (actor, critic) before and after, and its
+    metrics."""
     small = dict(n_rollout_threads=4, episode_length=8, ppo_epoch=2, n_iters=5,
-                 hidden_size=300)
+                 hidden_size=hidden)
     jalgo = JMAPPO(JMAPPOConfig(fused_loss="interpret", fused_trunk="interpret",
                                 gae_backend="xla", fused_block_rows=BLOCK,
                                 compute_dtype="bfloat16", **small), JEnvConfig())
     jts = jalgo.init_state(jax.random.PRNGKey(0))
     jtraj = jalgo.rollout(jts, jax.random.PRNGKey(3), 4)
     jadv, jret = jalgo.compute_returns(jts, jtraj)
-    jts2, jm = jalgo.update(jts, jax.random.PRNGKey(4), jtraj, jadv, jret)
+    update = lambda *a: jalgo.update(jts, jax.random.PRNGKey(4), *a)
+    jts2, jm = (_jax_exact(update, jtraj, jadv, jret) if exact
+                else update(jtraj, jadv, jret))
     port = {}
     for dtype in ("bfloat16", "float32"):
         algo = MAPPO(MAPPOConfig(fused_loss="on", fused_trunk="on", compute_dtype=dtype,
@@ -298,20 +340,7 @@ def test_mappo_builds_with_fused_kernels_at_wide_hidden(monkeypatch, hidden):
                  device="cuda")
     assert algo.fused_trunk and algo.fused_loss
     for (kernel, width, n_head), want in BUILD_TILES[hidden].items():
-        assert tiles.plan(kernel, True, width, hidden, 2, n_head) == (*want, False), kernel
-
-
-@pytest.mark.parametrize("over,item", [({"hidden_size": 2048}, r"ROADMAP B3\)")],
-                         ids=["hidden-2048"])
-def test_mappo_refuses_what_no_tile_takes(monkeypatch, over, item):
-    """A bf16 hidden width whose smallest row tile does not fit one block is
-    refused when MAPPO is built, naming ROADMAP B3 with the shared memory
-    the tile would need."""
-    pretend_cuda(monkeypatch)
-    _, env_cfg, algo_cfg = load()
-    with pytest.raises(NotImplementedError, match=item) as err:
-        MAPPO(algo_cfg._replace(compute_dtype="bfloat16", **over), env_cfg, device="cuda")
-    assert "bytes of shared memory" in str(err.value)
+        assert tiles.plan(kernel, True, width, hidden, 2, n_head) == (*want, False, False), kernel
 
 
 # the row tiles each bf16 gradient kernel takes at the default widths at
@@ -342,4 +371,4 @@ def test_mappo_builds_deep_trunks_with_fused_kernels(monkeypatch, layer_n):
     assert algo.fused_trunk and algo.fused_loss
     for (kernel, width, n_head), (chunked, sizes, deep) in DEEP_TILES[layer_n].items():
         p = tiles.plan(kernel, True, width, 256, layer_n + 1, n_head)
-        assert p == (chunked, sizes, deep), kernel
+        assert p == (chunked, sizes, deep, False), kernel
